@@ -1,0 +1,310 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (photon_ml_tpu_torch) on one GPU.
+
+Run from the root of a checkout, with no arguments:
+
+    python3 chip_smoke.py
+
+Phases, one JSON object per line on stdout:
+  1. device: the card's name, and name + power limit from nvidia-smi;
+  2. build: every CUDA kernel of the port, compiled from csrc/ with nvcc;
+  3. checks: each kernel against its plain PyTorch version on the card,
+     for all four losses, plain and with weights+offsets, at n=700, d=37
+     and at the a1a config's full [1,643,520 x 124]; tolerances rtol 1e-5
+     on the value and rtol 1e-4 (atol 1e-4) on the gradient, in float32;
+  4. timing at the full size: median over REPS reps of CUDA-event times
+     of 10 back-to-back calls, each with a perturbed coefficient vector,
+     for the kernel, its plain version and the library call (two torch.mv
+     products);
+  5. main path: train_glm on make_a1a_like(1024, "logistic", seed=42) in
+     float32 on cuda, L2 lambda=1, LBFGS(max_iterations=100, tol=1e-9);
+     kernel launches during the solve must equal its fg_count, and the
+     float64 objective of the solution must be within 1e-5 relative of the
+     scipy reference optimum stored in bench_ref_cache.json; then a second,
+     warm solve (not counted) for the steady-state solve time;
+  6. profile: the main path once more under torch.profiler, for the
+     device's busy and idle time and the largest device and host items;
+  7. the kernels line, nvidia-smi's line, and the final result line.
+Exits non-zero, before printing any result, when CUDA is absent or when
+the port's package is not beside this script.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+REF_KEY = ("scipy:logistic_regression:seed42:1643520x124:l1=0.0:l2=1.0:"
+           "box=None:fp=g2-2b97329fcd05d34d")
+LAMBDA = 1.0
+REPS = 30
+VALUE_RTOL, GRAD_RTOL, GRAD_ATOL = 1e-5, 1e-4, 1e-4
+NLL_RTOL = 1e-5
+# NVIDIA H100 SXM data sheet: HBM3 bandwidth and float32 (non-tensor) peak
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn) -> float:
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def compare(hk, loss, x, y, c, w, o):
+    """Kernel vs plain on the same inputs -> (max abs err, max rel errs)."""
+    import torch
+    v_k, g_k = hk.fused_value_and_gradient(loss, x, y, c, w, o)
+    v_p, g_p = hk.fused_value_and_gradient_plain(loss, x, y, c, w, o)
+    torch.cuda.synchronize()
+    v_k, v_p = v_k.item(), v_p.item()
+    g_k, g_p = g_k.double().cpu().numpy(), g_p.double().cpu().numpy()
+    v_err = abs(v_k - v_p)
+    g_err = np.abs(g_k - g_p)
+    ok = (np.isfinite(v_k) and np.all(np.isfinite(g_k))
+          and v_err <= VALUE_RTOL * abs(v_p)
+          and bool(np.all(g_err <= GRAD_ATOL + GRAD_RTOL * np.abs(g_p))))
+    return ok, max(v_err, float(g_err.max())), v_err / max(abs(v_p), 1e-30), \
+        float((g_err / (GRAD_ATOL + np.abs(g_p))).max())
+
+
+def run_checks(hk, losses, x_full, y_full, seed=0):
+    """All four losses x {plain, w+o} at the small unaligned shape and at
+    the full shape.  Returns the largest abs error at the full shape."""
+    import torch
+    rng = np.random.default_rng(seed)
+    n_s, d_s = 700, 37
+    small_x = torch.from_numpy(rng.normal(size=(n_s, d_s)).astype(np.float32)).cuda()
+    small_y = torch.from_numpy((rng.uniform(size=n_s) > 0.5).astype(np.float32)).cuda()
+    full_err = 0.0
+    failures = []
+    for size, x, y in (("700x37", small_x, small_y), ("full", x_full, y_full)):
+        n, d = x.shape
+        c = torch.from_numpy((rng.normal(size=d) * 0.1).astype(np.float32)).cuda()
+        w = torch.from_numpy(rng.uniform(0.5, 2.0, size=n).astype(np.float32)).cuda()
+        o = torch.from_numpy((rng.normal(size=n) * 0.1).astype(np.float32)).cuda()
+        for loss in losses:
+            for tag, ww, oo in (("plain", None, None), ("w+o", w, o)):
+                ok, abs_err, v_rel, g_rel = compare(hk, loss, x, y, c, ww, oo)
+                emit({"phase": "check", "size": size, "loss": loss.name,
+                      "inputs": tag, "ok": ok, "max_abs_err": abs_err,
+                      "value_rel_err": v_rel, "grad_err_over_tol_scale": g_rel})
+                if not ok:
+                    failures.append(f"{size}/{loss.name}/{tag}")
+                if size == "full":
+                    full_err = max(full_err, abs_err)
+    if failures:
+        raise SystemExit(f"kernel disagrees with its plain version: {failures}")
+    return full_err
+
+
+def time_full(hk, loss, x, y):
+    """Median over REPS reps of the mean ms per call of the kernel, its
+    plain version and the library call, in turns.  A rep is BATCH calls
+    back to back between two CUDA events (so the host's enqueue time does
+    not count), each call with its own perturbed coefficients."""
+    import torch
+    n, d = x.shape
+    base = torch.linspace(-0.1, 0.1, d, device="cuda", dtype=torch.float32)
+    u = torch.linspace(-1.0, 1.0, n, device="cuda", dtype=torch.float32)
+    batch = 10
+    times = {"ms": [], "plain_ms": [], "library_ms": []}
+    calls = {
+        "ms": lambda c: hk.fused_value_and_gradient(loss, x, y, c),
+        "plain_ms": lambda c: hk.fused_value_and_gradient_plain(loss, x, y, c),
+        "library_ms": lambda c: (torch.mv(x, c), torch.mv(x.T, u)),
+    }
+    for r in range(REPS + 2):  # the first two rounds warm up
+        cs = [base + 1e-6 * (r * batch + i + 1) for i in range(batch)]
+        for key, call in calls.items():
+            ms = cuda_ms(lambda: [call(c) for c in cs]) / batch
+            if r >= 2:
+                times[key].append(ms)
+    med = {k: statistics.median(v) for k, v in times.items()}
+    # least the card could take: read X, y and c once, write value+grad once;
+    # 4*n*d flops (margin and gradient multiply-adds) at the f32 peak
+    nbytes = 4 * (n * d + n + d + d + 1)
+    flops = 4 * n * d
+    bound_bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    bound_ops_ms = flops / PEAK_F32_FLOPS * 1e3
+    med["bound_ms"] = max(bound_bytes_ms, bound_ops_ms)
+    med["bound_by"] = "bytes" if bound_bytes_ms >= bound_ops_ms else "operations"
+    med["min_ms"] = min(times["ms"])
+    med["max_ms"] = max(times["ms"])
+    return med
+
+
+def profile_run(train) -> dict:
+    """Where the main path's time goes: one more run of it under
+    torch.profiler (its launches are not the counted run's).  Device busy
+    time is the sum of the kernels' device times (one stream, so they do
+    not overlap); the rest of the wall clock the device sits idle."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = train()[0].result
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    dev = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    cpu = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU]
+    busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
+    fused = [e for e in dev if "fvg_" in e.key]
+    top = lambda evs, attr: [
+        {"name": e.key[:80], "count": e.count, "ms": getattr(e, attr) / 1e3}
+        for e in sorted(evs, key=lambda e: -getattr(e, attr))[:6]]
+    return {"wall_ms": wall_ms, "fg_count": res.fg_count,
+            "device_busy_ms": busy_ms, "device_idle_share": 1.0 - busy_ms / wall_ms,
+            "fused_kernel_ms": sum(e.self_device_time_total for e in fused) / 1e3,
+            "fused_kernel_launches": sum(e.count for e in fused),
+            "device_top": top(dev, "self_device_time_total"),
+            "host_top": top(cpu, "self_cpu_time_total")}
+
+
+def host_objective(x, y, w, lam) -> float:
+    """float64 sum softplus(-yy*z) + lam/2 |w|^2 on the host (bench.py's
+    np_objective_value for the logistic task)."""
+    w = np.asarray(w, np.float64)
+    total = 0.0
+    step = 1 << 18
+    for i in range(0, x.shape[0], step):
+        z = x[i:i + step].astype(np.float64) @ w
+        yy = np.where(y[i:i + step] > 0.5, 1.0, -1.0)
+        total += float(np.logaddexp(0.0, -yy * z).sum())
+    return total + 0.5 * lam * float(w @ w)
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this script "
+              "runs only on a CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    import photon_ml_tpu_torch
+    if Path(photon_ml_tpu_torch.__file__).resolve().parent.parent != ROOT:
+        print("chip_smoke: photon_ml_tpu_torch is not beside this script",
+              file=sys.stderr)
+        return 2
+    from photon_ml_tpu_torch.data.synthetic_bench import make_a1a_like
+    from photon_ml_tpu_torch.models.training import train_glm
+    from photon_ml_tpu_torch.ops import _build
+    from photon_ml_tpu_torch.ops import hopper_kernels as hk
+    from photon_ml_tpu_torch.ops.losses import BY_NAME, LOGISTIC
+    from photon_ml_tpu_torch.optim.config import (
+        OptimizerConfig, RegularizationContext, RegularizationType,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    ref_nll = json.loads((ROOT / "bench_ref_cache.json").read_text())[REF_KEY]["ref_nll"]
+    kind = torch.cuda.get_device_name(0)
+    smi = nvidia_smi()
+    emit({"phase": "device", "kind": kind, "nvidia_smi": smi,
+          "count": torch.cuda.device_count(), "torch": torch.__version__,
+          "cuda": torch.version.cuda})
+
+    t0 = time.perf_counter()
+    compiled = _build.build_all()
+    ptxas = {name: _build.library_path(name).with_suffix(".log").read_text()[-2000:]
+             for name in _build.SIGNATURES}
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "compiled": compiled, "ptxas": ptxas})
+
+    t0 = time.perf_counter()
+    x_np, y_np = make_a1a_like(1024, "logistic", seed=42)
+    x = torch.from_numpy(x_np).cuda()
+    y = torch.from_numpy(y_np).cuda()
+    torch.cuda.synchronize()
+    n, d = x.shape
+    emit({"phase": "data", "n": n, "d": d, "seconds": time.perf_counter() - t0})
+
+    losses = [BY_NAME[k] for k in ("logistic", "squared", "poisson", "smoothed_hinge")]
+    max_abs_err = run_checks(hk, losses, x, y)
+    timing = time_full(hk, LOGISTIC, x, y)
+    emit({"phase": "timing", "shape": [n, d], "loss": "logistic", "reps": REPS,
+          "device": kind, "nvidia_smi": smi, "kernel_ms": timing["ms"], **timing})
+
+    def train():
+        return train_glm(
+            x, y, "logistic_regression",
+            optimizer_config=OptimizerConfig(max_iterations=100, tolerance=1e-9),
+            regularization=RegularizationContext(RegularizationType.L2),
+            regularization_weights=(LAMBDA,), device="cuda")
+
+    hk.LAUNCHES = 0
+    trained = train()
+    launches = hk.LAUNCHES
+    res = trained[0].result
+    coef = trained[0].model.coefficients.means
+    if tuple(coef.shape) != (d,) or not bool(torch.isfinite(coef).all()):
+        raise SystemExit(f"bad coefficients: shape {tuple(coef.shape)}")
+    nll = host_objective(x_np, y_np, coef.double().cpu().numpy(), LAMBDA)
+    rel_gap = (nll - ref_nll) / abs(ref_nll)
+    wall = trained[0].wall_s
+    # the counted run is the process's first solve: it also pays the lazy
+    # loading of every small kernel the solver uses; a second, warm run
+    # (not counted) gives the steady-state solve time
+    warm = train()[0]
+    emit({"phase": "main_path", "entry": "photon_ml_tpu_torch.models.training.train_glm",
+          "n": n, "d": d, "iterations": res.iterations, "fg_count": res.fg_count,
+          "reason": res.reason, "kernel_launches": launches, "wall_s": wall,
+          "examples_per_s": n * res.fg_count / wall,
+          "warm_wall_s": warm.wall_s, "warm_fg_count": warm.result.fg_count,
+          "warm_examples_per_s": n * warm.result.fg_count / warm.wall_s,
+          "final_nll_f64": nll, "ref_nll": ref_nll, "nll_rel_gap": rel_gap,
+          "loss_history": res.loss_history[:res.iterations + 1].tolist(),
+          "device": kind, "nvidia_smi": smi})
+    if not (launches == res.fg_count and launches > 0):
+        raise SystemExit(f"kernel launches {launches} != fg_count {res.fg_count}")
+    if not abs(rel_gap) <= NLL_RTOL:
+        raise SystemExit(f"objective {nll} is {rel_gap:.3e} from the reference {ref_nll}")
+    emit({"phase": "profile", "device": kind, "nvidia_smi": smi, **profile_run(train)})
+
+    emit({"kernels": [{
+        "name": "fused_value_and_gradient",
+        "route": "cuda",
+        "source": "photon_ml_tpu_torch/csrc/fused_value_and_gradient.cu",
+        "replaces": "photon_ml_tpu/ops/pallas_kernels.py:150",
+        "launches": launches,
+        "max_abs_err": max_abs_err,
+        "tolerance": f"value rtol {VALUE_RTOL}, gradient rtol {GRAD_RTOL} atol {GRAD_ATOL}",
+        "ms": timing["ms"],
+        "plain_ms": timing["plain_ms"],
+        "bound_ms": timing["bound_ms"],
+        "bound_by": timing["bound_by"],
+        "library_ms": timing["library_ms"],
+    }], "seconds": time.perf_counter() - t_start})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,97 @@
+"""Build and load the port's CUDA kernels.
+
+Each source under photon_ml_tpu_torch/csrc/ is compiled by `nvcc` into a
+shared library with a plain C interface and loaded with ctypes.  The build
+runs at first use, into build/photon_ml_tpu_torch/ at the root of the
+checkout, and again whenever the source or the flags change (the library's
+file name carries their hash).  Nothing here runs at import time.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "photon_ml_tpu_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# kernel name -> its C entry points' ctypes signatures (restype, argtypes)
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+SIGNATURES = {
+    "fused_value_and_gradient": {
+        "pmt_fused_value_and_gradient":
+            (_I, [_I, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _P]),
+        "pmt_error_string": (ctypes.c_char_p, [_I]),
+    },
+}
+
+
+def nvcc_path() -> str:
+    home = os.environ.get("CUDA_HOME")
+    if home and (Path(home) / "bin" / "nvcc").exists():
+        return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
+                       "the CUDA kernels are built from source at first use")
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build_all(names=tuple(SIGNATURES)) -> Dict[str, float]:
+    """Compile every stale library, one nvcc per source, all started
+    together.  Returns {name: seconds} for the sources it compiled; the
+    compiler's register/shared-memory report lands beside each library as
+    `<lib>.log`."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        log = open(out.with_suffix(".log"), "w")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        jobs[name] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT),
+                      tmp, out, log, time.perf_counter())
+    seconds = {}
+    failed = []
+    for name, (proc, tmp, out, log, t0) in jobs.items():
+        rc = proc.wait()
+        log.close()
+        seconds[name] = time.perf_counter() - t0
+        if rc != 0:
+            failed.append(f"{name} (see {out.with_suffix('.log')})")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed for " + ", ".join(failed))
+    return seconds
+
+
+@functools.lru_cache(maxsize=None)
+def load_library(name: str) -> ctypes.CDLL:
+    """The built library for kernel `name`, with argtypes/restype set."""
+    build_all((name,))
+    lib = ctypes.CDLL(str(library_path(name)))
+    for fn, (restype, argtypes) in SIGNATURES[name].items():
+        f = getattr(lib, fn)
+        f.restype = restype
+        f.argtypes = argtypes
+    return lib

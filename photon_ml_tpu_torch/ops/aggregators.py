@@ -1,0 +1,157 @@
+"""Loss / gradient / Hessian aggregates over a feature matrix (port of
+photon_ml_tpu/ops/aggregators.py).
+
+Normalization is algebraic, never materialized:
+  effective coef e = c*factor;  margin z_i = x_i.e - e.shift + offset_i
+  grad = (X^T(w*l') - shift * sum(w*l')) * factor
+  Hv   = (X^T(w*l''*dz) - shift * sum(w*l''*dz)) * factor,
+         dz_i = x_i.(v*factor) - (v*factor).shift
+
+`value_and_gradient` on a CUDA feature matrix, with no mask and no shift,
+runs the hand-written fused kernel (ops/hopper_kernels.py), with factors
+folded in as e = c*factor and grad*factor.  Masked or shifted objectives
+take the tensor-op algebra below: a dispatch on the kind of input, not a
+fallback on failure.  Weights/offsets may be None (1 / 0).
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from photon_ml_tpu_torch.ops import features as fops
+from photon_ml_tpu_torch.ops import hopper_kernels
+from photon_ml_tpu_torch.ops.losses import PointwiseLoss
+from photon_ml_tpu_torch.ops.normalization import NormalizationContext
+
+
+def _normalized(norm: Optional[NormalizationContext]) -> bool:
+    return norm is not None and not norm.is_identity
+
+
+def compute_margins(
+    x: fops.FeatureMatrix,
+    coefficients: torch.Tensor,
+    offsets: Optional[torch.Tensor] = None,
+    norm: Optional[NormalizationContext] = None,
+) -> torch.Tensor:
+    """z_i = x_i . (c*factor) - (c*factor).shift + offset_i."""
+    if _normalized(norm):
+        e = norm.effective_coefficients(coefficients)
+        z = fops.matvec(x, e) + norm.margin_shift(e)
+    else:
+        z = fops.matvec(x, coefficients)
+    if offsets is not None:
+        z = z + offsets
+    return z
+
+
+def _apply_weights(v: torch.Tensor, weights: Optional[torch.Tensor]) -> torch.Tensor:
+    return v if weights is None else v * weights
+
+
+def _masked(v: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    # where() not multiply: a non-finite loss on a padded row must not
+    # poison the aggregate (inf * 0 == nan)
+    if mask is None:
+        return v
+    return torch.where(mask != 0, v, torch.zeros_like(v))
+
+
+def value_and_gradient(
+    loss: PointwiseLoss,
+    x: fops.FeatureMatrix,
+    labels: torch.Tensor,
+    coefficients: torch.Tensor,
+    *,
+    weights: Optional[torch.Tensor] = None,
+    offsets: Optional[torch.Tensor] = None,
+    norm: Optional[NormalizationContext] = None,
+    mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sum_i w_i l(z_i, y_i),  d/dc of it).  `mask` (0/1 per row) drops
+    padded rows."""
+    if (isinstance(x, torch.Tensor) and x.is_cuda and mask is None
+            and (norm is None or norm.shifts is None)):
+        factors = None if norm is None else norm.factors
+        e = coefficients if factors is None else coefficients * factors
+        value, grad = hopper_kernels.fused_value_and_gradient(
+            loss, x, labels, e, weights, offsets)
+        return value, (grad if factors is None else grad * factors)
+
+    z = compute_margins(x, coefficients, offsets, norm)
+    l, dl = loss.loss_and_dz(z, labels)
+    wdl = _masked(_apply_weights(dl, weights), mask)
+    wl = _masked(_apply_weights(l, weights), mask)
+    value = torch.sum(wl)
+    grad = fops.rmatvec(x, wdl)
+    if _normalized(norm):
+        if norm.shifts is not None:
+            grad = grad - norm.shifts * torch.sum(wdl)
+        if norm.factors is not None:
+            grad = grad * norm.factors
+    return value, grad
+
+
+def value_only(
+    loss: PointwiseLoss,
+    x: fops.FeatureMatrix,
+    labels: torch.Tensor,
+    coefficients: torch.Tensor,
+    *,
+    weights: Optional[torch.Tensor] = None,
+    offsets: Optional[torch.Tensor] = None,
+    norm: Optional[NormalizationContext] = None,
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """sum_i w_i l(z_i, y_i)."""
+    z = compute_margins(x, coefficients, offsets, norm)
+    wl = _masked(_apply_weights(loss.loss(z, labels), weights), mask)
+    return torch.sum(wl)
+
+
+def hessian_vector(
+    loss: PointwiseLoss,
+    x: fops.FeatureMatrix,
+    labels: torch.Tensor,
+    coefficients: torch.Tensor,
+    vector: torch.Tensor,
+    *,
+    weights: Optional[torch.Tensor] = None,
+    offsets: Optional[torch.Tensor] = None,
+    norm: Optional[NormalizationContext] = None,
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Hv = sum_i w_i l''(z_i, y_i) (x'_i . v) x'_i in normalized space."""
+    z = compute_margins(x, coefficients, offsets, norm)
+    d2 = loss.d2z(z, labels)
+    if _normalized(norm):
+        ev = norm.effective_coefficients(vector)
+        dz = fops.matvec(x, ev) + norm.margin_shift(ev)
+    else:
+        dz = fops.matvec(x, vector)
+    wd2dz = _masked(_apply_weights(d2 * dz, weights), mask)
+    hv = fops.rmatvec(x, wd2dz)
+    if _normalized(norm):
+        if norm.shifts is not None:
+            hv = hv - norm.shifts * torch.sum(wd2dz)
+        if norm.factors is not None:
+            hv = hv * norm.factors
+    return hv
+
+
+def hessian_diagonal(
+    loss: PointwiseLoss,
+    x: fops.FeatureMatrix,
+    labels: torch.Tensor,
+    coefficients: torch.Tensor,
+    *,
+    weights: Optional[torch.Tensor] = None,
+    offsets: Optional[torch.Tensor] = None,
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """diag(H) = sum_i w_i l'' x_i**2, in original space only (no
+    normalization), for coefficient variances."""
+    z = compute_margins(x, coefficients, offsets, None)
+    wd2 = _masked(_apply_weights(loss.d2z(z, labels), weights), mask)
+    return fops.sq_rmatvec(x, wd2)

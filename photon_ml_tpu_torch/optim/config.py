@@ -1,0 +1,133 @@
+"""Optimizer + regularization configuration and the solve dispatcher (port
+of photon_ml_tpu/optim/config.py).
+
+TRON and named feature constraints are not ported yet (ROADMAP.md queue A);
+they raise NotImplementedError.  Positional box bounds work.
+"""
+from __future__ import annotations
+
+import dataclasses
+import enum
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from photon_ml_tpu_torch.ops.objective import GLMObjective
+from photon_ml_tpu_torch.optim.lbfgs import lbfgs
+from photon_ml_tpu_torch.optim.types import SolveResult
+
+
+class OptimizerType(str, enum.Enum):
+    LBFGS = "lbfgs"
+    TRON = "tron"
+
+
+class RegularizationType(str, enum.Enum):
+    NONE = "none"
+    L1 = "l1"
+    L2 = "l2"
+    ELASTIC_NET = "elastic_net"
+
+
+@dataclasses.dataclass(frozen=True)
+class RegularizationContext:
+    """Splits a total weight lambda into L1 = alpha*lambda and
+    L2 = (1-alpha)*lambda."""
+
+    reg_type: RegularizationType = RegularizationType.NONE
+    elastic_net_alpha: Optional[float] = None
+
+    def __post_init__(self):
+        if self.reg_type == RegularizationType.ELASTIC_NET:
+            a = self.elastic_net_alpha
+            if a is None or not (0.0 <= a <= 1.0):
+                raise ValueError(f"elastic_net_alpha must be in [0,1], got {a}")
+        elif self.elastic_net_alpha is not None:
+            raise ValueError("elastic_net_alpha only valid for ELASTIC_NET")
+
+    def split(self, reg_weight) -> Tuple[float, float]:
+        """-> (l1_weight, l2_weight)."""
+        w = reg_weight
+        if self.reg_type == RegularizationType.NONE:
+            return 0.0 * w, 0.0 * w
+        if self.reg_type == RegularizationType.L1:
+            return w, 0.0 * w
+        if self.reg_type == RegularizationType.L2:
+            return 0.0 * w, w
+        a = self.elastic_net_alpha
+        return a * w, (1.0 - a) * w
+
+    @property
+    def has_l1(self) -> bool:
+        return self.reg_type in (RegularizationType.L1, RegularizationType.ELASTIC_NET) and \
+            (self.reg_type != RegularizationType.ELASTIC_NET or self.elastic_net_alpha > 0)
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimizerConfig:
+    """(type, max iterations, tolerance, box bounds); `None` means the
+    optimizer's default."""
+
+    optimizer: OptimizerType = OptimizerType.LBFGS
+    max_iterations: Optional[int] = None
+    tolerance: Optional[float] = None
+    history: int = 10                     # LBFGS memory
+    # per-coordinate bounds, stored as tuples so the config stays hashable
+    box_lower: Optional[tuple] = None
+    box_upper: Optional[tuple] = None
+    # named-feature constraints: not ported yet
+    constraints: Optional[tuple] = None
+    # per-iteration coefficient snapshots in SolveResult.coefficient_history
+    track_coefficients: bool = False
+
+    def __post_init__(self):
+        for name in ("box_lower", "box_upper"):
+            v = getattr(self, name)
+            if v is not None and not isinstance(v, tuple):
+                object.__setattr__(self, name,
+                                   tuple(float(e) for e in np.asarray(v)))
+        if self.constraints is not None:
+            raise NotImplementedError(
+                "named feature constraints are not ported yet (ROADMAP.md "
+                "queue A, slice 5: they resolve through index maps); pass "
+                "positional box_lower/box_upper")
+
+    def resolved(self) -> "OptimizerConfig":
+        # explicit 0 / 0.0 are legitimate; only None takes the default
+        d_iter, d_tol = ((15, 1e-5) if self.optimizer == OptimizerType.TRON
+                         else (100, 1e-7))
+        return dataclasses.replace(
+            self,
+            max_iterations=self.max_iterations if self.max_iterations is not None else d_iter,
+            tolerance=self.tolerance if self.tolerance is not None else d_tol)
+
+
+def solve(
+    objective: GLMObjective,
+    x0: torch.Tensor,
+    config: OptimizerConfig = OptimizerConfig(),
+    reg: RegularizationContext = RegularizationContext(),
+    reg_weight=0.0,
+) -> SolveResult:
+    """Run one GLM solve: L2 goes into the smooth objective, L1 to OWLQN's
+    pseudo-gradient machinery.  x0 is not written."""
+    cfg = config.resolved()
+    l1_w, l2_w = reg.split(reg_weight)
+    obj = objective.with_l2(l2_w)
+
+    if cfg.optimizer == OptimizerType.TRON:
+        raise NotImplementedError(
+            "TRON is not ported yet (ROADMAP.md queue A: TRON + "
+            "hessian_vector is the next slice); use OptimizerType.LBFGS")
+
+    lower = (None if cfg.box_lower is None
+             else torch.tensor(cfg.box_lower, dtype=x0.dtype, device=x0.device))
+    upper = (None if cfg.box_upper is None
+             else torch.tensor(cfg.box_upper, dtype=x0.dtype, device=x0.device))
+    return lbfgs(obj.value_and_gradient, x0,
+                 max_iterations=cfg.max_iterations, tolerance=cfg.tolerance,
+                 history=cfg.history,
+                 l1_weight=l1_w if reg.has_l1 else None,
+                 lower=lower, upper=upper,
+                 track_coefficients=cfg.track_coefficients)

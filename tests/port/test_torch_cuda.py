@@ -1,0 +1,110 @@
+"""The CUDA kernel on the card: against its plain version, bit-stable, and
+on train_glm's path.  Needs a CUDA device (and nvcc to build the kernel);
+skips elsewhere.  This file imports no JAX, so on a machine with the card
+it runs without the repository's JAX fixtures:
+
+    python -m pytest --noconftest -p no:cacheprovider tests/port/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+from photon_ml_tpu_torch.ops import hopper_kernels as hk
+from photon_ml_tpu_torch.ops import losses as TL
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _inputs(n, d, with_wo, seed=1):
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).cuda()
+    x = t(rng.normal(size=(n, d)))
+    y = t((rng.uniform(size=n) > 0.5) * 1.0)
+    c = t(rng.normal(size=d) * 0.1)
+    w = t(rng.uniform(0.5, 2.0, size=n)) if with_wo else None
+    o = t(rng.normal(size=n) * 0.1) if with_wo else None
+    return x, y, c, w, o
+
+
+@pytest.mark.parametrize("shape", [(700, 37), (5000, 124)], ids=["scalar", "vec4"])
+@pytest.mark.parametrize("with_wo", [False, True], ids=["plain", "w+o"])
+@pytest.mark.parametrize("name", sorted(TL.BY_NAME))
+def test_kernel_matches_plain(cuda, name, with_wo, shape):
+    """Tolerances of the Pallas kernel's test: value rtol 1e-5, gradient
+    rtol/atol 1e-4 (f32 sums in different orders)."""
+    args = _inputs(*shape, with_wo)
+    before = hk.LAUNCHES
+    v, g = hk.fused_value_and_gradient(TL.BY_NAME[name], *args)
+    assert hk.LAUNCHES == before + 1
+    v_p, g_p = hk.fused_value_and_gradient_plain(TL.BY_NAME[name], *args)
+    np.testing.assert_allclose(v.item(), v_p.item(), rtol=1e-5)
+    np.testing.assert_allclose(g.cpu().numpy(), g_p.cpu().numpy(), rtol=1e-4, atol=1e-4)
+
+
+def test_kernel_is_bit_stable(cuda):
+    args = _inputs(100_000, 124, True)
+    v1, g1 = hk.fused_value_and_gradient(TL.LOGISTIC, *args)
+    v2, g2 = hk.fused_value_and_gradient(TL.LOGISTIC, *args)
+    assert v1.item() == v2.item() and torch.equal(g1, g2)
+
+
+def test_kernel_refuses_what_it_does_not_take(cuda):
+    x, y, c, _, _ = _inputs(64, 8, False)
+    with pytest.raises(TypeError, match="float32"):
+        hk.fused_value_and_gradient(TL.LOGISTIC, x.double(), y, c)
+    with pytest.raises(ValueError, match="contiguous"):
+        hk.fused_value_and_gradient(TL.LOGISTIC, x.T.contiguous().T, y, c)
+    with pytest.raises(ValueError, match="d <="):
+        hk.fused_value_and_gradient(TL.LOGISTIC, torch.zeros((2, hk.D_MAX + 1), device="cuda"),
+                                    y[:2], torch.zeros(hk.D_MAX + 1, device="cuda"))
+
+
+def test_train_glm_launches_the_kernel_per_pass(cuda):
+    from photon_ml_tpu_torch.data.synthetic_bench import make_a1a_like
+    from photon_ml_tpu_torch.models.training import train_glm
+    from photon_ml_tpu_torch.optim.config import RegularizationContext, RegularizationType
+    x, y = make_a1a_like(4, seed=42)
+    hk.LAUNCHES = 0
+    tr = train_glm(x, y, "logistic_regression",
+                   regularization=RegularizationContext(RegularizationType.L2),
+                   regularization_weights=(1.0,))
+    assert tr[0].result.fg_count == hk.LAUNCHES > 0
+    assert tr[0].model.coefficients.means.is_cuda
+
+
+@pytest.mark.parametrize("mask", [False, True], ids=["nomask", "mask"])
+@pytest.mark.parametrize("norm", ["none", "factors", "shifts", "both"])
+def test_aggregator_dispatch_on_card(cuda, norm, mask):
+    """The kernel serves unmasked objectives without shifts (factors folded
+    in); masked or shifted ones take the tensor ops.  Either way the card's
+    result equals the CPU's (f32 tolerances as above)."""
+    from photon_ml_tpu_torch.ops import aggregators as agg
+    from photon_ml_tpu_torch.ops.normalization import NormalizationContext
+    x, y, c, w, o = _inputs(3000, 124, True)
+    rng = np.random.default_rng(2)
+    f = torch.from_numpy(rng.uniform(0.5, 2.0, 124).astype(np.float32)).cuda()
+    s = torch.from_numpy((rng.normal(size=124) * 0.3).astype(np.float32)).cuda()
+    ctx = {"none": None,
+           "factors": NormalizationContext(f, None, 123),
+           "shifts": NormalizationContext(None, s, 123),
+           "both": NormalizationContext(f, s, 123)}[norm]
+    m = (torch.arange(3000, device="cuda") < 2900).float() if mask else None
+    kw = dict(weights=w, offsets=o, norm=ctx, mask=m)
+    before = hk.LAUNCHES
+    v, g = agg.value_and_gradient(TL.LOGISTIC, x, y, c, **kw)
+    assert hk.LAUNCHES - before == (1 if norm in ("none", "factors") and not mask else 0)
+    cpu = lambda t: t.cpu() if isinstance(t, torch.Tensor) else t
+    kw_cpu = {k: cpu(a) for k, a in kw.items()}
+    if ctx is not None:
+        kw_cpu["norm"] = ctx.to("cpu")
+    v_c, g_c = agg.value_and_gradient(TL.LOGISTIC, x.cpu(), y.cpu(), c.cpu(), **kw_cpu)
+    np.testing.assert_allclose(v.item(), v_c.item(), rtol=1e-5)
+    np.testing.assert_allclose(g.cpu().numpy(), g_c.numpy(), rtol=1e-4, atol=1e-4)

@@ -1,0 +1,59 @@
+"""The port stands alone: it imports neither jax nor photon_ml_tpu, and
+importing it builds no kernel."""
+import ast
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[2]
+PKG = ROOT / "photon_ml_tpu_torch"
+
+
+def _module_name(path: Path) -> str:
+    parts = path.relative_to(ROOT).with_suffix("").parts
+    return ".".join(parts[:-1] if parts[-1] == "__init__" else parts)
+
+
+# the package and the GPU smoke script, which must run where JAX is absent
+SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+MODULES = [_module_name(p) for p in SOURCES]
+FORBIDDEN = ("jax", "jaxlib", "photon_ml_tpu")
+
+
+def test_every_module_imports_with_jax_blocked():
+    code = textwrap.dedent(f"""
+        import importlib, subprocess, sys
+        for name in {FORBIDDEN!r}:
+            sys.modules[name] = None          # any import of them now fails
+        def no_build(*a, **k):
+            raise AssertionError("importing the port started a process")
+        subprocess.Popen = no_build
+        for mod in {MODULES!r}:
+            importlib.import_module(mod)
+        from photon_ml_tpu_torch.ops import _build
+        assert _build.load_library.cache_info().currsize == 0
+        print("imported", len({MODULES!r}))
+    """)
+    env = dict(os.environ, PYTHONPATH=str(ROOT), CUDA_HOME="/nonexistent")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert f"imported {len(MODULES)}" in out.stdout
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=MODULES)
+def test_module_names_no_jax_import(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in FORBIDDEN, (path, name)
