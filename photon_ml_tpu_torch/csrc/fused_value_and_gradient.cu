@@ -9,25 +9,45 @@
 // lines 54-86), for all four pointwise losses of ops/losses.py.
 //
 // Bound on an H100: memory.  One pass must read X once, n*d*4 bytes (815 MB
-// at the a1a config [1,643,520 x 124], ~0.24 ms at the data sheet's
-// 3.35 TB/s); the arithmetic is 4*n*d flops, ~0.01 ms at the f32 peak.
+// at the a1a config [1,643,520 x 124], 0.245 ms at the data sheet's
+// 3.35 TB/s); the arithmetic is 4*n*d flops, ~0.01 ms at the f32 peak.  To
+// reach the bound each SM needs ~18 KB of loads in flight at all times.
 // What the design does about it:
-//   - X is read from device memory once.  A warp owns a row: it loads the
-//     row (16-byte vector loads when d % 4 == 0 and X is 16-byte aligned,
-//     scalar loads otherwise), reduces the margin with warp shuffles, and
-//     re-reads the same row for the gradient update while it is still in
-//     L1.  No padded copy of X is ever made: the ragged row and column
-//     edges are masked by the loop bounds.
-//   - Each warp accumulates its gradient in its own row of shared memory
-//     (lanes own disjoint columns), so there are no atomics.  Each block
-//     writes one partial [value, grad[0..d)] row to scratch; a second
-//     kernel reduces the partial rows in a fixed order.  Results are
-//     bit-stable from run to run for a given grid.
+//   - A persistent grid, one block per SM; block b takes tiles b, b + grid,
+//     ...  A tile of R rows is one contiguous span of R*d*4 bytes (~48 KB);
+//     R is a multiple of 4 where it can be, so tiles of a 16-byte aligned
+//     X start on 16-byte boundaries.  (Tiles dealt out in turn measured a
+//     little faster than one contiguous range per block.)
+//   - A ring of S stages in dynamic shared memory.  One producer thread
+//     fills each stage with cp.async.bulk copies (X's tile and the tile's
+//     y, w, o) that complete on the stage's "full" mbarrier; the consumers
+//     release it on its "empty" mbarrier.  The ring holds >= 96 KB of X
+//     per SM (two 48 KB stages at d = 124), against the ~18 KB in flight
+//     that the HBM rate needs.  A bulk copy needs a 16-byte aligned address
+//     and size: it takes the aligned interior of each span, and the
+//     consumers load the <= 3 floats at either ragged end with ordinary
+//     loads (misaligned views, d % 4 != 0, the last tile).
+//   - The 256 consumer threads read only shared memory.  Margins: P
+//     threads per row (P = 256 / R rounded down to a power of two <= 32)
+//     take every P-th column and meet in log2(P) shuffles; the row's first
+//     thread then computes the loss and s_r = w_r l'_r.  Gradient: thread t
+//     owns the flat offsets t + 256 i of a group of K = 256 / d rows
+//     (K = 1 when d > 256), i.e. fixed columns, and accumulates them in
+//     registers across every tile of its block.  Neighbouring threads read
+//     neighbouring floats, so neither phase has bank conflicts at d = 124.
+//     X is read from device memory once, and nothing is read-modify-written
+//     per row.  The tile's s lives in one of two buffers, by tile parity,
+//     so a tile without ragged ends needs one consumer barrier.
+//   - One launch per pass: each block writes one partial [value, grad] row,
+//     takes a ticket, and the last block sums the partial rows in block
+//     order and resets the ticket.  The sums run in a fixed order for a
+//     given plan, so results are bit-stable from call to call.
 //   - Weights default to 1 and offsets to 0 in-kernel (null pointers).
 //   - f32 inputs, f32 accumulation, as the TPU kernel.
-// Shared memory per block is (kWarps + 1) * d * 4 bytes (c plus one
-// gradient row per warp), which sets the width limit the wrapper enforces
-// (photon_ml_tpu_torch/ops/hopper_kernels.py::D_MAX).
+// The tile, stage and grid choice is made by the pure Python function
+// photon_ml_tpu_torch/ops/hopper_kernels.py::plan_fused, which the CPU
+// tests replay; smem_layout() below must agree with it, and the entry point
+// refuses a plan whose shared-memory size it does not reproduce.
 //
 // Plain C interface, bound with ctypes.  Build (sm_90a):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
@@ -38,23 +58,25 @@
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kReduceRows = 32;  // y-extent of the reduction block
+constexpr int kConsumers = 256;             // threads 0..255
+constexpr int kConsumerWarps = kConsumers / 32;
+constexpr int kThreads = kConsumers + 32;   // + one producer warp
+// dynamic shared memory a plan may ask for: Hopper's 232,448 bytes per
+// block less 1 KB for the kernel's static shared memory
+constexpr int kMaxSmem = 232448 - 1024;
+constexpr int kReduceUnroll = 16;
 
 enum Loss : int { kLogistic = 0, kSquared = 1, kPoisson = 2, kSmoothedHinge = 3 };
 
 __device__ __forceinline__ float pm1(float y) { return y > 0.5f ? 1.0f : -1.0f; }
 
-// log(1 + exp(t)) without overflow: max(t, 0) + log1p(exp(-|t|))
-__device__ __forceinline__ float softplus(float t) {
-  return fmaxf(t, 0.0f) + log1pf(expf(-fabsf(t)));
-}
-
-__device__ __forceinline__ float sigmoid(float t) {
-  if (t >= 0.0f) return 1.0f / (1.0f + expf(-t));
-  const float e = expf(t);
-  return e / (1.0f + e);
+// softplus(t) = log(1 + exp(t)) = max(t, 0) + log1p(exp(-|t|)) and
+// sigmoid(t) = 1 / (1 + exp(-t)), both without overflow, from one
+// e = exp(-|t|)
+__device__ __forceinline__ void softplus_sigmoid(float t, float& sp, float& sg) {
+  const float e = expf(-fabsf(t));
+  sp = fmaxf(t, 0.0f) + log1pf(e);
+  sg = t >= 0.0f ? 1.0f / (1.0f + e) : e / (1.0f + e);
 }
 
 // (l, dl/dz) of photon_ml_tpu/ops/losses.py, labels {0,1} remapped to +-1
@@ -62,9 +84,9 @@ template <int LOSS>
 __device__ __forceinline__ void loss_and_dz(float z, float y, float& l, float& dl) {
   if constexpr (LOSS == kLogistic) {
     const float yy = pm1(y);
-    const float t = -yy * z;
-    l = softplus(t);
-    dl = -yy * sigmoid(t);
+    float sg;
+    softplus_sigmoid(-yy * z, l, sg);
+    dl = -yy * sg;
   } else if constexpr (LOSS == kSquared) {
     const float r = z - y;
     l = 0.5f * r * r;
@@ -90,173 +112,408 @@ __device__ __forceinline__ void loss_and_dz(float z, float y, float& l, float& d
   }
 }
 
-// Pass 1: each block walks rows blockIdx.x*kWarps + warp, stepping by
-// gridDim.x*kWarps, and writes partial[blockIdx.x] = [value, grad[0..d)].
-template <int LOSS, bool VEC4>
-__global__ void __launch_bounds__(kThreads)
-fvg_partial(const float* __restrict__ x, const float* __restrict__ y,
-            const float* __restrict__ w, const float* __restrict__ o,
-            const float* __restrict__ c, float* __restrict__ partial,
-            int64_t n, int d) {
+__host__ __device__ constexpr int round4(int v) { return (v + 3) & ~3; }
+
+__device__ __forceinline__ int64_t min64(int64_t a, int64_t b) { return a < b ? a : b; }
+
+// Shared memory, in floats from the (16-byte aligned) base: S stages of
+// [X tile | y | w | o], then c [d], two buffers of the tiles' s = w*l'
+// [R], a reduction area [2 * kConsumers], then 2*S mbarriers (full,
+// empty).  Each array
+// starts on 16 bytes and leaves 3 floats of room, because element k of a
+// span sits at (address / 4) % 4 + k so that its 16-byte chunks line up.
+struct Layout {
+  int stage_x, stage_v, stage, c, s, red, bars, bytes;
+};
+
+__host__ __device__ Layout smem_layout(int d, int rows, int stages) {
+  Layout L;
+  L.stage_x = round4(rows * d + 3);
+  L.stage_v = round4(rows + 3);
+  L.stage = L.stage_x + 3 * L.stage_v;
+  L.c = stages * L.stage;
+  L.s = L.c + round4(d);
+  L.red = L.s + 2 * round4(rows);
+  L.bars = L.red + 2 * kConsumers;
+  L.bytes = L.bars * 4 + 2 * stages * 8;
+  return L;
+}
+
+// The 16-byte aligned interior [a, b) of the byte span of `count` floats
+// at `src`.  Element k of the span lives at buf[phase + k].
+struct Span {
+  const float* src;
+  int count, phase, head, tail;  // head: floats before a; tail: first float at/after b
+  uint32_t bytes;                // b - a, 0 when there is no aligned interior
+};
+
+__device__ __forceinline__ Span span_of(const float* src, int count) {
+  Span s;
+  s.src = src;
+  s.count = count;
+  const uintptr_t lo = reinterpret_cast<uintptr_t>(src);
+  const uintptr_t hi = lo + 4ull * (uint64_t)count;
+  const uintptr_t a = (lo + 15) & ~uintptr_t(15);
+  const uintptr_t b = hi & ~uintptr_t(15);
+  s.phase = (int)((lo >> 2) & 3);
+  if (src != nullptr && b > a) {
+    s.head = (int)((a - lo) >> 2);
+    s.tail = (int)((b - lo) >> 2);
+    s.bytes = (uint32_t)(b - a);
+  } else {
+    s.head = count;
+    s.tail = count;
+    s.bytes = 0;
+  }
+  return s;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// A wait lasts at most one tile's copy (microseconds); one that outlasts
+// 2^24 polls (seconds) is a fault, and traps rather than hang the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  uint32_t done;
+  for (uint32_t polls = 0;; ++polls) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (polls == (1u << 24)) __trap();
+  }
+}
+
+// Copy the aligned interior of `s` into buf (element k at buf[phase + k]).
+__device__ __forceinline__ void bulk_load(float* buf, const Span& s, uint64_t* bar) {
+  if (s.bytes == 0) return;
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(smem_addr(buf + s.phase + s.head)), "l"(s.src + s.head), "r"(s.bytes),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+
+// The floats of `s` the bulk copy cannot take, by ordinary loads.
+__device__ __forceinline__ void load_edges(float* buf, const Span& s, int t) {
+  if (t < s.head) buf[s.phase + t] = s.src[t];
+  const int k = s.tail + t;
+  if (k < s.count && k >= s.head) buf[s.phase + k] = s.src[k];
+}
+
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(kConsumers) : "memory");
+}
+
+// The kernel's operands.  w and o may be null.
+struct Args {
+  const float* x;  // [n, d] row-major
+  const float* y;
+  const float* w;
+  const float* o;
+  const float* c;        // [d]
+  float* partial;        // [gridDim.x, d + 1] scratch
+  unsigned int* ticket;  // zero before and after every launch
+  float* out;            // [d + 1] = [value, grad]
+  int64_t n;
+  int d, rows, stages;   // rows per tile, ring stages
+};
+
+// One block per SM.  Block b takes tiles b, b + gridDim.x, ... of `rows`
+// rows each: at any moment the blocks stream one window of X, and no block
+// has more than one tile more than another.  NACC: gradient registers per
+// consumer thread (1 when d <= 256; else ceil(d / 256) rounded up to the
+// instantiated size).
+template <int LOSS, int NACC>
+__global__ void __launch_bounds__(kThreads, 1) fvg_tma(const Args a) {
+  const float* __restrict__ x = a.x;
+  const float* __restrict__ y = a.y;
+  const float* __restrict__ w = a.w;
+  const float* __restrict__ o = a.o;
+  const int64_t n = a.n;
+  const int d = a.d, rows = a.rows, stages = a.stages;
   extern __shared__ __align__(16) float smem[];
-  __shared__ float v_s[kWarps];
-  float* c_s = smem;      // [d]
-  float* g_s = smem + d;  // [kWarps, d], one gradient row per warp
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+  const Layout L = smem_layout(d, rows, stages);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bars);
+  uint64_t* empty = full + stages;
+  float* c_s = smem + L.c;
+  float* s_s = smem + L.s;
+  float* red = smem + L.red;
+  __shared__ bool is_last;
 
-  for (int j = threadIdx.x; j < d; j += kThreads) c_s[j] = c[j];
-  for (int j = threadIdx.x; j < kWarps * d; j += kThreads) g_s[j] = 0.0f;
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int64_t first_row = (int64_t)blockIdx.x * rows;
+  const int64_t row_step = (int64_t)gridDim.x * rows;
+
+  if (t == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  for (int j = t; j < d; j += kThreads) c_s[j] = a.c[j];
   __syncthreads();
 
-  float* g_w = g_s + warp * d;
-  const int d4 = d / 4;
-  float v_acc = 0.0f;  // identical on every lane of the warp
-  const int64_t step = (int64_t)gridDim.x * kWarps;
-  for (int64_t row = (int64_t)blockIdx.x * kWarps + warp; row < n; row += step) {
-    const float* xr = x + row * d;
-    float dot = 0.0f;
-    if constexpr (VEC4) {
-      const float4* xr4 = reinterpret_cast<const float4*>(xr);
-      const float4* c4 = reinterpret_cast<const float4*>(c_s);
-      for (int j = lane; j < d4; j += 32) {
-        const float4 a = xr4[j];
-        const float4 b = c4[j];
-        dot += a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
+  float acc[NACC];
+#pragma unroll
+  for (int i = 0; i < NACC; ++i) acc[i] = 0.0f;
+  float v_acc = 0.0f;
+
+  if (t >= kConsumers) {
+    // producer warp: lane 0 keeps the ring full
+    if (lane == 0) {
+      int stage = 0;
+      uint32_t parity = 1;  // a fresh barrier's previous phase counts as complete
+      for (int64_t r0 = first_row; r0 < n; r0 += row_step) {
+        mbar_wait(&empty[stage], parity);
+        const int nr = (int)min64(rows, n - r0);
+        float* buf = smem + stage * L.stage;
+        const Span sx = span_of(x + r0 * d, nr * d);
+        const Span sy = span_of(y + r0, nr);
+        const Span sw = span_of(w == nullptr ? nullptr : w + r0, nr);
+        const Span so = span_of(o == nullptr ? nullptr : o + r0, nr);
+        const uint32_t bytes = sx.bytes + sy.bytes + sw.bytes + so.bytes;
+        if (bytes == 0) {
+          mbar_arrive(&full[stage]);
+        } else {
+          mbar_arrive_expect_tx(&full[stage], bytes);
+          bulk_load(buf, sx, &full[stage]);
+          bulk_load(buf + L.stage_x, sy, &full[stage]);
+          bulk_load(buf + L.stage_x + L.stage_v, sw, &full[stage]);
+          bulk_load(buf + L.stage_x + 2 * L.stage_v, so, &full[stage]);
+        }
+        if (++stage == stages) {
+          stage = 0;
+          parity ^= 1;
+        }
       }
-    } else {
-      for (int j = lane; j < d; j += 32) dot += xr[j] * c_s[j];
     }
-    // butterfly: every lane ends with the same (bitwise) sum
-    for (int off = 16; off > 0; off >>= 1)
-      dot += __shfl_xor_sync(0xffffffffu, dot, off);
-
-    const float z = o != nullptr ? dot + o[row] : dot;
-    float l, dl;
-    loss_and_dz<LOSS>(z, y[row], l, dl);
-    const float wt = w != nullptr ? w[row] : 1.0f;
-    const float wdl = wt * dl;
-    v_acc += wt * l;
-
-    if constexpr (VEC4) {
-      const float4* xr4 = reinterpret_cast<const float4*>(xr);
-      float4* g4 = reinterpret_cast<float4*>(g_w);
-      for (int j = lane; j < d4; j += 32) {
-        const float4 a = xr4[j];
-        float4 g = g4[j];
-        g.x += wdl * a.x;
-        g.y += wdl * a.y;
-        g.z += wdl * a.z;
-        g.w += wdl * a.w;
-        g4[j] = g;
+    __syncwarp();
+  } else {
+    // consumers
+    const int log2p = rows <= 8 ? 5 : (rows >= kConsumers ? 0 : 31 - __clz(kConsumers / rows));
+    const int P = 1 << log2p;
+    const int rows_per_pass = kConsumers >> log2p;
+    const int sub = t & (P - 1);
+    const int row_in_pass = t >> log2p;
+    const int K = NACC == 1 ? kConsumers / d : 1;  // rows per gradient group
+    const int span = K * d;
+    const int kt = NACC == 1 ? t / d : 0;
+    int stage = 0;
+    uint32_t parity = 0;
+    int sbuf = 0;
+    for (int64_t r0 = first_row; r0 < n; r0 += row_step) {
+      mbar_wait(&full[stage], parity);
+      const int nr = (int)min64(rows, n - r0);
+      float* buf = smem + stage * L.stage;
+      const Span sx = span_of(x + r0 * d, nr * d);
+      const Span sy = span_of(y + r0, nr);
+      const Span sw = span_of(w == nullptr ? nullptr : w + r0, nr);
+      const Span so = span_of(o == nullptr ? nullptr : o + r0, nr);
+      float* bx = buf + sx.phase;
+      float* by = buf + L.stage_x + sy.phase;
+      float* bw = buf + L.stage_x + L.stage_v + sw.phase;
+      float* bo = buf + L.stage_x + 2 * L.stage_v + so.phase;
+      float* s_t = s_s + sbuf * round4(rows);
+      // the same on every thread: does this tile have floats the bulk
+      // copies did not bring?
+      const bool edges = sx.head > 0 || sx.tail < sx.count || sy.head > 0 ||
+                         sy.tail < sy.count ||
+                         (w != nullptr && (sw.head > 0 || sw.tail < sw.count)) ||
+                         (o != nullptr && (so.head > 0 || so.tail < so.count));
+      if (edges) {
+        load_edges(buf, sx, t);
+        load_edges(buf + L.stage_x, sy, t);
+        if (w != nullptr) load_edges(buf + L.stage_x + L.stage_v, sw, t);
+        if (o != nullptr) load_edges(buf + L.stage_x + 2 * L.stage_v, so, t);
+        consumer_sync();
       }
-    } else {
-      for (int j = lane; j < d; j += 32) g_w[j] += wdl * xr[j];
+
+      // margins, then the loss on each row's first thread
+      const int passes = (nr + rows_per_pass - 1) / rows_per_pass;
+      for (int q = 0; q < passes; ++q) {
+        const int r = q * rows_per_pass + row_in_pass;
+        float dot = 0.0f;
+        if (r < nr) {
+          const float* xr = bx + r * d;
+#pragma unroll 8
+          for (int j = sub; j < d; j += P) dot += xr[j] * c_s[j];
+        }
+        for (int off = P >> 1; off > 0; off >>= 1)
+          dot += __shfl_xor_sync(0xffffffffu, dot, off);
+        if (sub == 0 && r < nr) {
+          const float z = o != nullptr ? dot + bo[r] : dot;
+          float l, dl;
+          loss_and_dz<LOSS>(z, by[r], l, dl);
+          const float wt = w != nullptr ? bw[r] : 1.0f;
+          s_t[r] = wt * dl;
+          v_acc += wt * l;
+        }
+      }
+      consumer_sync();
+
+      // gradient: registers over fixed columns
+      if constexpr (NACC == 1) {
+        if (t < span) {
+          const int groups = (nr - kt + K - 1) / K;
+#pragma unroll 8
+          for (int g = 0; g < groups; ++g) acc[0] += bx[g * span + t] * s_t[g * K + kt];
+        }
+      } else {
+        for (int r = 0; r < nr; ++r) {
+          const float sr = s_t[r];
+          const float* xr = bx + r * d;
+#pragma unroll
+          for (int i = 0; i < NACC; ++i) {
+            const int f = t + i * kConsumers;
+            if (f < d) acc[i] += xr[f] * sr;
+          }
+        }
+      }
+      // our generic writes to the stage happen before the next bulk copy into it
+      if (edges) asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[stage]);
+      if (++stage == stages) {
+        stage = 0;
+        parity ^= 1;
+      }
+      sbuf ^= 1;
     }
   }
 
-  if (lane == 0) v_s[warp] = v_acc;
+  // block partial [value, grad] in a fixed order
   __syncthreads();
-
-  float* out = partial + (int64_t)blockIdx.x * (d + 1);
-  if (threadIdx.x == 0) {
+  if (t < kConsumers) {
+    red[t] = v_acc;
+    if (NACC == 1) red[kConsumers + t] = acc[0];
+  }
+  __syncthreads();
+  float* prow = a.partial + (int64_t)blockIdx.x * (d + 1);
+  if (t == 0) {
     float v = 0.0f;
-    for (int k = 0; k < kWarps; ++k) v += v_s[k];
-    out[0] = v;
+    for (int k = 0; k < kConsumers; ++k) v += red[k];
+    prow[0] = v;
   }
-  for (int j = threadIdx.x; j < d; j += kThreads) {
-    float g = 0.0f;
-    for (int k = 0; k < kWarps; ++k) g += g_s[k * d + j];
-    out[1 + j] = g;
+  if constexpr (NACC == 1) {
+    const int K = kConsumers / d;
+    for (int j = t; j < d; j += kThreads) {
+      float g = 0.0f;
+      for (int k = 0; k < K; ++k) g += red[kConsumers + k * d + j];
+      prow[1 + j] = g;
+    }
+  } else if (t < kConsumers) {
+#pragma unroll
+    for (int i = 0; i < NACC; ++i) {
+      const int f = t + i * kConsumers;
+      if (f < d) prow[1 + f] = acc[i];
+    }
   }
-}
 
-// Pass 2: out[col] = sum over the `rows` partial rows, in a fixed order.
-// Block (32, kReduceRows) covers 32 columns; thread (tx, ty) sums rows
-// ty, ty + kReduceRows, ...; then the kReduceRows sums are added in order.
-__global__ void __launch_bounds__(32 * kReduceRows)
-fvg_reduce(const float* __restrict__ partial, float* __restrict__ out,
-           int rows, int width) {
-  __shared__ float acc[kReduceRows][33];
-  const int col = blockIdx.x * 32 + threadIdx.x;
-  float s = 0.0f;
-  if (col < width)
-    for (int r = threadIdx.y; r < rows; r += kReduceRows)
-      s += partial[(int64_t)r * width + col];
-  acc[threadIdx.y][threadIdx.x] = s;
+  // the last block to finish sums the partial rows in block order
+  __threadfence();
   __syncthreads();
-  if (threadIdx.y == 0 && col < width) {
-    float t = 0.0f;
-    for (int k = 0; k < kReduceRows; ++k) t += acc[k][threadIdx.x];
-    out[col] = t;
+  if (t == 0) is_last = atomicAdd(a.ticket, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  const int width = d + 1;
+  const int blocks = gridDim.x;
+  for (int col = t; col < width; col += kThreads) {
+    float sum = 0.0f;
+    int b = 0;
+    for (; b + kReduceUnroll <= blocks; b += kReduceUnroll) {
+      float v[kReduceUnroll];
+#pragma unroll
+      for (int u = 0; u < kReduceUnroll; ++u)
+        v[u] = __ldcg(a.partial + (int64_t)(b + u) * width + col);
+#pragma unroll
+      for (int u = 0; u < kReduceUnroll; ++u) sum += v[u];
+    }
+    for (; b < blocks; ++b) sum += __ldcg(a.partial + (int64_t)b * width + col);
+    a.out[col] = sum;
   }
+  if (t == 0) *a.ticket = 0u;  // ready for the next call on this stream
 }
 
-template <int LOSS, bool VEC4>
-cudaError_t launch(const float* x, const float* y, const float* w,
-                   const float* o, const float* c, float* partial, float* out,
-                   int64_t n, int d, int grid, cudaStream_t stream) {
-  const size_t smem = (size_t)(kWarps + 1) * d * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        fvg_partial<LOSS, VEC4>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  fvg_partial<LOSS, VEC4><<<grid, kThreads, smem, stream>>>(
-      x, y, w, o, c, partial, n, d);
-  cudaError_t e = cudaGetLastError();
+template <int LOSS, int NACC>
+cudaError_t launch(const Args& a, int grid, int smem, cudaStream_t stream) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      fvg_tma<LOSS, NACC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  const dim3 block(32, kReduceRows);
-  fvg_reduce<<<(d + 1 + 31) / 32, block, 0, stream>>>(partial, out, grid, d + 1);
+  fvg_tma<LOSS, NACC><<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 template <int LOSS>
-cudaError_t dispatch_vec(bool vec4, const float* x, const float* y,
-                         const float* w, const float* o, const float* c,
-                         float* partial, float* out, int64_t n, int d,
-                         int grid, cudaStream_t stream) {
-  return vec4 ? launch<LOSS, true>(x, y, w, o, c, partial, out, n, d, grid, stream)
-              : launch<LOSS, false>(x, y, w, o, c, partial, out, n, d, grid, stream);
+cudaError_t dispatch_acc(int nacc, const Args& a, int grid, int smem, cudaStream_t s) {
+  switch (nacc) {
+    case 1: return launch<LOSS, 1>(a, grid, smem, s);
+    case 2: return launch<LOSS, 2>(a, grid, smem, s);
+    case 8: return launch<LOSS, 8>(a, grid, smem, s);
+    case 32: return launch<LOSS, 32>(a, grid, smem, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches both passes on `stream`; returns the cudaError_t of the launches
-// (0 on success).  partial: [grid, d + 1] scratch; out: [d + 1] =
+// Launches the one kernel of a pass on `stream`; returns the cudaError_t of
+// the launch (0 on success).  The plan (rows, stages, grid, acc_per_thread,
+// smem_bytes) comes from hopper_kernels.plan_fused; a plan that does not
+// fit this source's layout is refused.  partial: [grid, d + 1] scratch;
+// ticket: one zeroed uint32 that every launch leaves zeroed; out: [d + 1] =
 // [value, grad[0..d)].  w and o may be null.
 int pmt_fused_value_and_gradient(int loss, const void* x, const void* y,
                                  const void* w, const void* o, const void* c,
-                                 void* partial, void* out, long long n, int d,
-                                 int grid, void* stream) {
-  const float* xf = static_cast<const float*>(x);
-  const float* yf = static_cast<const float*>(y);
-  const float* wf = static_cast<const float*>(w);
-  const float* of = static_cast<const float*>(o);
-  const float* cf = static_cast<const float*>(c);
-  float* pf = static_cast<float*>(partial);
-  float* outf = static_cast<float*>(out);
+                                 void* partial, void* ticket, void* out, long long n,
+                                 int d, int rows, int stages, int grid,
+                                 int acc_per_thread, int smem_bytes, void* stream) {
+  const bool acc_ok = acc_per_thread == 1 ? d <= kConsumers
+                                          : d <= acc_per_thread * kConsumers;
+  if (n < 0 || d < 1 || rows < 1 || stages < 1 || grid < 1 || !acc_ok ||
+      smem_bytes > kMaxSmem || smem_layout(d, rows, stages).bytes != smem_bytes)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{static_cast<const float*>(x), static_cast<const float*>(y),
+               static_cast<const float*>(w), static_cast<const float*>(o),
+               static_cast<const float*>(c), static_cast<float*>(partial),
+               static_cast<unsigned int*>(ticket), static_cast<float*>(out),
+               n, d, rows, stages};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool vec4 = d % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   cudaError_t e;
   switch (loss) {
-    case kLogistic:
-      e = dispatch_vec<kLogistic>(vec4, xf, yf, wf, of, cf, pf, outf, n, d, grid, s);
-      break;
-    case kSquared:
-      e = dispatch_vec<kSquared>(vec4, xf, yf, wf, of, cf, pf, outf, n, d, grid, s);
-      break;
-    case kPoisson:
-      e = dispatch_vec<kPoisson>(vec4, xf, yf, wf, of, cf, pf, outf, n, d, grid, s);
-      break;
+    case kLogistic: e = dispatch_acc<kLogistic>(acc_per_thread, a, grid, smem_bytes, s); break;
+    case kSquared: e = dispatch_acc<kSquared>(acc_per_thread, a, grid, smem_bytes, s); break;
+    case kPoisson: e = dispatch_acc<kPoisson>(acc_per_thread, a, grid, smem_bytes, s); break;
     case kSmoothedHinge:
-      e = dispatch_vec<kSmoothedHinge>(vec4, xf, yf, wf, of, cf, pf, outf, n, d, grid, s);
+      e = dispatch_acc<kSmoothedHinge>(acc_per_thread, a, grid, smem_bytes, s);
       break;
-    default:
-      e = cudaErrorInvalidValue;
+    default: e = cudaErrorInvalidValue;
   }
   return static_cast<int>(e);
 }

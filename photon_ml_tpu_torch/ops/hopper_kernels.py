@@ -8,12 +8,18 @@ z = X c (+ o).  On a CUDA tensor the wrapper launches the CUDA kernel
 raises; on a CPU tensor it runs the plain version.  Importing this module
 builds nothing.
 
+`plan_fused` chooses the kernel's tiles, ring stages and grid; it is pure
+arithmetic, so the CPU tests replay it, and the kernel refuses a plan whose
+shared-memory layout it does not reproduce.
+
 `LAUNCHES` counts the wrapper's kernel launches, so a run can show that its
 main path went through the kernel.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import functools
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -21,12 +27,111 @@ from photon_ml_tpu_torch.ops.losses import PointwiseLoss
 
 LAUNCHES = 0
 
-# Must match kWarps in the CUDA source: shared memory holds c and one
-# gradient row per warp, (kWarps + 1) * d * 4 bytes, of the 227 KB a block
-# may use on Hopper (less 1 KB kept for the kernel's static shared memory).
-_WARPS = 8
-_BLOCKS_PER_SM = 8
-D_MAX = (232_448 - 1024) // ((_WARPS + 1) * 4)
+# Must match the CUDA source: 256 consumer threads plus one producer warp,
+# one block per SM, at most 227 KB less 1 KB of dynamic shared memory.
+CONSUMERS = 256
+BLOCKS_PER_SM = 1
+MAX_SMEM = 232_448 - 1024
+# gradient registers per consumer thread the source instantiates
+ACC_SIZES = (1, 2, 8, 32)
+D_MAX = CONSUMERS * ACC_SIZES[-1]
+_TILE_BYTES = 48 * 1024   # X bytes per stage
+_RING_BYTES = 96 * 1024   # X bytes the ring holds
+_MAX_STAGES = 8
+_MAX_TILE_ROWS = 1024
+
+
+def _round4(v: int) -> int:
+    return (v + 3) & ~3
+
+
+@dataclass(frozen=True)
+class SmemLayout:
+    """Offsets in floats into the kernel's dynamic shared memory (as
+    smem_layout() in the CUDA source): `stages` stages of `stage` floats,
+    each [X tile (stage_x) | y | w | o (stage_v each)], then c, two
+    buffers of s, the reduction area and the mbarriers at `bars`; `bytes`
+    in all."""
+    stage_x: int
+    stage_v: int
+    stage: int
+    c: int
+    s: int
+    red: int
+    bars: int
+    bytes: int
+
+
+def smem_layout(d: int, rows: int, stages: int) -> SmemLayout:
+    stage_x = _round4(rows * d + 3)
+    stage_v = _round4(rows + 3)
+    stage = stage_x + 3 * stage_v
+    c = stages * stage
+    s = c + _round4(d)
+    red = s + 2 * _round4(rows)
+    bars = red + 2 * CONSUMERS
+    return SmemLayout(stage_x, stage_v, stage, c, s, red, bars,
+                      bars * 4 + 2 * stages * 8)
+
+
+@dataclass(frozen=True)
+class FusedPlan:
+    """One launch of the fused kernel: `grid` blocks, block b taking tiles
+    b, b + grid, ... of rows_per_tile rows each, streamed through `stages`
+    ring stages."""
+    rows_per_tile: int
+    stages: int
+    grid: int
+    acc_per_thread: int
+    layout: SmemLayout
+
+
+@functools.lru_cache(maxsize=64)
+def plan_fused(n: int, d: int, sm_count: int) -> FusedPlan:
+    """Tiles of ~48 KB of X (a multiple of 4 rows where a tile holds 4 or
+    more, so tiles of an aligned X stay 16-byte aligned), enough stages to
+    hold ~96 KB (2 to 8, as many as fit), one block per SM, and the
+    smallest gradient register count that covers d columns with 256
+    threads.  (Measured on an H100 with scripts/fvg_sweep.py: smaller tiles
+    leave the consumer threads behind the copies; deeper rings gain
+    nothing.)"""
+    if not 1 <= d <= D_MAX:
+        raise ValueError(f"the fused kernel takes 1 <= d <= {D_MAX} "
+                         f"(gradient registers per thread); got d={d}")
+    if n < 0 or sm_count < 1:
+        raise ValueError(f"bad plan request n={n}, sm_count={sm_count}")
+    rows = max(1, _TILE_BYTES // (4 * d))
+    if rows >= 4:
+        rows = (rows + 2) // 4 * 4
+    rows = min(rows, _MAX_TILE_ROWS)
+    acc = next(a for a in ACC_SIZES if a * CONSUMERS >= d)
+    fixed = smem_layout(d, rows, 0).bytes
+    per_stage = smem_layout(d, rows, 1).bytes - fixed
+    stages = min(_MAX_STAGES, max(2, _RING_BYTES // (4 * rows * d)),
+                 (MAX_SMEM - fixed) // per_stage)
+    grid = max(1, min(sm_count * BLOCKS_PER_SM, -(-n // rows)))
+    return FusedPlan(rows, stages, grid, acc, smem_layout(d, rows, stages))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+# (device index, stream) -> (partial rows [>= grid * (d + 1)], ticket).  The
+# kernel leaves its ticket at 0, so one zeroed ticket serves every call on
+# its stream; calls on one stream run in order, so they share the scratch.
+_WORKSPACES: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _workspace(device: torch.device, stream: int, floats: int):
+    key = (device.index, stream)
+    ws = _WORKSPACES.get(key)
+    if ws is None or ws[0].numel() < floats:
+        ws = (torch.empty(floats, dtype=torch.float32, device=device),
+              torch.zeros(1, dtype=torch.int32, device=device))
+        _WORKSPACES[key] = ws
+    return ws
 
 
 def fused_value_and_gradient_plain(
@@ -81,9 +186,7 @@ def fused_value_and_gradient(
     if x.ndim != 2:
         raise ValueError(f"X must be 2-D, got shape {tuple(x.shape)}")
     n, d = x.shape
-    if not 1 <= d <= D_MAX:
-        raise ValueError(f"the fused kernel takes 1 <= d <= {D_MAX} "
-                         f"(shared memory per block); got d={d}")
+    plan = plan_fused(n, d, _sm_count(x.device.index))
     _check_operand("X", x, (n, d), x.device)
     _check_operand("labels", labels, (n,), x.device)
     _check_operand("coefficients", coefficients, (d,), x.device)
@@ -94,17 +197,16 @@ def fused_value_and_gradient(
 
     from photon_ml_tpu_torch.ops import _build
     lib = _build.load_library("fused_value_and_gradient")
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    grid = max(1, min(-(-n // _WARPS), sms * _BLOCKS_PER_SM))
-    partial = torch.empty((grid, d + 1), dtype=torch.float32, device=x.device)
     out = torch.empty((d + 1,), dtype=torch.float32, device=x.device)
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
+        partial, ticket = _workspace(x.device, stream, plan.grid * (d + 1))
         err = lib.pmt_fused_value_and_gradient(
             loss.kernel_id, x.data_ptr(), labels.data_ptr(), ptr(weights),
             ptr(offsets), coefficients.data_ptr(), partial.data_ptr(),
-            out.data_ptr(), n, d, grid, stream)
+            ticket.data_ptr(), out.data_ptr(), n, d, plan.rows_per_tile,
+            plan.stages, plan.grid, plan.acc_per_thread, plan.layout.bytes, stream)
     if err != 0:
         raise RuntimeError("fused_value_and_gradient launch failed: "
                            f"{lib.pmt_error_string(err).decode()} ({err})")

@@ -23,24 +23,44 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(n, d, with_wo, seed=1):
+def _inputs(n, d, with_wo, seed=1, skip=0):
+    """X [n, d] etc. on the card; with skip=k, X is rows k.. of a contiguous
+    [n + k, d] tensor and y, w, o are sliced to match (views whose base is
+    not 16-byte aligned).
+
+    Above d = 124 the data is shaped like a1a's (features >= 0, 25 %
+    positive labels; margins of standard deviation ~0.2).  With centred
+    features and balanced labels some gradient elements are sums of
+    O(1) terms that cancel to near zero, and no f32 sum of 20,000 such
+    terms, in any order, is within atol 1e-4 of the exact one."""
     rng = np.random.default_rng(seed)
-    t = lambda a: torch.from_numpy(a.astype(np.float32)).cuda()
-    x = t(rng.normal(size=(n, d)))
-    y = t((rng.uniform(size=n) > 0.5) * 1.0)
-    c = t(rng.normal(size=d) * 0.1)
-    w = t(rng.uniform(0.5, 2.0, size=n)) if with_wo else None
-    o = t(rng.normal(size=n) * 0.1) if with_wo else None
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).cuda()[skip:]
+    m = n + skip
+    wide = d > 124
+    x = t(rng.uniform(size=(m, d)) if wide else rng.normal(size=(m, d)))
+    y = t((rng.uniform(size=m) < (0.25 if wide else 0.5)) * 1.0)
+    scale = 0.3 * d ** -0.5 if wide else 0.1
+    c = torch.from_numpy((rng.normal(size=d) * scale).astype(np.float32)).cuda()
+    w = t(rng.uniform(0.5, 2.0, size=m)) if with_wo else None
+    o = t(rng.normal(size=m) * 0.1) if with_wo else None
     return x, y, c, w, o
 
 
-@pytest.mark.parametrize("shape", [(700, 37), (5000, 124)], ids=["scalar", "vec4"])
+SHAPES = {"scalar": (700, 37), "vec4": (5000, 124), "n3": (3, 124), "n1": (1, 37),
+          "n0": (0, 37), "d2048": (20_000, 2048), "dmax": (64, hk.D_MAX),
+          "misaligned": (700, 37, 1)}
+
+
+@pytest.mark.parametrize("shape", list(SHAPES))
 @pytest.mark.parametrize("with_wo", [False, True], ids=["plain", "w+o"])
 @pytest.mark.parametrize("name", sorted(TL.BY_NAME))
 def test_kernel_matches_plain(cuda, name, with_wo, shape):
     """Tolerances of the Pallas kernel's test: value rtol 1e-5, gradient
     rtol/atol 1e-4 (f32 sums in different orders)."""
-    args = _inputs(*shape, with_wo)
+    n, d, *skip = SHAPES[shape]
+    args = _inputs(n, d, with_wo, skip=skip[0] if skip else 0)
+    if skip:
+        assert args[0].is_contiguous() and args[0].data_ptr() % 16 != 0
     before = hk.LAUNCHES
     v, g = hk.fused_value_and_gradient(TL.BY_NAME[name], *args)
     assert hk.LAUNCHES == before + 1
@@ -50,10 +70,33 @@ def test_kernel_matches_plain(cuda, name, with_wo, shape):
 
 
 def test_kernel_is_bit_stable(cuda):
+    """Back to back, and around a call of another shape (which must find
+    the ticket reset by the call before it)."""
     args = _inputs(100_000, 124, True)
+    other = _inputs(701, 37, False, skip=1)
     v1, g1 = hk.fused_value_and_gradient(TL.LOGISTIC, *args)
     v2, g2 = hk.fused_value_and_gradient(TL.LOGISTIC, *args)
-    assert v1.item() == v2.item() and torch.equal(g1, g2)
+    vo1, go1 = hk.fused_value_and_gradient(TL.POISSON, *other)
+    v3, g3 = hk.fused_value_and_gradient(TL.LOGISTIC, *args)
+    vo2, go2 = hk.fused_value_and_gradient(TL.POISSON, *other)
+    assert v1.item() == v2.item() == v3.item()
+    assert torch.equal(g1, g2) and torch.equal(g1, g3)
+    assert vo1.item() == vo2.item() and torch.equal(go1, go2)
+
+
+def test_one_device_launch_per_call(cuda):
+    from torch.profiler import ProfilerActivity, profile
+    args = _inputs(50_000, 124, True)
+    hk.fused_value_and_gradient(TL.LOGISTIC, *args)  # build, workspace
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            hk.fused_value_and_gradient(TL.LOGISTIC, *args)
+        torch.cuda.synchronize()
+    device = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and e.count]
+    assert all("fvg_" in e.key for e in device), [e.key for e in device]
+    assert sum(e.count for e in device) == 3
 
 
 def test_kernel_refuses_what_it_does_not_take(cuda):

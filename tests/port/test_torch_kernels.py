@@ -9,6 +9,9 @@ The CUDA kernel itself runs only on the card (test_torch_cuda.py and
 chip_smoke.py); here the wrapper must take the plain version for CPU
 tensors and launch nothing.
 """
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -89,7 +92,89 @@ def test_wrapper_refuses_other_devices():
         hk.fused_value_and_gradient(TL.LOGISTIC, x, v, torch.empty(3, device="meta"))
 
 
-def test_width_limit_fits_shared_memory():
-    # (warps + 1) rows of d floats per block within Hopper's 227 KB
-    assert (hk._WARPS + 1) * hk.D_MAX * 4 <= 232_448
-    assert hk.D_MAX >= 124
+def _spans(addr, count):
+    """Vectorised mirror of span_of() in the CUDA source: for spans of
+    `count` floats at byte address `addr`, (phase, head, tail, bytes) of
+    the 16-byte aligned interior the bulk copy takes."""
+    lo = addr
+    hi = addr + 4 * count
+    a = (lo + 15) & ~15
+    b = hi & ~15
+    has = b > a
+    phase = (lo >> 2) & 3
+    head = np.where(has, (a - lo) >> 2, count)
+    tail = np.where(has, (b - lo) >> 2, count)
+    return phase, head, tail, np.where(has, b - a, 0)
+
+
+PLAN_SMS = 132  # an H100 SXM
+
+
+@pytest.mark.parametrize("misaligned", [False, True], ids=["aligned", "misaligned"])
+@pytest.mark.parametrize("d", [1, 3, 37, 124, 128, 2048, hk.D_MAX])
+def test_width_limit_fits_shared_memory(d, misaligned):
+    """Replay plan_fused as the kernel walks it, for X, y, w and o starting
+    on 16-byte boundaries or 4 bytes past one (a row-slice view)."""
+    skew = 4 if misaligned else 0
+    bases = [(1 << 30) + skew, (1 << 33) + skew, (1 << 34) + skew, (1 << 35) + skew]
+    for n in (0, 1, 3, 700, 1_643_520):
+        plan = hk.plan_fused(n, d, PLAN_SMS)
+        lay, rows = plan.layout, plan.rows_per_tile
+        assert lay.bytes <= hk.MAX_SMEM < 232_448
+        assert lay.bytes == hk.smem_layout(d, rows, plan.stages).bytes
+        assert plan.stages >= 2
+        assert plan.grid <= PLAN_SMS * hk.BLOCKS_PER_SM
+        assert plan.acc_per_thread * hk.CONSUMERS >= d
+        assert plan.acc_per_thread == 1 or d > hk.CONSUMERS
+        for off in (lay.stage_x, lay.stage_v, lay.stage, lay.c, lay.s, lay.red, lay.bars):
+            assert (4 * off) % 16 == 0
+
+        # the tiles of every block, in the kernel's order: b, b + grid, ...
+        starts = np.concatenate([np.arange(b * rows, n, plan.grid * rows, dtype=np.int64)
+                                 for b in range(plan.grid)])
+        assert plan.grid == 1 or len(starts) >= plan.grid  # no idle block
+        starts.sort()
+        counts = np.minimum(rows, n - starts)
+        # rows [0, n) exactly once
+        assert int(counts.sum()) == n
+        if n:
+            assert starts[0] == 0 and np.all(starts[1:] == starts[:-1] + counts[:-1])
+            assert np.all(counts >= 1)
+
+        arrays = [(bases[0] + 4 * starts * d, counts * d, 0, lay.stage_x)]
+        arrays += [(base + 4 * starts, counts, lay.stage_x + k * lay.stage_v, lay.stage_v)
+                   for k, base in enumerate(bases[1:])]
+        for addr, count, offset, room in arrays:
+            phase, head, tail, nbytes = _spans(addr, count)
+            assert np.all(phase + count <= room)
+            copied = nbytes > 0
+            # bulk copies: 16-byte source, destination (any stage) and size
+            assert np.all((addr + 4 * head)[copied] % 16 == 0)
+            assert np.all((4 * (offset + phase + head))[copied] % 16 == 0)
+            assert np.all(nbytes % 16 == 0)
+            # the rest is at most a few floats each side, loaded by the
+            # 256 consumer threads
+            assert np.all(4 * head + nbytes + 4 * (count - tail) == 4 * count)
+            assert np.all(np.where(copied, head, 0) <= 3)
+            assert np.all(np.where(copied, count - tail, 0) <= 3)
+            assert np.all(np.where(copied, 0, count) <= 7)
+            if not misaligned and offset == 0 and d % 4 == 0:
+                assert np.all(head == np.where(copied, 0, count))
+
+
+def test_plan_refuses_widths_it_cannot_take():
+    assert hk.D_MAX >= 6428
+    for d in (0, hk.D_MAX + 1):
+        with pytest.raises(ValueError, match="d <="):
+            hk.plan_fused(10, d, PLAN_SMS)
+
+
+def test_plan_constants_match_the_cuda_source():
+    src = (Path(hk.__file__).resolve().parent.parent / "csrc"
+           / "fused_value_and_gradient.cu").read_text()
+    assert f"constexpr int kConsumers = {hk.CONSUMERS};" in src
+    assert "constexpr int kMaxSmem = 232448 - 1024;" in src
+    assert hk.MAX_SMEM == 232_448 - 1024
+    for a in hk.ACC_SIZES:
+        assert f"case {a}: return launch<LOSS, {a}>" in src
+    assert len(re.findall(r"case \d+: return launch<LOSS", src)) == len(hk.ACC_SIZES)
