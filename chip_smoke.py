@@ -17,9 +17,10 @@ Phases, one JSON object per line on stdout:
      value and rtol 1e-4 (atol 1e-4) on the gradient, in float32;
   4. timing at the full size and at [200,000 x 2048]: median over REPS
      reps of CUDA-event times of 10 back-to-back calls, each with a
-     perturbed coefficient vector, for the kernel, its plain version and
-     the library call (two torch.mv products), with the bound, the share
-     of it the kernel reaches (hbm_share) and kernel / library;
+     perturbed coefficient vector, enqueued behind a sleep kernel so that
+     only device time counts, for the kernel, its plain version and the
+     library call (two torch.mv products), with the bound, the share of it
+     the kernel reaches (hbm_share) and kernel / library;
   5. main path: train_glm on make_a1a_like(1024, "logistic", seed=42) in
      float32 on cuda, L2 lambda=1, LBFGS(max_iterations=100, tol=1e-9);
      kernel launches during the solve must equal its fg_count, and the
@@ -29,7 +30,22 @@ Phases, one JSON object per line on stdout:
   6. profile: the main path once more under torch.profiler, for the
      device's busy and idle time and the largest device and host items;
      the kernel must show one device launch per value+gradient pass;
-  7. the kernels line, nvidia-smi's line, and the final result line.
+  7. glmix: BASELINE config 4 at full size through GameEstimator.fit on
+     cuda in float32: make_movielens_like("1m", seed=11, 1,000,209 rows),
+     95/5 split, a fixed effect on "global" (d = 31) and a per-user random
+     effect on "per_user" (d = 19, cap 512), LBFGS(100) with L2 lambda 1,
+     two outer iterations, validation AUC.  Kernel launches during the fit
+     must equal the fixed-effect solves' summed fg_count, and the final
+     objective must be within 1e-4 relative of the float64 reference in
+     bench_ref_cache.json; prints the fit wall, examples/s, the spans, each
+     random-effect bucket's [E, S, d], iterations and solve time;
+  8. glmix warm: the same fit again (blocks memoized), for the steady
+     state and to see that it repeats bit for bit; then the kernel against
+     its plain version and timed at the fixed effect's shape with the
+     residual scores as offsets;
+  9. glmix profile: one outer iteration under torch.profiler (device idle
+     share, kernel time, the largest items);
+ 10. the kernels line, nvidia-smi's line, and the final result line.
 Exits non-zero, before printing any result, when CUDA is absent or when
 the port's package is not beside this script.
 """
@@ -49,10 +65,17 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 REF_KEY = ("scipy:logistic_regression:seed42:1643520x124:l1=0.0:l2=1.0:"
            "box=None:fp=g2-2b97329fcd05d34d")
+# BASELINE config 4 (bench.py: _game_setup, bench_config4) and its float64
+# reference objective
+GLMIX_REF_KEY = "1m:1000209:11:glmix:v=g2"
+GLMIX_ROWS, GLMIX_SEED, GLMIX_OUTER = 1_000_209, 11, 2
+GLMIX_RTOL = 1e-4
 LAMBDA = 1.0
 REPS = 30
 VALUE_RTOL, GRAD_RTOL, GRAD_ATOL = 1e-5, 1e-4, 1e-4
 NLL_RTOL = 1e-5
+# ~5 ms at the H100's clock: longer than the host takes to enqueue one rep
+SLEEP_CYCLES = 10_000_000
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth and float32 (non-tensor) peak
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
@@ -86,9 +109,15 @@ def ptxas_summary(log: str) -> list:
 
 
 def cuda_ms(fn) -> float:
+    """Device ms of what fn() enqueues.  A sleep kernel goes first, so the
+    host enqueues all of fn's launches while the device sleeps and the
+    events time them back to back: the host's own time per call (the
+    wrapper's checks, the ctypes call) does not count, even where it is
+    longer than a short kernel."""
     import torch
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     fn()
     end.record()
@@ -165,11 +194,12 @@ def run_checks(hk, losses, x_full, y_full, x_wide, y_wide, seed=0):
     return full_err
 
 
-def time_full(hk, loss, x, y):
+def time_full(hk, loss, x, y, o=None):
     """Median over REPS reps of the mean ms per call of the kernel, its
-    plain version and the library call, in turns.  A rep is BATCH calls
-    back to back between two CUDA events (so the host's enqueue time does
-    not count), each call with its own perturbed coefficients."""
+    plain version and the library call, in turns.  A rep is `batch` calls
+    back to back between two CUDA events, behind a sleep kernel (so the
+    host's enqueue time does not count), each call with its own perturbed
+    coefficients.  `o`: the offsets, passed to all three."""
     import torch
     n, d = x.shape
     base = torch.linspace(-0.1, 0.1, d, device="cuda", dtype=torch.float32)
@@ -177,9 +207,10 @@ def time_full(hk, loss, x, y):
     batch = 10
     times = {"ms": [], "plain_ms": [], "library_ms": []}
     calls = {
-        "ms": lambda c: hk.fused_value_and_gradient(loss, x, y, c),
-        "plain_ms": lambda c: hk.fused_value_and_gradient_plain(loss, x, y, c),
-        "library_ms": lambda c: (torch.mv(x, c), torch.mv(x.T, u)),
+        "ms": lambda c: hk.fused_value_and_gradient(loss, x, y, c, None, o),
+        "plain_ms": lambda c: hk.fused_value_and_gradient_plain(loss, x, y, c, None, o),
+        "library_ms": lambda c: (torch.mv(x, c) if o is None else torch.addmv(o, x, c),
+                                 torch.mv(x.T, u)),
     }
     for r in range(REPS + 2):  # the first two rounds warm up
         cs = [base + 1e-6 * (r * batch + i + 1) for i in range(batch)]
@@ -188,9 +219,9 @@ def time_full(hk, loss, x, y):
             if r >= 2:
                 times[key].append(ms)
     med = {k: statistics.median(v) for k, v in times.items()}
-    # least the card could take: read X, y and c once, write value+grad once;
-    # 4*n*d flops (margin and gradient multiply-adds) at the f32 peak
-    nbytes = 4 * (n * d + n + d + d + 1)
+    # least the card could take: read X, y (o) and c once, write value+grad
+    # once; 4*n*d flops (margin and gradient multiply-adds) at the f32 peak
+    nbytes = 4 * (n * d + n + d + d + 1 + (0 if o is None else n))
     flops = 4 * n * d
     bound_bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     bound_ops_ms = flops / PEAK_F32_FLOPS * 1e3
@@ -203,17 +234,17 @@ def time_full(hk, loss, x, y):
     return med
 
 
-def profile_run(train) -> dict:
-    """Where the main path's time goes: one more run of it under
-    torch.profiler (its launches are not the counted run's).  Device busy
-    time is the sum of the kernels' device times (one stream, so they do
-    not overlap); the rest of the wall clock the device sits idle."""
+def profile_call(fn):
+    """Run fn() once under torch.profiler -> (its result, where the time
+    went).  Device busy time is the sum of the kernels' device times (one
+    stream, so they do not overlap); the rest of the wall clock the device
+    sits idle."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        res = train()[0].result
+        out = fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
@@ -223,13 +254,22 @@ def profile_run(train) -> dict:
     fused = [e for e in dev if "fvg_" in e.key]
     top = lambda evs, attr: [
         {"name": e.key[:80], "count": e.count, "ms": getattr(e, attr) / 1e3}
-        for e in sorted(evs, key=lambda e: -getattr(e, attr))[:6]]
-    return {"wall_ms": wall_ms, "fg_count": res.fg_count,
-            "device_busy_ms": busy_ms, "device_idle_share": 1.0 - busy_ms / wall_ms,
-            "fused_kernel_ms": sum(e.self_device_time_total for e in fused) / 1e3,
-            "fused_kernel_launches": sum(e.count for e in fused),
-            "device_top": top(dev, "self_device_time_total"),
-            "host_top": top(cpu, "self_cpu_time_total")}
+        for e in sorted(evs, key=lambda e: -getattr(e, attr))[:8]]
+    return out, {
+        "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+        "device_idle_share": 1.0 - busy_ms / wall_ms,
+        "device_launches": sum(e.count for e in dev),
+        "fused_kernel_ms": sum(e.self_device_time_total for e in fused) / 1e3,
+        "fused_kernel_launches": sum(e.count for e in fused),
+        "device_top": top(dev, "self_device_time_total"),
+        "host_top": top(cpu, "self_cpu_time_total")}
+
+
+def profile_run(train) -> dict:
+    """Where the main path's time goes: one more run of it under
+    torch.profiler (its launches are not the counted run's)."""
+    trained, stats = profile_call(train)
+    return {"fg_count": trained[0].result.fg_count, **stats}
 
 
 def host_objective(x, y, w, lam) -> float:
@@ -243,6 +283,81 @@ def host_objective(x, y, w, lam) -> float:
         yy = np.where(y[i:i + step] > 0.5, 1.0, -1.0)
         total += float(np.logaddexp(0.0, -yy * z).sum())
     return total + 0.5 * lam * float(w @ w)
+
+
+def glmix_setup():
+    """Config 4's (train, validation, config) as bench.py's _game_setup
+    builds them for its float32 run."""
+    from photon_ml_tpu_torch.data.game_data import build_game_dataset
+    from photon_ml_tpu_torch.data.synthetic_bench import make_movielens_like, movielens_shards
+    from photon_ml_tpu_torch.game import (
+        FixedEffectCoordinateConfig, GameTrainingConfig, GLMOptimizationConfig,
+        RandomEffectCoordinateConfig,
+    )
+    from photon_ml_tpu_torch.optim.config import (
+        OptimizerConfig, RegularizationContext, RegularizationType,
+    )
+    ml = make_movielens_like("1m", seed=GLMIX_SEED, n_rows=GLMIX_ROWS)
+    shards = {k: v.astype(np.float32) for k, v in movielens_shards(ml).items()
+              if k != "per_item"}
+    ds = build_game_dataset(ml.response.astype(np.float32), shards,
+                            entity_ids={"userId": ml.user_ids})
+    rng = np.random.default_rng(GLMIX_SEED + 99)
+    val_mask = rng.uniform(size=ds.num_rows) < 0.05
+    train = ds.subset(np.flatnonzero(~val_mask))
+    val = ds.subset(np.flatnonzero(val_mask))
+    opt = GLMOptimizationConfig(
+        optimizer=OptimizerConfig(max_iterations=100),
+        regularization=RegularizationContext(RegularizationType.L2),
+        regularization_weight=1.0)
+    cfg = GameTrainingConfig(
+        task_type="logistic_regression",
+        coordinates={"fixed": FixedEffectCoordinateConfig("global", opt),
+                     "perUser": RandomEffectCoordinateConfig(
+                         "userId", "per_user", opt, active_data_upper_bound=512)},
+        updating_sequence=["fixed", "perUser"],
+        num_outer_iterations=GLMIX_OUTER, seed=GLMIX_SEED)
+    return train, val, cfg
+
+
+def fe_passes(descent) -> int:
+    """Value+gradient passes of the fit's fixed-effect solves."""
+    return sum(t.fg_count for k, t in descent.trackers.items()
+               if k.endswith("/fixed"))
+
+
+def glmix_report(result, fit_s, n_train, launches, ref_nll) -> dict:
+    """The glmix phase's line: the fit's numbers and its checks."""
+    import torch
+    d = result.descent
+    final = float(d.objective_history[-1])
+    model = d.model.coordinates
+    finite = (len(d.objective_history) == 2 * GLMIX_OUTER
+              and all(np.isfinite(d.objective_history))
+              and tuple(model["fixed"].glm.coefficients.means.shape) == (31,)
+              and model["perUser"].coefficients.shape[1] == 19
+              and bool(torch.isfinite(model["fixed"].glm.coefficients.means).all())
+              and bool(torch.isfinite(model["perUser"].coefficients).all()))
+    return {
+        "n_train": n_train, "outer_iterations": GLMIX_OUTER, "fit_s": fit_s,
+        "examples_per_s": n_train * GLMIX_OUTER / fit_s,
+        "objective_history": d.objective_history, "final_objective": final,
+        "ref_nll": ref_nll, "nll_rel_gap": (final - ref_nll) / abs(ref_nll),
+        "validation_auc": result.validation["AUC"],
+        "auc_history": d.validation_history["AUC"],
+        "kernel_launches": launches, "fe_fg_count": fe_passes(d),
+        "finite": finite,
+        "spans_s": dict(d.timings), "host_blocked_s": d.timings.host_blocked_total(),
+        "solves": {k: {"iterations": t.iterations, "fg_count": t.fg_count,
+                       "wall_s": t.wall_s, "reasons": t.reasons,
+                       "buckets": None if t.buckets is None else [
+                           {"E_S_d": list(b.shape), "max_iterations": b.max_iterations,
+                            "total_iterations": b.total_iterations, "rounds": b.rounds,
+                            "seconds": b.seconds}
+                           for b in t.buckets]}
+                   for k, t in d.trackers.items()},
+        "random_effect_entities": int(model["perUser"].coefficients.shape[0]),
+    }
 
 
 def main() -> int:
@@ -269,7 +384,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
-    ref_nll = json.loads((ROOT / "bench_ref_cache.json").read_text())[REF_KEY]["ref_nll"]
+    ref_cache = json.loads((ROOT / "bench_ref_cache.json").read_text())
+    ref_nll = ref_cache[REF_KEY]["ref_nll"]
+    glmix_ref = ref_cache[GLMIX_REF_KEY]["ref_nll"]
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi()
     emit({"phase": "device", "kind": kind, "nvidia_smi": smi,
@@ -346,12 +463,83 @@ def main() -> int:
         raise SystemExit(f"profiled {prof['fused_kernel_launches']} device launches of the "
                          f"kernel for {prof['fg_count']} passes; expected one per pass")
 
+    # --- GLMix: BASELINE config 4 through GameEstimator.fit -------------------
+    from photon_ml_tpu_torch.game import GameEstimator
+    t0 = time.perf_counter()
+    g_train, g_val, g_cfg = glmix_setup()
+    emit({"phase": "glmix_data", "n_train": g_train.num_rows, "n_val": g_val.num_rows,
+          "seconds": time.perf_counter() - t0})
+    hk.LAUNCHES = 0
+    t0 = time.perf_counter()
+    g_result = GameEstimator(g_cfg, device="cuda").fit(g_train, g_val, ["AUC"])
+    torch.cuda.synchronize()
+    g_fit_s = time.perf_counter() - t0
+    g_launches = hk.LAUNCHES
+    g = glmix_report(g_result, g_fit_s, g_train.num_rows, g_launches, glmix_ref)
+    emit({"phase": "glmix", "entry": "photon_ml_tpu_torch.game.GameEstimator.fit",
+          "config": "BASELINE config 4 (bench.py bench_config4)", "device": kind,
+          "nvidia_smi": smi, **g})
+    if not g["finite"]:
+        raise SystemExit("glmix: non-finite or misshapen objective or coefficients")
+    if not (g_launches == g["fe_fg_count"] and g_launches > 0):
+        raise SystemExit(f"glmix: kernel launches {g_launches} != fixed-effect "
+                         f"fg_count {g['fe_fg_count']}")
+    if not abs(g["nll_rel_gap"]) <= GLMIX_RTOL:
+        raise SystemExit(f"glmix: objective {g['final_objective']} is "
+                         f"{g['nll_rel_gap']:.3e} from the reference {glmix_ref}")
+    if not 0.5 < g["validation_auc"] < 1.0:
+        raise SystemExit(f"glmix: validation AUC {g['validation_auc']}")
+
+    # the same fit again, warm (random-effect blocks and device shards are
+    # memoized on the datasets, so build/coordinates is near zero): the
+    # steady-state descent, and whether the fit repeats bit for bit
+    t0 = time.perf_counter()
+    g_warm = GameEstimator(g_cfg, device="cuda").fit(g_train, g_val, ["AUC"])
+    torch.cuda.synchronize()
+    emit({"phase": "glmix_warm", "fit_s": time.perf_counter() - t0,
+          "spans_s": dict(g_warm.descent.timings),
+          "same_objective_history": g_warm.objective_history == g_result.objective_history,
+          "device": kind, "nvidia_smi": smi})
+
+    # the kernel at the fixed effect's shape, offsets = the residual scores
+    final = g_result.descent.model.coordinates
+    gx = g_train.device_shard("global", "cuda", torch.float32)
+    gy = torch.as_tensor(g_train.response, dtype=torch.float32, device="cuda")
+    go = final["perUser"].score_dataset(g_train).contiguous()
+    gc = final["fixed"].glm.coefficients.means
+    ok, g_err, v_rel, g_rel = compare(hk, LOGISTIC, gx, gy, gc, None, go)
+    emit({"phase": "check", "size": "glmix_fixed_effect", "shape": list(gx.shape),
+          "loss": "logistic", "inputs": "offsets", "ok": ok, "max_abs_err": g_err,
+          "value_rel_err": v_rel, "grad_err_over_tol": g_rel})
+    if not ok:
+        raise SystemExit("kernel disagrees with its plain version at the glmix shape")
+    g_timing = time_full(hk, LOGISTIC, gx, gy, go)
+    emit({"phase": "timing", "shape": list(gx.shape), "loss": "logistic",
+          "inputs": "offsets", "reps": REPS, "device": kind, "nvidia_smi": smi,
+          "plan": dataclasses.asdict(hk.plan_fused(*gx.shape, sms)),
+          "kernel_ms": g_timing["ms"], **g_timing})
+    del gx, gy, go
+
+    # one outer iteration under the profiler (random-effect blocks and
+    # device shards are memoized on the datasets, so this is the descent)
+    g_cfg1 = dataclasses.replace(g_cfg, num_outer_iterations=1)
+    g_res1, g_prof = profile_call(
+        lambda: GameEstimator(g_cfg1, device="cuda").fit(g_train, g_val, ["AUC"]))
+    g_prof["fe_fg_count"] = fe_passes(g_res1.descent)
+    g_prof["spans_s"] = dict(g_res1.descent.timings)
+    emit({"phase": "glmix_profile", "outer_iterations": 1, "device": kind,
+          "nvidia_smi": smi, **g_prof})
+    if g_prof["fused_kernel_launches"] != g_prof["fe_fg_count"]:
+        raise SystemExit(f"glmix profile: {g_prof['fused_kernel_launches']} device "
+                         f"launches of the kernel for {g_prof['fe_fg_count']} passes")
+
     emit({"kernels": [{
         "name": "fused_value_and_gradient",
         "route": "cuda",
         "source": "photon_ml_tpu_torch/csrc/fused_value_and_gradient.cu",
         "replaces": "photon_ml_tpu/ops/pallas_kernels.py:150",
-        "launches": launches,
+        "launches": launches + g_launches,
+        "launches_by_path": {"train_glm": launches, "glmix": g_launches},
         "max_abs_err": max_abs_err,
         "tolerance": f"value rtol {VALUE_RTOL}, gradient rtol {GRAD_RTOL} atol {GRAD_ATOL}",
         "ms": timing["ms"],
@@ -363,6 +551,10 @@ def main() -> int:
         "ms_over_library": timing["ms_over_library"],
         "design": DESIGN,
         "launches_per_call": prof["fused_kernel_launches"] / prof["fg_count"],
+        "at_glmix_shape": {k: g_timing[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "hbm_share",
+            "ms_over_library")} | {"shape": [g_train.num_rows, 31],
+                                   "max_abs_err": g_err},
     }], "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

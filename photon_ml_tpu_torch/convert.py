@@ -2,11 +2,12 @@
 
 The JAX package's models and normalization contexts hold jax arrays; pass
 them through `np.asarray(...)` and these build the port's counterparts on
-a device (None means cuda).  Nothing here imports the JAX package.
+a device (None means cuda): GLMs, normalization contexts and GAME models.
+Nothing here imports the JAX package.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -35,3 +36,43 @@ def normalization_from_numpy(factors, shifts, intercept_index: Optional[int],
     dev = resolve_device(device)
     return NormalizationContext(_tensor(factors, dev), _tensor(shifts, dev),
                                 intercept_index)
+
+
+def game_model_from_numpy(task_type: str, coordinates: Dict[str, dict],
+                          device=None):
+    """A GameModel from numpy parameters, coordinate by coordinate in
+    updating order.  Each entry is either
+
+      {"kind": "fixed_effect", "feature_shard", "means"[, "variances"]}
+
+    (a JAX FixedEffectModel's `glm.coefficients`), or
+
+      {"kind": "random_effect", "random_effect_type", "feature_shard",
+       "coefficients" [E, d_local], "entity_ids" [E], "projection"
+       [E, d_local] or None, "global_dim"[, "variances"]}
+
+    (a JAX RandomEffectModel's fields)."""
+    from photon_ml_tpu_torch.models.game import (
+        FixedEffectModel, GameModel, RandomEffectModel,
+    )
+    dev = resolve_device(device)
+    models = {}
+    for name, c in coordinates.items():
+        if c["kind"] == "fixed_effect":
+            models[name] = FixedEffectModel(
+                glm_from_numpy(task_type, c["means"], c.get("variances"), dev),
+                c["feature_shard"])
+        elif c["kind"] == "random_effect":
+            proj = c.get("projection")
+            models[name] = RandomEffectModel(
+                random_effect_type=c["random_effect_type"],
+                feature_shard=c["feature_shard"], task_type=task_type,
+                coefficients=_tensor(c["coefficients"], dev),
+                entity_ids=np.asarray(c["entity_ids"]),
+                projection=None if proj is None else np.asarray(proj),
+                global_dim=int(c["global_dim"]),
+                variances=_tensor(c.get("variances"), dev))
+        else:
+            raise ValueError(f"coordinate {name!r}: unknown kind {c['kind']!r} "
+                             "(factored models are ROADMAP.md queue A item 13)")
+    return GameModel(models, task_type)

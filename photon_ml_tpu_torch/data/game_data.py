@@ -1,0 +1,157 @@
+"""GAME dataset: struct-of-arrays with a fixed canonical row order (port of
+photon_ml_tpu/data/game_data.py).
+
+The uid IS the row position: every coordinate keeps its scores as a dense
+[n] tensor in this canonical order, so coordinate descent's score algebra
+is elementwise tensor arithmetic.  Entity membership per random-effect type
+is an int index column (`entity_indices[re_type][row]`), built once at
+ingest.
+
+Host columns are numpy; `device_shard` makes the one device copy of a
+feature shard that every consumer shares.  Saving and loading datasets
+(`save_game_dataset`/`load_game_dataset`) are not ported yet (ROADMAP.md
+queue A item 12).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from photon_ml_tpu_torch import resolve_device
+
+
+def _is_sparse(x) -> bool:
+    try:
+        import scipy.sparse as sp
+        return sp.issparse(x)
+    except ImportError:  # pragma: no cover
+        return False
+
+
+@dataclasses.dataclass
+class InputColumnNames:
+    """Remappable input column names (reference: InputColumnsNames.scala)."""
+
+    response: str = "response"
+    offset: str = "offset"
+    weight: str = "weight"
+    uid: str = "uid"
+
+
+@dataclasses.dataclass(eq=False)  # identity semantics: holds arrays, and the
+# random-effect build memo (data/batching.py) weak-keys on dataset identity
+class GameDataset:
+    """n rows in canonical order; everything else hangs off row position."""
+
+    response: np.ndarray                       # [n] float
+    feature_shards: Dict[str, np.ndarray]      # shard -> [n, d_shard] float
+    offsets: Optional[np.ndarray] = None       # [n]
+    weights: Optional[np.ndarray] = None       # [n]
+    # re_type -> [n] int index into entity_vocabs[re_type]; -1 = missing id
+    entity_indices: Dict[str, np.ndarray] = dataclasses.field(default_factory=dict)
+    # re_type -> [num_entities] entity id values (row i of a random-effect
+    # model belongs to entity_vocabs[re_type][i])
+    entity_vocabs: Dict[str, np.ndarray] = dataclasses.field(default_factory=dict)
+    # shard -> index map; carried, not interpreted (index maps are ROADMAP.md
+    # queue A item 12)
+    index_maps: Dict[str, object] = dataclasses.field(default_factory=dict)
+
+    def __post_init__(self):
+        n = len(self.response)
+        for shard, x in self.feature_shards.items():
+            if x.shape[0] != n:
+                raise ValueError(f"shard {shard!r} has {x.shape[0]} rows, expected {n}")
+        for re_type, idx in self.entity_indices.items():
+            if len(idx) != n:
+                raise ValueError(f"entity index {re_type!r} has {len(idx)} rows, expected {n}")
+
+    # (shard, device, dtype) -> the device copy, made once and shared by
+    # every consumer (coordinate training, scoring, validation rescoring)
+    _device_shards: Dict[tuple, torch.Tensor] = dataclasses.field(
+        default_factory=dict, repr=False, compare=False)
+    # scoring-side memos (entity-lane maps etc.), keyed by consumer
+    _scoring_cache: Dict[object, object] = dataclasses.field(
+        default_factory=dict, repr=False, compare=False)
+
+    def device_shard(self, shard: str, device=None,
+                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """The shard as a dense tensor on `device` (None means cuda) in
+        `dtype`, built once per (shard, device, dtype) and shared.  Sparse
+        shards raise NotImplementedError (ROADMAP.md queue A item 4)."""
+        dev = resolve_device(device)
+        if dev.type == "cuda" and dev.index is None:
+            # "cuda" and "cuda:<current>" name one device: one shared copy
+            dev = torch.device("cuda", torch.cuda.current_device())
+        key = (shard, str(dev), dtype)
+        if key not in self._device_shards:
+            from photon_ml_tpu_torch.ops.features import as_feature_matrix
+            self._device_shards[key] = as_feature_matrix(
+                self.feature_shards[shard], dev, dtype).contiguous()
+        return self._device_shards[key]
+
+    @property
+    def num_rows(self) -> int:
+        return len(self.response)
+
+    def num_entities(self, re_type: str) -> int:
+        return len(self.entity_vocabs[re_type])
+
+    def shard_dim(self, shard: str) -> int:
+        return self.feature_shards[shard].shape[1]
+
+    def subset(self, rows: np.ndarray) -> "GameDataset":
+        """Row slice sharing vocabularies (for train/validation splits)."""
+        take = lambda a: None if a is None else a[rows]
+        return GameDataset(
+            response=self.response[rows],
+            feature_shards={s: x[rows] for s, x in self.feature_shards.items()},
+            offsets=take(self.offsets),
+            weights=take(self.weights),
+            entity_indices={t: idx[rows] for t, idx in self.entity_indices.items()},
+            entity_vocabs=self.entity_vocabs,
+            index_maps=self.index_maps,
+        )
+
+
+def build_game_dataset(
+    response: np.ndarray,
+    feature_shards: Dict[str, np.ndarray],
+    *,
+    offsets: Optional[np.ndarray] = None,
+    weights: Optional[np.ndarray] = None,
+    entity_ids: Optional[Dict[str, np.ndarray]] = None,
+    entity_vocabs: Optional[Dict[str, np.ndarray]] = None,
+    index_maps: Optional[Dict[str, object]] = None,
+) -> GameDataset:
+    """Raw id columns -> indexed entity columns.
+
+    `entity_ids[re_type]` is a [n] array of raw ids; ids are interned into
+    a sorted vocabulary unless a shared vocab is supplied (scoring against a
+    trained model's entity space, where unseen ids map to -1)."""
+    entity_indices, vocabs = {}, {}
+    for re_type, ids in (entity_ids or {}).items():
+        ids = np.asarray(ids)
+        if entity_vocabs and re_type in entity_vocabs:
+            vocab = np.asarray(entity_vocabs[re_type])
+            lookup = {v: i for i, v in enumerate(vocab.tolist())}
+            idx = np.asarray([lookup.get(v, -1) for v in ids.tolist()],
+                             dtype=np.int32)
+        else:
+            vocab, idx = np.unique(ids, return_inverse=True)
+            idx = idx.astype(np.int32)
+        entity_indices[re_type] = idx
+        vocabs[re_type] = vocab
+    return GameDataset(
+        response=np.asarray(response, dtype=np.float64),
+        # scipy.sparse shards stay sparse (CSR); device_shard refuses them
+        feature_shards={s: (x.tocsr() if _is_sparse(x) else np.asarray(x))
+                        for s, x in feature_shards.items()},
+        offsets=None if offsets is None else np.asarray(offsets, dtype=np.float64),
+        weights=None if weights is None else np.asarray(weights, dtype=np.float64),
+        entity_indices=entity_indices,
+        entity_vocabs=vocabs,
+        index_maps=index_maps or {},
+    )

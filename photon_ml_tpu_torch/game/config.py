@@ -1,0 +1,271 @@
+"""Typed GAME training configuration with JSON round-trip (port of
+photon_ml_tpu/game/config.py).
+
+`to_dict`/`from_dict` read and write the same JSON as the JAX package, so a
+configuration written by either package loads in the other.  Fields whose
+features are not ported yet load, and then raise where they would take
+effect: `solver_schedule` (ROADMAP.md queue A item 16), `hbm_budget_bytes`
+and `memory_mode="streamed"` (item 15), `shard_features` (item 20), and the
+ADMM lane's `admm` block (item 20) raises on load.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+from typing import Dict, Optional, Sequence, Union
+
+from photon_ml_tpu_torch.data.batching import RandomEffectDataConfig
+from photon_ml_tpu_torch.ops.normalization import NormalizationType
+from photon_ml_tpu_torch.optim.config import (
+    OptimizerConfig, OptimizerType, RegularizationContext, RegularizationType,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class GLMOptimizationConfig:
+    """(optimizer, regularization, weight, down-sampling)."""
+
+    optimizer: OptimizerConfig = OptimizerConfig()
+    regularization: RegularizationContext = RegularizationContext()
+    regularization_weight: float = 0.0
+    downsampling_rate: Optional[float] = None
+
+    def __post_init__(self):
+        if self.regularization_weight < 0:
+            raise ValueError("regularization_weight must be >= 0")
+        object.__setattr__(self, "regularization_weight",
+                           float(self.regularization_weight))
+        if self.downsampling_rate is not None and not 0 < self.downsampling_rate < 1:
+            raise ValueError("downsampling_rate must be in (0, 1)")
+
+
+@dataclasses.dataclass(frozen=True)
+class FixedEffectCoordinateConfig:
+    """One global GLM over a feature shard."""
+
+    feature_shard: str
+    optimization: GLMOptimizationConfig = GLMOptimizationConfig()
+    normalization: NormalizationType = NormalizationType.NONE
+    shard_features: Optional[bool] = None
+    # "resident" | "streamed" | "auto"; on one card without a memory budget
+    # "auto" is resident
+    memory_mode: str = "auto"
+    chunk_rows: Optional[int] = None
+    # per-coordinate inexact-solve schedule, as the JAX package's
+    # SolverSchedule.to_dict(); None = full solves every visit
+    solver_schedule: Optional[dict] = None
+
+    def __post_init__(self):
+        if self.memory_mode not in ("auto", "resident", "streamed"):
+            raise ValueError(f"memory_mode must be 'auto', 'resident' or "
+                             f"'streamed', got {self.memory_mode!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class RandomEffectCoordinateConfig:
+    """Per-entity GLMs over a feature shard."""
+
+    random_effect_type: str
+    feature_shard: str
+    optimization: GLMOptimizationConfig = GLMOptimizationConfig()
+    active_data_upper_bound: Optional[int] = None
+    passive_data_lower_bound: Optional[int] = None
+    features_to_samples_ratio: Optional[float] = None
+    projector: str = "index_map"
+    solver_schedule: Optional[dict] = None
+
+    def data_config(self, seed: int = 7) -> RandomEffectDataConfig:
+        return RandomEffectDataConfig(
+            random_effect_type=self.random_effect_type,
+            feature_shard=self.feature_shard,
+            active_data_upper_bound=self.active_data_upper_bound,
+            passive_data_lower_bound=self.passive_data_lower_bound,
+            features_to_samples_ratio=self.features_to_samples_ratio,
+            projector=self.projector,
+            seed=seed)
+
+
+@dataclasses.dataclass(frozen=True)
+class FactoredRandomEffectCoordinateConfig:
+    """Matrix-factorized random effect: per-entity latent factors plus a
+    shared latent projection matrix.  A data class only: training it is
+    ROADMAP.md queue A item 13 (BASELINE config 5)."""
+
+    random_effect_type: str
+    feature_shard: str
+    latent_dim: int
+    num_inner_iterations: int = 1
+    optimization: GLMOptimizationConfig = GLMOptimizationConfig()
+    latent_optimization: GLMOptimizationConfig = GLMOptimizationConfig()
+    active_data_upper_bound: Optional[int] = None
+    passive_data_lower_bound: Optional[int] = None
+    solver_schedule: Optional[dict] = None
+
+    def __post_init__(self):
+        if self.latent_dim < 1:
+            raise ValueError("latent_dim must be >= 1")
+        if self.num_inner_iterations < 1:
+            raise ValueError("num_inner_iterations must be >= 1")
+
+
+CoordinateConfig = Union[FixedEffectCoordinateConfig, RandomEffectCoordinateConfig,
+                         FactoredRandomEffectCoordinateConfig]
+
+
+@dataclasses.dataclass(frozen=True)
+class GameTrainingConfig:
+    """Task, per-coordinate configs, updating sequence, outer iterations."""
+
+    task_type: str
+    coordinates: Dict[str, CoordinateConfig]
+    updating_sequence: Sequence[str]
+    num_outer_iterations: int = 1
+    seed: int = 7
+    hbm_budget_bytes: Optional[int] = None
+    solver_schedule: Optional[dict] = None
+
+    def __post_init__(self):
+        missing = [c for c in self.updating_sequence if c not in self.coordinates]
+        if missing:
+            raise ValueError(f"updating_sequence names unknown coordinates: {missing}")
+        if self.num_outer_iterations < 1:
+            raise ValueError("num_outer_iterations must be >= 1")
+        if self.hbm_budget_bytes is not None and self.hbm_budget_bytes <= 0:
+            raise ValueError("hbm_budget_bytes must be positive (use None "
+                             "for unbounded)")
+
+    # -- JSON round-trip ------------------------------------------------------
+    def to_dict(self) -> dict:
+        def enc_opt(o: OptimizerConfig):
+            return {"optimizer": o.optimizer.value, "max_iterations": o.max_iterations,
+                    "tolerance": o.tolerance, "history": o.history,
+                    "max_cg_iterations": o.max_cg_iterations,
+                    "box_lower": list(o.box_lower) if o.box_lower else None,
+                    "box_upper": list(o.box_upper) if o.box_upper else None,
+                    "constraints": None,
+                    "track_coefficients": o.track_coefficients}
+
+        def enc_glm(g: GLMOptimizationConfig):
+            return {"optimizer": enc_opt(g.optimizer),
+                    "regularization": {"type": g.regularization.reg_type.value,
+                                       "alpha": g.regularization.elastic_net_alpha},
+                    "regularization_weight": g.regularization_weight,
+                    "downsampling_rate": g.downsampling_rate}
+
+        coords = {}
+        for name, c in self.coordinates.items():
+            if isinstance(c, FixedEffectCoordinateConfig):
+                coords[name] = {"kind": "fixed_effect",
+                                "feature_shard": c.feature_shard,
+                                "normalization": c.normalization.value,
+                                "shard_features": c.shard_features,
+                                # "auto" (the default) encodes as absent
+                                "memory_mode": (None if c.memory_mode == "auto"
+                                                else c.memory_mode),
+                                "chunk_rows": c.chunk_rows,
+                                "solver_schedule": c.solver_schedule,
+                                "optimization": enc_glm(c.optimization)}
+            elif isinstance(c, FactoredRandomEffectCoordinateConfig):
+                coords[name] = {"kind": "factored_random_effect",
+                                "random_effect_type": c.random_effect_type,
+                                "feature_shard": c.feature_shard,
+                                "latent_dim": c.latent_dim,
+                                "num_inner_iterations": c.num_inner_iterations,
+                                "active_data_upper_bound": c.active_data_upper_bound,
+                                "passive_data_lower_bound": c.passive_data_lower_bound,
+                                "solver_schedule": c.solver_schedule,
+                                "optimization": enc_glm(c.optimization),
+                                "latent_optimization": enc_glm(c.latent_optimization)}
+            else:
+                coords[name] = {"kind": "random_effect",
+                                "random_effect_type": c.random_effect_type,
+                                "feature_shard": c.feature_shard,
+                                "active_data_upper_bound": c.active_data_upper_bound,
+                                "passive_data_lower_bound": c.passive_data_lower_bound,
+                                "features_to_samples_ratio": c.features_to_samples_ratio,
+                                "projector": c.projector,
+                                "solver_schedule": c.solver_schedule,
+                                "optimization": enc_glm(c.optimization)}
+        return {"task_type": self.task_type, "coordinates": coords,
+                "updating_sequence": list(self.updating_sequence),
+                "num_outer_iterations": self.num_outer_iterations,
+                "seed": self.seed,
+                "hbm_budget_bytes": self.hbm_budget_bytes,
+                "solver_schedule": self.solver_schedule}
+
+    @staticmethod
+    def from_dict(d: dict) -> "GameTrainingConfig":
+        def dec_opt(o: dict) -> OptimizerConfig:
+            return OptimizerConfig(
+                optimizer=OptimizerType(o["optimizer"]),
+                max_iterations=o.get("max_iterations"),
+                tolerance=o.get("tolerance"),
+                history=o.get("history", 10),
+                max_cg_iterations=o.get("max_cg_iterations", 20),
+                box_lower=tuple(o["box_lower"]) if o.get("box_lower") else None,
+                box_upper=tuple(o["box_upper"]) if o.get("box_upper") else None,
+                # named constraints raise in OptimizerConfig (queue A item 12)
+                constraints=(tuple(o["constraints"])
+                             if o.get("constraints") else None),
+                track_coefficients=o.get("track_coefficients", False))
+
+        def dec_glm(g: dict) -> GLMOptimizationConfig:
+            if g.get("admm") is not None:
+                raise NotImplementedError(
+                    "the consensus-ADMM lane is not ported yet (ROADMAP.md "
+                    "queue A item 20: multi-GPU training)")
+            return GLMOptimizationConfig(
+                optimizer=dec_opt(g["optimizer"]),
+                regularization=RegularizationContext(
+                    RegularizationType(g["regularization"]["type"]),
+                    g["regularization"].get("alpha")),
+                regularization_weight=g["regularization_weight"],
+                downsampling_rate=g.get("downsampling_rate"))
+
+        coords: Dict[str, CoordinateConfig] = {}
+        for name, c in d["coordinates"].items():
+            sched = c.get("solver_schedule")
+            if c["kind"] == "fixed_effect":
+                coords[name] = FixedEffectCoordinateConfig(
+                    feature_shard=c["feature_shard"],
+                    optimization=dec_glm(c["optimization"]),
+                    normalization=NormalizationType(c.get("normalization", "none")),
+                    shard_features=c.get("shard_features"),
+                    memory_mode=c.get("memory_mode") or "auto",
+                    chunk_rows=c.get("chunk_rows"),
+                    solver_schedule=sched)
+            elif c["kind"] == "factored_random_effect":
+                coords[name] = FactoredRandomEffectCoordinateConfig(
+                    random_effect_type=c["random_effect_type"],
+                    feature_shard=c["feature_shard"],
+                    latent_dim=c["latent_dim"],
+                    num_inner_iterations=c.get("num_inner_iterations", 1),
+                    optimization=dec_glm(c["optimization"]),
+                    latent_optimization=dec_glm(c["latent_optimization"]),
+                    active_data_upper_bound=c.get("active_data_upper_bound"),
+                    passive_data_lower_bound=c.get("passive_data_lower_bound"),
+                    solver_schedule=sched)
+            else:
+                coords[name] = RandomEffectCoordinateConfig(
+                    random_effect_type=c["random_effect_type"],
+                    feature_shard=c["feature_shard"],
+                    optimization=dec_glm(c["optimization"]),
+                    active_data_upper_bound=c.get("active_data_upper_bound"),
+                    passive_data_lower_bound=c.get("passive_data_lower_bound"),
+                    features_to_samples_ratio=c.get("features_to_samples_ratio"),
+                    projector=c.get("projector", "index_map"),
+                    solver_schedule=sched)
+        return GameTrainingConfig(
+            task_type=d["task_type"], coordinates=coords,
+            updating_sequence=d["updating_sequence"],
+            num_outer_iterations=d.get("num_outer_iterations", 1),
+            seed=d.get("seed", 7),
+            hbm_budget_bytes=d.get("hbm_budget_bytes"),
+            solver_schedule=d.get("solver_schedule"))
+
+    def to_json(self) -> str:
+        return json.dumps(self.to_dict(), indent=2)
+
+    @staticmethod
+    def from_json(s: str) -> "GameTrainingConfig":
+        return GameTrainingConfig.from_dict(json.loads(s))

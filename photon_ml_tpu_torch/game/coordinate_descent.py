@@ -1,0 +1,304 @@
+"""Block coordinate descent over GAME coordinates, the outer training loop
+(port of the strict loop of photon_ml_tpu/game/coordinate_descent.py).
+
+reference: CoordinateDescent (photon-lib/.../algorithm/CoordinateDescent.scala:40-385):
+per iteration, per coordinate: partial score = full score - own score ->
+update the model with the residual offsets -> rescore -> update the running
+objective -> validate -> track the best full model by the first validation
+evaluator.  Every coordinate's scores are one dense [n] tensor in canonical
+row order, so the score algebra is `total - own` / `partial + new`.
+
+The port runs the JAX package's "strict" timing mode: every update ends in
+a readback before the next begins, so each PhaseTimings span holds the
+device work it launched.  The pipelined mode (ROADMAP.md queue A item 11),
+checkpoints and resume and non-finite-solve quarantine (item 14), device
+residency under an HBM budget (item 15), solver schedules (item 16) and
+the multi-host wait (item 20) are not ported yet.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import time
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from photon_ml_tpu_torch import resolve_device
+from photon_ml_tpu_torch.data.game_data import GameDataset
+from photon_ml_tpu_torch.evaluation.evaluators import Evaluator, MultiEvaluator
+from photon_ml_tpu_torch.game.coordinates import Coordinate
+from photon_ml_tpu_torch.models.game import GameModel
+from photon_ml_tpu_torch.ops.losses import TASK_LOSSES, PointwiseLoss
+from photon_ml_tpu_torch.optim.types import ConvergenceReason
+
+
+@dataclasses.dataclass
+class ValidationSpec:
+    """A validation evaluator, optionally grouped by an entity-index column
+    (reference: MultiEvaluator id columns)."""
+
+    evaluator: Evaluator | MultiEvaluator
+    group_column: Optional[str] = None
+
+    @property
+    def name(self) -> str:
+        return self.evaluator.name
+
+    def evaluate(self, dataset: GameDataset, scores) -> float:
+        """On the host: score + offset (Evaluator.scala:35-45), float64."""
+        s = (scores.detach().cpu().numpy() if isinstance(scores, torch.Tensor)
+             else np.asarray(scores)).astype(np.float64)
+        if dataset.offsets is not None:
+            s = s + dataset.offsets
+        if self.group_column is not None:
+            return self.evaluator.evaluate_grouped(
+                dataset.entity_indices[self.group_column], s,
+                dataset.response, dataset.weights)
+        return self.evaluator(s, dataset.response, dataset.weights)
+
+
+class PhaseTimings(dict):
+    """Contiguous per-fit span accounting: label -> seconds.  Spans are
+    contiguous over the descent loop, so their sum accounts for the fit's
+    wall clock.  `host_blocked` holds, per label, the seconds the host spent
+    waiting on device readbacks."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.host_blocked: Dict[str, float] = {}
+
+    @contextlib.contextmanager
+    def span(self, label: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self[label] = self.get(label, 0.0) + time.perf_counter() - t0
+
+    @contextlib.contextmanager
+    def blocked(self, label: str):
+        """Time a host-blocking readback into `host_blocked` without opening
+        a new accounting span."""
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.add_blocked(label, time.perf_counter() - t0)
+
+    def add_blocked(self, label: str, seconds: float) -> None:
+        self.host_blocked[label] = self.host_blocked.get(label, 0.0) + seconds
+
+    def host_blocked_total(self) -> float:
+        return float(sum(self.host_blocked.values()))
+
+    def total(self) -> float:
+        return float(sum(self.values()))
+
+
+@dataclasses.dataclass
+class TrackerSummary:
+    """Host-side per-solve record: iterations (summed over entities for a
+    batched solve), value+gradient passes (`fg_count`, likewise), the solve's
+    wall clock and ConvergenceReason counts over its lanes."""
+
+    iterations: int
+    fg_count: int
+    wall_s: float
+    reasons: Dict[str, int] = dataclasses.field(default_factory=dict)
+    # a random-effect update's batched solves, one per S-bucket
+    # (game/coordinates.py::BucketSolve); None for a fixed effect
+    buckets: Optional[list] = None
+
+
+def _summarize(result, wall_s: float, buckets=None) -> TrackerSummary:
+    total = lambda v: int(np.sum(np.asarray(
+        v.cpu() if isinstance(v, torch.Tensor) else v)))
+    reason = result.reason
+    codes = np.atleast_1d(np.asarray(
+        reason.cpu() if isinstance(reason, torch.Tensor) else reason))
+    reasons: Dict[str, int] = {}
+    for code, count in zip(*np.unique(codes, return_counts=True)):
+        reasons[ConvergenceReason(int(code)).name] = int(count)
+    return TrackerSummary(iterations=total(result.iterations),
+                          fg_count=total(result.fg_count), wall_s=wall_s,
+                          reasons=reasons, buckets=buckets)
+
+
+@dataclasses.dataclass
+class CoordinateDescentResult:
+    model: GameModel                       # final full model
+    best_model: GameModel                  # best by first validation evaluator
+    objective_history: List[float]         # after each coordinate update
+    validation_history: Dict[str, List[float]]
+    # contiguous phase spans: "init/transfer", "init/score",
+    # "init/validation_score", "{it}/{coord}/solve|objective|validation"
+    # (+ the estimator adds "build/coordinates")
+    timings: PhaseTimings
+    # "it/coord" -> compact host-side solve summary
+    trackers: Dict[str, TrackerSummary] = dataclasses.field(default_factory=dict)
+
+    def total_iterations(self) -> int:
+        return sum(t.iterations for t in self.trackers.values())
+
+
+def _data_term(total_scores, base_offsets, labels, weights,
+               loss: PointwiseLoss) -> torch.Tensor:
+    """Weighted data-loss sum."""
+    l = loss.loss(total_scores + base_offsets, labels)
+    return torch.sum(l if weights is None else weights * l)
+
+
+def _sync(spans: PhaseTimings, label: str, *tensors) -> None:
+    """Wait for the device through one scalar readback per tensor, timed
+    as host-blocked."""
+    with spans.blocked(label):
+        for t in tensors:
+            if t is not None and t.numel():
+                t.reshape(-1)[-1].item()
+
+
+def run_coordinate_descent(
+    coordinates: Dict[str, Coordinate],
+    updating_sequence: Sequence[str],
+    num_iterations: int,
+    dataset: GameDataset,
+    task_type: str,
+    validation_dataset: Optional[GameDataset] = None,
+    validation_specs: Sequence[ValidationSpec] = (),
+    initial_models: Optional[Dict[str, object]] = None,
+    timings: Optional[PhaseTimings] = None,
+    timing_mode: str = "strict",
+    device=None,
+    dtype: torch.dtype = torch.float32,
+) -> CoordinateDescentResult:
+    """reference: CoordinateDescent.run/optimize (scala:57-385).
+
+    `timing_mode` is "strict", the port's default and only mode: every
+    update syncs before the next begins, so the spans are attributable.
+    "pipelined" (one batched readback per outer iteration) is not ported yet
+    (ROADMAP.md queue A item 11) and raises.  The flat [n] vectors live on
+    `device` (None means cuda) in `dtype`.  Validation metrics with a device
+    form are computed on the device (one scalar readback each); grouped and
+    custom metrics on the host."""
+    if timing_mode == "pipelined":
+        raise NotImplementedError(
+            "timing_mode='pipelined' is not ported yet (ROADMAP.md queue A "
+            "item 11); use timing_mode='strict'")
+    if timing_mode != "strict":
+        raise ValueError(f"timing_mode must be 'strict' or 'pipelined', "
+                         f"got {timing_mode!r}")
+    dev = resolve_device(device)
+    loss = TASK_LOSSES[task_type]
+    on_dev = lambda a: (None if a is None else torch.as_tensor(a).to(
+        device=dev, dtype=dtype))
+    spans = PhaseTimings() if timings is None else timings
+    with spans.span("init/transfer"):
+        labels = on_dev(dataset.response)
+        weights = on_dev(dataset.weights)
+        base_offsets = (torch.zeros(dataset.num_rows, dtype=dtype, device=dev)
+                        if dataset.offsets is None else on_dev(dataset.offsets))
+        _sync(spans, "init/transfer", labels, weights, base_offsets)
+
+    # per-coordinate regularization terms as device scalars, recomputed only
+    # for the updated coordinate
+    reg_terms: Dict[str, object] = {}
+
+    def objective(total_scores) -> torch.Tensor:
+        return (_data_term(total_scores, base_offsets, labels, weights, loss)
+                + sum(reg_terms.values()))
+
+    with spans.span("init/score"):
+        zeros = torch.zeros(dataset.num_rows, dtype=dtype, device=dev)
+        models, scores = {}, {}
+        for name in updating_sequence:
+            provided = (initial_models or {}).get(name)
+            if provided is None:
+                # zero-coefficient initial models score exactly zero and
+                # carry no regularization
+                models[name] = coordinates[name].initial_model()
+                scores[name] = zeros
+                reg_terms[name] = 0.0
+            else:
+                models[name] = provided
+                scores[name] = coordinates[name].score(provided)
+                reg_terms[name] = coordinates[name].regularization_term(provided)
+        total = sum(scores.values(), zeros)
+        _sync(spans, "init/score", total)
+
+    objective_history: List[float] = []
+    validation_history: Dict[str, List[float]] = {s.name: [] for s in validation_specs}
+    trackers: Dict[str, TrackerSummary] = {}
+    best_model = GameModel(dict(models), task_type)
+    best_metric: Optional[float] = None
+
+    do_validation = validation_dataset is not None and bool(validation_specs)
+    val_scores_by_coord: Dict[str, torch.Tensor] = {}
+    if do_validation:
+        with spans.span("init/validation_score"):
+            val_zeros = torch.zeros(validation_dataset.num_rows, dtype=dtype, device=dev)
+            val_scores_by_coord = {
+                name: (val_zeros if (initial_models or {}).get(name) is None
+                       else models[name].score_dataset(validation_dataset))
+                for name in updating_sequence}
+            val_labels = on_dev(validation_dataset.response)
+            val_weights = on_dev(validation_dataset.weights)
+            val_offsets = on_dev(validation_dataset.offsets)
+            _sync(spans, "init/validation_score", *val_scores_by_coord.values())
+
+    def evaluate(spec: ValidationSpec, val_total: torch.Tensor, label: str) -> float:
+        """One validation metric: on the device where it has a device form,
+        else on the host."""
+        device_eval = getattr(spec.evaluator, "evaluate_on_device", None)
+        with spans.blocked(label):
+            if spec.group_column is None and device_eval is not None:
+                s = val_total if val_offsets is None else val_total + val_offsets
+                return float(device_eval(s, val_labels, val_weights))
+            return spec.evaluate(validation_dataset, val_total)
+
+    for it in range(num_iterations):
+        for name in updating_sequence:
+            coord = coordinates[name]
+            solve_key = f"{it}/{name}/solve"
+            with spans.span(solve_key):
+                # partial = full - own (reference line 186-193)
+                partial = total - scores[name]
+                models[name], result = coord.update(models[name],
+                                                    base_offsets + partial)
+                scores[name] = coord.score(models[name])
+                total = partial + scores[name]
+                _sync(spans, solve_key, total)
+            trackers[f"{it}/{name}"] = _summarize(
+                result, spans[solve_key], getattr(coord, "last_buckets", None))
+
+            obj_key = f"{it}/{name}/objective"
+            with spans.span(obj_key):
+                reg_terms[name] = coord.regularization_term(models[name])
+                with spans.blocked(obj_key):
+                    objective_history.append(float(objective(total)))
+
+            if do_validation:
+                val_key = f"{it}/{name}/validation"
+                with spans.span(val_key):
+                    val_scores_by_coord[name] = \
+                        models[name].score_dataset(validation_dataset)
+                    val_total = sum(val_scores_by_coord.values(), val_zeros)
+                    vals = [evaluate(spec, val_total, val_key)
+                            for spec in validation_specs]
+                for k, (spec, v) in enumerate(zip(validation_specs, vals)):
+                    validation_history[spec.name].append(v)
+                    if k == 0 and (best_metric is None
+                                   or spec.evaluator.better_than(v, best_metric)):
+                        # best FULL model by the first evaluator (ref 294-335)
+                        best_metric = v
+                        best_model = GameModel(dict(models), task_type)
+
+    final = GameModel(dict(models), task_type)
+    if not do_validation:
+        best_model = final
+    return CoordinateDescentResult(
+        model=final, best_model=best_model,
+        objective_history=objective_history,
+        validation_history=validation_history, timings=spans,
+        trackers=trackers)

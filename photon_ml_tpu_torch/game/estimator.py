@@ -1,0 +1,178 @@
+"""GameEstimator: dataset + config -> trained GAME model(s) (port of
+photon_ml_tpu/game/estimator.py, one device).
+
+reference: GameEstimator (photon-api/.../estimators/GameEstimator.scala:52):
+fit() builds the per-coordinate datasets and problems, prepares the
+validation evaluators and runs coordinate descent once per optimization
+configuration; `fit_grid` is the multi-configuration sweep
+(GameEstimator.scala:474).
+
+Not ported yet: checkpoints and resume (ROADMAP.md queue A item 14), HBM
+budgets (item 15), solver schedules (item 16), meshes (item 20), events and
+telemetry (item 19), and the factored random-effect coordinate (item 13).
+"""
+from __future__ import annotations
+
+import dataclasses
+import itertools
+from typing import Dict, List, Optional, Sequence
+
+import torch
+
+from photon_ml_tpu_torch import resolve_device
+from photon_ml_tpu_torch.data.game_data import GameDataset
+from photon_ml_tpu_torch.evaluation.evaluators import (
+    default_validation_evaluator_for_task, parse_evaluator,
+)
+from photon_ml_tpu_torch.game.config import (
+    FactoredRandomEffectCoordinateConfig, FixedEffectCoordinateConfig,
+    GameTrainingConfig, GLMOptimizationConfig,
+)
+from photon_ml_tpu_torch.game.coordinate_descent import (
+    CoordinateDescentResult, PhaseTimings, ValidationSpec,
+    run_coordinate_descent,
+)
+from photon_ml_tpu_torch.game.coordinates import (
+    Coordinate, FixedEffectCoordinate, RandomEffectCoordinate,
+)
+from photon_ml_tpu_torch.models.game import GameModel
+
+
+@dataclasses.dataclass
+class GameResult:
+    """One trained configuration (reference: GameEstimator.GameResult)."""
+
+    model: GameModel
+    config: GameTrainingConfig
+    objective_history: List[float]
+    validation: Dict[str, float]          # final value per evaluator
+    descent: CoordinateDescentResult
+    validation_specs: List[ValidationSpec] = dataclasses.field(default_factory=list)
+
+
+class GameEstimator:
+    """Trains a GameTrainingConfig on one device (None means cuda, which
+    raises without CUDA) in `dtype` (float32 by default, as the JAX
+    package computes without x64)."""
+
+    def __init__(self, config: GameTrainingConfig, device=None,
+                 dtype: torch.dtype = torch.float32):
+        if config.hbm_budget_bytes is not None:
+            raise NotImplementedError(
+                "hbm_budget_bytes (device residency under a budget) is not "
+                "ported yet (ROADMAP.md queue A item 15)")
+        if config.solver_schedule is not None:
+            raise NotImplementedError(
+                "solver schedules are not ported yet (ROADMAP.md queue A "
+                "item 16)")
+        self.config = config
+        self.device = resolve_device(device)
+        self.dtype = dtype
+
+    def _build_coordinates(self, dataset: GameDataset) -> Dict[str, Coordinate]:
+        coords: Dict[str, Coordinate] = {}
+        for name in self.config.updating_sequence:
+            cfg = self.config.coordinates[name]
+            kw = dict(device=self.device, dtype=self.dtype)
+            if isinstance(cfg, FixedEffectCoordinateConfig):
+                coords[name] = FixedEffectCoordinate(
+                    name, dataset, cfg, self.config.task_type, **kw)
+            elif isinstance(cfg, FactoredRandomEffectCoordinateConfig):
+                raise NotImplementedError(
+                    f"coordinate {name!r}: factored random effects are not "
+                    "ported yet (ROADMAP.md queue A item 13, BASELINE config 5)")
+            else:
+                coords[name] = RandomEffectCoordinate(
+                    name, dataset, cfg, self.config.task_type,
+                    seed=self.config.seed, **kw)
+        return coords
+
+    def _validation_specs(self, evaluator_specs: Optional[Sequence[str]]
+                          ) -> List[ValidationSpec]:
+        if not evaluator_specs:
+            return [ValidationSpec(
+                default_validation_evaluator_for_task(self.config.task_type))]
+        out = []
+        for spec in evaluator_specs:
+            ev, group = parse_evaluator(spec)
+            out.append(ValidationSpec(ev, group))
+        return out
+
+    def fit(
+        self,
+        dataset: GameDataset,
+        validation_dataset: Optional[GameDataset] = None,
+        evaluator_specs: Optional[Sequence[str]] = None,
+        initial_model: Optional[GameModel] = None,
+        timing_mode: str = "strict",
+    ) -> GameResult:
+        """reference: GameEstimator.fit (GameEstimator.scala:175).
+
+        `initial_model` warm-starts every coordinate it covers.
+        `timing_mode` is "strict" (see run_coordinate_descent)."""
+        spans = PhaseTimings()
+        # coordinate construction includes the random-effect bucketing
+        with spans.span("build/coordinates"):
+            coords = self._build_coordinates(dataset)
+        specs = (self._validation_specs(evaluator_specs)
+                 if validation_dataset is not None else [])
+        descent = run_coordinate_descent(
+            coords, self.config.updating_sequence,
+            self.config.num_outer_iterations, dataset, self.config.task_type,
+            validation_dataset=validation_dataset, validation_specs=specs,
+            initial_models=(dict(initial_model.coordinates)
+                            if initial_model is not None else None),
+            timings=spans, timing_mode=timing_mode, device=self.device,
+            dtype=self.dtype)
+        validation = {name: hist[-1] for name, hist in
+                      descent.validation_history.items() if hist}
+        return GameResult(model=descent.best_model, config=self.config,
+                          objective_history=descent.objective_history,
+                          validation=validation, descent=descent,
+                          validation_specs=specs)
+
+    def fit_grid(
+        self,
+        dataset: GameDataset,
+        grid: Dict[str, Sequence[GLMOptimizationConfig]],
+        validation_dataset: Optional[GameDataset] = None,
+        evaluator_specs: Optional[Sequence[str]] = None,
+        warm_start: bool = False,
+        initial_model: Optional[GameModel] = None,
+        timing_mode: str = "strict",
+    ) -> List[GameResult]:
+        """Sweep per-coordinate optimization configs (cartesian product).
+        With `warm_start`, each combo starts from the previous combo's
+        model (reference: useWarmStart)."""
+        names = list(grid)
+        results: List[GameResult] = []
+        previous: Optional[GameModel] = initial_model
+        for combo in itertools.product(*(grid[n] for n in names)):
+            coords = dict(self.config.coordinates)
+            for n, opt in zip(names, combo):
+                coords[n] = dataclasses.replace(coords[n], optimization=opt)
+            cfg = dataclasses.replace(self.config, coordinates=coords)
+            sub = GameEstimator(cfg, self.device, self.dtype)
+            results.append(sub.fit(
+                dataset, validation_dataset, evaluator_specs,
+                initial_model=previous if warm_start else initial_model,
+                timing_mode=timing_mode))
+            previous = results[-1].model
+        return results
+
+
+def select_best_result(results: Sequence[GameResult]) -> GameResult:
+    """Best by the first validation evaluator, in that evaluator's own
+    direction (reference: cli/game/training/Driver.selectBestModel:375)."""
+    if not results:
+        raise ValueError("no results")
+    with_val = [r for r in results if r.validation and r.validation_specs]
+    if not with_val:
+        return results[0]
+    spec = with_val[0].validation_specs[0]
+    best = with_val[0]
+    for r in with_val[1:]:
+        if spec.evaluator.better_than(r.validation[spec.name],
+                                      best.validation[spec.name]):
+            best = r
+    return best

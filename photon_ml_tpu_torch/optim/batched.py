@@ -1,0 +1,252 @@
+"""Batched LBFGS/OWLQN over a leading lane axis: E independent solves at once.
+
+The JAX package solves every entity of a random-effect bucket with
+`jax.jit(jax.vmap(solve))` (parallel/random_effect.py::_cached_batched_solver
+over optim/lbfgs.py): a vmapped `lax.while_loop` runs its body for every
+lane and keeps each lane's old state where that lane's loop condition is
+false, so each lane follows the trajectory of its own unbatched solve.
+PyTorch cannot vmap a loop whose trip count depends on the data, so here
+the loop runs on the host and every per-lane decision is a mask:
+
+- state per lane on the device: x, f, g [E, .]; the s/y history [E, m, d]
+  kept newest first (slot i holds the lane's i-th newest pair, valid while
+  i < min(num_pairs, m), as the reference's modular slots are); rho [E, m];
+  num_pairs, f_small, fg_count, reason and iterations [E];
+- a lane whose loop condition is false is frozen: its x, f, g and history
+  never move again;
+- the line search is per lane: a lane that has passed Armijo keeps its
+  accepted trial while the others halve, and each lane's fg_count counts
+  only its own trials;
+- the host reads back one pair of flags per step (any lane active, any
+  lane still searching) and one flag per extra backtracking round.
+
+Constants, the two-loop recursion, the line search and the convergence
+rules are those of optim/lbfgs.py.  Every value+gradient evaluation runs
+for all lanes (the frozen ones' results are discarded), as under vmap.
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional, Tuple, Union
+
+import torch
+
+from photon_ml_tpu_torch.optim.config import OptimizerType
+from photon_ml_tpu_torch.optim.lbfgs import (
+    _C1, _CURV_EPS, _F_CONV_PERSISTENCE, _MAX_LS, _pseudo_gradient,
+)
+from photon_ml_tpu_torch.optim.types import ConvergenceReason, SolveResult
+
+# [E, d] -> ([E] values, [E, d] gradients)
+BatchedValueAndGrad = Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
+
+
+def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return (a * b).sum(-1)
+
+
+def _two_loop(q, s_buf, y_buf, rho, num_pairs, pairs_bound: int):
+    """Two-loop recursion per lane over newest-first histories.  Slots at
+    or beyond a lane's pair count contribute exactly nothing (alpha = 0),
+    as in the reference's masked loop; `pairs_bound` (a host bound on
+    every lane's pair count) skips slots no lane has filled."""
+    zero = torch.zeros((), dtype=q.dtype, device=q.device)
+    alphas = []
+    for i in range(pairs_bound):
+        valid = i < num_pairs
+        a = torch.where(valid, rho[:, i] * _dot(s_buf[:, i], q), zero)
+        q = q - a[:, None] * y_buf[:, i]
+        alphas.append(a)
+    # H0 scaling from the newest pair
+    sy = _dot(s_buf[:, 0], y_buf[:, 0])
+    yy = _dot(y_buf[:, 0], y_buf[:, 0])
+    one = torch.ones((), dtype=q.dtype, device=q.device)
+    gamma = torch.where((num_pairs > 0) & (yy > 0),
+                        sy / torch.where(yy > 0, yy, one), one)
+    r = gamma[:, None] * q
+    for i in reversed(range(pairs_bound)):  # oldest stored first
+        valid = i < num_pairs
+        b = torch.where(valid, rho[:, i] * _dot(y_buf[:, i], r), zero)
+        r = r + torch.where(valid, alphas[i] - b, zero)[:, None] * s_buf[:, i]
+    return r
+
+
+def _push(buf: torch.Tensor, new: torch.Tensor, store: torch.Tensor) -> torch.Tensor:
+    """Lanes in `store` push `new` in at slot 0 (the oldest slot drops
+    out); the other lanes keep their history."""
+    shifted = torch.cat([new[:, None], buf[:, :-1]], dim=1)
+    return torch.where(store.view(-1, *([1] * (buf.ndim - 1))), shifted, buf)
+
+
+def lbfgs(
+    value_and_grad: BatchedValueAndGrad,
+    x0: torch.Tensor,
+    *,
+    max_iterations: int = 100,
+    tolerance: float = 1e-7,
+    history: int = 10,
+    l1_weight: Optional[Union[torch.Tensor, float]] = None,
+) -> SolveResult:
+    """Minimize f_e (+ l1*|x_e|_1 when `l1_weight` is set: OWLQN) for every
+    lane e of x0 [E, d] at once.
+
+    Returns a SolveResult whose fields have a leading [E] axis: x [E, d],
+    value, gradient_norm, iterations, reason and fg_count [E], histories
+    [E, max_iterations + 1].  x0 is not written."""
+    use_l1 = l1_weight is not None
+    m = history
+    E, d = x0.shape
+    dtype, device = x0.dtype, x0.device
+    l1 = (torch.as_tensor(l1_weight, dtype=dtype, device=device)
+          if use_l1 else None)
+    tolerance = float(tolerance)
+    nan = torch.full((), float("nan"), dtype=dtype, device=device)
+    zero = torch.zeros((), dtype=dtype, device=device)
+    one = torch.ones((), dtype=dtype, device=device)
+
+    def steer_grad(x, g):
+        return _pseudo_gradient(x, g, l1) if use_l1 else g
+
+    rounds = 0
+
+    def full_value(x):
+        nonlocal rounds
+        rounds += 1
+        v, g = value_and_grad(x)
+        if use_l1:
+            v = v + (l1 * torch.abs(x)).sum(-1)
+        return v, g
+
+    x = x0.clone()
+    f, g = full_value(x)
+    gnorm = torch.linalg.vector_norm(steer_grad(x, g), dim=-1)
+    # relative gradient convergence, like breeze's default check
+    gtol = tolerance * torch.maximum(gnorm, one)
+
+    s_buf = torch.zeros((E, m, d), dtype=dtype, device=device)
+    y_buf = torch.zeros((E, m, d), dtype=dtype, device=device)
+    rho = torch.zeros((E, m), dtype=dtype, device=device)
+    lanes_long = lambda v: torch.full((E,), v, dtype=torch.int64, device=device)
+    num_pairs = lanes_long(0)
+    f_small = lanes_long(0)
+    fg_count = lanes_long(1)  # the f0/g0 evaluation
+    reason = lanes_long(int(ConvergenceReason.NOT_CONVERGED))
+    iterations = lanes_long(0)
+    loss_hist = torch.full((E, max_iterations + 1), float("nan"),
+                           dtype=dtype, device=device)
+    gnorm_hist = torch.full_like(loss_hist, float("nan"))
+    loss_hist[:, 0] = f
+    gnorm_hist[:, 0] = gnorm
+    active = torch.full((E,), max_iterations > 0 and E > 0,
+                        dtype=torch.bool, device=device)
+
+    # every active lane has taken exactly `step` iterations
+    for step in range(max_iterations):
+        steer = steer_grad(x, g)
+        p = -_two_loop(steer, s_buf, y_buf, rho, num_pairs, min(step, m))
+        if use_l1:
+            # direction must agree with -pseudo-gradient sign-wise
+            p = torch.where(p * (-steer) > 0, p, zero)
+            orthant = torch.where(x != 0, torch.sign(x), torch.sign(-steer))
+        # fall back to steepest descent where not a descent direction
+        p = torch.where((_dot(steer, p) >= 0)[:, None], -steer, p)
+        # first iteration: scale so the first trial step is modest
+        t = torch.where(num_pairs == 0,
+                        1.0 / torch.maximum(torch.linalg.vector_norm(p, dim=-1), one),
+                        one)
+
+        def trial(t):
+            xt = x + t[:, None] * p
+            if use_l1:
+                xt = torch.where(xt * orthant > 0, xt, zero)
+            return xt
+
+        def armijo_ok(xt, ft):
+            # Armijo on the actual displacement
+            return (ft <= f + _C1 * _dot(steer, xt - x)) & torch.isfinite(ft)
+
+        xt = trial(t)
+        ft, gt = full_value(xt)
+        ok = armijo_ok(xt, ft)
+        ls_n = lanes_long(0)
+        searching = active & ~ok
+        any_active, any_searching = torch.stack(
+            [active.any(), searching.any()]).tolist()
+        if not any_active:
+            break
+        while any_searching:
+            t = torch.where(searching, t * 0.5, t)
+            xs = trial(t)
+            fs, gs = full_value(xs)
+            ok = torch.where(searching, armijo_ok(xs, fs), ok)
+            xt = torch.where(searching[:, None], xs, xt)
+            ft = torch.where(searching, fs, ft)
+            gt = torch.where(searching[:, None], gs, gt)
+            ls_n = ls_n + searching
+            searching = searching & ~ok & (ls_n < _MAX_LS)
+            any_searching = bool(searching.any())
+
+        # curvature pair from raw gradients (standard OWLQN choice)
+        s = xt - x
+        yv = gt - g
+        sy = _dot(s, yv)
+        store = active & ok & (sy > _CURV_EPS)
+        s_buf = _push(s_buf, s, store)
+        y_buf = _push(y_buf, yv, store)
+        rho = _push(rho, 1.0 / torch.where(store, sy, one), store)
+        num_pairs = num_pairs + store
+
+        gnorm_new = torch.linalg.vector_norm(steer_grad(xt, gt), dim=-1)
+        f_small_now = torch.abs(f - ft) <= tolerance * torch.maximum(
+            torch.maximum(torch.abs(f), torch.abs(ft)), one)
+        f_small_new = torch.where(f_small_now, f_small + 1, 0)
+        reason_new = torch.where(
+            ~ok, int(ConvergenceReason.LINE_SEARCH_FAILED),
+            torch.where(gnorm_new <= gtol, int(ConvergenceReason.GRADIENT_CONVERGED),
+                        torch.where(f_small_new >= _F_CONV_PERSISTENCE,
+                                    int(ConvergenceReason.FUNCTION_VALUES_CONVERGED),
+                                    int(ConvergenceReason.NOT_CONVERGED))))
+        # on line-search failure the lane keeps its previous iterate
+        take = active & ok
+        x = torch.where(take[:, None], xt, x)
+        f = torch.where(take, ft, f)
+        g = torch.where(take[:, None], gt, g)
+        gnorm = torch.where(take, gnorm_new, gnorm)
+        f_small = torch.where(active, f_small_new, f_small)
+        reason = torch.where(active, reason_new, reason)
+        fg_count = fg_count + active * (1 + ls_n)
+        iterations = iterations + active
+        loss_hist[:, step + 1] = torch.where(active, f, nan)
+        gnorm_hist[:, step + 1] = torch.where(active, gnorm, nan)
+        active = active & (reason == int(ConvergenceReason.NOT_CONVERGED))
+
+    reason = torch.where(reason == int(ConvergenceReason.NOT_CONVERGED),
+                         int(ConvergenceReason.MAX_ITERATIONS), reason)
+    return SolveResult(x=x, value=f, gradient_norm=gnorm, iterations=iterations,
+                       reason=reason, loss_history=loss_hist,
+                       gnorm_history=gnorm_hist, fg_count=fg_count,
+                       rounds=rounds)
+
+
+def solve(value_and_grad: BatchedValueAndGrad, x0: torch.Tensor, config,
+          reg, reg_weight=0.0) -> SolveResult:
+    """The batched counterpart of optim/config.py::solve for
+    `value_and_grad` over lanes that already carry the L2 term: L1 goes to
+    OWLQN.  `config` is an OptimizerConfig, `reg` a RegularizationContext.
+    TRON and box constraints on batched solves are not ported yet."""
+    cfg = config.resolved()
+    if cfg.optimizer == OptimizerType.TRON:
+        raise NotImplementedError(
+            "TRON for random effects is not ported yet (ROADMAP.md \"Next "
+            "slices\" item 1: TRON + hessian_vector); use OptimizerType.LBFGS")
+    if cfg.box_lower is not None or cfg.box_upper is not None:
+        raise NotImplementedError(
+            "box constraints on random-effect solves are not ported yet "
+            "(ROADMAP.md \"Next slices\" item 1, with configs 2-3)")
+    if cfg.track_coefficients:
+        raise NotImplementedError(
+            "coefficient tracking on batched solves is not ported yet "
+            "(ROADMAP.md queue A item 18: diagnostics)")
+    l1_w, _ = reg.split(reg_weight)
+    return lbfgs(value_and_grad, x0, max_iterations=cfg.max_iterations,
+                 tolerance=cfg.tolerance, history=cfg.history,
+                 l1_weight=l1_w if reg.has_l1 else None)

@@ -73,6 +73,7 @@ class OptimizerConfig:
     max_iterations: Optional[int] = None
     tolerance: Optional[float] = None
     history: int = 10                     # LBFGS memory
+    max_cg_iterations: int = 20           # TRON inner CG cap (TRON: not ported yet)
     # per-coordinate bounds, stored as tuples so the config stays hashable
     box_lower: Optional[tuple] = None
     box_upper: Optional[tuple] = None

@@ -41,6 +41,9 @@ class SolveResult:
     # LBFGS/OWLQN: fused value+gradient evaluations, the initial one and
     # every line-search trial included — each is a full pass over the data
     fg_count: Optional[int] = None
+    # batched solves (optim/batched.py): value+gradient rounds of the whole
+    # batch, each evaluating every lane (>= the largest lane's fg_count)
+    rounds: Optional[int] = None
 
     @property
     def converged(self) -> bool:

@@ -1,0 +1,180 @@
+"""Random-effect training: batched per-entity solves (port of
+photon_ml_tpu/parallel/random_effect.py, single device).
+
+Entities are grouped at data-prep time into padded dense blocks
+  x[E, S, d], labels[E, S], mask[E, S]
+and every per-entity LBFGS/OWLQN solve of a block runs at once, lane by
+lane, in the host-stepped batched solver (optim/batched.py).  Masked rows
+contribute nothing (where(), not a product).  d is the per-entity projected
+dimension (the index-map projector gathers each entity's observed features
+into a dense local space).
+
+Multi-GPU entity sharding is ROADMAP.md queue A item 20: `mesh` must be
+None.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+from photon_ml_tpu_torch.ops.losses import PointwiseLoss
+from photon_ml_tpu_torch.optim import batched
+from photon_ml_tpu_torch.optim.config import (
+    OptimizerConfig, RegularizationContext,
+)
+from photon_ml_tpu_torch.optim.types import SolveResult
+
+
+@dataclasses.dataclass
+class EntityBlocks:
+    """Padded per-entity batches.  `entity_mask` marks real (vs padding)
+    entities; the mask counts real rows.  Entity ids live host-side in the
+    data layer's RandomEffectDataset."""
+
+    x: torch.Tensor                           # [E, S, d]
+    labels: torch.Tensor                      # [E, S]
+    mask: torch.Tensor                        # [E, S] 1.0 = real row
+    weights: Optional[torch.Tensor] = None    # [E, S]
+    offsets: Optional[torch.Tensor] = None    # [E, S]
+
+    @property
+    def num_entities(self) -> int:
+        return self.x.shape[0]
+
+    @property
+    def samples_per_entity(self) -> int:
+        return self.x.shape[1]
+
+    @property
+    def dim(self) -> int:
+        return self.x.shape[2]
+
+    @property
+    def entity_mask(self) -> torch.Tensor:
+        return (self.mask.sum(dim=1) > 0).to(self.x.dtype)
+
+    def with_offsets(self, offsets: torch.Tensor) -> "EntityBlocks":
+        """Residual exchange for coordinate descent: a tensor assignment."""
+        return dataclasses.replace(self, offsets=offsets)
+
+
+def _masked(v: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    # where() not multiply: a non-finite loss on a padded row must not
+    # poison the aggregate (inf * 0 == nan)
+    return torch.where(mask != 0, v, torch.zeros_like(v))
+
+
+def batched_value_and_gradient(
+    loss: PointwiseLoss, blocks: EntityBlocks, coefficients: torch.Tensor,
+    l2_weight=0.0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every lane's masked GLM objective at once: ([E] values, [E, d]
+    gradients) of sum_s mask*w*l(z, y) + l2/2 |c|^2, z = x.c + offset."""
+    z = torch.einsum("esd,ed->es", blocks.x, coefficients)
+    if blocks.offsets is not None:
+        z = z + blocks.offsets
+    l, dl = loss.loss_and_dz(z, blocks.labels)
+    if blocks.weights is not None:
+        l = l * blocks.weights
+        dl = dl * blocks.weights
+    l, dl = _masked(l, blocks.mask), _masked(dl, blocks.mask)
+    value = l.sum(dim=1) + 0.5 * l2_weight * (coefficients * coefficients).sum(dim=1)
+    grad = torch.einsum("es,esd->ed", dl, blocks.x) + l2_weight * coefficients
+    return value, grad
+
+
+def fit_random_effects(
+    blocks: EntityBlocks,
+    loss: PointwiseLoss,
+    mesh=None,
+    x0: Optional[torch.Tensor] = None,
+    config: OptimizerConfig = OptimizerConfig(),
+    reg: RegularizationContext = RegularizationContext(),
+    reg_weight: float = 0.0,
+) -> SolveResult:
+    """All per-entity solves of one block as one batched solve.  Returns a
+    SolveResult whose fields have a leading [E] axis (x: [E, d], value:
+    [E], ...).  One lambda is shared by every entity.  x0 is not written."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "random effects on a mesh are not ported yet (ROADMAP.md queue "
+            "A item 20: multi-GPU training); pass mesh=None")
+    E, _, d = blocks.x.shape
+    if x0 is None:
+        x0 = torch.zeros((E, d), dtype=blocks.x.dtype, device=blocks.x.device)
+    _, l2_w = reg.split(reg_weight)
+    return batched.solve(
+        lambda c: batched_value_and_gradient(loss, blocks, c, l2_w),
+        x0, config, reg, reg_weight)
+
+
+def scatter_local_to_global(coefficients: torch.Tensor, projection,
+                            global_dim: int) -> torch.Tensor:
+    """[E, d_local] local-space coefficients -> [E, d_global] by scattering
+    along each entity's projection columns (-1 = padding)."""
+    if projection is None:
+        return coefficients
+    proj = torch.as_tensor(projection, device=coefficients.device)
+    cols = torch.clamp(proj, min=0).to(torch.int64)
+    vals = torch.where(proj >= 0, coefficients, torch.zeros_like(coefficients))
+    out = torch.zeros((coefficients.shape[0], global_dim),
+                      dtype=coefficients.dtype, device=coefficients.device)
+    return out.scatter_add_(1, cols, vals)
+
+
+def score_entity_blocks(coefficients: torch.Tensor, blocks: EntityBlocks) -> torch.Tensor:
+    """Margins for every (entity, sample) cell: [E, S].  Masked cells
+    score 0."""
+    scores = torch.einsum("esd,ed->es", blocks.x, coefficients)
+    if blocks.offsets is not None:
+        scores = scores + blocks.offsets
+    return scores * blocks.mask
+
+
+def score_by_entity(coefficients: torch.Tensor, x: torch.Tensor,
+                    entity_index: torch.Tensor) -> torch.Tensor:
+    """Score flat rows against their entity's model: one gather + row dot.
+    Rows with entity_index -1 (unseen entity) score 0, the missing-score
+    default."""
+    num_entities = coefficients.shape[0]
+    if num_entities == 0:
+        # empty coefficient table: every row is unseen and scores 0
+        return torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
+    in_range = (entity_index >= 0) & (entity_index < num_entities)
+    safe_idx = torch.clamp(entity_index, 0, num_entities - 1)
+    s = (x * coefficients[safe_idx]).sum(dim=-1)
+    return torch.where(in_range, s, torch.zeros_like(s))
+
+
+def score_entities_scatter(coefficients, projection, x, lanes, *,
+                           global_dim: int) -> torch.Tensor:
+    """Index-map-projected per-entity scoring: scatter to global space,
+    then entity gather + row dot."""
+    g = scatter_local_to_global(coefficients, projection, global_dim)
+    return score_by_entity(g, x, lanes)
+
+
+def score_entities_plain(coefficients, x, lanes) -> torch.Tensor:
+    return score_by_entity(coefficients, x, lanes)
+
+
+def random_effect_variances(
+    blocks: EntityBlocks, loss: PointwiseLoss, coefficients: torch.Tensor,
+    reg: RegularizationContext = RegularizationContext(),
+    reg_weight: float = 0.0,
+) -> torch.Tensor:
+    """Per-entity coefficient variances 1 / (diag(H) + 1e-12) from the
+    masked Hessian diagonals.  Pass the reg/reg_weight used for training so
+    the L2 term enters the curvature."""
+    _, l2_w = reg.split(reg_weight)
+    z = torch.einsum("esd,ed->es", blocks.x, coefficients)
+    if blocks.offsets is not None:
+        z = z + blocks.offsets
+    d2 = loss.d2z(z, blocks.labels)
+    if blocks.weights is not None:
+        d2 = d2 * blocks.weights
+    d2 = _masked(d2, blocks.mask)
+    hd = torch.einsum("es,esd->ed", d2, blocks.x * blocks.x)
+    return 1.0 / (hd + l2_w + 1e-12)

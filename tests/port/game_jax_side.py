@@ -1,0 +1,205 @@
+"""The JAX side of the GLMix parity tests, run in a subprocess of its own.
+
+    python tests/port/game_jax_side.py solver|estimator OUT.npz
+
+The parity tests (test_torch_game_solver.py, test_torch_game_estimator.py)
+start this once per test module, with JAX on the CPU in float64, and read
+its results from OUT.npz.  Compiling the JAX package's batched solver and
+GAME programs in a process of their own keeps their XLA compile state out
+of the test process.  The problem builders below are numpy only, so the
+tests import them to build the same inputs for the port.
+"""
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parents[2]
+
+# batched-solver problem: [E, S, d] with ragged lanes
+SOLVER_E, SOLVER_S, SOLVER_D = 24, 16, 5
+SOLVER_CASES = {
+    # name -> (loss, regularization, alpha, lambda, warm start)
+    "logistic_l2": ("logistic", "l2", None, 1.0, False),
+    "logistic_elastic_net": ("logistic", "elastic_net", 0.5, 3.0, False),
+    "squared_l2_warm": ("squared", "l2", None, 0.5, True),
+    "poisson_elastic_net_warm": ("poisson", "elastic_net", 0.3, 1.0, True),
+}
+SOLVER_MAX_ITERATIONS, SOLVER_TOLERANCE = 60, 1e-8
+
+# estimator: BASELINE config 4's shape, cut to a few thousand rows
+ESTIMATOR_ROWS, ESTIMATOR_SEED, ESTIMATOR_OUTER = 3000, 11, 2
+
+
+def solver_problem(case: str, seed: int = 5) -> dict:
+    """Padded blocks like the data layer's: per-lane real-row counts 0
+    (all-masked lanes), 1, and ragged up to S; padding cells carry x 0,
+    label 0.5, weight 0 and offset 0.  Weights and offsets on every lane."""
+    loss, _, _, _, warm = SOLVER_CASES[case]
+    rng = np.random.default_rng(seed)
+    E, S, d = SOLVER_E, SOLVER_S, SOLVER_D
+    counts = rng.integers(2, S + 1, size=E)
+    counts[[0, 5]] = 0
+    counts[[1, 7, 11]] = 1
+    counts[2] = S
+    mask = (np.arange(S)[None, :] < counts[:, None]).astype(np.float64)
+    x = rng.normal(size=(E, S, d))
+    x[:, :, -1] = 1.0
+    x *= mask[:, :, None]
+    w_true = rng.normal(size=(E, d))
+    z = np.einsum("esd,ed->es", x, w_true)
+    if loss == "logistic":
+        y = (rng.uniform(size=(E, S)) < 1.0 / (1.0 + np.exp(-z))).astype(np.float64)
+    elif loss == "squared":
+        y = z + rng.normal(size=(E, S))
+    else:
+        y = rng.poisson(np.exp(0.3 * z)).astype(np.float64)
+    labels = np.where(mask > 0, y, 0.5)
+    weights = rng.uniform(0.5, 2.0, size=(E, S)) * mask
+    offsets = rng.normal(size=(E, S)) * 0.3 * mask
+    x0 = (rng.normal(size=(E, d)) * 0.2 if warm else np.zeros((E, d)))
+    return dict(x=x, labels=labels, mask=mask, weights=weights,
+                offsets=offsets, x0=x0)
+
+
+def movielens_glmix(build_game_dataset, make_movielens_like, movielens_shards,
+                    n_rows: int = ESTIMATOR_ROWS):
+    """(train, validation) of config 4's shape at `n_rows` rows in float64,
+    split 95/5 as bench.py's _game_setup splits them; pass either package's
+    builders."""
+    ml = make_movielens_like("1m", seed=ESTIMATOR_SEED, n_rows=n_rows)
+    shards = {k: v.astype(np.float64) for k, v in movielens_shards(ml).items()
+              if k != "per_item"}
+    ds = build_game_dataset(ml.response.astype(np.float64), shards,
+                            entity_ids={"userId": ml.user_ids})
+    rng = np.random.default_rng(ESTIMATOR_SEED + 99)
+    val_mask = rng.uniform(size=ds.num_rows) < 0.05
+    return ds.subset(np.flatnonzero(~val_mask)), ds.subset(np.flatnonzero(val_mask))
+
+
+def glmix_config_dict() -> dict:
+    """Config 4's coordinates as GameTrainingConfig JSON: a fixed effect on
+    "global" and a per-user random effect on "per_user" (cap 512), both
+    LBFGS(100) with L2 lambda 1, two outer iterations."""
+    opt = {"optimizer": {"optimizer": "lbfgs", "max_iterations": 100,
+                         "tolerance": None, "history": 10,
+                         "max_cg_iterations": 20, "box_lower": None,
+                         "box_upper": None, "constraints": None,
+                         "track_coefficients": False},
+           "regularization": {"type": "l2", "alpha": None},
+           "regularization_weight": 1.0, "downsampling_rate": None}
+    return {"task_type": "logistic_regression",
+            "coordinates": {
+                "fixed": {"kind": "fixed_effect", "feature_shard": "global",
+                          "normalization": "none", "shard_features": None,
+                          "memory_mode": None, "chunk_rows": None,
+                          "solver_schedule": None, "optimization": opt},
+                "perUser": {"kind": "random_effect",
+                            "random_effect_type": "userId",
+                            "feature_shard": "per_user",
+                            "active_data_upper_bound": 512,
+                            "passive_data_lower_bound": None,
+                            "features_to_samples_ratio": None,
+                            "projector": "index_map", "solver_schedule": None,
+                            "optimization": opt}},
+            "updating_sequence": ["fixed", "perUser"],
+            "num_outer_iterations": ESTIMATOR_OUTER, "seed": ESTIMATOR_SEED,
+            "hbm_budget_bytes": None, "solver_schedule": None}
+
+
+def variant_config_dict() -> dict:
+    """Config 4 with the other ported paths turned on: a standardized fixed
+    effect, and a random effect under elastic net (OWLQN) whose cap of 2
+    rows bites (passive rows above, discarded rows at or below the lower
+    bound of 1) with Pearson feature selection."""
+    d = glmix_config_dict()
+    d["coordinates"]["fixed"]["normalization"] = "standardization"
+    re = d["coordinates"]["perUser"]
+    re.update(active_data_upper_bound=2, passive_data_lower_bound=1,
+              features_to_samples_ratio=0.5)
+    re["optimization"] = dict(re["optimization"],
+                              regularization={"type": "elastic_net", "alpha": 0.5},
+                              regularization_weight=2.0)
+    return d
+
+
+# name -> JSON config of each estimator parity case
+ESTIMATOR_CONFIGS = {"config4": glmix_config_dict, "variant": variant_config_dict}
+
+
+def _run_solver(out: dict) -> None:
+    import jax.numpy as jnp
+    from photon_ml_tpu.ops.losses import BY_NAME
+    from photon_ml_tpu.optim import (OptimizerConfig, RegularizationContext,
+                                     RegularizationType)
+    from photon_ml_tpu.parallel.random_effect import _cached_batched_solver
+    for case, (loss, reg, alpha, lam, _) in SOLVER_CASES.items():
+        p = solver_problem(case)
+        solver = _cached_batched_solver(
+            BY_NAME[loss],
+            OptimizerConfig(max_iterations=SOLVER_MAX_ITERATIONS,
+                            tolerance=SOLVER_TOLERANCE),
+            RegularizationContext(RegularizationType(reg), alpha), True, True)
+        res = solver(*(jnp.asarray(p[k]) for k in
+                       ("x", "labels", "mask", "weights", "offsets", "x0")),
+                     jnp.asarray(lam), None)
+        for field in ("x", "value", "iterations", "fg_count", "reason",
+                      "loss_history"):
+            out[f"{case}/{field}"] = np.asarray(getattr(res, field))
+
+
+def _run_estimator(out: dict) -> None:
+    from photon_ml_tpu.data.game_data import build_game_dataset
+    from photon_ml_tpu.data.synthetic_bench import (make_movielens_like,
+                                                    movielens_shards)
+    from photon_ml_tpu.game import GameEstimator, GameTrainingConfig
+    train, val = movielens_glmix(build_game_dataset, make_movielens_like,
+                                 movielens_shards)
+    for name, config_dict in ESTIMATOR_CONFIGS.items():
+        cfg = GameTrainingConfig.from_dict(config_dict())
+        res = GameEstimator(cfg).fit(train, val, ["AUC"], timing_mode="strict")
+        out[f"{name}/objective_history"] = np.asarray(res.objective_history)
+        out[f"{name}/auc_history"] = np.asarray(res.descent.validation_history["AUC"])
+        out[f"{name}/auc"] = np.asarray(res.validation["AUC"])
+        for key, t in res.descent.trackers.items():
+            out[f"{name}/iterations/{key}"] = np.asarray(t.iterations)
+        # the final model (the best one may be an earlier snapshot)
+        fe = res.descent.model.coordinates["fixed"]
+        re = res.descent.model.coordinates["perUser"]
+        out[f"{name}/fixed/means"] = np.asarray(fe.glm.coefficients.means)
+        out[f"{name}/perUser/coefficients"] = np.asarray(re.coefficients)
+        out[f"{name}/perUser/entity_ids"] = np.asarray(re.entity_ids)
+        out[f"{name}/perUser/projection"] = np.asarray(re.projection)
+        out[f"{name}/perUser/global_dim"] = np.asarray(re.global_dim)
+        out[f"{name}/val_scores"] = np.asarray(res.descent.model.score_dataset(val))
+
+
+def run_jax_side(what: str, out: Path) -> dict:
+    """Run this script for `what` in a fresh process; its results."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT), JAX_PLATFORMS="cpu")
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), what,
+                           str(out)], cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"the JAX side failed:\n{proc.stderr[-4000:]}")
+    with np.load(out) as z:
+        return {k: z[k] for k in z.files}
+
+
+def main(argv) -> int:
+    what, path = argv[1], argv[2]
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_enable_x64", True)
+    out: dict = {}
+    {"solver": _run_solver, "estimator": _run_estimator}[what](out)
+    np.savez(path, **out)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv))
