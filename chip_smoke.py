@@ -45,7 +45,31 @@ Phases, one JSON object per line on stdout:
      residual scores as offsets;
   9. glmix profile: one outer iteration under torch.profiler (device idle
      share, kernel time, the largest items);
- 10. the kernels line, nvidia-smi's line, and the final result line.
+ 10. config2: BASELINE config 2's eight solves (bench.py bench_config2) at
+     full size, make_a1a_like(256, "linear" | "poisson", seed=52) =
+     [410,880 x 124], through train_glm on cuda in float32: OWLQN elastic
+     net (lambda 0.1, alpha 0.5) and L1 (lambda 0.1), 200 iterations, tol
+     1e-10; TRON L2 (lambda 1, 30 iterations, tol 1e-10); LBFGS L2 (lambda
+     1, 200 iterations, tol 1e-10).  Each solve's float64 objective must be
+     within 1e-5 relative of its scipy optimum in bench_ref_cache.json (the
+     key carries the data's fingerprint, so the data must be the
+     reference's byte for byte), and its kernel launches must equal its
+     fg_count (LBFGS/OWLQN) or iterations + 1 (TRON: one pass at x0 and
+     one per trial point); each solve runs again warm, not counted.  Then
+     the kernel against its plain version and timed at this shape for the
+     squared and poisson losses, and one Hessian-vector product timed at
+     this shape: the closure TRON's CG steps call, the whole
+     hessian_vector (margins included) and two torch.mv;
+ 11. config3: BASELINE config 3 (bench.py bench_config3),
+     make_a1a_like(256, "hinge", seed=62), smoothed hinge, L2 lambda 1, box
+     [-0.5, 0.5], LBFGS(200, tol 1e-10), with the same two checks;
+ 12. glmix_tron: config 4's data and split fit by GameEstimator.fit with
+     TRON (15 iterations, tol 1e-5) on both coordinates: the final
+     objective must be within 1e-4 relative of the same float64 reference
+     and the fixed effect's kernel launches must equal the sum of its
+     solves' iterations + 1; then the fit again, warm, and one outer
+     iteration under torch.profiler;
+ 13. the kernels line, nvidia-smi's line, and the final result line.
 Exits non-zero, before printing any result, when CUDA is absent or when
 the port's package is not beside this script.
 """
@@ -71,6 +95,9 @@ GLMIX_REF_KEY = "1m:1000209:11:glmix:v=g2"
 GLMIX_ROWS, GLMIX_SEED, GLMIX_OUTER = 1_000_209, 11, 2
 GLMIX_RTOL = 1e-4
 LAMBDA = 1.0
+# BASELINE configs 2 and 3 (bench.py bench_config2, bench_config3)
+CONFIG23_REPLICAS, CONFIG2_SEED, CONFIG3_SEED = 256, 52, 62
+CONFIG23_RTOL = 1e-5
 REPS = 30
 VALUE_RTOL, GRAD_RTOL, GRAD_ATOL = 1e-5, 1e-4, 1e-4
 NLL_RTOL = 1e-5
@@ -272,17 +299,44 @@ def profile_run(train) -> dict:
     return {"fg_count": trained[0].result.fg_count, **stats}
 
 
-def host_objective(x, y, w, lam) -> float:
-    """float64 sum softplus(-yy*z) + lam/2 |w|^2 on the host (bench.py's
-    np_objective_value for the logistic task)."""
+def host_loss(task: str, z, y):
+    """float64 per-row loss on the host (bench.py's _np_loss)."""
+    if task in ("logistic_regression", "smoothed_hinge_loss_linear_svm"):
+        yy = np.where(y > 0.5, 1.0, -1.0)
+        if task == "logistic_regression":
+            return np.logaddexp(0.0, -yy * z)
+        t = yy * z
+        return np.where(t < 0, 0.5 - t, np.where(t < 1, 0.5 * (1 - t) ** 2, 0.0))
+    if task == "linear_regression":
+        return 0.5 * (z - y) ** 2
+    if task == "poisson_regression":
+        return np.exp(z) - y * z
+    raise ValueError(task)
+
+
+def host_objective(x, y, w, lam, task="logistic_regression", l1=0.0) -> float:
+    """float64 sum l(z, y) + l1 |w|_1 + lam/2 |w|^2 on the host (bench.py's
+    np_objective_value)."""
     w = np.asarray(w, np.float64)
     total = 0.0
     step = 1 << 18
     for i in range(0, x.shape[0], step):
         z = x[i:i + step].astype(np.float64) @ w
-        yy = np.where(y[i:i + step] > 0.5, 1.0, -1.0)
-        total += float(np.logaddexp(0.0, -yy * z).sum())
-    return total + 0.5 * lam * float(w @ w)
+        total += float(host_loss(task, z, y[i:i + step].astype(np.float64)).sum())
+    return total + l1 * float(np.abs(w).sum()) + 0.5 * lam * float(w @ w)
+
+
+def scipy_ref_key(task, seed, x, y, l1, l2, box) -> str:
+    """bench.py glm_entry's key of the scipy optimum: the problem and a
+    content hash of the data (bench.py _data_fingerprint), so a lookup
+    succeeds only for the reference's data, byte for byte."""
+    import hashlib
+    from photon_ml_tpu_torch.data.synthetic_bench import GENERATOR_VERSION
+    h = hashlib.blake2b(digest_size=8)
+    h.update(np.ascontiguousarray(x).data)
+    h.update(np.ascontiguousarray(y).data)
+    return (f"scipy:{task}:seed{seed}:{x.shape[0]}x{x.shape[1]}:l1={l1}:l2={l2}"
+            f":box={box}:fp={GENERATOR_VERSION}-{h.hexdigest()}")
 
 
 def glmix_setup():
@@ -320,9 +374,15 @@ def glmix_setup():
     return train, val, cfg
 
 
+def passes(fg_count, iterations) -> int:
+    """Value+gradient passes of one solve: LBFGS/OWLQN count theirs
+    (fg_count); TRON makes one at x0 and one per trial point."""
+    return fg_count if fg_count is not None else iterations + 1
+
+
 def fe_passes(descent) -> int:
     """Value+gradient passes of the fit's fixed-effect solves."""
-    return sum(t.fg_count for k, t in descent.trackers.items()
+    return sum(passes(t.fg_count, t.iterations) for k, t in descent.trackers.items()
                if k.endswith("/fixed"))
 
 
@@ -345,19 +405,117 @@ def glmix_report(result, fit_s, n_train, launches, ref_nll) -> dict:
         "ref_nll": ref_nll, "nll_rel_gap": (final - ref_nll) / abs(ref_nll),
         "validation_auc": result.validation["AUC"],
         "auc_history": d.validation_history["AUC"],
-        "kernel_launches": launches, "fe_fg_count": fe_passes(d),
+        "kernel_launches": launches, "fe_passes": fe_passes(d),
         "finite": finite,
         "spans_s": dict(d.timings), "host_blocked_s": d.timings.host_blocked_total(),
         "solves": {k: {"iterations": t.iterations, "fg_count": t.fg_count,
+                       "hv_count": t.hv_count,
                        "wall_s": t.wall_s, "reasons": t.reasons,
                        "buckets": None if t.buckets is None else [
                            {"E_S_d": list(b.shape), "max_iterations": b.max_iterations,
                             "total_iterations": b.total_iterations, "rounds": b.rounds,
-                            "seconds": b.seconds}
+                            "hv_rounds": b.hv_rounds, "seconds": b.seconds}
                            for b in t.buckets]}
                    for k, t in d.trackers.items()},
         "random_effect_entities": int(model["perUser"].coefficients.shape[0]),
     }
+
+
+def check_glmix(phase: str, g: dict) -> None:
+    """A GLMix fit's checks: finite, one kernel launch per fixed-effect
+    pass, the objective within GLMIX_RTOL of the reference, a usable AUC."""
+    if not g["finite"]:
+        raise SystemExit(f"{phase}: non-finite or misshapen objective or coefficients")
+    if not (g["kernel_launches"] == g["fe_passes"] and g["kernel_launches"] > 0):
+        raise SystemExit(f"{phase}: kernel launches {g['kernel_launches']} != "
+                         f"fixed-effect passes {g['fe_passes']}")
+    if not abs(g["nll_rel_gap"]) <= GLMIX_RTOL:
+        raise SystemExit(f"{phase}: objective {g['final_objective']} is "
+                         f"{g['nll_rel_gap']:.3e} from the reference {g['ref_nll']}")
+    if not 0.5 < g["validation_auc"] < 1.0:
+        raise SystemExit(f"{phase}: validation AUC {g['validation_auc']}")
+
+
+def glm_solve(hk, data, task, seed, label, cfg, reg, lam, box, ref_cache) -> dict:
+    """One BASELINE config 2/3 entry (bench.py glm_entry) through train_glm
+    on the card: the counted solve, then a warm one; its float64 objective
+    against the scipy optimum; its checks raise."""
+    from photon_ml_tpu_torch.models.training import train_glm
+    from photon_ml_tpu_torch.optim.types import ConvergenceReason
+    x_np, y_np, x, y = data
+
+    def train():
+        return train_glm(x, y, task, optimizer_config=cfg, regularization=reg,
+                         regularization_weights=(lam,), device="cuda")[0]
+
+    hk.LAUNCHES = 0
+    t = train()
+    launches = hk.LAUNCHES
+    warm = train()
+    r = t.result
+    l1, l2 = reg.split(lam)
+    ref = ref_cache[scipy_ref_key(task, seed, x_np, y_np, l1, l2, box)]["ref_nll"]
+    nll = host_objective(x_np, y_np, t.model.coefficients.means.double().cpu().numpy(),
+                         l2, task, l1)
+    gap = (nll - ref) / abs(ref)
+    # bench.py's count: LBFGS/OWLQN passes, or TRON's iterations + Hv products
+    data_passes = (r.fg_count if r.fg_count is not None else r.iterations) + (r.hv_count or 0)
+    n = x_np.shape[0]
+    entry = {"name": label, "task": task, "optimizer": cfg.optimizer.value,
+             "iterations": r.iterations, "fg_count": r.fg_count, "hv_count": r.hv_count,
+             "reason": ConvergenceReason(r.reason).name, "kernel_launches": launches,
+             "data_passes": data_passes, "wall_s": t.wall_s, "warm_wall_s": warm.wall_s,
+             "examples_per_s": n * data_passes / t.wall_s,
+             "warm_examples_per_s": n * data_passes / warm.wall_s,
+             "final_nll_f64": nll, "ref_nll": ref, "nll_rel_gap": gap}
+    emit({"phase": "glm_solve", **entry})
+    if not (launches == passes(r.fg_count, r.iterations) and launches > 0):
+        raise SystemExit(f"{label}: kernel launches {launches} != passes "
+                         f"{passes(r.fg_count, r.iterations)}")
+    if not abs(gap) <= CONFIG23_RTOL:
+        raise SystemExit(f"{label}: objective {nll} is {gap:.3e} from the reference {ref}")
+    return entry
+
+
+def time_hv(obj, x) -> dict:
+    """One Hessian-vector product at x's shape, timed as time_full times
+    the kernel: the closure TRON's CG steps call (margins and l'' at c
+    computed beforehand), the whole hessian_vector (margins included) and
+    the library call (two torch.mv, X v and X^T u); each call with its own
+    perturbed v."""
+    import torch
+    n, d = x.shape
+    c = torch.linspace(-0.1, 0.1, d, device="cuda", dtype=torch.float32)
+    base = torch.linspace(-1.0, 1.0, d, device="cuda", dtype=torch.float32)
+    u = torch.linspace(-1.0, 1.0, n, device="cuda", dtype=torch.float32)
+    at = obj.hessian_vector_at(c)
+    batch = 10
+    calls = {"ms": at, "full_ms": lambda v: obj.hessian_vector(c, v),
+             "library_ms": lambda v: (torch.mv(x, v), torch.mv(x.T, u))}
+    times = {k: [] for k in calls}
+    for r in range(REPS + 2):  # the first two rounds warm up
+        vs = [base + 1e-6 * (r * batch + i + 1) for i in range(batch)]
+        for key, call in calls.items():
+            ms = cuda_ms(lambda: [call(v) for v in vs]) / batch
+            if r >= 2:
+                times[key].append(ms)
+    med = {k: statistics.median(v) for k, v in times.items()}
+    # least the card could take for one product: read X, the labels and
+    # the offsets once (n (d + 2) floats), v and c, write Hv; x.v and
+    # X^T(.) are 4 n d flops at the f32 peak
+    nbytes = 4 * (n * (d + 2) + 3 * d)
+    bound_bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    bound_ops_ms = 4 * n * d / PEAK_F32_FLOPS * 1e3
+    med["bound_ms"] = max(bound_bytes_ms, bound_ops_ms)
+    med["bound_by"] = "bytes" if bound_bytes_ms >= bound_ops_ms else "operations"
+    med["share_of_bound"] = med["bound_ms"] / med["ms"]
+    med["ms_over_library"] = med["ms"] / med["library_ms"]
+    # device launches per call, from the profile of `batch` calls
+    _, prof_at = profile_call(lambda: [at(v) for v in vs])
+    _, prof_full = profile_call(lambda: [obj.hessian_vector(c, v) for v in vs])
+    med["launches_per_call"] = prof_at["device_launches"] / batch
+    med["full_launches_per_call"] = prof_full["device_launches"] / batch
+    return med
 
 
 def main() -> int:
@@ -463,6 +621,76 @@ def main() -> int:
         raise SystemExit(f"profiled {prof['fused_kernel_launches']} device launches of the "
                          f"kernel for {prof['fg_count']} passes; expected one per pass")
 
+    # --- BASELINE configs 2 and 3 through train_glm ---------------------------
+    from photon_ml_tpu_torch.ops.losses import POISSON, SQUARED
+    from photon_ml_tpu_torch.ops.objective import GLMObjective
+    from photon_ml_tpu_torch.optim.config import OptimizerType
+    del x, y
+
+    def a1a_data(task_key, seed):
+        x_np, y_np = make_a1a_like(CONFIG23_REPLICAS, task_key, seed=seed)
+        return x_np, y_np, torch.from_numpy(x_np).cuda(), torch.from_numpy(y_np).cuda()
+
+    l2_reg = RegularizationContext(RegularizationType.L2)
+    config2_solves = (  # bench.py bench_config2, in its order
+        ("owlqn_elastic_net", OptimizerType.LBFGS, 200,
+         RegularizationContext(RegularizationType.ELASTIC_NET, elastic_net_alpha=0.5), 0.1),
+        ("owlqn_l1", OptimizerType.LBFGS, 200, RegularizationContext(RegularizationType.L1), 0.1),
+        ("tron_l2", OptimizerType.TRON, 30, l2_reg, 1.0),
+        ("lbfgs_l2", OptimizerType.LBFGS, 200, l2_reg, 1.0))
+    c2_entries, c2_launches, fvg_at_config2, hv_timing = [], 0, {}, {}
+    c2_rng = np.random.default_rng(2)
+    for task_key, task, loss in (("linear", "linear_regression", SQUARED),
+                                 ("poisson", "poisson_regression", POISSON)):
+        t0 = time.perf_counter()
+        data = a1a_data(task_key, CONFIG2_SEED)
+        emit({"phase": "config2_data", "task": task, "shape": list(data[0].shape),
+              "seconds": time.perf_counter() - t0})
+        for label, opt, iters, reg, lam in config2_solves:
+            entry = glm_solve(
+                hk, data, task, CONFIG2_SEED, f"a1a_{task_key}_{label}",
+                OptimizerConfig(optimizer=opt, max_iterations=iters, tolerance=1e-10),
+                reg, lam, None, ref_cache)
+            c2_entries.append(entry)
+            c2_launches += entry["kernel_launches"]
+        xc, yc = data[2], data[3]
+        c = torch.from_numpy((c2_rng.normal(size=xc.shape[1]) * 0.1).astype(np.float32)).cuda()
+        ok, err, v_rel, g_rel = compare(hk, loss, xc, yc, c, None, None)
+        emit({"phase": "check", "size": "config2", "shape": list(xc.shape), "loss": loss.name,
+              "inputs": "plain", "ok": ok, "max_abs_err": err, "value_rel_err": v_rel,
+              "grad_err_over_tol": g_rel})
+        if not ok:
+            raise SystemExit(f"kernel disagrees with its plain version at config 2 ({loss.name})")
+        fvg = time_full(hk, loss, xc, yc)
+        fvg_at_config2[loss.name] = {**fvg, "max_abs_err": err}
+        emit({"phase": "timing", "shape": list(xc.shape), "loss": loss.name, "reps": REPS,
+              "device": kind, "nvidia_smi": smi,
+              "plan": dataclasses.asdict(hk.plan_fused(*xc.shape, sms)), **fvg})
+        hv_timing[loss.name] = {"shape": list(xc.shape),
+                                **time_hv(GLMObjective(loss, xc, yc, l2_weight=1.0), xc)}
+        del data, xc, yc
+    hv_calls = sum(e["hv_count"] for e in c2_entries if e["hv_count"] is not None)
+    for name, h in hv_timing.items():
+        emit({"phase": "hv_timing", "loss": name, "reps": REPS, "device": kind, "nvidia_smi": smi,
+              "hv_calls_on_config2_tron": hv_calls, **h})
+    emit({"phase": "config2", "config": "BASELINE config 2 (bench.py bench_config2)",
+          "entries": len(c2_entries), "kernel_launches": c2_launches,
+          "hv_calls": hv_calls, "device": kind, "nvidia_smi": smi})
+
+    t0 = time.perf_counter()
+    data = a1a_data("hinge", CONFIG3_SEED)
+    emit({"phase": "config3_data", "shape": list(data[0].shape),
+          "seconds": time.perf_counter() - t0})
+    d3 = data[0].shape[1]
+    c3 = glm_solve(hk, data, "smoothed_hinge_loss_linear_svm", CONFIG3_SEED,
+                   "a1a_smoothed_hinge_box_lbfgs_l2",
+                   OptimizerConfig(max_iterations=200, tolerance=1e-10,
+                                   box_lower=(-0.5,) * d3, box_upper=(0.5,) * d3),
+                   l2_reg, 1.0, (-0.5, 0.5), ref_cache)
+    emit({"phase": "config3", "config": "BASELINE config 3 (bench.py bench_config3)",
+          "kernel_launches": c3["kernel_launches"], "device": kind, "nvidia_smi": smi})
+    del data
+
     # --- GLMix: BASELINE config 4 through GameEstimator.fit -------------------
     from photon_ml_tpu_torch.game import GameEstimator
     t0 = time.perf_counter()
@@ -479,16 +707,7 @@ def main() -> int:
     emit({"phase": "glmix", "entry": "photon_ml_tpu_torch.game.GameEstimator.fit",
           "config": "BASELINE config 4 (bench.py bench_config4)", "device": kind,
           "nvidia_smi": smi, **g})
-    if not g["finite"]:
-        raise SystemExit("glmix: non-finite or misshapen objective or coefficients")
-    if not (g_launches == g["fe_fg_count"] and g_launches > 0):
-        raise SystemExit(f"glmix: kernel launches {g_launches} != fixed-effect "
-                         f"fg_count {g['fe_fg_count']}")
-    if not abs(g["nll_rel_gap"]) <= GLMIX_RTOL:
-        raise SystemExit(f"glmix: objective {g['final_objective']} is "
-                         f"{g['nll_rel_gap']:.3e} from the reference {glmix_ref}")
-    if not 0.5 < g["validation_auc"] < 1.0:
-        raise SystemExit(f"glmix: validation AUC {g['validation_auc']}")
+    check_glmix("glmix", g)
 
     # the same fit again, warm (random-effect blocks and device shards are
     # memoized on the datasets, so build/coordinates is near zero): the
@@ -525,21 +744,63 @@ def main() -> int:
     g_cfg1 = dataclasses.replace(g_cfg, num_outer_iterations=1)
     g_res1, g_prof = profile_call(
         lambda: GameEstimator(g_cfg1, device="cuda").fit(g_train, g_val, ["AUC"]))
-    g_prof["fe_fg_count"] = fe_passes(g_res1.descent)
+    g_prof["fe_passes"] = fe_passes(g_res1.descent)
     g_prof["spans_s"] = dict(g_res1.descent.timings)
     emit({"phase": "glmix_profile", "outer_iterations": 1, "device": kind,
           "nvidia_smi": smi, **g_prof})
-    if g_prof["fused_kernel_launches"] != g_prof["fe_fg_count"]:
+    if g_prof["fused_kernel_launches"] != g_prof["fe_passes"]:
         raise SystemExit(f"glmix profile: {g_prof['fused_kernel_launches']} device "
-                         f"launches of the kernel for {g_prof['fe_fg_count']} passes")
+                         f"launches of the kernel for {g_prof['fe_passes']} passes")
+
+    # --- glmix_tron: config 4 with TRON on both coordinates ------------------
+    from photon_ml_tpu_torch.game import GLMOptimizationConfig
+    tron_opt = GLMOptimizationConfig(
+        optimizer=OptimizerConfig(optimizer=OptimizerType.TRON), regularization=l2_reg,
+        regularization_weight=1.0)
+    t_cfg = dataclasses.replace(g_cfg, coordinates={
+        k: dataclasses.replace(c, optimization=tron_opt) for k, c in g_cfg.coordinates.items()})
+    # fresh datasets, so that the cold fit builds its random-effect blocks
+    # as the glmix phase's did (they are memoized per dataset)
+    t0 = time.perf_counter()
+    g_train, g_val, _ = glmix_setup()
+    emit({"phase": "glmix_tron_data", "seconds": time.perf_counter() - t0})
+    hk.LAUNCHES = 0
+    t0 = time.perf_counter()
+    t_result = GameEstimator(t_cfg, device="cuda").fit(g_train, g_val, ["AUC"])
+    torch.cuda.synchronize()
+    t_fit_s = time.perf_counter() - t0
+    t_launches = hk.LAUNCHES
+    t0 = time.perf_counter()
+    t_warm = GameEstimator(t_cfg, device="cuda").fit(g_train, g_val, ["AUC"])
+    torch.cuda.synchronize()
+    gt = glmix_report(t_result, t_fit_s, g_train.num_rows, t_launches, glmix_ref)
+    emit({"phase": "glmix_tron", "entry": "photon_ml_tpu_torch.game.GameEstimator.fit",
+          "config": "BASELINE config 4 with OptimizerType.TRON on both coordinates",
+          "warm_fit_s": time.perf_counter() - t0,
+          "warm_same_objective_history": t_warm.objective_history == t_result.objective_history,
+          "device": kind, "nvidia_smi": smi, **gt})
+    check_glmix("glmix_tron", gt)
+    # one TRON outer iteration under the profiler
+    t_res1, t_prof = profile_call(lambda: GameEstimator(
+        dataclasses.replace(t_cfg, num_outer_iterations=1), device="cuda").fit(
+            g_train, g_val, ["AUC"]))
+    t_prof["fe_passes"] = fe_passes(t_res1.descent)
+    t_prof["spans_s"] = dict(t_res1.descent.timings)
+    emit({"phase": "glmix_tron_profile", "outer_iterations": 1, "device": kind,
+          "nvidia_smi": smi, **t_prof})
+    if t_prof["fused_kernel_launches"] != t_prof["fe_passes"]:
+        raise SystemExit(f"glmix_tron profile: {t_prof['fused_kernel_launches']} device "
+                         f"launches of the kernel for {t_prof['fe_passes']} passes")
 
     emit({"kernels": [{
         "name": "fused_value_and_gradient",
         "route": "cuda",
         "source": "photon_ml_tpu_torch/csrc/fused_value_and_gradient.cu",
         "replaces": "photon_ml_tpu/ops/pallas_kernels.py:150",
-        "launches": launches + g_launches,
-        "launches_by_path": {"train_glm": launches, "glmix": g_launches},
+        "launches": launches + g_launches + c2_launches + c3["kernel_launches"] + t_launches,
+        "launches_by_path": {"train_glm": launches, "glmix": g_launches,
+                             "config2": c2_launches, "config3": c3["kernel_launches"],
+                             "glmix_tron": t_launches},
         "max_abs_err": max_abs_err,
         "tolerance": f"value rtol {VALUE_RTOL}, gradient rtol {GRAD_RTOL} atol {GRAD_ATOL}",
         "ms": timing["ms"],
@@ -555,6 +816,9 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "hbm_share",
             "ms_over_library")} | {"shape": [g_train.num_rows, 31],
                                    "max_abs_err": g_err},
+        "at_config2_shape": {name: {k: f[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "hbm_share",
+            "ms_over_library", "max_abs_err")} for name, f in fvg_at_config2.items()},
     }], "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -100,20 +100,23 @@ class PhaseTimings(dict):
 @dataclasses.dataclass
 class TrackerSummary:
     """Host-side per-solve record: iterations (summed over entities for a
-    batched solve), value+gradient passes (`fg_count`, likewise), the solve's
-    wall clock and ConvergenceReason counts over its lanes."""
+    batched solve), value+gradient passes of LBFGS/OWLQN (`fg_count`,
+    likewise; None under TRON) or Hessian-vector products of TRON
+    (`hv_count`, likewise; None otherwise), the solve's wall clock and
+    ConvergenceReason counts over its lanes."""
 
     iterations: int
-    fg_count: int
+    fg_count: Optional[int]
     wall_s: float
     reasons: Dict[str, int] = dataclasses.field(default_factory=dict)
     # a random-effect update's batched solves, one per S-bucket
     # (game/coordinates.py::BucketSolve); None for a fixed effect
     buckets: Optional[list] = None
+    hv_count: Optional[int] = None
 
 
 def _summarize(result, wall_s: float, buckets=None) -> TrackerSummary:
-    total = lambda v: int(np.sum(np.asarray(
+    total = lambda v: None if v is None else int(np.sum(np.asarray(
         v.cpu() if isinstance(v, torch.Tensor) else v)))
     reason = result.reason
     codes = np.atleast_1d(np.asarray(
@@ -123,7 +126,8 @@ def _summarize(result, wall_s: float, buckets=None) -> TrackerSummary:
         reasons[ConvergenceReason(int(code)).name] = int(count)
     return TrackerSummary(iterations=total(result.iterations),
                           fg_count=total(result.fg_count), wall_s=wall_s,
-                          reasons=reasons, buckets=buckets)
+                          reasons=reasons, buckets=buckets,
+                          hv_count=total(result.hv_count))
 
 
 @dataclasses.dataclass

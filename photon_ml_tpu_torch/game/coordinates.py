@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -193,14 +193,16 @@ class _EntityCoordinateBase:
 @dataclasses.dataclass
 class BucketSolve:
     """One bucket's batched solve in an update: its [E, S, d], the largest
-    and summed lane iteration counts, the batch's value+gradient rounds,
-    and its host wall time (ended by the solver's last readback)."""
+    and summed lane iteration counts, the batch's value+gradient rounds
+    (and Hessian-vector rounds under TRON, else None), and its host wall
+    time (ended by the solver's last readback)."""
 
     shape: Tuple[int, int, int]
     max_iterations: int
     total_iterations: int
     rounds: int
     seconds: float
+    hv_rounds: Optional[int] = None
 
 
 class RandomEffectCoordinate(_EntityCoordinateBase):
@@ -238,13 +240,15 @@ class RandomEffectCoordinate(_EntityCoordinateBase):
             its = res_b.iterations
             self.last_buckets.append(BucketSolve(
                 tuple(blocks.x.shape), int(its.max()), int(its.sum()),
-                res_b.rounds, time.perf_counter() - t0))
+                res_b.rounds, time.perf_counter() - t0, res_b.hv_rounds))
             results.append(res_b)
         res = SolveResult(**{
             f.name: (None if not isinstance(getattr(results[0], f.name), torch.Tensor)
                      else torch.cat([getattr(r, f.name) for r in results]))
             for f in dataclasses.fields(SolveResult)})
         res.rounds = sum(r.rounds for r in results)
+        if results[0].hv_rounds is not None:
+            res.hv_rounds = sum(r.hv_rounds for r in results)
         return dataclasses.replace(model, coefficients=res.x), res
 
     def score(self, model: RandomEffectModel) -> torch.Tensor:

@@ -15,7 +15,7 @@ fallback on failure.  Weights/offsets may be None (1 / 0).
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -110,6 +110,40 @@ def value_only(
     return torch.sum(wl)
 
 
+def hessian_vector_at(
+    loss: PointwiseLoss,
+    x: fops.FeatureMatrix,
+    labels: torch.Tensor,
+    coefficients: torch.Tensor,
+    *,
+    weights: Optional[torch.Tensor] = None,
+    offsets: Optional[torch.Tensor] = None,
+    norm: Optional[NormalizationContext] = None,
+    mask: Optional[torch.Tensor] = None,
+) -> Callable[[torch.Tensor], torch.Tensor]:
+    """v -> Hv at `coefficients`: the margins and l'' are computed here,
+    once, and each product is two passes over x (x.v and x^T(.))."""
+    z = compute_margins(x, coefficients, offsets, norm)
+    d2 = loss.d2z(z, labels)
+
+    def hv(vector: torch.Tensor) -> torch.Tensor:
+        if _normalized(norm):
+            ev = norm.effective_coefficients(vector)
+            dz = fops.matvec(x, ev) + norm.margin_shift(ev)
+        else:
+            dz = fops.matvec(x, vector)
+        wd2dz = _masked(_apply_weights(d2 * dz, weights), mask)
+        out = fops.rmatvec(x, wd2dz)
+        if _normalized(norm):
+            if norm.shifts is not None:
+                out = out - norm.shifts * torch.sum(wd2dz)
+            if norm.factors is not None:
+                out = out * norm.factors
+        return out
+
+    return hv
+
+
 def hessian_vector(
     loss: PointwiseLoss,
     x: fops.FeatureMatrix,
@@ -123,21 +157,8 @@ def hessian_vector(
     mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Hv = sum_i w_i l''(z_i, y_i) (x'_i . v) x'_i in normalized space."""
-    z = compute_margins(x, coefficients, offsets, norm)
-    d2 = loss.d2z(z, labels)
-    if _normalized(norm):
-        ev = norm.effective_coefficients(vector)
-        dz = fops.matvec(x, ev) + norm.margin_shift(ev)
-    else:
-        dz = fops.matvec(x, vector)
-    wd2dz = _masked(_apply_weights(d2 * dz, weights), mask)
-    hv = fops.rmatvec(x, wd2dz)
-    if _normalized(norm):
-        if norm.shifts is not None:
-            hv = hv - norm.shifts * torch.sum(wd2dz)
-        if norm.factors is not None:
-            hv = hv * norm.factors
-    return hv
+    return hessian_vector_at(loss, x, labels, coefficients, weights=weights,
+                             offsets=offsets, norm=norm, mask=mask)(vector)
 
 
 def hessian_diagonal(

@@ -6,7 +6,7 @@ optimizer through pseudo-gradients, not by the objective.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple, Union
+from typing import Callable, Optional, Tuple, Union
 
 import torch
 
@@ -22,7 +22,7 @@ class GLMObjective:
 
     value(c)           = sum_i w_i l(z_i, y_i) + l2/2 ||c||^2
     value_and_gradient = one fused pass (the CUDA kernel on the card)
-    hessian_vector(c, v), hessian_diagonal(c)
+    hessian_vector(c, v), hessian_vector_at(c), hessian_diagonal(c)
     """
 
     loss: PointwiseLoss
@@ -52,9 +52,14 @@ class GLMObjective:
         return v + 0.5 * self.l2_weight * torch.dot(c, c), g + self.l2_weight * c
 
     def hessian_vector(self, c: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-        hv = agg.hessian_vector(self.loss, self.x, self.labels, c, v,
-                                **self._data())
-        return hv + self.l2_weight * v
+        return self.hessian_vector_at(c)(v)
+
+    def hessian_vector_at(self, c: torch.Tensor) -> Callable[[torch.Tensor], torch.Tensor]:
+        """v -> Hv at c; the margins at c are computed once, for every v
+        (TRON's CG steps at one iterate)."""
+        hv = agg.hessian_vector_at(self.loss, self.x, self.labels, c,
+                                   **self._data())
+        return lambda v: hv(v) + self.l2_weight * v
 
     def hessian_diagonal(self, c: torch.Tensor) -> torch.Tensor:
         """Original-space only: the aggregator has no normalization."""

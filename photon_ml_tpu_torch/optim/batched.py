@@ -1,4 +1,5 @@
-"""Batched LBFGS/OWLQN over a leading lane axis: E independent solves at once.
+"""Batched LBFGS/OWLQN/TRON over a leading lane axis: E independent solves
+at once.
 
 The JAX package solves every entity of a random-effect bucket with
 `jax.jit(jax.vmap(solve))` (parallel/random_effect.py::_cached_batched_solver
@@ -20,9 +21,11 @@ the loop runs on the host and every per-lane decision is a mask:
 - the host reads back one pair of flags per step (any lane active, any
   lane still searching) and one flag per extra backtracking round.
 
-Constants, the two-loop recursion, the line search and the convergence
-rules are those of optim/lbfgs.py.  Every value+gradient evaluation runs
-for all lanes (the frozen ones' results are discarded), as under vmap.
+Constants, the two-loop recursion, the line search, box projection and the
+convergence rules are those of optim/lbfgs.py; box bounds are one [d]
+vector shared by every lane, as under vmap with unmapped bounds.  Every
+value+gradient evaluation runs for all lanes (the frozen ones' results are
+discarded), as under vmap.  TRON's lanes are optim/tron.py::tron_lanes.
 """
 from __future__ import annotations
 
@@ -30,10 +33,12 @@ from typing import Callable, Optional, Tuple, Union
 
 import torch
 
-from photon_ml_tpu_torch.optim.config import OptimizerType
+from photon_ml_tpu_torch.optim.config import OptimizerType, box_bounds, check_tron
 from photon_ml_tpu_torch.optim.lbfgs import (
-    _C1, _CURV_EPS, _F_CONV_PERSISTENCE, _MAX_LS, _pseudo_gradient,
+    _C1, _CURV_EPS, _F_CONV_PERSISTENCE, _MAX_LS, _box_blocked, _project_box,
+    _pseudo_gradient,
 )
+from photon_ml_tpu_torch.optim.tron import HessianVectorAt, tron_lanes
 from photon_ml_tpu_torch.optim.types import ConvergenceReason, SolveResult
 
 # [E, d] -> ([E] values, [E, d] gradients)
@@ -85,14 +90,21 @@ def lbfgs(
     tolerance: float = 1e-7,
     history: int = 10,
     l1_weight: Optional[Union[torch.Tensor, float]] = None,
+    lower: Optional[torch.Tensor] = None,
+    upper: Optional[torch.Tensor] = None,
 ) -> SolveResult:
     """Minimize f_e (+ l1*|x_e|_1 when `l1_weight` is set: OWLQN) for every
-    lane e of x0 [E, d] at once.
+    lane e of x0 [E, d] at once; `lower`/`upper` [d] turn on box
+    projection for every lane.
 
     Returns a SolveResult whose fields have a leading [E] axis: x [E, d],
     value, gradient_norm, iterations, reason and fg_count [E], histories
     [E, max_iterations + 1].  x0 is not written."""
     use_l1 = l1_weight is not None
+    use_box = lower is not None or upper is not None
+    if use_l1 and use_box:
+        raise ValueError("L1 (OWLQN) and box constraints cannot be combined "
+                         "(the reference has no such solver either)")
     m = history
     E, d = x0.shape
     dtype, device = x0.dtype, x0.device
@@ -103,8 +115,17 @@ def lbfgs(
     zero = torch.zeros((), dtype=dtype, device=device)
     one = torch.ones((), dtype=dtype, device=device)
 
+    project_box = lambda x: _project_box(x, lower, upper)
+    box_blocked = lambda x, g: _box_blocked(x, g, lower, upper)
+
     def steer_grad(x, g):
-        return _pseudo_gradient(x, g, l1) if use_l1 else g
+        """OWLQN pseudo-gradient under L1; the projected gradient under a
+        box; the gradient otherwise."""
+        if use_l1:
+            return _pseudo_gradient(x, g, l1)
+        if use_box:
+            return torch.where(box_blocked(x, g), zero, g)
+        return g
 
     rounds = 0
 
@@ -116,7 +137,7 @@ def lbfgs(
             v = v + (l1 * torch.abs(x)).sum(-1)
         return v, g
 
-    x = x0.clone()
+    x = project_box(x0.clone())
     f, g = full_value(x)
     gnorm = torch.linalg.vector_norm(steer_grad(x, g), dim=-1)
     # relative gradient convergence, like breeze's default check
@@ -147,6 +168,9 @@ def lbfgs(
             # direction must agree with -pseudo-gradient sign-wise
             p = torch.where(p * (-steer) > 0, p, zero)
             orthant = torch.where(x != 0, torch.sign(x), torch.sign(-steer))
+        if use_box:
+            # keep the step in the free subspace
+            p = torch.where(box_blocked(x, g), zero, p)
         # fall back to steepest descent where not a descent direction
         p = torch.where((_dot(steer, p) >= 0)[:, None], -steer, p)
         # first iteration: scale so the first trial step is modest
@@ -158,7 +182,7 @@ def lbfgs(
             xt = x + t[:, None] * p
             if use_l1:
                 xt = torch.where(xt * orthant > 0, xt, zero)
-            return xt
+            return project_box(xt)
 
         def armijo_ok(xt, ft):
             # Armijo on the actual displacement
@@ -188,6 +212,11 @@ def lbfgs(
         # curvature pair from raw gradients (standard OWLQN choice)
         s = xt - x
         yv = gt - g
+        if use_box:
+            # restrict the pair to the free subspace at the accepted point
+            bl = box_blocked(xt, gt)
+            s = torch.where(bl, zero, s)
+            yv = torch.where(bl, zero, yv)
         sy = _dot(s, yv)
         store = active & ok & (sy > _CURV_EPS)
         s_buf = _push(s_buf, s, store)
@@ -228,25 +257,27 @@ def lbfgs(
 
 
 def solve(value_and_grad: BatchedValueAndGrad, x0: torch.Tensor, config,
-          reg, reg_weight=0.0) -> SolveResult:
+          reg, reg_weight=0.0, loss=None,
+          hessian_vector_at: Optional[HessianVectorAt] = None) -> SolveResult:
     """The batched counterpart of optim/config.py::solve for
     `value_and_grad` over lanes that already carry the L2 term: L1 goes to
-    OWLQN.  `config` is an OptimizerConfig, `reg` a RegularizationContext.
-    TRON and box constraints on batched solves are not ported yet."""
+    OWLQN, box bounds to every LBFGS lane, TRON (with `loss` and
+    `hessian_vector_at`, which carries the L2 term too) to tron_lanes.
+    `config` is an OptimizerConfig, `reg` a RegularizationContext."""
     cfg = config.resolved()
-    if cfg.optimizer == OptimizerType.TRON:
-        raise NotImplementedError(
-            "TRON for random effects is not ported yet (ROADMAP.md \"Next "
-            "slices\" item 1: TRON + hessian_vector); use OptimizerType.LBFGS")
-    if cfg.box_lower is not None or cfg.box_upper is not None:
-        raise NotImplementedError(
-            "box constraints on random-effect solves are not ported yet "
-            "(ROADMAP.md \"Next slices\" item 1, with configs 2-3)")
     if cfg.track_coefficients:
         raise NotImplementedError(
             "coefficient tracking on batched solves is not ported yet "
             "(ROADMAP.md queue A item 18: diagnostics)")
+    if cfg.optimizer == OptimizerType.TRON:
+        check_tron(cfg, reg, loss)
+        return tron_lanes(value_and_grad, hessian_vector_at, x0,
+                          max_iterations=cfg.max_iterations,
+                          tolerance=cfg.tolerance,
+                          max_cg_iterations=cfg.max_cg_iterations)
     l1_w, _ = reg.split(reg_weight)
+    lower, upper = box_bounds(cfg, x0)
     return lbfgs(value_and_grad, x0, max_iterations=cfg.max_iterations,
                  tolerance=cfg.tolerance, history=cfg.history,
-                 l1_weight=l1_w if reg.has_l1 else None)
+                 l1_weight=l1_w if reg.has_l1 else None,
+                 lower=lower, upper=upper)

@@ -1,8 +1,9 @@
 """Optimizer + regularization configuration and the solve dispatcher (port
 of photon_ml_tpu/optim/config.py).
 
-TRON and named feature constraints are not ported yet (ROADMAP.md queue A);
-they raise NotImplementedError.  Positional box bounds work.
+LBFGS/OWLQN (with positional box bounds) and TRON.  Named feature
+constraints are not ported yet (ROADMAP.md queue A, item 12); they raise
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import torch
 
 from photon_ml_tpu_torch.ops.objective import GLMObjective
 from photon_ml_tpu_torch.optim.lbfgs import lbfgs
+from photon_ml_tpu_torch.optim.tron import tron
 from photon_ml_tpu_torch.optim.types import SolveResult
 
 
@@ -73,7 +75,7 @@ class OptimizerConfig:
     max_iterations: Optional[int] = None
     tolerance: Optional[float] = None
     history: int = 10                     # LBFGS memory
-    max_cg_iterations: int = 20           # TRON inner CG cap (TRON: not ported yet)
+    max_cg_iterations: int = 20           # TRON inner CG cap
     # per-coordinate bounds, stored as tuples so the config stays hashable
     box_lower: Optional[tuple] = None
     box_upper: Optional[tuple] = None
@@ -104,6 +106,27 @@ class OptimizerConfig:
             tolerance=self.tolerance if self.tolerance is not None else d_tol)
 
 
+def box_bounds(cfg: OptimizerConfig, like: torch.Tensor):
+    """(lower, upper) as tensors of `like`'s dtype and device, or None."""
+    as_t = lambda b: (None if b is None
+                      else torch.tensor(b, dtype=like.dtype, device=like.device))
+    return as_t(cfg.box_lower), as_t(cfg.box_upper)
+
+
+def check_tron(cfg: OptimizerConfig, reg: RegularizationContext, loss) -> None:
+    """The JAX package's rules for TRON: L2 or no regularization, a twice
+    differentiable loss, no box."""
+    if reg.has_l1:
+        raise ValueError("TRON supports only L2/none regularization "
+                         "(reference: OptimizerFactory constraint)")
+    if not loss.twice_differentiable:
+        raise ValueError(f"{loss.name} is not twice differentiable; "
+                         "use LBFGS (reference: SmoothedHingeLossFunction)")
+    if cfg.box_lower is not None or cfg.box_upper is not None:
+        raise ValueError("box constraints are an LBFGS feature "
+                         "(reference: LBFGS.scala:72)")
+
+
 def solve(
     objective: GLMObjective,
     x0: torch.Tensor,
@@ -112,20 +135,19 @@ def solve(
     reg_weight=0.0,
 ) -> SolveResult:
     """Run one GLM solve: L2 goes into the smooth objective, L1 to OWLQN's
-    pseudo-gradient machinery.  x0 is not written."""
+    pseudo-gradient machinery; TRON takes L2 or none.  x0 is not written."""
     cfg = config.resolved()
     l1_w, l2_w = reg.split(reg_weight)
     obj = objective.with_l2(l2_w)
 
     if cfg.optimizer == OptimizerType.TRON:
-        raise NotImplementedError(
-            "TRON is not ported yet (ROADMAP.md queue A: TRON + "
-            "hessian_vector is the next slice); use OptimizerType.LBFGS")
+        check_tron(cfg, reg, objective.loss)
+        return tron(obj.value_and_gradient, obj.hessian_vector_at, x0,
+                    max_iterations=cfg.max_iterations, tolerance=cfg.tolerance,
+                    max_cg_iterations=cfg.max_cg_iterations,
+                    track_coefficients=cfg.track_coefficients)
 
-    lower = (None if cfg.box_lower is None
-             else torch.tensor(cfg.box_lower, dtype=x0.dtype, device=x0.device))
-    upper = (None if cfg.box_upper is None
-             else torch.tensor(cfg.box_upper, dtype=x0.dtype, device=x0.device))
+    lower, upper = box_bounds(cfg, x0)
     return lbfgs(obj.value_and_gradient, x0,
                  max_iterations=cfg.max_iterations, tolerance=cfg.tolerance,
                  history=cfg.history,

@@ -44,6 +44,25 @@ def _pseudo_gradient(x, g, l1):
     return torch.where(x != 0, gp, at_zero)
 
 
+def _project_box(x, lower, upper):
+    """x clipped to [lower, upper] (either may be None)."""
+    if lower is not None:
+        x = torch.maximum(x, lower)
+    if upper is not None:
+        x = torch.minimum(x, upper)
+    return x
+
+
+def _box_blocked(x, g, lower, upper):
+    """Coordinates pinned at an active bound (descent would exit)."""
+    blocked = torch.zeros(x.shape, dtype=torch.bool, device=x.device)
+    if lower is not None:
+        blocked = blocked | ((x <= lower) & (g > 0))
+    if upper is not None:
+        blocked = blocked | ((x >= upper) & (g < 0))
+    return blocked
+
+
 def _two_loop(q, s_buf, y_buf, rho, num_pairs: int, m: int):
     """Two-loop recursion over rolling buffers; pair (num_pairs-1-i) is the
     i-th newest, stored at slot (num_pairs-1-i) % m."""
@@ -105,21 +124,8 @@ def lbfgs(
     l1 = (torch.as_tensor(l1_weight, dtype=dtype, device=device)
           if use_l1 else None)
 
-    def project_box(x):
-        if lower is not None:
-            x = torch.maximum(x, lower)
-        if upper is not None:
-            x = torch.minimum(x, upper)
-        return x
-
-    def box_blocked(x, g):
-        """Coordinates pinned at an active bound (descent would exit)."""
-        blocked = torch.zeros(x.shape, dtype=torch.bool, device=device)
-        if lower is not None:
-            blocked = blocked | ((x <= lower) & (g > 0))
-        if upper is not None:
-            blocked = blocked | ((x >= upper) & (g < 0))
-        return blocked
+    project_box = lambda x: _project_box(x, lower, upper)
+    box_blocked = lambda x, g: _box_blocked(x, g, lower, upper)
 
     def zero_where(mask, v):
         return torch.where(mask, torch.zeros_like(v), v)

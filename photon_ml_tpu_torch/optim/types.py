@@ -41,9 +41,16 @@ class SolveResult:
     # LBFGS/OWLQN: fused value+gradient evaluations, the initial one and
     # every line-search trial included — each is a full pass over the data
     fg_count: Optional[int] = None
+    # TRON: Hessian-vector products, one per inner CG step (the step that
+    # reaches the trust-region boundary included); fg_count stays None and
+    # the value+gradient passes are iterations + 1
+    hv_count: Optional[int] = None
     # batched solves (optim/batched.py): value+gradient rounds of the whole
     # batch, each evaluating every lane (>= the largest lane's fg_count)
     rounds: Optional[int] = None
+    # batched TRON: Hessian-vector rounds of the whole batch, each
+    # evaluating every lane (>= the largest lane's hv_count)
+    hv_rounds: Optional[int] = None
 
     @property
     def converged(self) -> bool:

@@ -3,8 +3,8 @@ photon_ml_tpu/parallel/random_effect.py, single device).
 
 Entities are grouped at data-prep time into padded dense blocks
   x[E, S, d], labels[E, S], mask[E, S]
-and every per-entity LBFGS/OWLQN solve of a block runs at once, lane by
-lane, in the host-stepped batched solver (optim/batched.py).  Masked rows
+and every per-entity LBFGS/OWLQN/TRON solve of a block runs at once, lane
+by lane, in the host-stepped batched solver (optim/batched.py).  Masked rows
 contribute nothing (where(), not a product).  d is the per-entity projected
 dimension (the index-map projector gathers each entity's observed features
 into a dense local space).
@@ -15,7 +15,7 @@ None.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -85,6 +85,36 @@ def batched_value_and_gradient(
     return value, grad
 
 
+def batched_hessian_vector_at(
+    loss: PointwiseLoss, blocks: EntityBlocks, coefficients: torch.Tensor,
+    l2_weight=0.0,
+) -> Callable[[torch.Tensor], torch.Tensor]:
+    """v [E, d] -> every lane's masked Hv [E, d] at `coefficients`: the
+    margins and l'' are computed here, once, for every v."""
+    z = torch.einsum("esd,ed->es", blocks.x, coefficients)
+    if blocks.offsets is not None:
+        z = z + blocks.offsets
+    d2 = loss.d2z(z, blocks.labels)
+
+    def hv(v: torch.Tensor) -> torch.Tensor:
+        t = d2 * torch.einsum("esd,ed->es", blocks.x, v)
+        if blocks.weights is not None:
+            t = t * blocks.weights
+        t = _masked(t, blocks.mask)
+        return torch.einsum("es,esd->ed", t, blocks.x) + l2_weight * v
+
+    return hv
+
+
+def batched_hessian_vector(
+    loss: PointwiseLoss, blocks: EntityBlocks, coefficients: torch.Tensor,
+    v: torch.Tensor, l2_weight=0.0,
+) -> torch.Tensor:
+    """Every lane's Hv [E, d] of the masked GLM objective with its L2
+    term: sum_s mask*w*l''(z)*(x.v)*x + l2*v."""
+    return batched_hessian_vector_at(loss, blocks, coefficients, l2_weight)(v)
+
+
 def fit_random_effects(
     blocks: EntityBlocks,
     loss: PointwiseLoss,
@@ -107,7 +137,8 @@ def fit_random_effects(
     _, l2_w = reg.split(reg_weight)
     return batched.solve(
         lambda c: batched_value_and_gradient(loss, blocks, c, l2_w),
-        x0, config, reg, reg_weight)
+        x0, config, reg, reg_weight, loss=loss,
+        hessian_vector_at=lambda c: batched_hessian_vector_at(loss, blocks, c, l2_w))
 
 
 def scatter_local_to_global(coefficients: torch.Tensor, projection,

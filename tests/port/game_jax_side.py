@@ -1,13 +1,15 @@
-"""The JAX side of the GLMix parity tests, run in a subprocess of its own.
+"""The JAX side of the TRON and GLMix parity tests, run in a subprocess of
+its own.
 
-    python tests/port/game_jax_side.py solver|estimator OUT.npz
+    python tests/port/game_jax_side.py tron|solver|estimator OUT.npz
 
-The parity tests (test_torch_game_solver.py, test_torch_game_estimator.py)
-start this once per test module, with JAX on the CPU in float64, and read
-its results from OUT.npz.  Compiling the JAX package's batched solver and
-GAME programs in a process of their own keeps their XLA compile state out
-of the test process.  The problem builders below are numpy only, so the
-tests import them to build the same inputs for the port.
+The parity tests (test_torch_tron.py, test_torch_game_solver.py,
+test_torch_game_estimator.py) start this once per test module, with JAX on
+the CPU in float64, and read its results from OUT.npz.  Compiling the JAX
+package's TRON, batched solver and GAME programs in a process of their own
+keeps their XLA compile state out of the test process.  The problem
+functions below are numpy only, so the tests import them to make the same
+inputs for the port.
 """
 from __future__ import annotations
 
@@ -22,14 +24,47 @@ ROOT = Path(__file__).resolve().parents[2]
 
 # batched-solver problem: [E, S, d] with ragged lanes
 SOLVER_E, SOLVER_S, SOLVER_D = 24, 16, 5
+# TRON's gradient test at 1e-6 ends every lane while its steps still
+# reduce f by more than float64 rounding: near the optimum ρ is rounding
+# noise, and two summation orders would accept different steps
+_TRON = {"optimizer": "tron", "tolerance": 1e-6}
+_BOX = {"box_lower": (-0.3,) * SOLVER_D, "box_upper": (0.3,) * SOLVER_D}
 SOLVER_CASES = {
-    # name -> (loss, regularization, alpha, lambda, warm start)
-    "logistic_l2": ("logistic", "l2", None, 1.0, False),
-    "logistic_elastic_net": ("logistic", "elastic_net", 0.5, 3.0, False),
-    "squared_l2_warm": ("squared", "l2", None, 0.5, True),
-    "poisson_elastic_net_warm": ("poisson", "elastic_net", 0.3, 1.0, True),
+    # name -> (loss, regularization, alpha, lambda, warm start, the
+    # OptimizerConfig fields that differ from SOLVER_MAX_ITERATIONS and
+    # SOLVER_TOLERANCE)
+    "logistic_l2": ("logistic", "l2", None, 1.0, False, {}),
+    "logistic_elastic_net": ("logistic", "elastic_net", 0.5, 3.0, False, {}),
+    "squared_l2_warm": ("squared", "l2", None, 0.5, True, {}),
+    "poisson_elastic_net_warm": ("poisson", "elastic_net", 0.3, 1.0, True, {}),
+    "logistic_l2_tron": ("logistic", "l2", None, 1.0, False, _TRON),
+    "poisson_l2_tron_warm": ("poisson", "l2", None, 0.5, True, _TRON),
+    "squared_none_tron": ("squared", "none", None, 0.0, False, _TRON),
+    "squared_l2_tron_warm": ("squared", "l2", None, 2.0, True, _TRON),
+    "logistic_l2_tron_cg2": ("logistic", "l2", None, 0.3, False,
+                             dict(_TRON, max_cg_iterations=2)),
+    "logistic_l2_box": ("logistic", "l2", None, 0.2, False, _BOX),
+    "poisson_l2_box_warm": ("poisson", "l2", None, 1.0, True, _BOX),
+    "squared_l2_box": ("squared", "l2", None, 0.5, False, _BOX),
+    "poisson_none_box": ("poisson", "none", None, 0.0, False, _BOX),
 }
 SOLVER_MAX_ITERATIONS, SOLVER_TOLERANCE = 60, 1e-8
+
+# single TRON solves: [N, D] problems per loss, plain ("plain"); with
+# weights, offsets and standardization ("wos"); with weights, offsets and
+# a row mask whose padded rows carry huge offsets ("wom"); scaled by the
+# columns' standard deviations, no shift ("scale"); and plain with at most
+# 2 CG steps per outer step ("cg2").  train_glm with TRON on
+# make_a1a_like(2, task, seed=42), a warm-started sweep, raw and
+# standardized
+TRON_N, TRON_D, TRON_L2 = 400, 12, 0.5
+TRON_CASES = [f"{loss}_{variant}" for loss in ("logistic", "squared", "poisson")
+              for variant in ("plain", "wos", "wom", "scale", "cg2")]
+TRON_MAX_ITERATIONS, TRON_TOLERANCE = 15, 1e-8
+TRON_NORMS = {"wos": "standardization", "scale": "scale_with_standard_deviation"}
+TRAIN_TASKS = {"logistic_regression": "logistic", "poisson_regression": "poisson"}
+TRAIN_CASES = [(task, norm) for task in TRAIN_TASKS for norm in ("raw", "standardization")]
+TRAIN_LAMBDAS = (1.0, 10.0)
 
 # estimator: BASELINE config 4's shape, cut to a few thousand rows
 ESTIMATOR_ROWS, ESTIMATOR_SEED, ESTIMATOR_OUTER = 3000, 11, 2
@@ -39,7 +74,7 @@ def solver_problem(case: str, seed: int = 5) -> dict:
     """Padded blocks like the data layer's: per-lane real-row counts 0
     (all-masked lanes), 1, and ragged up to S; padding cells carry x 0,
     label 0.5, weight 0 and offset 0.  Weights and offsets on every lane."""
-    loss, _, _, _, warm = SOLVER_CASES[case]
+    loss, _, _, _, warm, _ = SOLVER_CASES[case]
     rng = np.random.default_rng(seed)
     E, S, d = SOLVER_E, SOLVER_S, SOLVER_D
     counts = rng.integers(2, S + 1, size=E)
@@ -64,6 +99,38 @@ def solver_problem(case: str, seed: int = 5) -> dict:
     x0 = (rng.normal(size=(E, d)) * 0.2 if warm else np.zeros((E, d)))
     return dict(x=x, labels=labels, mask=mask, weights=weights,
                 offsets=offsets, x0=x0)
+
+
+def tron_problem(case: str, seed: int = 3) -> dict:
+    """x [N, D] (intercept last), labels from a planted GLM; "wos" adds
+    weights, offsets and the columns' mean and variance for
+    standardization."""
+    loss, variant = case.split("_")
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(TRON_N, TRON_D))
+    x[:, -1] = 1.0
+    z = x @ (rng.normal(size=TRON_D) * (0.3 if loss == "poisson" else 1.0))
+    if loss == "logistic":
+        y = (rng.uniform(size=TRON_N) < 1.0 / (1.0 + np.exp(-z))).astype(np.float64)
+    elif loss == "squared":
+        y = z + rng.normal(size=TRON_N)
+    else:
+        y = rng.poisson(np.exp(z)).astype(np.float64)
+    p = dict(x=x, labels=y)
+    if variant in ("wos", "wom"):
+        p.update(weights=rng.uniform(0.5, 2.0, size=TRON_N),
+                 offsets=rng.normal(size=TRON_N) * 0.2)
+    if variant in TRON_NORMS:
+        p.update(mean=x.mean(axis=0), variance=x.var(axis=0))
+    if variant == "wom":
+        p["mask"] = (rng.uniform(size=TRON_N) < 0.8).astype(np.float64)
+        p["offsets"] = np.where(p["mask"] > 0, p["offsets"], 1e6)
+    return p
+
+
+def tron_solve_options(case: str) -> dict:
+    """The TRON options of a single-solve case beyond the shared ones."""
+    return {"max_cg_iterations": 2} if case.endswith("_cg2") else {}
 
 
 def movielens_glmix(build_game_dataset, make_movielens_like, movielens_shards,
@@ -127,29 +194,91 @@ def variant_config_dict() -> dict:
     return d
 
 
+def tron_config_dict() -> dict:
+    """Config 4 with TRON on both coordinates, at its defaults (15
+    iterations, tolerance 1e-5)."""
+    d = glmix_config_dict()
+    for coord in d["coordinates"].values():
+        coord["optimization"] = dict(coord["optimization"], optimizer=dict(
+            coord["optimization"]["optimizer"], optimizer="tron", max_iterations=None))
+    return d
+
+
 # name -> JSON config of each estimator parity case
-ESTIMATOR_CONFIGS = {"config4": glmix_config_dict, "variant": variant_config_dict}
+ESTIMATOR_CONFIGS = {"config4": glmix_config_dict, "variant": variant_config_dict,
+                     "tron": tron_config_dict}
 
 
 def _run_solver(out: dict) -> None:
     import jax.numpy as jnp
     from photon_ml_tpu.ops.losses import BY_NAME
-    from photon_ml_tpu.optim import (OptimizerConfig, RegularizationContext,
-                                     RegularizationType)
+    from photon_ml_tpu.optim import (OptimizerConfig, OptimizerType,
+                                     RegularizationContext, RegularizationType)
     from photon_ml_tpu.parallel.random_effect import _cached_batched_solver
-    for case, (loss, reg, alpha, lam, _) in SOLVER_CASES.items():
+    for case, (loss, reg, alpha, lam, _, opt) in SOLVER_CASES.items():
         p = solver_problem(case)
+        opt = dict(opt)
+        if "optimizer" in opt:
+            opt["optimizer"] = OptimizerType(opt["optimizer"])
         solver = _cached_batched_solver(
             BY_NAME[loss],
-            OptimizerConfig(max_iterations=SOLVER_MAX_ITERATIONS,
-                            tolerance=SOLVER_TOLERANCE),
+            OptimizerConfig(**{"max_iterations": SOLVER_MAX_ITERATIONS,
+                               "tolerance": SOLVER_TOLERANCE, **opt}),
             RegularizationContext(RegularizationType(reg), alpha), True, True)
         res = solver(*(jnp.asarray(p[k]) for k in
                        ("x", "labels", "mask", "weights", "offsets", "x0")),
                      jnp.asarray(lam), None)
-        for field in ("x", "value", "iterations", "fg_count", "reason",
-                      "loss_history"):
-            out[f"{case}/{field}"] = np.asarray(getattr(res, field))
+        _store(out, case, res)
+
+
+def _store(out: dict, key: str, res) -> None:
+    """A SolveResult's fields, those that are set, under key/field."""
+    for field in ("x", "value", "iterations", "fg_count", "hv_count", "reason",
+                  "loss_history"):
+        if getattr(res, field) is not None:
+            out[f"{key}/{field}"] = np.asarray(getattr(res, field))
+
+
+def _run_tron(out: dict) -> None:
+    import jax
+    import jax.numpy as jnp
+    from photon_ml_tpu.data.synthetic_bench import make_a1a_like
+    from photon_ml_tpu.models.training import train_glm
+    from photon_ml_tpu.ops.losses import BY_NAME
+    from photon_ml_tpu.ops.normalization import build_normalization_context
+    from photon_ml_tpu.ops.objective import GLMObjective
+    from photon_ml_tpu.optim import (OptimizerConfig, OptimizerType,
+                                     RegularizationContext, RegularizationType)
+    from photon_ml_tpu.optim.tron import tron
+    for case in TRON_CASES:
+        p = {k: jnp.asarray(v) for k, v in tron_problem(case).items()}
+        variant = case.split("_")[1]
+        norm = (None if variant not in TRON_NORMS else build_normalization_context(
+            TRON_NORMS[variant], mean=p["mean"], variance=p["variance"],
+            intercept_index=TRON_D - 1))
+        obj = GLMObjective(BY_NAME[case.split("_")[0]], p["x"], p["labels"],
+                           weights=p.get("weights"), offsets=p.get("offsets"),
+                           mask=p.get("mask"), norm=norm, l2_weight=TRON_L2)
+        res = jax.jit(lambda x0: tron(
+            obj.value_and_gradient, obj.hessian_vector, x0,
+            max_iterations=TRON_MAX_ITERATIONS, tolerance=TRON_TOLERANCE,
+            **tron_solve_options(case)))(jnp.zeros(TRON_D))
+        _store(out, case, res)
+    for task, norm_name in TRAIN_CASES:
+        x, y = make_a1a_like(2, TRAIN_TASKS[task], seed=42)
+        x = x.astype(np.float64)
+        norm = (None if norm_name == "raw" else build_normalization_context(
+            norm_name, mean=jnp.asarray(x.mean(axis=0)),
+            variance=jnp.asarray(x.var(axis=0)), intercept_index=x.shape[1] - 1))
+        trained = train_glm(
+            jnp.asarray(x), jnp.asarray(y, jnp.float64), task,
+            optimizer_config=OptimizerConfig(optimizer=OptimizerType.TRON),
+            regularization=RegularizationContext(RegularizationType.L2),
+            regularization_weights=TRAIN_LAMBDAS, normalization=norm)
+        for i, t in enumerate(trained):
+            key = f"train/{task}/{norm_name}/{i}"
+            _store(out, key, t.result)
+            out[f"{key}/means"] = np.asarray(t.model.coefficients.means)
 
 
 def _run_estimator(out: dict) -> None:
@@ -196,7 +325,7 @@ def main(argv) -> int:
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
     out: dict = {}
-    {"solver": _run_solver, "estimator": _run_estimator}[what](out)
+    {"tron": _run_tron, "solver": _run_solver, "estimator": _run_estimator}[what](out)
     np.savez(path, **out)
     return 0
 

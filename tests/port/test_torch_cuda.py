@@ -153,18 +153,24 @@ def test_aggregator_dispatch_on_card(cuda, norm, mask):
     np.testing.assert_allclose(g.cpu().numpy(), g_c.numpy(), rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("case", ["logistic_l2", "logistic_elastic_net"])
+@pytest.mark.parametrize("case", ["logistic_l2", "logistic_elastic_net",
+                                  "logistic_l2_tron", "poisson_l2_tron_warm",
+                                  "poisson_l2_box_warm"])
 def test_batched_solver_on_card_matches_cpu_f64(cuda, case):
-    """The batched random-effect solver in float32 on the card lands where
-    the float64 CPU solve does, lane by lane: x within 1e-3, the same
-    convergence reason.  At tolerance 1e-3 the convergence tests sit far
-    above float32 rounding (tighter, whether a lane stops by the gradient
-    or by the f-change rule is a rounding coin flip)."""
+    """The batched random-effect solver (LBFGS, OWLQN, TRON, LBFGS in a
+    box) in float32 on the card lands where the float64 CPU solve does,
+    lane by lane: x within 1e-3, the same convergence reason.  At tolerance
+    1e-3 the convergence tests sit far above float32 rounding (tighter,
+    whether a lane stops by the gradient or by the f-change rule is a
+    rounding coin flip)."""
     import game_jax_side as side
     from photon_ml_tpu_torch.optim.config import (
-        OptimizerConfig, RegularizationContext, RegularizationType)
+        OptimizerConfig, OptimizerType, RegularizationContext, RegularizationType)
     from photon_ml_tpu_torch.parallel import random_effect as tre
-    loss, reg, alpha, lam, _ = side.SOLVER_CASES[case]
+    loss, reg, alpha, lam, _, opt = side.SOLVER_CASES[case]
+    opt = dict(opt, max_iterations=100, tolerance=1e-3)
+    if "optimizer" in opt:
+        opt["optimizer"] = OptimizerType(opt["optimizer"])
     out = {}
     for dev, dt in (("cpu", torch.float64), ("cuda", torch.float32)):
         t = {k: torch.from_numpy(v).to(device=dev, dtype=dt)
@@ -172,12 +178,37 @@ def test_batched_solver_on_card_matches_cpu_f64(cuda, case):
         blocks = tre.EntityBlocks(t["x"], t["labels"], t["mask"], t["weights"], t["offsets"])
         out[dev] = tre.fit_random_effects(
             blocks, TL.BY_NAME[loss], x0=t["x0"],
-            config=OptimizerConfig(max_iterations=100, tolerance=1e-3),
+            config=OptimizerConfig(**opt),
             reg=RegularizationContext(RegularizationType(reg), alpha), reg_weight=lam)
     c, g = out["cpu"], out["cuda"]
     assert g.x.is_cuda and g.x.dtype == torch.float32
     np.testing.assert_allclose(g.x.double().cpu().numpy(), c.x.numpy(), rtol=0, atol=1e-3)
     np.testing.assert_array_equal(g.reason.cpu().numpy(), c.reason.numpy())
+
+
+@pytest.mark.parametrize("task", ["linear_regression", "poisson_regression"])
+def test_train_glm_tron_on_card_matches_cpu_f64(cuda, task):
+    """train_glm with TRON in float32 on the card against the CPU in
+    float64 (make_a1a_like(4, task, seed=52), L2 lambda 1, TRON at its
+    defaults): coefficients within 1e-3, objective within rtol 1e-5, and
+    one kernel launch per value+gradient pass: iterations + 1 (the
+    Hessian-vector products are tensor ops)."""
+    from photon_ml_tpu_torch.data.synthetic_bench import make_a1a_like
+    from photon_ml_tpu_torch.models.training import train_glm
+    from photon_ml_tpu_torch.optim.config import (
+        OptimizerConfig, OptimizerType, RegularizationContext, RegularizationType)
+    x, y = make_a1a_like(4, task.split("_")[0], seed=52)
+    kw = dict(optimizer_config=OptimizerConfig(optimizer=OptimizerType.TRON),
+              regularization=RegularizationContext(RegularizationType.L2),
+              regularization_weights=(1.0,))
+    cpu = train_glm(x.astype(np.float64), y.astype(np.float64), task, device="cpu", **kw)[0]
+    before = hk.LAUNCHES
+    card = train_glm(x, y, task, **kw)[0]
+    assert hk.LAUNCHES - before == card.result.iterations + 1 > 1
+    assert card.result.fg_count is None and card.result.hv_count > 0
+    np.testing.assert_allclose(card.model.coefficients.means.double().cpu().numpy(),
+                               cpu.model.coefficients.means.numpy(), rtol=0, atol=1e-3)
+    np.testing.assert_allclose(card.result.value.item(), cpu.result.value.item(), rtol=1e-5)
 
 
 def _movielens(n_rows):
@@ -217,3 +248,21 @@ def test_glmix_fit_on_card_matches_cpu_f64(cuda):
     assert hk.LAUNCHES - before == passes > 0
     np.testing.assert_allclose(card.objective_history, cpu.objective_history, rtol=1e-4)
     assert abs(card.validation["AUC"] - cpu.validation["AUC"]) <= 1e-3
+
+
+def test_glmix_tron_fit_on_card_matches_cpu_f64(cuda):
+    """The same with TRON on both coordinates: objective history within
+    rtol 1e-4, fixed-effect launches equal to its iterations + 1 per
+    solve, Hv rounds reported per random-effect bucket."""
+    import game_jax_side as side
+    from photon_ml_tpu_torch.game import GameEstimator, GameTrainingConfig
+    train, val, _ = _movielens(3000)
+    cfg = GameTrainingConfig.from_dict(side.tron_config_dict())
+    cpu = GameEstimator(cfg, device="cpu", dtype=torch.float64).fit(train, val, ["AUC"])
+    before = hk.LAUNCHES
+    card = GameEstimator(cfg).fit(train, val, ["AUC"])
+    fixed = [t for k, t in card.descent.trackers.items() if k.endswith("/fixed")]
+    assert hk.LAUNCHES - before == sum(t.iterations + 1 for t in fixed) > 0
+    assert all(b.hv_rounds is not None for k, t in card.descent.trackers.items()
+               if k.endswith("/perUser") for b in t.buckets)
+    np.testing.assert_allclose(card.objective_history, cpu.objective_history, rtol=1e-4)

@@ -97,7 +97,10 @@ def test_coefficients_and_iterations_match_jax(jax_results, fits, data, name):
     np.testing.assert_array_equal(m["perUser"].projection, j("perUser/projection"))
     for key, t in fit.descent.trackers.items():
         assert t.iterations == int(j(f"iterations/{key}")), key
-        assert t.fg_count > t.iterations > 0
+        if name == "tron":
+            assert t.fg_count is None and t.hv_count >= t.iterations > 0
+        else:
+            assert t.fg_count > t.iterations > 0
     np.testing.assert_allclose(fit.descent.model.score_dataset(data[1]).numpy(),
                                j("val_scores"), rtol=0, atol=1e-6)
 
@@ -140,6 +143,31 @@ def test_config_json_round_trips_across_packages(config):
     assert back == config and back.to_dict() == j.to_dict()
     full = json.loads(j.to_json())
     assert full == side.glmix_config_dict()
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_each_parity_config_json_round_trips_across_packages(name):
+    d = side.ESTIMATOR_CONFIGS[name]()
+    port = GameTrainingConfig.from_dict(d)
+    j = JConfig.from_json(port.to_json())
+    assert j.to_dict() == port.to_dict() == d
+    assert GameTrainingConfig.from_json(j.to_json()) == port
+
+
+def test_tron_fit_reports_hessian_vector_counts(fits):
+    """Under TRON the trackers count Hessian-vector products (hv_count) and
+    each random-effect bucket its batched Hv rounds (hv_rounds)."""
+    trackers = fits["tron"].descent.trackers
+    assert {t.reasons.keys() <= {"GRADIENT_CONVERGED", "TRUST_REGION_EXHAUSTED",
+                                 "MAX_ITERATIONS"} for t in trackers.values()} == {True}
+    for key, t in trackers.items():
+        if key.endswith("/perUser"):
+            assert all(b.hv_rounds is not None and b.rounds >= 1 for b in t.buckets)
+            assert max(b.hv_rounds for b in t.buckets) <= t.hv_count
+        else:
+            assert t.buckets is None and t.hv_count >= t.iterations
+    assert all(b.hv_rounds is None for t in fits["config4"].descent.trackers.values()
+               if t.buckets for b in t.buckets)
 
 
 def test_fit_records_phases_and_trackers(fitted):
@@ -193,15 +221,22 @@ def test_descent_without_validation_returns_final_model(data, config):
     assert res.validation_history == {}
 
 
-def _opt(**kw):
+def _opt(reg=RegularizationType.L2, **kw):
     return GLMOptimizationConfig(optimizer=OptimizerConfig(**kw),
-                                 regularization=RegularizationContext(RegularizationType.L2),
+                                 regularization=RegularizationContext(reg),
                                  regularization_weight=1.0)
 
 
+# case -> (config change, what the error says); the TRON cases break the
+# JAX package's rules (ValueError), the rest name their ROADMAP item
+# (NotImplementedError)
 UNPORTED = {
-    "re_tron": (dict(re=dict(optimization=_opt(optimizer=OptimizerType.TRON))), "TRON"),
-    "re_box": (dict(re=dict(optimization=_opt(box_lower=(-1.0,) * 19))), "box"),
+    "re_tron": (dict(re=dict(optimization=_opt(RegularizationType.L1,
+                                               optimizer=OptimizerType.TRON))),
+                "TRON supports only L2"),
+    "re_box": (dict(re=dict(optimization=_opt(optimizer=OptimizerType.TRON,
+                                              box_lower=(-1.0,) * 19))),
+               "box constraints are an LBFGS feature"),
     "re_random_projection": (dict(re=dict(projector="random_projection:4")), "item 13"),
     "fe_downsampling": (dict(fe=dict(optimization=GLMOptimizationConfig(
         downsampling_rate=0.5))), "item 8"),
@@ -220,7 +255,8 @@ def test_unported_options_raise_naming_their_item(data, config, case):
         if key in change:
             coords[name] = dataclasses.replace(coords[name], **change[key])
     cfg = dataclasses.replace(config, coordinates=coords)
-    with pytest.raises(NotImplementedError, match=match):
+    error = ValueError if case in ("re_tron", "re_box") else NotImplementedError
+    with pytest.raises(error, match=match):
         GameEstimator(cfg, device="cpu", dtype=torch.float64).fit(train, val)
 
 

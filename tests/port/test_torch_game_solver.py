@@ -1,12 +1,15 @@
-"""Port batched LBFGS/OWLQN == the JAX package's jit(vmap(solve)) per lane.
+"""Port batched LBFGS/OWLQN/TRON == the JAX package's jit(vmap(solve)) per
+lane.
 
 The JAX side (parallel/random_effect.py::_cached_batched_solver) runs once
 for the module in a subprocess (game_jax_side.py, float64 on the CPU), so
 its XLA programs never compile in the test process.  Problems are
 [E=24, S=16, d=5] blocks with all-masked lanes, one-row lanes and ragged
-lanes, weights and offsets on every lane, under L2 and elastic net, cold and
-warm started.  Per lane: equal iterations, fg_count and reason; x within
-atol 1e-7; value within rtol 1e-10 (the same arithmetic in float64, in
+lanes, weights and offsets on every lane, under L2, elastic net and none,
+LBFGS with and without a box [-0.3, 0.3] shared by every lane, OWLQN and
+TRON, cold and warm started.  Per lane: equal iterations, reason and
+fg_count (LBFGS/OWLQN) or hv_count (TRON); x within rtol 1e-9 (TRON, box)
+or atol 1e-7; value within rtol 1e-10 (the same arithmetic in float64, in
 another summation order)."""
 import numpy as np
 import pytest
@@ -32,29 +35,49 @@ def _blocks(case):
                             t["offsets"]), t["x0"]
 
 
-def _port_solve(case):
-    loss, reg, alpha, lam, _ = side.SOLVER_CASES[case]
-    blocks, x0 = _blocks(case)
+def _config(case):
+    opt = dict(side.SOLVER_CASES[case][5])
+    if "optimizer" in opt:
+        opt["optimizer"] = OptimizerType(opt["optimizer"])
+    return OptimizerConfig(**{"max_iterations": side.SOLVER_MAX_ITERATIONS,
+                              "tolerance": side.SOLVER_TOLERANCE, **opt})
+
+
+def _port_solve(case, blocks=None, x0=None):
+    loss, reg, alpha, lam, _, _ = side.SOLVER_CASES[case]
+    if blocks is None:
+        blocks, x0 = _blocks(case)
     return tre.fit_random_effects(
-        blocks, TL.BY_NAME[loss], x0=x0,
-        config=OptimizerConfig(max_iterations=side.SOLVER_MAX_ITERATIONS,
-                               tolerance=side.SOLVER_TOLERANCE),
+        blocks, TL.BY_NAME[loss], x0=x0, config=_config(case),
         reg=RegularizationContext(RegularizationType(reg), alpha),
         reg_weight=lam)
+
+
+def _count(case):
+    """The per-lane pass count of the case's solver."""
+    return "hv_count" if _config(case).optimizer == OptimizerType.TRON else "fg_count"
 
 
 @pytest.mark.parametrize("case", list(side.SOLVER_CASES))
 def test_batched_solver_matches_jax_per_lane(jax_results, case):
     res = _port_solve(case)
+    count = _count(case)
     j = {f: jax_results[f"{case}/{f}"] for f in
-         ("x", "value", "iterations", "fg_count", "reason", "loss_history")}
+         ("x", "value", "iterations", count, "reason", "loss_history")}
     np.testing.assert_array_equal(res.iterations.numpy(), j["iterations"])
-    np.testing.assert_array_equal(res.fg_count.numpy(), j["fg_count"])
+    np.testing.assert_array_equal(getattr(res, count).numpy(), j[count])
     np.testing.assert_array_equal(res.reason.numpy(), j["reason"])
-    np.testing.assert_allclose(res.x.numpy(), j["x"], rtol=0, atol=1e-7)
-    np.testing.assert_allclose(res.value.numpy(), j["value"], rtol=1e-10)
-    np.testing.assert_allclose(res.loss_history.numpy(), j["loss_history"],
-                               rtol=1e-9, equal_nan=True)
+    if side.SOLVER_CASES[case][5]:
+        np.testing.assert_allclose(res.x.numpy(), j["x"], rtol=1e-9, atol=1e-12)
+        # lanes that fit exactly end at values ~1e-30: rounding, not a gap
+        np.testing.assert_allclose(res.value.numpy(), j["value"], rtol=1e-10, atol=1e-14)
+        np.testing.assert_allclose(res.loss_history.numpy(), j["loss_history"],
+                                   rtol=1e-9, atol=1e-14, equal_nan=True)
+    else:
+        np.testing.assert_allclose(res.x.numpy(), j["x"], rtol=0, atol=1e-7)
+        np.testing.assert_allclose(res.value.numpy(), j["value"], rtol=1e-10)
+        np.testing.assert_allclose(res.loss_history.numpy(), j["loss_history"],
+                                   rtol=1e-9, equal_nan=True)
     # the lanes took different paths: not every lane stopped at one step
     assert len(np.unique(j["iterations"])) > 2
 
@@ -63,20 +86,15 @@ def test_batched_solver_matches_jax_per_lane(jax_results, case):
 def test_frozen_lanes_do_not_move(case):
     """A lane's result does not depend on the other lanes of the batch:
     solving lanes one at a time gives the same per-lane results."""
-    loss, reg, alpha, lam, _ = side.SOLVER_CASES[case]
     blocks, x0 = _blocks(case)
     full = _port_solve(case)
+    count = _count(case)
     for e in (0, 1, 2, 9):
         one = tre.EntityBlocks(*(getattr(blocks, f)[e:e + 1] for f in
                                  ("x", "labels", "mask", "weights", "offsets")))
-        r = tre.fit_random_effects(
-            one, TL.BY_NAME[loss], x0=x0[e:e + 1],
-            config=OptimizerConfig(max_iterations=side.SOLVER_MAX_ITERATIONS,
-                                   tolerance=side.SOLVER_TOLERANCE),
-            reg=RegularizationContext(RegularizationType(reg), alpha),
-            reg_weight=lam)
+        r = _port_solve(case, one, x0[e:e + 1])
         assert int(r.iterations[0]) == int(full.iterations[e])
-        assert int(r.fg_count[0]) == int(full.fg_count[e])
+        assert int(getattr(r, count)[0]) == int(getattr(full, count)[e])
         np.testing.assert_allclose(r.x[0].numpy(), full.x[e].numpy(),
                                    rtol=0, atol=1e-12)
 
@@ -112,15 +130,47 @@ def test_padded_rows_with_nonfinite_loss_do_not_poison():
     assert torch.isfinite(v).all() and torch.equal(v, v0) and torch.equal(g, g0)
 
 
-@pytest.mark.parametrize("config,match", [
-    (OptimizerConfig(optimizer=OptimizerType.TRON), "TRON"),
-    (OptimizerConfig(box_lower=(-1.0,) * side.SOLVER_D), "box"),
-    (OptimizerConfig(track_coefficients=True), "tracking"),
+@pytest.mark.parametrize("config,reg,error,match", [
+    (OptimizerConfig(optimizer=OptimizerType.TRON), RegularizationType.L1,
+     ValueError, "TRON supports only L2"),
+    (OptimizerConfig(optimizer=OptimizerType.TRON, box_lower=(-1.0,) * side.SOLVER_D),
+     RegularizationType.L2, ValueError, "box constraints are an LBFGS feature"),
+    (OptimizerConfig(track_coefficients=True), RegularizationType.L2,
+     NotImplementedError, "tracking"),
 ], ids=["tron", "box", "track"])
-def test_unported_batched_options_raise(config, match):
+def test_unported_batched_options_raise(config, reg, error, match):
+    """Coefficient tracking is not ported; TRON under L1 and TRON with a
+    box break the JAX package's rules, on batched solves too."""
     blocks, x0 = _blocks("logistic_l2")
-    with pytest.raises(NotImplementedError, match=match):
-        tre.fit_random_effects(blocks, TL.LOGISTIC, x0=x0, config=config)
+    with pytest.raises(error, match=match):
+        tre.fit_random_effects(blocks, TL.LOGISTIC, x0=x0, config=config,
+                               reg=RegularizationContext(reg), reg_weight=1.0)
+
+
+@pytest.mark.parametrize("case", ["logistic_l2_tron", "squared_l2_tron_warm",
+                                  "poisson_l2_tron_warm"])
+def test_batched_hessian_vector_is_masked_glm_hessian_vector(case):
+    """One lane of the batched Hv == the port's single-objective Hv on that
+    lane's real rows; padded rows with a non-finite l'' do not poison."""
+    from photon_ml_tpu_torch.ops.objective import GLMObjective
+    loss = TL.BY_NAME[side.SOLVER_CASES[case][0]]
+    blocks, _ = _blocks(case)
+    rng = np.random.default_rng(6)
+    c = torch.from_numpy(rng.normal(size=(side.SOLVER_E, side.SOLVER_D)) * 0.3)
+    v = torch.from_numpy(rng.normal(size=(side.SOLVER_E, side.SOLVER_D)))
+    hv = tre.batched_hessian_vector(loss, blocks, c, v, 0.7)
+    for e in range(side.SOLVER_E):
+        rows = blocks.mask[e] > 0
+        obj = GLMObjective(loss, blocks.x[e][rows], blocks.labels[e][rows],
+                           weights=blocks.weights[e][rows],
+                           offsets=blocks.offsets[e][rows], l2_weight=0.7)
+        np.testing.assert_allclose(hv[e].numpy(), obj.hessian_vector(c[e], v[e]).numpy(),
+                                   rtol=1e-12, atol=1e-13)
+    pad = blocks.mask == 0
+    poisoned = tre.EntityBlocks(blocks.x, blocks.labels, blocks.mask, blocks.weights,
+                                torch.where(pad, torch.full_like(blocks.offsets, 1e6),
+                                            blocks.offsets))
+    assert torch.equal(tre.batched_hessian_vector(loss, poisoned, c, v, 0.7), hv)
 
 
 def test_mesh_raises():
