@@ -69,7 +69,39 @@ Phases, one JSON object per line on stdout:
      and the fixed effect's kernel launches must equal the sum of its
      solves' iterations + 1; then the fit again, warm, and one outer
      iteration under torch.profiler;
- 13. the kernels line, nvidia-smi's line, and the final result line.
+ 13. sparse_checks: the sparse kernels (csrc/ell_sparse.cu: A, the ELL
+     margins with the loss, u = w l' and the value, or margins alone; B,
+     the column sums of the column-sorted view, powers 1 and 2) against
+     their plain versions for all four losses, plain and with weights +
+     offsets, at 700 x 37 (k = 5, empty rows and an empty column), its
+     column view built from ELL (padding slots in column 0), 1, 3 and 0
+     rows, 20,000 x 300 with an intercept column that spans kernel B's
+     tiles and 20,000 x 250,000 (k = 64), then two calls bit for bit;
+     tolerances: value rtol 1e-5, u rtol/atol 1e-4, margins per row
+     2 sqrt(k + 1) eps sum|terms|, column sums per column 2 sqrt(count)
+     eps sum|terms| (float32 sums of up to 2 x 10^5 terms);
+ 14. config6: bench config 6 (bench.py bench_config6) at full size,
+     make_wide_sparse_logistic(200,000, d=250,000, nnz=64, seed=77), scipy
+     CSR into train_glm on cuda in float32, L2 lambda 1, LBFGS(200, tol
+     1e-9): launches of A (loss mode) and B (power 1) must each equal
+     fg_count, with no other sparse or dense kernel launched, and the
+     float64 objective must be within 1e-5 relative of the scipy optimum
+     (the key carries the CSR's fingerprint); a warm solve, one profiled
+     solve (A and B once per pass on the device), the kernels against
+     their plain versions at this shape, and sparse_timing: A, B and the
+     whole pass against their plain versions and cuSPARSE SpMV through
+     torch's CSR tensors, with bounds from this input's bytes;
+ 15. yahoo_glmix: bench config 7 (bench.py _yahoo_setup) at full size,
+     make_yahoo_like(300,000, seed=23), 95/5 split, a fixed effect on the
+     14,983-column sparse shard and per-user and per-item random effects
+     (cap 512), LBFGS(100), L2 lambda 1, two outer iterations, through
+     GameEstimator.fit on cuda in float32: the final objective within 1e-4
+     relative of the float64 reference, A (loss mode) and B launches each
+     equal to the fixed effect's summed fg_count, AUC in (0.5, 1); a warm
+     refit that must repeat the objective history bit for bit; the kernels
+     at the fixed effect's shape with the residual scores as offsets; one
+     profiled outer iteration;
+ 16. the kernels line, nvidia-smi's line, and the final result line.
 Exits non-zero, before printing any result, when CUDA is absent or when
 the port's package is not beside this script.
 """
@@ -111,6 +143,28 @@ SMALL = (("700x37", 700, 37, 0), ("700x37_misaligned", 700, 37, 1),
          ("3x124", 3, 124, 0), ("1x37", 1, 37, 0), ("20000x2048", 20_000, 2048, 0),
          ("64xD_MAX", 64, None, 0))
 WIDE = (200_000, 2048)
+# the hand kernels, as their device names contain them in a profile
+KERNEL_NAMES = ("fvg_", "ell_margin_loss", "csc_column_sum")
+# bench config 6 (bench.py bench_config6) and its scipy optimum's problem
+CONFIG6_N, CONFIG6_D, CONFIG6_NNZ, CONFIG6_SEED = 200_000, 250_000, 64, 77
+CONFIG6_RTOL = 1e-5
+# bench config 7 (bench.py bench_config7, _yahoo_setup) and its float64
+# reference fit; its parity gate
+YAHOO_REF_KEY = "yahoo:300000:23:yahoo:v=g2"
+YAHOO_ROWS, YAHOO_SEED, YAHOO_OUTER = 300_000, 23, 2
+YAHOO_RTOL = 1e-4
+SPARSE_REPS = 20
+SPARSE_DESIGN = {
+    "ell_margin_loss": ("P = min(32, pow2 >= k) threads per row over the row-major ELL "
+                        "arrays, gathers of c from L2, loss on the row's first thread; "
+                        "<= 8 blocks of 256 per SM in rounds; value per block in a fixed "
+                        "order, ticketed last-block sum (one launch; margins mode for "
+                        "matvec)"),
+    "csc_column_sum": ("column-sorted stream in tiles of 2048, one block per tile: "
+                       "val^p * u[row] staged in shared memory, one warp per column "
+                       "portion; columns that span tiles (the intercept) completed by the "
+                       "ticketed last block in tile order; no atomics, bit-stable"),
+}
 DESIGN = ("persistent grid (one block per SM, ~48 KB row tiles dealt out in turn); "
           "ring of cp.async.bulk (TMA) stages with full/empty mbarriers fed by "
           "one producer thread; margins and gradient from shared memory, "
@@ -279,6 +333,9 @@ def profile_call(fn):
     cpu = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU]
     busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
     fused = [e for e in dev if "fvg_" in e.key]
+    by_kernel = {name: {"launches": sum(e.count for e in dev if name in e.key),
+                        "ms": sum(e.self_device_time_total for e in dev if name in e.key) / 1e3}
+                 for name in KERNEL_NAMES}
     top = lambda evs, attr: [
         {"name": e.key[:80], "count": e.count, "ms": getattr(e, attr) / 1e3}
         for e in sorted(evs, key=lambda e: -getattr(e, attr))[:8]]
@@ -288,6 +345,7 @@ def profile_call(fn):
         "device_launches": sum(e.count for e in dev),
         "fused_kernel_ms": sum(e.self_device_time_total for e in fused) / 1e3,
         "fused_kernel_launches": sum(e.count for e in fused),
+        "kernels": by_kernel,
         "device_top": top(dev, "self_device_time_total"),
         "host_top": top(cpu, "self_cpu_time_total")}
 
@@ -328,12 +386,18 @@ def host_objective(x, y, w, lam, task="logistic_regression", l1=0.0) -> float:
 
 def scipy_ref_key(task, seed, x, y, l1, l2, box) -> str:
     """bench.py glm_entry's key of the scipy optimum: the problem and a
-    content hash of the data (bench.py _data_fingerprint), so a lookup
-    succeeds only for the reference's data, byte for byte."""
+    content hash of the data (bench.py _data_fingerprint: a dense x's
+    bytes, or a sparse x's CSR data, indices and indptr, then y), so a
+    lookup succeeds only for the reference's data, byte for byte."""
     import hashlib
     from photon_ml_tpu_torch.data.synthetic_bench import GENERATOR_VERSION
     h = hashlib.blake2b(digest_size=8)
-    h.update(np.ascontiguousarray(x).data)
+    if hasattr(x, "tocsr"):  # scipy.sparse: its CSR arrays, in bench.py's order
+        csr = x.tocsr()
+        for part in (csr.data, csr.indices, csr.indptr):
+            h.update(np.ascontiguousarray(part).data)
+    else:
+        h.update(np.ascontiguousarray(x).data)
     h.update(np.ascontiguousarray(y).data)
     return (f"scipy:{task}:seed{seed}:{x.shape[0]}x{x.shape[1]}:l1={l1}:l2={l2}"
             f":box={box}:fp={GENERATOR_VERSION}-{h.hexdigest()}")
@@ -386,21 +450,24 @@ def fe_passes(descent) -> int:
                if k.endswith("/fixed"))
 
 
-def glmix_report(result, fit_s, n_train, launches, ref_nll) -> dict:
-    """The glmix phase's line: the fit's numbers and its checks."""
+def glmix_report(result, fit_s, n_train, launches, ref_nll, fe_dim=31,
+                 re_dims=(("perUser", 19),), outer=GLMIX_OUTER) -> dict:
+    """A GLMix fit's line: the fit's numbers and its checks (config 4's
+    shapes by default: fixed effect d = 31, per-user random effect d = 19)."""
     import torch
     d = result.descent
     final = float(d.objective_history[-1])
     model = d.model.coordinates
-    finite = (len(d.objective_history) == 2 * GLMIX_OUTER
+    finite = (len(d.objective_history) == (1 + len(re_dims)) * outer
               and all(np.isfinite(d.objective_history))
-              and tuple(model["fixed"].glm.coefficients.means.shape) == (31,)
-              and model["perUser"].coefficients.shape[1] == 19
+              and tuple(model["fixed"].glm.coefficients.means.shape) == (fe_dim,)
               and bool(torch.isfinite(model["fixed"].glm.coefficients.means).all())
-              and bool(torch.isfinite(model["perUser"].coefficients).all()))
+              and all(model[name].coefficients.shape[1] == dim
+                      and bool(torch.isfinite(model[name].coefficients).all())
+                      for name, dim in re_dims))
     return {
-        "n_train": n_train, "outer_iterations": GLMIX_OUTER, "fit_s": fit_s,
-        "examples_per_s": n_train * GLMIX_OUTER / fit_s,
+        "n_train": n_train, "outer_iterations": outer, "fit_s": fit_s,
+        "examples_per_s": n_train * outer / fit_s,
         "objective_history": d.objective_history, "final_objective": final,
         "ref_nll": ref_nll, "nll_rel_gap": (final - ref_nll) / abs(ref_nll),
         "validation_auc": result.validation["AUC"],
@@ -417,19 +484,21 @@ def glmix_report(result, fit_s, n_train, launches, ref_nll) -> dict:
                             "hv_rounds": b.hv_rounds, "seconds": b.seconds}
                            for b in t.buckets]}
                    for k, t in d.trackers.items()},
-        "random_effect_entities": int(model["perUser"].coefficients.shape[0]),
+        "random_effect_entities": {name: int(model[name].coefficients.shape[0])
+                                   for name, _ in re_dims},
     }
 
 
-def check_glmix(phase: str, g: dict) -> None:
+def check_glmix(phase: str, g: dict, rtol: float = GLMIX_RTOL) -> None:
     """A GLMix fit's checks: finite, one kernel launch per fixed-effect
-    pass, the objective within GLMIX_RTOL of the reference, a usable AUC."""
+    pass (of each kernel the pass runs), the objective within rtol of the
+    reference, a usable AUC."""
     if not g["finite"]:
         raise SystemExit(f"{phase}: non-finite or misshapen objective or coefficients")
     if not (g["kernel_launches"] == g["fe_passes"] and g["kernel_launches"] > 0):
         raise SystemExit(f"{phase}: kernel launches {g['kernel_launches']} != "
                          f"fixed-effect passes {g['fe_passes']}")
-    if not abs(g["nll_rel_gap"]) <= GLMIX_RTOL:
+    if not abs(g["nll_rel_gap"]) <= rtol:
         raise SystemExit(f"{phase}: objective {g['final_objective']} is "
                          f"{g['nll_rel_gap']:.3e} from the reference {g['ref_nll']}")
     if not 0.5 < g["validation_auc"] < 1.0:
@@ -516,6 +585,429 @@ def time_hv(obj, x) -> dict:
     med["launches_per_call"] = prof_at["device_launches"] / batch
     med["full_launches_per_call"] = prof_full["device_launches"] / batch
     return med
+
+
+def sparse_matrix(rng, n, d, k, intercept=False, from_ell=False):
+    """A PaddedSparse on the card: <= k nonzeros per row at uniform columns
+    (rows 0 and 2 empty when n > 2, column 1 empty), values in [0.2, 1),
+    optionally an all-ones last column (it spans kernel B's tiles once
+    n > 2048); its column view scipy's, or built from the ELL arrays
+    (padding slots in column 0's segment)."""
+    import scipy.sparse as sp
+    from photon_ml_tpu_torch.ops.features import PaddedSparse
+    counts = rng.integers(1, k + 1, size=n)
+    if n > 2:
+        counts[[0, 2]] = 0
+    rows = np.repeat(np.arange(n), counts)
+    cols = rng.integers(2, d - 1 if intercept else d, size=rows.size)
+    x = sp.csr_matrix((rng.uniform(0.2, 1.0, size=rows.size).astype(np.float32),
+                       (rows, cols)), shape=(n, d))
+    if intercept:
+        x = sp.hstack([x[:, :d - 1], sp.csr_matrix(np.ones((n, 1), np.float32))]).tocsr()
+    if from_ell:
+        return PaddedSparse.from_scipy(x, device="cuda").with_csc()
+    return PaddedSparse.from_scipy(x, with_csc=True, device="cuda")
+
+
+def over_tol(got, want, tol) -> float:
+    """The largest |got - want| / tol (<= 1 passes)."""
+    import torch
+    err = (got.double() - want.double()).abs()
+    return float((err / (tol + 1e-30)).max()) if err.numel() else 0.0
+
+
+def compare_sparse(sk, loss, x, y, c, w, o) -> dict:
+    """Kernels A (loss and margins modes) and B (powers 1 and 2) against
+    their plain versions on the same inputs.  Tolerances: the value rtol
+    VALUE_RTOL and u rtol/atol GRAD_RTOL/GRAD_ATOL (as the dense kernel's);
+    the margins per row within sk.margins_tolerance and each column sum
+    within sk.column_sum_tolerance (2 sqrt(count) eps sum|terms| in
+    float32).  B's powers run on A's u (power 1) and on u in [-1, 1]
+    (power 2)."""
+    import torch
+    n = x.shape[0]
+    v_k, u_k = sk.ell_margin_loss(loss, x.indices, x.values, c, y, w, o)
+    v_p, u_p = sk.ell_margin_loss_plain(loss, x.indices, x.values, c, y, w, o)
+    z_k = sk.ell_margins(x.indices, x.values, c, o)
+    z_p = sk.ell_margins_plain(x.indices, x.values, c, o)
+    g_k = sk.csc_column_sum(x.csc_row, x.csc_val, x.csc_end, u_k, 1)
+    g_p = sk.csc_column_sum_plain(x.csc_row, x.csc_val, x.csc_end, u_k, 1)
+    r = torch.linspace(-1.0, 1.0, n, device="cuda")
+    h_k = sk.csc_column_sum(x.csc_row, x.csc_val, x.csc_end, r, 2)
+    h_p = sk.csc_column_sum_plain(x.csc_row, x.csc_val, x.csc_end, r, 2)
+    torch.cuda.synchronize()
+    v_k, v_p = v_k.item(), v_p.item()
+    u_err = (u_k.double() - u_p.double()).abs()
+    out = {
+        "value_rel_err": abs(v_k - v_p) / max(abs(v_p), 1e-30),
+        "u_err_over_tol": over_tol(u_k, u_p, GRAD_ATOL + GRAD_RTOL * u_p.abs()),
+        "z_err_over_tol": over_tol(z_k, z_p, sk.margins_tolerance(x.indices, x.values, c, o)),
+        "g_err_over_tol": over_tol(g_k, g_p, sk.column_sum_tolerance(
+            x.csc_row, x.csc_val, x.csc_end, u_k, 1)),
+        "g2_err_over_tol": over_tol(h_k, h_p, sk.column_sum_tolerance(
+            x.csc_row, x.csc_val, x.csc_end, r, 2)),
+        "a_max_abs_err": max(float(u_err.max()) if n else 0.0,
+                             float((z_k - z_p).abs().max()) if n else 0.0, abs(v_k - v_p)),
+        "b_max_abs_err": max(float((g_k - g_p).abs().max()), float((h_k - h_p).abs().max())),
+    }
+    finite = (np.isfinite(v_k) and bool(torch.isfinite(u_k).all())
+              and bool(torch.isfinite(g_k).all()) and bool(torch.isfinite(h_k).all()))
+    out["ok"] = bool(finite and out["value_rel_err"] <= VALUE_RTOL
+                     and max(out[k] for k in ("u_err_over_tol", "z_err_over_tol",
+                                              "g_err_over_tol", "g2_err_over_tol")) <= 1.0)
+    return out
+
+
+def run_sparse_checks(sk, losses, seed=1) -> None:
+    """The sparse kernels against their plain versions at the small and
+    wide shapes, every loss plain and with weights + offsets, then one
+    bit-stability check; raises on any failure."""
+    import torch
+    rng = np.random.default_rng(seed)
+    shapes = (("700x37_k5", 700, 37, 5, False, False),
+              ("700x37_ell_view", 700, 37, 5, False, True),
+              ("1x37", 1, 37, 5, False, False), ("3x37", 3, 37, 5, False, False),
+              ("0x37", 0, 37, 5, False, False),
+              ("20000x300_intercept", 20_000, 300, 8, True, False),
+              ("20000x250000", 20_000, 250_000, 64, True, False))
+    failures = []
+    for size, n, d, k, icpt, ell in shapes:
+        x = sparse_matrix(rng, n, d, k, icpt, ell)
+        t = lambda a: torch.from_numpy(a.astype(np.float32)).cuda()
+        y = t((rng.uniform(size=n) < 0.3) * 1.0)
+        c = t(rng.normal(size=d) * 0.3 / np.sqrt(k))
+        w, o = t(rng.uniform(0.5, 2.0, size=n)), t(rng.normal(size=n) * 0.1)
+        for loss in losses:
+            for tag, ww, oo in (("plain", None, None), ("w+o", w, o)):
+                r = compare_sparse(sk, loss, x, y, c, ww, oo)
+                emit({"phase": "sparse_check", "size": size, "shape": [n, d], "k": k,
+                      "nnz": int(x.csc_row.numel()), "loss": loss.name, "inputs": tag, **r})
+                if not r["ok"]:
+                    failures.append(f"{size}/{loss.name}/{tag}")
+        if size == "20000x250000":
+            def run():
+                v, u = sk.ell_margin_loss(losses[0], x.indices, x.values, c, y, w, o)
+                return (v, u, sk.ell_margins(x.indices, x.values, c),
+                        sk.csc_column_sum(x.csc_row, x.csc_val, x.csc_end, u, 1),
+                        sk.csc_column_sum(x.csc_row, x.csc_val, x.csc_end, u, 2))
+            first = run()
+            second = run()
+            same = all(bool(torch.equal(a, b)) for a, b in zip(first, second))
+            emit({"phase": "sparse_check", "size": size, "bit_stable": same})
+            if not same:
+                failures.append(f"{size}/bit_stability")
+    if failures:
+        raise SystemExit(f"sparse kernels disagree with their plain versions: {failures}")
+
+
+def time_sparse(sk, loss, x, y, o=None, reps=SPARSE_REPS) -> dict:
+    """Kernels A (loss mode) and B (power 1) and the whole pass (A then B),
+    each with its plain version and its library yardstick (cuSPARSE SpMV
+    through torch's CSR tensors: X c for A, the column view as a CSR of
+    X^T times u for B, both for the pass), timed as time_full times the
+    dense kernel (median over `reps` reps of 10 calls with perturbed
+    inputs, device time only); bounds from this input's bytes; launches
+    per pass over 10 passes, by the wrappers' counts and by a profile."""
+    import torch
+    n, d = x.shape
+    k, nnz = x.indices.shape[1], x.csc_row.numel()
+    base = torch.linspace(-0.1, 0.1, d, device="cuda", dtype=torch.float32)
+    ubase = torch.linspace(-1.0, 1.0, n, device="cuda", dtype=torch.float32)
+    idx, val, row, cv, end = x.indices, x.values, x.csc_row, x.csc_val, x.csc_end
+    # torch's CSR tensors over the same arrays (the yardstick only)
+    rows_of = torch.repeat_interleave(torch.arange(n, device="cuda"), k)
+    keep = val.reshape(-1) != 0
+    counts = torch.bincount(rows_of[keep], minlength=n)
+    crow = torch.zeros(n + 1, dtype=torch.int64, device="cuda")
+    crow[1:] = torch.cumsum(counts, 0)
+    x_csr = torch.sparse_csr_tensor(crow, idx.reshape(-1)[keep].long(), val.reshape(-1)[keep],
+                                    size=(n, d))
+    xt_csr = torch.sparse_csr_tensor(end.long(), row.long(), cv, size=(d, n))
+    kernels = {
+        "a": {"ms": lambda c, u: sk.ell_margin_loss(loss, idx, val, c, y, None, o),
+              "plain_ms": lambda c, u: sk.ell_margin_loss_plain(loss, idx, val, c, y, None, o),
+              "library_ms": lambda c, u: x_csr @ c},
+        "b": {"ms": lambda c, u: sk.csc_column_sum(row, cv, end, u, 1),
+              "plain_ms": lambda c, u: sk.csc_column_sum_plain(row, cv, end, u, 1),
+              "library_ms": lambda c, u: xt_csr @ u},
+        "pass": {"ms": lambda c, u: sk.csc_column_sum(
+                     row, cv, end, sk.ell_margin_loss(loss, idx, val, c, y, None, o)[1], 1),
+                 "plain_ms": lambda c, u: sk.csc_column_sum_plain(
+                     row, cv, end, sk.ell_margin_loss_plain(loss, idx, val, c, y, None, o)[1], 1),
+                 "library_ms": lambda c, u: (x_csr @ c, xt_csr @ u)},
+    }
+    batch = 10
+    times = {(kn, key): [] for kn, calls in kernels.items() for key in calls}
+    for r in range(reps + 2):  # the first two rounds warm up
+        cs = [base + 1e-6 * (r * batch + i + 1) for i in range(batch)]
+        us = [ubase * (1.0 + 1e-6 * (r * batch + i + 1)) for i in range(batch)]
+        for (kn, key) in times:
+            call = kernels[kn][key]
+            ms = cuda_ms(lambda: [call(c, u) for c, u in zip(cs, us)]) / batch
+            if r >= 2:
+                times[(kn, key)].append(ms)
+    # bytes each must move: inputs read once, outputs written once
+    vec = 4 * (n + (0 if o is None else n))                   # y (+ o)
+    a_bytes = 8 * n * k + vec + 4 * d + 4 * n + 4              # ELL, y, o, c; u, value
+    b_bytes = 8 * nnz + 4 * (d + 1) + 4 * n + 4 * d            # stream, end, u; g
+    p_bytes = 8 * n * k + 8 * nnz + vec + 4 * d + 4 * (d + 1) + 4 * d + 4
+    ops = {"a": 2 * n * k, "b": 2 * nnz, "pass": 2 * n * k + 2 * nnz}
+    out = {"shape": [n, d], "k": k, "nnz": int(nnz), "reps": reps}
+    for kn, nbytes in (("a", a_bytes), ("b", b_bytes), ("pass", p_bytes)):
+        med = {key: statistics.median(times[(kn, key)]) for key in kernels[kn]}
+        by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        by_ops = ops[kn] / PEAK_F32_FLOPS * 1e3
+        med["bound_ms"] = max(by_bytes, by_ops)
+        med["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
+        med["bytes"] = nbytes
+        med["min_ms"] = min(times[(kn, "ms")])
+        med["max_ms"] = max(times[(kn, "ms")])
+        med["share_of_bound"] = med["bound_ms"] / med["ms"]
+        med["ms_over_library"] = med["ms"] / med["library_ms"]
+        out[kn] = med
+    before = dict(sk.LAUNCHES)
+    _, prof = profile_call(lambda: [kernels["pass"]["ms"](c, u) for c, u in zip(cs, us)])
+    out["pass"]["wrapper_launches_per_call"] = {
+        k: (sk.LAUNCHES[k] - before[k]) / batch for k in before}
+    # as the profiler records them (it may miss the first few; PERF.md §7)
+    out["pass"]["launches_per_call"] = prof["device_launches"] / batch
+    out["pass"]["kernels_per_call"] = {k: v["launches"] / batch
+                                       for k, v in prof["kernels"].items()}
+    del x_csr, xt_csr
+    return out
+
+
+def yahoo_setup():
+    """Config 7's (train, validation, config) as bench.py's _yahoo_setup
+    builds them for its float32 run (salt 0)."""
+    from photon_ml_tpu_torch.data.game_data import build_game_dataset
+    from photon_ml_tpu_torch.data.synthetic_bench import make_yahoo_like
+    from photon_ml_tpu_torch.game import (
+        FixedEffectCoordinateConfig, GameTrainingConfig, GLMOptimizationConfig,
+        RandomEffectCoordinateConfig,
+    )
+    from photon_ml_tpu_torch.optim.config import (
+        OptimizerConfig, RegularizationContext, RegularizationType,
+    )
+    yl = make_yahoo_like(YAHOO_ROWS, seed=YAHOO_SEED)
+    shards = {"global": yl.x_global.astype(np.float32),
+              "per_user": yl.x_user.astype(np.float32),
+              "per_item": yl.x_item.astype(np.float32)}
+    ds = build_game_dataset(yl.response.astype(np.float32), shards,
+                            entity_ids={"userId": yl.user_ids, "itemId": yl.item_ids})
+    rng = np.random.default_rng(YAHOO_SEED + 99)
+    val_mask = rng.uniform(size=ds.num_rows) < 0.05
+    train = ds.subset(np.flatnonzero(~val_mask))
+    val = ds.subset(np.flatnonzero(val_mask))
+    opt = GLMOptimizationConfig(
+        optimizer=OptimizerConfig(max_iterations=100),
+        regularization=RegularizationContext(RegularizationType.L2),
+        regularization_weight=1.0)
+    cfg = GameTrainingConfig(
+        task_type="logistic_regression",
+        coordinates={
+            "fixed": FixedEffectCoordinateConfig("global", opt),
+            "perUser": RandomEffectCoordinateConfig("userId", "per_user", opt,
+                                                    active_data_upper_bound=512),
+            "perItem": RandomEffectCoordinateConfig("itemId", "per_item", opt,
+                                                    active_data_upper_bound=512)},
+        updating_sequence=["fixed", "perUser", "perItem"],
+        num_outer_iterations=YAHOO_OUTER, seed=YAHOO_SEED)
+    return train, val, cfg
+
+
+def reset_launches(hk, sk) -> None:
+    hk.LAUNCHES = 0
+    for key in sk.LAUNCHES:
+        sk.LAUNCHES[key] = 0
+
+
+def config6_phase(hk, sk, ref_cache, kind, smi) -> dict:
+    """Bench config 6 through train_glm on the card (its checks raise);
+    then the kernels against their plain versions and timed at its
+    shape."""
+    import torch
+    from photon_ml_tpu_torch.data.synthetic_bench import make_wide_sparse_logistic
+    from photon_ml_tpu_torch.models.training import train_glm
+    from photon_ml_tpu_torch.ops import features as fops
+    from photon_ml_tpu_torch.ops.losses import LOGISTIC
+    from photon_ml_tpu_torch.optim.config import (
+        OptimizerConfig, RegularizationContext, RegularizationType,
+    )
+    from photon_ml_tpu_torch.optim.types import ConvergenceReason
+    l2_reg = RegularizationContext(RegularizationType.L2)
+    from photon_ml_tpu_torch.data.synthetic_bench import make_wide_sparse_logistic
+    t0 = time.perf_counter()
+    x6_np, y6_np = make_wide_sparse_logistic(CONFIG6_N, d=CONFIG6_D, nnz=CONFIG6_NNZ,
+                                             seed=CONFIG6_SEED)
+    ref6_key = scipy_ref_key("logistic_regression", CONFIG6_SEED, x6_np, y6_np, 0.0, 1.0, None)
+    ref6 = ref_cache[ref6_key]["ref_nll"]
+    emit({"phase": "config6_data", "shape": list(x6_np.shape), "nnz": int(x6_np.nnz),
+          "ref_key": ref6_key, "seconds": time.perf_counter() - t0})
+    c6_cfg = OptimizerConfig(max_iterations=200, tolerance=1e-9)
+
+    def train6(x6):
+        return train_glm(x6, y6_np, "logistic_regression", optimizer_config=c6_cfg,
+                         regularization=l2_reg, regularization_weights=(LAMBDA,),
+                         device="cuda")[0]
+
+    reset_launches(hk, sk)
+    t0 = time.perf_counter()
+    t6 = train6(x6_np)  # the user's entry: scipy CSR in, ingest included
+    call6_s = time.perf_counter() - t0
+    c6_launches, c6_dense = dict(sk.LAUNCHES), hk.LAUNCHES
+    r6 = t6.result
+    coef6 = t6.model.coefficients.means
+    nll6 = host_objective(x6_np, y6_np, coef6.double().cpu().numpy(), LAMBDA)
+    gap6 = (nll6 - ref6) / abs(ref6)
+    t0 = time.perf_counter()
+    x6 = fops.as_feature_matrix(x6_np, "cuda", torch.float32, with_csc=True)
+    torch.cuda.synchronize()
+    ingest6_s = time.perf_counter() - t0
+    warm6 = train6(x6)
+    c6 = {"entry": "photon_ml_tpu_torch.models.training.train_glm",
+          "config": "bench.py bench_config6 (f32 entry)", "n": CONFIG6_N, "d": CONFIG6_D,
+          "k": x6.indices.shape[1], "nnz": int(x6.csc_row.numel()),
+          "iterations": r6.iterations, "fg_count": r6.fg_count,
+          "reason": ConvergenceReason(r6.reason).name, "kernel_launches": c6_launches,
+          "dense_kernel_launches": c6_dense, "call_s": call6_s, "ingest_s": ingest6_s,
+          "wall_s": t6.wall_s, "examples_per_s": CONFIG6_N * r6.fg_count / t6.wall_s,
+          "warm_wall_s": warm6.wall_s, "warm_fg_count": warm6.result.fg_count,
+          "warm_examples_per_s": CONFIG6_N * warm6.result.fg_count / warm6.wall_s,
+          "final_nll_f64": nll6, "ref_nll": ref6, "nll_rel_gap": gap6,
+          "device": kind, "nvidia_smi": smi}
+    emit({"phase": "config6", **c6})
+    if not (c6_launches["margin_loss"] == c6_launches["column_sum"] == r6.fg_count > 0
+            and c6_launches["margins"] == c6_launches["sq_column_sum"] == c6_dense == 0):
+        raise SystemExit(f"config6: sparse launches {c6_launches} (dense {c6_dense}) != "
+                         f"2 per pass x fg_count {r6.fg_count}")
+    if not (tuple(coef6.shape) == (CONFIG6_D,) and bool(torch.isfinite(coef6).all())
+            and abs(gap6) <= CONFIG6_RTOL):
+        raise SystemExit(f"config6: objective {nll6} is {gap6:.3e} from the reference {ref6}")
+    y6 = torch.from_numpy(y6_np).cuda()
+    c6_rng = np.random.default_rng(6)
+    c6c = torch.from_numpy((c6_rng.normal(size=CONFIG6_D) * 0.05).astype(np.float32)).cuda()
+    chk6 = compare_sparse(sk, LOGISTIC, x6, y6, c6c, None, None)
+    emit({"phase": "sparse_check", "size": "config6", "shape": [CONFIG6_N, CONFIG6_D],
+          "loss": "logistic", "inputs": "plain", **chk6})
+    if not chk6["ok"]:
+        raise SystemExit("sparse kernels disagree with their plain versions at config 6")
+    st6 = time_sparse(sk, LOGISTIC, x6, y6)
+    emit({"phase": "sparse_timing", "config": "config6", "loss": "logistic",
+          "device": kind, "nvidia_smi": smi, **st6})
+    # the sparse kernels' launches are gated above on the wrappers' counts;
+    # a profile here records a few of them fewer than were made (the first
+    # ones of a window, in this long process; PERF.md §7), so its counts
+    # are printed, not gated
+    t6p, prof6 = profile_call(lambda: train6(x6))
+    prof6["fg_count"] = t6p.result.fg_count
+    emit({"phase": "config6_profile", "device": kind, "nvidia_smi": smi, **prof6})
+    return {"launches": c6_launches, "passes": r6.fg_count, "check": chk6, "timing": st6}
+
+
+def yahoo_phase(hk, sk, ref_cache, kind, smi) -> dict:
+    """Bench config 7 through GameEstimator.fit on the card (its checks
+    raise), a warm refit that must repeat it bit for bit, the kernels at
+    the fixed effect's shape, and one profiled outer iteration."""
+    import torch
+    from photon_ml_tpu_torch.game import GameEstimator
+    from photon_ml_tpu_torch.ops.losses import LOGISTIC
+    t0 = time.perf_counter()
+    y_train, y_val, y_cfg = yahoo_setup()
+    yahoo_ref = ref_cache[YAHOO_REF_KEY]["ref_nll"]
+    emit({"phase": "yahoo_data", "n_train": y_train.num_rows, "n_val": y_val.num_rows,
+          "seconds": time.perf_counter() - t0})
+    reset_launches(hk, sk)
+    t0 = time.perf_counter()
+    y_result = GameEstimator(y_cfg, device="cuda").fit(y_train, y_val, ["AUC"])
+    torch.cuda.synchronize()
+    y_fit_s = time.perf_counter() - t0
+    y_launches, y_dense = dict(sk.LAUNCHES), hk.LAUNCHES
+    gy = glmix_report(y_result, y_fit_s, y_train.num_rows, y_launches["margin_loss"],
+                      yahoo_ref, fe_dim=14_983, re_dims=(("perUser", 21), ("perItem", 21)),
+                      outer=YAHOO_OUTER)
+    gy["kernel_launches"] = y_launches
+    gy["dense_kernel_launches"] = y_dense
+    emit({"phase": "yahoo_glmix", "entry": "photon_ml_tpu_torch.game.GameEstimator.fit",
+          "config": "bench.py bench_config7 (_yahoo_setup)", "device": kind,
+          "nvidia_smi": smi, **gy})
+    check_glmix("yahoo_glmix", dict(gy, kernel_launches=y_launches["margin_loss"]),
+                YAHOO_RTOL)
+    if not (y_launches["column_sum"] == y_launches["margin_loss"] == gy["fe_passes"]
+            and y_launches["sq_column_sum"] == y_dense == 0):
+        raise SystemExit(f"yahoo_glmix: sparse launches {y_launches} (dense {y_dense}) "
+                         f"!= 2 per pass x fixed-effect passes {gy['fe_passes']}")
+    t0 = time.perf_counter()
+    y_warm = GameEstimator(y_cfg, device="cuda").fit(y_train, y_val, ["AUC"])
+    torch.cuda.synchronize()
+    same = y_warm.objective_history == y_result.objective_history
+    emit({"phase": "yahoo_glmix_warm", "fit_s": time.perf_counter() - t0,
+          "spans_s": dict(y_warm.descent.timings), "same_objective_history": same,
+          "device": kind, "nvidia_smi": smi})
+    if not same:
+        raise SystemExit("yahoo_glmix: the warm refit did not repeat the fit bit for bit: "
+                         f"{y_warm.objective_history} vs {y_result.objective_history}")
+    # the kernels at the fixed effect's shape, offsets = the residual scores
+    y_final = y_result.descent.model.coordinates
+    x7 = y_train.device_shard("global", "cuda", torch.float32, with_csc=True)
+    y7 = torch.as_tensor(y_train.response, dtype=torch.float32, device="cuda")
+    o7 = (y_final["perUser"].score_dataset(y_train)
+          + y_final["perItem"].score_dataset(y_train)).contiguous()
+    chk7 = compare_sparse(sk, LOGISTIC, x7, y7, y_final["fixed"].glm.coefficients.means,
+                          None, o7)
+    emit({"phase": "sparse_check", "size": "config7_fixed_effect", "shape": list(x7.shape),
+          "loss": "logistic", "inputs": "offsets", **chk7})
+    if not chk7["ok"]:
+        raise SystemExit("sparse kernels disagree with their plain versions at config 7")
+    st7 = time_sparse(sk, LOGISTIC, x7, y7, o7)
+    emit({"phase": "sparse_timing", "config": "config7_fixed_effect", "loss": "logistic",
+          "inputs": "offsets", "device": kind, "nvidia_smi": smi, **st7})
+    # one outer iteration under the profiler
+    y_cfg1 = dataclasses.replace(y_cfg, num_outer_iterations=1)
+    before = dict(sk.LAUNCHES)
+    y_res1, y_prof = profile_call(
+        lambda: GameEstimator(y_cfg1, device="cuda").fit(y_train, y_val, ["AUC"]))
+    y_prof["fe_passes"] = fe_passes(y_res1.descent)
+    y_prof["margins_calls"] = sk.LAUNCHES["margins"] - before["margins"]
+    y_prof["spans_s"] = dict(y_res1.descent.timings)
+    # printed, not gated, as config 6's profile
+    emit({"phase": "yahoo_glmix_profile", "outer_iterations": 1, "device": kind,
+          "nvidia_smi": smi, **y_prof})
+    return {"launches": y_launches, "passes": gy["fe_passes"], "check": chk7,
+            "timing": st7}
+
+
+def sparse_kernel_entry(name: str, part: str, c6: dict, c7: dict) -> dict:
+    """The kernels line's entry of sparse kernel A ("a") or B ("b"): its
+    launches on the config 6 and config 7 paths (A: loss and margins modes;
+    B: powers 1 and 2) and its numbers at config 6's shape, then config
+    7's."""
+    keys = {"a": ("margin_loss", "margins"), "b": ("column_sum", "sq_column_sum")}[part]
+    by_path = {path: sum(c["launches"][k] for k in keys)
+               for path, c in (("config6", c6), ("yahoo_glmix", c7))}
+    t6, t7 = c6["timing"][part], c7["timing"][part]
+    pick = lambda t: {k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                        "share_of_bound", "ms_over_library")}
+    return {
+        "name": name, "route": "cuda", "source": "photon_ml_tpu_torch/csrc/ell_sparse.cu",
+        "replaces": {"a": "photon_ml_tpu/ops/features.py:237",
+                     "b": "photon_ml_tpu/ops/features.py:254"}[part],
+        "replaces_note": {"a": "matvec on a PaddedSparse (XLA gather + row sum; no TPU kernel)",
+                          "b": "_csc_segment_sum under rmatvec/sq_rmatvec (XLA chunked "
+                               "prefix scan; no TPU kernel)"}[part],
+        "launches": sum(by_path.values()), "launches_by_path": by_path,
+        "max_abs_err": c6["check"][f"{part}_max_abs_err"],
+        "tolerance": ("value rtol 1e-5, u rtol/atol 1e-4, margins 2 sqrt(k+1) eps sum|terms|"
+                      if part == "a" else "per column 2 sqrt(count) eps sum|terms|"),
+        **pick(t6), "hbm_share": t6["share_of_bound"],
+        "shape": c6["timing"]["shape"], "design": SPARSE_DESIGN[name],
+        "launches_per_pass": c6["launches"][keys[0]] / c6["passes"],
+        "profiled_launches_per_pass": c6["timing"]["pass"]["kernels_per_call"][name],
+        "at_config7_shape": {**pick(t7), "shape": c7["timing"]["shape"],
+                             "max_abs_err": c7["check"][f"{part}_max_abs_err"]},
+        "whole_pass": {"config6": pick(c6["timing"]["pass"]),
+                       "config7": pick(c7["timing"]["pass"])},
+    }
 
 
 def main() -> int:
@@ -792,6 +1284,18 @@ def main() -> int:
         raise SystemExit(f"glmix_tron profile: {t_prof['fused_kernel_launches']} device "
                          f"launches of the kernel for {t_prof['fe_passes']} passes")
 
+    # --- sparse kernels A and B (csrc/ell_sparse.cu) --------------------------
+    from photon_ml_tpu_torch.ops import sparse_kernels as sk
+    t0 = time.perf_counter()
+    run_sparse_checks(sk, losses)
+    emit({"phase": "sparse_checks", "seconds": time.perf_counter() - t0,
+          "tolerance": (f"value rtol {VALUE_RTOL}; u rtol {GRAD_RTOL} atol {GRAD_ATOL}; "
+                        "margins per row within 2 sqrt(k + 1) eps (sum|v c| + |o|); "
+                        "column sums within 2 sqrt(count) eps sum|terms| (float32 eps)")})
+
+    c6 = config6_phase(hk, sk, ref_cache, kind, smi)
+    c7 = yahoo_phase(hk, sk, ref_cache, kind, smi)
+
     emit({"kernels": [{
         "name": "fused_value_and_gradient",
         "route": "cuda",
@@ -819,7 +1323,9 @@ def main() -> int:
         "at_config2_shape": {name: {k: f[k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "hbm_share",
             "ms_over_library", "max_abs_err")} for name, f in fvg_at_config2.items()},
-    }], "seconds": time.perf_counter() - t_start})
+    }] + [sparse_kernel_entry(name, part, c6, c7) for name, part in (
+        ("ell_margin_loss", "a"), ("csc_column_sum", "b"))],
+        "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -2,7 +2,8 @@
 
 The JAX package's models and normalization contexts hold jax arrays; pass
 them through `np.asarray(...)` and these build the port's counterparts on
-a device (None means cuda): GLMs, normalization contexts and GAME models.
+a device (None means cuda): GLMs, normalization contexts, GAME models and
+PaddedSparse feature matrices.
 Nothing here imports the JAX package.
 """
 from __future__ import annotations
@@ -36,6 +37,17 @@ def normalization_from_numpy(factors, shifts, intercept_index: Optional[int],
     dev = resolve_device(device)
     return NormalizationContext(_tensor(factors, dev), _tensor(shifts, dev),
                                 intercept_index)
+
+
+def padded_sparse_from_numpy(indices, values, num_cols: int, csc_row=None,
+                             csc_val=None, csc_end=None, device=None):
+    """A PaddedSparse from a JAX PaddedSparse's arrays, layout unchanged
+    (ELL slots, padding and column view as they are)."""
+    from photon_ml_tpu_torch.ops.features import PaddedSparse
+    dev = resolve_device(device)
+    return PaddedSparse(_tensor(indices, dev), _tensor(values, dev), int(num_cols),
+                        _tensor(csc_row, dev), _tensor(csc_val, dev),
+                        _tensor(csc_end, dev))
 
 
 def game_model_from_numpy(task_type: str, coordinates: Dict[str, dict],

@@ -7,8 +7,9 @@ is elementwise tensor arithmetic.  Entity membership per random-effect type
 is an int index column (`entity_indices[re_type][row]`), built once at
 ingest.
 
-Host columns are numpy; `device_shard` makes the one device copy of a
-feature shard that every consumer shares.  Saving and loading datasets
+Host columns are numpy (a feature shard may be a scipy CSR matrix);
+`device_shard` makes the one device copy of a feature shard that every
+consumer shares: a dense tensor, or a PaddedSparse for a CSR shard.  Saving and loading datasets
 (`save_game_dataset`/`load_game_dataset`) are not ported yet (ROADMAP.md
 queue A item 12).
 """
@@ -47,7 +48,7 @@ class GameDataset:
     """n rows in canonical order; everything else hangs off row position."""
 
     response: np.ndarray                       # [n] float
-    feature_shards: Dict[str, np.ndarray]      # shard -> [n, d_shard] float
+    feature_shards: Dict[str, np.ndarray]      # shard -> [n, d_shard] float or CSR
     offsets: Optional[np.ndarray] = None       # [n]
     weights: Optional[np.ndarray] = None       # [n]
     # re_type -> [n] int index into entity_vocabs[re_type]; -1 = missing id
@@ -70,27 +71,35 @@ class GameDataset:
 
     # (shard, device, dtype) -> the device copy, made once and shared by
     # every consumer (coordinate training, scoring, validation rescoring)
-    _device_shards: Dict[tuple, torch.Tensor] = dataclasses.field(
+    _device_shards: Dict[tuple, object] = dataclasses.field(
         default_factory=dict, repr=False, compare=False)
     # scoring-side memos (entity-lane maps etc.), keyed by consumer
     _scoring_cache: Dict[object, object] = dataclasses.field(
         default_factory=dict, repr=False, compare=False)
 
     def device_shard(self, shard: str, device=None,
-                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
-        """The shard as a dense tensor on `device` (None means cuda) in
-        `dtype`, built once per (shard, device, dtype) and shared.  Sparse
-        shards raise NotImplementedError (ROADMAP.md queue A item 4)."""
+                     dtype: torch.dtype = torch.float32, with_csc: bool = False):
+        """The shard on `device` (None means cuda) in `dtype`, built once per
+        (shard, device, dtype) and shared: a contiguous dense tensor, or a
+        PaddedSparse for a CSR shard.  `with_csc` asks for the sparse
+        gradient's column view (ops/features.py as_feature_matrix); once
+        attached, it stays on the shared copy."""
+        from photon_ml_tpu_torch.ops.features import PaddedSparse, as_feature_matrix
         dev = resolve_device(device)
         if dev.type == "cuda" and dev.index is None:
             # "cuda" and "cuda:<current>" name one device: one shared copy
             dev = torch.device("cuda", torch.cuda.current_device())
         key = (shard, str(dev), dtype)
-        if key not in self._device_shards:
-            from photon_ml_tpu_torch.ops.features import as_feature_matrix
-            self._device_shards[key] = as_feature_matrix(
-                self.feature_shards[shard], dev, dtype).contiguous()
-        return self._device_shards[key]
+        x = self._device_shards.get(key)
+        if x is None:
+            x = as_feature_matrix(self.feature_shards[shard], dev, dtype,
+                                  with_csc=with_csc)
+            if not isinstance(x, PaddedSparse):
+                x = x.contiguous()
+        elif with_csc and isinstance(x, PaddedSparse) and not x.has_csc:
+            x = as_feature_matrix(x, dev, dtype, with_csc=True)
+        self._device_shards[key] = x
+        return x
 
     @property
     def num_rows(self) -> int:
@@ -146,7 +155,8 @@ def build_game_dataset(
         vocabs[re_type] = vocab
     return GameDataset(
         response=np.asarray(response, dtype=np.float64),
-        # scipy.sparse shards stay sparse (CSR); device_shard refuses them
+        # scipy.sparse shards stay sparse (CSR); device_shard makes them
+        # PaddedSparse
         feature_shards={s: (x.tocsr() if _is_sparse(x) else np.asarray(x))
                         for s, x in feature_shards.items()},
         offsets=None if offsets is None else np.asarray(offsets, dtype=np.float64),

@@ -65,9 +65,10 @@ def _unported_schedule(name: str, config) -> None:
 
 
 class FixedEffectCoordinate:
-    """Global GLM over one feature shard (reference:
+    """Global GLM over one feature shard, dense or sparse (reference:
     FixedEffectCoordinate.scala).  Normalization is trained in and mapped
-    out per update."""
+    out per update; a sparse shard takes none (ValueError, as the JAX
+    package)."""
 
     def __init__(self, name: str, dataset: GameDataset,
                  config: FixedEffectCoordinateConfig, task_type: str,
@@ -94,12 +95,18 @@ class FixedEffectCoordinate:
                 "draw comes from JAX's PRNG)")
         host_x = dataset.feature_shards[config.feature_shard]
         self.dim = host_x.shape[1]
+        sparse = not isinstance(host_x, np.ndarray)
         on_dev = lambda a: (None if a is None else torch.as_tensor(a).to(
             device=self.device, dtype=dtype))
         self.labels = on_dev(dataset.response)
         self.weights = on_dev(dataset.weights)
         self.norm = None
         if config.normalization != NormalizationType.NONE:
+            if sparse:
+                raise ValueError(
+                    "normalization requires a dense feature shard (stats over "
+                    "a sparse shard would densify it); use normalization=NONE "
+                    "for sparse/wide coordinates")
             # stats in the compute dtype, as a device copy of the shard holds it
             np_dtype = torch.empty((), dtype=dtype).numpy().dtype
             summ = BasicStatisticalSummary.from_features(
@@ -110,7 +117,11 @@ class FixedEffectCoordinate:
                 variance=on_dev(summ.variance),
                 max_magnitude=on_dev(summ.max_magnitude),
                 intercept_index=self.dim - 1)  # intercept-last convention
-        self.x = dataset.device_shard(config.feature_shard, self.device, dtype)
+        # a sparse shard becomes a PaddedSparse with the column view its
+        # gradient needs (on a CUDA device always; on the CPU from
+        # CSC_MIN_COLS columns up, as the JAX package's single-device solve)
+        self.x = dataset.device_shard(config.feature_shard, self.device, dtype,
+                                      with_csc=True)
 
     def initial_model(self) -> FixedEffectModel:
         """Zero coefficients (reference: Coordinate.initializeModel)."""

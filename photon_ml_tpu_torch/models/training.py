@@ -4,8 +4,9 @@ photon_ml_tpu/models/training.py).
 Solves run strongest regularization first, each warm-started from the
 previous solution; training runs in normalized space and models are mapped
 back to the original space on the way out.  On the card every
-value+gradient pass of the dense LBFGS/OWLQN path is the hand-written
-fused CUDA kernel (ops/hopper_kernels.py).
+value+gradient pass of LBFGS/OWLQN (and TRON) runs hand-written CUDA: the
+fused kernel for a dense X (ops/hopper_kernels.py), kernels A and B for a
+sparse one (ops/sparse_kernels.py).
 """
 from __future__ import annotations
 
@@ -62,17 +63,21 @@ def train_glm(
     """Train one GLM per regularization weight, strongest first with warm
     starts.  Returns models in ORIGINAL feature space.
 
-    x, labels, weights and offsets may be arrays or tensors; they are moved
-    to `device` (None means cuda, which raises when CUDA is absent).  The
-    computation runs in the labels' dtype (float32 if they are not
-    floating), and features are cast to it.  The caller's `initial_model`
+    x may be a dense array or tensor, a scipy.sparse matrix or a
+    PaddedSparse; labels, weights and offsets arrays or tensors.  All are
+    moved to `device` (None means cuda, which raises when CUDA is absent);
+    a sparse x gets the column view its gradient needs (ops/features.py
+    as_feature_matrix).  The computation runs in the labels' dtype (float32
+    if they are not floating), and features are cast to it.  Variances
+    (`compute_variances`) come from the Hessian diagonal, sq_rmatvec on a
+    sparse x.  The caller's `initial_model`
     is never written."""
     dev = resolve_device(device)
     loss = TASK_LOSSES[task_type]
     labels = torch.as_tensor(labels)
     dtype = labels.dtype if labels.is_floating_point() else torch.float32
     labels = labels.to(device=dev, dtype=dtype)
-    x = as_feature_matrix(x, dev, dtype)
+    x = as_feature_matrix(x, dev, dtype, with_csc=True)
     d = num_features(x)
     if normalization is not None:
         normalization = normalization.to(dev, dtype)

@@ -5,4 +5,6 @@ from photon_ml_tpu_torch.ops.normalization import (  # noqa: F401
     NormalizationContext, NormalizationType, build_normalization_context, no_normalization,
 )
 from photon_ml_tpu_torch.ops.objective import GLMObjective  # noqa: F401
-from photon_ml_tpu_torch.ops import aggregators, features, hopper_kernels  # noqa: F401
+from photon_ml_tpu_torch.ops import (  # noqa: F401
+    aggregators, features, hopper_kernels, sparse_kernels,
+)

@@ -8,10 +8,13 @@ Normalization is algebraic, never materialized:
          dz_i = x_i.(v*factor) - (v*factor).shift
 
 `value_and_gradient` on a CUDA feature matrix, with no mask and no shift,
-runs the hand-written fused kernel (ops/hopper_kernels.py), with factors
-folded in as e = c*factor and grad*factor.  Masked or shifted objectives
-take the tensor-op algebra below: a dispatch on the kind of input, not a
-fallback on failure.  Weights/offsets may be None (1 / 0).
+runs a hand-written pass with factors folded in as e = c*factor and
+grad*factor: the fused kernel for a dense X (ops/hopper_kernels.py, one
+launch), kernels A then B for a PaddedSparse (ops/sparse_kernels.py, two
+launches).  Masked or shifted objectives take the algebra below, whose
+products on a CUDA PaddedSparse are kernels A and B too: a dispatch on the
+kind of input, not a fallback on failure.  Weights/offsets may be None
+(1 / 0).
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import torch
 
 from photon_ml_tpu_torch.ops import features as fops
 from photon_ml_tpu_torch.ops import hopper_kernels
+from photon_ml_tpu_torch.ops import sparse_kernels
 from photon_ml_tpu_torch.ops.losses import PointwiseLoss
 from photon_ml_tpu_torch.ops.normalization import NormalizationContext
 
@@ -71,12 +75,16 @@ def value_and_gradient(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(sum_i w_i l(z_i, y_i),  d/dc of it).  `mask` (0/1 per row) drops
     padded rows."""
-    if (isinstance(x, torch.Tensor) and x.is_cuda and mask is None
-            and (norm is None or norm.shifts is None)):
+    if x.is_cuda and mask is None and (norm is None or norm.shifts is None):
         factors = None if norm is None else norm.factors
         e = coefficients if factors is None else coefficients * factors
-        value, grad = hopper_kernels.fused_value_and_gradient(
-            loss, x, labels, e, weights, offsets)
+        if isinstance(x, fops.PaddedSparse):
+            value, u = sparse_kernels.ell_margin_loss(
+                loss, x.indices, x.values, e, labels, weights, offsets)
+            grad = fops.rmatvec(x, u)
+        else:
+            value, grad = hopper_kernels.fused_value_and_gradient(
+                loss, x, labels, e, weights, offsets)
         return value, (grad if factors is None else grad * factors)
 
     z = compute_margins(x, coefficients, offsets, norm)

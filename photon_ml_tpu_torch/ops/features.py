@@ -1,58 +1,284 @@
 """Feature-matrix products (port of photon_ml_tpu/ops/features.py).
 
-Dense [n, d] tensors only.  The JAX package's other representations
-(PaddedSparse ELL, BCOO, KroneckerDesign) are not ported yet: they raise
-NotImplementedError naming their ROADMAP.md item.
+Two representations: a dense [n, d] tensor, and `PaddedSparse`, the JAX
+package's padded row-sparse (ELL) batch with an optional column-sorted
+(CSC) view of the same nonzeros.  Every aggregate in ops/aggregators.py
+touches X only through the products below.
+
+On a CUDA `PaddedSparse` the products run the hand-written kernels of
+ops/sparse_kernels.py (csrc/ell_sparse.cu): `matvec` is kernel A in
+margins mode, `rmatvec` and `sq_rmatvec` are kernel B over the column
+view.  A CUDA `PaddedSparse` without its column view cannot take
+`rmatvec`/`sq_rmatvec`: it raises, and never falls back to a scatter.  On
+the CPU the products run the kernels' plain versions, and a matrix
+without the column view takes a scatter-add (`index_add_`), as the JAX
+package does.
+
+Not ported, each raising NotImplementedError: BCOO input (ROADMAP.md
+queue A item 24) and `KroneckerDesign` (item 13).
 """
 from __future__ import annotations
 
+import dataclasses
+from typing import Optional, Union
+
+import numpy as np
 import torch
 
 from photon_ml_tpu_torch import resolve_device
+from photon_ml_tpu_torch.ops import sparse_kernels as sk
 
-FeatureMatrix = torch.Tensor
+_BCOO = ("BCOO feature matrices are not ported (ROADMAP.md queue A item 24); "
+         "pass a scipy.sparse matrix or a PaddedSparse")
+_KRONECKER = ("KroneckerDesign is not ported yet (ROADMAP.md queue A item 13, "
+              "the factored random effects)")
 
-_NOT_PORTED = ("only dense feature matrices are ported; {kind} is "
-               "ROADMAP.md queue A item 4 (PaddedSparse ELL, BCOO, "
-               "KroneckerDesign)")
+
+@dataclasses.dataclass
+class PaddedSparse:
+    """Padded row-sparse (ELL) batch: row i holds its nonzeros in
+    `values[i, :]` at columns `indices[i, :]` (k = the most nonzeros of any
+    row; padding slots hold column 0 with value 0).
+
+    The optional `csc_*` tensors are a second, column-sorted view of the
+    same nonzeros for the gradient product X^T u: the nonzeros of column j
+    are `csc_val[csc_end[j]:csc_end[j + 1]]` at rows `csc_row[...]`.
+    Built by `with_csc()` (from the ELL arrays, padding slots included in
+    column 0's segment) or `from_scipy(..., with_csc=True)` (scipy's exact
+    CSC, no padding)."""
+
+    indices: torch.Tensor                    # [n, k] int32, padding = 0
+    values: torch.Tensor                     # [n, k], padding = 0.0
+    num_cols: int
+    csc_row: Optional[torch.Tensor] = None   # [nnz] int32, column-sorted
+    csc_val: Optional[torch.Tensor] = None   # [nnz], same order
+    csc_end: Optional[torch.Tensor] = None   # [d + 1] int32
+
+    @property
+    def has_csc(self) -> bool:
+        return self.csc_row is not None
+
+    @property
+    def shape(self):
+        return (self.indices.shape[0], self.num_cols)
+
+    @property
+    def ndim(self) -> int:
+        return 2
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.values.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.values.device
+
+    @property
+    def is_cuda(self) -> bool:
+        return self.values.is_cuda
+
+    def to(self, device=None, dtype=None) -> "PaddedSparse":
+        """On `device` with values in `dtype` (indices stay int32)."""
+        ints = lambda a: None if a is None else a.to(device=device)
+        vals = lambda a: None if a is None else a.to(device=device, dtype=dtype)
+        return PaddedSparse(ints(self.indices), vals(self.values), self.num_cols,
+                            ints(self.csc_row), vals(self.csc_val),
+                            ints(self.csc_end))
+
+    def with_csc(self) -> "PaddedSparse":
+        """Attach the column-sorted view, built on the host from the ELL
+        arrays (as the JAX package builds it) and placed on their device.
+        ELL padding slots (value 0 at column 0) stay in column 0's
+        segment: they add nothing to its sums."""
+        if self.has_csc:
+            return self
+        ind = self.indices.cpu().numpy()
+        val = self.values.cpu()
+        rows = np.repeat(np.arange(ind.shape[0], dtype=np.int32), ind.shape[1])
+        cols = ind.reshape(-1)
+        order = np.argsort(cols, kind="stable")
+        end = np.zeros(self.num_cols + 1, np.int32)
+        end[1:] = np.cumsum(np.bincount(cols[order], minlength=self.num_cols))
+        dev = self.device
+        return PaddedSparse(
+            self.indices, self.values, self.num_cols,
+            csc_row=torch.from_numpy(rows[order]).to(dev),
+            csc_val=val.reshape(-1)[torch.from_numpy(order)].to(dev),
+            csc_end=torch.from_numpy(end).to(dev))
+
+    def without_csc(self) -> "PaddedSparse":
+        return (PaddedSparse(self.indices, self.values, self.num_cols)
+                if self.has_csc else self)
+
+    @staticmethod
+    def from_dense(x, device=None) -> "PaddedSparse":
+        """A dense [n, d] array or tensor -> ELL on `device` (None means
+        cuda), values in x's dtype."""
+        x = x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+        nnz = np.count_nonzero(x, axis=1)
+        k = max(int(nnz.max()), 1) if len(nnz) else 1
+        rows, cols = np.nonzero(x)
+        slot = np.arange(len(rows)) - np.repeat(
+            np.concatenate([[0], np.cumsum(nnz)[:-1]]), nnz)
+        indices = np.zeros((x.shape[0], k), dtype=np.int32)
+        values = np.zeros((x.shape[0], k), dtype=x.dtype)
+        indices[rows, slot] = cols
+        values[rows, slot] = x[rows, cols]
+        dev = resolve_device(device)
+        return PaddedSparse(torch.from_numpy(indices).to(dev),
+                            torch.from_numpy(values).to(dev), x.shape[1])
+
+    @staticmethod
+    def from_scipy(mat, with_csc: bool = False, device=None) -> "PaddedSparse":
+        """scipy.sparse -> ELL on `device` (None means cuda), built on the
+        host without densifying.  `with_csc` also attaches the exact
+        column-sorted view (scipy's own CSC: no padding slots)."""
+        csr = mat.tocsr()
+        csr.sum_duplicates()
+        nnz = np.diff(csr.indptr)
+        k = max(int(nnz.max()), 1) if len(nnz) else 1
+        n = csr.shape[0]
+        slot = np.arange(csr.indptr[-1]) - np.repeat(csr.indptr[:-1], nnz)
+        rows = np.repeat(np.arange(n), nnz)
+        indices = np.zeros((n, k), dtype=np.int32)
+        values = np.zeros((n, k), dtype=csr.data.dtype if csr.data.size
+                          else np.float32)
+        indices[rows, slot] = csr.indices
+        values[rows, slot] = csr.data
+        dev = resolve_device(device)
+        out = PaddedSparse(torch.from_numpy(indices).to(dev),
+                           torch.from_numpy(values).to(dev), csr.shape[1])
+        if with_csc:
+            csc = mat.tocsc()
+            csc.sum_duplicates()
+            out.csc_row = torch.from_numpy(csc.indices.astype(np.int32)).to(dev)
+            out.csc_val = torch.from_numpy(csc.data.astype(values.dtype)).to(dev)
+            out.csc_end = torch.from_numpy(csc.indptr.astype(np.int32)).to(dev)
+        return out
+
+
+FeatureMatrix = Union[torch.Tensor, PaddedSparse]
+
+# The JAX package attaches the column view only at this width and above:
+# on its TPU the narrower view cost host-to-device transfer for no solve
+# time.  The port keeps the threshold for CPU tensors only (so the CPU
+# products take the JAX package's path, scatter-add below it), and
+# attaches the view to every PaddedSparse it places on a CUDA device for
+# training: the card's gradient product is kernel B, which needs it.
+CSC_MIN_COLS = 100_000
+
+
+def _is_scipy_sparse(x) -> bool:
+    try:
+        import scipy.sparse as sp
+    except ImportError:  # pragma: no cover
+        return False
+    return sp.issparse(x)
+
+
+def _refuse(x) -> None:
+    kind = type(x).__name__
+    if kind == "KroneckerDesign":
+        raise NotImplementedError(_KRONECKER)
+    if kind == "BCOO" or (isinstance(x, torch.Tensor) and x.layout != torch.strided):
+        raise NotImplementedError(_BCOO)
+
+
+def as_feature_matrix(x, device=None, dtype=None,
+                      with_csc: bool = False) -> FeatureMatrix:
+    """Ingest adapter, onto `device` (None means cuda) in `dtype`:
+    scipy.sparse -> PaddedSparse, a PaddedSparse moved, anything else a
+    dense tensor.  `with_csc` asks for the column view a solve's gradient
+    needs: always attached on a CUDA device, and on the CPU from
+    CSC_MIN_COLS columns up, as the JAX package does."""
+    dev = resolve_device(device)
+    _refuse(x)
+    if isinstance(x, PaddedSparse) or _is_scipy_sparse(x):
+        want = with_csc and (dev.type == "cuda" or x.shape[1] >= CSC_MIN_COLS)
+        if not isinstance(x, PaddedSparse):
+            return PaddedSparse.from_scipy(x, with_csc=want, device=dev).to(dtype=dtype)
+        x = x.to(dev, dtype)
+        return x.with_csc() if want else x
+    if not isinstance(x, torch.Tensor):
+        x = torch.as_tensor(x)
+    if x.ndim != 2:
+        raise ValueError(f"a feature matrix is 2-D; got shape {tuple(x.shape)}")
+    return x.to(device=dev, dtype=dtype)
 
 
 def _dense(x) -> torch.Tensor:
-    if isinstance(x, torch.Tensor) and x.ndim == 2 and x.layout == torch.strided:
-        return x
-    raise NotImplementedError(_NOT_PORTED.format(kind=type(x).__name__))
-
-
-def as_feature_matrix(x, device=None, dtype=None) -> FeatureMatrix:
-    """Ingest adapter: a dense array or tensor -> a dense tensor on
-    `device` (None means cuda).  Sparse inputs raise NotImplementedError."""
-    dev = resolve_device(device)
-    if not isinstance(x, torch.Tensor):
-        if hasattr(x, "tocsr"):  # scipy.sparse
-            raise NotImplementedError(_NOT_PORTED.format(kind=type(x).__name__))
-        x = torch.as_tensor(x)
-    return _dense(x).to(device=dev, dtype=dtype)
+    _refuse(x)
+    return x
 
 
 def num_features(x: FeatureMatrix) -> int:
-    return _dense(x).shape[-1]
+    return x.shape[-1]
 
 
 def num_rows(x: FeatureMatrix) -> int:
-    return _dense(x).shape[0]
+    return x.shape[0]
 
 
 def matvec(x: FeatureMatrix, v: torch.Tensor) -> torch.Tensor:
     """X @ v -> [n].  The margin product."""
+    if isinstance(x, PaddedSparse):
+        if tuple(v.shape) != (x.num_cols,):
+            raise ValueError(f"v has shape {tuple(v.shape)}, X has {x.num_cols} columns")
+        return sk.ell_margins(x.indices, x.values, v)
     return torch.mv(_dense(x), v)
+
+
+def _scatter(x: PaddedSparse, u: torch.Tensor, power: int) -> torch.Tensor:
+    """X^T u (power 1) or (X*X)^T u (power 2) by scatter-add over the ELL
+    slots: the JAX package's path without the column view, CPU only."""
+    if x.is_cuda:
+        raise ValueError(
+            "this CUDA PaddedSparse has no column view: X^T u on the card is "
+            "kernel B over the column-sorted stream; build the matrix with "
+            "as_feature_matrix(..., with_csc=True) or call .with_csc()")
+    vals = x.values if power == 1 else x.values * x.values
+    acc = torch.promote_types(x.dtype, u.dtype)
+    return torch.zeros(x.num_cols, dtype=acc).index_add_(
+        0, x.indices.reshape(-1).long(), (vals * u[:, None]).reshape(-1).to(acc))
 
 
 def rmatvec(x: FeatureMatrix, u: torch.Tensor) -> torch.Tensor:
     """X^T @ u -> [d].  The gradient-assembly product."""
+    if isinstance(x, PaddedSparse):
+        if x.has_csc:
+            return sk.csc_column_sum(x.csc_row, x.csc_val, x.csc_end, u, 1)
+        return _scatter(x, u, 1)
     return torch.mv(_dense(x).T, u)
 
 
 def sq_rmatvec(x: FeatureMatrix, u: torch.Tensor) -> torch.Tensor:
     """(X*X)^T @ u -> [d], for the Hessian diagonal."""
+    if isinstance(x, PaddedSparse):
+        if x.has_csc:
+            return sk.csc_column_sum(x.csc_row, x.csc_val, x.csc_end, u, 2)
+        return _scatter(x, u, 2)
     x = _dense(x)
     return torch.mv((x * x).T, u)
+
+
+def pad_rows(x: FeatureMatrix, rem: int) -> FeatureMatrix:
+    """Append `rem` zero rows (pair with mask = 0)."""
+    if rem == 0:
+        return x
+    zpad = lambda a: torch.cat([a, a.new_zeros((rem,) + tuple(a.shape[1:]))])
+    if isinstance(x, PaddedSparse):
+        # the column view is untouched: appended rows carry no nonzeros
+        # and existing row ids stay valid against the grown u
+        return PaddedSparse(zpad(x.indices), zpad(x.values), x.num_cols,
+                            x.csc_row, x.csc_val, x.csc_end)
+    return zpad(_dense(x))
+
+
+def densify(x: FeatureMatrix) -> torch.Tensor:
+    if isinstance(x, PaddedSparse):
+        n, d = x.shape
+        out = torch.zeros((n, d), dtype=x.dtype, device=x.device)
+        rows = torch.arange(n, device=x.device)[:, None].expand_as(x.indices)
+        return out.index_put_((rows, x.indices.long()), x.values, accumulate=True)
+    return _dense(x)

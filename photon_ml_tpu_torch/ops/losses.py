@@ -3,8 +3,8 @@
 Each loss is a frozen singleton of tensor functions of the margin z and the
 label y: loss, dl/dz, d2l/dz2 and the inverse link `mean`.  Classification
 labels are {0, 1} at the surface and remapped to ±1 inside.  `kernel_id`
-selects the loss inside the CUDA kernel (csrc/fused_value_and_gradient.cu,
-`enum Loss`).
+selects the loss inside the CUDA kernels (csrc/fused_value_and_gradient.cu
+and csrc/ell_sparse.cu, `enum Loss`).
 """
 from __future__ import annotations
 

@@ -1,5 +1,8 @@
 """The GLM objective: data + loss + L2 (port of photon_ml_tpu/ops/objective.py).
 
+X is any feature matrix of ops/features.py: a dense tensor or a
+PaddedSparse (whose gradient needs its column view on the card).
+
 L1 is absent by design: as in the reference, it is handled inside the OWLQN
 optimizer through pseudo-gradients, not by the objective.
 """

@@ -1,0 +1,317 @@
+"""Hand-written Hopper kernels for the sparse feature products, and their
+plain PyTorch versions.
+
+A `PaddedSparse` (ops/features.py) holds ELL rows and a column-sorted view
+of the same nonzeros.  Two kernels (csrc/ell_sparse.cu, built at first use
+by ops/_build.py) compute its products on the card:
+
+- A, `ell_margin_loss`: z = X c (+ o) row by row; in loss mode also
+  u = w * l'(z, y) and the value sum_i w_i l(z_i, y_i).  `ell_margins`
+  is its margins-only mode (matvec).
+- B, `csc_column_sum`: X^T u (power 1) or (X*X)^T u (power 2), summed per
+  column over the column-sorted stream.
+
+A value+gradient pass is A then B: two launches.  They replace what the
+JAX package computes in XLA, outside Pallas: photon_ml_tpu/ops/
+features.py:237-350 (`matvec`, `rmatvec`, `sq_rmatvec` on a PaddedSparse).
+
+On a CUDA tensor each wrapper checks its operands (dtype, device, shape,
+contiguity; a bad operand raises, nothing is copied) and launches its
+kernel, or raises; on a CPU tensor it runs the plain version.  Importing
+this module builds nothing.  `plan_margins` and `plan_columns` are pure
+arithmetic, so the CPU tests replay them.
+
+`LAUNCHES` counts the wrappers' launches by kind: "margin_loss" and
+"margins" (kernel A), "column_sum" and "sq_column_sum" (kernel B).
+"""
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from photon_ml_tpu_torch.ops.losses import PointwiseLoss
+
+LAUNCHES: Dict[str, int] = {"margin_loss": 0, "margins": 0,
+                            "column_sum": 0, "sq_column_sum": 0}
+
+# Must match the CUDA source.
+THREADS = 256
+BLOCKS_PER_SM = 8     # kernel A's grid: at most this many blocks per SM
+TILE = 2048           # kernel B: column-sorted stream elements per block
+_INT32_MAX = 2 ** 31 - 1
+_BF16 = ("bf16 sparse values are not ported yet (ROADMAP.md queue A item 25); "
+         "the sparse kernels take float32")
+
+
+@dataclass(frozen=True)
+class MarginPlan:
+    """One launch of kernel A: `lanes` threads per row (a power of two
+    <= 32), so a block of THREADS threads takes `rows_per_round` rows per
+    round; `grid` blocks, block b taking rounds b, b + grid, ..."""
+    lanes: int
+    rows_per_round: int
+    grid: int
+
+
+@functools.lru_cache(maxsize=64)
+def plan_margins(n: int, k: int, sm_count: int) -> MarginPlan:
+    """P = min(32, the next power of two >= k) threads per row, so a warp's
+    loads cover whole rows of the row-major [n, k] arrays; at most
+    BLOCKS_PER_SM blocks per SM (a full SM's threads), fewer when n is
+    small."""
+    if n < 0 or k < 1 or sm_count < 1:
+        raise ValueError(f"bad plan request n={n}, k={k}, sm_count={sm_count}")
+    lanes = 1
+    while lanes < min(k, 32):
+        lanes *= 2
+    rows = THREADS // lanes
+    grid = max(1, min(sm_count * BLOCKS_PER_SM, -(-n // rows)))
+    return MarginPlan(lanes, rows, grid)
+
+
+@dataclass(frozen=True)
+class ColumnPlan:
+    """One launch of kernel B: `tiles` blocks, block t summing stream
+    elements [t * tile, (t + 1) * tile)."""
+    tile: int
+    tiles: int
+
+
+def plan_columns(nnz: int) -> ColumnPlan:
+    if nnz < 0:
+        raise ValueError(f"bad plan request nnz={nnz}")
+    return ColumnPlan(TILE, max(1, -(-nnz // TILE)))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+# (device index, stream) -> (float scratch, int scratch, ticket).  Each
+# kernel leaves the ticket at 0, and calls on one stream run in order, so
+# both kernels share one workspace per stream.
+_WORKSPACES: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = {}
+
+
+def _workspace(device: torch.device, stream: int, floats: int, ints: int):
+    key = (device.index, stream)
+    ws = _WORKSPACES.get(key)
+    if ws is None or ws[0].numel() < floats or ws[1].numel() < ints:
+        old = (0, 0) if ws is None else (ws[0].numel(), ws[1].numel())
+        ws = (torch.empty(max(floats, old[0]), dtype=torch.float32, device=device),
+              torch.empty(max(ints, old[1]), dtype=torch.int32, device=device),
+              torch.zeros(1, dtype=torch.int32, device=device))
+        _WORKSPACES[key] = ws
+    return ws
+
+
+# ------------------------------------------------------------ plain versions
+
+def ell_margins_plain(indices: torch.Tensor, values: torch.Tensor,
+                      coefficients: torch.Tensor,
+                      offsets: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """z_i = sum_k values[i, k] c[indices[i, k]] (+ o_i): a gather and a
+    row sum, as the JAX package's matvec."""
+    z = torch.sum(values * coefficients[indices.long()], dim=-1)
+    return z if offsets is None else z + offsets
+
+
+def ell_margin_loss_plain(
+    loss: PointwiseLoss,
+    indices: torch.Tensor,
+    values: torch.Tensor,
+    coefficients: torch.Tensor,
+    labels: torch.Tensor,
+    weights: Optional[torch.Tensor] = None,
+    offsets: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sum_i w_i l(z_i, y_i), u = w * l'(z, y)) in the inputs' dtype."""
+    z = ell_margins_plain(indices, values, coefficients, offsets)
+    l, dl = loss.loss_and_dz(z, labels)
+    if weights is not None:
+        l = l * weights
+        dl = dl * weights
+    return torch.sum(l), dl
+
+
+def csc_column_sum_plain(rows: torch.Tensor, vals: torch.Tensor,
+                         end: torch.Tensor, u: torch.Tensor,
+                         power: int = 1) -> torch.Tensor:
+    """g_j = sum over column j's stream segment of val^power * u[row], by
+    index_add_ over the stream (in stream order)."""
+    v = vals if power == 1 else vals * vals
+    acc = torch.promote_types(vals.dtype, u.dtype)
+    contrib = (v * u[rows.long()]).to(acc)
+    d = end.shape[0] - 1
+    cols = torch.repeat_interleave(torch.arange(d, device=end.device),
+                                   torch.diff(end).long())
+    return torch.zeros(d, dtype=acc, device=end.device).index_add_(0, cols, contrib)
+
+
+# ----------------------------------------------------------------- wrappers
+
+def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape,
+           device: torch.device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, the matrix on {device}")
+    if t.dtype != dtype:
+        if t.dtype == torch.bfloat16:
+            raise TypeError(_BF16)
+        raise TypeError(f"the sparse kernels take {dtype} {name}; got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _cuda_device(t: torch.Tensor) -> torch.device:
+    if t.device.type != "cuda":
+        raise ValueError(f"no kernel for device {t.device}")
+    return t.device
+
+
+def _lib():
+    from photon_ml_tpu_torch.ops import _build
+    return _build.load_library("ell_sparse")
+
+
+def _raise_if(err: int, lib, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: "
+                           f"{lib.pmt_ell_error_string(err).decode()} ({err})")
+
+
+def _launch_a(loss_id: int, indices, values, coefficients, labels, weights,
+              offsets) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+    dev = _cuda_device(indices)
+    if indices.ndim != 2:
+        raise ValueError(f"indices must be [n, k], got shape {tuple(indices.shape)}")
+    n, k = indices.shape
+    if n * k > _INT32_MAX:
+        raise ValueError(f"n * k = {n * k} slots exceed the kernels' int32 range")
+    if coefficients.ndim != 1:
+        raise ValueError("coefficients must be 1-D")
+    _check("indices", indices, torch.int32, (n, k), dev)
+    _check("values", values, torch.float32, (n, k), dev)
+    _check("coefficients", coefficients, torch.float32, coefficients.shape, dev)
+    if labels is not None:
+        _check("labels", labels, torch.float32, (n,), dev)
+    if weights is not None:
+        _check("weights", weights, torch.float32, (n,), dev)
+    if offsets is not None:
+        _check("offsets", offsets, torch.float32, (n,), dev)
+    plan = plan_margins(n, k, _sm_count(dev.index))
+    lib = _lib()
+    out = torch.empty((n,), dtype=torch.float32, device=dev)
+    value = torch.empty((1,), dtype=torch.float32, device=dev) if loss_id >= 0 else None
+    ptr = lambda t: None if t is None else t.data_ptr()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        scratch, _, ticket = _workspace(dev, stream, plan.grid, 0)
+        err = lib.pmt_ell_margin_loss(
+            loss_id, indices.data_ptr(), values.data_ptr(), coefficients.data_ptr(),
+            ptr(labels), ptr(weights), ptr(offsets), out.data_ptr(),
+            scratch.data_ptr(), ticket.data_ptr(), ptr(value), n, k, plan.lanes,
+            plan.grid, stream)
+    _raise_if(err, lib, "ell_margin_loss")
+    LAUNCHES["margin_loss" if loss_id >= 0 else "margins"] += 1
+    return value, out
+
+
+def ell_margins(indices: torch.Tensor, values: torch.Tensor,
+                coefficients: torch.Tensor,
+                offsets: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """z = X c (+ o) -> [n].  CPU tensors run the plain version; CUDA
+    tensors launch kernel A in margins mode (float32, contiguous, on one
+    device) or raise."""
+    if indices.device.type == "cpu":
+        return ell_margins_plain(indices, values, coefficients, offsets)
+    return _launch_a(-1, indices, values, coefficients, None, None, offsets)[1]
+
+
+def ell_margin_loss(
+    loss: PointwiseLoss,
+    indices: torch.Tensor,
+    values: torch.Tensor,
+    coefficients: torch.Tensor,
+    labels: torch.Tensor,
+    weights: Optional[torch.Tensor] = None,
+    offsets: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sum_i w_i l(z_i, y_i), u = w * l'(z, y)) with z = X c (+ o): the
+    first half of a value+gradient pass.  CPU tensors run the plain
+    version; CUDA tensors launch kernel A in loss mode or raise."""
+    if indices.device.type == "cpu":
+        return ell_margin_loss_plain(loss, indices, values, coefficients,
+                                     labels, weights, offsets)
+    value, u = _launch_a(loss.kernel_id, indices, values, coefficients,
+                         labels, weights, offsets)
+    return value[0], u
+
+
+def csc_column_sum(rows: torch.Tensor, vals: torch.Tensor, end: torch.Tensor,
+                   u: torch.Tensor, power: int = 1) -> torch.Tensor:
+    """g_j = sum_{p in [end_j, end_{j+1})} vals_p^power u[rows_p] -> [d]:
+    X^T u (power 1) or (X*X)^T u (power 2) over the column-sorted stream.
+    CPU tensors run the plain version; CUDA tensors launch kernel B
+    (float32 vals and u, int32 rows and end, contiguous, on one device)
+    or raise."""
+    if power not in (1, 2):
+        raise ValueError(f"power must be 1 or 2, got {power}")
+    if rows.device.type == "cpu":
+        return csc_column_sum_plain(rows, vals, end, u, power)
+    dev = _cuda_device(rows)
+    if rows.ndim != 1 or end.ndim != 1 or u.ndim != 1 or end.shape[0] < 2:
+        raise ValueError("rows, end and u must be 1-D, end of length d + 1 >= 2")
+    nnz, d = rows.shape[0], end.shape[0] - 1
+    if nnz > _INT32_MAX:
+        raise ValueError(f"nnz = {nnz} exceeds the kernels' int32 range")
+    _check("csc_row", rows, torch.int32, (nnz,), dev)
+    _check("csc_val", vals, torch.float32, (nnz,), dev)
+    _check("csc_end", end, torch.int32, (d + 1,), dev)
+    _check("u", u, torch.float32, u.shape, dev)
+    plan = plan_columns(nnz)
+    lib = _lib()
+    g = torch.empty((d,), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        scratch, ints, ticket = _workspace(dev, stream, 2 * plan.tiles, plan.tiles)
+        err = lib.pmt_csc_column_sum(
+            power, rows.data_ptr(), vals.data_ptr(), end.data_ptr(), u.data_ptr(),
+            g.data_ptr(), scratch.data_ptr(), scratch[plan.tiles:].data_ptr(),
+            ints.data_ptr(), ticket.data_ptr(), nnz, d, plan.tiles, stream)
+    _raise_if(err, lib, "csc_column_sum")
+    LAUNCHES["column_sum" if power == 1 else "sq_column_sum"] += 1
+    return g
+
+
+# ------------------------------------------------------------ tolerances
+
+def margins_tolerance(indices: torch.Tensor, values: torch.Tensor,
+                      coefficients: torch.Tensor,
+                      offsets: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per row, 2 sqrt(k + 1) eps (sum_k |values c[indices]| + |o|): how far
+    two summations of a row's margin in different orders may differ, in
+    the values' dtype (computed in float64)."""
+    eps = torch.finfo(values.dtype).eps
+    terms = ell_margins_plain(indices, values.double().abs(),
+                              coefficients.double().abs(),
+                              None if offsets is None else offsets.double().abs())
+    return 2.0 * (indices.shape[1] + 1) ** 0.5 * eps * terms
+
+
+def column_sum_tolerance(rows: torch.Tensor, vals: torch.Tensor,
+                         end: torch.Tensor, u: torch.Tensor,
+                         power: int = 1) -> torch.Tensor:
+    """Per column, 2 sqrt(count_j) eps sum_p |val_p^power u[row_p]|: how
+    far two summations of column j in different orders may differ, in the
+    values' dtype (computed in float64).  At bench config 6 the intercept
+    column is a sum of 200,000 terms."""
+    eps = torch.finfo(vals.dtype).eps
+    terms = csc_column_sum_plain(rows, vals.double().abs(), end, u.double().abs(), power)
+    count = torch.diff(end).double()
+    return 2.0 * torch.sqrt(count) * eps * terms

@@ -3,8 +3,9 @@ of photon_ml_tpu/parallel/fixed_effect.py).
 
 The solve is optim/config.py::solve on an objective without a mask or
 padding, so on the card every value+gradient pass of LBFGS/OWLQN is one
-launch of the hand-written fused kernel (ops/hopper_kernels.py), with the
-residual scores as its offsets.  Data parallelism over several cards and the
+launch of the hand-written fused kernel for a dense X
+(ops/hopper_kernels.py), or kernels A and B for a PaddedSparse
+(ops/sparse_kernels.py), with the residual scores as its offsets.  Data parallelism over several cards and the
 consensus-ADMM lane are ROADMAP.md queue A item 20: `mesh` must be None.
 """
 from __future__ import annotations

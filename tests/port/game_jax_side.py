@@ -1,13 +1,14 @@
-"""The JAX side of the TRON and GLMix parity tests, run in a subprocess of
-its own.
+"""The JAX side of the TRON, GLMix and sparse-training parity tests, run in
+a subprocess of its own.
 
-    python tests/port/game_jax_side.py tron|solver|estimator OUT.npz
+    python tests/port/game_jax_side.py tron|solver|estimator|sparse OUT.npz
 
 The parity tests (test_torch_tron.py, test_torch_game_solver.py,
-test_torch_game_estimator.py) start this once per test module, with JAX on
-the CPU in float64, and read its results from OUT.npz.  Compiling the JAX
-package's TRON, batched solver and GAME programs in a process of their own
-keeps their XLA compile state out of the test process.  The problem
+test_torch_game_estimator.py, test_torch_sparse_training.py) start this
+once per test module, with JAX on the CPU in float64, and read its results
+from OUT.npz.  Compiling the JAX package's TRON, batched solver, GAME and
+sparse training programs in a process of their own keeps their XLA compile
+state out of the test process.  The problem
 functions below are numpy only, so the tests import them to make the same
 inputs for the port.
 """
@@ -68,6 +69,21 @@ TRAIN_LAMBDAS = (1.0, 10.0)
 
 # estimator: BASELINE config 4's shape, cut to a few thousand rows
 ESTIMATOR_ROWS, ESTIMATOR_SEED, ESTIMATOR_OUTER = 3000, 11, 2
+
+# sparse: train_glm on a wide sparse logistic problem (bench config 6's
+# generator, cut to [3,000 x 20,000] with 16 nonzeros per row), and a
+# Yahoo-shaped GAME fit (bench config 7's, cut to 3,000 rows, 2,000 global
+# columns, 50 users and 80 items) with a sparse fixed effect
+SPARSE_N, SPARSE_D, SPARSE_NNZ, SPARSE_SEED = 3000, 20_000, 16, 5
+SPARSE_LBFGS = {"max_iterations": 100, "tolerance": 1e-9}
+# case -> (optimizer options, lambdas, normalization, column view, variances)
+SPARSE_CASES = {
+    "lbfgs": (SPARSE_LBFGS, (1.0, 10.0), None, False, True),
+    "lbfgs_csc": (SPARSE_LBFGS, (1.0,), None, True, True),
+    "lbfgs_standardization": (SPARSE_LBFGS, (1.0,), "standardization", True, False),
+    "tron": ({"optimizer": "tron"}, (1.0,), None, False, True),
+}
+YAHOO_ROWS, YAHOO_D, YAHOO_USERS, YAHOO_ITEMS, YAHOO_SEED = 3000, 2000, 50, 80, 23
 
 
 def solver_problem(case: str, seed: int = 5) -> dict:
@@ -204,6 +220,43 @@ def tron_config_dict() -> dict:
     return d
 
 
+def sparse_problem(make_wide_sparse_logistic):
+    """(x CSR, y) of the sparse train_glm cases in float64; pass either
+    package's generator."""
+    x, y = make_wide_sparse_logistic(SPARSE_N, d=SPARSE_D, nnz=SPARSE_NNZ,
+                                     seed=SPARSE_SEED)
+    return x.astype(np.float64), y.astype(np.float64)
+
+
+def yahoo_glmix(build_game_dataset, make_yahoo_like):
+    """(train, validation) of bench config 7's shape at YAHOO_ROWS rows in
+    float64, split 95/5 as bench.py's _yahoo_setup splits them; pass either
+    package's builders."""
+    yl = make_yahoo_like(YAHOO_ROWS, d_global=YAHOO_D, num_users=YAHOO_USERS,
+                         num_items=YAHOO_ITEMS, seed=YAHOO_SEED)
+    shards = {"global": yl.x_global.astype(np.float64),
+              "per_user": yl.x_user.astype(np.float64),
+              "per_item": yl.x_item.astype(np.float64)}
+    ds = build_game_dataset(yl.response.astype(np.float64), shards,
+                            entity_ids={"userId": yl.user_ids, "itemId": yl.item_ids})
+    rng = np.random.default_rng(YAHOO_SEED + 99)
+    val_mask = rng.uniform(size=ds.num_rows) < 0.05
+    return ds.subset(np.flatnonzero(~val_mask)), ds.subset(np.flatnonzero(val_mask))
+
+
+def yahoo_config_dict() -> dict:
+    """bench.py's _yahoo_setup config: a fixed effect on the sparse
+    "global" shard, per-user and per-item random effects (cap 512), all
+    LBFGS(100) with L2 lambda 1, two outer iterations."""
+    d = glmix_config_dict()
+    fixed, re = d["coordinates"]["fixed"], d["coordinates"]["perUser"]
+    d["coordinates"] = {
+        "fixed": fixed, "perUser": re,
+        "perItem": dict(re, random_effect_type="itemId", feature_shard="per_item")}
+    d.update(updating_sequence=["fixed", "perUser", "perItem"], seed=YAHOO_SEED)
+    return d
+
+
 # name -> JSON config of each estimator parity case
 ESTIMATOR_CONFIGS = {"config4": glmix_config_dict, "variant": variant_config_dict,
                      "tron": tron_config_dict}
@@ -307,6 +360,58 @@ def _run_estimator(out: dict) -> None:
         out[f"{name}/val_scores"] = np.asarray(res.descent.model.score_dataset(val))
 
 
+def _run_sparse(out: dict) -> None:
+    import jax.numpy as jnp
+    from photon_ml_tpu.data.game_data import build_game_dataset
+    from photon_ml_tpu.data.stats import BasicStatisticalSummary
+    from photon_ml_tpu.data.synthetic_bench import (make_wide_sparse_logistic,
+                                                    make_yahoo_like)
+    from photon_ml_tpu.game import GameEstimator, GameTrainingConfig
+    from photon_ml_tpu.models.training import train_glm
+    from photon_ml_tpu.ops.features import PaddedSparse, as_feature_matrix
+    from photon_ml_tpu.ops.normalization import build_normalization_context
+    from photon_ml_tpu.optim import (OptimizerConfig, OptimizerType,
+                                     RegularizationContext, RegularizationType)
+    x, y = sparse_problem(make_wide_sparse_logistic)
+    for case, (opt, lams, norm_name, csc, variances) in SPARSE_CASES.items():
+        xs = (PaddedSparse.from_scipy(x, with_csc=True) if csc
+              else as_feature_matrix(x, with_csc=True))
+        assert xs.has_csc == csc
+        norm = None
+        if norm_name is not None:
+            s = BasicStatisticalSummary.from_sparse(x)
+            norm = build_normalization_context(
+                norm_name, mean=jnp.asarray(s.mean), variance=jnp.asarray(s.variance),
+                intercept_index=SPARSE_D - 1)
+        opt = dict(opt)
+        if "optimizer" in opt:
+            opt["optimizer"] = OptimizerType(opt["optimizer"])
+        trained = train_glm(xs, jnp.asarray(y), "logistic_regression",
+                            optimizer_config=OptimizerConfig(**opt),
+                            regularization=RegularizationContext(RegularizationType.L2),
+                            regularization_weights=lams, normalization=norm,
+                            compute_variances=variances)
+        for i, t in enumerate(trained):
+            _store(out, f"{case}/{i}", t.result)
+            out[f"{case}/{i}/means"] = np.asarray(t.model.coefficients.means)
+            if variances:
+                out[f"{case}/{i}/variances"] = np.asarray(t.model.coefficients.variances)
+
+    train, val = yahoo_glmix(build_game_dataset, make_yahoo_like)
+    res = GameEstimator(GameTrainingConfig.from_dict(yahoo_config_dict())).fit(
+        train, val, ["AUC"], timing_mode="strict")
+    out["yahoo/objective_history"] = np.asarray(res.objective_history)
+    out["yahoo/auc_history"] = np.asarray(res.descent.validation_history["AUC"])
+    out["yahoo/auc"] = np.asarray(res.validation["AUC"])
+    for key, t in res.descent.trackers.items():
+        out[f"yahoo/iterations/{key}"] = np.asarray(t.iterations)
+    final = res.descent.model.coordinates
+    out["yahoo/fixed/means"] = np.asarray(final["fixed"].glm.coefficients.means)
+    for name in ("perUser", "perItem"):
+        out[f"yahoo/{name}/coefficients"] = np.asarray(final[name].coefficients)
+    out["yahoo/val_scores"] = np.asarray(res.descent.model.score_dataset(val))
+
+
 def run_jax_side(what: str, out: Path) -> dict:
     """Run this script for `what` in a fresh process; its results."""
     env = dict(os.environ, PYTHONPATH=str(ROOT), JAX_PLATFORMS="cpu")
@@ -325,7 +430,8 @@ def main(argv) -> int:
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
     out: dict = {}
-    {"tron": _run_tron, "solver": _run_solver, "estimator": _run_estimator}[what](out)
+    {"tron": _run_tron, "solver": _run_solver, "estimator": _run_estimator,
+     "sparse": _run_sparse}[what](out)
     np.savez(path, **out)
     return 0
 

@@ -1,0 +1,65 @@
+"""chip_smoke.py's host-side pieces, on the CPU: the key of a scipy optimum
+in bench_ref_cache.json is recomputed as bench.py computes it, for a dense
+and for a CSR design matrix, and the script refuses to run without CUDA."""
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import scipy.sparse as sp
+
+ROOT = Path(__file__).resolve().parents[2]
+sys.path.insert(0, str(ROOT))
+import bench  # noqa: E402
+import chip_smoke  # noqa: E402
+
+
+def _bench_key(task, seed, x, y, l1, l2, box):
+    """bench.py glm_entry's key, as it builds it."""
+    return (f"scipy:{task}:seed{seed}:{x.shape[0]}x{x.shape[1]}:l1={l1}:l2={l2}:box={box}"
+            f":fp={bench._data_fingerprint(x, y)}")
+
+
+@pytest.mark.parametrize("kind", ["dense", "csr"])
+def test_scipy_ref_key_is_bench_key(kind):
+    from photon_ml_tpu_torch.data.synthetic_bench import make_wide_sparse_logistic
+    x, y = make_wide_sparse_logistic(300, d=2000, nnz=8, seed=77)
+    if kind == "dense":
+        x = np.asarray(x.todense())
+    got = chip_smoke.scipy_ref_key("logistic_regression", 77, x, y, 0.0, 1.0, None)
+    assert got == _bench_key("logistic_regression", 77, x, y, 0.0, 1.0, None)
+    # the two branches hash different bytes
+    other = np.asarray(x.todense()) if kind == "csr" else sp.csr_matrix(x)
+    assert chip_smoke.scipy_ref_key("logistic_regression", 77, other, y, 0.0, 1.0,
+                                    None) != got
+
+
+def test_config6_key_is_in_the_reference_cache():
+    """The key config 6's phase recomputes on the card names an entry of
+    the committed cache (its fingerprint is what the card run prints)."""
+    cache = json.loads((ROOT / "bench_ref_cache.json").read_text())
+    prefix = (f"scipy:logistic_regression:seed{chip_smoke.CONFIG6_SEED}:"
+              f"{chip_smoke.CONFIG6_N}x{chip_smoke.CONFIG6_D}:l1=0.0:l2=1.0:box=None:fp=")
+    keys = [k for k in cache if k.startswith(prefix)]
+    assert len(keys) == 1 and keys[0].endswith("fp=g2-fc2e14269cdd1246")
+    assert abs(cache[keys[0]]["ref_nll"] - 35659.73165913693) < 1e-9
+    assert chip_smoke.YAHOO_REF_KEY in cache
+
+
+def test_host_objective_takes_csr():
+    from photon_ml_tpu_torch.data.synthetic_bench import make_wide_sparse_logistic
+    x, y = make_wide_sparse_logistic(500, d=3000, nnz=8, seed=1)
+    w = np.random.default_rng(0).normal(size=3000) * 0.1
+    dense = chip_smoke.host_objective(np.asarray(x.todense()), y, w, 1.0)
+    np.testing.assert_allclose(chip_smoke.host_objective(x, y, w, 1.0), dense, rtol=1e-12)
+
+
+def test_exits_without_cuda(tmp_path):
+    """No CUDA here: a non-zero exit and nothing on stdout."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")], cwd=tmp_path,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0 and out.stdout == ""

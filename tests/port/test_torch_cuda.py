@@ -1,5 +1,6 @@
-"""The CUDA kernel on the card: against its plain version, bit-stable, and
-on train_glm's path.  Needs a CUDA device (and nvcc to build the kernel);
+"""The CUDA kernels on the card: against their plain versions, bit-stable,
+and on train_glm's path (the fused dense kernel, and the sparse kernels A
+and B).  Needs a CUDA device (and nvcc to build the kernel);
 skips elsewhere.  This file imports no JAX, so on a machine with the card
 it runs without the repository's JAX fixtures:
 
@@ -266,3 +267,200 @@ def test_glmix_tron_fit_on_card_matches_cpu_f64(cuda):
     assert all(b.hv_rounds is not None for k, t in card.descent.trackers.items()
                if k.endswith("/perUser") for b in t.buckets)
     np.testing.assert_allclose(card.objective_history, cpu.objective_history, rtol=1e-4)
+
+
+# ------------------------------------------- sparse kernels (csrc/ell_sparse.cu)
+
+def _sparse(n, d, k, seed=3, intercept=False, from_ell=False):
+    """A PaddedSparse on the card with <= k nonzeros per row (rows 0 and 2
+    empty when n > 2, column 1 empty), optionally an all-ones last column
+    (it spans kernel B's tiles once n > 2048); its column view from scipy,
+    or built from the ELL arrays (padding slots in column 0's segment)."""
+    import scipy.sparse as sp
+    from photon_ml_tpu_torch.ops.features import PaddedSparse
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(1, k + 1, size=n)
+    if n > 2:
+        counts[[0, 2]] = 0
+    rows = np.repeat(np.arange(n), counts)
+    cols = rng.integers(2 if d > 2 else 0, d, size=rows.size)
+    x = sp.csr_matrix((rng.uniform(0.2, 1.0, size=rows.size).astype(np.float32),
+                       (rows, cols)), shape=(n, d))
+    if intercept:
+        x = x.tolil()
+        x[:, d - 1] = 1.0
+        x = x.tocsr()
+    if from_ell:
+        return PaddedSparse.from_scipy(x, device="cuda").with_csc()
+    return PaddedSparse.from_scipy(x, with_csc=True, device="cuda")
+
+
+SPARSE_SHAPES = {"n0": (0, 37, 5), "n1": (1, 37, 5), "n3": (3, 37, 5),
+                 "700x37": (700, 37, 5), "ell_view": (700, 37, 5),
+                 "intercept": (20_000, 300, 8), "wide": (20_000, 250_000, 64)}
+
+
+def _sparse_case(shape):
+    n, d, k = SPARSE_SHAPES[shape]
+    return _sparse(n, d, k, intercept=shape in ("intercept", "wide"),
+                   from_ell=shape == "ell_view")
+
+
+@pytest.mark.parametrize("shape", list(SPARSE_SHAPES))
+@pytest.mark.parametrize("with_wo", [False, True], ids=["plain", "w+o"])
+@pytest.mark.parametrize("name", sorted(TL.BY_NAME))
+def test_sparse_kernels_match_plain(cuda, name, with_wo, shape):
+    """Kernel A in loss mode, then B over its u, against the plain versions
+    on the same inputs: value rtol 1e-5 and u rtol/atol 1e-4 (as the dense
+    kernel), g per column within column_sum_tolerance (2 sqrt(count) eps
+    sum|terms|)."""
+    from photon_ml_tpu_torch.ops import sparse_kernels as sk
+    x = _sparse_case(shape)
+    n, d = x.shape
+    rng = np.random.default_rng(4)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).cuda()
+    y = t((rng.uniform(size=n) < 0.3) * 1.0)
+    c = t(rng.normal(size=d) * 0.3 / np.sqrt(SPARSE_SHAPES[shape][2]))
+    w = t(rng.uniform(0.5, 2.0, size=n)) if with_wo else None
+    o = t(rng.normal(size=n) * 0.1) if with_wo else None
+    loss = TL.BY_NAME[name]
+    before = dict(sk.LAUNCHES)
+    v, u = sk.ell_margin_loss(loss, x.indices, x.values, c, y, w, o)
+    g = sk.csc_column_sum(x.csc_row, x.csc_val, x.csc_end, u, 1)
+    assert sk.LAUNCHES["margin_loss"] == before["margin_loss"] + 1
+    assert sk.LAUNCHES["column_sum"] == before["column_sum"] + 1
+    v_p, u_p = sk.ell_margin_loss_plain(loss, x.indices, x.values, c, y, w, o)
+    g_p = sk.csc_column_sum_plain(x.csc_row, x.csc_val, x.csc_end, u, 1)
+    np.testing.assert_allclose(v.item(), v_p.item(), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(u.cpu().numpy(), u_p.cpu().numpy(), rtol=1e-4, atol=1e-4)
+    tol = sk.column_sum_tolerance(x.csc_row, x.csc_val, x.csc_end, u, 1)
+    assert bool(((g.double() - g_p.double()).abs() <= tol + 1e-30).all())
+    if shape == "n1" or shape == "n3" or shape == "700x37":
+        assert float(g[1]) == 0.0  # the empty column
+
+
+@pytest.mark.parametrize("shape", ["n0", "n3", "700x37", "ell_view", "intercept", "wide"])
+def test_sparse_margins_and_squared_sums_match_plain(cuda, shape):
+    from photon_ml_tpu_torch.ops import sparse_kernels as sk
+    x = _sparse_case(shape)
+    n, d = x.shape
+    rng = np.random.default_rng(5)
+    c = torch.from_numpy(rng.normal(size=d).astype(np.float32)).cuda()
+    o = torch.from_numpy(rng.normal(size=n).astype(np.float32)).cuda()
+    u = torch.from_numpy(rng.uniform(-1, 1, size=n).astype(np.float32)).cuda()
+    z = sk.ell_margins(x.indices, x.values, c, o)
+    z_p = sk.ell_margins_plain(x.indices, x.values, c, o)
+    assert bool(((z.double() - z_p.double()).abs()
+                 <= sk.margins_tolerance(x.indices, x.values, c, o) + 1e-30).all())
+    for power in (1, 2):
+        g = sk.csc_column_sum(x.csc_row, x.csc_val, x.csc_end, u, power)
+        g_p = sk.csc_column_sum_plain(x.csc_row, x.csc_val, x.csc_end, u, power)
+        tol = sk.column_sum_tolerance(x.csc_row, x.csc_val, x.csc_end, u, power)
+        assert bool(((g.double() - g_p.double()).abs() <= tol + 1e-30).all()), power
+
+
+def test_sparse_kernels_are_bit_stable(cuda):
+    """Two calls of each, around a call at another shape (which must find
+    the ticket reset by the call before it): identical bits."""
+    from photon_ml_tpu_torch.ops import sparse_kernels as sk
+    x, other = _sparse_case("wide"), _sparse_case("700x37")
+    n, d = x.shape
+    rng = np.random.default_rng(6)
+    y = torch.from_numpy((rng.uniform(size=n) < 0.3).astype(np.float32)).cuda()
+    c = torch.from_numpy((rng.normal(size=d) * 0.05).astype(np.float32)).cuda()
+
+    def run():
+        v, u = sk.ell_margin_loss(TL.LOGISTIC, x.indices, x.values, c, y)
+        g = sk.csc_column_sum(x.csc_row, x.csc_val, x.csc_end, u, 1)
+        h = sk.csc_column_sum(x.csc_row, x.csc_val, x.csc_end, u, 2)
+        return v, u, g, h, sk.ell_margins(x.indices, x.values, c)
+
+    first = run()
+    sk.ell_margin_loss(TL.POISSON, other.indices, other.values,
+                       torch.zeros(other.shape[1], device="cuda"),
+                       torch.ones(other.shape[0], device="cuda"))
+    second = run()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+_PROFILE_PASSES = """
+import json, sys
+sys.path.insert(0, "tests/port")
+import torch
+from torch.profiler import ProfilerActivity, profile
+from photon_ml_tpu_torch.ops import aggregators as agg, losses as TL
+from test_torch_cuda import _sparse_case
+x = _sparse_case("intercept")
+n, d = x.shape
+y = (torch.arange(n, device="cuda") % 3 == 0).float()
+c = torch.full((d,), 0.01, device="cuda")
+agg.value_and_gradient(TL.LOGISTIC, x, y, c)  # build, workspace
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for _ in range(3):
+        agg.value_and_gradient(TL.LOGISTIC, x, y, c)
+    torch.cuda.synchronize()
+print(json.dumps([e.name for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]))
+"""
+
+
+def test_sparse_pass_is_two_device_launches(cuda):
+    """value_and_gradient on a CUDA PaddedSparse: kernel A then kernel B,
+    and nothing else on the device.  Profiled in a process of its own: in
+    a process that has run much else, torch.profiler has recorded a few of
+    the first sparse launches of a window fewer than were made."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[2]
+    out = subprocess.run([sys.executable, "-c", _PROFILE_PASSES], cwd=root,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    names = json.loads(out.stdout.strip().splitlines()[-1])
+    assert len(names) == 6, names
+    assert sum("ell_margin_loss" in k for k in names) == 3, names
+    assert sum("csc_column_sum" in k for k in names) == 3, names
+
+
+def test_sparse_wrappers_refuse_what_they_do_not_take(cuda):
+    from photon_ml_tpu_torch.ops import features as fops
+    from photon_ml_tpu_torch.ops import sparse_kernels as sk
+    x = _sparse_case("700x37")
+    c = torch.zeros(x.shape[1], device="cuda")
+    with pytest.raises(TypeError, match="item 25"):
+        sk.ell_margins(x.indices, x.values.bfloat16(), c)
+    with pytest.raises(TypeError, match="int32"):
+        sk.ell_margins(x.indices.long(), x.values, c)
+    with pytest.raises(ValueError, match="contiguous"):
+        sk.ell_margins(x.indices.T.contiguous().T, x.values.T.contiguous().T, c)
+    with pytest.raises(ValueError, match="no column view"):
+        fops.rmatvec(x.without_csc(), torch.ones(x.shape[0], device="cuda"))
+
+
+def test_train_glm_sparse_on_card_matches_cpu_f64(cuda):
+    """train_glm on a wide sparse problem in float32 on the card against the
+    CPU in float64 (make_wide_sparse_logistic(3000, d=20000, nnz=16), L2
+    lambda 1, LBFGS(100, 1e-6)): coefficients within 1e-3, objective rtol
+    1e-5, and kernels A and B once per value+gradient pass."""
+    from photon_ml_tpu_torch.data.synthetic_bench import make_wide_sparse_logistic
+    from photon_ml_tpu_torch.models.training import train_glm
+    from photon_ml_tpu_torch.ops import sparse_kernels as sk
+    from photon_ml_tpu_torch.optim.config import (
+        OptimizerConfig, RegularizationContext, RegularizationType)
+    x, y = make_wide_sparse_logistic(3000, d=20_000, nnz=16, seed=5)
+    kw = dict(optimizer_config=OptimizerConfig(max_iterations=100, tolerance=1e-6),
+              regularization=RegularizationContext(RegularizationType.L2),
+              regularization_weights=(1.0,))
+    cpu = train_glm(x.astype(np.float64), y.astype(np.float64), "logistic_regression",
+                    device="cpu", **kw)[0]
+    before = dict(sk.LAUNCHES)
+    card = train_glm(x, y, "logistic_regression", **kw)[0]
+    fg = card.result.fg_count
+    assert sk.LAUNCHES["margin_loss"] - before["margin_loss"] == fg > 1
+    assert sk.LAUNCHES["column_sum"] - before["column_sum"] == fg
+    np.testing.assert_allclose(card.model.coefficients.means.double().cpu().numpy(),
+                               cpu.model.coefficients.means.numpy(), rtol=0, atol=1e-3)
+    np.testing.assert_allclose(card.result.value.item(), cpu.result.value.item(), rtol=1e-5)

@@ -81,10 +81,26 @@ def test_device_shard_is_one_shared_tensor():
 
 
 def test_sparse_shard_refuses_device_copy():
+    """A CSR shard refuses a dense device copy: device_shard gives a
+    PaddedSparse with the JAX package's arrays (exactly), one per (shard,
+    device, dtype); asking for the column view attaches it to that one
+    shared entry (on the CPU from CSC_MIN_COLS columns up, as JAX)."""
     sp = pytest.importorskip("scipy.sparse")
-    t = tbuild(np.zeros(3), {"s": sp.csr_matrix(np.eye(3))})
-    with pytest.raises(NotImplementedError, match="item 4"):
-        t.device_shard("s", "cpu")
+    from photon_ml_tpu_torch.ops.features import CSC_MIN_COLS, PaddedSparse
+    rng = np.random.default_rng(2)
+    x = sp.random(40, 30, density=0.2, format="csr", random_state=3)
+    t = tbuild(np.zeros(40), {"s": x})
+    j = jbuild(np.zeros(40), {"s": x}).device_shard("s")
+    got = t.device_shard("s", "cpu", torch.float64)
+    assert isinstance(got, PaddedSparse) and not got.has_csc
+    np.testing.assert_array_equal(got.indices.numpy(), np.asarray(j.indices))
+    np.testing.assert_array_equal(got.values.numpy(), np.asarray(j.values))
+    assert t.device_shard("s", "cpu", torch.float64) is got
+    assert t.device_shard("s", "cpu", torch.float32).dtype == torch.float32
+    wide = tbuild(np.zeros(4), {"w": sp.random(4, CSC_MIN_COLS, density=1e-4,
+                                                format="csr", random_state=rng)})
+    viewed = wide.device_shard("w", "cpu", torch.float64, with_csc=True)
+    assert viewed.has_csc and wide.device_shard("w", "cpu", torch.float64) is viewed
 
 
 CONFIGS = {

@@ -22,6 +22,15 @@ def _module_name(path: Path) -> str:
 SOURCES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 MODULES = [_module_name(p) for p in SOURCES]
 FORBIDDEN = ("jax", "jaxlib", "photon_ml_tpu")
+# modules the scan must reach, the sparse slice's among them
+REQUIRED = ("photon_ml_tpu_torch.ops.features", "photon_ml_tpu_torch.ops.sparse_kernels",
+            "photon_ml_tpu_torch.data.libsvm", "photon_ml_tpu_torch.convert",
+            "photon_ml_tpu_torch.ops.hopper_kernels", "chip_smoke")
+
+
+def test_the_scan_covers_the_port():
+    assert set(REQUIRED) <= set(MODULES)
+    assert (PKG / "csrc" / "ell_sparse.cu").exists()
 
 
 def test_every_module_imports_with_jax_blocked():

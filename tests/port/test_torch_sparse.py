@@ -1,0 +1,339 @@
+"""PaddedSparse and the sparse products == the JAX package's, float64, on
+the CPU; the sparse kernels' plain versions and launch plans.
+
+- Layouts (from_dense, from_scipy with and without the column view,
+  with_csc, pad_rows, densify) equal the JAX package's arrays element for
+  element.
+- matvec, rmatvec and sq_rmatvec equal JAX's at rtol 1e-12, with an atol
+  of 1e-12 times the largest magnitude of the result (an element whose
+  terms cancel to ~0 is held at the scale of the vector, since JAX's
+  chunked prefix-scan differences carry rounding of that scale): on the
+  ELL layout alone, on the column view built from ELL (padding slots in
+  column 0), on scipy's exact CSC, on a stream of more than 65,536
+  nonzeros (JAX's chunk length, so its multi-chunk path runs), with empty
+  rows and columns, and with a dense intercept column.  JAX runs
+  in-process: these are tiny jitted gathers.
+- The kernels' plain versions equal a dense reference (rtol 1e-12).
+- The kernels' launch plans are pure Python: replayed here at bench
+  configs 6 and 7's shapes, and kernel B's tile decomposition replayed
+  against the plain column sum.
+"""
+import numpy as np
+import pytest
+import scipy.sparse as sp
+import torch
+
+import jax.numpy as jnp
+
+from photon_ml_tpu.ops import features as JF
+from photon_ml_tpu_torch.convert import padded_sparse_from_numpy
+from photon_ml_tpu_torch.ops import features as TF
+from photon_ml_tpu_torch.ops import hopper_kernels as hk
+from photon_ml_tpu_torch.ops import losses as TL
+from photon_ml_tpu_torch.ops import sparse_kernels as sk
+
+
+def _matrix(case: str, seed: int = 3) -> np.ndarray:
+    """Dense [n, d] float64 with the named structure."""
+    rng = np.random.default_rng(seed)
+    if case == "stream_65536":
+        n, d, density = 3000, 400, 0.06       # ~72k nonzeros
+    elif case == "intercept":
+        n, d, density = 900, 250, 0.02
+    else:
+        n, d, density = 700, 37, 0.12
+    x = rng.normal(size=(n, d)) * (rng.uniform(size=(n, d)) < density)
+    if case in ("empty", "ell", "csc_from_ell", "csc_scipy"):
+        x[[0, 5, 699]] = 0.0                  # empty rows, one of them last
+        x[:, [0, 7, 36]] = 0.0                # empty columns, one of them last
+    if case == "intercept":
+        x[:, -1] = 1.0
+    return x
+
+
+def _both(case: str):
+    """(dense x, JAX PaddedSparse, port PaddedSparse with the same arrays)."""
+    x = _matrix(case)
+    csr = sp.csr_matrix(x)
+    if case == "ell" or case == "empty":
+        j = JF.PaddedSparse.from_scipy(csr)
+    elif case == "csc_from_ell":
+        j = JF.PaddedSparse.from_scipy(csr).with_csc()
+    else:
+        j = JF.PaddedSparse.from_scipy(csr, with_csc=True)
+    arr = lambda a: None if a is None else np.asarray(a)
+    t = padded_sparse_from_numpy(arr(j.indices), arr(j.values), j.num_cols, arr(j.csc_row),
+                                 arr(j.csc_val), arr(j.csc_end), device="cpu")
+    return x, j, t
+
+
+PRODUCT_CASES = ["ell", "csc_from_ell", "csc_scipy", "stream_65536", "empty", "intercept"]
+
+
+@pytest.mark.parametrize("product", ["matvec", "rmatvec", "sq_rmatvec"])
+@pytest.mark.parametrize("case", PRODUCT_CASES)
+def test_products_match_jax(case, product):
+    x, j, t = _both(case)
+    assert t.has_csc == j.has_csc == (case not in ("ell", "empty"))
+    if case == "stream_65536":
+        assert int(np.asarray(j.csc_end)[-1]) > 65536
+    rng = np.random.default_rng(11)
+    arg = rng.normal(size=x.shape[1] if product == "matvec" else x.shape[0])
+    want = np.asarray(getattr(JF, product)(j, jnp.asarray(arg)))
+    got = getattr(TF, product)(t, torch.from_numpy(arg))
+    assert got.dtype == torch.float64
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-12,
+                               atol=1e-12 * np.abs(want).max())
+    dense = {"matvec": lambda: x @ arg, "rmatvec": lambda: x.T @ arg,
+             "sq_rmatvec": lambda: (x * x).T @ arg}[product]()
+    np.testing.assert_allclose(got.numpy(), dense, rtol=1e-12,
+                               atol=1e-12 * np.abs(want).max())
+
+
+LAYOUT_CASES = ["ell", "empty", "intercept", "stream_65536"]
+
+
+def _assert_same(t, j):
+    assert t.num_cols == j.num_cols and t.has_csc == j.has_csc
+    for name in ("indices", "values", "csc_row", "csc_val", "csc_end"):
+        a, b = getattr(t, name), getattr(j, name)
+        if b is None:
+            assert a is None, name
+            continue
+        b = np.array(b)
+        assert a.dtype == torch.from_numpy(b).dtype, name
+        np.testing.assert_array_equal(a.numpy(), b, err_msg=name)
+
+
+@pytest.mark.parametrize("case", LAYOUT_CASES)
+def test_from_dense_and_with_csc_match_jax(case):
+    x = _matrix(case)
+    j = JF.PaddedSparse.from_dense(x)
+    t = TF.PaddedSparse.from_dense(x, device="cpu")
+    _assert_same(t, j)
+    _assert_same(t.with_csc(), j.with_csc())
+    _assert_same(t.with_csc().without_csc(), j)
+    # ELL padding slots stay in column 0's segment of the view
+    pad = int((np.asarray(j.values) == 0).sum())
+    assert int(t.with_csc().csc_end[1]) == int((x[:, 0] != 0).sum()) + pad
+
+
+@pytest.mark.parametrize("with_csc", [False, True], ids=["ell", "csc"])
+@pytest.mark.parametrize("case", LAYOUT_CASES)
+def test_from_scipy_matches_jax(case, with_csc):
+    csr = sp.csr_matrix(_matrix(case))
+    _assert_same(TF.PaddedSparse.from_scipy(csr, with_csc=with_csc, device="cpu"),
+                 JF.PaddedSparse.from_scipy(csr, with_csc=with_csc))
+
+
+@pytest.mark.parametrize("case", ["ell", "csc_scipy"])
+def test_pad_rows_and_densify_match_jax(case):
+    x, j, t = _both(case)
+    _assert_same(TF.pad_rows(t, 3), JF.pad_rows(j, 3))
+    assert TF.pad_rows(t, 0) is t
+    np.testing.assert_array_equal(TF.densify(TF.pad_rows(t, 3)).numpy(),
+                                  np.asarray(JF.densify(JF.pad_rows(j, 3))))
+    np.testing.assert_array_equal(TF.densify(t).numpy(), x)
+
+
+def test_to_keeps_int32_indices():
+    t = TF.PaddedSparse.from_dense(_matrix("ell"), device="cpu").with_csc()
+    f = t.to("cpu", torch.float32)
+    assert f.dtype == torch.float32 and f.csc_val.dtype == torch.float32
+    assert f.indices.dtype == f.csc_row.dtype == f.csc_end.dtype == torch.int32
+    assert f.shape == t.shape and f.device == torch.device("cpu")
+
+
+def test_as_feature_matrix_column_view_rule():
+    """On the CPU the column view is attached from CSC_MIN_COLS columns up,
+    as the JAX package attaches it; a matrix that has one keeps it."""
+    narrow = sp.random(4, 50, density=0.3, format="csr", random_state=1)
+    wide = sp.random(4, TF.CSC_MIN_COLS, density=1e-4, format="csr", random_state=1)
+    assert not TF.as_feature_matrix(narrow, "cpu", torch.float64, with_csc=True).has_csc
+    assert TF.as_feature_matrix(wide, "cpu", torch.float64, with_csc=True).has_csc
+    assert not TF.as_feature_matrix(wide, "cpu", torch.float64).has_csc
+    kept = TF.PaddedSparse.from_scipy(narrow, with_csc=True, device="cpu")
+    assert TF.as_feature_matrix(kept, "cpu", torch.float64).has_csc
+    for x in (narrow, wide):
+        jx = JF.as_feature_matrix(x, with_csc=True)
+        assert isinstance(jx, JF.PaddedSparse)
+        assert jx.has_csc == TF.as_feature_matrix(x, "cpu", with_csc=True).has_csc
+
+
+def test_cuda_matrix_without_column_view_raises_in_rmatvec(monkeypatch):
+    """The dispatch on a CUDA PaddedSparse: without its column view the
+    gradient products raise rather than scatter (device mocked: no card
+    here)."""
+    t = TF.PaddedSparse.from_dense(_matrix("ell"), device="cpu")
+    u = torch.ones(t.shape[0], dtype=torch.float64)
+    monkeypatch.setattr(TF.PaddedSparse, "is_cuda", property(lambda self: True))
+    for product in (TF.rmatvec, TF.sq_rmatvec):
+        with pytest.raises(ValueError, match="no column view"):
+            product(t, u)
+
+
+def test_unported_representations_name_their_roadmap_entry():
+    coo = torch.sparse_coo_tensor([[0, 1], [1, 0]], [1.0, 2.0], (2, 2),
+                                  check_invariants=True)
+    with pytest.raises(NotImplementedError, match="item 24"):
+        TF.as_feature_matrix(coo, "cpu")
+    with pytest.raises(NotImplementedError, match="item 24"):
+        TF.matvec(coo, torch.ones(2))
+    KroneckerDesign = type("KroneckerDesign", (), {})
+    with pytest.raises(NotImplementedError, match="item 13"):
+        TF.as_feature_matrix(KroneckerDesign(), "cpu")
+    with pytest.raises(TypeError, match="item 25"):
+        sk._check("values", torch.zeros(2, dtype=torch.bfloat16), torch.float32, (2,),
+                  torch.device("cpu"))
+
+
+# ------------------------------------------------------------ plain versions
+
+@pytest.mark.parametrize("with_wo", [False, True], ids=["plain", "w+o"])
+@pytest.mark.parametrize("name", sorted(TL.BY_NAME))
+def test_plain_margin_loss_and_column_sum_match_dense(name, with_wo):
+    """Kernel A's plain version then kernel B's (power 1) == the dense
+    fused pass; and through the wrappers on CPU tensors, which launch
+    nothing."""
+    x = _matrix("intercept")
+    n, d = x.shape
+    rng = np.random.default_rng(5)
+    y = (rng.uniform(size=n) < 0.5) * 1.0
+    c = rng.normal(size=d) * 0.1
+    w = rng.uniform(0.5, 2.0, size=n) if with_wo else None
+    o = rng.normal(size=n) * 0.1 if with_wo else None
+    t_ = lambda a: None if a is None else torch.from_numpy(a)
+    loss = TL.BY_NAME[name]
+    ps = TF.PaddedSparse.from_dense(x, device="cpu").with_csc()
+    v_d, g_d = hk.fused_value_and_gradient_plain(loss, t_(x), t_(y), t_(c), t_(w), t_(o))
+    before = dict(sk.LAUNCHES)
+    for fn in (sk.ell_margin_loss_plain, sk.ell_margin_loss):
+        v, u = fn(loss, ps.indices, ps.values, t_(c), t_(y), t_(w), t_(o))
+        g = sk.csc_column_sum(ps.csc_row, ps.csc_val, ps.csc_end, u, 1)
+        np.testing.assert_allclose(v.item(), v_d.item(), rtol=1e-12)
+        np.testing.assert_allclose(g.numpy(), g_d.numpy(), rtol=1e-12,
+                                   atol=1e-12 * np.abs(g_d.numpy()).max())
+    assert sk.LAUNCHES == before
+
+
+def test_plain_margins_and_squared_column_sum_match_dense():
+    x = _matrix("empty")
+    rng = np.random.default_rng(6)
+    c, u, o = rng.normal(size=x.shape[1]), rng.normal(size=x.shape[0]), rng.normal(size=x.shape[0])
+    ps = TF.PaddedSparse.from_dense(x, device="cpu").with_csc()
+    z = sk.ell_margins_plain(ps.indices, ps.values, torch.from_numpy(c), torch.from_numpy(o))
+    np.testing.assert_allclose(z.numpy(), x @ c + o, rtol=1e-12, atol=1e-14)
+    for power in (1, 2):
+        g = sk.csc_column_sum_plain(ps.csc_row, ps.csc_val, ps.csc_end, torch.from_numpy(u),
+                                    power)
+        np.testing.assert_allclose(g.numpy(), (x ** power).T @ u, rtol=1e-12, atol=1e-14)
+        assert g[[0, 7, 36]].tolist()[1:] == [0.0, 0.0]  # empty columns
+
+
+# ------------------------------------------------------------ launch plans
+
+PLAN_SMS = 132
+# (name, n, k, nnz): bench config 6 ([200,000 x 250,000], <= 64 unique
+# hashed features per row plus the intercept) and config 7's fixed effect
+# (285,135 training rows of [x 14,983], <= 24 plus the intercept)
+SHAPES = [("config6", 200_000, 65, 12_800_000), ("config7", 285_135, 25, 7_100_000),
+          ("n0", 0, 1, 0), ("n1", 1, 3, 3), ("n3", 3, 40, 100), ("k1", 1000, 1, 1000)]
+
+
+@pytest.mark.parametrize("name,n,k,nnz", SHAPES, ids=[s[0] for s in SHAPES])
+def test_plans_cover_the_work_once(name, n, k, nnz):
+    """Replay kernel A's rounds and kernel B's tiles as the CUDA source
+    walks them."""
+    plan = sk.plan_margins(n, k, PLAN_SMS)
+    assert plan.lanes & (plan.lanes - 1) == 0 and plan.lanes <= 32
+    assert plan.lanes >= min(k, 32) and plan.lanes < 2 * max(k, 1)
+    assert plan.lanes * plan.rows_per_round == sk.THREADS
+    assert 1 <= plan.grid <= PLAN_SMS * sk.BLOCKS_PER_SM
+    rows = np.concatenate([
+        np.arange(b * plan.rows_per_round, n, plan.grid * plan.rows_per_round)[:, None]
+        + np.arange(plan.rows_per_round)[None, :] for b in range(plan.grid)]).ravel()
+    rows = rows[rows < n]
+    assert len(rows) == n and len(np.unique(rows)) == n
+    assert n * k < 2 ** 31 and nnz < 2 ** 31
+
+    cp = sk.plan_columns(nnz)
+    assert cp.tile == sk.TILE and cp.tiles >= 1
+    assert cp.tiles * cp.tile >= nnz and (nnz == 0 or (cp.tiles - 1) * cp.tile < nnz)
+    assert 4 * sk.TILE + 64 <= 48 * 1024  # the tile's static shared memory
+
+
+def replay_column_sum(end: np.ndarray, contrib: np.ndarray, tile: int) -> np.ndarray:
+    """Kernel B's decomposition in numpy, step for step: each tile sums the
+    columns that start in it (and its portion of a column begun earlier);
+    the last block completes the columns that span tiles, in tile order.
+    Asserts that every stream element is summed once and every column
+    written once."""
+    nnz, d = len(contrib), len(end) - 1
+    tiles = max(1, -(-nnz // tile))
+    g = np.full(d, np.nan)
+    first, cont = np.full(tiles, np.nan), np.full(tiles, np.nan)
+    span = np.full(tiles, -1)
+    covered, written = np.zeros(nnz, int), np.zeros(d, int)
+    lower = lambda p: int(np.searchsorted(end[:d], p, side="left"))
+    for t in range(tiles):
+        lo, hi = t * tile, min(t * tile + tile, nnz)
+        j0 = lower(lo)
+        j1 = d if t == tiles - 1 else lower(hi)
+        has_cont = int(j0 > 0 and end[j0] > lo)
+        for it in range(j1 - j0 + has_cont):
+            j = j0 + it - has_cont
+            s = lo if (has_cont and it == 0) else end[j]
+            stop = end[j + 1]
+            e = min(stop, hi)
+            covered[s:e] += 1
+            total = contrib[s:e].sum()
+            if has_cont and it == 0:
+                cont[t] = total
+            elif stop > hi:
+                first[t], span[t] = total, j
+            else:
+                g[j] = total
+                written[j] += 1
+    for q in range(tiles):
+        j = span[q]
+        if j >= 0:
+            last = (end[j + 1] - 1) // tile
+            g[j] = first[q] + cont[q + 1:last + 1].sum()
+            written[j] += 1
+    assert np.all(covered == 1) and np.all(written == 1)
+    return g
+
+
+def _streams():
+    """(name, end, rows) column-sorted streams with the trouble spots."""
+    rng = np.random.default_rng(8)
+    wide = sp.random(5000, 300, density=0.01, format="csr", random_state=2)
+    wide = sp.hstack([wide, np.ones((5000, 1))]).tocsc()   # intercept: 5000 rows
+    out = [("intercept", wide.indptr, wide.indices)]
+    ell = TF.PaddedSparse.from_dense(_matrix("empty"), device="cpu").with_csc()
+    out.append(("ell_padding", ell.csc_end.numpy(), ell.csc_row.numpy()))
+    counts = rng.integers(0, 9, size=700)
+    counts[[0, 1, 350, 698, 699]] = 0                       # empty columns, ends too
+    end = np.concatenate([[0], np.cumsum(counts)])
+    out.append(("empty_columns", end, rng.integers(0, 50, size=end[-1])))
+    out.append(("no_nonzeros", np.zeros(5, np.int64), np.zeros(0, np.int64)))
+    # columns that end exactly at tile boundaries, one exactly a tile long
+    counts = np.array([sk.TILE - 5, 5, sk.TILE, 1, 2 * sk.TILE + 3, 0])
+    end = np.concatenate([[0], np.cumsum(counts)])
+    out.append(("tile_edges", end, rng.integers(0, 10, size=end[-1])))
+    return out
+
+
+@pytest.mark.parametrize("tile", [sk.TILE, 1, 3, 64])
+@pytest.mark.parametrize("name,end,rows", _streams(), ids=[s[0] for s in _streams()])
+def test_column_sum_tiles_replay_the_plain_sum(name, end, rows, tile):
+    rng = np.random.default_rng(9)
+    u = rng.normal(size=int(rows.max()) + 1 if len(rows) else 1)
+    vals = rng.normal(size=len(rows))
+    contrib = vals * u[rows]
+    want = sk.csc_column_sum_plain(torch.from_numpy(rows), torch.from_numpy(vals),
+                                   torch.from_numpy(end), torch.from_numpy(u), 1).numpy()
+    got = replay_column_sum(np.asarray(end), contrib, tile)
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12)
+    if name == "intercept" and tile == sk.TILE:
+        assert np.diff(end)[-1] > 2 * sk.TILE  # the intercept spans tiles

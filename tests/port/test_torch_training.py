@@ -151,9 +151,11 @@ def test_unported_options_raise(data):
                device="cpu")
     with pytest.raises(NotImplementedError, match="named feature constraints"):
         TOC(constraints=({"name": "a", "term": "", "lowerBound": 0.0},))
-    import scipy.sparse as sp
+    # scipy.sparse input is ported (tests/port/test_torch_sparse_training.py);
+    # torch's own sparse layouts (the JAX package's BCOO) are not
+    coo = torch.from_numpy(x[:50]).to_sparse()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttrain(sp.csr_matrix(x[:50]), y[:50], TASK, device="cpu")
+        ttrain(coo, y[:50], TASK, device="cpu")
 
 
 def test_best_model_by_validation(data):
