@@ -76,7 +76,10 @@ Phases, one JSON object per line on stdout:
      offsets, at 700 x 37 (k = 5, empty rows and an empty column), its
      column view built from ELL (padding slots in column 0), 1, 3 and 0
      rows, 20,000 x 300 with an intercept column that spans kernel B's
-     tiles and 20,000 x 250,000 (k = 64), then two calls bit for bit;
+     tiles and 20,000 x 250,000 (k = 64), then two calls bit for bit and
+     a csc_row[1:] view that B's wrapper must refuse; then 3,000 x
+     200,000 with k = 1 (B's tiles meet far more columns than one staged
+     chunk) and column views of exactly 2,047, 2,048 and 2,049 nonzeros;
      tolerances: value rtol 1e-5, u rtol/atol 1e-4, margins per row
      2 sqrt(k + 1) eps sum|terms|, column sums per column 2 sqrt(count)
      eps sum|terms| (float32 sums of up to 2 x 10^5 terms);
@@ -88,9 +91,11 @@ Phases, one JSON object per line on stdout:
      float64 objective must be within 1e-5 relative of the scipy optimum
      (the key carries the CSR's fingerprint); a warm solve, one profiled
      solve (A and B once per pass on the device), the kernels against
-     their plain versions at this shape, and sparse_timing: A, B and the
-     whole pass against their plain versions and cuSPARSE SpMV through
-     torch's CSR tensors, with bounds from this input's bytes;
+     their plain versions at this shape, and sparse_timing: A, B (powers
+     1 and 2) and the whole pass against their plain versions and
+     cuSPARSE SpMV through torch's CSR tensors, B beside its gather floor
+     (torch.index_select of u by csc_row), with bounds from this input's
+     bytes;
  15. yahoo_glmix: bench config 7 (bench.py _yahoo_setup) at full size,
      make_yahoo_like(300,000, seed=23), 95/5 split, a fixed effect on the
      14,983-column sparse shard and per-user and per-item random effects
@@ -160,10 +165,14 @@ SPARSE_DESIGN = {
                         "<= 8 blocks of 256 per SM in rounds; value per block in a fixed "
                         "order, ticketed last-block sum (one launch; margins mode for "
                         "matvec)"),
-    "csc_column_sum": ("column-sorted stream in tiles of 2048, one block per tile: "
-                       "val^p * u[row] staged in shared memory, one warp per column "
-                       "portion; columns that span tiles (the intercept) completed by the "
-                       "ticketed last block in tile order; no atomics, bit-stable"),
+    "csc_column_sum": ("column-sorted stream in tiles of 2048, one block per tile, a run "
+                       "of 8 per thread (16-byte loads, all 8 gathers of u in flight); "
+                       "the tile's columns from a tile map made once per column view, "
+                       "their ends staged in shared memory in chunks of 1024; a "
+                       "segmented reduction by column over the runs (shuffles, then the "
+                       "warps in order); columns that span tiles (the intercept) finished "
+                       "by the ticketed last block as one more segmented scan over the "
+                       "tiles; no atomics, bit-stable"),
 }
 DESIGN = ("persistent grid (one block per SM, ~48 KB row tiles dealt out in turn); "
           "ring of cp.async.bulk (TMA) stages with full/empty mbarriers fed by "
@@ -609,6 +618,20 @@ def sparse_matrix(rng, n, d, k, intercept=False, from_ell=False):
     return PaddedSparse.from_scipy(x, with_csc=True, device="cuda")
 
 
+def stream_matrix(rng, nnz, n=600, d=40):
+    """A PaddedSparse on the card whose column view holds exactly `nnz`
+    nonzeros: an all-ones last column (n of them: it spans kernel B's
+    tiles once nnz > 2048) and nnz - n at distinct random cells."""
+    import scipy.sparse as sp
+    from photon_ml_tpu_torch.ops.features import PaddedSparse
+    cells = rng.choice(n * (d - 1), size=nnz - n, replace=False)
+    rows = np.concatenate([cells // (d - 1), np.arange(n)])
+    cols = np.concatenate([cells % (d - 1), np.full(n, d - 1)])
+    vals = np.concatenate([rng.uniform(0.2, 1.0, size=nnz - n), np.ones(n)])
+    x = sp.csr_matrix((vals.astype(np.float32), (rows, cols)), shape=(n, d))
+    return PaddedSparse.from_scipy(x, with_csc=True, device="cuda")
+
+
 def over_tol(got, want, tol) -> float:
     """The largest |got - want| / tol (<= 1 passes)."""
     import torch
@@ -661,7 +684,8 @@ def compare_sparse(sk, loss, x, y, c, w, o) -> dict:
 def run_sparse_checks(sk, losses, seed=1) -> None:
     """The sparse kernels against their plain versions at the small and
     wide shapes, every loss plain and with weights + offsets, then one
-    bit-stability check; raises on any failure."""
+    bit-stability check and a misaligned view; then kernel B's edge cases;
+    raises on any failure."""
     import torch
     rng = np.random.default_rng(seed)
     shapes = (("700x37_k5", 700, 37, 5, False, False),
@@ -671,8 +695,9 @@ def run_sparse_checks(sk, losses, seed=1) -> None:
               ("20000x300_intercept", 20_000, 300, 8, True, False),
               ("20000x250000", 20_000, 250_000, 64, True, False))
     failures = []
-    for size, n, d, k, icpt, ell in shapes:
-        x = sparse_matrix(rng, n, d, k, icpt, ell)
+
+    def check(size, x, k):
+        n, d = x.shape
         t = lambda a: torch.from_numpy(a.astype(np.float32)).cuda()
         y = t((rng.uniform(size=n) < 0.3) * 1.0)
         c = t(rng.normal(size=d) * 0.3 / np.sqrt(k))
@@ -684,30 +709,60 @@ def run_sparse_checks(sk, losses, seed=1) -> None:
                       "nnz": int(x.csc_row.numel()), "loss": loss.name, "inputs": tag, **r})
                 if not r["ok"]:
                     failures.append(f"{size}/{loss.name}/{tag}")
-        if size == "20000x250000":
-            def run():
-                v, u = sk.ell_margin_loss(losses[0], x.indices, x.values, c, y, w, o)
-                return (v, u, sk.ell_margins(x.indices, x.values, c),
-                        sk.csc_column_sum(x.csc_row, x.csc_val, x.csc_end, u, 1),
-                        sk.csc_column_sum(x.csc_row, x.csc_val, x.csc_end, u, 2))
-            first = run()
-            second = run()
-            same = all(bool(torch.equal(a, b)) for a, b in zip(first, second))
-            emit({"phase": "sparse_check", "size": size, "bit_stable": same})
-            if not same:
-                failures.append(f"{size}/bit_stability")
+        return y, c, w, o
+
+    for size, n, d, k, icpt, ell in shapes:
+        x = sparse_matrix(rng, n, d, k, icpt, ell)
+        y, c, w, o = check(size, x, k)
+
+    # the last shape (20000 x 250000) twice, bit for bit
+    def run():
+        v, u = sk.ell_margin_loss(losses[0], x.indices, x.values, c, y, w, o)
+        return (v, u, sk.ell_margins(x.indices, x.values, c),
+                sk.csc_column_sum(x.csc_row, x.csc_val, x.csc_end, u, 1),
+                sk.csc_column_sum(x.csc_row, x.csc_val, x.csc_end, u, 2))
+    first = run()
+    second = run()
+    same = all(bool(torch.equal(a, b)) for a, b in zip(first, second))
+    emit({"phase": "sparse_check", "size": size, "bit_stable": same})
+    if not same:
+        failures.append(f"{size}/bit_stability")
+    # kernel B loads the stream 16 bytes at a time: a view 4 bytes into
+    # the arrays must raise in the wrapper
+    before = dict(sk.LAUNCHES)
+    try:
+        sk.csc_column_sum(x.csc_row[1:], x.csc_val[1:], x.csc_end, first[1], 1)
+        refused = False
+    except ValueError as e:
+        refused = "16-byte" in str(e)
+    refused = refused and sk.LAUNCHES == before
+    emit({"phase": "sparse_check", "size": size, "misaligned_view_raises": refused})
+    if not refused:
+        failures.append(f"{size}/misaligned_view")
+
+    # kernel B's edge cases: tiles that meet ~140,000 columns each, most of
+    # them empty (far more than one staged chunk of 1024 ends), and column
+    # views of one short of, exactly and one past a tile of nonzeros
+    check("3000x200000_k1", sparse_matrix(rng, 3000, 200_000, 1), 1)
+    for nnz in (2047, 2048, 2049):
+        x = stream_matrix(rng, nnz)
+        check(f"nnz{nnz}", x, x.indices.shape[1])
     if failures:
         raise SystemExit(f"sparse kernels disagree with their plain versions: {failures}")
 
 
 def time_sparse(sk, loss, x, y, o=None, reps=SPARSE_REPS) -> dict:
-    """Kernels A (loss mode) and B (power 1) and the whole pass (A then B),
-    each with its plain version and its library yardstick (cuSPARSE SpMV
-    through torch's CSR tensors: X c for A, the column view as a CSR of
-    X^T times u for B, both for the pass), timed as time_full times the
-    dense kernel (median over `reps` reps of 10 calls with perturbed
-    inputs, device time only); bounds from this input's bytes; launches
-    per pass over 10 passes, by the wrappers' counts and by a profile."""
+    """Kernels A (loss mode) and B (power 1, "b"; power 2, "b2") and the
+    whole pass (A then B), each with its plain version and its library
+    yardstick (cuSPARSE SpMV through torch's CSR tensors: X c for A, the
+    column view as a CSR of X^T times u for B, with its values squared
+    once, outside the timed window, for power 2; both for the pass),
+    timed as time_full times the dense kernel (median over `reps` reps of
+    10 calls with perturbed inputs, device time only); for B also its
+    gather floor, torch.index_select(u, 0, csc_row) timed the same way
+    (B's random reads of u alone); bounds from this input's bytes;
+    launches per pass over 10 passes, by the wrappers' counts and by a
+    profile."""
     import torch
     n, d = x.shape
     k, nnz = x.indices.shape[1], x.csc_row.numel()
@@ -723,15 +778,22 @@ def time_sparse(sk, loss, x, y, o=None, reps=SPARSE_REPS) -> dict:
     x_csr = torch.sparse_csr_tensor(crow, idx.reshape(-1)[keep].long(), val.reshape(-1)[keep],
                                     size=(n, d))
     xt_csr = torch.sparse_csr_tensor(end.long(), row.long(), cv, size=(d, n))
+    xt2_csr = torch.sparse_csr_tensor(end.long(), row.long(), cv * cv, size=(d, n))
+    tiles = x.csc_tiles
     kernels = {
         "a": {"ms": lambda c, u: sk.ell_margin_loss(loss, idx, val, c, y, None, o),
               "plain_ms": lambda c, u: sk.ell_margin_loss_plain(loss, idx, val, c, y, None, o),
               "library_ms": lambda c, u: x_csr @ c},
-        "b": {"ms": lambda c, u: sk.csc_column_sum(row, cv, end, u, 1),
+        "b": {"ms": lambda c, u: sk.csc_column_sum(row, cv, end, u, 1, tiles),
               "plain_ms": lambda c, u: sk.csc_column_sum_plain(row, cv, end, u, 1),
-              "library_ms": lambda c, u: xt_csr @ u},
+              "library_ms": lambda c, u: xt_csr @ u,
+              "gather_floor_ms": lambda c, u: torch.index_select(u, 0, row)},
+        "b2": {"ms": lambda c, u: sk.csc_column_sum(row, cv, end, u, 2, tiles),
+               "plain_ms": lambda c, u: sk.csc_column_sum_plain(row, cv, end, u, 2),
+               "library_ms": lambda c, u: xt2_csr @ u},
         "pass": {"ms": lambda c, u: sk.csc_column_sum(
-                     row, cv, end, sk.ell_margin_loss(loss, idx, val, c, y, None, o)[1], 1),
+                     row, cv, end, sk.ell_margin_loss(loss, idx, val, c, y, None, o)[1], 1,
+                     tiles),
                  "plain_ms": lambda c, u: sk.csc_column_sum_plain(
                      row, cv, end, sk.ell_margin_loss_plain(loss, idx, val, c, y, None, o)[1], 1),
                  "library_ms": lambda c, u: (x_csr @ c, xt_csr @ u)},
@@ -751,9 +813,9 @@ def time_sparse(sk, loss, x, y, o=None, reps=SPARSE_REPS) -> dict:
     a_bytes = 8 * n * k + vec + 4 * d + 4 * n + 4              # ELL, y, o, c; u, value
     b_bytes = 8 * nnz + 4 * (d + 1) + 4 * n + 4 * d            # stream, end, u; g
     p_bytes = 8 * n * k + 8 * nnz + vec + 4 * d + 4 * (d + 1) + 4 * d + 4
-    ops = {"a": 2 * n * k, "b": 2 * nnz, "pass": 2 * n * k + 2 * nnz}
+    ops = {"a": 2 * n * k, "b": 2 * nnz, "b2": 3 * nnz, "pass": 2 * n * k + 2 * nnz}
     out = {"shape": [n, d], "k": k, "nnz": int(nnz), "reps": reps}
-    for kn, nbytes in (("a", a_bytes), ("b", b_bytes), ("pass", p_bytes)):
+    for kn, nbytes in (("a", a_bytes), ("b", b_bytes), ("b2", b_bytes), ("pass", p_bytes)):
         med = {key: statistics.median(times[(kn, key)]) for key in kernels[kn]}
         by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
         by_ops = ops[kn] / PEAK_F32_FLOPS * 1e3
@@ -765,6 +827,9 @@ def time_sparse(sk, loss, x, y, o=None, reps=SPARSE_REPS) -> dict:
         med["share_of_bound"] = med["bound_ms"] / med["ms"]
         med["ms_over_library"] = med["ms"] / med["library_ms"]
         out[kn] = med
+    out["b2"]["gather_floor_ms"] = out["b"]["gather_floor_ms"]
+    for kn in ("b", "b2"):
+        out[kn]["ms_over_gather_floor"] = out[kn]["ms"] / out[kn]["gather_floor_ms"]
     before = dict(sk.LAUNCHES)
     _, prof = profile_call(lambda: [kernels["pass"]["ms"](c, u) for c, u in zip(cs, us)])
     out["pass"]["wrapper_launches_per_call"] = {
@@ -773,7 +838,7 @@ def time_sparse(sk, loss, x, y, o=None, reps=SPARSE_REPS) -> dict:
     out["pass"]["launches_per_call"] = prof["device_launches"] / batch
     out["pass"]["kernels_per_call"] = {k: v["launches"] / batch
                                        for k, v in prof["kernels"].items()}
-    del x_csr, xt_csr
+    del x_csr, xt_csr, xt2_csr
     return out
 
 
@@ -987,7 +1052,8 @@ def sparse_kernel_entry(name: str, part: str, c6: dict, c7: dict) -> dict:
                for path, c in (("config6", c6), ("yahoo_glmix", c7))}
     t6, t7 = c6["timing"][part], c7["timing"][part]
     pick = lambda t: {k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                                        "share_of_bound", "ms_over_library")}
+                                        "share_of_bound", "ms_over_library",
+                                        "gather_floor_ms") if k in t}
     return {
         "name": name, "route": "cuda", "source": "photon_ml_tpu_torch/csrc/ell_sparse.cu",
         "replaces": {"a": "photon_ml_tpu/ops/features.py:237",
@@ -1005,6 +1071,8 @@ def sparse_kernel_entry(name: str, part: str, c6: dict, c7: dict) -> dict:
         "profiled_launches_per_pass": c6["timing"]["pass"]["kernels_per_call"][name],
         "at_config7_shape": {**pick(t7), "shape": c7["timing"]["shape"],
                              "max_abs_err": c7["check"][f"{part}_max_abs_err"]},
+        **({"power2": {"config6": pick(c6["timing"]["b2"]),
+                       "config7": pick(c7["timing"]["b2"])}} if part == "b" else {}),
         "whole_pass": {"config6": pick(c6["timing"]["pass"]),
                        "config7": pick(c7["timing"]["pass"])},
     }

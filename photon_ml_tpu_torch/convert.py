@@ -42,12 +42,15 @@ def normalization_from_numpy(factors, shifts, intercept_index: Optional[int],
 def padded_sparse_from_numpy(indices, values, num_cols: int, csc_row=None,
                              csc_val=None, csc_end=None, device=None):
     """A PaddedSparse from a JAX PaddedSparse's arrays, layout unchanged
-    (ELL slots, padding and column view as they are)."""
+    (ELL slots, padding and column view as they are), with kernel B's tile
+    map of the view."""
     from photon_ml_tpu_torch.ops.features import PaddedSparse
+    from photon_ml_tpu_torch.ops.sparse_kernels import tile_map
     dev = resolve_device(device)
+    tiles = None if csc_end is None else tile_map(np.asarray(csc_end))
     return PaddedSparse(_tensor(indices, dev), _tensor(values, dev), int(num_cols),
                         _tensor(csc_row, dev), _tensor(csc_val, dev),
-                        _tensor(csc_end, dev))
+                        _tensor(csc_end, dev), _tensor(tiles, dev))
 
 
 def game_model_from_numpy(task_type: str, coordinates: Dict[str, dict],

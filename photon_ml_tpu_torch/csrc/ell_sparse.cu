@@ -35,28 +35,48 @@
 //     partial, takes a ticket, and the last block sums the partials in
 //     block order and resets the ticket (as fused_value_and_gradient.cu
 //     does), so the result is bit-stable for a given plan.
-//   - B: the column-sorted stream is cut into tiles of kTile = 2048
-//     nonzeros, one block per tile.  The block stages val^POW * u[row] for
-//     its tile in shared memory with coalesced loads, then its warps sum
-//     the columns that meet the tile from shared memory, one warp per
-//     column portion.  So no column is summed by one warp across the whole
-//     stream: the intercept column (every row: 200,000 entries at config 6
-//     against a mean of ~51) is split across ~98 tiles that run in
-//     parallel.  A tile owns the columns that START in it; a column that
-//     ends in the tile where it starts is written there.  The one owned
-//     column that runs past the tile's end writes its portion to
-//     first[tile]; a tile's leading portion of a column begun earlier goes
-//     to cont[tile].  The last block to finish (by ticket) adds, for each
-//     such column, first[tile] and the cont[] of the tiles it runs through,
-//     in tile order.  No atomics touch g, and every sum has a fixed order:
-//     results are bit-stable.  Empty columns are owned by the tile their
-//     position falls in, and get 0.
+//   - B (redesigned for Hopper): the column-sorted stream is cut into
+//     tiles of kTile = kThreads * kRun = 2048 nonzeros, one block per
+//     tile, and each thread takes a contiguous run of kRun = 8 of them.
+//     * Its columns come from a tile map made once per column view on the
+//       host (tile_col[t] = the first column whose segment reaches into
+//       tile t; tile_col[tiles] = d): no search over end[] on the card.
+//       The block stages the column ends it needs in shared memory, in
+//       chunks of kChunk, in the same pass that loads the stream; a tile
+//       that meets more columns (empty ones, in the main) takes several
+//       chunks inside the one launch.
+//     * A thread loads its run with 16-byte loads (int4 rows, float4
+//       values: tile starts are multiples of kTile, so a 16-byte aligned
+//       view stays aligned; the wrapper refuses any other) and issues all
+//       kRun gathers of u before it uses one.  Products are rounded as the
+//       plain version rounds them (__fmul_rn, never contracted).
+//     * Columns reduce by a segmented reduction over the runs, the
+//       merge-based load balancing of Merrill & Garland (SC'16): a thread
+//       sums its run, splitting it at the column ends in shared memory; a
+//       column that lies inside one run is written by its thread; the
+//       partials of columns that cross runs meet in a block-wide
+//       segmented scan with head flags (warp shuffles, then the warps in
+//       order).  So no warp waits on one long column and no column waits
+//       on a global load of end[].
+//     * A tile owns the columns that START in it (empty ones get 0).  The
+//       one owned column that runs past the tile's end leaves its portion
+//       in first[tile] (and its id in span_col[tile]); the tile's portion
+//       of a column begun earlier goes to cont[tile] (0 when there is
+//       none).  The last block to finish (by ticket) completes the
+//       spanning columns: the tiles' (cont, first) pairs in tile order are
+//       one more segmented scan, with a head at each span_col >= 0, over
+//       all its threads.  The intercept column of config 6 (98 tiles) so
+//       sums as a tree across threads.
+//     No atomics touch g and every sum has a fixed order for a given
+//     plan: results are bit-stable.
 //   - f32 inputs, f32 accumulation.  Indices are int32 (the wrapper checks
 //     n*k < 2^31 and nnz < 2^31).  Weights default to 1 and offsets to 0
 //     (null pointers).
 // The grid of A and the tiles of B come from the pure Python functions
 // photon_ml_tpu_torch/ops/sparse_kernels.py::plan_margins and
-// ::plan_columns, which the CPU tests replay.
+// ::plan_columns (with B's tile map, ::tile_map), which the CPU tests
+// replay; B's entry refuses a plan whose shared-memory size differs from
+// sizeof(ColumnSmem) below.
 //
 // Plain C interface, bound with ctypes.  Build (sm_90a):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
@@ -68,7 +88,10 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 2048;  // stream elements per block of kernel B
+constexpr int kRun = 8;                  // kernel B: stream elements per thread
+constexpr int kTile = kThreads * kRun;   // kernel B: stream elements per block
+constexpr int kChunk = 1024;             // kernel B: column ends staged at a time
+constexpr int kFinishRun = 8;            // kernel B's finish: tiles per thread per round
 constexpr int kMargins = -1;  // kernel A without a loss
 
 enum Loss : int { kLogistic = 0, kSquared = 1, kPoisson = 2, kSmoothedHinge = 3 };
@@ -219,95 +242,245 @@ cudaError_t launch_a(const MarginArgs& a, int grid, cudaStream_t s) {
 // ---------------------------------------------------------------- kernel B
 
 struct ColumnArgs {
-  const int* row;    // [nnz] row ids, column-sorted
-  const float* val;  // [nnz]
-  const int* end;    // [d + 1]: column j is [end[j], end[j+1])
-  const float* u;    // [n]
-  float* g;          // [d]
-  float* first;      // [tiles]: portion of the owned column that runs on
-  float* cont;       // [tiles]: portion of the column begun in an earlier tile
-  int* span_col;     // [tiles]: the owned column that runs on, or -1
+  const int* row;       // [nnz] row ids, column-sorted (16-byte aligned)
+  const float* val;     // [nnz] (16-byte aligned)
+  const int* end;       // [d + 1]: column j is [end[j], end[j+1])
+  const int* tile_col;  // [tiles + 1]: the first column reaching into tile t; d
+  const float* u;       // [n]
+  float* g;             // [d]
+  float* first;         // [tiles]: portion of the owned column that runs on
+  float* cont;          // [tiles]: portion of the column begun in an earlier tile, or 0
+  int* span_col;        // [tiles]: the owned column that runs on, or -1
   unsigned int* ticket;
   int64_t nnz;
   int d, tiles;
 };
 
-// the first j in [0, d) with end[j] >= p, or d
-__device__ int lower_bound(const int* end, int d, int64_t p) {
-  int lo = 0, hi = d;
+// Kernel B's shared memory (sparse_kernels.plan_columns reproduces its
+// size; the entry point refuses a plan that does not).
+struct ColumnSmem {
+  int ends[kChunk];      // a chunk of column ends, relative to the tile's start
+  float scan_v[kWarps];  // each warp's total in a segmented scan
+  int scan_c[kWarps];
+  int is_last;
+};
+
+// An element of a segmented scan: a partial sum v, and c >= 0 when a
+// segment starts inside the element (c is then that segment's column,
+// where the caller needs one).
+struct Seg {
+  float v;
+  int c;
+};
+
+// a, then b in stream order
+__device__ __forceinline__ Seg seg_op(const Seg a, const Seg b) {
+  return b.c >= 0 ? b : Seg{a.v + b.v, a.c};
+}
+
+// The block's exclusive segmented scan of s in thread order, after
+// `carry`: shuffles within each warp, then the warps in order.  *total
+// (if given) gets carry then every thread's s, with the same bits on
+// every thread.  Every thread of the block must call it.
+__device__ __forceinline__ Seg block_seg_scan(Seg s, const Seg carry, ColumnSmem& sm,
+                                              Seg* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const Seg y{__shfl_up_sync(0xffffffffu, s.v, off), __shfl_up_sync(0xffffffffu, s.c, off)};
+    if (lane >= off) s = seg_op(y, s);
+  }
+  const Seg ex{__shfl_up_sync(0xffffffffu, s.v, 1), __shfl_up_sync(0xffffffffu, s.c, 1)};
+  __syncthreads();  // the scan area may still be read by an earlier call
+  if (lane == 31) {
+    sm.scan_v[warp] = s.v;
+    sm.scan_c[warp] = s.c;
+  }
+  __syncthreads();
+  Seg pre = carry;
+  for (int w = 0; w < warp; ++w) pre = seg_op(pre, Seg{sm.scan_v[w], sm.scan_c[w]});
+  if (total != nullptr) {
+    Seg all = pre;
+    for (int w = warp; w < kWarps; ++w) all = seg_op(all, Seg{sm.scan_v[w], sm.scan_c[w]});
+    *total = all;
+  }
+  return lane == 0 ? pre : seg_op(pre, ex);
+}
+
+// how many of s[0, len) are <= x (s non-decreasing)
+__device__ __forceinline__ int count_le(const int* s, int len, int x) {
+  int lo = 0, hi = len;
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
-    if ((int64_t)end[mid] < p) lo = mid + 1;
+    if (s[mid] <= x) lo = mid + 1;
     else hi = mid;
   }
   return lo;
 }
 
+// val^POW * u, each product rounded as the plain version rounds it
+template <int POW>
+__device__ __forceinline__ float term(float v, float uu) {
+  return __fmul_rn(POW == 2 ? __fmul_rn(v, v) : v, uu);
+}
+
+// The last block: the spanning columns.  Tile q contributes cont[q] to the
+// column open at its start, then, when span_col[q] >= 0, opens column
+// span_col[q] with first[q].  In tile order these form one segmented
+// stream; each thread takes kFinishRun tiles per round, writes the
+// columns that open and close inside its tiles, and the block's segmented
+// scan carries the rest, so the intercept sums as a tree across threads.
+__device__ void finish_spans(const ColumnArgs& a, ColumnSmem& sm) {
+  const int t = threadIdx.x;
+  Seg carry{0.0f, -1};
+  for (int base = 0; base < a.tiles; base += kThreads * kFinishRun) {
+    const int q0 = base + t * kFinishRun;
+    float cv[kFinishRun], fv[kFinishRun];
+    int sc[kFinishRun];
+#pragma unroll
+    for (int i = 0; i < kFinishRun; ++i) {
+      const bool in = q0 + i < a.tiles;
+      cv[i] = in ? __ldcg(a.cont + q0 + i) : 0.0f;
+      sc[i] = in ? __ldcg(a.span_col + q0 + i) : -1;
+      fv[i] = in ? __ldcg(a.first + q0 + i) : 0.0f;
+    }
+    float acc = 0.0f, head = 0.0f;
+    int col = -1;
+#pragma unroll
+    for (int i = 0; i < kFinishRun; ++i) {
+      acc += cv[i];
+      if (sc[i] >= 0) {
+        if (col < 0) head = acc;  // closes the column open before this thread
+        else a.g[col] = acc;
+        acc = fv[i];
+        col = sc[i];
+      }
+    }
+    Seg total;
+    const Seg ex = block_seg_scan(Seg{acc, col}, carry, sm, &total);
+    if (col >= 0 && ex.c >= 0) a.g[ex.c] = ex.v + head;
+    carry = total;
+  }
+  if (t == 0) {
+    if (carry.c >= 0) a.g[carry.c] = carry.v;
+    *a.ticket = 0u;  // ready for the next call on this stream
+  }
+}
+
 template <int POW>
 __global__ void __launch_bounds__(kThreads) csc_column_sum(const ColumnArgs a) {
-  __shared__ float prod[kTile];
-  __shared__ int cols[2];
-  __shared__ bool is_last;
+  __shared__ ColumnSmem sm;
   const int t = threadIdx.x;
-  const int lane = t & 31, warp = t >> 5;
   const int tile = blockIdx.x;
   const int64_t lo = (int64_t)tile * kTile;
-  const int64_t hi = lo + kTile < a.nnz ? lo + kTile : a.nnz;
-  const int len = (int)(hi - lo);
-  for (int e = t; e < len; e += kThreads) {
-    const float v = a.val[lo + e];
-    prod[e] = (POW == 2 ? v * v : v) * __ldg(a.u + a.row[lo + e]);
+  const int len = (int)((lo + kTile < a.nnz ? lo + kTile : a.nnz) - lo);
+  // this thread's run: tile positions [r0, r0 + mine)
+  const int r0 = t * kRun;
+  const int mine = len - r0 >= kRun ? kRun : (len > r0 ? len - r0 : 0);
+  // columns [j0, j1) start in this tile (in the last tile, also those
+  // that start at nnz); column j0 - 1 may reach into it from before
+  const int j0 = __ldg(a.tile_col + tile), j1 = __ldg(a.tile_col + tile + 1);
+
+  // the run's loads and all its gathers, in flight together
+  int r[kRun];
+  float v[kRun], uu[kRun];
+  if (mine == kRun) {
+    const int4* rp = reinterpret_cast<const int4*>(a.row + lo + r0);
+    const float4* vp = reinterpret_cast<const float4*>(a.val + lo + r0);
+#pragma unroll
+    for (int q = 0; q < kRun / 4; ++q) {
+      const int4 rq = __ldcs(rp + q);
+      const float4 vq = __ldcs(vp + q);
+      r[4 * q] = rq.x; r[4 * q + 1] = rq.y; r[4 * q + 2] = rq.z; r[4 * q + 3] = rq.w;
+      v[4 * q] = vq.x; v[4 * q + 1] = vq.y; v[4 * q + 2] = vq.z; v[4 * q + 3] = vq.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kRun; ++i) {
+      r[i] = i < mine ? __ldcs(a.row + lo + r0 + i) : 0;
+      v[i] = i < mine ? __ldcs(a.val + lo + r0 + i) : 0.0f;
+    }
   }
-  // owned columns [j0, j1): those whose start falls in [lo, hi), and in
-  // the last tile also those that start at nnz (empty trailing columns)
-  if (t == 0) {
-    cols[0] = lower_bound(a.end, a.d, lo);
-    a.span_col[tile] = -1;
-  }
-  if (t == 32) cols[1] = tile == a.tiles - 1 ? a.d : lower_bound(a.end, a.d, hi);
-  __syncthreads();
-  const int j0 = cols[0], j1 = cols[1];
-  // column j0 - 1 began before this tile and reaches into it
-  const int has_cont = (j0 > 0 && (int64_t)a.end[j0] > lo) ? 1 : 0;
-  const int items = j1 - j0 + has_cont;
-  for (int it = warp; it < items; it += kWarps) {
-    const int j = j0 + it - has_cont;
-    const int64_t s = (has_cont && it == 0) ? lo : (int64_t)a.end[j];
-    const int64_t stop = (int64_t)a.end[j + 1];
-    const int64_t e = stop < hi ? stop : hi;
-    float sum = 0.0f;
-    for (int64_t p = s + lane; p < e; p += 32) sum += prod[p - lo];
-    sum = warp_sum(sum);
-    if (lane == 0) {
-      if (has_cont && it == 0) {
-        a.cont[tile] = sum;
-      } else if (stop > hi) {
-        a.first[tile] = sum;
-        a.span_col[tile] = j;
-      } else {
-        a.g[j] = sum;
+#pragma unroll
+  for (int i = 0; i < kRun; ++i) uu[i] = i < mine ? __ldg(a.u + r[i]) : 0.0f;
+
+  // chunks of kChunk - 1 owned columns, each with the kChunk ends that
+  // bound them; chunk 0 also holds column j0 - 1's end
+  const int chunks = j1 > j0 ? (j1 - j0 + kChunk - 2) / (kChunk - 1) : 1;
+  float x[kRun];
+  for (int k = 0; k < chunks; ++k) {
+    const int cb = j0 + k * (kChunk - 1);
+    const int m = j1 - cb < kChunk - 1 ? j1 - cb : kChunk - 1;
+    for (int i = t; i <= m; i += kThreads) sm.ends[i] = (int)(__ldg(a.end + cb + i) - lo);
+    __syncthreads();
+    if (k == 0) {
+#pragma unroll
+      for (int i = 0; i < kRun; ++i) x[i] = term<POW>(v[i], uu[i]);
+      if (t == 0 && sm.ends[0] <= 0) a.cont[tile] = 0.0f;  // nothing reaches in
+    }
+    if (k == chunks - 1 && t == 0)
+      a.span_col[tile] = sm.ends[m] > len && j1 > j0 ? j1 - 1 : -1;
+    for (int i = t; i < m; i += kThreads)
+      if (sm.ends[i] == sm.ends[i + 1]) a.g[cb + i] = 0.0f;  // empty column
+
+    // this run's part of the chunk's stream positions [p0, p1)
+    const int p0 = k == 0 ? 0 : sm.ends[0];
+    const int p1 = sm.ends[m] < len ? sm.ends[m] : len;
+    const int b0 = r0 > p0 ? r0 : p0;
+    const int b1 = r0 + mine < p1 ? r0 + mine : p1;
+    float acc = 0.0f, head = 0.0f;
+    int head_col = -1;  // the first column that ends in this run
+    int cur = -1;       // the column of the current position
+    bool open = false;  // acc holds a part of column cur not yet handed on
+    if (b0 < b1) {
+      cur = cb - 1 + count_le(sm.ends, m + 1, b0);
+      int stop = sm.ends[cur + 1 - cb];
+#pragma unroll
+      for (int i = 0; i < kRun; ++i) {
+        const int p = r0 + i;
+        if (p >= b0 && p < b1) {
+          acc += x[i];
+          open = true;
+          if (p + 1 == stop) {  // column cur ends here
+            if (head_col < 0) {
+              head = acc;
+              head_col = cur;
+            } else {
+              a.g[cur] = acc;  // it lies inside this run
+            }
+            acc = 0.0f;
+            open = false;
+            if (p + 1 < b1) {  // the next non-empty column
+              cur = sm.ends[cur + 2 - cb] > p + 1
+                        ? cur + 1 : cb - 1 + count_le(sm.ends, m + 1, p + 1);
+              stop = sm.ends[cur + 1 - cb];
+            }
+          }
+        }
       }
+    }
+    const Seg ex = block_seg_scan(Seg{acc, head_col >= 0 ? 0 : -1}, Seg{0.0f, -1}, sm,
+                                  nullptr);
+    if (head_col >= 0) {
+      const float total = ex.v + head;
+      if (head_col < j0) a.cont[tile] = total;
+      else a.g[head_col] = total;
+    }
+    if (open && b1 == len) {  // the column that runs past the tile's end
+      const float total = head_col >= 0 ? acc : ex.v + acc;
+      if (cur < j0) a.cont[tile] = total;
+      else a.first[tile] = total;
     }
   }
 
-  // the last block to finish completes the columns that span tiles, each
-  // in tile order
+  // the last block to finish completes the columns that span tiles
   __threadfence();
   __syncthreads();
-  if (t == 0) is_last = atomicAdd(a.ticket, 1u) == gridDim.x - 1;
+  if (t == 0) sm.is_last = atomicAdd(a.ticket, 1u) == gridDim.x - 1;
   __syncthreads();
-  if (!is_last) return;
+  if (!sm.is_last) return;
   __threadfence();
-  for (int q = t; q < a.tiles; q += kThreads) {
-    const int j = __ldcg(a.span_col + q);
-    if (j < 0) continue;
-    float sum = __ldcg(a.first + q);
-    const int last = (int)(((int64_t)a.end[j + 1] - 1) / kTile);
-    for (int r = q + 1; r <= last; ++r) sum += __ldcg(a.cont + r);
-    a.g[j] = sum;
-  }
-  __syncthreads();
-  if (t == 0) *a.ticket = 0u;  // ready for the next call on this stream
+  finish_spans(a, sm);
 }
 
 template <int POW>
@@ -354,21 +527,29 @@ int pmt_ell_margin_loss(int loss, const void* idx, const void* val, const void* 
   }
 }
 
-// Kernel B on `stream`.  power 1 or 2; g: [d]; first, cont: [tiles] float
-// scratch; span_col: [tiles] int scratch; ticket: one zeroed uint32 that
-// every launch leaves zeroed.  tiles must be max(1, ceil(nnz / 2048))
+// Kernel B on `stream`.  power 1 or 2; row and val 16-byte aligned;
+// tile_col: [tiles + 1], sparse_kernels.tile_map of end; g: [d]; first,
+// cont: [tiles] float scratch; span_col: [tiles] int scratch; ticket: one
+// zeroed uint32 that every launch leaves zeroed.  tiles must be
+// max(1, ceil(nnz / kTile)) and smem_bytes sizeof(ColumnSmem)
 // (sparse_kernels.plan_columns).
 int pmt_csc_column_sum(int power, const void* row, const void* val, const void* end,
-                       const void* u, void* g, void* first, void* cont, void* span_col,
-                       void* ticket, long long nnz, int d, int tiles, void* stream) {
+                       const void* tile_col, const void* u, void* g, void* first,
+                       void* cont, void* span_col, void* ticket, long long nnz, int d,
+                       int tiles, int smem_bytes, void* stream) {
   const long long want = nnz > 0 ? (nnz + kTile - 1) / kTile : 1;
-  if (nnz < 0 || d < 1 || tiles != want || (power != 1 && power != 2))
+  const uintptr_t misaligned =
+      (reinterpret_cast<uintptr_t>(row) | reinterpret_cast<uintptr_t>(val)) & 15u;
+  if (nnz < 0 || d < 1 || tiles != want || (power != 1 && power != 2) ||
+      tile_col == nullptr || smem_bytes != static_cast<int>(sizeof(ColumnSmem)) ||
+      (nnz > 0 && misaligned != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   const ColumnArgs a{static_cast<const int*>(row), static_cast<const float*>(val),
-                     static_cast<const int*>(end), static_cast<const float*>(u),
-                     static_cast<float*>(g), static_cast<float*>(first),
-                     static_cast<float*>(cont), static_cast<int*>(span_col),
-                     static_cast<unsigned int*>(ticket), nnz, d, tiles};
+                     static_cast<const int*>(end), static_cast<const int*>(tile_col),
+                     static_cast<const float*>(u), static_cast<float*>(g),
+                     static_cast<float*>(first), static_cast<float*>(cont),
+                     static_cast<int*>(span_col), static_cast<unsigned int*>(ticket), nnz,
+                     d, tiles};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(power == 1 ? launch_b<1>(a, s) : launch_b<2>(a, s));
 }

@@ -45,7 +45,9 @@ class PaddedSparse:
     are `csc_val[csc_end[j]:csc_end[j + 1]]` at rows `csc_row[...]`.
     Built by `with_csc()` (from the ELL arrays, padding slots included in
     column 0's segment) or `from_scipy(..., with_csc=True)` (scipy's exact
-    CSC, no padding)."""
+    CSC, no padding).  Both also build `csc_tiles`, kernel B's tile map
+    of the view (sparse_kernels.tile_map; the JAX package has no such
+    field), once per view; `to` and `pad_rows` carry it."""
 
     indices: torch.Tensor                    # [n, k] int32, padding = 0
     values: torch.Tensor                     # [n, k], padding = 0.0
@@ -53,6 +55,7 @@ class PaddedSparse:
     csc_row: Optional[torch.Tensor] = None   # [nnz] int32, column-sorted
     csc_val: Optional[torch.Tensor] = None   # [nnz], same order
     csc_end: Optional[torch.Tensor] = None   # [d + 1] int32
+    csc_tiles: Optional[torch.Tensor] = None  # [tiles + 1] int32: kernel B's tile map
 
     @property
     def has_csc(self) -> bool:
@@ -84,7 +87,7 @@ class PaddedSparse:
         vals = lambda a: None if a is None else a.to(device=device, dtype=dtype)
         return PaddedSparse(ints(self.indices), vals(self.values), self.num_cols,
                             ints(self.csc_row), vals(self.csc_val),
-                            ints(self.csc_end))
+                            ints(self.csc_end), ints(self.csc_tiles))
 
     def with_csc(self) -> "PaddedSparse":
         """Attach the column-sorted view, built on the host from the ELL
@@ -105,7 +108,8 @@ class PaddedSparse:
             self.indices, self.values, self.num_cols,
             csc_row=torch.from_numpy(rows[order]).to(dev),
             csc_val=val.reshape(-1)[torch.from_numpy(order)].to(dev),
-            csc_end=torch.from_numpy(end).to(dev))
+            csc_end=torch.from_numpy(end).to(dev),
+            csc_tiles=torch.from_numpy(sk.tile_map(end)).to(dev))
 
     def without_csc(self) -> "PaddedSparse":
         return (PaddedSparse(self.indices, self.values, self.num_cols)
@@ -155,6 +159,7 @@ class PaddedSparse:
             out.csc_row = torch.from_numpy(csc.indices.astype(np.int32)).to(dev)
             out.csc_val = torch.from_numpy(csc.data.astype(values.dtype)).to(dev)
             out.csc_end = torch.from_numpy(csc.indptr.astype(np.int32)).to(dev)
+            out.csc_tiles = torch.from_numpy(sk.tile_map(csc.indptr)).to(dev)
         return out
 
 
@@ -247,7 +252,7 @@ def rmatvec(x: FeatureMatrix, u: torch.Tensor) -> torch.Tensor:
     """X^T @ u -> [d].  The gradient-assembly product."""
     if isinstance(x, PaddedSparse):
         if x.has_csc:
-            return sk.csc_column_sum(x.csc_row, x.csc_val, x.csc_end, u, 1)
+            return sk.csc_column_sum(x.csc_row, x.csc_val, x.csc_end, u, 1, x.csc_tiles)
         return _scatter(x, u, 1)
     return torch.mv(_dense(x).T, u)
 
@@ -256,7 +261,7 @@ def sq_rmatvec(x: FeatureMatrix, u: torch.Tensor) -> torch.Tensor:
     """(X*X)^T @ u -> [d], for the Hessian diagonal."""
     if isinstance(x, PaddedSparse):
         if x.has_csc:
-            return sk.csc_column_sum(x.csc_row, x.csc_val, x.csc_end, u, 2)
+            return sk.csc_column_sum(x.csc_row, x.csc_val, x.csc_end, u, 2, x.csc_tiles)
         return _scatter(x, u, 2)
     x = _dense(x)
     return torch.mv((x * x).T, u)
@@ -271,7 +276,7 @@ def pad_rows(x: FeatureMatrix, rem: int) -> FeatureMatrix:
         # the column view is untouched: appended rows carry no nonzeros
         # and existing row ids stay valid against the grown u
         return PaddedSparse(zpad(x.indices), zpad(x.values), x.num_cols,
-                            x.csc_row, x.csc_val, x.csc_end)
+                            x.csc_row, x.csc_val, x.csc_end, x.csc_tiles)
     return zpad(_dense(x))
 
 

@@ -9,7 +9,12 @@ by ops/_build.py) compute its products on the card:
   u = w * l'(z, y) and the value sum_i w_i l(z_i, y_i).  `ell_margins`
   is its margins-only mode (matvec).
 - B, `csc_column_sum`: X^T u (power 1) or (X*X)^T u (power 2), summed per
-  column over the column-sorted stream.
+  column over the column-sorted stream: tiles of TILE nonzeros, a run of
+  RUN per thread, a segmented reduction by column inside the tile, and
+  the columns that span tiles finished by the last block.  Its columns
+  come from a tile map (`tile_map`) made once per column view: a
+  `PaddedSparse` carries it, and a direct call without one gets it from a
+  cache keyed on the `end` tensor.
 
 A value+gradient pass is A then B: two launches.  They replace what the
 JAX package computes in XLA, outside Pallas: photon_ml_tpu/ops/
@@ -18,8 +23,8 @@ features.py:237-350 (`matvec`, `rmatvec`, `sq_rmatvec` on a PaddedSparse).
 On a CUDA tensor each wrapper checks its operands (dtype, device, shape,
 contiguity; a bad operand raises, nothing is copied) and launches its
 kernel, or raises; on a CPU tensor it runs the plain version.  Importing
-this module builds nothing.  `plan_margins` and `plan_columns` are pure
-arithmetic, so the CPU tests replay them.
+this module builds nothing.  `plan_margins`, `plan_columns` and
+`tile_map` are pure arithmetic, so the CPU tests replay them.
 
 `LAUNCHES` counts the wrappers' launches by kind: "margin_loss" and
 "margins" (kernel A), "column_sum" and "sq_column_sum" (kernel B).
@@ -27,9 +32,11 @@ arithmetic, so the CPU tests replay them.
 from __future__ import annotations
 
 import functools
+import weakref
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from photon_ml_tpu_torch.ops.losses import PointwiseLoss
@@ -37,10 +44,15 @@ from photon_ml_tpu_torch.ops.losses import PointwiseLoss
 LAUNCHES: Dict[str, int] = {"margin_loss": 0, "margins": 0,
                             "column_sum": 0, "sq_column_sum": 0}
 
-# Must match the CUDA source.
+# Must match the CUDA source (kThreads, kRun, kChunk, kFinishRun; B's entry
+# checks TILE through `tiles` and the shared-memory size through the plan).
 THREADS = 256
+WARPS = THREADS // 32
 BLOCKS_PER_SM = 8     # kernel A's grid: at most this many blocks per SM
-TILE = 2048           # kernel B: column-sorted stream elements per block
+RUN = 8               # kernel B: consecutive stream elements per thread
+TILE = THREADS * RUN  # kernel B: column-sorted stream elements per block
+CHUNK = 1024          # kernel B: column ends staged in shared memory at a time
+FINISH_RUN = 8        # kernel B's last block: tiles per thread per round
 _INT32_MAX = 2 ** 31 - 1
 _BF16 = ("bf16 sparse values are not ported yet (ROADMAP.md queue A item 25); "
          "the sparse kernels take float32")
@@ -75,15 +87,57 @@ def plan_margins(n: int, k: int, sm_count: int) -> MarginPlan:
 @dataclass(frozen=True)
 class ColumnPlan:
     """One launch of kernel B: `tiles` blocks, block t summing stream
-    elements [t * tile, (t + 1) * tile)."""
+    elements [t * tile, (t + 1) * tile), thread i of it the `run`
+    elements from t * tile + i * run, with `smem_bytes` of static shared
+    memory (the CUDA source's sizeof(ColumnSmem): CHUNK staged column
+    ends, each warp's scan total and column, the last-block flag)."""
     tile: int
     tiles: int
+    run: int
+    smem_bytes: int
 
 
 def plan_columns(nnz: int) -> ColumnPlan:
     if nnz < 0:
         raise ValueError(f"bad plan request nnz={nnz}")
-    return ColumnPlan(TILE, max(1, -(-nnz // TILE)))
+    return ColumnPlan(TILE, max(1, -(-nnz // TILE)), RUN, 4 * (CHUNK + 2 * WARPS + 1))
+
+
+def tile_map(end: np.ndarray) -> np.ndarray:
+    """Kernel B's tile map of a column view: int32 [tiles + 1], entry t the
+    first column whose segment reaches into tile t (the lower bound of
+    t * TILE in end[:d]), the last entry d.  Made on the host, once per
+    view, so the kernel searches nothing."""
+    end = np.asarray(end)
+    d = end.shape[0] - 1
+    if d < 1 or end[0] != 0 or np.any(np.diff(end) < 0):
+        raise ValueError("a column view's end must start at 0, not decrease, "
+                         "and have d + 1 >= 2 entries")
+    tiles = plan_columns(int(end[-1])).tiles
+    out = np.empty(tiles + 1, np.int32)
+    out[:tiles] = np.searchsorted(end[:d], np.arange(tiles, dtype=np.int64) * TILE)
+    out[tiles] = d
+    return out
+
+
+# id(end) -> (weak reference to end, its _version, its tile map on its device)
+_TILE_MAPS: Dict[int, Tuple[weakref.ref, int, torch.Tensor]] = {}
+_TILE_MAPS_KEPT = 32
+
+
+def cached_tile_map(end: torch.Tensor) -> torch.Tensor:
+    """The tile map of `end`, made at the first call for this tensor (and
+    again after it is written in place), then cached: for a direct call
+    of csc_column_sum without a map."""
+    hit = _TILE_MAPS.get(id(end))
+    if (hit is not None and hit[0]() is end and hit[1] == end._version
+            and hit[2].device == end.device):
+        return hit[2]
+    tiles = torch.from_numpy(tile_map(end.cpu().numpy())).to(end.device)
+    if len(_TILE_MAPS) >= _TILE_MAPS_KEPT:
+        _TILE_MAPS.pop(next(iter(_TILE_MAPS)))
+    _TILE_MAPS[id(end)] = (weakref.ref(end), end._version, tiles)
+    return tiles
 
 
 @functools.lru_cache(maxsize=None)
@@ -254,12 +308,15 @@ def ell_margin_loss(
 
 
 def csc_column_sum(rows: torch.Tensor, vals: torch.Tensor, end: torch.Tensor,
-                   u: torch.Tensor, power: int = 1) -> torch.Tensor:
+                   u: torch.Tensor, power: int = 1,
+                   tiles: Optional[torch.Tensor] = None) -> torch.Tensor:
     """g_j = sum_{p in [end_j, end_{j+1})} vals_p^power u[rows_p] -> [d]:
     X^T u (power 1) or (X*X)^T u (power 2) over the column-sorted stream.
     CPU tensors run the plain version; CUDA tensors launch kernel B
-    (float32 vals and u, int32 rows and end, contiguous, on one device)
-    or raise."""
+    (float32 vals and u, int32 rows and end, contiguous, on one device,
+    rows and vals starting on a 16-byte boundary) or raise.  `tiles` is
+    the view's tile map (`tile_map`); without one it comes from
+    `cached_tile_map(end)`."""
     if power not in (1, 2):
         raise ValueError(f"power must be 1 or 2, got {power}")
     if rows.device.type == "cpu":
@@ -274,16 +331,24 @@ def csc_column_sum(rows: torch.Tensor, vals: torch.Tensor, end: torch.Tensor,
     _check("csc_val", vals, torch.float32, (nnz,), dev)
     _check("csc_end", end, torch.int32, (d + 1,), dev)
     _check("u", u, torch.float32, u.shape, dev)
+    if nnz and (rows.data_ptr() % 16 or vals.data_ptr() % 16):
+        raise ValueError("csc_row and csc_val must start on a 16-byte boundary (kernel B "
+                         "loads them 16 bytes at a time); got a view at byte offsets "
+                         f"{rows.data_ptr() % 16} and {vals.data_ptr() % 16}")
     plan = plan_columns(nnz)
+    if tiles is None:
+        tiles = cached_tile_map(end)
+    _check("tile map", tiles, torch.int32, (plan.tiles + 1,), dev)
     lib = _lib()
     g = torch.empty((d,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         scratch, ints, ticket = _workspace(dev, stream, 2 * plan.tiles, plan.tiles)
         err = lib.pmt_csc_column_sum(
-            power, rows.data_ptr(), vals.data_ptr(), end.data_ptr(), u.data_ptr(),
-            g.data_ptr(), scratch.data_ptr(), scratch[plan.tiles:].data_ptr(),
-            ints.data_ptr(), ticket.data_ptr(), nnz, d, plan.tiles, stream)
+            power, rows.data_ptr(), vals.data_ptr(), end.data_ptr(), tiles.data_ptr(),
+            u.data_ptr(), g.data_ptr(), scratch.data_ptr(),
+            scratch[plan.tiles:].data_ptr(), ints.data_ptr(), ticket.data_ptr(), nnz, d,
+            plan.tiles, plan.smem_bytes, stream)
     _raise_if(err, lib, "csc_column_sum")
     LAUNCHES["column_sum" if power == 1 else "sq_column_sum"] += 1
     return g

@@ -2,7 +2,7 @@
 of photon_ml_tpu/optim/config.py).
 
 LBFGS/OWLQN (with positional box bounds) and TRON.  Named feature
-constraints are not ported yet (ROADMAP.md queue A, item 12); they raise
+constraints are not ported yet (ROADMAP.md queue A item 12); they raise
 NotImplementedError.
 """
 from __future__ import annotations
@@ -93,7 +93,7 @@ class OptimizerConfig:
         if self.constraints is not None:
             raise NotImplementedError(
                 "named feature constraints are not ported yet (ROADMAP.md "
-                "queue A, slice 5: they resolve through index maps); pass "
+                "queue A item 12: they resolve through index maps); pass "
                 "positional box_lower/box_upper")
 
     def resolved(self) -> "OptimizerConfig":

@@ -425,6 +425,102 @@ def test_sparse_pass_is_two_device_launches(cuda):
     assert sum("csc_column_sum" in k for k in names) == 3, names
 
 
+def _stream_of(nnz: int, n: int = 600, d: int = 40, seed: int = 7):
+    """A PaddedSparse on the card whose column view holds exactly `nnz`
+    nonzeros: an all-ones last column (n of them, spanning kernel B's
+    tiles once nnz > 2048) and nnz - n at distinct random cells."""
+    import scipy.sparse as sp
+    from photon_ml_tpu_torch.ops.features import PaddedSparse
+    rng = np.random.default_rng(seed)
+    cells = rng.choice(n * (d - 1), size=nnz - n, replace=False)
+    rows = np.concatenate([cells // (d - 1), np.arange(n)])
+    cols = np.concatenate([cells % (d - 1), np.full(n, d - 1)])
+    vals = np.concatenate([rng.uniform(0.2, 1.0, size=nnz - n), np.ones(n)])
+    x = sp.csr_matrix((vals.astype(np.float32), (rows, cols)), shape=(n, d))
+    return PaddedSparse.from_scipy(x, with_csc=True, device="cuda")
+
+
+@pytest.mark.parametrize("nnz", [2047, 2048, 2049])
+def test_column_sum_at_tile_lengths_matches_plain(cuda, nnz):
+    """Kernel B one short of, exactly and one past a tile of the stream
+    (2049: a ragged last run), powers 1 and 2, within column_sum_tolerance."""
+    from photon_ml_tpu_torch.ops import sparse_kernels as sk
+    x = _stream_of(nnz)
+    assert x.csc_row.numel() == nnz
+    u = torch.linspace(-1.0, 1.0, x.shape[0], device="cuda")
+    for power in (1, 2):
+        g = sk.csc_column_sum(x.csc_row, x.csc_val, x.csc_end, u, power, x.csc_tiles)
+        g_p = sk.csc_column_sum_plain(x.csc_row, x.csc_val, x.csc_end, u, power)
+        tol = sk.column_sum_tolerance(x.csc_row, x.csc_val, x.csc_end, u, power)
+        assert bool(((g.double() - g_p.double()).abs() <= tol + 1e-30).all()), power
+
+
+def test_column_sum_refuses_a_misaligned_view(cuda):
+    """Kernel B loads the stream 16 bytes at a time: a view that starts
+    4 bytes into the arrays raises in the wrapper; nothing is copied."""
+    from photon_ml_tpu_torch.ops import sparse_kernels as sk
+    x = _stream_of(2049)
+    u = torch.ones(x.shape[0], device="cuda")
+    before = dict(sk.LAUNCHES)
+    with pytest.raises(ValueError, match="16-byte"):
+        sk.csc_column_sum(x.csc_row[1:], x.csc_val[1:], x.csc_end, u)
+    assert sk.LAUNCHES == before
+
+
+def test_tile_map_moves_with_the_matrix(cuda):
+    """.to("cuda") carries the host-built tile map; the wrapper takes it,
+    and refuses one of the wrong length."""
+    import scipy.sparse as sp
+    from photon_ml_tpu_torch.ops import features as fops
+    from photon_ml_tpu_torch.ops import sparse_kernels as sk
+    x = sp.random(3000, 500, density=0.02, format="csr", random_state=3, dtype=np.float32)
+    cpu = fops.PaddedSparse.from_scipy(x, with_csc=True, device="cpu")
+    card = cpu.to("cuda")
+    assert card.csc_tiles.device.type == "cuda"
+    assert torch.equal(card.csc_tiles.cpu(), cpu.csc_tiles)
+    u = torch.linspace(-1.0, 1.0, 3000, device="cuda")
+    g = fops.rmatvec(card, u)
+    assert torch.equal(g, sk.csc_column_sum(card.csc_row, card.csc_val, card.csc_end, u))
+    with pytest.raises(ValueError, match="tile map"):
+        sk.csc_column_sum(card.csc_row, card.csc_val, card.csc_end, u, 1,
+                          card.csc_tiles[:-1])
+
+
+_PROFILE_COLUMN_SUM = """
+import json, sys
+sys.path.insert(0, "tests/port")
+import torch
+from torch.profiler import ProfilerActivity, profile
+from photon_ml_tpu_torch.ops import sparse_kernels as sk
+from test_torch_cuda import _sparse_case
+x = _sparse_case("intercept")
+u = torch.linspace(-1.0, 1.0, x.shape[0], device="cuda")
+sk.csc_column_sum(x.csc_row, x.csc_val, x.csc_end, u, 1, x.csc_tiles)  # build, workspace
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    sk.csc_column_sum(x.csc_row, x.csc_val, x.csc_end, u, 1, x.csc_tiles)
+    torch.cuda.synchronize()
+print(json.dumps([e.name for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]))
+"""
+
+
+def test_column_sum_is_one_device_launch(cuda):
+    """One call of kernel B, columns spanning tiles included, is one
+    device launch and nothing else (profiled in a process of its own, as
+    the pass above)."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[2]
+    out = subprocess.run([sys.executable, "-c", _PROFILE_COLUMN_SUM], cwd=root,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    names = json.loads(out.stdout.strip().splitlines()[-1])
+    assert len(names) == 1 and "csc_column_sum" in names[0], names
+
+
 def test_sparse_wrappers_refuse_what_they_do_not_take(cuda):
     from photon_ml_tpu_torch.ops import features as fops
     from photon_ml_tpu_torch.ops import sparse_kernels as sk

@@ -15,9 +15,14 @@ the CPU; the sparse kernels' plain versions and launch plans.
   in-process: these are tiny jitted gathers.
 - The kernels' plain versions equal a dense reference (rtol 1e-12).
 - The kernels' launch plans are pure Python: replayed here at bench
-  configs 6 and 7's shapes, and kernel B's tile decomposition replayed
-  against the plain column sum.
+  configs 6 and 7's shapes, and kernel B's decomposition (tile map, runs
+  split at column ends, in-tile segmented scan, spanning-column finish)
+  replayed against the plain column sum.
+- Kernel B's tile map is built with the column view and carried with it.
 """
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import scipy.sparse as sp
@@ -187,6 +192,12 @@ def test_unported_representations_name_their_roadmap_entry():
                   torch.device("cpu"))
 
 
+def test_named_constraints_name_their_roadmap_entry():
+    from photon_ml_tpu_torch.optim.config import OptimizerConfig
+    with pytest.raises(NotImplementedError, match="queue A item 12"):
+        OptimizerConfig(constraints=({"name": "a", "term": "", "lowerBound": 0.0},))
+
+
 # ------------------------------------------------------------ plain versions
 
 @pytest.mark.parametrize("with_wo", [False, True], ids=["plain", "w+o"])
@@ -257,49 +268,133 @@ def test_plans_cover_the_work_once(name, n, k, nnz):
     assert n * k < 2 ** 31 and nnz < 2 ** 31
 
     cp = sk.plan_columns(nnz)
-    assert cp.tile == sk.TILE and cp.tiles >= 1
+    assert cp.tile == sk.TILE == cp.run * sk.THREADS and cp.tiles >= 1
     assert cp.tiles * cp.tile >= nnz and (nnz == 0 or (cp.tiles - 1) * cp.tile < nnz)
-    assert 4 * sk.TILE + 64 <= 48 * 1024  # the tile's static shared memory
+    assert cp.smem_bytes <= 48 * 1024  # the block's static shared memory
 
 
-def replay_column_sum(end: np.ndarray, contrib: np.ndarray, tile: int) -> np.ndarray:
-    """Kernel B's decomposition in numpy, step for step: each tile sums the
-    columns that start in it (and its portion of a column begun earlier);
-    the last block completes the columns that span tiles, in tile order.
-    Asserts that every stream element is summed once and every column
-    written once."""
+def _tile_map(end: np.ndarray, tile: int) -> np.ndarray:
+    """sk.tile_map for any tile length."""
+    d, tiles = len(end) - 1, max(1, -(-int(end[-1]) // tile))
+    return np.append(np.searchsorted(end[:d], np.arange(tiles) * tile), d)
+
+
+def _seg_scan(segs, carry=(0.0, -1)):
+    """Exclusive segmented scan of (v, c) pairs in order after `carry` (c >=
+    0: a segment starts inside the pair), as block_seg_scan: the prefix of
+    each pair, and the total."""
+    out, acc = [], carry
+    for v, c in segs:
+        out.append(acc)
+        acc = (v, c) if c >= 0 else (acc[0] + v, acc[1])
+    return out, acc
+
+
+def replay_column_sum(end: np.ndarray, contrib: np.ndarray, tile: int, run: int,
+                      chunk: int, finish_run: int = sk.FINISH_RUN) -> np.ndarray:
+    """Kernel B in numpy, step for step as csrc/ell_sparse.cu walks it:
+    tile t's columns from the tile map; its column ends staged `chunk` at a
+    time; thread i's run of `run` elements split at the column ends (a
+    column inside one run written by its thread); the head and tail
+    partials met by a segmented scan in thread order; then the last
+    block's segmented scan over the tiles' (cont, first) pairs, in rounds
+    of `finish_run` tiles per thread.  Asserts that every stream element is
+    summed once, every column written once, and that every tile leaves
+    cont and span_col set."""
     nnz, d = len(contrib), len(end) - 1
+    threads = tile // run
     tiles = max(1, -(-nnz // tile))
-    g = np.full(d, np.nan)
-    first, cont = np.full(tiles, np.nan), np.full(tiles, np.nan)
-    span = np.full(tiles, -1)
+    tcol = _tile_map(end, tile)
+    g, first, cont = np.full(d, np.nan), np.full(tiles, np.nan), np.full(tiles, np.nan)
+    span = np.full(tiles, -99)
     covered, written = np.zeros(nnz, int), np.zeros(d, int)
-    lower = lambda p: int(np.searchsorted(end[:d], p, side="left"))
+
+    def write(j, value):
+        g[j] = value
+        written[j] += 1
+
     for t in range(tiles):
-        lo, hi = t * tile, min(t * tile + tile, nnz)
-        j0 = lower(lo)
-        j1 = d if t == tiles - 1 else lower(hi)
-        has_cont = int(j0 > 0 and end[j0] > lo)
-        for it in range(j1 - j0 + has_cont):
-            j = j0 + it - has_cont
-            s = lo if (has_cont and it == 0) else end[j]
-            stop = end[j + 1]
-            e = min(stop, hi)
-            covered[s:e] += 1
-            total = contrib[s:e].sum()
-            if has_cont and it == 0:
-                cont[t] = total
-            elif stop > hi:
-                first[t], span[t] = total, j
-            else:
-                g[j] = total
-                written[j] += 1
-    for q in range(tiles):
-        j = span[q]
-        if j >= 0:
-            last = (end[j + 1] - 1) // tile
-            g[j] = first[q] + cont[q + 1:last + 1].sum()
-            written[j] += 1
+        lo = t * tile
+        ln = min(tile, nnz - lo)
+        j0, j1 = int(tcol[t]), int(tcol[t + 1])
+        chunks = -(-(j1 - j0) // (chunk - 1)) if j1 > j0 else 1
+        for k in range(chunks):
+            cb = j0 + k * (chunk - 1)
+            m = min(chunk - 1, j1 - cb)
+            ends = np.asarray(end[cb:cb + m + 1], np.int64) - lo   # staged, tile-relative
+            assert len(ends) == m + 1 <= chunk
+            if k == 0 and ends[0] <= 0:
+                cont[t] = 0.0
+            if k == chunks - 1:
+                span[t] = j1 - 1 if ends[m] > ln and j1 > j0 else -1
+            for i in range(m):
+                if ends[i] == ends[i + 1]:
+                    write(cb + i, 0.0)
+            p0 = 0 if k == 0 else int(ends[0])
+            p1 = min(int(ends[m]), ln)
+            state = []
+            for i in range(threads):
+                r0 = i * run
+                mine = min(run, max(0, ln - r0))
+                b0, b1 = max(r0, p0), min(r0 + mine, p1)
+                acc, head, head_col, cur, is_open = 0.0, 0.0, -1, -1, False
+                if b0 < b1:
+                    cur = cb - 1 + int(np.searchsorted(ends, b0, side="right"))
+                    stop = ends[cur + 1 - cb]
+                    for p in range(b0, b1):
+                        acc += contrib[lo + p]
+                        covered[lo + p] += 1
+                        is_open = True
+                        if p + 1 == stop:
+                            if head_col < 0:
+                                head, head_col = acc, cur
+                            else:
+                                assert cur >= j0
+                                write(cur, acc)
+                            acc, is_open = 0.0, False
+                            if p + 1 < b1:
+                                cur = (cur + 1 if ends[cur + 2 - cb] > p + 1 else
+                                       cb - 1 + int(np.searchsorted(ends, p + 1, side="right")))
+                                stop = ends[cur + 1 - cb]
+                state.append((acc, head, head_col, cur, is_open, b1))
+            ex, _ = _seg_scan([(s[0], 0 if s[2] >= 0 else -1) for s in state])
+            for (acc, head, head_col, cur, is_open, b1), (ev, _) in zip(state, ex):
+                if head_col >= 0:
+                    if head_col < j0:
+                        cont[t] = ev + head
+                    else:
+                        write(head_col, ev + head)
+                if is_open and b1 == ln:
+                    total = acc if head_col >= 0 else ev + acc
+                    if cur < j0:
+                        cont[t] = total
+                    else:
+                        assert span[t] == cur
+                        first[t] = total
+    assert not np.isnan(cont).any() and (span >= -1).all()
+
+    carry = (0.0, -1)
+    for base in range(0, tiles, threads * finish_run):
+        segs, heads = [], []
+        for i in range(threads):
+            q0 = base + i * finish_run
+            acc, head, col = 0.0, 0.0, -1
+            for q in range(q0, min(q0 + finish_run, tiles)):
+                acc += cont[q]
+                if span[q] >= 0:
+                    if col < 0:
+                        head = acc
+                    else:
+                        write(col, acc)
+                    acc, col = first[q], int(span[q])
+            segs.append((acc, col))
+            heads.append((col, head))
+        ex, carry = _seg_scan(segs, carry)
+        for (col, head), (ev, ec) in zip(heads, ex):
+            if col >= 0 and ec >= 0:
+                write(ec, ev + head)
+    if carry[1] >= 0:
+        write(carry[1], carry[0])
     assert np.all(covered == 1) and np.all(written == 1)
     return g
 
@@ -321,7 +416,30 @@ def _streams():
     counts = np.array([sk.TILE - 5, 5, sk.TILE, 1, 2 * sk.TILE + 3, 0])
     end = np.concatenate([[0], np.cumsum(counts)])
     out.append(("tile_edges", end, rng.integers(0, 10, size=end[-1])))
+    # a tile that meets more columns than one staged chunk: ~4,000 columns
+    # of 0 or 1 entries in the first tile
+    counts = rng.integers(0, 2, size=3 * sk.CHUNK + 2000)
+    end = np.concatenate([[0], np.cumsum(counts)])
+    out.append(("more_columns_than_chunk", end, rng.integers(0, 40, size=end[-1])))
+    # runs that start and end exactly on column ends: columns of whole runs,
+    # of a run and a half, and of 1 and RUN - 1 entries
+    counts = np.tile([sk.RUN, sk.RUN, 2 * sk.RUN, 3, sk.RUN - 3, sk.RUN + 4, sk.RUN - 4,
+                      1, sk.RUN - 1, 0], 60)
+    end = np.concatenate([[0], np.cumsum(counts)])
+    out.append(("run_edges", end, rng.integers(0, 30, size=end[-1])))
+    # nnz not a multiple of 4: the last tile's last run is ragged
+    counts = rng.integers(1, 40, size=300)
+    counts[-1] += (3 - int(counts.sum())) % 4 + 4
+    end = np.concatenate([[0], np.cumsum(counts)])
+    assert end[-1] % 4 == 3
+    out.append(("ragged_last_tile", end, rng.integers(0, 60, size=end[-1])))
     return out
+
+
+# tile length -> (elements per thread, column ends staged at a time) of the
+# replay: the kernel's own at TILE, small ones to cut tiles into several
+# chunks and threads
+REPLAY_RUNS = {sk.TILE: (sk.RUN, sk.CHUNK), 1: (1, 2), 3: (1, 3), 64: (8, 4)}
 
 
 @pytest.mark.parametrize("tile", [sk.TILE, 1, 3, 64])
@@ -333,7 +451,95 @@ def test_column_sum_tiles_replay_the_plain_sum(name, end, rows, tile):
     contrib = vals * u[rows]
     want = sk.csc_column_sum_plain(torch.from_numpy(rows), torch.from_numpy(vals),
                                    torch.from_numpy(end), torch.from_numpy(u), 1).numpy()
-    got = replay_column_sum(np.asarray(end), contrib, tile)
+    got = replay_column_sum(np.asarray(end), contrib, tile, *REPLAY_RUNS[tile])
     np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12)
     if name == "intercept" and tile == sk.TILE:
         assert np.diff(end)[-1] > 2 * sk.TILE  # the intercept spans tiles
+    if name == "more_columns_than_chunk" and tile == sk.TILE:
+        tiles = sk.tile_map(np.asarray(end))
+        assert tiles[1] - tiles[0] > sk.CHUNK  # tile 0 takes several chunks
+    if tile == sk.TILE and len(rows):
+        np.testing.assert_array_equal(sk.tile_map(np.asarray(end)), _tile_map(end, tile))
+
+
+@pytest.mark.parametrize("nnz", [2047, 2048, 2049])
+def test_column_sum_replay_at_tile_lengths(nnz):
+    """Streams one short of, exactly and one past a tile (the lengths
+    chip_smoke checks on the card), with the intercept spanning both tiles
+    of the last."""
+    rng = np.random.default_rng(nnz)
+    counts = rng.integers(0, 4, size=400)
+    counts[-1] = 0
+    counts[-1] = nnz - counts.sum()
+    assert counts[-1] > sk.RUN
+    end = np.concatenate([[0], np.cumsum(counts)])
+    rows = rng.integers(0, 500, size=nnz)
+    u, vals = rng.normal(size=500), rng.normal(size=nnz)
+    want = sk.csc_column_sum_plain(torch.from_numpy(rows), torch.from_numpy(vals),
+                                   torch.from_numpy(end), torch.from_numpy(u), 2).numpy()
+    got = replay_column_sum(end, vals * vals * u[rows], sk.TILE, sk.RUN, sk.CHUNK)
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12)
+
+
+def _constexpr(name: str) -> int:
+    src = (Path(sk.__file__).resolve().parent.parent / "csrc" / "ell_sparse.cu").read_text()
+    value = re.search(rf"constexpr int {name} = ([^;]+);", src).group(1)
+    return int(eval(value, {"kThreads": sk.THREADS, "kRun": sk.RUN}))
+
+
+def test_column_plan_fits_shared_memory_and_matches_the_source():
+    """Kernel B's constants agree with csrc/ell_sparse.cu, and its static
+    shared memory (the staged ends, each warp's scan total and column, the
+    last-block flag) fits the 48 KB a block gets without opting in, far
+    inside an H100 block's 227 KB."""
+    assert (_constexpr("kThreads"), _constexpr("kRun"), _constexpr("kTile"),
+            _constexpr("kChunk"), _constexpr("kFinishRun")) == (
+        sk.THREADS, sk.RUN, sk.TILE, sk.CHUNK, sk.FINISH_RUN)
+    for nnz in (0, 1, 2047, 2048, 2049, 7_100_000, 12_800_000):
+        plan = sk.plan_columns(nnz)
+        assert (plan.tile, plan.run) == (sk.TILE, sk.RUN)
+        assert plan.smem_bytes == 4 * (sk.CHUNK + 2 * (sk.THREADS // 32) + 1)
+        assert plan.smem_bytes <= 48 * 1024 < 232_448  # an H100 block's 227 KB
+
+
+@pytest.mark.parametrize("route", ["with_csc", "from_scipy", "to", "pad_rows", "convert"])
+def test_tile_map_is_built_with_the_column_view(route):
+    """csc_tiles == the lower bounds of t * TILE in end[:d], then d; made
+    where the view is made, carried by to and pad_rows, dropped with the
+    view."""
+    x = _matrix("stream_65536")
+    csr = sp.csr_matrix(x)
+    if route == "with_csc":
+        t = TF.PaddedSparse.from_dense(x, device="cpu").with_csc()
+    elif route == "from_scipy":
+        t = TF.PaddedSparse.from_scipy(csr, with_csc=True, device="cpu")
+    elif route == "to":
+        t = TF.PaddedSparse.from_scipy(csr, with_csc=True, device="cpu").to("cpu",
+                                                                            torch.float32)
+    elif route == "pad_rows":
+        t = TF.pad_rows(TF.PaddedSparse.from_dense(x, device="cpu").with_csc(), 3)
+    else:
+        _, _, t = _both("stream_65536")
+    end = t.csc_end.numpy()
+    d = len(end) - 1
+    tiles = sk.plan_columns(int(end[-1])).tiles
+    assert tiles > 30
+    want = np.append(np.searchsorted(end[:d], np.arange(tiles) * sk.TILE), d)
+    assert t.csc_tiles.dtype == torch.int32
+    np.testing.assert_array_equal(t.csc_tiles.numpy(), want)
+    assert t.without_csc().csc_tiles is None
+    assert TF.PaddedSparse.from_scipy(csr, device="cpu").csc_tiles is None
+
+
+def test_cached_tile_map_follows_the_end_tensor():
+    """A direct csc_column_sum call without a map takes the cached one:
+    made once per end tensor, made again after the tensor is written in
+    place."""
+    end = torch.tensor([0, 3000, 3000, 5000, 9000], dtype=torch.int32)
+    first = sk.cached_tile_map(end)
+    np.testing.assert_array_equal(first.numpy(), [0, 1, 3, 4, 4, 4])
+    assert sk.cached_tile_map(end) is first
+    end[1] = 1000
+    np.testing.assert_array_equal(sk.cached_tile_map(end).numpy(), [0, 2, 3, 4, 4, 4])
+    with pytest.raises(ValueError, match="not decrease"):
+        sk.tile_map(np.array([0, 5, 4]))
