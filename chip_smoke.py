@@ -80,6 +80,11 @@ Phases, one JSON object per line on stdout:
      a csc_row[1:] view that B's wrapper must refuse; then 3,000 x
      200,000 with k = 1 (B's tiles meet far more columns than one staged
      chunk) and column views of exactly 2,047, 2,048 and 2,049 nonzeros;
+     then kernel A alone on both of its c paths (run_margin_checks): for
+     k in MARGIN_KS, d at the plan's limit for c in shared memory and one
+     column past it, n not a multiple of the tile, every loss and margins
+     mode, weights + offsets null and set, two calls bit for bit; long rows
+     (k = 200 and 1,000) and views 4 k bytes into the arrays (k = 25, 201);
      tolerances: value rtol 1e-5, u rtol/atol 1e-4, margins per row
      2 sqrt(k + 1) eps sum|terms|, column sums per column 2 sqrt(count)
      eps sum|terms| (float32 sums of up to 2 x 10^5 terms);
@@ -91,11 +96,12 @@ Phases, one JSON object per line on stdout:
      float64 objective must be within 1e-5 relative of the scipy optimum
      (the key carries the CSR's fingerprint); a warm solve, one profiled
      solve (A and B once per pass on the device), the kernels against
-     their plain versions at this shape, and sparse_timing: A, B (powers
-     1 and 2) and the whole pass against their plain versions and
-     cuSPARSE SpMV through torch's CSR tensors, B beside its gather floor
-     (torch.index_select of u by csc_row), with bounds from this input's
-     bytes;
+     their plain versions at this shape, and sparse_timing: A (loss and
+     margins modes), B (powers 1 and 2) and the whole pass against their
+     plain versions and cuSPARSE SpMV through torch's CSR tensors, A and B
+     beside their gather floors (torch.index_select of c by the ELL
+     indices, of u by csc_row), A's plan and ptxas line, with bounds from
+     this input's bytes;
  15. yahoo_glmix: bench config 7 (bench.py _yahoo_setup) at full size,
      make_yahoo_like(300,000, seed=23), 95/5 split, a fixed effect on the
      14,983-column sparse shard and per-user and per-item random effects
@@ -159,12 +165,19 @@ YAHOO_REF_KEY = "yahoo:300000:23:yahoo:v=g2"
 YAHOO_ROWS, YAHOO_SEED, YAHOO_OUTER = 300_000, 23, 2
 YAHOO_RTOL = 1e-4
 SPARSE_REPS = 20
+# kernel A's checks on both c paths (run_margin_checks)
+MARGIN_KS = (1, 2, 8, 25, 32, 33, 64, 65)
 SPARSE_DESIGN = {
-    "ell_margin_loss": ("P = min(32, pow2 >= k) threads per row over the row-major ELL "
-                        "arrays, gathers of c from L2, loss on the row's first thread; "
-                        "<= 8 blocks of 256 per SM in rounds; value per block in a fixed "
-                        "order, ticketed last-block sum (one launch; margins mode for "
-                        "matvec)"),
+    "ell_margin_loss": ("where c fits in shared memory beside 2 stages (config 7 FE): "
+                        "persistent grid, one block per SM, c copied in once, tiles of "
+                        "whole rows (R*k contiguous indices and values) through a ring of "
+                        "cp.async.bulk stages (full/empty mbarriers, one producer "
+                        "thread); one row per consumer thread, y/w/o loaded first, 8 "
+                        "gathers in flight into 8 partial sums, slot order staggered by "
+                        "r % k for even k; elsewhere (config 6): P = min(32, pow2 >= k) "
+                        "lanes per row from device memory, c from L2 through L1, no "
+                        "shared memory; value per block in a fixed order, ticketed "
+                        "last-block sum (one launch; margins mode for matvec)"),
     "csc_column_sum": ("column-sorted stream in tiles of 2048, one block per tile, a run "
                        "of 8 per thread (16-byte loads, all 8 gathers of u in flight); "
                        "the tile's columns from a tile map made once per column view, "
@@ -196,6 +209,18 @@ def ptxas_summary(log: str) -> list:
     nvcc's -Xptxas -v report."""
     return re.findall(r"Compiling entry function '(\S+)'.*?(\d+) bytes spill stores.*?"
                       r"Used (\d+) registers.*?(\d+) bytes smem", log, re.S)
+
+
+def margin_ptxas(plan, loss_id: int) -> list:
+    """nvcc's -Xptxas -v line(s) for kernel A's instantiation that `plan`
+    launches for loss `loss_id`: (entry, registers, spill bytes, static
+    smem bytes)."""
+    from photon_ml_tpu_torch.ops import _build
+    log = _build.library_path("ell_sparse").with_suffix(".log").read_text()
+    arg = f"Li{loss_id}E" if loss_id >= 0 else f"Lin{-loss_id}E"
+    want = (f"ell_margin_lossI{arg}E" if plan.c_in_smem
+            else f"ell_margin_loss_lanesI{arg}E")
+    return [e for e in ptxas_summary(log) if want in e[0]]
 
 
 def cuda_ms(fn) -> float:
@@ -751,16 +776,127 @@ def run_sparse_checks(sk, losses, seed=1) -> None:
         raise SystemExit(f"sparse kernels disagree with their plain versions: {failures}")
 
 
+def ell_on_card(n, k, d, seed, skip=0):
+    """float32 ELL arrays made on the card from a seed: <= k nonzeros per
+    row at uniform columns, values in [0.2, 1) (padding: column 0, value
+    0); with skip = s, rows s.. of a contiguous [n + s, k] pair (a view at a
+    byte offset of 4 s k)."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    m = n + skip
+    count = torch.randint(1, k + 1, (m, 1), generator=g, device="cuda")
+    pad = torch.arange(k, device="cuda")[None, :] >= count
+    idx = torch.randint(0, d, (m, k), generator=g, device="cuda", dtype=torch.int32)
+    val = 0.2 + 0.8 * torch.rand((m, k), generator=g, device="cuda")
+    idx[pad], val[pad] = 0, 0.0
+    return idx[skip:], val[skip:]
+
+
+def c_path_case(sk, k, side, sms):
+    """(n, d) that put c in shared memory ("smem": staged rows, d at the
+    plan's limit, sk.max_smem_cols) or one column past it ("l2": lanes per
+    row), with enough rows that every block gathers more than d, and n not
+    a multiple of the tile."""
+    rows = sk.plan_margins(10 ** 7, k, 1, sms).rows
+    d = sk.max_smem_cols(k, rows) + (side == "l2")
+    n = (sms * d) // k // rows * rows + rows + 7
+    plan = sk.plan_margins(n, k, d, sms)
+    if not (plan.c_in_smem == (side == "smem") and (side == "l2" or n % plan.rows)):
+        raise SystemExit(f"margin check case k={k} {side}: plan {plan} for n={n} d={d}")
+    return n, d
+
+
+def compare_margins(sk, losses, idx, val, c, y, w, o) -> dict:
+    """Kernel A (every loss, then margins mode) against its plain versions
+    on the same inputs: the value rtol VALUE_RTOL, u rtol/atol GRAD_RTOL/
+    GRAD_ATOL, margins within sk.margins_tolerance."""
+    import torch
+    worst = {"value_rel_err": 0.0, "u_err_over_tol": 0.0}
+    err, finite = 0.0, True
+    for loss in losses:
+        v, u = sk.ell_margin_loss(loss, idx, val, c, y, w, o)
+        v_p, u_p = sk.ell_margin_loss_plain(loss, idx, val, c, y, w, o)
+        v, v_p = v.item(), v_p.item()
+        finite = finite and np.isfinite(v) and bool(torch.isfinite(u).all())
+        worst["value_rel_err"] = max(worst["value_rel_err"], abs(v - v_p) / max(abs(v_p), 1e-30))
+        worst["u_err_over_tol"] = max(worst["u_err_over_tol"],
+                                      over_tol(u, u_p, GRAD_ATOL + GRAD_RTOL * u_p.abs()))
+        err = max(err, abs(v - v_p), float((u - u_p).abs().max()) if u.numel() else 0.0)
+    z = sk.ell_margins(idx, val, c, o)
+    z_p = sk.ell_margins_plain(idx, val, c, o)
+    worst["z_err_over_tol"] = over_tol(z, z_p, sk.margins_tolerance(idx, val, c, o))
+    worst["a_max_abs_err"] = max(err, float((z - z_p).abs().max()) if z.numel() else 0.0)
+    worst["ok"] = bool(finite and worst["value_rel_err"] <= VALUE_RTOL
+                       and worst["u_err_over_tol"] <= 1.0 and worst["z_err_over_tol"] <= 1.0)
+    return worst
+
+
+def run_margin_checks(sk, losses) -> None:
+    """Kernel A on both of its c paths (staged rows with c in shared
+    memory; lanes per row with c from L2), at d just under and just over
+    the plan's limit for c in shared memory, for k in MARGIN_KS, n not a
+    multiple of the tile, every loss and margins mode, weights and offsets
+    null and set, and two calls bit for bit; then long rows (k = 200 and
+    1,000: a warp per row) and views 4 k bytes into the arrays (k = 25,
+    201); raises on any failure."""
+    import torch
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    failures = []
+    for k in MARGIN_KS:
+        for side in ("smem", "l2"):
+            n, d = c_path_case(sk, k, side, sms)
+            idx, val = ell_on_card(n, k, d, seed=k)
+            g = torch.Generator(device="cuda").manual_seed(100 + k)
+            c = torch.randn(d, generator=g, device="cuda") * (0.3 / k ** 0.5)
+            y = (torch.rand(n, generator=g, device="cuda") < 0.3).float()
+            w = 0.5 + 1.5 * torch.rand(n, generator=g, device="cuda")
+            o = 0.1 * torch.randn(n, generator=g, device="cuda")
+            plan = dataclasses.asdict(sk.plan_margins(n, k, d, sms))
+            for tag, ww, oo in (("plain", None, None), ("w+o", w, o)):
+                r = compare_margins(sk, losses, idx, val, c, y, ww, oo)
+                emit({"phase": "margin_check", "k": k, "c_path": side, "shape": [n, d],
+                      "inputs": tag, "plan": plan, **r})
+                if not r["ok"]:
+                    failures.append(f"k{k}/{side}/{tag}")
+            first = sk.ell_margin_loss(losses[0], idx, val, c, y, w, o) + (
+                sk.ell_margins(idx, val, c, o),)
+            second = sk.ell_margin_loss(losses[0], idx, val, c, y, w, o) + (
+                sk.ell_margins(idx, val, c, o),)
+            same = all(bool(torch.equal(a, b)) for a, b in zip(first, second))
+            emit({"phase": "margin_check", "k": k, "c_path": side, "bit_stable": same})
+            if not same:
+                failures.append(f"k{k}/{side}/bit_stability")
+            del idx, val, c, y, w, o, first, second
+    for k, skip in ((200, 0), (1000, 0), (25, 1), (201, 1)):
+        n, d = 30_001, 50_000
+        idx, val = ell_on_card(n, k, d, seed=k + skip, skip=skip)
+        c = torch.linspace(-0.02, 0.02, d, device="cuda")
+        y = (torch.arange(n, device="cuda") % 4 == 0).float()
+        w = torch.linspace(0.5, 2.0, n, device="cuda")
+        o = torch.linspace(-0.1, 0.1, n, device="cuda")
+        r = compare_margins(sk, losses, idx, val, c, y, w, o)
+        emit({"phase": "margin_check", "k": k, "shape": [n, d], "inputs": "w+o",
+              "byte_offset": idx.data_ptr() % 16, "view": bool(skip),
+              "plan": dataclasses.asdict(sk.plan_margins(n, k, d, sms)), **r})
+        if not r["ok"]:
+            failures.append(f"k{k}/{'view' if skip else 'long_rows'}")
+    if failures:
+        raise SystemExit(f"kernel A disagrees with its plain version: {failures}")
+
+
 def time_sparse(sk, loss, x, y, o=None, reps=SPARSE_REPS) -> dict:
-    """Kernels A (loss mode) and B (power 1, "b"; power 2, "b2") and the
-    whole pass (A then B), each with its plain version and its library
+    """Kernels A (loss mode, "a"; margins mode, "a_margins") and B (power
+    1, "b"; power 2, "b2") and the whole pass (A then B), each with its
+    plain version and its library
     yardstick (cuSPARSE SpMV through torch's CSR tensors: X c for A, the
     column view as a CSR of X^T times u for B, with its values squared
     once, outside the timed window, for power 2; both for the pass),
     timed as time_full times the dense kernel (median over `reps` reps of
-    10 calls with perturbed inputs, device time only); for B also its
-    gather floor, torch.index_select(u, 0, csc_row) timed the same way
-    (B's random reads of u alone); bounds from this input's bytes;
+    10 calls with perturbed inputs, device time only); for A and B also
+    their gather floors, torch.index_select(c, 0, indices.reshape(-1))
+    and torch.index_select(u, 0, csc_row) timed the same way (their
+    random reads of c or u alone); A's plan and its ptxas line; bounds
+    from this input's bytes;
     launches per pass over 10 passes, by the wrappers' counts and by a
     profile."""
     import torch
@@ -780,10 +916,15 @@ def time_sparse(sk, loss, x, y, o=None, reps=SPARSE_REPS) -> dict:
     xt_csr = torch.sparse_csr_tensor(end.long(), row.long(), cv, size=(d, n))
     xt2_csr = torch.sparse_csr_tensor(end.long(), row.long(), cv * cv, size=(d, n))
     tiles = x.csc_tiles
+    flat_idx = idx.reshape(-1)
     kernels = {
         "a": {"ms": lambda c, u: sk.ell_margin_loss(loss, idx, val, c, y, None, o),
               "plain_ms": lambda c, u: sk.ell_margin_loss_plain(loss, idx, val, c, y, None, o),
-              "library_ms": lambda c, u: x_csr @ c},
+              "library_ms": lambda c, u: x_csr @ c,
+              "gather_floor_ms": lambda c, u: torch.index_select(c, 0, flat_idx)},
+        "a_margins": {"ms": lambda c, u: sk.ell_margins(idx, val, c, o),
+                      "plain_ms": lambda c, u: sk.ell_margins_plain(idx, val, c, o),
+                      "library_ms": lambda c, u: x_csr @ c},
         "b": {"ms": lambda c, u: sk.csc_column_sum(row, cv, end, u, 1, tiles),
               "plain_ms": lambda c, u: sk.csc_column_sum_plain(row, cv, end, u, 1),
               "library_ms": lambda c, u: xt_csr @ u,
@@ -813,9 +954,12 @@ def time_sparse(sk, loss, x, y, o=None, reps=SPARSE_REPS) -> dict:
     a_bytes = 8 * n * k + vec + 4 * d + 4 * n + 4              # ELL, y, o, c; u, value
     b_bytes = 8 * nnz + 4 * (d + 1) + 4 * n + 4 * d            # stream, end, u; g
     p_bytes = 8 * n * k + 8 * nnz + vec + 4 * d + 4 * (d + 1) + 4 * d + 4
-    ops = {"a": 2 * n * k, "b": 2 * nnz, "b2": 3 * nnz, "pass": 2 * n * k + 2 * nnz}
+    ops = {"a": 2 * n * k, "a_margins": 2 * n * k, "b": 2 * nnz, "b2": 3 * nnz,
+           "pass": 2 * n * k + 2 * nnz}
+    z_bytes = 8 * n * k + 4 * n * (1 if o is None else 2) + 4 * d  # ELL, o, c; z
     out = {"shape": [n, d], "k": k, "nnz": int(nnz), "reps": reps}
-    for kn, nbytes in (("a", a_bytes), ("b", b_bytes), ("b2", b_bytes), ("pass", p_bytes)):
+    for kn, nbytes in (("a", a_bytes), ("a_margins", z_bytes), ("b", b_bytes),
+                       ("b2", b_bytes), ("pass", p_bytes)):
         med = {key: statistics.median(times[(kn, key)]) for key in kernels[kn]}
         by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
         by_ops = ops[kn] / PEAK_F32_FLOPS * 1e3
@@ -828,8 +972,14 @@ def time_sparse(sk, loss, x, y, o=None, reps=SPARSE_REPS) -> dict:
         med["ms_over_library"] = med["ms"] / med["library_ms"]
         out[kn] = med
     out["b2"]["gather_floor_ms"] = out["b"]["gather_floor_ms"]
-    for kn in ("b", "b2"):
+    out["a_margins"]["gather_floor_ms"] = out["a"]["gather_floor_ms"]
+    for kn in ("a", "a_margins", "b", "b2"):
         out[kn]["ms_over_gather_floor"] = out[kn]["ms"] / out[kn]["gather_floor_ms"]
+    out["a_margins"]["ms_over_loss_mode"] = out["a_margins"]["ms"] / out["a"]["ms"]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = sk.plan_margins(n, k, d, sms)
+    out["a"]["plan"] = dataclasses.asdict(plan)
+    out["a"]["ptxas"] = margin_ptxas(plan, loss.kernel_id)
     before = dict(sk.LAUNCHES)
     _, prof = profile_call(lambda: [kernels["pass"]["ms"](c, u) for c, u in zip(cs, us)])
     out["pass"]["wrapper_launches_per_call"] = {
@@ -1053,7 +1203,8 @@ def sparse_kernel_entry(name: str, part: str, c6: dict, c7: dict) -> dict:
     t6, t7 = c6["timing"][part], c7["timing"][part]
     pick = lambda t: {k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                         "share_of_bound", "ms_over_library",
-                                        "gather_floor_ms") if k in t}
+                                        "gather_floor_ms", "ms_over_gather_floor",
+                                        "ms_over_loss_mode", "plan", "ptxas") if k in t}
     return {
         "name": name, "route": "cuda", "source": "photon_ml_tpu_torch/csrc/ell_sparse.cu",
         "replaces": {"a": "photon_ml_tpu/ops/features.py:237",
@@ -1073,6 +1224,9 @@ def sparse_kernel_entry(name: str, part: str, c6: dict, c7: dict) -> dict:
                              "max_abs_err": c7["check"][f"{part}_max_abs_err"]},
         **({"power2": {"config6": pick(c6["timing"]["b2"]),
                        "config7": pick(c7["timing"]["b2"])}} if part == "b" else {}),
+        **({"margins_mode": {"config6": pick(c6["timing"]["a_margins"]),
+                             "config7": pick(c7["timing"]["a_margins"])}}
+           if part == "a" else {}),
         "whole_pass": {"config6": pick(c6["timing"]["pass"]),
                        "config7": pick(c7["timing"]["pass"])},
     }
@@ -1356,6 +1510,7 @@ def main() -> int:
     from photon_ml_tpu_torch.ops import sparse_kernels as sk
     t0 = time.perf_counter()
     run_sparse_checks(sk, losses)
+    run_margin_checks(sk, losses)
     emit({"phase": "sparse_checks", "seconds": time.perf_counter() - t0,
           "tolerance": (f"value rtol {VALUE_RTOL}; u rtol {GRAD_RTOL} atol {GRAD_ATOL}; "
                         "margins per row within 2 sqrt(k + 1) eps (sum|v c| + |o|); "

@@ -19,19 +19,43 @@
 //
 // Bound on an H100: memory.  A reads the ELL arrays once, n*k*(4 + 4)
 // bytes, plus y, w, o and writes u: ~106 MB at [200,000 x 250,000] with
-// k = 65, 0.032 ms at the data sheet's 3.35 TB/s.  B reads the stream once,
-// nnz*(4 + 4) bytes, plus end and u, and writes g: ~106 MB there too.  The
-// gathers of c (A, d*4 bytes: 1 MB at d = 250,000) and of u (B, n*4
-// bytes) hit vectors that stay resident in the 50 MB L2.  The arithmetic is
-// 2 flops per nonzero, far below the card's rate.
+// k = 65, 0.032 ms at the data sheet's 3.35 TB/s; ~61 MB at config 7's
+// fixed effect [285,135 x 14,983], k = 25.  B reads the stream once,
+// nnz*(4 + 4) bytes, plus end and u, and writes g: ~106 MB at config 6.
+// The gathers of c (A, d*4 bytes: 1 MB at d = 250,000, 60 KB at 14,983)
+// and of u (B, n*4 bytes) hit vectors that stay resident in the 50 MB L2;
+// one random 4-byte read is one 32-byte L2 sector, so A's and B's
+// gathers from L2 cost more than their HBM stream (B's gather floor,
+// torch.index_select of u, measured 0.106 ms at config 6).  The
+// arithmetic is 2 flops per nonzero, far below the card's rate.
 //
 // What the design does about it (a simple first version, right before fast):
-//   - A: P = min(32, next power of two >= k) threads per row, each taking
-//     every P-th slot, so neighbouring threads read neighbouring bytes and a
-//     warp's loads cover whole rows; the row's sum meets in log2(P)
-//     shuffles and the row's first thread applies the loss.  A grid of at
-//     most 8 blocks of 256 threads per SM walks the rows in rounds.  The
-//     value reduces per block in a fixed order; each block writes one
+//   - A (redesigned for Hopper), staged rows, where c (4*d bytes) fits
+//     in shared memory beside a ring of 2 stages and each block gathers
+//     at least d times (config 7's fixed effect: c is 60 KB): the ELL
+//     arrays are read as one flat stream.  A persistent grid, one block
+//     per SM, walks tiles of R whole rows (R * k contiguous indices and
+//     values) in turn; one producer thread copies c once, then each tile,
+//     into shared memory with cp.async.bulk (a ring of stages with
+//     full/empty mbarriers; the <= 3 words at a span's unaligned ends,
+//     and a view at any 4-byte offset, by ordinary loads), so the loads
+//     are whole 16-byte chunks whatever k is.  Each of the 256 consumer
+//     threads takes one row at a time (rows t, t + 256, ... of the tile)
+//     and computes its margin, loss, u and value: every lane is busy and
+//     every lane applies the loss.  A row's y, w, o are loaded before its
+//     gathers; its slots are read in groups of kUnroll = 8, all 8 gathers
+//     of c (from shared memory) in flight before any is used, into 8
+//     partial sums met in a fixed tree.  With k even, row r starts at slot
+//     r % k (an effective stride of k + 1 across the warp: no bank
+//     conflicts); with k odd, at slot 0.
+//   - A, lanes per row, everywhere else (config 6's c is 1 MB): P =
+//     min(32, next power of two >= k) lanes per row straight from device
+//     memory, c gathered through the read-only path, no dynamic shared
+//     memory, up to 8 blocks of 256 per SM.  Measured on an H100 at config
+//     6, staging the rows there cost more than it saved: the ring takes
+//     the shared memory that L1 would otherwise give to c's random
+//     gathers (PERF.md §6).
+//   - A's value reduces per block in a fixed order; each block writes one
 //     partial, takes a ticket, and the last block sums the partials in
 //     block order and resets the ticket (as fused_value_and_gradient.cu
 //     does), so the result is bit-stable for a given plan.
@@ -72,11 +96,12 @@
 //   - f32 inputs, f32 accumulation.  Indices are int32 (the wrapper checks
 //     n*k < 2^31 and nnz < 2^31).  Weights default to 1 and offsets to 0
 //     (null pointers).
-// The grid of A and the tiles of B come from the pure Python functions
-// photon_ml_tpu_torch/ops/sparse_kernels.py::plan_margins and
-// ::plan_columns (with B's tile map, ::tile_map), which the CPU tests
-// replay; B's entry refuses a plan whose shared-memory size differs from
-// sizeof(ColumnSmem) below.
+// A's mode, tiles, stages, grid and c placement and B's tiles come from
+// the pure Python functions photon_ml_tpu_torch/ops/sparse_kernels.py::
+// plan_margins and ::plan_columns (with B's tile map, ::tile_map), which
+// the CPU tests replay; A's entry refuses a plan whose shared-memory size
+// differs from margin_layout() below, B's one that differs from
+// sizeof(ColumnSmem).
 //
 // Plain C interface, bound with ctypes.  Build (sm_90a):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
@@ -146,7 +171,8 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // The block's sum of v, in a fixed order (shuffles, then warps in order);
-// every thread of the block must call it.  `red` holds kWarps floats.
+// every thread of the block must call it.  `red` holds WARPS floats.
+template <int WARPS>
 __device__ __forceinline__ float block_sum(float v, float* red) {
   v = warp_sum(v);
   const int t = threadIdx.x;
@@ -155,12 +181,130 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   __syncthreads();
   float s = 0.0f;
   if (t == 0) {
-    for (int w = 0; w < kWarps; ++w) s += red[w];
+    for (int w = 0; w < WARPS; ++w) s += red[w];
   }
   return s;  // meaningful on thread 0
 }
 
 // ---------------------------------------------------------------- kernel A
+
+constexpr int kConsumers = kThreads;        // kernel A: threads that take rows
+constexpr int kThreadsA = kConsumers + 32;  // + one producer warp
+constexpr int kUnroll = 8;                  // kernel A: gathers in flight per thread
+// dynamic shared memory a plan may ask for: Hopper's 232,448 bytes per
+// block less 1 KB for the kernel's static shared memory
+constexpr int kMaxSmem = 232448 - 1024;
+
+__host__ __device__ constexpr int round4(int v) { return (v + 3) & ~3; }
+
+// Kernel A's dynamic shared memory (staged rows), in floats from the
+// (16-byte aligned) base: c [cols] (cols = d), then `stages` stages of
+// [the tile's indices | its values], rows * k words each, then
+// 2 * stages + 1 mbarriers (full, empty, c).  Each span
+// starts on 16 bytes and leaves 3 words of room: element j of a span sits
+// at its address's phase ((address / 4) % 4) + j, so that its 16-byte
+// chunks line up.  sparse_kernels.margin_smem_bytes reproduces `bytes`.
+struct MarginLayout {
+  int ring, span, stage, bars, bytes;
+};
+
+__host__ __device__ inline MarginLayout margin_layout(int k, int rows, int stages, int cols) {
+  MarginLayout L;
+  L.ring = round4(cols + 3);
+  L.span = round4(rows * k + 3);
+  L.stage = 2 * L.span;
+  L.bars = L.ring + stages * L.stage;
+  L.bytes = L.bars * 4 + (2 * stages + 1) * 8;
+  return L;
+}
+
+// The 16-byte aligned interior [a, b) of the byte span of `count` 32-bit
+// words at `src`.  Element j of the span lives at buf[phase + j].
+struct Span {
+  const uint32_t* src;
+  int count, phase, head, tail;  // head: words before a; tail: first word at/after b
+  uint32_t bytes;                // b - a, 0 when there is no aligned interior
+};
+
+__device__ __forceinline__ Span span_of(const void* p, int64_t count) {
+  Span s;
+  s.src = static_cast<const uint32_t*>(p);
+  s.count = (int)count;
+  const uintptr_t lo = reinterpret_cast<uintptr_t>(p);
+  const uintptr_t hi = lo + 4ull * (uint64_t)count;
+  const uintptr_t a = (lo + 15) & ~uintptr_t(15);
+  const uintptr_t b = hi & ~uintptr_t(15);
+  s.phase = (int)((lo >> 2) & 3);
+  if (p != nullptr && b > a) {
+    s.head = (int)((a - lo) >> 2);
+    s.tail = (int)((b - lo) >> 2);
+    s.bytes = (uint32_t)(b - a);
+  } else {
+    s.head = s.count;
+    s.tail = s.count;
+    s.bytes = 0;
+  }
+  return s;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// A wait lasts at most one tile's copy (microseconds); one that outlasts
+// 2^24 polls (seconds) is a fault, and traps rather than hang the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  uint32_t done;
+  for (uint32_t polls = 0;; ++polls) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (polls == (1u << 24)) __trap();
+  }
+}
+
+// Copy the aligned interior of `s` into buf (element j at buf[phase + j]).
+__device__ __forceinline__ void bulk_load(uint32_t* buf, const Span& s, uint64_t* bar) {
+  if (s.bytes == 0) return;
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(smem_addr(buf + s.phase + s.head)), "l"(s.src + s.head), "r"(s.bytes),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+
+// The words of `s` the bulk copy cannot take (<= 3 at either end, or all
+// of a span without an aligned interior: < 8), by ordinary loads.
+__device__ __forceinline__ void load_edges(uint32_t* buf, const Span& s, int t) {
+  if (t < s.head) buf[s.phase + t] = s.src[t];
+  const int j = s.tail + t;
+  if (j < s.count && j >= s.head) buf[s.phase + j] = s.src[j];
+}
+
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(kConsumers) : "memory");
+}
 
 struct MarginArgs {
   const int* idx;    // [n, k]
@@ -174,11 +318,215 @@ struct MarginArgs {
   unsigned int* ticket;
   float* value;      // [1] (loss mode)
   int64_t n;
-  int k, log2p;      // slots per row; log2 of the threads per row
+  int k, d;
+  int rows, stages;  // staged rows: rows per tile, ring stages
+  int log2p;         // lanes per row: log2 of the lanes
+};
+
+// Row r's margin from its k slots at ir/vr and c at cs, all in shared
+// memory.  The visits start at slot `first` and wrap; visit i goes into
+// partial i % kUnroll, so each thread has kUnroll gathers of c in flight
+// before it uses one; the partials meet in a fixed tree.
+__device__ __forceinline__ float row_dot(const int* ir, const float* vr, const float* cs,
+                                         int k, int first) {
+  float p[kUnroll];
+#pragma unroll
+  for (int q = 0; q < kUnroll; ++q) p[q] = 0.0f;
+  for (int base = 0; base < k; base += kUnroll) {
+    int ii[kUnroll];
+    float vv[kUnroll], cc[kUnroll];
+#pragma unroll
+    for (int q = 0; q < kUnroll; ++q) {
+      int s = first + base + q;
+      if (s >= k) s -= k;
+      const bool in = base + q < k;
+      ii[q] = in ? ir[s] : 0;
+      vv[q] = in ? vr[s] : 0.0f;
+    }
+#pragma unroll
+    for (int q = 0; q < kUnroll; ++q) cc[q] = base + q < k ? cs[ii[q]] : 0.0f;
+#pragma unroll
+    for (int q = 0; q < kUnroll; ++q)
+      if (base + q < k) p[q] = fmaf(vv[q], cc[q], p[q]);
+  }
+  return ((p[0] + p[1]) + (p[2] + p[3])) + ((p[4] + p[5]) + (p[6] + p[7]));
+}
+
+// A row's label, weight and offset, loaded before its gathers so that
+// their latency hides behind them.
+struct RowIn {
+  float y, w, o;
 };
 
 template <int LOSS>
-__global__ void __launch_bounds__(kThreads) ell_margin_loss(const MarginArgs a) {
+__device__ __forceinline__ RowIn load_row(const MarginArgs& a, int64_t row) {
+  return RowIn{LOSS != kMargins ? a.y[row] : 0.0f, a.w != nullptr ? a.w[row] : 1.0f,
+               a.o != nullptr ? a.o[row] : 0.0f};
+}
+
+// Row `row`'s output from its margin (+ o): z, or u = w l' with w l added
+// to v_acc.
+template <int LOSS>
+__device__ __forceinline__ void finish_row(const MarginArgs& a, int64_t row, float dot,
+                                           const RowIn& in, float& v_acc) {
+  const float z = a.o != nullptr ? dot + in.o : dot;
+  if constexpr (LOSS == kMargins) {
+    a.out[row] = z;
+  } else {
+    float l, dl;
+    loss_and_dz<LOSS>(z, in.y, l, dl);
+    a.out[row] = in.w * dl;
+    v_acc += in.w * l;
+  }
+}
+
+// The value: each block's sum of v_acc in a fixed order; the last block to
+// finish (by ticket) sums the partials in block order and resets the
+// ticket, so the result is bit-stable for a given plan.
+template <int WARPS>
+__device__ __forceinline__ void finish_value(const MarginArgs& a, float v_acc, float* red,
+                                             bool& is_last) {
+  const int t = threadIdx.x;
+  const float block_v = block_sum<WARPS>(v_acc, red);
+  if (t == 0) a.partial[blockIdx.x] = block_v;
+  __threadfence();
+  __syncthreads();
+  if (t == 0) is_last = atomicAdd(a.ticket, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+  float s = 0.0f;
+  for (int b = t; b < (int)gridDim.x; b += WARPS * 32) s += __ldcg(a.partial + b);
+  s = block_sum<WARPS>(s, red);
+  if (t == 0) {
+    a.value[0] = s;
+    *a.ticket = 0u;  // ready for the next call on this stream
+  }
+}
+
+// Staged rows: a persistent grid, block b taking tiles b, b + grid, ... of
+// a.rows whole rows, i.e. rows * k contiguous indices and values, through a
+// ring of a.stages stages in shared memory filled by one producer thread
+// with cp.async.bulk copies (full/empty mbarriers).  Consumer thread t
+// takes rows t, t + kConsumers, ... of each tile: every lane computes a
+// row's margin, loss, u and value.  Row r of a tile starts at slot r % k
+// when k is even (an odd effective stride, k + 1, across the warp: no bank
+// conflicts) and at slot 0 when k is odd.  c is copied once per block
+// into shared memory (the same way, overlapped with the first tiles) and
+// gathered there.
+template <int LOSS>
+__global__ void __launch_bounds__(kThreadsA, 1) ell_margin_loss(const MarginArgs a) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  __shared__ float red[kThreadsA / 32];
+  __shared__ bool is_last;
+  const int64_t n = a.n;
+  const int k = a.k, rows = a.rows, stages = a.stages;
+  const MarginLayout L = margin_layout(k, rows, stages, a.d);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bars);
+  uint64_t* empty = full + stages;
+  uint64_t* c_full = empty + stages;
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int64_t first_row = (int64_t)blockIdx.x * rows;
+  const int64_t row_step = (int64_t)gridDim.x * rows;
+  const Span sc = span_of(a.c, a.d);
+
+  if (t == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers / 32);
+    }
+    mbar_init(c_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  float v_acc = 0.0f;
+  if (t >= kConsumers) {
+    // producer warp: lane 0 copies c (once) and keeps the ring full
+    if (lane == 0) {
+      if (sc.bytes == 0) {
+        mbar_arrive(c_full);
+      } else {
+        mbar_arrive_expect_tx(c_full, sc.bytes);
+        bulk_load(smem, sc, c_full);
+      }
+      int stage = 0;
+      uint32_t parity = 1;  // a fresh barrier's previous phase counts as complete
+      for (int64_t r0 = first_row; r0 < n; r0 += row_step) {
+        mbar_wait(&empty[stage], parity);
+        const int64_t nr = n - r0 < rows ? n - r0 : rows;
+        uint32_t* buf = smem + L.ring + stage * L.stage;
+        const Span si = span_of(a.idx + r0 * k, nr * k);
+        const Span sv = span_of(a.val + r0 * k, nr * k);
+        const uint32_t bytes = si.bytes + sv.bytes;
+        if (bytes == 0) {
+          mbar_arrive(&full[stage]);
+        } else {
+          mbar_arrive_expect_tx(&full[stage], bytes);
+          bulk_load(buf, si, &full[stage]);
+          bulk_load(buf + L.span, sv, &full[stage]);
+        }
+        if (++stage == stages) {
+          stage = 0;
+          parity ^= 1;
+        }
+      }
+    }
+    __syncwarp();
+  } else {
+    load_edges(smem, sc, t);  // c's ragged ends
+    consumer_sync();
+    mbar_wait(c_full, 0);
+    const float* cs = reinterpret_cast<const float*>(smem + sc.phase);
+    int stage = 0;
+    uint32_t parity = 0;
+    for (int64_t r0 = first_row; r0 < n; r0 += row_step) {
+      mbar_wait(&full[stage], parity);
+      const int nr = (int)(n - r0 < rows ? n - r0 : rows);
+      uint32_t* buf = smem + L.ring + stage * L.stage;
+      const Span si = span_of(a.idx + r0 * k, (int64_t)nr * k);
+      const Span sv = span_of(a.val + r0 * k, (int64_t)nr * k);
+      // the same on every thread: words the bulk copies did not bring?
+      const bool edges =
+          si.head > 0 || si.tail < si.count || sv.head > 0 || sv.tail < sv.count;
+      if (edges) {
+        load_edges(buf, si, t);
+        load_edges(buf + L.span, sv, t);
+        consumer_sync();
+      }
+      const int* bi = reinterpret_cast<const int*>(buf + si.phase);
+      const float* bv = reinterpret_cast<const float*>(buf + L.span + sv.phase);
+      for (int r = t; r < nr; r += kConsumers) {
+        const RowIn in = load_row<LOSS>(a, r0 + r);
+        const int first = (k & 1) ? 0 : r % k;
+        const float dot = row_dot(bi + r * k, bv + r * k, cs, k, first);
+        finish_row<LOSS>(a, r0 + r, dot, in, v_acc);
+      }
+      // our generic writes to the stage happen before the next bulk copy into it
+      if (edges) asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[stage]);
+      if (++stage == stages) {
+        stage = 0;
+        parity ^= 1;
+      }
+    }
+  }
+  if constexpr (LOSS != kMargins) finish_value<kThreadsA / 32>(a, v_acc, red, is_last);
+}
+
+// Lanes per row, where c is gathered from L2 (it does not fit beside the
+// ring, the rows are too long for a staged tile, or a block would gather
+// fewer than d times): P = 2^log2p lanes per row, lane j taking slots
+// j, j + P, ... straight from device memory, c through the read-only path,
+// no dynamic shared memory, so the SM's L1 caches what it can of c; the
+// row's sum meets in log2(P) shuffles and its first lane applies the
+// loss.  A block of kThreads takes kThreads / P rows per round, block b
+// rounds b, b + gridDim.x, ...; every thread runs the same rounds (the
+// shuffles need all 32 lanes of each warp).
+template <int LOSS>
+__global__ void __launch_bounds__(kThreads) ell_margin_loss_lanes(const MarginArgs a) {
   __shared__ float red[kWarps];
   __shared__ bool is_last;
   const int t = threadIdx.x;
@@ -188,54 +536,34 @@ __global__ void __launch_bounds__(kThreads) ell_margin_loss(const MarginArgs a) 
   const int64_t step = (int64_t)gridDim.x * rows_per_round;
   const int k = a.k;
   float v_acc = 0.0f;
-  // every thread of the block runs the same rounds: the shuffles below
-  // need all 32 lanes of each warp
   for (int64_t base = (int64_t)blockIdx.x * rows_per_round; base < a.n; base += step) {
     const int64_t r = base + (t >> a.log2p);
     float dot = 0.0f;
+    RowIn in{0.0f, 1.0f, 0.0f};
     if (r < a.n) {
+      in = load_row<LOSS>(a, r);
       const int* __restrict__ ir = a.idx + r * k;
       const float* __restrict__ vr = a.val + r * k;
-      for (int j = sub; j < k; j += P) dot += vr[j] * __ldg(a.c + ir[j]);
+#pragma unroll 4
+      for (int j = sub; j < k; j += P) dot = fmaf(vr[j], __ldg(a.c + ir[j]), dot);
     }
     for (int off = P >> 1; off > 0; off >>= 1)
       dot += __shfl_xor_sync(0xffffffffu, dot, off);
-    if (sub == 0 && r < a.n) {
-      const float z = a.o != nullptr ? dot + a.o[r] : dot;
-      if constexpr (LOSS == kMargins) {
-        a.out[r] = z;
-      } else {
-        float l, dl;
-        loss_and_dz<LOSS>(z, a.y[r], l, dl);
-        const float wt = a.w != nullptr ? a.w[r] : 1.0f;
-        a.out[r] = wt * dl;
-        v_acc += wt * l;
-      }
-    }
+    if (sub == 0 && r < a.n) finish_row<LOSS>(a, r, dot, in, v_acc);
   }
-  if constexpr (LOSS != kMargins) {
-    const float block_v = block_sum(v_acc, red);
-    if (t == 0) a.partial[blockIdx.x] = block_v;
-    // the last block to finish sums the partials in block order
-    __threadfence();
-    __syncthreads();
-    if (t == 0) is_last = atomicAdd(a.ticket, 1u) == gridDim.x - 1;
-    __syncthreads();
-    if (!is_last) return;
-    __threadfence();
-    float s = 0.0f;
-    for (int b = t; b < (int)gridDim.x; b += kThreads) s += __ldcg(a.partial + b);
-    s = block_sum(s, red);
-    if (t == 0) {
-      a.value[0] = s;
-      *a.ticket = 0u;  // ready for the next call on this stream
-    }
-  }
+  if constexpr (LOSS != kMargins) finish_value<kWarps>(a, v_acc, red, is_last);
 }
 
 template <int LOSS>
-cudaError_t launch_a(const MarginArgs& a, int grid, cudaStream_t s) {
-  ell_margin_loss<LOSS><<<grid, kThreads, 0, s>>>(a);
+cudaError_t launch_a(const MarginArgs& a, int grid, int smem, cudaStream_t s) {
+  if (a.stages == 0) {
+    ell_margin_loss_lanes<LOSS><<<grid, kThreads, 0, s>>>(a);
+    return cudaGetLastError();
+  }
+  const cudaError_t e = cudaFuncSetAttribute(
+      ell_margin_loss<LOSS>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  ell_margin_loss<LOSS><<<grid, kThreadsA, smem, s>>>(a);
   return cudaGetLastError();
 }
 
@@ -497,16 +825,30 @@ extern "C" {
 // success).  loss: a kernel_id of ops/losses.py, or -1 for margins only (y,
 // partial, ticket and value unused).  out: [n].  partial: [grid] scratch;
 // ticket: one zeroed uint32 that every loss-mode launch leaves zeroed;
-// value: [1].  w and o may be null.  lanes (threads per row, a power of
-// two <= 32) and grid come from sparse_kernels.plan_margins.
+// value: [1].  w and o may be null.  The plan (lanes, rows, stages, grid,
+// smem_bytes) comes from sparse_kernels.plan_margins: stages > 0 is the
+// staged kernel (lanes 1, c in shared memory), whose smem_bytes must be
+// margin_layout(k, rows, stages, d).bytes; stages 0 the lanes kernel
+// (lanes P = 1, 2, ..., 32, rows kThreads / P, no dynamic shared
+// memory).  A plan that does not fit is refused.
 int pmt_ell_margin_loss(int loss, const void* idx, const void* val, const void* c,
                         const void* y, const void* w, const void* o, void* out,
-                        void* partial, void* ticket, void* value, long long n, int k,
-                        int lanes, int grid, void* stream) {
+                        void* partial, void* ticket, void* value, long long n, int k, int d,
+                        int lanes, int rows, int stages, int grid, int smem_bytes,
+                        void* stream) {
   int log2p = 0;
-  while ((1 << log2p) < lanes) ++log2p;
+  while (log2p < 5 && (1 << log2p) < lanes) ++log2p;
+  bool plan_ok;
+  if (stages > 0) {
+    plan_ok = lanes == 1 && rows >= 1 && static_cast<long long>(rows) * k <= kMaxSmem / 8 &&
+              d <= kMaxSmem / 4 && smem_bytes <= kMaxSmem &&
+              margin_layout(k, rows, stages, d).bytes == smem_bytes;
+  } else {
+    plan_ok = (1 << log2p) == lanes && rows == (kThreads >> log2p) && stages == 0 &&
+              smem_bytes == 0;
+  }
   // an empty tensor's pointer may be null: y only when there are no rows
-  if (n < 0 || k < 1 || lanes < 1 || lanes > 32 || (1 << log2p) != lanes || grid < 1 ||
+  if (n < 0 || k < 1 || d < 1 || grid < 1 || !plan_ok ||
       (loss != kMargins && ((y == nullptr && n > 0) || partial == nullptr ||
                             ticket == nullptr || value == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -515,14 +857,15 @@ int pmt_ell_margin_loss(int loss, const void* idx, const void* val, const void* 
                      static_cast<const float*>(w), static_cast<const float*>(o),
                      static_cast<float*>(out), static_cast<float*>(partial),
                      static_cast<unsigned int*>(ticket), static_cast<float*>(value),
-                     n, k, log2p};
+                     n, k, d, rows, stages, log2p};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (loss) {
-    case kMargins: return static_cast<int>(launch_a<kMargins>(a, grid, s));
-    case kLogistic: return static_cast<int>(launch_a<kLogistic>(a, grid, s));
-    case kSquared: return static_cast<int>(launch_a<kSquared>(a, grid, s));
-    case kPoisson: return static_cast<int>(launch_a<kPoisson>(a, grid, s));
-    case kSmoothedHinge: return static_cast<int>(launch_a<kSmoothedHinge>(a, grid, s));
+    case kMargins: return static_cast<int>(launch_a<kMargins>(a, grid, smem_bytes, s));
+    case kLogistic: return static_cast<int>(launch_a<kLogistic>(a, grid, smem_bytes, s));
+    case kSquared: return static_cast<int>(launch_a<kSquared>(a, grid, smem_bytes, s));
+    case kPoisson: return static_cast<int>(launch_a<kPoisson>(a, grid, smem_bytes, s));
+    case kSmoothedHinge:
+      return static_cast<int>(launch_a<kSmoothedHinge>(a, grid, smem_bytes, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

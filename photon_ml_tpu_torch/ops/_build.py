@@ -32,7 +32,7 @@ SIGNATURES = {
         "pmt_error_string": (ctypes.c_char_p, [_I]),
     },
     "ell_sparse": {
-        "pmt_ell_margin_loss": (_I, [_I] + [_P] * 10 + [_LL, _I, _I, _I, _P]),
+        "pmt_ell_margin_loss": (_I, [_I] + [_P] * 10 + [_LL] + [_I] * 7 + [_P]),
         "pmt_csc_column_sum": (_I, [_I] + [_P] * 10 + [_LL, _I, _I, _I, _P]),
         "pmt_ell_error_string": (ctypes.c_char_p, [_I]),
     },

@@ -7,7 +7,10 @@ by ops/_build.py) compute its products on the card:
 
 - A, `ell_margin_loss`: z = X c (+ o) row by row; in loss mode also
   u = w * l'(z, y) and the value sum_i w_i l(z_i, y_i).  `ell_margins`
-  is its margins-only mode (matvec).
+  is its margins-only mode (matvec).  Where c fits in shared memory,
+  tiles of whole rows stream through a ring of bulk copies into shared
+  memory beside it, one row per thread; elsewhere P lanes per row read
+  device memory and gather c from L2.
 - B, `csc_column_sum`: X^T u (power 1) or (X*X)^T u (power 2), summed per
   column over the column-sorted stream: tiles of TILE nonzeros, a run of
   RUN per thread, a segmented reduction by column inside the tile, and
@@ -44,44 +47,102 @@ from photon_ml_tpu_torch.ops.losses import PointwiseLoss
 LAUNCHES: Dict[str, int] = {"margin_loss": 0, "margins": 0,
                             "column_sum": 0, "sq_column_sum": 0}
 
-# Must match the CUDA source (kThreads, kRun, kChunk, kFinishRun; B's entry
-# checks TILE through `tiles` and the shared-memory size through the plan).
+# Must match the CUDA source (kThreads, kUnroll, kMaxSmem, kRun, kChunk,
+# kFinishRun; A's entry checks the shared-memory size through
+# the plan, B's entry TILE through `tiles` and its shared-memory size).
 THREADS = 256
 WARPS = THREADS // 32
-BLOCKS_PER_SM = 8     # kernel A's grid: at most this many blocks per SM
+UNROLL = 8            # kernel A, staged rows: gathers of c in flight per thread
+MAX_SMEM = 232_448 - 1024  # dynamic shared memory a block may ask for
+BLOCKS_PER_SM = 8     # kernel A, lanes per row: at most this many blocks per SM
 RUN = 8               # kernel B: consecutive stream elements per thread
 TILE = THREADS * RUN  # kernel B: column-sorted stream elements per block
 CHUNK = 1024          # kernel B: column ends staged in shared memory at a time
 FINISH_RUN = 8        # kernel B's last block: tiles per thread per round
+# kernel A, staged rows: ~48 KB tiles, up to 4 rows per thread, a ring of
+# ~96 KB (2 to 8 stages), and at least MIN_ROWS rows per tile
+_A_TILE_BYTES = 48 * 1024
+_A_RING_BYTES = 96 * 1024
+_A_MAX_STAGES = 8
+_A_ROWS_PER_THREAD = 4
+MIN_ROWS = 128
 _INT32_MAX = 2 ** 31 - 1
 _BF16 = ("bf16 sparse values are not ported yet (ROADMAP.md queue A item 25); "
          "the sparse kernels take float32")
 
 
+def _round4(v: int) -> int:
+    return (v + 3) & ~3
+
+
+def margin_smem_bytes(k: int, rows: int, stages: int, cols: int) -> int:
+    """Kernel A's dynamic shared memory (staged rows), as margin_layout()
+    in the CUDA source: c [cols], then `stages` stages of [indices |
+    values] of rows * k words each, every span with 3 words of room for
+    its alignment phase, then 2 * stages + 1 mbarriers."""
+    return (4 * (_round4(cols + 3) + stages * 2 * _round4(rows * k + 3))
+            + 8 * (2 * stages + 1))
+
+
 @dataclass(frozen=True)
 class MarginPlan:
-    """One launch of kernel A: `lanes` threads per row (a power of two
-    <= 32), so a block of THREADS threads takes `rows_per_round` rows per
-    round; `grid` blocks, block b taking rounds b, b + grid, ..."""
+    """One launch of kernel A.  stages > 0, staged rows (lanes 1): `grid`
+    blocks (one per SM), block b taking tiles b, b + grid, ... of `rows`
+    rows, one row per consumer thread at a time, through `stages` ring
+    stages, with c in shared memory and `smem_bytes` of dynamic shared
+    memory in all.  stages 0, lanes per row: P = `lanes` lanes per row,
+    `rows` = THREADS / P rows per block per round, c gathered from L2, no
+    dynamic shared memory."""
     lanes: int
-    rows_per_round: int
+    rows: int
+    stages: int
     grid: int
+    smem_bytes: int
+
+    @property
+    def c_in_smem(self) -> bool:
+        return self.stages > 0
+
+
+def max_smem_cols(k: int, rows: int) -> int:
+    """The widest c that kernel A stages in shared memory beside 2 stages
+    of `rows` rows (0 when none fits)."""
+    words = (MAX_SMEM - margin_smem_bytes(k, rows, 2, 1)) // 4 + 4  # + c's own room
+    return max(0, words // 4 * 4 - 3)
+
+
+def _stages_that_fit(k: int, rows: int, cols: int) -> int:
+    fixed = margin_smem_bytes(k, rows, 0, cols)
+    return (MAX_SMEM - fixed) // (margin_smem_bytes(k, rows, 1, cols) - fixed)
 
 
 @functools.lru_cache(maxsize=64)
-def plan_margins(n: int, k: int, sm_count: int) -> MarginPlan:
-    """P = min(32, the next power of two >= k) threads per row, so a warp's
-    loads cover whole rows of the row-major [n, k] arrays; at most
-    BLOCKS_PER_SM blocks per SM (a full SM's threads), fewer when n is
-    small."""
-    if n < 0 or k < 1 or sm_count < 1:
-        raise ValueError(f"bad plan request n={n}, k={k}, sm_count={sm_count}")
+def plan_margins(n: int, k: int, d: int, sm_count: int) -> MarginPlan:
+    """Staged rows where c fits in shared memory: tiles of THREADS rows,
+    or up to _A_ROWS_PER_THREAD times that while a tile stays within
+    ~48 KB, fewer when 2 stages of THREADS rows do not fit (k > 56), never
+    fewer than MIN_ROWS (k <= 112); c must fit beside 2 stages of them,
+    and each block must gather at least d times (n * k >= grid * d), since
+    copying c costs a block 4 d bytes.  Everywhere else lanes per row:
+    P = min(32, the next power of two >= k) lanes per row, at most
+    BLOCKS_PER_SM blocks of THREADS per SM."""
+    if n < 0 or k < 1 or d < 1 or sm_count < 1:
+        raise ValueError(f"bad plan request n={n}, k={k}, d={d}, sm_count={sm_count}")
+    per_thread = max(1, min(_A_ROWS_PER_THREAD, _A_TILE_BYTES // (8 * k * THREADS)))
+    # the most rows whose 2 stages fit beside the smallest c (4 words):
+    # 16 round4(rows k + 3) + 56 bytes
+    fit = ((MAX_SMEM - 56) // 16 // 4 * 4 - 3) // k
+    rows = min(THREADS * per_thread, fit)
+    grid = max(1, min(sm_count, -(-n // rows)))
+    if rows >= MIN_ROWS and d <= max_smem_cols(k, rows) and n * k >= grid * d:
+        stages = min(_A_MAX_STAGES, max(2, _A_RING_BYTES // (8 * rows * k)),
+                     _stages_that_fit(k, rows, d))
+        return MarginPlan(1, rows, stages, grid, margin_smem_bytes(k, rows, stages, d))
     lanes = 1
     while lanes < min(k, 32):
         lanes *= 2
     rows = THREADS // lanes
-    grid = max(1, min(sm_count * BLOCKS_PER_SM, -(-n // rows)))
-    return MarginPlan(lanes, rows, grid)
+    return MarginPlan(lanes, rows, 0, max(1, min(sm_count * BLOCKS_PER_SM, -(-n // rows))), 0)
 
 
 @dataclass(frozen=True)
@@ -247,8 +308,8 @@ def _launch_a(loss_id: int, indices, values, coefficients, labels, weights,
     n, k = indices.shape
     if n * k > _INT32_MAX:
         raise ValueError(f"n * k = {n * k} slots exceed the kernels' int32 range")
-    if coefficients.ndim != 1:
-        raise ValueError("coefficients must be 1-D")
+    if coefficients.ndim != 1 or coefficients.shape[0] < 1:
+        raise ValueError("coefficients must be 1-D with at least one element")
     _check("indices", indices, torch.int32, (n, k), dev)
     _check("values", values, torch.float32, (n, k), dev)
     _check("coefficients", coefficients, torch.float32, coefficients.shape, dev)
@@ -258,7 +319,8 @@ def _launch_a(loss_id: int, indices, values, coefficients, labels, weights,
         _check("weights", weights, torch.float32, (n,), dev)
     if offsets is not None:
         _check("offsets", offsets, torch.float32, (n,), dev)
-    plan = plan_margins(n, k, _sm_count(dev.index))
+    d = coefficients.shape[0]
+    plan = plan_margins(n, k, d, _sm_count(dev.index))
     lib = _lib()
     out = torch.empty((n,), dtype=torch.float32, device=dev)
     value = torch.empty((1,), dtype=torch.float32, device=dev) if loss_id >= 0 else None
@@ -269,8 +331,8 @@ def _launch_a(loss_id: int, indices, values, coefficients, labels, weights,
         err = lib.pmt_ell_margin_loss(
             loss_id, indices.data_ptr(), values.data_ptr(), coefficients.data_ptr(),
             ptr(labels), ptr(weights), ptr(offsets), out.data_ptr(),
-            scratch.data_ptr(), ticket.data_ptr(), ptr(value), n, k, plan.lanes,
-            plan.grid, stream)
+            scratch.data_ptr(), ticket.data_ptr(), ptr(value), n, k, d, plan.lanes,
+            plan.rows, plan.stages, plan.grid, plan.smem_bytes, stream)
     _raise_if(err, lib, "ell_margin_loss")
     LAUNCHES["margin_loss" if loss_id >= 0 else "margins"] += 1
     return value, out

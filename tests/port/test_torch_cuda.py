@@ -560,3 +560,135 @@ def test_train_glm_sparse_on_card_matches_cpu_f64(cuda):
     np.testing.assert_allclose(card.model.coefficients.means.double().cpu().numpy(),
                                cpu.model.coefficients.means.numpy(), rtol=0, atol=1e-3)
     np.testing.assert_allclose(card.result.value.item(), cpu.result.value.item(), rtol=1e-5)
+
+
+# ------------------------------- kernel A's two c paths (staged rows, lanes)
+
+MARGIN_KS = (1, 2, 8, 25, 32, 33, 64, 65)
+
+
+def _ell_on_card(n, k, d, seed, skip=0):
+    """float32 ELL arrays on the card with <= k nonzeros per row at uniform
+    columns (padding: column 0, value 0), made there from a seed; with
+    skip=s, rows s.. of a contiguous [n + s, k] pair (a view at a byte
+    offset of 4 s k)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    m = n + skip
+    count = torch.randint(1, k + 1, (m, 1), generator=g, device="cuda")
+    pad = torch.arange(k, device="cuda")[None, :] >= count
+    idx = torch.randint(0, d, (m, k), generator=g, device="cuda", dtype=torch.int32)
+    val = 0.2 + 0.8 * torch.rand((m, k), generator=g, device="cuda")
+    idx[pad], val[pad] = 0, 0.0
+    return idx[skip:], val[skip:]
+
+
+def _c_path_case(k, side):
+    """(n, d) that put c in shared memory ("smem": staged rows, d at the
+    plan's limit) or just past it ("l2": one column more, lanes per row),
+    with enough rows that every block gathers more than d and n not a
+    multiple of the tile."""
+    from photon_ml_tpu_torch.ops import sparse_kernels as sk
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = sk.plan_margins(10 ** 7, k, 1, sms).rows
+    d = sk.max_smem_cols(k, rows) + (side == "l2")
+    n = (sms * d) // k // rows * rows + rows + 7
+    plan = sk.plan_margins(n, k, d, sms)
+    assert plan.c_in_smem == (side == "smem") and (side == "l2" or n % plan.rows)
+    return n, d
+
+
+def _a_against_plain(sk, x_idx, x_val, c, y, w, o):
+    """Kernel A (every loss, then margins) against its plain version."""
+    for name in sorted(TL.BY_NAME):
+        loss = TL.BY_NAME[name]
+        v, u = sk.ell_margin_loss(loss, x_idx, x_val, c, y, w, o)
+        v_p, u_p = sk.ell_margin_loss_plain(loss, x_idx, x_val, c, y, w, o)
+        np.testing.assert_allclose(v.item(), v_p.item(), rtol=1e-5, atol=1e-6, err_msg=name)
+        np.testing.assert_allclose(u.cpu().numpy(), u_p.cpu().numpy(), rtol=1e-4, atol=1e-4,
+                                   err_msg=name)
+    z = sk.ell_margins(x_idx, x_val, c, o)
+    z_p = sk.ell_margins_plain(x_idx, x_val, c, o)
+    assert bool(((z.double() - z_p.double()).abs()
+                 <= sk.margins_tolerance(x_idx, x_val, c, o) + 1e-30).all())
+
+
+@pytest.mark.parametrize("with_wo", [False, True], ids=["plain", "w+o"])
+@pytest.mark.parametrize("side", ["smem", "l2"])
+@pytest.mark.parametrize("k", MARGIN_KS)
+def test_margin_kernel_matches_plain_on_both_c_paths(cuda, k, side, with_wo):
+    """Kernel A with c staged in shared memory and with c one column too
+    wide for it (lanes per row, gathered from L2), every loss and margins
+    mode, against
+    the plain versions (value rtol 1e-5, u rtol/atol 1e-4, margins within
+    margins_tolerance)."""
+    from photon_ml_tpu_torch.ops import sparse_kernels as sk
+    n, d = _c_path_case(k, side)
+    idx, val = _ell_on_card(n, k, d, seed=k)
+    g = torch.Generator(device="cuda").manual_seed(100 + k)
+    c = torch.randn(d, generator=g, device="cuda") * (0.3 / k ** 0.5)
+    y = (torch.rand(n, generator=g, device="cuda") < 0.3).float()
+    w = 0.5 + 1.5 * torch.rand(n, generator=g, device="cuda") if with_wo else None
+    o = 0.1 * torch.randn(n, generator=g, device="cuda") if with_wo else None
+    _a_against_plain(sk, idx, val, c, y, w, o)
+
+
+@pytest.mark.parametrize("side", ["smem", "l2"])
+def test_margin_kernel_is_bit_stable_on_both_c_paths(cuda, side):
+    """Two calls around a call at another shape (which must find the ticket
+    reset): the same bits, on both c paths."""
+    from photon_ml_tpu_torch.ops import sparse_kernels as sk
+    n, d = _c_path_case(25, side)
+    idx, val = _ell_on_card(n, 25, d, seed=3)
+    c = torch.linspace(-0.05, 0.05, d, device="cuda")
+    y = (torch.arange(n, device="cuda") % 3 == 0).float()
+    o_idx, o_val = _ell_on_card(700, 5, 37, seed=4)
+    first = sk.ell_margin_loss(TL.LOGISTIC, idx, val, c, y) + (sk.ell_margins(idx, val, c),)
+    sk.ell_margin_loss(TL.POISSON, o_idx, o_val, torch.zeros(37, device="cuda"),
+                       torch.ones(700, device="cuda"))
+    second = sk.ell_margin_loss(TL.LOGISTIC, idx, val, c, y) + (sk.ell_margins(idx, val, c),)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("k", [3, 25, 201])
+def test_margin_kernel_takes_a_misaligned_view(cuda, k):
+    """Rows 1.. of contiguous ELL arrays start 4 k bytes in: kernel A's bulk
+    copies take the 16-byte aligned interior and ordinary loads the rest,
+    so the view is taken as it is (k = 201: lanes per row)."""
+    from photon_ml_tpu_torch.ops import sparse_kernels as sk
+    idx, val = _ell_on_card(3001, k, 500, seed=k, skip=1)
+    assert idx.is_contiguous() and idx.data_ptr() % 16 != 0
+    c = torch.linspace(-0.2, 0.2, 500, device="cuda")
+    y = (torch.arange(3001, device="cuda") % 4 == 0).float()
+    o = torch.linspace(-0.1, 0.1, 3001, device="cuda")
+    _a_against_plain(sk, idx, val, c, y, None, o)
+
+
+@pytest.mark.parametrize("k", [113, 200, 1000])
+def test_long_rows_match_plain(cuda, k):
+    """Rows too long for a staged tile (a warp per row) against plain."""
+    from photon_ml_tpu_torch.ops import sparse_kernels as sk
+    idx, val = _ell_on_card(2000, k, 50_000, seed=k)
+    assert sk.plan_margins(2000, k, 50_000, 132).lanes == 32
+    c = torch.linspace(-0.02, 0.02, 50_000, device="cuda")
+    y = (torch.arange(2000, device="cuda") % 4 == 0).float()
+    w = torch.linspace(0.5, 2.0, 2000, device="cuda")
+    _a_against_plain(sk, idx, val, c, y, w, None)
+
+
+@pytest.mark.parametrize("route", ["to", "pad_rows"])
+def test_margin_kernel_takes_moved_and_padded_matrices(cuda, route):
+    """A matrix built on the host and moved with .to, and one grown by
+    pad_rows (fresh arrays, as the GAME and validation paths build them):
+    kernel A takes them and agrees with plain."""
+    import scipy.sparse as sp
+    from photon_ml_tpu_torch.ops import features as fops
+    from photon_ml_tpu_torch.ops import sparse_kernels as sk
+    x = sp.random(5003, 2000, density=0.01, format="csr", random_state=4, dtype=np.float32)
+    m = fops.PaddedSparse.from_scipy(x, device="cpu").to("cuda")
+    if route == "pad_rows":
+        m = fops.pad_rows(m, 3)
+    n, d = m.shape
+    c = torch.linspace(-0.3, 0.3, d, device="cuda")
+    y = (torch.arange(n, device="cuda") % 2 == 0).float()
+    _a_against_plain(sk, m.indices, m.values, c, y, None, None)

@@ -15,9 +15,12 @@ the CPU; the sparse kernels' plain versions and launch plans.
   in-process: these are tiny jitted gathers.
 - The kernels' plain versions equal a dense reference (rtol 1e-12).
 - The kernels' launch plans are pure Python: replayed here at bench
-  configs 6 and 7's shapes, and kernel B's decomposition (tile map, runs
-  split at column ends, in-tile segmented scan, spanning-column finish)
-  replayed against the plain column sum.
+  configs 6 and 7's shapes; kernel A's decomposition (tiles of whole
+  rows, staggered slot order, unrolled partial sums, the value's block
+  order; or P lanes per row) replayed in float32 against the plain
+  margins and loss pass; kernel B's (tile map, runs split at column
+  ends, in-tile segmented scan, spanning-column finish) against the
+  plain column sum.
 - Kernel B's tile map is built with the column view and carried with it.
 """
 import re
@@ -244,33 +247,263 @@ def test_plain_margins_and_squared_column_sum_match_dense():
 # ------------------------------------------------------------ launch plans
 
 PLAN_SMS = 132
-# (name, n, k, nnz): bench config 6 ([200,000 x 250,000], <= 64 unique
+# (name, n, k, d, nnz): bench config 6 ([200,000 x 250,000], <= 64 unique
 # hashed features per row plus the intercept) and config 7's fixed effect
-# (285,135 training rows of [x 14,983], <= 24 plus the intercept)
-SHAPES = [("config6", 200_000, 65, 12_800_000), ("config7", 285_135, 25, 7_100_000),
-          ("n0", 0, 1, 0), ("n1", 1, 3, 3), ("n3", 3, 40, 100), ("k1", 1000, 1, 1000)]
+# (285,135 training rows of [x 14,983], <= 24 plus the intercept); k200:
+# rows too long for a staged tile
+SHAPES = [("config6", 200_000, 65, 250_000, 12_800_000),
+          ("config7", 285_135, 25, 14_983, 7_100_000),
+          ("n0", 0, 1, 37, 0), ("n1", 1, 3, 37, 3), ("n3", 3, 40, 37, 100),
+          ("k1", 1000, 1, 37, 1000), ("k200", 5000, 200, 20_000, 1_000_000)]
 
 
-@pytest.mark.parametrize("name,n,k,nnz", SHAPES, ids=[s[0] for s in SHAPES])
-def test_plans_cover_the_work_once(name, n, k, nnz):
-    """Replay kernel A's rounds and kernel B's tiles as the CUDA source
-    walks them."""
-    plan = sk.plan_margins(n, k, PLAN_SMS)
-    assert plan.lanes & (plan.lanes - 1) == 0 and plan.lanes <= 32
-    assert plan.lanes >= min(k, 32) and plan.lanes < 2 * max(k, 1)
-    assert plan.lanes * plan.rows_per_round == sk.THREADS
-    assert 1 <= plan.grid <= PLAN_SMS * sk.BLOCKS_PER_SM
-    rows = np.concatenate([
-        np.arange(b * plan.rows_per_round, n, plan.grid * plan.rows_per_round)[:, None]
-        + np.arange(plan.rows_per_round)[None, :] for b in range(plan.grid)]).ravel()
-    rows = rows[rows < n]
+def _margin_rows(plan, n: int, threads: int = sk.THREADS):
+    """Kernel A's rows as the CUDA source walks them: {(block, thread):
+    [rows in the order the thread takes them]}."""
+    out = {}
+    if plan.c_in_smem:
+        for b in range(plan.grid):
+            for r0 in range(b * plan.rows, n, plan.grid * plan.rows):
+                for r in range(min(plan.rows, n - r0)):
+                    out.setdefault((b, r % threads), []).append(r0 + r)
+    else:
+        for b in range(plan.grid):
+            for base in range(b * plan.rows, n, plan.grid * plan.rows):
+                for t in range(0, threads, plan.lanes):
+                    if base + t // plan.lanes < n:
+                        out.setdefault((b, t), []).append(base + t // plan.lanes)
+    return out
+
+
+@pytest.mark.parametrize("name,n,k,d,nnz", SHAPES, ids=[s[0] for s in SHAPES])
+def test_plans_cover_the_work_once(name, n, k, d, nnz):
+    """Replay kernel A's tiles (or its rounds of rows, lanes per row) and
+    kernel B's tiles as the CUDA source walks them."""
+    plan = sk.plan_margins(n, k, d, PLAN_SMS)
+    if plan.c_in_smem:
+        assert plan.lanes == 1 and k <= 112
+        assert sk.MIN_ROWS <= plan.rows and (plan.rows <= sk.THREADS
+                                             or plan.rows % sk.THREADS == 0)
+        assert 2 <= plan.stages and 1 <= plan.grid <= PLAN_SMS
+        assert n * k >= plan.grid * d and d <= sk.max_smem_cols(k, plan.rows)
+        assert plan.smem_bytes == sk.margin_smem_bytes(
+            k, plan.rows, plan.stages, d) <= sk.MAX_SMEM
+    else:
+        assert plan.lanes & (plan.lanes - 1) == 0 and plan.lanes <= 32
+        assert plan.lanes >= min(k, 32) and plan.lanes < 2 * k
+        assert (plan.lanes * plan.rows, plan.stages, plan.smem_bytes) == (sk.THREADS, 0, 0)
+        assert 1 <= plan.grid <= PLAN_SMS * sk.BLOCKS_PER_SM
+    rows = np.concatenate([np.asarray(r, np.int64)
+                           for r in _margin_rows(plan, n).values()] + [np.zeros(0, np.int64)])
     assert len(rows) == n and len(np.unique(rows)) == n
     assert n * k < 2 ** 31 and nnz < 2 ** 31
+    if name == "config7":
+        assert plan.c_in_smem and plan.rows == sk.THREADS  # 59.9 KB of c
+    if name in ("config6", "k200"):
+        assert plan.lanes == 32                           # 1.0 MB of c; long rows
 
     cp = sk.plan_columns(nnz)
     assert cp.tile == sk.TILE == cp.run * sk.THREADS and cp.tiles >= 1
     assert cp.tiles * cp.tile >= nnz and (nnz == 0 or (cp.tiles - 1) * cp.tile < nnz)
     assert cp.smem_bytes <= 48 * 1024  # the block's static shared memory
+
+
+def _tree(p: np.ndarray) -> np.ndarray:
+    """Pairwise sums of the last axis until one is left: the CUDA
+    source's ((p0 + p1) + (p2 + p3)) + ... for a power-of-two length."""
+    while p.shape[-1] > 1:
+        p = p[..., 0::2] + p[..., 1::2]
+    return p[..., 0]
+
+
+def _block_sum(v: np.ndarray) -> np.float32:
+    """block_sum: each warp's xor-shuffle tree, then the warps in order."""
+    v = np.concatenate([v, np.zeros(-len(v) % 32, v.dtype)]).reshape(-1, 32)
+    off = 16
+    while off:
+        v = v + v[:, np.arange(32) ^ off]
+        off >>= 1
+    s = np.float32(0)
+    for w in v[:, 0]:
+        s = np.float32(s + w)
+    return s
+
+
+def replay_margins(indices: np.ndarray, values: np.ndarray, c: np.ndarray,
+                   offsets=None, *, plan, threads: int = sk.THREADS,
+                   unroll: int = sk.UNROLL, terms=None):
+    """Kernel A in numpy, in the values' dtype, step for step as
+    csrc/ell_sparse.cu walks it.  Staged rows (plan.stages > 0): tiles of
+    plan.rows rows dealt to blocks in turn, the last one short; thread t
+    takes rows t, t + threads, ... of a tile; row r of a tile visits its
+    slots from r % k when k is even (0 when odd), wrapping, visit i into
+    partial i % unroll; the partials meet in a pairwise tree.  Lanes per
+    row (plan.stages 0, plan.lanes = P): lane j sums slots j, j + P, ...
+    and the lanes meet in an xor tree.
+    Asserts that every slot is visited once.  Returns z; with `terms`
+    (a function z -> the rows' w l), also the value as the kernel sums it:
+    each thread's rows in order, each block's block_sum, then the last
+    block's threads each summing the partials b = t, t + block, ... and
+    one more block_sum."""
+    n, k = indices.shape
+    dt = values.dtype.type
+    prod = lambda r, s: values[r, s] * c[indices[r, s]]
+    z = np.zeros(n, values.dtype)
+    seen = np.zeros((n, k), int)
+    if plan.c_in_smem:
+        for b in range(plan.grid):
+            for r0 in range(b * plan.rows, n, plan.grid * plan.rows):
+                r = np.arange(min(plan.rows, n - r0))
+                first = np.zeros_like(r) if k % 2 else r % k
+                p = np.zeros((len(r), unroll), values.dtype)
+                for i in range(k):
+                    s = first + i
+                    s = np.where(s >= k, s - k, s)
+                    p[:, i % unroll] += prod(r0 + r, s)
+                    seen[r0 + r, s] += 1
+                z[r0 + r] = _tree(p)
+        block_threads = threads + 32
+    else:
+        lanes = np.zeros((n, plan.lanes), values.dtype)
+        for j in range(k):
+            lanes[:, j % plan.lanes] += prod(np.arange(n), np.full(n, j))
+            seen[:, j] += 1
+        off = plan.lanes // 2
+        while off:
+            lanes = lanes + lanes[:, np.arange(plan.lanes) ^ off]
+            off >>= 1
+        z = lanes[:, 0].copy()
+        block_threads = threads
+    assert (seen == 1).all()
+    if offsets is not None:
+        z = z + offsets
+    if terms is None:
+        return z
+    wl = terms(z)
+    partial = np.zeros(plan.grid, values.dtype)
+    for b in range(plan.grid):
+        acc = np.zeros(block_threads, values.dtype)
+        for (bb, t), rows in _margin_rows(plan, n, threads).items():
+            if bb == b:
+                for r in rows:
+                    acc[t] = dt(acc[t] + wl[r])
+        partial[b] = _block_sum(acc)
+    last = np.zeros(block_threads, values.dtype)
+    for t in range(block_threads):
+        for q in partial[t::block_threads]:
+            last[t] = dt(last[t] + q)
+    return z, _block_sum(last)
+
+
+def _ell(n: int, k: int, d: int, seed: int):
+    """float32 ELL arrays with <= k nonzeros per row (padding slots: column
+    0, value 0), rows 0 and 2 empty."""
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(1, k + 1, size=n)
+    counts[[0, 2]] = 0
+    idx = rng.integers(0, d, size=(n, k)).astype(np.int32)
+    val = rng.uniform(0.2, 1.0, size=(n, k)).astype(np.float32)
+    pad = np.arange(k)[None, :] >= counts[:, None]
+    idx[pad], val[pad] = 0, 0.0
+    return idx, val
+
+
+MARGIN_KS = [1, 2, 8, 25, 32, 33, 64, 65]
+# replay tilings: the kernel's own plan, tiles of 5 rows over 3 blocks of 4
+# threads (two rows per thread, the last tile short), tiles of 3 rows over
+# 2 blocks of 8 threads (idle threads)
+REPLAY_TILES = {"plan": None, "5x3x4": (5, 3, 4), "3x2x8": (3, 2, 8)}
+
+
+@pytest.mark.parametrize("tiling", list(REPLAY_TILES))
+@pytest.mark.parametrize("k", MARGIN_KS)
+def test_margin_tiles_replay_the_plain_margins(k, tiling):
+    """Kernel A's decomposition, replayed in float32, lands within
+    margins_tolerance of the plain margins (n = 701: no tiling divides
+    it), and its value and u within the card checks' tolerances of the
+    plain loss pass."""
+    n, d = 701, 90
+    idx, val = _ell(n, k, d, seed=k)
+    rng = np.random.default_rng(100 + k)
+    c = (rng.normal(size=d) * 0.3 / np.sqrt(k)).astype(np.float32)
+    o = (rng.normal(size=n) * 0.1).astype(np.float32)
+    y = (rng.uniform(size=n) < 0.3).astype(np.float32)
+    w = rng.uniform(0.5, 2.0, size=n).astype(np.float32)
+    if REPLAY_TILES[tiling] is None:
+        plan, threads = sk.plan_margins(n, k, d, PLAN_SMS), sk.THREADS
+        assert plan.c_in_smem and plan.grid == -(-n // plan.rows)
+    else:
+        rows, grid, threads = REPLAY_TILES[tiling]
+        plan = sk.MarginPlan(1, rows, 2, grid, 0)
+    t_ = torch.from_numpy
+    loss = TL.LOGISTIC
+
+    def terms(z):
+        l, _ = loss.loss_and_dz(t_(z), t_(y))
+        return (l * t_(w)).numpy()
+
+    z, value = replay_margins(idx, val, c, o, plan=plan, threads=threads, terms=terms)
+    want = sk.ell_margins_plain(t_(idx), t_(val).double(), t_(c).double(), t_(o).double())
+    tol = sk.margins_tolerance(t_(idx), t_(val), t_(c), t_(o))
+    assert bool(((t_(z).double() - want).abs() <= tol + 1e-30).all())
+    v_p, u_p = sk.ell_margin_loss_plain(loss, t_(idx), t_(val).double(), t_(c).double(),
+                                        t_(y).double(), t_(w).double(), t_(o).double())
+    _, dl = loss.loss_and_dz(t_(z), t_(y))
+    np.testing.assert_allclose(float(value), v_p.item(), rtol=1e-5)
+    np.testing.assert_allclose((dl * t_(w)).numpy(), u_p.numpy(), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("k", [1, 3, 25, 65, 113, 200])
+def test_lanes_per_row_replay_the_plain_margins(k):
+    """Where c is gathered from L2 (here: d too wide to stage), P lanes per
+    row: the lanes' sums and their xor tree, replayed, within
+    margins_tolerance."""
+    n, d = 300, 60_000
+    idx, val = _ell(n, k, d, seed=k)
+    c = (np.random.default_rng(k).normal(size=d) * 0.05).astype(np.float32)
+    plan = sk.plan_margins(n, k, d, PLAN_SMS)
+    assert plan.lanes == min(32, 1 << (k - 1).bit_length()) and not plan.c_in_smem
+    z = replay_margins(idx, val, c, plan=plan)
+    t_ = torch.from_numpy
+    want = sk.ell_margins_plain(t_(idx), t_(val).double(), t_(c).double())
+    assert bool(((t_(z).double() - want).abs()
+                 <= sk.margins_tolerance(t_(idx), t_(val), t_(c)) + 1e-30).all())
+
+
+def _source() -> str:
+    return (Path(sk.__file__).resolve().parent.parent / "csrc" / "ell_sparse.cu").read_text()
+
+
+def test_margin_plan_fits_shared_memory_and_matches_the_source():
+    """Kernel A's constants agree with csrc/ell_sparse.cu; its plan's
+    shared memory is the layout the source states (c, then the stages'
+    index and value spans with 3 words of room each, then 2 stages + 1
+    mbarriers) and fits a block's 227 KB; c is staged exactly up to
+    max_smem_cols."""
+    assert (_constexpr("kThreads"), _constexpr("kUnroll"), _constexpr("kMaxSmem")) == (
+        sk.THREADS, sk.UNROLL, sk.MAX_SMEM)
+    src = _source()
+    for line in ("L.ring = round4(cols + 3);", "L.span = round4(rows * k + 3);",
+                 "L.stage = 2 * L.span;", "L.bars = L.ring + stages * L.stage;",
+                 "L.bytes = L.bars * 4 + (2 * stages + 1) * 8;"):
+        assert line in src, line
+    r4 = lambda v: (v + 3) // 4 * 4
+    for n, k, d in ((285_135, 25, 14_983), (701, 1, 37), (10 ** 6, 8, 20_000),
+                    (3, 40, 37), (50_000, 112, 30), (10 ** 6, 56, 400)):
+        plan = sk.plan_margins(n, k, d, PLAN_SMS)
+        assert plan.c_in_smem and plan.lanes == 1
+        assert plan.smem_bytes == 4 * (r4(d + 3) + plan.stages * 2 * r4(plan.rows * k + 3)) \
+            + 8 * (2 * plan.stages + 1)
+        assert plan.smem_bytes <= sk.MAX_SMEM < 232_448
+        # the most rows whose 2 stages fit beside the smallest c
+        most = max(r for r in range(1, 2048) if sk.margin_smem_bytes(k, r, 2, 1) <= sk.MAX_SMEM)
+        assert plan.rows <= most and (plan.rows >= sk.THREADS or plan.rows == most)
+        edge = sk.max_smem_cols(k, plan.rows)
+        assert sk.margin_smem_bytes(k, plan.rows, 2, edge) <= sk.MAX_SMEM
+        assert sk.margin_smem_bytes(k, plan.rows, 2, edge + 1) > sk.MAX_SMEM
+        big = 10 ** 7 // k  # enough rows that every block gathers more than d
+        assert sk.plan_margins(big, k, edge, PLAN_SMS).c_in_smem
+        assert not sk.plan_margins(big, k, edge + 1, PLAN_SMS).c_in_smem
 
 
 def _tile_map(end: np.ndarray, tile: int) -> np.ndarray:
@@ -482,8 +715,7 @@ def test_column_sum_replay_at_tile_lengths(nnz):
 
 
 def _constexpr(name: str) -> int:
-    src = (Path(sk.__file__).resolve().parent.parent / "csrc" / "ell_sparse.cu").read_text()
-    value = re.search(rf"constexpr int {name} = ([^;]+);", src).group(1)
+    value = re.search(rf"constexpr int {name} = ([^;]+);", _source()).group(1)
     return int(eval(value, {"kThreads": sk.THREADS, "kRun": sk.RUN}))
 
 
