@@ -112,7 +112,34 @@ Phases, one JSON object per line on stdout:
      refit that must repeat the objective history bit for bit; the kernels
      at the fixed effect's shape with the residual scores as offsets; one
      profiled outer iteration;
- 16. the kernels line, nvidia-smi's line, and the final result line.
+ 16. config5_convex: BASELINE config 5's convex subset (bench.py
+     bench_config5, _game_setup("20m", 2,000,000, seed=13, mode="convex"))
+     at its published widths and 2,000,000 rows, make_movielens_like("20m")
+     (138,493 users, 26,744 items), 95/5 split, a fixed effect on "global"
+     (d = 33) and per-user ("per_user", d = 21) and per-item ("per_item",
+     d = 13) random effects (cap 512), LBFGS(100), L2 lambda 1, two outer
+     iterations, through GameEstimator.fit on cuda in float32: the final
+     objective within 1e-4 relative of the float64 reference in
+     bench_ref_cache.json, the fused kernel's launches equal to the fixed
+     effect's summed fg_count, AUC in (0.5, 1); prints the fit wall,
+     examples/s, the spans (the random-effect builds in build/coordinates),
+     each bucket's [E, S, d], rounds and seconds; the kernel against its
+     plain version and timed at the fixed effect's shape with the residual
+     scores as offsets; one profiled outer iteration;
+ 17. config5_full: the same datasets (the random-effect blocks of the
+     convex fit are reused) with the factored per-user coordinate added
+     (latent dim 8, cap 256, LBFGS(50) for its latent-space and
+     projection problems): the final objective at most 1e-4 relative
+     above the float64 reference (one-sided: the factored coordinate is
+     not convex, bench.py's note), the fused kernel's launches equal to
+     the fixed effect's summed fg_count, AUC in (0.5, 1), and the factored
+     coordinate's projection taken from perUser's solution at its first
+     visit; prints the factored coordinate's inner solves (latent-space
+     rounds, the projection refit's iterations and passes), the
+     KroneckerDesign products and the latent projection timed at the
+     full [E x 256]-row view beside their byte bounds, the spans and one
+     profiled outer iteration;
+ 18. the kernels line, nvidia-smi's line, and the final result line.
 Exits non-zero, before printing any result, when CUDA is absent or when
 the port's package is not beside this script.
 """
@@ -165,6 +192,14 @@ YAHOO_REF_KEY = "yahoo:300000:23:yahoo:v=g2"
 YAHOO_ROWS, YAHOO_SEED, YAHOO_OUTER = 300_000, 23, 2
 YAHOO_RTOL = 1e-4
 SPARSE_REPS = 20
+# BASELINE config 5 (bench.py bench_config5, _game_setup at the references'
+# row count) and its float64 reference fits; the full entry's gate is
+# one-sided (its factored coordinate is not convex)
+CONFIG5_ROWS, CONFIG5_SEED, CONFIG5_OUTER = 2_000_000, 13, 2
+CONFIG5_REF_KEYS = {"convex": "20m:2000000:13:convex:v=g2",
+                    "full": "20m:2000000:13:full:v=g2"}
+CONFIG5_RTOL = 1e-4
+CONFIG5_LATENT_DIM, CONFIG5_MF_CAP = 8, 256
 # kernel A's checks on both c paths (run_margin_checks)
 MARGIN_KS = (1, 2, 8, 25, 32, 33, 64, 65)
 SPARSE_DESIGN = {
@@ -485,14 +520,17 @@ def fe_passes(descent) -> int:
 
 
 def glmix_report(result, fit_s, n_train, launches, ref_nll, fe_dim=31,
-                 re_dims=(("perUser", 19),), outer=GLMIX_OUTER) -> dict:
+                 re_dims=(("perUser", 19),), outer=GLMIX_OUTER,
+                 other_coordinates=0) -> dict:
     """A GLMix fit's line: the fit's numbers and its checks (config 4's
-    shapes by default: fixed effect d = 31, per-user random effect d = 19)."""
+    shapes by default: fixed effect d = 31, per-user random effect d = 19;
+    `other_coordinates` counts coordinates beyond those, whose models the
+    caller checks)."""
     import torch
     d = result.descent
     final = float(d.objective_history[-1])
     model = d.model.coordinates
-    finite = (len(d.objective_history) == (1 + len(re_dims)) * outer
+    finite = (len(d.objective_history) == (1 + len(re_dims) + other_coordinates) * outer
               and all(np.isfinite(d.objective_history))
               and tuple(model["fixed"].glm.coefficients.means.shape) == (fe_dim,)
               and bool(torch.isfinite(model["fixed"].glm.coefficients.means).all())
@@ -516,7 +554,8 @@ def glmix_report(result, fit_s, n_train, launches, ref_nll, fe_dim=31,
                            {"E_S_d": list(b.shape), "max_iterations": b.max_iterations,
                             "total_iterations": b.total_iterations, "rounds": b.rounds,
                             "hv_rounds": b.hv_rounds, "seconds": b.seconds}
-                           for b in t.buckets]}
+                           for b in t.buckets],
+                       **({"inner": t.inner} if t.inner is not None else {})}
                    for k, t in d.trackers.items()},
         "random_effect_entities": {name: int(model[name].coefficients.shape[0])
                                    for name, _ in re_dims},
@@ -1031,6 +1070,204 @@ def yahoo_setup():
     return train, val, cfg
 
 
+def config5_setup(rows: int = CONFIG5_ROWS):
+    """Config 5's (train, validation, convex config, full config) as
+    bench.py's _game_setup builds them for its float32 run (salt 0)."""
+    from photon_ml_tpu_torch.data.game_data import build_game_dataset
+    from photon_ml_tpu_torch.data.synthetic_bench import make_movielens_like, movielens_shards
+    from photon_ml_tpu_torch.game import (
+        FactoredRandomEffectCoordinateConfig, FixedEffectCoordinateConfig,
+        GameTrainingConfig, GLMOptimizationConfig, RandomEffectCoordinateConfig,
+    )
+    from photon_ml_tpu_torch.optim.config import (
+        OptimizerConfig, RegularizationContext, RegularizationType,
+    )
+    ml = make_movielens_like("20m", seed=CONFIG5_SEED, n_rows=rows)
+    shards = {k: v.astype(np.float32) for k, v in movielens_shards(ml).items()}
+    ds = build_game_dataset(ml.response.astype(np.float32), shards,
+                            entity_ids={"userId": ml.user_ids, "itemId": ml.item_ids})
+    rng = np.random.default_rng(CONFIG5_SEED + 99)
+    val_mask = rng.uniform(size=ds.num_rows) < 0.05
+    train = ds.subset(np.flatnonzero(~val_mask))
+    val = ds.subset(np.flatnonzero(val_mask))
+    opt = lambda it: GLMOptimizationConfig(
+        optimizer=OptimizerConfig(max_iterations=it),
+        regularization=RegularizationContext(RegularizationType.L2),
+        regularization_weight=1.0)
+    coords = {
+        "fixed": FixedEffectCoordinateConfig("global", opt(100)),
+        "perUser": RandomEffectCoordinateConfig("userId", "per_user", opt(100),
+                                                active_data_upper_bound=512),
+        "perItem": RandomEffectCoordinateConfig("itemId", "per_item", opt(100),
+                                                active_data_upper_bound=512)}
+    convex = GameTrainingConfig(
+        task_type="logistic_regression", coordinates=coords,
+        updating_sequence=["fixed", "perUser", "perItem"],
+        num_outer_iterations=CONFIG5_OUTER, seed=CONFIG5_SEED)
+    full = dataclasses.replace(
+        convex, coordinates={**coords, "perUserMF": FactoredRandomEffectCoordinateConfig(
+            "userId", "per_user", latent_dim=CONFIG5_LATENT_DIM, optimization=opt(50),
+            latent_optimization=opt(50), active_data_upper_bound=CONFIG5_MF_CAP)},
+        updating_sequence=["fixed", "perUser", "perItem", "perUserMF"])
+    return train, val, convex, full
+
+
+def time_op(fn, reps: int = 10) -> dict:
+    """Median and least device ms of fn() over `reps` runs (cuda_ms)."""
+    fn()
+    times = [cuda_ms(fn) for _ in range(reps)]
+    return {"ms": statistics.median(times), "min_ms": min(times), "reps": reps}
+
+
+def time_kronecker(blocks, latent, projection) -> dict:
+    """The factored coordinate's matrix products at its full single-S
+    view, each beside the least time its bytes take (each input read once,
+    each output written once) and its f32 operations at the peak: the
+    latent projection [E, S, d] x [d, k], and the KroneckerDesign's matvec
+    and rmatvec over n = E * S rows (two and one matrix products)."""
+    import torch
+    from photon_ml_tpu_torch.ops import features as fops
+    from photon_ml_tpu_torch.parallel.factored import project_blocks
+    E, S, d = blocks.x.shape
+    k = latent.shape[1]
+    n = E * S
+    kd = fops.KroneckerDesign(blocks.x.reshape(n, d), torch.repeat_interleave(latent, S, dim=0))
+    v = projection.reshape(-1).contiguous()
+    u = torch.linspace(-1.0, 1.0, n, device="cuda", dtype=torch.float32)
+
+    def bound(nbytes, flops):
+        b, o = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F32_FLOPS * 1e3
+        return {"bound_ms": max(b, o), "bound_by": "bytes" if b >= o else "operations"}
+    out = {"view": [E, S, d], "rows": n, "latent_dim": k}
+    for name, fn, nbytes, flops in (
+            ("matvec", lambda: fops.matvec(kd, v), 4 * (n * d + n * k + k * d + n),
+             2 * n * d * k + 2 * n * k),
+            ("rmatvec", lambda: fops.rmatvec(kd, u), 4 * (n * d + n * k + n + k * d),
+             n * k + 2 * n * d * k),
+            ("project_blocks", lambda: project_blocks(blocks, projection),
+             4 * (n * d + 2 * n + k * d + n * k), 2 * n * d * k + n * k)):
+        t = time_op(fn)
+        t.update(bound(nbytes, flops))
+        t["share_of_bound"] = t["bound_ms"] / t["ms"]
+        out[name] = t
+    out["pass_ms"] = out["matvec"]["ms"] + out["rmatvec"]["ms"]
+    out["pass_bound_ms"] = out["matvec"]["bound_ms"] + out["rmatvec"]["bound_ms"]
+    return out
+
+
+def config5_phase(hk, ref_cache, kind, smi, sms) -> dict:
+    """BASELINE config 5, convex and then full, through GameEstimator.fit
+    on the card, on one pair of datasets (their checks raise); the kernel
+    at the fixed effect's shape, the Kronecker products at the factored
+    coordinate's view, and one profiled outer iteration of each."""
+    import torch
+    from photon_ml_tpu_torch.data.batching import build_random_effect_dataset
+    from photon_ml_tpu_torch.game import GameEstimator
+    from photon_ml_tpu_torch.ops.losses import LOGISTIC
+    t0 = time.perf_counter()
+    train, val, convex, full = config5_setup()
+    emit({"phase": "config5_data", "n_train": train.num_rows, "n_val": val.num_rows,
+          "users": int(train.num_entities("userId")),
+          "items": int(train.num_entities("itemId")),
+          "widths": {k: int(v.shape[1]) for k, v in train.feature_shards.items()},
+          "seconds": time.perf_counter() - t0})
+    local_dim = lambda cfg, name: build_random_effect_dataset(
+        train, cfg.coordinates[name].data_config(CONFIG5_SEED), device="cuda",
+        block_dtype=torch.float32).local_dim
+    out = {}
+    for mode, cfg in (("convex", convex), ("full", full)):
+        phase = f"config5_{mode}"
+        ref = ref_cache[CONFIG5_REF_KEYS[mode]]["ref_nll"]
+        hk.LAUNCHES = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        result = GameEstimator(cfg, device="cuda").fit(train, val, ["AUC"])
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = hk.LAUNCHES
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        re_dims = tuple((name, local_dim(cfg, name)) for name in ("perUser", "perItem"))
+        g = glmix_report(result, fit_s, train.num_rows, launches, ref, fe_dim=33,
+                         re_dims=re_dims, outer=CONFIG5_OUTER,
+                         other_coordinates=int(mode == "full"))
+        line = {"phase": phase, "entry": "photon_ml_tpu_torch.game.GameEstimator.fit",
+                "config": f"bench.py bench_config5 ({mode}, {CONFIG5_ROWS} rows)",
+                "ref_key": CONFIG5_REF_KEYS[mode], "peak_device_memory_gib": peak_gb,
+                "device": kind, "nvidia_smi": smi}
+        if mode == "full":
+            mf = result.descent.model.coordinates["perUserMF"]
+            g["finite"] = (g["finite"] and tuple(mf.latent_coefficients.shape)
+                           == (mf.num_entities, CONFIG5_LATENT_DIM)
+                           and tuple(mf.projection.shape) == (CONFIG5_LATENT_DIM, 21)
+                           and bool(torch.isfinite(mf.latent_coefficients).all())
+                           and bool(torch.isfinite(mf.projection).all()))
+            line["warm_starts"] = result.descent.warm_starts
+            line["factored_entities"] = mf.num_entities
+        emit({**line, **g})
+        if mode == "convex":
+            check_glmix(phase, g, CONFIG5_RTOL)
+        else:
+            if not g["finite"]:
+                raise SystemExit(f"{phase}: non-finite or misshapen objective or coefficients")
+            if not (g["kernel_launches"] == g["fe_passes"] > 0):
+                raise SystemExit(f"{phase}: kernel launches {g['kernel_launches']} != "
+                                 f"fixed-effect passes {g['fe_passes']}")
+            if not g["final_objective"] <= ref * (1 + CONFIG5_RTOL):
+                raise SystemExit(f"{phase}: objective {g['final_objective']} is "
+                                 f"{g['nll_rel_gap']:.3e} above the reference {ref}")
+            if not 0.5 < g["validation_auc"] < 1.0:
+                raise SystemExit(f"{phase}: validation AUC {g['validation_auc']}")
+            if result.descent.warm_starts != {"perUserMF": "perUser"}:
+                raise SystemExit(f"{phase}: the factored coordinate was not warm-started "
+                                 f"from perUser: {result.descent.warm_starts}")
+        final = result.descent.model.coordinates
+        if mode == "convex":
+            # the kernel at the fixed effect's shape, offsets = the residual scores
+            x5 = train.device_shard("global", "cuda", torch.float32)
+            y5 = torch.as_tensor(train.response, dtype=torch.float32, device="cuda")
+            o5 = (final["perUser"].score_dataset(train)
+                  + final["perItem"].score_dataset(train)).contiguous()
+            ok, err, v_rel, g_rel = compare(hk, LOGISTIC, x5, y5,
+                                            final["fixed"].glm.coefficients.means, None, o5)
+            emit({"phase": "check", "size": "config5_fixed_effect", "shape": list(x5.shape),
+                  "loss": "logistic", "inputs": "offsets", "ok": ok, "max_abs_err": err,
+                  "value_rel_err": v_rel, "grad_err_over_tol": g_rel})
+            if not ok:
+                raise SystemExit("kernel disagrees with its plain version at config 5's "
+                                 "fixed effect")
+            timing = time_full(hk, LOGISTIC, x5, y5, o5)
+            emit({"phase": "timing", "shape": list(x5.shape), "loss": "logistic",
+                  "inputs": "offsets", "reps": REPS, "device": kind, "nvidia_smi": smi,
+                  "plan": dataclasses.asdict(hk.plan_fused(*x5.shape, sms)),
+                  "kernel_ms": timing["ms"], **timing})
+            out["timing"] = {**timing, "shape": list(x5.shape), "max_abs_err": err}
+            del x5, y5, o5
+        else:
+            red = build_random_effect_dataset(
+                train, cfg.coordinates["perUserMF"].data_config(CONFIG5_SEED),
+                device="cuda", block_dtype=torch.float32)
+            kron = time_kronecker(red.blocks, final["perUserMF"].latent_coefficients,
+                                  final["perUserMF"].projection)
+            torch.cuda.empty_cache()
+            emit({"phase": "kronecker_timing", "device": kind, "nvidia_smi": smi, **kron})
+            out["kronecker"] = kron
+        # one outer iteration under the profiler (blocks and device shards
+        # are memoized on the datasets, so this is the descent)
+        res1, prof = profile_call(lambda: GameEstimator(
+            dataclasses.replace(cfg, num_outer_iterations=1), device="cuda").fit(
+                train, val, ["AUC"]))
+        prof["fe_passes"] = fe_passes(res1.descent)
+        prof["spans_s"] = dict(res1.descent.timings)
+        emit({"phase": f"{phase}_profile", "outer_iterations": 1, "device": kind,
+              "nvidia_smi": smi, **prof})
+        if prof["fused_kernel_launches"] != prof["fe_passes"]:
+            raise SystemExit(f"{phase} profile: {prof['fused_kernel_launches']} device "
+                             f"launches of the kernel for {prof['fe_passes']} passes")
+        out[mode] = launches
+        del result, res1
+    return out
+
+
 def reset_launches(hk, sk) -> None:
     hk.LAUNCHES = 0
     for key in sk.LAUNCHES:
@@ -1518,16 +1755,19 @@ def main() -> int:
 
     c6 = config6_phase(hk, sk, ref_cache, kind, smi)
     c7 = yahoo_phase(hk, sk, ref_cache, kind, smi)
+    c5 = config5_phase(hk, ref_cache, kind, smi, sms)
 
     emit({"kernels": [{
         "name": "fused_value_and_gradient",
         "route": "cuda",
         "source": "photon_ml_tpu_torch/csrc/fused_value_and_gradient.cu",
         "replaces": "photon_ml_tpu/ops/pallas_kernels.py:150",
-        "launches": launches + g_launches + c2_launches + c3["kernel_launches"] + t_launches,
+        "launches": (launches + g_launches + c2_launches + c3["kernel_launches"] + t_launches
+                     + c5["convex"] + c5["full"]),
         "launches_by_path": {"train_glm": launches, "glmix": g_launches,
                              "config2": c2_launches, "config3": c3["kernel_launches"],
-                             "glmix_tron": t_launches},
+                             "glmix_tron": t_launches, "config5_convex": c5["convex"],
+                             "config5_full": c5["full"]},
         "max_abs_err": max_abs_err,
         "tolerance": f"value rtol {VALUE_RTOL}, gradient rtol {GRAD_RTOL} atol {GRAD_ATOL}",
         "ms": timing["ms"],
@@ -1546,6 +1786,9 @@ def main() -> int:
         "at_config2_shape": {name: {k: f[k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "hbm_share",
             "ms_over_library", "max_abs_err")} for name, f in fvg_at_config2.items()},
+        "at_config5_shape": {k: c5["timing"][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "hbm_share",
+            "ms_over_library", "shape", "max_abs_err")},
     }] + [sparse_kernel_entry(name, part, c6, c7) for name, part in (
         ("ell_margin_loss", "a"), ("csc_column_sum", "b"))],
         "seconds": time.perf_counter() - t_start})

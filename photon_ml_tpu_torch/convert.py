@@ -64,11 +64,25 @@ def game_model_from_numpy(task_type: str, coordinates: Dict[str, dict],
 
       {"kind": "random_effect", "random_effect_type", "feature_shard",
        "coefficients" [E, d_local], "entity_ids" [E], "projection"
-       [E, d_local] or None, "global_dim"[, "variances"]}
+       [E, d_local] or None, "global_dim"[, "variances",
+       "projection_matrix" [d_local, d_global]]}
 
-    (a JAX RandomEffectModel's fields)."""
+    (a JAX RandomEffectModel's fields), or
+
+      {"kind": "factored_random_effect", "random_effect_type",
+       "feature_shard", "latent_coefficients" [E, k], "projection" [k, d],
+       "entity_ids" [E], "global_dim"}
+
+    (a JAX FactoredRandomEffectModel's), or
+
+      {"kind": "matrix_factorization", "row_effect_type",
+       "col_effect_type", "row_factors" [R, k], "row_ids" [R],
+       "col_factors" [C, k], "col_ids" [C]}
+
+    (a JAX MatrixFactorizationModel's)."""
     from photon_ml_tpu_torch.models.game import (
-        FixedEffectModel, GameModel, RandomEffectModel,
+        FactoredRandomEffectModel, FixedEffectModel, GameModel,
+        MatrixFactorizationModel, RandomEffectModel,
     )
     dev = resolve_device(device)
     models = {}
@@ -86,8 +100,24 @@ def game_model_from_numpy(task_type: str, coordinates: Dict[str, dict],
                 entity_ids=np.asarray(c["entity_ids"]),
                 projection=None if proj is None else np.asarray(proj),
                 global_dim=int(c["global_dim"]),
-                variances=_tensor(c.get("variances"), dev))
+                variances=_tensor(c.get("variances"), dev),
+                projection_matrix=_tensor(c.get("projection_matrix"), dev))
+        elif c["kind"] == "factored_random_effect":
+            models[name] = FactoredRandomEffectModel(
+                random_effect_type=c["random_effect_type"],
+                feature_shard=c["feature_shard"], task_type=task_type,
+                latent_coefficients=_tensor(c["latent_coefficients"], dev),
+                projection=_tensor(c["projection"], dev),
+                entity_ids=np.asarray(c["entity_ids"]),
+                global_dim=int(c["global_dim"]))
+        elif c["kind"] == "matrix_factorization":
+            models[name] = MatrixFactorizationModel(
+                row_effect_type=c["row_effect_type"],
+                col_effect_type=c["col_effect_type"],
+                row_factors=_tensor(c["row_factors"], dev),
+                row_ids=np.asarray(c["row_ids"]),
+                col_factors=_tensor(c["col_factors"], dev),
+                col_ids=np.asarray(c["col_ids"]))
         else:
-            raise ValueError(f"coordinate {name!r}: unknown kind {c['kind']!r} "
-                             "(factored models are ROADMAP.md queue A item 13)")
+            raise ValueError(f"coordinate {name!r}: unknown kind {c['kind']!r}")
     return GameModel(models, task_type)

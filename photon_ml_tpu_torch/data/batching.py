@@ -8,10 +8,12 @@ the same blocks bit for bit, sampling included: numpy's
 `default_rng(config.seed)`); the finished [E, S, d] blocks go to the
 device once.  The training loop touches only tensors after this point.
 
+The `random_projection:<k>` projector's Gaussian matrix is the JAX
+package's draw, from utils/prng.py's copy of its PRNG (drawn in the blocks'
+dtype, as the JAX package draws in its default float).
+
 Not ported yet: host block copies and block eviction (`keep_host_blocks`,
-ROADMAP.md queue A item 15, out-of-core training) and the
-`random_projection:<k>` projector (queue A item 13, with the factored
-random effects that share its Gaussian projection).
+ROADMAP.md queue A item 15, out-of-core training).
 """
 from __future__ import annotations
 
@@ -53,7 +55,7 @@ class RandomEffectDataConfig:
     active_data_upper_bound: Optional[int] = None
     passive_data_lower_bound: Optional[int] = None
     features_to_samples_ratio: Optional[float] = None
-    # "index_map" | "identity" | "random_projection:<k>" (not ported yet)
+    # "index_map" | "identity" | "random_projection:<k>"
     projector: str = "index_map"
     seed: int = 7
     # cap on the number of S-buckets (None = one bucket per power-of-two
@@ -145,6 +147,9 @@ class RandomEffectDataset:
     # canonical rows capped out of entities whose leftover count is at or
     # below passive_data_lower_bound: discarded, not scored (lane -1)
     discarded_rows: Optional[np.ndarray] = None
+    # dense shared Gaussian projection [k + 1, d_global] of the
+    # random_projection:<k> projector (exclusive with `projection`)
+    projection_matrix: Optional[np.ndarray] = None
     _global_blocks: Optional[EntityBlocks] = dataclasses.field(
         default=None, repr=False, compare=False)
     _global_row_ids: Optional[np.ndarray] = dataclasses.field(
@@ -218,7 +223,12 @@ class RandomEffectDataset:
         return blocks.with_offsets(off)
 
     def scatter_to_global(self, local_coefficients: torch.Tensor) -> torch.Tensor:
-        """[E, d_local] local-space coefficients -> [E, d_global]."""
+        """[E, d_local] local-space coefficients -> [E, d_global] (P^T c for
+        the random projection)."""
+        if self.projection_matrix is not None:
+            return local_coefficients @ torch.as_tensor(
+                self.projection_matrix, device=local_coefficients.device,
+                dtype=local_coefficients.dtype)
         return scatter_local_to_global(local_coefficients, self.projection,
                                        self.global_dim)
 
@@ -274,12 +284,8 @@ def _build_random_effect_dataset(
     segmented random-key rank cut, the index-map projector is segment
     reductions over the group-sorted rows, and entities are packed into
     power-of-two S-buckets in count-descending lane order."""
-    if config.projector.startswith("random_projection:"):
-        raise NotImplementedError(
-            "the random_projection:<k> projector is not ported yet "
-            "(ROADMAP.md queue A item 13, with the factored random effects "
-            "that share its Gaussian projection)")
-    if config.projector not in ("index_map", "identity"):
+    if (config.projector not in ("index_map", "identity")
+            and not config.projector.startswith("random_projection:")):
         raise ValueError(f"unknown projector {config.projector!r} (expected "
                          "'index_map', 'identity', or 'random_projection:<k>')")
     if not isinstance(dataset.feature_shards[config.feature_shard], np.ndarray):
@@ -396,6 +402,18 @@ def _build_random_effect_dataset(
             np.concatenate([[0], np.cumsum(per_entity)[:-1]]), per_entity)
         projection = np.full((E, max(d_local, 1)), -1, dtype=np.int64)
         projection[e_idx, pos] = col_idx
+    proj_matrix = None
+    if config.projector.startswith("random_projection:"):
+        # Gaussian random projection shared across entities (reference:
+        # ProjectionMatrix.buildGaussianRandomProjectionMatrix); the
+        # intercept column survives through the extra selector row.  As the
+        # JAX package: drawn in the compute dtype, rounded to float32, then
+        # held in the host dtype
+        from photon_ml_tpu_torch.parallel.factored import gaussian_projection_matrix
+        k = int(config.projector.split(":", 1)[1])
+        proj_matrix = gaussian_projection_matrix(
+            k, d_global, keep_intercept=True, seed=config.seed, dtype=torch.float32,
+            draw_dtype=block_dtype, device="cpu").numpy().astype(dtype)
 
     # --- assemble buckets -------------------------------------------------
     # pad-row/pad-column trick: one zero row (and, for the index-map
@@ -428,6 +446,8 @@ def _build_random_effect_dataset(
             cols = projection[lb:ub]
             gcols = np.where(cols >= 0, cols, x_flat.shape[1])  # -> zero col
             xb = x_pad[gat[:, :, None], gcols[:, None, :]]
+        elif proj_matrix is not None:
+            xb = np.einsum("esd,kd->esk", x_pad[gat], proj_matrix)
         else:
             xb = x_pad[gat]
 
@@ -447,7 +467,7 @@ def _build_random_effect_dataset(
         entity_position=entity_position,
         projection=projection, global_dim=d_global,
         num_active=num_active, num_passive=num_passive,
-        discarded_rows=discarded_rows)
+        discarded_rows=discarded_rows, projection_matrix=proj_matrix)
 
 
 def _pearson_select_segmented(

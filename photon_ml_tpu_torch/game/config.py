@@ -88,8 +88,9 @@ class RandomEffectCoordinateConfig:
 @dataclasses.dataclass(frozen=True)
 class FactoredRandomEffectCoordinateConfig:
     """Matrix-factorized random effect: per-entity latent factors plus a
-    shared latent projection matrix.  A data class only: training it is
-    ROADMAP.md queue A item 13 (BASELINE config 5)."""
+    shared latent projection matrix, refit alternately; `optimization` for
+    the per-entity (latent-space) problems, `latent_optimization` for the
+    projection-matrix problem (reference: MFOptimizationConfiguration)."""
 
     random_effect_type: str
     feature_shard: str
@@ -106,6 +107,17 @@ class FactoredRandomEffectCoordinateConfig:
             raise ValueError("latent_dim must be >= 1")
         if self.num_inner_iterations < 1:
             raise ValueError("num_inner_iterations must be >= 1")
+
+    def data_config(self, seed: int = 7) -> RandomEffectDataConfig:
+        # features stay in the shard's space ("identity"): the latent
+        # projection is part of the model and is refit every update
+        return RandomEffectDataConfig(
+            random_effect_type=self.random_effect_type,
+            feature_shard=self.feature_shard,
+            active_data_upper_bound=self.active_data_upper_bound,
+            passive_data_lower_bound=self.passive_data_lower_bound,
+            projector="identity",
+            seed=seed)
 
 
 CoordinateConfig = Union[FixedEffectCoordinateConfig, RandomEffectCoordinateConfig,

@@ -103,7 +103,8 @@ class TrackerSummary:
     batched solve), value+gradient passes of LBFGS/OWLQN (`fg_count`,
     likewise; None under TRON) or Hessian-vector products of TRON
     (`hv_count`, likewise; None otherwise), the solve's wall clock and
-    ConvergenceReason counts over its lanes."""
+    ConvergenceReason counts over its lanes.  A factored random effect's
+    update sums its latent-space and projection-refit solves."""
 
     iterations: int
     fg_count: Optional[int]
@@ -113,21 +114,32 @@ class TrackerSummary:
     # (game/coordinates.py::BucketSolve); None for a fixed effect
     buckets: Optional[list] = None
     hv_count: Optional[int] = None
+    # a factored random effect's update: per inner iteration, its
+    # latent-space solve's rounds and its projection refit's iterations
+    # and passes (parallel/factored.py FactoredSolveResult.inner)
+    inner: Optional[list] = None
 
 
 def _summarize(result, wall_s: float, buckets=None) -> TrackerSummary:
-    total = lambda v: None if v is None else int(np.sum(np.asarray(
-        v.cpu() if isinstance(v, torch.Tensor) else v)))
-    reason = result.reason
-    codes = np.atleast_1d(np.asarray(
-        reason.cpu() if isinstance(reason, torch.Tensor) else reason))
+    """A solve's summary; a factored update's two solves (the latent-space
+    and the projection refit of its last inner iteration) merged."""
+    parts = [r for r in (getattr(result, "random_effect_result", None),
+                         getattr(result, "latent_result", None)) if r is not None]
+    parts = parts or [result]
+    host = lambda v: np.asarray(v.cpu() if isinstance(v, torch.Tensor) else v)
+
+    def total(field):
+        vals = [getattr(r, field) for r in parts if getattr(r, field) is not None]
+        return None if not vals else sum(int(np.sum(host(v))) for v in vals)
     reasons: Dict[str, int] = {}
-    for code, count in zip(*np.unique(codes, return_counts=True)):
-        reasons[ConvergenceReason(int(code)).name] = int(count)
-    return TrackerSummary(iterations=total(result.iterations),
-                          fg_count=total(result.fg_count), wall_s=wall_s,
-                          reasons=reasons, buckets=buckets,
-                          hv_count=total(result.hv_count))
+    for r in parts:
+        codes = np.atleast_1d(host(r.reason))
+        for code, count in zip(*np.unique(codes, return_counts=True)):
+            name = ConvergenceReason(int(code)).name
+            reasons[name] = reasons.get(name, 0) + int(count)
+    return TrackerSummary(iterations=total("iterations"), fg_count=total("fg_count"),
+                          wall_s=wall_s, reasons=reasons, buckets=buckets,
+                          hv_count=total("hv_count"), inner=getattr(result, "inner", None))
 
 
 @dataclasses.dataclass
@@ -142,6 +154,9 @@ class CoordinateDescentResult:
     timings: PhaseTimings
     # "it/coord" -> compact host-side solve summary
     trackers: Dict[str, TrackerSummary] = dataclasses.field(default_factory=dict)
+    # factored coordinate -> the sibling random effect whose solution gave
+    # it its projection at its first visit
+    warm_starts: Dict[str, str] = dataclasses.field(default_factory=dict)
 
     def total_iterations(self) -> int:
         return sum(t.iterations for t in self.trackers.values())
@@ -213,17 +228,29 @@ def run_coordinate_descent(
         return (_data_term(total_scores, base_offsets, labels, weights, loss)
                 + sum(reg_terms.values()))
 
+    # factored coordinates that start from their cold default model take
+    # their projection from a sibling plain random effect's solution at
+    # their first visit (by then the sibling has been fit this iteration);
+    # provided models are never overridden
+    cold_factored: set = set()
+    warm_starts: Dict[str, str] = {}
     with spans.span("init/score"):
         zeros = torch.zeros(dataset.num_rows, dtype=dtype, device=dev)
         models, scores = {}, {}
         for name in updating_sequence:
             provided = (initial_models or {}).get(name)
             if provided is None:
-                # zero-coefficient initial models score exactly zero and
-                # carry no regularization
+                # zero-coefficient initial models score exactly zero; their
+                # regularization is zero too, except a factored
+                # coordinate's, whose Gaussian projection carries the
+                # latent problem's penalty
+                factored = hasattr(coordinates[name], "warm_start_latent")
+                if factored:
+                    cold_factored.add(name)
                 models[name] = coordinates[name].initial_model()
                 scores[name] = zeros
-                reg_terms[name] = 0.0
+                reg_terms[name] = (coordinates[name].regularization_term(models[name])
+                                   if factored else 0.0)
             else:
                 models[name] = provided
                 scores[name] = coordinates[name].score(provided)
@@ -266,6 +293,12 @@ def run_coordinate_descent(
             coord = coordinates[name]
             solve_key = f"{it}/{name}/solve"
             with spans.span(solve_key):
+                if name in cold_factored:
+                    cold_factored.discard(name)
+                    warm = coord.warm_start_latent(models[name], models)
+                    if warm is not None:
+                        models[name] = warm
+                        warm_starts[name] = coord.warm_start_source
                 # partial = full - own (reference line 186-193)
                 partial = total - scores[name]
                 models[name], result = coord.update(models[name],
@@ -305,4 +338,4 @@ def run_coordinate_descent(
         model=final, best_model=best_model,
         objective_history=objective_history,
         validation_history=validation_history, timings=spans,
-        trackers=trackers)
+        trackers=trackers, warm_starts=warm_starts)

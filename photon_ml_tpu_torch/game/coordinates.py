@@ -6,11 +6,13 @@ given the current residual offsets; scores come back in the dataset's
 canonical row order, so coordinate descent combines them with plain tensor
 arithmetic.
 
+Random draws (fixed-effect down-sampling, the factored coordinate's
+Gaussian projection and latent down-sampling) come from utils/prng.py's
+copy of JAX's threefry, with the JAX package's keys, so they are its draws.
+
 Not ported yet, each raising NotImplementedError where it would take
-effect: fixed-effect down-sampling (ROADMAP.md queue A item 8: it draws
-from JAX's PRNG, which a port must reproduce first), `memory_mode=
-"streamed"` and HBM budgets (item 15), `shard_features` and meshes
-(item 20), and the factored random-effect coordinate (item 13).
+effect: `memory_mode="streamed"` and HBM budgets (ROADMAP.md queue A item
+15), `shard_features` and meshes (item 20).
 """
 from __future__ import annotations
 
@@ -26,12 +28,16 @@ from photon_ml_tpu_torch.data.batching import (
     RandomEffectDataset, build_random_effect_dataset,
 )
 from photon_ml_tpu_torch.data.game_data import GameDataset
+from photon_ml_tpu_torch.data.samplers import downsampler_for_task
 from photon_ml_tpu_torch.data.stats import BasicStatisticalSummary
 from photon_ml_tpu_torch.game.config import (
-    FixedEffectCoordinateConfig, RandomEffectCoordinateConfig,
+    FactoredRandomEffectCoordinateConfig, FixedEffectCoordinateConfig,
+    RandomEffectCoordinateConfig,
 )
 from photon_ml_tpu_torch.models.coefficients import Coefficients
-from photon_ml_tpu_torch.models.game import FixedEffectModel, RandomEffectModel
+from photon_ml_tpu_torch.models.game import (
+    FactoredRandomEffectModel, FixedEffectModel, RandomEffectModel,
+)
 from photon_ml_tpu_torch.models.glm import model_for_task
 from photon_ml_tpu_torch.ops import features as fops
 from photon_ml_tpu_torch.ops.losses import TASK_LOSSES
@@ -40,10 +46,16 @@ from photon_ml_tpu_torch.ops.normalization import (
 )
 from photon_ml_tpu_torch.ops.objective import GLMObjective
 from photon_ml_tpu_torch.optim.types import SolveResult
+from photon_ml_tpu_torch.parallel.factored import (
+    FactoredSolveResult, fit_factored_random_effects, gaussian_projection_matrix,
+    principal_subspace_projection,
+)
 from photon_ml_tpu_torch.parallel.fixed_effect import fit_fixed_effect
 from photon_ml_tpu_torch.parallel.random_effect import (
-    fit_random_effects, score_entities_plain, score_entities_scatter,
+    fit_random_effects, score_entities_matmul, score_entities_plain,
+    score_entities_scatter,
 )
+from photon_ml_tpu_torch.utils import prng
 
 
 def _penalty(c: torch.Tensor, l1: float, l2: float) -> torch.Tensor:
@@ -68,11 +80,12 @@ class FixedEffectCoordinate:
     """Global GLM over one feature shard, dense or sparse (reference:
     FixedEffectCoordinate.scala).  Normalization is trained in and mapped
     out per update; a sparse shard takes none (ValueError, as the JAX
-    package)."""
+    package).  With a down-sampling rate, each update draws its keep mask
+    from the next split of PRNGKey(seed)."""
 
     def __init__(self, name: str, dataset: GameDataset,
                  config: FixedEffectCoordinateConfig, task_type: str,
-                 device=None, dtype: torch.dtype = torch.float32):
+                 device=None, dtype: torch.dtype = torch.float32, seed: int = 7):
         self.name = name
         self.config = config
         self.task_type = task_type
@@ -88,11 +101,7 @@ class FixedEffectCoordinate:
             raise NotImplementedError(
                 f"coordinate {name!r}: shard_features is not ported yet "
                 "(ROADMAP.md queue A item 20: multi-GPU training)")
-        if config.optimization.downsampling_rate is not None:
-            raise NotImplementedError(
-                f"coordinate {name!r}: fixed-effect down-sampling is not "
-                "ported yet (ROADMAP.md queue A item 8, data/samplers.py: its "
-                "draw comes from JAX's PRNG)")
+        self._key = prng.PRNGKey(seed)
         host_x = dataset.feature_shards[config.feature_shard]
         self.dim = host_x.shape[1]
         sparse = not isinstance(host_x, np.ndarray)
@@ -135,10 +144,16 @@ class FixedEffectCoordinate:
         """Refit with residual offsets (partial scores + base offsets).
         reference: FixedEffectCoordinate.updateModel."""
         opt = self.config.optimization
+        weights = self.weights
+        if opt.downsampling_rate is not None:
+            self._key, sub = prng.split(self._key)
+            keep, weights = downsampler_for_task(self.task_type)(
+                sub, self.labels, self.weights, opt.downsampling_rate)
+            weights = weights * keep
         x0 = model.glm.coefficients.means
         if self.norm is not None:
             x0 = self.norm.model_to_transformed_space(x0)
-        obj = GLMObjective(self.loss, self.x, self.labels, weights=self.weights,
+        obj = GLMObjective(self.loss, self.x, self.labels, weights=weights,
                            offsets=offsets, norm=self.norm)
         res = fit_fixed_effect(obj, x0, None, opt.optimizer, opt.regularization,
                                _in_dtype(opt.regularization_weight, self.dtype))
@@ -190,9 +205,15 @@ class _EntityCoordinateBase:
             dataset.entity_vocabs[config.random_effect_type])[self.red.entity_ids]
         self.last_buckets: List[BucketSolve] = []
 
-    def _score_model(self, model: RandomEffectModel) -> torch.Tensor:
+    def _score_model(self, model) -> torch.Tensor:
         """All rows (active and passive) scored against their entity's
         model by a static gather."""
+        if isinstance(model, FactoredRandomEffectModel):
+            return score_entities_matmul(model.latent_coefficients, model.projection,
+                                         self.flat_x, self.lanes)
+        if model.projection_matrix is not None:
+            return score_entities_matmul(model.coefficients, model.projection_matrix,
+                                         self.flat_x, self.lanes)
         if model.projection is not None:
             proj = (self.proj_dev if model.projection is self.red.projection
                     else torch.as_tensor(model.projection, device=self.device))
@@ -229,7 +250,8 @@ class RandomEffectCoordinate(_EntityCoordinateBase):
             coefficients=torch.zeros((E, dl), dtype=self.dtype, device=self.device),
             entity_ids=self.entity_id_values,
             projection=self.red.projection,
-            global_dim=self.red.global_dim)
+            global_dim=self.red.global_dim,
+            projection_matrix=self.red.projection_matrix)
 
     def update(self, model: RandomEffectModel, offsets: torch.Tensor
                ) -> Tuple[RandomEffectModel, SolveResult]:
@@ -272,4 +294,122 @@ class RandomEffectCoordinate(_EntityCoordinateBase):
         return _penalty(model.coefficients, l1, l2)
 
 
-Coordinate = FixedEffectCoordinate | RandomEffectCoordinate
+class FactoredRandomEffectCoordinate(_EntityCoordinateBase):
+    """Matrix-factorized per-entity GLMs: latent factors per entity and a
+    shared projection matrix, refit alternately over the random-effect
+    dataset's single-S `blocks` view (reference:
+    FactoredRandomEffectCoordinate.scala:40-281).
+
+    `last_buckets` holds one BucketSolve per inner iteration of the last
+    update (the latent-space batched solve over [E, S, k]);
+    `warm_start_source` names the sibling coordinate whose solution
+    seeded the projection, if one did."""
+
+    def __init__(self, name: str, dataset: GameDataset,
+                 config: FactoredRandomEffectCoordinateConfig, task_type: str,
+                 device=None, dtype: torch.dtype = torch.float32, seed: int = 7):
+        super().__init__(name, dataset, config, task_type, device, dtype, seed)
+        self.seed = seed
+        self._key = prng.PRNGKey(seed + 1)
+        self.warm_start_source: Optional[str] = None
+
+    def initial_model(self) -> FactoredRandomEffectModel:
+        """Zero latent factors and a Gaussian random projection drawn in
+        the compute dtype (reference: FactoredRandomEffectCoordinate
+        .initializeModel, isKeepingInterceptTerm = false)."""
+        E, k, d = self.red.num_entities, self.config.latent_dim, self.red.global_dim
+        return FactoredRandomEffectModel(
+            random_effect_type=self.config.random_effect_type,
+            feature_shard=self.config.feature_shard,
+            task_type=self.task_type,
+            latent_coefficients=torch.zeros((E, k), dtype=self.dtype, device=self.device),
+            projection=gaussian_projection_matrix(k, d, keep_intercept=False,
+                                                  seed=self.seed, dtype=self.dtype,
+                                                  device=self.device),
+            entity_ids=self.entity_id_values,
+            global_dim=d)
+
+    def warm_start_latent(self, model: FactoredRandomEffectModel,
+                          models) -> Optional[FactoredRandomEffectModel]:
+        """The projection replaced by the top-k principal subspace of a
+        sibling plain random effect's solution (same entity type, shard and
+        global space), its rows aligned to this coordinate's lanes
+        (entities the sibling never saw count as zero rows); the latent
+        factors stay zero, so the coordinate's score is unchanged.  None
+        when `models` holds no such sibling."""
+        sibling = None
+        for name, other in models.items():
+            if (isinstance(other, RandomEffectModel)
+                    and other.random_effect_type == self.config.random_effect_type
+                    and other.feature_shard == self.config.feature_shard
+                    and other.global_dim == self.red.global_dim):
+                sibling = other
+                self.warm_start_source = name
+                break
+        if sibling is None:
+            return None
+        w_global = sibling.global_coefficients()
+        lookup = {v: i for i, v in enumerate(np.asarray(sibling.entity_ids).tolist())}
+        rows = np.fromiter((lookup.get(v, -1) for v in self.entity_id_values.tolist()),
+                           dtype=np.int64, count=len(self.entity_id_values))
+        rows_dev = torch.as_tensor(rows, device=w_global.device)
+        gathered = w_global[torch.clamp(rows_dev, min=0)]
+        gathered = torch.where((rows_dev >= 0)[:, None], gathered,
+                               torch.zeros_like(gathered))
+        p = principal_subspace_projection(gathered.to(model.projection.dtype),
+                                          model.projection)
+        return dataclasses.replace(model, projection=p)
+
+    def update(self, model: FactoredRandomEffectModel, offsets: torch.Tensor
+               ) -> Tuple[FactoredRandomEffectModel, FactoredSolveResult]:
+        opt, lat = self.config.optimization, self.config.latent_optimization
+        blocks = self.red.with_offsets_from_flat(offsets)
+
+        latent_row_weights_fn = None
+        if lat.downsampling_rate is not None:
+            E, S = blocks.labels.shape
+            flat_labels = blocks.labels.reshape(E * S)
+            sampler = downsampler_for_task(self.task_type)
+
+            def latent_row_weights_fn(it: int):
+                # a fresh draw per inner iteration (reference:
+                # runWithSampling inside updateLatentProjectionMatrix)
+                self._key, sub = prng.split(self._key)
+                keep, w = sampler(sub, flat_labels, None, lat.downsampling_rate)
+                return keep * w
+
+        res = fit_factored_random_effects(
+            blocks, self.loss, None,
+            latent_coefficients=model.latent_coefficients,
+            projection=model.projection,
+            num_inner_iterations=self.config.num_inner_iterations,
+            re_config=opt.optimizer, re_reg=opt.regularization,
+            re_reg_weight=_in_dtype(opt.regularization_weight, self.dtype),
+            latent_config=lat.optimizer, latent_reg=lat.regularization,
+            latent_reg_weight=_in_dtype(lat.regularization_weight, self.dtype),
+            latent_row_weights_fn=latent_row_weights_fn)
+        E, S, _ = blocks.x.shape
+        self.last_buckets = [BucketSolve((E, S, self.config.latent_dim),
+                                         r["re_max_iterations"], r["re_total_iterations"],
+                                         r["re_rounds"], r["re_seconds"])
+                             for r in res.inner]
+        return dataclasses.replace(model, latent_coefficients=res.latent_coefficients,
+                                   projection=res.projection), res
+
+    def score(self, model: FactoredRandomEffectModel) -> torch.Tensor:
+        """c_e . (P x) == (C @ P)[e] . x: one [E, k] x [k, d] product, then
+        the same entity-gather scoring as a plain random effect."""
+        return self._score_model(model)
+
+    def regularization_term(self, model: FactoredRandomEffectModel) -> torch.Tensor:
+        """The random-effect term over the latent factors plus the latent
+        problem's term over P (reference: FactoredRandomEffectOptimization
+        Problem.getRegularizationTermValue); a device scalar."""
+        opt, lat = self.config.optimization, self.config.latent_optimization
+        l1, l2 = opt.regularization.split(opt.regularization_weight)
+        pl1, pl2 = lat.regularization.split(lat.regularization_weight)
+        return (_penalty(model.latent_coefficients, l1, l2)
+                + _penalty(model.projection, pl1, pl2))
+
+
+Coordinate = FixedEffectCoordinate | RandomEffectCoordinate | FactoredRandomEffectCoordinate

@@ -9,7 +9,7 @@ configuration; `fit_grid` is the multi-configuration sweep
 
 Not ported yet: checkpoints and resume (ROADMAP.md queue A item 14), HBM
 budgets (item 15), solver schedules (item 16), meshes (item 20), events and
-telemetry (item 19), and the factored random-effect coordinate (item 13).
+telemetry (item 19).
 """
 from __future__ import annotations
 
@@ -33,7 +33,8 @@ from photon_ml_tpu_torch.game.coordinate_descent import (
     run_coordinate_descent,
 )
 from photon_ml_tpu_torch.game.coordinates import (
-    Coordinate, FixedEffectCoordinate, RandomEffectCoordinate,
+    Coordinate, FactoredRandomEffectCoordinate, FixedEffectCoordinate,
+    RandomEffectCoordinate,
 )
 from photon_ml_tpu_torch.models.game import GameModel
 
@@ -73,18 +74,14 @@ class GameEstimator:
         coords: Dict[str, Coordinate] = {}
         for name in self.config.updating_sequence:
             cfg = self.config.coordinates[name]
-            kw = dict(device=self.device, dtype=self.dtype)
+            kw = dict(device=self.device, dtype=self.dtype, seed=self.config.seed)
             if isinstance(cfg, FixedEffectCoordinateConfig):
-                coords[name] = FixedEffectCoordinate(
-                    name, dataset, cfg, self.config.task_type, **kw)
+                kind = FixedEffectCoordinate
             elif isinstance(cfg, FactoredRandomEffectCoordinateConfig):
-                raise NotImplementedError(
-                    f"coordinate {name!r}: factored random effects are not "
-                    "ported yet (ROADMAP.md queue A item 13, BASELINE config 5)")
+                kind = FactoredRandomEffectCoordinate
             else:
-                coords[name] = RandomEffectCoordinate(
-                    name, dataset, cfg, self.config.task_type,
-                    seed=self.config.seed, **kw)
+                kind = RandomEffectCoordinate
+            coords[name] = kind(name, dataset, cfg, self.config.task_type, **kw)
         return coords
 
     def _validation_specs(self, evaluator_specs: Optional[Sequence[str]]

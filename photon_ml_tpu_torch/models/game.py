@@ -1,13 +1,11 @@
-"""GAME model containers: fixed effect, random effect and the composite
-(port of photon_ml_tpu/models/game.py).
+"""GAME model containers: fixed effect, random effect, factored random
+effect, matrix factorization and the composite (port of
+photon_ml_tpu/models/game.py).
 
 A model's score is ITS margin contribution only (no base offset: evaluators
 add score + offset), and rows whose entity a random-effect model does not
 know contribute 0, the reference's missing-score default.  Models score on
 the device and in the dtype of their coefficients.
-
-The factored random-effect and matrix-factorization models are not ported
-yet (ROADMAP.md queue A item 13, BASELINE config 5).
 """
 from __future__ import annotations
 
@@ -21,7 +19,8 @@ from photon_ml_tpu_torch.data.game_data import GameDataset
 from photon_ml_tpu_torch.models.glm import GeneralizedLinearModel
 from photon_ml_tpu_torch.ops import losses as L
 from photon_ml_tpu_torch.parallel.random_effect import (
-    scatter_local_to_global, score_entities_plain, score_entities_scatter,
+    scatter_local_to_global, score_entities_matmul, score_entities_plain,
+    score_entities_scatter,
 )
 
 
@@ -54,6 +53,25 @@ def _lanes_for(dataset: GameDataset, re_type: str,
     return np.where(idx >= 0, vocab_to_lane[np.maximum(idx, 0)], -1)
 
 
+def _cached(dataset: GameDataset, kind: str, re_type: str, source, build,
+            device: torch.device) -> torch.Tensor:
+    """Device copy of `build()`, memoized on the dataset per `source` (a
+    host array the models of one coordinate share: a plain and a factored
+    random effect of one entity type keep their own lane maps)."""
+    key = (kind, re_type, str(device), id(source))
+    hit = dataset._scoring_cache.get(key)
+    if hit is None or hit[0] is not source:
+        hit = (source, torch.as_tensor(build(), device=device))
+        dataset._scoring_cache[key] = hit
+    return hit[1]
+
+
+def _device_lanes(dataset: GameDataset, re_type: str, entity_ids: np.ndarray,
+                  device: torch.device) -> torch.Tensor:
+    return _cached(dataset, "lanes", re_type, entity_ids,
+                   lambda: _lanes_for(dataset, re_type, entity_ids), device)
+
+
 @dataclasses.dataclass
 class RandomEffectModel:
     """Per-entity coefficients in a (possibly projected) local space: the
@@ -69,44 +87,151 @@ class RandomEffectModel:
     projection: Optional[np.ndarray]      # [E, d_local] global cols, -1 pad
     global_dim: int
     variances: Optional[torch.Tensor] = None  # [E, d_local]
+    # dense shared random-projection matrix [d_local, d_global] (reference:
+    # ProjectionMatrixBroadcast), exclusive with the index `projection`
+    projection_matrix: Optional[torch.Tensor] = None
+
+    def __post_init__(self):
+        # on the coefficients' device and in their dtype once: scoring runs
+        # every coordinate-descent update
+        if self.projection_matrix is not None:
+            c = self.coefficients
+            self.projection_matrix = torch.as_tensor(
+                self.projection_matrix).to(device=c.device, dtype=c.dtype)
 
     @property
     def num_entities(self) -> int:
         return len(self.entity_ids)
 
     def global_coefficients(self) -> torch.Tensor:
-        """[E, d_global] via scatter along the projection columns."""
+        """[E, d_global] via scatter along the projection columns, or the
+        dense product c @ projection_matrix."""
+        if self.projection_matrix is not None:
+            return self.coefficients @ self.projection_matrix
         return scatter_local_to_global(self.coefficients, self.projection,
                                        self.global_dim)
 
     def lanes_for(self, dataset: GameDataset) -> np.ndarray:
         return _lanes_for(dataset, self.random_effect_type, self.entity_ids)
 
-    def _cached(self, dataset: GameDataset, kind: str, source, build):
-        """Device copy of `build()`, memoized on the dataset while `source`
-        (a host array the models of one coordinate share) stays the same."""
-        c = self.coefficients
-        key = (kind, self.random_effect_type, str(c.device))
-        hit = dataset._scoring_cache.get(key)
-        if hit is None or hit[0] is not source:
-            hit = (source, torch.as_tensor(build(), device=c.device))
-            dataset._scoring_cache[key] = hit
-        return hit[1]
-
     def score_dataset(self, dataset: GameDataset) -> torch.Tensor:
         c = self.coefficients
         x = dataset.device_shard(self.feature_shard, c.device, c.dtype)
-        lanes = self._cached(dataset, "lanes", self.entity_ids,
-                             lambda: self.lanes_for(dataset))
+        lanes = _device_lanes(dataset, self.random_effect_type, self.entity_ids,
+                              c.device)
+        if self.projection_matrix is not None:
+            return score_entities_matmul(c, self.projection_matrix, x, lanes)
         if self.projection is not None:
-            proj = self._cached(dataset, "proj", self.projection,
-                                lambda: self.projection)
+            proj = _cached(dataset, "proj", self.random_effect_type, self.projection,
+                           lambda: self.projection, c.device)
             return score_entities_scatter(c, proj, x, lanes,
                                           global_dim=self.global_dim)
         return score_entities_plain(c, x, lanes)
 
 
-CoordinateModel = FixedEffectModel | RandomEffectModel
+@dataclasses.dataclass
+class FactoredRandomEffectModel:
+    """Per-entity latent factors [E, k] and a shared latent projection
+    [k, d] (reference: FactoredRandomEffectModel.scala:33 =
+    modelsInProjectedSpace + ProjectionMatrixBroadcast).  The effective
+    per-entity coefficients in the shard's space are C @ P."""
+
+    random_effect_type: str
+    feature_shard: str
+    task_type: str
+    latent_coefficients: torch.Tensor     # [E, k]
+    projection: torch.Tensor              # [k, d_global]
+    entity_ids: np.ndarray                # [E] raw entity id values
+    global_dim: int
+
+    @property
+    def num_entities(self) -> int:
+        return len(self.entity_ids)
+
+    @property
+    def latent_dim(self) -> int:
+        return self.latent_coefficients.shape[1]
+
+    def global_coefficients(self) -> torch.Tensor:
+        return self.latent_coefficients @ self.projection
+
+    def to_random_effect_model(self) -> RandomEffectModel:
+        """The shard-space view (reference: FactoredRandomEffectModel
+        .toRandomEffectModel)."""
+        return RandomEffectModel(
+            random_effect_type=self.random_effect_type,
+            feature_shard=self.feature_shard, task_type=self.task_type,
+            coefficients=self.global_coefficients(), entity_ids=self.entity_ids,
+            projection=None, global_dim=self.global_dim)
+
+    def score_dataset(self, dataset: GameDataset) -> torch.Tensor:
+        c = self.latent_coefficients
+        return score_entities_matmul(
+            c, self.projection,
+            dataset.device_shard(self.feature_shard, c.device, c.dtype),
+            _device_lanes(dataset, self.random_effect_type, self.entity_ids, c.device))
+
+
+@dataclasses.dataclass
+class MatrixFactorizationModel:
+    """score(row, col) = rowFactor . colFactor (reference:
+    MatrixFactorizationModel.scala:36-291): two dense [*, k] factor tables
+    and their raw id arrays.  Task-agnostic, as the reference's
+    (task_type "none", exempt from GameModel's consistency check)."""
+
+    row_effect_type: str
+    col_effect_type: str
+    row_factors: torch.Tensor             # [R, k]
+    row_ids: np.ndarray                   # [R] raw entity id values
+    col_factors: torch.Tensor             # [C, k]
+    col_ids: np.ndarray                   # [C] raw entity id values
+    task_type: str = "none"
+
+    @property
+    def num_latent_factors(self) -> int:
+        """reference: MatrixFactorizationModel.numLatentFactors."""
+        if self.row_factors.shape[0]:
+            return self.row_factors.shape[1]
+        if self.col_factors.shape[0]:
+            return self.col_factors.shape[1]
+        return 0
+
+    def score_dataset(self, dataset: GameDataset) -> torch.Tensor:
+        """rowFactor . colFactor per row; a row whose either entity is
+        unseen scores 0 (the reference's inner join default)."""
+        dev = self.row_factors.device
+        rl = _device_lanes(dataset, self.row_effect_type, self.row_ids, dev)
+        cl = _device_lanes(dataset, self.col_effect_type, self.col_ids, dev)
+        ok = (rl >= 0) & (cl >= 0)
+        if not (self.row_factors.shape[0] and self.col_factors.shape[0]):
+            return torch.zeros(rl.shape[0], dtype=self.row_factors.dtype, device=dev)
+        rf = self.row_factors[torch.clamp(rl, min=0)]
+        cf = self.col_factors[torch.clamp(cl, min=0)]
+        s = torch.sum(rf * cf, dim=-1)
+        return torch.where(ok, s, torch.zeros_like(s))
+
+    @staticmethod
+    def from_factored(model: FactoredRandomEffectModel, col_effect_type: str,
+                      col_ids: np.ndarray) -> "MatrixFactorizationModel":
+        """When the factored random effect's shard is a one-hot indicator of
+        a second entity (no intercept), c_e . (P x) == c_e . P[:, col]: rows
+        are the random effect's entities, columns the projection's."""
+        if len(col_ids) != model.projection.shape[1]:
+            raise ValueError(
+                f"col_ids has {len(col_ids)} entries but the projection has "
+                f"{model.projection.shape[1]} columns — the feature shard "
+                "must be a one-hot column indicator")
+        return MatrixFactorizationModel(
+            row_effect_type=model.random_effect_type,
+            col_effect_type=col_effect_type,
+            row_factors=model.latent_coefficients,
+            row_ids=model.entity_ids,
+            col_factors=model.projection.T,
+            col_ids=np.asarray(col_ids))
+
+
+CoordinateModel = (FixedEffectModel | RandomEffectModel
+                   | FactoredRandomEffectModel | MatrixFactorizationModel)
 
 
 @dataclasses.dataclass

@@ -11,9 +11,11 @@ Normalization is algebraic, never materialized:
 runs a hand-written pass with factors folded in as e = c*factor and
 grad*factor: the fused kernel for a dense X (ops/hopper_kernels.py, one
 launch), kernels A then B for a PaddedSparse (ops/sparse_kernels.py, two
-launches).  Masked or shifted objectives take the algebra below, whose
-products on a CUDA PaddedSparse are kernels A and B too: a dispatch on the
-kind of input, not a fallback on failure.  Weights/offsets may be None
+launches).  Masked or shifted objectives, and every `KroneckerDesign`
+(the latent refit's implicit design: two matrix products, as the JAX
+package computes it outside its Pallas kernel), take the algebra below,
+whose products on a CUDA PaddedSparse are kernels A and B too: a dispatch
+on the kind of input, not a fallback on failure.  Weights/offsets may be None
 (1 / 0).
 """
 from __future__ import annotations
@@ -75,7 +77,8 @@ def value_and_gradient(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(sum_i w_i l(z_i, y_i),  d/dc of it).  `mask` (0/1 per row) drops
     padded rows."""
-    if x.is_cuda and mask is None and (norm is None or norm.shifts is None):
+    if (x.is_cuda and mask is None and (norm is None or norm.shifts is None)
+            and not isinstance(x, fops.KroneckerDesign)):
         factors = None if norm is None else norm.factors
         e = coefficients if factors is None else coefficients * factors
         if isinstance(x, fops.PaddedSparse):

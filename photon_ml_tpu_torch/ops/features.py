@@ -1,9 +1,10 @@
 """Feature-matrix products (port of photon_ml_tpu/ops/features.py).
 
-Two representations: a dense [n, d] tensor, and `PaddedSparse`, the JAX
+Three representations: a dense [n, d] tensor; `PaddedSparse`, the JAX
 package's padded row-sparse (ELL) batch with an optional column-sorted
-(CSC) view of the same nonzeros.  Every aggregate in ops/aggregators.py
-touches X only through the products below.
+(CSC) view of the same nonzeros; and `KroneckerDesign`, the implicit
+[n, k*d] design of the factored random effects' latent refit.  Every
+aggregate in ops/aggregators.py touches X only through the products below.
 
 On a CUDA `PaddedSparse` the products run the hand-written kernels of
 ops/sparse_kernels.py (csrc/ell_sparse.cu): `matvec` is kernel A in
@@ -14,8 +15,11 @@ the CPU the products run the kernels' plain versions, and a matrix
 without the column view takes a scatter-add (`index_add_`), as the JAX
 package does.
 
-Not ported, each raising NotImplementedError: BCOO input (ROADMAP.md
-queue A item 24) and `KroneckerDesign` (item 13).
+A `KroneckerDesign`'s products are matrix products in torch (the JAX
+package computes them in XLA, outside any Pallas kernel).
+
+Not ported, raising NotImplementedError: BCOO input (ROADMAP.md queue A
+item 24).
 """
 from __future__ import annotations
 
@@ -30,8 +34,44 @@ from photon_ml_tpu_torch.ops import sparse_kernels as sk
 
 _BCOO = ("BCOO feature matrices are not ported (ROADMAP.md queue A item 24); "
          "pass a scipy.sparse matrix or a PaddedSparse")
-_KRONECKER = ("KroneckerDesign is not ported yet (ROADMAP.md queue A item 13, "
-              "the factored random effects)")
+
+
+@dataclasses.dataclass
+class KroneckerDesign:
+    """Implicit [n, k*d] design matrix with row_i = kron(factors_i, x_i),
+    the latent-projection refit's design (reference:
+    FactoredRandomEffectCoordinate.kroneckerProductFeaturesAndCoefficients,
+    which materializes it).  The products come straight from X [n, d] and
+    the per-row latent factors F [n, k]:
+      matvec(P_flat)  = ((X @ P^T) * F).sum(-1)
+      rmatvec(u)      = (F * u[:, None])^T @ X
+    so the k*d matrix never exists."""
+
+    x: torch.Tensor        # [n, d]
+    factors: torch.Tensor  # [n, k]
+
+    @property
+    def shape(self):
+        return (self.x.shape[0], self.factors.shape[1] * self.x.shape[1])
+
+    @property
+    def ndim(self) -> int:
+        return 2
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.x.dtype
+
+    @property
+    def is_cuda(self) -> bool:
+        return self.x.is_cuda
+
+    def to(self, device=None, dtype=None) -> "KroneckerDesign":
+        return KroneckerDesign(self.x.to(device=device, dtype=dtype),
+                               self.factors.to(device=device, dtype=dtype))
+
+    def _unflatten_coef(self, v: torch.Tensor) -> torch.Tensor:
+        return v.reshape(self.factors.shape[1], self.x.shape[1])
 
 
 @dataclasses.dataclass
@@ -163,7 +203,7 @@ class PaddedSparse:
         return out
 
 
-FeatureMatrix = Union[torch.Tensor, PaddedSparse]
+FeatureMatrix = Union[torch.Tensor, PaddedSparse, KroneckerDesign]
 
 # The JAX package attaches the column view only at this width and above:
 # on its TPU the narrower view cost host-to-device transfer for no solve
@@ -184,8 +224,6 @@ def _is_scipy_sparse(x) -> bool:
 
 def _refuse(x) -> None:
     kind = type(x).__name__
-    if kind == "KroneckerDesign":
-        raise NotImplementedError(_KRONECKER)
     if kind == "BCOO" or (isinstance(x, torch.Tensor) and x.layout != torch.strided):
         raise NotImplementedError(_BCOO)
 
@@ -199,6 +237,8 @@ def as_feature_matrix(x, device=None, dtype=None,
     CSC_MIN_COLS columns up, as the JAX package does."""
     dev = resolve_device(device)
     _refuse(x)
+    if isinstance(x, KroneckerDesign):
+        return x.to(dev, dtype)
     if isinstance(x, PaddedSparse) or _is_scipy_sparse(x):
         want = with_csc and (dev.type == "cuda" or x.shape[1] >= CSC_MIN_COLS)
         if not isinstance(x, PaddedSparse):
@@ -227,6 +267,9 @@ def num_rows(x: FeatureMatrix) -> int:
 
 def matvec(x: FeatureMatrix, v: torch.Tensor) -> torch.Tensor:
     """X @ v -> [n].  The margin product."""
+    if isinstance(x, KroneckerDesign):
+        p = x._unflatten_coef(v)
+        return torch.sum((x.x @ p.T) * x.factors, dim=-1)
     if isinstance(x, PaddedSparse):
         if tuple(v.shape) != (x.num_cols,):
             raise ValueError(f"v has shape {tuple(v.shape)}, X has {x.num_cols} columns")
@@ -250,6 +293,8 @@ def _scatter(x: PaddedSparse, u: torch.Tensor, power: int) -> torch.Tensor:
 
 def rmatvec(x: FeatureMatrix, u: torch.Tensor) -> torch.Tensor:
     """X^T @ u -> [d].  The gradient-assembly product."""
+    if isinstance(x, KroneckerDesign):
+        return ((x.factors * u[:, None]).T @ x.x).reshape(-1)
     if isinstance(x, PaddedSparse):
         if x.has_csc:
             return sk.csc_column_sum(x.csc_row, x.csc_val, x.csc_end, u, 1, x.csc_tiles)
@@ -259,6 +304,10 @@ def rmatvec(x: FeatureMatrix, u: torch.Tensor) -> torch.Tensor:
 
 def sq_rmatvec(x: FeatureMatrix, u: torch.Tensor) -> torch.Tensor:
     """(X*X)^T @ u -> [d], for the Hessian diagonal."""
+    if isinstance(x, KroneckerDesign):
+        # kron(f, x)^2 == kron(f^2, x^2)
+        f2 = x.factors * x.factors
+        return ((f2 * u[:, None]).T @ (x.x * x.x)).reshape(-1)
     if isinstance(x, PaddedSparse):
         if x.has_csc:
             return sk.csc_column_sum(x.csc_row, x.csc_val, x.csc_end, u, 2, x.csc_tiles)
@@ -272,6 +321,8 @@ def pad_rows(x: FeatureMatrix, rem: int) -> FeatureMatrix:
     if rem == 0:
         return x
     zpad = lambda a: torch.cat([a, a.new_zeros((rem,) + tuple(a.shape[1:]))])
+    if isinstance(x, KroneckerDesign):
+        return KroneckerDesign(zpad(x.x), zpad(x.factors))
     if isinstance(x, PaddedSparse):
         # the column view is untouched: appended rows carry no nonzeros
         # and existing row ids stay valid against the grown u
@@ -281,6 +332,9 @@ def pad_rows(x: FeatureMatrix, rem: int) -> FeatureMatrix:
 
 
 def densify(x: FeatureMatrix) -> torch.Tensor:
+    if isinstance(x, KroneckerDesign):
+        # row i = kron(factors_i, x_i): [n, k, 1] * [n, 1, d] -> [n, k*d]
+        return (x.factors[:, :, None] * x.x[:, None, :]).reshape(x.shape)
     if isinstance(x, PaddedSparse):
         n, d = x.shape
         out = torch.zeros((n, d), dtype=x.dtype, device=x.device)

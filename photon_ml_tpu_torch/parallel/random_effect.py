@@ -187,6 +187,12 @@ def score_entities_scatter(coefficients, projection, x, lanes, *,
     return score_by_entity(g, x, lanes)
 
 
+def score_entities_matmul(coefficients, projection_matrix, x, lanes) -> torch.Tensor:
+    """Dense-projection scoring (random-projection and factored latent
+    models): [E, k] @ [k, d], then entity gather + row dot."""
+    return score_by_entity(coefficients @ projection_matrix, x, lanes)
+
+
 def score_entities_plain(coefficients, x, lanes) -> torch.Tensor:
     return score_by_entity(coefficients, x, lanes)
 

@@ -1,10 +1,12 @@
-"""The JAX side of the TRON, GLMix and sparse-training parity tests, run in
-a subprocess of its own.
+"""The JAX side of the TRON, GLMix, sparse-training, factored and sampler
+parity tests, run in a subprocess of its own.
 
-    python tests/port/game_jax_side.py tron|solver|estimator|sparse OUT.npz
+    python tests/port/game_jax_side.py \
+        tron|solver|estimator|sparse|factored|samplers|prng OUT.npz
 
 The parity tests (test_torch_tron.py, test_torch_game_solver.py,
-test_torch_game_estimator.py, test_torch_sparse_training.py) start this
+test_torch_game_estimator.py, test_torch_sparse_training.py,
+test_torch_factored.py, test_torch_samplers.py, test_torch_prng.py) start this
 once per test module, with JAX on the CPU in float64, and read its results
 from OUT.npz.  Compiling the JAX package's TRON, batched solver, GAME and
 sparse training programs in a process of their own keeps their XLA compile
@@ -257,6 +259,131 @@ def yahoo_config_dict() -> dict:
     return d
 
 
+# factored: BASELINE config 5's shape (bench.py _game_setup, mode "full")
+# cut to make_movielens_like("1m", seed=11, n_rows=3000), latent dim 3,
+# cap 32, LBFGS(50) for both of the factored coordinate's problems
+FACTORED_K, FACTORED_CAP, FACTORED_ITERATIONS = 3, 32, 50
+
+
+def movielens_game(build_game_dataset, make_movielens_like, movielens_shards,
+                   n_rows: int = ESTIMATOR_ROWS):
+    """(train, validation) of config 5's shape (global, per_user and
+    per_item shards; user and item ids) at `n_rows` rows in float64, split
+    95/5 as bench.py's _game_setup splits them; pass either package's
+    dataset functions."""
+    ml = make_movielens_like("1m", seed=ESTIMATOR_SEED, n_rows=n_rows)
+    shards = {k: v.astype(np.float64) for k, v in movielens_shards(ml).items()}
+    ds = build_game_dataset(ml.response.astype(np.float64), shards,
+                            entity_ids={"userId": ml.user_ids, "itemId": ml.item_ids})
+    rng = np.random.default_rng(ESTIMATOR_SEED + 99)
+    val_mask = rng.uniform(size=ds.num_rows) < 0.05
+    return ds.subset(np.flatnonzero(~val_mask)), ds.subset(np.flatnonzero(val_mask))
+
+
+def _factored_coordinate(inner: int = 1, latent_rate=None) -> dict:
+    opt = glmix_config_dict()["coordinates"]["fixed"]["optimization"]
+    opt = dict(opt, optimizer=dict(opt["optimizer"], max_iterations=FACTORED_ITERATIONS))
+    return {"kind": "factored_random_effect", "random_effect_type": "userId",
+            "feature_shard": "per_user", "latent_dim": FACTORED_K,
+            "num_inner_iterations": inner, "active_data_upper_bound": FACTORED_CAP,
+            "passive_data_lower_bound": None, "solver_schedule": None,
+            "optimization": opt,
+            "latent_optimization": dict(opt, downsampling_rate=latent_rate)}
+
+
+def factored_config_dict(case: str) -> dict:
+    """The factored parity cases as GameTrainingConfig JSON:
+      "cold": the factored coordinate alone (its Gaussian projection is
+              never replaced);
+      "warm": config 5's full sequence, fixed + perUser + perItem +
+              perUserMF (the projection comes from perUser's solution at
+              the first visit);
+      "sampled": fixed (down-sampled at 0.5) + perUserMF with two inner
+              iterations and the latent refit down-sampled at 0.7;
+      "random_projection": config 4 with the random effect on the
+              random_projection:4 projector."""
+    d = glmix_config_dict()
+    fixed, re = d["coordinates"]["fixed"], d["coordinates"]["perUser"]
+    item = dict(re, random_effect_type="itemId", feature_shard="per_item")
+    if case == "cold":
+        coords, seq = {"perUserMF": _factored_coordinate()}, ["perUserMF"]
+    elif case == "warm":
+        coords = {"fixed": fixed, "perUser": re, "perItem": item,
+                  "perUserMF": _factored_coordinate()}
+        seq = ["fixed", "perUser", "perItem", "perUserMF"]
+    elif case == "sampled":
+        fixed = dict(fixed, optimization=dict(fixed["optimization"], downsampling_rate=0.5))
+        coords = {"fixed": fixed, "perUserMF": _factored_coordinate(2, 0.7)}
+        seq = ["fixed", "perUserMF"]
+    elif case == "random_projection":
+        coords = {"fixed": fixed, "perUser": dict(re, projector="random_projection:4")}
+        seq = ["fixed", "perUser"]
+    else:
+        raise ValueError(case)
+    d.update(coordinates=coords, updating_sequence=seq)
+    return d
+
+
+FACTORED_CASES = ("cold", "warm", "sampled", "random_projection")
+
+
+def samplers_config_dict(task: str) -> dict:
+    """Config 4 with the fixed effect down-sampled at 0.5: logistic (the
+    binary sampler) or poisson (the default sampler)."""
+    d = glmix_config_dict()
+    fixed = d["coordinates"]["fixed"]
+    fixed["optimization"] = dict(fixed["optimization"], downsampling_rate=0.5)
+    d["task_type"] = task
+    return d
+
+
+SAMPLER_TASKS = ("logistic_regression", "poisson_regression")
+
+
+def kron_problem(seed: int = 4) -> dict:
+    """Small inputs of the KroneckerDesign products and the factored
+    helpers."""
+    rng = np.random.default_rng(seed)
+    n, d, k = 50, 6, 3
+    E, S = 12, 8
+    counts = rng.integers(0, S + 1, size=E)
+    counts[0], counts[1] = S, 0
+    mask = (np.arange(S)[None, :] < counts[:, None]).astype(np.float64)
+    bx = rng.normal(size=(E, S, d)) * mask[:, :, None]
+    bx[:, :, -1] = mask
+    z = np.einsum("esd,ed->es", bx, rng.normal(size=(E, d)))
+    return dict(
+        x=rng.normal(size=(n, d)), factors=rng.normal(size=(n, k)),
+        v=rng.normal(size=k * d), u=rng.normal(size=n),
+        w=rng.normal(size=(40, d)),
+        w_rank2=rng.normal(size=(40, 2)) @ rng.normal(size=(2, d)),
+        block_x=bx, block_mask=mask,
+        block_labels=np.where(mask > 0, (rng.uniform(size=(E, S)) < 1 / (1 + np.exp(-z))), 0.5
+                              ).astype(np.float64),
+        block_weights=rng.uniform(0.5, 2.0, size=(E, S)) * mask,
+        block_offsets=rng.normal(size=(E, S)) * 0.3 * mask,
+        latent=rng.normal(size=(E, k)) * 0.5,
+        projection=rng.normal(size=(k, d)) * 0.3)
+
+
+# prng: jax.random draws for test_torch_prng.py
+PRNG_SEEDS = (0, 1, 7, 13, 2**31 - 1, 2**40 + 5)
+PRNG_SHAPES = ((7,), (3, 5), (1001,), (2, 3, 4), (1,))
+PRNG_SPLITS = (2, 3, 5, (2, 3))
+PRNG_FOLDS = (0, 1, 77, 2**32 - 1)
+PRNG_NORMAL_SEEDS, PRNG_NORMAL_N = 5, 20_000
+
+
+def erfinv_inputs(dtype) -> np.ndarray:
+    """Edges (0, +-1, the smallest normal, the largest draws below 1) and
+    50,000 uniform points of (-1, 1)."""
+    fi = np.finfo(dtype)
+    edge = np.array([0.0, 1.0, -1.0, fi.tiny, -fi.eps, 1 - fi.epsneg, -(1 - fi.epsneg),
+                     0.5, -0.5, 0.9966, 0.99999988], dtype)
+    rng = np.random.default_rng(3)
+    return np.concatenate([edge, (rng.uniform(size=50_000) * 2 - 1).astype(dtype)])
+
+
 # name -> JSON config of each estimator parity case
 ESTIMATOR_CONFIGS = {"config4": glmix_config_dict, "variant": variant_config_dict,
                      "tron": tron_config_dict}
@@ -412,6 +539,159 @@ def _run_sparse(out: dict) -> None:
     out["yahoo/val_scores"] = np.asarray(res.descent.model.score_dataset(val))
 
 
+def _store_fit(out: dict, key: str, res, val) -> None:
+    """A GAME fit's histories, trackers, final models and validation
+    scores under key/..."""
+    from photon_ml_tpu.models.game import FactoredRandomEffectModel, FixedEffectModel
+    out[f"{key}/objective_history"] = np.asarray(res.objective_history)
+    out[f"{key}/auc_history"] = np.asarray(res.descent.validation_history["AUC"])
+    for k, t in res.descent.trackers.items():
+        out[f"{key}/iterations/{k}"] = np.asarray(t.iterations)
+    for name, m in res.descent.model.coordinates.items():
+        if isinstance(m, FixedEffectModel):
+            out[f"{key}/{name}/means"] = np.asarray(m.glm.coefficients.means)
+        elif isinstance(m, FactoredRandomEffectModel):
+            out[f"{key}/{name}/latent_coefficients"] = np.asarray(m.latent_coefficients)
+            out[f"{key}/{name}/projection"] = np.asarray(m.projection)
+            out[f"{key}/{name}/entity_ids"] = np.asarray(m.entity_ids)
+            out[f"{key}/{name}/global_dim"] = np.asarray(m.global_dim)
+            out[f"{key}/{name}/global_coefficients"] = np.asarray(m.global_coefficients())
+        else:
+            out[f"{key}/{name}/coefficients"] = np.asarray(m.coefficients)
+            out[f"{key}/{name}/global_coefficients"] = np.asarray(m.global_coefficients())
+            out[f"{key}/{name}/entity_ids"] = np.asarray(m.entity_ids)
+            out[f"{key}/{name}/global_dim"] = np.asarray(m.global_dim)
+            if m.projection is not None:
+                out[f"{key}/{name}/projection"] = np.asarray(m.projection)
+            if m.projection_matrix is not None:
+                out[f"{key}/{name}/projection_matrix"] = np.asarray(m.projection_matrix)
+    out[f"{key}/val_scores"] = np.asarray(res.descent.model.score_dataset(val))
+
+
+def _run_factored(out: dict) -> None:
+    import jax.numpy as jnp
+    from photon_ml_tpu.data.game_data import build_game_dataset
+    from photon_ml_tpu.data.synthetic_bench import (make_movielens_like,
+                                                    movielens_shards)
+    from photon_ml_tpu.game import GameEstimator, GameTrainingConfig
+    from photon_ml_tpu.ops import features as F
+    from photon_ml_tpu.ops.losses import LOGISTIC
+    from photon_ml_tpu.optim import (OptimizerConfig, RegularizationContext,
+                                     RegularizationType)
+    from photon_ml_tpu.parallel import factored as fac
+    from photon_ml_tpu.parallel.random_effect import EntityBlocks
+    p = {k: jnp.asarray(v) for k, v in kron_problem().items()}
+    kd = F.KroneckerDesign(p["x"], p["factors"])
+    out["kron/matvec"] = np.asarray(F.matvec(kd, p["v"]))
+    out["kron/rmatvec"] = np.asarray(F.rmatvec(kd, p["u"]))
+    out["kron/sq_rmatvec"] = np.asarray(F.sq_rmatvec(kd, p["u"]))
+    padded = F.pad_rows(kd, 3)
+    out["kron/pad_x"], out["kron/pad_factors"] = np.asarray(padded.x), np.asarray(padded.factors)
+    out["kron/densify"] = np.asarray(F.densify(kd))
+    for keep in (False, True):
+        for k, d, seed in ((3, 6, 7), (8, 21, 13), (5, 2, 0)):
+            out[f"gauss/{keep}/{k}/{d}/{seed}"] = np.asarray(
+                fac.gaussian_projection_matrix(k, d, keep_intercept=keep, seed=seed,
+                                               dtype=jnp.float64))
+    fallback = jnp.asarray(np.asarray(fac.gaussian_projection_matrix(3, 6, seed=1,
+                                                                      dtype=jnp.float64)))
+    wide = jnp.asarray(np.asarray(fac.gaussian_projection_matrix(8, 6, seed=2,
+                                                                 dtype=jnp.float64)))
+    for name, w, fb in (("full", p["w"], fallback), ("k_above_d", p["w"], wide),
+                        ("zero", jnp.zeros_like(p["w"]), fallback),
+                        ("rank2", p["w_rank2"], fallback)):
+        out[f"pss/{name}"] = np.asarray(fac.principal_subspace_projection(w, fb))
+    blocks = EntityBlocks(x=p["block_x"], labels=p["block_labels"], mask=p["block_mask"],
+                          weights=p["block_weights"], offsets=p["block_offsets"])
+    out["project/x"] = np.asarray(fac.project_blocks(blocks, p["projection"]).x)
+    reg = RegularizationContext(RegularizationType.L2)
+    for rows in (False, True):
+        rw = (None if not rows else
+              jnp.asarray(np.random.default_rng(9).uniform(size=p["block_mask"].size)))
+        P, res = fac.refit_latent_projection(
+            blocks, p["latent"], p["projection"], LOGISTIC, None,
+            OptimizerConfig(max_iterations=30), reg, 1.0, row_weights=rw)
+        out[f"refit/{rows}/P"] = np.asarray(P)
+        _store(out, f"refit/{rows}", res)
+    res = fac.fit_factored_random_effects(
+        blocks, LOGISTIC, None, latent_coefficients=jnp.zeros_like(p["latent"]),
+        projection=p["projection"], num_inner_iterations=2,
+        re_config=OptimizerConfig(max_iterations=30), re_reg=reg, re_reg_weight=1.0,
+        latent_config=OptimizerConfig(max_iterations=30), latent_reg=reg,
+        latent_reg_weight=1.0)
+    out["alternation/C"] = np.asarray(res.latent_coefficients)
+    out["alternation/P"] = np.asarray(res.projection)
+    train, val = movielens_game(build_game_dataset, make_movielens_like, movielens_shards)
+    for case in FACTORED_CASES:
+        res = GameEstimator(GameTrainingConfig.from_dict(factored_config_dict(case))).fit(
+            train, val, ["AUC"], timing_mode="strict")
+        _store_fit(out, case, res, val)
+
+
+def _run_samplers(out: dict) -> None:
+    import jax.numpy as jnp
+    from photon_ml_tpu.data import samplers
+    from photon_ml_tpu.data.game_data import build_game_dataset
+    from photon_ml_tpu.data.synthetic_bench import (make_movielens_like,
+                                                    movielens_shards)
+    from photon_ml_tpu.game import GameEstimator, GameTrainingConfig
+    import jax
+    rng = np.random.default_rng(8)
+    labels = (rng.uniform(size=997) < 0.3).astype(np.float64)
+    weights = rng.uniform(0.5, 2.0, size=997)
+    for seed in (0, 7):
+        key = jax.random.PRNGKey(seed)
+        for name in ("binary_classification_downsample", "default_downsample"):
+            for w in (None, weights):
+                for dt in (jnp.float32, jnp.float64):
+                    m, ww = getattr(samplers, name)(
+                        key, jnp.asarray(labels, dt), None if w is None else jnp.asarray(w, dt),
+                        0.35)
+                    tag = f"draw/{seed}/{name}/{w is None}/{jnp.dtype(dt).name}"
+                    out[f"{tag}/mask"], out[f"{tag}/weights"] = np.asarray(m), np.asarray(ww)
+    train, val = movielens_glmix(build_game_dataset, make_movielens_like, movielens_shards)
+    for task in SAMPLER_TASKS:
+        res = GameEstimator(GameTrainingConfig.from_dict(samplers_config_dict(task))).fit(
+            train, val, ["AUC"], timing_mode="strict")
+        _store_fit(out, task, res, val)
+
+
+def _run_prng(out: dict) -> None:
+    import jax
+    import jax.numpy as jnp
+    out["partitionable"] = np.asarray(jax.config.jax_threefry_partitionable)
+    for seed in PRNG_SEEDS:
+        k = jax.random.PRNGKey(seed)
+        out[f"{seed}/key"] = np.asarray(k)
+        for num in PRNG_SPLITS:
+            out[f"{seed}/split/{num}"] = np.asarray(jax.random.split(k, num))
+        for data in PRNG_FOLDS:
+            out[f"{seed}/fold_in/{data}"] = np.asarray(jax.random.fold_in(k, data))
+        chain = k
+        for i in range(4):
+            chain, sub = jax.random.split(chain)
+            out[f"{seed}/chain/{i}"] = np.asarray(sub)
+        for shape in PRNG_SHAPES:
+            tag = f"{seed}/{shape}"
+            out[f"{tag}/bits32"] = np.asarray(jax.random.bits(k, shape, jnp.uint32))
+            out[f"{tag}/bits64"] = np.asarray(jax.random.bits(k, shape, jnp.uint64))
+            for dt in (jnp.float32, jnp.float64):
+                name = jnp.dtype(dt).name
+                out[f"{tag}/uniform/{name}"] = np.asarray(jax.random.uniform(k, shape, dt))
+                out[f"{tag}/uniform_range/{name}"] = np.asarray(
+                    jax.random.uniform(k, shape, dt, minval=-3.3, maxval=5.7))
+                out[f"{tag}/normal/{name}"] = np.asarray(jax.random.normal(k, shape, dt))
+    for dt in (jnp.float32, jnp.float64):
+        name = jnp.dtype(dt).name
+        for seed in range(PRNG_NORMAL_SEEDS):
+            out[f"normal/{seed}/{name}"] = np.asarray(
+                jax.random.normal(jax.random.PRNGKey(seed), (PRNG_NORMAL_N,), dt))
+        out[f"erfinv/{name}"] = np.asarray(
+            jax.lax.erf_inv(jnp.asarray(erfinv_inputs(np.dtype(name)))))
+    out["normal_f32_4x9_seed11"] = np.asarray(
+        jax.random.normal(jax.random.PRNGKey(11), (4, 9), dtype=jnp.float32))
+
+
 def run_jax_side(what: str, out: Path) -> dict:
     """Run this script for `what` in a fresh process; its results."""
     env = dict(os.environ, PYTHONPATH=str(ROOT), JAX_PLATFORMS="cpu")
@@ -431,7 +711,8 @@ def main(argv) -> int:
     jax.config.update("jax_enable_x64", True)
     out: dict = {}
     {"tron": _run_tron, "solver": _run_solver, "estimator": _run_estimator,
-     "sparse": _run_sparse}[what](out)
+     "sparse": _run_sparse, "factored": _run_factored,
+     "samplers": _run_samplers, "prng": _run_prng}[what](out)
     np.savez(path, **out)
     return 0
 

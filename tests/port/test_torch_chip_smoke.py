@@ -63,3 +63,35 @@ def test_exits_without_cuda(tmp_path):
     out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")], cwd=tmp_path,
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode != 0 and out.stdout == ""
+
+
+def test_config5_keys_are_in_the_reference_cache():
+    """Both config 5 entries' float64 references are committed, under the
+    keys bench.py's game_entry writes for _game_setup("20m", 2,000,000,
+    seed=13, mode=...)."""
+    cache = json.loads((ROOT / "bench_ref_cache.json").read_text())
+    want = {"convex": 744219.0750334203, "full": 550487.7124439895}
+    for mode, key in chip_smoke.CONFIG5_REF_KEYS.items():
+        assert key == (f"20m:{chip_smoke.CONFIG5_ROWS}:{chip_smoke.CONFIG5_SEED}:{mode}:"
+                       "v=g2")
+        assert abs(cache[key]["ref_nll"] - want[mode]) < 1e-9
+
+
+def test_config5_setup_is_bench_setup():
+    """chip_smoke's config 5 data and configurations are bench.py's
+    _game_setup float32 ones (at 4,000 rows here): the same rows, labels,
+    shards and split, and configurations whose JSON is the JAX package's."""
+    train, val, convex, full = chip_smoke.config5_setup(4000)
+    for mode, cfg in (("convex", convex), ("full", full)):
+        j_train, j_val, j_cfg = bench._game_setup("20m", 4000, seed=chip_smoke.CONFIG5_SEED,
+                                                  dtype=np.float32, mode=mode)
+        assert cfg.to_dict() == j_cfg.to_dict()
+        for mine, theirs in ((train, j_train), (val, j_val)):
+            np.testing.assert_array_equal(mine.response, theirs.response)
+            assert mine.feature_shards.keys() == theirs.feature_shards.keys()
+            for k in mine.feature_shards:
+                np.testing.assert_array_equal(mine.feature_shards[k], theirs.feature_shards[k])
+            for k in ("userId", "itemId"):
+                np.testing.assert_array_equal(mine.entity_indices[k], theirs.entity_indices[k])
+    assert {k: v.shape[1] for k, v in train.feature_shards.items()} == {
+        "global": 33, "per_user": 21, "per_item": 13}

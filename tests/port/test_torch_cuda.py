@@ -269,6 +269,51 @@ def test_glmix_tron_fit_on_card_matches_cpu_f64(cuda):
     np.testing.assert_allclose(card.objective_history, cpu.objective_history, rtol=1e-4)
 
 
+def test_kronecker_products_on_card_match_cpu_f64(cuda):
+    """The factored refit's implicit design on the card (torch matrix
+    products, float32) against the CPU in float64: matvec, rmatvec and
+    sq_rmatvec within rtol 1e-5 of each output's scale."""
+    from photon_ml_tpu_torch.ops import features as F
+    rng = np.random.default_rng(5)
+    x, f = rng.normal(size=(20_000, 21)), rng.normal(size=(20_000, 8))
+    v, u = rng.normal(size=8 * 21), rng.normal(size=20_000)
+    cpu = F.KroneckerDesign(torch.from_numpy(x), torch.from_numpy(f))
+    card = cpu.to("cuda", torch.float32)
+    assert card.is_cuda
+    for op, arg in ((F.matvec, v), (F.rmatvec, u), (F.sq_rmatvec, u)):
+        want = op(cpu, torch.from_numpy(arg)).numpy()
+        got = op(card, torch.from_numpy(arg).float().cuda()).double().cpu().numpy()
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.abs(want).max())
+
+
+def test_factored_fit_on_card_matches_cpu_f64(cuda):
+    """Config 5's full sequence at 3,000 rows (game_jax_side.py "warm":
+    fixed + perUser + perItem + the factored perUserMF) on the card in
+    float32 against the CPU in float64: the factored coordinate is
+    warm-started from perUser on both, the final objective within rtol
+    1e-3 (the factored coordinate is not convex, so the float32 path may
+    end a little apart), fixed-effect launches equal to its passes."""
+    import game_jax_side as side
+    from photon_ml_tpu_torch.data.game_data import build_game_dataset
+    from photon_ml_tpu_torch.data.synthetic_bench import make_movielens_like, movielens_shards
+    from photon_ml_tpu_torch.game import GameEstimator, GameTrainingConfig
+    train, val = side.movielens_game(build_game_dataset, make_movielens_like,
+                                     movielens_shards)
+    cfg = GameTrainingConfig.from_dict(side.factored_config_dict("warm"))
+    cpu = GameEstimator(cfg, device="cpu", dtype=torch.float64).fit(train, val, ["AUC"])
+    before = hk.LAUNCHES
+    card = GameEstimator(cfg).fit(train, val, ["AUC"])
+    passes = sum(t.fg_count for k, t in card.descent.trackers.items()
+                 if k.endswith("/fixed"))
+    assert hk.LAUNCHES - before == passes > 0
+    assert card.descent.warm_starts == cpu.descent.warm_starts == {"perUserMF": "perUser"}
+    assert np.all(np.isfinite(card.objective_history))
+    np.testing.assert_allclose(card.objective_history[-1], cpu.objective_history[-1],
+                               rtol=1e-3)
+    mf = card.descent.model.coordinates["perUserMF"]
+    assert mf.latent_coefficients.is_cuda and mf.projection.is_cuda
+
+
 # ------------------------------------------- sparse kernels (csrc/ell_sparse.cu)
 
 def _sparse(n, d, k, seed=3, intercept=False, from_ell=False):

@@ -211,10 +211,16 @@ def test_build_is_memoized_and_unported_options_raise():
     a = tb.build_random_effect_dataset(t, cfg, device="cpu", block_dtype=torch.float64)
     assert tb.build_random_effect_dataset(t, cfg, device="cpu",
                                           block_dtype=torch.float64) is a
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tb.build_random_effect_dataset(
-            t, tb.RandomEffectDataConfig("userId", "re", projector="random_projection:4"),
-            device="cpu")
+    # the random projector (ported with the factored random effects):
+    # k + 1 local columns, the last selecting the intercept; its parity
+    # with the JAX package is test_torch_factored.py's
+    rp = tb.build_random_effect_dataset(
+        t, tb.RandomEffectDataConfig("userId", "re", projector="random_projection:4"),
+        device="cpu", block_dtype=torch.float64)
+    d = t.feature_shards["re"].shape[1]
+    assert rp.projection is None and rp.projection_matrix.shape == (5, d)
+    assert rp.local_dim == 5
+    np.testing.assert_array_equal(rp.projection_matrix[4], np.eye(d)[-1])
     with pytest.raises(ValueError, match="projector"):
         tb.build_random_effect_dataset(
             t, tb.RandomEffectDataConfig("userId", "re", projector="nope"), device="cpu")

@@ -237,9 +237,6 @@ UNPORTED = {
     "re_box": (dict(re=dict(optimization=_opt(optimizer=OptimizerType.TRON,
                                               box_lower=(-1.0,) * 19))),
                "box constraints are an LBFGS feature"),
-    "re_random_projection": (dict(re=dict(projector="random_projection:4")), "item 13"),
-    "fe_downsampling": (dict(fe=dict(optimization=GLMOptimizationConfig(
-        downsampling_rate=0.5))), "item 8"),
     "fe_streamed": (dict(fe=dict(memory_mode="streamed")), "item 15"),
     "fe_shard_features": (dict(fe=dict(shard_features=True)), "item 20"),
     "solver_schedule": (dict(fe=dict(solver_schedule={"kind": "geometric"})), "item 16"),
@@ -260,8 +257,41 @@ def test_unported_options_raise_naming_their_item(data, config, case):
         GameEstimator(cfg, device="cpu", dtype=torch.float64).fit(train, val)
 
 
+# options that raised naming their item until that item was ported; they
+# now fit (their parity with the JAX package: test_torch_factored.py,
+# test_torch_samplers.py)
+PORTED = {
+    "re_random_projection": dict(re=dict(projector="random_projection:4")),
+    "fe_downsampling": dict(fe=dict(optimization=GLMOptimizationConfig(
+        optimizer=OptimizerConfig(max_iterations=20), downsampling_rate=0.5))),
+    "factored": dict(mf=FactoredRandomEffectCoordinateConfig(
+        "userId", "per_user", latent_dim=2,
+        optimization=_opt(max_iterations=10), latent_optimization=_opt(max_iterations=10))),
+}
+
+
+@pytest.mark.parametrize("case", list(PORTED))
+def test_formerly_unported_options_now_fit(data, config, case):
+    train, val = data
+    change = PORTED[case]
+    coords = dict(config.coordinates)
+    seq = list(config.updating_sequence)
+    for key, name in (("fe", "fixed"), ("re", "perUser")):
+        if key in change:
+            coords[name] = dataclasses.replace(coords[name], **change[key])
+    if "mf" in change:
+        coords["mf"] = change["mf"]
+        seq.append("mf")
+    cfg = dataclasses.replace(config, coordinates=coords, updating_sequence=seq,
+                              num_outer_iterations=1)
+    fit = GameEstimator(cfg, device="cpu", dtype=torch.float64).fit(train, val, ["AUC"])
+    assert len(fit.objective_history) == len(seq)
+    assert np.all(np.isfinite(fit.objective_history))
+    assert 0.5 < fit.validation["AUC"] < 1.0
+
+
 @pytest.mark.parametrize("what", ["pipelined", "hbm_budget", "config_schedule",
-                                  "factored", "admm_json"])
+                                  "admm_json"])
 def test_unported_fit_modes_raise(data, config, what):
     train, val = data
     with pytest.raises(NotImplementedError):
@@ -271,12 +301,6 @@ def test_unported_fit_modes_raise(data, config, what):
             GameEstimator(dataclasses.replace(config, hbm_budget_bytes=1 << 30), device="cpu")
         elif what == "config_schedule":
             GameEstimator(dataclasses.replace(config, solver_schedule={}), device="cpu")
-        elif what == "factored":
-            coords = dict(config.coordinates, mf=FactoredRandomEffectCoordinateConfig(
-                "userId", "per_user", latent_dim=2))
-            cfg = dataclasses.replace(config, coordinates=coords,
-                                      updating_sequence=["fixed", "mf"])
-            GameEstimator(cfg, device="cpu").fit(train, val)
         else:
             d = side.glmix_config_dict()
             d["coordinates"]["fixed"]["optimization"]["admm"] = {"rho": 1.0}

@@ -25,7 +25,9 @@ FORBIDDEN = ("jax", "jaxlib", "photon_ml_tpu")
 # modules the scan must reach, the sparse slice's among them
 REQUIRED = ("photon_ml_tpu_torch.ops.features", "photon_ml_tpu_torch.ops.sparse_kernels",
             "photon_ml_tpu_torch.data.libsvm", "photon_ml_tpu_torch.convert",
-            "photon_ml_tpu_torch.ops.hopper_kernels", "chip_smoke")
+            "photon_ml_tpu_torch.ops.hopper_kernels", "photon_ml_tpu_torch.utils.prng",
+            "photon_ml_tpu_torch.data.samplers", "photon_ml_tpu_torch.parallel.factored",
+            "chip_smoke")
 
 
 def test_the_scan_covers_the_port():

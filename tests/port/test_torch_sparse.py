@@ -187,9 +187,10 @@ def test_unported_representations_name_their_roadmap_entry():
         TF.as_feature_matrix(coo, "cpu")
     with pytest.raises(NotImplementedError, match="item 24"):
         TF.matvec(coo, torch.ones(2))
-    KroneckerDesign = type("KroneckerDesign", (), {})
-    with pytest.raises(NotImplementedError, match="item 13"):
-        TF.as_feature_matrix(KroneckerDesign(), "cpu")
+    # the implicit Kronecker design (ported with the factored random
+    # effects) passes through ingest
+    kd = TF.KroneckerDesign(torch.ones(3, 2), torch.ones(3, 4))
+    assert TF.as_feature_matrix(kd, "cpu", torch.float64).dtype == torch.float64
     with pytest.raises(TypeError, match="item 25"):
         sk._check("values", torch.zeros(2, dtype=torch.bfloat16), torch.float32, (2,),
                   torch.device("cpu"))
