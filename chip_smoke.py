@@ -139,7 +139,37 @@ Phases, one JSON object per line on stdout:
      KroneckerDesign products and the latent projection timed at the
      full [E x 256]-row view beside their byte bounds, the spans and one
      profiled outer iteration;
- 18. the kernels line, nvidia-smi's line, and the final result line.
+ 18. cli_glm: BASELINE config 1 through the command line's legacy path,
+     photon_ml_tpu_torch.cli.train.main in this process (so the wrappers'
+     counts can be read) from an npz GameDataset saved by
+     save_game_dataset ([1,643,520 x 124], L2 lambda 1, LBFGS(100, tol
+     1e-9), the default pipelined timing mode, --model-format reference):
+     the saved model, loaded onto the card by load_game_model, within 1e-5
+     of the scipy optimum (float64 NLL on the host), and kernel launches ==
+     the summary's value+gradient passes;
+ 19. cli_game: BASELINE config 4 (glmix_setup, entity ids as strings, as
+     Avro gives them) through cli.train --config from npz datasets with
+     --evaluators AUC: the final objective within 1e-4 of the reference,
+     launches == the fixed effect's passes, the objective history of a
+     second run with --timing-mode strict equal bit for bit (and of a
+     third and fourth, strict then pipelined, run for the walls); then
+     cli.score on the npz best model and on a copy written by
+     save_game_model_reference_layout: the two score vectors equal bit for
+     bit, the AUC within 1e-6 of the trainer's best validation AUC; prints
+     each mode's fit wall, the save, load and score walls;
+ 20. cli_avro: bench config 7 (yahoo_setup, 300,000 rows) written as GAME
+     Avro part files (bags global, per_user, per_item; id columns userId,
+     itemId; AVRO_WRITERS pure-Python writer processes), cli.index over the
+     training files, cli.train --config --index-map-dir with the
+     validation read pinned to the training maps and vocabularies: every
+     file decoded by the native decoder (data/avro_native.py ROUTES, built
+     from the checkout's C source), the 14,983-column fixed effect read as
+     CSR and run through kernels A and B (their launches == the fixed
+     effect's passes, no dense launch), the final objective within 1e-4 of
+     the float64 reference; prints the write time, the ingest's rows/s and
+     the fit wall;
+ 21. the kernels line (launches by path, the CLI paths included),
+     nvidia-smi's line, and the final result line.
 Exits non-zero, before printing any result, when CUDA is absent or when
 the port's package is not beside this script.
 """
@@ -1429,14 +1459,318 @@ def yahoo_phase(hk, sk, ref_cache, kind, smi) -> dict:
             "timing": st7}
 
 
-def sparse_kernel_entry(name: str, part: str, c6: dict, c7: dict) -> dict:
+# --- the command-line main path (photon_ml_tpu_torch/cli) ---------------------
+
+CLI_ROOT = ROOT / "build" / "chip_smoke_cli"
+CLI_GLM_REPLICAS = 1024      # config 1: make_a1a_like(1024) = [1,643,520 x 124]
+AVRO_WRITERS = 8
+YAHOO_BAGS = {"global": ("g", "global"), "per_user": ("u", "per_user"),
+              "per_item": ("i", "per_item")}
+
+
+def cli_dir(name: str) -> Path:
+    """A fresh directory for one CLI phase, under the checkout's build/."""
+    import shutil
+    d = CLI_ROOT / name
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    return d
+
+
+def run_cli(module, argv) -> tuple:
+    """module.main(argv) in this process (so the wrappers' counts can be
+    read): -> (the JSON object it printed last, seconds).  Fails the phase
+    on a non-zero exit."""
+    import contextlib
+    import io
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = module.main([str(a) for a in argv])
+    seconds = time.perf_counter() - t0
+    if rc != 0:
+        raise SystemExit(f"{module.__name__} {argv} exited {rc}")
+    return json.loads(out.getvalue().strip().splitlines()[-1]), seconds
+
+
+def yahoo_index_maps(dataset) -> dict:
+    """Per-bag index maps naming config 7's columns: zero-padded names in
+    column order and the intercept (each shard's last column) last, so a
+    read back in the maps' sorted order gives the columns in their order."""
+    from photon_ml_tpu_torch.data.index_map import IndexMap, feature_key
+    return {bag: IndexMap.from_keys([feature_key(f"{prefix}{j:05d}")
+                                     for j in range(dataset.shard_dim(shard) - 1)])
+            for bag, (prefix, shard) in YAHOO_BAGS.items()}
+
+
+def _write_avro_part(part: dict) -> int:
+    """One part file: write_game_examples(**part), in a writer process."""
+    from photon_ml_tpu_torch.data.avro_game import write_game_examples
+    write_game_examples(**part)
+    return len(part["response"])
+
+
+def write_yahoo_avro(splits: dict, directory: Path, writers: int = AVRO_WRITERS) -> dict:
+    """Config 7's datasets as GAME Avro part files, split -> its directory
+    of part-NNNNN.avro, `writers` files each, written by as many
+    pure-Python writer processes (spawned: this process has the CUDA
+    runtime's threads), as Spark writes part files in parallel; one writer
+    writes in this process.  No process outlives the call."""
+    import multiprocessing
+    maps = yahoo_index_maps(next(iter(splits.values())))
+    parts, dirs = [], {}
+    for split, ds in splits.items():
+        dirs[split] = directory / split
+        dirs[split].mkdir(parents=True, exist_ok=True)
+        bounds = np.linspace(0, ds.num_rows, writers + 1).astype(int)
+        for p, (lo, hi) in enumerate(zip(bounds[:-1], bounds[1:])):
+            rows = np.arange(lo, hi)
+            parts.append({
+                "path": str(dirs[split] / f"part-{p:05d}.avro"),
+                "response": ds.response[rows],
+                "bags": {bag: (ds.feature_shards[shard][rows], maps[bag])
+                         for bag, (_, shard) in YAHOO_BAGS.items()},
+                "id_values": {t: np.asarray(ds.entity_vocabs[t])[ds.entity_indices[t][rows]]
+                              for t in ("userId", "itemId")}})
+    if writers == 1:
+        rows = sum(map(_write_avro_part, parts))
+    else:
+        with multiprocessing.get_context("spawn").Pool(writers) as pool:
+            rows = sum(pool.map(_write_avro_part, parts, chunksize=1))
+    return {"dirs": dirs, "rows": rows, "files": len(parts), "maps": maps}
+
+
+def cli_glm_phase(hk, ref_nll, kind, smi, device="cuda") -> int:
+    """BASELINE config 1 through cli.train's legacy path from an npz
+    dataset: the saved reference-layout model's float64 NLL within 1e-5 of
+    the scipy optimum, kernel launches == the summary's passes."""
+    import torch
+    from photon_ml_tpu_torch.cli import train as train_cli
+    from photon_ml_tpu_torch.data.game_data import build_game_dataset, save_game_dataset
+    from photon_ml_tpu_torch.data.synthetic_bench import make_a1a_like
+    from photon_ml_tpu_torch.models.io import load_game_model
+    d = cli_dir("cli_glm")
+    t0 = time.perf_counter()
+    x_np, y_np = make_a1a_like(CLI_GLM_REPLICAS, "logistic", seed=42)
+    save_game_dataset(build_game_dataset(y_np, {"global": x_np}), str(d / "train.npz"))
+    data_s = time.perf_counter() - t0
+    hk.LAUNCHES = 0
+    summary, wall = run_cli(train_cli, [
+        "--train-data", d / "train.npz", "--task", "logistic_regression",
+        "--reg-weights", LAMBDA, "--max-iterations", 100, "--tolerance", 1e-9,
+        "--model-format", "reference", "--output-dir", d / "out", "--device", device])
+    launches = hk.LAUNCHES
+    t0 = time.perf_counter()
+    model, _ = load_game_model(str(d / "out" / "best"), device=device)
+    load_s = time.perf_counter() - t0
+    coef = model.coordinates["fixed"].glm.coefficients.means
+    nll = host_objective(x_np, y_np, coef.double().cpu().numpy(), LAMBDA)
+    rel_gap = (nll - ref_nll) / abs(ref_nll)
+    diag = summary["solver_diagnostics"]["fixed"]
+    passes = diag["value_gradient_passes"]
+    emit({"phase": "cli_glm", "entry": "photon_ml_tpu_torch.cli.train.main (legacy path)",
+          "config": "BASELINE config 1 (bench.py bench_config1) from an npz GameDataset",
+          "shape": list(x_np.shape), "data_and_save_s": data_s, "cli_wall_s": wall,
+          "ingest_s": summary["ingest_s"], "fit_s": summary["fit_s"],
+          "save_s": summary["save_s"], "load_s": load_s,
+          "timing_mode": summary["timing_mode"], "iterations": diag["iterations"],
+          "passes": passes, "kernel_launches": launches, "final_nll_f64": nll,
+          "ref_nll": ref_nll, "nll_rel_gap": rel_gap,
+          "final_objective": summary["final_objective"], "device": kind, "nvidia_smi": smi})
+    if tuple(coef.shape) != (x_np.shape[1],) or not bool(torch.isfinite(coef).all()):
+        raise SystemExit(f"cli_glm: bad coefficients, shape {tuple(coef.shape)}")
+    if not (launches == passes and launches > 0):
+        raise SystemExit(f"cli_glm: kernel launches {launches} != passes {passes}")
+    if not abs(rel_gap) <= NLL_RTOL:
+        raise SystemExit(f"cli_glm: objective {nll} is {rel_gap:.3e} from {ref_nll}")
+    return launches
+
+
+def cli_game_phase(hk, glmix_ref, kind, smi, device="cuda") -> int:
+    """BASELINE config 4 through cli.train --config from npz datasets, in
+    both timing modes (histories bit for bit), then cli.score on the npz
+    model and on a reference-layout copy (scores bit for bit, AUC as the
+    trainer's)."""
+    from photon_ml_tpu_torch.cli import score as score_cli
+    from photon_ml_tpu_torch.cli import train as train_cli
+    from photon_ml_tpu_torch.data.game_data import save_game_dataset
+    from photon_ml_tpu_torch.models.io import (load_game_model,
+                                               save_game_model_reference_layout)
+    d = cli_dir("cli_game")
+    t0 = time.perf_counter()
+    train, val, cfg = glmix_setup()
+    # entity ids as strings, as Avro input and the reference layout give
+    # them (a model matches rows to entities by raw id value); the order of
+    # the vocabulary, and so the fit, is config 4's
+    for ds in (train, val):
+        ds.entity_vocabs = {t: np.asarray([str(v) for v in vocab], dtype=object)
+                            for t, vocab in ds.entity_vocabs.items()}
+    save_game_dataset(train, str(d / "train.npz"))
+    save_game_dataset(val, str(d / "val.npz"))
+    (d / "config.json").write_text(cfg.to_json())
+    data_s = time.perf_counter() - t0
+    n_train = train.num_rows
+    del train, val
+    common = ["--train-data", d / "train.npz", "--validation-data", d / "val.npz",
+              "--config", d / "config.json", "--evaluators", "AUC", "--device", device]
+    hk.LAUNCHES = 0
+    pipelined, wall_p = run_cli(train_cli, common + ["--output-dir", d / "pipelined"])
+    launches = hk.LAUNCHES
+    strict, wall_s = run_cli(train_cli, common + ["--timing-mode", "strict",
+                                                  "--output-dir", d / "strict"])
+    # the same pair again, in the other order, for the walls (the first
+    # fit of a process pays for warming the allocator and the libraries)
+    again = {mode: run_cli(train_cli, common + ["--timing-mode", mode,
+                                                "--output-dir", d / f"{mode}2"])[0]
+             for mode in ("strict", "pipelined")}
+    final = pipelined["final_objective"]
+    rel_gap = (final - glmix_ref) / abs(glmix_ref)
+    passes = pipelined["solver_diagnostics"]["fixed"]["value_gradient_passes"]
+    same = (pipelined["objective_history"] == strict["objective_history"]
+            == again["strict"]["objective_history"]
+            == again["pipelined"]["objective_history"])
+    # score the npz model and its reference-layout copy
+    best = d / "pipelined" / "best"
+    t0 = time.perf_counter()
+    model, _ = load_game_model(str(best), device=device)
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    save_game_model_reference_layout(model, str(d / "reference"))
+    save_ref_s = time.perf_counter() - t0
+    scored = {}
+    for name, model_dir in (("npz", best), ("reference", d / "reference")):
+        result, wall = run_cli(score_cli, [
+            "--model-dir", model_dir, "--data", d / "val.npz", "--evaluators", "AUC",
+            "--output", d / f"scores_{name}.npz", "--device", device])
+        scored[name] = (result, wall, np.load(d / f"scores_{name}.npz")["scores"])
+    auc_best = max(pipelined["validation_history"]["AUC"])
+    auc_score = scored["npz"][0]["evaluation"]["AUC"]
+    scores_equal = bool(np.array_equal(scored["npz"][2], scored["reference"][2]))
+    emit({"phase": "cli_game", "entry": "photon_ml_tpu_torch.cli.train.main --config",
+          "config": "BASELINE config 4 (bench.py bench_config4) from npz GameDatasets",
+          "n_train": n_train, "data_and_save_s": data_s,
+          "cli_wall_s": {"pipelined": wall_p, "strict": wall_s},
+          "fit_s": {"pipelined": pipelined["fit_s"], "strict": strict["fit_s"],
+                    "strict_2": again["strict"]["fit_s"],
+                    "pipelined_2": again["pipelined"]["fit_s"]},
+          "spans_s": {"pipelined": pipelined["spans_s"], "strict": strict["spans_s"],
+                      "pipelined_2": again["pipelined"]["spans_s"]},
+          "ingest_s": pipelined["ingest_s"], "save_s": pipelined["save_s"],
+          "host_blocked_s": {"pipelined": pipelined["host_blocked_s"],
+                             "strict": strict["host_blocked_s"]},
+          "objective_history": pipelined["objective_history"],
+          "strict_equals_pipelined": same, "final_objective": final,
+          "ref_nll": glmix_ref, "nll_rel_gap": rel_gap, "passes": passes,
+          "kernel_launches": launches, "validation_auc_best": auc_best,
+          "load_s": load_s, "save_reference_s": save_ref_s,
+          "score": {name: {"cli_wall_s": wall, "load_s": r["load_s"],
+                           "score_s": r["score_s"], "auc": r["evaluation"]["AUC"]}
+                    for name, (r, wall, _) in scored.items()},
+          "scores_equal_across_layouts": scores_equal, "device": kind, "nvidia_smi": smi})
+    if not (launches == passes and launches > 0):
+        raise SystemExit(f"cli_game: kernel launches {launches} != FE passes {passes}")
+    if not abs(rel_gap) <= GLMIX_RTOL:
+        raise SystemExit(f"cli_game: objective {final} is {rel_gap:.3e} from {glmix_ref}")
+    if not same:
+        raise SystemExit("cli_game: strict and pipelined histories differ: "
+                         f"{strict['objective_history']} vs {pipelined['objective_history']}")
+    if not scores_equal:
+        raise SystemExit("cli_game: the npz and reference-layout models score differently")
+    if not abs(auc_score - auc_best) <= 1e-6:
+        raise SystemExit(f"cli_game: scored AUC {auc_score} != trainer's {auc_best}")
+    return launches
+
+
+def cli_avro_phase(hk, sk, ref_cache, kind, smi, device="cuda") -> dict:
+    """Bench config 7 written as GAME Avro part files, indexed by cli.index
+    and trained by cli.train --config through the native decoder: every
+    file decoded natively, the wide fixed effect as CSR through kernels A
+    and B (launches == the summary's passes), the objective within 1e-4 of
+    the float64 reference."""
+    from photon_ml_tpu_torch.cli import index as index_cli
+    from photon_ml_tpu_torch.cli import train as train_cli
+    from photon_ml_tpu_torch.data import avro_native
+    d = cli_dir("cli_avro")
+    t0 = time.perf_counter()
+    train, val, cfg = yahoo_setup()
+    (d / "config.json").write_text(cfg.to_json())
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    written = write_yahoo_avro({"train": train, "validation": val}, d)
+    write_s = time.perf_counter() - t0
+    n_rows = train.num_rows + val.num_rows
+    del train, val
+    shard_map = json.dumps({bag: [bag] for bag in YAHOO_BAGS})
+    for key in avro_native.ROUTES:
+        avro_native.ROUTES[key] = 0
+    index, index_s = run_cli(index_cli, ["--data", written["dirs"]["train"],
+                                         "--feature-shard-map", shard_map,
+                                         "--output", d / "maps"])
+    reset_launches(hk, sk)
+    summary, wall = run_cli(train_cli, [
+        "--train-data", written["dirs"]["train"],
+        "--validation-data", written["dirs"]["validation"],
+        "--config", d / "config.json", "--feature-shard-map", shard_map,
+        "--id-columns", "userId,itemId", "--index-map-dir", d / "maps",
+        "--evaluators", "AUC", "--output-dir", d / "out", "--device", device])
+    launches, dense = dict(sk.LAUNCHES), hk.LAUNCHES
+    routes = dict(avro_native.ROUTES)
+    # the native block decode alone, over the files the training read
+    t0 = time.perf_counter()
+    for split in ("train", "validation"):
+        for path in sorted(written["dirs"][split].glob("*.avro")):
+            avro_native.read_columnar(str(path), decode_maps=True)
+    decode_s = time.perf_counter() - t0
+    ref = ref_cache[YAHOO_REF_KEY]["ref_nll"]
+    final = summary["final_objective"]
+    rel_gap = (final - ref) / abs(ref)
+    passes = summary["solver_diagnostics"]["fixed"]["value_gradient_passes"]
+    n_train_files = len(list(written["dirs"]["train"].glob("*.avro")))
+    want_native = 2 * n_train_files + (written["files"] - n_train_files)
+    emit({"phase": "cli_avro", "entry": "photon_ml_tpu_torch.cli.index.main, "
+                                        "photon_ml_tpu_torch.cli.train.main --config",
+          "config": "bench.py bench_config7 (_yahoo_setup) as GAME Avro part files",
+          "rows": n_rows, "setup_s": setup_s, "avro_files": written["files"],
+          "avro_writers": AVRO_WRITERS, "avro_write_s": write_s,
+          "avro_bytes": sum(p.stat().st_size for p in d.rglob("*.avro")),
+          "index_s": index_s, "index_shards": index["shards"],
+          "ingest_s": summary["ingest_s"],
+          "ingest_rows_per_s": n_rows / summary["ingest_s"] if summary["ingest_s"] else None,
+          "decode_s": decode_s, "decode_rows_per_s": n_rows / decode_s,
+          "cli_wall_s": wall, "fit_s": summary["fit_s"], "save_s": summary["save_s"],
+          "spans_s": summary["spans_s"],
+          "decode_routes": routes, "decoder_build_error": avro_native.BUILD_ERROR,
+          "decoder_library": str(avro_native.library_path().relative_to(ROOT)),
+          "final_objective": final, "ref_nll": ref, "nll_rel_gap": rel_gap,
+          "objective_history": summary["objective_history"],
+          "validation_auc": summary["validation"].get("AUC"), "passes": passes,
+          "kernel_launches": launches, "dense_kernel_launches": dense,
+          "device": kind, "nvidia_smi": smi})
+    if routes != {"native": want_native, "python": 0}:
+        raise SystemExit(f"cli_avro: decode routes {routes}, expected {want_native} native "
+                         f"files and none in Python ({avro_native.BUILD_ERROR})")
+    if index["shards"]["global"] != 14_983:
+        raise SystemExit(f"cli_avro: the global shard has {index['shards']['global']} columns")
+    if not (launches["margin_loss"] == launches["column_sum"] == passes and passes > 0
+            and launches["sq_column_sum"] == dense == 0):
+        raise SystemExit(f"cli_avro: sparse launches {launches} (dense {dense}) != 2 per "
+                         f"pass x fixed-effect passes {passes}")
+    if not abs(rel_gap) <= YAHOO_RTOL:
+        raise SystemExit(f"cli_avro: objective {final} is {rel_gap:.3e} from {ref}")
+    return launches
+
+
+def sparse_kernel_entry(name: str, part: str, c6: dict, c7: dict,
+                        cli_avro: dict) -> dict:
     """The kernels line's entry of sparse kernel A ("a") or B ("b"): its
-    launches on the config 6 and config 7 paths (A: loss and margins modes;
-    B: powers 1 and 2) and its numbers at config 6's shape, then config
-    7's."""
+    launches on the config 6, config 7 and Avro CLI paths (A: loss and
+    margins modes; B: powers 1 and 2) and its numbers at config 6's shape,
+    then config 7's."""
     keys = {"a": ("margin_loss", "margins"), "b": ("column_sum", "sq_column_sum")}[part]
-    by_path = {path: sum(c["launches"][k] for k in keys)
-               for path, c in (("config6", c6), ("yahoo_glmix", c7))}
+    by_path = {path: sum(launches[k] for k in keys)
+               for path, launches in (("config6", c6["launches"]),
+                                      ("yahoo_glmix", c7["launches"]),
+                                      ("cli_avro", cli_avro))}
     t6, t7 = c6["timing"][part], c7["timing"][part]
     pick = lambda t: {k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                         "share_of_bound", "ms_over_library",
@@ -1757,17 +2091,29 @@ def main() -> int:
     c7 = yahoo_phase(hk, sk, ref_cache, kind, smi)
     c5 = config5_phase(hk, ref_cache, kind, smi, sms)
 
+    # --- the command-line main path (cli.train / cli.score / cli.index) ------
+    t0 = time.perf_counter()
+    cli_glm = cli_glm_phase(hk, ref_nll, kind, smi)
+    emit({"phase": "cli_glm_done", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    cli_game = cli_game_phase(hk, glmix_ref, kind, smi)
+    emit({"phase": "cli_game_done", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    cli_avro = cli_avro_phase(hk, sk, ref_cache, kind, smi)
+    emit({"phase": "cli_avro_done", "seconds": time.perf_counter() - t0})
+
     emit({"kernels": [{
         "name": "fused_value_and_gradient",
         "route": "cuda",
         "source": "photon_ml_tpu_torch/csrc/fused_value_and_gradient.cu",
         "replaces": "photon_ml_tpu/ops/pallas_kernels.py:150",
         "launches": (launches + g_launches + c2_launches + c3["kernel_launches"] + t_launches
-                     + c5["convex"] + c5["full"]),
+                     + c5["convex"] + c5["full"] + cli_glm + cli_game),
         "launches_by_path": {"train_glm": launches, "glmix": g_launches,
                              "config2": c2_launches, "config3": c3["kernel_launches"],
                              "glmix_tron": t_launches, "config5_convex": c5["convex"],
-                             "config5_full": c5["full"]},
+                             "config5_full": c5["full"], "cli_glm": cli_glm,
+                             "cli_game": cli_game},
         "max_abs_err": max_abs_err,
         "tolerance": f"value rtol {VALUE_RTOL}, gradient rtol {GRAD_RTOL} atol {GRAD_ATOL}",
         "ms": timing["ms"],
@@ -1789,7 +2135,7 @@ def main() -> int:
         "at_config5_shape": {k: c5["timing"][k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "hbm_share",
             "ms_over_library", "shape", "max_abs_err")},
-    }] + [sparse_kernel_entry(name, part, c6, c7) for name, part in (
+    }] + [sparse_kernel_entry(name, part, c6, c7, cli_avro) for name, part in (
         ("ell_margin_loss", "a"), ("csc_column_sum", "b"))],
         "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)

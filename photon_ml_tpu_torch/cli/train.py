@@ -1,0 +1,630 @@
+"""Training CLI (port of photon_ml_tpu/cli/train.py): one entry point for the
+legacy single-GLM pipeline and the GAME path, on one CUDA device.
+
+  python -m photon_ml_tpu_torch.cli.train \
+      --train-data data.npz|data.libsvm|data.avro --task logistic_regression \
+      --output-dir out/ [--validation-data v.npz] [--config game.json]
+      [--reg-weights 0.1,1,10] [--evaluators AUC,PRECISION@K:10:userId]
+      [--device cuda|cpu] [--x64] ...
+
+Without --config, a single fixed-effect coordinate over the "global" shard
+is trained (the legacy pipeline: lambda sweep -> validate -> select best,
+through GameEstimator.fit_grid); with --config (GameTrainingConfig JSON),
+the full GAME coordinate-descent path runs.  The flags are the JAX CLI's;
+`--device` (default cuda) is the port's counterpart of JAX_PLATFORMS, and
+without CUDA the run exits non-zero unless `--device cpu` is given.  `--x64`
+computes in float64 (float32 otherwise).  Flags of subsystems the port
+does not have yet exit naming their ROADMAP.md queue A item, and summary
+keys that belong to them are null.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import os
+import sys
+import time
+
+import numpy as np
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="photon-ml-tpu-torch-train",
+        description="Train GLM / GAME mixed-effect models on a CUDA device "
+                    "(PyTorch)")
+    p.add_argument("--train-data", required=True,
+                   help=".npz GameDataset, .libsvm file, or Avro input "
+                        "(.avro file, directory of .avro files, or glob)")
+    p.add_argument("--validation-data", default=None)
+    p.add_argument("--feature-shard-map", default=None,
+                   help="Avro inputs: JSON (inline or @file) mapping shard "
+                        "name -> list of feature-bag fields to merge, e.g. "
+                        "'{\"global\": [\"features\"], \"per_user\": "
+                        "[\"userFeatures\"]}' (reference: readMerged "
+                        "featureColumnMap); default merges the 'features' "
+                        "bag into one 'global' shard")
+    p.add_argument("--index-map-dir", default=None,
+                   help="directory of prebuilt per-shard index maps "
+                        "(python -m photon_ml_tpu_torch.cli.index); pins this "
+                        "job's Avro ingest to that frozen feature space so "
+                        "separate jobs share identical feature dimensions "
+                        "and key->column assignment (reference: "
+                        "FeatureIndexingJob + PalDBIndexMapLoader)")
+    p.add_argument("--selected-features", default=None,
+                   help="Avro file of FeatureAvro {name, term} records: "
+                        "restrict training to exactly these features (+ "
+                        "intercept), like the legacy trainer's "
+                        "selected-features file (reference: GLMSuite "
+                        "selectedFeaturesFile).  Single-shard Avro input "
+                        "only; exclusive with --index-map-dir")
+    p.add_argument("--id-columns", default=None,
+                   help="Avro inputs: comma-separated random-effect id tags "
+                        "to extract (top-level field or metadataMap key)")
+    p.add_argument("--input-columns", default=None,
+                   help="Avro inputs: JSON remapping of input column names, "
+                        "e.g. '{\"response\": \"label\", \"weight\": \"w\"}' "
+                        "(reference: InputColumnsNames; keys: response, "
+                        "offset, weight, uid)")
+    p.add_argument("--input-date-range", default=None,
+                   help="restrict date-partitioned input to "
+                        "'yyyyMMdd-yyyyMMdd': reads "
+                        "<train-data>/daily/YYYY/MM/DD per day (reference: "
+                        "GameDriver.pathsForDateRange)")
+    p.add_argument("--input-days-ago", default=None,
+                   help="same as --input-date-range but as 'START-END' days "
+                        "ago (e.g. '90-1'); mutually exclusive with it")
+    p.add_argument("--validation-date-range", default=None,
+                   help="date range for the VALIDATION input's daily/ tree "
+                        "(each input resolves its own range, as in the "
+                        "reference)")
+    p.add_argument("--validation-days-ago", default=None,
+                   help="days-ago range for the validation input")
+    p.add_argument("--save-feature-stats", action="store_true",
+                   help="persist per-shard BasicStatisticalSummary to "
+                        "<output-dir>/feature-stats/<shard>.json (reference: "
+                        "Driver.calculateAndSaveFeatureShardStats)")
+    p.add_argument("--task", default="logistic_regression",
+                   choices=["logistic_regression", "linear_regression",
+                            "poisson_regression", "smoothed_hinge_loss_linear_svm"])
+    p.add_argument("--output-dir", required=True)
+    p.add_argument("--config", default=None,
+                   help="GameTrainingConfig JSON file (enables GAME path)")
+    p.add_argument("--optimizer", default="lbfgs", choices=["lbfgs", "tron"])
+    p.add_argument("--regularization", default="l2",
+                   choices=["none", "l1", "l2", "elastic_net"])
+    p.add_argument("--elastic-net-alpha", type=float, default=None)
+    p.add_argument("--reg-weights", default="1.0",
+                   help="comma-separated lambda sweep (legacy path)")
+    p.add_argument("--max-iterations", type=int, default=None)
+    p.add_argument("--tolerance", type=float, default=None)
+    p.add_argument("--normalization", default="none",
+                   choices=["none", "scale_with_standard_deviation",
+                            "scale_with_max_magnitude", "standardization"])
+    p.add_argument("--evaluators", default=None,
+                   help="comma-separated, e.g. AUC,RMSE,PRECISION@K:10:userId")
+    p.add_argument("--compute-variances", action="store_true")
+    p.add_argument("--x64", action="store_true", help="float64 (parity runs)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to train on (default cuda; 'cpu' runs "
+                        "on the host, as the parity tests do).  Without CUDA "
+                        "and without --device cpu the run exits non-zero")
+    p.add_argument("--verbose", action="store_true")
+    p.add_argument("--mesh", default="auto",
+                   help="'auto' or 'none' = one device; 'DxF' meshes (and "
+                        "'auto' over several cards) are multi-GPU training, "
+                        "not ported yet (ROADMAP.md queue A item 20)")
+    # multi-host runs: not ported yet (item 20); their environment
+    # fallbacks ($PHOTON_COORDINATOR, ...) exit too
+    p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                   help="multi-host runs (not ported yet: item 20)")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="multi-host runs (not ported yet: item 20)")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="multi-host runs (not ported yet: item 20)")
+    p.add_argument("--data-validation", default="full",
+                   choices=["full", "sample", "disabled"],
+                   help="input sanity-check intensity (reference: "
+                        "DataValidationType VALIDATE_FULL/SAMPLE/DISABLED)")
+    p.add_argument("--no-weight-check", action="store_true",
+                   help="allow rows with weights <= 0 (the cheap rejection "
+                        "otherwise runs even under --data-validation "
+                        "disabled, like the reference's separate checkData "
+                        "flag)")
+    # hyperparameter tuning (reference: Driver.runHyperparameterTuning):
+    # not ported yet (item 17)
+    p.add_argument("--tuning", default="none",
+                   choices=["none", "random", "bayesian"],
+                   help="hyperparameter search (not ported yet: item 17)")
+    p.add_argument("--tuning-iterations", type=int, default=10)
+    p.add_argument("--tuning-range", default="-3,3",
+                   help="log10 lambda search range 'lo,hi' per coordinate")
+    p.add_argument("--sweep-seed", type=int, default=None,
+                   help="seed of the hyperparameter search")
+    p.add_argument("--warm-start", action="store_true",
+                   help="initialize each grid combo from the previous "
+                        "model (reference: use-warm-start, "
+                        "GameTrainingParams.scala:197)")
+    p.add_argument("--event-listener", action="append", default=[],
+                   help="EventListener class path (not ported yet: item 19)")
+    p.add_argument("--profile", action="store_true",
+                   help="profile the run (not ported yet: item 19)")
+    p.add_argument("--trace-out", default=None, metavar="TRACE.json",
+                   help="span timeline of the fit (not ported yet: item 19)")
+    p.add_argument("--run-log", default=None, metavar="RUN.jsonl",
+                   help="JSONL run log (not ported yet: item 19)")
+    p.add_argument("--no-compile-cache", action="store_true",
+                   help="accepted for the JAX CLI's flags: the port has no "
+                        "compile cache (its kernels are built once per "
+                        "checkout)")
+    p.add_argument("--model-format", default="npz",
+                   choices=["npz", "avro", "reference"],
+                   help="best-model output format; avro writes the "
+                        "reference's BayesianLinearModelAvro / "
+                        "LatentFactorAvro interchange records; reference "
+                        "writes the Scala reference's own directory layout "
+                        "(part-*.avro + id-info) that photon-ml itself "
+                        "can load")
+    p.add_argument("--initial-model-dir", default=None,
+                   help="warm-start every coordinate this model covers "
+                        "(npz, avro, or a reference-layout directory that "
+                        "actual photon-ml wrote); beyond the reference, "
+                        "whose warm start is intra-sweep only")
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="checkpoints and resume (not ported yet: item 14)")
+    p.add_argument("--hbm-budget", default=None,
+                   help="device-memory residency budget (not ported yet: "
+                        "item 15)")
+    p.add_argument("--timing-mode", default="pipelined",
+                   choices=["pipelined", "strict"],
+                   help="pipelined (default): each update's objective and "
+                        "metrics stay on the device and are read back in "
+                        "one copy per outer iteration.  strict: sync after "
+                        "every update (same math bit for bit; per-phase "
+                        "timings stay attributable to the device work they "
+                        "launched)")
+    p.add_argument("--fault-plan", default=None,
+                   help="fault injection (not ported yet: item 14)")
+    return p
+
+
+def check_mesh_arg(mesh_arg: str, device) -> None:
+    """The port trains on one device: 'none', or 'auto' with one visible
+    card (or on the CPU), pass; a 'DxF' mesh, or 'auto' over several
+    cards, is multi-GPU training (ROADMAP.md queue A item 20) and exits."""
+    import torch
+    cards = torch.cuda.device_count() if device.type == "cuda" else 1
+    if mesh_arg == "none" or (mesh_arg == "auto" and cards <= 1):
+        return
+    raise SystemExit(
+        f"--mesh {mesh_arg!r}: multi-device meshes are not ported yet "
+        "(ROADMAP.md queue A item 20); pass --mesh none to train on one "
+        "device")
+
+
+def resolve_avro_paths(path: str):
+    """'.avro' file, directory of .avro files, or glob -> sorted paths, or
+    None when `path` is not an Avro input.  A directory or glob that yields
+    NO .avro files is an explicit error, not a silent fall-through."""
+    import glob as _glob
+    if os.path.isdir(path):
+        found = sorted(_glob.glob(os.path.join(path, "*.avro")))
+        if not found:
+            raise SystemExit(f"no .avro files found in directory {path!r}")
+        return found
+    if "*" in path or "?" in path:
+        found = sorted(p for p in _glob.glob(path) if p.endswith(".avro"))
+        if not found:
+            raise SystemExit(f"glob {path!r} matched no .avro files")
+        return found
+    if path.endswith(".avro"):
+        return [path]
+    return None
+
+
+def _load_json_arg(arg: str):
+    """Shared 'inline JSON or @file' convention for CLI JSON flags."""
+    if arg.startswith("@"):
+        with open(arg[1:]) as f:
+            return json.loads(f.read())
+    return json.loads(arg)
+
+
+def parse_input_columns(arg):
+    """JSON column remap -> InputColumnNames (reference: InputColumnsNames
+    remappable response/offset/weight/uid names)."""
+    from photon_ml_tpu_torch.data.game_data import InputColumnNames
+    if arg is None:
+        return InputColumnNames()
+    import dataclasses as _dc
+    m = _load_json_arg(arg)
+    allowed = {f.name for f in _dc.fields(InputColumnNames)}
+    if not isinstance(m, dict) or not all(
+            isinstance(v, str) and v for v in m.values()):
+        raise SystemExit("--input-columns must be a JSON object mapping "
+                         "column roles to non-empty string column names")
+    bad = set(m) - allowed
+    if bad:
+        raise SystemExit(f"--input-columns: unknown keys {sorted(bad)} "
+                         f"(allowed: {sorted(allowed)})")
+    return InputColumnNames(**m)
+
+
+def parse_feature_shard_map(arg):
+    """JSON inline or @file -> {shard: [bags]}; default single-shard merge
+    of the TrainingExampleAvro 'features' bag."""
+    if arg is None:
+        return {"global": ["features"]}
+    m = _load_json_arg(arg)
+    if not isinstance(m, dict) or not all(
+            isinstance(v, list) and v for v in m.values()):
+        raise SystemExit("--feature-shard-map must be a JSON object mapping "
+                         "shard name -> non-empty list of bag fields")
+    return m
+
+
+def _load_dataset(path: str, task: str, args=None, train_dataset=None,
+                  date_range=None, days_ago=None, pinned_maps=None):
+    """`train_dataset` pins a validation read to the TRAINING feature/entity
+    spaces: separately-scanned Avro validation data would otherwise build
+    its own sorted vocabularies and silently misalign columns with the
+    trained coefficients.  `date_range`/`days_ago` expand the path's
+    daily/YYYY/MM/DD tree (each input resolves its own range, reference:
+    GameDriver.pathsForDateRange)."""
+    import glob as _glob
+
+    from photon_ml_tpu_torch.data.game_data import (build_game_dataset,
+                                                    load_game_dataset)
+    from photon_ml_tpu_torch.data.libsvm import read_libsvm
+    if path.endswith(".libsvm") or path.endswith(".txt"):
+        if pinned_maps is not None:
+            raise SystemExit(
+                "a pinned feature space (--index-map-dir / "
+                "--selected-features) requires Avro training input: LIBSVM "
+                "features are positional, not (name, term)-keyed")
+        x, y = read_libsvm(path)
+        return build_game_dataset(y, {"global": x})
+    if date_range or days_ago:
+        from photon_ml_tpu_torch.data.date_range import paths_for_date_range
+        day_dirs = paths_for_date_range(path, date_range, days_ago)
+        # a day dir without .avro files (e.g. only a _SUCCESS marker) is
+        # skipped, matching the reference's errorOnMissing=false posture;
+        # only a range yielding NOTHING is an error
+        avro_paths = []
+        for d in day_dirs:
+            avro_paths.extend(sorted(_glob.glob(os.path.join(d, "*.avro"))))
+        if not avro_paths:
+            raise SystemExit(
+                f"no .avro files under any day directory of {path!r} "
+                "for the requested date range")
+    else:
+        avro_paths = resolve_avro_paths(path)
+    if avro_paths is not None:
+        # reference: AvroDataReader.readMerged + GameConverters — the
+        # primary input path of the GAME training job
+        from photon_ml_tpu_torch.data.avro_game import read_game_examples
+        shard_map = parse_feature_shard_map(
+            getattr(args, "feature_shard_map", None) if args else None)
+        id_cols = (getattr(args, "id_columns", None) or "") if args else ""
+        if train_dataset is not None and not train_dataset.index_maps:
+            # a libsvm/npz training input carries no (name,term) index maps,
+            # so an Avro validation read has nothing to pin its columns to —
+            # the scanned vocabulary would silently misalign with the
+            # trained coefficients
+            raise SystemExit(
+                "Avro validation data requires the training input to carry "
+                "feature index maps (train from Avro, or from an npz "
+                "GameDataset saved with index maps); the training dataset "
+                "has none, so validation columns cannot be aligned with the "
+                "trained model's feature space")
+        result = read_game_examples(
+            avro_paths, shard_map,
+            id_columns=[c for c in id_cols.split(",") if c],
+            columns=parse_input_columns(
+                getattr(args, "input_columns", None) if args else None),
+            index_maps=(pinned_maps if pinned_maps is not None
+                        else train_dataset.index_maps or None
+                        if train_dataset is not None else None),
+            entity_vocabs=(train_dataset.entity_vocabs or None
+                           if train_dataset is not None else None))
+        return result.dataset
+    if pinned_maps is not None:
+        raise SystemExit(
+            "a pinned feature space (--index-map-dir / --selected-features) "
+            "requires Avro training input; an npz GameDataset already "
+            "carries its feature spaces")
+    return load_game_dataset(path)
+
+
+# flag -> (is it set, the ROADMAP.md queue A item that ports it)
+UNPORTED_FLAGS = (
+    ("--tuning", lambda a: a.tuning != "none", 17),
+    ("--checkpoint-dir", lambda a: a.checkpoint_dir is not None, 14),
+    ("--fault-plan", lambda a: a.fault_plan is not None, 14),
+    ("--hbm-budget", lambda a: a.hbm_budget is not None, 15),
+    ("--event-listener", lambda a: bool(a.event_listener), 19),
+    ("--trace-out", lambda a: a.trace_out is not None, 19),
+    ("--run-log", lambda a: a.run_log is not None, 19),
+    ("--profile", lambda a: a.profile, 19),
+    ("--coordinator", lambda a: a.coordinator is not None, 20),
+    ("--num-processes", lambda a: a.num_processes is not None, 20),
+    ("--process-id", lambda a: a.process_id is not None, 20),
+)
+# the JAX CLI's environment fallbacks of the multi-host flags
+UNPORTED_ENV = (("PHOTON_COORDINATOR", 20), ("PHOTON_NUM_PROCESSES", 20),
+                ("PHOTON_PROCESS_ID", 20), ("PHOTON_FAULT_PLAN", 14))
+
+
+def check_unported(args) -> None:
+    """Exit naming the ROADMAP.md item of every set flag whose subsystem is
+    not ported yet (never silently ignored)."""
+    bad = [f"{flag} (item {item})" for flag, is_set, item in UNPORTED_FLAGS
+           if is_set(args)]
+    bad += [f"${var} (item {item})" for var, item in UNPORTED_ENV
+            if os.environ.get(var)]
+    if bad:
+        raise SystemExit("not ported yet (ROADMAP.md queue A): "
+                         + ", ".join(bad))
+
+
+def resolve_cli_device(name: str):
+    """--device -> torch.device; exits non-zero when CUDA is asked for and
+    absent (the run never carries on on the CPU)."""
+    from photon_ml_tpu_torch import resolve_device
+    try:
+        return resolve_device(name)
+    except RuntimeError as e:
+        raise SystemExit(f"--device {name}: {e}")
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    # stderr stays quiet unless --verbose (configured only when no host
+    # application has set up logging)
+    if not logging.getLogger().handlers:
+        logging.basicConfig(
+            level=logging.INFO,
+            format="%(asctime)s %(message)s", stream=sys.stderr)
+        for h in logging.getLogger().handlers:
+            h.setLevel(logging.INFO if args.verbose else logging.WARNING)
+    # persisted job log: the package logger always captures INFO into
+    # <output-dir>/training.log (reference: PhotonLogger)
+    pkg_logger = logging.getLogger("photon_ml_tpu_torch")
+    prev_level = pkg_logger.level
+    pkg_logger.setLevel(logging.INFO)
+    os.makedirs(args.output_dir, exist_ok=True)
+    _fh = logging.FileHandler(os.path.join(args.output_dir, "training.log"))
+    _fh.setFormatter(logging.Formatter("%(asctime)s %(levelname)s %(message)s"))
+    _fh.setLevel(logging.INFO)
+    pkg_logger.addHandler(_fh)
+    log = logging.getLogger("photon_ml_tpu_torch.train")
+    try:
+        return _run(args, log)
+    finally:
+        # main() is a callable API: don't leak this job's log handler into
+        # the next in-process call, whatever stage raised
+        pkg_logger.removeHandler(_fh)
+        pkg_logger.setLevel(prev_level)
+        _fh.close()
+
+
+def _run(args, log) -> int:
+    log.info("args: %s", vars(args))
+    check_unported(args)
+    import torch
+    device = resolve_cli_device(args.device)
+    dtype = torch.float64 if args.x64 else torch.float32
+    check_mesh_arg(args.mesh, device)
+
+    from photon_ml_tpu_torch.game import GameEstimator, GameTrainingConfig
+    from photon_ml_tpu_torch.game.config import (FixedEffectCoordinateConfig,
+                                                 GLMOptimizationConfig)
+    from photon_ml_tpu_torch.models.io import save_game_model
+    from photon_ml_tpu_torch.ops.normalization import NormalizationType
+    from photon_ml_tpu_torch.optim.config import (OptimizerConfig, OptimizerType,
+                                                  RegularizationContext,
+                                                  RegularizationType)
+
+    t0 = time.time()
+    pinned_maps = None
+    if args.selected_features:
+        # reference: the legacy trainer's selected-features file (GLMSuite
+        # selectedFeaturesFile) — a FeatureAvro list freezing the feature
+        # space to exactly those (name, term) keys + intercept
+        if args.index_map_dir:
+            raise SystemExit("--selected-features and --index-map-dir are "
+                             "exclusive (both pin the feature space)")
+        if args.feature_shard_map:
+            raise SystemExit("--selected-features applies to the default "
+                             "single-shard ingest only (the legacy trainer's "
+                             "scope); build maps with cli.index for "
+                             "multi-shard jobs")
+        from photon_ml_tpu_torch.data.avro_codec import read_container
+        from photon_ml_tpu_torch.data.index_map import IndexMap, feature_key
+        keys = [feature_key(r["name"], r.get("term") or "")
+                for r in read_container(args.selected_features)]
+        if not keys:
+            raise SystemExit(f"--selected-features {args.selected_features!r}"
+                             " names no features")
+        pinned_maps = {"global": IndexMap.from_keys(keys)}
+        log.info("feature space restricted to %d selected features",
+                 len(keys))
+    if args.index_map_dir:
+        # frozen shared feature space (reference: FeatureIndexingJob +
+        # PalDBIndexMapLoader)
+        from photon_ml_tpu_torch.data.index_map import IndexMapCollection
+        pinned_maps = IndexMapCollection.load(args.index_map_dir).shards
+        log.info("pinned feature spaces from %s: %s", args.index_map_dir,
+                 {s: m.size for s, m in pinned_maps.items()})
+    train = _load_dataset(args.train_data, args.task, args,
+                          date_range=args.input_date_range,
+                          days_ago=args.input_days_ago,
+                          pinned_maps=pinned_maps)
+    val = (_load_dataset(args.validation_data, args.task, args,
+                         train_dataset=train,
+                         date_range=args.validation_date_range,
+                         days_ago=args.validation_days_ago)
+           if args.validation_data else None)
+    ingest_s = time.time() - t0
+    log.info("loaded train: %d rows, shards %s", train.num_rows,
+             {s: x.shape[1] for s, x in train.feature_shards.items()})
+    print(f"loaded train: {train.num_rows} rows, shards "
+          f"{ {s: x.shape[1] for s, x in train.feature_shards.items()} }",
+          file=sys.stderr)
+
+    # reference: Driver.run -> DataValidators.sanityCheckDataFrameForTraining
+    # (the config file's task_type wins over --task on the GAME path)
+    from photon_ml_tpu_torch.data.validators import validate_game_dataset
+    task = args.task
+    if args.config:
+        with open(args.config) as f:
+            task = GameTrainingConfig.from_json(f.read()).task_type
+    validate_game_dataset(train, task, args.data_validation,
+                          check_weights=not args.no_weight_check)
+    if val is not None:
+        validate_game_dataset(val, task, args.data_validation,
+                              check_weights=not args.no_weight_check)
+
+    if args.save_feature_stats:
+        # reference: cli/game/training/Driver.calculateAndSaveFeatureShardStats
+        from photon_ml_tpu_torch.data.stats import BasicStatisticalSummary
+        stats_dir = os.path.join(args.output_dir, "feature-stats")
+        os.makedirs(stats_dir, exist_ok=True)
+        for shard, x in train.feature_shards.items():
+            summary = (BasicStatisticalSummary.from_sparse(x, train.weights)
+                       if hasattr(x, "tocsr") and not isinstance(x, np.ndarray)
+                       else BasicStatisticalSummary.from_features(
+                           np.asarray(x), train.weights))
+            payload = summary.to_dict()
+            imap = (train.index_maps or {}).get(shard)
+            if imap is None:
+                log.info("shard %r carries no index map: JSON stats only "
+                         "(FeatureSummarizationResultAvro keys features by "
+                         "name/term)", shard)
+            else:
+                payload["feature_keys"] = [str(k) for k in imap.index_to_key]
+                from photon_ml_tpu_torch.data.avro_io import write_feature_stats_avro
+                avro_dir = os.path.join(stats_dir, shard)
+                os.makedirs(avro_dir, exist_ok=True)
+                write_feature_stats_avro(
+                    os.path.join(avro_dir, "part-00000.avro"), summary, imap)
+            with open(os.path.join(stats_dir, f"{shard}.json"), "w") as f:
+                json.dump(payload, f)
+        log.info("feature stats saved to %s", stats_dir)
+
+    evaluator_specs = args.evaluators.split(",") if args.evaluators else None
+    initial_model = None
+    if args.initial_model_dir:
+        # cross-job warm start: any supported layout loads here, including a
+        # model directory actual photon-ml wrote; the model re-keys into
+        # THIS job's feature spaces
+        from photon_ml_tpu_torch.models.io import (align_game_model_to_dataset,
+                                                   load_game_model,
+                                                   load_model_index_maps)
+        initial_model, _ = load_game_model(args.initial_model_dir,
+                                           device=device, dtype=dtype)
+        try:
+            initial_model = align_game_model_to_dataset(
+                initial_model,
+                load_model_index_maps(args.initial_model_dir), train)
+        except ValueError as e:
+            raise SystemExit(f"--initial-model-dir: {e}")
+        log.info("warm-starting from %s (%s)", args.initial_model_dir,
+                 list(initial_model.coordinates))
+    t_fit = time.time()
+    if args.config:
+        with open(args.config) as f:
+            config = GameTrainingConfig.from_json(f.read())
+        results = [GameEstimator(config, device=device, dtype=dtype).fit(
+            train, val, evaluator_specs, initial_model=initial_model,
+            timing_mode=args.timing_mode)]
+    else:
+        # legacy single-GLM path: one FE coordinate, lambda sweep, best by
+        # first validation evaluator (reference: Driver stage machine +
+        # ModelSelection)
+        reg = RegularizationContext(RegularizationType(args.regularization),
+                                    args.elastic_net_alpha)
+        opt = OptimizerConfig(optimizer=OptimizerType(args.optimizer),
+                              max_iterations=args.max_iterations,
+                              tolerance=args.tolerance)
+        weights = [float(w) for w in args.reg_weights.split(",")]
+        grid = {"fixed": [GLMOptimizationConfig(optimizer=opt, regularization=reg,
+                                                regularization_weight=w)
+                          for w in sorted(weights, reverse=True)]}
+        config = GameTrainingConfig(
+            task_type=args.task,
+            coordinates={"fixed": FixedEffectCoordinateConfig(
+                "global", GLMOptimizationConfig(optimizer=opt, regularization=reg),
+                normalization=NormalizationType(args.normalization))},
+            updating_sequence=["fixed"])
+        results = GameEstimator(config, device=device, dtype=dtype).fit_grid(
+            train, grid, val, evaluator_specs, warm_start=args.warm_start,
+            initial_model=initial_model, timing_mode=args.timing_mode)
+    fit_s = time.time() - t_fit
+
+    from photon_ml_tpu_torch.game.estimator import select_best_result
+    best = select_best_result(results)
+    t_save = time.time()
+    save_game_model(best.model, os.path.join(args.output_dir, "best"),
+                    config=best.config, index_maps=train.index_maps or None,
+                    format=args.model_format)
+    save_s = time.time() - t_save
+    solver_diag = best.descent.solver_diagnostics()
+    summary = {
+        "task": args.task,
+        "train_rows": train.num_rows,
+        "ingest_s": round(ingest_s, 2),
+        "num_configs": len(results),
+        "final_objective": best.objective_history[-1],
+        "validation": best.validation,
+        # beyond the JAX summary: the histories of the selected fit
+        "objective_history": list(best.objective_history),
+        "validation_history": dict(best.descent.validation_history),
+        "solver_iterations_total": best.descent.total_iterations(),
+        "solver_diagnostics": solver_diag,
+        # quarantine, checkpoints and fault plans: ROADMAP.md item 14
+        "containment_events": None,
+        "frozen_coordinates": None,
+        "checkpoint_recovery": None,
+        "fault_report": None,
+        "wall_s": round(time.time() - t0, 2),
+        "timing_mode": args.timing_mode,
+        # residency under an HBM budget: item 15
+        "hbm_budget_bytes": None,
+        "hbm_residency": None,
+        # meshes and multi-host runs: item 20
+        "mesh": None,
+        "mesh_transfer": None,
+        "multihost": None,
+        "host_blocked_s": round(best.descent.timings.host_blocked_total(), 3),
+        # the port has no compile cache (its kernels are built once per
+        # checkout, ops/_build.py); telemetry is item 19
+        "compile_s": None,
+        "compile_count": None,
+        "compile_cache": None,
+        "telemetry": None,
+        "trace_out": None,
+        "output": os.path.join(args.output_dir, "best"),
+        "device": str(device),
+        "dtype": str(dtype).replace("torch.", ""),
+        "fit_s": round(fit_s, 3),
+        "save_s": round(save_s, 3),
+        # the selected fit's phase spans (build/coordinates, per-update
+        # solve/objective/validation, flushes), seconds
+        "spans_s": {k: round(v, 4) for k, v in best.descent.timings.items()},
+    }
+    with open(os.path.join(args.output_dir, "training-summary.json"), "w") as f:
+        json.dump(summary, f, indent=2)
+    log.info("summary: %s", summary)
+    for coord, d in solver_diag.items():
+        log.info("solver %-16s solves=%d iterations=%d reasons=%s",
+                 coord, d["solves"], d["iterations"], d["reasons"])
+    for name, t in best.descent.timings.items():
+        log.info("phase %s: %.3fs", name, t)
+    print(json.dumps(summary))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -9,9 +9,9 @@ ingest.
 
 Host columns are numpy (a feature shard may be a scipy CSR matrix);
 `device_shard` makes the one device copy of a feature shard that every
-consumer shares: a dense tensor, or a PaddedSparse for a CSR shard.  Saving and loading datasets
-(`save_game_dataset`/`load_game_dataset`) are not ported yet (ROADMAP.md
-queue A item 12).
+consumer shares: a dense tensor, or a PaddedSparse for a CSR shard.
+`save_game_dataset`/`load_game_dataset` keep the JAX package's npz layout,
+so either package loads the other's file.
 """
 from __future__ import annotations
 
@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from photon_ml_tpu_torch import resolve_device
+from photon_ml_tpu_torch.data.index_map import IndexMap
 
 
 def _is_sparse(x) -> bool:
@@ -56,9 +57,9 @@ class GameDataset:
     # re_type -> [num_entities] entity id values (row i of a random-effect
     # model belongs to entity_vocabs[re_type][i])
     entity_vocabs: Dict[str, np.ndarray] = dataclasses.field(default_factory=dict)
-    # shard -> index map; carried, not interpreted (index maps are ROADMAP.md
-    # queue A item 12)
-    index_maps: Dict[str, object] = dataclasses.field(default_factory=dict)
+    # shard -> IndexMap ((name, term) <-> column), when the input named its
+    # features (Avro ingest, or maps saved beside the data)
+    index_maps: Dict[str, IndexMap] = dataclasses.field(default_factory=dict)
 
     def __post_init__(self):
         n = len(self.response)
@@ -125,6 +126,66 @@ class GameDataset:
         )
 
 
+def save_game_dataset(dataset: GameDataset, path: str) -> None:
+    """Columnar npz persistence of a GameDataset, in the JAX package's
+    layout: `response`, `offsets`, `weights`, `shard::<s>` (dense),
+    `spshard::<s>::{data,indices,indptr,shape}` (CSR), `entidx::<t>` and
+    `entvocab::<t>` (object arrays, as the JAX package writes them)."""
+    arrays = {"response": dataset.response}
+    if dataset.offsets is not None:
+        arrays["offsets"] = dataset.offsets
+    if dataset.weights is not None:
+        arrays["weights"] = dataset.weights
+    for s, x in dataset.feature_shards.items():
+        if _is_sparse(x):
+            if "::" in s:
+                raise ValueError(
+                    f"sparse shard name {s!r} may not contain '::' (it is "
+                    "the npz key delimiter)")
+            csr = x.tocsr()
+            arrays[f"spshard::{s}::data"] = csr.data
+            arrays[f"spshard::{s}::indices"] = csr.indices
+            arrays[f"spshard::{s}::indptr"] = csr.indptr
+            arrays[f"spshard::{s}::shape"] = np.asarray(csr.shape)
+        else:
+            arrays[f"shard::{s}"] = x
+    for t, idx in dataset.entity_indices.items():
+        arrays[f"entidx::{t}"] = idx
+        arrays[f"entvocab::{t}"] = np.asarray(dataset.entity_vocabs[t]).astype(object)
+    np.savez_compressed(path if path.endswith(".npz") else path + ".npz", **arrays)
+
+
+def load_game_dataset(path: str) -> GameDataset:
+    """The dataset `save_game_dataset` (of either package) wrote.  The
+    entity vocabularies are object arrays, so the file is read with
+    `allow_pickle=True`, as the JAX package reads it: load only files you
+    trust."""
+    z = np.load(path if path.endswith(".npz") else path + ".npz",
+                allow_pickle=True)
+    shards, entidx, entvocab = {}, {}, {}
+    sp_names = {k.split("::")[1] for k in z.files if k.startswith("spshard::")}
+    for s in sp_names:
+        import scipy.sparse as sp
+        shards[s] = sp.csr_matrix(
+            (z[f"spshard::{s}::data"], z[f"spshard::{s}::indices"],
+             z[f"spshard::{s}::indptr"]),
+            shape=tuple(z[f"spshard::{s}::shape"]))
+    for k in z.files:
+        if k.startswith("shard::"):
+            shards[k[7:]] = z[k]
+        elif k.startswith("entidx::"):
+            entidx[k[8:]] = z[k]
+        elif k.startswith("entvocab::"):
+            entvocab[k[10:]] = z[k]
+    return GameDataset(
+        response=z["response"],
+        feature_shards=shards,
+        offsets=z["offsets"] if "offsets" in z.files else None,
+        weights=z["weights"] if "weights" in z.files else None,
+        entity_indices=entidx,
+        entity_vocabs=entvocab)
+
+
 def build_game_dataset(
     response: np.ndarray,
     feature_shards: Dict[str, np.ndarray],
@@ -133,7 +194,7 @@ def build_game_dataset(
     weights: Optional[np.ndarray] = None,
     entity_ids: Optional[Dict[str, np.ndarray]] = None,
     entity_vocabs: Optional[Dict[str, np.ndarray]] = None,
-    index_maps: Optional[Dict[str, object]] = None,
+    index_maps: Optional[Dict[str, IndexMap]] = None,
 ) -> GameDataset:
     """Raw id columns -> indexed entity columns.
 

@@ -16,6 +16,7 @@ from typing import Dict, Optional, Sequence, Union
 
 from photon_ml_tpu_torch.data.batching import RandomEffectDataConfig
 from photon_ml_tpu_torch.ops.normalization import NormalizationType
+from photon_ml_tpu_torch.optim.constraints import constraints_to_json
 from photon_ml_tpu_torch.optim.config import (
     OptimizerConfig, OptimizerType, RegularizationContext, RegularizationType,
 )
@@ -154,7 +155,9 @@ class GameTrainingConfig:
                     "max_cg_iterations": o.max_cg_iterations,
                     "box_lower": list(o.box_lower) if o.box_lower else None,
                     "box_upper": list(o.box_upper) if o.box_upper else None,
-                    "constraints": None,
+                    # the reference's JSON shape (GLMSuite constraint string)
+                    "constraints": (constraints_to_json(o.constraints)
+                                    if o.constraints else None),
                     "track_coefficients": o.track_coefficients}
 
         def enc_glm(g: GLMOptimizationConfig):
@@ -216,7 +219,6 @@ class GameTrainingConfig:
                 max_cg_iterations=o.get("max_cg_iterations", 20),
                 box_lower=tuple(o["box_lower"]) if o.get("box_lower") else None,
                 box_upper=tuple(o["box_upper"]) if o.get("box_upper") else None,
-                # named constraints raise in OptimizerConfig (queue A item 12)
                 constraints=(tuple(o["constraints"])
                              if o.get("constraints") else None),
                 track_coefficients=o.get("track_coefficients", False))

@@ -1,5 +1,5 @@
 """Block coordinate descent over GAME coordinates, the outer training loop
-(port of the strict loop of photon_ml_tpu/game/coordinate_descent.py).
+(port of photon_ml_tpu/game/coordinate_descent.py).
 
 reference: CoordinateDescent (photon-lib/.../algorithm/CoordinateDescent.scala:40-385):
 per iteration, per coordinate: partial score = full score - own score ->
@@ -8,12 +8,18 @@ objective -> validate -> track the best full model by the first validation
 evaluator.  Every coordinate's scores are one dense [n] tensor in canonical
 row order, so the score algebra is `total - own` / `partial + new`.
 
-The port runs the JAX package's "strict" timing mode: every update ends in
-a readback before the next begins, so each PhaseTimings span holds the
-device work it launched.  The pipelined mode (ROADMAP.md queue A item 11),
-checkpoints and resume and non-finite-solve quarantine (item 14), device
-residency under an HBM budget (item 15), solver schedules (item 16) and
-the multi-host wait (item 20) are not ported yet.
+Two timing modes, as the JAX package's: "pipelined" (the default) keeps
+each update's objective and validation metrics as device scalars in a
+pending list and reads them back in one batched copy per outer iteration,
+with best-model tracking deferred to that boundary; "strict" ends every
+update in a readback before the next begins, so each PhaseTimings span
+holds the device work it launched.  Both run the same programs in the same
+order, so their histories are equal bit for bit.  Checkpoints and resume
+and non-finite-solve quarantine (ROADMAP.md queue A item 14; the JAX
+package interleaves the checkpoint writer and the quarantine monitor with
+the pipelined flush), device residency under an HBM budget (item 15),
+solver schedules (item 16) and the multi-host wait (item 20) are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -161,6 +167,41 @@ class CoordinateDescentResult:
     def total_iterations(self) -> int:
         return sum(t.iterations for t in self.trackers.values())
 
+    def solver_diagnostics(self) -> Dict[str, dict]:
+        """Per-coordinate solver totals for the fit summary, in the JAX
+        package's shape: solve count, inner iterations, ConvergenceReason
+        counts, the iteration cap of each visit (None: a full solve; the
+        port has no solver schedules yet), containment outcomes (none: the
+        port has no quarantine yet) and the host-blocked seconds of the
+        coordinate's spans; beyond the JAX package's keys, the
+        value+gradient passes (each one launch of the fixed effect's
+        kernel on the card)."""
+        out: Dict[str, dict] = {}
+        for key, t in sorted(self.trackers.items(),
+                             key=lambda kv: (int(kv[0].split("/")[0]), kv[0])):
+            coord = key.split("/", 1)[1]
+            d = out.setdefault(coord, {"solves": 0, "iterations": 0,
+                                       "reasons": {}, "iteration_caps": [],
+                                       "containment": {},
+                                       "host_blocked_s": 0.0,
+                                       "value_gradient_passes": 0})
+            d["solves"] += 1
+            d["iterations"] += t.iterations
+            # LBFGS/OWLQN count their passes; TRON makes one at x0 and one
+            # per trial point (summed over lanes for a batched solve)
+            d["value_gradient_passes"] += (t.fg_count if t.fg_count is not None
+                                           else t.iterations + 1)
+            d["iteration_caps"].append(None)
+            for name, c in t.reasons.items():
+                d["reasons"][name] = d["reasons"].get(name, 0) + c
+        for label, seconds in self.timings.host_blocked.items():
+            parts = label.split("/")
+            if len(parts) == 3 and parts[1] in out:
+                out[parts[1]]["host_blocked_s"] += seconds
+        for d in out.values():
+            d["host_blocked_s"] = round(d["host_blocked_s"], 4)
+        return out
+
 
 def _data_term(total_scores, base_offsets, labels, weights,
                loss: PointwiseLoss) -> torch.Tensor:
@@ -178,6 +219,17 @@ def _sync(spans: PhaseTimings, label: str, *tensors) -> None:
                 t.reshape(-1)[-1].item()
 
 
+def _flush_values(values: List[object]) -> List[float]:
+    """Host floats of a list of device scalars and host numbers, with one
+    copy off the device for all the device scalars (each is widened to
+    float64 first, which is exact, so the floats equal `float(t)`)."""
+    tensors = [v for v in values if isinstance(v, torch.Tensor)]
+    host = (torch.stack([t.reshape(()).to(torch.float64) for t in tensors]).cpu().tolist()
+            if tensors else [])
+    it = iter(host)
+    return [next(it) if isinstance(v, torch.Tensor) else float(v) for v in values]
+
+
 def run_coordinate_descent(
     coordinates: Dict[str, Coordinate],
     updating_sequence: Sequence[str],
@@ -188,26 +240,34 @@ def run_coordinate_descent(
     validation_specs: Sequence[ValidationSpec] = (),
     initial_models: Optional[Dict[str, object]] = None,
     timings: Optional[PhaseTimings] = None,
-    timing_mode: str = "strict",
+    timing_mode: str = "pipelined",
     device=None,
     dtype: torch.dtype = torch.float32,
+    checkpoint_dir: Optional[str] = None,
 ) -> CoordinateDescentResult:
     """reference: CoordinateDescent.run/optimize (scala:57-385).
 
-    `timing_mode` is "strict", the port's default and only mode: every
-    update syncs before the next begins, so the spans are attributable.
-    "pipelined" (one batched readback per outer iteration) is not ported yet
-    (ROADMAP.md queue A item 11) and raises.  The flat [n] vectors live on
-    `device` (None means cuda) in `dtype`.  Validation metrics with a device
-    form are computed on the device (one scalar readback each); grouped and
-    custom metrics on the host."""
-    if timing_mode == "pipelined":
-        raise NotImplementedError(
-            "timing_mode='pipelined' is not ported yet (ROADMAP.md queue A "
-            "item 11); use timing_mode='strict'")
-    if timing_mode != "strict":
-        raise ValueError(f"timing_mode must be 'strict' or 'pipelined', "
+    `timing_mode`:
+      - "pipelined" (default): per-update objectives and validation metrics
+        stay device scalars, read back in ONE batched copy per outer
+        iteration (the flush, timed as the span "{it}/flush"); tracker
+        summaries and best-model tracking happen there.
+      - "strict": every update syncs before the next begins, so the spans
+        are attributable to the device work they launched.
+    The math is identical: histories and models match bit for bit.  The
+    flat [n] vectors live on `device` (None means cuda) in `dtype`.
+    Validation metrics with a device form are computed on the device;
+    grouped and custom metrics on the host, in both modes.
+    `checkpoint_dir` (checkpoints and resume) is ROADMAP.md queue A item
+    14 and raises."""
+    if timing_mode not in ("pipelined", "strict"):
+        raise ValueError(f"timing_mode must be 'pipelined' or 'strict', "
                          f"got {timing_mode!r}")
+    if checkpoint_dir is not None:
+        raise NotImplementedError(
+            "checkpoints and resume are not ported yet (ROADMAP.md queue A "
+            "item 14)")
+    pipelined = timing_mode == "pipelined"
     dev = resolve_device(device)
     loss = TASK_LOSSES[task_type]
     on_dev = lambda a: (None if a is None else torch.as_tensor(a).to(
@@ -256,7 +316,8 @@ def run_coordinate_descent(
                 scores[name] = coordinates[name].score(provided)
                 reg_terms[name] = coordinates[name].regularization_term(provided)
         total = sum(scores.values(), zeros)
-        _sync(spans, "init/score", total)
+        if not pipelined:
+            _sync(spans, "init/score", total)
 
     objective_history: List[float] = []
     validation_history: Dict[str, List[float]] = {s.name: [] for s in validation_specs}
@@ -276,17 +337,52 @@ def run_coordinate_descent(
             val_labels = on_dev(validation_dataset.response)
             val_weights = on_dev(validation_dataset.weights)
             val_offsets = on_dev(validation_dataset.offsets)
-            _sync(spans, "init/validation_score", *val_scores_by_coord.values())
+            if not pipelined:
+                _sync(spans, "init/validation_score", *val_scores_by_coord.values())
 
-    def evaluate(spec: ValidationSpec, val_total: torch.Tensor, label: str) -> float:
-        """One validation metric: on the device where it has a device form,
-        else on the host."""
+    def evaluate(spec: ValidationSpec, val_total: torch.Tensor, label: str):
+        """One validation metric: a device scalar where the metric has a
+        device form (read back at once in strict mode), else a host float
+        (the scores' copy to the host timed as host-blocked)."""
         device_eval = getattr(spec.evaluator, "evaluate_on_device", None)
+        if spec.group_column is None and device_eval is not None:
+            s = val_total if val_offsets is None else val_total + val_offsets
+            v = device_eval(s, val_labels, val_weights)
+            if v is not None:
+                if pipelined:
+                    return v
+                with spans.blocked(label):
+                    return float(v)
         with spans.blocked(label):
-            if spec.group_column is None and device_eval is not None:
-                s = val_total if val_offsets is None else val_total + val_offsets
-                return float(device_eval(s, val_labels, val_weights))
             return spec.evaluate(validation_dataset, val_total)
+
+    def record(obj: float, metric_vals: Sequence[float],
+               snapshot: Dict[str, object]) -> None:
+        """History appends and best-model tracking for one update."""
+        nonlocal best_metric, best_model
+        objective_history.append(obj)
+        for k, (spec, v) in enumerate(zip(validation_specs, metric_vals)):
+            validation_history[spec.name].append(v)
+            if k == 0 and (best_metric is None
+                           or spec.evaluator.better_than(v, best_metric)):
+                # best FULL model by the first evaluator (ref 294-335)
+                best_metric = v
+                best_model = GameModel(dict(snapshot), task_type)
+
+    # pipelined mode: per-update records awaiting the boundary readback
+    pending: List[dict] = []
+
+    def flush_pending() -> None:
+        """ONE copy off the device for every objective and metric of the
+        outer iteration, then the deferred host bookkeeping."""
+        values = iter(_flush_values([v for p in pending
+                                     for v in [p["objective"], *p["metrics"]]]))
+        for p in pending:
+            row = [next(values) for _ in range(1 + len(p["metrics"]))]
+            trackers[p["key"]] = _summarize(p["result"], spans[p["solve_key"]],
+                                            p["buckets"])
+            record(row[0], row[1:], p["models"])
+        pending.clear()
 
     for it in range(num_iterations):
         for name in updating_sequence:
@@ -305,31 +401,41 @@ def run_coordinate_descent(
                                                     base_offsets + partial)
                 scores[name] = coord.score(models[name])
                 total = partial + scores[name]
-                _sync(spans, solve_key, total)
-            trackers[f"{it}/{name}"] = _summarize(
-                result, spans[solve_key], getattr(coord, "last_buckets", None))
+                if not pipelined:
+                    _sync(spans, solve_key, total)
+            buckets = getattr(coord, "last_buckets", None)
+            if not pipelined:
+                trackers[f"{it}/{name}"] = _summarize(result, spans[solve_key], buckets)
 
             obj_key = f"{it}/{name}/objective"
             with spans.span(obj_key):
                 reg_terms[name] = coord.regularization_term(models[name])
-                with spans.blocked(obj_key):
-                    objective_history.append(float(objective(total)))
+                obj_dev = objective(total)
+                if not pipelined:
+                    with spans.blocked(obj_key):
+                        obj = float(obj_dev)
 
+            metrics: List[object] = []
             if do_validation:
                 val_key = f"{it}/{name}/validation"
                 with spans.span(val_key):
                     val_scores_by_coord[name] = \
                         models[name].score_dataset(validation_dataset)
                     val_total = sum(val_scores_by_coord.values(), val_zeros)
-                    vals = [evaluate(spec, val_total, val_key)
-                            for spec in validation_specs]
-                for k, (spec, v) in enumerate(zip(validation_specs, vals)):
-                    validation_history[spec.name].append(v)
-                    if k == 0 and (best_metric is None
-                                   or spec.evaluator.better_than(v, best_metric)):
-                        # best FULL model by the first evaluator (ref 294-335)
-                        best_metric = v
-                        best_model = GameModel(dict(models), task_type)
+                    metrics = [evaluate(spec, val_total, val_key)
+                               for spec in validation_specs]
+            if pipelined:
+                pending.append({"key": f"{it}/{name}",
+                                "solve_key": solve_key, "result": result,
+                                "buckets": buckets, "objective": obj_dev,
+                                "metrics": metrics, "models": dict(models)})
+            else:
+                record(obj, metrics, models)
+        if pipelined:
+            # outer-iteration boundary: the one host sync of the iteration
+            with spans.span(f"{it}/flush"):
+                with spans.blocked(f"{it}/flush"):
+                    flush_pending()
 
     final = GameModel(dict(models), task_type)
     if not do_validation:

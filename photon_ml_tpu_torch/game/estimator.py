@@ -7,7 +7,8 @@ validation evaluators and runs coordinate descent once per optimization
 configuration; `fit_grid` is the multi-configuration sweep
 (GameEstimator.scala:474).
 
-Not ported yet: checkpoints and resume (ROADMAP.md queue A item 14), HBM
+Both timing modes of the JAX package run, "pipelined" by default.  Not
+ported yet: checkpoints and resume (ROADMAP.md queue A item 14), HBM
 budgets (item 15), solver schedules (item 16), meshes (item 20), events and
 telemetry (item 19).
 """
@@ -74,6 +75,25 @@ class GameEstimator:
         coords: Dict[str, Coordinate] = {}
         for name in self.config.updating_sequence:
             cfg = self.config.coordinates[name]
+            latent = getattr(cfg, "latent_optimization", None)
+            if latent is not None and latent.optimizer.constraints is not None:
+                raise ValueError(
+                    f"coordinate {name!r}: named feature constraints are "
+                    "not supported on the latent-projection problem")
+            if cfg.optimization.optimizer.constraints is not None:
+                # named constraints resolve through the shard's index map
+                # into positional bounds (a fixed-effect feature: random
+                # effects live in projected local spaces)
+                if not isinstance(cfg, FixedEffectCoordinateConfig):
+                    raise ValueError(
+                        f"coordinate {name!r}: named feature constraints "
+                        "are supported on fixed-effect coordinates only "
+                        "(the reference's constraint maps are a single-GLM "
+                        "feature, GLMSuite.scala:206-280)")
+                opt = cfg.optimization.optimizer.resolved_constraints(
+                    (dataset.index_maps or {}).get(cfg.feature_shard))
+                cfg = dataclasses.replace(cfg, optimization=dataclasses.replace(
+                    cfg.optimization, optimizer=opt))
             kw = dict(device=self.device, dtype=self.dtype, seed=self.config.seed)
             if isinstance(cfg, FixedEffectCoordinateConfig):
                 kind = FixedEffectCoordinate
@@ -101,12 +121,15 @@ class GameEstimator:
         validation_dataset: Optional[GameDataset] = None,
         evaluator_specs: Optional[Sequence[str]] = None,
         initial_model: Optional[GameModel] = None,
-        timing_mode: str = "strict",
+        timing_mode: str = "pipelined",
+        checkpoint_dir: Optional[str] = None,
     ) -> GameResult:
         """reference: GameEstimator.fit (GameEstimator.scala:175).
 
         `initial_model` warm-starts every coordinate it covers.
-        `timing_mode` is "strict" (see run_coordinate_descent)."""
+        `timing_mode` is "pipelined" (the default) or "strict" (see
+        run_coordinate_descent); `checkpoint_dir` is ROADMAP.md queue A
+        item 14 and raises."""
         spans = PhaseTimings()
         # coordinate construction includes the random-effect bucketing
         with spans.span("build/coordinates"):
@@ -120,7 +143,7 @@ class GameEstimator:
             initial_models=(dict(initial_model.coordinates)
                             if initial_model is not None else None),
             timings=spans, timing_mode=timing_mode, device=self.device,
-            dtype=self.dtype)
+            dtype=self.dtype, checkpoint_dir=checkpoint_dir)
         validation = {name: hist[-1] for name, hist in
                       descent.validation_history.items() if hist}
         return GameResult(model=descent.best_model, config=self.config,
@@ -136,7 +159,8 @@ class GameEstimator:
         evaluator_specs: Optional[Sequence[str]] = None,
         warm_start: bool = False,
         initial_model: Optional[GameModel] = None,
-        timing_mode: str = "strict",
+        timing_mode: str = "pipelined",
+        checkpoint_dir: Optional[str] = None,
     ) -> List[GameResult]:
         """Sweep per-coordinate optimization configs (cartesian product).
         With `warm_start`, each combo starts from the previous combo's
@@ -153,7 +177,7 @@ class GameEstimator:
             results.append(sub.fit(
                 dataset, validation_dataset, evaluator_specs,
                 initial_model=previous if warm_start else initial_model,
-                timing_mode=timing_mode))
+                timing_mode=timing_mode, checkpoint_dir=checkpoint_dir))
             previous = results[-1].model
         return results
 

@@ -34,6 +34,13 @@ class GeneralizedLinearModel:
         """Mean response."""
         return type(self).loss.mean(self.compute_score(x, offsets))
 
+    def validate_coefficients(self) -> bool:
+        """reference: GeneralizedLinearModel.validateCoefficients (all finite)."""
+        return bool(torch.isfinite(self.coefficients.means).all())
+
+    def with_coefficients(self, coefficients: Coefficients):
+        return dataclasses.replace(self, coefficients=coefficients)
+
 
 class _BinaryClassifier(GeneralizedLinearModel):
     """Threshold API of the reference's BinaryClassifier trait."""

@@ -59,6 +59,7 @@ def train_glm(
     warm_start: bool = True,
     compute_variances: bool = False,
     device=None,
+    index_map=None,
 ) -> List[TrainedModel]:
     """Train one GLM per regularization weight, strongest first with warm
     starts.  Returns models in ORIGINAL feature space.
@@ -71,7 +72,11 @@ def train_glm(
     if they are not floating), and features are cast to it.  Variances
     (`compute_variances`) come from the Hessian diagonal, sq_rmatvec on a
     sparse x.  The caller's `initial_model`
-    is never written."""
+    is never written.  `index_map` resolves named feature constraints
+    (optimizer_config.constraints) into positional bounds (reference:
+    GLMSuite.createConstraintFeatureMap)."""
+    if optimizer_config.constraints is not None:
+        optimizer_config = optimizer_config.resolved_constraints(index_map)
     dev = resolve_device(device)
     loss = TASK_LOSSES[task_type]
     labels = torch.as_tensor(labels)

@@ -2,8 +2,9 @@
 of photon_ml_tpu/optim/config.py).
 
 LBFGS/OWLQN (with positional box bounds) and TRON.  Named feature
-constraints are not ported yet (ROADMAP.md queue A item 12); they raise
-NotImplementedError.
+constraints (the reference's JSON constraint maps) resolve through a
+feature shard's IndexMap into the positional box (`resolved_constraints`,
+optim/constraints.py).
 """
 from __future__ import annotations
 
@@ -79,7 +80,10 @@ class OptimizerConfig:
     # per-coordinate bounds, stored as tuples so the config stays hashable
     box_lower: Optional[tuple] = None
     box_upper: Optional[tuple] = None
-    # named-feature constraints: not ported yet
+    # NAMED-feature constraints in the reference's JSON shape
+    # ([{name, term, lowerBound, upperBound}], GLMSuite.scala:206-280);
+    # resolved against the shard's IndexMap into box_lower/box_upper at fit
+    # time (resolved_constraints()).  Exclusive with positional bounds.
     constraints: Optional[tuple] = None
     # per-iteration coefficient snapshots in SolveResult.coefficient_history
     track_coefficients: bool = False
@@ -91,10 +95,30 @@ class OptimizerConfig:
                 object.__setattr__(self, name,
                                    tuple(float(e) for e in np.asarray(v)))
         if self.constraints is not None:
-            raise NotImplementedError(
-                "named feature constraints are not ported yet (ROADMAP.md "
-                "queue A item 12: they resolve through index maps); pass "
-                "positional box_lower/box_upper")
+            from photon_ml_tpu_torch.optim.constraints import normalize_constraints
+            if self.box_lower is not None or self.box_upper is not None:
+                raise ValueError(
+                    "named constraints and positional box_lower/box_upper "
+                    "are exclusive — the constraints RESOLVE to the "
+                    "positional bounds")
+            object.__setattr__(self, "constraints",
+                               normalize_constraints(self.constraints))
+
+    def resolved_constraints(self, index_map) -> "OptimizerConfig":
+        """Named constraints -> positional bounds via the feature shard's
+        IndexMap (reference: GLMSuite.createConstraintFeatureMap)."""
+        if self.constraints is None:
+            return self
+        from photon_ml_tpu_torch.optim.constraints import resolve_constraints
+        if index_map is None:
+            raise ValueError(
+                "named feature constraints require the dataset to carry an "
+                "index map for the coordinate's feature shard (train from "
+                "Avro/LIBSVM-with-maps or an npz GameDataset saved with "
+                "index maps)")
+        lower, upper = resolve_constraints(self.constraints, index_map)
+        return dataclasses.replace(self, constraints=None,
+                                   box_lower=lower, box_upper=upper)
 
     def resolved(self) -> "OptimizerConfig":
         # explicit 0 / 0.0 are legitimate; only None takes the default
@@ -137,6 +161,10 @@ def solve(
     """Run one GLM solve: L2 goes into the smooth objective, L1 to OWLQN's
     pseudo-gradient machinery; TRON takes L2 or none.  x0 is not written."""
     cfg = config.resolved()
+    if cfg.constraints is not None:
+        raise ValueError(
+            "named feature constraints are unresolved — call "
+            "config.resolved_constraints(index_map) before solve()")
     l1_w, l2_w = reg.split(reg_weight)
     obj = objective.with_l2(l2_w)
 

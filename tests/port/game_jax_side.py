@@ -1,14 +1,17 @@
-"""The JAX side of the TRON, GLMix, sparse-training, factored and sampler
-parity tests, run in a subprocess of its own.
+"""The JAX side of the TRON, GLMix, sparse-training, factored, sampler,
+model-persistence and command-line parity tests, run in a subprocess of
+its own.
 
     python tests/port/game_jax_side.py \
-        tron|solver|estimator|sparse|factored|samplers|prng OUT.npz
+        tron|solver|estimator|sparse|factored|samplers|prng|model_io|cli OUT.npz
 
 The parity tests (test_torch_tron.py, test_torch_game_solver.py,
 test_torch_game_estimator.py, test_torch_sparse_training.py,
-test_torch_factored.py, test_torch_samplers.py, test_torch_prng.py) start this
-once per test module, with JAX on the CPU in float64, and read its results
-from OUT.npz.  Compiling the JAX package's TRON, batched solver, GAME and
+test_torch_factored.py, test_torch_samplers.py, test_torch_prng.py,
+test_torch_model_io.py, test_torch_cli.py) start this once per test
+module, with JAX on the CPU in float64, and read its results from OUT.npz
+(model_io and cli also read and write model directories and CLI outputs
+beside OUT.npz).  Compiling the JAX package's TRON, batched solver, GAME and
 sparse training programs in a process of their own keeps their XLA compile
 state out of the test process.  The problem
 functions below are numpy only, so the tests import them to make the same
@@ -470,7 +473,7 @@ def _run_estimator(out: dict) -> None:
                                  movielens_shards)
     for name, config_dict in ESTIMATOR_CONFIGS.items():
         cfg = GameTrainingConfig.from_dict(config_dict())
-        res = GameEstimator(cfg).fit(train, val, ["AUC"], timing_mode="strict")
+        res = GameEstimator(cfg).fit(train, val, ["AUC"], timing_mode="pipelined")
         out[f"{name}/objective_history"] = np.asarray(res.objective_history)
         out[f"{name}/auc_history"] = np.asarray(res.descent.validation_history["AUC"])
         out[f"{name}/auc"] = np.asarray(res.validation["AUC"])
@@ -692,6 +695,208 @@ def _run_prng(out: dict) -> None:
         jax.random.normal(jax.random.PRNGKey(11), (4, 9), dtype=jnp.float32))
 
 
+# model persistence: one small dataset and one model of each kind the port
+# has, built from the same numpy arrays by either package
+MODEL_IO_KINDS = ("fe", "re", "re_matrix", "factored", "mf")
+MODEL_IO_FORMATS = ("npz", "avro", "reference")
+MODEL_IO_N = 60
+
+
+def model_io_arrays(seed: int = 9) -> dict:
+    """The dataset's columns (string entity ids, as Avro gives them) and
+    every model's parameters; feature names for the index maps.  Some
+    coefficients are exactly zero (the Avro layouts drop them) and one
+    user and one item are unseen by the models (they score 0)."""
+    rng = np.random.default_rng(seed)
+    n = MODEL_IO_N
+    a = {"response": (rng.uniform(size=n) < 0.5).astype(np.float64),
+         "global": rng.normal(size=(n, 6)), "per_user": rng.normal(size=(n, 4)),
+         "per_item": rng.normal(size=(n, 3)),
+         "userId": np.asarray([f"u{v}" for v in rng.integers(0, 8, n)]),
+         "itemId": np.asarray([f"i{v}" for v in rng.integers(0, 5, n)])}
+    for shard in ("global", "per_user", "per_item"):
+        a[shard][:, -1] = 1.0
+    a["fe_means"] = rng.normal(size=6)
+    a["fe_means"][2] = 0.0
+    a["fe_variances"] = rng.uniform(0.1, 1.0, size=6)
+    a["re_ids"] = np.asarray([f"u{v}" for v in range(7)], dtype=object)
+    a["re_coefficients"] = rng.normal(size=(7, 3))
+    a["re_coefficients"][1, 0] = 0.0
+    a["re_variances"] = rng.uniform(0.1, 1.0, size=(7, 3))
+    proj = np.tile(np.asarray([0, 1, 3]), (7, 1))
+    proj[2] = [1, 3, -1]
+    a["re_projection"] = proj
+    a["re_matrix_coefficients"] = rng.normal(size=(7, 2))
+    a["re_matrix_projection"] = rng.normal(size=(2, 4))
+    a["latent_coefficients"] = rng.normal(size=(7, 2))
+    a["latent_projection"] = rng.normal(size=(2, 4))
+    a["mf_row_ids"] = a["re_ids"]
+    a["mf_row_factors"] = rng.normal(size=(7, 3))
+    a["mf_col_ids"] = np.asarray([f"i{v}" for v in range(4)], dtype=object)
+    a["mf_col_factors"] = rng.normal(size=(4, 3))
+    return a
+
+
+MODEL_IO_FEATURES = {"global": [(f"g{j}", "x") for j in range(5)],
+                     "per_user": [(f"u{j}", "") for j in range(3)],
+                     "per_item": [(f"i{j}", "") for j in range(2)]}
+
+
+def model_io_dataset(build_game_dataset, build_index_map, a: dict):
+    """The scoring dataset, with index maps; pass either package's
+    dataset functions."""
+    return build_game_dataset(
+        a["response"], {s: a[s] for s in ("global", "per_user", "per_item")},
+        entity_ids={"userId": a["userId"], "itemId": a["itemId"]},
+        index_maps={s: build_index_map(f) for s, f in MODEL_IO_FEATURES.items()})
+
+
+def model_io_model(kind: str, a: dict, put, game, model_for_task, Coefficients):
+    """The GameModel of `kind` built with either package's classes (`game`
+    its models.game module, `put` its host-array-to-device function)."""
+    fe = game.FixedEffectModel(model_for_task("logistic_regression", Coefficients(
+        put(a["fe_means"]), put(a["fe_variances"]))), "global")
+    coords = {"fixed": fe}
+    common = dict(random_effect_type="userId", feature_shard="per_user",
+                  task_type="logistic_regression", entity_ids=a["re_ids"], global_dim=4)
+    if kind == "re":
+        coords["perUser"] = game.RandomEffectModel(
+            coefficients=put(a["re_coefficients"]), projection=a["re_projection"],
+            variances=put(a["re_variances"]), **common)
+    elif kind == "re_matrix":
+        coords["perUser"] = game.RandomEffectModel(
+            coefficients=put(a["re_matrix_coefficients"]), projection=None,
+            projection_matrix=put(a["re_matrix_projection"]), **common)
+    elif kind == "factored":
+        coords["perUserMF"] = game.FactoredRandomEffectModel(
+            latent_coefficients=put(a["latent_coefficients"]),
+            projection=put(a["latent_projection"]), **common)
+    elif kind == "mf":
+        coords["mf"] = game.MatrixFactorizationModel(
+            row_effect_type="userId", col_effect_type="itemId",
+            row_factors=put(a["mf_row_factors"]), row_ids=a["mf_row_ids"],
+            col_factors=put(a["mf_col_factors"]), col_ids=a["mf_col_ids"])
+    return game.GameModel(coords, "logistic_regression")
+
+
+def _run_model_io(out: dict, root: Path) -> None:
+    """Write each kind in each layout under root/jax_models/<kind>/<format>;
+    score the in-memory models and every directory the port wrote under
+    root/port_models/<kind>/<format>."""
+    import jax.numpy as jnp
+    from photon_ml_tpu.data.game_data import build_game_dataset
+    from photon_ml_tpu.data.index_map import build_index_map
+    from photon_ml_tpu.game.config import GameTrainingConfig
+    from photon_ml_tpu.models import game
+    from photon_ml_tpu.models.coefficients import Coefficients
+    from photon_ml_tpu.models.glm import model_for_task
+    from photon_ml_tpu.models.io import load_game_model, save_game_model
+    a = model_io_arrays()
+    ds = model_io_dataset(build_game_dataset, build_index_map, a)
+    config = GameTrainingConfig.from_dict(glmix_config_dict())
+    for kind in MODEL_IO_KINDS:
+        model = model_io_model(kind, a, jnp.asarray, game, model_for_task, Coefficients)
+        out[f"scores/{kind}"] = np.asarray(model.score_dataset(ds))
+        for fmt in MODEL_IO_FORMATS:
+            d = str(root / "jax_models" / kind / fmt)
+            try:
+                save_game_model(model, d, config=config, index_maps=ds.index_maps,
+                                format=fmt)
+            except ValueError:
+                out[f"refused/{kind}/{fmt}"] = np.asarray(True)
+            port_dir = root / "port_models" / kind / fmt
+            if (port_dir / "model-metadata.json").exists():
+                loaded, cfg = load_game_model(str(port_dir))
+                out[f"port_loaded/{kind}/{fmt}"] = np.asarray(loaded.score_dataset(ds))
+                out[f"port_config/{kind}/{fmt}"] = np.asarray(
+                    cfg is not None and cfg.to_dict() == config.to_dict())
+
+
+# the command-line parity: the same jobs through either package's CLI
+CLI_SHARD_MAP = '{"global": ["globalFeatures"], "per_user": ["userFeatures"]}'
+
+
+def cli_jobs(root: Path) -> list:
+    """(name, CLI module, argv) of each parity job over the inputs under
+    `root` (made by the test before the JAX side runs), in order: later
+    jobs read earlier jobs' output.  Each package's run adds its own
+    output prefix and device flags."""
+    d = lambda *p: str(root.joinpath(*p))
+    common = ["--mesh", "none", "--no-compile-cache", "--x64"]
+    return [
+        ("legacy_npz", "train", ["--train-data", d("train.npz"),
+                                 "--validation-data", d("val.npz"),
+                                 "--reg-weights", "0.1,1,10", "--evaluators", "AUC",
+                                 "--max-iterations", "100", "--tolerance", "1e-9",
+                                 *common]),
+        ("legacy_libsvm", "train", ["--train-data", d("a1a.libsvm"),
+                                    "--regularization", "elastic_net",
+                                    "--elastic-net-alpha", "0.5", "--reg-weights", "0.5",
+                                    "--model-format", "avro", *common]),
+        ("game_npz", "train", ["--train-data", d("train.npz"),
+                               "--validation-data", d("val.npz"),
+                               "--config", d("config.json"), "--evaluators", "AUC",
+                               *common]),
+        ("index", "index", ["--data", d("avro", "train"),
+                            "--feature-shard-map", CLI_SHARD_MAP]),
+        ("game_avro", "train", ["--train-data", d("avro", "train"),
+                                "--validation-data", d("avro", "val"),
+                                "--config", d("config.json"),
+                                "--feature-shard-map", CLI_SHARD_MAP,
+                                "--id-columns", "userId", "--evaluators", "AUC",
+                                "--model-format", "reference", *common]),
+        ("score_npz", "score", ["--data", d("val.npz"), "--evaluators", "AUC,RMSE",
+                                "--predict", "--mesh", "none", "--no-compile-cache"]),
+        ("score_avro", "score", ["--data", d("avro", "val"), "--format", "avro",
+                                 "--feature-shard-map", CLI_SHARD_MAP,
+                                 "--id-columns", "userId", "--evaluators", "AUC",
+                                 "--mesh", "none", "--no-compile-cache"]),
+    ]
+
+
+def cli_job_argv(name: str, kind: str, argv: list, out: Path) -> list:
+    """A job's argv with its outputs under `out` (the package's own)."""
+    o = lambda *p: str(out.joinpath(*p))
+    if kind == "train":
+        extra = ["--output-dir", o(name)]
+        if name == "game_avro":
+            extra += ["--index-map-dir", o("index")]
+        return argv + extra
+    if kind == "index":
+        return argv + ["--output", o("index")]
+    model = {"score_npz": "game_npz", "score_avro": "game_avro"}[name]
+    ext = "avro" if name == "score_avro" else "npz"
+    return argv + ["--model-dir", o(model, "best"), "--output", o(f"{name}.{ext}")]
+
+
+def _run_cli(out: dict, root: Path) -> None:
+    """Run every cli_jobs job through the JAX package's CLIs in this
+    process, outputs under root/jax_out; their printed JSON lines."""
+    import contextlib
+    import io
+    from photon_ml_tpu.cli import index, score, train
+    from photon_ml_tpu.data import avro_game
+    # the JAX CLI's Avro ingest keeps float32 features, which its float64
+    # (--x64) LBFGS refuses (a float32 carry against float64 gradients);
+    # widen them to float64 here: the float32-rounded values the port
+    # computes with under --x64
+    read = avro_game.read_game_examples
+
+    def read_widened(*args, **kwargs):
+        res = read(*args, **kwargs)
+        res.dataset.feature_shards = {s: x.astype(np.float64) for s, x in
+                                      res.dataset.feature_shards.items()}
+        return res
+    avro_game.read_game_examples = read_widened
+    modules = {"train": train, "index": index, "score": score}
+    for name, kind, argv in cli_jobs(root):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = modules[kind].main(cli_job_argv(name, kind, argv, root / "jax_out"))
+        out[f"{name}/rc"] = np.asarray(rc)
+        out[f"{name}/json"] = np.asarray(buf.getvalue().strip().splitlines()[-1])
+
+
 def run_jax_side(what: str, out: Path) -> dict:
     """Run this script for `what` in a fresh process; its results."""
     env = dict(os.environ, PYTHONPATH=str(ROOT), JAX_PLATFORMS="cpu")
@@ -710,9 +915,14 @@ def main(argv) -> int:
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
     out: dict = {}
-    {"tron": _run_tron, "solver": _run_solver, "estimator": _run_estimator,
-     "sparse": _run_sparse, "factored": _run_factored,
-     "samplers": _run_samplers, "prng": _run_prng}[what](out)
+    if what == "model_io":
+        _run_model_io(out, Path(path).parent)
+    elif what == "cli":
+        _run_cli(out, Path(path).parent)
+    else:
+        {"tron": _run_tron, "solver": _run_solver, "estimator": _run_estimator,
+         "sparse": _run_sparse, "factored": _run_factored,
+         "samplers": _run_samplers, "prng": _run_prng}[what](out)
     np.savez(path, **out)
     return 0
 

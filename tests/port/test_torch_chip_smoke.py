@@ -95,3 +95,71 @@ def test_config5_setup_is_bench_setup():
                 np.testing.assert_array_equal(mine.entity_indices[k], theirs.entity_indices[k])
     assert {k: v.shape[1] for k, v in train.feature_shards.items()} == {
         "global": 33, "per_user": 21, "per_item": 13}
+
+
+@pytest.fixture(scope="module")
+def config7_avro(tmp_path_factory):
+    """chip_smoke's config 7 datasets at 3,000 rows, written as Avro part
+    files by its writer (in this process: no fork of the test process), and
+    read back twice: pinned to the
+    writer's maps, and as cli_avro reads them (training maps scanned,
+    validation pinned to them)."""
+    from photon_ml_tpu_torch.data.avro_game import read_game_examples
+    rows = chip_smoke.YAHOO_ROWS
+    chip_smoke.YAHOO_ROWS = 3000
+    try:
+        train, val, cfg = chip_smoke.yahoo_setup()
+    finally:
+        chip_smoke.YAHOO_ROWS = rows
+    written = chip_smoke.write_yahoo_avro({"train": train, "validation": val},
+                                          tmp_path_factory.mktemp("avro"), writers=1)
+    shard_map = {bag: [bag] for bag in chip_smoke.YAHOO_BAGS}
+    files = lambda split: sorted(str(p) for p in written["dirs"][split].glob("*.avro"))
+    ids = ["userId", "itemId"]
+    pinned = read_game_examples(files("train"), shard_map, ids,
+                                index_maps=written["maps"]).dataset
+    scanned = read_game_examples(files("train"), shard_map, ids).dataset
+    scanned_val = read_game_examples(files("validation"), shard_map, ids,
+                                     index_maps=scanned.index_maps,
+                                     entity_vocabs=scanned.entity_vocabs).dataset
+    return train, val, cfg, written, pinned, scanned, scanned_val
+
+
+def test_avro_writer_reproduces_config7_data(config7_avro):
+    """Pinned to the writer's maps, the read is yahoo_setup's training set:
+    the same rows, labels and shards (the intercept skipped on write and
+    rebuilt once on read), entities up to the order of their vocabulary;
+    scanned, the same up to the columns no row uses."""
+    import scipy.sparse as sp
+    train, _, _, written, pinned, scanned, _ = config7_avro
+    assert written["rows"] == 3000 and written["files"] == 2
+    np.testing.assert_array_equal(pinned.response, train.response)
+    for shard, x in train.feature_shards.items():
+        got = pinned.feature_shards[shard]
+        assert sp.issparse(got) == sp.issparse(x) == (shard == "global")
+        dense = lambda a: a.toarray() if sp.issparse(a) else np.asarray(a)
+        np.testing.assert_array_equal(dense(got), dense(x))
+        keys = scanned.index_maps[shard].index_to_key
+        cols = [written["maps"][shard].key_to_index[str(k)] for k in keys]
+        np.testing.assert_array_equal(dense(scanned.feature_shards[shard]), dense(x)[:, cols])
+        unused = np.setdiff1d(np.arange(x.shape[1]), cols)
+        assert not dense(x)[:, unused].any()
+    for t in ("userId", "itemId"):
+        raw = np.asarray(train.entity_vocabs[t])[train.entity_indices[t]]
+        back = np.asarray(pinned.entity_vocabs[t])[pinned.entity_indices[t]]
+        assert [str(v) for v in raw] == list(back)
+
+
+def test_avro_read_fits_config7_alike(config7_avro):
+    """Config 7 fit on the Avro-read datasets (float64, CPU) == on
+    yahoo_setup's: the objective and AUC histories within 1e-9 relative
+    (the same problem up to a permutation of columns and entities)."""
+    import torch
+    from photon_ml_tpu_torch.game import GameEstimator
+    train, val, cfg, _, _, scanned, scanned_val = config7_avro
+    fits = [GameEstimator(cfg, device="cpu", dtype=torch.float64).fit(t, v, ["AUC"])
+            for t, v in ((train, val), (scanned, scanned_val))]
+    np.testing.assert_allclose(fits[1].objective_history, fits[0].objective_history,
+                               rtol=1e-9)
+    np.testing.assert_allclose(fits[1].descent.validation_history["AUC"],
+                               fits[0].descent.validation_history["AUC"], rtol=1e-9)

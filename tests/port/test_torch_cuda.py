@@ -737,3 +737,99 @@ def test_margin_kernel_takes_moved_and_padded_matrices(cuda, route):
     c = torch.linspace(-0.3, 0.3, d, device="cuda")
     y = (torch.arange(n, device="cuda") % 2 == 0).float()
     _a_against_plain(sk, m.indices, m.values, c, y, None, None)
+
+
+# --- the command-line main path on the card ----------------------------------
+
+def _glmix_npz(tmp_path, rows=3000):
+    """Config 4's shape at `rows` rows (float32), saved as npz, with its
+    configuration JSON."""
+    from photon_ml_tpu_torch.data.game_data import build_game_dataset, save_game_dataset
+    from photon_ml_tpu_torch.data.synthetic_bench import make_movielens_like, movielens_shards
+    from photon_ml_tpu_torch.game import (FixedEffectCoordinateConfig, GameTrainingConfig,
+                                          GLMOptimizationConfig, RandomEffectCoordinateConfig)
+    from photon_ml_tpu_torch.optim.config import (OptimizerConfig, RegularizationContext,
+                                                  RegularizationType)
+    ml = make_movielens_like("1m", seed=11, n_rows=rows)
+    shards = {k: v.astype(np.float32) for k, v in movielens_shards(ml).items()
+              if k != "per_item"}
+    ds = build_game_dataset(ml.response, shards,
+                            entity_ids={"userId": np.asarray([str(u) for u in ml.user_ids])})
+    cut = int(rows * 0.9)
+    save_game_dataset(ds.subset(np.arange(cut)), str(tmp_path / "train.npz"))
+    save_game_dataset(ds.subset(np.arange(cut, rows)), str(tmp_path / "val.npz"))
+    opt = GLMOptimizationConfig(optimizer=OptimizerConfig(max_iterations=100),
+                                regularization=RegularizationContext(RegularizationType.L2),
+                                regularization_weight=1.0)
+    cfg = GameTrainingConfig(
+        task_type="logistic_regression",
+        coordinates={"fixed": FixedEffectCoordinateConfig("global", opt),
+                     "perUser": RandomEffectCoordinateConfig("userId", "per_user", opt,
+                                                             active_data_upper_bound=512)},
+        updating_sequence=["fixed", "perUser"], num_outer_iterations=2)
+    (tmp_path / "config.json").write_text(cfg.to_json())
+
+
+def _cli(module, argv):
+    import contextlib
+    import io
+    import json
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert module.main([str(a) for a in argv]) == 0
+    return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def test_cli_trains_and_scores_on_the_card_by_default(cuda, tmp_path):
+    """cli.train --config with no --device runs on cuda (the fused kernel's
+    launches == the fixed effect's passes), pipelined == strict bit for bit,
+    and cli.score on the card agrees with the CPU's f64 scoring of the same
+    saved model (rtol 1e-4: f32 on the card)."""
+    from photon_ml_tpu_torch.cli import score, train
+    _glmix_npz(tmp_path)
+    common = ["--train-data", tmp_path / "train.npz", "--validation-data",
+              tmp_path / "val.npz", "--config", tmp_path / "config.json",
+              "--evaluators", "AUC"]
+    hk.LAUNCHES = 0
+    p = _cli(train, common + ["--output-dir", tmp_path / "p"])
+    assert p["device"].startswith("cuda") and p["dtype"] == "float32"
+    assert hk.LAUNCHES == p["solver_diagnostics"]["fixed"]["value_gradient_passes"] > 0
+    s = _cli(train, common + ["--output-dir", tmp_path / "s", "--timing-mode", "strict"])
+    assert p["objective_history"] == s["objective_history"]
+    scores = {}
+    for dev in ("cuda", "cpu"):
+        extra = ["--device", dev] + (["--x64"] if dev == "cpu" else [])
+        _cli(score, ["--model-dir", tmp_path / "p" / "best", "--data", tmp_path / "val.npz",
+                     "--output", tmp_path / f"{dev}.npz", *extra])
+        scores[dev] = np.load(tmp_path / f"{dev}.npz")["scores"]
+    np.testing.assert_allclose(scores["cuda"], scores["cpu"], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("fmt", ["npz", "avro", "reference"])
+def test_load_game_model_lands_on_the_card(cuda, tmp_path, fmt):
+    """load_game_model(device=None) puts every coordinate on cuda in
+    float32, whatever the layout; device="cpu" keeps it on the host."""
+    from photon_ml_tpu_torch.models import game
+    from photon_ml_tpu_torch.models.coefficients import Coefficients
+    from photon_ml_tpu_torch.models.glm import model_for_task
+    from photon_ml_tpu_torch.models.io import load_game_model, save_game_model
+    rng = np.random.default_rng(0)
+    t = lambda a: torch.as_tensor(a)
+    model = game.GameModel({
+        "fixed": game.FixedEffectModel(model_for_task(
+            "logistic_regression", Coefficients(t(rng.normal(size=5)))), "global"),
+        "perUser": game.RandomEffectModel(
+            random_effect_type="userId", feature_shard="per_user",
+            task_type="logistic_regression", coefficients=t(rng.normal(size=(3, 4))),
+            entity_ids=np.asarray(["a", "b", "c"], dtype=object), projection=None,
+            global_dim=4)}, "logistic_regression")
+    save_game_model(model, str(tmp_path / fmt), format=fmt)
+    on_card, _ = load_game_model(str(tmp_path / fmt))
+    for c in (on_card.coordinates["fixed"].glm.coefficients.means,
+              on_card.coordinates["perUser"].coefficients):
+        assert c.is_cuda and c.dtype == torch.float32
+    on_host, _ = load_game_model(str(tmp_path / fmt), device="cpu", dtype=torch.float64)
+    assert not on_host.coordinates["perUser"].coefficients.is_cuda
+    torch.testing.assert_close(on_card.coordinates["perUser"].coefficients.cpu(),
+                               on_host.coordinates["perUser"].coefficients.float(),
+                               rtol=0, atol=0)

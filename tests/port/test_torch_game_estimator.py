@@ -9,7 +9,10 @@ once for the module in a subprocess (game_jax_side.py), so its XLA
 programs never compile in the test process.  Tolerances: objective history
 rtol 1e-8, validation AUC 1e-9 absolute, final coefficients atol 1e-6,
 equal iteration counts per solve; the JAX model's parameters carried across
-by game_model_from_numpy score the validation set to rtol 1e-12."""
+by game_model_from_numpy score the validation set to rtol 1e-12.  Both run
+the pipelined timing mode (the default of either package); the port's
+pipelined fit equals its strict fit bit for bit and the JAX package's
+pipelined histories to rtol 1e-12."""
 import dataclasses
 import json
 
@@ -82,6 +85,43 @@ def test_validation_auc_matches_jax(jax_results, fits, name):
                                jax_results[f"{name}/auc_history"], rtol=0, atol=1e-9)
     assert abs(fit.validation["AUC"] - float(jax_results[f"{name}/auc"])) <= 1e-9
     assert 0.5 < fit.validation["AUC"] < 1.0
+
+
+@pytest.fixture(scope="module")
+def strict_fits(data):
+    train, val = data
+    return {name: GameEstimator(GameTrainingConfig.from_dict(make()), device="cpu",
+                                dtype=torch.float64).fit(train, val, ["AUC"],
+                                                         timing_mode="strict")
+            for name, make in side.ESTIMATOR_CONFIGS.items()}
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_pipelined_equals_strict_bit_for_bit(fits, strict_fits, name):
+    """Pipelining moves only the read-backs: the same objective and
+    validation histories, trackers and final coefficients, bit for bit."""
+    p, s = fits[name].descent, strict_fits[name].descent
+    assert p.objective_history == s.objective_history
+    assert p.validation_history == s.validation_history
+    assert [(k, t.iterations, t.fg_count, t.reasons) for k, t in p.trackers.items()] == \
+        [(k, t.iterations, t.fg_count, t.reasons) for k, t in s.trackers.items()]
+    for name_, m in p.model.coordinates.items():
+        a = getattr(m, "coefficients", None)
+        a = m.glm.coefficients.means if a is None else a
+        b = s.model.coordinates[name_]
+        b = b.glm.coefficients.means if getattr(b, "coefficients", None) is None \
+            else b.coefficients
+        assert torch.equal(a, b)
+    assert sum(1 for k in p.timings if k.endswith("/flush")) == side.ESTIMATOR_OUTER
+    assert not any(k.endswith("/flush") for k in s.timings)
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_pipelined_histories_match_jax_pipelined(jax_results, fits, name):
+    np.testing.assert_allclose(fits[name].objective_history,
+                               jax_results[f"{name}/objective_history"], rtol=1e-12)
+    np.testing.assert_allclose(fits[name].descent.validation_history["AUC"],
+                               jax_results[f"{name}/auc_history"], rtol=1e-12)
 
 
 @pytest.mark.parametrize("name", CASES)
@@ -290,13 +330,14 @@ def test_formerly_unported_options_now_fit(data, config, case):
     assert 0.5 < fit.validation["AUC"] < 1.0
 
 
-@pytest.mark.parametrize("what", ["pipelined", "hbm_budget", "config_schedule",
+@pytest.mark.parametrize("what", ["checkpoint_dir", "hbm_budget", "config_schedule",
                                   "admm_json"])
-def test_unported_fit_modes_raise(data, config, what):
+def test_unported_fit_modes_raise(data, config, what, tmp_path):
     train, val = data
     with pytest.raises(NotImplementedError):
-        if what == "pipelined":
-            GameEstimator(config, device="cpu").fit(train, val, timing_mode="pipelined")
+        if what == "checkpoint_dir":
+            GameEstimator(config, device="cpu").fit(train, val,
+                                                    checkpoint_dir=str(tmp_path))
         elif what == "hbm_budget":
             GameEstimator(dataclasses.replace(config, hbm_budget_bytes=1 << 30), device="cpu")
         elif what == "config_schedule":

@@ -27,12 +27,34 @@ REQUIRED = ("photon_ml_tpu_torch.ops.features", "photon_ml_tpu_torch.ops.sparse_
             "photon_ml_tpu_torch.data.libsvm", "photon_ml_tpu_torch.convert",
             "photon_ml_tpu_torch.ops.hopper_kernels", "photon_ml_tpu_torch.utils.prng",
             "photon_ml_tpu_torch.data.samplers", "photon_ml_tpu_torch.parallel.factored",
+            "photon_ml_tpu_torch.utils.durable", "photon_ml_tpu_torch.data.index_map",
+            "photon_ml_tpu_torch.optim.constraints", "photon_ml_tpu_torch.data.avro_codec",
+            "photon_ml_tpu_torch.data.avro_io", "photon_ml_tpu_torch.data.avro_native",
+            "photon_ml_tpu_torch.data.avro_game", "photon_ml_tpu_torch.data.date_range",
+            "photon_ml_tpu_torch.data.validators", "photon_ml_tpu_torch.models.validators",
+            "photon_ml_tpu_torch.models.io", "photon_ml_tpu_torch.cli.index",
+            "photon_ml_tpu_torch.cli.train", "photon_ml_tpu_torch.cli.score",
             "chip_smoke")
 
 
 def test_the_scan_covers_the_port():
     assert set(REQUIRED) <= set(MODULES)
     assert (PKG / "csrc" / "ell_sparse.cu").exists()
+
+
+def test_the_avro_decoder_is_the_ports_own():
+    """The C decoder is built from the port's copy of the source into the
+    port's build directory, never loaded from the JAX package, and the
+    source includes only the C library."""
+    from photon_ml_tpu_torch.data import avro_native
+    src = PKG / "native" / "avro_decode.c"
+    assert avro_native._SRC == src
+    assert avro_native.library_path().parent == ROOT / "build" / "photon_ml_tpu_torch"
+    text = (PKG / "data" / "avro_native.py").read_text()
+    assert "libavrodec.so" not in text and "photon_ml_tpu/native" not in text
+    includes = [ln.split()[1] for ln in src.read_text().splitlines()
+                if ln.startswith("#include")]
+    assert includes and all(i.startswith("<") for i in includes), includes
 
 
 def test_every_module_imports_with_jax_blocked():

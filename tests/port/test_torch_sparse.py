@@ -197,9 +197,19 @@ def test_unported_representations_name_their_roadmap_entry():
 
 
 def test_named_constraints_name_their_roadmap_entry():
+    """Named constraints (ROADMAP.md queue A item 12) are ported: they
+    normalize on construction, resolve through an index map into the
+    positional box, and without a map the resolution names what is
+    missing."""
+    from photon_ml_tpu_torch.data.index_map import build_index_map
     from photon_ml_tpu_torch.optim.config import OptimizerConfig
-    with pytest.raises(NotImplementedError, match="queue A item 12"):
-        OptimizerConfig(constraints=({"name": "a", "term": "", "lowerBound": 0.0},))
+    cfg = OptimizerConfig(constraints=({"name": "a", "term": "", "lowerBound": 0.0},))
+    assert cfg.constraints == (("a", "", 0.0, float("inf")),)
+    resolved = cfg.resolved_constraints(build_index_map([("a", ""), ("b", "")]))
+    assert resolved.box_lower == (0.0, -float("inf"), -float("inf"))
+    assert resolved.constraints is None
+    with pytest.raises(ValueError, match="index map"):
+        cfg.resolved_constraints(None)
 
 
 # ------------------------------------------------------------ plain versions

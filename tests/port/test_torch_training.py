@@ -149,8 +149,12 @@ def test_unported_options_raise(data):
         ttrain(x[:50], y[:50], TASK, optimizer_config=TOC(optimizer=TOT.TRON),
                regularization=TRC(TRT.L1), regularization_weights=(1.0,),
                device="cpu")
-    with pytest.raises(NotImplementedError, match="named feature constraints"):
-        TOC(constraints=({"name": "a", "term": "", "lowerBound": 0.0},))
+    # named constraints are ported; without the shard's index map they
+    # cannot resolve
+    with pytest.raises(ValueError, match="named feature constraints require"):
+        ttrain(x[:50], y[:50], TASK, device="cpu",
+               optimizer_config=TOC(constraints=({"name": "a", "term": "",
+                                                  "lowerBound": 0.0},)))
     # scipy.sparse input is ported (tests/port/test_torch_sparse_training.py);
     # torch's own sparse layouts (the JAX package's BCOO) are not
     coo = torch.from_numpy(x[:50]).to_sparse()
