@@ -14,7 +14,11 @@ Phases, one JSON object per line on stdout:
      aligned, n = 1 and 3, d = 2048 and D_MAX) and at the a1a config's
      full [1,643,520 x 124], and for logistic at [200,000 x 2048] (the
      Pallas kernel's second measured shape); tolerances rtol 1e-5 on the
-     value and rtol 1e-4 (atol 1e-4) on the gradient, in float32;
+     value and rtol 1e-4 (atol 1e-4) on the gradient, in float32; then a
+     NaN in the coefficients (nan_check): the kernel's value and gradient
+     non-finite exactly where its plain version's are, and the value
+     non-finite for all losses but the smoothed hinge (whose NaN margin
+     gives 0 in the JAX package's loss, the plain version and the kernel);
   4. timing at the full size and at [200,000 x 2048]: median over REPS
      reps of CUDA-event times of 10 back-to-back calls, each with a
      perturbed coefficient vector, enqueued behind a sleep kernel so that
@@ -168,8 +172,34 @@ Phases, one JSON object per line on stdout:
      effect's passes, no dense launch), the final objective within 1e-4 of
      the float64 reference; prints the write time, the ingest's rows/s and
      the fit wall;
- 21. the kernels line (launches by path, the CLI paths included),
-     nvidia-smi's line, and the final result line.
+ 21. inexact: bench.py's gated inexact leg
+     (inexact_convex_fe_2re_movielens_shape: config5_setup at the "1m"
+     shape, 400,000 rows, seed 31: 380,092 train rows, a fixed effect and
+     per-user and per-item random effects, 8 outer iterations), run twice
+     through run_coordinate_descent on shared, prebuilt coordinates, as
+     bench.py's _inexact_pair runs them (one outer iteration of each
+     variant to warm, then scheduled first, strict last): strict, and under
+     SolverSchedule(4, 2.0, 1e3, 0.1).  Fails unless each leg's final
+     objective is within 1e-4 of its float64 reference
+     (1m:400000:31:convex:outer8:v=g2 and ...:sched:v=g2), every solve's
+     iteration cap is SolverSchedule.plan's for its outer iteration (the
+     final visit at the full budget; None in the strict leg), and the
+     fused kernel's launches equal the fixed effect's passes in each leg;
+     prints each leg's wall, iterations per coordinate, the iterations
+     saved, first-visit solve seconds and strict / scheduled wall
+     (recorded, not claimed);
+ 22. faults: python -m photon_ml_tpu_torch.cli.train --device cuda in
+     child processes, on the inexact data with the fixed effect and
+     perUser, 3 outer iterations: an uninterrupted run A; a run SIGKILLed
+     at its second checkpoint fsync (rc -9, state.json.tmp left) and its
+     rerun (state.json.tmp pruned, resumed from the sealed record, history
+     within 1e-6 relative of A's, bit-equality printed); a run whose second
+     perUser solve is poisoned (containment ["rolled_back", "retry_ok"],
+     a finite history, final objective within 1e-4 of A's); a run given
+     the plan's own SIGTERM at its second checkpoint write (exit 75 and its
+     JSON line) and its rerun (within 1e-6 of A's final objective);
+ 23. the kernels line (launches by path, the CLI and inexact paths
+     included), nvidia-smi's line, and the final result line.
 Exits non-zero, before printing any result, when CUDA is absent or when
 the port's package is not beside this script.
 """
@@ -1100,9 +1130,13 @@ def yahoo_setup():
     return train, val, cfg
 
 
-def config5_setup(rows: int = CONFIG5_ROWS):
+def config5_setup(rows: int = CONFIG5_ROWS, scale: str = "20m", seed: int = CONFIG5_SEED,
+                  outer: int = CONFIG5_OUTER):
     """Config 5's (train, validation, convex config, full config) as
-    bench.py's _game_setup builds them for its float32 run (salt 0)."""
+    bench.py's _game_setup builds them for its float32 run (salt 0): by
+    default at the references' 2,000,000 rows of the "20m" shape; the
+    inexact phase takes the "1m" shape at 400,000 rows, seed 31, 8 outer
+    iterations."""
     from photon_ml_tpu_torch.data.game_data import build_game_dataset
     from photon_ml_tpu_torch.data.synthetic_bench import make_movielens_like, movielens_shards
     from photon_ml_tpu_torch.game import (
@@ -1112,11 +1146,11 @@ def config5_setup(rows: int = CONFIG5_ROWS):
     from photon_ml_tpu_torch.optim.config import (
         OptimizerConfig, RegularizationContext, RegularizationType,
     )
-    ml = make_movielens_like("20m", seed=CONFIG5_SEED, n_rows=rows)
+    ml = make_movielens_like(scale, seed=seed, n_rows=rows)
     shards = {k: v.astype(np.float32) for k, v in movielens_shards(ml).items()}
     ds = build_game_dataset(ml.response.astype(np.float32), shards,
                             entity_ids={"userId": ml.user_ids, "itemId": ml.item_ids})
-    rng = np.random.default_rng(CONFIG5_SEED + 99)
+    rng = np.random.default_rng(seed + 99)
     val_mask = rng.uniform(size=ds.num_rows) < 0.05
     train = ds.subset(np.flatnonzero(~val_mask))
     val = ds.subset(np.flatnonzero(val_mask))
@@ -1133,7 +1167,7 @@ def config5_setup(rows: int = CONFIG5_ROWS):
     convex = GameTrainingConfig(
         task_type="logistic_regression", coordinates=coords,
         updating_sequence=["fixed", "perUser", "perItem"],
-        num_outer_iterations=CONFIG5_OUTER, seed=CONFIG5_SEED)
+        num_outer_iterations=outer, seed=seed)
     full = dataclasses.replace(
         convex, coordinates={**coords, "perUserMF": FactoredRandomEffectCoordinateConfig(
             "userId", "per_user", latent_dim=CONFIG5_LATENT_DIM, optimization=opt(50),
@@ -1295,6 +1329,331 @@ def config5_phase(hk, ref_cache, kind, smi, sms) -> dict:
                              f"launches of the kernel for {prof['fe_passes']} passes")
         out[mode] = launches
         del result, res1
+    return out
+
+
+def run_nan_checks(hk, losses) -> dict:
+    """A NaN in the coefficients: for each loss, the kernel's value and
+    gradient are non-finite exactly where its plain version's are (a
+    poisoned model's objective, if evaluated, never comes back finite
+    where the plain version's would not).  Logistic, squared and Poisson
+    must give a non-finite value; the smoothed hinge maps a NaN margin to
+    0 in the JAX package's loss, the plain version and the kernel alike
+    (every comparison with NaN is false), so its data term stays finite and
+    the coefficient guard and the penalty term carry the NaN."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn(700, 37, generator=gen, device="cuda")
+    y = (torch.rand(700, generator=gen, device="cuda") < 0.5).float()
+    out = {}
+    for loss in losses:
+        c = torch.randn(37, generator=gen, device="cuda") * 0.1
+        c[5] = float("nan")
+        v_k, g_k = hk.fused_value_and_gradient(loss, x, y, c, None, None)
+        v_p, g_p = hk.fused_value_and_gradient_plain(loss, x, y, c, None, None)
+        torch.cuda.synchronize()
+        # non-finite numbers as strings: the lines stay strict JSON
+        num = lambda v: v if np.isfinite(v) else str(v)
+        r = {"value": num(v_k.item()), "plain_value": num(v_p.item()),
+             "gradient_nonfinite": int((~torch.isfinite(g_k)).sum()),
+             "plain_gradient_nonfinite": int((~torch.isfinite(g_p)).sum()),
+             "same_nonfinite_pattern": bool(torch.equal(torch.isfinite(g_k),
+                                                        torch.isfinite(g_p)))}
+        out[loss.name] = r
+        finite = lambda v: not isinstance(v, str)
+        if finite(r["value"]) != finite(r["plain_value"]) or not r["same_nonfinite_pattern"]:
+            raise SystemExit(f"NaN in c: the kernel's {loss.name} value/gradient "
+                             f"finiteness differs from its plain version's: {r}")
+        if loss.name != "smoothed_hinge" and finite(r["value"]):
+            raise SystemExit(f"NaN in c gives the finite {loss.name} value {r['value']}")
+    emit({"phase": "nan_check", "shape": [700, 37], "nan_column": 5, "losses": out})
+    return out
+
+
+# the inexact phase: bench.py's gated inexact leg
+# (inexact_convex_fe_2re_movielens_shape: _game_setup("1m", 400,000,
+# seed=31, float32, "convex") at 8 outer iterations), strict and under
+# bench.py's _inexact_schedule, each against its float64 reference fit
+INEXACT_ROWS, INEXACT_SEED, INEXACT_OUTER = 400_000, 31, 8
+INEXACT_REF_KEYS = {"strict": "1m:400000:31:convex:outer8:v=g2",
+                    "scheduled": "1m:400000:31:convex:outer8:sched:v=g2"}
+INEXACT_RTOL = 1e-4
+INEXACT_SCHEDULE = dict(initial_iterations=4, iteration_growth=2.0,
+                        initial_tolerance_factor=1e3, tolerance_decay=0.1)
+
+
+def inexact_leg_stats(res, wall, spans, cfg) -> dict:
+    """bench.py's _inexact_leg_stats for one leg."""
+    diag = res.solver_diagnostics()
+    return {"fit_s": wall, "final_objective": float(res.objective_history[-1]),
+            "objective_history": res.objective_history,
+            "solver_iterations": res.total_iterations(),
+            "first_visit_solve_s": {n: spans.get(f"0/{n}/solve", 0.0)
+                                    for n in cfg.updating_sequence},
+            "iterations_by_coordinate": {k: v["iterations"] for k, v in diag.items()},
+            "iteration_caps": {k: v["iteration_caps"] for k, v in diag.items()},
+            "reasons": {k: v["reasons"] for k, v in diag.items()},
+            "fe_passes": fe_passes(res)}
+
+
+def inexact_phase(hk, ref_cache, kind, smi, device="cuda") -> dict:
+    """Strict and scheduled descents of bench.py's gated inexact leg on
+    shared, prebuilt coordinates, as bench.py's _inexact_pair runs them
+    (both warmed by one outer iteration, then scheduled first and strict
+    last).  Fails unless each leg's final objective is within 1e-4 of its
+    float64 reference, every solve's cap is SolverSchedule.plan's for its
+    outer iteration (None in the strict leg), the final visit runs the
+    full budget, and the fused kernel's launches equal the fixed effect's
+    passes in each leg.  Walls, iterations and first-visit solve times are
+    recorded, not claimed.  `device` "cpu" rehearses it (set INEXACT_ROWS
+    first; the references and the launch counts are the card's)."""
+    import torch
+    from photon_ml_tpu_torch.game import GameEstimator
+    from photon_ml_tpu_torch.game.coordinate_descent import (PhaseTimings,
+                                                              run_coordinate_descent)
+    from photon_ml_tpu_torch.optim.schedule import SolverSchedule
+    t0 = time.perf_counter()
+    train, val, cfg, _ = config5_setup(INEXACT_ROWS, scale="1m", seed=INEXACT_SEED,
+                                       outer=INEXACT_OUTER)
+    data_s = time.perf_counter() - t0
+    est = GameEstimator(cfg, device=device)
+    t0 = time.perf_counter()
+    coords = est._build_coordinates(train)
+    build_s = time.perf_counter() - t0
+    specs = est._validation_specs(["AUC"])
+    schedule = SolverSchedule(**INEXACT_SCHEDULE)
+
+    def descend(outer, sched):
+        spans = PhaseTimings()
+        t0 = time.perf_counter()
+        res = run_coordinate_descent(
+            coords, cfg.updating_sequence, outer, train, cfg.task_type,
+            validation_dataset=val, validation_specs=specs, timings=spans,
+            device=device, solver_schedules=(None if sched is None else
+                                             {n: sched for n in cfg.updating_sequence}))
+        if device == "cuda":
+            torch.cuda.synchronize()
+        return res, time.perf_counter() - t0, spans
+
+    for sched in (schedule, None):   # warm both variants, as _inexact_pair
+        descend(1, sched)
+    legs = {}
+    for leg, sched in (("scheduled", schedule), ("strict", None)):
+        hk.LAUNCHES = 0
+        res, wall, spans = descend(INEXACT_OUTER, sched)
+        stats = inexact_leg_stats(res, wall, spans, cfg)
+        stats["kernel_launches"] = hk.LAUNCHES
+        ref = ref_cache[INEXACT_REF_KEYS[leg]]["ref_nll"]
+        stats["ref_key"], stats["ref_nll"] = INEXACT_REF_KEYS[leg], ref
+        stats["nll_rel_gap"] = (stats["final_objective"] - ref) / abs(ref)
+        want_caps = {}
+        for name in cfg.updating_sequence:
+            base = cfg.coordinates[name].optimization.optimizer.resolved()
+            want_caps[name] = [None if sched is None else
+                               sched.plan(t, INEXACT_OUTER, base.max_iterations,
+                                          base.tolerance)[0]
+                               for t in range(INEXACT_OUTER)]
+        stats["caps_follow_schedule"] = stats["iteration_caps"] == want_caps
+        stats["final_visit_full_budget"] = sched is None or all(
+            caps[-1] == cfg.coordinates[n].optimization.optimizer.resolved().max_iterations
+            for n, caps in stats["iteration_caps"].items())
+        legs[leg] = stats
+        emit({"phase": f"inexact_{leg}", "entry":
+              "photon_ml_tpu_torch.game.coordinate_descent.run_coordinate_descent",
+              "config": "bench.py inexact_convex_fe_2re_movielens_shape "
+                        f"(_game_setup('1m', {INEXACT_ROWS}, seed={INEXACT_SEED}, "
+                        f"'convex'), {INEXACT_OUTER} outer iterations)",
+              "schedule": None if sched is None else sched.to_dict(),
+              "device": kind, "nvidia_smi": smi, **stats})
+    for leg, st in legs.items():
+        if not all(np.isfinite(st["objective_history"])):
+            raise SystemExit(f"inexact_{leg}: non-finite objective history")
+        if not abs(st["nll_rel_gap"]) <= INEXACT_RTOL:
+            raise SystemExit(f"inexact_{leg}: objective {st['final_objective']} is "
+                             f"{st['nll_rel_gap']:.3e} from {st['ref_nll']}")
+        if not (st["caps_follow_schedule"] and st["final_visit_full_budget"]):
+            raise SystemExit(f"inexact_{leg}: iteration caps {st['iteration_caps']} do not "
+                             "follow the schedule")
+        if not (st["kernel_launches"] == st["fe_passes"] > 0):
+            raise SystemExit(f"inexact_{leg}: kernel launches {st['kernel_launches']} != "
+                             f"fixed-effect passes {st['fe_passes']}")
+    out = {"data_s": data_s, "build_s": build_s, "n_train": train.num_rows,
+           "n_val": val.num_rows,
+           "fit_s": {leg: st["fit_s"] for leg, st in legs.items()},
+           "strict_over_scheduled_wall": legs["strict"]["fit_s"] / legs["scheduled"]["fit_s"],
+           "iterations_saved": (legs["strict"]["solver_iterations"]
+                                - legs["scheduled"]["solver_iterations"]),
+           "iterations_saved_by_coordinate": {
+               n: legs["strict"]["iterations_by_coordinate"][n]
+               - legs["scheduled"]["iterations_by_coordinate"][n]
+               for n in cfg.updating_sequence},
+           "first_visit_solve_s": {leg: st["first_visit_solve_s"]
+                                   for leg, st in legs.items()},
+           "final_rel_gap_vs_strict": abs(legs["scheduled"]["final_objective"]
+                                          - legs["strict"]["final_objective"])
+           / abs(legs["strict"]["final_objective"]),
+           "launches": {leg: st["kernel_launches"] for leg, st in legs.items()}}
+    emit({"phase": "inexact", "recorded_not_claimed": True, "device": kind,
+          "nvidia_smi": smi, **out})
+    out["train"], out["config"] = train, cfg
+    return out
+
+
+# the faults phase: child processes of cli.train on the inexact data's
+# GLMix coordinates (fixed effect + perUser), 3 outer iterations
+FAULTS_OUTER = 3
+FAULTS_RESUME_RTOL = 1e-6
+FAULTS_POISON_RTOL = 1e-4
+KILL_PLAN = {"seed": 0, "faults": [{"site": "checkpoint.fsync", "action": "kill",
+                                    "hits": [2]}]}
+POISON_PLAN = {"seed": 0, "faults": [{"site": "solve.poison", "action": "poison",
+                                      "hits": [2], "match": {"coordinate": "perUser"}}]}
+SIGTERM_PLAN = {"seed": 0, "faults": [{"site": "checkpoint.write", "action": "sigterm",
+                                       "hits": [2]}]}
+
+
+def start_child(d: Path, name: str, extra, plan=None, device="cuda"):
+    """cli.train in a child process (a kill must kill a process), its
+    stdout and stderr to files under d/name."""
+    import os
+    out = d / name
+    out.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="2")
+    env.pop("PHOTON_FAULT_PLAN", None)
+    argv = [sys.executable, "-m", "photon_ml_tpu_torch.cli.train",
+            "--train-data", str(d / "train.npz"), "--config", str(d / "config.json"),
+            "--output-dir", str(out), "--device", device, *extra]
+    if plan is not None:
+        argv += ["--fault-plan", json.dumps(plan)]
+    with open(out / "stdout", "w") as stdout, open(out / "stderr", "w") as stderr:
+        return subprocess.Popen(argv, cwd=ROOT, env=env, stdout=stdout, stderr=stderr)
+
+
+def finish_child(d: Path, name: str, proc, timeout=600) -> tuple:
+    """(exit code, the JSON line it printed last or None)."""
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise SystemExit(f"faults: child {name} did not finish in {timeout} s")
+    lines = (d / name / "stdout").read_text().strip().splitlines()
+    line = None
+    if lines:
+        try:
+            line = json.loads(lines[-1])
+        except ValueError:
+            line = None
+    return rc, line
+
+
+def faults_phase(kind, smi, train, cfg, device="cuda") -> dict:
+    """Checkpoints, resume, the quarantine and graceful preemption through
+    `python -m photon_ml_tpu_torch.cli.train` in child processes: A runs
+    uninterrupted; B is SIGKILLed at its second checkpoint fsync (rc -9,
+    B/state.json.tmp left) and rerun to resume; C has its second perUser
+    solve poisoned; D gets the plan's own SIGTERM at its second checkpoint
+    write (exit 75 with its JSON line, strict timing so the signal lands at
+    a fixed point) and is rerun to resume.  Fails unless the resumes prune
+    the stale tmp and land within 1e-6 of A's history, C's containment is
+    ["rolled_back", "retry_ok"] with a finite history within 1e-4 of A's
+    final objective, and D resumes within 1e-6 of A's final objective.
+    Children in a wave run at once; every child is waited for."""
+    from photon_ml_tpu_torch.data.game_data import save_game_dataset
+    t_phase = time.perf_counter()
+    d = cli_dir("faults")
+    t0 = time.perf_counter()
+    save_game_dataset(train, str(d / "train.npz"))
+    cfg = dataclasses.replace(cfg, coordinates={k: cfg.coordinates[k]
+                                                for k in ("fixed", "perUser")},
+                              updating_sequence=["fixed", "perUser"],
+                              num_outer_iterations=FAULTS_OUTER)
+    (d / "config.json").write_text(cfg.to_json())
+    save_s = time.perf_counter() - t0
+    wave1 = {"A": start_child(d, "A", ["--checkpoint-dir", str(d / "ckA")], device=device),
+             "B_kill": start_child(d, "B_kill", ["--checkpoint-dir", str(d / "ckB")],
+                                   KILL_PLAN, device),
+             "C_poison": start_child(d, "C_poison", [], POISON_PLAN, device),
+             "D_sigterm": start_child(d, "D_sigterm", ["--checkpoint-dir", str(d / "ckD"),
+                                                       "--timing-mode", "strict"],
+                                      SIGTERM_PLAN, device)}
+    t0 = time.perf_counter()
+    done = {name: finish_child(d, name, proc) for name, proc in wave1.items()}
+    wave1_s = time.perf_counter() - t0
+    tmp_left = (d / "ckB" / "state.json.tmp").exists()
+    wave2 = {"B_resume": start_child(d, "B_resume", ["--checkpoint-dir", str(d / "ckB")],
+                                     device=device),
+             "D_resume": start_child(d, "D_resume", ["--checkpoint-dir", str(d / "ckD"),
+                                                     "--timing-mode", "strict"],
+                                     device=device)}
+    t0 = time.perf_counter()
+    done.update({name: finish_child(d, name, proc) for name, proc in wave2.items()})
+    wave2_s = time.perf_counter() - t0
+    rc = {name: r for name, (r, _) in done.items()}
+    line = {name: ln for name, (_, ln) in done.items()}
+    for name in ("A", "C_poison", "B_resume", "D_resume"):
+        if rc[name] != 0 or line[name] is None:
+            err = (d / name / "stderr").read_text()[-2000:]
+            raise SystemExit(f"faults: child {name} exited {rc[name]}: {err}")
+    hist_a = np.asarray(line["A"]["objective_history"])
+    hist_b = np.asarray(line["B_resume"]["objective_history"])
+    rel = lambda a, b: float(np.max(np.abs(np.asarray(a) - b) / np.abs(b)))
+    recovery_b = line["B_resume"]["checkpoint_recovery"] or {}
+    actions = [e["action"] for e in line["C_poison"]["containment_events"]]
+    final_a = float(hist_a[-1])
+    out = {
+        "rc": rc, "state_json_tmp_left_by_kill": tmp_left,
+        "resume_after_kill": {"recovery": recovery_b,
+                              "max_rel_diff_vs_uninterrupted": rel(hist_b, hist_a)
+                              if hist_b.shape == hist_a.shape else None,
+                              "bit_equal": hist_b.tolist() == hist_a.tolist()},
+        "poisoned": {"actions": actions,
+                     "finite": bool(np.all(np.isfinite(line["C_poison"]["objective_history"]))),
+                     "final_rel_diff": abs(line["C_poison"]["final_objective"] - final_a)
+                     / abs(final_a),
+                     "containment": line["C_poison"]["solver_diagnostics"]["perUser"]
+                     ["containment"],
+                     "fault_report": line["C_poison"]["fault_report"]},
+        "sigterm": {"line": line["D_sigterm"],
+                    "resume_final_rel_diff": abs(line["D_resume"]["final_objective"] - final_a)
+                    / abs(final_a),
+                    "resume_recovery": line["D_resume"]["checkpoint_recovery"],
+                    "resume_bit_equal": line["D_resume"]["final_objective"] == final_a},
+        "fit_s": {name: ln["fit_s"] for name, ln in line.items()
+                  if ln is not None and "fit_s" in ln},
+        "uninterrupted_history": hist_a.tolist(),
+        "save_inputs_s": save_s, "wave1_s": wave1_s, "wave2_s": wave2_s,
+        "seconds": time.perf_counter() - t_phase}
+    emit({"phase": "faults", "entry": "python -m photon_ml_tpu_torch.cli.train "
+          f"--device {device} (child processes)",
+          "config": f"the inexact data's fixed effect + perUser, {FAULTS_OUTER} outer iterations",
+          "n_train": train.num_rows, "device": kind, "nvidia_smi": smi, **out})
+    if rc["B_kill"] != -9:
+        raise SystemExit(f"faults: the kill child exited {rc['B_kill']}, not -9")
+    if not tmp_left:
+        raise SystemExit("faults: the kill left no state.json.tmp")
+    if not any(str(p).endswith("state.json.tmp") for p in recovery_b.get("pruned", [])):
+        raise SystemExit(f"faults: the resume did not prune state.json.tmp: {recovery_b}")
+    if recovery_b.get("resumed_from_iteration") != 0:
+        raise SystemExit(f"faults: the resume did not start from the sealed record: "
+                         f"{recovery_b}")
+    diff = out["resume_after_kill"]["max_rel_diff_vs_uninterrupted"]
+    if diff is None or not diff <= FAULTS_RESUME_RTOL:
+        raise SystemExit(f"faults: the resumed history is {diff} from the uninterrupted one")
+    if actions != ["rolled_back", "retry_ok"] or not out["poisoned"]["finite"]:
+        raise SystemExit(f"faults: poisoned run: actions {actions}, finite "
+                         f"{out['poisoned']['finite']}")
+    if not out["poisoned"]["final_rel_diff"] <= FAULTS_POISON_RTOL:
+        raise SystemExit(f"faults: poisoned run ends {out['poisoned']['final_rel_diff']} "
+                         "from the uninterrupted objective")
+    sig = line["D_sigterm"] or {}
+    if not (rc["D_sigterm"] == 75 and sig.get("preempted") and sig.get("exit_status") == 75
+            and sig.get("resumable")):
+        raise SystemExit(f"faults: SIGTERM run exited {rc['D_sigterm']} with {sig}")
+    if not out["sigterm"]["resume_final_rel_diff"] <= FAULTS_RESUME_RTOL:
+        raise SystemExit(f"faults: the SIGTERM resume ends "
+                         f"{out['sigterm']['resume_final_rel_diff']} from the uninterrupted "
+                         "objective")
     return out
 
 
@@ -1856,6 +2215,7 @@ def main() -> int:
     y_wide = (torch.rand(WIDE[0], generator=gen, device="cuda") < 0.25).float()
     losses = [BY_NAME[k] for k in ("logistic", "squared", "poisson", "smoothed_hinge")]
     max_abs_err = run_checks(hk, losses, x, y, x_wide, y_wide)
+    nan_checks = run_nan_checks(hk, losses)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     # the main shape last: its numbers go in the kernels line
     for xt, yt in ((x_wide, y_wide), (x, y)):
@@ -2102,18 +2462,29 @@ def main() -> int:
     cli_avro = cli_avro_phase(hk, sk, ref_cache, kind, smi)
     emit({"phase": "cli_avro_done", "seconds": time.perf_counter() - t0})
 
+    # --- solver schedules and fault containment ------------------------------
+    t0 = time.perf_counter()
+    inexact = inexact_phase(hk, ref_cache, kind, smi)
+    emit({"phase": "inexact_done", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    faults_phase(kind, smi, inexact.pop("train"), inexact.pop("config"))
+    emit({"phase": "faults_done", "seconds": time.perf_counter() - t0})
+
     emit({"kernels": [{
         "name": "fused_value_and_gradient",
         "route": "cuda",
         "source": "photon_ml_tpu_torch/csrc/fused_value_and_gradient.cu",
         "replaces": "photon_ml_tpu/ops/pallas_kernels.py:150",
         "launches": (launches + g_launches + c2_launches + c3["kernel_launches"] + t_launches
-                     + c5["convex"] + c5["full"] + cli_glm + cli_game),
+                     + c5["convex"] + c5["full"] + cli_glm + cli_game
+                     + sum(inexact["launches"].values())),
         "launches_by_path": {"train_glm": launches, "glmix": g_launches,
                              "config2": c2_launches, "config3": c3["kernel_launches"],
                              "glmix_tron": t_launches, "config5_convex": c5["convex"],
                              "config5_full": c5["full"], "cli_glm": cli_glm,
-                             "cli_game": cli_game},
+                             "cli_game": cli_game,
+                             "inexact_strict": inexact["launches"]["strict"],
+                             "inexact_scheduled": inexact["launches"]["scheduled"]},
         "max_abs_err": max_abs_err,
         "tolerance": f"value rtol {VALUE_RTOL}, gradient rtol {GRAD_RTOL} atol {GRAD_ATOL}",
         "ms": timing["ms"],
@@ -2125,6 +2496,9 @@ def main() -> int:
         "ms_over_library": timing["ms_over_library"],
         "design": DESIGN,
         "launches_per_call": prof["fused_kernel_launches"] / prof["fg_count"],
+        "nan_in_c": {name: {k: r[k] for k in ("value", "plain_value",
+                                              "gradient_nonfinite")}
+                     for name, r in nan_checks.items()},
         "at_glmix_shape": {k: g_timing[k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "hbm_share",
             "ms_over_library")} | {"shape": [g_train.num_rows, 31],

@@ -13,9 +13,13 @@ through GameEstimator.fit_grid); with --config (GameTrainingConfig JSON),
 the full GAME coordinate-descent path runs.  The flags are the JAX CLI's;
 `--device` (default cuda) is the port's counterpart of JAX_PLATFORMS, and
 without CUDA the run exits non-zero unless `--device cpu` is given.  `--x64`
-computes in float64 (float32 otherwise).  Flags of subsystems the port
-does not have yet exit naming their ROADMAP.md queue A item, and summary
-keys that belong to them are null.
+computes in float64 (float32 otherwise).  `--checkpoint-dir` checkpoints
+after every outer iteration and resumes from the newest verified record;
+`--fault-plan` (or $PHOTON_FAULT_PLAN) arms fault injection; on SIGTERM or
+SIGINT the run stops after the in-flight update and exits with the
+resumable status 75 and a JSON line.  Flags of subsystems the port does not
+have yet exit naming their ROADMAP.md queue A item, and summary keys that
+belong to them are null.
 """
 from __future__ import annotations
 
@@ -172,7 +176,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "actual photon-ml wrote); beyond the reference, "
                         "whose warm start is intra-sweep only")
     p.add_argument("--checkpoint-dir", default=None,
-                   help="checkpoints and resume (not ported yet: item 14)")
+                   help="persist the model after every outer coordinate-"
+                        "descent iteration and resume from the latest "
+                        "verified record on restart; sweeps checkpoint per "
+                        "grid combo (the reference restarts failed jobs from "
+                        "scratch)")
     p.add_argument("--hbm-budget", default=None,
                    help="device-memory residency budget (not ported yet: "
                         "item 15)")
@@ -185,7 +193,16 @@ def build_parser() -> argparse.ArgumentParser:
                         "timings stay attributable to the device work they "
                         "launched)")
     p.add_argument("--fault-plan", default=None,
-                   help="fault injection (not ported yet: item 14)")
+                   help="ARM FAULT INJECTION (testing/chaos runs only): "
+                        "FaultPlan JSON (inline or @file) of named "
+                        "injection sites x trigger hits/probabilities "
+                        "(utils/faults.py; same format as the "
+                        "PHOTON_FAULT_PLAN env var, which also works).  "
+                        "With no plan the injection sites are no-ops.  On "
+                        "SIGTERM/SIGINT the trainer exits RESUMABLY (status "
+                        "75, EX_TEMPFAIL) after finishing the in-flight "
+                        "coordinate update and making the newest checkpoint "
+                        "durable")
     return p
 
 
@@ -340,8 +357,6 @@ def _load_dataset(path: str, task: str, args=None, train_dataset=None,
 # flag -> (is it set, the ROADMAP.md queue A item that ports it)
 UNPORTED_FLAGS = (
     ("--tuning", lambda a: a.tuning != "none", 17),
-    ("--checkpoint-dir", lambda a: a.checkpoint_dir is not None, 14),
-    ("--fault-plan", lambda a: a.fault_plan is not None, 14),
     ("--hbm-budget", lambda a: a.hbm_budget is not None, 15),
     ("--event-listener", lambda a: bool(a.event_listener), 19),
     ("--trace-out", lambda a: a.trace_out is not None, 19),
@@ -353,7 +368,7 @@ UNPORTED_FLAGS = (
 )
 # the JAX CLI's environment fallbacks of the multi-host flags
 UNPORTED_ENV = (("PHOTON_COORDINATOR", 20), ("PHOTON_NUM_PROCESSES", 20),
-                ("PHOTON_PROCESS_ID", 20), ("PHOTON_FAULT_PLAN", 14))
+                ("PHOTON_PROCESS_ID", 20))
 
 
 def check_unported(args) -> None:
@@ -417,14 +432,7 @@ def _run(args, log) -> int:
     dtype = torch.float64 if args.x64 else torch.float32
     check_mesh_arg(args.mesh, device)
 
-    from photon_ml_tpu_torch.game import GameEstimator, GameTrainingConfig
-    from photon_ml_tpu_torch.game.config import (FixedEffectCoordinateConfig,
-                                                 GLMOptimizationConfig)
-    from photon_ml_tpu_torch.models.io import save_game_model
-    from photon_ml_tpu_torch.ops.normalization import NormalizationType
-    from photon_ml_tpu_torch.optim.config import (OptimizerConfig, OptimizerType,
-                                                  RegularizationContext,
-                                                  RegularizationType)
+    from photon_ml_tpu_torch.game import GameTrainingConfig
 
     t0 = time.time()
     pinned_maps = None
@@ -513,6 +521,58 @@ def _run(args, log) -> int:
                 json.dump(payload, f)
         log.info("feature stats saved to %s", stats_dir)
 
+    # fault containment control plane (utils/faults.py): an env- or
+    # flag-armed injection plan (chaos and test runs), and SIGTERM/SIGINT
+    # graceful preemption: finish the in-flight coordinate update, make
+    # the newest checkpoint durable, exit with the resumable status 75
+    from photon_ml_tpu_torch.utils import faults
+    fault_plan = faults.install_from_env()
+    if args.fault_plan:
+        fault_plan = faults.FaultPlan.from_dict(_load_json_arg(args.fault_plan))
+        faults.install_plan(fault_plan)
+        log.warning("fault plan ACTIVE from --fault-plan: %d spec(s)",
+                    len(fault_plan.specs))
+    try:
+        with faults.GracefulPreemption():
+            return _fit_and_save(args, log, train, val, device, dtype, t0,
+                                 ingest_s, fault_plan)
+    except faults.Preempted as e:
+        # the in-flight update finished and the newest checkpoint record is
+        # durable: report resumability and exit with the DISTINCT status 75
+        # (EX_TEMPFAIL) so schedulers relaunch the same command
+        payload = {
+            "preempted": True,
+            "completed_iterations": e.completed_iterations,
+            "resumable": e.checkpointed,
+            "checkpoint_dir": e.checkpoint_dir,
+            "exit_status": faults.EXIT_PREEMPTED,
+            "lost_worker": None,
+            "wall_s": round(time.time() - t0, 2),
+        }
+        log.warning("preempted: %s", e)
+        with open(os.path.join(args.output_dir, "training-summary.json"), "w") as f:
+            json.dump(payload, f, indent=2)
+        print(json.dumps(payload))
+        return faults.EXIT_PREEMPTED
+    finally:
+        # main() is a callable API: the next in-process call starts
+        # without this job's plan
+        if fault_plan is not None:
+            faults.install_plan(None)
+
+
+def _fit_and_save(args, log, train, val, device, dtype, t0, ingest_s,
+                  fault_plan) -> int:
+    """Fit (GAME config or the legacy lambda sweep), save the best model
+    and write the summary."""
+    from photon_ml_tpu_torch.game import GameEstimator, GameTrainingConfig
+    from photon_ml_tpu_torch.game.config import (FixedEffectCoordinateConfig,
+                                                 GLMOptimizationConfig)
+    from photon_ml_tpu_torch.models.io import save_game_model
+    from photon_ml_tpu_torch.ops.normalization import NormalizationType
+    from photon_ml_tpu_torch.optim.config import (OptimizerConfig, OptimizerType,
+                                                  RegularizationContext,
+                                                  RegularizationType)
     evaluator_specs = args.evaluators.split(",") if args.evaluators else None
     initial_model = None
     if args.initial_model_dir:
@@ -538,7 +598,7 @@ def _run(args, log) -> int:
             config = GameTrainingConfig.from_json(f.read())
         results = [GameEstimator(config, device=device, dtype=dtype).fit(
             train, val, evaluator_specs, initial_model=initial_model,
-            timing_mode=args.timing_mode)]
+            checkpoint_dir=args.checkpoint_dir, timing_mode=args.timing_mode)]
     else:
         # legacy single-GLM path: one FE coordinate, lambda sweep, best by
         # first validation evaluator (reference: Driver stage machine +
@@ -560,6 +620,7 @@ def _run(args, log) -> int:
             updating_sequence=["fixed"])
         results = GameEstimator(config, device=device, dtype=dtype).fit_grid(
             train, grid, val, evaluator_specs, warm_start=args.warm_start,
+            checkpoint_dir=args.checkpoint_dir,
             initial_model=initial_model, timing_mode=args.timing_mode)
     fit_s = time.time() - t_fit
 
@@ -583,11 +644,15 @@ def _run(args, log) -> int:
         "validation_history": dict(best.descent.validation_history),
         "solver_iterations_total": best.descent.total_iterations(),
         "solver_diagnostics": solver_diag,
-        # quarantine, checkpoints and fault plans: ROADMAP.md item 14
-        "containment_events": None,
-        "frozen_coordinates": None,
-        "checkpoint_recovery": None,
-        "fault_report": None,
+        # fault containment accounting: quarantine events (rollbacks,
+        # tightened retries, freezes), coordinates left frozen, how the
+        # checkpoint was recovered at resume, and on chaos runs the
+        # injection plan's per-site fire counts
+        "containment_events": best.descent.containment_events,
+        "frozen_coordinates": best.descent.frozen_coordinates,
+        "checkpoint_recovery": best.checkpoint_recovery,
+        "fault_report": (fault_plan.report() if fault_plan is not None
+                         else None),
         "wall_s": round(time.time() - t0, 2),
         "timing_mode": args.timing_mode,
         # residency under an HBM budget: item 15

@@ -2,11 +2,13 @@
 photon_ml_tpu/game/config.py).
 
 `to_dict`/`from_dict` read and write the same JSON as the JAX package, so a
-configuration written by either package loads in the other.  Fields whose
-features are not ported yet load, and then raise where they would take
-effect: `solver_schedule` (ROADMAP.md queue A item 16), `hbm_budget_bytes`
-and `memory_mode="streamed"` (item 15), `shard_features` (item 20), and the
-ADMM lane's `admm` block (item 20) raises on load.
+configuration written by either package loads in the other; solver
+schedules (`solver_schedule`) parse into optim/schedule.py's
+SolverSchedule where the JAX package parses them.  Fields whose features
+are not ported yet load, and then raise where they would take effect:
+`hbm_budget_bytes` and `memory_mode="streamed"` (ROADMAP.md queue A item
+15), `shard_features` (item 20), and the ADMM lane's `admm` block (item 20)
+raises on load.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from typing import Dict, Optional, Sequence, Union
 from photon_ml_tpu_torch.data.batching import RandomEffectDataConfig
 from photon_ml_tpu_torch.ops.normalization import NormalizationType
 from photon_ml_tpu_torch.optim.constraints import constraints_to_json
+from photon_ml_tpu_torch.optim.schedule import SolverSchedule
 from photon_ml_tpu_torch.optim.config import (
     OptimizerConfig, OptimizerType, RegularizationContext, RegularizationType,
 )
@@ -52,9 +55,9 @@ class FixedEffectCoordinateConfig:
     # "auto" is resident
     memory_mode: str = "auto"
     chunk_rows: Optional[int] = None
-    # per-coordinate inexact-solve schedule, as the JAX package's
-    # SolverSchedule.to_dict(); None = full solves every visit
-    solver_schedule: Optional[dict] = None
+    # per-coordinate inexact-solve schedule; None = inherit the training
+    # config's solver_schedule (optim/schedule.py)
+    solver_schedule: Optional[SolverSchedule] = None
 
     def __post_init__(self):
         if self.memory_mode not in ("auto", "resident", "streamed"):
@@ -73,7 +76,9 @@ class RandomEffectCoordinateConfig:
     passive_data_lower_bound: Optional[int] = None
     features_to_samples_ratio: Optional[float] = None
     projector: str = "index_map"
-    solver_schedule: Optional[dict] = None
+    # per-coordinate inexact-solve schedule; None = inherit the training
+    # config's solver_schedule
+    solver_schedule: Optional[SolverSchedule] = None
 
     def data_config(self, seed: int = 7) -> RandomEffectDataConfig:
         return RandomEffectDataConfig(
@@ -101,7 +106,9 @@ class FactoredRandomEffectCoordinateConfig:
     latent_optimization: GLMOptimizationConfig = GLMOptimizationConfig()
     active_data_upper_bound: Optional[int] = None
     passive_data_lower_bound: Optional[int] = None
-    solver_schedule: Optional[dict] = None
+    # per-coordinate inexact-solve schedule (both the latent-space and the
+    # projection solves); None = inherit the training config's
+    solver_schedule: Optional[SolverSchedule] = None
 
     def __post_init__(self):
         if self.latent_dim < 1:
@@ -135,7 +142,11 @@ class GameTrainingConfig:
     num_outer_iterations: int = 1
     seed: int = 7
     hbm_budget_bytes: Optional[int] = None
-    solver_schedule: Optional[dict] = None
+    # inexact coordinate descent (optim/schedule.py): small iteration caps
+    # and loose tolerances on early outer iterations, the full budget on
+    # the final one; a coordinate's own solver_schedule overrides it.
+    # None = full solves every visit
+    solver_schedule: Optional[SolverSchedule] = None
 
     def __post_init__(self):
         missing = [c for c in self.updating_sequence if c not in self.coordinates]
@@ -167,6 +178,11 @@ class GameTrainingConfig:
                     "regularization_weight": g.regularization_weight,
                     "downsampling_rate": g.downsampling_rate}
 
+        # None (no schedule) encodes as None, which checkpoint fingerprints
+        # strip
+        def enc_sched(s):
+            return None if s is None else s.to_dict()
+
         coords = {}
         for name, c in self.coordinates.items():
             if isinstance(c, FixedEffectCoordinateConfig):
@@ -178,7 +194,7 @@ class GameTrainingConfig:
                                 "memory_mode": (None if c.memory_mode == "auto"
                                                 else c.memory_mode),
                                 "chunk_rows": c.chunk_rows,
-                                "solver_schedule": c.solver_schedule,
+                                "solver_schedule": enc_sched(c.solver_schedule),
                                 "optimization": enc_glm(c.optimization)}
             elif isinstance(c, FactoredRandomEffectCoordinateConfig):
                 coords[name] = {"kind": "factored_random_effect",
@@ -188,7 +204,7 @@ class GameTrainingConfig:
                                 "num_inner_iterations": c.num_inner_iterations,
                                 "active_data_upper_bound": c.active_data_upper_bound,
                                 "passive_data_lower_bound": c.passive_data_lower_bound,
-                                "solver_schedule": c.solver_schedule,
+                                "solver_schedule": enc_sched(c.solver_schedule),
                                 "optimization": enc_glm(c.optimization),
                                 "latent_optimization": enc_glm(c.latent_optimization)}
             else:
@@ -199,14 +215,14 @@ class GameTrainingConfig:
                                 "passive_data_lower_bound": c.passive_data_lower_bound,
                                 "features_to_samples_ratio": c.features_to_samples_ratio,
                                 "projector": c.projector,
-                                "solver_schedule": c.solver_schedule,
+                                "solver_schedule": enc_sched(c.solver_schedule),
                                 "optimization": enc_glm(c.optimization)}
         return {"task_type": self.task_type, "coordinates": coords,
                 "updating_sequence": list(self.updating_sequence),
                 "num_outer_iterations": self.num_outer_iterations,
                 "seed": self.seed,
                 "hbm_budget_bytes": self.hbm_budget_bytes,
-                "solver_schedule": self.solver_schedule}
+                "solver_schedule": enc_sched(self.solver_schedule)}
 
     @staticmethod
     def from_dict(d: dict) -> "GameTrainingConfig":
@@ -238,7 +254,7 @@ class GameTrainingConfig:
 
         coords: Dict[str, CoordinateConfig] = {}
         for name, c in d["coordinates"].items():
-            sched = c.get("solver_schedule")
+            sched = SolverSchedule.from_dict(c.get("solver_schedule"))
             if c["kind"] == "fixed_effect":
                 coords[name] = FixedEffectCoordinateConfig(
                     feature_shard=c["feature_shard"],
@@ -275,7 +291,7 @@ class GameTrainingConfig:
             num_outer_iterations=d.get("num_outer_iterations", 1),
             seed=d.get("seed", 7),
             hbm_budget_bytes=d.get("hbm_budget_bytes"),
-            solver_schedule=d.get("solver_schedule"))
+            solver_schedule=SolverSchedule.from_dict(d.get("solver_schedule")))
 
     def to_json(self) -> str:
         return json.dumps(self.to_dict(), indent=2)

@@ -14,19 +14,44 @@ pending list and reads them back in one batched copy per outer iteration,
 with best-model tracking deferred to that boundary; "strict" ends every
 update in a readback before the next begins, so each PhaseTimings span
 holds the device work it launched.  Both run the same programs in the same
-order, so their histories are equal bit for bit.  Checkpoints and resume
-and non-finite-solve quarantine (ROADMAP.md queue A item 14; the JAX
-package interleaves the checkpoint writer and the quarantine monitor with
-the pipelined flush), device residency under an HBM budget (item 15),
-solver schedules (item 16) and the multi-host wait (item 20) are not
+order, so their histories are equal bit for bit.
+
+Fault containment, as the JAX package's:
+  * checkpoints after every outer iteration (`checkpoint_dir`): sealed
+    `iter-KKKK/` and `best-KKKK/` directories (size+sha256 manifest
+    written last, a self-contained record.json inside) and an atomically
+    replaced `state.json`; two records retained; written by a background
+    thread in pipelined mode (AsyncCheckpointer) from host snapshots taken
+    right after the iteration's read-back, synchronously in strict mode;
+  * resume (`read_checkpoint`): stale `*.tmp` files and unverified partial
+    directories pruned, state.json verified against its manifests, else the
+    newest verified record, else a fresh start; a record written under
+    another configuration fingerprint is refused;
+  * the non-finite solve quarantine (game/quarantine.py): a device-side
+    rollback at once, the health flag read back with the objective in the
+    one copy per outer iteration, then one tightened retry or a freeze;
+  * graceful preemption (utils/faults.py): after a SIGTERM the in-flight
+    update finishes, the newest record is made durable and `Preempted` is
+    raised.
+
+Solver schedules (optim/schedule.py) cap each visit's solves; the budget of
+every solve lands in its tracker.  Device residency under an HBM budget
+(ROADMAP.md queue A item 15) and the multi-host branches (item 20) are not
 ported yet.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import json
+import logging
+import math
+import os
+import shutil
+import threading
 import time
-from typing import Dict, List, Optional, Sequence
+import zipfile
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -34,10 +59,15 @@ import torch
 from photon_ml_tpu_torch import resolve_device
 from photon_ml_tpu_torch.data.game_data import GameDataset
 from photon_ml_tpu_torch.evaluation.evaluators import Evaluator, MultiEvaluator
+from photon_ml_tpu_torch.game import quarantine as quarantine_mod
 from photon_ml_tpu_torch.game.coordinates import Coordinate
 from photon_ml_tpu_torch.models.game import GameModel
 from photon_ml_tpu_torch.ops.losses import TASK_LOSSES, PointwiseLoss
+from photon_ml_tpu_torch.optim.schedule import QuarantineRetrySchedule
 from photon_ml_tpu_torch.optim.types import ConvergenceReason
+from photon_ml_tpu_torch.utils import durable, faults
+
+logger = logging.getLogger("photon_ml_tpu_torch")
 
 
 @dataclasses.dataclass
@@ -110,7 +140,12 @@ class TrackerSummary:
     likewise; None under TRON) or Hessian-vector products of TRON
     (`hv_count`, likewise; None otherwise), the solve's wall clock and
     ConvergenceReason counts over its lanes.  A factored random effect's
-    update sums its latent-space and projection-refit solves."""
+    update sums its latent-space and projection-refit solves.
+    `iteration_cap`/`tolerance` record the inexactness budget the solve
+    ran under (None: a full solve); `containment` records a quarantine
+    outcome for the visit (None: a healthy solve; "rolled_back",
+    "retry_ok" or "frozen", game/quarantine.py).  A frozen visit solves
+    nothing: no iterations and no passes."""
 
     iterations: int
     fg_count: Optional[int]
@@ -124,11 +159,20 @@ class TrackerSummary:
     # latent-space solve's rounds and its projection refit's iterations
     # and passes (parallel/factored.py FactoredSolveResult.inner)
     inner: Optional[list] = None
+    iteration_cap: Optional[int] = None
+    tolerance: Optional[float] = None
+    containment: Optional[str] = None
 
 
-def _summarize(result, wall_s: float, buckets=None) -> TrackerSummary:
+def _summarize(result, wall_s: float, buckets=None, budget=None) -> TrackerSummary:
     """A solve's summary; a factored update's two solves (the latent-space
-    and the projection refit of its last inner iteration) merged."""
+    and the projection refit of its last inner iteration) merged.
+    `budget` is the (cap, tolerance) plan the solve ran under; a frozen
+    visit (`result` None) has no solve."""
+    cap, tol = (None, None) if budget is None else budget
+    if result is None:
+        return TrackerSummary(iterations=0, fg_count=0, wall_s=wall_s,
+                              iteration_cap=cap, tolerance=tol)
     parts = [r for r in (getattr(result, "random_effect_result", None),
                          getattr(result, "latent_result", None)) if r is not None]
     parts = parts or [result]
@@ -145,7 +189,8 @@ def _summarize(result, wall_s: float, buckets=None) -> TrackerSummary:
             reasons[name] = reasons.get(name, 0) + int(count)
     return TrackerSummary(iterations=total("iterations"), fg_count=total("fg_count"),
                           wall_s=wall_s, reasons=reasons, buckets=buckets,
-                          hv_count=total("hv_count"), inner=getattr(result, "inner", None))
+                          hv_count=total("hv_count"), inner=getattr(result, "inner", None),
+                          iteration_cap=cap, tolerance=tol)
 
 
 @dataclasses.dataclass
@@ -163,6 +208,11 @@ class CoordinateDescentResult:
     # factored coordinate -> the sibling random effect whose solution gave
     # it its projection at its first visit
     warm_starts: Dict[str, str] = dataclasses.field(default_factory=dict)
+    # quarantine containment log (game/quarantine.py QuarantineMonitor
+    # events: rollbacks, tightened-budget retries, freezes); empty on a
+    # healthy fit
+    containment_events: List[dict] = dataclasses.field(default_factory=list)
+    frozen_coordinates: List[str] = dataclasses.field(default_factory=list)
 
     def total_iterations(self) -> int:
         return sum(t.iterations for t in self.trackers.values())
@@ -170,9 +220,8 @@ class CoordinateDescentResult:
     def solver_diagnostics(self) -> Dict[str, dict]:
         """Per-coordinate solver totals for the fit summary, in the JAX
         package's shape: solve count, inner iterations, ConvergenceReason
-        counts, the iteration cap of each visit (None: a full solve; the
-        port has no solver schedules yet), containment outcomes (none: the
-        port has no quarantine yet) and the host-blocked seconds of the
+        counts, the iteration cap of each visit (None: a full solve),
+        containment outcome counts and the host-blocked seconds of the
         coordinate's spans; beyond the JAX package's keys, the
         value+gradient passes (each one launch of the fixed effect's
         kernel on the card)."""
@@ -191,7 +240,10 @@ class CoordinateDescentResult:
             # per trial point (summed over lanes for a batched solve)
             d["value_gradient_passes"] += (t.fg_count if t.fg_count is not None
                                            else t.iterations + 1)
-            d["iteration_caps"].append(None)
+            d["iteration_caps"].append(t.iteration_cap)
+            if t.containment is not None:
+                d["containment"][t.containment] = \
+                    d["containment"].get(t.containment, 0) + 1
             for name, c in t.reasons.items():
                 d["reasons"][name] = d["reasons"].get(name, 0) + c
         for label, seconds in self.timings.host_blocked.items():
@@ -230,6 +282,498 @@ def _flush_values(values: List[object]) -> List[float]:
     return [next(it) if isinstance(v, torch.Tensor) else float(v) for v in values]
 
 
+def _to_host(obj):
+    """A copy of a model (or GameModel) whose tensors live on the host: the
+    snapshot a background checkpoint write serializes, taken while the
+    device is idle at the outer-iteration read-back, so the writer thread
+    never reads a device tensor while the next update runs."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu()
+    if isinstance(obj, GameModel):
+        return GameModel({k: _to_host(m) for k, m in obj.coordinates.items()},
+                         obj.task_type)
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return dataclasses.replace(obj, **{
+            f.name: _to_host(getattr(obj, f.name))
+            for f in dataclasses.fields(obj) if f.init})
+    return obj
+
+
+@dataclasses.dataclass
+class CheckpointState:
+    """One resumable record.  `recovery` documents how the record was
+    recovered: {"fallback": bool, "resumed_from_iteration": k, "pruned":
+    [paths]}; fallback=True means the primary state.json was missing,
+    corrupt or unverifiable and the record came from the newest iter-*
+    directory whose manifest verified."""
+
+    completed_iterations: int
+    initial_models: Dict[str, object]
+    objective_history: List[float]
+    validation_history: Dict[str, List[float]]
+    best_models: Optional[Dict[str, object]]    # None = same as latest
+    best_metric: Optional[float]
+    recovery: Optional[dict] = None
+
+
+# -- crash-safe checkpoint plumbing ------------------------------------------
+#
+# Write discipline (everything inside the checkpoint directory), the JAX
+# package's, so either package resumes the other's records:
+#   iter-KKKK/<model files>         save_game_model's npz layout
+#   iter-KKKK/record.json           the FULL state record, self-contained
+#                                   (relative dir references): the fallback
+#                                   unit when state.json is torn
+#   iter-KKKK/manifest.json         per-file sizes + sha256, written LAST
+#                                   via tmp+rename (+fsync): a directory
+#                                   with a verifying manifest is COMPLETE
+#   best-KKKK/...                   same manifest discipline
+#   state.json                      atomic pointer to the newest record
+#                                   (tmp -> fsync -> rename -> dir fsync)
+#
+# Retention is TWO records: the newest and its predecessor.  Resume order:
+# state.json (manifest-verified) -> newest iter-* directory whose manifest
+# verifies -> fresh start; stale *.tmp files and orphaned partial
+# directories (no or failing manifest, unreferenced) are pruned.
+
+
+def _telemetry_checkpoint(name: str) -> None:
+    """Where the JAX package counts checkpoint writes, coalesced snapshots
+    and recoveries; a no-op until telemetry is ported (ROADMAP.md queue A
+    item 19)."""
+
+
+def verify_checkpoint_dir(dirpath: str) -> Tuple[Optional[bool], str]:
+    """-> (ok, reason).  ok=True: manifest present and every listed file
+    matches size + checksum.  ok=False: torn or corrupt.  ok=None: no
+    manifest (a pre-manifest record, or a partial write that died before
+    the manifest landed: the caller decides by reference)."""
+    mpath = os.path.join(dirpath, "manifest.json")
+    if not os.path.isdir(dirpath):
+        return False, "missing directory"
+    if not os.path.exists(mpath):
+        return None, "no manifest"
+    try:
+        with open(mpath) as f:
+            manifest = json.load(f)
+        for rel, want in manifest["files"].items():
+            p = os.path.join(dirpath, rel)
+            if not os.path.exists(p):
+                return False, f"missing file {rel}"
+            if os.path.getsize(p) != want["bytes"]:
+                return False, f"size mismatch for {rel}"
+            if durable.file_sha256(p) != want["sha256"]:
+                return False, f"checksum mismatch for {rel}"
+    except (OSError, ValueError, KeyError, TypeError) as e:
+        return False, f"unreadable manifest ({e})"
+    return True, "ok"
+
+
+def _write_checkpoint(directory: str, iteration: int, model: GameModel,
+                      objective_history: List[float],
+                      validation_history: Dict[str, List[float]],
+                      best_model: GameModel,
+                      best_metric: Optional[float],
+                      fingerprint: Optional[str]) -> None:
+    """Persist the latest model, the best-so-far model and a state record
+    after an outer iteration: {dir}/iter-{k:04d}/ and {dir}/best-{k:04d}/
+    (save_game_model's layout, each sealed by a manifest.json written LAST)
+    and {dir}/state.json, replaced ATOMICALLY after an fsync and LAST, so a
+    crash mid-save leaves the previous record intact.  Each iter directory
+    also embeds its full state record (record.json), so a torn state.json
+    falls back to the newest verified record.  The two newest records are
+    retained; older model directories are pruned."""
+    from photon_ml_tpu_torch.models.io import save_game_model
+
+    faults.fire("checkpoint.write", iteration=iteration)
+    try:
+        with open(os.path.join(directory, "state.json")) as f:
+            prev = json.load(f)
+    except (OSError, ValueError):
+        prev = None
+
+    path = os.path.join(directory, f"iter-{iteration:04d}")
+    save_game_model(model, path)
+    # the best-so-far model is only meaningful with validation tracking;
+    # without it the final model IS the result
+    best_path = None
+    if best_metric is not None:
+        if (prev is not None and prev.get("best_metric") == best_metric
+                and prev.get("best_model_dir")
+                and os.path.isdir(prev["best_model_dir"])):
+            # best unchanged since the previous record: point at the
+            # existing directory instead of re-serializing the model
+            best_path = prev["best_model_dir"]
+        else:
+            best_path = os.path.join(directory, f"best-{iteration:04d}")
+            save_game_model(best_model, best_path)
+            durable.write_manifest(best_path)
+    state = {"completed_iterations": iteration + 1,
+             "model_dir": path,
+             "best_model_dir": best_path,
+             "best_metric": best_metric,
+             "config_fingerprint": fingerprint,
+             "objective_history": objective_history,
+             "validation_history": validation_history}
+    # self-contained fallback record: directory references by BASENAME so
+    # the record stays valid wherever the checkpoint directory lives
+    record = dict(state,
+                  model_dir=os.path.basename(path),
+                  best_model_dir=(os.path.basename(best_path)
+                                  if best_path else None))
+    durable.atomic_write_json(os.path.join(path, "record.json"), record,
+                              indent=1, fsync=False)  # the manifest fsyncs it
+    durable.write_manifest(path)  # seals the iter dir (covers record.json)
+
+    # retention of TWO records: remember the predecessor so resume can
+    # fall back past a record whose files turn out corrupt
+    state["previous"] = (
+        {k: prev.get(k) for k in ("completed_iterations", "model_dir",
+                                  "best_model_dir")}
+        if prev is not None else None)
+    # a "kill" injected at the before_replace hook is the canonical torn
+    # checkpoint: the new record is complete and sealed, state.json still
+    # points at the old one, and state.json.tmp is left for resume to prune
+    durable.atomic_write_json(
+        os.path.join(directory, "state.json"), state, indent=1,
+        before_replace=lambda: faults.fire("checkpoint.fsync",
+                                           iteration=iteration))
+    # prune the dirs the GRANDPARENT record referenced; a foreign or
+    # corrupt state.json may point anywhere, so only paths inside the
+    # checkpoint directory are deleted
+    grand = (prev or {}).get("previous") or {}
+    keep = {p for p in (path, best_path, (prev or {}).get("model_dir"),
+                        (prev or {}).get("best_model_dir")) if p}
+    root = os.path.realpath(directory)
+    for key in ("model_dir", "best_model_dir"):
+        old = grand.get(key)
+        if not old or old in keep or not os.path.isdir(old):
+            continue
+        real = os.path.realpath(old)
+        if os.path.commonpath([root, real]) != root or real == root:
+            logger.warning(
+                "checkpoint state referenced %s outside the checkpoint "
+                "directory %s; refusing to prune it", old, directory)
+            continue
+        shutil.rmtree(real, ignore_errors=True)
+    _telemetry_checkpoint("checkpoint.written")
+    logger.info("checkpoint: iteration %d saved to %s", iteration, path)
+
+
+class AsyncCheckpointer:
+    """Background checkpoint writer: iteration k's models serialize while
+    iteration k+1 trains.
+
+      - writes run on ONE worker thread through `_write_checkpoint`, so the
+        write-state-last and prune discipline is untouched and records land
+        in submission order;
+      - keep-latest coalescing: a snapshot superseded before its write
+        STARTS is dropped (only the newest record is ever resumed from);
+      - durability: after `shutdown()` (called at fit end) the LAST
+        submitted iteration is on disk; mid-fit, the newest record is
+        whichever submission last finished;
+      - a worker failure surfaces at the next submit() or at shutdown(),
+        never silently.
+
+    The caller submits host snapshots (`_to_host`), so the worker never
+    touches a device tensor."""
+
+    def __init__(self, directory: str):
+        self.directory = directory
+        # a plain condition: lock tracing is ROADMAP.md queue A item 19
+        self._cv = threading.Condition()
+        self._pending: Optional[tuple] = None
+        self._busy = False
+        self._closed = False
+        self._error: Optional[BaseException] = None
+        self._thread = threading.Thread(
+            target=self._run, name="photon-async-checkpoint", daemon=True)
+        self._thread.start()
+
+    def submit(self, iteration: int, model: GameModel,
+               objective_history: List[float],
+               validation_history: Dict[str, List[float]],
+               best_model: GameModel, best_metric: Optional[float],
+               fingerprint: Optional[str]) -> None:
+        """Enqueue one snapshot (the histories are copied here)."""
+        snap = (iteration, model, list(objective_history),
+                {k: list(v) for k, v in validation_history.items()},
+                best_model, best_metric, fingerprint)
+        with self._cv:
+            if self._error is not None:
+                err, self._error = self._error, None
+                raise RuntimeError(
+                    "async checkpoint write failed in the background "
+                    "writer") from err
+            if self._closed:
+                raise RuntimeError("AsyncCheckpointer already shut down")
+            if self._pending is not None:
+                _telemetry_checkpoint("checkpoint.coalesced")
+            self._pending = snap
+            self._cv.notify_all()
+
+    def _run(self) -> None:
+        while True:
+            with self._cv:
+                while self._pending is None and not self._closed:
+                    self._cv.wait()
+                if self._pending is None:
+                    return
+                snap, self._pending = self._pending, None
+                self._busy = True
+            try:
+                _write_checkpoint(self.directory, *snap)
+            except BaseException as e:  # surfaced at submit/shutdown
+                with self._cv:
+                    self._error = e
+            finally:
+                with self._cv:
+                    self._busy = False
+                    self._cv.notify_all()
+
+    def shutdown(self, raise_errors: bool = True) -> None:
+        """Drain the queue (the final snapshot always writes), stop the
+        worker, and re-raise any worker failure at once: the fit-end record
+        is part of the fit's durability contract.  Idempotent."""
+        with self._cv:
+            self._closed = True
+            self._cv.notify_all()
+            while self._pending is not None or self._busy:
+                self._cv.wait()
+        self._thread.join()
+        if raise_errors and self._error is not None:
+            err, self._error = self._error, None
+            raise RuntimeError(
+                "async checkpoint write failed: the final fit-end record "
+                "did not persist") from err
+
+
+def _prune_stale_tmp(directory: str) -> List[str]:
+    """Remove *.tmp files a kill during a write left behind
+    (state.json.tmp, manifest.json.tmp, ...)."""
+    pruned = []
+    if not os.path.isdir(directory):
+        return pruned
+    for root, _, names in os.walk(directory):
+        for fn in names:
+            if fn.endswith(".tmp"):
+                p = os.path.join(root, fn)
+                try:
+                    os.remove(p)
+                    pruned.append(p)
+                except OSError:
+                    pass
+    if pruned:
+        logger.warning("checkpoint at %s: pruned %d stale tmp file(s) left "
+                       "by an interrupted write: %s", directory, len(pruned),
+                       pruned)
+    return pruned
+
+
+def _checkpoint_record_dirs(directory: str):
+    """iter-*/best-* subdirectories, newest first."""
+    out = []
+    for fn in os.listdir(directory):
+        if fn.startswith(("iter-", "best-")):
+            p = os.path.join(directory, fn)
+            if os.path.isdir(p):
+                out.append(p)
+    return sorted(out, reverse=True)
+
+
+def _prune_orphan_dirs(directory: str, keep: set) -> List[str]:
+    """Remove iter-*/best-* directories that are partial writes: not
+    referenced by the record being resumed and lacking a VERIFYING
+    manifest.  Verified but unreferenced directories (a record sealed right
+    before a kill at the fsync) are kept: they are complete, and the re-run
+    of their iteration overwrites them."""
+    pruned = []
+    for p in _checkpoint_record_dirs(directory):
+        if os.path.realpath(p) in keep:
+            continue
+        ok, reason = verify_checkpoint_dir(p)
+        if ok is True:
+            continue
+        shutil.rmtree(p, ignore_errors=True)
+        pruned.append(p)
+        logger.warning("checkpoint at %s: pruned orphaned partial write %s "
+                       "(%s)", directory, p, reason)
+    return pruned
+
+
+def _state_to_checkpoint(directory: str, state: dict, relative: bool,
+                         recovery: dict, device, dtype
+                         ) -> Optional[CheckpointState]:
+    """Load the models a (top-level or embedded) state record references
+    onto `device` in `dtype`.  `relative` resolves the model directories
+    against the checkpoint directory (record.json stores basenames)."""
+    from photon_ml_tpu_torch.models.io import load_game_model
+
+    def resolve(p):
+        return os.path.join(directory, p) if relative else p
+
+    try:
+        model, _ = load_game_model(resolve(state["model_dir"]), device=device,
+                                   dtype=dtype)
+        best = None
+        if state.get("best_model_dir"):
+            best_dir = resolve(state["best_model_dir"])
+            ok, reason = verify_checkpoint_dir(best_dir)
+            if ok is False:
+                logger.warning(
+                    "checkpoint best-model directory %s failed verification "
+                    "(%s); resuming without best-model restoration",
+                    best_dir, reason)
+            else:
+                best_model, _ = load_game_model(best_dir, device=device,
+                                                dtype=dtype)
+                best = dict(best_model.coordinates)
+        return CheckpointState(
+            completed_iterations=int(state["completed_iterations"]),
+            initial_models=dict(model.coordinates),
+            objective_history=list(state["objective_history"]),
+            validation_history={k: list(v) for k, v in
+                                state.get("validation_history", {}).items()},
+            best_models=best,
+            best_metric=state.get("best_metric"),
+            recovery=recovery)
+    except (OSError, ValueError, KeyError, zipfile.BadZipFile) as e:
+        logger.warning("checkpoint record in %s unreadable (%s)",
+                       directory, e)
+        return None
+
+
+def _note_recovery(recovery: dict) -> None:
+    """Where the JAX package counts a recovery and logs its event."""
+    _telemetry_checkpoint("checkpoint.recoveries")
+    if recovery.get("fallback"):
+        _telemetry_checkpoint("checkpoint.recovery_fallbacks")
+
+
+def _fingerprint_mismatch(state: dict, fingerprint: Optional[str],
+                          directory: str) -> bool:
+    recorded = state.get("config_fingerprint")
+    if fingerprint is not None and recorded is not None \
+            and recorded != fingerprint:
+        logger.warning(
+            "checkpoint at %s was written under a different training "
+            "configuration (fingerprint %s != %s); starting fresh",
+            directory, recorded, fingerprint)
+        return True
+    return False
+
+
+def read_checkpoint(directory: str,
+                    fingerprint: Optional[str] = None, *,
+                    device=None, dtype: torch.dtype = torch.float32
+                    ) -> Optional[CheckpointState]:
+    """The resume half of the checkpoint flow, fault-contained:
+
+      1. prune stale *.tmp files left by a kill during a write;
+      2. resume from state.json IF its model directories verify against
+         their size+checksum manifests (a record without manifests is
+         accepted with a note);
+      3. otherwise FALL BACK to the newest iter-* directory whose manifest
+         verifies, using its embedded record.json, and prune orphaned
+         partial writes;
+      4. otherwise: no checkpoint (better to retrain than to crash).
+
+    `fingerprint` guards against resuming under a CHANGED configuration:
+    a record written with another coordinate or optimization config (the
+    outer iteration count excluded: raising it is the intended resume use)
+    is refused with a warning.  The models load onto `device` (None means
+    cuda) in `dtype`.  Records written by the JAX package load too."""
+    dev = resolve_device(device)
+    state_path = os.path.join(directory, "state.json")
+    if not os.path.isdir(directory):
+        return None
+    pruned = _prune_stale_tmp(directory)
+
+    state = None
+    try:
+        with open(state_path) as f:
+            state = json.load(f)
+    except OSError:
+        state = None  # no checkpoint yet (or unreadable): try the fallback
+    except ValueError as e:
+        logger.warning("checkpoint at %s unreadable (%s); trying verified "
+                       "fallback", directory, e)
+        state = None
+
+    if state is not None:
+        if _fingerprint_mismatch(state, fingerprint, directory):
+            return None
+        ok, reason = verify_checkpoint_dir(state.get("model_dir") or "")
+        if ok is None:
+            logger.info("checkpoint at %s carries no manifest; resuming "
+                        "unverified", directory)
+        if ok is not False:
+            result = _state_to_checkpoint(
+                directory, state, relative=False,
+                recovery={"fallback": False, "pruned": pruned,
+                          "resumed_from_iteration":
+                              int(state.get("completed_iterations", 0)) - 1},
+                device=dev, dtype=dtype)
+            if result is not None:
+                keep = {os.path.realpath(p) for p in
+                        (state.get("model_dir"), state.get("best_model_dir"),
+                         *(((state.get("previous") or {}).get(k)) for k in
+                           ("model_dir", "best_model_dir")))
+                        if p}
+                result.recovery["pruned"] += _prune_orphan_dirs(directory,
+                                                                keep)
+                _note_recovery(result.recovery)
+                return result
+            logger.warning("checkpoint at %s: primary record unusable; "
+                           "trying verified fallback", directory)
+        else:
+            logger.warning(
+                "checkpoint at %s: model directory %s failed manifest "
+                "verification (%s); trying verified fallback", directory,
+                state.get("model_dir"), reason)
+
+    # fallback: newest iter-* directory with a verifying manifest and an
+    # embedded record
+    for p in _checkpoint_record_dirs(directory):
+        if not os.path.basename(p).startswith("iter-"):
+            continue
+        ok, _ = verify_checkpoint_dir(p)
+        if ok is not True:
+            continue
+        try:
+            with open(os.path.join(p, "record.json")) as f:
+                record = json.load(f)
+        except (OSError, ValueError):
+            continue  # no embedded record: cannot self-resume
+        if _fingerprint_mismatch(record, fingerprint, directory):
+            return None
+        result = _state_to_checkpoint(
+            directory, record, relative=True,
+            recovery={"fallback": True, "pruned": pruned,
+                      "resumed_from_iteration":
+                          int(record.get("completed_iterations", 0)) - 1},
+            device=dev, dtype=dtype)
+        if result is None:
+            continue
+        keep = {os.path.realpath(p)}
+        if record.get("best_model_dir"):
+            keep.add(os.path.realpath(
+                os.path.join(directory, record["best_model_dir"])))
+        result.recovery["pruned"] += _prune_orphan_dirs(directory, keep)
+        logger.warning(
+            "checkpoint at %s: fell back to verified record %s "
+            "(completed_iterations=%d)", directory, os.path.basename(p),
+            result.completed_iterations)
+        _note_recovery(result.recovery)
+        return result
+
+    if state is not None or _checkpoint_record_dirs(directory):
+        logger.warning("checkpoint at %s has no verifiable record; "
+                       "starting fresh", directory)
+        _prune_orphan_dirs(directory, set())
+    return None
+
+
 def run_coordinate_descent(
     coordinates: Dict[str, Coordinate],
     updating_sequence: Sequence[str],
@@ -244,29 +788,35 @@ def run_coordinate_descent(
     device=None,
     dtype: torch.dtype = torch.float32,
     checkpoint_dir: Optional[str] = None,
+    resume: Optional[CheckpointState] = None,
+    checkpoint_fingerprint: Optional[str] = None,
+    solver_schedules: Optional[Dict[str, object]] = None,
 ) -> CoordinateDescentResult:
     """reference: CoordinateDescent.run/optimize (scala:57-385).
 
     `timing_mode`:
-      - "pipelined" (default): per-update objectives and validation metrics
-        stay device scalars, read back in ONE batched copy per outer
-        iteration (the flush, timed as the span "{it}/flush"); tracker
-        summaries and best-model tracking happen there.
+      - "pipelined" (default): per-update objectives, validation metrics
+        and health flags stay device scalars, read back in ONE batched copy
+        per outer iteration (the flush, timed as the span "{it}/flush");
+        tracker summaries, best-model tracking and quarantine containment
+        happen there, and checkpoints are written by a background thread.
       - "strict": every update syncs before the next begins, so the spans
         are attributable to the device work they launched.
     The math is identical: histories and models match bit for bit.  The
     flat [n] vectors live on `device` (None means cuda) in `dtype`.
     Validation metrics with a device form are computed on the device;
     grouped and custom metrics on the host, in both modes.
-    `checkpoint_dir` (checkpoints and resume) is ROADMAP.md queue A item
-    14 and raises."""
+
+    `checkpoint_dir` persists the latest and best-so-far models and a state
+    record after every outer iteration; `resume` (a CheckpointState from
+    read_checkpoint) continues from such a record.  `solver_schedules`
+    ({coordinate name -> optim/schedule.py SolverSchedule or None}) caps
+    each visit's solves; the budget each solve ran under lands in its
+    tracker.  Scheduling is pure arithmetic in (outer iteration,
+    num_iterations), so a resume reproduces the trajectory."""
     if timing_mode not in ("pipelined", "strict"):
         raise ValueError(f"timing_mode must be 'pipelined' or 'strict', "
                          f"got {timing_mode!r}")
-    if checkpoint_dir is not None:
-        raise NotImplementedError(
-            "checkpoints and resume are not ported yet (ROADMAP.md queue A "
-            "item 14)")
     pipelined = timing_mode == "pipelined"
     dev = resolve_device(device)
     loss = TASK_LOSSES[task_type]
@@ -288,10 +838,27 @@ def run_coordinate_descent(
         return (_data_term(total_scores, base_offsets, labels, weights, loss)
                 + sum(reg_terms.values()))
 
+    # a resume record overrides the initial models and restores the
+    # histories and best-model tracking
+    start_iteration = 0
+    if resume is not None and resume.completed_iterations > num_iterations:
+        logger.warning(
+            "checkpoint covers %d outer iterations but this fit requests "
+            "only %d; ignoring the checkpoint (delete it to silence this)",
+            resume.completed_iterations, num_iterations)
+        resume = None
+    if resume is not None:
+        start_iteration = min(resume.completed_iterations, num_iterations)
+        if initial_models:
+            logger.warning("resuming from a checkpoint: the provided "
+                           "initial/warm-start models are superseded by the "
+                           "checkpointed models")
+        initial_models = resume.initial_models
+
     # factored coordinates that start from their cold default model take
     # their projection from a sibling plain random effect's solution at
     # their first visit (by then the sibling has been fit this iteration);
-    # provided models are never overridden
+    # provided and resumed models are never overridden
     cold_factored: set = set()
     warm_starts: Dict[str, str] = {}
     with spans.span("init/score"):
@@ -319,11 +886,18 @@ def run_coordinate_descent(
         if not pipelined:
             _sync(spans, "init/score", total)
 
-    objective_history: List[float] = []
-    validation_history: Dict[str, List[float]] = {s.name: [] for s in validation_specs}
+    objective_history: List[float] = list(
+        resume.objective_history if resume is not None else [])
+    validation_history: Dict[str, List[float]] = {
+        s.name: list((resume.validation_history if resume is not None
+                      else {}).get(s.name, [])) for s in validation_specs}
     trackers: Dict[str, TrackerSummary] = {}
     best_model = GameModel(dict(models), task_type)
     best_metric: Optional[float] = None
+    if resume is not None and resume.best_metric is not None:
+        best_metric = resume.best_metric
+        if resume.best_models is not None:
+            best_model = GameModel(dict(resume.best_models), task_type)
 
     do_validation = validation_dataset is not None and bool(validation_specs)
     val_scores_by_coord: Dict[str, torch.Tensor] = {}
@@ -357,85 +931,278 @@ def run_coordinate_descent(
             return spec.evaluate(validation_dataset, val_total)
 
     def record(obj: float, metric_vals: Sequence[float],
-               snapshot: Dict[str, object]) -> None:
-        """History appends and best-model tracking for one update."""
+               snapshot: Dict[str, object], healthy: bool = True) -> None:
+        """History appends and best-model tracking for one update (a
+        rolled-back update never becomes the best model)."""
         nonlocal best_metric, best_model
         objective_history.append(obj)
         for k, (spec, v) in enumerate(zip(validation_specs, metric_vals)):
             validation_history[spec.name].append(v)
-            if k == 0 and (best_metric is None
-                           or spec.evaluator.better_than(v, best_metric)):
+            if k == 0 and healthy and (best_metric is None
+                                       or spec.evaluator.better_than(v, best_metric)):
                 # best FULL model by the first evaluator (ref 294-335)
                 best_metric = v
                 best_model = GameModel(dict(snapshot), task_type)
+
+    # non-finite solve quarantine (game/quarantine.py): the device-side
+    # guard already rolled a NaN/Inf solve back when it happened; the
+    # monitor applies the host-side policy (one tightened retry, else a
+    # freeze) when the health flags land
+    monitor = quarantine_mod.QuarantineMonitor()
+
+    def host_rollback(name: str, prev_model) -> None:
+        """Rare path: finite coefficients but a non-finite objective (data
+        term overflow).  The device-side guard passed the model through,
+        so roll the coordinate back here and recompute its score."""
+        nonlocal total
+        coord = coordinates[name]
+        models[name] = prev_model
+        sc = coord.score(prev_model)
+        total = (total - scores[name]) + sc
+        scores[name] = sc
+        reg_terms[name] = coord.regularization_term(prev_model)
+
+    def quarantine_rerun(it: int, name: str) -> bool:
+        """The ONE tightened-budget retry after a rollback, run where the
+        divergence is discovered (the outer-iteration boundary in
+        pipelined mode); its small health read-back is the rare path."""
+        nonlocal total
+        coord = coordinates[name]
+        partial = total - scores[name]
+        new_model, _ = coord.update(
+            models[name], base_offsets + partial,
+            schedule=QuarantineRetrySchedule(), outer_iteration=it,
+            num_outer_iterations=num_iterations)
+        guarded, flag = quarantine_mod.guard(new_model, models[name])
+        sc = coord.score(guarded)
+        new_total = partial + sc
+        old_reg = reg_terms[name]
+        reg_terms[name] = coord.regularization_term(guarded)
+        obj_dev = objective(new_total)
+        ok_v, obj_v = _flush_values(
+            [quarantine_mod.combine_health(flag, obj_dev), obj_dev])
+        ok = bool(ok_v)
+        if ok:
+            models[name] = guarded
+            scores[name] = sc
+            total = new_total
+            monitor.on_retry_result(it, name, True, obj_v)
+        else:
+            reg_terms[name] = old_reg
+            monitor.on_retry_result(it, name, False)
+        return ok
+
+    def contain(it: int, name: str) -> str:
+        """Apply the quarantine policy once an unhealthy flag is on the
+        host; the containment label for the visit's tracker."""
+        if monitor.on_divergence(it, name) == "retry":
+            return "retry_ok" if quarantine_rerun(it, name) else "frozen"
+        return "frozen"
 
     # pipelined mode: per-update records awaiting the boundary readback
     pending: List[dict] = []
 
     def flush_pending() -> None:
-        """ONE copy off the device for every objective and metric of the
-        outer iteration, then the deferred host bookkeeping."""
-        values = iter(_flush_values([v for p in pending
-                                     for v in [p["objective"], *p["metrics"]]]))
+        """ONE copy off the device for every objective, health flag and
+        metric of the outer iteration, then the deferred host bookkeeping
+        and the quarantine containment."""
+        values = iter(_flush_values([v for p in pending for v in
+                                     [p["objective"], p["health"], *p["metrics"]]]))
+        divergent = []
         for p in pending:
-            row = [next(values) for _ in range(1 + len(p["metrics"]))]
-            trackers[p["key"]] = _summarize(p["result"], spans[p["solve_key"]],
-                                            p["buckets"])
-            record(row[0], row[1:], p["models"])
+            obj, health = next(values), next(values)
+            metric_vals = [next(values) for _ in p["metrics"]]
+            healthy = bool(health)
+            key = f"{p['it']}/{p['name']}"
+            if not healthy:
+                if not math.isfinite(obj):
+                    # finite coefficients, non-finite objective: roll back
+                    # on the host and log the pre-update objective
+                    host_rollback(p["name"], p["prev_model"])
+                    obj = float(objective(total))
+                divergent.append(p)
+            trackers[key] = _summarize(p["result"], spans[p["solve_key"]],
+                                       p["buckets"], p["budget"])
+            trackers[key].containment = ("rolled_back" if not healthy
+                                         else p["containment"])
+            record(obj, metric_vals, p["models"], healthy)
         pending.clear()
+        # containment AFTER the iteration's bookkeeping: the retry runs at
+        # the boundary, not inside any one entry's slot in the history
+        for p in divergent:
+            trackers[f"{p['it']}/{p['name']}"].containment = contain(p["it"], p["name"])
 
-    for it in range(num_iterations):
-        for name in updating_sequence:
-            coord = coordinates[name]
-            solve_key = f"{it}/{name}/solve"
-            with spans.span(solve_key):
-                if name in cold_factored:
-                    cold_factored.discard(name)
-                    warm = coord.warm_start_latent(models[name], models)
-                    if warm is not None:
-                        models[name] = warm
-                        warm_starts[name] = coord.warm_start_source
-                # partial = full - own (reference line 186-193)
-                partial = total - scores[name]
-                models[name], result = coord.update(models[name],
-                                                    base_offsets + partial)
-                scores[name] = coord.score(models[name])
-                total = partial + scores[name]
+    checkpointer: Optional[AsyncCheckpointer] = None
+    # the host copy of best_model last submitted, and the metric it had:
+    # best_model changes only with best_metric, so an unchanged metric
+    # reuses the copy
+    host_best: Optional[Tuple[Optional[float], GameModel]] = None
+
+    def preempt(completed: int):
+        """Graceful-preemption exit: the in-flight update is finished; make
+        the newest checkpoint record durable, then raise the resumable
+        signal (cli.train maps it to exit 75)."""
+        nonlocal checkpointer
+        logger.warning("graceful preemption: stopping after %d completed "
+                       "outer iteration(s)", completed)
+        if checkpointer is not None:
+            with spans.span("checkpoint/join"):
+                checkpointer.shutdown(raise_errors=True)
+            checkpointer = None
+        raise faults.Preempted(
+            completed, checkpoint_dir is not None and completed > 0,
+            checkpoint_dir)
+
+    loop_ok = False
+    try:
+        for it in range(start_iteration, num_iterations):
+            for name in updating_sequence:
+                coord = coordinates[name]
+                solve_key = f"{it}/{name}/solve"
+                frozen = monitor.is_frozen(name)
+                prev_model = models[name]
+                sched = (solver_schedules or {}).get(name)
+                budget = None
+                if sched is not None and not frozen:
+                    base = coord.config.optimization.optimizer.resolved()
+                    budget = sched.plan(it, num_iterations, base.max_iterations,
+                                        base.tolerance)
+                result = None
+                health = None
+                with spans.span(solve_key):
+                    if not frozen:
+                        if name in cold_factored:
+                            cold_factored.discard(name)
+                            warm = coord.warm_start_latent(models[name], models)
+                            if warm is not None:
+                                models[name] = warm
+                                prev_model = warm
+                                warm_starts[name] = coord.warm_start_source
+                        # partial = full - own (reference line 186-193)
+                        partial = total - scores[name]
+                        new_model, result = coord.update(
+                            models[name], base_offsets + partial,
+                            schedule=sched, outer_iteration=it,
+                            num_outer_iterations=num_iterations)
+                        if faults.fire("solve.poison", coordinate=name,
+                                       iteration=it) == "poison":
+                            new_model = quarantine_mod.poison_model(new_model)
+                        # device-side containment: a non-finite solve rolls
+                        # back to the last good coefficients here, so later
+                        # coordinates never see poisoned scores; the flag
+                        # rides the boundary read-back
+                        models[name], health = quarantine_mod.guard(new_model,
+                                                                    prev_model)
+                        scores[name] = coord.score(models[name])
+                        total = partial + scores[name]
+                    if not pipelined:
+                        _sync(spans, solve_key, total)
+                buckets = getattr(coord, "last_buckets", None) if not frozen else None
+                key = f"{it}/{name}"
                 if not pipelined:
-                    _sync(spans, solve_key, total)
-            buckets = getattr(coord, "last_buckets", None)
-            if not pipelined:
-                trackers[f"{it}/{name}"] = _summarize(result, spans[solve_key], buckets)
+                    trackers[key] = _summarize(result, spans[solve_key], buckets, budget)
+                    if frozen:
+                        trackers[key].containment = "frozen"
 
-            obj_key = f"{it}/{name}/objective"
-            with spans.span(obj_key):
-                reg_terms[name] = coord.regularization_term(models[name])
-                obj_dev = objective(total)
-                if not pipelined:
-                    with spans.blocked(obj_key):
-                        obj = float(obj_dev)
+                obj_key = f"{it}/{name}/objective"
+                with spans.span(obj_key):
+                    if not frozen:
+                        reg_terms[name] = coord.regularization_term(models[name])
+                    obj_dev = objective(total)
+                    health_dev = (True if health is None else
+                                  quarantine_mod.combine_health(health, obj_dev))
+                    if not pipelined:
+                        with spans.blocked(obj_key):
+                            obj = float(obj_dev)
+                            # strict mode reads back per update by design
+                            healthy = health_dev is True or bool(health_dev)
+                if not pipelined and not healthy:
+                    if not math.isfinite(obj):
+                        host_rollback(name, prev_model)
+                        obj = float(objective(total))
+                    trackers[key].containment = contain(it, name)
 
-            metrics: List[object] = []
-            if do_validation:
-                val_key = f"{it}/{name}/validation"
-                with spans.span(val_key):
-                    val_scores_by_coord[name] = \
-                        models[name].score_dataset(validation_dataset)
-                    val_total = sum(val_scores_by_coord.values(), val_zeros)
-                    metrics = [evaluate(spec, val_total, val_key)
-                               for spec in validation_specs]
+                metrics: List[object] = []
+                if do_validation:
+                    val_key = f"{it}/{name}/validation"
+                    with spans.span(val_key):
+                        val_scores_by_coord[name] = \
+                            models[name].score_dataset(validation_dataset)
+                        val_total = sum(val_scores_by_coord.values(), val_zeros)
+                        metrics = [evaluate(spec, val_total, val_key)
+                                   for spec in validation_specs]
+                if pipelined:
+                    pending.append({"it": it, "name": name,
+                                    "solve_key": solve_key, "result": result,
+                                    "buckets": buckets, "budget": budget,
+                                    "objective": obj_dev, "health": health_dev,
+                                    "metrics": metrics, "models": dict(models),
+                                    "prev_model": prev_model,
+                                    "containment": "frozen" if frozen else None})
+                else:
+                    record(obj, metrics, models)
+
+                if faults.preemption_requested() and name != updating_sequence[-1]:
+                    # the in-flight update is done: settle the iteration's
+                    # device scalars, then exit resumably (the newest
+                    # durable record covers the completed iterations; this
+                    # partial iteration retrains)
+                    if pipelined:
+                        with spans.span(f"{it}/flush"), spans.blocked(f"{it}/flush"):
+                            flush_pending()
+                    preempt(it)
             if pipelined:
-                pending.append({"key": f"{it}/{name}",
-                                "solve_key": solve_key, "result": result,
-                                "buckets": buckets, "objective": obj_dev,
-                                "metrics": metrics, "models": dict(models)})
-            else:
-                record(obj, metrics, models)
-        if pipelined:
-            # outer-iteration boundary: the one host sync of the iteration
-            with spans.span(f"{it}/flush"):
-                with spans.blocked(f"{it}/flush"):
+                # outer-iteration boundary: the one host sync of the iteration
+                with spans.span(f"{it}/flush"), spans.blocked(f"{it}/flush"):
                     flush_pending()
+
+            if checkpoint_dir is not None:
+                with spans.span(f"{it}/checkpoint"):
+                    ckpt_model = GameModel(dict(models), task_type)
+                    if pipelined:
+                        # host snapshots, taken while the device is idle
+                        # after the flush: the writer thread never reads a
+                        # device tensor
+                        if checkpointer is None:
+                            checkpointer = AsyncCheckpointer(checkpoint_dir)
+                        if host_best is None or host_best[0] != best_metric:
+                            host_best = (best_metric, _to_host(best_model))
+                        checkpointer.submit(it, _to_host(ckpt_model),
+                                            objective_history, validation_history,
+                                            host_best[1], best_metric,
+                                            checkpoint_fingerprint)
+                    else:
+                        _write_checkpoint(checkpoint_dir, it, ckpt_model,
+                                          objective_history, validation_history,
+                                          best_model, best_metric,
+                                          checkpoint_fingerprint)
+            if faults.preemption_requested():
+                # iteration boundary: this iteration's record is submitted
+                # (pipelined) or on disk (strict): drain and exit
+                preempt(it + 1)
+        loop_ok = True
+    finally:
+        if checkpointer is not None:
+            # drain and stop the writer; on the success path a worker
+            # failure must surface, on an exception path it must not mask
+            # the original error
+            with spans.span("checkpoint/join"):
+                checkpointer.shutdown(raise_errors=loop_ok)
+
+    if (do_validation and resume is not None and start_iteration >= num_iterations
+            and any(not validation_history[s.name] for s in validation_specs)):
+        # resumed past the last iteration and the record lacks metrics for
+        # some spec: evaluate the restored model once for those specs
+        val_total = sum(val_scores_by_coord.values(), val_zeros)
+        for k, spec in enumerate(validation_specs):
+            if validation_history[spec.name]:
+                continue
+            v = spec.evaluate(validation_dataset, val_total)
+            validation_history[spec.name].append(v)
+            if k == 0 and (best_metric is None
+                           or spec.evaluator.better_than(v, best_metric)):
+                best_metric = v
+                best_model = GameModel(dict(models), task_type)
 
     final = GameModel(dict(models), task_type)
     if not do_validation:
@@ -444,4 +1211,6 @@ def run_coordinate_descent(
         model=final, best_model=best_model,
         objective_history=objective_history,
         validation_history=validation_history, timings=spans,
-        trackers=trackers, warm_starts=warm_starts)
+        trackers=trackers, warm_starts=warm_starts,
+        containment_events=monitor.events,
+        frozen_coordinates=monitor.frozen)

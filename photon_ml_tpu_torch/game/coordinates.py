@@ -10,6 +10,10 @@ Random draws (fixed-effect down-sampling, the factored coordinate's
 Gaussian projection and latent down-sampling) come from utils/prng.py's
 copy of JAX's threefry, with the JAX package's keys, so they are its draws.
 
+Every `update` takes a solver schedule (optim/schedule.py) and the outer
+iteration: the schedule's budget for that iteration caps the solve (both
+solves of a factored coordinate, each against its own configured budget).
+
 Not ported yet, each raising NotImplementedError where it would take
 effect: `memory_mode="streamed"` and HBM budgets (ROADMAP.md queue A item
 15), `shard_features` and meshes (item 20).
@@ -69,11 +73,11 @@ def _in_dtype(w: float, dtype: torch.dtype) -> float:
     return float(torch.tensor(float(w), dtype=dtype))
 
 
-def _unported_schedule(name: str, config) -> None:
-    if config.solver_schedule is not None:
-        raise NotImplementedError(
-            f"coordinate {name!r}: solver schedules are not ported yet "
-            "(ROADMAP.md queue A item 16)")
+def _budget(schedule, outer_iteration: int, num_outer_iterations: int,
+            optimizer_config):
+    """The schedule's SolveBudget for this visit, or None (a full solve)."""
+    return (None if schedule is None else schedule.budget_for(
+        outer_iteration, num_outer_iterations, optimizer_config))
 
 
 class FixedEffectCoordinate:
@@ -92,7 +96,6 @@ class FixedEffectCoordinate:
         self.loss = TASK_LOSSES[task_type]
         self.device = resolve_device(device)
         self.dtype = dtype
-        _unported_schedule(name, config)
         if config.memory_mode == "streamed":
             raise NotImplementedError(
                 f"coordinate {name!r}: memory_mode='streamed' is not ported "
@@ -139,11 +142,16 @@ class FixedEffectCoordinate:
                 torch.zeros(self.dim, dtype=self.dtype, device=self.device))),
             self.config.feature_shard)
 
-    def update(self, model: FixedEffectModel, offsets: torch.Tensor
+    def update(self, model: FixedEffectModel, offsets: torch.Tensor,
+               schedule=None, outer_iteration: int = 0,
+               num_outer_iterations: int = 1
                ) -> Tuple[FixedEffectModel, SolveResult]:
-        """Refit with residual offsets (partial scores + base offsets).
+        """Refit with residual offsets (partial scores + base offsets),
+        capped by `schedule`'s budget for this outer iteration.
         reference: FixedEffectCoordinate.updateModel."""
         opt = self.config.optimization
+        budget = _budget(schedule, outer_iteration, num_outer_iterations,
+                         opt.optimizer)
         weights = self.weights
         if opt.downsampling_rate is not None:
             self._key, sub = prng.split(self._key)
@@ -156,7 +164,8 @@ class FixedEffectCoordinate:
         obj = GLMObjective(self.loss, self.x, self.labels, weights=weights,
                            offsets=offsets, norm=self.norm)
         res = fit_fixed_effect(obj, x0, None, opt.optimizer, opt.regularization,
-                               _in_dtype(opt.regularization_weight, self.dtype))
+                               _in_dtype(opt.regularization_weight, self.dtype),
+                               budget=budget)
         c = res.x
         if self.norm is not None:
             c = self.norm.model_to_original_space(c)
@@ -192,7 +201,6 @@ class _EntityCoordinateBase:
         self.loss = TASK_LOSSES[task_type]
         self.device = resolve_device(device)
         self.dtype = dtype
-        _unported_schedule(name, config)
         self.red: RandomEffectDataset = build_random_effect_dataset(
             dataset, config.data_config(seed), device=self.device,
             block_dtype=dtype)
@@ -253,12 +261,17 @@ class RandomEffectCoordinate(_EntityCoordinateBase):
             global_dim=self.red.global_dim,
             projection_matrix=self.red.projection_matrix)
 
-    def update(self, model: RandomEffectModel, offsets: torch.Tensor
+    def update(self, model: RandomEffectModel, offsets: torch.Tensor,
+               schedule=None, outer_iteration: int = 0,
+               num_outer_iterations: int = 1
                ) -> Tuple[RandomEffectModel, SolveResult]:
         """One gather + one batched solve per S-bucket; lanes are contiguous,
-        so the results concatenate straight back into [E, d].  The bucket
+        so the results concatenate straight back into [E, d].  One
+        `schedule`-derived budget is shared by every bucket.  The bucket
         solves of this update are in `self.last_buckets`."""
         opt = self.config.optimization
+        budget = _budget(schedule, outer_iteration, num_outer_iterations,
+                         opt.optimizer)
         lam = _in_dtype(opt.regularization_weight, self.dtype)
         results: List[SolveResult] = []
         self.last_buckets = []
@@ -269,7 +282,8 @@ class RandomEffectCoordinate(_EntityCoordinateBase):
             res_b = fit_random_effects(
                 blocks, self.loss, None,
                 x0=model.coefficients[lo: lo + bucket.num_entities],
-                config=opt.optimizer, reg=opt.regularization, reg_weight=lam)
+                config=opt.optimizer, reg=opt.regularization, reg_weight=lam,
+                budget=budget)
             its = res_b.iterations
             self.last_buckets.append(BucketSolve(
                 tuple(blocks.x.shape), int(its.max()), int(its.sum()),
@@ -360,9 +374,17 @@ class FactoredRandomEffectCoordinate(_EntityCoordinateBase):
                                           model.projection)
         return dataclasses.replace(model, projection=p)
 
-    def update(self, model: FactoredRandomEffectModel, offsets: torch.Tensor
+    def update(self, model: FactoredRandomEffectModel, offsets: torch.Tensor,
+               schedule=None, outer_iteration: int = 0,
+               num_outer_iterations: int = 1
                ) -> Tuple[FactoredRandomEffectModel, FactoredSolveResult]:
         opt, lat = self.config.optimization, self.config.latent_optimization
+        # one schedule, two base configs: the latent-space and projection
+        # solves each cap and loosen against their own configured budget
+        re_budget = _budget(schedule, outer_iteration, num_outer_iterations,
+                            opt.optimizer)
+        latent_budget = _budget(schedule, outer_iteration, num_outer_iterations,
+                                lat.optimizer)
         blocks = self.red.with_offsets_from_flat(offsets)
 
         latent_row_weights_fn = None
@@ -387,7 +409,8 @@ class FactoredRandomEffectCoordinate(_EntityCoordinateBase):
             re_reg_weight=_in_dtype(opt.regularization_weight, self.dtype),
             latent_config=lat.optimizer, latent_reg=lat.regularization,
             latent_reg_weight=_in_dtype(lat.regularization_weight, self.dtype),
-            latent_row_weights_fn=latent_row_weights_fn)
+            latent_row_weights_fn=latent_row_weights_fn,
+            re_budget=re_budget, latent_budget=latent_budget)
         E, S, _ = blocks.x.shape
         self.last_buckets = [BucketSolve((E, S, self.config.latent_dim),
                                          r["re_max_iterations"], r["re_total_iterations"],

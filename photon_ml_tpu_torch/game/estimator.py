@@ -7,15 +7,20 @@ validation evaluators and runs coordinate descent once per optimization
 configuration; `fit_grid` is the multi-configuration sweep
 (GameEstimator.scala:474).
 
-Both timing modes of the JAX package run, "pipelined" by default.  Not
-ported yet: checkpoints and resume (ROADMAP.md queue A item 14), HBM
-budgets (item 15), solver schedules (item 16), meshes (item 20), events and
-telemetry (item 19).
+Both timing modes of the JAX package run, "pipelined" by default, with
+checkpoints and resume (`checkpoint_dir`, verified against the same
+configuration fingerprint the JAX package computes), the non-finite solve
+quarantine and solver schedules (a coordinate's own schedule over the
+training config's).  Not ported yet: HBM budgets (ROADMAP.md queue A item
+15), meshes (item 20), events and telemetry (item 19).
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import itertools
+import json
+import os
 from typing import Dict, List, Optional, Sequence
 
 import torch
@@ -30,7 +35,7 @@ from photon_ml_tpu_torch.game.config import (
     GameTrainingConfig, GLMOptimizationConfig,
 )
 from photon_ml_tpu_torch.game.coordinate_descent import (
-    CoordinateDescentResult, PhaseTimings, ValidationSpec,
+    CoordinateDescentResult, PhaseTimings, ValidationSpec, read_checkpoint,
     run_coordinate_descent,
 )
 from photon_ml_tpu_torch.game.coordinates import (
@@ -50,6 +55,10 @@ class GameResult:
     validation: Dict[str, float]          # final value per evaluator
     descent: CoordinateDescentResult
     validation_specs: List[ValidationSpec] = dataclasses.field(default_factory=list)
+    # how the fit's checkpoint was recovered at resume time (CheckpointState
+    # .recovery: fallback flag, pruned partial writes, resumed iteration);
+    # None when the fit started fresh or checkpointing was off
+    checkpoint_recovery: Optional[dict] = None
 
 
 class GameEstimator:
@@ -63,10 +72,6 @@ class GameEstimator:
             raise NotImplementedError(
                 "hbm_budget_bytes (device residency under a budget) is not "
                 "ported yet (ROADMAP.md queue A item 15)")
-        if config.solver_schedule is not None:
-            raise NotImplementedError(
-                "solver schedules are not ported yet (ROADMAP.md queue A "
-                "item 16)")
         self.config = config
         self.device = resolve_device(device)
         self.dtype = dtype
@@ -104,6 +109,29 @@ class GameEstimator:
             coords[name] = kind(name, dataset, cfg, self.config.task_type, **kw)
         return coords
 
+    def _config_fingerprint(
+            self, evaluator_specs: Optional[Sequence[str]]) -> str:
+        """Identity of everything that makes a checkpoint resumable: the
+        full training config EXCEPT the outer iteration count (raising it
+        and resuming is the intended use), PLUS the validation evaluator
+        specs.  The same 16 hex digits as the JAX package's for the same
+        config, since both write the same config JSON: either package
+        resumes the other's checkpoints."""
+        def strip_nones(v):
+            # drop None-valued keys, so adding an optional config field
+            # does not shift every existing fingerprint
+            if isinstance(v, dict):
+                return {k: strip_nones(x) for k, x in v.items() if x is not None}
+            if isinstance(v, list):
+                return [strip_nones(x) for x in v]
+            return v
+
+        d = strip_nones(self.config.to_dict())
+        d.pop("num_outer_iterations", None)
+        d["__evaluator_specs__"] = list(evaluator_specs or [])
+        return hashlib.sha256(
+            json.dumps(d, sort_keys=True).encode()).hexdigest()[:16]
+
     def _validation_specs(self, evaluator_specs: Optional[Sequence[str]]
                           ) -> List[ValidationSpec]:
         if not evaluator_specs:
@@ -128,14 +156,26 @@ class GameEstimator:
 
         `initial_model` warm-starts every coordinate it covers.
         `timing_mode` is "pipelined" (the default) or "strict" (see
-        run_coordinate_descent); `checkpoint_dir` is ROADMAP.md queue A
-        item 14 and raises."""
+        run_coordinate_descent).  `checkpoint_dir` persists the model after
+        every outer iteration and RESUMES from the newest verified record
+        already there (written by this package or the JAX package under the
+        same configuration fingerprint); how it was recovered is the
+        result's `checkpoint_recovery`."""
         spans = PhaseTimings()
         # coordinate construction includes the random-effect bucketing
         with spans.span("build/coordinates"):
             coords = self._build_coordinates(dataset)
         specs = (self._validation_specs(evaluator_specs)
                  if validation_dataset is not None else [])
+        resume = fingerprint = None
+        if checkpoint_dir is not None:
+            fingerprint = self._config_fingerprint(evaluator_specs)
+            resume = read_checkpoint(checkpoint_dir, fingerprint,
+                                     device=self.device, dtype=self.dtype)
+        # inexact-solve schedules: a coordinate-level schedule overrides the
+        # training-level one; all None is the strict no-schedule path
+        schedules = {name: (c.solver_schedule or self.config.solver_schedule)
+                     for name, c in self.config.coordinates.items()}
         descent = run_coordinate_descent(
             coords, self.config.updating_sequence,
             self.config.num_outer_iterations, dataset, self.config.task_type,
@@ -143,13 +183,17 @@ class GameEstimator:
             initial_models=(dict(initial_model.coordinates)
                             if initial_model is not None else None),
             timings=spans, timing_mode=timing_mode, device=self.device,
-            dtype=self.dtype, checkpoint_dir=checkpoint_dir)
+            dtype=self.dtype, checkpoint_dir=checkpoint_dir, resume=resume,
+            checkpoint_fingerprint=fingerprint,
+            solver_schedules=schedules if any(schedules.values()) else None)
         validation = {name: hist[-1] for name, hist in
                       descent.validation_history.items() if hist}
         return GameResult(model=descent.best_model, config=self.config,
                           objective_history=descent.objective_history,
                           validation=validation, descent=descent,
-                          validation_specs=specs)
+                          validation_specs=specs,
+                          checkpoint_recovery=(resume.recovery if resume is not None
+                                               else None))
 
     def fit_grid(
         self,
@@ -164,20 +208,25 @@ class GameEstimator:
     ) -> List[GameResult]:
         """Sweep per-coordinate optimization configs (cartesian product).
         With `warm_start`, each combo starts from the previous combo's
-        model (reference: useWarmStart)."""
+        model (reference: useWarmStart).  With `checkpoint_dir`, each combo
+        checkpoints under its own `combo-NNN` subdirectory: re-running an
+        interrupted sweep resumes the partial combo mid-descent and replays
+        completed combos from their records."""
         names = list(grid)
         results: List[GameResult] = []
         previous: Optional[GameModel] = initial_model
-        for combo in itertools.product(*(grid[n] for n in names)):
+        for i, combo in enumerate(itertools.product(*(grid[n] for n in names))):
             coords = dict(self.config.coordinates)
             for n, opt in zip(names, combo):
                 coords[n] = dataclasses.replace(coords[n], optimization=opt)
             cfg = dataclasses.replace(self.config, coordinates=coords)
             sub = GameEstimator(cfg, self.device, self.dtype)
+            combo_ckpt = (None if checkpoint_dir is None else
+                          os.path.join(checkpoint_dir, f"combo-{i:03d}"))
             results.append(sub.fit(
                 dataset, validation_dataset, evaluator_specs,
                 initial_model=previous if warm_start else initial_model,
-                timing_mode=timing_mode, checkpoint_dir=checkpoint_dir))
+                timing_mode=timing_mode, checkpoint_dir=combo_ckpt))
             previous = results[-1].model
         return results
 

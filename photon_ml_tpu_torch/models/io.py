@@ -94,7 +94,12 @@ def save_game_model(
     entity (original feature space, name.term keys), LatentFactorAvro for
     matrix factorization — a model the Spark implementation can read.
     Factored random effects materialize to per-entity original-space models
-    on Avro save (the reference persists original-space models too)."""
+    on Avro save (the reference persists original-space models too).
+
+    `model.save` is a fault-injection site (utils/faults.py): chaos runs
+    inject write failures here to prove checkpointing surfaces them."""
+    from photon_ml_tpu_torch.utils import faults
+    faults.fire("model.save", directory=os.path.basename(directory.rstrip("/")))
     if format == "avro":
         return _save_game_model_avro(model, directory, config, index_maps)
     if format == "reference":
@@ -646,7 +651,12 @@ def load_game_model(directory: str, device=None,
     for pre-metadata models).  Coefficients land on `device` (None means
     cuda) in `dtype`.  The npz files hold object arrays (entity ids,
     feature keys), read with `allow_pickle=True` as the JAX package reads
-    them: load only model directories you trust."""
+    them: load only model directories you trust.
+
+    `model.load` is a fault-injection site (utils/faults.py): chaos runs
+    inject read failures here to prove resume falls back cleanly."""
+    from photon_ml_tpu_torch.utils import faults
+    faults.fire("model.load", directory=os.path.basename(directory.rstrip("/")))
     put = _putter(device, dtype)
     meta_p = os.path.join(directory, "model-metadata.json")
     if not os.path.exists(meta_p):

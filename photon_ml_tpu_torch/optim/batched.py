@@ -92,10 +92,14 @@ def lbfgs(
     l1_weight: Optional[Union[torch.Tensor, float]] = None,
     lower: Optional[torch.Tensor] = None,
     upper: Optional[torch.Tensor] = None,
+    iteration_cap: Optional[int] = None,
 ) -> SolveResult:
     """Minimize f_e (+ l1*|x_e|_1 when `l1_weight` is set: OWLQN) for every
     lane e of x0 [E, d] at once; `lower`/`upper` [d] turn on box
-    projection for every lane.
+    projection for every lane.  `iteration_cap` is one cap for every lane
+    (the JAX package passes its budget unmapped): the loop stops after
+    min(cap, max_iterations) steps, and `max_iterations` sizes the
+    histories.
 
     Returns a SolveResult whose fields have a leading [E] axis: x [E, d],
     value, gradient_norm, iterations, reason and fg_count [E], histories
@@ -111,6 +115,8 @@ def lbfgs(
     l1 = (torch.as_tensor(l1_weight, dtype=dtype, device=device)
           if use_l1 else None)
     tolerance = float(tolerance)
+    cap = (max_iterations if iteration_cap is None
+           else min(int(iteration_cap), max_iterations))
     nan = torch.full((), float("nan"), dtype=dtype, device=device)
     zero = torch.zeros((), dtype=dtype, device=device)
     one = torch.ones((), dtype=dtype, device=device)
@@ -157,11 +163,11 @@ def lbfgs(
     gnorm_hist = torch.full_like(loss_hist, float("nan"))
     loss_hist[:, 0] = f
     gnorm_hist[:, 0] = gnorm
-    active = torch.full((E,), max_iterations > 0 and E > 0,
+    active = torch.full((E,), cap > 0 and E > 0,
                         dtype=torch.bool, device=device)
 
     # every active lane has taken exactly `step` iterations
-    for step in range(max_iterations):
+    for step in range(cap):
         steer = steer_grad(x, g)
         p = -_two_loop(steer, s_buf, y_buf, rho, num_pairs, min(step, m))
         if use_l1:
@@ -258,13 +264,19 @@ def lbfgs(
 
 def solve(value_and_grad: BatchedValueAndGrad, x0: torch.Tensor, config,
           reg, reg_weight=0.0, loss=None,
-          hessian_vector_at: Optional[HessianVectorAt] = None) -> SolveResult:
+          hessian_vector_at: Optional[HessianVectorAt] = None,
+          budget=None) -> SolveResult:
     """The batched counterpart of optim/config.py::solve for
     `value_and_grad` over lanes that already carry the L2 term: L1 goes to
     OWLQN, box bounds to every LBFGS lane, TRON (with `loss` and
     `hessian_vector_at`, which carries the L2 term too) to tron_lanes.
-    `config` is an OptimizerConfig, `reg` a RegularizationContext."""
+    `config` is an OptimizerConfig, `reg` a RegularizationContext;
+    `budget` (optim/schedule.py SolveBudget) is one iteration cap and
+    tolerance for every lane."""
     cfg = config.resolved()
+    tolerance, cap = cfg.tolerance, None
+    if budget is not None:
+        tolerance, cap = budget.tolerance_in(x0.dtype), budget.iteration_cap
     if cfg.track_coefficients:
         raise NotImplementedError(
             "coefficient tracking on batched solves is not ported yet "
@@ -273,11 +285,12 @@ def solve(value_and_grad: BatchedValueAndGrad, x0: torch.Tensor, config,
         check_tron(cfg, reg, loss)
         return tron_lanes(value_and_grad, hessian_vector_at, x0,
                           max_iterations=cfg.max_iterations,
-                          tolerance=cfg.tolerance,
-                          max_cg_iterations=cfg.max_cg_iterations)
+                          tolerance=tolerance,
+                          max_cg_iterations=cfg.max_cg_iterations,
+                          iteration_cap=cap)
     l1_w, _ = reg.split(reg_weight)
     lower, upper = box_bounds(cfg, x0)
     return lbfgs(value_and_grad, x0, max_iterations=cfg.max_iterations,
-                 tolerance=cfg.tolerance, history=cfg.history,
+                 tolerance=tolerance, history=cfg.history,
                  l1_weight=l1_w if reg.has_l1 else None,
-                 lower=lower, upper=upper)
+                 lower=lower, upper=upper, iteration_cap=cap)

@@ -157,9 +157,14 @@ def solve(
     config: OptimizerConfig = OptimizerConfig(),
     reg: RegularizationContext = RegularizationContext(),
     reg_weight=0.0,
+    budget=None,
 ) -> SolveResult:
     """Run one GLM solve: L2 goes into the smooth objective, L1 to OWLQN's
-    pseudo-gradient machinery; TRON takes L2 or none.  x0 is not written."""
+    pseudo-gradient machinery; TRON takes L2 or none.  x0 is not written.
+
+    `budget` (optim/schedule.py SolveBudget) caps the iterations and sets
+    the tolerance, rounded to x0's dtype; the config's max_iterations
+    still sizes the histories."""
     cfg = config.resolved()
     if cfg.constraints is not None:
         raise ValueError(
@@ -167,18 +172,23 @@ def solve(
             "config.resolved_constraints(index_map) before solve()")
     l1_w, l2_w = reg.split(reg_weight)
     obj = objective.with_l2(l2_w)
+    tolerance, cap = cfg.tolerance, None
+    if budget is not None:
+        tolerance, cap = budget.tolerance_in(x0.dtype), budget.iteration_cap
 
     if cfg.optimizer == OptimizerType.TRON:
         check_tron(cfg, reg, objective.loss)
         return tron(obj.value_and_gradient, obj.hessian_vector_at, x0,
-                    max_iterations=cfg.max_iterations, tolerance=cfg.tolerance,
+                    max_iterations=cfg.max_iterations, tolerance=tolerance,
                     max_cg_iterations=cfg.max_cg_iterations,
-                    track_coefficients=cfg.track_coefficients)
+                    track_coefficients=cfg.track_coefficients,
+                    iteration_cap=cap)
 
     lower, upper = box_bounds(cfg, x0)
     return lbfgs(obj.value_and_gradient, x0,
-                 max_iterations=cfg.max_iterations, tolerance=cfg.tolerance,
+                 max_iterations=cfg.max_iterations, tolerance=tolerance,
                  history=cfg.history,
                  l1_weight=l1_w if reg.has_l1 else None,
                  lower=lower, upper=upper,
-                 track_coefficients=cfg.track_coefficients)
+                 track_coefficients=cfg.track_coefficients,
+                 iteration_cap=cap)

@@ -107,12 +107,16 @@ def lbfgs(
     lower: Optional[torch.Tensor] = None,
     upper: Optional[torch.Tensor] = None,
     track_coefficients: bool = False,
+    iteration_cap: Optional[int] = None,
 ) -> SolveResult:
     """Minimize f (+ l1*|x|_1 when `l1_weight` is set: OWLQN) from x0.
 
     `value_and_grad` is the smooth part only.  `lower`/`upper` turn on
     per-coordinate box projection; box and L1 are exclusive, as in the
-    reference.  x0 is not written."""
+    reference.  `iteration_cap` (an inexactness budget,
+    optim/schedule.py) stops the loop after min(cap, max_iterations)
+    iterations; `max_iterations` still sizes the histories.  x0 is not
+    written."""
     use_l1 = l1_weight is not None
     use_box = lower is not None or upper is not None
     if use_l1 and use_box:
@@ -146,6 +150,8 @@ def lbfgs(
         return v, g
 
     tolerance = float(tolerance)
+    cap = (max_iterations if iteration_cap is None
+           else min(int(iteration_cap), max_iterations))
     x = project_box(x0)
     f, g = full_value(x)
     gnorm = float(torch.linalg.norm(steer_grad(x, g)))
@@ -164,7 +170,7 @@ def lbfgs(
     reason = ConvergenceReason.NOT_CONVERGED
     k = 0
 
-    while k < max_iterations and reason == ConvergenceReason.NOT_CONVERGED:
+    while k < cap and reason == ConvergenceReason.NOT_CONVERGED:
         steer = steer_grad(x, g)
         p = -_two_loop(steer, s_buf, y_buf, rho, num_pairs, m)
         if use_l1:
@@ -260,8 +266,10 @@ def lbfgs(
 
 def owlqn(value_and_grad: ValueAndGrad, x0: torch.Tensor, *, l1_weight,
           max_iterations: int = 100, tolerance: float = 1e-7,
-          history: int = 10) -> SolveResult:
+          history: int = 10,
+          iteration_cap: Optional[int] = None) -> SolveResult:
     """L1/elastic-net solver: the L2 part lives in the smooth objective;
     only L1 comes through here."""
     return lbfgs(value_and_grad, x0, max_iterations=max_iterations,
-                 tolerance=tolerance, history=history, l1_weight=l1_weight)
+                 tolerance=tolerance, history=history, l1_weight=l1_weight,
+                 iteration_cap=iteration_cap)

@@ -21,7 +21,7 @@ CG step (the product itself is the same arithmetic as one
 """
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -105,6 +105,7 @@ def tron_lanes(
     tolerance: float = 1e-5,
     max_cg_iterations: int = 20,
     track_coefficients: bool = False,
+    iteration_cap: Optional[int] = None,
 ) -> SolveResult:
     """E independent TRON solves from x0 [E, d] at once.
 
@@ -113,7 +114,10 @@ def tron_lanes(
     evaluation runs for all lanes (the frozen ones' results are discarded),
     as under vmap.  Returns a SolveResult whose fields have a leading [E]
     axis; `rounds` and `hv_rounds` count the batch's value+gradient and
-    Hessian-vector evaluations.  x0 is not written."""
+    Hessian-vector evaluations.  `iteration_cap` (one for every lane, as
+    the JAX package passes its budget unmapped) stops the loop after
+    min(cap, max_iterations) steps; `max_iterations` still sizes the
+    histories.  x0 is not written."""
     E, d = x0.shape
     dtype, device = x0.dtype, x0.device
     tolerance = float(tolerance)
@@ -146,7 +150,9 @@ def tron_lanes(
     active = reason == _NOT_CONVERGED
 
     # every active lane has taken exactly `step` iterations
-    for step in range(max_iterations):
+    cap = (max_iterations if iteration_cap is None
+           else min(int(iteration_cap), max_iterations))
+    for step in range(cap):
         if not bool(active.any()):
             break
         s, shs, hit, cg_n, cg_rounds = _truncated_cg(
@@ -205,6 +211,7 @@ def tron(
     tolerance: float = 1e-5,
     max_cg_iterations: int = 20,
     track_coefficients: bool = False,
+    iteration_cap: Optional[int] = None,
 ) -> SolveResult:
     """Minimize a twice-differentiable objective from x0 [d].
 
@@ -223,7 +230,8 @@ def tron(
     r = tron_lanes(lane_value_and_grad, lane_hessian_vector_at, x0[None],
                    max_iterations=max_iterations, tolerance=tolerance,
                    max_cg_iterations=max_cg_iterations,
-                   track_coefficients=track_coefficients)
+                   track_coefficients=track_coefficients,
+                   iteration_cap=iteration_cap)
     return SolveResult(
         x=r.x[0], value=r.value[0], gradient_norm=r.gradient_norm[0],
         iterations=int(r.iterations[0]), reason=int(r.reason[0]),

@@ -117,11 +117,13 @@ def refit_latent_projection(
     reg: RegularizationContext = RegularizationContext(),
     reg_weight: float = 0.0,
     row_weights: Optional[torch.Tensor] = None,
+    budget=None,
 ) -> Tuple[torch.Tensor, SolveResult]:
     """One projection-matrix refit: the blocks flattened to rows, flatten(P)
     the coefficient vector of a GLM over the implicit kron(c_e, x) design,
     warm-started from the current P.  `row_weights` multiply the rows'
-    weights (the latent down-sampling).  reference:
+    weights (the latent down-sampling); `budget` (optim/schedule.py
+    SolveBudget) caps the solve.  reference:
     FactoredRandomEffectCoordinate.updateLatentProjectionMatrix."""
     if mesh is not None:
         raise NotImplementedError(_NO_MESH)
@@ -136,7 +138,7 @@ def refit_latent_projection(
     design = KroneckerDesign(blocks.x.reshape(n, d), factors)
     obj = GLMObjective(loss, design, blocks.labels.reshape(n), weights=weights,
                        offsets=offsets, mask=blocks.mask.reshape(n))
-    res = solve(obj, projection.reshape(-1), config, reg, reg_weight)
+    res = solve(obj, projection.reshape(-1), config, reg, reg_weight, budget=budget)
     return res.x.reshape(k, d), res
 
 
@@ -155,12 +157,16 @@ def fit_factored_random_effects(
     latent_reg: RegularizationContext = RegularizationContext(),
     latent_reg_weight: float = 0.0,
     latent_row_weights_fn: Optional[Callable[[int], Optional[torch.Tensor]]] = None,
+    re_budget=None,
+    latent_budget=None,
 ) -> FactoredSolveResult:
     """The alternation (reference: FactoredRandomEffectCoordinate
     .updateModel): `num_inner_iterations` rounds of the per-entity latent
     solve, then the projection refit.  `latent_row_weights_fn(iteration)`
     supplies the refit's per-row sampling weights (a fresh draw per inner
-    iteration, as runWithSampling)."""
+    iteration, as runWithSampling).  `re_budget`/`latent_budget`
+    (optim/schedule.py SolveBudget) cap every round's latent-space and
+    projection solves."""
     if mesh is not None:
         raise NotImplementedError(_NO_MESH)
     C, P = latent_coefficients, projection
@@ -170,12 +176,13 @@ def fit_factored_random_effects(
         t0 = time.perf_counter()
         re_res = fit_random_effects(project_blocks(blocks, P), loss, None, x0=C,
                                     config=re_config, reg=re_reg,
-                                    reg_weight=re_reg_weight)
+                                    reg_weight=re_reg_weight, budget=re_budget)
         C = re_res.x
         t1 = time.perf_counter()
         rw = latent_row_weights_fn(it) if latent_row_weights_fn else None
         P, lat_res = refit_latent_projection(blocks, C, P, loss, None, latent_config,
-                                             latent_reg, latent_reg_weight, row_weights=rw)
+                                             latent_reg, latent_reg_weight, row_weights=rw,
+                                             budget=latent_budget)
         inner.append({"re_rounds": re_res.rounds,
                       "re_max_iterations": int(re_res.iterations.max()),
                       "re_total_iterations": int(re_res.iterations.sum()),

@@ -33,12 +33,13 @@ def fit_fixed_effect(
     config: OptimizerConfig = OptimizerConfig(),
     reg: RegularizationContext = RegularizationContext(),
     reg_weight: float = 0.0,
+    budget=None,
 ) -> SolveResult:
-    """One fixed-effect solve on the objective's device.  x0 is not
-    written."""
+    """One fixed-effect solve on the objective's device; `budget`
+    (optim/schedule.py SolveBudget) caps it.  x0 is not written."""
     if mesh is not None:
         raise NotImplementedError(_NO_MESH)
-    return solve(objective, x0, config, reg, reg_weight)
+    return solve(objective, x0, config, reg, reg_weight, budget=budget)
 
 
 def score_fixed_effect(model: GeneralizedLinearModel, x: fops.FeatureMatrix,

@@ -123,10 +123,12 @@ def fit_random_effects(
     config: OptimizerConfig = OptimizerConfig(),
     reg: RegularizationContext = RegularizationContext(),
     reg_weight: float = 0.0,
+    budget=None,
 ) -> SolveResult:
     """All per-entity solves of one block as one batched solve.  Returns a
     SolveResult whose fields have a leading [E] axis (x: [E, d], value:
-    [E], ...).  One lambda is shared by every entity.  x0 is not written."""
+    [E], ...).  One lambda and one `budget` (optim/schedule.py
+    SolveBudget) are shared by every entity.  x0 is not written."""
     if mesh is not None:
         raise NotImplementedError(
             "random effects on a mesh are not ported yet (ROADMAP.md queue "
@@ -138,7 +140,8 @@ def fit_random_effects(
     return batched.solve(
         lambda c: batched_value_and_gradient(loss, blocks, c, l2_w),
         x0, config, reg, reg_weight, loss=loss,
-        hessian_vector_at=lambda c: batched_hessian_vector_at(loss, blocks, c, l2_w))
+        hessian_vector_at=lambda c: batched_hessian_vector_at(loss, blocks, c, l2_w),
+        budget=budget)
 
 
 def scatter_local_to_global(coefficients: torch.Tensor, projection,

@@ -3,15 +3,15 @@ model-persistence and command-line parity tests, run in a subprocess of
 its own.
 
     python tests/port/game_jax_side.py \
-        tron|solver|estimator|sparse|factored|samplers|prng|model_io|cli OUT.npz
+        tron|solver|estimator|sparse|factored|samplers|prng|model_io|cli|containment OUT.npz
 
 The parity tests (test_torch_tron.py, test_torch_game_solver.py,
 test_torch_game_estimator.py, test_torch_sparse_training.py,
 test_torch_factored.py, test_torch_samplers.py, test_torch_prng.py,
-test_torch_model_io.py, test_torch_cli.py) start this once per test
-module, with JAX on the CPU in float64, and read its results from OUT.npz
-(model_io and cli also read and write model directories and CLI outputs
-beside OUT.npz).  Compiling the JAX package's TRON, batched solver, GAME and
+test_torch_model_io.py, test_torch_cli.py, test_torch_containment.py)
+start this once per test module, with JAX on the CPU in float64, and read
+its results from OUT.npz (model_io, cli and containment also read and
+write model directories, checkpoints and CLI outputs beside OUT.npz).  Compiling the JAX package's TRON, batched solver, GAME and
 sparse training programs in a process of their own keeps their XLA compile
 state out of the test process.  The problem
 functions below are numpy only, so the tests import them to make the same
@@ -897,6 +897,203 @@ def _run_cli(out: dict, root: Path) -> None:
         out[f"{name}/json"] = np.asarray(buf.getvalue().strip().splitlines()[-1])
 
 
+# containment: solver schedules, iteration caps, the quarantine and
+# checkpoints, on tests/test_faults.py's _glmix shape (900 rows, 30 users,
+# d = 8 and 4), split 90/10, LBFGS(15) with L2 lambda 1
+CONT_ROWS, CONT_USERS, CONT_SEED, CONT_ITERATIONS = 900, 30, 7, 15
+CONT_SCHEDULE = {"initial_iterations": 3, "iteration_growth": 2.0,
+                 "initial_tolerance_factor": 1000.0, "tolerance_decay": 0.1}
+# single solves under a cap: (optimizer options, regularization); batched
+# lanes under a cap: SOLVER_CASES entries
+CAPS = (3, 0)
+CAP_SINGLE = {"lbfgs": ({"max_iterations": 60, "tolerance": 1e-9}, "l2"),
+              "owlqn": ({"max_iterations": 60, "tolerance": 1e-9}, "l1"),
+              "tron": ({"optimizer": "tron", "max_iterations": 15, "tolerance": 1e-9}, "l2")}
+CAP_BATCHED = ("logistic_l2", "logistic_elastic_net", "logistic_l2_tron", "logistic_l2_box")
+POISON_PLAN = {"seed": 0, "faults": [{"site": "solve.poison", "action": "poison",
+                                      "hits": [2], "match": {"coordinate": "perUser"}}]}
+FREEZE_PLAN = {"seed": 0, "faults": [{"site": "solve.poison", "action": "poison",
+                                      "hits": [2, 3, 4, 5],
+                                      "match": {"coordinate": "perUser"}}]}
+
+
+def cap_problem(seed: int = 4) -> dict:
+    """A [300 x 8] logistic problem with an intercept column."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(300, 8))
+    x[:, -1] = 1.0
+    z = x @ rng.normal(size=8)
+    y = (rng.uniform(size=300) < 1.0 / (1.0 + np.exp(-z))).astype(np.float64)
+    return {"x": x, "y": y}
+
+
+def containment_glmix(build_game_dataset):
+    """(train, validation) of the containment shape in float64; pass either
+    package's build_game_dataset."""
+    rng = np.random.default_rng(CONT_SEED)
+    n = CONT_ROWS
+    xg = rng.normal(size=(n, 8))
+    xg[:, -1] = 1.0
+    xu = rng.normal(size=(n, 4))
+    xu[:, -1] = 1.0
+    users = np.arange(n) % CONT_USERS
+    z = xg @ rng.normal(size=8)
+    y = (rng.uniform(size=n) < 1 / (1 + np.exp(-z))).astype(np.float64)
+    ds = build_game_dataset(y, {"g": xg, "u": xu},
+                            entity_ids={"userId": np.asarray([f"u{i:04d}" for i in users])})
+    val_mask = np.random.default_rng(CONT_SEED + 99).uniform(size=n) < 0.1
+    return ds.subset(np.flatnonzero(~val_mask)), ds.subset(np.flatnonzero(val_mask))
+
+
+def containment_config_dict(outer: int = 3, schedule=None, factored: bool = False) -> dict:
+    """A fixed effect on "g" and a per-user random effect on "u"
+    (identity projector), with `factored` a per-user factored coordinate
+    (latent dim 2) after them; `schedule` the training-level
+    SolverSchedule JSON."""
+    opt = glmix_config_dict()["coordinates"]["fixed"]["optimization"]
+    opt = dict(opt, optimizer=dict(opt["optimizer"], max_iterations=CONT_ITERATIONS))
+    coords = {"fixed": {"kind": "fixed_effect", "feature_shard": "g",
+                        "normalization": "none", "shard_features": None,
+                        "memory_mode": None, "chunk_rows": None,
+                        "solver_schedule": None, "optimization": opt},
+              "perUser": {"kind": "random_effect", "random_effect_type": "userId",
+                          "feature_shard": "u", "active_data_upper_bound": None,
+                          "passive_data_lower_bound": None,
+                          "features_to_samples_ratio": None, "projector": "identity",
+                          "solver_schedule": None, "optimization": opt}}
+    seq = ["fixed", "perUser"]
+    if factored:
+        coords["perUserMF"] = {"kind": "factored_random_effect",
+                               "random_effect_type": "userId", "feature_shard": "u",
+                               "latent_dim": 2, "num_inner_iterations": 1,
+                               "active_data_upper_bound": None,
+                               "passive_data_lower_bound": None, "solver_schedule": None,
+                               "optimization": opt, "latent_optimization": opt}
+        seq.append("perUserMF")
+    return {"task_type": "logistic_regression", "coordinates": coords,
+            "updating_sequence": seq, "num_outer_iterations": outer, "seed": CONT_SEED,
+            "hbm_budget_bytes": None, "solver_schedule": schedule}
+
+
+# name -> (config, timing mode, fault plan) of each containment fit, run
+# with validation AUC
+CONTAINMENT_FITS = {
+    "straight": (lambda: containment_config_dict(3), "pipelined", None),
+    "scheduled": (lambda: containment_config_dict(4, CONT_SCHEDULE), "pipelined", None),
+    "scheduled_strict": (lambda: containment_config_dict(4, CONT_SCHEDULE), "strict", None),
+    "scheduled_factored": (lambda: containment_config_dict(3, CONT_SCHEDULE, True),
+                           "pipelined", None),
+    "poison_pipelined": (lambda: containment_config_dict(4), "pipelined", POISON_PLAN),
+    "poison_strict": (lambda: containment_config_dict(4), "strict", POISON_PLAN),
+    "freeze": (lambda: containment_config_dict(5), "pipelined", FREEZE_PLAN),
+}
+
+
+def containment_cli_runs(root: Path) -> list:
+    """(name, argv, fault plan) of the checkpointed CLI runs over the
+    files under `root`: a 2-iteration fit with a poisoned perUser solve,
+    then the same command at 3 iterations resuming from its checkpoint.
+    Each package adds its own output paths and device flags."""
+    d = lambda *p: str(root.joinpath(*p))
+    common = ["--train-data", d("cont_train.npz"), "--validation-data", d("cont_val.npz"),
+              "--evaluators", "AUC", "--mesh", "none", "--no-compile-cache", "--x64"]
+    return [("poisoned", common + ["--config", d("cont_config2.json")], POISON_PLAN),
+            ("resumed", common + ["--config", d("cont_config3.json")], None)]
+
+
+def containment_cli_argv(argv: list, plan, out: Path) -> list:
+    """A CLI run's argv with its outputs under `out` (the package's own)."""
+    extra = ["--output-dir", str(out / "cli"), "--checkpoint-dir", str(out / "cli_ckpt")]
+    if plan is not None:
+        import json
+        extra += ["--fault-plan", json.dumps(plan)]
+    return argv + extra
+
+
+def _run_containment(out: dict, root: Path) -> None:
+    """Capped solves, the containment fits, a 1-iteration checkpoint
+    (root/jax_ckpt) and a resume from the port's (root/port_ckpt), and the
+    checkpointed CLI runs (outputs under root/jax_out)."""
+    import contextlib
+    import io
+    import json
+    import jax.numpy as jnp
+    from photon_ml_tpu.cli import train as train_cli
+    from photon_ml_tpu.data.game_data import build_game_dataset
+    from photon_ml_tpu.game import GameEstimator, GameTrainingConfig
+    from photon_ml_tpu.ops.losses import BY_NAME
+    from photon_ml_tpu.ops.objective import GLMObjective
+    from photon_ml_tpu.optim import (OptimizerConfig, OptimizerType,
+                                     RegularizationContext, RegularizationType,
+                                     SolveBudget, solve)
+    from photon_ml_tpu.parallel.random_effect import _cached_batched_solver
+    from photon_ml_tpu.utils import faults
+    p = cap_problem()
+    obj = GLMObjective(BY_NAME["logistic"], jnp.asarray(p["x"]), jnp.asarray(p["y"]))
+    for kind, (opt, reg) in CAP_SINGLE.items():
+        opt = dict(opt, optimizer=OptimizerType(opt.get("optimizer", "lbfgs")))
+        for cap in CAPS:
+            res = solve(obj, jnp.zeros(p["x"].shape[1]), OptimizerConfig(**opt),
+                        RegularizationContext(RegularizationType(reg)), 1.0,
+                        budget=SolveBudget.make(cap, opt["tolerance"]))
+            _store(out, f"caps/{kind}/{cap}", res)
+    for case in CAP_BATCHED:
+        loss, reg, alpha, lam, _, opt = SOLVER_CASES[case]
+        q = solver_problem(case)
+        opt = dict(opt)
+        if "optimizer" in opt:
+            opt["optimizer"] = OptimizerType(opt["optimizer"])
+        cfg = OptimizerConfig(**{"max_iterations": SOLVER_MAX_ITERATIONS,
+                                 "tolerance": SOLVER_TOLERANCE, **opt})
+        solver = _cached_batched_solver(BY_NAME[loss], cfg,
+                                        RegularizationContext(RegularizationType(reg), alpha),
+                                        True, True)
+        for cap in CAPS:
+            res = solver(*(jnp.asarray(q[k]) for k in
+                           ("x", "labels", "mask", "weights", "offsets", "x0")),
+                         jnp.asarray(lam), SolveBudget.make(cap, cfg.resolved().tolerance))
+            _store(out, f"caps/{case}/{cap}", res)
+
+    train, val = containment_glmix(build_game_dataset)
+    for name, (make, mode, plan) in CONTAINMENT_FITS.items():
+        est = GameEstimator(GameTrainingConfig.from_dict(make()))
+        if plan is None:
+            res = est.fit(train, val, ["AUC"], timing_mode=mode)
+        else:
+            with faults.injected(faults.FaultPlan.from_dict(plan)):
+                res = est.fit(train, val, ["AUC"], timing_mode=mode)
+        _store_containment(out, name, res)
+    GameEstimator(GameTrainingConfig.from_dict(containment_config_dict(1))).fit(
+        train, val, ["AUC"], checkpoint_dir=str(root / "jax_ckpt"))
+    res = GameEstimator(GameTrainingConfig.from_dict(containment_config_dict(3))).fit(
+        train, val, ["AUC"], checkpoint_dir=str(root / "port_ckpt"))
+    _store_containment(out, "resumed_from_port", res)
+    out["resumed_from_port/recovery"] = np.asarray(json.dumps(res.checkpoint_recovery))
+
+    for name, argv, plan in containment_cli_runs(root):
+        faults.install_plan(None)
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = train_cli.main(containment_cli_argv(argv, plan, root / "jax_out"))
+        out[f"cli/{name}/rc"] = np.asarray(rc)
+        out[f"cli/{name}/json"] = np.asarray(buf.getvalue().strip().splitlines()[-1])
+    faults.install_plan(None)
+
+
+def _store_containment(out: dict, key: str, res) -> None:
+    """A containment fit's objective and AUC histories, per-coordinate
+    iteration caps and containment counts, and its events (JSON)."""
+    import json
+    out[f"{key}/objective_history"] = np.asarray(res.objective_history)
+    out[f"{key}/auc_history"] = np.asarray(res.descent.validation_history["AUC"])
+    diag = res.descent.solver_diagnostics()
+    out[f"{key}/diagnostics"] = np.asarray(json.dumps(
+        {c: {"iteration_caps": d["iteration_caps"], "containment": d["containment"],
+             "iterations": d["iterations"]} for c, d in diag.items()}))
+    out[f"{key}/events"] = np.asarray(json.dumps(res.descent.containment_events))
+    out[f"{key}/frozen"] = np.asarray(json.dumps(res.descent.frozen_coordinates))
+
+
 def run_jax_side(what: str, out: Path) -> dict:
     """Run this script for `what` in a fresh process; its results."""
     env = dict(os.environ, PYTHONPATH=str(ROOT), JAX_PLATFORMS="cpu")
@@ -919,6 +1116,8 @@ def main(argv) -> int:
         _run_model_io(out, Path(path).parent)
     elif what == "cli":
         _run_cli(out, Path(path).parent)
+    elif what == "containment":
+        _run_containment(out, Path(path).parent)
     else:
         {"tron": _run_tron, "solver": _run_solver, "estimator": _run_estimator,
          "sparse": _run_sparse, "factored": _run_factored,

@@ -112,8 +112,11 @@ def test_train_summaries_match_jax(runs, name):
     for key in set(jax) - {"ingest_s", "wall_s", "host_blocked_s", "output"}:
         assert key in port, key
     assert port["timing_mode"] == "pipelined"
-    for key in ("containment_events", "hbm_residency", "mesh", "telemetry", "compile_s"):
+    for key in ("hbm_residency", "mesh", "telemetry", "compile_s"):
         assert port[key] is None
+    for key in ("containment_events", "frozen_coordinates", "checkpoint_recovery",
+                "fault_report"):
+        assert port[key] == jax[key], key
 
 
 def _val_dataset(root, name):
@@ -180,8 +183,6 @@ def test_scores_match_jax(runs, name):
 
 UNPORTED = {
     "--tuning": (["--tuning", "random"], 17),
-    "--checkpoint-dir": (["--checkpoint-dir", "ck"], 14),
-    "--fault-plan": (["--fault-plan", "{}"], 14),
     "--hbm-budget": (["--hbm-budget", "8GB"], 15),
     "--event-listener": (["--event-listener", "a.B"], 19),
     "--trace-out": (["--trace-out", "t.json"], 19),

@@ -833,3 +833,75 @@ def test_load_game_model_lands_on_the_card(cuda, tmp_path, fmt):
     torch.testing.assert_close(on_card.coordinates["perUser"].coefficients.cpu(),
                                on_host.coordinates["perUser"].coefficients.float(),
                                rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("name", sorted(TL.BY_NAME))
+def test_nan_coefficients_follow_the_plain_version(cuda, name):
+    """A NaN in c (a poisoned model): the kernel's value and gradient are
+    non-finite exactly where the plain version's are; non-finite for every
+    loss but the smoothed hinge, which maps a NaN margin to 0 in the JAX
+    package's loss, the plain version and the kernel alike."""
+    loss = TL.BY_NAME[name]
+    x, y, c, _, _ = _inputs(700, 37, False, seed=4)
+    c[5] = float("nan")
+    v_k, g_k = hk.fused_value_and_gradient(loss, x, y, c)
+    v_p, g_p = hk.fused_value_and_gradient_plain(loss, x, y, c)
+    assert bool(torch.isfinite(v_k)) == bool(torch.isfinite(v_p))
+    assert torch.equal(torch.isfinite(g_k), torch.isfinite(g_p))
+    assert bool(torch.isfinite(v_k)) == (name == "smoothed_hinge")
+
+
+@pytest.mark.parametrize("kind", ["lbfgs", "owlqn", "tron"])
+def test_capped_solve_on_card_matches_cpu_f64(cuda, kind):
+    """A solve under a cap of 3 iterations on the card in float32 against
+    the CPU in float64: the same iterations, x and the loss history within
+    1e-4, one kernel launch per pass."""
+    import game_jax_side as side
+    from photon_ml_tpu_torch.ops.objective import GLMObjective
+    from photon_ml_tpu_torch.optim.config import (
+        OptimizerConfig, OptimizerType, RegularizationContext, RegularizationType, solve)
+    from photon_ml_tpu_torch.optim.schedule import SolveBudget
+    p = side.cap_problem()
+    opt, reg = side.CAP_SINGLE[kind]
+    opt = dict(opt, optimizer=OptimizerType(opt.get("optimizer", "lbfgs")))
+    out = {}
+    for dev, dt in (("cpu", torch.float64), ("cuda", torch.float32)):
+        obj = GLMObjective(TL.BY_NAME["logistic"],
+                           torch.from_numpy(p["x"]).to(device=dev, dtype=dt),
+                           torch.from_numpy(p["y"]).to(device=dev, dtype=dt))
+        before = hk.LAUNCHES
+        out[dev] = solve(obj, torch.zeros(p["x"].shape[1], device=dev, dtype=dt),
+                         OptimizerConfig(**opt), RegularizationContext(RegularizationType(reg)),
+                         1.0, budget=SolveBudget.make(3, opt["tolerance"]))
+        launches = hk.LAUNCHES - before
+    c, g = out["cpu"], out["cuda"]
+    assert g.iterations == c.iterations == 3
+    passes = g.fg_count if g.fg_count is not None else g.iterations + 1
+    assert launches == passes
+    np.testing.assert_allclose(g.x.double().cpu().numpy(), c.x.numpy(), rtol=0, atol=1e-4)
+    k = c.iterations + 1
+    np.testing.assert_allclose(g.loss_history[:k].double().cpu().numpy(),
+                               c.loss_history[:k].numpy(), rtol=1e-4)
+
+
+def test_scheduled_glmix_fit_on_card_matches_cpu_f64(cuda):
+    """A scheduled GameEstimator.fit (config 4's coordinates at 3,000 rows,
+    SolverSchedule(initial_iterations=3), three outer iterations) on the
+    card in float32 against the CPU in float64: the same caps, the
+    objective history within rtol 1e-4, fixed-effect launches equal to the
+    fixed-effect passes."""
+    import dataclasses
+    from photon_ml_tpu_torch.game import GameEstimator
+    from photon_ml_tpu_torch.optim.schedule import SolverSchedule
+    train, val, cfg = _movielens(3000)
+    cfg = dataclasses.replace(cfg, num_outer_iterations=3,
+                              solver_schedule=SolverSchedule(initial_iterations=3))
+    cpu = GameEstimator(cfg, device="cpu", dtype=torch.float64).fit(train, val, ["AUC"])
+    before = hk.LAUNCHES
+    card = GameEstimator(cfg).fit(train, val, ["AUC"])
+    passes = sum(t.fg_count for k, t in card.descent.trackers.items()
+                 if k.endswith("/fixed"))
+    assert hk.LAUNCHES - before == passes > 0
+    caps = lambda r: {c: d["iteration_caps"] for c, d in r.descent.solver_diagnostics().items()}
+    assert caps(card) == caps(cpu) == {"fixed": [3, 6, 100], "perUser": [3, 6, 100]}
+    np.testing.assert_allclose(card.objective_history, cpu.objective_history, rtol=1e-4)

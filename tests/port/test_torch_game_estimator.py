@@ -15,6 +15,7 @@ pipelined fit equals its strict fit bit for bit and the JAX package's
 pipelined histories to rtol 1e-12."""
 import dataclasses
 import json
+import os
 
 import numpy as np
 import pytest
@@ -35,6 +36,7 @@ from photon_ml_tpu_torch.game.coordinates import RandomEffectCoordinate
 from photon_ml_tpu_torch.optim.config import (
     OptimizerConfig, OptimizerType, RegularizationContext, RegularizationType,
 )
+from photon_ml_tpu_torch.optim.schedule import SolverSchedule
 
 
 @pytest.fixture(scope="module")
@@ -279,7 +281,6 @@ UNPORTED = {
                "box constraints are an LBFGS feature"),
     "fe_streamed": (dict(fe=dict(memory_mode="streamed")), "item 15"),
     "fe_shard_features": (dict(fe=dict(shard_features=True)), "item 20"),
-    "solver_schedule": (dict(fe=dict(solver_schedule={"kind": "geometric"})), "item 16"),
 }
 
 
@@ -307,6 +308,7 @@ PORTED = {
     "factored": dict(mf=FactoredRandomEffectCoordinateConfig(
         "userId", "per_user", latent_dim=2,
         optimization=_opt(max_iterations=10), latent_optimization=_opt(max_iterations=10))),
+    "solver_schedule": dict(fe=dict(solver_schedule=SolverSchedule(initial_iterations=2))),
 }
 
 
@@ -330,22 +332,36 @@ def test_formerly_unported_options_now_fit(data, config, case):
     assert 0.5 < fit.validation["AUC"] < 1.0
 
 
-@pytest.mark.parametrize("what", ["checkpoint_dir", "hbm_budget", "config_schedule",
-                                  "admm_json"])
+@pytest.mark.parametrize("what", ["hbm_budget", "admm_json"])
 def test_unported_fit_modes_raise(data, config, what, tmp_path):
     train, val = data
     with pytest.raises(NotImplementedError):
-        if what == "checkpoint_dir":
-            GameEstimator(config, device="cpu").fit(train, val,
-                                                    checkpoint_dir=str(tmp_path))
-        elif what == "hbm_budget":
+        if what == "hbm_budget":
             GameEstimator(dataclasses.replace(config, hbm_budget_bytes=1 << 30), device="cpu")
-        elif what == "config_schedule":
-            GameEstimator(dataclasses.replace(config, solver_schedule={}), device="cpu")
         else:
             d = side.glmix_config_dict()
             d["coordinates"]["fixed"]["optimization"]["admm"] = {"rho": 1.0}
             GameTrainingConfig.from_dict(d)
+
+
+@pytest.mark.parametrize("what", ["checkpoint_dir", "config_schedule"])
+def test_formerly_unported_fit_modes_now_run(data, config, what, tmp_path):
+    """Fit modes that raised naming their item until it was ported (their
+    parity with the JAX package: test_torch_containment.py)."""
+    train, val = data
+    cfg = dataclasses.replace(config, num_outer_iterations=1)
+    kw = {}
+    if what == "checkpoint_dir":
+        kw["checkpoint_dir"] = str(tmp_path / "ckpt")
+    else:
+        cfg = dataclasses.replace(cfg, solver_schedule=SolverSchedule())
+    fit = GameEstimator(cfg, device="cpu", dtype=torch.float64).fit(train, val, ["AUC"], **kw)
+    assert np.all(np.isfinite(fit.objective_history))
+    if what == "checkpoint_dir":
+        assert os.path.exists(tmp_path / "ckpt" / "state.json")
+    else:
+        # one outer iteration is the final one: the full budget
+        assert fit.descent.solver_diagnostics()["fixed"]["iteration_caps"] == [100]
 
 
 def test_default_device_is_cuda(config):

@@ -34,6 +34,8 @@ REQUIRED = ("photon_ml_tpu_torch.ops.features", "photon_ml_tpu_torch.ops.sparse_
             "photon_ml_tpu_torch.data.validators", "photon_ml_tpu_torch.models.validators",
             "photon_ml_tpu_torch.models.io", "photon_ml_tpu_torch.cli.index",
             "photon_ml_tpu_torch.cli.train", "photon_ml_tpu_torch.cli.score",
+            "photon_ml_tpu_torch.optim.schedule", "photon_ml_tpu_torch.utils.faults",
+            "photon_ml_tpu_torch.game.quarantine", "photon_ml_tpu_torch.game.coordinate_descent",
             "chip_smoke")
 
 
