@@ -198,8 +198,29 @@ Phases, one JSON object per line on stdout:
      a finite history, final objective within 1e-4 of A's); a run given
      the plan's own SIGTERM at its second checkpoint write (exit 75 and its
      JSON line) and its rerun (within 1e-6 of A's final objective);
- 23. the kernels line (launches by path, the CLI and inexact paths
-     included), nvidia-smi's line, and the final result line.
+ 23. out of core (run after the profile of step 6, on config 1's data):
+     stream_checks, the fused kernel with a row mask (about 30 % zeros and
+     a masked row whose loss is infinite), with the normalization shift
+     and with both, for the four losses at [131,072 x 124] and [131,072 x
+     33] (the streamed chunk at config 1's and config 5 FE's widths), and
+     the masked call timed at [131,072 x 124]; stream_glm, config 1 through
+     ChunkedGLMObjective under a budget of a quarter of its bytes
+     (13 chunks of 131,072 rows), strict solve_streamed and the stochastic
+     lane (3 passes of 8 local epochs) + the strict polish, each within
+     1e-5 of the REF_KEY optimum, launches = chunks x passes (none in the
+     stochastic passes), peak allocated <= 2 chunks + solver state + 1 MiB;
+     records the staging GB/s beside a pinned copy_, the route, the idle
+     share of a pass and _local_epochs' ms and launches per chunk;
+ 24. stream (after faults): bench.py's three --stream entries at full
+     shape, resident against streamed under half the resident footprint,
+     histories within 1e-5, data over budget and the peak under it;
+     stoch: bench.py's stoch_out_of_core (examples per staged byte >= 1.5x
+     the strict solve's) and stoch_game_glmix; cli_stream: two cli.train
+     --hbm-budget children on the balanced entry's data, one with a
+     transient stage.transfer fault at chunk 2 (its fit bit-equal, the
+     other's within 1e-6 of the in-process fit);
+ 25. the kernels line (launches by path, the CLI, inexact and streamed
+     paths included), nvidia-smi's line, and the final result line.
 Exits non-zero, before printing any result, when CUDA is absent or when
 the port's package is not beside this script.
 """
@@ -285,7 +306,9 @@ SPARSE_DESIGN = {
 DESIGN = ("persistent grid (one block per SM, ~48 KB row tiles dealt out in turn); "
           "ring of cp.async.bulk (TMA) stages with full/empty mbarriers fed by "
           "one producer thread; margins and gradient from shared memory, "
-          "gradient in registers; one launch per pass (ticketed last-block sum)")
+          "gradient in registers; one launch per pass (ticketed last-block sum); "
+          "a row mask and the normalization shift; every running sum "
+          "compensated (Kahan)")
 
 
 def emit(obj) -> None:
@@ -335,22 +358,44 @@ def cuda_ms(fn) -> float:
     return start.elapsed_time(end)
 
 
-def compare(hk, loss, x, y, c, w, o):
-    """Kernel vs plain on the same inputs -> (ok, max abs err, value's
-    relative error, largest gradient error over its tolerance)."""
+def shifted_gradient_scale(loss, x, y, c, w, o, m, s):
+    """Per column, the magnitudes a shifted gradient subtracts,
+    sum_i |x_ij u_i| + |s_j| sum_i |u_i| (u = the rows' kept w l'), in
+    float64: with standardization's shifts (column means) the two terms
+    cancel, and the gradient's f32 error scales with them, not with it."""
     import torch
-    v_k, g_k = hk.fused_value_and_gradient(loss, x, y, c, w, o)
-    v_p, g_p = hk.fused_value_and_gradient_plain(loss, x, y, c, w, o)
+    xs = x.double()
+    z = xs @ c.double() - torch.dot(c.double(), s.double())
+    if o is not None:
+        z = z + o.double()
+    _, dl = loss.loss_and_dz(z, y.double())
+    u = dl if w is None else dl * w.double()
+    if m is not None:
+        u = torch.where(m != 0, u, torch.zeros_like(u))
+    return (xs.abs().T @ u.abs() + s.double().abs() * u.abs().sum()).cpu().numpy()
+
+
+def compare(hk, loss, x, y, c, w, o, m=None, s=None):
+    """Kernel vs plain on the same inputs (`m` a row mask, `s` the
+    normalization shifts) -> (ok, max abs err, value's relative error,
+    largest gradient error over its tolerance).  The gradient's tolerance
+    is GRAD_ATOL + GRAD_RTOL |g| (with shifts, GRAD_RTOL times
+    shifted_gradient_scale)."""
+    import torch
+    v_k, g_k = hk.fused_value_and_gradient(loss, x, y, c, w, o, m, s)
+    v_p, g_p = hk.fused_value_and_gradient_plain(loss, x, y, c, w, o, m, s)
     torch.cuda.synchronize()
     v_k, v_p = v_k.item(), v_p.item()
     g_k, g_p = g_k.double().cpu().numpy(), g_p.double().cpu().numpy()
     v_err = abs(v_k - v_p)
     g_err = np.abs(g_k - g_p)
+    scale = (np.abs(g_p) if s is None
+             else shifted_gradient_scale(loss, x, y, c, w, o, m, s))
+    tol = GRAD_ATOL + GRAD_RTOL * scale
     ok = (np.isfinite(v_k) and np.all(np.isfinite(g_k))
-          and v_err <= VALUE_RTOL * abs(v_p)
-          and bool(np.all(g_err <= GRAD_ATOL + GRAD_RTOL * np.abs(g_p))))
+          and v_err <= VALUE_RTOL * abs(v_p) and bool(np.all(g_err <= tol)))
     return ok, max(v_err, float(g_err.max())), v_err / max(abs(v_p), 1e-30), \
-        float((g_err / (GRAD_ATOL + GRAD_RTOL * np.abs(g_p))).max())
+        float((g_err / tol).max())
 
 
 def wide(d: int) -> bool:
@@ -404,23 +449,26 @@ def run_checks(hk, losses, x_full, y_full, x_wide, y_wide, seed=0):
     return full_err
 
 
-def time_full(hk, loss, x, y, o=None):
+def time_full(hk, loss, x, y, o=None, w=None, m=None, s=None):
     """Median over REPS reps of the mean ms per call of the kernel, its
     plain version and the library call, in turns.  A rep is `batch` calls
     back to back between two CUDA events, behind a sleep kernel (so the
     host's enqueue time does not count), each call with its own perturbed
-    coefficients.  `o`: the offsets, passed to all three."""
+    coefficients.  `o`, `w`, `m`, `s`: offsets, weights, row mask and
+    shifts, passed to the kernel and its plain version (the library call
+    takes the offsets and, with a mask, one torch.where)."""
     import torch
     n, d = x.shape
     base = torch.linspace(-0.1, 0.1, d, device="cuda", dtype=torch.float32)
     u = torch.linspace(-1.0, 1.0, n, device="cuda", dtype=torch.float32)
     batch = 10
     times = {"ms": [], "plain_ms": [], "library_ms": []}
+    zero = torch.zeros((), device="cuda")
     calls = {
-        "ms": lambda c: hk.fused_value_and_gradient(loss, x, y, c, None, o),
-        "plain_ms": lambda c: hk.fused_value_and_gradient_plain(loss, x, y, c, None, o),
+        "ms": lambda c: hk.fused_value_and_gradient(loss, x, y, c, w, o, m, s),
+        "plain_ms": lambda c: hk.fused_value_and_gradient_plain(loss, x, y, c, w, o, m, s),
         "library_ms": lambda c: (torch.mv(x, c) if o is None else torch.addmv(o, x, c),
-                                 torch.mv(x.T, u)),
+                                 torch.mv(x.T, u if m is None else torch.where(m != 0, u, zero))),
     }
     for r in range(REPS + 2):  # the first two rounds warm up
         cs = [base + 1e-6 * (r * batch + i + 1) for i in range(batch)]
@@ -429,9 +477,11 @@ def time_full(hk, loss, x, y, o=None):
             if r >= 2:
                 times[key].append(ms)
     med = {k: statistics.median(v) for k, v in times.items()}
-    # least the card could take: read X, y (o) and c once, write value+grad
-    # once; 4*n*d flops (margin and gradient multiply-adds) at the f32 peak
-    nbytes = 4 * (n * d + n + d + d + 1 + (0 if o is None else n))
+    # least the card could take: read X, y (o, w, m), c (s) once, write
+    # value+grad once; 4*n*d flops (margin and gradient multiply-adds) at
+    # the f32 peak
+    nbytes = 4 * (n * d + n + d + d + 1 + n * sum(t is not None for t in (o, w, m))
+                  + (0 if s is None else d))
     flops = 4 * n * d
     bound_bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     bound_ops_ms = flops / PEAK_F32_FLOPS * 1e3
@@ -1493,6 +1543,19 @@ def inexact_phase(hk, ref_cache, kind, smi, device="cuda") -> dict:
                                           - legs["strict"]["final_objective"])
            / abs(legs["strict"]["final_objective"]),
            "launches": {leg: st["kernel_launches"] for leg, st in legs.items()}}
+    if device == "cuda":
+        # the fused kernel at the fixed effect's shape, residual-like offsets
+        from photon_ml_tpu_torch.game.coordinates import FixedEffectCoordinate
+        from photon_ml_tpu_torch.ops.losses import LOGISTIC
+        fe = next(c for c in coords.values() if isinstance(c, FixedEffectCoordinate))
+        n_fe = fe.x.shape[0]
+        o = torch.linspace(-0.5, 0.5, n_fe, device=device)
+        c = torch.linspace(-0.1, 0.1, fe.x.shape[1], device=device)
+        ok, err, _, _ = compare(hk, LOGISTIC, fe.x, fe.labels, c, None, o)
+        if not ok:
+            raise SystemExit("inexact: kernel disagrees with its plain version at the FE shape")
+        out["fe_timing"] = {**time_full(hk, LOGISTIC, fe.x, fe.labels, o),
+                            "shape": list(fe.x.shape), "max_abs_err": err}
     emit({"phase": "inexact", "recorded_not_claimed": True, "device": kind,
           "nvidia_smi": smi, **out})
     out["train"], out["config"] = train, cfg
@@ -2119,6 +2182,525 @@ def cli_avro_phase(hk, sk, ref_cache, kind, smi, device="cuda") -> dict:
     return launches
 
 
+# --- out of core: streamed chunks, the stochastic lane, residency ---------
+# the fused kernel with a row mask and the shift at the streamed chunk
+# shape of stream_glm's plan, at config 1's and config 5 FE's widths
+STREAM_CHECK_ROWS = 131_072
+STREAM_WIDTHS = (124, 33)
+# stream_glm: config 1 under a budget of a quarter of its bytes, LBFGS(100,
+# tol 1e-9) with L2 lambda 1 (the REF_KEY problem), strict and
+# StochasticPlan(3 passes, 8 local epochs) + the strict polish
+STREAM_GLM_PLAN = dict(passes=3, local_epochs=8, seed=7)
+STREAM_GLM_DEPTH = 2
+# bench.py --stream's full entries (stream_bench, bench.py:1340-1360):
+# (name, n, d_global, n_users, d_user, outer, solver_iters, seed)
+STREAM_ENTRIES = (("stream_glmix_fe_dominant", 400_000, 96, 20_000, 16, 4, 20, 17),
+                  ("stream_glmix_balanced", 250_000, 64, 25_000, 24, 4, 12, 23),
+                  ("stream_glmix_longtail", 200_000, 64, 50_000, 48, 4, 10, 19))
+STREAM_BUDGET_FRAC, STREAM_PARITY = 0.5, 1e-5
+# bench.py --stoch's out-of-core and GLMix legs (stoch_bench, full mode)
+STOCH_OOC = dict(n=120_000, d=48, passes=3, local_epochs=8, solver_iters=150, seed=7)
+STOCH_GAME = dict(n=60_000, d_global=64, n_users=3_000, d_user=8, outer=4, seed=17)
+STOCH_GAME_SCHEDULE = dict(stochastic_passes=2, stochastic_local_epochs=6)
+STOCH_RATIO_GATE = 1.5
+CLI_STREAM_RTOL = 1e-6
+CLI_STREAM_FAULT = {"seed": 0, "faults": [{"site": "stage.transfer", "action": "transient",
+                                           "hits": [1], "match": {"chunk": 2}}]}
+
+
+def stream_check_inputs(n, d, rng, device="cuda"):
+    """X [n, d], y, c, w, o, a row mask of about 30 % zeros whose row 1 has
+    an infinite offset (a non-finite loss the mask must drop), the same
+    offsets without it, and shifts, float32 on the card."""
+    import torch
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(device)
+    x = t(rng.normal(size=(n, d)))
+    y = t(rng.uniform(size=n) < 0.5)
+    c = t(rng.normal(size=d) * 0.1)
+    w = t(rng.uniform(0.5, 2.0, size=n))
+    o = rng.normal(size=n) * 0.1
+    m = (rng.uniform(size=n) > 0.3).astype(np.float32)
+    m[1] = 0.0
+    o_inf = o.copy()
+    o_inf[1] = np.inf
+    return x, y, c, w, t(o), t(o_inf), t(m), t(rng.normal(size=d) * 0.3)
+
+
+def stream_checks(hk, losses, kind, smi) -> dict:
+    """The fused kernel against its plain version with a row mask, with the
+    normalization shift, and with both, for the four losses at the streamed
+    chunk shape [131,072 x d] for d in STREAM_WIDTHS, under the existing
+    tolerances; then the masked call (with weights, offsets and shifts)
+    timed at [131,072 x 124] beside its byte bound (X and four [n] streams
+    once) and the library's two torch.mv plus one torch.where."""
+    rng = np.random.default_rng(12)
+    failures, max_err = [], 0.0
+    inputs = {}
+    for d in STREAM_WIDTHS:
+        x, y, c, w, o, o_inf, m, s = stream_check_inputs(STREAM_CHECK_ROWS, d, rng)
+        inputs[d] = (x, y, w, o_inf, m, s)
+        for loss in losses:
+            for tag, oo, mm, ss in (("mask", o_inf, m, None), ("shift", o, None, s),
+                                    ("mask+shift", o_inf, m, s)):
+                ok, err, v_rel, g_rel = compare(hk, loss, x, y, c, w, oo, mm, ss)
+                emit({"phase": "stream_check", "shape": [STREAM_CHECK_ROWS, d],
+                      "loss": loss.name, "inputs": f"w+o+{tag}", "ok": ok,
+                      "max_abs_err": err, "value_rel_err": v_rel, "grad_err_over_tol": g_rel})
+                if not ok:
+                    failures.append(f"{d}/{loss.name}/{tag}")
+                if d == 124:
+                    max_err = max(max_err, err)
+    if failures:
+        raise SystemExit(f"stream_checks: kernel disagrees with its plain version: {failures}")
+    x, y, w, o_inf, m, s = inputs[124]
+    from photon_ml_tpu_torch.ops.losses import LOGISTIC
+    timing = time_full(hk, LOGISTIC, x, y, o_inf, w, m, s)
+    timing.update(shape=[STREAM_CHECK_ROWS, 124], inputs="w+o+mask+shift",
+                  max_abs_err=max_err)
+    emit({"phase": "timing", "loss": "logistic", "reps": REPS, "device": kind,
+          "nvidia_smi": smi, **timing})
+    return timing
+
+
+def device_kernels(prof_events) -> list:
+    """The kernels (no memory copies or sets) among a profile's device
+    events."""
+    import torch
+    return [e for e in prof_events if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.key.startswith(("Memcpy", "Memset"))]
+
+
+def stream_glm_phase(hk, x_np, y_np, ref_nll, kind, smi, device="cuda") -> dict:
+    """Config 1 [1,643,520 x 124] f32 through ChunkedGLMObjective under a
+    budget of a quarter of its bytes: strict solve_streamed (LBFGS, L2 1)
+    and the stochastic lane (STREAM_GLM_PLAN) then the strict polish.
+    Fails unless each leg's float64 objective is within 1e-5 of the REF_KEY
+    optimum, the kernel's launches are chunks x value+gradient passes on
+    the strict legs and none in the stochastic passes, and the peak
+    allocated during the strict solve is at most two chunks + the solver
+    state + 1 MiB.  Records the staging rate against a plain pinned copy_
+    of the same bytes, the staging route, the device idle share of one
+    profiled pass, passes and examples per staged byte on both legs, and
+    _local_epochs' device ms and launches per chunk."""
+    import torch
+    from photon_ml_tpu_torch.data.streaming import ChunkPlan
+    from photon_ml_tpu_torch.ops.chunked import ChunkedGLMObjective
+    from photon_ml_tpu_torch.ops.losses import LOGISTIC
+    from photon_ml_tpu_torch.optim.config import (OptimizerConfig, RegularizationContext,
+                                                  RegularizationType)
+    from photon_ml_tpu_torch.optim.schedule import StochasticPlan
+    from photon_ml_tpu_torch.optim.streaming import solve_streamed
+    n, d = x_np.shape
+    data_bytes = x_np.nbytes + 3 * y_np.nbytes
+    budget = data_bytes // 4
+    plan = ChunkPlan.build(n, hbm_budget_bytes=budget, bytes_per_row=(d + 3) * 4)
+    cfg = OptimizerConfig(max_iterations=100, tolerance=1e-9)
+    l2 = RegularizationContext(RegularizationType.L2)
+    objective = lambda: ChunkedGLMObjective(LOGISTIC, x_np, y_np, plan, device=device,
+                                            prefetch_depth=STREAM_GLM_DEPTH)
+    c0 = torch.zeros(d, device=device)
+    t0 = time.perf_counter()
+    objective().value_and_gradient(c0)       # registers the host arrays
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+
+    obj = objective()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    hk.LAUNCHES = 0
+    t0 = time.perf_counter()
+    strict = solve_streamed(obj, c0, cfg, l2, LAMBDA)
+    torch.cuda.synchronize()
+    strict_s = time.perf_counter() - t0
+    strict_launches = hk.LAUNCHES
+    peak = torch.cuda.max_memory_allocated() - base
+    chunk_bytes = plan.chunk_rows * (d + 2) * 4          # x, labels, mask
+    state_bytes = 4 * d * (2 * cfg.history + 16)
+    strict_snap = obj.stats.snapshot()
+    strict_nll = host_objective(x_np, y_np, strict.x.double().cpu().numpy(), LAMBDA)
+
+    # one more pass, timed: the staging rate with the kernel behind it
+    t0 = time.perf_counter()
+    obj.value_and_gradient(strict.x)
+    torch.cuda.synchronize()
+    pass_s = time.perf_counter() - t0
+    pass_bytes = obj.stats.total_bytes - strict_snap["total_bytes"]
+    # a plain pinned copy_ of the same bytes, chunk by chunk, on the card
+    src = torch.empty(plan.chunk_rows * (d + 2), pin_memory=True)
+    dst = torch.empty_like(src, device=device)
+    copy_ms = cuda_ms(lambda: [dst.copy_(src, non_blocking=True)
+                               for _ in range(plan.num_chunks)])
+    _, prof = profile_call(lambda: obj.value_and_gradient(strict.x))
+
+    obj2 = objective()
+    hk.LAUNCHES = 0
+    t0 = time.perf_counter()
+    coarse = solve_streamed(obj2, c0, cfg, l2, LAMBDA,
+                            stochastic=StochasticPlan(**STREAM_GLM_PLAN))
+    torch.cuda.synchronize()
+    coarse_s = time.perf_counter() - t0
+    coarse_launches = hk.LAUNCHES
+    coarse_snap = obj2.stats.snapshot()
+    hk.LAUNCHES = 0
+    t0 = time.perf_counter()
+    polish = solve_streamed(obj2, coarse.x, cfg, l2, LAMBDA)
+    torch.cuda.synchronize()
+    polish_s = time.perf_counter() - t0
+    polish_launches = hk.LAUNCHES
+    stoch_snap = obj2.stats.snapshot()
+    stoch_nll = host_objective(x_np, y_np, polish.x.double().cpu().numpy(), LAMBDA)
+
+    # _local_epochs on the first chunk of a pass: its wall (host clock to
+    # a sync) and, under the profiler, its device time and launches
+    from torch.profiler import ProfilerActivity, profile
+    from photon_ml_tpu_torch.optim.stochastic import _local_epochs, resolve_step_clip
+    from photon_ml_tpu_torch.utils import prng
+    epochs = STREAM_GLM_PLAN["local_epochs"]
+    key = prng.fold_in(prng.fold_in(prng.PRNGKey(STREAM_GLM_PLAN["seed"]), 0), 0)
+    perms = torch.as_tensor(np.stack([prng.permutation(prng.fold_in(key, e), d)
+                                      for e in range(epochs)]), device=device)
+    for spec, ch in objective()._prefetcher.stream(pin_epochs=epochs):
+        local_call = lambda: _local_epochs(
+            coarse.x, ch["x"], ch["labels"], ch["weights"], ch["offsets"], ch["mask"],
+            None, perms, torch.tensor(LAMBDA * spec.rows / n, device=device),
+            resolve_step_clip(LOGISTIC, None), loss=LOGISTIC)
+        local_call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        local_call()
+        torch.cuda.synchronize()
+        local_wall_s = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CUDA]) as sp:
+            local_call()
+            torch.cuda.synchronize()
+        break
+    kernels = device_kernels(sp.key_averages())
+    local = {"launches_per_chunk": sum(e.count for e in kernels),
+             "device_ms_per_chunk": sum(e.self_device_time_total for e in kernels) / 1e3,
+             "wall_ms_per_chunk": local_wall_s * 1e3,
+             "coarse_wall_ms_per_chunk": coarse_s * 1e3 / (STREAM_GLM_PLAN["passes"]
+                                                           * plan.num_chunks),
+             "epochs": epochs, "chunk": [plan.chunk_rows, d]}
+
+    gaps = {"strict": (strict_nll - ref_nll) / abs(ref_nll),
+            "stochastic_polish": (stoch_nll - ref_nll) / abs(ref_nll)}
+    out = {"phase": "stream_glm", "entry": "photon_ml_tpu_torch.optim.streaming.solve_streamed",
+           "config": "BASELINE config 1 through ChunkedGLMObjective, budget = 1/4 of its bytes",
+           "n": n, "d": d, "hbm_budget_bytes": budget, "data_bytes": data_bytes,
+           "chunk_rows": plan.chunk_rows, "chunks": plan.num_chunks,
+           "staging_route_bytes": dict(obj.staging.route_bytes),
+           "warm_pass_s": warm_s,
+           "strict": {"fit_s": strict_s, "iterations": strict.iterations,
+                      "fg_count": strict.fg_count, "reason": strict.reason,
+                      "kernel_launches": strict_launches, "nll_f64": strict_nll,
+                      "nll_rel_gap": gaps["strict"], **strict_snap},
+           "stochastic": {"coarse_s": coarse_s, "polish_s": polish_s,
+                          "coarse_kernel_launches": coarse_launches,
+                          "polish_iterations": polish.iterations,
+                          "polish_fg_count": polish.fg_count,
+                          "polish_kernel_launches": polish_launches,
+                          "pass_history": coarse.loss_history[:coarse.iterations].tolist(),
+                          "coarse_examples_per_staged_byte":
+                              coarse_snap["examples_per_staged_byte"],
+                          "nll_f64": stoch_nll, "nll_rel_gap": gaps["stochastic_polish"],
+                          **stoch_snap},
+           "peak_allocated_bytes": peak, "peak_gate_bytes": 2 * chunk_bytes + state_bytes
+           + (1 << 20),
+           "pass_s": pass_s, "pass_bytes": pass_bytes,
+           "staging_gb_per_s": pass_bytes / pass_s / 1e9,
+           "pinned_copy_gb_per_s": plan.num_chunks * src.nbytes / copy_ms / 1e6,
+           "pass_device_idle_share": prof["device_idle_share"],
+           "pass_profile": {k: prof[k] for k in ("wall_ms", "device_busy_ms",
+                                                 "fused_kernel_ms", "fused_kernel_launches")},
+           "local_epochs": local, "ref_nll": ref_nll, "device": kind, "nvidia_smi": smi}
+    emit(out)
+    for leg, gap in gaps.items():
+        if not abs(gap) <= NLL_RTOL:
+            raise SystemExit(f"stream_glm {leg}: objective is {gap:.3e} from {ref_nll}")
+    if strict_launches != strict.fg_count * plan.num_chunks:
+        raise SystemExit(f"stream_glm strict: {strict_launches} launches for "
+                         f"{strict.fg_count} passes of {plan.num_chunks} chunks")
+    if polish_launches != polish.fg_count * plan.num_chunks or coarse_launches != 0:
+        raise SystemExit(f"stream_glm stochastic: {coarse_launches} launches in the "
+                         f"stochastic passes, {polish_launches} in the polish's "
+                         f"{polish.fg_count} passes")
+    if peak > out["peak_gate_bytes"]:
+        raise SystemExit(f"stream_glm: peak allocated {peak} > {out['peak_gate_bytes']}")
+    if prof["fused_kernel_launches"] != plan.num_chunks:
+        raise SystemExit(f"stream_glm: {prof['fused_kernel_launches']} device launches in a "
+                         f"pass of {plan.num_chunks} chunks")
+    return {"strict": strict_launches, "polish": polish_launches,
+            "chunks": plan.num_chunks, "local_epochs": local}
+
+
+def stream_config(outer, solver_iters, budget, seed):
+    """bench.py's _stream_config: a fixed effect on "global" and a per-user
+    random effect (identity projector), LBFGS(solver_iters), L2 1."""
+    from photon_ml_tpu_torch.game import (FixedEffectCoordinateConfig, GameTrainingConfig,
+                                          GLMOptimizationConfig, RandomEffectCoordinateConfig)
+    from photon_ml_tpu_torch.optim.config import (OptimizerConfig, RegularizationContext,
+                                                  RegularizationType)
+    opt = GLMOptimizationConfig(optimizer=OptimizerConfig(max_iterations=solver_iters),
+                                regularization=RegularizationContext(RegularizationType.L2),
+                                regularization_weight=1.0)
+    return GameTrainingConfig(
+        task_type="logistic_regression",
+        coordinates={"fixed": FixedEffectCoordinateConfig("global", opt),
+                     "perUser": RandomEffectCoordinateConfig("userId", "per_user", opt,
+                                                             projector="identity")},
+        updating_sequence=["fixed", "perUser"], num_outer_iterations=outer, seed=seed,
+        hbm_budget_bytes=budget)
+
+
+def strict_fe_passes(descent) -> int:
+    """The fixed effect's value+gradient passes outside the stochastic lane
+    (a stochastic visit's stream delta has more local epochs than chunks)."""
+    return sum(passes(t.fg_count, t.iterations) for k, t in descent.trackers.items()
+               if k.endswith("/fixed") and not (
+                   t.stream and t.stream["local_epochs"] > t.stream["chunks_staged"]))
+
+
+def stream_phase(hk, kind, smi, device="cuda", entries=STREAM_ENTRIES) -> dict:
+    """bench.py's three --stream entries at their full shapes: a resident
+    GLMix fit, then the same config under a budget of half its resident
+    footprint (floored at the largest coordinate + the flat vectors, as
+    _stream_entry), each after a one-outer-iteration warm-up fit.  Fails
+    unless the histories agree within 1e-5, the streamed fit's data exceeds
+    its budget while its tracked peak stays under it, and the fused
+    kernel's launches equal chunks x the fixed effect's passes."""
+    import torch
+    from photon_ml_tpu_torch.data.synthetic_bench import pipeline_dataset
+    from photon_ml_tpu_torch.game import GameEstimator
+    out = {}
+    for name, n, d_global, n_users, d_user, outer, iters, seed in entries:
+        t0 = time.perf_counter()
+        train, val = pipeline_dataset(n, d_global, n_users, d_user, seed)
+        data_s = time.perf_counter() - t0
+        runs, walls, launches, peaks = {}, {}, {}, {}
+        budget = None
+        for mode in ("resident", "streamed"):
+            if mode == "streamed":
+                acct = runs["resident"].residency
+                total = acct["resident_block_total"] + acct["flat_vector_bytes"]
+                floor = int((max(acct["resident_block_bytes"].values())
+                             + acct["flat_vector_bytes"]) * 1.05)
+                budget = max(int(total * STREAM_BUDGET_FRAC), floor)
+            GameEstimator(stream_config(1, iters, budget, seed), device=device).fit(
+                train, val, ["AUC"])
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            hk.LAUNCHES = 0
+            t0 = time.perf_counter()
+            runs[mode] = GameEstimator(stream_config(outer, iters, budget, seed),
+                                       device=device).fit(train, val, ["AUC"])
+            torch.cuda.synchronize()
+            walls[mode] = time.perf_counter() - t0
+            launches[mode] = hk.LAUNCHES
+            peaks[mode] = torch.cuda.max_memory_allocated()
+        r, s = runs["resident"], runs["streamed"]
+        gap = max(abs(a - b) / max(abs(a), 1e-12)
+                  for a, b in zip(r.objective_history, s.objective_history))
+        acct = s.residency
+        data_bytes = r.residency["resident_block_total"] + r.residency["flat_vector_bytes"]
+        st = acct["stream"]["fixed"]
+        chunks = st["chunks_staged"] // st["passes"]
+        want = {"resident": fe_passes(r.descent), "streamed": fe_passes(s.descent) * chunks}
+        entry = {"phase": "stream", "name": name, "n_train": train.num_rows,
+                 "d_global": d_global, "users": n_users, "d_user": d_user,
+                 "outer": outer, "solver_iters": iters, "data_s": data_s,
+                 "hbm_budget_bytes": budget, "coordinate_data_bytes": data_bytes,
+                 "data_exceeds_budget": data_bytes > budget,
+                 "fit_s": walls, "examples_per_s": {k: n * outer / v for k, v in walls.items()},
+                 "throughput_ratio": walls["resident"] / walls["streamed"],
+                 "device_peak_allocated_bytes": peaks, "kernel_launches": launches,
+                 "want_launches": want, "chunks_per_pass": chunks,
+                 "objective_history": {"resident": r.objective_history,
+                                       "streamed": s.objective_history},
+                 "objective_history_max_rel_gap": gap, "parity_gate": STREAM_PARITY,
+                 "auc": {"resident": r.validation.get("AUC"), "streamed": s.validation.get("AUC")},
+                 "spans_s": {"streamed": dict(s.descent.timings)},
+                 "residency": {k: acct[k] for k in (
+                     "streamed_chunk_bytes", "resident_block_bytes", "evictions",
+                     "evict_inactive", "peak_tracked_bytes", "under_budget")},
+                 "stream": st, "device": kind, "nvidia_smi": smi}
+        emit(entry)
+        if not (gap <= STREAM_PARITY and len(r.objective_history) == len(s.objective_history)):
+            raise SystemExit(f"stream {name}: histories differ by {gap:.3e}")
+        if not (entry["data_exceeds_budget"] and acct["under_budget"]):
+            raise SystemExit(f"stream {name}: not out of core under budget: {entry['residency']}")
+        if launches != want:
+            raise SystemExit(f"stream {name}: kernel launches {launches} != {want}")
+        out[name] = {"launches": launches, "budget": budget, "result": s,
+                     "seed": seed, "outer": outer, "iters": iters,
+                     "shape": (n, d_global, n_users, d_user)}
+    return out
+
+
+def stoch_phase(hk, kind, smi, device="cuda") -> dict:
+    """bench.py's stoch_out_of_core (strict host-stepped LBFGS against the
+    stochastic lane + the strict polish on one out-of-core plan, budget a
+    quarter of the data) and stoch_game_glmix (a streamed GLMix fit,
+    strict and with SolverSchedule(stochastic_passes=2,
+    stochastic_local_epochs=6)), in float32.  Fails unless the lane's
+    examples per staged byte is at least STOCH_RATIO_GATE x the strict
+    solve's, the data exceeds the budget and the staged peak stays under
+    it, and the kernel launches are chunks x the strict passes."""
+    import torch
+    from photon_ml_tpu_torch.data.streaming import ChunkPlan
+    from photon_ml_tpu_torch.data.synthetic_bench import pipeline_dataset
+    from photon_ml_tpu_torch.game import GameEstimator
+    from photon_ml_tpu_torch.ops.chunked import ChunkedGLMObjective
+    from photon_ml_tpu_torch.ops.losses import LOGISTIC
+    from photon_ml_tpu_torch.optim.config import (OptimizerConfig, RegularizationContext,
+                                                  RegularizationType)
+    from photon_ml_tpu_torch.optim.schedule import SolverSchedule, StochasticPlan
+    from photon_ml_tpu_torch.optim.streaming import solve_streamed
+    p = STOCH_OOC
+    rng = np.random.default_rng(p["seed"])           # bench.py _stoch_problem
+    x = rng.normal(size=(p["n"], p["d"]))
+    x[:, -1] = 1.0
+    w_true = rng.normal(size=p["d"]) * 0.5
+    y = (rng.uniform(size=p["n"]) < 1 / (1 + np.exp(-(x @ w_true)))).astype(np.float32)
+    x = x.astype(np.float32)
+    data_bytes = x.nbytes + 3 * y.nbytes
+    budget = data_bytes // 4
+    plan = ChunkPlan.build(p["n"], hbm_budget_bytes=budget, bytes_per_row=(p["d"] + 3) * 4)
+    cfg = OptimizerConfig(max_iterations=p["solver_iters"], tolerance=1e-9)
+    l2 = RegularizationContext(RegularizationType.L2)
+    legs = {}
+    for leg in ("strict", "stochastic_polish"):
+        obj = ChunkedGLMObjective(LOGISTIC, x, y, plan, device=device)
+        c0 = torch.zeros(p["d"], device=device)
+        hk.LAUNCHES = 0
+        t0 = time.perf_counter()
+        coarse_launches = 0
+        if leg == "strict":
+            res = solve_streamed(obj, c0, cfg, l2, 1.0)
+        else:
+            coarse = solve_streamed(obj, c0, cfg, l2, 1.0, stochastic=StochasticPlan(
+                passes=p["passes"], local_epochs=p["local_epochs"], seed=p["seed"]))
+            coarse_launches = hk.LAUNCHES
+            res = solve_streamed(obj, coarse.x, cfg, l2, 1.0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        snap = obj.stats.snapshot()
+        legs[leg] = {"fit_s": wall, "final_value": float(res.value),
+                     "iterations": res.iterations, "fg_count": res.fg_count,
+                     "kernel_launches": hk.LAUNCHES, "coarse_kernel_launches": coarse_launches,
+                     "examples_per_sec": snap["examples_processed"] / wall, **snap}
+    ratio = (legs["stochastic_polish"]["examples_per_staged_byte"]
+             / legs["strict"]["examples_per_staged_byte"])
+    gap = abs(legs["stochastic_polish"]["final_value"] - legs["strict"]["final_value"]) \
+        / abs(legs["strict"]["final_value"])
+    ooc = {"phase": "stoch_out_of_core", "n": p["n"], "d": p["d"],
+           "stochastic_passes": p["passes"], "local_epochs": p["local_epochs"],
+           "lbfgs_max_iterations": p["solver_iters"], "data_bytes": data_bytes,
+           "hbm_budget_bytes": budget, "chunks": plan.num_chunks,
+           "data_exceeds_budget": data_bytes > budget,
+           "under_budget": max(l["peak_resident_bytes"] for l in legs.values()) <= budget,
+           "legs": legs, "examples_per_staged_byte_ratio": ratio,
+           "ratio_gate": STOCH_RATIO_GATE, "fixed_point_rel_gap_f32": gap,
+           "device": kind, "nvidia_smi": smi}
+    emit(ooc)
+    if not ratio >= STOCH_RATIO_GATE:
+        raise SystemExit(f"stoch_out_of_core: examples per staged byte ratio {ratio:.3f}")
+    if not (ooc["data_exceeds_budget"] and ooc["under_budget"]):
+        raise SystemExit("stoch_out_of_core: not out of core under its budget")
+    for leg, st in legs.items():
+        if st["kernel_launches"] - st["coarse_kernel_launches"] != st["fg_count"] * plan.num_chunks \
+                or st["coarse_kernel_launches"] != 0:
+            raise SystemExit(f"stoch_out_of_core {leg}: launches {st['kernel_launches']} "
+                             f"for {st['fg_count']} passes of {plan.num_chunks} chunks")
+
+    g = STOCH_GAME
+    train, val = pipeline_dataset(g["n"], g["d_global"], g["n_users"], g["d_user"], g["seed"])
+    gbudget = int(train.feature_shards["global"].nbytes * 0.5)
+    game = {}
+    for leg, sched in (("strict", None),
+                       ("scheduled", SolverSchedule(stochastic_seed=g["seed"],
+                                                    **STOCH_GAME_SCHEDULE))):
+        cfg_g = dataclasses.replace(stream_config(g["outer"], 40, gbudget, g["seed"]),
+                                    solver_schedule=sched)
+        hk.LAUNCHES = 0
+        t0 = time.perf_counter()
+        res = GameEstimator(cfg_g, device=device).fit(train, val, ["AUC"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = res.descent.solver_diagnostics()["fixed"]["stream"]
+        chunks = st["chunks_staged"] // st["passes"]
+        game[leg] = {"fit_s": wall, "final_objective": res.objective_history[-1],
+                     "auc": res.validation.get("AUC"), "stream": st,
+                     "kernel_launches": hk.LAUNCHES,
+                     "want_launches": strict_fe_passes(res.descent) * chunks}
+    gratio = (game["scheduled"]["stream"]["examples_per_staged_byte"]
+              / game["strict"]["stream"]["examples_per_staged_byte"])
+    emit({"phase": "stoch_game_glmix", "n": g["n"], "hbm_budget_bytes": gbudget,
+          "legs": game, "examples_per_staged_byte_ratio": gratio,
+          "objective_rel_gap": abs(game["scheduled"]["final_objective"]
+                                   - game["strict"]["final_objective"])
+          / abs(game["strict"]["final_objective"]),
+          "device": kind, "nvidia_smi": smi})
+    for leg, st in game.items():
+        if st["kernel_launches"] != st["want_launches"]:
+            raise SystemExit(f"stoch_game_glmix {leg}: launches {st['kernel_launches']} != "
+                             f"{st['want_launches']}")
+    return {"launches": {f"stoch_out_of_core_{k}": v["kernel_launches"]
+                         for k, v in legs.items()}
+            | {f"stoch_game_{k}": v["kernel_launches"] for k, v in game.items()},
+            "ratio": ratio}
+
+
+def cli_stream_phase(kind, smi, stream, device="cuda") -> dict:
+    """cli.train --device cuda --hbm-budget in two child processes on the
+    stream_glmix_balanced data from npz, under that entry's budget: A as
+    it is, B with a transient stage.transfer fault at chunk 2.  Fails
+    unless A's objective history is within 1e-6 of the in-process streamed
+    fit's, B's fit is A's bit for bit, and B's summary records the one
+    fired fault and the one staging retry."""
+    from photon_ml_tpu_torch.data.game_data import save_game_dataset
+    from photon_ml_tpu_torch.data.synthetic_bench import pipeline_dataset
+    e = stream["stream_glmix_balanced"]
+    d = cli_dir("cli_stream")
+    t0 = time.perf_counter()
+    train, val = pipeline_dataset(*e["shape"], e["seed"])
+    save_game_dataset(train, str(d / "train.npz"))
+    save_game_dataset(val, str(d / "val.npz"))
+    (d / "config.json").write_text(stream_config(e["outer"], e["iters"], None,
+                                                 e["seed"]).to_json())
+    data_s = time.perf_counter() - t0
+    del train, val
+    extra = ["--validation-data", str(d / "val.npz"), "--evaluators", "AUC",
+             "--hbm-budget", str(e["budget"])]
+    t0 = time.perf_counter()
+    procs = {"A": start_child(d, "A", extra, device=device),
+             "B": start_child(d, "B", extra, CLI_STREAM_FAULT, device=device)}
+    out = {k: finish_child(d, k, p) for k, p in procs.items()}
+    wall = time.perf_counter() - t0
+    (rc_a, a), (rc_b, b) = out["A"], out["B"]
+    if rc_a != 0 or rc_b != 0 or a is None or b is None:
+        raise SystemExit(f"cli_stream: children exited {rc_a}, {rc_b}")
+    ref = e["result"].objective_history
+    gap = max(abs(x - y) / abs(y) for x, y in zip(a["objective_history"], ref))
+    fired = b["fault_report"]["total_fired"] if b["fault_report"] else None
+    retries = b["hbm_residency"]["stream"]["fixed"]["retries"]
+    emit({"phase": "cli_stream", "entry": "python -m photon_ml_tpu_torch.cli.train "
+          "--hbm-budget", "data": "stream_glmix_balanced", "data_and_save_s": data_s,
+          "children_wall_s": wall, "fit_s": {"A": a["fit_s"], "B": b["fit_s"]},
+          "hbm_budget_bytes": a["hbm_budget_bytes"],
+          "objective_history": a["objective_history"], "rel_gap_vs_in_process": gap,
+          "faulted_equals_unfaulted": b["objective_history"] == a["objective_history"],
+          "fault_fired": fired, "stream_retries": retries,
+          "under_budget": a["hbm_residency"]["under_budget"],
+          "device": kind, "nvidia_smi": smi})
+    if not gap <= CLI_STREAM_RTOL:
+        raise SystemExit(f"cli_stream: the CLI's history is {gap:.3e} from the in-process fit")
+    if b["objective_history"] != a["objective_history"] or fired != 1 or retries != 1:
+        raise SystemExit(f"cli_stream: the faulted child differs (fired {fired}, retries "
+                         f"{retries})")
+    return {"gap": gap}
+
+
 def sparse_kernel_entry(name: str, part: str, c6: dict, c7: dict,
                         cli_avro: dict) -> dict:
     """The kernels line's entry of sparse kernel A ("a") or B ("b"): its
@@ -2265,6 +2847,14 @@ def main() -> int:
     if prof["fused_kernel_launches"] != prof["fg_count"]:
         raise SystemExit(f"profiled {prof['fused_kernel_launches']} device launches of the "
                          f"kernel for {prof['fg_count']} passes; expected one per pass")
+
+    # --- out of core: the kernel with mask and shift, config 1 streamed -------
+    t0 = time.perf_counter()
+    stream_timing = stream_checks(hk, losses, kind, smi)
+    emit({"phase": "stream_checks_done", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    stream_glm = stream_glm_phase(hk, x_np, y_np, ref_nll, kind, smi)
+    emit({"phase": "stream_glm_done", "seconds": time.perf_counter() - t0})
 
     # --- BASELINE configs 2 and 3 through train_glm ---------------------------
     from photon_ml_tpu_torch.ops.losses import POISSON, SQUARED
@@ -2470,6 +3060,23 @@ def main() -> int:
     faults_phase(kind, smi, inexact.pop("train"), inexact.pop("config"))
     emit({"phase": "faults_done", "seconds": time.perf_counter() - t0})
 
+    # --- out of core: bench.py's --stream and --stoch legs, the CLI ---------
+    t0 = time.perf_counter()
+    stream = stream_phase(hk, kind, smi)
+    emit({"phase": "stream_done", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    stoch = stoch_phase(hk, kind, smi)
+    emit({"phase": "stoch_done", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    cli_stream_phase(kind, smi, stream)
+    emit({"phase": "cli_stream_done", "seconds": time.perf_counter() - t0})
+    stream_launches = {"stream_glm_strict": stream_glm["strict"],
+                       "stream_glm_polish": stream_glm["polish"]}
+    for name, e in stream.items():
+        for mode, count in e["launches"].items():
+            stream_launches[f"{name}_{mode}"] = count
+    stream_launches.update(stoch["launches"])
+
     emit({"kernels": [{
         "name": "fused_value_and_gradient",
         "route": "cuda",
@@ -2477,16 +3084,19 @@ def main() -> int:
         "replaces": "photon_ml_tpu/ops/pallas_kernels.py:150",
         "launches": (launches + g_launches + c2_launches + c3["kernel_launches"] + t_launches
                      + c5["convex"] + c5["full"] + cli_glm + cli_game
-                     + sum(inexact["launches"].values())),
+                     + sum(inexact["launches"].values()) + sum(stream_launches.values())),
         "launches_by_path": {"train_glm": launches, "glmix": g_launches,
                              "config2": c2_launches, "config3": c3["kernel_launches"],
                              "glmix_tron": t_launches, "config5_convex": c5["convex"],
                              "config5_full": c5["full"], "cli_glm": cli_glm,
                              "cli_game": cli_game,
                              "inexact_strict": inexact["launches"]["strict"],
-                             "inexact_scheduled": inexact["launches"]["scheduled"]},
+                             "inexact_scheduled": inexact["launches"]["scheduled"],
+                             **stream_launches},
         "max_abs_err": max_abs_err,
-        "tolerance": f"value rtol {VALUE_RTOL}, gradient rtol {GRAD_RTOL} atol {GRAD_ATOL}",
+        "tolerance": (f"value rtol {VALUE_RTOL}, gradient rtol {GRAD_RTOL} atol {GRAD_ATOL} "
+                      "(with shifts, rtol of sum|x u| + |s| sum|u|, the terms the "
+                      "shifted gradient subtracts)"),
         "ms": timing["ms"],
         "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"],
@@ -2509,6 +3119,14 @@ def main() -> int:
         "at_config5_shape": {k: c5["timing"][k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "hbm_share",
             "ms_over_library", "shape", "max_abs_err")},
+        "at_inexact_fe_shape": {k: inexact["fe_timing"][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "hbm_share",
+            "ms_over_library", "shape", "max_abs_err")},
+        "at_stream_chunk_shape": {k: stream_timing[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "hbm_share",
+            "ms_over_library", "shape", "inputs", "max_abs_err")}
+        | {"launches_per_streamed_pass": stream_glm["chunks"]},
+        "local_epochs_per_chunk": stream_glm["local_epochs"],
     }] + [sparse_kernel_entry(name, part, c6, c7, cli_avro) for name, part in (
         ("ell_margin_loss", "a"), ("csc_column_sum", "b"))],
         "seconds": time.perf_counter() - t_start})

@@ -17,18 +17,21 @@ computes in float64 (float32 otherwise).  `--checkpoint-dir` checkpoints
 after every outer iteration and resumes from the newest verified record;
 `--fault-plan` (or $PHOTON_FAULT_PLAN) arms fault injection; on SIGTERM or
 SIGINT the run stops after the in-flight update and exits with the
-resumable status 75 and a JSON line.  Flags of subsystems the port does not
+resumable status 75 and a JSON line.  `--hbm-budget` trains out of core
+(streamed fixed effects, residency rotation).  Flags of subsystems the port does not
 have yet exit naming their ROADMAP.md queue A item, and summary keys that
 belong to them are null.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import logging
 import os
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 
@@ -182,8 +185,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "grid combo (the reference restarts failed jobs from "
                         "scratch)")
     p.add_argument("--hbm-budget", default=None,
-                   help="device-memory residency budget (not ported yet: "
-                        "item 15)")
+                   help="device-memory residency budget, e.g. '8GB', "
+                        "'512MB', or raw bytes.  When the training "
+                        "coordinates' device blocks can't all fit: "
+                        "fixed-effect shards over budget stream in double-"
+                        "buffered host->device chunks, and inactive "
+                        "coordinates' blocks are evicted between "
+                        "coordinate-descent visits (out-of-core training).  "
+                        "Overrides the config file's hbm_budget_bytes")
     p.add_argument("--timing-mode", default="pipelined",
                    choices=["pipelined", "strict"],
                    help="pipelined (default): each update's objective and "
@@ -357,7 +366,6 @@ def _load_dataset(path: str, task: str, args=None, train_dataset=None,
 # flag -> (is it set, the ROADMAP.md queue A item that ports it)
 UNPORTED_FLAGS = (
     ("--tuning", lambda a: a.tuning != "none", 17),
-    ("--hbm-budget", lambda a: a.hbm_budget is not None, 15),
     ("--event-listener", lambda a: bool(a.event_listener), 19),
     ("--trace-out", lambda a: a.trace_out is not None, 19),
     ("--run-log", lambda a: a.run_log is not None, 19),
@@ -369,6 +377,30 @@ UNPORTED_FLAGS = (
 # the JAX CLI's environment fallbacks of the multi-host flags
 UNPORTED_ENV = (("PHOTON_COORDINATOR", 20), ("PHOTON_NUM_PROCESSES", 20),
                 ("PHOTON_PROCESS_ID", 20))
+
+
+def parse_byte_size(arg) -> Optional[int]:
+    """'8GB' / '512MB' / '1.5g' / '4096' -> bytes (decimal units, like
+    accelerator spec sheets)."""
+    if arg is None:
+        return None
+    s = str(arg).strip().lower()
+    units = {"tb": 1e12, "t": 1e12, "gb": 1e9, "g": 1e9, "mb": 1e6,
+             "m": 1e6, "kb": 1e3, "k": 1e3, "b": 1.0}
+    for suffix, mult in units.items():
+        if s.endswith(suffix):
+            num = s[: -len(suffix)].strip()
+            break
+    else:
+        num, mult = s, 1.0
+    try:
+        value = float(num) * mult
+    except ValueError:
+        raise SystemExit(f"--hbm-budget: cannot parse {arg!r} (expected "
+                         "e.g. '8GB', '512MB', or raw bytes)")
+    if value <= 0:
+        raise SystemExit(f"--hbm-budget must be positive, got {arg!r}")
+    return int(value)
 
 
 def check_unported(args) -> None:
@@ -593,9 +625,12 @@ def _fit_and_save(args, log, train, val, device, dtype, t0, ingest_s,
         log.info("warm-starting from %s (%s)", args.initial_model_dir,
                  list(initial_model.coordinates))
     t_fit = time.time()
+    hbm_budget = parse_byte_size(args.hbm_budget)
     if args.config:
         with open(args.config) as f:
             config = GameTrainingConfig.from_json(f.read())
+        if hbm_budget is not None:
+            config = dataclasses.replace(config, hbm_budget_bytes=hbm_budget)
         results = [GameEstimator(config, device=device, dtype=dtype).fit(
             train, val, evaluator_specs, initial_model=initial_model,
             checkpoint_dir=args.checkpoint_dir, timing_mode=args.timing_mode)]
@@ -617,7 +652,7 @@ def _fit_and_save(args, log, train, val, device, dtype, t0, ingest_s,
             coordinates={"fixed": FixedEffectCoordinateConfig(
                 "global", GLMOptimizationConfig(optimizer=opt, regularization=reg),
                 normalization=NormalizationType(args.normalization))},
-            updating_sequence=["fixed"])
+            updating_sequence=["fixed"], hbm_budget_bytes=hbm_budget)
         results = GameEstimator(config, device=device, dtype=dtype).fit_grid(
             train, grid, val, evaluator_specs, warm_start=args.warm_start,
             checkpoint_dir=args.checkpoint_dir,
@@ -655,9 +690,9 @@ def _fit_and_save(args, log, train, val, device, dtype, t0, ingest_s,
                          else None),
         "wall_s": round(time.time() - t0, 2),
         "timing_mode": args.timing_mode,
-        # residency under an HBM budget: item 15
-        "hbm_budget_bytes": None,
-        "hbm_residency": None,
+        # HBM residency accounting (None budget = unbounded/resident)
+        "hbm_budget_bytes": hbm_budget,
+        "hbm_residency": best.residency,
         # meshes and multi-host runs: item 20
         "mesh": None,
         "mesh_transfer": None,
@@ -685,6 +720,14 @@ def _fit_and_save(args, log, train, val, device, dtype, t0, ingest_s,
     for coord, d in solver_diag.items():
         log.info("solver %-16s solves=%d iterations=%d reasons=%s",
                  coord, d["solves"], d["iterations"], d["reasons"])
+        if "stream" in d:
+            st = d["stream"]
+            log.info("stream %-16s staged=%.1f MB chunks=%d "
+                     "local_epochs=%d examples=%d "
+                     "examples/staged-byte=%.4f", coord,
+                     st["total_bytes"] / 1e6, st["chunks_staged"],
+                     st["local_epochs"], st["examples_processed"],
+                     st["examples_per_staged_byte"])
     for name, t in best.descent.timings.items():
         log.info("phase %s: %.3fs", name, t)
     print(json.dumps(summary))

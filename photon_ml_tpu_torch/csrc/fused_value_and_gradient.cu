@@ -1,8 +1,15 @@
 // Fused GLM value + gradient in ONE pass over a dense row-major X [n, d]:
 //
-//   z_i   = x_i . c (+ o_i)
-//   value = sum_i w_i l(z_i, y_i)
-//   grad  = sum_i w_i l'(z_i, y_i) x_i            (= X^T (w * l'))
+//   z_i   = x_i . c (+ o_i) (+ b)
+//   value = sum_i [m_i != 0] w_i l(z_i, y_i)
+//   grad  = sum_i [m_i != 0] w_i l'(z_i, y_i) x_i   (= X^T (w * l'))
+//   swl   = sum_i [m_i != 0] w_i l'(z_i, y_i)
+//
+// The row mask m is a select, not a multiply (as jnp.where in
+// photon_ml_tpu/ops/aggregators.py): a masked row adds nothing, even where
+// its loss is not finite.  b is one device scalar, the normalization shift
+// -(c . s) folded into every margin; with swl the caller finishes the
+// standardized gradient as grad - s * swl.
 //
 // Replaces the TPU kernel photon_ml_tpu/ops/pallas_kernels.py::
 // fused_value_and_gradient (pl.pallas_call at line 150, body _kernel at
@@ -20,7 +27,7 @@
 //     little faster than one contiguous range per block.)
 //   - A ring of S stages in dynamic shared memory.  One producer thread
 //     fills each stage with cp.async.bulk copies (X's tile and the tile's
-//     y, w, o) that complete on the stage's "full" mbarrier; the consumers
+//     y, w, o, m) that complete on the stage's "full" mbarrier; the consumers
 //     release it on its "empty" mbarrier.  The ring holds >= 96 KB of X
 //     per SM (two 48 KB stages at d = 124), against the ~18 KB in flight
 //     that the HBM rate needs.  A bulk copy needs a 16-byte aligned address
@@ -42,8 +49,16 @@
 //     takes a ticket, and the last block sums the partial rows in block
 //     order and resets the ticket.  The sums run in a fixed order for a
 //     given plan, so results are bit-stable from call to call.
-//   - Weights default to 1 and offsets to 0 in-kernel (null pointers).
-//   - f32 inputs, f32 accumulation, as the TPU kernel.
+//   - Weights default to 1, offsets and b to 0, and the mask to all rows
+//     in-kernel (null pointers).  The mask is one more [rows] stream per
+//     stage beside y, w and o.
+//   - f32 inputs, f32 accumulation, as the TPU kernel, but every running
+//     sum (a thread's gradient registers, its value and sum(w l'), the
+//     block's and the last block's sums) is compensated (Kahan): a thread
+//     adds hundreds to thousands of terms in turn, and an uncompensated f32
+//     sum of k terms drifts by up to ~k ulps, which the solvers' f32
+//     line searches then amplify differently for a resident pass and a
+//     streamed one.  Three adds per term, hidden behind the copies.
 // The tile, stage and grid choice is made by the pure Python function
 // photon_ml_tpu_torch/ops/hopper_kernels.py::plan_fused, which the CPU
 // tests replay; smem_layout() below must agree with it, and the entry point
@@ -114,11 +129,25 @@ __device__ __forceinline__ void loss_and_dz(float z, float y, float& l, float& d
 
 __host__ __device__ constexpr int round4(int v) { return (v + 3) & ~3; }
 
+// A compensated (Kahan) running sum: the rounding error of each addition
+// is carried into the next, so value() is within a few ulps of the exact
+// sum however many terms it took.  (nvcc keeps the order: no fast math.)
+struct KahanSum {
+  float s = 0.0f, c = 0.0f;
+  __device__ __forceinline__ void add(float v) {
+    const float y = v - c;
+    const float t = s + y;
+    c = (t - s) - y;
+    s = t;
+  }
+  __device__ __forceinline__ float value() const { return s - c; }
+};
+
 __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) { return a < b ? a : b; }
 
 // Shared memory, in floats from the (16-byte aligned) base: S stages of
-// [X tile | y | w | o], then c [d], two buffers of the tiles' s = w*l'
-// [R], a reduction area [2 * kConsumers], then 2*S mbarriers (full,
+// [X tile | y | w | o | m], then c [d], two buffers of the tiles' s = w*l'
+// [R], a reduction area [3 * kConsumers], then 2*S mbarriers (full,
 // empty).  Each array
 // starts on 16 bytes and leaves 3 floats of room, because element k of a
 // span sits at (address / 4) % 4 + k so that its 16-byte chunks line up.
@@ -130,11 +159,11 @@ __host__ __device__ Layout smem_layout(int d, int rows, int stages) {
   Layout L;
   L.stage_x = round4(rows * d + 3);
   L.stage_v = round4(rows + 3);
-  L.stage = L.stage_x + 3 * L.stage_v;
+  L.stage = L.stage_x + 4 * L.stage_v;
   L.c = stages * L.stage;
   L.s = L.c + round4(d);
   L.red = L.s + 2 * round4(rows);
-  L.bars = L.red + 2 * kConsumers;
+  L.bars = L.red + 3 * kConsumers;
   L.bytes = L.bars * 4 + 2 * stages * 8;
   return L;
 }
@@ -226,16 +255,18 @@ __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, %0;" ::"n"(kConsumers) : "memory");
 }
 
-// The kernel's operands.  w and o may be null.
+// The kernel's operands.  w, o, m and b may be null.
 struct Args {
   const float* x;  // [n, d] row-major
   const float* y;
   const float* w;
   const float* o;
+  const float* m;        // row mask [n]
+  const float* b;        // margin shift, one scalar
   const float* c;        // [d]
-  float* partial;        // [gridDim.x, d + 1] scratch
+  float* partial;        // [gridDim.x, d + 2] scratch
   unsigned int* ticket;  // zero before and after every launch
-  float* out;            // [d + 1] = [value, grad]
+  float* out;            // [d + 2] = [value, grad, swl]
   int64_t n;
   int d, rows, stages;   // rows per tile, ring stages
 };
@@ -251,6 +282,7 @@ __global__ void __launch_bounds__(kThreads, 1) fvg_tma(const Args a) {
   const float* __restrict__ y = a.y;
   const float* __restrict__ w = a.w;
   const float* __restrict__ o = a.o;
+  const float* __restrict__ m = a.m;
   const int64_t n = a.n;
   const int d = a.d, rows = a.rows, stages = a.stages;
   extern __shared__ __align__(16) float smem[];
@@ -277,10 +309,8 @@ __global__ void __launch_bounds__(kThreads, 1) fvg_tma(const Args a) {
   for (int j = t; j < d; j += kThreads) c_s[j] = a.c[j];
   __syncthreads();
 
-  float acc[NACC];
-#pragma unroll
-  for (int i = 0; i < NACC; ++i) acc[i] = 0.0f;
-  float v_acc = 0.0f;
+  KahanSum acc[NACC];
+  KahanSum v_acc, s_acc;
 
   if (t >= kConsumers) {
     // producer warp: lane 0 keeps the ring full
@@ -295,7 +325,8 @@ __global__ void __launch_bounds__(kThreads, 1) fvg_tma(const Args a) {
         const Span sy = span_of(y + r0, nr);
         const Span sw = span_of(w == nullptr ? nullptr : w + r0, nr);
         const Span so = span_of(o == nullptr ? nullptr : o + r0, nr);
-        const uint32_t bytes = sx.bytes + sy.bytes + sw.bytes + so.bytes;
+        const Span sm = span_of(m == nullptr ? nullptr : m + r0, nr);
+        const uint32_t bytes = sx.bytes + sy.bytes + sw.bytes + so.bytes + sm.bytes;
         if (bytes == 0) {
           mbar_arrive(&full[stage]);
         } else {
@@ -304,6 +335,7 @@ __global__ void __launch_bounds__(kThreads, 1) fvg_tma(const Args a) {
           bulk_load(buf + L.stage_x, sy, &full[stage]);
           bulk_load(buf + L.stage_x + L.stage_v, sw, &full[stage]);
           bulk_load(buf + L.stage_x + 2 * L.stage_v, so, &full[stage]);
+          bulk_load(buf + L.stage_x + 3 * L.stage_v, sm, &full[stage]);
         }
         if (++stage == stages) {
           stage = 0;
@@ -322,6 +354,7 @@ __global__ void __launch_bounds__(kThreads, 1) fvg_tma(const Args a) {
     const int K = NACC == 1 ? kConsumers / d : 1;  // rows per gradient group
     const int span = K * d;
     const int kt = NACC == 1 ? t / d : 0;
+    const float zb = a.b != nullptr ? *a.b : 0.0f;
     int stage = 0;
     uint32_t parity = 0;
     int sbuf = 0;
@@ -333,22 +366,26 @@ __global__ void __launch_bounds__(kThreads, 1) fvg_tma(const Args a) {
       const Span sy = span_of(y + r0, nr);
       const Span sw = span_of(w == nullptr ? nullptr : w + r0, nr);
       const Span so = span_of(o == nullptr ? nullptr : o + r0, nr);
+      const Span sm = span_of(m == nullptr ? nullptr : m + r0, nr);
       float* bx = buf + sx.phase;
       float* by = buf + L.stage_x + sy.phase;
       float* bw = buf + L.stage_x + L.stage_v + sw.phase;
       float* bo = buf + L.stage_x + 2 * L.stage_v + so.phase;
+      float* bm = buf + L.stage_x + 3 * L.stage_v + sm.phase;
       float* s_t = s_s + sbuf * round4(rows);
       // the same on every thread: does this tile have floats the bulk
       // copies did not bring?
       const bool edges = sx.head > 0 || sx.tail < sx.count || sy.head > 0 ||
                          sy.tail < sy.count ||
                          (w != nullptr && (sw.head > 0 || sw.tail < sw.count)) ||
-                         (o != nullptr && (so.head > 0 || so.tail < so.count));
+                         (o != nullptr && (so.head > 0 || so.tail < so.count)) ||
+                         (m != nullptr && (sm.head > 0 || sm.tail < sm.count));
       if (edges) {
         load_edges(buf, sx, t);
         load_edges(buf + L.stage_x, sy, t);
         if (w != nullptr) load_edges(buf + L.stage_x + L.stage_v, sw, t);
         if (o != nullptr) load_edges(buf + L.stage_x + 2 * L.stage_v, so, t);
+        if (m != nullptr) load_edges(buf + L.stage_x + 3 * L.stage_v, sm, t);
         consumer_sync();
       }
 
@@ -365,12 +402,17 @@ __global__ void __launch_bounds__(kThreads, 1) fvg_tma(const Args a) {
         for (int off = P >> 1; off > 0; off >>= 1)
           dot += __shfl_xor_sync(0xffffffffu, dot, off);
         if (sub == 0 && r < nr) {
-          const float z = o != nullptr ? dot + bo[r] : dot;
+          float z = dot + zb;
+          if (o != nullptr) z += bo[r];
           float l, dl;
           loss_and_dz<LOSS>(z, by[r], l, dl);
           const float wt = w != nullptr ? bw[r] : 1.0f;
-          s_t[r] = wt * dl;
-          v_acc += wt * l;
+          // a select: a masked row's (possibly non-finite) terms never enter
+          const bool keep = m == nullptr || bm[r] != 0.0f;
+          const float sr = keep ? wt * dl : 0.0f;
+          s_t[r] = sr;
+          s_acc.add(sr);
+          if (keep) v_acc.add(wt * l);
         }
       }
       consumer_sync();
@@ -380,7 +422,7 @@ __global__ void __launch_bounds__(kThreads, 1) fvg_tma(const Args a) {
         if (t < span) {
           const int groups = (nr - kt + K - 1) / K;
 #pragma unroll 8
-          for (int g = 0; g < groups; ++g) acc[0] += bx[g * span + t] * s_t[g * K + kt];
+          for (int g = 0; g < groups; ++g) acc[0].add(bx[g * span + t] * s_t[g * K + kt]);
         }
       } else {
         for (int r = 0; r < nr; ++r) {
@@ -389,7 +431,7 @@ __global__ void __launch_bounds__(kThreads, 1) fvg_tma(const Args a) {
 #pragma unroll
           for (int i = 0; i < NACC; ++i) {
             const int f = t + i * kConsumers;
-            if (f < d) acc[i] += xr[f] * sr;
+            if (f < d) acc[i].add(xr[f] * sr);
           }
         }
       }
@@ -405,31 +447,36 @@ __global__ void __launch_bounds__(kThreads, 1) fvg_tma(const Args a) {
     }
   }
 
-  // block partial [value, grad] in a fixed order
+  // block partial [value, grad, swl] in a fixed order
   __syncthreads();
   if (t < kConsumers) {
-    red[t] = v_acc;
-    if (NACC == 1) red[kConsumers + t] = acc[0];
+    red[t] = v_acc.value();
+    if (NACC == 1) red[kConsumers + t] = acc[0].value();
+    red[2 * kConsumers + t] = s_acc.value();
   }
   __syncthreads();
-  float* prow = a.partial + (int64_t)blockIdx.x * (d + 1);
+  float* prow = a.partial + (int64_t)blockIdx.x * (d + 2);
   if (t == 0) {
-    float v = 0.0f;
-    for (int k = 0; k < kConsumers; ++k) v += red[k];
-    prow[0] = v;
+    KahanSum v, sw;
+    for (int k = 0; k < kConsumers; ++k) {
+      v.add(red[k]);
+      sw.add(red[2 * kConsumers + k]);
+    }
+    prow[0] = v.value();
+    prow[d + 1] = sw.value();
   }
   if constexpr (NACC == 1) {
     const int K = kConsumers / d;
     for (int j = t; j < d; j += kThreads) {
-      float g = 0.0f;
-      for (int k = 0; k < K; ++k) g += red[kConsumers + k * d + j];
-      prow[1 + j] = g;
+      KahanSum g;
+      for (int k = 0; k < K; ++k) g.add(red[kConsumers + k * d + j]);
+      prow[1 + j] = g.value();
     }
   } else if (t < kConsumers) {
 #pragma unroll
     for (int i = 0; i < NACC; ++i) {
       const int f = t + i * kConsumers;
-      if (f < d) prow[1 + f] = acc[i];
+      if (f < d) prow[1 + f] = acc[i].value();
     }
   }
 
@@ -440,10 +487,10 @@ __global__ void __launch_bounds__(kThreads, 1) fvg_tma(const Args a) {
   __syncthreads();
   if (!is_last) return;
   __threadfence();
-  const int width = d + 1;
+  const int width = d + 2;
   const int blocks = gridDim.x;
   for (int col = t; col < width; col += kThreads) {
-    float sum = 0.0f;
+    KahanSum sum;
     int b = 0;
     for (; b + kReduceUnroll <= blocks; b += kReduceUnroll) {
       float v[kReduceUnroll];
@@ -451,10 +498,10 @@ __global__ void __launch_bounds__(kThreads, 1) fvg_tma(const Args a) {
       for (int u = 0; u < kReduceUnroll; ++u)
         v[u] = __ldcg(a.partial + (int64_t)(b + u) * width + col);
 #pragma unroll
-      for (int u = 0; u < kReduceUnroll; ++u) sum += v[u];
+      for (int u = 0; u < kReduceUnroll; ++u) sum.add(v[u]);
     }
-    for (; b < blocks; ++b) sum += __ldcg(a.partial + (int64_t)b * width + col);
-    a.out[col] = sum;
+    for (; b < blocks; ++b) sum.add(__ldcg(a.partial + (int64_t)b * width + col));
+    a.out[col] = sum.value();
   }
   if (t == 0) *a.ticket = 0u;  // ready for the next call on this stream
 }
@@ -486,11 +533,13 @@ extern "C" {
 // Launches the one kernel of a pass on `stream`; returns the cudaError_t of
 // the launch (0 on success).  The plan (rows, stages, grid, acc_per_thread,
 // smem_bytes) comes from hopper_kernels.plan_fused; a plan that does not
-// fit this source's layout is refused.  partial: [grid, d + 1] scratch;
-// ticket: one zeroed uint32 that every launch leaves zeroed; out: [d + 1] =
-// [value, grad[0..d)].  w and o may be null.
+// fit this source's layout is refused.  partial: [grid, d + 2] scratch;
+// ticket: one zeroed uint32 that every launch leaves zeroed; out: [d + 2] =
+// [value, grad[0..d), swl].  w, o, m (row mask) and b (one margin shift)
+// may be null.
 int pmt_fused_value_and_gradient(int loss, const void* x, const void* y,
-                                 const void* w, const void* o, const void* c,
+                                 const void* w, const void* o, const void* m,
+                                 const void* b, const void* c,
                                  void* partial, void* ticket, void* out, long long n,
                                  int d, int rows, int stages, int grid,
                                  int acc_per_thread, int smem_bytes, void* stream) {
@@ -501,6 +550,7 @@ int pmt_fused_value_and_gradient(int loss, const void* x, const void* y,
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{static_cast<const float*>(x), static_cast<const float*>(y),
                static_cast<const float*>(w), static_cast<const float*>(o),
+               static_cast<const float*>(m), static_cast<const float*>(b),
                static_cast<const float*>(c), static_cast<float*>(partial),
                static_cast<unsigned int*>(ticket), static_cast<float*>(out),
                n, d, rows, stages};

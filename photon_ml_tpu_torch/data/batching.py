@@ -12,8 +12,11 @@ The `random_projection:<k>` projector's Gaussian matrix is the JAX
 package's draw, from utils/prng.py's copy of its PRNG (drawn in the blocks'
 dtype, as the JAX package draws in its default float).
 
-Not ported yet: host block copies and block eviction (`keep_host_blocks`,
-ROADMAP.md queue A item 15, out-of-core training).
+Device residency: a bucket's `blocks` is a lazily made device copy.  The
+resident build makes it at once and keeps no host copy; with
+`keep_host_blocks` (an HBM budget, game/residency.py) the numpy blocks stay
+in `host_blocks`, `evict()` drops the device copy between coordinate-
+descent visits and the next `blocks` access copies it again.
 """
 from __future__ import annotations
 
@@ -61,6 +64,10 @@ class RandomEffectDataConfig:
     # cap on the number of S-buckets (None = one bucket per power-of-two
     # sample-count class)
     max_buckets: Optional[int] = 4
+    # keep the host numpy blocks beside the device copies, so the residency
+    # manager can EVICT the device blocks between coordinate-descent visits
+    # and copy them again from the host (out-of-core mode)
+    keep_host_blocks: bool = False
 
 
 @dataclasses.dataclass
@@ -83,15 +90,29 @@ class FixedEffectDataset:
             feature_shard=config.feature_shard)
 
 
+def _blocks_on(host: EntityBlocks, device, dtype: torch.dtype) -> EntityBlocks:
+    on = lambda a: None if a is None else torch.as_tensor(a).to(device=device, dtype=dtype)
+    return EntityBlocks(x=on(host.x), labels=on(host.labels), mask=on(host.mask),
+                        weights=on(host.weights), offsets=on(host.offsets))
+
+
 @dataclasses.dataclass
 class EntityBucket:
     """One size class of entities: lanes [lane_start, lane_start + Eb) of
     the dataset's count-descending lane order, padded to this bucket's own
-    S (one hot entity must not pad every block)."""
+    S (one hot entity must not pad every block).
+
+    `blocks` is the device copy on `device` in `dtype`, made on first
+    access; with `host_blocks` (the numpy blocks, kept under an HBM budget)
+    `evict()` drops it and the next access copies it again."""
 
     lane_start: int
     row_ids: np.ndarray             # [Eb, Sb] canonical row ids, -1 = pad
-    blocks: EntityBlocks            # device tensors
+    device: torch.device
+    dtype: torch.dtype
+    host_blocks: Optional[EntityBlocks] = None   # numpy leaves (re-stage source)
+    _blocks: Optional[EntityBlocks] = dataclasses.field(
+        default=None, repr=False, compare=False)
     _safe_ids_dev: Optional[torch.Tensor] = dataclasses.field(
         default=None, repr=False, compare=False)
 
@@ -105,17 +126,51 @@ class EntityBucket:
 
     @property
     def dim(self) -> int:
-        return self.blocks.x.shape[2]
+        src = self._blocks if self._blocks is not None else self.host_blocks
+        return src.x.shape[2]
 
     @property
     def block_dtype(self) -> torch.dtype:
-        return self.blocks.x.dtype
+        return self.dtype
+
+    @property
+    def blocks(self) -> EntityBlocks:
+        """Device EntityBlocks, copied on first access (or again after an
+        evict())."""
+        if self._blocks is None:
+            if self.host_blocks is None:
+                raise ValueError("bucket was built without host blocks and "
+                                 "its device copy is gone; rebuild the "
+                                 "random-effect dataset")
+            self._blocks = _blocks_on(self.host_blocks, self.device, self.dtype)
+        return self._blocks
+
+    @property
+    def is_resident(self) -> bool:
+        return self._blocks is not None
+
+    def evict(self) -> None:
+        """Drop the device copy (needs host_blocks to copy it again)."""
+        if self.host_blocks is None:
+            return  # nothing to copy again from: keep the device copy
+        self._blocks = None
+        self._safe_ids_dev = None
+
+    def device_bytes(self) -> int:
+        """Bytes this bucket holds (or would hold) on the device."""
+        src = self._blocks if self._blocks is not None else self.host_blocks
+        if src is None:
+            return 0
+        itemsize = torch.empty((), dtype=self.dtype).element_size()
+        return sum(int(np.prod(leaf.shape)) * itemsize
+                   for leaf in (src.x, src.labels, src.mask, src.weights, src.offsets)
+                   if leaf is not None)
 
     def safe_ids_dev(self) -> torch.Tensor:
         """Device copy of the clamped row ids, transferred once."""
         if self._safe_ids_dev is None:
             self._safe_ids_dev = torch.as_tensor(
-                np.maximum(self.row_ids, 0), device=self.blocks.x.device)
+                np.maximum(self.row_ids, 0), device=self.device)
         return self._safe_ids_dev
 
     def with_offsets_from_flat(self, flat_offsets: torch.Tensor) -> EntityBlocks:
@@ -231,6 +286,27 @@ class RandomEffectDataset:
                 dtype=local_coefficients.dtype)
         return scatter_local_to_global(local_coefficients, self.projection,
                                        self.global_dim)
+
+    def evict_device_blocks(self) -> None:
+        """Drop every device block copy (buckets + the single-S views).
+        Buckets without a host copy (built without keep_host_blocks) keep
+        theirs.  The next access copies them again: the residency
+        manager's between-visits rotation (game/residency.py)."""
+        for b in self.buckets:
+            b.evict()
+        self._global_blocks = None       # (_global_row_ids is host: kept)
+        self._safe_ids_dev = None
+
+    def device_bytes(self) -> int:
+        """Device bytes of all bucket blocks (+ the single-S view when it
+        has been made: the factored random effect holds both)."""
+        total = sum(b.device_bytes() for b in self.buckets)
+        g = self._global_blocks
+        if g is not None:
+            total += sum(int(leaf.nbytes) for leaf in
+                         (g.x, g.labels, g.mask, g.weights, g.offsets)
+                         if leaf is not None)
+        return total
 
     def flat_entity_lanes(self, entity_index: np.ndarray) -> np.ndarray:
         """Map a canonical-order entity-index column to block lanes.
@@ -430,8 +506,6 @@ def _build_random_effect_dataset(
              else np.concatenate([w_flat, [0.0]]).astype(dtype))
     o_pad = (None if o_flat is None
              else np.concatenate([o_flat, [0.0]]).astype(dtype))
-    on_device = lambda a: (None if a is None else torch.as_tensor(a).to(
-        device=device, dtype=block_dtype))
     for b in range(len(bucket_bounds) - 1):
         lb, ub = int(bucket_bounds[b]), int(bucket_bounds[b + 1])
         Eb = ub - lb
@@ -456,11 +530,18 @@ def _build_random_effect_dataset(
         weights = ((w_pad[gat] if w_pad is not None else mask)
                    * weight_scale[perm[lb:ub], None])
         offsets = None if o_pad is None else o_pad[gat]
-        buckets.append(EntityBucket(
-            lane_start=lb, row_ids=r_ids,
-            blocks=EntityBlocks(x=on_device(xb), labels=on_device(labels),
-                                mask=on_device(mask), weights=on_device(weights),
-                                offsets=on_device(offsets))))
+        host = EntityBlocks(x=xb, labels=labels, mask=mask, weights=weights,
+                            offsets=offsets)
+        bucket = EntityBucket(lane_start=lb, row_ids=r_ids, device=device,
+                              dtype=block_dtype)
+        if config.keep_host_blocks:
+            # out-of-core build: the numpy blocks are the source; device
+            # copies are made lazily and can be evicted
+            bucket.host_blocks = host
+        else:
+            # resident build: copy at once and let the numpy blocks go
+            bucket._blocks = _blocks_on(host, device, block_dtype)
+        buckets.append(bucket)
 
     return RandomEffectDataset(
         config=config, buckets=buckets, entity_ids=entity_ids,

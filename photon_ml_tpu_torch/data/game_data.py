@@ -102,6 +102,13 @@ class GameDataset:
         self._device_shards[key] = x
         return x
 
+    def release_device_shard(self, shard: str) -> None:
+        """Drop the shared device copies of a shard (the host copy stays the
+        source): streaming stages chunks from the host, and the residency
+        manager's rotation evicts between visits."""
+        for key in [k for k in self._device_shards if k[0] == shard]:
+            del self._device_shards[key]
+
     @property
     def num_rows(self) -> int:
         return len(self.response)

@@ -226,3 +226,44 @@ def make_yahoo_like(n_rows: int, d_global: int = 14_983, nnz_global: int = 24,
     return YahooLike(user_ids=user_ids, item_ids=item_ids, response=response,
                      x_global=xg, x_user=xu, x_item=xi,
                      num_users=num_users, num_items=num_items)
+
+
+def pipeline_arrays(n: int, d_global: int, n_users: int, d_user: int, seed: int,
+                    n_items: int = 0, d_item: int = 0):
+    """A numpy copy of bench.py's `_pipeline_dataset` draws: GLMix-shaped
+    data with round-robin entity assignment (every entity has n/n_users
+    rows, one S-bucket).  -> (y, feature shards, entity id columns), all
+    float64 / str numpy arrays, in bench.py's draw order."""
+    rng = np.random.default_rng(seed)
+    xg = rng.normal(size=(n, d_global))
+    xg[:, -1] = 1.0
+    xu = rng.normal(size=(n, d_user))
+    xu[:, -1] = 1.0
+    users = np.arange(n) % n_users
+    w_g = rng.normal(size=d_global)
+    w_u = rng.normal(size=(n_users, d_user)) * 0.5
+    z = xg @ w_g + np.einsum("nd,nd->n", xu, w_u[users])
+    shards = {"global": xg, "per_user": xu}
+    entity_ids = {"userId": np.asarray([f"u{u:06d}" for u in users])}
+    if n_items:
+        xi = rng.normal(size=(n, d_item))
+        xi[:, -1] = 1.0
+        items = np.arange(n) % n_items
+        w_i = rng.normal(size=(n_items, d_item)) * 0.5
+        z = z + np.einsum("nd,nd->n", xi, w_i[items])
+        shards["per_item"] = xi
+        entity_ids["itemId"] = np.asarray([f"i{i:06d}" for i in items])
+    y = (rng.uniform(size=n) < 1.0 / (1.0 + np.exp(-z))).astype(float)
+    return y, shards, entity_ids
+
+
+def pipeline_dataset(n: int, d_global: int, n_users: int, d_user: int, seed: int,
+                     n_items: int = 0, d_item: int = 0):
+    """bench.py's `_pipeline_dataset`: the first 95% of the rows train, the
+    rest validate.  -> (train, validation) GameDatasets of the port."""
+    from photon_ml_tpu_torch.data.game_data import build_game_dataset
+    y, shards, entity_ids = pipeline_arrays(n, d_global, n_users, d_user, seed,
+                                            n_items, d_item)
+    ds = build_game_dataset(y, shards, entity_ids=entity_ids)
+    rows = np.arange(n)
+    return ds.subset(rows[: int(n * 0.95)]), ds.subset(rows[int(n * 0.95):])

@@ -6,9 +6,8 @@ configuration written by either package loads in the other; solver
 schedules (`solver_schedule`) parse into optim/schedule.py's
 SolverSchedule where the JAX package parses them.  Fields whose features
 are not ported yet load, and then raise where they would take effect:
-`hbm_budget_bytes` and `memory_mode="streamed"` (ROADMAP.md queue A item
-15), `shard_features` (item 20), and the ADMM lane's `admm` block (item 20)
-raises on load.
+`shard_features` (ROADMAP.md queue A item 20), and the ADMM lane's `admm`
+block (item 20) raises on load.
 """
 from __future__ import annotations
 
@@ -80,7 +79,8 @@ class RandomEffectCoordinateConfig:
     # config's solver_schedule
     solver_schedule: Optional[SolverSchedule] = None
 
-    def data_config(self, seed: int = 7) -> RandomEffectDataConfig:
+    def data_config(self, seed: int = 7,
+                    keep_host_blocks: bool = False) -> RandomEffectDataConfig:
         return RandomEffectDataConfig(
             random_effect_type=self.random_effect_type,
             feature_shard=self.feature_shard,
@@ -88,7 +88,7 @@ class RandomEffectCoordinateConfig:
             passive_data_lower_bound=self.passive_data_lower_bound,
             features_to_samples_ratio=self.features_to_samples_ratio,
             projector=self.projector,
-            seed=seed)
+            seed=seed, keep_host_blocks=keep_host_blocks)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,7 +116,8 @@ class FactoredRandomEffectCoordinateConfig:
         if self.num_inner_iterations < 1:
             raise ValueError("num_inner_iterations must be >= 1")
 
-    def data_config(self, seed: int = 7) -> RandomEffectDataConfig:
+    def data_config(self, seed: int = 7,
+                    keep_host_blocks: bool = False) -> RandomEffectDataConfig:
         # features stay in the shard's space ("identity"): the latent
         # projection is part of the model and is refit every update
         return RandomEffectDataConfig(
@@ -125,7 +126,7 @@ class FactoredRandomEffectCoordinateConfig:
             active_data_upper_bound=self.active_data_upper_bound,
             passive_data_lower_bound=self.passive_data_lower_bound,
             projector="identity",
-            seed=seed)
+            seed=seed, keep_host_blocks=keep_host_blocks)
 
 
 CoordinateConfig = Union[FixedEffectCoordinateConfig, RandomEffectCoordinateConfig,

@@ -35,9 +35,11 @@ Fault containment, as the JAX package's:
     raised.
 
 Solver schedules (optim/schedule.py) cap each visit's solves; the budget of
-every solve lands in its tracker.  Device residency under an HBM budget
-(ROADMAP.md queue A item 15) and the multi-host branches (item 20) are not
-ported yet.
+every solve lands in its tracker.  Under an HBM budget a residency manager
+(game/residency.py) rotates device residency around each visit, and a
+streamed fixed effect's per-visit chunk-stream accounting lands in its
+tracker (`stream`).  The multi-host branches (ROADMAP.md queue A item 20)
+are not ported yet.
 """
 from __future__ import annotations
 
@@ -162,6 +164,10 @@ class TrackerSummary:
     iteration_cap: Optional[int] = None
     tolerance: Optional[float] = None
     containment: Optional[str] = None
+    # chunk-stream accounting delta of THIS visit (streamed fixed effects
+    # only, a StreamStats snapshot diff): staged bytes/chunks, local epochs,
+    # examples processed and examples_per_staged_byte.  None when resident
+    stream: Optional[Dict[str, object]] = None
 
 
 def _summarize(result, wall_s: float, buckets=None, budget=None) -> TrackerSummary:
@@ -246,13 +252,48 @@ class CoordinateDescentResult:
                     d["containment"].get(t.containment, 0) + 1
             for name, c in t.reasons.items():
                 d["reasons"][name] = d["reasons"].get(name, 0) + c
+            if t.stream is not None:
+                st = d.setdefault("stream", {
+                    "passes": 0, "chunks_staged": 0, "total_bytes": 0,
+                    "local_epochs": 0, "examples_processed": 0})
+                for k in st:
+                    st[k] += t.stream.get(k, 0)
         for label, seconds in self.timings.host_blocked.items():
             parts = label.split("/")
             if len(parts) == 3 and parts[1] in out:
                 out[parts[1]]["host_blocked_s"] += seconds
         for d in out.values():
             d["host_blocked_s"] = round(d["host_blocked_s"], 4)
+            if "stream" in d:
+                st = d["stream"]
+                st["examples_per_staged_byte"] = (
+                    st["examples_processed"] / st["total_bytes"]
+                    if st["total_bytes"] else 0.0)
         return out
+
+
+_STREAM_KEYS = ("passes", "chunks_staged", "total_bytes", "local_epochs",
+                "examples_processed", "retries")
+
+
+def _stream_snapshot(coord) -> Optional[dict]:
+    snap = getattr(coord, "stream_snapshot", None)
+    return snap() if callable(snap) else None
+
+
+def _stream_delta(coord, before: Optional[dict]) -> Optional[dict]:
+    """Per-visit StreamStats delta of a streamed coordinate (None
+    otherwise): the chunk-stream work and bytes THIS visit moved, and the
+    derived examples_per_staged_byte."""
+    after = _stream_snapshot(coord)
+    if after is None:
+        return None
+    before = before or {}
+    delta = {k: after.get(k, 0) - before.get(k, 0) for k in _STREAM_KEYS}
+    delta["examples_per_staged_byte"] = (
+        delta["examples_processed"] / delta["total_bytes"]
+        if delta["total_bytes"] else 0.0)
+    return delta
 
 
 def _data_term(total_scores, base_offsets, labels, weights,
@@ -791,6 +832,7 @@ def run_coordinate_descent(
     resume: Optional[CheckpointState] = None,
     checkpoint_fingerprint: Optional[str] = None,
     solver_schedules: Optional[Dict[str, object]] = None,
+    residency=None,
 ) -> CoordinateDescentResult:
     """reference: CoordinateDescent.run/optimize (scala:57-385).
 
@@ -813,7 +855,14 @@ def run_coordinate_descent(
     ({coordinate name -> optim/schedule.py SolverSchedule or None}) caps
     each visit's solves; the budget each solve ran under lands in its
     tracker.  Scheduling is pure arithmetic in (outer iteration,
-    num_iterations), so a resume reproduces the trajectory."""
+    num_iterations), so a resume reproduces the trajectory.
+
+    `residency` (a game/residency.py ResidencyManager) rotates device
+    residency under an HBM budget: after a coordinate's update, score,
+    objective and validation rescore, its device blocks are evicted and
+    the next visit copies them again from the host.  The flat [n] score
+    vectors stay on the device.  Without a budget the manager only keeps
+    byte accounts."""
     if timing_mode not in ("pipelined", "strict"):
         raise ValueError(f"timing_mode must be 'pipelined' or 'strict', "
                          f"got {timing_mode!r}")
@@ -879,9 +928,15 @@ def run_coordinate_descent(
                 reg_terms[name] = (coordinates[name].regularization_term(models[name])
                                    if factored else 0.0)
             else:
+                if residency is not None:
+                    residency.before_update(name)
                 models[name] = provided
                 scores[name] = coordinates[name].score(provided)
                 reg_terms[name] = coordinates[name].regularization_term(provided)
+                if residency is not None:
+                    # warm-start scoring touched this coordinate's blocks;
+                    # under budget pressure they drop until its first visit
+                    residency.after_update(name)
         total = sum(scores.values(), zeros)
         if not pipelined:
             _sync(spans, "init/score", total)
@@ -956,11 +1011,15 @@ def run_coordinate_descent(
         so roll the coordinate back here and recompute its score."""
         nonlocal total
         coord = coordinates[name]
+        if residency is not None:
+            residency.before_update(name)
         models[name] = prev_model
         sc = coord.score(prev_model)
         total = (total - scores[name]) + sc
         scores[name] = sc
         reg_terms[name] = coord.regularization_term(prev_model)
+        if residency is not None:
+            residency.after_update(name)
 
     def quarantine_rerun(it: int, name: str) -> bool:
         """The ONE tightened-budget retry after a rollback, run where the
@@ -968,6 +1027,8 @@ def run_coordinate_descent(
         pipelined mode); its small health read-back is the rare path."""
         nonlocal total
         coord = coordinates[name]
+        if residency is not None:
+            residency.before_update(name)
         partial = total - scores[name]
         new_model, _ = coord.update(
             models[name], base_offsets + partial,
@@ -990,6 +1051,8 @@ def run_coordinate_descent(
         else:
             reg_terms[name] = old_reg
             monitor.on_retry_result(it, name, False)
+        if residency is not None:
+            residency.after_update(name)
         return ok
 
     def contain(it: int, name: str) -> str:
@@ -1025,6 +1088,7 @@ def run_coordinate_descent(
                                        p["buckets"], p["budget"])
             trackers[key].containment = ("rolled_back" if not healthy
                                          else p["containment"])
+            trackers[key].stream = p["stream"]
             record(obj, metric_vals, p["models"], healthy)
         pending.clear()
         # containment AFTER the iteration's bookkeeping: the retry runs at
@@ -1069,8 +1133,11 @@ def run_coordinate_descent(
                                         base.tolerance)
                 result = None
                 health = None
+                stream_before = _stream_snapshot(coord)
                 with spans.span(solve_key):
                     if not frozen:
+                        if residency is not None:
+                            residency.before_update(name)
                         if name in cold_factored:
                             cold_factored.discard(name)
                             warm = coord.warm_start_latent(models[name], models)
@@ -1131,15 +1198,23 @@ def run_coordinate_descent(
                         val_total = sum(val_scores_by_coord.values(), val_zeros)
                         metrics = [evaluate(spec, val_total, val_key)
                                    for spec in validation_specs]
+                if residency is not None:
+                    # update, own score, objective and the validation rescore
+                    # (which reads the validation dataset's shards) are all
+                    # launched: under budget pressure this coordinate's
+                    # training blocks drop now; queued kernels keep theirs
+                    residency.after_update(name)
+                stream = _stream_delta(coord, stream_before)
                 if pipelined:
                     pending.append({"it": it, "name": name,
                                     "solve_key": solve_key, "result": result,
                                     "buckets": buckets, "budget": budget,
                                     "objective": obj_dev, "health": health_dev,
                                     "metrics": metrics, "models": dict(models),
-                                    "prev_model": prev_model,
+                                    "prev_model": prev_model, "stream": stream,
                                     "containment": "frozen" if frozen else None})
                 else:
+                    trackers[key].stream = stream
                     record(obj, metrics, models)
 
                 if faults.preemption_requested() and name != updating_sequence[-1]:

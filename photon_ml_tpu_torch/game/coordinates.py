@@ -1,10 +1,18 @@
 """Training coordinates: the per-block-update unit of GAME (port of
-photon_ml_tpu/game/coordinates.py, resident and single-device).
+photon_ml_tpu/game/coordinates.py, single-device).
 
-A coordinate owns its device-resident training data and refits its model
-given the current residual offsets; scores come back in the dataset's
-canonical row order, so coordinate descent combines them with plain tensor
-arithmetic.
+A coordinate owns its training data and refits its model given the current
+residual offsets; scores come back in the dataset's canonical row order,
+so coordinate descent combines them with plain tensor arithmetic.
+
+Memory modes of a fixed effect: "resident" keeps the device shard for the
+fit; "streamed" keeps the shard on the HOST and runs every solve as a
+double-buffered chunk stream (ops/chunked.py ChunkedGLMObjective and the
+host-stepped solvers of optim/streaming.py), bounded by two chunks of
+device memory; "auto" streams when an HBM budget is set that the resident
+shard would bust (> budget / 2).  Under a budget, every coordinate's
+device blocks are evictable (`evict_device_blocks`, driven by
+game/residency.py) and are copied again from the host on the next visit.
 
 Random draws (fixed-effect down-sampling, the factored coordinate's
 Gaussian projection and latent down-sampling) come from utils/prng.py's
@@ -14,9 +22,8 @@ Every `update` takes a solver schedule (optim/schedule.py) and the outer
 iteration: the schedule's budget for that iteration caps the solve (both
 solves of a factored coordinate, each against its own configured budget).
 
-Not ported yet, each raising NotImplementedError where it would take
-effect: `memory_mode="streamed"` and HBM budgets (ROADMAP.md queue A item
-15), `shard_features` and meshes (item 20).
+Not ported yet, raising NotImplementedError where it would take effect:
+`shard_features` and meshes (ROADMAP.md queue A item 20).
 """
 from __future__ import annotations
 
@@ -89,17 +96,15 @@ class FixedEffectCoordinate:
 
     def __init__(self, name: str, dataset: GameDataset,
                  config: FixedEffectCoordinateConfig, task_type: str,
-                 device=None, dtype: torch.dtype = torch.float32, seed: int = 7):
+                 device=None, dtype: torch.dtype = torch.float32, seed: int = 7,
+                 hbm_budget_bytes: Optional[int] = None):
         self.name = name
         self.config = config
         self.task_type = task_type
         self.loss = TASK_LOSSES[task_type]
         self.device = resolve_device(device)
         self.dtype = dtype
-        if config.memory_mode == "streamed":
-            raise NotImplementedError(
-                f"coordinate {name!r}: memory_mode='streamed' is not ported "
-                "yet (ROADMAP.md queue A item 15: out-of-core training)")
+        self._dataset = dataset
         if config.shard_features:
             raise NotImplementedError(
                 f"coordinate {name!r}: shard_features is not ported yet "
@@ -108,6 +113,28 @@ class FixedEffectCoordinate:
         host_x = dataset.feature_shards[config.feature_shard]
         self.dim = host_x.shape[1]
         sparse = not isinstance(host_x, np.ndarray)
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        self._row_bytes = (self.dim + 4) * itemsize
+        if config.memory_mode == "streamed":
+            self.streamed = True
+        elif config.memory_mode == "resident":
+            self.streamed = False
+        else:  # auto: stream iff the resident shard busts half the budget
+            # (the other half stays for RE blocks, flat vectors, accumulators)
+            self.streamed = (hbm_budget_bytes is not None and not sparse
+                             and self._resident_shard_bytes(host_x)
+                             > hbm_budget_bytes // 2)
+        if self.streamed:
+            if sparse:
+                raise ValueError(
+                    f"coordinate {name!r}: memory_mode='streamed' requires a "
+                    "dense host shard (chunking a sparse matrix would re-pack "
+                    "ELL per chunk per pass); use the resident sparse path")
+            if config.optimization.downsampling_rate is not None:
+                raise ValueError(
+                    f"coordinate {name!r}: downsampling is not supported in "
+                    "streamed mode yet (the draw is a device-resident [n] "
+                    "program); use memory_mode='resident'")
         on_dev = lambda a: (None if a is None else torch.as_tensor(a).to(
             device=self.device, dtype=dtype))
         self.labels = on_dev(dataset.response)
@@ -129,11 +156,94 @@ class FixedEffectCoordinate:
                 variance=on_dev(summ.variance),
                 max_magnitude=on_dev(summ.max_magnitude),
                 intercept_index=self.dim - 1)  # intercept-last convention
-        # a sparse shard becomes a PaddedSparse with the column view its
-        # gradient needs (on a CUDA device always; on the CPU from
-        # CSC_MIN_COLS columns up, as the JAX package's single-device solve)
-        self.x = dataset.device_shard(config.feature_shard, self.device, dtype,
-                                      with_csc=True)
+        self._x = None
+        self._stream = None
+        if self.streamed:
+            from photon_ml_tpu_torch.data.streaming import ChunkPlan
+            from photon_ml_tpu_torch.ops.chunked import ChunkedGLMObjective
+            n = host_x.shape[0]
+            if config.chunk_rows is not None:
+                plan = ChunkPlan.build(n, chunk_rows=config.chunk_rows)
+            elif hbm_budget_bytes is not None:
+                # two chunks fit in the coordinate's half of the budget
+                plan = ChunkPlan.build(n, hbm_budget_bytes=hbm_budget_bytes // 2,
+                                       bytes_per_row=self._row_bytes)
+            else:
+                plan = ChunkPlan.build(n, chunk_rows=max(n // 8, 1))
+            # ONE persistent chunked objective: per-update residual offsets
+            # swap in via replace(), and its stream statistics accumulate
+            # across the fit
+            self._stream = ChunkedGLMObjective(
+                self.loss, host_x, dataset.response, plan,
+                weights=dataset.weights, norm=self.norm, device=self.device,
+                dtype=dtype)
+            # a full device copy made earlier would defeat the budget
+            dataset.release_device_shard(config.feature_shard)
+        elif hbm_budget_bytes is None:
+            self.x  # noqa: B018 — the property makes the device copy now
+
+    # --- device residency -----------------------------------------------------
+    def _resident_shard_bytes(self, host_x) -> int:
+        itemsize = torch.empty((), dtype=self.dtype).element_size()
+        if isinstance(host_x, np.ndarray):
+            return int(host_x.shape[0]) * int(host_x.shape[1]) * itemsize
+        # scipy CSR -> PaddedSparse ELL estimate: [n, k] indices + values
+        k = int(np.diff(host_x.indptr).max()) if host_x.nnz else 1
+        return int(host_x.shape[0]) * k * (4 + itemsize)
+
+    @property
+    def x(self):
+        """The device feature matrix of the shard, made lazily (so an
+        evicted coordinate copies it again on its next visit) and shared
+        with the dataset's other consumers.  A sparse shard becomes a
+        PaddedSparse with the column view its gradient needs (on a CUDA
+        device always; on the CPU from CSC_MIN_COLS columns up, as the JAX
+        package's single-device solve)."""
+        if self.streamed:
+            raise RuntimeError(f"coordinate {self.name!r} is streamed: its "
+                               "feature shard is never fully device-resident")
+        if self._x is None:
+            self._x = self._dataset.device_shard(
+                self.config.feature_shard, self.device, self.dtype, with_csc=True)
+        return self._x
+
+    def device_block_bytes(self) -> int:
+        """Evictable device bytes (the shard; the flat [n] labels/weights
+        stay resident and are counted among the flat vectors)."""
+        if self.streamed:
+            return 0
+        if self._x is not None:
+            from photon_ml_tpu_torch.ops.features import PaddedSparse
+            if isinstance(self._x, PaddedSparse):
+                # the leaves the JAX package's PaddedSparse carries
+                return sum(int(t.nbytes) for t in (
+                    self._x.indices, self._x.values, self._x.csc_row,
+                    self._x.csc_val, self._x.csc_end) if t is not None)
+            return int(self._x.nbytes)
+        return self._resident_shard_bytes(
+            self._dataset.feature_shards[self.config.feature_shard])
+
+    def streaming_buffer_bytes(self) -> int:
+        """Peak device bytes of the chunk double buffer (2 chunks)."""
+        if not self.streamed:
+            return 0
+        return 2 * self._stream.plan.chunk_bytes(self._row_bytes)
+
+    def stream_snapshot(self) -> Optional[dict]:
+        """StreamStats snapshot of the coordinate's chunk stream (None when
+        resident): its per-visit deltas land in TrackerSummary.stream and
+        solver_diagnostics()."""
+        if not self.streamed:
+            return None
+        return self._stream.stats.snapshot()
+
+    def evict_device_blocks(self) -> None:
+        """Residency-manager hook: drop the device shard between visits
+        (nothing is pinned when streamed)."""
+        if self.streamed:
+            return
+        self._x = None
+        self._dataset.release_device_shard(self.config.feature_shard)
 
     def initial_model(self) -> FixedEffectModel:
         """Zero coefficients (reference: Coordinate.initializeModel)."""
@@ -152,6 +262,9 @@ class FixedEffectCoordinate:
         opt = self.config.optimization
         budget = _budget(schedule, outer_iteration, num_outer_iterations,
                          opt.optimizer)
+        if self.streamed:
+            return self._update_streamed(model, offsets, schedule, budget,
+                                         outer_iteration, num_outer_iterations)
         weights = self.weights
         if opt.downsampling_rate is not None:
             self._key, sub = prng.split(self._key)
@@ -172,8 +285,37 @@ class FixedEffectCoordinate:
         return FixedEffectModel(model_for_task(self.task_type, Coefficients(c)),
                                 self.config.feature_shard), res
 
+    def _update_streamed(self, model, offsets, schedule, budget,
+                         outer_iteration, num_outer_iterations):
+        """The streamed solve: ONE [n] read-back of the device residual
+        vector per update (against n*d of streamed feature traffic per
+        oracle pass), then a host-stepped solve over chunk streams; a
+        schedule with a stochastic lane runs early outer iterations as
+        per-chunk local epochs and the final ones strictly."""
+        from photon_ml_tpu_torch.optim.streaming import solve_streamed
+        opt = self.config.optimization
+        obj = self._stream.replace(offsets=offsets.detach().cpu().numpy())
+        x0 = model.glm.coefficients.means
+        if self.norm is not None:
+            x0 = self.norm.model_to_transformed_space(x0)
+        stoch = None
+        stoch_plan = getattr(schedule, "stochastic_plan", None)
+        if callable(stoch_plan):
+            stoch = stoch_plan(outer_iteration, num_outer_iterations)
+        res = solve_streamed(obj, x0, opt.optimizer, opt.regularization,
+                             _in_dtype(opt.regularization_weight, self.dtype),
+                             budget=budget, stochastic=stoch)
+        c = res.x
+        if self.norm is not None:
+            c = self.norm.model_to_original_space(c)
+        return FixedEffectModel(model_for_task(self.task_type, Coefficients(c)),
+                                self.config.feature_shard), res
+
     def score(self, model: FixedEffectModel) -> torch.Tensor:
-        """Margin contribution on the training data, canonical order."""
+        """Margin contribution on the training data, canonical order (a
+        streamed pass into one device [n] vector when streamed)."""
+        if self.streamed:
+            return self._stream.scores(model.glm.coefficients.means)
         return fops.matvec(self.x, model.glm.coefficients.means)
 
     def regularization_term(self, model: FixedEffectModel) -> torch.Tensor:
@@ -190,28 +332,85 @@ class FixedEffectCoordinate:
 class _EntityCoordinateBase:
     """Shared setup for entity-keyed coordinates: the per-entity dataset,
     the flat feature view and the canonical-row -> entity-lane map used for
-    scoring."""
+    scoring.
+
+    Under an HBM budget the per-entity blocks keep their host copies
+    (keep_host_blocks) and every device view here (flat shard, projection)
+    is lazy, so the residency manager can evict this coordinate's device
+    blocks after its update and score, and the next visit copies them
+    again.  The [n] lane map stays resident (a flat vector)."""
+
+    streamed = False  # chunk streaming is a fixed-effect mode
 
     def __init__(self, name: str, dataset: GameDataset,
                  config: RandomEffectCoordinateConfig, task_type: str,
-                 device=None, dtype: torch.dtype = torch.float32, seed: int = 7):
+                 device=None, dtype: torch.dtype = torch.float32, seed: int = 7,
+                 hbm_budget_bytes: Optional[int] = None):
         self.name = name
         self.config = config
         self.task_type = task_type
         self.loss = TASK_LOSSES[task_type]
         self.device = resolve_device(device)
         self.dtype = dtype
+        self._dataset = dataset
         self.red: RandomEffectDataset = build_random_effect_dataset(
-            dataset, config.data_config(seed), device=self.device,
-            block_dtype=dtype)
-        self.flat_x = dataset.device_shard(config.feature_shard, self.device, dtype)
+            dataset, config.data_config(
+                seed, keep_host_blocks=hbm_budget_bytes is not None),
+            device=self.device, block_dtype=dtype)
+        self._flat_x = None
+        self._proj_dev = None
+        if hbm_budget_bytes is None:
+            self.flat_x  # noqa: B018 — the property makes the device copy now
         self.lanes = torch.as_tensor(self.red.flat_entity_lanes(
             dataset.entity_indices[config.random_effect_type]), device=self.device)
-        self.proj_dev = (None if self.red.projection is None
-                         else torch.as_tensor(self.red.projection, device=self.device))
         self.entity_id_values = np.asarray(
             dataset.entity_vocabs[config.random_effect_type])[self.red.entity_ids]
         self.last_buckets: List[BucketSolve] = []
+
+    @property
+    def flat_x(self) -> torch.Tensor:
+        """Device copy of the flat shard (scoring gathers through it), made
+        again after an eviction."""
+        if self._flat_x is None:
+            self._flat_x = self._dataset.device_shard(
+                self.config.feature_shard, self.device, self.dtype)
+        return self._flat_x
+
+    @property
+    def proj_dev(self) -> Optional[torch.Tensor]:
+        """Device copy of the per-entity projection, one per residency."""
+        if self._proj_dev is None and self.red.projection is not None:
+            self._proj_dev = torch.as_tensor(self.red.projection, device=self.device)
+        return self._proj_dev
+
+    # --- device residency ----------------------------------------------------
+    def device_block_bytes(self) -> int:
+        """Evictable device bytes: per-entity blocks + the flat shard view
+        + the projection (a shard shared by two coordinates counts in both:
+        an upper bound)."""
+        total = self.red.device_bytes()
+        if self._flat_x is not None:
+            total += int(self._flat_x.nbytes)
+        else:
+            host_x = self._dataset.feature_shards[self.config.feature_shard]
+            itemsize = torch.empty((), dtype=self.dtype).element_size()
+            total += int(host_x.shape[0]) * int(host_x.shape[1]) * itemsize
+        if self.red.projection is not None:
+            total += int(np.asarray(self.red.projection).nbytes)
+        return total
+
+    def streaming_buffer_bytes(self) -> int:
+        return 0
+
+    def evict_device_blocks(self) -> None:
+        """Residency-manager hook: drop this coordinate's device blocks
+        (per-entity buckets, flat shard view, projection); queued kernels
+        keep their tensors alive, and the next visit copies them again
+        from the host copies."""
+        self.red.evict_device_blocks()
+        self._flat_x = None
+        self._proj_dev = None
+        self._dataset.release_device_shard(self.config.feature_shard)
 
     def _score_model(self, model) -> torch.Tensor:
         """All rows (active and passive) scored against their entity's
@@ -321,8 +520,10 @@ class FactoredRandomEffectCoordinate(_EntityCoordinateBase):
 
     def __init__(self, name: str, dataset: GameDataset,
                  config: FactoredRandomEffectCoordinateConfig, task_type: str,
-                 device=None, dtype: torch.dtype = torch.float32, seed: int = 7):
-        super().__init__(name, dataset, config, task_type, device, dtype, seed)
+                 device=None, dtype: torch.dtype = torch.float32, seed: int = 7,
+                 hbm_budget_bytes: Optional[int] = None):
+        super().__init__(name, dataset, config, task_type, device, dtype, seed,
+                         hbm_budget_bytes)
         self.seed = seed
         self._key = prng.PRNGKey(seed + 1)
         self.warm_start_source: Optional[str] = None

@@ -10,9 +10,11 @@ configuration; `fit_grid` is the multi-configuration sweep
 Both timing modes of the JAX package run, "pipelined" by default, with
 checkpoints and resume (`checkpoint_dir`, verified against the same
 configuration fingerprint the JAX package computes), the non-finite solve
-quarantine and solver schedules (a coordinate's own schedule over the
-training config's).  Not ported yet: HBM budgets (ROADMAP.md queue A item
-15), meshes (item 20), events and telemetry (item 19).
+quarantine, solver schedules (a coordinate's own schedule over the
+training config's) and HBM budgets (`hbm_budget_bytes`: streamed fixed
+effects and residency rotation, game/residency.py; the result's
+`residency` holds the byte accounts).  Not ported yet: meshes (ROADMAP.md
+queue A item 20), events and telemetry (item 19).
 """
 from __future__ import annotations
 
@@ -42,6 +44,7 @@ from photon_ml_tpu_torch.game.coordinates import (
     Coordinate, FactoredRandomEffectCoordinate, FixedEffectCoordinate,
     RandomEffectCoordinate,
 )
+from photon_ml_tpu_torch.game.residency import ResidencyManager
 from photon_ml_tpu_torch.models.game import GameModel
 
 
@@ -59,6 +62,10 @@ class GameResult:
     # .recovery: fallback flag, pruned partial writes, resumed iteration);
     # None when the fit started fresh or checkpointing was off
     checkpoint_recovery: Optional[dict] = None
+    # HBM residency accounting (ResidencyManager.accounting()): budget,
+    # per-coordinate block and chunk bytes, evictions, the tracked peak,
+    # under_budget and the streamed coordinates' StreamStats
+    residency: Optional[dict] = None
 
 
 class GameEstimator:
@@ -68,10 +75,6 @@ class GameEstimator:
 
     def __init__(self, config: GameTrainingConfig, device=None,
                  dtype: torch.dtype = torch.float32):
-        if config.hbm_budget_bytes is not None:
-            raise NotImplementedError(
-                "hbm_budget_bytes (device residency under a budget) is not "
-                "ported yet (ROADMAP.md queue A item 15)")
         self.config = config
         self.device = resolve_device(device)
         self.dtype = dtype
@@ -99,7 +102,8 @@ class GameEstimator:
                     (dataset.index_maps or {}).get(cfg.feature_shard))
                 cfg = dataclasses.replace(cfg, optimization=dataclasses.replace(
                     cfg.optimization, optimizer=opt))
-            kw = dict(device=self.device, dtype=self.dtype, seed=self.config.seed)
+            kw = dict(device=self.device, dtype=self.dtype, seed=self.config.seed,
+                      hbm_budget_bytes=self.config.hbm_budget_bytes)
             if isinstance(cfg, FixedEffectCoordinateConfig):
                 kind = FixedEffectCoordinate
             elif isinstance(cfg, FactoredRandomEffectCoordinateConfig):
@@ -108,6 +112,21 @@ class GameEstimator:
                 kind = RandomEffectCoordinate
             coords[name] = kind(name, dataset, cfg, self.config.task_type, **kw)
         return coords
+
+    def _residency_manager(self, coords, dataset: GameDataset) -> ResidencyManager:
+        """HBM residency bookkeeping (game/residency.py): always built, so
+        every fit reports byte accounts; it only EVICTS when
+        hbm_budget_bytes is set and the coordinates' resident blocks bust
+        it.  The flat [n] vectors are counted as the JAX package counts
+        them: per-coordinate scores + total + base offsets + labels (+
+        weights), and a 4-byte lane map per entity-keyed coordinate."""
+        itemsize = torch.empty((), dtype=self.dtype).element_size()
+        n = dataset.num_rows
+        flat = (len(self.config.updating_sequence) + 3) * n * itemsize
+        flat += sum(4 * n for c in self.config.coordinates.values()
+                    if hasattr(c, "random_effect_type"))
+        return ResidencyManager(coords, self.config.hbm_budget_bytes,
+                                flat_vector_bytes=flat)
 
     def _config_fingerprint(
             self, evaluator_specs: Optional[Sequence[str]]) -> str:
@@ -165,6 +184,7 @@ class GameEstimator:
         # coordinate construction includes the random-effect bucketing
         with spans.span("build/coordinates"):
             coords = self._build_coordinates(dataset)
+        residency = self._residency_manager(coords, dataset)
         specs = (self._validation_specs(evaluator_specs)
                  if validation_dataset is not None else [])
         resume = fingerprint = None
@@ -185,7 +205,8 @@ class GameEstimator:
             timings=spans, timing_mode=timing_mode, device=self.device,
             dtype=self.dtype, checkpoint_dir=checkpoint_dir, resume=resume,
             checkpoint_fingerprint=fingerprint,
-            solver_schedules=schedules if any(schedules.values()) else None)
+            solver_schedules=schedules if any(schedules.values()) else None,
+            residency=residency)
         validation = {name: hist[-1] for name, hist in
                       descent.validation_history.items() if hist}
         return GameResult(model=descent.best_model, config=self.config,
@@ -193,7 +214,8 @@ class GameEstimator:
                           validation=validation, descent=descent,
                           validation_specs=specs,
                           checkpoint_recovery=(resume.recovery if resume is not None
-                                               else None))
+                                               else None),
+                          residency=residency.accounting())
 
     def fit_grid(
         self,

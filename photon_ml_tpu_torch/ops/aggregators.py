@@ -7,16 +7,17 @@ Normalization is algebraic, never materialized:
   Hv   = (X^T(w*l''*dz) - shift * sum(w*l''*dz)) * factor,
          dz_i = x_i.(v*factor) - (v*factor).shift
 
-`value_and_gradient` on a CUDA feature matrix, with no mask and no shift,
-runs a hand-written pass with factors folded in as e = c*factor and
-grad*factor: the fused kernel for a dense X (ops/hopper_kernels.py, one
-launch), kernels A then B for a PaddedSparse (ops/sparse_kernels.py, two
-launches).  Masked or shifted objectives, and every `KroneckerDesign`
-(the latent refit's implicit design: two matrix products, as the JAX
-package computes it outside its Pallas kernel), take the algebra below,
-whose products on a CUDA PaddedSparse are kernels A and B too: a dispatch
-on the kind of input, not a fallback on failure.  Weights/offsets may be None
-(1 / 0).
+`value_and_gradient` on a CUDA feature matrix runs a hand-written pass
+with factors folded in as e = c*factor and grad*factor: the fused kernel
+for a dense X (ops/hopper_kernels.py, one launch, row mask and
+normalization shift included), kernels A then B for a PaddedSparse
+(ops/sparse_kernels.py, two launches) without a mask or a shift.  A masked
+or shifted PaddedSparse objective (kernels A and B take neither yet), and
+every `KroneckerDesign` (the latent refit's implicit design: two matrix
+products, as the JAX package computes it outside its Pallas kernel), take
+the algebra below, whose products on a CUDA PaddedSparse are kernels A and
+B too: a dispatch on the kind of input, not a fallback on failure.
+Weights/offsets may be None (1 / 0).
 """
 from __future__ import annotations
 
@@ -77,17 +78,19 @@ def value_and_gradient(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(sum_i w_i l(z_i, y_i),  d/dc of it).  `mask` (0/1 per row) drops
     padded rows."""
-    if (x.is_cuda and mask is None and (norm is None or norm.shifts is None)
-            and not isinstance(x, fops.KroneckerDesign)):
+    shifts = None if norm is None else norm.shifts
+    sparse = isinstance(x, fops.PaddedSparse)
+    if (x.is_cuda and not isinstance(x, fops.KroneckerDesign)
+            and not (sparse and (mask is not None or shifts is not None))):
         factors = None if norm is None else norm.factors
         e = coefficients if factors is None else coefficients * factors
-        if isinstance(x, fops.PaddedSparse):
+        if sparse:
             value, u = sparse_kernels.ell_margin_loss(
                 loss, x.indices, x.values, e, labels, weights, offsets)
             grad = fops.rmatvec(x, u)
         else:
             value, grad = hopper_kernels.fused_value_and_gradient(
-                loss, x, labels, e, weights, offsets)
+                loss, x, labels, e, weights, offsets, mask, shifts)
         return value, (grad if factors is None else grad * factors)
 
     z = compute_margins(x, coefficients, offsets, norm)

@@ -3,7 +3,11 @@
 `fused_value_and_gradient` replaces the JAX package's one TPU kernel,
 photon_ml_tpu/ops/pallas_kernels.py::fused_value_and_gradient: one pass over
 a dense X [n, d] gives (sum_i w_i l(z_i, y_i), X^T (w * l'(z, y))) with
-z = X c (+ o).  On a CUDA tensor the wrapper launches the CUDA kernel
+z = X c (+ o).  It also takes a row mask (a select, as the JAX package's
+aggregators: a masked row adds nothing, even a non-finite loss) and the
+normalization shift s (z gains -(c . s), the gradient becomes
+X^T (w l') - s * sum(w l')), so streamed chunks and standardized fits run
+the kernel too.  On a CUDA tensor the wrapper launches the CUDA kernel
 (csrc/fused_value_and_gradient.cu, built at first use by ops/_build.py) or
 raises; on a CPU tensor it runs the plain version.  Importing this module
 builds nothing.
@@ -49,7 +53,7 @@ def _round4(v: int) -> int:
 class SmemLayout:
     """Offsets in floats into the kernel's dynamic shared memory (as
     smem_layout() in the CUDA source): `stages` stages of `stage` floats,
-    each [X tile (stage_x) | y | w | o (stage_v each)], then c, two
+    each [X tile (stage_x) | y | w | o | m (stage_v each)], then c, two
     buffers of s, the reduction area and the mbarriers at `bars`; `bytes`
     in all."""
     stage_x: int
@@ -65,11 +69,11 @@ class SmemLayout:
 def smem_layout(d: int, rows: int, stages: int) -> SmemLayout:
     stage_x = _round4(rows * d + 3)
     stage_v = _round4(rows + 3)
-    stage = stage_x + 3 * stage_v
+    stage = stage_x + 4 * stage_v
     c = stages * stage
     s = c + _round4(d)
     red = s + 2 * _round4(rows)
-    bars = red + 2 * CONSUMERS
+    bars = red + 3 * CONSUMERS
     return SmemLayout(stage_x, stage_v, stage, c, s, red, bars,
                       bars * 4 + 2 * stages * 8)
 
@@ -118,7 +122,7 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-# (device index, stream) -> (partial rows [>= grid * (d + 1)], ticket).  The
+# (device index, stream) -> (partial rows [>= grid * (d + 2)], ticket).  The
 # kernel leaves its ticket at 0, so one zeroed ticket serves every call on
 # its stream; calls on one stream run in order, so they share the scratch.
 _WORKSPACES: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
@@ -141,17 +145,30 @@ def fused_value_and_gradient_plain(
     coefficients: torch.Tensor,
     weights: Optional[torch.Tensor] = None,
     offsets: Optional[torch.Tensor] = None,
+    mask: Optional[torch.Tensor] = None,
+    shifts: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's function in plain PyTorch, in the inputs' dtype: two
-    matrix-vector products around the pointwise loss."""
+    matrix-vector products around the pointwise loss.  `mask` selects rows
+    (where, not multiply); `shifts` s adds -(c . s) to every margin and
+    takes s * sum(w l') off the gradient."""
     z = torch.mv(x, coefficients)
+    if shifts is not None:
+        z = z - torch.dot(coefficients, shifts)
     if offsets is not None:
         z = z + offsets
     l, dl = loss.loss_and_dz(z, labels)
     if weights is not None:
         l = l * weights
         dl = dl * weights
-    return l.sum(), torch.mv(x.T, dl)
+    if mask is not None:
+        keep = mask != 0
+        l = torch.where(keep, l, torch.zeros_like(l))
+        dl = torch.where(keep, dl, torch.zeros_like(dl))
+    grad = torch.mv(x.T, dl)
+    if shifts is not None:
+        grad = grad - shifts * dl.sum()
+    return l.sum(), grad
 
 
 def _check_operand(name: str, t: torch.Tensor, shape, device) -> None:
@@ -172,15 +189,19 @@ def fused_value_and_gradient(
     coefficients: torch.Tensor,
     weights: Optional[torch.Tensor] = None,
     offsets: Optional[torch.Tensor] = None,
+    mask: Optional[torch.Tensor] = None,
+    shifts: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(sum_i w_i l(z_i, y_i), gradient) in one pass over X.
+    """(sum_i w_i l(z_i, y_i), gradient) in one pass over X, over the rows
+    whose `mask` is nonzero, with the margin shift -(c . s) of `shifts`.
 
     CPU tensors run the plain version.  CUDA tensors launch the kernel:
     every operand float32, contiguous and on X's device, d <= D_MAX;
-    anything else raises."""
+    anything else raises.  The shift's scalar is computed on the device
+    and read by the kernel (no read-back)."""
     if x.device.type == "cpu":
         return fused_value_and_gradient_plain(loss, x, labels, coefficients,
-                                              weights, offsets)
+                                              weights, offsets, mask, shifts)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     if x.ndim != 2:
@@ -194,22 +215,32 @@ def fused_value_and_gradient(
         _check_operand("weights", weights, (n,), x.device)
     if offsets is not None:
         _check_operand("offsets", offsets, (n,), x.device)
+    if mask is not None:
+        _check_operand("mask", mask, (n,), x.device)
+    if shifts is not None:
+        _check_operand("shifts", shifts, (d,), x.device)
 
     from photon_ml_tpu_torch.ops import _build
     lib = _build.load_library("fused_value_and_gradient")
-    out = torch.empty((d + 1,), dtype=torch.float32, device=x.device)
+    out = torch.empty((d + 2,), dtype=torch.float32, device=x.device)
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(x.device):
+        # -(c . s), one device scalar every margin adds
+        shift = None if shifts is None else -torch.dot(coefficients, shifts).reshape(1)
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        partial, ticket = _workspace(x.device, stream, plan.grid * (d + 1))
+        partial, ticket = _workspace(x.device, stream, plan.grid * (d + 2))
         err = lib.pmt_fused_value_and_gradient(
             loss.kernel_id, x.data_ptr(), labels.data_ptr(), ptr(weights),
-            ptr(offsets), coefficients.data_ptr(), partial.data_ptr(),
-            ticket.data_ptr(), out.data_ptr(), n, d, plan.rows_per_tile,
-            plan.stages, plan.grid, plan.acc_per_thread, plan.layout.bytes, stream)
+            ptr(offsets), ptr(mask), ptr(shift), coefficients.data_ptr(),
+            partial.data_ptr(), ticket.data_ptr(), out.data_ptr(), n, d,
+            plan.rows_per_tile, plan.stages, plan.grid, plan.acc_per_thread,
+            plan.layout.bytes, stream)
     if err != 0:
         raise RuntimeError("fused_value_and_gradient launch failed: "
                            f"{lib.pmt_error_string(err).decode()} ({err})")
     global LAUNCHES
     LAUNCHES += 1
-    return out[0], out[1:]
+    grad = out[1:d + 1]
+    if shifts is not None:
+        grad = grad - shifts * out[d + 1]
+    return out[0], grad

@@ -19,9 +19,10 @@ plain numpy uint32 array of shape [2], as JAX's raw keys are.
 - `normal(key, shape, dtype)`: sqrt(2) * erfinv(u) for u uniform on
   (-1, 1), with erfinv as XLA's CPU backend evaluates it (its log1p and,
   in float32, its log included), so the draws match bit for bit.
-
-The stochastic lane's `permutation` is not copied yet (ROADMAP.md queue A
-item 16, its only user).
+- `permutation(key, n)`: JAX's `_shuffle` of arange(n): ceil(3 ln n /
+  ln(2^32 - 1)) rounds, each splitting the key and stably sorting the
+  indices by 32 random bits of the new subkey (the stochastic lane's
+  coordinate order, optim/stochastic.py).
 """
 from __future__ import annotations
 
@@ -329,3 +330,15 @@ def normal(key: Key, shape: Shape, dtype=np.float32) -> np.ndarray:
     lo = np.nextafter(np.array(-1.0, dt), np.array(0.0, dt), dtype=dt)
     u = uniform(key, shape, dt, lo, dt.type(1.0))
     return dt.type(np.sqrt(2)) * erfinv(u)
+
+
+def permutation(key: Key, n: int) -> np.ndarray:
+    """`jax.random.permutation(key, n)` for an int n, bit for bit: int64
+    indices (JAX's are int32 of the same values)."""
+    n = int(n)
+    rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(np.iinfo(np.uint32).max)))
+    x = np.arange(n)
+    for _ in range(rounds):
+        key, sub = split(key)
+        x = x[np.argsort(random_bits(sub, (n,), 32), kind="stable")]
+    return x

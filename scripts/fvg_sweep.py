@@ -118,9 +118,9 @@ def main() -> int:
     base = torch.linspace(-0.1, 0.1, d, device="cuda")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     acc = hk.plan_fused(n, d, sms).acc_per_thread
-    partial = torch.empty(2 * sms * (d + 1), device="cuda")
+    partial = torch.empty(2 * sms * (d + 2), device="cuda")
     ticket = torch.zeros(1, dtype=torch.int32, device="cuda")
-    out = torch.empty(d + 1, device="cuda")
+    out = torch.empty(d + 2, device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
     bound_ms = 4 * (n * d + n + 2 * d + 1) / 3.35e12 * 1e3
 
@@ -147,7 +147,8 @@ def main() -> int:
     def launch(lib, p):
         def call(c):
             err = lib.pmt_fused_value_and_gradient(
-                0, x.data_ptr(), y.data_ptr(), None, None, c.data_ptr(), partial.data_ptr(),
+                0, x.data_ptr(), y.data_ptr(), None, None, None, None, c.data_ptr(),
+                partial.data_ptr(),
                 ticket.data_ptr(), out.data_ptr(), n, d, p["rows"], p["stages"], p["grid"],
                 acc, p["layout"].bytes, stream)
             if err:

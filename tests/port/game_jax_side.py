@@ -3,7 +3,8 @@ model-persistence and command-line parity tests, run in a subprocess of
 its own.
 
     python tests/port/game_jax_side.py \
-        tron|solver|estimator|sparse|factored|samplers|prng|model_io|cli|containment OUT.npz
+        tron|solver|estimator|sparse|factored|samplers|prng|model_io|cli|containment|stream \
+        OUT.npz
 
 The parity tests (test_torch_tron.py, test_torch_game_solver.py,
 test_torch_game_estimator.py, test_torch_sparse_training.py,
@@ -372,6 +373,8 @@ def kron_problem(seed: int = 4) -> dict:
 # prng: jax.random draws for test_torch_prng.py
 PRNG_SEEDS = (0, 1, 7, 13, 2**31 - 1, 2**40 + 5)
 PRNG_SHAPES = ((7,), (3, 5), (1001,), (2, 3, 4), (1,))
+# jax.random.permutation(key, n): the stochastic lane's coordinate orders
+PRNG_PERMUTATION_NS = (1, 2, 16, 48, 124, 2000)
 PRNG_SPLITS = (2, 3, 5, (2, 3))
 PRNG_FOLDS = (0, 1, 77, 2**32 - 1)
 PRNG_NORMAL_SEEDS, PRNG_NORMAL_N = 5, 20_000
@@ -693,6 +696,10 @@ def _run_prng(out: dict) -> None:
             jax.lax.erf_inv(jnp.asarray(erfinv_inputs(np.dtype(name)))))
     out["normal_f32_4x9_seed11"] = np.asarray(
         jax.random.normal(jax.random.PRNGKey(11), (4, 9), dtype=jnp.float32))
+    for seed in PRNG_SEEDS:
+        key = jax.random.fold_in(jax.random.fold_in(jax.random.PRNGKey(seed), 2), 5)
+        for n in PRNG_PERMUTATION_NS:
+            out[f"{seed}/permutation/{n}"] = np.asarray(jax.random.permutation(key, n))
 
 
 # model persistence: one small dataset and one model of each kind the port
@@ -837,6 +844,17 @@ def cli_jobs(root: Path) -> list:
                                "--validation-data", d("val.npz"),
                                "--config", d("config.json"), "--evaluators", "AUC",
                                *common]),
+        # out of core: the fixed effect's 0.71 MB shard streams under a
+        # 0.6 MB budget; the legacy path streams its one coordinate
+        ("game_npz_hbm", "train", ["--train-data", d("train.npz"),
+                                   "--validation-data", d("val.npz"),
+                                   "--config", d("config.json"), "--evaluators", "AUC",
+                                   "--hbm-budget", "0.6MB",
+                                   *common]),
+        ("legacy_npz_hbm", "train", ["--train-data", d("train.npz"),
+                                     "--validation-data", d("val.npz"),
+                                     "--reg-weights", "1", "--evaluators", "AUC",
+                                     "--hbm-budget", "500KB", *common]),
         ("index", "index", ["--data", d("avro", "train"),
                             "--feature-shard-map", CLI_SHARD_MAP]),
         ("game_avro", "train", ["--train-data", d("avro", "train"),
@@ -1094,6 +1112,221 @@ def _store_containment(out: dict, key: str, res) -> None:
     out[f"{key}/frozen"] = np.asarray(json.dumps(res.descent.frozen_coordinates))
 
 
+# out of core (the "stream" mode): the chunked oracle, the streamed
+# solvers, the stochastic lane and streamed GLMix fits under a budget, all
+# in float64
+ORACLE_N, ORACLE_D, ORACLE_CHUNK, ORACLE_SEED = 3000, 12, 512, 21
+# case -> (loss, weights + offsets, user row mask, standardization shifts)
+ORACLE_CASES = {"plain": ("logistic", False, False, False),
+                "wo": ("logistic", True, False, False),
+                "mask": ("logistic", False, True, False),
+                "shift": ("logistic", False, False, True),
+                "all": ("logistic", True, True, True),
+                "poisson_all": ("poisson", True, True, True),
+                "squared_mask": ("squared", True, True, False)}
+SOLVE_N, SOLVE_D, SOLVE_CHUNK, SOLVE_SEED = 2000, 10, 256, 5
+# case -> (optimizer options, regularization, lambda)
+STREAM_SOLVES = {"lbfgs": ({"max_iterations": 60, "tolerance": 1e-9}, "l2", 1.0),
+                 "owlqn": ({"max_iterations": 60, "tolerance": 1e-9}, "l1", 0.5),
+                 # TRON's gradient test at 1e-6, as _TRON's above
+                 "tron": ({"optimizer": "tron", "max_iterations": 15,
+                           "tolerance": 1e-6}, "l2", 1.0)}
+STREAM_CAPS = (None, 3, 0)
+# bench.py --stoch --smoke's out-of-core leg: n 16,384, d 16, 2 passes of 6
+# local epochs, LBFGS(80) polish; plus Poisson (the step clip) and a
+# standardized objective at a smaller size
+STOCH_N, STOCH_D, STOCH_SEED, STOCH_PASSES, STOCH_EPOCHS = 16384, 16, 7, 2, 6
+# case -> (loss, rows, d, merge, standardized)
+STOCH_CASES = {"sequential": ("logistic", STOCH_N, STOCH_D, "sequential", False),
+               "average": ("logistic", STOCH_N, STOCH_D, "average", False),
+               "poisson": ("poisson", 4096, 8, "sequential", False),
+               "standardized": ("logistic", 4096, 8, "sequential", True)}
+# bench.py --stream --smoke: n 6,000, d_global 24, 300 users, d_user 4,
+# 2 outer iterations of LBFGS(8), seed 17; the budget is half the resident
+# footprint, floored at the largest coordinate + the flat vectors
+RES_N, RES_DG, RES_USERS, RES_DU, RES_OUTER, RES_ITERS, RES_SEED = \
+    6000, 24, 300, 4, 2, 8, 17
+RES_SCHEDULE = {"stochastic_passes": 2, "stochastic_local_epochs": 6,
+                "stochastic_seed": 17}
+
+
+def oracle_problem(case: str) -> dict:
+    """The chunked-oracle problem of `case`: x [3000, 12] with an intercept,
+    labels of the case's loss, and the case's weights, offsets, row mask
+    (about 30% zeros) and standardization (factors, shifts)."""
+    loss, wo, mask, shift = ORACLE_CASES[case]
+    rng = np.random.default_rng(ORACLE_SEED)
+    n, d = ORACLE_N, ORACLE_D
+    x = rng.normal(size=(n, d)) + 0.5
+    x[:, -1] = 1.0
+    z = x @ (rng.normal(size=d) * 0.3)
+    if loss == "logistic":
+        y = (rng.uniform(size=n) < 1 / (1 + np.exp(-z))).astype(float)
+    elif loss == "poisson":
+        y = rng.poisson(np.exp(0.3 * z)).astype(float)
+    else:
+        y = z + rng.normal(size=n)
+    out = {"x": x, "y": y, "c": rng.normal(size=d) * 0.2,
+           "v": rng.normal(size=d),
+           "w": rng.uniform(0.5, 2.0, size=n) if wo else None,
+           "o": rng.normal(size=n) * 0.2 if wo else None,
+           "m": (rng.uniform(size=n) > 0.3).astype(float) if mask else None,
+           "f": None, "s": None}
+    if shift:
+        mean, std = x.mean(axis=0), x.std(axis=0)
+        std[-1] = 1.0
+        out["f"], out["s"] = 1.0 / std, mean
+        out["s"][-1] = 0.0
+    return out
+
+
+def solve_problem() -> tuple:
+    rng = np.random.default_rng(SOLVE_SEED)
+    x = rng.normal(size=(SOLVE_N, SOLVE_D))
+    x[:, -1] = 1.0
+    y = (rng.uniform(size=SOLVE_N) < 1 / (1 + np.exp(-(x @ rng.normal(size=SOLVE_D)))))
+    return x, y.astype(float)
+
+
+def stoch_problem(case: str) -> tuple:
+    """bench.py's _stoch_problem (logistic) at the case's size; Poisson
+    labels from the same draws for the Poisson case."""
+    loss, n, d, _, _ = STOCH_CASES[case]
+    rng = np.random.default_rng(STOCH_SEED)
+    x = rng.normal(size=(n, d))
+    x[:, -1] = 1.0
+    w = rng.normal(size=d) * 0.5
+    if loss == "poisson":
+        y = rng.poisson(np.exp(0.5 * (x @ w))).astype(float)
+    else:
+        y = (rng.uniform(size=n) < 1 / (1 + np.exp(-(x @ w)))).astype(float)
+    return x, y
+
+
+def stoch_norm(x) -> tuple:
+    mean, std = x.mean(axis=0), x.std(axis=0)
+    std[-1], mean[-1] = 1.0, 0.0
+    return 1.0 / std, mean
+
+
+def stream_config_dict(budget, schedule=None) -> dict:
+    """bench.py's _stream_config(RES_OUTER, RES_ITERS, budget, seed=RES_SEED)
+    as GameTrainingConfig JSON, with an optional solver schedule."""
+    opt = {"optimizer": {"optimizer": "lbfgs", "max_iterations": RES_ITERS},
+           "regularization": {"type": "l2"}, "regularization_weight": 1.0}
+    return {"task_type": "logistic_regression",
+            "coordinates": {
+                "fixed": {"kind": "fixed_effect", "feature_shard": "global",
+                          "optimization": opt},
+                "perUser": {"kind": "random_effect", "random_effect_type": "userId",
+                            "feature_shard": "per_user", "projector": "identity",
+                            "optimization": opt}},
+            "updating_sequence": ["fixed", "perUser"],
+            "num_outer_iterations": RES_OUTER, "seed": RES_SEED,
+            "hbm_budget_bytes": budget, "solver_schedule": schedule}
+
+
+def stream_budget(acct: dict) -> int:
+    """bench.py _stream_entry's budget from a resident fit's accounting."""
+    resident_total = acct["resident_block_total"] + acct["flat_vector_bytes"]
+    floor = int((max(acct["resident_block_bytes"].values())
+                 + acct["flat_vector_bytes"]) * 1.05)
+    return max(int(resident_total * 0.5), floor)
+
+
+# streamed GLMix fits: name -> (budgeted, timing mode, schedule)
+RES_FITS = {"resident": (False, "pipelined", None),
+            "streamed": (True, "pipelined", None),
+            "streamed_strict": (True, "strict", None),
+            "stochastic": (True, "pipelined", RES_SCHEDULE)}
+
+
+def _run_stream(out: dict) -> None:
+    import json
+    import jax.numpy as jnp
+    from photon_ml_tpu.data.streaming import ChunkPlan
+    from photon_ml_tpu.game import GameEstimator, GameTrainingConfig
+    from photon_ml_tpu.ops.chunked import ChunkedGLMObjective
+    from photon_ml_tpu.ops.losses import BY_NAME
+    from photon_ml_tpu.ops.normalization import NormalizationContext
+    from photon_ml_tpu.optim import (OptimizerConfig, OptimizerType,
+                                     RegularizationContext, RegularizationType,
+                                     SolveBudget, StochasticPlan, solve_streamed,
+                                     solve_stochastic)
+    j = lambda a: None if a is None else jnp.asarray(a)
+    for case, (loss, *_rest) in ORACLE_CASES.items():
+        p = oracle_problem(case)
+        norm = (None if p["f"] is None
+                else NormalizationContext(j(p["f"]), j(p["s"]), ORACLE_D - 1))
+        obj = ChunkedGLMObjective(BY_NAME[loss], p["x"], p["y"],
+                                  ChunkPlan.build(ORACLE_N, chunk_rows=ORACLE_CHUNK),
+                                  weights=p["w"], offsets=p["o"], mask=p["m"],
+                                  norm=norm, l2_weight=0.5)
+        c = j(p["c"])
+        v, g = obj.value_and_gradient(c)
+        out[f"oracle/{case}/value"] = np.asarray(obj.value(c))
+        out[f"oracle/{case}/vg_value"], out[f"oracle/{case}/grad"] = np.asarray(v), np.asarray(g)
+        out[f"oracle/{case}/hv"] = np.asarray(obj.hessian_vector(c, j(p["v"])))
+        if norm is None:
+            out[f"oracle/{case}/hd"] = np.asarray(obj.hessian_diagonal(c))
+        out[f"oracle/{case}/scores"] = np.asarray(obj.scores(c))
+        out[f"oracle/{case}/stats"] = np.asarray(json.dumps(obj.stats.snapshot()))
+
+    x, y = solve_problem()
+    for case, (opt, reg, lam) in STREAM_SOLVES.items():
+        opt = dict(opt, optimizer=OptimizerType(opt.get("optimizer", "lbfgs")))
+        cfg = OptimizerConfig(**opt)
+        for cap in STREAM_CAPS:
+            obj = ChunkedGLMObjective(BY_NAME["logistic"], x, y,
+                                      ChunkPlan.build(SOLVE_N, chunk_rows=SOLVE_CHUNK))
+            budget = None if cap is None else SolveBudget.make(cap, cfg.tolerance)
+            res = solve_streamed(obj, jnp.zeros(SOLVE_D), cfg,
+                                 RegularizationContext(RegularizationType(reg)), lam,
+                                 budget=budget)
+            _store(out, f"solve/{case}/{cap}", res)
+            out[f"solve/{case}/{cap}/passes"] = np.asarray(obj.stats.passes)
+
+    for case, (loss, n, d, merge, standardized) in STOCH_CASES.items():
+        x, y = stoch_problem(case)
+        norm = None
+        if standardized:
+            f, s_ = stoch_norm(x)
+            norm = NormalizationContext(j(f), j(s_), d - 1)
+        obj = ChunkedGLMObjective(BY_NAME[loss], x, y,
+                                  ChunkPlan.build(n, chunk_rows=max(n // 8, 256)),
+                                  norm=norm)
+        plan = StochasticPlan(passes=STOCH_PASSES, local_epochs=STOCH_EPOCHS,
+                              seed=STOCH_SEED, merge=merge)
+        cfg = OptimizerConfig(max_iterations=80, tolerance=1e-9)
+        l2 = RegularizationContext(RegularizationType.L2)
+        coarse = solve_streamed(obj, jnp.zeros(d), cfg, l2, 1.0, stochastic=plan)
+        polish = solve_streamed(obj, coarse.x, cfg, l2, 1.0)
+        out[f"stoch/{case}/x"] = np.asarray(coarse.x)
+        out[f"stoch/{case}/loss_history"] = np.asarray(coarse.loss_history)
+        _store(out, f"stoch/{case}/polish", polish)
+        out[f"stoch/{case}/stats"] = np.asarray(json.dumps(obj.stats.snapshot()))
+
+    import sys as _sys
+    _sys.path.insert(0, str(ROOT))
+    from bench import _pipeline_dataset
+    train, val = _pipeline_dataset(RES_N, RES_DG, RES_USERS, RES_DU, RES_SEED)
+    budget = None
+    for name, (budgeted, mode, schedule) in RES_FITS.items():
+        cfg = GameTrainingConfig.from_dict(
+            stream_config_dict(budget if budgeted else None, schedule))
+        res = GameEstimator(cfg).fit(train, val, ["AUC"], timing_mode=mode)
+        if name == "resident":
+            budget = stream_budget(res.residency)
+            out["res/budget"] = np.asarray(budget)
+        out[f"res/{name}/objective_history"] = np.asarray(res.objective_history)
+        out[f"res/{name}/auc_history"] = np.asarray(res.descent.validation_history["AUC"])
+        out[f"res/{name}/accounting"] = np.asarray(json.dumps(res.residency))
+        out[f"res/{name}/diagnostics"] = np.asarray(json.dumps(
+            res.descent.solver_diagnostics()))
+        out[f"res/{name}/trackers"] = np.asarray(json.dumps(
+            {k: t.stream for k, t in res.descent.trackers.items()}))
+
+
 def run_jax_side(what: str, out: Path) -> dict:
     """Run this script for `what` in a fresh process; its results."""
     env = dict(os.environ, PYTHONPATH=str(ROOT), JAX_PLATFORMS="cpu")
@@ -1104,6 +1337,17 @@ def run_jax_side(what: str, out: Path) -> dict:
         raise RuntimeError(f"the JAX side failed:\n{proc.stderr[-4000:]}")
     with np.load(out) as z:
         return {k: z[k] for k in z.files}
+
+
+# the stream mode's results, shared by the three test modules that read them
+# (one subprocess per test process)
+_STREAM_RESULTS: dict = {}
+
+
+def stream_results(out: Path) -> dict:
+    if not _STREAM_RESULTS:
+        _STREAM_RESULTS.update(run_jax_side("stream", out))
+    return _STREAM_RESULTS
 
 
 def main(argv) -> int:
@@ -1121,7 +1365,8 @@ def main(argv) -> int:
     else:
         {"tron": _run_tron, "solver": _run_solver, "estimator": _run_estimator,
          "sparse": _run_sparse, "factored": _run_factored,
-         "samplers": _run_samplers, "prng": _run_prng}[what](out)
+         "samplers": _run_samplers, "prng": _run_prng,
+         "stream": _run_stream}[what](out)
     np.savez(path, **out)
     return 0
 

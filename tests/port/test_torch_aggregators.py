@@ -16,11 +16,13 @@ from photon_ml_tpu.ops.normalization import NormalizationContext as JNorm
 from photon_ml_tpu.ops.objective import GLMObjective as JObjective
 from photon_ml_tpu_torch.convert import normalization_from_numpy
 from photon_ml_tpu_torch.ops import aggregators as tagg
+from photon_ml_tpu_torch.ops import hopper_kernels as hk
 from photon_ml_tpu_torch.ops import losses as TL
 from photon_ml_tpu_torch.ops.objective import GLMObjective as TObjective
 
 NAMES = sorted(TL.BY_NAME)
-CASES = ["plain", "w+o", "mask", "factors", "shifts", "factors+shifts"]
+CASES = ["plain", "w+o", "mask", "factors", "shifts", "factors+shifts",
+         "mask+factors+shifts"]
 N, D = 300, 12
 
 
@@ -36,16 +38,16 @@ def _case(case, seed=11):
     if case == "w+o":
         kw["weights"] = rng.uniform(0.5, 2.0, size=N)
         kw["offsets"] = rng.normal(size=N) * 0.1
-    if case == "mask":
+    if case.startswith("mask"):
         mask = np.ones(N)
         mask[-3:] = 0.0
         # padded row: margin > 700, so the Poisson loss is inf there
         x[-1] = 800.0 * np.sign(c)
         kw["mask"] = mask
-    if case in ("factors", "factors+shifts"):
+    if case in ("factors", "factors+shifts", "mask+factors+shifts"):
         norm = dict(factors=rng.uniform(0.5, 2.0, size=D))
         norm["factors"][-1] = 1.0
-    if case in ("shifts", "factors+shifts"):
+    if case in ("shifts", "factors+shifts", "mask+factors+shifts"):
         norm = dict(norm or {}, shifts=rng.normal(size=D) * 0.3)
         norm["shifts"][-1] = 0.0
     return x, y, c, v, kw, norm
@@ -135,3 +137,25 @@ def test_objective_matches_jax(name, case):
         to, jo = to.replace(norm=None), jo.replace(norm=None)
     _close(to.hessian_diagonal(tc).numpy(), jo.hessian_diagonal(jc))
     assert to.with_l2(0.0).l2_weight == 0.0 and to.dim == D
+
+
+@pytest.mark.parametrize("case", ["mask", "shifts", "factors+shifts", "mask+factors+shifts"])
+@pytest.mark.parametrize("name", NAMES)
+def test_kernel_plain_with_mask_and_shift_matches_jax(name, case):
+    """The fused kernel's plain version takes the row mask (a select: the
+    masked Poisson row's loss is inf) and the shift; with the factors folded
+    as the CUDA path folds them (e = c*f, grad*f) it is the JAX package's
+    aggregator."""
+    (jx, jy, jc, _), jkw, (tx, ty, tc, _), tkw = _both(case)
+    v_j, g_j = jagg.value_and_gradient(JL.BY_NAME[name], jx, jy, jc, **jkw)
+    norm = tkw.get("norm")
+    f = None if norm is None else norm.factors
+    e = tc if f is None else tc * f
+    v_t, g_t = hk.fused_value_and_gradient_plain(
+        TL.BY_NAME[name], tx, ty, e, tkw["weights"], tkw["offsets"], tkw["mask"],
+        None if norm is None else norm.shifts)
+    if f is not None:
+        g_t = g_t * f
+    assert np.isfinite(v_t.item())
+    _close(v_t.item(), float(v_j))
+    _close(g_t.numpy(), g_j)

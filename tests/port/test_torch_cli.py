@@ -112,8 +112,11 @@ def test_train_summaries_match_jax(runs, name):
     for key in set(jax) - {"ingest_s", "wall_s", "host_blocked_s", "output"}:
         assert key in port, key
     assert port["timing_mode"] == "pipelined"
-    for key in ("hbm_residency", "mesh", "telemetry", "compile_s"):
+    for key in ("mesh", "telemetry", "compile_s"):
         assert port[key] is None
+    # residency accounting (always kept; it evicts only under a budget)
+    for key in ("hbm_budget_bytes", "hbm_residency"):
+        assert port[key] == jax[key], key
     for key in ("containment_events", "frozen_coordinates", "checkpoint_recovery",
                 "fault_report"):
         assert port[key] == jax[key], key
@@ -183,7 +186,6 @@ def test_scores_match_jax(runs, name):
 
 UNPORTED = {
     "--tuning": (["--tuning", "random"], 17),
-    "--hbm-budget": (["--hbm-budget", "8GB"], 15),
     "--event-listener": (["--event-listener", "a.B"], 19),
     "--trace-out": (["--trace-out", "t.json"], 19),
     "--run-log": (["--run-log", "r.jsonl"], 19),
@@ -202,6 +204,17 @@ def test_unported_flags_exit_naming_their_item(tmp_path, flag):
         train_cli.main(["--train-data", "x.npz", "--output-dir", str(tmp_path),
                         "--device", "cpu", *extra])
     assert f"item {item}" in str(e.value) and flag.split()[0] in str(e.value)
+
+
+@pytest.mark.parametrize("arg,want", [("8GB", 8_000_000_000), ("512mb", 512_000_000),
+                                     ("1.5g", 1_500_000_000), ("4096", 4096)])
+def test_formerly_unported_hbm_budget_parses(arg, want):
+    """--hbm-budget exited naming its item until out-of-core training was
+    ported; its runs are the *_hbm jobs above."""
+    assert train_cli.parse_byte_size(arg) == want
+    for bad in ("lots", "-1GB"):
+        with pytest.raises(SystemExit, match="--hbm-budget"):
+            train_cli.parse_byte_size(bad)
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="a CUDA device is present")

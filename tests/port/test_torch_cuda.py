@@ -127,9 +127,9 @@ def test_train_glm_launches_the_kernel_per_pass(cuda):
 @pytest.mark.parametrize("mask", [False, True], ids=["nomask", "mask"])
 @pytest.mark.parametrize("norm", ["none", "factors", "shifts", "both"])
 def test_aggregator_dispatch_on_card(cuda, norm, mask):
-    """The kernel serves unmasked objectives without shifts (factors folded
-    in); masked or shifted ones take the tensor ops.  Either way the card's
-    result equals the CPU's (f32 tolerances as above)."""
+    """The kernel serves every dense objective, masked or normalized
+    (factors folded in, the shift read by the kernel), in one launch; the
+    card's result equals the CPU's (f32 tolerances as above)."""
     from photon_ml_tpu_torch.ops import aggregators as agg
     from photon_ml_tpu_torch.ops.normalization import NormalizationContext
     x, y, c, w, o = _inputs(3000, 124, True)
@@ -144,7 +144,7 @@ def test_aggregator_dispatch_on_card(cuda, norm, mask):
     kw = dict(weights=w, offsets=o, norm=ctx, mask=m)
     before = hk.LAUNCHES
     v, g = agg.value_and_gradient(TL.LOGISTIC, x, y, c, **kw)
-    assert hk.LAUNCHES - before == (1 if norm in ("none", "factors") and not mask else 0)
+    assert hk.LAUNCHES - before == 1
     cpu = lambda t: t.cpu() if isinstance(t, torch.Tensor) else t
     kw_cpu = {k: cpu(a) for k, a in kw.items()}
     if ctx is not None:
@@ -905,3 +905,149 @@ def test_scheduled_glmix_fit_on_card_matches_cpu_f64(cuda):
     caps = lambda r: {c: d["iteration_caps"] for c, d in r.descent.solver_diagnostics().items()}
     assert caps(card) == caps(cpu) == {"fixed": [3, 6, 100], "perUser": [3, 6, 100]}
     np.testing.assert_allclose(card.objective_history, cpu.objective_history, rtol=1e-4)
+
+
+@pytest.mark.parametrize("inputs", ["mask", "shift", "mask+shift"])
+@pytest.mark.parametrize("shape", ["scalar", "vec4", "misaligned", "d2048"])
+@pytest.mark.parametrize("name", sorted(TL.BY_NAME))
+def test_kernel_with_mask_and_shift_matches_plain(cuda, name, shape, inputs):
+    """The row mask (about 30 % zeros, and a masked row whose loss is not
+    finite) and the normalization shift, at the kernel test's tolerances;
+    one launch per call."""
+    n, d, *skip = SHAPES[shape]
+    x, y, c, w, o = _inputs(n, d, True, skip=skip[0] if skip else 0)
+    rng = np.random.default_rng(5)
+    m = s = None
+    if "mask" in inputs:
+        m = torch.from_numpy((rng.uniform(size=n) > 0.3).astype(np.float32)).cuda()
+        m[1] = 0.0
+        o = o.clone()
+        o[1] = float("inf")
+    if "shift" in inputs:
+        s = torch.from_numpy((rng.normal(size=d) * 0.3).astype(np.float32)).cuda()
+    before = hk.LAUNCHES
+    v, g = hk.fused_value_and_gradient(TL.BY_NAME[name], x, y, c, w, o, m, s)
+    assert hk.LAUNCHES == before + 1
+    v_p, g_p = hk.fused_value_and_gradient_plain(TL.BY_NAME[name], x, y, c, w, o, m, s)
+    assert np.isfinite(v.item())
+    np.testing.assert_allclose(v.item(), v_p.item(), rtol=1e-5)
+    # with shifts the gradient subtracts s * sum(w l') from X^T(w l'): its
+    # f32 error scales with those terms (chip_smoke.shifted_gradient_scale)
+    if s is None:
+        scale = g_p.abs().cpu().numpy()
+    else:
+        import chip_smoke
+        scale = chip_smoke.shifted_gradient_scale(TL.BY_NAME[name], x, y, c, w, o, m, s)
+    err = np.abs(g.double().cpu().numpy() - g_p.double().cpu().numpy())
+    assert np.all(err <= 1e-4 + 1e-4 * scale), (err / (1e-4 + 1e-4 * scale)).max()
+
+
+@pytest.mark.parametrize("inputs", ["mask", "standardization"])
+def test_masked_or_standardized_dense_pass_is_one_launch(cuda, inputs, monkeypatch):
+    """ops/aggregators.value_and_gradient on a dense CUDA X with a mask or
+    a standardization (factors and shifts) launches the fused kernel once
+    and no product over X outside it."""
+    from photon_ml_tpu_torch.ops import aggregators as agg
+    from photon_ml_tpu_torch.ops.normalization import NormalizationContext
+    n = 200_000
+    x, y, c, w, o = _inputs(n, 124, True)
+    kw = dict(weights=w, offsets=o)
+    if inputs == "mask":
+        kw["mask"] = (torch.arange(n, device="cuda") % 4 != 0).float()
+    else:
+        f = torch.rand(124, device="cuda") + 0.5
+        s = torch.randn(124, device="cuda") * 0.2
+        kw["norm"] = NormalizationContext(f, s, 123)
+    from photon_ml_tpu_torch.ops import features as fops
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a product over X outside the kernel")
+    monkeypatch.setattr(fops, "matvec", refuse)
+    monkeypatch.setattr(fops, "rmatvec", refuse)
+    before = hk.LAUNCHES
+    v, g = agg.value_and_gradient(TL.LOGISTIC, x, y, c, **kw)
+    torch.cuda.synchronize()
+    assert hk.LAUNCHES == before + 1 and np.isfinite(v.item())
+
+
+def _stream_problem(n=200_000, d=124, seed=3):
+    rng = np.random.default_rng(seed)
+    x = (rng.uniform(size=(n, d)) < 0.115).astype(np.float32)
+    x[:, -1] = 1.0
+    y = (rng.uniform(size=n) < 0.25).astype(np.float32)
+    return x, y
+
+
+def test_streamed_pass_holds_at_most_two_chunks(cuda):
+    """Peak allocated during a streamed solve is at most `depth` chunks +
+    the solver state + 1 MiB: the ring of device slots holds on CUDA, with
+    chunks whose kernels may still run counted."""
+    from photon_ml_tpu_torch.data.streaming import ChunkPlan
+    from photon_ml_tpu_torch.ops.chunked import ChunkedGLMObjective
+    from photon_ml_tpu_torch.optim.config import (OptimizerConfig, RegularizationContext,
+                                                  RegularizationType)
+    from photon_ml_tpu_torch.optim.streaming import solve_streamed
+    x, y = _stream_problem()
+    plan = ChunkPlan.build(len(y), chunk_rows=16384)
+    obj = ChunkedGLMObjective(TL.LOGISTIC, x, y, plan)
+    c0 = torch.zeros(x.shape[1], device="cuda")
+    obj.value_and_gradient(c0)  # kernel build, workspace, pinned ring
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    before = hk.LAUNCHES
+    res = solve_streamed(obj, c0, OptimizerConfig(max_iterations=20, tolerance=1e-9),
+                         RegularizationContext(RegularizationType.L2), 1.0)
+    torch.cuda.synchronize()
+    chunk = plan.chunk_rows * (x.shape[1] + 2) * 4       # x, labels, mask
+    state = 4 * x.shape[1] * (2 * 10 + 16)               # curvature pairs + vectors
+    assert torch.cuda.max_memory_allocated() - base <= 2 * chunk + state + (1 << 20)
+    assert hk.LAUNCHES - before == res.fg_count * plan.num_chunks
+    assert obj.stats.peak_resident_chunks == 2
+
+
+def test_streamed_solve_on_card_matches_cpu_f64(cuda):
+    """solve_streamed (LBFGS, L2 1) on the card in float32 from registered
+    host memory, against the same stream on the CPU in float64: x within
+    1e-4 and the final objective within 1e-4 relative."""
+    from photon_ml_tpu_torch.data.streaming import ChunkPlan, is_pinned
+    from photon_ml_tpu_torch.ops.chunked import ChunkedGLMObjective
+    from photon_ml_tpu_torch.optim.config import (OptimizerConfig, RegularizationContext,
+                                                  RegularizationType)
+    from photon_ml_tpu_torch.optim.streaming import solve_streamed
+    x, y = _stream_problem(60_000, 37)
+    out = {}
+    for dev, dt in (("cpu", torch.float64), ("cuda", torch.float32)):
+        obj = ChunkedGLMObjective(TL.LOGISTIC, x, y, ChunkPlan.build(len(y), chunk_rows=8192),
+                                  device=dev, dtype=dt)
+        out[dev] = solve_streamed(obj, torch.zeros(37, device=dev, dtype=dt),
+                                  OptimizerConfig(max_iterations=100, tolerance=1e-9),
+                                  RegularizationContext(RegularizationType.L2), 1.0)
+        if dev == "cuda":
+            assert is_pinned(obj.x[:10])
+            assert obj.staging.route_bytes["registered"] > 0
+    c, g = out["cpu"], out["cuda"]
+    np.testing.assert_allclose(g.x.double().cpu().numpy(), c.x.numpy(), rtol=0, atol=1e-4)
+    np.testing.assert_allclose(float(g.value), float(c.value), rtol=1e-4)
+
+
+def test_staging_never_writes_memory_queued_kernels_still_read(cuda):
+    """A tensor freed on the consumer's stream while a queued kernel still
+    reads it (behind a long sleep) is never handed to the copy stream's
+    chunk slots: the queued read sees its own data, and the pass is the
+    same as on an idle card."""
+    from photon_ml_tpu_torch.data.streaming import ChunkPlan
+    from photon_ml_tpu_torch.ops.chunked import ChunkedGLMObjective
+    x, y = _stream_problem(100_000, 124)
+    obj = ChunkedGLMObjective(TL.LOGISTIC, x, y, ChunkPlan.build(len(y), chunk_rows=16384))
+    c = torch.full((124,), 0.01, device="cuda")
+    want = obj.value_and_gradient(c)
+    torch.cuda.synchronize()
+    a = torch.full((16384 * 126,), 3.0, device="cuda")
+    torch.cuda._sleep(200_000_000)          # ~0.1 s of queued work
+    b = a * 2.0                              # reads `a` after the sleep
+    del a                                    # freed while that read is queued
+    got = obj.value_and_gradient(c)
+    torch.cuda.synchronize()
+    assert bool((b == 6.0).all())
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

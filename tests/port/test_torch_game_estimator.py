@@ -279,7 +279,6 @@ UNPORTED = {
     "re_box": (dict(re=dict(optimization=_opt(optimizer=OptimizerType.TRON,
                                               box_lower=(-1.0,) * 19))),
                "box constraints are an LBFGS feature"),
-    "fe_streamed": (dict(fe=dict(memory_mode="streamed")), "item 15"),
     "fe_shard_features": (dict(fe=dict(shard_features=True)), "item 20"),
 }
 
@@ -309,6 +308,8 @@ PORTED = {
         "userId", "per_user", latent_dim=2,
         optimization=_opt(max_iterations=10), latent_optimization=_opt(max_iterations=10))),
     "solver_schedule": dict(fe=dict(solver_schedule=SolverSchedule(initial_iterations=2))),
+    # parity: test_torch_streaming.py, test_torch_residency.py
+    "fe_streamed": dict(fe=dict(memory_mode="streamed")),
 }
 
 
@@ -332,33 +333,37 @@ def test_formerly_unported_options_now_fit(data, config, case):
     assert 0.5 < fit.validation["AUC"] < 1.0
 
 
-@pytest.mark.parametrize("what", ["hbm_budget", "admm_json"])
+@pytest.mark.parametrize("what", ["admm_json"])
 def test_unported_fit_modes_raise(data, config, what, tmp_path):
-    train, val = data
+    d = side.glmix_config_dict()
+    d["coordinates"]["fixed"]["optimization"]["admm"] = {"rho": 1.0}
     with pytest.raises(NotImplementedError):
-        if what == "hbm_budget":
-            GameEstimator(dataclasses.replace(config, hbm_budget_bytes=1 << 30), device="cpu")
-        else:
-            d = side.glmix_config_dict()
-            d["coordinates"]["fixed"]["optimization"]["admm"] = {"rho": 1.0}
-            GameTrainingConfig.from_dict(d)
+        GameTrainingConfig.from_dict(d)
 
 
-@pytest.mark.parametrize("what", ["checkpoint_dir", "config_schedule"])
+@pytest.mark.parametrize("what", ["checkpoint_dir", "config_schedule", "hbm_budget"])
 def test_formerly_unported_fit_modes_now_run(data, config, what, tmp_path):
     """Fit modes that raised naming their item until it was ported (their
-    parity with the JAX package: test_torch_containment.py)."""
+    parity with the JAX package: test_torch_containment.py,
+    test_torch_residency.py)."""
     train, val = data
     cfg = dataclasses.replace(config, num_outer_iterations=1)
     kw = {}
     if what == "checkpoint_dir":
         kw["checkpoint_dir"] = str(tmp_path / "ckpt")
+    elif what == "hbm_budget":
+        # below twice the fixed effect's shard: it streams
+        shard = train.feature_shards["global"]
+        cfg = dataclasses.replace(cfg, hbm_budget_bytes=int(shard.size * 8 * 1.5))
     else:
         cfg = dataclasses.replace(cfg, solver_schedule=SolverSchedule())
     fit = GameEstimator(cfg, device="cpu", dtype=torch.float64).fit(train, val, ["AUC"], **kw)
     assert np.all(np.isfinite(fit.objective_history))
     if what == "checkpoint_dir":
         assert os.path.exists(tmp_path / "ckpt" / "state.json")
+    elif what == "hbm_budget":
+        assert list(fit.residency["streamed_chunk_bytes"]) == ["fixed"]
+        assert fit.residency["budget_bytes"] == cfg.hbm_budget_bytes
     else:
         # one outer iteration is the final one: the full budget
         assert fit.descent.solver_diagnostics()["fixed"]["iteration_caps"] == [100]

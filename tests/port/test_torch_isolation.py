@@ -36,7 +36,10 @@ REQUIRED = ("photon_ml_tpu_torch.ops.features", "photon_ml_tpu_torch.ops.sparse_
             "photon_ml_tpu_torch.cli.train", "photon_ml_tpu_torch.cli.score",
             "photon_ml_tpu_torch.optim.schedule", "photon_ml_tpu_torch.utils.faults",
             "photon_ml_tpu_torch.game.quarantine", "photon_ml_tpu_torch.game.coordinate_descent",
-            "chip_smoke")
+            "photon_ml_tpu_torch.data.streaming", "photon_ml_tpu_torch.ops.chunked",
+            "photon_ml_tpu_torch.optim.streaming", "photon_ml_tpu_torch.optim.stochastic",
+            "photon_ml_tpu_torch.store.base", "photon_ml_tpu_torch.store.handles",
+            "photon_ml_tpu_torch.game.residency", "chip_smoke")
 
 
 def test_the_scan_covers_the_port():

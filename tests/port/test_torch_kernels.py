@@ -73,13 +73,18 @@ def test_plain_matches_aggregators_f64(name, with_wo):
         np.testing.assert_allclose(g_t.numpy(), np.asarray(g), rtol=1e-12, atol=1e-12)
 
 
-@pytest.mark.parametrize("with_wo", [False, True], ids=["plain", "w+o"])
+@pytest.mark.parametrize("with_wo", [False, True, "mask+shift"],
+                         ids=["plain", "w+o", "mask+shift"])
 def test_cpu_wrapper_runs_plain_and_launches_nothing(with_wo):
-    x, y, c, w, o = _inputs(with_wo, np.float32)
+    x, y, c, w, o = _inputs(bool(with_wo), np.float32)
+    m = s = None
+    if with_wo == "mask+shift":
+        m = _t((np.arange(len(y)) % 3 != 0).astype(np.float32))
+        s = _t(np.linspace(-1, 1, len(c)).astype(np.float32))
     before = hk.LAUNCHES
-    v, g = hk.fused_value_and_gradient(TL.LOGISTIC, _t(x), _t(y), _t(c), _t(w), _t(o))
+    v, g = hk.fused_value_and_gradient(TL.LOGISTIC, _t(x), _t(y), _t(c), _t(w), _t(o), m, s)
     v_p, g_p = hk.fused_value_and_gradient_plain(
-        TL.LOGISTIC, _t(x), _t(y), _t(c), _t(w), _t(o))
+        TL.LOGISTIC, _t(x), _t(y), _t(c), _t(w), _t(o), m, s)
     assert hk.LAUNCHES == before
     assert v.item() == v_p.item()
     assert torch.equal(g, g_p)
@@ -113,10 +118,12 @@ PLAN_SMS = 132  # an H100 SXM
 @pytest.mark.parametrize("misaligned", [False, True], ids=["aligned", "misaligned"])
 @pytest.mark.parametrize("d", [1, 3, 37, 124, 128, 2048, hk.D_MAX])
 def test_width_limit_fits_shared_memory(d, misaligned):
-    """Replay plan_fused as the kernel walks it, for X, y, w and o starting
-    on 16-byte boundaries or 4 bytes past one (a row-slice view)."""
+    """Replay plan_fused as the kernel walks it, for X, y, w, o and the row
+    mask m starting on 16-byte boundaries or 4 bytes past one (a row-slice
+    view)."""
     skew = 4 if misaligned else 0
-    bases = [(1 << 30) + skew, (1 << 33) + skew, (1 << 34) + skew, (1 << 35) + skew]
+    bases = [(1 << 30) + skew, (1 << 33) + skew, (1 << 34) + skew, (1 << 35) + skew,
+             (1 << 36) + skew]
     for n in (0, 1, 3, 700, 1_643_520):
         plan = hk.plan_fused(n, d, PLAN_SMS)
         lay, rows = plan.layout, plan.rows_per_tile
@@ -178,3 +185,16 @@ def test_plan_constants_match_the_cuda_source():
     for a in hk.ACC_SIZES:
         assert f"case {a}: return launch<LOSS, {a}>" in src
     assert len(re.findall(r"case \d+: return launch<LOSS", src)) == len(hk.ACC_SIZES)
+
+
+def test_kahan_pair_variant_applies_to_the_source():
+    """scripts/kahan_pair.py builds a plain-sum variant of the kernel by
+    replacing KahanSum::add; the text it replaces is in the source once."""
+    import importlib.util
+    root = Path(hk.__file__).resolve().parents[2]
+    spec = importlib.util.spec_from_file_location("kahan_pair", root / "scripts" / "kahan_pair.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    src = (root / "photon_ml_tpu_torch" / "csrc" / "fused_value_and_gradient.cu").read_text()
+    assert src.count(mod.KAHAN) == 1
+    assert src.replace(mod.KAHAN, mod.PLAIN).count("s += v;") == 1

@@ -9,7 +9,8 @@ and normal (float32 and float64) are held BIT-EQUAL to jax.random for six
 seeds and five odd shapes, and 20,000 normal draws for each of five more
 keys: the copy evaluates XLA's erfinv and log1p (and, in float32, its
 log) with the fused multiply-adds XLA's CPU code makes, so normal needs no
-ulp tolerance either."""
+ulp tolerance either.  `permutation(key, n)` equals jax.random.permutation
+for six seeds and n in PRNG_PERMUTATION_NS."""
 import numpy as np
 import pytest
 import torch
@@ -103,3 +104,13 @@ def test_gaussian_projection_draws_in_float32_as_jax_without_x64(jax_draws):
                                      dtype=torch.float32, device="cpu").numpy()
     _bits_equal(got[:k], want)
     np.testing.assert_array_equal(got[k], np.eye(d, dtype=np.float32)[-1])
+
+
+@pytest.mark.parametrize("n", side.PRNG_PERMUTATION_NS)
+@pytest.mark.parametrize("seed", side.PRNG_SEEDS)
+def test_permutation_is_bit_equal(jax_draws, seed, n):
+    key = prng.fold_in(prng.fold_in(prng.PRNGKey(seed), 2), 5)
+    got = prng.permutation(key, n)
+    want = jax_draws[f"{seed}/permutation/{n}"]
+    np.testing.assert_array_equal(got, want)
+    assert sorted(got.tolist()) == list(range(n))
