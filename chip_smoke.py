@@ -219,8 +219,37 @@ Phases, one JSON object per line on stdout:
      --hbm-budget children on the balanced entry's data, one with a
      transient stage.transfer fault at chunk 2 (its fit bit-equal, the
      other's within 1e-6 of the in-process fit);
- 25. the kernels line (launches by path, the CLI, inexact and streamed
-     paths included), nvidia-smi's line, and the final result line.
+ 25. lanes_checks (run right after the nan_check): the candidate-lanes
+     kernel (csrc/fused_value_and_gradient_lanes.cu) against its plain
+     version for the four losses at K = 1, 5 and 16 lanes, plain and with
+     weights, per-lane offsets, a row mask (dropping a row whose offsets
+     are infinite) and per-lane shifts, at small ragged shapes (a
+     misaligned view, 0, 1 and 3 rows, d = 256 and 513), at config 4's
+     fixed effect [950,051 x 31] and at config 1's [1,643,520 x 124] (its
+     own data), under the single kernel's tolerances, the float64 errors
+     of kernel and plain version printed beside; the wrapper's refusal of
+     more lanes than a width takes; two calls bit for bit; one pass of 16
+     lanes timed at both full shapes beside its bound, the library call
+     (two torch.matmul around the loss on [n, K]) and 16 launches of the
+     single kernel;
+ 26. sweep and sweep_path (after glmix_tron): bench.py's _sweep_vmap_leg on
+     config 4, SweepEvaluator.evaluate_vmapped over 16 candidates (FE
+     lambda logspace(1.5, -2, 16), perUser twice it) after a warm-up sweep,
+     candidates 0, 5, 10 and 15 each within 1e-4 of an isolated
+     GameEstimator.fit, the lanes kernel's launches equal to the fixed
+     effect's rounds, no single-kernel launch in the sweep, the sweep's
+     wall at most 8 x the median isolated fit; each visit's rounds,
+     read-backs and seconds, the peak allocated, and one outer iteration
+     profiled on the device alone; then evaluate_path over 4 candidates,
+     warm against cold (bench.py's <= 1.02 bound), single-kernel launches
+     equal to the path's FE passes;
+ 27. cli_tuning (after cli_game, on its npz files): cli.train --tuning
+     bayesian --tuning-iterations 6 --sweep-seed 7 --warm-start: 7 configs,
+     the uniform prefix of the candidates equal to the seeded replay, at
+     least one GP choice, every AUC in (0.5, 1), the saved best the best
+     AUC's and scoring to it by cli.score; the search's host seconds;
+ 28. the kernels line (launches by path, the CLI, inexact, streamed and
+     sweep paths included), nvidia-smi's line, and the final result line.
 Exits non-zero, before printing any result, when CUDA is absent or when
 the port's package is not beside this script.
 """
@@ -263,7 +292,7 @@ SMALL = (("700x37", 700, 37, 0), ("700x37_misaligned", 700, 37, 1),
          ("64xD_MAX", 64, None, 0))
 WIDE = (200_000, 2048)
 # the hand kernels, as their device names contain them in a profile
-KERNEL_NAMES = ("fvg_", "ell_margin_loss", "csc_column_sum")
+KERNEL_NAMES = ("fvg_", "ell_margin_loss", "csc_column_sum", "lanes_value_gradient")
 # bench config 6 (bench.py bench_config6) and its scipy optimum's problem
 CONFIG6_N, CONFIG6_D, CONFIG6_NNZ, CONFIG6_SEED = 200_000, 250_000, 64, 77
 CONFIG6_RTOL = 1e-5
@@ -494,21 +523,45 @@ def time_full(hk, loss, x, y, o=None, w=None, m=None, s=None):
     return med
 
 
-def profile_call(fn):
+def warm_profile(activities):
+    """torch.profiler over `activities` with one warm-up step first, whose
+    events are dropped: the caller runs a short warm-up, calls `.step()`,
+    then runs what it measures.  CUPTI's device tracing takes a moment to
+    start; without the warm-up a window lost its first launches (a config
+    5 profile counted 15 launches of the kernel for 16 passes, and a short
+    window lost all of them)."""
+    from torch.profiler import profile, schedule
+    return profile(activities=activities, schedule=schedule(wait=0, warmup=1, active=1))
+
+
+def profile_warmup(prof) -> None:
+    import torch
+    torch.cuda._sleep(SLEEP_CYCLES // 10)
+    torch.cuda.synchronize()
+    prof.step()
+
+
+def profile_call(fn, host: bool = True):
     """Run fn() once under torch.profiler -> (its result, where the time
     went).  Device busy time is the sum of the kernels' device times (one
     stream, so they do not overlap); the rest of the wall clock the device
-    sits idle."""
+    sits idle.  `host=False` traces the device alone (no host items): a
+    window of ~10^5 launches then costs the host far less tracing."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] if host else []
+    with warm_profile(activities + [ProfilerActivity.CUDA]) as prof:
+        profile_warmup(prof)
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
-    dev = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    # the schedule's step marker carries the whole step's span as device
+    # time when host items are traced: not a kernel
+    dev = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+           and not e.key.startswith("ProfilerStep")]
     cpu = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU]
     busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
     fused = [e for e in dev if "fvg_" in e.key]
@@ -527,6 +580,31 @@ def profile_call(fn):
         "kernels": by_kernel,
         "device_top": top(dev, "self_device_time_total"),
         "host_top": top(cpu, "self_cpu_time_total")}
+
+
+# profiled GLMix windows of ~10^5 launches: CUPTI drops a few records at
+# random (a config 5 window recorded 103,664 of 103,667 launches, one of
+# them the fused kernel's), so a window short of the kernel's passes is
+# profiled again, at most this many times in all
+PROFILE_ATTEMPTS = 3
+
+
+def profile_fit(fit):
+    """One outer iteration of a GLMix fit under the profiler, profiled
+    again while the kernel's profiled launches fall short of the fixed
+    effect's passes (at most PROFILE_ATTEMPTS windows): a launch missing or
+    extra in every window is the program's and fails the caller's gate;
+    a record dropped by the tool is not repeated.  -> (the fit's result,
+    the last window's profile with every window's (launches, passes))."""
+    attempts = []
+    for _ in range(PROFILE_ATTEMPTS):
+        result, prof = profile_call(fit)
+        prof["fe_passes"] = fe_passes(result.descent)
+        attempts.append((prof["fused_kernel_launches"], prof["fe_passes"]))
+        if prof["fused_kernel_launches"] == prof["fe_passes"]:
+            break
+    prof["attempts"] = attempts
+    return result, prof
 
 
 def profile_run(train) -> dict:
@@ -1367,10 +1445,9 @@ def config5_phase(hk, ref_cache, kind, smi, sms) -> dict:
             out["kronecker"] = kron
         # one outer iteration under the profiler (blocks and device shards
         # are memoized on the datasets, so this is the descent)
-        res1, prof = profile_call(lambda: GameEstimator(
+        res1, prof = profile_fit(lambda: GameEstimator(
             dataclasses.replace(cfg, num_outer_iterations=1), device="cuda").fit(
                 train, val, ["AUC"]))
-        prof["fe_passes"] = fe_passes(res1.descent)
         prof["spans_s"] = dict(res1.descent.timings)
         emit({"phase": f"{phase}_profile", "outer_iterations": 1, "device": kind,
               "nvidia_smi": smi, **prof})
@@ -2267,7 +2344,7 @@ def device_kernels(prof_events) -> list:
     events."""
     import torch
     return [e for e in prof_events if e.device_type == torch.autograd.DeviceType.CUDA
-            and not e.key.startswith(("Memcpy", "Memset"))]
+            and not e.key.startswith(("Memcpy", "Memset", "ProfilerStep"))]
 
 
 def stream_glm_phase(hk, x_np, y_np, ref_nll, kind, smi, device="cuda") -> dict:
@@ -2353,7 +2430,7 @@ def stream_glm_phase(hk, x_np, y_np, ref_nll, kind, smi, device="cuda") -> dict:
 
     # _local_epochs on the first chunk of a pass: its wall (host clock to
     # a sync) and, under the profiler, its device time and launches
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
     from photon_ml_tpu_torch.optim.stochastic import _local_epochs, resolve_step_clip
     from photon_ml_tpu_torch.utils import prng
     epochs = STREAM_GLM_PLAN["local_epochs"]
@@ -2371,7 +2448,8 @@ def stream_glm_phase(hk, x_np, y_np, ref_nll, kind, smi, device="cuda") -> dict:
         local_call()
         torch.cuda.synchronize()
         local_wall_s = time.perf_counter() - t0
-        with profile(activities=[ProfilerActivity.CUDA]) as sp:
+        with warm_profile([ProfilerActivity.CUDA]) as sp:
+            profile_warmup(sp)
             local_call()
             torch.cuda.synchronize()
         break
@@ -2701,6 +2779,432 @@ def cli_stream_phase(kind, smi, stream, device="cuda") -> dict:
     return {"gap": gap}
 
 
+# the lanes kernel (csrc/fused_value_and_gradient_lanes.cu): its lane
+# counts, its small shapes ((name, n, d, rows skipped at the front)) and its
+# full ones: config 4's fixed effect and config 1's width
+LANES_KS = (1, 5, 16)
+LANES_SMALL = (("700x37", 700, 37, 0), ("700x37_misaligned", 700, 37, 1),
+               ("3x5", 3, 5, 0), ("1x31", 1, 31, 0), ("0x31", 0, 31, 0),
+               ("257x256", 257, 256, 0), ("64x513", 64, 513, 0))
+LANES_FULL = ((950_051, 31), (1_643_520, 124))
+LANES_DESIGN = ("persistent grid (one or two blocks per SM); C^T in shared memory, "
+                "lanes in groups of 4 (one 16-byte read per 4 lanes' c_kj); each tile "
+                "(X rows with an odd row stride, y, w, m and the K runs of O) copied once "
+                "into a ring of three stages by 4-byte cp.async, two tiles ahead; one "
+                "thread per (row, 4 lanes) for margins, losses and s = w l'; gradient "
+                "entries (column, 4 lanes) in registers; compensated sums; one launch "
+                "per pass (ticketed last-block sum)")
+
+
+def lanes_inputs(n, d, lanes, rng, skip=0, xy=None):
+    """X [n, d] (rows skip.. of a contiguous [n + skip, d] tensor, or
+    `xy`'s), y, C [K, d], w, offsets O [K, n], the same offsets with an
+    infinite entry in row 1 of every lane, a row mask of about 30 % zeros
+    (row 1 among them) and per-lane shifts b [K], float32 on the card."""
+    import torch
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).cuda()
+    m_rows = n + skip
+    if xy is None:
+        x = t(rng.normal(size=(m_rows, d)))[skip:]
+        y = t(rng.uniform(size=m_rows) < 0.5)[skip:]
+    else:
+        x, y = xy
+    c = t(rng.normal(size=(lanes, d)) * (0.3 * d ** -0.5 if d > 124 else 0.1))
+    w = t(rng.uniform(0.5, 2.0, size=m_rows))[skip:]
+    o = rng.normal(size=(lanes, n)) * 0.1
+    m = (rng.uniform(size=n) > 0.3).astype(np.float32)
+    o_inf = o.copy()
+    if n > 1:
+        m[1] = 0.0
+        o_inf[:, 1] = np.inf
+    return x, y, c, w, t(o), t(o_inf), t(m), t(rng.normal(size=lanes) * 0.1)
+
+
+def compare_lanes(hk, loss, x, y, c, w=None, o=None, m=None, b=None, f64=False):
+    """The lanes kernel against its plain version on the same inputs ->
+    (ok, max abs err, largest value relative error, largest gradient or
+    sum(w l') error over its tolerance[, the kernel's and the plain
+    version's largest gradient errors against the plain version in
+    float64]).  Tolerances: the single kernel's, value rtol VALUE_RTOL,
+    gradient and sum(w l') GRAD_ATOL + GRAD_RTOL |g|."""
+    import torch
+    got = hk.fused_value_and_gradient_lanes(loss, x, y, c, w, o, m, b)
+    want = hk.fused_value_and_gradient_lanes_plain(loss, x, y, c, w, o, m, b)
+    exact = None
+    if f64:
+        dbl = lambda t: None if t is None else t.double()
+        exact = hk.fused_value_and_gradient_lanes_plain(
+            loss, x.double(), y.double(), c.double(), dbl(w), dbl(o), m, dbl(b))
+    torch.cuda.synchronize()
+    (v_k, g_k, s_k), (v_p, g_p, s_p) = ([t.double().cpu().numpy() for t in r]
+                                        for r in (got, want))
+    v_err = np.abs(v_k - v_p)
+    g_err = np.abs(np.concatenate([g_k, s_k[:, None]], 1)
+                   - np.concatenate([g_p, s_p[:, None]], 1))
+    g_tol = GRAD_ATOL + GRAD_RTOL * np.abs(np.concatenate([g_p, s_p[:, None]], 1))
+    finite = all(np.all(np.isfinite(a)) for a in (v_k, g_k, s_k))
+    ok = finite and bool(np.all(v_err <= VALUE_RTOL * np.abs(v_p))) and bool(np.all(g_err <= g_tol))
+    out = (ok, float(max(v_err.max(initial=0.0), g_err.max(initial=0.0))),
+           float((v_err / np.maximum(np.abs(v_p), 1e-30)).max(initial=0.0)),
+           float((g_err / g_tol).max(initial=0.0)))
+    if exact is None:
+        return out
+    g_x = exact[1].cpu().numpy()
+    return out + (float(np.abs(g_k - g_x).max(initial=0.0)),
+                  float(np.abs(g_p - g_x).max(initial=0.0)))
+
+
+def time_lanes(hk, loss, x, y, lanes, o, w=None):
+    """Median over REPS reps (device time, behind a sleep) of one pass of
+    K lanes: the kernel, its plain version, the library call (torch.matmul
+    of X and C^T plus O, the loss on [n, K], torch.matmul of X^T and w l')
+    and K launches of the single fused kernel, each rep with its own
+    perturbed coefficients; with the bound (X, y, w and O read once, the
+    [K, d + 2] result written once; 4 n d K flops at the f32 peak)."""
+    import torch
+    n, d = x.shape
+    base = torch.linspace(-0.1, 0.1, lanes * d, device="cuda").reshape(lanes, d)
+    batch = 10
+
+    def library(c):
+        z = torch.matmul(x, c.T) + o.T
+        l, dl = loss.loss_and_dz(z, y[:, None])
+        if w is not None:
+            l, dl = l * w[:, None], dl * w[:, None]
+        return l.sum(0), torch.matmul(x.T, dl), dl.sum(0)
+
+    calls = {
+        "ms": lambda c: hk.fused_value_and_gradient_lanes(loss, x, y, c, w, o),
+        "plain_ms": lambda c: hk.fused_value_and_gradient_lanes_plain(loss, x, y, c, w, o),
+        "library_ms": library,
+        "single_launches_ms": lambda c: [hk.fused_value_and_gradient(loss, x, y, c[k], w, o[k])
+                                         for k in range(lanes)],
+    }
+    times = {k: [] for k in calls}
+    for r in range(REPS + 2):  # the first two rounds warm up
+        cs = [base + 1e-6 * (r * batch + i + 1) for i in range(batch)]
+        for key, call in calls.items():
+            ms = cuda_ms(lambda: [call(c) for c in cs]) / batch
+            if r >= 2:
+                times[key].append(ms)
+    med = {k: statistics.median(v) for k, v in times.items()}
+    nbytes = 4 * (n * d + n + lanes * n + (n if w is not None else 0) + lanes * d
+                  + lanes * (d + 2))
+    bound_bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    bound_ops_ms = 4 * n * d * lanes / PEAK_F32_FLOPS * 1e3
+    med.update(bound_ms=max(bound_bytes_ms, bound_ops_ms),
+               bound_by="bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
+               bytes=nbytes, min_ms=min(times["ms"]), max_ms=max(times["ms"]),
+               lanes=lanes, shape=[n, d])
+    med["share_of_bound"] = med["bound_ms"] / med["ms"]
+    med["ms_over_library"] = med["ms"] / med["library_ms"]
+    med["ms_over_single_launches"] = med["ms"] / med["single_launches_ms"]
+    return med
+
+
+def lanes_checks(hk, losses, kind, smi, sms, x_full, y_full) -> dict:
+    """lanes_checks: the lanes kernel against its plain version for the four
+    losses at K in LANES_KS, at the LANES_SMALL shapes and the LANES_FULL
+    ones, plain and with weights, offsets, a row mask (dropping a row whose
+    offsets are infinite) and per-lane shifts; the wrapper's refusal of more
+    lanes than a width takes; two calls bit for bit; then one pass of
+    K = 16 timed at both full shapes with offsets.  The config 1 shape
+    takes config 1's data (x_full, y_full), as the single kernel's full
+    check does: with centred features some of its gradient elements
+    cancel, and no f32 sum of 1.6M such terms meets atol 1e-4; at the
+    full shapes each result's error against a float64 plain version is
+    printed beside the f32 plain version's.  -> the timings and the largest
+    error at the full shapes."""
+    import torch
+    rng = np.random.default_rng(31)
+    failures, full_err = [], 0.0
+    cases = [(name, n, d, skip) for name, n, d, skip in LANES_SMALL]
+    cases += [(f"{n}x{d}", n, d, 0) for n, d in LANES_FULL]
+    for name, n, d, skip in cases:
+        xy = (x_full, y_full) if (n, d) == tuple(x_full.shape) else None
+        x, y, c_all, w, o_all, o_inf_all, m, b_all = lanes_inputs(
+            n, d, max(LANES_KS), rng, skip, xy)
+        if skip and x.data_ptr() % 16 == 0:
+            raise SystemExit(f"{name}: the view's base is 16-byte aligned")
+        for lanes in LANES_KS:
+            c, o, o_inf = c_all[:lanes], o_all[:lanes], o_inf_all[:lanes]
+            b = b_all[:lanes].contiguous()
+            if lanes > hk.max_lanes(d):
+                try:
+                    hk.fused_value_and_gradient_lanes(losses[0], x, y, c)
+                    failures.append(f"{name}/K{lanes}: not refused")
+                except ValueError:
+                    emit({"phase": "lanes_check", "size": name, "lanes": lanes,
+                          "refused": True, "max_lanes": hk.max_lanes(d)})
+                continue
+            for loss in losses:
+                for tag, args in (("plain", ()), ("w+o+mask+shift", (w, o_inf, m, b))):
+                    full = (n, d) in LANES_FULL
+                    ok, err, v_rel, g_rel, *f64 = compare_lanes(hk, loss, x, y, c, *args,
+                                                                f64=full)
+                    emit({"phase": "lanes_check", "size": name, "shape": [n, d],
+                          "lanes": lanes, "loss": loss.name, "inputs": tag, "ok": ok,
+                          "max_abs_err": err, "value_rel_err": v_rel,
+                          "grad_err_over_tol": g_rel,
+                          **({"kernel_grad_err_f64": f64[0], "plain_grad_err_f64": f64[1]}
+                             if full else {}),
+                          "plan": dataclasses.asdict(hk.plan_lanes(n, d, lanes, sms))})
+                    if not ok:
+                        failures.append(f"{name}/K{lanes}/{loss.name}/{tag}")
+                    if (n, d) in LANES_FULL:
+                        full_err = max(full_err, err)
+            if (n, d) == LANES_FULL[0] and lanes == 16:
+                first = hk.fused_value_and_gradient_lanes(losses[0], x, y, c, w, o, m, b)
+                again = hk.fused_value_and_gradient_lanes(losses[0], x, y, c, w, o, m, b)
+                if not all(torch.equal(a, b_) for a, b_ in zip(first, again)):
+                    failures.append(f"{name}: two calls differ")
+    if failures:
+        raise SystemExit(f"lanes_checks: kernel disagrees with its plain version: {failures}")
+        del x, y, c_all, w, o_all, o_inf_all, m, b_all
+    from photon_ml_tpu_torch.ops.losses import LOGISTIC
+    timings = {}
+    for n, d in LANES_FULL:
+        xy = (x_full, y_full) if (n, d) == tuple(x_full.shape) else None
+        x, y, _, _, o, *_ = lanes_inputs(n, d, 16, rng, xy=xy)
+        t = time_lanes(hk, LOGISTIC, x, y, 16, o)
+        t.update(plan=dataclasses.asdict(hk.plan_lanes(n, d, 16, sms)), inputs="offsets",
+                 max_abs_err=full_err)
+        emit({"phase": "lanes_timing", "loss": "logistic", "reps": REPS, "device": kind,
+              "nvidia_smi": smi, **t})
+        timings[f"{n}x{d}"] = t
+        del x, y, o
+    return timings
+
+
+# the sweep phases (bench.py _sweep_vmap_leg and _sweep_path_leg on config
+# 4): K candidates, FE lambda = logspace(1.5, -2, K) and the random effect
+# at twice it; the candidates held against isolated fits; the path lane's
+# candidates and its warm-start quality bound; the tuning CLI's search
+SWEEP_K = 16
+SWEEP_CHECKED = (0, 5, 10, 15)
+SWEEP_PATH_K = 4
+SWEEP_WARM_RATIO = 1.02
+TUNING_ITERATIONS, TUNING_SEED, TUNING_RANGE = 6, 7, (-3.0, 3.0)
+
+
+def sweep_candidates(cfg, lams, fe=1.0, re=2.0) -> list:
+    """Config 4 once per lambda: the fixed effect at fe x lambda, perUser
+    at re x lambda (bench.py _sweep_config's pairs)."""
+    out = []
+    for lam in lams:
+        coords = dict(cfg.coordinates)
+        for name, factor in (("fixed", fe), ("perUser", re)):
+            c = coords[name]
+            coords[name] = dataclasses.replace(c, optimization=dataclasses.replace(
+                c.optimization, regularization_weight=float(factor * lam)))
+        out.append(dataclasses.replace(cfg, coordinates=coords))
+    return out
+
+
+def sync(device) -> None:
+    import torch
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def sweep_phase(hk, train, val, cfg, kind, smi, device="cuda") -> dict:
+    """sweep: SweepEvaluator.evaluate_vmapped over config 4 with SWEEP_K
+    candidates (after one warm-up sweep at 0.7 and 1.3 lambda, as bench.py
+    runs it).  Fails unless candidates SWEEP_CHECKED each end within
+    GLMIX_RTOL of an isolated GameEstimator.fit of their config, the lanes
+    kernel's launches equal the fixed effect's value+gradient rounds times
+    its lane groups, the single kernel launches nowhere in the sweep, and
+    the sweep's wall is at most K / 2 times the median isolated fit
+    (bench.py's sublinear gate).  Prints every visit's rounds, read-backs
+    and seconds, the peak allocated, and one profiled outer iteration.
+    -> (the sweep evaluator, the phase's counts)."""
+    import torch
+    from photon_ml_tpu_torch.game import GameEstimator
+    from photon_ml_tpu_torch.hyperparameter import SweepEvaluator
+    from photon_ml_tpu_torch.ops.lanes import launch_groups
+    lams = np.logspace(1.5, -2, SWEEP_K)
+    cands = sweep_candidates(cfg, lams)
+    t0 = time.perf_counter()
+    sweep = SweepEvaluator(GameEstimator(cfg, device=device), train, val, ["AUC"])
+    prepare_s = time.perf_counter() - t0
+    ok, why = sweep.vmap_eligible()
+    if not ok:
+        raise SystemExit(f"sweep: the candidate lane is ineligible: {why}")
+    t0 = time.perf_counter()
+    sweep.evaluate_vmapped(sweep_candidates(cfg, lams, 0.7, 1.3))
+    sync(device)
+    warmup_s = time.perf_counter() - t0
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    before_bytes = torch.cuda.memory_allocated() if cuda else 0
+    hk.LAUNCHES = hk.LANES_LAUNCHES = 0
+    t0 = time.perf_counter()
+    results = sweep.evaluate_vmapped(cands)
+    sync(device)
+    sweep_s = time.perf_counter() - t0
+    single, lanes = hk.LAUNCHES, hk.LANES_LAUNCHES
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    groups = len(launch_groups(SWEEP_K, sweep.coords["fixed"].dim, torch.device(device)))
+    fe_rounds = sum(v.rounds for v in sweep.visits if v.coordinate == "fixed")
+    visits = [dataclasses.asdict(v) for v in sweep.visits]
+    iso, iso_launches = {}, 0
+    for k in SWEEP_CHECKED:
+        hk.LAUNCHES = 0
+        t0 = time.perf_counter()
+        r = GameEstimator(cands[k], device=device).fit(train, val, ["AUC"])
+        sync(device)
+        wall = time.perf_counter() - t0
+        if device == "cuda" and hk.LAUNCHES != fe_passes(r.descent):
+            raise SystemExit(f"sweep: isolated fit {k}: {hk.LAUNCHES} launches for "
+                             f"{fe_passes(r.descent)} passes")
+        iso_launches += hk.LAUNCHES
+        final = float(r.objective_history[-1])
+        got = np.asarray(results[k].objective_history)
+        iso[k] = {"fit_s": wall, "final_objective": final,
+                  "sweep_final_objective": float(got[-1]),
+                  "rel_gap": (float(got[-1]) - final) / abs(final),
+                  "history_max_rel_gap": float(np.max(
+                      np.abs(got - r.objective_history) / np.abs(r.objective_history))),
+                  "auc": r.validation["AUC"], "sweep_auc": results[k].validation["AUC"]}
+    iso_s = statistics.median(v["fit_s"] for v in iso.values())
+    prof = None
+    if cuda:
+        t0 = time.perf_counter()
+        _, prof = profile_call(lambda: sweep.evaluate_vmapped(cands, num_outer_iterations=1),
+                               host=False)
+        prof["visits"] = [dataclasses.asdict(v) for v in sweep.visits]
+        prof["profile_s"] = time.perf_counter() - t0
+    out = {"phase": "sweep", "entry": "photon_ml_tpu_torch.hyperparameter.SweepEvaluator"
+           ".evaluate_vmapped", "config": "BASELINE config 4, bench.py _sweep_vmap_leg's "
+           "candidates", "candidates": SWEEP_K, "fe_lambdas": lams.tolist(),
+           "n_train": train.num_rows, "prepare_s": prepare_s, "warmup_sweep_s": warmup_s,
+           "sweep_s": sweep_s, "isolated_fit_median_s": iso_s,
+           "sweep_over_isolated_fit": sweep_s / iso_s, "sublinear_gate": SWEEP_K / 2,
+           "lanes_launches": lanes, "fe_rounds": fe_rounds, "launch_groups": groups,
+           "single_kernel_launches": single, "isolated_launches": iso_launches,
+           "visits": visits, "readbacks": sum(v.readbacks for v in sweep.visits),
+           "peak_allocated_bytes": peak, "allocated_before_bytes": before_bytes,
+           "isolated": iso, "final_objectives": [r.objective_history[-1] for r in results],
+           "aucs": [r.validation["AUC"] for r in results],
+           "profile_one_outer_iteration": prof, "device": kind, "nvidia_smi": smi}
+    emit(out)
+    bad = [k for k, v in iso.items() if not abs(v["rel_gap"]) <= GLMIX_RTOL]
+    if bad:
+        raise SystemExit(f"sweep: candidates {bad} are more than {GLMIX_RTOL} from "
+                         "their isolated fits")
+    if not all(np.isfinite(r.objective_history).all() for r in results):
+        raise SystemExit("sweep: a non-finite objective")
+    if device == "cuda" and not (lanes == fe_rounds * groups and lanes > 0):
+        raise SystemExit(f"sweep: {lanes} lanes-kernel launches for {fe_rounds} FE rounds "
+                         f"x {groups} groups")
+    if single != 0:
+        raise SystemExit(f"sweep: the single kernel launched {single} times in the sweep")
+    # (on the CPU the lanes' arithmetic runs in turn, so the gate is the card's)
+    if device == "cuda" and not sweep_s <= SWEEP_K / 2 * iso_s:
+        raise SystemExit(f"sweep: {sweep_s:.3f} s for {SWEEP_K} candidates is over "
+                         f"{SWEEP_K / 2} x the isolated fit's {iso_s:.3f} s")
+    return sweep, {"lanes": lanes, "isolated": iso_launches}
+
+
+def sweep_path_phase(hk, sweep, cfg, kind, smi, device="cuda") -> int:
+    """sweep_path: evaluate_path over SWEEP_PATH_K candidates (bench.py
+    _sweep_path_leg's lambdas, logspace(1, -2)) on the sweep's prepared
+    coordinates, warm-started along the path and cold.  Fails unless each
+    warm candidate's final objective is at most SWEEP_WARM_RATIO times its
+    cold one (bench.py's quality bound) and the single kernel's launches
+    equal the warm path's summed FE passes (the lanes kernel launches
+    none).  -> the warm path's launches."""
+    cands = sweep_candidates(cfg, np.logspace(1.0, -2, SWEEP_PATH_K))
+    hk.LAUNCHES = hk.LANES_LAUNCHES = 0
+    t0 = time.perf_counter()
+    warm = sweep.evaluate_path(cands)
+    sync(device)
+    warm_s = time.perf_counter() - t0
+    launches, lanes = hk.LAUNCHES, hk.LANES_LAUNCHES
+    passes = sum(fe_passes(r.descent) for r in warm)
+    t0 = time.perf_counter()
+    cold = sweep.evaluate_path(cands, warm_start=False)
+    sync(device)
+    cold_s = time.perf_counter() - t0
+    ratios = [float(w.objective_history[-1]) / float(c.objective_history[-1])
+              for w, c in zip(warm, cold)]
+    emit({"phase": "sweep_path", "entry": "photon_ml_tpu_torch.hyperparameter."
+          "SweepEvaluator.evaluate_path", "candidates": SWEEP_PATH_K,
+          "warm_s": warm_s, "cold_s": cold_s, "warm_over_cold_objective": ratios,
+          "warm_final_objectives": [w.objective_history[-1] for w in warm],
+          "cold_final_objectives": [c.objective_history[-1] for c in cold],
+          "fe_passes": passes, "kernel_launches": launches,
+          "warm_solver_iterations": [w.descent.total_iterations() for w in warm],
+          "cold_solver_iterations": [c.descent.total_iterations() for c in cold],
+          "device": kind, "nvidia_smi": smi})
+    if not all(r <= SWEEP_WARM_RATIO for r in ratios):
+        raise SystemExit(f"sweep_path: warm/cold final objectives {ratios}")
+    if device == "cuda" and not (launches == passes and launches > 0 and lanes == 0):
+        raise SystemExit(f"sweep_path: {launches} single-kernel launches (lanes {lanes}) "
+                         f"for {passes} FE passes")
+    return launches
+
+
+def cli_tuning_phase(hk, kind, smi, device="cuda") -> int:
+    """cli_tuning: cli.train --config on cli_game's npz files with
+    --validation-data --tuning bayesian --tuning-iterations 6 --sweep-seed 7
+    --warm-start.  Fails unless the summary counts the grid's fit plus 6,
+    the candidates before the GP takes over (until the observations
+    outnumber the parameters) are the seeded uniform draws, the GP chose
+    at least one, every AUC is in (0.5, 1), and the saved best model is
+    the best AUC's and scores the validation rows to its own best AUC (by
+    cli.score).  -> the fused kernel's launches."""
+    from photon_ml_tpu_torch.cli import score as score_cli
+    from photon_ml_tpu_torch.cli import train as train_cli
+    d = CLI_ROOT / "cli_game"      # cli_game_phase's inputs, kept
+    out = cli_dir("cli_tuning")
+    hk.LAUNCHES = 0
+    summary, wall = run_cli(train_cli, [
+        "--train-data", d / "train.npz", "--validation-data", d / "val.npz",
+        "--config", d / "config.json", "--evaluators", "AUC", "--device", device,
+        "--tuning", "bayesian", "--tuning-iterations", TUNING_ITERATIONS,
+        "--sweep-seed", TUNING_SEED, "--warm-start", "--output-dir", out])
+    launches = hk.LAUNCHES
+    tun = summary["tuning"]
+    num_params = len(tun["candidates"][0])
+    # GaussianProcessSearch's uniform draws, replayed: one per candidate
+    # while the observations (the grid's fit first) do not outnumber the
+    # parameters; each vector as the evaluation function maps it to
+    # weights and back
+    rng = np.random.default_rng(TUNING_SEED)
+    lo, hi = TUNING_RANGE
+    replay = [[float(np.log10(max(float(10.0 ** v), 1e-12)))
+               for v in lo + rng.random((1, num_params))[0] * (hi - lo)]
+              for _ in range(num_params)]
+    scored, _ = run_cli(score_cli, [
+        "--model-dir", out / "best", "--data", d / "val.npz", "--evaluators", "AUC",
+        "--output", out / "scores.npz", "--device", device])
+    aucs = tun["prior_values"] + tun["values"]
+    best_auc = max(summary["validation_history"]["AUC"])
+    emit({"phase": "cli_tuning", "entry": "photon_ml_tpu_torch.cli.train.main --tuning "
+          "bayesian", "config": "BASELINE config 4 from cli_game's npz GameDatasets",
+          "cli_wall_s": wall, "fit_s": summary["fit_s"], "num_configs": summary["num_configs"],
+          "tuning": tun, "replayed_prefix": replay, "validation": summary["validation"],
+          "final_objective": summary["final_objective"], "scored_auc": scored["evaluation"]["AUC"],
+          "kernel_launches": launches, "device": kind, "nvidia_smi": smi})
+    if summary["num_configs"] != 1 + TUNING_ITERATIONS:
+        raise SystemExit(f"cli_tuning: {summary['num_configs']} configs, expected "
+                         f"{1 + TUNING_ITERATIONS}")
+    if tun["candidates"][:num_params] != replay:
+        raise SystemExit(f"cli_tuning: uniform prefix {tun['candidates'][:num_params]} "
+                         f"!= the seeded replay {replay}")
+    if tun["gp_chosen"] < 1:
+        raise SystemExit("cli_tuning: the GP chose no candidate")
+    if not all(0.5 < a < 1.0 for a in aucs):
+        raise SystemExit(f"cli_tuning: AUCs {aucs}")
+    if not (summary["validation"]["AUC"] == max(aucs)
+            and abs(scored["evaluation"]["AUC"] - best_auc) <= 1e-6):
+        raise SystemExit(f"cli_tuning: saved best {summary['validation']} / scored "
+                         f"{scored['evaluation']} is not the best of {aucs}")
+    return launches
+
+
 def sparse_kernel_entry(name: str, part: str, c6: dict, c7: dict,
                         cli_avro: dict) -> dict:
     """The kernels line's entry of sparse kernel A ("a") or B ("b"): its
@@ -2741,6 +3245,30 @@ def sparse_kernel_entry(name: str, part: str, c6: dict, c7: dict,
            if part == "a" else {}),
         "whole_pass": {"config6": pick(c6["timing"]["pass"]),
                        "config7": pick(c7["timing"]["pass"])},
+    }
+
+
+def lanes_kernel_entry(timings: dict, launches: int) -> dict:
+    """The kernels line's entry of the lanes kernel: its launches in the
+    timed sweep and its numbers at config 4's fixed effect with K = 16,
+    then at config 1's width."""
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "share_of_bound",
+            "ms_over_library", "single_launches_ms", "ms_over_single_launches",
+            "min_ms", "max_ms", "lanes", "shape", "plan", "max_abs_err")
+    main_t, other = (timings[f"{n}x{d}"] for n, d in LANES_FULL)
+    return {
+        "name": "fused_value_and_gradient_lanes", "route": "cuda",
+        "source": "photon_ml_tpu_torch/csrc/fused_value_and_gradient_lanes.cu",
+        "replaces": "photon_ml_tpu/hyperparameter/vectorized.py:92",
+        "replaces_note": ("_fe_sweep_update: jax.vmap of the fixed effect's solve over the "
+                          "candidates, XLA's value_and_gradient as X C^T and X^T S "
+                          "(no TPU kernel)"),
+        "launches": launches, "launches_by_path": {"sweep": launches},
+        "tolerance": (f"value rtol {VALUE_RTOL}, gradient and sum(w l') rtol {GRAD_RTOL} "
+                      f"atol {GRAD_ATOL}"),
+        **{k: main_t[k] for k in keys}, "hbm_share": main_t["share_of_bound"],
+        "design": LANES_DESIGN,
+        "at_config1_width": {k: other[k] for k in keys},
     }
 
 
@@ -2799,6 +3327,9 @@ def main() -> int:
     max_abs_err = run_checks(hk, losses, x, y, x_wide, y_wide)
     nan_checks = run_nan_checks(hk, losses)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    t0 = time.perf_counter()
+    lanes_timing = lanes_checks(hk, losses, kind, smi, sms, x, y)
+    emit({"phase": "lanes_checks_done", "seconds": time.perf_counter() - t0})
     # the main shape last: its numbers go in the kernels line
     for xt, yt in ((x_wide, y_wide), (x, y)):
         timing = time_full(hk, LOGISTIC, xt, yt)
@@ -2977,9 +3508,8 @@ def main() -> int:
     # one outer iteration under the profiler (random-effect blocks and
     # device shards are memoized on the datasets, so this is the descent)
     g_cfg1 = dataclasses.replace(g_cfg, num_outer_iterations=1)
-    g_res1, g_prof = profile_call(
+    g_res1, g_prof = profile_fit(
         lambda: GameEstimator(g_cfg1, device="cuda").fit(g_train, g_val, ["AUC"]))
-    g_prof["fe_passes"] = fe_passes(g_res1.descent)
     g_prof["spans_s"] = dict(g_res1.descent.timings)
     emit({"phase": "glmix_profile", "outer_iterations": 1, "device": kind,
           "nvidia_smi": smi, **g_prof})
@@ -3016,16 +3546,24 @@ def main() -> int:
           "device": kind, "nvidia_smi": smi, **gt})
     check_glmix("glmix_tron", gt)
     # one TRON outer iteration under the profiler
-    t_res1, t_prof = profile_call(lambda: GameEstimator(
+    t_res1, t_prof = profile_fit(lambda: GameEstimator(
         dataclasses.replace(t_cfg, num_outer_iterations=1), device="cuda").fit(
             g_train, g_val, ["AUC"]))
-    t_prof["fe_passes"] = fe_passes(t_res1.descent)
     t_prof["spans_s"] = dict(t_res1.descent.timings)
     emit({"phase": "glmix_tron_profile", "outer_iterations": 1, "device": kind,
           "nvidia_smi": smi, **t_prof})
     if t_prof["fused_kernel_launches"] != t_prof["fe_passes"]:
         raise SystemExit(f"glmix_tron profile: {t_prof['fused_kernel_launches']} device "
                          f"launches of the kernel for {t_prof['fe_passes']} passes")
+
+    # --- hyperparameter sweeps over config 4: the candidate and path lanes ---
+    t0 = time.perf_counter()
+    sweep, sweep_counts = sweep_phase(hk, g_train, g_val, g_cfg, kind, smi)
+    emit({"phase": "sweep_done", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    sweep_path_launches = sweep_path_phase(hk, sweep, g_cfg, kind, smi)
+    emit({"phase": "sweep_path_done", "seconds": time.perf_counter() - t0})
+    del sweep
 
     # --- sparse kernels A and B (csrc/ell_sparse.cu) --------------------------
     from photon_ml_tpu_torch.ops import sparse_kernels as sk
@@ -3048,6 +3586,9 @@ def main() -> int:
     t0 = time.perf_counter()
     cli_game = cli_game_phase(hk, glmix_ref, kind, smi)
     emit({"phase": "cli_game_done", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    cli_tuning = cli_tuning_phase(hk, kind, smi)
+    emit({"phase": "cli_tuning_done", "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
     cli_avro = cli_avro_phase(hk, sk, ref_cache, kind, smi)
     emit({"phase": "cli_avro_done", "seconds": time.perf_counter() - t0})
@@ -3083,13 +3624,17 @@ def main() -> int:
         "source": "photon_ml_tpu_torch/csrc/fused_value_and_gradient.cu",
         "replaces": "photon_ml_tpu/ops/pallas_kernels.py:150",
         "launches": (launches + g_launches + c2_launches + c3["kernel_launches"] + t_launches
-                     + c5["convex"] + c5["full"] + cli_glm + cli_game
+                     + sweep_counts["isolated"] + sweep_path_launches
+                     + c5["convex"] + c5["full"] + cli_glm + cli_game + cli_tuning
                      + sum(inexact["launches"].values()) + sum(stream_launches.values())),
         "launches_by_path": {"train_glm": launches, "glmix": g_launches,
                              "config2": c2_launches, "config3": c3["kernel_launches"],
-                             "glmix_tron": t_launches, "config5_convex": c5["convex"],
+                             "glmix_tron": t_launches,
+                             "sweep_isolated_fits": sweep_counts["isolated"],
+                             "sweep_path": sweep_path_launches,
+                             "config5_convex": c5["convex"],
                              "config5_full": c5["full"], "cli_glm": cli_glm,
-                             "cli_game": cli_game,
+                             "cli_game": cli_game, "cli_tuning": cli_tuning,
                              "inexact_strict": inexact["launches"]["strict"],
                              "inexact_scheduled": inexact["launches"]["scheduled"],
                              **stream_launches},
@@ -3128,7 +3673,8 @@ def main() -> int:
         | {"launches_per_streamed_pass": stream_glm["chunks"]},
         "local_epochs_per_chunk": stream_glm["local_epochs"],
     }] + [sparse_kernel_entry(name, part, c6, c7, cli_avro) for name, part in (
-        ("ell_margin_loss", "a"), ("csc_column_sum", "b"))],
+        ("ell_margin_loss", "a"), ("csc_column_sum", "b"))] + [lanes_kernel_entry(
+            lanes_timing, sweep_counts["lanes"])],
         "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -6,7 +6,9 @@ to find, and imports nothing of it (nor of JAX).  Plain tensor code is
 PyTorch; the one TPU kernel of the JAX package
 (photon_ml_tpu/ops/pallas_kernels.py::fused_value_and_gradient) is a CUDA
 kernel written by hand for Hopper (csrc/fused_value_and_gradient.cu), and
-so are the sparse feature products (csrc/ell_sparse.cu).
+so are the sparse feature products (csrc/ell_sparse.cu) and the fixed
+effect's pass over the candidate lanes of a hyperparameter sweep
+(csrc/fused_value_and_gradient_lanes.cu).
 
 Device policy: entry points take `device=None`, which means "cuda".  When
 CUDA is absent they raise; nothing carries on silently on the CPU.  Pass

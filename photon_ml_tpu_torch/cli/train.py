@@ -18,7 +18,9 @@ after every outer iteration and resumes from the newest verified record;
 `--fault-plan` (or $PHOTON_FAULT_PLAN) arms fault injection; on SIGTERM or
 SIGINT the run stops after the in-flight update and exits with the
 resumable status 75 and a JSON line.  `--hbm-budget` trains out of core
-(streamed fixed effects, residency rotation).  Flags of subsystems the port does not
+(streamed fixed effects, residency rotation).  `--tuning random|bayesian`
+searches the regularization weights after the fit (hyperparameter/), each
+candidate a refit over the shared sweep state.  Flags of subsystems the port does not
 have yet exit naming their ROADMAP.md queue A item, and summary keys that
 belong to them are null.
 """
@@ -139,19 +141,21 @@ def build_parser() -> argparse.ArgumentParser:
                         "otherwise runs even under --data-validation "
                         "disabled, like the reference's separate checkData "
                         "flag)")
-    # hyperparameter tuning (reference: Driver.runHyperparameterTuning):
-    # not ported yet (item 17)
+    # hyperparameter tuning (reference: GameTrainingParams tuning mode +
+    # Driver.runHyperparameterTuning, cli/game/training/Driver.scala:337-373)
     p.add_argument("--tuning", default="none",
-                   choices=["none", "random", "bayesian"],
-                   help="hyperparameter search (not ported yet: item 17)")
+                   choices=["none", "random", "bayesian"])
     p.add_argument("--tuning-iterations", type=int, default=10)
     p.add_argument("--tuning-range", default="-3,3",
                    help="log10 lambda search range 'lo,hi' per coordinate")
     p.add_argument("--sweep-seed", type=int, default=None,
-                   help="seed of the hyperparameter search")
+                   help="seed for the hyperparameter search (candidate "
+                        "draws + GP slice sampler): a fixed seed reproduces "
+                        "the candidate sequence bit-identically; default = "
+                        "the training config's seed")
     p.add_argument("--warm-start", action="store_true",
-                   help="initialize each grid combo from the previous "
-                        "model (reference: use-warm-start, "
+                   help="initialize each grid combo / tuning refit from the "
+                        "previous (best) model (reference: use-warm-start, "
                         "GameTrainingParams.scala:197)")
     p.add_argument("--event-listener", action="append", default=[],
                    help="EventListener class path (not ported yet: item 19)")
@@ -365,7 +369,6 @@ def _load_dataset(path: str, task: str, args=None, train_dataset=None,
 
 # flag -> (is it set, the ROADMAP.md queue A item that ports it)
 UNPORTED_FLAGS = (
-    ("--tuning", lambda a: a.tuning != "none", 17),
     ("--event-listener", lambda a: bool(a.event_listener), 19),
     ("--trace-out", lambda a: a.trace_out is not None, 19),
     ("--run-log", lambda a: a.run_log is not None, 19),
@@ -657,6 +660,10 @@ def _fit_and_save(args, log, train, val, device, dtype, t0, ingest_s,
             train, grid, val, evaluator_specs, warm_start=args.warm_start,
             checkpoint_dir=args.checkpoint_dir,
             initial_model=initial_model, timing_mode=args.timing_mode)
+    tuning = None
+    if args.tuning != "none":
+        results, tuning = _tune(args, config, train, val, evaluator_specs,
+                                initial_model, results, device, dtype)
     fit_s = time.time() - t_fit
 
     from photon_ml_tpu_torch.game.estimator import select_best_result
@@ -713,6 +720,11 @@ def _fit_and_save(args, log, train, val, device, dtype, t0, ingest_s,
         # the selected fit's phase spans (build/coordinates, per-update
         # solve/objective/validation, flushes), seconds
         "spans_s": {k: round(v, 4) for k, v in best.descent.timings.items()},
+        # --tuning: the grid's and each searched candidate's values, the
+        # candidates' parameter vectors, how many the GP chose, and the
+        # search's host seconds outside the refits (the GP fit and the
+        # acquisition over the candidate pool); None without --tuning
+        "tuning": tuning,
     }
     with open(os.path.join(args.output_dir, "training-summary.json"), "w") as f:
         json.dump(summary, f, indent=2)
@@ -732,6 +744,61 @@ def _fit_and_save(args, log, train, val, device, dtype, t0, ingest_s,
         log.info("phase %s: %.3fs", name, t)
     print(json.dumps(summary))
     return 0
+
+
+def _tune(args, config, train, val, evaluator_specs, initial_model, results,
+          device, dtype):
+    """reference: Driver.runHyperparameterTuning — a searcher seeded with
+    the grid results, each evaluation a refit with the candidate lambdas
+    over the shared sweep state (hyperparameter/vectorized.py).  -> (grid
+    results + the search's results, the summary's `tuning` record)."""
+    if val is None:
+        raise SystemExit("--tuning requires --validation-data")
+    from photon_ml_tpu_torch.game import GameEstimator
+    from photon_ml_tpu_torch.hyperparameter import (
+        GameEstimatorEvaluationFunction, GaussianProcessSearch, RandomSearch)
+    fn = GameEstimatorEvaluationFunction(
+        GameEstimator(config, device=device, dtype=dtype), train, val,
+        evaluator_specs, scale="log", warm_start=args.warm_start,
+        initial_model=initial_model)
+    if args.warm_start:
+        for r in results:
+            if r.validation:
+                fn.observe(r)
+    lo, hi = (float(v) for v in args.tuning_range.split(","))
+    ranges = [(lo, hi)] * fn.num_params
+    spec0 = results[0].validation_specs[0]
+    # --sweep-seed pins the WHOLE search chain (candidate draws, GP
+    # estimator init, slice sampler) independently of the training seed
+    sweep_seed = args.sweep_seed if args.sweep_seed is not None else config.seed
+    kind = GaussianProcessSearch if args.tuning == "bayesian" else RandomSearch
+    search_s, gp_chosen = [0.0], [0]
+
+    class Timed(kind):
+        """The searcher with its host seconds per candidate choice counted,
+        and the choices its GP made (the observations outnumber the
+        parameters)."""
+
+        def next(self, last_candidate, last_value):
+            t0 = time.perf_counter()
+            try:
+                return super().next(last_candidate, last_value)
+            finally:
+                search_s[0] += time.perf_counter() - t0
+                gp_chosen[0] += len(getattr(self, "_points", ())) > self.num_params
+
+    if args.tuning == "bayesian":
+        search = Timed(ranges, fn, spec0.evaluator, seed=sweep_seed)
+    else:
+        search = Timed(ranges, fn, seed=sweep_seed)
+    prior = [r for r in results if r.validation]
+    found = search.find(args.tuning_iterations, prior)
+    record = {"kind": args.tuning, "sweep_seed": sweep_seed,
+              "prior_values": [fn.get_evaluation_value(r) for r in prior],
+              "candidates": [fn.vectorize_params(r).tolist() for r in found],
+              "values": [fn.get_evaluation_value(r) for r in found],
+              "gp_chosen": gp_chosen[0], "search_host_s": round(search_s[0], 4)}
+    return results + found, record
 
 
 if __name__ == "__main__":

@@ -31,6 +31,11 @@ SIGNATURES = {
             (_I, [_I] + [_P] * 10 + [_LL] + [_I] * 6 + [_P]),
         "pmt_error_string": (ctypes.c_char_p, [_I]),
     },
+    "fused_value_and_gradient_lanes": {
+        "pmt_fused_value_and_gradient_lanes":
+            (_I, [_I] + [_P] * 10 + [_LL] + [_I] * 6 + [_P]),
+        "pmt_lanes_error_string": (ctypes.c_char_p, [_I]),
+    },
     "ell_sparse": {
         "pmt_ell_margin_loss": (_I, [_I] + [_P] * 10 + [_LL] + [_I] * 7 + [_P]),
         "pmt_csc_column_sum": (_I, [_I] + [_P] * 10 + [_LL, _I, _I, _I, _P]),

@@ -1,0 +1,143 @@
+"""The fixed effect's objective over K candidate lanes: one shard, K
+coefficient vectors (the candidate lane of a hyperparameter sweep,
+hyperparameter/vectorized.py).
+
+The JAX package gets this pass by `jax.vmap` of its solve over the
+candidates with X, labels, weights and the normalization unmapped and the
+offsets and regularization weights mapped
+(photon_ml_tpu/hyperparameter/vectorized.py::_fe_sweep_update): XLA then
+reads X once for all K margins.  Here, on a CUDA tensor, a dense X goes
+through the lanes kernel (ops/hopper_kernels.py::
+fused_value_and_gradient_lanes): one launch per pass for up to
+`max_lanes(d)` candidates, so K candidates take one launch per group of
+them per pass; a PaddedSparse X runs kernels A and B once per candidate
+per pass (ops/aggregators.py).  On the CPU the same functions run their
+plain versions.  Normalization is folded in as the single kernel folds it:
+E = C * f in, the lane shift b_k = -(e_k . s), then (grad - s swl) * f.
+"""
+from __future__ import annotations
+
+from typing import Callable, List, Optional, Tuple
+
+import torch
+
+from photon_ml_tpu_torch.ops import aggregators as agg
+from photon_ml_tpu_torch.ops import features as fops
+from photon_ml_tpu_torch.ops import hopper_kernels as hk
+from photon_ml_tpu_torch.ops.losses import PointwiseLoss
+from photon_ml_tpu_torch.ops.normalization import NormalizationContext
+
+
+def launch_groups(num_lanes: int, d: int, device: torch.device) -> List[Tuple[int, int]]:
+    """[start, stop) of each group of lanes one kernel launch takes (one
+    group on the CPU, whose plain version takes any count)."""
+    if device.type == "cpu":
+        return [(0, num_lanes)]
+    size = hk.max_lanes(d)
+    if size == 0:
+        raise ValueError(f"the lanes kernel takes no dense fixed effect of width "
+                         f"d={d} (at most {hk.LANES_THREADS * hk.LANES_ACC_SIZES[-1]})")
+    return [(k, min(k + size, num_lanes)) for k in range(0, num_lanes, size)]
+
+
+def lanes_matvec(x: fops.FeatureMatrix, coefficients: torch.Tensor) -> torch.Tensor:
+    """[K, n] margins X c_k of K coefficient vectors [K, d]."""
+    if isinstance(x, torch.Tensor):
+        return coefficients @ x.T
+    return torch.stack([fops.matvec(x, c) for c in coefficients])
+
+
+class FixedEffectLanes:
+    """K GLM objectives over one shard: lane k has offsets O[k] and L2
+    weight l2[k].
+
+    value_and_gradient(C [K, d]) -> ([K] values, [K, d] gradients)
+    hessian_vector_at(C)         -> V [K, d] -> [K, d] products
+
+    in the normalized space when `norm` is set, each with its lane's L2
+    term, as optim/batched.py's lanes expect."""
+
+    def __init__(self, loss: PointwiseLoss, x: fops.FeatureMatrix,
+                 labels: torch.Tensor, offsets: torch.Tensor,
+                 l2_weights: torch.Tensor, weights: Optional[torch.Tensor] = None,
+                 norm: Optional[NormalizationContext] = None):
+        self.loss = loss
+        self.x = x
+        self.labels = labels
+        self.offsets = offsets.contiguous()
+        self.l2 = l2_weights
+        self.weights = weights
+        self.norm = None if norm is None or norm.is_identity else norm
+        self.dense = isinstance(x, torch.Tensor)
+        # launches of the lanes kernel one value+gradient pass makes
+        self.groups = (launch_groups(offsets.shape[0], x.shape[1], x.device)
+                       if self.dense else [])
+
+    def _l2_terms(self, c: torch.Tensor, value: torch.Tensor, grad: torch.Tensor):
+        return (value + 0.5 * self.l2 * (c * c).sum(-1),
+                grad + self.l2[:, None] * c)
+
+    def value_and_gradient(self, c: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        if not self.dense:
+            parts = [agg.value_and_gradient(self.loss, self.x, self.labels, ck,
+                                            weights=self.weights, offsets=ok,
+                                            norm=self.norm)
+                     for ck, ok in zip(c, self.offsets)]
+            return self._l2_terms(c, torch.stack([v for v, _ in parts]),
+                                  torch.stack([g for _, g in parts]))
+        factors = None if self.norm is None else self.norm.factors
+        shifts = None if self.norm is None else self.norm.shifts
+        e = c if factors is None else c * factors
+        b = None if shifts is None else -(e @ shifts)
+        values, grads, swls = [], [], []
+        for lo, hi in self.groups:
+            v, g, swl = hk.fused_value_and_gradient_lanes(
+                self.loss, self.x, self.labels, e[lo:hi].contiguous(),
+                self.weights, self.offsets[lo:hi], None,
+                None if b is None else b[lo:hi].contiguous())
+            values.append(v)
+            grads.append(g)
+            swls.append(swl)
+        value, grad = torch.cat(values), torch.cat(grads)
+        if shifts is not None:
+            grad = grad - shifts * torch.cat(swls)[:, None]
+        if factors is not None:
+            grad = grad * factors
+        return self._l2_terms(c, value, grad)
+
+    def hessian_vector_at(self, c: torch.Tensor) -> Callable[[torch.Tensor], torch.Tensor]:
+        """V -> every lane's Hv at C (with its L2 term): for a dense X the
+        margins and l'' of all lanes are computed once, and each product
+        is two matrix products over X; a sparse X takes each lane's
+        ops/aggregators.py closure."""
+        if not self.dense:
+            hvs = [agg.hessian_vector_at(self.loss, self.x, self.labels, ck,
+                                         weights=self.weights, offsets=ok,
+                                         norm=self.norm)
+                   for ck, ok in zip(c, self.offsets)]
+            return lambda v: torch.stack([h(vk) for h, vk in zip(hvs, v)]) + \
+                self.l2[:, None] * v
+        factors = None if self.norm is None else self.norm.factors
+        shifts = None if self.norm is None else self.norm.shifts
+        effective = (lambda v: v) if factors is None else (lambda v: v * factors)
+        x = self.x
+
+        def margins(v):
+            e = effective(v)
+            z = x @ e.T                      # [n, K]
+            return z if shifts is None else z - e @ shifts
+
+        d2 = self.loss.d2z(margins(c) + self.offsets.T, self.labels[:, None])
+        if self.weights is not None:
+            d2 = d2 * self.weights[:, None]
+
+        def hv(v: torch.Tensor) -> torch.Tensor:
+            t = d2 * margins(v)              # [n, K]
+            out = (x.T @ t).T                # [K, d]
+            if shifts is not None:
+                out = out - shifts * t.sum(0)[:, None]
+            if factors is not None:
+                out = out * factors
+            return out + self.l2[:, None] * v
+
+        return hv

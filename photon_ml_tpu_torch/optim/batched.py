@@ -94,8 +94,10 @@ def lbfgs(
     upper: Optional[torch.Tensor] = None,
     iteration_cap: Optional[int] = None,
 ) -> SolveResult:
-    """Minimize f_e (+ l1*|x_e|_1 when `l1_weight` is set: OWLQN) for every
-    lane e of x0 [E, d] at once; `lower`/`upper` [d] turn on box
+    """Minimize f_e (+ l1_e*|x_e|_1 when `l1_weight` is set: OWLQN) for
+    every lane e of x0 [E, d] at once.  `l1_weight` is one weight for every
+    lane or an [E] tensor of per-lane weights (the candidate lanes of a
+    hyperparameter sweep); `lower`/`upper` [d] turn on box
     projection for every lane.  `iteration_cap` is one cap for every lane
     (the JAX package passes its budget unmapped): the loop stops after
     min(cap, max_iterations) steps, and `max_iterations` sizes the
@@ -114,6 +116,10 @@ def lbfgs(
     dtype, device = x0.dtype, x0.device
     l1 = (torch.as_tensor(l1_weight, dtype=dtype, device=device)
           if use_l1 else None)
+    if l1 is not None and l1.ndim == 1:
+        # per-lane weights: the pseudo-gradient and the orthant value term
+        # take each lane's own
+        l1 = l1[:, None]
     tolerance = float(tolerance)
     cap = (max_iterations if iteration_cap is None
            else min(int(iteration_cap), max_iterations))
@@ -133,7 +139,7 @@ def lbfgs(
             return torch.where(box_blocked(x, g), zero, g)
         return g
 
-    rounds = 0
+    rounds = readbacks = 0
 
     def full_value(x):
         nonlocal rounds
@@ -201,6 +207,7 @@ def lbfgs(
         searching = active & ~ok
         any_active, any_searching = torch.stack(
             [active.any(), searching.any()]).tolist()
+        readbacks += 1
         if not any_active:
             break
         while any_searching:
@@ -214,6 +221,7 @@ def lbfgs(
             ls_n = ls_n + searching
             searching = searching & ~ok & (ls_n < _MAX_LS)
             any_searching = bool(searching.any())
+            readbacks += 1
 
         # curvature pair from raw gradients (standard OWLQN choice)
         s = xt - x
@@ -259,7 +267,7 @@ def lbfgs(
     return SolveResult(x=x, value=f, gradient_norm=gnorm, iterations=iterations,
                        reason=reason, loss_history=loss_hist,
                        gnorm_history=gnorm_hist, fg_count=fg_count,
-                       rounds=rounds)
+                       rounds=rounds, readbacks=readbacks)
 
 
 def solve(value_and_grad: BatchedValueAndGrad, x0: torch.Tensor, config,
@@ -271,8 +279,11 @@ def solve(value_and_grad: BatchedValueAndGrad, x0: torch.Tensor, config,
     OWLQN, box bounds to every LBFGS lane, TRON (with `loss` and
     `hessian_vector_at`, which carries the L2 term too) to tron_lanes.
     `config` is an OptimizerConfig, `reg` a RegularizationContext;
-    `budget` (optim/schedule.py SolveBudget) is one iteration cap and
-    tolerance for every lane."""
+    `reg_weight` a total weight or an optim/schedule.py RegWeights whose
+    l1 weight may be an [E] tensor, one per lane (the l2 weights are the
+    oracle's); `budget` (optim/schedule.py SolveBudget) is one iteration
+    cap and tolerance for every lane."""
+    from photon_ml_tpu_torch.optim.schedule import RegWeights
     cfg = config.resolved()
     tolerance, cap = cfg.tolerance, None
     if budget is not None:
@@ -288,7 +299,8 @@ def solve(value_and_grad: BatchedValueAndGrad, x0: torch.Tensor, config,
                           tolerance=tolerance,
                           max_cg_iterations=cfg.max_cg_iterations,
                           iteration_cap=cap)
-    l1_w, _ = reg.split(reg_weight)
+    l1_w = (reg_weight.l1_weight if isinstance(reg_weight, RegWeights)
+            else reg.split(reg_weight)[0])
     lower, upper = box_bounds(cfg, x0)
     return lbfgs(value_and_grad, x0, max_iterations=cfg.max_iterations,
                  tolerance=tolerance, history=cfg.history,

@@ -164,13 +164,23 @@ def solve(
 
     `budget` (optim/schedule.py SolveBudget) caps the iterations and sets
     the tolerance, rounded to x0's dtype; the config's max_iterations
-    still sizes the histories."""
+    still sizes the histories.
+
+    `reg_weight` may be an optim/schedule.py RegWeights: both penalty
+    weights are then taken as given instead of splitting a total weight
+    with `reg.split` (a sweep varies lambda and the elastic-net mix this
+    way).  `reg.has_l1` stays the structural flag: it decides whether
+    OWLQN runs at all."""
+    from photon_ml_tpu_torch.optim.schedule import RegWeights
     cfg = config.resolved()
     if cfg.constraints is not None:
         raise ValueError(
             "named feature constraints are unresolved — call "
             "config.resolved_constraints(index_map) before solve()")
-    l1_w, l2_w = reg.split(reg_weight)
+    if isinstance(reg_weight, RegWeights):
+        l1_w, l2_w = reg_weight.l1_weight, reg_weight.l2_weight
+    else:
+        l1_w, l2_w = reg.split(reg_weight)
     obj = objective.with_l2(l2_w)
     tolerance, cap = cfg.tolerance, None
     if budget is not None:

@@ -50,8 +50,9 @@ def _truncated_cg(hess_vec, g, delta, active, max_cg: int):
     Stops a lane on residual tolerance, on boundary intersection (step
     extended to the sphere) or on negative curvature (step extended to the
     sphere along the current direction).  Lanes not `active` never step.
-    Returns (s, sHs, hit_boundary, cg_iterations, rounds): `rounds` is the
-    number of Hessian-vector evaluations of the whole batch."""
+    Returns (s, sHs, hit_boundary, cg_iterations, rounds, readbacks):
+    `rounds` is the number of Hessian-vector evaluations of the whole
+    batch, `readbacks` the host's reads of the lanes' flags."""
     one = torch.ones((), dtype=g.dtype, device=g.device)
     s = torch.zeros_like(g)
     hs = torch.zeros_like(g)           # running H s (no final Hv pass)
@@ -63,10 +64,13 @@ def _truncated_cg(hess_vec, g, delta, active, max_cg: int):
     boundary = torch.zeros_like(done)
     i = torch.zeros(g.shape[0], dtype=torch.int64, device=g.device)
     going = active & ~done
-    rounds = 0
+    rounds = readbacks = 0
     # every going lane has taken exactly `rounds` CG steps, so its
     # i < max_cg test is this loop's bound
-    while rounds < max_cg and bool(going.any()):
+    while rounds < max_cg:
+        readbacks += 1
+        if not bool(going.any()):
+            break
         hd = hess_vec(d)
         rounds += 1
         dhd = _dot(d, hd)
@@ -93,7 +97,7 @@ def _truncated_cg(hess_vec, g, delta, active, max_cg: int):
         boundary = boundary | (going & hit)
         done = done | (going & (hit | small))
         going = going & ~done
-    return s, _dot(s, hs), boundary, i, rounds
+    return s, _dot(s, hs), boundary, i, rounds, readbacks
 
 
 def tron_lanes(
@@ -127,7 +131,7 @@ def tron_lanes(
 
     x = x0.clone()
     f, g = value_and_grad(x)
-    rounds, hv_rounds = 1, 0
+    rounds, hv_rounds, readbacks = 1, 0, 0
     gnorm = torch.linalg.vector_norm(g, dim=-1)
     # relative, like the reference's eps |g0|
     gtol = tolerance * torch.maximum(gnorm, one)
@@ -153,11 +157,13 @@ def tron_lanes(
     cap = (max_iterations if iteration_cap is None
            else min(int(iteration_cap), max_iterations))
     for step in range(cap):
+        readbacks += 1
         if not bool(active.any()):
             break
-        s, shs, hit, cg_n, cg_rounds = _truncated_cg(
+        s, shs, hit, cg_n, cg_rounds, cg_readbacks = _truncated_cg(
             hessian_vector_at(x), g, delta, active, max_cg_iterations)
         hv_rounds += cg_rounds
+        readbacks += cg_readbacks
         pred = -(_dot(g, s) + 0.5 * shs)               # predicted reduction
         x_try = x + s
         f_try, g_try = value_and_grad(x_try)
@@ -199,7 +205,8 @@ def tron_lanes(
     return SolveResult(x=x, value=f, gradient_norm=gnorm, iterations=iterations,
                        reason=reason, loss_history=loss_hist,
                        gnorm_history=gnorm_hist, coefficient_history=coef_hist,
-                       hv_count=hv_count, rounds=rounds, hv_rounds=hv_rounds)
+                       hv_count=hv_count, rounds=rounds, hv_rounds=hv_rounds,
+                       readbacks=readbacks)
 
 
 def tron(

@@ -51,6 +51,9 @@ class SolveResult:
     # batched TRON: Hessian-vector rounds of the whole batch, each
     # evaluating every lane (>= the largest lane's hv_count)
     hv_rounds: Optional[int] = None
+    # batched solves: the host's read-backs of lane flags (the syncs that
+    # pace a host-stepped batch)
+    readbacks: Optional[int] = None
 
     @property
     def converged(self) -> bool:

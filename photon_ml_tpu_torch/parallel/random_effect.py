@@ -115,6 +115,58 @@ def batched_hessian_vector(
     return batched_hessian_vector_at(loss, blocks, coefficients, l2_weight)(v)
 
 
+def lanes_value_and_gradient(
+    loss: PointwiseLoss, blocks: EntityBlocks, offsets: torch.Tensor,
+    coefficients: torch.Tensor, l2_weights: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K candidates' per-entity objectives over one bucket at once: the
+    algebra of batched_value_and_gradient with the blocks [E, S, d] shared
+    by the K candidates (one batched product against [E, d, K] reads them
+    once), per-candidate residual offsets [K, E, S] and L2 weights [K].
+    Lanes are candidate-major: coefficients [K * E, d] -> ([K * E] values,
+    [K * E, d] gradients)."""
+    K = offsets.shape[0]
+    E, _, d = blocks.x.shape
+    c = coefficients.reshape(K, E, d)
+    z = torch.bmm(blocks.x, c.permute(1, 2, 0)) + offsets.permute(1, 2, 0)  # [E, S, K]
+    l, dl = loss.loss_and_dz(z, blocks.labels[..., None])
+    if blocks.weights is not None:
+        l = l * blocks.weights[..., None]
+        dl = dl * blocks.weights[..., None]
+    mask = blocks.mask[..., None]
+    l, dl = _masked(l, mask), _masked(dl, mask)
+    value = l.sum(dim=1).T + 0.5 * l2_weights[:, None] * (c * c).sum(-1)     # [K, E]
+    grad = (torch.bmm(blocks.x.transpose(1, 2), dl).permute(2, 0, 1)
+            + l2_weights[:, None, None] * c)                                # [K, E, d]
+    return value.reshape(K * E), grad.reshape(K * E, d)
+
+
+def lanes_hessian_vector_at(
+    loss: PointwiseLoss, blocks: EntityBlocks, offsets: torch.Tensor,
+    coefficients: torch.Tensor, l2_weights: torch.Tensor,
+) -> Callable[[torch.Tensor], torch.Tensor]:
+    """V [K * E, d] -> every candidate lane's masked Hv at `coefficients`,
+    with its L2 term, the blocks shared as in lanes_value_and_gradient."""
+    K = offsets.shape[0]
+    E, _, d = blocks.x.shape
+    c = coefficients.reshape(K, E, d)
+    z = torch.bmm(blocks.x, c.permute(1, 2, 0)) + offsets.permute(1, 2, 0)
+    d2 = loss.d2z(z, blocks.labels[..., None])
+    mask = blocks.mask[..., None]
+
+    def hv(v: torch.Tensor) -> torch.Tensor:
+        vk = v.reshape(K, E, d)
+        t = d2 * torch.bmm(blocks.x, vk.permute(1, 2, 0))
+        if blocks.weights is not None:
+            t = t * blocks.weights[..., None]
+        t = _masked(t, mask)
+        out = (torch.bmm(blocks.x.transpose(1, 2), t).permute(2, 0, 1)
+               + l2_weights[:, None, None] * vk)
+        return out.reshape(K * E, d)
+
+    return hv
+
+
 def fit_random_effects(
     blocks: EntityBlocks,
     loss: PointwiseLoss,

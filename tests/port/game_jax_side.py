@@ -855,6 +855,19 @@ def cli_jobs(root: Path) -> list:
                                      "--validation-data", d("val.npz"),
                                      "--reg-weights", "1", "--evaluators", "AUC",
                                      "--hbm-budget", "500KB", *common]),
+        # hyperparameter tuning after the fit: random search, and the GP
+        # search warm-started from the best model with a pinned seed
+        ("game_tuning_random", "train", ["--train-data", d("train.npz"),
+                                         "--validation-data", d("val.npz"),
+                                         "--config", d("config.json"), "--evaluators", "AUC",
+                                         "--tuning", "random", "--tuning-iterations", "3",
+                                         *common]),
+        ("game_tuning_bayesian", "train", ["--train-data", d("train.npz"),
+                                           "--validation-data", d("val.npz"),
+                                           "--config", d("config.json"),
+                                           "--evaluators", "AUC", "--tuning", "bayesian",
+                                           "--tuning-iterations", "4", "--warm-start",
+                                           "--sweep-seed", "7", *common]),
         ("index", "index", ["--data", d("avro", "train"),
                             "--feature-shard-map", CLI_SHARD_MAP]),
         ("game_avro", "train", ["--train-data", d("avro", "train"),

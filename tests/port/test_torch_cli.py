@@ -2,8 +2,10 @@
 
 The same jobs (game_jax_side.cli_jobs) over the same inputs: the legacy
 single-GLM path from npz (a lambda sweep with validation) and from LIBSVM
-(elastic net, Avro model output), the --config GAME path from npz and from
-Avro pinned by cli.index's maps (reference-layout output), and cli.score
+(elastic net, Avro model output), the --config GAME path from npz (also
+followed by --tuning random, and by --tuning bayesian --warm-start
+--sweep-seed 7) and from Avro pinned by cli.index's maps (reference-layout
+output), and cli.score
 to npz (with predictions) and to ScoringResultAvro.  The JAX side runs
 them once, in a subprocess (f64 CPU, `--x64`); the port runs them in this
 process with `--device cpu --x64`.  Tolerances: final objectives and
@@ -185,7 +187,6 @@ def test_scores_match_jax(runs, name):
 
 
 UNPORTED = {
-    "--tuning": (["--tuning", "random"], 17),
     "--event-listener": (["--event-listener", "a.B"], 19),
     "--trace-out": (["--trace-out", "t.json"], 19),
     "--run-log": (["--run-log", "r.jsonl"], 19),
@@ -204,6 +205,26 @@ def test_unported_flags_exit_naming_their_item(tmp_path, flag):
         train_cli.main(["--train-data", "x.npz", "--output-dir", str(tmp_path),
                         "--device", "cpu", *extra])
     assert f"item {item}" in str(e.value) and flag.split()[0] in str(e.value)
+
+
+@pytest.mark.parametrize("name,kind,iterations", [("game_tuning_random", "random", 3),
+                                                   ("game_tuning_bayesian", "bayesian", 4)])
+def test_tuning_summary_records_the_search(runs, name, kind, iterations):
+    """--tuning (formerly exiting naming item 17): the grid's fit plus the
+    searched candidates, and the port's record of the search: the seed (the
+    config's unless --sweep-seed), one vector per candidate, each
+    candidate's validation value, the GP's choices (the observations
+    outnumber the two parameters from the third candidate on)."""
+    port, jax = runs[1][name]
+    assert port["num_configs"] == jax["num_configs"] == 1 + iterations
+    tun = port["tuning"]
+    assert tun["kind"] == kind and tun["sweep_seed"] == (7 if kind == "bayesian" else 11)
+    assert len(tun["candidates"]) == len(tun["values"]) == iterations
+    assert all(len(c) == 2 and all(-3 <= v <= 3 for v in c) for c in tun["candidates"])
+    assert tun["gp_chosen"] == (iterations - 2 if kind == "bayesian" else 0)
+    assert port["validation"]["AUC"] == max(tun["prior_values"] + tun["values"])
+    assert tun["search_host_s"] >= 0
+    assert runs[1]["game_npz"][0]["tuning"] is None
 
 
 @pytest.mark.parametrize("arg,want", [("8GB", 8_000_000_000), ("512mb", 512_000_000),

@@ -39,12 +39,18 @@ REQUIRED = ("photon_ml_tpu_torch.ops.features", "photon_ml_tpu_torch.ops.sparse_
             "photon_ml_tpu_torch.data.streaming", "photon_ml_tpu_torch.ops.chunked",
             "photon_ml_tpu_torch.optim.streaming", "photon_ml_tpu_torch.optim.stochastic",
             "photon_ml_tpu_torch.store.base", "photon_ml_tpu_torch.store.handles",
-            "photon_ml_tpu_torch.game.residency", "chip_smoke")
+            "photon_ml_tpu_torch.game.residency", "photon_ml_tpu_torch.ops.lanes",
+            "photon_ml_tpu_torch.hyperparameter", "photon_ml_tpu_torch.hyperparameter.kernels",
+            "photon_ml_tpu_torch.hyperparameter.slice_sampler",
+            "photon_ml_tpu_torch.hyperparameter.gp", "photon_ml_tpu_torch.hyperparameter.search",
+            "photon_ml_tpu_torch.hyperparameter.vectorized",
+            "photon_ml_tpu_torch.hyperparameter.game_evaluation", "chip_smoke")
 
 
 def test_the_scan_covers_the_port():
     assert set(REQUIRED) <= set(MODULES)
     assert (PKG / "csrc" / "ell_sparse.cu").exists()
+    assert (PKG / "csrc" / "fused_value_and_gradient_lanes.cu").exists()
 
 
 def test_the_avro_decoder_is_the_ports_own():

@@ -198,3 +198,119 @@ def test_kahan_pair_variant_applies_to_the_source():
     src = (root / "photon_ml_tpu_torch" / "csrc" / "fused_value_and_gradient.cu").read_text()
     assert src.count(mod.KAHAN) == 1
     assert src.replace(mod.KAHAN, mod.PLAIN).count("s += v;") == 1
+
+
+# --- the candidate-lanes kernel ----------------------------------------------
+
+def _lane_inputs(n=300, d=9, lanes=5, seed=3):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, d))
+    y = (rng.uniform(size=n) > 0.5).astype(np.float64)
+    c = rng.normal(size=(lanes, d)) * 0.2
+    w = rng.uniform(0.5, 2.0, size=n)
+    o = rng.normal(size=(lanes, n)) * 0.1
+    m = (rng.uniform(size=n) > 0.3).astype(np.float64)
+    o[:, np.flatnonzero(m == 0)[:2]] = np.inf      # dropped by the mask
+    s = rng.normal(size=d) * 0.3
+    return [torch.from_numpy(a) for a in (x, y, c, w, o, m, s)]
+
+
+@pytest.mark.parametrize("inputs", ["plain", "w+o", "mask+shift", "all"])
+@pytest.mark.parametrize("name", NAMES)
+def test_lanes_plain_equals_single_plain_per_lane(name, inputs):
+    """Lane k of the lanes function == the single kernel's function at
+    c_k, offsets o_k, with the shift b_k = -(c_k . s) and grad - s swl."""
+    loss = TL.BY_NAME[name]
+    x, y, c, w, o, m, s = _lane_inputs()
+    use_wo = inputs in ("w+o", "all")
+    use_ms = inputs in ("mask+shift", "all")
+    if not use_ms:
+        o = torch.where(torch.isinf(o), torch.zeros_like(o), o)
+    w_, o_ = (w, o) if use_wo else (None, None)
+    m_, s_ = (m, s) if use_ms else (None, None)
+    v, g, swl = hk.fused_value_and_gradient_lanes_plain(
+        loss, x, y, c, w_, o_, m_, None if s_ is None else -(c @ s_))
+    assert v.shape == swl.shape == (c.shape[0],) and g.shape == c.shape
+    for k in range(c.shape[0]):
+        v1, g1 = hk.fused_value_and_gradient_plain(
+            loss, x, y, c[k], w_, None if o_ is None else o_[k], m_, s_)
+        np.testing.assert_allclose(v[k].item(), v1.item(), rtol=1e-12)
+        gk = g[k] if s_ is None else g[k] - s_ * swl[k]
+        np.testing.assert_allclose(gk.numpy(), g1.numpy(), rtol=1e-12, atol=1e-12)
+    assert torch.isfinite(v).all() and torch.isfinite(g).all()
+
+
+def test_lanes_wrapper_on_the_cpu_runs_plain_and_launches_nothing():
+    x, y, c, w, o, m, s = (t.float() for t in _lane_inputs())
+    b = -(c @ s)
+    before = hk.LANES_LAUNCHES
+    got = hk.fused_value_and_gradient_lanes(TL.LOGISTIC, x, y, c, w, o, m, b)
+    want = hk.fused_value_and_gradient_lanes_plain(TL.LOGISTIC, x, y, c, w, o, m, b)
+    assert hk.LANES_LAUNCHES == before
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, want))
+    meta = torch.empty((4, 3), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        hk.fused_value_and_gradient_lanes(TL.LOGISTIC, meta, torch.empty(4, device="meta"),
+                                          torch.empty((2, 3), device="meta"))
+
+
+LANE_WIDTHS = (1, 3, 5, 31, 37, 124, 256, 257, 513, 1024, 2048)
+
+
+@pytest.mark.parametrize("d", LANE_WIDTHS)
+def test_lanes_plans_fit_shared_memory(d):
+    """Replay plan_lanes as the kernel walks it: every plan fits shared
+    memory (and two blocks' where it asks for two), its accumulators cover
+    the lane groups x d gradient entries, every shared array starts on 16
+    bytes, X's row stride is odd, and the blocks' tiles cover the rows
+    exactly once."""
+    top = hk.max_lanes(d)
+    assert top in (16, 8, 4)
+    for lanes in range(1, top + 1):
+        groups = hk.lane_groups(lanes)
+        assert 4 * groups >= lanes
+        for n in (0, 1, 3, 700, 950_051):
+            plan = hk.plan_lanes(n, d, lanes, PLAN_SMS)
+            lay, rows = plan.layout, plan.rows_per_tile
+            assert lay == hk.lanes_smem_layout(d, lanes, rows)
+            assert lay.bytes <= hk.MAX_SMEM
+            if plan.blocks_per_sm == 2:
+                assert plan.acc_per_thread <= 2 and 2 * (lay.bytes + 2048) <= 233_472
+            assert plan.acc_per_thread in hk.LANES_ACC_SIZES
+            assert plan.acc_per_thread * hk.LANES_THREADS >= groups * d
+            assert lay.ld % 2 == 1 and lay.ld >= d
+            for off in (lay.stage_x, lay.stage_v, lay.stage_o, lay.stage, lay.c, lay.s,
+                        lay.red):
+                assert off % 4 == 0
+            assert lay.stage_x >= rows * lay.ld and lay.stage_o >= lanes * rows
+            assert lay.bytes == 4 * (lay.red + 2 * 4 * hk.LANES_THREADS)
+            assert 1 <= plan.grid <= PLAN_SMS * plan.blocks_per_sm
+            assert rows == 1 or rows % 32 == 0 or rows * 4 * lay.ld <= 16 * 1024
+            tiles = -(-n // rows)
+            covered = sum(min(rows, n - t * rows) for b in range(plan.grid)
+                          for t in range(b, tiles, plan.grid))
+            assert covered == n
+    with pytest.raises(ValueError, match="lanes"):
+        hk.plan_lanes(10, d, top + 1, PLAN_SMS)
+
+
+def test_lanes_plan_refuses_what_the_kernel_cannot_take():
+    assert hk.max_lanes(2049) == 0
+    for bad in ((10, 31, 0), (10, 31, 17), (10, 2049, 1), (10, 513, 9)):
+        with pytest.raises(ValueError):
+            hk.plan_lanes(*bad, PLAN_SMS)
+
+
+def test_lanes_constants_match_the_cuda_source():
+    src = (Path(hk.__file__).resolve().parent.parent / "csrc"
+           / "fused_value_and_gradient_lanes.cu").read_text()
+    assert f"constexpr int kThreads = {hk.LANES_THREADS};" in src
+    assert f"constexpr int kStages = {hk.LANES_STAGES};" in src
+    assert f"constexpr int kMaxLanes = {hk.LANES_MAX};" in src
+    assert "constexpr int kMaxSmem = 232448 - 1024;" in src
+    for a in hk.LANES_ACC_SIZES:
+        assert f"case {a}: return launch<LOSS, {a}>" in src
+    assert len(re.findall(r"case \d+: return launch<LOSS", src)) == len(hk.LANES_ACC_SIZES)
+    # the device function's name tells it apart from the single kernel's
+    # (chip_smoke.py's KERNEL_NAMES match profiles by substring)
+    assert "lanes_value_gradient(const Args a)" in src and "fvg_" not in src

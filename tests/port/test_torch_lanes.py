@@ -1,0 +1,176 @@
+"""The candidate-lane oracles == the JAX package's vmapped objectives, in
+float64 on the CPU.
+
+- ops/lanes.py::FixedEffectLanes (the fixed effect's K lanes; on the card,
+  the lanes kernel) against jax.vmap of photon_ml_tpu's GLMObjective over
+  (c, offsets, l2), the pass the JAX sweep's _fe_sweep_update makes: values,
+  gradients and Hessian-vector products, raw and standardized, for the
+  four losses, with weights, and over a PaddedSparse X;
+- parallel/random_effect.py's lanes oracle (K candidates x E entities over
+  one bucket's shared blocks) against the port's per-candidate
+  batched_value_and_gradient and batched_hessian_vector_at;
+- lanes_matvec against K matvecs.
+Tolerance rtol 1e-12 (the same sums in another order)."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from photon_ml_tpu.ops import losses as JL
+from photon_ml_tpu.ops.normalization import build_normalization_context as jnorm
+from photon_ml_tpu.ops.objective import GLMObjective as JObjective
+from photon_ml_tpu_torch.ops import features as fops
+from photon_ml_tpu_torch.ops import losses as TL
+from photon_ml_tpu_torch.ops.lanes import FixedEffectLanes, launch_groups, lanes_matvec
+from photon_ml_tpu_torch.ops.normalization import build_normalization_context as tnorm
+from photon_ml_tpu_torch.parallel.random_effect import (
+    EntityBlocks, batched_hessian_vector_at, batched_value_and_gradient,
+    lanes_hessian_vector_at, lanes_value_and_gradient,
+)
+
+N, D, K = 240, 7, 4
+RTOL = 1e-12
+
+
+def _problem(seed=1):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(N, D))
+    x[:, 3] = np.where(rng.uniform(size=N) < 0.6, 0.0, x[:, 3])
+    x[:, -1] = 1.0
+    y = (rng.uniform(size=N) > 0.5).astype(np.float64)
+    w = rng.uniform(0.5, 2.0, size=N)
+    o = rng.normal(size=(K, N)) * 0.2
+    c = rng.normal(size=(K, D)) * 0.3
+    v = rng.normal(size=(K, D))
+    l2 = np.asarray([0.0, 0.5, 2.0, 10.0])
+    return x, y, w, o, c, v, l2
+
+
+def _stats(x):
+    mean = x.mean(0)
+    var = x.var(0)
+    return mean, var
+
+
+@pytest.mark.parametrize("norm", ["none", "standardization"])
+@pytest.mark.parametrize("name", sorted(TL.BY_NAME))
+def test_fixed_effect_lanes_match_vmapped_jax_objective(name, norm):
+    x, y, w, o, c, v, l2 = _problem()
+    mean, var = _stats(x)
+    jn = tn = None
+    if norm != "none":
+        jn = jnorm(norm, mean=jnp.asarray(mean), variance=jnp.asarray(var),
+                   intercept_index=D - 1)
+        tn = tnorm(norm, mean=torch.from_numpy(mean), variance=torch.from_numpy(var),
+                   intercept_index=D - 1)
+    jloss = JL.BY_NAME[name]
+
+    def one(ck, ok, lk, vk):
+        obj = JObjective(jloss, jnp.asarray(x), jnp.asarray(y), weights=jnp.asarray(w),
+                         offsets=ok, norm=jn).with_l2(lk)
+        val, grad = obj.value_and_gradient(ck)
+        return val, grad, obj.hessian_vector(ck, vk)
+
+    jv, jg, jh = jax.jit(jax.vmap(one))(jnp.asarray(c), jnp.asarray(o), jnp.asarray(l2),
+                                        jnp.asarray(v))
+    t = torch.from_numpy
+    lanes = FixedEffectLanes(TL.BY_NAME[name], t(x), t(y), t(o), t(l2), weights=t(w),
+                             norm=tn)
+    tv, tg = lanes.value_and_gradient(t(c))
+    th = lanes.hessian_vector_at(t(c))(t(v))
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), rtol=RTOL)
+    np.testing.assert_allclose(tg.numpy(), np.asarray(jg), rtol=RTOL, atol=RTOL)
+    np.testing.assert_allclose(th.numpy(), np.asarray(jh), rtol=1e-10, atol=1e-10)
+    assert lanes.groups == [(0, K)]
+
+
+def test_fixed_effect_lanes_over_a_padded_sparse_x():
+    """A PaddedSparse X takes each lane's aggregator pass (kernels A and B
+    on the card, once per candidate per pass): equal to the dense lanes."""
+    x, y, w, o, c, v, l2 = _problem()
+    t = torch.from_numpy
+    dense = FixedEffectLanes(TL.LOGISTIC, t(x), t(y), t(o), t(l2), weights=t(w))
+    sparse = FixedEffectLanes(TL.LOGISTIC, fops.PaddedSparse.from_dense(x, device="cpu"),
+                              t(y), t(o), t(l2), weights=t(w))
+    assert sparse.groups == []
+    for a, b in zip(dense.value_and_gradient(t(c)), sparse.value_and_gradient(t(c))):
+        np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=RTOL, atol=RTOL)
+    np.testing.assert_allclose(sparse.hessian_vector_at(t(c))(t(v)).numpy(),
+                               dense.hessian_vector_at(t(c))(t(v)).numpy(),
+                               rtol=1e-10, atol=1e-10)
+    np.testing.assert_allclose(lanes_matvec(sparse.x, t(c)).numpy(),
+                               lanes_matvec(t(x), t(c)).numpy(), rtol=RTOL, atol=RTOL)
+    np.testing.assert_allclose(lanes_matvec(t(x), t(c)).numpy(), c @ x.T, rtol=RTOL)
+
+
+def test_launch_groups():
+    assert launch_groups(40, 31, torch.device("cpu")) == [(0, 40)]
+    assert launch_groups(40, 31, torch.device("cuda")) == [(0, 16), (16, 32), (32, 40)]
+    assert launch_groups(9, 1024, torch.device("cuda")) == [(0, 8), (8, 9)]
+    with pytest.raises(ValueError, match="d=4096"):
+        launch_groups(2, 4096, torch.device("cuda"))
+
+
+@pytest.mark.parametrize("weighted", [False, True], ids=["plain", "weights"])
+@pytest.mark.parametrize("name", ["logistic", "poisson"])
+def test_random_effect_lanes_match_per_candidate_batches(name, weighted):
+    """K candidates x E entities over one bucket's shared blocks == each
+    candidate's own batched oracle (its offsets gathered into the blocks,
+    its L2 weight)."""
+    rng = np.random.default_rng(4)
+    E, S, d = 6, 9, 3
+    mask = (np.arange(S)[None, :] < rng.integers(0, S + 1, size=E)[:, None]).astype(float)
+    x = rng.normal(size=(E, S, d)) * mask[:, :, None]
+    y = np.where(mask > 0, (rng.uniform(size=(E, S)) > 0.5) * 1.0, 0.5)
+    w = rng.uniform(0.5, 2.0, size=(E, S)) * mask if weighted else None
+    off = rng.normal(size=(K, E, S)) * 0.3 * mask
+    c = rng.normal(size=(K, E, d)) * 0.3
+    v = rng.normal(size=(K, E, d))
+    l2 = np.asarray([0.0, 0.5, 2.0, 10.0])
+    t = lambda a: None if a is None else torch.from_numpy(a)
+    loss = TL.BY_NAME[name]
+    blocks = EntityBlocks(t(x), t(y), t(mask), t(w))
+    val, grad = lanes_value_and_gradient(loss, blocks, t(off), t(c).reshape(K * E, d), t(l2))
+    hv = lanes_hessian_vector_at(loss, blocks, t(off), t(c).reshape(K * E, d),
+                                 t(l2))(t(v).reshape(K * E, d))
+    for k in range(K):
+        bk = EntityBlocks(t(x), t(y), t(mask), t(w), t(off[k]))
+        vk, gk = batched_value_and_gradient(loss, bk, t(c[k]), float(l2[k]))
+        hk = batched_hessian_vector_at(loss, bk, t(c[k]), float(l2[k]))(t(v[k]))
+        rows = slice(k * E, (k + 1) * E)
+        np.testing.assert_allclose(val[rows].numpy(), vk.numpy(), rtol=RTOL, atol=RTOL)
+        np.testing.assert_allclose(grad[rows].numpy(), gk.numpy(), rtol=RTOL, atol=RTOL)
+        np.testing.assert_allclose(hv[rows].numpy(), hk.numpy(), rtol=RTOL, atol=RTOL)
+
+
+@pytest.mark.parametrize("reg", ["l2", "elastic_net"])
+def test_solve_takes_regweights_as_the_split(reg):
+    """optim/config.py::solve with RegWeights reproduces the static split
+    bit for bit (the JAX package's test_regweights_matches_static_split),
+    and the batched solve's per-lane L1 weights equal one weight shared."""
+    from photon_ml_tpu_torch.ops.objective import GLMObjective
+    from photon_ml_tpu_torch.optim import batched
+    from photon_ml_tpu_torch.optim.config import (
+        OptimizerConfig, RegularizationContext, RegularizationType, solve)
+    from photon_ml_tpu_torch.optim.schedule import RegWeights
+    x, y, w, o, c, v, l2 = _problem()
+    ctx = (RegularizationContext(RegularizationType.L2) if reg == "l2" else
+           RegularizationContext(RegularizationType.ELASTIC_NET, elastic_net_alpha=0.5))
+    obj = GLMObjective(TL.LOGISTIC, torch.from_numpy(x), torch.from_numpy(y))
+    x0 = torch.zeros(D, dtype=torch.float64)
+    static = solve(obj, x0, OptimizerConfig(), ctx, 0.7)
+    traced = solve(obj, x0, OptimizerConfig(), ctx,
+                   RegWeights.from_context(ctx, 0.7, dtype=torch.float64))
+    assert torch.equal(static.x, traced.x) and static.iterations == traced.iterations
+    l1, l2w = ctx.split(0.7)
+    lanes = FixedEffectLanes(TL.LOGISTIC, obj.x, obj.labels,
+                             torch.zeros((3, N), dtype=torch.float64),
+                             torch.full((3,), l2w, dtype=torch.float64))
+    shared = batched.solve(lanes.value_and_gradient, torch.zeros((3, D), dtype=torch.float64),
+                           OptimizerConfig(), ctx, RegWeights(torch.tensor(l1, dtype=torch.float64), None))
+    per_lane = batched.solve(lanes.value_and_gradient, torch.zeros((3, D), dtype=torch.float64),
+                             OptimizerConfig(), ctx,
+                             RegWeights(torch.full((3,), l1, dtype=torch.float64), None))
+    assert torch.equal(shared.x, per_lane.x)
+    np.testing.assert_allclose(shared.x[0].numpy(), static.x.numpy(), rtol=1e-6, atol=1e-6)
