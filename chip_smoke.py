@@ -2786,14 +2786,27 @@ LANES_KS = (1, 5, 16)
 LANES_SMALL = (("700x37", 700, 37, 0), ("700x37_misaligned", 700, 37, 1),
                ("3x5", 3, 5, 0), ("1x31", 1, 31, 0), ("0x31", 0, 31, 0),
                ("257x256", 257, 256, 0), ("64x513", 64, 513, 0))
+# the tensor cores' edges: widths around the 8-column chunks and 16-column
+# tiles, odd row counts (ragged last tiles, misaligned runs of O), a
+# misaligned view at another width, the widest the kernel takes and the
+# first it refuses; drawn from a generator of their own, after the cases
+# above, whose draws they leave as they were
+LANES_EDGES = (("333x1", 333, 1, 0), ("333x7", 333, 7, 0), ("333x8", 333, 8, 0),
+               ("333x9", 333, 9, 0), ("333x9_misaligned", 333, 9, 1),
+               ("1001x31", 1001, 31, 0), ("1001x124", 1001, 124, 0),
+               ("129x512", 129, 512, 0), ("65x2048", 65, 2048, 0),
+               ("65x2049", 65, 2049, 0))
 LANES_FULL = ((950_051, 31), (1_643_520, 124))
-LANES_DESIGN = ("persistent grid (one or two blocks per SM); C^T in shared memory, "
-                "lanes in groups of 4 (one 16-byte read per 4 lanes' c_kj); each tile "
-                "(X rows with an odd row stride, y, w, m and the K runs of O) copied once "
-                "into a ring of three stages by 4-byte cp.async, two tiles ahead; one "
-                "thread per (row, 4 lanes) for margins, losses and s = w l'; gradient "
-                "entries (column, 4 lanes) in registers; compensated sums; one launch "
-                "per pass (ticketed last-block sum)")
+LANES_TIMED_KS = (16, 8, 4)   # timed at config 4's fixed effect; 16 at config 1's width
+LANES_DESIGN = ("persistent grid (one block per SM, 16 consumer warps + a producer warp); "
+                "whole tiles (X rows, y, w, m, the K runs of O) copied by cp.async.bulk "
+                "into a ring on full/empty mbarriers; both products on the tensor cores "
+                "(mma.sync m16n8k8 TF32, each operand split hi + lo, three products): "
+                "margins X C^T with C in shared memory, the loss step on every thread in "
+                "the gradient's B-fragment order, "
+                "gradient X^T S over units dealt to all warps; each unit's float32 sum "
+                "folded into Kahan pairs once per tile; one launch per pass (ticketed "
+                "last-block sum)")
 
 
 def lanes_inputs(n, d, lanes, rng, skip=0, xy=None):
@@ -2904,11 +2917,12 @@ def time_lanes(hk, loss, x, y, lanes, o, w=None):
 
 def lanes_checks(hk, losses, kind, smi, sms, x_full, y_full) -> dict:
     """lanes_checks: the lanes kernel against its plain version for the four
-    losses at K in LANES_KS, at the LANES_SMALL shapes and the LANES_FULL
-    ones, plain and with weights, offsets, a row mask (dropping a row whose
-    offsets are infinite) and per-lane shifts; the wrapper's refusal of more
-    lanes than a width takes; two calls bit for bit; then one pass of
-    K = 16 timed at both full shapes with offsets.  The config 1 shape
+    losses at K in LANES_KS, at the LANES_SMALL shapes, the LANES_FULL ones
+    and the LANES_EDGES ones, plain and with weights, offsets, a row mask
+    (dropping a row whose offsets are infinite) and per-lane shifts; the
+    wrapper's refusal of more lanes than a width takes; two calls bit for
+    bit; then one pass of K = 16 timed at both full shapes with offsets,
+    and of K = 8 and 4 at config 4's fixed effect.  The config 1 shape
     takes config 1's data (x_full, y_full), as the single kernel's full
     check does: with centred features some of its gradient elements
     cancel, and no f32 sum of 1.6M such terms meets atol 1e-4; at the
@@ -2916,14 +2930,15 @@ def lanes_checks(hk, losses, kind, smi, sms, x_full, y_full) -> dict:
     printed beside the f32 plain version's.  -> the timings and the largest
     error at the full shapes."""
     import torch
-    rng = np.random.default_rng(31)
+    rng, edge_rng = np.random.default_rng(31), np.random.default_rng(32)
     failures, full_err = [], 0.0
-    cases = [(name, n, d, skip) for name, n, d, skip in LANES_SMALL]
-    cases += [(f"{n}x{d}", n, d, 0) for n, d in LANES_FULL]
-    for name, n, d, skip in cases:
+    cases = [(name, n, d, skip, rng) for name, n, d, skip in LANES_SMALL]
+    cases += [(f"{n}x{d}", n, d, 0, rng) for n, d in LANES_FULL]
+    cases += [(name, n, d, skip, edge_rng) for name, n, d, skip in LANES_EDGES]
+    for name, n, d, skip, case_rng in cases:
         xy = (x_full, y_full) if (n, d) == tuple(x_full.shape) else None
         x, y, c_all, w, o_all, o_inf_all, m, b_all = lanes_inputs(
-            n, d, max(LANES_KS), rng, skip, xy)
+            n, d, max(LANES_KS), case_rng, skip, xy)
         if skip and x.data_ptr() % 16 == 0:
             raise SystemExit(f"{name}: the view's base is 16-byte aligned")
         for lanes in LANES_KS:
@@ -2966,12 +2981,13 @@ def lanes_checks(hk, losses, kind, smi, sms, x_full, y_full) -> dict:
     for n, d in LANES_FULL:
         xy = (x_full, y_full) if (n, d) == tuple(x_full.shape) else None
         x, y, _, _, o, *_ = lanes_inputs(n, d, 16, rng, xy=xy)
-        t = time_lanes(hk, LOGISTIC, x, y, 16, o)
-        t.update(plan=dataclasses.asdict(hk.plan_lanes(n, d, 16, sms)), inputs="offsets",
-                 max_abs_err=full_err)
-        emit({"phase": "lanes_timing", "loss": "logistic", "reps": REPS, "device": kind,
-              "nvidia_smi": smi, **t})
-        timings[f"{n}x{d}"] = t
+        for lanes in (LANES_TIMED_KS if (n, d) == LANES_FULL[0] else LANES_TIMED_KS[:1]):
+            t = time_lanes(hk, LOGISTIC, x, y, lanes, o[:lanes])
+            t.update(plan=dataclasses.asdict(hk.plan_lanes(n, d, lanes, sms)),
+                     inputs="offsets", max_abs_err=full_err)
+            emit({"phase": "lanes_timing", "loss": "logistic", "reps": REPS, "device": kind,
+                  "nvidia_smi": smi, **t})
+            timings[f"{n}x{d}" + ("" if lanes == 16 else f"_k{lanes}")] = t
         del x, y, o
     return timings
 
@@ -3015,7 +3031,10 @@ def sweep_phase(hk, train, val, cfg, kind, smi, device="cuda") -> dict:
     kernel's launches equal the fixed effect's value+gradient rounds times
     its lane groups, the single kernel launches nowhere in the sweep, and
     the sweep's wall is at most K / 2 times the median isolated fit
-    (bench.py's sublinear gate).  Prints every visit's rounds, read-backs
+    (bench.py's sublinear gate).  (A fixed effect wider than the lanes
+    kernel takes goes the "single" route: there the single kernel's
+    launches count toward the rounds times groups.)  Prints every visit's
+    rounds, read-backs
     and seconds, the peak allocated, and one profiled outer iteration.
     -> (the sweep evaluator, the phase's counts)."""
     import torch
@@ -3047,6 +3066,8 @@ def sweep_phase(hk, train, val, cfg, kind, smi, device="cuda") -> dict:
     peak = torch.cuda.max_memory_allocated() if cuda else None
     groups = len(launch_groups(SWEEP_K, sweep.coords["fixed"].dim, torch.device(device)))
     fe_rounds = sum(v.rounds for v in sweep.visits if v.coordinate == "fixed")
+    route = next(v.route for v in sweep.visits if v.coordinate == "fixed")
+    route_launches = lanes + single if route == "single" else lanes
     visits = [dataclasses.asdict(v) for v in sweep.visits]
     iso, iso_launches = {}, 0
     for k in SWEEP_CHECKED:
@@ -3082,7 +3103,8 @@ def sweep_phase(hk, train, val, cfg, kind, smi, device="cuda") -> dict:
            "sweep_s": sweep_s, "isolated_fit_median_s": iso_s,
            "sweep_over_isolated_fit": sweep_s / iso_s, "sublinear_gate": SWEEP_K / 2,
            "lanes_launches": lanes, "fe_rounds": fe_rounds, "launch_groups": groups,
-           "single_kernel_launches": single, "isolated_launches": iso_launches,
+           "fe_route": route, "single_kernel_launches": single,
+           "isolated_launches": iso_launches,
            "visits": visits, "readbacks": sum(v.readbacks for v in sweep.visits),
            "peak_allocated_bytes": peak, "allocated_before_bytes": before_bytes,
            "isolated": iso, "final_objectives": [r.objective_history[-1] for r in results],
@@ -3095,10 +3117,10 @@ def sweep_phase(hk, train, val, cfg, kind, smi, device="cuda") -> dict:
                          "their isolated fits")
     if not all(np.isfinite(r.objective_history).all() for r in results):
         raise SystemExit("sweep: a non-finite objective")
-    if device == "cuda" and not (lanes == fe_rounds * groups and lanes > 0):
-        raise SystemExit(f"sweep: {lanes} lanes-kernel launches for {fe_rounds} FE rounds "
-                         f"x {groups} groups")
-    if single != 0:
+    if device == "cuda" and not (route_launches == fe_rounds * groups and route_launches > 0):
+        raise SystemExit(f"sweep: {route_launches} launches on the {route} route for "
+                         f"{fe_rounds} FE rounds x {groups} groups")
+    if route != "single" and single != 0:
         raise SystemExit(f"sweep: the single kernel launched {single} times in the sweep")
     # (on the CPU the lanes' arithmetic runs in turn, so the gate is the card's)
     if device == "cuda" and not sweep_s <= SWEEP_K / 2 * iso_s:
@@ -3251,11 +3273,12 @@ def sparse_kernel_entry(name: str, part: str, c6: dict, c7: dict,
 def lanes_kernel_entry(timings: dict, launches: int) -> dict:
     """The kernels line's entry of the lanes kernel: its launches in the
     timed sweep and its numbers at config 4's fixed effect with K = 16,
-    then at config 1's width."""
+    then with K = 8 and 4, then at config 1's width."""
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "share_of_bound",
             "ms_over_library", "single_launches_ms", "ms_over_single_launches",
             "min_ms", "max_ms", "lanes", "shape", "plan", "max_abs_err")
     main_t, other = (timings[f"{n}x{d}"] for n, d in LANES_FULL)
+    n4, d4 = LANES_FULL[0]
     return {
         "name": "fused_value_and_gradient_lanes", "route": "cuda",
         "source": "photon_ml_tpu_torch/csrc/fused_value_and_gradient_lanes.cu",
@@ -3268,6 +3291,8 @@ def lanes_kernel_entry(timings: dict, launches: int) -> dict:
                       f"atol {GRAD_ATOL}"),
         **{k: main_t[k] for k in keys}, "hbm_share": main_t["share_of_bound"],
         "design": LANES_DESIGN,
+        **{f"at_config4_k{k}": {key: timings[f"{n4}x{d4}_k{k}"][key] for key in keys}
+           for k in LANES_TIMED_KS[1:]},
         "at_config1_width": {k: other[k] for k in keys},
     }
 

@@ -22,35 +22,68 @@
 //
 // Bound on an H100: memory.  A pass must read X once, O once and y, w
 // once: at config 4's fixed effect (n = 950,051, d = 31, K = 16) about
-// 186 MB, 0.056 ms at the data sheet's 3.35 TB/s; the arithmetic is
-// 4 n d K flops (1.9 GFLOP, 0.03 ms at the f32 peak).  The design is the
-// simple one first:
-//   - a persistent grid (one or two blocks per SM); block b takes row
-//     tiles b, b + grid, ...; C lives in shared memory, transposed and
-//     padded to a multiple of 4 lanes ([d][4G], G = ceil(K / 4) lane
-//     groups of 4), so a thread reads 4 lanes' c_kj with one 16-byte load;
-//   - each tile (X rows, y, w, m and the tile's K runs of O) is copied
-//     once into a ring of three stages with 4-byte cp.async copies, issued
-//     two tiles ahead; X rows are stored with an odd row stride so that
-//     the margins phase, one row per thread, is free of bank conflicts;
-//   - margins: thread t takes lane group t / (256 / G) and the rows
-//     r = t mod (256 / G) + i 256 / G; it computes its 4 lanes' margins,
-//     losses and s_rk = w_r l'_rk, and writes s into shared memory;
-//   - gradient: thread t owns fixed (column j, lane group) entries and
-//     adds x_rj s_rk for 4 lanes per entry in registers, across every tile
-//     of its block;
-//   - every running sum (gradient registers, values, sum(w l'), the
-//     block's and the last block's sums) is compensated (Kahan), as in
-//     the single kernel: a candidate's results are held against isolated
-//     fits, which use compensated sums;
-//   - one launch per pass: each block writes a partial [K, d + 2] row
+// 182 MB, 0.055 ms at the data sheet's 3.35 TB/s.  The arithmetic is two
+// skinny products, Z = X C^T [n x K] and G = X^T S [d x K], 4 n d K flops
+// (1.9 GFLOP at config 4, 13 GFLOP at config 1's width [1,643,520 x 124]).
+// On CUDA cores, with a compensated add per term, that arithmetic held the
+// first version of this kernel at ~10 % of its bound; here it runs on the
+// tensor cores.  The design:
+//   - A persistent grid, one block per SM: 512 consumer threads (16
+//     warps) and one producer warp.  Block b takes row tiles b, b + grid,
+//     ...; a tile holds R rows, R a multiple of 8 (so tiles of a 16-byte
+//     aligned X stay aligned).  The producer warp fills a ring of S >= 2
+//     whole tiles on full/empty mbarriers, as the single kernel does, one
+//     span of a tile per lane: X's R d contiguous floats, y, w, m, and each
+//     lane's run of O.  A lane copies its span's 16-byte aligned interior
+//     by one cp.async.bulk and the <= 3 floats at either ragged end (a
+//     misaligned view, the last tile) by 4-byte cp.async copies the same
+//     barrier tracks, so the K + 4 copies of a tile are issued side by side
+//     and no lane waits for them.  (17 warps leave 96 registers a thread,
+//     and the gradient slots of the widest widths spill a little; on an
+//     H100 the pass without the producer warp, warp 0 refilling the ring
+//     between phases, took 11-15 % longer.)  O keeps its [K, n] layout: at an odd n,
+//     lane k's run starts on k n floats and is misaligned, which only moves
+//     which <= 6 floats of the run its lane loads itself.
+//   - Both products on the tensor cores, mma.sync m16n8k8 in TF32, each
+//     operand split v = hi + lo into two TF32 numbers and three products
+//     taken (hi hi, and lo hi + hi lo), which keeps float32's accuracy.
+//     Each starts from zero and its sum of 8 terms is added to a float32
+//     accumulator, so no long chain of tensor-core sums forms.
+//     Margins: Z [16 rows x 8 lanes] += X_tile [16 x 8 columns] C^T; C
+//     sits in shared memory once per block, in B-fragment order, zero past
+//     K and d.  When a tile has fewer than 8 m-tiles of 16 rows, warps that
+//     share an m-tile take a slice of the columns each and the loss step
+//     adds their partial margins in a fixed order.  Gradient: G [16 columns
+//     x 8 lanes] += X_tile^T [16 x 8 rows] S_tile, the units (16 columns,
+//     8 rows) of a tile dealt to the warps in 16 equal runs.  Fragments are
+//     gathered from the tile as copied (row stride d); X entries past d or
+//     past the tile's rows are selected to 0, so a neighbouring row never
+//     enters a sum.  At an odd d a warp's fragment loads meet up to 4-way
+//     bank conflicts; row orders that avoid them cost registers at the
+//     96-register cap and measured slower.
+//   - The loss step: each warp takes (8 rows, 8 lanes) blocks of s, each
+//     thread the two elements the gradient's B fragment gives it (a fixed
+//     lane, rows tig and tig + 4); it adds the partial margins, o and b,
+//     computes the loss, w l and s = w l', and writes s, split into hi and
+//     lo, as one float2 of that fragment (a warp writes 256 contiguous
+//     bytes).
+//   - Compensation once per tile, not once per term: each gradient unit's
+//     float32 sum over the tile's rows is folded into a Kahan pair per
+//     entry; values and sums of w l' are compensated per thread, then per
+//     block.  A candidate's pass lands where an isolated fit's does.
+//   - Two consumer barriers a tile: margins -> loss -> gradient.
+//   - One launch per pass: each block writes a partial [K, d + 2] row
 //     block, takes a ticket, and the last block sums the partials in block
 //     order and resets the ticket, so results are bit-stable from call to
 //     call.
-// The tile and grid come from the pure Python function
+// The tile, ring and grid come from the pure Python function
 // photon_ml_tpu_torch/ops/hopper_kernels.py::plan_lanes (the CPU tests
 // replay it); smem_layout() below must agree with it, and the entry point
 // refuses a plan whose shared-memory size it does not reproduce.
+//
+// LANES_PHASES (scripts/lanes_sweep.py builds the ablations): 1 = the
+// ring alone (consumers wait for each tile and release it), 2 = the ring,
+// the margins and the loss, 3 = the whole pass (the default).
 //
 // Plain C interface, bound with ctypes.  Build (sm_90a):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
@@ -59,12 +92,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#ifndef LANES_PHASES
+#define LANES_PHASES 3
+#endif
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+constexpr int kConsumers = 512;             // threads 0..511
+constexpr int kConsumerWarps = kConsumers / 32;
+constexpr int kThreads = kConsumers + 32;   // + one producer warp
 constexpr int kMaxLanes = 16;
-constexpr int kStages = 3;
 // dynamic shared memory a plan may ask for: Hopper's 232,448 bytes per
 // block less 1 KB for the kernel's static shared memory
 constexpr int kMaxSmem = 232448 - 1024;
@@ -81,19 +118,18 @@ __device__ __forceinline__ void softplus_sigmoid(float t, float& sp, float& sg) 
 }
 
 // (l, dl/dz) of photon_ml_tpu/ops/losses.py, labels {0,1} remapped to +-1;
-// the same code as the single kernel's
-template <int LOSS>
-__device__ __forceinline__ void loss_and_dz(float z, float y, float& l, float& dl) {
-  if constexpr (LOSS == kLogistic) {
+// the same code as the single kernel's, the loss chosen per launch
+__device__ __forceinline__ void loss_and_dz(int loss, float z, float y, float& l, float& dl) {
+  if (loss == kLogistic) {
     const float yy = pm1(y);
     float sg;
     softplus_sigmoid(-yy * z, l, sg);
     dl = -yy * sg;
-  } else if constexpr (LOSS == kSquared) {
+  } else if (loss == kSquared) {
     const float r = z - y;
     l = 0.5f * r * r;
     dl = r;
-  } else if constexpr (LOSS == kPoisson) {
+  } else if (loss == kPoisson) {
     const float e = expf(z);
     l = e - y * z;
     dl = e - y;
@@ -115,6 +151,7 @@ __device__ __forceinline__ void loss_and_dz(float z, float y, float& l, float& d
 }
 
 __host__ __device__ constexpr int round4(int v) { return (v + 3) & ~3; }
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 struct KahanSum {
   float s = 0.0f, c = 0.0f;
@@ -129,37 +166,144 @@ struct KahanSum {
 
 __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) { return a < b ? a : b; }
 
-// lane groups of 4: 1, 2 or 4 of them
-__host__ __device__ constexpr int lane_groups(int lanes) {
-  return lanes <= 4 ? 1 : (lanes <= 8 ? 2 : 4);
+// n-tiles of 8 lanes: 1 for K <= 8, else 2
+__host__ __device__ constexpr int lane_tiles(int lanes) { return lanes > 8 ? 2 : 1; }
+
+// the partial margins' row stride, 8 or 24 floats: the margins' float2
+// writes (rows by gid) and the loss step's reads (rows by tig) spread over
+// the banks
+__host__ __device__ constexpr int zp_row(int nt) { return 8 * nt + 8 * (nt - 1); }
+
+// The margins' m-tiles of 16 rows in a tile, and the warps that share one
+// (each a slice of the columns) when there are fewer than 8.
+__host__ __device__ constexpr int margin_tiles(int rows) { return cdiv(rows, 16); }
+__host__ __device__ constexpr int margin_split(int rows) {
+  return margin_tiles(rows) < kConsumerWarps ? kConsumerWarps / margin_tiles(rows) : 1;
 }
 
-// Shared memory, in floats from the (16-byte aligned) base: kStages stages
-// of [X tile (rows x ld, ld = d | 1) | y | w | m (rows each) | O (K runs
-// of rows)], then C^T [d][4G], the tile's s [rows][4G], and a reduction
-// area [2][4G x 256 / G].  Every array starts on 16 bytes.
+// The gradient's units (m-tile of 16 columns, chunk of 8 rows), numbered
+// m-tile by m-tile: warp w takes units [unit_lo(w), unit_lo(w + 1)).
+__host__ __device__ constexpr int unit_lo(int w, int units) {
+  return (int)((int64_t)w * units / kConsumerWarps);
+}
+
+// the most m-tiles (accumulator slots) one warp's run of units touches
+__host__ __device__ inline int grad_slots(int d, int rows) {
+  const int q = cdiv(rows, 8), units = cdiv(d, 16) * q;
+  int most = 0;
+  for (int w = 0; w < kConsumerWarps; ++w) {
+    const int lo = unit_lo(w, units), hi = unit_lo(w + 1, units);
+    const int s = hi > lo ? (hi - 1) / q - lo / q + 1 : 0;
+    most = s > most ? s : most;
+  }
+  return most;
+}
+
+// Shared memory, in floats from the (16-byte aligned) base: `stages`
+// stages of [X tile (rows d + 3) | y | w | m | O (K runs)], each array on
+// 16 bytes with 3 floats of room (element k of a span sits at its phase +
+// k); after the last tile the gradient's per-warp sums reuse the ring
+// (cf is past whichever is larger); then C in B-fragment order
+// [ceil(d / 8) chunks][n-tiles][32][2], the partial margins [split][16 m-
+// tiles][zp_row floats], s in B-fragment order
+// [ceil(rows / 8)][n-tiles][hi,
+// lo][32][2], the value/sum(w l') reduction area [2][512], then 2 stages
+// mbarriers (full, empty).
 struct Layout {
-  int ld, groups, stage_x, stage_v, stage_o, stage, c, s, red, bytes;
+  int stage_x, stage_v, stage, cf, zp, sf, vs, bars, bytes;
 };
 
-__host__ __device__ Layout smem_layout(int d, int lanes, int rows) {
+__host__ __device__ inline Layout smem_layout(int d, int lanes, int rows, int stages) {
   Layout L;
-  L.ld = d | 1;
-  L.groups = lane_groups(lanes);
-  const int kp = 4 * L.groups;
-  L.stage_x = round4(rows * L.ld);
-  L.stage_v = round4(rows);
-  L.stage_o = round4(lanes * rows);
-  L.stage = L.stage_x + 3 * L.stage_v + L.stage_o;
-  L.c = kStages * L.stage;
-  L.s = L.c + d * kp;
-  L.red = L.s + rows * kp;
-  L.bytes = (L.red + 2 * 4 * kThreads) * 4;
+  const int kp = 8 * lane_tiles(lanes);
+  L.stage_x = round4(rows * d + 3);
+  L.stage_v = round4(rows + 3);
+  L.stage = L.stage_x + (3 + lanes) * L.stage_v;
+  const int ring = stages * L.stage;
+  const int gred = kConsumerWarps * grad_slots(d, rows) * lane_tiles(lanes) * 128;
+  L.cf = ring > gred ? ring : gred;
+  L.zp = L.cf + cdiv(d, 8) * 8 * kp;
+  L.sf = L.zp + margin_split(rows) * margin_tiles(rows) * 16 * zp_row(lane_tiles(lanes));
+  L.vs = L.sf + cdiv(rows, 8) * 8 * kp * 2;
+  L.bars = L.vs + 2 * kConsumers;
+  L.bytes = L.bars * 4 + 2 * stages * 8;
   return L;
+}
+
+// The 16-byte aligned interior [a, b) of the byte span of `count` floats
+// at `src`.  Element k of the span lives at buf[phase + k].
+struct Span {
+  const float* src;
+  int count, phase, head, tail;  // head: floats before a; tail: first float at/after b
+  uint32_t bytes;                // b - a, 0 when there is no aligned interior
+};
+
+__device__ __forceinline__ Span span_of(const float* src, int count) {
+  Span s;
+  s.src = src;
+  s.count = count;
+  const uintptr_t lo = reinterpret_cast<uintptr_t>(src);
+  const uintptr_t hi = lo + 4ull * (uint64_t)count;
+  const uintptr_t a = (lo + 15) & ~uintptr_t(15);
+  const uintptr_t b = hi & ~uintptr_t(15);
+  s.phase = (int)((lo >> 2) & 3);
+  if (src != nullptr && b > a) {
+    s.head = (int)((a - lo) >> 2);
+    s.tail = (int)((b - lo) >> 2);
+    s.bytes = (uint32_t)(b - a);
+  } else {
+    s.head = count;
+    s.tail = count;
+    s.bytes = 0;
+  }
+  return s;
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// A wait lasts at most one tile's copy (microseconds); one that outlasts
+// 2^24 polls (seconds) is a fault, and traps rather than hang the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  uint32_t done;
+  for (uint32_t polls = 0;; ++polls) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (polls == (1u << 24)) __trap();
+  }
+}
+
+// Copy the aligned interior of `s` into buf (element k at buf[phase + k]).
+__device__ __forceinline__ void bulk_load(float* buf, const Span& s, uint64_t* bar) {
+  if (s.bytes == 0) return;
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(smem_addr(buf + s.phase + s.head)), "l"(s.src + s.head), "r"(s.bytes),
+      "r"(smem_addr(bar))
+      : "memory");
 }
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
@@ -168,11 +312,55 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
                : "memory");
 }
 
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
+// The floats of `s` the bulk copy cannot take (<= 3 at either end), by
+// 4-byte cp.async copies of one thread, which `bar` then tracks: the
+// thread goes on without waiting for them.
+__device__ __forceinline__ void load_edges(float* buf, const Span& s, uint64_t* bar) {
+  for (int k = 0; k < s.head; ++k) cp_async4(buf + s.phase + k, s.src + k);
+  for (int k = s.tail > s.head ? s.tail : s.head; k < s.count; ++k)
+    cp_async4(buf + s.phase + k, s.src + k);
+  asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];" ::"r"(smem_addr(bar)) : "memory");
+}
 
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;" ::"n"(kConsumers) : "memory");
+}
+
+// v = hi + lo, both TF32 (lo carries the bits hi drops)
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(v));
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(v - __uint_as_float(hi)));
+}
+
+// d += a b, one m16n8k8 TF32 product with float32 sums
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// a b to float32's accuracy, as big + small: the product hi hi summed
+// from zero and added to big by a rounded float32 add, the two small ones
+// lo hi + hi lo (2^-11 of it) summed into small on the tensor cores.  (The
+// tensor cores' own sums round toward zero: a long chain of them drifts
+// one way, one group of 8 terms at most an ulp; in small that drift is
+// 2^-11 smaller.)
+__device__ __forceinline__ void mma3(float (&big)[4], float (&small)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], const uint32_t (&bh)[2],
+                                     const uint32_t (&bl)[2]) {
+  float t[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  mma_tf32(t, ah, bh);
+  mma_tf32(small, al, bh);
+  mma_tf32(small, ah, bl);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) big[e] += t[e];
+}
+
+// X_tile[r][col], 0 past the tile's rows or X's columns
+__device__ __forceinline__ float x_at(const float* xs, int r, int col, int nr, int d) {
+  return (r < nr && col < d) ? xs[r * d + col] : 0.0f;
 }
 
 // The kernel's operands.  w, o, m and b may be null.
@@ -188,168 +376,283 @@ struct Args {
   unsigned int* ticket;  // zero before and after every launch
   float* out;            // [K, d + 2] = [value_k, grad_k, swl_k]
   int64_t n;
-  int d, lanes, rows;
+  int loss, d, lanes, rows, stages;
 };
 
-// NACC: 4-lane gradient accumulators per thread, G d <= 256 NACC.
-template <int LOSS, int NACC>
-__global__ void __launch_bounds__(kThreads, NACC <= 2 ? 2 : 1)
-    lanes_value_gradient(const Args a) {
+// Span j of the tile of nr rows at r0: 0 = X, 1, 2, 3 = y, w, m, 4 + k =
+// lane k's run of O; empty where the operand is null or past K.
+__device__ __forceinline__ Span tile_span(const Args& a, int j, int64_t r0, int nr) {
+  const float* src = nullptr;
+  if (j == 0) return span_of(a.x + r0 * a.d, nr * a.d);
+  if (j < 4) src = j == 1 ? a.y : (j == 2 ? a.w : a.m);
+  else if (a.o != nullptr && j - 4 < a.lanes) src = a.o + (int64_t)(j - 4) * a.n;
+  return src == nullptr ? span_of(nullptr, 0) : span_of(src + r0, nr);
+}
+
+// where span j sits in a stage (element k of it at the span's phase + k)
+__device__ __forceinline__ int stage_offset(const Layout& L, int j) {
+  return j == 0 ? 0 : L.stage_x + (j - 1) * L.stage_v;
+}
+
+__device__ __forceinline__ int phase_of(const float* p) {
+  return (int)((reinterpret_cast<uintptr_t>(p) >> 2) & 3);
+}
+
+// NT: n-tiles of 8 lanes (lane_tiles(K)); NSLOT: gradient m-tiles a warp
+// accumulates, >= grad_slots(d, rows).
+template <int NT, int NSLOT>
+__global__ void __launch_bounds__(kThreads, 1) lanes_value_gradient(const Args a) {
   extern __shared__ __align__(16) float smem[];
   __shared__ bool is_last;
   const int64_t n = a.n;
-  const int d = a.d, lanes = a.lanes, rows = a.rows;
-  const Layout L = smem_layout(d, lanes, rows);
-  const int ld = L.ld, G = L.groups, kp = 4 * G;
-  float* c_s = smem + L.c;
-  float* s_s = smem + L.s;
-  float* red = smem + L.red;
+  const int d = a.d, lanes = a.lanes, rows = a.rows, stages = a.stages;
+  const Layout L = smem_layout(d, lanes, rows, stages);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bars);
+  uint64_t* empty = full + stages;
+  float* cf = smem + L.cf;
+  float* zp = smem + L.zp;
+  float* sf = smem + L.sf;
+  float* vs = smem + L.vs;
   const int t = threadIdx.x;
   const int warp = t >> 5, lane = t & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int64_t first_row = (int64_t)blockIdx.x * rows;
+  const int64_t row_step = (int64_t)gridDim.x * rows;
+  const int chunks = cdiv(d, 8);  // margins: column chunks of 8
+  const int qn = cdiv(rows, 8);   // gradient: row chunks of 8
+  const int units = cdiv(d, 16) * qn;
 
-  // C^T, lanes at or above K zero
-  for (int i = t; i < d * kp; i += kThreads) {
-    const int j = i / kp, k = i - j * kp;
-    c_s[i] = k < lanes ? a.c[(int64_t)k * d + j] : 0.0f;
-  }
-
-  const int64_t tiles = (n + rows - 1) / rows;
-  const int64_t my_tiles =
-      (int64_t)blockIdx.x < tiles ? (tiles - 1 - blockIdx.x) / gridDim.x + 1 : 0;
-
-  // the i-th tile of this block into stage `stage`
-  auto load_tile = [&](int64_t i, int stage) {
-    const int64_t r0 = ((int64_t)blockIdx.x + i * gridDim.x) * rows;
-    const int nr = (int)min64(rows, n - r0);
-    float* xb = smem + stage * L.stage;
-    float* yb = xb + L.stage_x;
-    float* wb = yb + L.stage_v;
-    float* mb = wb + L.stage_v;
-    float* ob = mb + L.stage_v;
-    const float* xsrc = a.x + r0 * d;
-    for (int r = warp; r < nr; r += kWarps)
-      for (int j = lane; j < d; j += 32) cp_async4(xb + r * ld + j, xsrc + (int64_t)r * d + j);
-    for (int r = t; r < nr; r += kThreads) {
-      cp_async4(yb + r, a.y + r0 + r);
-      if (a.w != nullptr) cp_async4(wb + r, a.w + r0 + r);
-      if (a.m != nullptr) cp_async4(mb + r, a.m + r0 + r);
+  if (t == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 33);  // lane 0's expect_tx, then every producer lane
+      mbar_init(&empty[s], kConsumerWarps);
     }
-    if (a.o != nullptr)
-      for (int k = 0; k < lanes; ++k)
-        for (int r = t; r < nr; r += kThreads)
-          cp_async4(ob + k * rows + r, a.o + (int64_t)k * n + r0 + r);
-  };
-
-  // margins phase: lane group g, rows r_first + i * rp
-  const int rp = kThreads / G;
-  const int g = t / rp, r_first = t - g * rp;
-  float bk[4];
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const int k = 4 * g + q;
-    bk[q] = (a.b != nullptr && k < lanes) ? a.b[k] : 0.0f;
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  KahanSum v_acc[4], s_acc[4];
-
-  // gradient phase: entries e = t + 256 i, column e % d, lane group e / d
-  KahanSum acc[NACC][4];
-  int jcol[NACC], gcol[NACC];
-#pragma unroll
-  for (int i = 0; i < NACC; ++i) {
-    const int e = t + i * kThreads;
-    gcol[i] = e / d;
-    jcol[i] = e - gcol[i] * d;
+  // C: chunk c, n-tile j, lane (gid, tig) holds (C[8j + gid][8c + tig],
+  // C[8j + gid][8c + tig + 4]); zero past K and d
+  for (int i = t; i < chunks * NT * 64; i += kThreads) {
+    const int which = i & 1, ln = (i >> 1) & 31, cj = i >> 6;
+    const int c = cj / NT, j = cj - c * NT;
+    const int col = 8 * c + (ln & 3) + 4 * which, k = 8 * j + (ln >> 2);
+    cf[i] = (k < lanes && col < d) ? a.c[(int64_t)k * d + col] : 0.0f;
   }
+  __syncthreads();
 
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < my_tiles) load_tile(s, s);
-    cp_commit();
-  }
-  __syncthreads();  // C^T written
+  KahanSum v_acc, s_acc;         // the loss step's lane
+  KahanSum kh[NSLOT][NT][4];     // the gradient's slots
 
-  for (int64_t i = 0; i < my_tiles; ++i) {
-    const int64_t next = i + kStages - 1;
-    if (next < my_tiles) load_tile(next, (int)(next % kStages));
-    cp_commit();
-    cp_wait<kStages - 1>();
-    __syncthreads();
-
-    const int stage = (int)(i % kStages);
-    const int64_t r0 = ((int64_t)blockIdx.x + i * gridDim.x) * rows;
-    const int nr = (int)min64(rows, n - r0);
-    const float* xb = smem + stage * L.stage;
-    const float* yb = xb + L.stage_x;
-    const float* wb = yb + L.stage_v;
-    const float* mb = wb + L.stage_v;
-    const float* ob = mb + L.stage_v;
-
-    // margins, losses and s = w l' for this thread's 4 lanes
-    const float4* c4 = reinterpret_cast<const float4*>(c_s) + g;
-    for (int r = r_first; r < nr; r += rp) {
-      const float* xr = xb + r * ld;
-      float z0 = 0.0f, z1 = 0.0f, z2 = 0.0f, z3 = 0.0f;
-#pragma unroll 4
-      for (int j = 0; j < d; ++j) {
-        const float xv = xr[j];
-        const float4 cv = c4[j * G];
-        z0 = fmaf(xv, cv.x, z0);
-        z1 = fmaf(xv, cv.y, z1);
-        z2 = fmaf(xv, cv.z, z2);
-        z3 = fmaf(xv, cv.w, z3);
+  if (t >= kConsumers) {
+    // producer warp: lane j copies span j of every tile, its aligned
+    // interior by a bulk copy and its ragged ends by 4-byte cp.async
+    // copies, all completing on the stage's full barrier
+    int stage = 0;
+    uint32_t parity = 1;  // a fresh barrier's previous phase counts as complete
+    for (int64_t r0 = first_row; r0 < n; r0 += row_step) {
+      if (lane == 0) mbar_wait(&empty[stage], parity);
+      __syncwarp();
+      const int nr = (int)min64(rows, n - r0);
+      const Span sp = tile_span(a, lane, r0, nr);
+      uint32_t bytes = sp.bytes;
+      for (int off = 16; off > 0; off >>= 1) bytes += __shfl_xor_sync(0xffffffffu, bytes, off);
+      if (lane == 0) {
+        if (bytes == 0) mbar_arrive(&full[stage]);
+        else mbar_arrive_expect_tx(&full[stage], bytes);
       }
-      const float zz[4] = {z0, z1, z2, z3};
-      float sv[4];
-      const float yr = yb[r];
-      const float wt = a.w != nullptr ? wb[r] : 1.0f;
-      // a select: a masked row's (possibly non-finite) terms never enter
-      const bool keep = a.m == nullptr || mb[r] != 0.0f;
+      __syncwarp();
+      float* buf = smem + stage * L.stage + stage_offset(L, lane);
+      // this lane's earlier writes into the ring come before its bulk copy
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      bulk_load(buf, sp, &full[stage]);
+      load_edges(buf, sp, &full[stage]);
+      mbar_arrive(&full[stage]);
+      if (++stage == stages) {
+        stage = 0;
+        parity ^= 1;
+      }
+    }
+    __syncwarp();
+  } else {
+    // consumers
+    // the loss step: warp w takes the (8 rows, 8 lanes) blocks of n-tile
+    // w % NT, lane (gid, tig) lane 8 (w % NT) + gid of the block's rows tig
+    // and tig + 4, as the gradient's B fragment holds them
+    const int my_j = warp % NT, my_k = 8 * my_j + gid;
+    const float bk = (a.b != nullptr && my_k < lanes) ? a.b[my_k] : 0.0f;
+    constexpr int zrow = zp_row(NT);
+    // margins: this warp's m-tiles and column chunks
+    const int mtiles = margin_tiles(rows), split = margin_split(rows);
+    const int m_count = mtiles < kConsumerWarps ? 1 : mtiles / kConsumerWarps;
+    const int m_first = mtiles < kConsumerWarps ? warp % mtiles : warp;
+    const int m_part = mtiles < kConsumerWarps ? warp / mtiles : 0;
+    const int c_lo = m_part * chunks / split, c_hi = (m_part + 1) * chunks / split;
+    const int zstride = mtiles * 16 * zrow;  // one column slice's partial margins
+    // gradient: this warp's run of units
+    const int u_lo = unit_lo(warp, units), u_hi = unit_lo(warp + 1, units);
+    const int g_first = u_lo / qn;
+    int stage = 0;
+    uint32_t parity = 0;
+    for (int64_t r0 = first_row; r0 < n; r0 += row_step) {
+      mbar_wait(&full[stage], parity);
+      const int nr = (int)min64(rows, n - r0);
+      const float* buf = smem + stage * L.stage;
+      const float* xs = buf + phase_of(a.x + r0 * d);
+#if LANES_PHASES >= 2
+      // margins: Z = X_tile C^T, this warp's m-tiles over its column slice
+      for (int mi = 0; mi < m_count; ++mi) {
+        const int m0 = 16 * (m_first + mi * kConsumerWarps);
+        const int ra = m0 + gid, rb = ra + 8;
+        const bool rows_in = m0 + 16 <= nr;
+        float z[NT][4] = {}, zs[NT][4] = {};
+#pragma unroll 2
+        for (int c = c_lo; c < c_hi; ++c) {
+          const int ca = 8 * c + tig, cb = ca + 4;
+          float v[4];
+          if (rows_in && 8 * c + 8 <= d) {  // the same on the whole warp
+            v[0] = xs[ra * d + ca];
+            v[1] = xs[rb * d + ca];
+            v[2] = xs[ra * d + cb];
+            v[3] = xs[rb * d + cb];
+          } else {
+            v[0] = x_at(xs, ra, ca, nr, d);
+            v[1] = x_at(xs, rb, ca, nr, d);
+            v[2] = x_at(xs, ra, cb, nr, d);
+            v[3] = x_at(xs, rb, cb, nr, d);
+          }
+          uint32_t ah[4], al[4];
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int k = 4 * g + q;
-        sv[q] = 0.0f;
-        if (k < lanes) {
-          float z = zz[q] + bk[q];
-          if (a.o != nullptr) z += ob[k * rows + r];
+          for (int e = 0; e < 4; ++e) split_tf32(v[e], ah[e], al[e]);
+#pragma unroll
+          for (int j = 0; j < NT; ++j) {
+            const float2 cv = reinterpret_cast<const float2*>(cf)[(c * NT + j) * 32 + lane];
+            uint32_t bh[2], bl[2];
+            split_tf32(cv.x, bh[0], bl[0]);
+            split_tf32(cv.y, bh[1], bl[1]);
+            mma3(z[j], zs[j], ah, al, bh, bl);
+          }
+        }
+        float* zo = zp + m_part * zstride;
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          *reinterpret_cast<float2*>(zo + ra * zrow + 8 * j + 2 * tig) =
+              make_float2(z[j][0] + zs[j][0], z[j][1] + zs[j][1]);
+          *reinterpret_cast<float2*>(zo + rb * zrow + 8 * j + 2 * tig) =
+              make_float2(z[j][2] + zs[j][2], z[j][3] + zs[j][3]);
+        }
+      }
+      consumer_sync();
+
+      // the loss on this thread's lane and rows: margins, w l, s = w l'
+      // (zero past the tile's rows), s split into hi and lo in the
+      // gradient's B-fragment order
+      {
+        const float* yb = buf + stage_offset(L, 1) + phase_of(a.y + r0);
+        const float* wb = a.w == nullptr ? nullptr : buf + stage_offset(L, 2) + phase_of(a.w + r0);
+        const float* mb = a.m == nullptr ? nullptr : buf + stage_offset(L, 3) + phase_of(a.m + r0);
+        const float* ob = a.o == nullptr || my_k >= lanes
+                              ? nullptr
+                              : buf + stage_offset(L, 4 + my_k) +
+                                    phase_of(a.o + (int64_t)my_k * n + r0);
+        auto loss_at = [&](int r) {
+          if (my_k >= lanes || r >= nr) return 0.0f;
+          float zz = 0.0f;
+          for (int p = 0; p < split; ++p) zz += zp[p * zstride + r * zrow + my_k];
+          float z = zz + bk;
+          if (ob != nullptr) z += ob[r];
           float l, dl;
-          loss_and_dz<LOSS>(z, yr, l, dl);
-          const float sr = keep ? wt * dl : 0.0f;
-          sv[q] = sr;
-          s_acc[q].add(sr);
-          if (keep) v_acc[q].add(wt * l);
+          loss_and_dz(a.loss, z, yb[r], l, dl);
+          const float wt = wb != nullptr ? wb[r] : 1.0f;
+          // a select: a masked row's (possibly non-finite) terms never enter
+          const bool keep = mb == nullptr || mb[r] != 0.0f;
+          const float s = keep ? wt * dl : 0.0f;
+          s_acc.add(s);
+          if (keep) v_acc.add(wt * l);
+          return s;
+        };
+        float2* s2 = reinterpret_cast<float2*>(sf) + my_j * 64 + lane;
+#pragma unroll 2
+        for (int q = warp / NT; q < qn; q += kConsumerWarps / NT) {
+          const float sa = loss_at(8 * q + tig), sb = loss_at(8 * q + tig + 4);
+          uint32_t ha, la, hb, lb;
+          split_tf32(sa, ha, la);
+          split_tf32(sb, hb, lb);
+          s2[q * NT * 64] = make_float2(__uint_as_float(ha), __uint_as_float(hb));
+          s2[q * NT * 64 + 32] = make_float2(__uint_as_float(la), __uint_as_float(lb));
         }
       }
-      reinterpret_cast<float4*>(s_s)[r * G + g] = make_float4(sv[0], sv[1], sv[2], sv[3]);
-    }
-    __syncthreads();
-
-    // gradient: x_rj s_rk into this thread's (column, 4 lanes) registers
-    for (int r = 0; r < nr; ++r) {
-      const float* xr = xb + r * ld;
-      const float4* sr4 = reinterpret_cast<const float4*>(s_s) + r * G;
+      consumer_sync();
+#endif
+#if LANES_PHASES >= 3
+      // gradient: G += X_tile^T S over this warp's units, one float32 sum
+      // per slot and tile, folded into the slot's Kahan pairs
+      const int qe = cdiv(nr, 8);
 #pragma unroll
-      for (int e = 0; e < NACC; ++e) {
-        if (gcol[e] < G) {
-          const float xv = xr[jcol[e]];
-          const float4 sv = sr4[gcol[e]];
-          acc[e][0].add(xv * sv.x);
-          acc[e][1].add(xv * sv.y);
-          acc[e][2].add(xv * sv.z);
-          acc[e][3].add(xv * sv.w);
+      for (int i = 0; i < NSLOT; ++i) {
+        const int mt = g_first + i;
+        const int q0 = max(u_lo - mt * qn, 0);
+        const int q1 = min(min(u_hi - mt * qn, qn), qe);
+        if (q0 < q1) {
+          float acc[NT][4] = {}, accs[NT][4] = {};
+          const int ca = 16 * mt + gid, cb = ca + 8;
+          const bool cols_in = 16 * mt + 16 <= d;
+#pragma unroll 2
+          for (int q = q0; q < q1; ++q) {
+            const int ra = 8 * q + tig, rb = ra + 4;
+            float v[4];
+            if (cols_in && 8 * q + 8 <= nr) {  // the same on the whole warp
+              v[0] = xs[ra * d + ca];
+              v[1] = xs[ra * d + cb];
+              v[2] = xs[rb * d + ca];
+              v[3] = xs[rb * d + cb];
+            } else {
+              v[0] = x_at(xs, ra, ca, nr, d);
+              v[1] = x_at(xs, ra, cb, nr, d);
+              v[2] = x_at(xs, rb, ca, nr, d);
+              v[3] = x_at(xs, rb, cb, nr, d);
+            }
+            uint32_t ah[4], al[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) split_tf32(v[e], ah[e], al[e]);
+#pragma unroll
+            for (int j = 0; j < NT; ++j) {
+              const float2* s2 = reinterpret_cast<const float2*>(sf) + (q * NT + j) * 64 + lane;
+              const float2 sh = s2[0], sl = s2[32];
+              const uint32_t bh[2] = {__float_as_uint(sh.x), __float_as_uint(sh.y)};
+              const uint32_t bl[2] = {__float_as_uint(sl.x), __float_as_uint(sl.y)};
+              mma3(acc[j], accs[j], ah, al, bh, bl);
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) kh[i][j][e].add(acc[j][e] + accs[j][e]);
         }
       }
+#endif
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[stage]);
+      if (++stage == stages) {
+        stage = 0;
+        parity ^= 1;
+      }
     }
-    __syncthreads();  // the stage and s are free for the next tile
   }
-  cp_wait<0>();
 
-  // block partial [K][value, grad, swl] in a fixed order
-  float* red_v = red;
-  float* red_s = red + kp * rp;
+  // every tile consumed: the ring holds the warps' gradient sums
+  // [warp][slot][n-tile][32][4], then the block partial in a fixed order
+  __syncthreads();
+  const int gslots = grad_slots(d, rows);
+  float* gred = smem;
+  if (t < kConsumers) {
 #pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    red_v[(4 * g + q) * rp + r_first] = v_acc[q].value();
-    red_s[(4 * g + q) * rp + r_first] = s_acc[q].value();
+    for (int i = 0; i < NSLOT; ++i)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (i < gslots) gred[(((warp * gslots + i) * NT + j) * 32 + lane) * 4 + e] = kh[i][j][e].value();
+    vs[t] = v_acc.value();
+    vs[kConsumers + t] = s_acc.value();
   }
   __syncthreads();
   const int row = d + 2;
@@ -357,22 +660,25 @@ __global__ void __launch_bounds__(kThreads, NACC <= 2 ? 2 : 1)
   float* prow = a.partial + (int64_t)blockIdx.x * width;
   for (int k = t; k < lanes; k += kThreads) {
     KahanSum v, sw;
-    for (int i = 0; i < rp; ++i) {
-      v.add(red_v[k * rp + i]);
-      sw.add(red_s[k * rp + i]);
-    }
+    for (int w = k >> 3; w < kConsumerWarps; w += NT)
+      for (int i = 32 * w + 4 * (k & 7); i < 32 * w + 4 * (k & 7) + 4; ++i) {
+        v.add(vs[i]);
+        sw.add(vs[kConsumers + i]);
+      }
     prow[k * row] = v.value();
     prow[k * row + d + 1] = sw.value();
   }
-#pragma unroll
-  for (int e = 0; e < NACC; ++e) {
-    if (gcol[e] < G) {
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int k = 4 * gcol[e] + q;
-        if (k < lanes) prow[k * row + 1 + jcol[e]] = acc[e][q].value();
-      }
+  for (int e = t; e < d * lanes; e += kThreads) {
+    const int k = e / d, col = e - k * d;
+    const int mt = col >> 4, cc = col & 15, j = k >> 3, kk = k & 7;
+    const int at = ((cc & 7) * 4 + (kk >> 1)) * 4 + (cc >> 3) * 2 + (kk & 1);
+    KahanSum g;
+    for (int w = 0; w < kConsumerWarps; ++w) {
+      const int lo = unit_lo(w, units), hi = unit_lo(w + 1, units);
+      if (hi > lo && lo < (mt + 1) * qn && hi > mt * qn)
+        g.add(gred[((w * gslots + mt - lo / qn) * NT + j) * 128 + at]);
     }
+    prow[k * row + 1 + col] = g.value();
   }
 
   // the last block to finish sums the partials in block order
@@ -400,22 +706,29 @@ __global__ void __launch_bounds__(kThreads, NACC <= 2 ? 2 : 1)
   if (t == 0) *a.ticket = 0u;  // ready for the next call on this stream
 }
 
-template <int LOSS, int NACC>
+template <int NT, int NSLOT>
 cudaError_t launch(const Args& a, int grid, int smem, cudaStream_t stream) {
   const cudaError_t e = cudaFuncSetAttribute(
-      lanes_value_gradient<LOSS, NACC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      lanes_value_gradient<NT, NSLOT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  lanes_value_gradient<LOSS, NACC><<<grid, kThreads, smem, stream>>>(a);
+  lanes_value_gradient<NT, NSLOT><<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <int LOSS>
-cudaError_t dispatch_acc(int nacc, const Args& a, int grid, int smem, cudaStream_t s) {
-  switch (nacc) {
-    case 1: return launch<LOSS, 1>(a, grid, smem, s);
-    case 2: return launch<LOSS, 2>(a, grid, smem, s);
-    case 4: return launch<LOSS, 4>(a, grid, smem, s);
-    case 8: return launch<LOSS, 8>(a, grid, smem, s);
+cudaError_t dispatch(int slots, const Args& a, int grid, int smem, cudaStream_t s) {
+  if (lane_tiles(a.lanes) == 1) {
+    switch (slots) {
+      case 1: return launch<1, 1>(a, grid, smem, s);
+      case 2: return launch<1, 2>(a, grid, smem, s);
+      case 4: return launch<1, 4>(a, grid, smem, s);
+      case 8: return launch<1, 8>(a, grid, smem, s);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  switch (slots) {
+    case 1: return launch<2, 1>(a, grid, smem, s);
+    case 2: return launch<2, 2>(a, grid, smem, s);
+    case 4: return launch<2, 4>(a, grid, smem, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -425,40 +738,32 @@ cudaError_t dispatch_acc(int nacc, const Args& a, int grid, int smem, cudaStream
 extern "C" {
 
 // Launches the one kernel of a K-lane pass on `stream`; returns the
-// cudaError_t of the launch (0 on success).  The plan (rows, grid,
-// acc_per_thread, smem_bytes) comes from hopper_kernels.plan_lanes; a plan
-// that does not fit this source's layout is refused.  partial: [grid, K,
-// d + 2] scratch; ticket: one zeroed uint32 that every launch leaves
-// zeroed; out: [K, d + 2] = [value_k, grad_k[0..d), swl_k].  w, o ([K, n]),
-// m (row mask) and b ([K] margin shifts) may be null.
+// cudaError_t of the launch (0 on success).  The plan (rows, stages, grid,
+// slots, smem_bytes) comes from hopper_kernels.plan_lanes; a plan that
+// does not fit this source's layout is refused.  partial: [grid, K, d + 2]
+// scratch; ticket: one zeroed uint32 that every launch leaves zeroed; out:
+// [K, d + 2] = [value_k, grad_k[0..d), swl_k].  w, o ([K, n]), m (row
+// mask) and b ([K] margin shifts) may be null.
 int pmt_fused_value_and_gradient_lanes(int loss, const void* x, const void* y,
                                        const void* w, const void* o, const void* m,
                                        const void* b, const void* c, void* partial,
                                        void* ticket, void* out, long long n, int d,
-                                       int lanes, int rows, int grid, int acc_per_thread,
+                                       int lanes, int rows, int stages, int grid, int slots,
                                        int smem_bytes, void* stream) {
-  if (n < 0 || d < 1 || lanes < 1 || lanes > kMaxLanes || rows < 1 || grid < 1 ||
-      acc_per_thread < 1 || lane_groups(lanes) * d > acc_per_thread * kThreads ||
-      smem_bytes > kMaxSmem || smem_layout(d, lanes, rows).bytes != smem_bytes)
+  const int mt = margin_tiles(rows);
+  const bool rows_ok = rows >= 8 && rows % 8 == 0 &&
+                       (mt < kConsumerWarps ? (mt & (mt - 1)) == 0 : mt % kConsumerWarps == 0);
+  if (n < 0 || d < 1 || lanes < 1 || lanes > kMaxLanes || !rows_ok || stages < 2 ||
+      grid < 1 || loss < kLogistic || loss > kSmoothedHinge || grad_slots(d, rows) > slots ||
+      smem_bytes > kMaxSmem || smem_layout(d, lanes, rows, stages).bytes != smem_bytes)
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{static_cast<const float*>(x), static_cast<const float*>(y),
                static_cast<const float*>(w), static_cast<const float*>(o),
                static_cast<const float*>(m), static_cast<const float*>(b),
                static_cast<const float*>(c), static_cast<float*>(partial),
                static_cast<unsigned int*>(ticket), static_cast<float*>(out),
-               n, d, lanes, rows};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  switch (loss) {
-    case kLogistic: e = dispatch_acc<kLogistic>(acc_per_thread, a, grid, smem_bytes, s); break;
-    case kSquared: e = dispatch_acc<kSquared>(acc_per_thread, a, grid, smem_bytes, s); break;
-    case kPoisson: e = dispatch_acc<kPoisson>(acc_per_thread, a, grid, smem_bytes, s); break;
-    case kSmoothedHinge:
-      e = dispatch_acc<kSmoothedHinge>(acc_per_thread, a, grid, smem_bytes, s);
-      break;
-    default: e = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(e);
+               n, loss, d, lanes, rows, stages};
+  return static_cast<int>(dispatch(slots, a, grid, smem_bytes, static_cast<cudaStream_t>(stream)));
 }
 
 const char* pmt_lanes_error_string(int code) {

@@ -12,7 +12,9 @@ and reused by every candidate.  Two lanes, as in the JAX package:
     LBFGS/OWLQN (per-lane L1 weights) or optim/tron.py's tron_lanes.  The
     fixed effect's K lanes take ops/lanes.py's oracle (on the card, one
     launch of the lanes kernel per value+gradient pass for up to 16
-    candidates); a random-effect bucket's K x E lanes take
+    candidates; a dense fixed effect wider than that kernel takes, one
+    launch of the single kernel per candidate); a random-effect bucket's
+    K x E lanes take
     parallel/random_effect.py's lanes oracle, the blocks shared by the
     candidates.  A lane that has stopped is frozen while the others run,
     as under vmap, so the candidate that needs the most rounds sets each
@@ -25,7 +27,7 @@ and reused by every candidate.  Two lanes, as in the JAX package:
 The JAX package counts its compiled-program dispatches; PyTorch runs
 eagerly, so the candidate lane records instead what the port can count:
 per visit, the batched solves' value+gradient rounds, the host's
-read-backs of lane flags and the lanes kernel's launches (`visits`).  The
+read-backs of lane flags and the kernels' launches (`visits`).  The
 `sweep.*` telemetry counters are ROADMAP.md queue A item 19.
 """
 from __future__ import annotations
@@ -117,8 +119,10 @@ class SweepVisit:
     value+gradient rounds (summed over a random effect's buckets), their
     Hessian-vector rounds (TRON, else None), the host's read-backs of lane
     flags, the lanes kernel's launches, the visit's host wall seconds
-    (ended by its solves' last read-back) and, for a random effect, per
-    bucket ([K * E, S, d], rounds, read-backs)."""
+    (ended by its solves' last read-back), for a random effect per bucket
+    ([K * E, S, d], rounds, read-backs), and for a fixed effect the route
+    of its passes (ops/lanes.py::FixedEffectLanes.route) and the single
+    fused kernel's launches (the "single" route's)."""
 
     iteration: int
     coordinate: str
@@ -128,6 +132,8 @@ class SweepVisit:
     lanes_launches: int
     seconds: float
     buckets: Optional[List[Tuple[Tuple[int, int, int], int, int]]] = None
+    route: Optional[str] = None
+    single_launches: int = 0
 
 
 class SweepEvaluator:
@@ -345,11 +351,13 @@ class SweepEvaluator:
               torch.stack([norm.model_to_transformed_space(ck) for ck in c0]))
         oracle = FixedEffectLanes(coord.loss, coord.x, coord.labels, offsets,
                                   rw.l2_weight, weights=coord.weights, norm=norm)
-        before = hopper_kernels.LANES_LAUNCHES
+        before = hopper_kernels.LANES_LAUNCHES, hopper_kernels.LAUNCHES
         res = batched.solve(oracle.value_and_gradient, x0, opt.optimizer,
                             opt.regularization, rw, loss=coord.loss,
                             hessian_vector_at=oracle.hessian_vector_at)
-        visit.lanes_launches = hopper_kernels.LANES_LAUNCHES - before
+        visit.lanes_launches = hopper_kernels.LANES_LAUNCHES - before[0]
+        visit.single_launches = hopper_kernels.LAUNCHES - before[1]
+        visit.route = oracle.route
         visit.rounds, visit.hv_rounds, visit.readbacks = (res.rounds, res.hv_rounds,
                                                           res.readbacks)
         pen = (0.5 * rw.l2_weight * (res.x * res.x).sum(-1)

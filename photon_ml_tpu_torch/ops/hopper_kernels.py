@@ -256,109 +256,171 @@ def fused_value_and_gradient(
 
 # --- the candidate-lanes kernel ----------------------------------------------
 
-# Must match csrc/fused_value_and_gradient_lanes.cu: 256 threads, a ring of
-# three stages, at most 16 lanes in lane groups of 4, 4-lane gradient
-# accumulators per thread (lane groups x d <= 256 x the largest size)
-LANES_THREADS = 256
-LANES_STAGES = 3
+# Must match csrc/fused_value_and_gradient_lanes.cu: 512 consumer threads (16
+# warps) plus one producer warp, at most 16 lanes in n-tiles of 8, the
+# gradient slots per warp the source instantiates for 1 and 2 n-tiles
+LANES_CONSUMERS = 512
+LANES_WARPS = LANES_CONSUMERS // 32
 LANES_MAX = 16
-LANES_ACC_SIZES = (1, 2, 4, 8)
-_LANES_TILE_BYTES = 16 * 1024   # X bytes per stage
-_SM_SMEM = 233_472              # shared memory of one SM
-_LANES_ROW_STEP = 32
-_LANES_MAX_ROWS = 512
+LANES_SLOT_SIZES = {1: (1, 2, 4, 8), 2: (1, 2, 4)}
+_LANES_TILE_BYTES = 80 * 1024   # X, y, w, m and O bytes per stage
+_LANES_RING_BYTES = 160 * 1024
+_LANES_MAX_STAGES = 4
+# tile rows: up to 16 m-tiles of 16 rows a power of two, beyond that a
+# multiple of 16 m-tiles (every warp then takes whole m-tiles)
+LANES_ROWS = (8, 16, 32, 64, 128) + tuple(range(256, 1025, 256))
 
 
-def lane_groups(lanes: int) -> int:
-    """Lane groups of 4 the kernel runs for `lanes` lanes: 1, 2 or 4."""
-    return 1 if lanes <= 4 else (2 if lanes <= 8 else 4)
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def lane_tiles(lanes: int) -> int:
+    """n-tiles of 8 lanes the kernel runs for `lanes` lanes: 1 or 2."""
+    return 2 if lanes > 8 else 1
+
+
+def margin_tiles(rows: int) -> int:
+    """The margins' m-tiles of 16 rows in a tile of `rows` rows."""
+    return _cdiv(rows, 16)
+
+
+def margin_split(rows: int) -> int:
+    """Warps that share one margin m-tile, each a slice of the columns."""
+    mt = margin_tiles(rows)
+    return LANES_WARPS // mt if mt < LANES_WARPS else 1
+
+
+def grad_slots(d: int, rows: int) -> int:
+    """The most m-tiles of 16 columns one warp's run of gradient units
+    (m-tile, chunk of 8 rows) touches: warp w takes units [w U / 16,
+    (w + 1) U / 16) of U = ceil(d / 16) ceil(rows / 8), m-tile by m-tile."""
+    q = _cdiv(rows, 8)
+    units = _cdiv(d, 16) * q
+    most = 0
+    for w in range(LANES_WARPS):
+        lo, hi = w * units // LANES_WARPS, (w + 1) * units // LANES_WARPS
+        if hi > lo:
+            most = max(most, (hi - 1) // q - lo // q + 1)
+    return most
 
 
 @dataclass(frozen=True)
 class LanesLayout:
     """Offsets in floats into the lanes kernel's dynamic shared memory (as
-    smem_layout() in its CUDA source): three stages of `stage` floats,
-    each [X tile (rows x ld, ld = d | 1) | y | w | m (stage_v each) | O
-    (stage_o)], then C^T at `c`, the tile's s at `s`, the reduction area at
-    `red`; `bytes` in all."""
-    ld: int
-    groups: int
+    smem_layout() in its CUDA source): `stages` stages of `stage` floats,
+    each [X tile (stage_x) | y | w | m | O's K runs (stage_v each)]; the
+    warps' gradient sums reuse the ring after the last tile, and C's
+    fragments start at `cf`, past whichever is larger; the partial margins
+    at `zp`, s at `sf`, the value/sum(w l') reduction at `vs`, the
+    stages' full and empty mbarriers at `bars`; `bytes` in all."""
     stage_x: int
     stage_v: int
-    stage_o: int
     stage: int
-    c: int
-    s: int
-    red: int
+    cf: int
+    zp: int
+    sf: int
+    vs: int
+    bars: int
     bytes: int
 
 
-def lanes_smem_layout(d: int, lanes: int, rows: int) -> LanesLayout:
-    ld = d | 1
-    groups = lane_groups(lanes)
-    kp = 4 * groups
-    stage_x = _round4(rows * ld)
-    stage_v = _round4(rows)
-    stage_o = _round4(lanes * rows)
-    stage = stage_x + 3 * stage_v + stage_o
-    c = LANES_STAGES * stage
-    s = c + d * kp
-    red = s + rows * kp
-    return LanesLayout(ld, groups, stage_x, stage_v, stage_o, stage, c, s, red,
-                       (red + 2 * 4 * LANES_THREADS) * 4)
+def lanes_smem_layout(d: int, lanes: int, rows: int, stages: int) -> LanesLayout:
+    nt = lane_tiles(lanes)
+    kp = 8 * nt
+    stage_x = _round4(rows * d + 3)
+    stage_v = _round4(rows + 3)
+    stage = stage_x + (3 + lanes) * stage_v
+    gred = LANES_WARPS * grad_slots(d, rows) * nt * 128
+    cf = max(stages * stage, gred)
+    zp = cf + _cdiv(d, 8) * 8 * kp
+    sf = zp + margin_split(rows) * margin_tiles(rows) * 16 * (8 * nt + 8 * (nt - 1))
+    vs = sf + _cdiv(rows, 8) * 8 * kp * 2
+    bars = vs + 2 * LANES_CONSUMERS
+    return LanesLayout(stage_x, stage_v, stage, cf, zp, sf, vs, bars,
+                       bars * 4 + 2 * stages * 8)
 
 
 @dataclass(frozen=True)
 class LanesPlan:
     """One launch of the lanes kernel: `grid` blocks (`blocks_per_sm` per
-    SM), block b taking tiles b, b + grid, ... of rows_per_tile rows."""
+    SM), block b taking tiles b, b + grid, ... of rows_per_tile rows through
+    `stages` ring stages; `slots` gradient m-tiles per warp (the
+    instantiated size)."""
     rows_per_tile: int
+    stages: int
     grid: int
     blocks_per_sm: int
-    acc_per_thread: int
+    slots: int
     layout: LanesLayout
 
 
+def _lanes_fit(d: int, lanes: int, rows: int, stages: Optional[int] = None) -> int:
+    """Ring stages for tiles of `rows` rows (the requested count, else as
+    many as ~160 KB of tiles takes, 2 to 4) that fit in shared memory with
+    the gradient's slots instantiated; 0 when none does."""
+    if grad_slots(d, rows) > LANES_SLOT_SIZES[lane_tiles(lanes)][-1]:
+        return 0
+    if stages is None:
+        stage_bytes = 4 * lanes_smem_layout(d, lanes, rows, 1).stage
+        stages = min(_LANES_MAX_STAGES, max(2, _LANES_RING_BYTES // stage_bytes))
+        while stages > 2 and lanes_smem_layout(d, lanes, rows, stages).bytes > MAX_SMEM:
+            stages -= 1
+    return stages if lanes_smem_layout(d, lanes, rows, stages).bytes <= MAX_SMEM else 0
+
+
+@functools.lru_cache(maxsize=None)
+def _lanes_tile(d: int, lanes: int) -> Optional[Tuple[int, int]]:
+    """(rows, stages): the most rows whose stage holds ~80 KB or less (at
+    least 8) that fit with two or more stages; None when no tile fits."""
+    per_row = 4 * (d + 3 + lanes)
+    for rows in reversed(LANES_ROWS):
+        if rows * per_row > _LANES_TILE_BYTES and rows > LANES_ROWS[0]:
+            continue
+        stages = _lanes_fit(d, lanes, rows)
+        if stages >= 2:
+            return rows, stages
+    return None
+
+
 def max_lanes(d: int) -> int:
-    """The most lanes one launch takes at width d (0: none)."""
-    for lanes in (LANES_MAX, 8, 4):
-        if lane_groups(lanes) * d <= LANES_THREADS * LANES_ACC_SIZES[-1] and \
-                lanes_smem_layout(d, lanes, 1).bytes <= MAX_SMEM:
-            return lanes
-    return 0
+    """The most lanes one launch takes at width d (0: none, and a dense
+    fixed effect that wide runs the single kernel once per lane)."""
+    return next((lanes for lanes in (LANES_MAX, 8, 4) if _lanes_tile(d, lanes)), 0)
 
 
 @functools.lru_cache(maxsize=64)
-def plan_lanes(n: int, d: int, lanes: int, sm_count: int) -> LanesPlan:
-    """Tiles of ~16 KB of X (a multiple of 32 rows where a tile holds 32
-    or more, at most 512, fewer where three stages would not fit in shared
-    memory), two blocks per SM where
-    their shared memory and a register budget of 128 (at most 2 gradient
-    accumulators) allow, else one; the smallest accumulator count that
-    covers the lane groups x d entries with 256 threads."""
+def plan_lanes(n: int, d: int, lanes: int, sm_count: int, rows: Optional[int] = None,
+               stages: Optional[int] = None, blocks_per_sm: int = 1) -> LanesPlan:
+    """Tiles of ~80 KB of X, y, w, m and O (the most rows of LANES_ROWS, at
+    least 8), a ring of two to four stages (~160 KB), one block per SM, the
+    fewest gradient slots that cover a warp's run of units.  `rows`,
+    `stages` and `blocks_per_sm` override the choice (scripts/
+    lanes_sweep.py times such variants)."""
     if not 1 <= lanes <= LANES_MAX:
         raise ValueError(f"the lanes kernel takes 1 <= K <= {LANES_MAX} "
                          f"lanes; got K={lanes}")
     if lanes > max_lanes(d):
         raise ValueError(
             f"the lanes kernel takes at most {max_lanes(d)} lanes at d={d} "
-            f"(lane groups x d <= {LANES_THREADS * LANES_ACC_SIZES[-1]} "
-            "gradient entries, three stages in shared memory); got "
+            "(C's fragments and two stages in shared memory, at most "
+            f"{LANES_SLOT_SIZES[1][-1]} gradient slots per warp); got "
             f"K={lanes}: split the lanes into groups")
-    if n < 0 or sm_count < 1:
-        raise ValueError(f"bad plan request n={n}, sm_count={sm_count}")
-    ld = d | 1
-    rows = min(max(_LANES_TILE_BYTES // (4 * ld), 1), _LANES_MAX_ROWS)
-    if rows >= _LANES_ROW_STEP:
-        rows = rows // _LANES_ROW_STEP * _LANES_ROW_STEP
-    while rows > 1 and lanes_smem_layout(d, lanes, rows).bytes > MAX_SMEM:
-        rows -= _LANES_ROW_STEP if rows > _LANES_ROW_STEP else 1
-    layout = lanes_smem_layout(d, lanes, rows)
-    acc = next(a for a in LANES_ACC_SIZES
-               if a * LANES_THREADS >= lane_groups(lanes) * d)
-    per_sm = 2 if acc <= 2 and 2 * (layout.bytes + 2048) <= _SM_SMEM else 1
-    grid = max(1, min(sm_count * per_sm, -(-n // rows)))
-    return LanesPlan(rows, grid, per_sm, acc, layout)
+    if n < 0 or sm_count < 1 or blocks_per_sm < 1:
+        raise ValueError(f"bad plan request n={n}, sm_count={sm_count}, "
+                         f"blocks_per_sm={blocks_per_sm}")
+    if rows is None:
+        rows, auto = _lanes_tile(d, lanes)
+        stages = auto if stages is None else stages
+    if rows not in LANES_ROWS:
+        raise ValueError(f"tile rows must be one of {LANES_ROWS}; got {rows}")
+    stages = _lanes_fit(d, lanes, rows, stages)
+    if stages < 2:
+        raise ValueError(f"no ring of {rows}-row tiles fits at d={d}, K={lanes}")
+    slots = next(s for s in LANES_SLOT_SIZES[lane_tiles(lanes)] if s >= grad_slots(d, rows))
+    grid = max(1, min(sm_count * blocks_per_sm, -(-n // rows)))
+    return LanesPlan(rows, stages, grid, blocks_per_sm, slots,
+                     lanes_smem_layout(d, lanes, rows, stages))
 
 
 def fused_value_and_gradient_lanes_plain(
@@ -442,7 +504,7 @@ def fused_value_and_gradient_lanes(
             loss.kernel_id, x.data_ptr(), labels.data_ptr(), ptr(weights),
             ptr(offsets), ptr(mask), ptr(shift), coefficients.data_ptr(),
             partial.data_ptr(), ticket.data_ptr(), out.data_ptr(), n, d, lanes,
-            plan.rows_per_tile, plan.grid, plan.acc_per_thread, plan.layout.bytes,
+            plan.rows_per_tile, plan.stages, plan.grid, plan.slots, plan.layout.bytes,
             stream)
     if err != 0:
         raise RuntimeError("fused_value_and_gradient_lanes launch failed: "

@@ -10,10 +10,14 @@ reads X once for all K margins.  Here, on a CUDA tensor, a dense X goes
 through the lanes kernel (ops/hopper_kernels.py::
 fused_value_and_gradient_lanes): one launch per pass for up to
 `max_lanes(d)` candidates, so K candidates take one launch per group of
-them per pass; a PaddedSparse X runs kernels A and B once per candidate
-per pass (ops/aggregators.py).  On the CPU the same functions run their
-plain versions.  Normalization is folded in as the single kernel folds it:
-E = C * f in, the lane shift b_k = -(e_k . s), then (grad - s swl) * f.
+them per pass.  A dense X wider than the lanes kernel takes (d > 2,048)
+runs the single fused kernel once per candidate per pass, up to its own
+width limit D_MAX, as an isolated fit of the same width would; a
+PaddedSparse X runs kernels A and B once per candidate per pass
+(ops/aggregators.py).  `lanes_route` names the route.  On the CPU the same
+functions run their plain versions.  Normalization is folded in as the
+single kernel folds it: E = C * f in, the lane shift b_k = -(e_k . s),
+then (grad - s swl) * f.
 """
 from __future__ import annotations
 
@@ -28,15 +32,30 @@ from photon_ml_tpu_torch.ops.losses import PointwiseLoss
 from photon_ml_tpu_torch.ops.normalization import NormalizationContext
 
 
-def launch_groups(num_lanes: int, d: int, device: torch.device) -> List[Tuple[int, int]]:
-    """[start, stop) of each group of lanes one kernel launch takes (one
-    group on the CPU, whose plain version takes any count)."""
+def lanes_route(d: int, device: torch.device) -> str:
+    """How a dense fixed effect's K-lane pass runs at width d: "plain" on
+    the CPU (the plain version takes any lane count), "lanes" on the card
+    where the lanes kernel takes width d, else "single" (the single fused
+    kernel once per lane) up to hk.D_MAX; wider raises, as an isolated
+    fit's pass does."""
     if device.type == "cpu":
+        return "plain"
+    if hk.max_lanes(d) > 0:
+        return "lanes"
+    if d <= hk.D_MAX:
+        return "single"
+    raise ValueError(f"no kernel takes a dense fixed effect of width d={d} "
+                     f"(the single kernel takes d <= {hk.D_MAX})")
+
+
+def launch_groups(num_lanes: int, d: int, device: torch.device) -> List[Tuple[int, int]]:
+    """[start, stop) of each group of lanes one kernel launch takes: one
+    group on the CPU, groups of up to max_lanes(d) on the "lanes" route,
+    one lane a group on the "single" route."""
+    route = lanes_route(d, device)
+    if route == "plain":
         return [(0, num_lanes)]
-    size = hk.max_lanes(d)
-    if size == 0:
-        raise ValueError(f"the lanes kernel takes no dense fixed effect of width "
-                         f"d={d} (at most {hk.LANES_THREADS * hk.LANES_ACC_SIZES[-1]})")
+    size = hk.max_lanes(d) if route == "lanes" else 1
     return [(k, min(k + size, num_lanes)) for k in range(0, num_lanes, size)]
 
 
@@ -69,7 +88,10 @@ class FixedEffectLanes:
         self.weights = weights
         self.norm = None if norm is None or norm.is_identity else norm
         self.dense = isinstance(x, torch.Tensor)
-        # launches of the lanes kernel one value+gradient pass makes
+        # the route of a value+gradient pass, and its kernel launches: one
+        # per group (of the lanes kernel on "lanes", of the single kernel
+        # on "single")
+        self.route = lanes_route(x.shape[1], x.device) if self.dense else "sparse"
         self.groups = (launch_groups(offsets.shape[0], x.shape[1], x.device)
                        if self.dense else [])
 
@@ -89,6 +111,15 @@ class FixedEffectLanes:
         shifts = None if self.norm is None else self.norm.shifts
         e = c if factors is None else c * factors
         b = None if shifts is None else -(e @ shifts)
+        if self.route == "single":
+            parts = [hk.fused_value_and_gradient(self.loss, self.x, self.labels,
+                                                 e[k].contiguous(), self.weights,
+                                                 self.offsets[k], None, shifts)
+                     for k in range(e.shape[0])]
+            value, grad = torch.stack([v for v, _ in parts]), torch.stack([g for _, g in parts])
+            if factors is not None:
+                grad = grad * factors
+            return self._l2_terms(c, value, grad)
         values, grads, swls = [], [], []
         for lo, hi in self.groups:
             v, g, swl = hk.fused_value_and_gradient_lanes(

@@ -1092,7 +1092,13 @@ def _lanes_inputs(n, d, lanes, seed=5, skip=0):
 
 
 LANES_SHAPES = {"700x37": (700, 37), "misaligned": (700, 37, 1), "n1": (1, 31),
-                "n0": (0, 31), "5000x124": (5000, 124), "256": (3000, 256)}
+                "n0": (0, 31), "5000x124": (5000, 124), "256": (3000, 256),
+                # the tensor-core tiles' edges: widths around the 8-column
+                # chunks and 16-column tiles, odd row counts (ragged tiles,
+                # misaligned runs of O), a misaligned view at another width
+                "d1": (333, 1), "d7": (333, 7), "d8": (333, 8), "d9": (333, 9),
+                "d9_misaligned": (333, 9, 1), "d31": (1001, 31), "d124": (1001, 124),
+                "d512": (129, 512)}
 
 
 @pytest.mark.parametrize("lanes", [1, 5, 16])
@@ -1203,3 +1209,77 @@ def test_candidate_lane_on_card_matches_isolated_fits(cuda):
     for c, r in zip(cands, results):
         iso = GameEstimator(c).fit(train, val, ["AUC"])
         np.testing.assert_allclose(r.objective_history, iso.objective_history, rtol=1e-4)
+
+
+def test_fixed_effect_lanes_past_the_lanes_kernel_take_the_single_kernel(cuda):
+    """A dense fixed effect of width 3,000 (past the lanes kernel's 2,048)
+    with 16 candidates: the "single" route, 16 launches of the single fused
+    kernel a pass and none of the lanes kernel, against the oracle's plain
+    route on the CPU in float64 (value rtol 1e-5, gradient rtol/atol 1e-4,
+    the single kernel's own tolerances), standardized."""
+    from photon_ml_tpu_torch.ops.lanes import FixedEffectLanes
+    from photon_ml_tpu_torch.ops.normalization import build_normalization_context
+    n, d, lanes = 2000, 3000, 16
+    x, y, c, w, o, _, _ = _lanes_inputs(n, d, lanes)
+    x[:, -1] = 1.0                                     # the intercept
+    o = torch.nan_to_num(o, posinf=0.0)
+    l2 = torch.linspace(0.1, 2.0, lanes, device="cuda")
+    mean, var = x.double().mean(0), x.double().var(0)
+    norms = {dev: build_normalization_context("standardization", mean=mean.to(dev, dt),
+                                              variance=var.to(dev, dt), intercept_index=d - 1)
+             for dev, dt in (("cuda", torch.float32), ("cpu", torch.float64))}
+    got_lanes = FixedEffectLanes(TL.LOGISTIC, x, y, o, l2, weights=w, norm=norms["cuda"])
+    assert got_lanes.route == "single" and len(got_lanes.groups) == lanes
+    single, before = hk.LAUNCHES, hk.LANES_LAUNCHES
+    value, grad = got_lanes.value_and_gradient(c)
+    torch.cuda.synchronize()
+    assert hk.LAUNCHES - single == lanes and hk.LANES_LAUNCHES == before
+    cpu = lambda t: t.double().cpu()
+    want = FixedEffectLanes(TL.LOGISTIC, cpu(x), cpu(y), cpu(o), cpu(l2), weights=cpu(w),
+                            norm=norms["cpu"]).value_and_gradient(cpu(c))
+    np.testing.assert_allclose(value.cpu().numpy(), want[0].numpy(), rtol=1e-5)
+    np.testing.assert_allclose(grad.cpu().numpy(), want[1].numpy(), rtol=1e-4, atol=1e-4)
+
+
+def test_candidate_lane_on_card_takes_a_wide_dense_fixed_effect(cuda):
+    """evaluate_vmapped on the card with a dense fixed effect of width
+    2,100 (bench.py's pipeline data at 2,000 rows, 40 users): its visits
+    take the "single" route, the single kernel launching once per
+    candidate per fixed-effect round and the lanes kernel never, and every
+    candidate's objective history within 1e-4 of the same sweep on the CPU
+    in float64 (the plain versions)."""
+    import dataclasses
+    from photon_ml_tpu_torch.data.synthetic_bench import pipeline_dataset
+    from photon_ml_tpu_torch.game import (FixedEffectCoordinateConfig, GameEstimator,
+                                          GameTrainingConfig, GLMOptimizationConfig,
+                                          RandomEffectCoordinateConfig)
+    from photon_ml_tpu_torch.hyperparameter import SweepEvaluator
+    from photon_ml_tpu_torch.optim.config import (OptimizerConfig, RegularizationContext,
+                                                  RegularizationType)
+    train, val = pipeline_dataset(2000, 2100, 40, 4, seed=5)
+
+    def config(lam):
+        opt = GLMOptimizationConfig(optimizer=OptimizerConfig(max_iterations=20),
+                                    regularization=RegularizationContext(RegularizationType.L2),
+                                    regularization_weight=lam)
+        return GameTrainingConfig(
+            task_type="logistic_regression",
+            coordinates={"fixed": FixedEffectCoordinateConfig("global", opt),
+                         "perUser": RandomEffectCoordinateConfig(
+                             "userId", "per_user", dataclasses.replace(
+                                 opt, regularization_weight=2 * lam), projector="identity")},
+            updating_sequence=["fixed", "perUser"], num_outer_iterations=2, seed=5)
+    cands = [config(lam) for lam in (10.0, 1.0, 0.1)]
+    single, lanes = hk.LAUNCHES, hk.LANES_LAUNCHES
+    sweep = SweepEvaluator(GameEstimator(config(1.0)), train, val, ["AUC"])
+    got = sweep.evaluate_vmapped(cands)
+    torch.cuda.synchronize()
+    fe = [v for v in sweep.visits if v.coordinate == "fixed"]
+    assert all(v.route == "single" for v in fe)
+    assert hk.LAUNCHES - single == sum(v.single_launches for v in fe) \
+        == len(cands) * sum(v.rounds for v in fe) > 0
+    assert hk.LANES_LAUNCHES == lanes
+    want = SweepEvaluator(GameEstimator(config(1.0), device="cpu", dtype=torch.float64),
+                          train, val, ["AUC"]).evaluate_vmapped(cands)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.objective_history, w.objective_history, rtol=1e-4)

@@ -254,63 +254,127 @@ def test_lanes_wrapper_on_the_cpu_runs_plain_and_launches_nothing():
                                           torch.empty((2, 3), device="meta"))
 
 
-LANE_WIDTHS = (1, 3, 5, 31, 37, 124, 256, 257, 513, 1024, 2048)
+LANE_WIDTHS = (1, 3, 5, 7, 8, 9, 31, 33, 37, 124, 256, 257, 512, 513, 1024, 1500, 2048)
 
 
 @pytest.mark.parametrize("d", LANE_WIDTHS)
 def test_lanes_plans_fit_shared_memory(d):
     """Replay plan_lanes as the kernel walks it: every plan fits shared
-    memory (and two blocks' where it asks for two), its accumulators cover
-    the lane groups x d gradient entries, every shared array starts on 16
-    bytes, X's row stride is odd, and the blocks' tiles cover the rows
-    exactly once."""
+    memory, its tiles hold a multiple of 8 rows (so tiles of an aligned X
+    stay 16-byte aligned) with two or more ring stages, every shared array
+    starts on 16 bytes, each stage keeps a span of room for X and for each
+    of O's K runs in their [K, n] layout (a run's phase at most 3 floats),
+    the warps' gradient sums fit in the ring's place, the instantiated
+    slots cover every warp's run of units, and the blocks' tiles cover the
+    rows exactly once."""
     top = hk.max_lanes(d)
-    assert top in (16, 8, 4)
+    assert top in (16, 8)
     for lanes in range(1, top + 1):
-        groups = hk.lane_groups(lanes)
-        assert 4 * groups >= lanes
+        nt = hk.lane_tiles(lanes)
+        assert 8 * nt >= lanes
         for n in (0, 1, 3, 700, 950_051):
             plan = hk.plan_lanes(n, d, lanes, PLAN_SMS)
             lay, rows = plan.layout, plan.rows_per_tile
-            assert lay == hk.lanes_smem_layout(d, lanes, rows)
-            assert lay.bytes <= hk.MAX_SMEM
-            if plan.blocks_per_sm == 2:
-                assert plan.acc_per_thread <= 2 and 2 * (lay.bytes + 2048) <= 233_472
-            assert plan.acc_per_thread in hk.LANES_ACC_SIZES
-            assert plan.acc_per_thread * hk.LANES_THREADS >= groups * d
-            assert lay.ld % 2 == 1 and lay.ld >= d
-            for off in (lay.stage_x, lay.stage_v, lay.stage_o, lay.stage, lay.c, lay.s,
-                        lay.red):
+            assert lay == hk.lanes_smem_layout(d, lanes, rows, plan.stages)
+            assert lay.bytes <= hk.MAX_SMEM and plan.stages >= 2
+            assert rows in hk.LANES_ROWS and rows % 8 == 0
+            assert plan.slots in hk.LANES_SLOT_SIZES[nt]
+            assert plan.slots >= hk.grad_slots(d, rows)
+            for off in (lay.stage_x, lay.stage_v, lay.stage, lay.cf, lay.zp, lay.sf,
+                        lay.vs, lay.bars):
                 assert off % 4 == 0
-            assert lay.stage_x >= rows * lay.ld and lay.stage_o >= lanes * rows
-            assert lay.bytes == 4 * (lay.red + 2 * 4 * hk.LANES_THREADS)
+            assert lay.stage_x >= rows * d + 3 and lay.stage_v >= rows + 3
+            assert lay.stage == lay.stage_x + (3 + lanes) * lay.stage_v
+            assert lay.cf >= plan.stages * lay.stage
+            assert lay.cf >= hk.LANES_WARPS * hk.grad_slots(d, rows) * nt * 128
+            assert lay.bytes == 4 * lay.bars + 16 * plan.stages
             assert 1 <= plan.grid <= PLAN_SMS * plan.blocks_per_sm
-            assert rows == 1 or rows % 32 == 0 or rows * 4 * lay.ld <= 16 * 1024
             tiles = -(-n // rows)
             covered = sum(min(rows, n - t * rows) for b in range(plan.grid)
                           for t in range(b, tiles, plan.grid))
             assert covered == n
-    with pytest.raises(ValueError, match="lanes"):
-        hk.plan_lanes(10, d, top + 1, PLAN_SMS)
+    if top < hk.LANES_MAX:
+        with pytest.raises(ValueError, match="lanes"):
+            hk.plan_lanes(10, d, top + 1, PLAN_SMS)
+
+
+@pytest.mark.parametrize("d", LANE_WIDTHS)
+def test_lanes_work_split_covers_every_product_once(d):
+    """Replay how the kernel deals a tile's work to its 16 warps, as its
+    source computes it: the margins' (m-tile of 16 rows, chunk of 8
+    columns) pairs and the gradient's (m-tile of 16 columns, chunk of 8
+    rows) units each taken by exactly one warp; every warp's slot index
+    below grad_slots; and the block's final sum finds each gradient m-tile
+    in the slots of exactly the warps whose runs reach it."""
+    W = hk.LANES_WARPS
+    for lanes in (1, hk.max_lanes(d)):
+        rows = hk.plan_lanes(950_051, d, lanes, PLAN_SMS).rows_per_tile
+        for tile_rows in sorted({rows, *(r for r in hk.LANES_ROWS if r <= rows)}):
+            mtiles, split = hk.margin_tiles(tile_rows), hk.margin_split(tile_rows)
+            chunks = -(-d // 8)
+            margins = []
+            for w in range(hk.LANES_WARPS):
+                if mtiles < hk.LANES_WARPS:
+                    firsts, part = [w % mtiles], w // mtiles
+                else:
+                    firsts, part = [w + W * i for i in range(mtiles // W)], 0
+                lo, hi = part * chunks // split, (part + 1) * chunks // split
+                margins += [(mt, c) for mt in firsts for c in range(lo, hi)]
+            assert sorted(margins) == [(mt, c) for mt in range(mtiles) for c in range(chunks)]
+            assert split * mtiles <= W or mtiles % W == 0
+            qn, slots = -(-tile_rows // 8), hk.grad_slots(d, tile_rows)
+            units = -(-d // 16) * qn
+            taken, reach = [], {}
+            for w in range(hk.LANES_WARPS):
+                lo, hi = w * units // W, (w + 1) * units // W
+                for i in range(slots + 1):
+                    mt = lo // qn + i
+                    q0, q1 = max(lo - mt * qn, 0), min(hi - mt * qn, qn)
+                    if q0 < q1:
+                        assert i < slots
+                        taken += [(mt, q) for q in range(q0, q1)]
+                        reach.setdefault(mt, []).append((w, i))
+            assert sorted(taken) == [(mt, q) for mt in range(-(-d // 16)) for q in range(qn)]
+            for mt, found in reach.items():
+                final = [(w, mt - (w * units // W) // qn) for w in range(W)
+                         if (w + 1) * units // W > w * units // W
+                         and w * units // W < (mt + 1) * qn and (w + 1) * units // W > mt * qn]
+                assert final == found
+
+
+def test_lanes_width_limit_is_no_narrower_than_the_first_kernels():
+    """max_lanes(d) at every d up to 2,048 is at least what the first lanes
+    kernel took (16 lanes to d = 512, 8 to 1,024, 4 to 2,048); past 2,048
+    the lanes kernel takes none, and a dense fixed effect runs the single
+    kernel per lane (ops/lanes.py)."""
+    for d in range(1, 2049):
+        assert hk.max_lanes(d) >= (16 if d <= 512 else 8 if d <= 1024 else 4), d
+    for d in (2049, 3000, 4096, hk.D_MAX):
+        assert hk.max_lanes(d) == 0
 
 
 def test_lanes_plan_refuses_what_the_kernel_cannot_take():
     assert hk.max_lanes(2049) == 0
-    for bad in ((10, 31, 0), (10, 31, 17), (10, 2049, 1), (10, 513, 9)):
+    for bad in ((10, 31, 0), (10, 31, 17), (10, 2049, 1), (10, 2048, 9)):
         with pytest.raises(ValueError):
             hk.plan_lanes(*bad, PLAN_SMS)
+    for rows, stages in ((48, None), (128, 9), (128, 1)):   # no such tile; no such ring
+        with pytest.raises(ValueError):
+            hk.plan_lanes(1000, 31, 16, PLAN_SMS, rows=rows, stages=stages)
 
 
 def test_lanes_constants_match_the_cuda_source():
     src = (Path(hk.__file__).resolve().parent.parent / "csrc"
            / "fused_value_and_gradient_lanes.cu").read_text()
-    assert f"constexpr int kThreads = {hk.LANES_THREADS};" in src
-    assert f"constexpr int kStages = {hk.LANES_STAGES};" in src
+    assert f"constexpr int kConsumers = {hk.LANES_CONSUMERS};" in src
+    assert "constexpr int kThreads = kConsumers + 32;" in src
     assert f"constexpr int kMaxLanes = {hk.LANES_MAX};" in src
     assert "constexpr int kMaxSmem = 232448 - 1024;" in src
-    for a in hk.LANES_ACC_SIZES:
-        assert f"case {a}: return launch<LOSS, {a}>" in src
-    assert len(re.findall(r"case \d+: return launch<LOSS", src)) == len(hk.LANES_ACC_SIZES)
+    for nt, sizes in hk.LANES_SLOT_SIZES.items():
+        for size in sizes:
+            assert f"case {size}: return launch<{nt}, {size}>" in src
+    assert len(re.findall(r"case \d+: return launch<", src)) == \
+        sum(map(len, hk.LANES_SLOT_SIZES.values()))
     # the device function's name tells it apart from the single kernel's
     # (chip_smoke.py's KERNEL_NAMES match profiles by substring)
     assert "lanes_value_gradient(const Args a)" in src and "fvg_" not in src

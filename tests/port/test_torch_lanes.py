@@ -5,7 +5,9 @@ float64 on the CPU.
   the lanes kernel) against jax.vmap of photon_ml_tpu's GLMObjective over
   (c, offsets, l2), the pass the JAX sweep's _fe_sweep_update makes: values,
   gradients and Hessian-vector products, raw and standardized, for the
-  four losses, with weights, and over a PaddedSparse X;
+  four losses, with weights, and over a PaddedSparse X; and its "single"
+  route (a dense X wider than the lanes kernel takes, the single kernel
+  once per lane) against the same vmapped objective;
 - parallel/random_effect.py's lanes oracle (K candidates x E entities over
   one bucket's shared blocks) against the port's per-candidate
   batched_value_and_gradient and batched_hessian_vector_at;
@@ -22,7 +24,10 @@ from photon_ml_tpu.ops.normalization import build_normalization_context as jnorm
 from photon_ml_tpu.ops.objective import GLMObjective as JObjective
 from photon_ml_tpu_torch.ops import features as fops
 from photon_ml_tpu_torch.ops import losses as TL
-from photon_ml_tpu_torch.ops.lanes import FixedEffectLanes, launch_groups, lanes_matvec
+from photon_ml_tpu_torch.ops import hopper_kernels as hk
+from photon_ml_tpu_torch.ops.lanes import (
+    FixedEffectLanes, lanes_matvec, lanes_route, launch_groups,
+)
 from photon_ml_tpu_torch.ops.normalization import build_normalization_context as tnorm
 from photon_ml_tpu_torch.parallel.random_effect import (
     EntityBlocks, batched_hessian_vector_at, batched_value_and_gradient,
@@ -105,11 +110,60 @@ def test_fixed_effect_lanes_over_a_padded_sparse_x():
 
 
 def test_launch_groups():
+    """Groups of up to max_lanes(d) lanes on the card (none on the CPU);
+    past the lanes kernel's widths, one lane a group (the single kernel's
+    route); past the single kernel's D_MAX, a refusal."""
     assert launch_groups(40, 31, torch.device("cpu")) == [(0, 40)]
     assert launch_groups(40, 31, torch.device("cuda")) == [(0, 16), (16, 32), (32, 40)]
-    assert launch_groups(9, 1024, torch.device("cuda")) == [(0, 8), (8, 9)]
-    with pytest.raises(ValueError, match="d=4096"):
-        launch_groups(2, 4096, torch.device("cuda"))
+    assert launch_groups(9, 2048, torch.device("cuda")) == [(0, 8), (8, 9)]
+    assert launch_groups(2, 4096, torch.device("cuda")) == [(0, 1), (1, 2)]
+    with pytest.raises(ValueError, match=f"d={hk.D_MAX + 1}"):
+        launch_groups(2, hk.D_MAX + 1, torch.device("cuda"))
+
+
+@pytest.mark.parametrize("d", [2049, 3000, hk.D_MAX])
+def test_wide_dense_fixed_effect_takes_the_single_kernel_route(d):
+    """A dense fixed effect wider than the lanes kernel takes (max_lanes(d)
+    = 0) runs the single fused kernel once per lane on the card, up to its
+    D_MAX, where the first lanes kernel's wrapper refused it; no card
+    needed to choose the route."""
+    cuda = torch.device("cuda")
+    assert hk.max_lanes(d) == 0
+    assert lanes_route(d, cuda) == "single"
+    assert launch_groups(16, d, cuda) == [(k, k + 1) for k in range(16)]
+    assert lanes_route(2048, cuda) == "lanes" and lanes_route(d, torch.device("cpu")) == "plain"
+
+
+@pytest.mark.parametrize("norm", ["none", "standardization"])
+@pytest.mark.parametrize("name", ["logistic", "poisson"])
+def test_single_kernel_route_matches_vmapped_jax_objective(name, norm, monkeypatch):
+    """The "single" route's pass (the single kernel's wrapper per lane, its
+    plain version on the CPU) with the route forced at a small width ==
+    jax.vmap of the JAX package's GLMObjective, raw and standardized
+    (rtol 1e-12: the same sums in another order)."""
+    from photon_ml_tpu_torch.ops import lanes as lanes_mod
+    monkeypatch.setattr(lanes_mod, "lanes_route", lambda d, device: "single")
+    x, y, w, o, c, v, l2 = _problem()
+    mean, var = _stats(x)
+    jn = tn = None
+    if norm != "none":
+        jn = jnorm(norm, mean=jnp.asarray(mean), variance=jnp.asarray(var),
+                   intercept_index=D - 1)
+        tn = tnorm(norm, mean=torch.from_numpy(mean), variance=torch.from_numpy(var),
+                   intercept_index=D - 1)
+
+    def one(ck, ok, lk):
+        obj = JObjective(JL.BY_NAME[name], jnp.asarray(x), jnp.asarray(y),
+                         weights=jnp.asarray(w), offsets=ok, norm=jn).with_l2(lk)
+        return obj.value_and_gradient(ck)
+
+    jv, jg = jax.jit(jax.vmap(one))(jnp.asarray(c), jnp.asarray(o), jnp.asarray(l2))
+    t = torch.from_numpy
+    lanes = FixedEffectLanes(TL.BY_NAME[name], t(x), t(y), t(o), t(l2), weights=t(w), norm=tn)
+    assert lanes.route == "single" and lanes.groups == [(k, k + 1) for k in range(K)]
+    tv, tg = lanes.value_and_gradient(t(c))
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), rtol=RTOL)
+    np.testing.assert_allclose(tg.numpy(), np.asarray(jg), rtol=RTOL, atol=RTOL)
 
 
 @pytest.mark.parametrize("weighted", [False, True], ids=["plain", "weights"])
