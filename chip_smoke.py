@@ -231,7 +231,13 @@ Phases, one JSON object per line on stdout:
      more lanes than a width takes; two calls bit for bit; one pass of 16
      lanes timed at both full shapes beside its bound, the library call
      (two torch.matmul around the loss on [n, K]) and 16 launches of the
-     single kernel;
+     single kernel; every case again with a lane mask (an int32 word per
+     row, bit k a 0/1 factor on lane k's weights; a lane with no bit set,
+     one with every bit set), and the masked pass (weights and the bits of
+     a bootstrap's replicas, no offsets) timed with K = 16 at config 4's
+     fixed effect and K = 10 at config 1's width beside the unmasked pass;
+     nan_check_lanes: a held-out row with an infinite loss gives NaN in
+     its lane only, as in the plain version;
  26. sweep and sweep_path (after glmix_tron): bench.py's _sweep_vmap_leg on
      config 4, SweepEvaluator.evaluate_vmapped over 16 candidates (FE
      lambda logspace(1.5, -2, 16), perUser twice it) after a warm-up sweep,
@@ -248,8 +254,19 @@ Phases, one JSON object per line on stdout:
      the uniform prefix of the candidates equal to the seeded replay, at
      least one GP choice, every AUC in (0.5, 1), the saved best the best
      AUC's and scoring to it by cli.score; the search's host seconds;
- 28. the kernels line (launches by path, the CLI, inexact, streamed and
-     sweep paths included), nvidia-smi's line, and the final result line.
+ 28. cli_diagnose (after cli_game, on cli_glm's and cli_game's saved
+     models and training npz files): cli.diagnose on config 1 (10
+     replicas) and config 4 (16 replicas); the report files, the summary's
+     metrics within 1e-6 of a float64 recomputation from the saved
+     model's scores, the lanes kernel's launches = the bootstrap's rounds
+     x lane groups and the single kernel's = the learning curves' passes,
+     replicas 0, k/2 and k - 1 within 1e-5 (config 1) or 1e-4 (config 4)
+     of isolated fits of their weights, the curves' holdout AUC finite;
+     the walls of load, score, importance, Kendall tau, Hosmer-Lemeshow,
+     bootstrap, fitting and render;
+ 29. the kernels line (launches by path, the CLI, inexact, streamed,
+     sweep and diagnostics paths included), nvidia-smi's line, and the
+     final result line.
 Exits non-zero, before printing any result, when CUDA is absent or when
 the port's package is not beside this script.
 """
@@ -370,6 +387,18 @@ def margin_ptxas(plan, loss_id: int) -> list:
     return [e for e in ptxas_summary(log) if want in e[0]]
 
 
+def lanes_ptxas(plan, lanes: int, masked: bool) -> list:
+    """nvcc's -Xptxas -v line(s) for the lanes kernel's instantiation that
+    `plan` launches for K = `lanes` (n-tiles, gradient slots, lane mask):
+    (entry, registers, spill bytes, static smem bytes)."""
+    from photon_ml_tpu_torch.ops import _build
+    from photon_ml_tpu_torch.ops import hopper_kernels as hk
+    log = _build.library_path("fused_value_and_gradient_lanes").with_suffix(".log").read_text()
+    want = (f"lanes_value_gradientILi{hk.lane_tiles(lanes)}ELi{plan.slots}"
+            f"ELb{int(masked)}E")
+    return [e for e in ptxas_summary(log) if want in e[0]]
+
+
 def cuda_ms(fn) -> float:
     """Device ms of what fn() enqueues.  A sleep kernel goes first, so the
     host enqueues all of fn's launches while the device sleeps and the
@@ -402,6 +431,30 @@ def shifted_gradient_scale(loss, x, y, c, w, o, m, s):
     if m is not None:
         u = torch.where(m != 0, u, torch.zeros_like(u))
     return (xs.abs().T @ u.abs() + s.double().abs() * u.abs().sum()).cpu().numpy()
+
+
+def lanes_term_scale(loss, x, y, c, w, o, m, b, q):
+    """Per lane and column, the magnitudes a lanes pass's gradient sums,
+    sum_i |x_ij u_ik|, and per lane sum_i |u_ik| for sum(w l') (u = the
+    rows' kept w bit_k l'), in float64, [K, d + 1]: where a lane's terms
+    cancel, the gradient's f32 error scales with them, not with it."""
+    import torch
+    xs = x.double()
+    z = xs @ c.double().T
+    if b is not None:
+        z = z + b.double()
+    if o is not None:
+        z = z + o.double().T
+    _, u = loss.loss_and_dz(z, y.double()[:, None])
+    if w is not None:
+        u = u * w.double()[:, None]
+    if q is not None:
+        lanes = torch.arange(c.shape[0], device=x.device, dtype=q.dtype)
+        u = u * ((q[:, None] >> lanes) & 1).double()
+    if m is not None:
+        u = torch.where((m != 0)[:, None], u, torch.zeros_like(u))
+    u = torch.nan_to_num(u.abs(), nan=0.0)
+    return torch.cat([(xs.abs().T @ u).T, u.sum(0)[:, None]], 1).cpu().numpy()
 
 
 def compare(hk, loss, x, y, c, w, o, m=None, s=None):
@@ -1494,7 +1547,41 @@ def run_nan_checks(hk, losses) -> dict:
         if loss.name != "smoothed_hinge" and finite(r["value"]):
             raise SystemExit(f"NaN in c gives the finite {loss.name} value {r['value']}")
     emit({"phase": "nan_check", "shape": [700, 37], "nan_column": 5, "losses": out})
+    run_lane_mask_nan_check(hk, next(l for l in losses if l.name == "poisson"), x, y, gen)
     return out
+
+
+def run_lane_mask_nan_check(hk, poisson, x, y, gen) -> None:
+    """A held-out row whose loss is not finite: lane 1's Poisson loss at
+    row 5 is infinite (offset 1e6) and lane 1's bit of row 5 is clear, so
+    lane 1 weighs it by 0 * inf = NaN, as the JAX package's member * w
+    does; the lanes kernel must give NaN in lane 1's value and gradient
+    and finite numbers in the other lanes, as its plain version does."""
+    import torch
+    from photon_ml_tpu_torch.ops.lanes import lane_words
+    lanes, (n, d) = 5, x.shape
+    c = torch.randn(lanes, d, generator=gen, device="cuda") * 0.1
+    w = torch.rand(n, generator=gen, device="cuda") + 0.5
+    o = torch.zeros(lanes, n, device="cuda")
+    o[1, 5] = 1e6
+    keep = torch.ones(lanes, n, dtype=torch.bool, device="cuda")
+    keep[1, 5] = False
+    q = lane_words(keep)
+    got = hk.fused_value_and_gradient_lanes(poisson, x, y, c, w, o, None, None, q)
+    want = hk.fused_value_and_gradient_lanes_plain(poisson, x, y, c, w, o, None, None, q)
+    torch.cuda.synchronize()
+    nan_lanes = lambda r: [k for k in range(lanes) if bool(torch.isnan(r[0][k]))]
+    finite = lambda r: [bool(torch.isfinite(r[0][k]) and torch.isfinite(r[1][k]).all())
+                        for k in range(lanes)]
+    r = {"kernel_nan_lanes": nan_lanes(got), "plain_nan_lanes": nan_lanes(want),
+         "kernel_finite_lanes": finite(got), "plain_finite_lanes": finite(want)}
+    emit({"phase": "nan_check_lanes", "shape": [n, d], "lanes": lanes,
+          "held_out_row": 5, "loss": "poisson", **r})
+    if not (r["kernel_nan_lanes"] == r["plain_nan_lanes"] == [1]
+            and r["kernel_finite_lanes"] == r["plain_finite_lanes"]
+            == [k != 1 for k in range(lanes)]):
+        raise SystemExit(f"lane mask: a held-out non-finite row must give NaN in its lane "
+                         f"only, as in the plain version: {r}")
 
 
 # the inexact phase: bench.py's gated inexact leg
@@ -2180,6 +2267,151 @@ def cli_game_phase(hk, glmix_ref, kind, smi, device="cuda") -> int:
     return launches
 
 
+# cli_diagnose: (run, the CLI phase whose saved model and data it reads,
+# the model's directory there, replicas, the replicas' parity gate against
+# isolated fits: the repo's GLM gate for config 1, its GLMix gate for
+# config 4)
+CLI_DIAGNOSE_RUNS = (("config1", "cli_glm", "out/best", 10, NLL_RTOL),
+                     ("config4", "cli_game", "pipelined/best", 16, GLMIX_RTOL))
+DIAGNOSE_METRIC_RTOL = 1e-6
+
+
+def host_weighted_objective(x, y, sw, off, coef, l1, l2, task) -> float:
+    """float64 sum sw l(x c + o, y) + l1 |c|_1 + l2/2 |c|^2 on the host."""
+    c = np.asarray(coef, np.float64)
+    total = 0.0
+    step = 1 << 18
+    for i in range(0, x.shape[0], step):
+        z = x[i:i + step].astype(np.float64) @ c
+        if off is not None:
+            z = z + off[i:i + step]
+        total += float((sw[i:i + step] * host_loss(task, z, y[i:i + step])).sum())
+    return total + l1 * float(np.abs(c).sum()) + 0.5 * l2 * float(c @ c)
+
+
+def cli_diagnose_phase(hk, kind, smi, device="cuda") -> dict:
+    """cli.diagnose on cli_glm's reference-layout config-1 model and its
+    train.npz ([1,643,520 x 124], the default 10 replicas) and on
+    cli_game's config-4 model and its training npz (FE [950,051 x 31],
+    16 replicas: one lane group).  Gates: exit 0 and the three report
+    files; the summary's metrics within 1e-6 relative of a float64 host
+    recomputation from the saved model's scores; the lanes kernel's
+    launches = the bootstrap's rounds x lane groups, and the single
+    kernel's = the learning curves' passes (none in the bootstrap);
+    replicas 0, k/2 and k - 1 within the run's gate of an isolated fit of
+    weights member_k * w through the single kernel (float64 host
+    objectives); the curves' holdout AUC finite.  -> the launches by part
+    and the timings."""
+    import torch
+    from photon_ml_tpu_torch.cli import diagnose
+    from photon_ml_tpu_torch.cli.train import _load_dataset
+    from photon_ml_tpu_torch.diagnostics import evaluate_scores
+    from photon_ml_tpu_torch.diagnostics.metrics import AREA_UNDER_ROC
+    from photon_ml_tpu_torch.models.io import load_game_model
+    from photon_ml_tpu_torch.ops import TASK_LOSSES
+    from photon_ml_tpu_torch.ops.objective import GLMObjective
+    from photon_ml_tpu_torch.optim import OptimizerConfig, RegularizationContext, solve
+    out = {"bootstrap": 0, "fitting": 0}
+    for name, phase, model_rel, k, rtol in CLI_DIAGNOSE_RUNS:
+        model_dir, data = CLI_ROOT / phase / model_rel, CLI_ROOT / phase / "train.npz"
+        out_dir = cli_dir(f"cli_diagnose_{name}")
+        hk.LAUNCHES = hk.LANES_LAUNCHES = 0
+        summary, wall = run_cli(diagnose, [
+            "--model-dir", model_dir, "--data", data, "--output-dir", out_dir,
+            "--bootstrap-samples", k, "--device", device])
+        single, lanes = hk.LAUNCHES, hk.LANES_LAUNCHES
+        run = dict(diagnose.LAST_RUN)
+        boot, fit = run["report"].bootstrap, run["report"].fitting
+        files = all((out_dir / f).stat().st_size > 0
+                    for f in ("report.json", "report.md", "report.html"))
+
+        # the metrics again from the saved model, scored in float64 on the host
+        t0 = time.perf_counter()
+        model, config = load_game_model(str(model_dir), device="cpu", dtype=torch.float64)
+        ds = _load_dataset(str(data), model.task_type)
+        task, fe_name = model.task_type, run["coordinate"]
+        loss = TASK_LOSSES[task]
+        margins = model.score_dataset(ds).numpy()
+        if ds.offsets is not None:
+            margins = margins + ds.offsets
+        fe = model.coordinates[fe_name]
+        ref = evaluate_scores(task, loss.mean(torch.from_numpy(margins)).numpy(), margins,
+                              ds.response, coefficients=fe.glm.coefficients.means.numpy())
+        metric_gap = {m: abs(summary["metrics"][m] - v) / abs(v) for m, v in ref.items()}
+        recompute_s = time.perf_counter() - t0
+
+        # replicas against isolated fits of their weights, the single kernel's
+        t0 = time.perf_counter()
+        opts = diagnose.fe_solve_options(config, fe_name)
+        cfg = opts.get("optimizer_config", OptimizerConfig())
+        reg = opts.get("regularization", RegularizationContext())
+        lam = float(torch.tensor(opts.get("regularization_weight", 0.0), dtype=torch.float32))
+        l1, l2 = reg.split(lam)
+        x_np = ds.feature_shards[fe.feature_shard]
+        n = x_np.shape[0]
+        y_np = np.asarray(ds.response, np.float64)
+        base_w = np.ones(n) if ds.weights is None else np.asarray(ds.weights, np.float64)
+        member = np.random.default_rng(7).random((k, n)) < 0.75
+        t = lambda a: None if a is None else torch.as_tensor(a, dtype=torch.float32,
+                                                             device=device)
+        xd, yd, od = t(x_np), t(y_np), t(ds.offsets)
+        hk.LAUNCHES = 0
+        replicas = {}
+        for r in sorted({0, k // 2, k - 1}):
+            sw = member[r] * base_w
+            iso = solve(GLMObjective(loss, xd, yd, weights=t(sw), offsets=od),
+                        torch.zeros(x_np.shape[1], device=device), cfg, reg, lam)
+            f = lambda c: host_weighted_objective(x_np, y_np, sw, ds.offsets, c, l1, l2, task)
+            f_boot, f_iso = f(boot.coefficients[r]), f(iso.x.double().cpu().numpy())
+            replicas[r] = {"objective_f64": f_boot, "isolated_objective_f64": f_iso,
+                           "rel_gap": (f_boot - f_iso) / abs(f_iso),
+                           "iterations": boot.solve["iterations"][r],
+                           "isolated_iterations": int(iso.iterations)}
+        isolated_launches = hk.LAUNCHES
+        del xd, yd, od
+        parity_s = time.perf_counter() - t0
+
+        expected_lanes = boot.solve["rounds"] * boot.solve["lane_groups"]
+        fit_passes = sum(s_["passes"] for s_ in fit.solves)
+        holdout_auc = fit.metrics.get(AREA_UNDER_ROC, {}).get("test", [])
+        emit({"phase": "cli_diagnose", "run": name,
+              "entry": "photon_ml_tpu_torch.cli.diagnose.main",
+              "model": str(model_dir.relative_to(CLI_ROOT)), "shape": list(x_np.shape),
+              "replicas": k, "cli_wall_s": wall, "walls_s": run["walls_s"],
+              "files": files, "metrics": summary["metrics"], "metric_rel_gap": metric_gap,
+              "recompute_s": recompute_s, "bootstrap_solve": {
+                  key: boot.solve[key] for key in ("route", "lane_groups", "rounds")},
+              "bootstrap_iterations": boot.solve["iterations"],
+              "launches": {"lanes_kernel": lanes, "single_kernel": single,
+                           "by_part": run["launches"]},
+              "expected_lanes_launches": expected_lanes,
+              "fitting_passes": fit_passes, "fitting_solves": fit.solves,
+              "fitting_holdout_auc": holdout_auc, "replicas_vs_isolated": replicas,
+              "isolated_fit_launches": isolated_launches, "parity_s": parity_s,
+              "gate": rtol, "device": kind, "nvidia_smi": smi})
+        if not files:
+            raise SystemExit(f"cli_diagnose {name}: a report file is missing or empty")
+        if not all(g <= DIAGNOSE_METRIC_RTOL for g in metric_gap.values()):
+            raise SystemExit(f"cli_diagnose {name}: metrics off their float64 "
+                             f"recomputation: {metric_gap}")
+        if not (boot.solve["route"] == "lanes" and lanes == expected_lanes > 0
+                and run["launches"]["bootstrap"] == {"single": 0, "lanes": expected_lanes}):
+            raise SystemExit(f"cli_diagnose {name}: lanes kernel launches {lanes} (by part "
+                             f"{run['launches']}) != rounds x groups {expected_lanes}")
+        if not (single == fit_passes == run["launches"]["fitting"]["single"] > 0):
+            raise SystemExit(f"cli_diagnose {name}: single-kernel launches {single} != the "
+                             f"learning curves' passes {fit_passes}")
+        if not all(abs(v["rel_gap"]) <= rtol for v in replicas.values()):
+            raise SystemExit(f"cli_diagnose {name}: replicas off their isolated fits: "
+                             f"{replicas}")
+        if not (len(holdout_auc) == 9 and all(np.isfinite(holdout_auc))):
+            raise SystemExit(f"cli_diagnose {name}: holdout AUC {holdout_auc}")
+        out["bootstrap"] += lanes
+        out["fitting"] += single
+        del model, ds, x_np
+    return out
+
+
 def cli_avro_phase(hk, sk, ref_cache, kind, smi, device="cuda") -> dict:
     """Bench config 7 written as GAME Avro part files, indexed by cli.index
     and trained by cli.train --config through the native decoder: every
@@ -2798,6 +3030,9 @@ LANES_EDGES = (("333x1", 333, 1, 0), ("333x7", 333, 7, 0), ("333x8", 333, 8, 0),
                ("65x2049", 65, 2049, 0))
 LANES_FULL = ((950_051, 31), (1_643_520, 124))
 LANES_TIMED_KS = (16, 8, 4)   # timed at config 4's fixed effect; 16 at config 1's width
+# the masked pass timed at each LANES_FULL shape: cli_diagnose's replicas
+# (16 at config 4's fixed effect, the CLI's default 10 at config 1's width)
+LANES_MASKED_KS = (16, 10)
 LANES_DESIGN = ("persistent grid (one block per SM, 16 consumer warps + a producer warp); "
                 "whole tiles (X rows, y, w, m, the K runs of O) copied by cp.async.bulk "
                 "into a ring on full/empty mbarriers; both products on the tensor cores "
@@ -2833,66 +3068,90 @@ def lanes_inputs(n, d, lanes, rng, skip=0, xy=None):
     return x, y, c, w, t(o), t(o_inf), t(m), t(rng.normal(size=lanes) * 0.1)
 
 
-def compare_lanes(hk, loss, x, y, c, w=None, o=None, m=None, b=None, f64=False):
-    """The lanes kernel against its plain version on the same inputs ->
-    (ok, max abs err, largest value relative error, largest gradient or
-    sum(w l') error over its tolerance[, the kernel's and the plain
-    version's largest gradient errors against the plain version in
-    float64]).  Tolerances: the single kernel's, value rtol VALUE_RTOL,
-    gradient and sum(w l') GRAD_ATOL + GRAD_RTOL |g|."""
+def compare_lanes(hk, loss, x, y, c, w=None, o=None, m=None, b=None, f64=False, q=None,
+                  ref64=False):
+    """The lanes kernel against its plain version on the same inputs (with
+    the lane mask q when given; computed in float64 from the same float32
+    inputs when `ref64`) -> (ok, max abs err, largest value relative
+    error, largest gradient or sum(w l') error over its tolerance[, the
+    kernel's and the plain version's largest gradient errors against the
+    plain version in float64]).  Tolerances: the single kernel's, value
+    rtol VALUE_RTOL, gradient and sum(w l') GRAD_ATOL + GRAD_RTOL |g|; with
+    `ref64`, GRAD_RTOL of the magnitudes the sum adds (lanes_term_scale),
+    as the shifted gradient's check holds it."""
     import torch
-    got = hk.fused_value_and_gradient_lanes(loss, x, y, c, w, o, m, b)
-    want = hk.fused_value_and_gradient_lanes_plain(loss, x, y, c, w, o, m, b)
+    dbl = lambda t: None if t is None else t.double()
+    got = hk.fused_value_and_gradient_lanes(loss, x, y, c, w, o, m, b, q)
+    plain = hk.fused_value_and_gradient_lanes_plain(loss, x, y, c, w, o, m, b, q)
     exact = None
-    if f64:
-        dbl = lambda t: None if t is None else t.double()
+    if f64 or ref64:
         exact = hk.fused_value_and_gradient_lanes_plain(
-            loss, x.double(), y.double(), c.double(), dbl(w), dbl(o), m, dbl(b))
+            loss, x.double(), y.double(), c.double(), dbl(w), dbl(o), m, dbl(b), q)
+    want = exact if ref64 else plain
     torch.cuda.synchronize()
     (v_k, g_k, s_k), (v_p, g_p, s_p) = ([t.double().cpu().numpy() for t in r]
                                         for r in (got, want))
     v_err = np.abs(v_k - v_p)
     g_err = np.abs(np.concatenate([g_k, s_k[:, None]], 1)
                    - np.concatenate([g_p, s_p[:, None]], 1))
-    g_tol = GRAD_ATOL + GRAD_RTOL * np.abs(np.concatenate([g_p, s_p[:, None]], 1))
+    g_tol = GRAD_ATOL + GRAD_RTOL * (lanes_term_scale(loss, x, y, c, w, o, m, b, q) if ref64
+                                     else np.abs(np.concatenate([g_p, s_p[:, None]], 1)))
     finite = all(np.all(np.isfinite(a)) for a in (v_k, g_k, s_k))
     ok = finite and bool(np.all(v_err <= VALUE_RTOL * np.abs(v_p))) and bool(np.all(g_err <= g_tol))
     out = (ok, float(max(v_err.max(initial=0.0), g_err.max(initial=0.0))),
            float((v_err / np.maximum(np.abs(v_p), 1e-30)).max(initial=0.0)),
            float((g_err / g_tol).max(initial=0.0)))
-    if exact is None:
+    if not f64:
         return out
     g_x = exact[1].cpu().numpy()
+    g_32 = plain[1].double().cpu().numpy()
     return out + (float(np.abs(g_k - g_x).max(initial=0.0)),
-                  float(np.abs(g_p - g_x).max(initial=0.0)))
+                  float(np.abs(g_32 - g_x).max(initial=0.0)))
 
 
-def time_lanes(hk, loss, x, y, lanes, o, w=None):
+def time_lanes(hk, loss, x, y, lanes, o, w=None, keep=None):
     """Median over REPS reps (device time, behind a sleep) of one pass of
     K lanes: the kernel, its plain version, the library call (torch.matmul
     of X and C^T plus O, the loss on [n, K], torch.matmul of X^T and w l')
     and K launches of the single fused kernel, each rep with its own
     perturbed coefficients; with the bound (X, y, w and O read once, the
-    [K, d + 2] result written once; 4 n d K flops at the f32 peak)."""
+    [K, d + 2] result written once; 4 n d K flops at the f32 peak).  With
+    `keep` ([K, n] bool on the card) the lanes are masked: the kernel reads
+    the lane mask's words (one more [n] int32 stream in the bound), the
+    library and the single launches weigh lane k's rows by w * keep_k, and
+    the unmasked kernel at the same K is timed beside it
+    (`unmasked_ms`)."""
     import torch
+    from photon_ml_tpu_torch.ops.lanes import lane_words
     n, d = x.shape
     base = torch.linspace(-0.1, 0.1, lanes * d, device="cuda").reshape(lanes, d)
     batch = 10
+    q = None if keep is None else lane_words(keep)
+    # each lane's row weights, [K, n]: w, or w * keep_k
+    lane_w = None if keep is None else (keep.float() if w is None else w * keep.float())
+    lane_o = (lambda k: None) if o is None else (lambda k: o[k])
 
     def library(c):
-        z = torch.matmul(x, c.T) + o.T
+        z = torch.matmul(x, c.T)
+        if o is not None:
+            z = z + o.T
         l, dl = loss.loss_and_dz(z, y[:, None])
-        if w is not None:
-            l, dl = l * w[:, None], dl * w[:, None]
+        wk = lane_w.T if lane_w is not None else (None if w is None else w[:, None])
+        if wk is not None:
+            l, dl = l * wk, dl * wk
         return l.sum(0), torch.matmul(x.T, dl), dl.sum(0)
 
     calls = {
-        "ms": lambda c: hk.fused_value_and_gradient_lanes(loss, x, y, c, w, o),
-        "plain_ms": lambda c: hk.fused_value_and_gradient_lanes_plain(loss, x, y, c, w, o),
+        "ms": lambda c: hk.fused_value_and_gradient_lanes(loss, x, y, c, w, o, None, None, q),
+        "plain_ms": lambda c: hk.fused_value_and_gradient_lanes_plain(loss, x, y, c, w, o,
+                                                                      None, None, q),
         "library_ms": library,
-        "single_launches_ms": lambda c: [hk.fused_value_and_gradient(loss, x, y, c[k], w, o[k])
-                                         for k in range(lanes)],
+        "single_launches_ms": lambda c: [hk.fused_value_and_gradient(
+            loss, x, y, c[k], w if lane_w is None else lane_w[k], lane_o(k))
+            for k in range(lanes)],
     }
+    if q is not None:
+        calls["unmasked_ms"] = lambda c: hk.fused_value_and_gradient_lanes(loss, x, y, c, w, o)
     times = {k: [] for k in calls}
     for r in range(REPS + 2):  # the first two rounds warm up
         cs = [base + 1e-6 * (r * batch + i + 1) for i in range(batch)]
@@ -2901,8 +3160,8 @@ def time_lanes(hk, loss, x, y, lanes, o, w=None):
             if r >= 2:
                 times[key].append(ms)
     med = {k: statistics.median(v) for k, v in times.items()}
-    nbytes = 4 * (n * d + n + lanes * n + (n if w is not None else 0) + lanes * d
-                  + lanes * (d + 2))
+    nbytes = 4 * (n * d + n + (lanes * n if o is not None else 0) + (n if w is not None else 0)
+                  + (n if q is not None else 0) + lanes * d + lanes * (d + 2))
     bound_bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     bound_ops_ms = 4 * n * d * lanes / PEAK_F32_FLOPS * 1e3
     med.update(bound_ms=max(bound_bytes_ms, bound_ops_ms),
@@ -2912,6 +3171,8 @@ def time_lanes(hk, loss, x, y, lanes, o, w=None):
     med["share_of_bound"] = med["bound_ms"] / med["ms"]
     med["ms_over_library"] = med["ms"] / med["library_ms"]
     med["ms_over_single_launches"] = med["ms"] / med["single_launches_ms"]
+    if q is not None:
+        med["ms_over_unmasked"] = med["ms"] / med["unmasked_ms"]
     return med
 
 
@@ -2919,10 +3180,21 @@ def lanes_checks(hk, losses, kind, smi, sms, x_full, y_full) -> dict:
     """lanes_checks: the lanes kernel against its plain version for the four
     losses at K in LANES_KS, at the LANES_SMALL shapes, the LANES_FULL ones
     and the LANES_EDGES ones, plain and with weights, offsets, a row mask
-    (dropping a row whose offsets are infinite) and per-lane shifts; the
-    wrapper's refusal of more lanes than a width takes; two calls bit for
-    bit; then one pass of K = 16 timed at both full shapes with offsets,
-    and of K = 8 and 4 at config 4's fixed effect.  The config 1 shape
+    (dropping a row whose offsets are infinite) and per-lane shifts, each
+    again with a lane mask (about 30 % of each lane's bits clear, lane 0's
+    all clear, the last lane's all set; the bits drawn from a generator of
+    their own, after the cases' data), held to the plain version computed
+    in float64 from the same float32 inputs, as the card tests hold the
+    kernel, with the gradient's rtol taken of the magnitudes each sum adds,
+    as for the shifted gradient (at config 1's width the float32 plain
+    version's own sums are 0.19 from float64 where the kernel's are 0.04,
+    and where a lane's random subset of rows cancels, 0.04 is 2.6 times
+    rtol 1e-4 of the sum); the wrapper's refusal of more lanes
+    than a width takes; two calls bit for bit; then one pass of K = 16
+    timed at both full shapes with offsets, and of K = 8 and 4 at config
+    4's fixed effect; then the masked pass (weights and a lane mask of 75 %
+    set bits, no offsets: a bootstrap's) at config 4's fixed effect with
+    K = 16 and at config 1's width with K = 10.  The config 1 shape
     takes config 1's data (x_full, y_full), as the single kernel's full
     check does: with centred features some of its gradient elements
     cancel, and no f32 sum of 1.6M such terms meets atol 1e-4; at the
@@ -2930,7 +3202,9 @@ def lanes_checks(hk, losses, kind, smi, sms, x_full, y_full) -> dict:
     printed beside the f32 plain version's.  -> the timings and the largest
     error at the full shapes."""
     import torch
+    from photon_ml_tpu_torch.ops.lanes import lane_words
     rng, edge_rng = np.random.default_rng(31), np.random.default_rng(32)
+    mask_rng = np.random.default_rng(33)
     failures, full_err = [], 0.0
     cases = [(name, n, d, skip, rng) for name, n, d, skip in LANES_SMALL]
     cases += [(f"{n}x{d}", n, d, 0, rng) for n, d in LANES_FULL]
@@ -2952,18 +3226,27 @@ def lanes_checks(hk, losses, kind, smi, sms, x_full, y_full) -> dict:
                     emit({"phase": "lanes_check", "size": name, "lanes": lanes,
                           "refused": True, "max_lanes": hk.max_lanes(d)})
                 continue
+            keep = mask_rng.uniform(size=(lanes, n)) < 0.7
+            if lanes > 1:
+                keep[0] = False   # a lane that keeps no row
+                keep[-1] = True   # a lane that keeps every row
+            q = lane_words(torch.from_numpy(keep).cuda())
             for loss in losses:
-                for tag, args in (("plain", ()), ("w+o+mask+shift", (w, o_inf, m, b))):
+                for tag, args, word in (("plain", (), None),
+                                        ("w+o+mask+shift", (w, o_inf, m, b), None),
+                                        ("lane_mask", (None,) * 4, q),
+                                        ("w+o+mask+shift+lane_mask", (w, o_inf, m, b), q)):
                     full = (n, d) in LANES_FULL
-                    ok, err, v_rel, g_rel, *f64 = compare_lanes(hk, loss, x, y, c, *args,
-                                                                f64=full)
+                    ok, err, v_rel, g_rel, *f64 = compare_lanes(
+                        hk, loss, x, y, c, *args, f64=full, q=word, ref64=word is not None)
                     emit({"phase": "lanes_check", "size": name, "shape": [n, d],
                           "lanes": lanes, "loss": loss.name, "inputs": tag, "ok": ok,
                           "max_abs_err": err, "value_rel_err": v_rel,
                           "grad_err_over_tol": g_rel,
                           **({"kernel_grad_err_f64": f64[0], "plain_grad_err_f64": f64[1]}
                              if full else {}),
-                          "plan": dataclasses.asdict(hk.plan_lanes(n, d, lanes, sms))})
+                          "plan": dataclasses.asdict(hk.plan_lanes(
+                              n, d, lanes, sms, masked=word is not None))})
                     if not ok:
                         failures.append(f"{name}/K{lanes}/{loss.name}/{tag}")
                     if (n, d) in LANES_FULL:
@@ -2978,17 +3261,38 @@ def lanes_checks(hk, losses, kind, smi, sms, x_full, y_full) -> dict:
         del x, y, c_all, w, o_all, o_inf_all, m, b_all
     from photon_ml_tpu_torch.ops.losses import LOGISTIC
     timings = {}
-    for n, d in LANES_FULL:
+    for (n, d), masked_k in zip(LANES_FULL, LANES_MASKED_KS):
         xy = (x_full, y_full) if (n, d) == tuple(x_full.shape) else None
-        x, y, _, _, o, *_ = lanes_inputs(n, d, 16, rng, xy=xy)
+        x, y, c, w, o, *_ = lanes_inputs(n, d, 16, rng, xy=xy)
         for lanes in (LANES_TIMED_KS if (n, d) == LANES_FULL[0] else LANES_TIMED_KS[:1]):
             t = time_lanes(hk, LOGISTIC, x, y, lanes, o[:lanes])
-            t.update(plan=dataclasses.asdict(hk.plan_lanes(n, d, lanes, sms)),
+            plan = hk.plan_lanes(n, d, lanes, sms)
+            t.update(plan=dataclasses.asdict(plan), ptxas=lanes_ptxas(plan, lanes, False),
                      inputs="offsets", max_abs_err=full_err)
             emit({"phase": "lanes_timing", "loss": "logistic", "reps": REPS, "device": kind,
                   "nvidia_smi": smi, **t})
             timings[f"{n}x{d}" + ("" if lanes == 16 else f"_k{lanes}")] = t
-        del x, y, o
+        # a bootstrap's pass: weights and the replicas' bits, no offsets,
+        # checked at cli_diagnose's K before it is timed
+        keep = torch.from_numpy(mask_rng.random((masked_k, n)) < 0.75).cuda()
+        ok, err, v_rel, g_rel, *f64 = compare_lanes(
+            hk, LOGISTIC, x, y, c[:masked_k].contiguous(), w, f64=True,
+            q=lane_words(keep), ref64=True)
+        emit({"phase": "lanes_check", "size": f"{n}x{d}", "shape": [n, d], "lanes": masked_k,
+              "loss": "logistic", "inputs": "w+lane_mask (timed)", "ok": ok,
+              "max_abs_err": err, "value_rel_err": v_rel, "grad_err_over_tol": g_rel,
+              "kernel_grad_err_f64": f64[0], "plain_grad_err_f64": f64[1]})
+        if not ok:
+            raise SystemExit(f"lanes_checks: the masked pass at {n}x{d}, K = {masked_k}, "
+                             "disagrees with its plain version")
+        t = time_lanes(hk, LOGISTIC, x, y, masked_k, None, w, keep)
+        plan = hk.plan_lanes(n, d, masked_k, sms, masked=True)
+        t.update(plan=dataclasses.asdict(plan), ptxas=lanes_ptxas(plan, masked_k, True),
+                 inputs="weights+lane_mask", max_abs_err=max(full_err, err))
+        emit({"phase": "lanes_timing", "loss": "logistic", "reps": REPS, "device": kind,
+              "nvidia_smi": smi, **t})
+        timings[f"{n}x{d}_masked"] = t
+        del x, y, c, o, w, keep
     return timings
 
 
@@ -3270,13 +3574,15 @@ def sparse_kernel_entry(name: str, part: str, c6: dict, c7: dict,
     }
 
 
-def lanes_kernel_entry(timings: dict, launches: int) -> dict:
+def lanes_kernel_entry(timings: dict, launches: int, bootstrap_launches: int) -> dict:
     """The kernels line's entry of the lanes kernel: its launches in the
-    timed sweep and its numbers at config 4's fixed effect with K = 16,
-    then with K = 8 and 4, then at config 1's width."""
+    timed sweep and in cli_diagnose's bootstraps, its numbers at config 4's
+    fixed effect with K = 16, then with K = 8 and 4, then at config 1's
+    width, and the masked pass's (a bootstrap's: weights and a lane mask)
+    at both shapes."""
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "share_of_bound",
             "ms_over_library", "single_launches_ms", "ms_over_single_launches",
-            "min_ms", "max_ms", "lanes", "shape", "plan", "max_abs_err")
+            "min_ms", "max_ms", "lanes", "shape", "plan", "ptxas", "max_abs_err")
     main_t, other = (timings[f"{n}x{d}"] for n, d in LANES_FULL)
     n4, d4 = LANES_FULL[0]
     return {
@@ -3286,14 +3592,22 @@ def lanes_kernel_entry(timings: dict, launches: int) -> dict:
         "replaces_note": ("_fe_sweep_update: jax.vmap of the fixed effect's solve over the "
                           "candidates, XLA's value_and_gradient as X C^T and X^T S "
                           "(no TPU kernel)"),
-        "launches": launches, "launches_by_path": {"sweep": launches},
+        "replaces_masked": "photon_ml_tpu/diagnostics/bootstrap.py:86",
+        "replaces_masked_note": ("_replica_solver: jax.vmap of the solve over the replicas' "
+                                 "weight rows member_k * w (no TPU kernel)"),
+        "launches": launches + bootstrap_launches,
+        "launches_by_path": {"sweep": launches, "bootstrap": bootstrap_launches},
         "tolerance": (f"value rtol {VALUE_RTOL}, gradient and sum(w l') rtol {GRAD_RTOL} "
-                      f"atol {GRAD_ATOL}"),
+                      f"atol {GRAD_ATOL}; with a lane mask against the float64 plain "
+                      "version, the gradient's rtol of the magnitudes each sum adds"),
         **{k: main_t[k] for k in keys}, "hbm_share": main_t["share_of_bound"],
         "design": LANES_DESIGN,
         **{f"at_config4_k{k}": {key: timings[f"{n4}x{d4}_k{k}"][key] for key in keys}
            for k in LANES_TIMED_KS[1:]},
         "at_config1_width": {k: other[k] for k in keys},
+        "masked": {f"{n}x{d}": {k: timings[f"{n}x{d}_masked"][k]
+                                for k in keys + ("unmasked_ms", "ms_over_unmasked")}
+                   for n, d in LANES_FULL},
     }
 
 
@@ -3612,6 +3926,9 @@ def main() -> int:
     cli_game = cli_game_phase(hk, glmix_ref, kind, smi)
     emit({"phase": "cli_game_done", "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
+    cli_diagnose = cli_diagnose_phase(hk, kind, smi)
+    emit({"phase": "cli_diagnose_done", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
     cli_tuning = cli_tuning_phase(hk, kind, smi)
     emit({"phase": "cli_tuning_done", "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
@@ -3651,6 +3968,7 @@ def main() -> int:
         "launches": (launches + g_launches + c2_launches + c3["kernel_launches"] + t_launches
                      + sweep_counts["isolated"] + sweep_path_launches
                      + c5["convex"] + c5["full"] + cli_glm + cli_game + cli_tuning
+                     + cli_diagnose["fitting"]
                      + sum(inexact["launches"].values()) + sum(stream_launches.values())),
         "launches_by_path": {"train_glm": launches, "glmix": g_launches,
                              "config2": c2_launches, "config3": c3["kernel_launches"],
@@ -3660,6 +3978,7 @@ def main() -> int:
                              "config5_convex": c5["convex"],
                              "config5_full": c5["full"], "cli_glm": cli_glm,
                              "cli_game": cli_game, "cli_tuning": cli_tuning,
+                             "fitting": cli_diagnose["fitting"],
                              "inexact_strict": inexact["launches"]["strict"],
                              "inexact_scheduled": inexact["launches"]["scheduled"],
                              **stream_launches},
@@ -3699,7 +4018,7 @@ def main() -> int:
         "local_epochs_per_chunk": stream_glm["local_epochs"],
     }] + [sparse_kernel_entry(name, part, c6, c7, cli_avro) for name, part in (
         ("ell_margin_loss", "a"), ("csc_column_sum", "b"))] + [lanes_kernel_entry(
-            lanes_timing, sweep_counts["lanes"])],
+            lanes_timing, sweep_counts["lanes"], cli_diagnose["bootstrap"])],
         "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -2,15 +2,23 @@
 // in ONE pass over a dense row-major X [n, d]:
 //
 //   z_ik    = x_i . c_k + o_ki + b_k
-//   value_k = sum_i [m_i != 0] w_i l(z_ik, y_i)
-//   grad_k  = sum_i [m_i != 0] w_i l'(z_ik, y_i) x_i
-//   swl_k   = sum_i [m_i != 0] w_i l'(z_ik, y_i)
+//   u_ik    = w_i * bit_k(q_i)
+//   value_k = sum_i [m_i != 0] u_ik l(z_ik, y_i)
+//   grad_k  = sum_i [m_i != 0] u_ik l'(z_ik, y_i) x_i
+//   swl_k   = sum_i [m_i != 0] u_ik l'(z_ik, y_i)
 //
 // for k < K <= 16, all four pointwise losses of ops/losses.py.  The mask
-// is a select (a masked row adds nothing, even a non-finite loss); w, o, m
-// and b may be null (1, 0, every row, 0).  b_k is the normalization shift
-// -(c_k (.) f) . s of lane k, and with swl_k the caller finishes a
-// standardized gradient as grad_k - s * swl_k, as for the single kernel.
+// is a select (a masked row adds nothing, even a non-finite loss); w, o, m,
+// b and q may be null (1, 0, every row, 0, every bit set).  b_k is the
+// normalization shift -(c_k (.) f) . s of lane k, and with swl_k the caller
+// finishes a standardized gradient as grad_k - s * swl_k, as for the single
+// kernel.  q is the lane mask, one 32-bit word per row whose bit k says
+// whether lane k keeps the row: a 0/1 factor on the row's weight, not a
+// select, so lane k's terms are exactly those of weights w * bit_k (a
+// dropped row whose loss is not finite gives NaN in that lane alone, 0 *
+// inf).  A bootstrap's replicas are such lanes
+// (photon_ml_tpu/diagnostics/bootstrap.py:86-92, jax.vmap of the solve
+// over weight rows member_k * w).
 //
 // No TPU kernel behind it: this is the port's hand kernel for the fixed
 // effect's visit of a hyperparameter sweep's candidate lane,
@@ -80,6 +88,10 @@
 // photon_ml_tpu_torch/ops/hopper_kernels.py::plan_lanes (the CPU tests
 // replay it); smem_layout() below must agree with it, and the entry point
 // refuses a plan whose shared-memory size it does not reproduce.
+//
+// The lane mask is one more per-row span of a stage (after O's runs), and
+// the kernel that reads it is its own instantiation (LM = true), so the
+// sweep's instantiations (LM = false) are the ones they were.
 //
 // LANES_PHASES (scripts/lanes_sweep.py builds the ablations): 1 = the
 // ring alone (consumers wait for each tile and release it), 2 = the ring,
@@ -200,7 +212,8 @@ __host__ __device__ inline int grad_slots(int d, int rows) {
 }
 
 // Shared memory, in floats from the (16-byte aligned) base: `stages`
-// stages of [X tile (rows d + 3) | y | w | m | O (K runs)], each array on
+// stages of [X tile (rows d + 3) | y | w | m | O (K runs) | q (with a lane
+// mask)], each array on
 // 16 bytes with 3 floats of room (element k of a span sits at its phase +
 // k); after the last tile the gradient's per-warp sums reuse the ring
 // (cf is past whichever is larger); then C in B-fragment order
@@ -213,12 +226,13 @@ struct Layout {
   int stage_x, stage_v, stage, cf, zp, sf, vs, bars, bytes;
 };
 
-__host__ __device__ inline Layout smem_layout(int d, int lanes, int rows, int stages) {
+__host__ __device__ inline Layout smem_layout(int d, int lanes, int rows, int stages,
+                                              bool lane_mask) {
   Layout L;
   const int kp = 8 * lane_tiles(lanes);
   L.stage_x = round4(rows * d + 3);
   L.stage_v = round4(rows + 3);
-  L.stage = L.stage_x + (3 + lanes) * L.stage_v;
+  L.stage = L.stage_x + (3 + lanes + (lane_mask ? 1 : 0)) * L.stage_v;
   const int ring = stages * L.stage;
   const int gred = kConsumerWarps * grad_slots(d, rows) * lane_tiles(lanes) * 128;
   L.cf = ring > gred ? ring : gred;
@@ -363,7 +377,7 @@ __device__ __forceinline__ float x_at(const float* xs, int r, int col, int nr, i
   return (r < nr && col < d) ? xs[r * d + col] : 0.0f;
 }
 
-// The kernel's operands.  w, o, m and b may be null.
+// The kernel's operands.  w, o, m, b and q may be null.
 struct Args {
   const float* x;        // [n, d] row-major
   const float* y;        // [n]
@@ -371,6 +385,7 @@ struct Args {
   const float* o;        // [K, n]
   const float* m;        // row mask [n]
   const float* b;        // margin shift per lane [K]
+  const uint32_t* q;     // lane mask [n]: bit k set = lane k keeps the row
   const float* c;        // [K, d]
   float* partial;        // [gridDim.x, K, d + 2] scratch
   unsigned int* ticket;  // zero before and after every launch
@@ -380,12 +395,13 @@ struct Args {
 };
 
 // Span j of the tile of nr rows at r0: 0 = X, 1, 2, 3 = y, w, m, 4 + k =
-// lane k's run of O; empty where the operand is null or past K.
+// lane k's run of O, 4 + K = q; empty where the operand is null or past K.
 __device__ __forceinline__ Span tile_span(const Args& a, int j, int64_t r0, int nr) {
   const float* src = nullptr;
   if (j == 0) return span_of(a.x + r0 * a.d, nr * a.d);
   if (j < 4) src = j == 1 ? a.y : (j == 2 ? a.w : a.m);
   else if (a.o != nullptr && j - 4 < a.lanes) src = a.o + (int64_t)(j - 4) * a.n;
+  else if (a.q != nullptr && j - 4 == a.lanes) src = reinterpret_cast<const float*>(a.q);
   return src == nullptr ? span_of(nullptr, 0) : span_of(src + r0, nr);
 }
 
@@ -399,14 +415,14 @@ __device__ __forceinline__ int phase_of(const float* p) {
 }
 
 // NT: n-tiles of 8 lanes (lane_tiles(K)); NSLOT: gradient m-tiles a warp
-// accumulates, >= grad_slots(d, rows).
-template <int NT, int NSLOT>
+// accumulates, >= grad_slots(d, rows); LM: a lane mask q is given.
+template <int NT, int NSLOT, bool LM>
 __global__ void __launch_bounds__(kThreads, 1) lanes_value_gradient(const Args a) {
   extern __shared__ __align__(16) float smem[];
   __shared__ bool is_last;
   const int64_t n = a.n;
   const int d = a.d, lanes = a.lanes, rows = a.rows, stages = a.stages;
-  const Layout L = smem_layout(d, lanes, rows, stages);
+  const Layout L = smem_layout(d, lanes, rows, stages, LM);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bars);
   uint64_t* empty = full + stages;
   float* cf = smem + L.cf;
@@ -553,6 +569,12 @@ __global__ void __launch_bounds__(kThreads, 1) lanes_value_gradient(const Args a
                               ? nullptr
                               : buf + stage_offset(L, 4 + my_k) +
                                     phase_of(a.o + (int64_t)my_k * n + r0);
+        const uint32_t* qb = nullptr;
+        if constexpr (LM) {
+          const float* qrow = reinterpret_cast<const float*>(a.q) + r0;
+          qb = reinterpret_cast<const uint32_t*>(buf + stage_offset(L, 4 + lanes) +
+                                                 phase_of(qrow));
+        }
         auto loss_at = [&](int r) {
           if (my_k >= lanes || r >= nr) return 0.0f;
           float zz = 0.0f;
@@ -561,7 +583,9 @@ __global__ void __launch_bounds__(kThreads, 1) lanes_value_gradient(const Args a
           if (ob != nullptr) z += ob[r];
           float l, dl;
           loss_and_dz(a.loss, z, yb[r], l, dl);
-          const float wt = wb != nullptr ? wb[r] : 1.0f;
+          float wt = wb != nullptr ? wb[r] : 1.0f;
+          // this lane's bit, a 0/1 factor on the weight (0 * inf = NaN)
+          if constexpr (LM) wt *= (float)((qb[r] >> my_k) & 1u);
           // a select: a masked row's (possibly non-finite) terms never enter
           const bool keep = mb == nullptr || mb[r] != 0.0f;
           const float s = keep ? wt * dl : 0.0f;
@@ -706,29 +730,30 @@ __global__ void __launch_bounds__(kThreads, 1) lanes_value_gradient(const Args a
   if (t == 0) *a.ticket = 0u;  // ready for the next call on this stream
 }
 
-template <int NT, int NSLOT>
+template <int NT, int NSLOT, bool LM>
 cudaError_t launch(const Args& a, int grid, int smem, cudaStream_t stream) {
   const cudaError_t e = cudaFuncSetAttribute(
-      lanes_value_gradient<NT, NSLOT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      lanes_value_gradient<NT, NSLOT, LM>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  lanes_value_gradient<NT, NSLOT><<<grid, kThreads, smem, stream>>>(a);
+  lanes_value_gradient<NT, NSLOT, LM><<<grid, kThreads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
+template <bool LM>
 cudaError_t dispatch(int slots, const Args& a, int grid, int smem, cudaStream_t s) {
   if (lane_tiles(a.lanes) == 1) {
     switch (slots) {
-      case 1: return launch<1, 1>(a, grid, smem, s);
-      case 2: return launch<1, 2>(a, grid, smem, s);
-      case 4: return launch<1, 4>(a, grid, smem, s);
-      case 8: return launch<1, 8>(a, grid, smem, s);
+      case 1: return launch<1, 1, LM>(a, grid, smem, s);
+      case 2: return launch<1, 2, LM>(a, grid, smem, s);
+      case 4: return launch<1, 4, LM>(a, grid, smem, s);
+      case 8: return launch<1, 8, LM>(a, grid, smem, s);
       default: return cudaErrorInvalidValue;
     }
   }
   switch (slots) {
-    case 1: return launch<2, 1>(a, grid, smem, s);
-    case 2: return launch<2, 2>(a, grid, smem, s);
-    case 4: return launch<2, 4>(a, grid, smem, s);
+    case 1: return launch<2, 1, LM>(a, grid, smem, s);
+    case 2: return launch<2, 2, LM>(a, grid, smem, s);
+    case 4: return launch<2, 4, LM>(a, grid, smem, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -743,10 +768,11 @@ extern "C" {
 // does not fit this source's layout is refused.  partial: [grid, K, d + 2]
 // scratch; ticket: one zeroed uint32 that every launch leaves zeroed; out:
 // [K, d + 2] = [value_k, grad_k[0..d), swl_k].  w, o ([K, n]), m (row
-// mask) and b ([K] margin shifts) may be null.
+// mask), b ([K] margin shifts) and q (lane mask, uint32 [n]) may be null.
 int pmt_fused_value_and_gradient_lanes(int loss, const void* x, const void* y,
                                        const void* w, const void* o, const void* m,
-                                       const void* b, const void* c, void* partial,
+                                       const void* b, const void* q, const void* c,
+                                       void* partial,
                                        void* ticket, void* out, long long n, int d,
                                        int lanes, int rows, int stages, int grid, int slots,
                                        int smem_bytes, void* stream) {
@@ -755,15 +781,18 @@ int pmt_fused_value_and_gradient_lanes(int loss, const void* x, const void* y,
                        (mt < kConsumerWarps ? (mt & (mt - 1)) == 0 : mt % kConsumerWarps == 0);
   if (n < 0 || d < 1 || lanes < 1 || lanes > kMaxLanes || !rows_ok || stages < 2 ||
       grid < 1 || loss < kLogistic || loss > kSmoothedHinge || grad_slots(d, rows) > slots ||
-      smem_bytes > kMaxSmem || smem_layout(d, lanes, rows, stages).bytes != smem_bytes)
+      smem_bytes > kMaxSmem ||
+      smem_layout(d, lanes, rows, stages, q != nullptr).bytes != smem_bytes)
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{static_cast<const float*>(x), static_cast<const float*>(y),
                static_cast<const float*>(w), static_cast<const float*>(o),
                static_cast<const float*>(m), static_cast<const float*>(b),
-               static_cast<const float*>(c), static_cast<float*>(partial),
-               static_cast<unsigned int*>(ticket), static_cast<float*>(out),
-               n, loss, d, lanes, rows, stages};
-  return static_cast<int>(dispatch(slots, a, grid, smem_bytes, static_cast<cudaStream_t>(stream)));
+               static_cast<const uint32_t*>(q), static_cast<const float*>(c),
+               static_cast<float*>(partial), static_cast<unsigned int*>(ticket),
+               static_cast<float*>(out), n, loss, d, lanes, rows, stages};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(q != nullptr ? dispatch<true>(slots, a, grid, smem_bytes, st)
+                                       : dispatch<false>(slots, a, grid, smem_bytes, st));
 }
 
 const char* pmt_lanes_error_string(int code) {

@@ -5,9 +5,10 @@ The host metrics are numpy float64, as in the JAX package (AUC is the
 tie-aware rank statistic: one sort, midranks).  Every built-in ungrouped
 metric also has a device form (`Evaluator.device_fn`) in torch, which the
 training loop uses so a validation metric costs one scalar readback instead
-of a copy of the [n] scores.  Grouped metrics evaluate group by group with
-the metric's host form (the JAX package's vectorized segment kernels,
-evaluation/segmented.py, compute the same values and are not ported).
+of a copy of the [n] scores.  Grouped metrics evaluate every group in one
+vectorized pass over the group-sorted arrays (evaluation/segmented.py, as
+the JAX package does); the metric's host form stays the per-group oracle
+and serves a grouped metric without a segmented form.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from photon_ml_tpu_torch.evaluation import segmented as seg
 from photon_ml_tpu_torch.ops import losses as L
 
 
@@ -151,12 +153,19 @@ class Evaluator:
 class MultiEvaluator:
     """Grouped metric: evaluate per id group, average the finite results
     (reference: MultiEvaluator.scala:49-64).  `group_index` is a
-    canonical-order int column (an entity_indices column)."""
+    canonical-order int column (an entity_indices column).
+
+    When `segmented` is set (every built-in metric), all groups are
+    computed in one vectorized pass (evaluation/segmented.py); `local`
+    remains the per-group oracle and the fallback for custom metrics."""
 
     name: str
     local: Callable  # (scores, labels, weights) -> float
     larger_is_better: bool
     min_group_size: int = 1
+    # (bounds, scores, labels, weights) -> per-group value array, inputs
+    # group-sorted with bounds[i]:bounds[i+1] slicing group i
+    segmented: Optional[Callable] = None
 
     def evaluate_grouped(self, group_index, scores, labels, weights=None) -> float:
         g = np.asarray(group_index)
@@ -167,9 +176,12 @@ class MultiEvaluator:
         gv, sv, yv = g[valid][order], s[valid][order], y[valid][order]
         wv = None if w is None else w[valid][order]
         bounds = np.concatenate([[0], np.nonzero(np.diff(gv))[0] + 1, [len(gv)]])
-        vals = np.asarray([
-            self.local(sv[a:b], yv[a:b], None if wv is None else wv[a:b])
-            for a, b in zip(bounds[:-1], bounds[1:])])
+        if self.segmented is not None:
+            vals = np.asarray(self.segmented(bounds, sv, yv, wv))
+        else:
+            vals = np.asarray([
+                self.local(sv[a:b], yv[a:b], None if wv is None else wv[a:b])
+                for a, b in zip(bounds[:-1], bounds[1:])])
         keep = np.isfinite(vals) & (np.diff(bounds) >= self.min_group_size)
         return float(np.mean(vals[keep])) if keep.any() else float("nan")
 
@@ -196,6 +208,20 @@ SMOOTHED_HINGE_LOSS = _loss_evaluator("SMOOTHED_HINGE_LOSS", L.SMOOTHED_HINGE)
 
 _BY_NAME = {e.name: e for e in (AUC, RMSE, LOGISTIC_LOSS, SQUARED_LOSS,
                                 POISSON_LOSS, SMOOTHED_HINGE_LOSS)}
+
+
+def _segmented_table():
+    table = {"AUC": seg.grouped_auc, "RMSE": seg.grouped_rmse}
+    for name, loss in (("LOGISTIC_LOSS", L.LOGISTIC),
+                       ("SQUARED_LOSS", L.SQUARED),
+                       ("POISSON_LOSS", L.POISSON),
+                       ("SMOOTHED_HINGE_LOSS", L.SMOOTHED_HINGE)):
+        table[name] = (lambda b, s, y, w, _l=loss:
+                       seg.grouped_mean_loss(_l, b, s, y, w))
+    return table
+
+
+_SEGMENTED = _segmented_table()
 
 
 def default_evaluator_for_task(task_type: str) -> Evaluator:
@@ -231,11 +257,14 @@ def parse_evaluator(spec: str):
         return MultiEvaluator(
             f"PRECISION@{k}:{parts[2]}",
             lambda s, y, w, _k=k: precision_at_k(_k, s, y, w),
-            larger_is_better=True), parts[2]
+            larger_is_better=True,
+            segmented=lambda b, s, y, w, _k=k: seg.grouped_precision_at_k(
+                _k, b, s, y, w)), parts[2]
     if len(parts) == 2:
         base = _BY_NAME[head]
         return MultiEvaluator(f"{base.name}:{parts[1]}", base.fn,
-                              base.larger_is_better), parts[1]
+                              base.larger_is_better,
+                              segmented=_SEGMENTED.get(base.name)), parts[1]
     if head in _BY_NAME:
         return _BY_NAME[head], None
     raise ValueError(f"unknown evaluator {spec!r}; known: {sorted(_BY_NAME)}")

@@ -33,7 +33,7 @@ SIGNATURES = {
     },
     "fused_value_and_gradient_lanes": {
         "pmt_fused_value_and_gradient_lanes":
-            (_I, [_I] + [_P] * 10 + [_LL] + [_I] * 7 + [_P]),
+            (_I, [_I] + [_P] * 11 + [_LL] + [_I] * 7 + [_P]),
         "pmt_lanes_error_string": (ctypes.c_char_p, [_I]),
     },
     "ell_sparse": {

@@ -21,7 +21,11 @@ lanes of a hyperparameter sweep (csrc/fused_value_and_gradient_lanes.cu):
 one pass over X gives K candidates' values, gradients and sum(w l') at
 once, the pass that jax.vmap of the solve makes of XLA's value_and_gradient
 in photon_ml_tpu/hyperparameter/vectorized.py::_fe_sweep_update.
-`plan_lanes` chooses its tile and grid, as `plan_fused` does.
+`plan_lanes` chooses its tile and grid, as `plan_fused` does.  With a lane
+mask (an int32 word per row, bit k set where lane k keeps the row) the
+lanes are K weightings of one pass, weights w * bit_k: the bootstrap's
+replicas (photon_ml_tpu/diagnostics/bootstrap.py, jax.vmap of the solve
+over weight rows).
 
 `LAUNCHES` and `LANES_LAUNCHES` count the wrappers' kernel launches, so a
 run can show that its main path went through the kernels.
@@ -179,11 +183,13 @@ def fused_value_and_gradient_plain(
     return l.sum(), grad
 
 
-def _check_operand(name: str, t: torch.Tensor, shape, device) -> None:
+def _check_operand(name: str, t: torch.Tensor, shape, device,
+                   dtype: torch.dtype = torch.float32) -> None:
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, X on {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"the CUDA kernel takes float32 only; {name} is {t.dtype}")
+    if t.dtype != dtype:
+        raise TypeError(f"the CUDA kernel takes {str(dtype).split('.')[-1]} only; "
+                        f"{name} is {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
@@ -309,7 +315,8 @@ def grad_slots(d: int, rows: int) -> int:
 class LanesLayout:
     """Offsets in floats into the lanes kernel's dynamic shared memory (as
     smem_layout() in its CUDA source): `stages` stages of `stage` floats,
-    each [X tile (stage_x) | y | w | m | O's K runs (stage_v each)]; the
+    each [X tile (stage_x) | y | w | m | O's K runs | the lane mask's words
+    when the launch has them (stage_v each)]; the
     warps' gradient sums reuse the ring after the last tile, and C's
     fragments start at `cf`, past whichever is larger; the partial margins
     at `zp`, s at `sf`, the value/sum(w l') reduction at `vs`, the
@@ -325,12 +332,13 @@ class LanesLayout:
     bytes: int
 
 
-def lanes_smem_layout(d: int, lanes: int, rows: int, stages: int) -> LanesLayout:
+def lanes_smem_layout(d: int, lanes: int, rows: int, stages: int,
+                      masked: bool = False) -> LanesLayout:
     nt = lane_tiles(lanes)
     kp = 8 * nt
     stage_x = _round4(rows * d + 3)
     stage_v = _round4(rows + 3)
-    stage = stage_x + (3 + lanes) * stage_v
+    stage = stage_x + (3 + lanes + int(masked)) * stage_v
     gred = LANES_WARPS * grad_slots(d, rows) * nt * 128
     cf = max(stages * stage, gred)
     zp = cf + _cdiv(d, 8) * 8 * kp
@@ -355,54 +363,58 @@ class LanesPlan:
     layout: LanesLayout
 
 
-def _lanes_fit(d: int, lanes: int, rows: int, stages: Optional[int] = None) -> int:
+def _lanes_fit(d: int, lanes: int, rows: int, stages: Optional[int] = None,
+               masked: bool = False) -> int:
     """Ring stages for tiles of `rows` rows (the requested count, else as
     many as ~160 KB of tiles takes, 2 to 4) that fit in shared memory with
     the gradient's slots instantiated; 0 when none does."""
     if grad_slots(d, rows) > LANES_SLOT_SIZES[lane_tiles(lanes)][-1]:
         return 0
+    layout = lambda s: lanes_smem_layout(d, lanes, rows, s, masked)
     if stages is None:
-        stage_bytes = 4 * lanes_smem_layout(d, lanes, rows, 1).stage
+        stage_bytes = 4 * layout(1).stage
         stages = min(_LANES_MAX_STAGES, max(2, _LANES_RING_BYTES // stage_bytes))
-        while stages > 2 and lanes_smem_layout(d, lanes, rows, stages).bytes > MAX_SMEM:
+        while stages > 2 and layout(stages).bytes > MAX_SMEM:
             stages -= 1
-    return stages if lanes_smem_layout(d, lanes, rows, stages).bytes <= MAX_SMEM else 0
+    return stages if layout(stages).bytes <= MAX_SMEM else 0
 
 
 @functools.lru_cache(maxsize=None)
-def _lanes_tile(d: int, lanes: int) -> Optional[Tuple[int, int]]:
+def _lanes_tile(d: int, lanes: int, masked: bool = False) -> Optional[Tuple[int, int]]:
     """(rows, stages): the most rows whose stage holds ~80 KB or less (at
     least 8) that fit with two or more stages; None when no tile fits."""
-    per_row = 4 * (d + 3 + lanes)
+    per_row = 4 * (d + 3 + lanes + int(masked))
     for rows in reversed(LANES_ROWS):
         if rows * per_row > _LANES_TILE_BYTES and rows > LANES_ROWS[0]:
             continue
-        stages = _lanes_fit(d, lanes, rows)
+        stages = _lanes_fit(d, lanes, rows, masked=masked)
         if stages >= 2:
             return rows, stages
     return None
 
 
-def max_lanes(d: int) -> int:
-    """The most lanes one launch takes at width d (0: none, and a dense
-    fixed effect that wide runs the single kernel once per lane)."""
-    return next((lanes for lanes in (LANES_MAX, 8, 4) if _lanes_tile(d, lanes)), 0)
+def max_lanes(d: int, masked: bool = False) -> int:
+    """The most lanes one launch takes at width d, with a lane mask when
+    `masked` (0: none, and a dense fixed effect that wide runs the single
+    kernel once per lane)."""
+    return next((lanes for lanes in (LANES_MAX, 8, 4) if _lanes_tile(d, lanes, masked)), 0)
 
 
 @functools.lru_cache(maxsize=64)
 def plan_lanes(n: int, d: int, lanes: int, sm_count: int, rows: Optional[int] = None,
-               stages: Optional[int] = None, blocks_per_sm: int = 1) -> LanesPlan:
-    """Tiles of ~80 KB of X, y, w, m and O (the most rows of LANES_ROWS, at
-    least 8), a ring of two to four stages (~160 KB), one block per SM, the
-    fewest gradient slots that cover a warp's run of units.  `rows`,
-    `stages` and `blocks_per_sm` override the choice (scripts/
-    lanes_sweep.py times such variants)."""
+               stages: Optional[int] = None, blocks_per_sm: int = 1,
+               masked: bool = False) -> LanesPlan:
+    """Tiles of ~80 KB of X, y, w, m and O (and the lane mask's words when
+    `masked`; the most rows of LANES_ROWS, at least 8), a ring of two to
+    four stages (~160 KB), one block per SM, the fewest gradient slots that
+    cover a warp's run of units.  `rows`, `stages` and `blocks_per_sm`
+    override the choice (scripts/lanes_sweep.py times such variants)."""
     if not 1 <= lanes <= LANES_MAX:
         raise ValueError(f"the lanes kernel takes 1 <= K <= {LANES_MAX} "
                          f"lanes; got K={lanes}")
-    if lanes > max_lanes(d):
+    if lanes > max_lanes(d, masked):
         raise ValueError(
-            f"the lanes kernel takes at most {max_lanes(d)} lanes at d={d} "
+            f"the lanes kernel takes at most {max_lanes(d, masked)} lanes at d={d} "
             "(C's fragments and two stages in shared memory, at most "
             f"{LANES_SLOT_SIZES[1][-1]} gradient slots per warp); got "
             f"K={lanes}: split the lanes into groups")
@@ -410,17 +422,17 @@ def plan_lanes(n: int, d: int, lanes: int, sm_count: int, rows: Optional[int] = 
         raise ValueError(f"bad plan request n={n}, sm_count={sm_count}, "
                          f"blocks_per_sm={blocks_per_sm}")
     if rows is None:
-        rows, auto = _lanes_tile(d, lanes)
+        rows, auto = _lanes_tile(d, lanes, masked)
         stages = auto if stages is None else stages
     if rows not in LANES_ROWS:
         raise ValueError(f"tile rows must be one of {LANES_ROWS}; got {rows}")
-    stages = _lanes_fit(d, lanes, rows, stages)
+    stages = _lanes_fit(d, lanes, rows, stages, masked)
     if stages < 2:
         raise ValueError(f"no ring of {rows}-row tiles fits at d={d}, K={lanes}")
     slots = next(s for s in LANES_SLOT_SIZES[lane_tiles(lanes)] if s >= grad_slots(d, rows))
     grid = max(1, min(sm_count * blocks_per_sm, -(-n // rows)))
     return LanesPlan(rows, stages, grid, blocks_per_sm, slots,
-                     lanes_smem_layout(d, lanes, rows, stages))
+                     lanes_smem_layout(d, lanes, rows, stages, masked))
 
 
 def fused_value_and_gradient_lanes_plain(
@@ -432,20 +444,29 @@ def fused_value_and_gradient_lanes_plain(
     offsets: Optional[torch.Tensor] = None,
     mask: Optional[torch.Tensor] = None,
     shift: Optional[torch.Tensor] = None,
+    lane_mask: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The lanes kernel's function in plain PyTorch, in the inputs' dtype:
     for coefficients C [K, d], offsets O [K, n] and per-lane shifts b [K],
     Z = X C^T + O^T + b, then ([K] values, [K, d] gradients X^T (w l'),
-    [K] sums of w l'), the mask a select."""
+    [K] sums of w l'), the mask a select; bit k of `lane_mask` (int32 [n])
+    a 0/1 factor on lane k's weights."""
     z = x @ coefficients.T
     if shift is not None:
         z = z + shift
     if offsets is not None:
         z = z + offsets.T
     l, dl = loss.loss_and_dz(z, labels[:, None])
-    if weights is not None:
-        l = l * weights[:, None]
-        dl = dl * weights[:, None]
+    w = None if weights is None else weights[:, None]
+    if lane_mask is not None:
+        if coefficients.shape[0] > 32:
+            raise ValueError(f"a lane mask word holds 32 lanes; got K={coefficients.shape[0]}")
+        lanes = torch.arange(coefficients.shape[0], device=x.device, dtype=lane_mask.dtype)
+        keep = ((lane_mask[:, None] >> lanes) & 1).to(z.dtype)
+        w = keep if w is None else w * keep
+    if w is not None:
+        l = l * w
+        dl = dl * w
     if mask is not None:
         keep = (mask != 0)[:, None]
         l = torch.where(keep, l, torch.zeros_like(l))
@@ -462,17 +483,20 @@ def fused_value_and_gradient_lanes(
     offsets: Optional[torch.Tensor] = None,
     mask: Optional[torch.Tensor] = None,
     shift: Optional[torch.Tensor] = None,
+    lane_mask: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """([K] values, [K, d] gradients, [K] sums of w l') of K coefficient
     vectors C [K, d] in one pass over X, with offsets O [K, n] and a margin
-    shift b [K] per lane, over the rows whose `mask` is nonzero.
+    shift b [K] per lane, over the rows whose `mask` is nonzero; with
+    `lane_mask` (int32 [n]) lane k weighs row i by w_i * bit k of
+    lane_mask[i].
 
     CPU tensors run the plain version.  CUDA tensors launch the kernel:
-    every operand float32, contiguous and on X's device, K within
-    `max_lanes(d)`; anything else raises."""
+    every operand float32 (the lane mask int32), contiguous and on X's
+    device, K within `max_lanes(d, masked)`; anything else raises."""
     if x.device.type == "cpu":
         return fused_value_and_gradient_lanes_plain(
-            loss, x, labels, coefficients, weights, offsets, mask, shift)
+            loss, x, labels, coefficients, weights, offsets, mask, shift, lane_mask)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     if x.ndim != 2 or coefficients.ndim != 2:
@@ -480,7 +504,12 @@ def fused_value_and_gradient_lanes(
                          f"{tuple(coefficients.shape)}")
     n, d = x.shape
     lanes = coefficients.shape[0]
-    plan = plan_lanes(n, d, lanes, _sm_count(x.device.index))
+    if lane_mask is not None:
+        _check_operand("lane_mask", lane_mask, (n,), x.device, torch.int32)
+        if n == 0:
+            lane_mask = None  # no row to weigh, and no data pointer to pass
+    plan = plan_lanes(n, d, lanes, _sm_count(x.device.index),
+                      masked=lane_mask is not None)
     _check_operand("X", x, (n, d), x.device)
     _check_operand("labels", labels, (n,), x.device)
     _check_operand("coefficients", coefficients, (lanes, d), x.device)
@@ -502,7 +531,7 @@ def fused_value_and_gradient_lanes(
         partial, ticket = _workspace(x.device, stream, plan.grid * lanes * (d + 2))
         err = lib.pmt_fused_value_and_gradient_lanes(
             loss.kernel_id, x.data_ptr(), labels.data_ptr(), ptr(weights),
-            ptr(offsets), ptr(mask), ptr(shift), coefficients.data_ptr(),
+            ptr(offsets), ptr(mask), ptr(shift), ptr(lane_mask), coefficients.data_ptr(),
             partial.data_ptr(), ticket.data_ptr(), out.data_ptr(), n, d, lanes,
             plan.rows_per_tile, plan.stages, plan.grid, plan.slots, plan.layout.bytes,
             stream)

@@ -18,6 +18,15 @@ PaddedSparse X runs kernels A and B once per candidate per pass
 functions run their plain versions.  Normalization is folded in as the
 single kernel folds it: E = C * f in, the lane shift b_k = -(e_k . s),
 then (grad - s swl) * f.
+
+The lanes may also differ in their rows' weights: with `lane_keep` [K, n]
+(0/1), lane k weighs row i by w_i * keep[k, i], as jax.vmap of the solve
+over weight rows member_k * w does (the bootstrap's replicas,
+photon_ml_tpu/diagnostics/bootstrap.py).  On the "lanes" route each
+group's int32 word (bit k = lane lo + k) is built once, and the kernel
+reads it as one more per-row stream; the "single" and "sparse" routes take
+each lane's weights w * keep_k, built once; the Hessian-vector products
+multiply l'' by them.
 """
 from __future__ import annotations
 
@@ -48,15 +57,32 @@ def lanes_route(d: int, device: torch.device) -> str:
                      f"(the single kernel takes d <= {hk.D_MAX})")
 
 
-def launch_groups(num_lanes: int, d: int, device: torch.device) -> List[Tuple[int, int]]:
+def launch_groups(num_lanes: int, d: int, device: torch.device,
+                  masked: bool = False) -> List[Tuple[int, int]]:
     """[start, stop) of each group of lanes one kernel launch takes: one
-    group on the CPU, groups of up to max_lanes(d) on the "lanes" route,
-    one lane a group on the "single" route."""
+    group on the CPU (groups of 32 with a lane mask, the bits of its
+    word), groups of up to max_lanes(d, masked) on the "lanes" route, one
+    lane a group on the "single" route."""
     route = lanes_route(d, device)
     if route == "plain":
-        return [(0, num_lanes)]
-    size = hk.max_lanes(d) if route == "lanes" else 1
+        size = LANE_WORD_BITS if masked else max(num_lanes, 1)
+    else:
+        size = hk.max_lanes(d, masked) if route == "lanes" else 1
     return [(k, min(k + size, num_lanes)) for k in range(0, num_lanes, size)]
+
+
+LANE_WORD_BITS = 32
+
+
+def lane_words(keep: torch.Tensor) -> torch.Tensor:
+    """The int32 [n] lane mask of at most 32 lanes' 0/1 rows keep [K, n]:
+    bit k of word i = keep[k, i]."""
+    if keep.shape[0] > LANE_WORD_BITS:
+        raise ValueError(f"a lane mask word holds {LANE_WORD_BITS} lanes; got {keep.shape[0]}")
+    word = torch.zeros(keep.shape[1], dtype=torch.int32, device=keep.device)
+    for k in range(keep.shape[0]):
+        word |= keep[k].to(torch.int32) << k
+    return word
 
 
 def lanes_matvec(x: fops.FeatureMatrix, coefficients: torch.Tensor) -> torch.Tensor:
@@ -67,8 +93,9 @@ def lanes_matvec(x: fops.FeatureMatrix, coefficients: torch.Tensor) -> torch.Ten
 
 
 class FixedEffectLanes:
-    """K GLM objectives over one shard: lane k has offsets O[k] and L2
-    weight l2[k].
+    """K GLM objectives over one shard: lane k has offsets O[k] (none when
+    `offsets` is None), L2 weight l2[k] and, with `lane_keep` [K, n], the
+    row weights w * lane_keep[k].
 
     value_and_gradient(C [K, d]) -> ([K] values, [K, d] gradients)
     hessian_vector_at(C)         -> V [K, d] -> [K, d] products
@@ -77,23 +104,48 @@ class FixedEffectLanes:
     term, as optim/batched.py's lanes expect."""
 
     def __init__(self, loss: PointwiseLoss, x: fops.FeatureMatrix,
-                 labels: torch.Tensor, offsets: torch.Tensor,
+                 labels: torch.Tensor, offsets: Optional[torch.Tensor],
                  l2_weights: torch.Tensor, weights: Optional[torch.Tensor] = None,
-                 norm: Optional[NormalizationContext] = None):
+                 norm: Optional[NormalizationContext] = None,
+                 lane_keep: Optional[torch.Tensor] = None):
         self.loss = loss
         self.x = x
         self.labels = labels
-        self.offsets = offsets.contiguous()
+        self.offsets = None if offsets is None else offsets.contiguous()
         self.l2 = l2_weights
         self.weights = weights
         self.norm = None if norm is None or norm.is_identity else norm
         self.dense = isinstance(x, torch.Tensor)
+        lanes = l2_weights.shape[0]
+        masked = lane_keep is not None
         # the route of a value+gradient pass, and its kernel launches: one
         # per group (of the lanes kernel on "lanes", of the single kernel
         # on "single")
         self.route = lanes_route(x.shape[1], x.device) if self.dense else "sparse"
-        self.groups = (launch_groups(offsets.shape[0], x.shape[1], x.device)
+        self.groups = (launch_groups(lanes, x.shape[1], x.device, masked)
                        if self.dense else [])
+        # each group's lane mask word (lanes and plain routes), and each
+        # lane's weights w * keep_k (single and sparse routes, and Hv)
+        self.words = [None] * len(self.groups)
+        self.lane_weights = None
+        self._keep = (None if lane_keep is None
+                      else lane_keep.to(device=x.device, dtype=torch.bool))
+        if masked:
+            if self.route in ("lanes", "plain"):
+                self.words = [lane_words(self._keep[lo:hi]) for lo, hi in self.groups]
+            if self.route in ("single", "sparse"):
+                self.lane_weights = self._weights_of_lanes()
+
+    def _weights_of_lanes(self) -> torch.Tensor:
+        """[K, n] row weights w * keep_k in the labels' dtype."""
+        keep = self._keep.to(self.labels.dtype)
+        return keep if self.weights is None else self.weights * keep
+
+    def _lane_offsets(self, k: int):
+        return None if self.offsets is None else self.offsets[k]
+
+    def _lane_weights(self, k: int):
+        return self.weights if self.lane_weights is None else self.lane_weights[k]
 
     def _l2_terms(self, c: torch.Tensor, value: torch.Tensor, grad: torch.Tensor):
         return (value + 0.5 * self.l2 * (c * c).sum(-1),
@@ -102,9 +154,9 @@ class FixedEffectLanes:
     def value_and_gradient(self, c: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         if not self.dense:
             parts = [agg.value_and_gradient(self.loss, self.x, self.labels, ck,
-                                            weights=self.weights, offsets=ok,
-                                            norm=self.norm)
-                     for ck, ok in zip(c, self.offsets)]
+                                            weights=self._lane_weights(k),
+                                            offsets=self._lane_offsets(k), norm=self.norm)
+                     for k, ck in enumerate(c)]
             return self._l2_terms(c, torch.stack([v for v, _ in parts]),
                                   torch.stack([g for _, g in parts]))
         factors = None if self.norm is None else self.norm.factors
@@ -113,19 +165,19 @@ class FixedEffectLanes:
         b = None if shifts is None else -(e @ shifts)
         if self.route == "single":
             parts = [hk.fused_value_and_gradient(self.loss, self.x, self.labels,
-                                                 e[k].contiguous(), self.weights,
-                                                 self.offsets[k], None, shifts)
+                                                 e[k].contiguous(), self._lane_weights(k),
+                                                 self._lane_offsets(k), None, shifts)
                      for k in range(e.shape[0])]
             value, grad = torch.stack([v for v, _ in parts]), torch.stack([g for _, g in parts])
             if factors is not None:
                 grad = grad * factors
             return self._l2_terms(c, value, grad)
         values, grads, swls = [], [], []
-        for lo, hi in self.groups:
+        for (lo, hi), word in zip(self.groups, self.words):
             v, g, swl = hk.fused_value_and_gradient_lanes(
                 self.loss, self.x, self.labels, e[lo:hi].contiguous(),
-                self.weights, self.offsets[lo:hi], None,
-                None if b is None else b[lo:hi].contiguous())
+                self.weights, None if self.offsets is None else self.offsets[lo:hi], None,
+                None if b is None else b[lo:hi].contiguous(), word)
             values.append(v)
             grads.append(g)
             swls.append(swl)
@@ -143,9 +195,9 @@ class FixedEffectLanes:
         ops/aggregators.py closure."""
         if not self.dense:
             hvs = [agg.hessian_vector_at(self.loss, self.x, self.labels, ck,
-                                         weights=self.weights, offsets=ok,
-                                         norm=self.norm)
-                   for ck, ok in zip(c, self.offsets)]
+                                         weights=self._lane_weights(k),
+                                         offsets=self._lane_offsets(k), norm=self.norm)
+                   for k, ck in enumerate(c)]
             return lambda v: torch.stack([h(vk) for h, vk in zip(hvs, v)]) + \
                 self.l2[:, None] * v
         factors = None if self.norm is None else self.norm.factors
@@ -158,8 +210,14 @@ class FixedEffectLanes:
             z = x @ e.T                      # [n, K]
             return z if shifts is None else z - e @ shifts
 
-        d2 = self.loss.d2z(margins(c) + self.offsets.T, self.labels[:, None])
-        if self.weights is not None:
+        z = margins(c)
+        d2 = self.loss.d2z(z if self.offsets is None else z + self.offsets.T,
+                           self.labels[:, None])
+        if self.lane_weights is None and self._keep is not None:
+            self.lane_weights = self._weights_of_lanes()
+        if self.lane_weights is not None:
+            d2 = d2 * self.lane_weights.T
+        elif self.weights is not None:
             d2 = d2 * self.weights[:, None]
 
         def hv(v: torch.Tensor) -> torch.Tensor:

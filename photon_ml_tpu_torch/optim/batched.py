@@ -93,6 +93,7 @@ def lbfgs(
     lower: Optional[torch.Tensor] = None,
     upper: Optional[torch.Tensor] = None,
     iteration_cap: Optional[int] = None,
+    track_coefficients: bool = False,
 ) -> SolveResult:
     """Minimize f_e (+ l1_e*|x_e|_1 when `l1_weight` is set: OWLQN) for
     every lane e of x0 [E, d] at once.  `l1_weight` is one weight for every
@@ -105,7 +106,9 @@ def lbfgs(
 
     Returns a SolveResult whose fields have a leading [E] axis: x [E, d],
     value, gradient_norm, iterations, reason and fg_count [E], histories
-    [E, max_iterations + 1].  x0 is not written."""
+    [E, max_iterations + 1], and with `track_coefficients` the iterates
+    [E, max_iterations + 1, d] (row 0 the projected x0, NaN after a lane
+    stops, as under vmap).  x0 is not written."""
     use_l1 = l1_weight is not None
     use_box = lower is not None or upper is not None
     if use_l1 and use_box:
@@ -169,6 +172,11 @@ def lbfgs(
     gnorm_hist = torch.full_like(loss_hist, float("nan"))
     loss_hist[:, 0] = f
     gnorm_hist[:, 0] = gnorm
+    coef_hist = None
+    if track_coefficients:
+        coef_hist = torch.full((E, max_iterations + 1, d), float("nan"),
+                               dtype=dtype, device=device)
+        coef_hist[:, 0] = x
     active = torch.full((E,), cap > 0 and E > 0,
                         dtype=torch.bool, device=device)
 
@@ -260,13 +268,16 @@ def lbfgs(
         iterations = iterations + active
         loss_hist[:, step + 1] = torch.where(active, f, nan)
         gnorm_hist[:, step + 1] = torch.where(active, gnorm, nan)
+        if coef_hist is not None:
+            coef_hist[:, step + 1] = torch.where(active[:, None], x, nan)
         active = active & (reason == int(ConvergenceReason.NOT_CONVERGED))
 
     reason = torch.where(reason == int(ConvergenceReason.NOT_CONVERGED),
                          int(ConvergenceReason.MAX_ITERATIONS), reason)
     return SolveResult(x=x, value=f, gradient_norm=gnorm, iterations=iterations,
                        reason=reason, loss_history=loss_hist,
-                       gnorm_history=gnorm_hist, fg_count=fg_count,
+                       gnorm_history=gnorm_hist, coefficient_history=coef_hist,
+                       fg_count=fg_count,
                        rounds=rounds, readbacks=readbacks)
 
 
@@ -282,22 +293,25 @@ def solve(value_and_grad: BatchedValueAndGrad, x0: torch.Tensor, config,
     `reg_weight` a total weight or an optim/schedule.py RegWeights whose
     l1 weight may be an [E] tensor, one per lane (the l2 weights are the
     oracle's); `budget` (optim/schedule.py SolveBudget) is one iteration
-    cap and tolerance for every lane."""
+    cap and tolerance for every lane.  With `config.track_coefficients`
+    the result carries every lane's iterates, [E, max_iterations + 1, d],
+    written on the device in the steps that write the loss history."""
     from photon_ml_tpu_torch.optim.schedule import RegWeights
     cfg = config.resolved()
+    if cfg.constraints is not None:
+        raise ValueError(
+            "named feature constraints are unresolved — call "
+            "config.resolved_constraints(index_map) before solve()")
     tolerance, cap = cfg.tolerance, None
     if budget is not None:
         tolerance, cap = budget.tolerance_in(x0.dtype), budget.iteration_cap
-    if cfg.track_coefficients:
-        raise NotImplementedError(
-            "coefficient tracking on batched solves is not ported yet "
-            "(ROADMAP.md queue A item 18: diagnostics)")
     if cfg.optimizer == OptimizerType.TRON:
         check_tron(cfg, reg, loss)
         return tron_lanes(value_and_grad, hessian_vector_at, x0,
                           max_iterations=cfg.max_iterations,
                           tolerance=tolerance,
                           max_cg_iterations=cfg.max_cg_iterations,
+                          track_coefficients=cfg.track_coefficients,
                           iteration_cap=cap)
     l1_w = (reg_weight.l1_weight if isinstance(reg_weight, RegWeights)
             else reg.split(reg_weight)[0])
@@ -305,4 +319,5 @@ def solve(value_and_grad: BatchedValueAndGrad, x0: torch.Tensor, config,
     return lbfgs(value_and_grad, x0, max_iterations=cfg.max_iterations,
                  tolerance=tolerance, history=cfg.history,
                  l1_weight=l1_w if reg.has_l1 else None,
-                 lower=lower, upper=upper, iteration_cap=cap)
+                 lower=lower, upper=upper, iteration_cap=cap,
+                 track_coefficients=cfg.track_coefficients)

@@ -226,6 +226,16 @@ def tron_config_dict() -> dict:
     return d
 
 
+def tracked_config_dict() -> dict:
+    """Config 4 with coefficient tracking on both coordinates (the
+    random effect's batched solves record every lane's iterates)."""
+    d = glmix_config_dict()
+    for coord in d["coordinates"].values():
+        coord["optimization"] = dict(coord["optimization"], optimizer=dict(
+            coord["optimization"]["optimizer"], track_coefficients=True))
+    return d
+
+
 def sparse_problem(make_wide_sparse_logistic):
     """(x CSR, y) of the sparse train_glm cases in float64; pass either
     package's generator."""
@@ -392,7 +402,11 @@ def erfinv_inputs(dtype) -> np.ndarray:
 
 # name -> JSON config of each estimator parity case
 ESTIMATOR_CONFIGS = {"config4": glmix_config_dict, "variant": variant_config_dict,
-                     "tron": tron_config_dict}
+                     "tron": tron_config_dict, "tracked": tracked_config_dict}
+# batched-solver cases solved again with coefficient tracking: LBFGS,
+# OWLQN, a box and TRON
+TRACKED_SOLVER_CASES = ("logistic_l2", "logistic_elastic_net", "logistic_l2_box",
+                        "logistic_l2_tron")
 
 
 def _run_solver(out: dict) -> None:
@@ -401,7 +415,10 @@ def _run_solver(out: dict) -> None:
     from photon_ml_tpu.optim import (OptimizerConfig, OptimizerType,
                                      RegularizationContext, RegularizationType)
     from photon_ml_tpu.parallel.random_effect import _cached_batched_solver
-    for case, (loss, reg, alpha, lam, _, opt) in SOLVER_CASES.items():
+    runs = [(case, case, False) for case in SOLVER_CASES]
+    runs += [(case, f"tracked/{case}", True) for case in TRACKED_SOLVER_CASES]
+    for case, key, track in runs:
+        loss, reg, alpha, lam, _, opt = SOLVER_CASES[case]
         p = solver_problem(case)
         opt = dict(opt)
         if "optimizer" in opt:
@@ -409,18 +426,19 @@ def _run_solver(out: dict) -> None:
         solver = _cached_batched_solver(
             BY_NAME[loss],
             OptimizerConfig(**{"max_iterations": SOLVER_MAX_ITERATIONS,
-                               "tolerance": SOLVER_TOLERANCE, **opt}),
+                               "tolerance": SOLVER_TOLERANCE, **opt},
+                            track_coefficients=track),
             RegularizationContext(RegularizationType(reg), alpha), True, True)
         res = solver(*(jnp.asarray(p[k]) for k in
                        ("x", "labels", "mask", "weights", "offsets", "x0")),
                      jnp.asarray(lam), None)
-        _store(out, case, res)
+        _store(out, key, res)
 
 
 def _store(out: dict, key: str, res) -> None:
     """A SolveResult's fields, those that are set, under key/field."""
     for field in ("x", "value", "iterations", "fg_count", "hv_count", "reason",
-                  "loss_history"):
+                  "loss_history", "coefficient_history"):
         if getattr(res, field) is not None:
             out[f"{key}/{field}"] = np.asarray(getattr(res, field))
 

@@ -1283,3 +1283,99 @@ def test_candidate_lane_on_card_takes_a_wide_dense_fixed_effect(cuda):
                           train, val, ["AUC"]).evaluate_vmapped(cands)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.objective_history, w.objective_history, rtol=1e-4)
+
+
+@pytest.mark.parametrize("lanes", [1, 5, 16])
+@pytest.mark.parametrize("shape", ["700x37", "misaligned", "n1", "n0", "d9", "d31", "d124"])
+@pytest.mark.parametrize("name", sorted(TL.BY_NAME))
+def test_lanes_kernel_with_lane_mask_matches_plain(cuda, name, shape, lanes):
+    """The masked instantiation (bit k of an int32 word per row a 0/1
+    factor on lane k's weights; a lane with no bit set, a lane with every
+    bit set) against the plain version in float64, with and without
+    weights, and with the row mask, offsets and shifts on top; the single
+    kernel's tolerances."""
+    from photon_ml_tpu_torch.ops.lanes import lane_words
+    n, d, *skip = LANES_SHAPES[shape]
+    x, y, c, w, o, m, b = _lanes_inputs(n, d, lanes, skip=skip[0] if skip else 0)
+    keep = torch.from_numpy(np.random.default_rng(9).uniform(size=(lanes, n)) < 0.7).cuda()
+    keep[0] = False
+    if lanes > 1:
+        keep[1] = True
+    word = lane_words(keep)
+    f64 = lambda t: None if t is None else t.double()
+    for args in ((None, None, None, None), (w, None, None, None), (w, o, m, b)):
+        before = hk.LANES_LAUNCHES
+        got = hk.fused_value_and_gradient_lanes(TL.BY_NAME[name], x, y, c, *args,
+                                                lane_mask=word)
+        assert hk.LANES_LAUNCHES == before + 1
+        want = hk.fused_value_and_gradient_lanes_plain(
+            TL.BY_NAME[name], x.double(), y.double(), c.double(), *map(f64, args),
+            lane_mask=word)
+        np.testing.assert_allclose(got[0].cpu().numpy(), want[0].cpu().numpy(), rtol=1e-5)
+        for a, e in zip(got[1:], want[1:]):
+            np.testing.assert_allclose(a.cpu().numpy(), e.cpu().numpy(), rtol=1e-4, atol=1e-4)
+
+
+def test_small_bootstrap_on_card_matches_isolated_fits(cuda):
+    """bootstrap_training on the card in float32 at [6,000 x 31]: one
+    launch of the masked lanes kernel per round (one lane group), none of
+    the single kernel; replicas 0, 2 and 4 within 1e-4 of an isolated fit
+    of weights member_k * w through the single kernel (host float64
+    objectives)."""
+    from photon_ml_tpu_torch.diagnostics import bootstrap_training
+    from photon_ml_tpu_torch.ops.objective import GLMObjective
+    from photon_ml_tpu_torch.optim import (OptimizerConfig, RegularizationContext,
+                                           RegularizationType, solve)
+    rng = np.random.default_rng(3)
+    n, d, k = 6000, 31, 5
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    x[:, -1] = 1.0
+    y = (rng.uniform(size=n) < 1 / (1 + np.exp(-x @ (rng.normal(size=d) * 0.3)))) * 1.0
+    w = rng.uniform(0.5, 2.0, size=n)
+    reg, cfg = RegularizationContext(RegularizationType.L2), OptimizerConfig(tolerance=1e-6)
+    lanes, single = hk.LANES_LAUNCHES, hk.LAUNCHES
+    rep = bootstrap_training(x, y, "logistic_regression", num_bootstrap_samples=k,
+                             weights=w, optimizer_config=cfg, regularization=reg,
+                             regularization_weight=1.0, device="cuda", dtype=torch.float32)
+    assert rep.solve["route"] == "lanes" and rep.solve["lane_groups"] == 1
+    assert hk.LANES_LAUNCHES - lanes == rep.solve["rounds"] > 0 and hk.LAUNCHES == single
+    member = np.random.default_rng(7).random((k, n)) < 0.75
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device="cuda")
+
+    def f64(coef, wk):
+        z = x.astype(np.float64) @ coef
+        return float(np.sum(wk * (np.logaddexp(0, z) - y * z)) + 0.5 * coef @ coef)
+    for r in (0, 2, 4):
+        wk = member[r] * w
+        iso = solve(GLMObjective(TL.LOGISTIC, t(x), t(y), weights=t(wk)),
+                    torch.zeros(d, device="cuda"), cfg, reg, 1.0)
+        got, want = f64(rep.coefficients[r].astype(np.float64), wk), \
+            f64(iso.x.double().cpu().numpy(), wk)
+        assert abs(got - want) <= 1e-4 * abs(want), (r, got, want)
+
+
+def test_tracked_random_effect_fit_on_card(cuda):
+    """A random effect's batched solve with coefficient tracking on the
+    card: every lane's iterates [E, max_iterations + 1, d], row 0 the
+    start, the row at its iteration count its solution, NaN after."""
+    from photon_ml_tpu_torch.optim import OptimizerConfig, RegularizationContext
+    from photon_ml_tpu_torch.optim.config import RegularizationType
+    from photon_ml_tpu_torch.parallel import random_effect as tre
+    rng = np.random.default_rng(4)
+    E, S, d = 64, 12, 5
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).cuda()
+    mask = (np.arange(S)[None, :] < rng.integers(1, S + 1, size=E)[:, None]) * 1.0
+    x = rng.normal(size=(E, S, d)) * mask[:, :, None]
+    y = np.where(mask > 0, rng.uniform(size=(E, S)) < 0.5, 0.5) * 1.0
+    blocks = tre.EntityBlocks(t(x), t(y), t(mask), t(mask), t(np.zeros((E, S))))
+    cfg = OptimizerConfig(max_iterations=30, track_coefficients=True)
+    res = tre.fit_random_effects(blocks, TL.LOGISTIC, config=cfg,
+                                 reg=RegularizationContext(RegularizationType.L2),
+                                 reg_weight=1.0)
+    hist = res.coefficient_history
+    assert hist.shape == (E, 31, d) and hist.is_cuda
+    assert torch.equal(hist[:, 0], torch.zeros((E, d), device="cuda"))
+    for e in range(E):
+        it = int(res.iterations[e])
+        assert torch.equal(hist[e, it], res.x[e])
+        assert torch.isnan(hist[e, it + 1:]).all()

@@ -11,6 +11,8 @@ TRON, cold and warm started.  Per lane: equal iterations, reason and
 fg_count (LBFGS/OWLQN) or hv_count (TRON); x within rtol 1e-9 (TRON, box)
 or atol 1e-7; value within rtol 1e-10 (the same arithmetic in float64, in
 another summation order)."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -135,16 +137,51 @@ def test_padded_rows_with_nonfinite_loss_do_not_poison():
      ValueError, "TRON supports only L2"),
     (OptimizerConfig(optimizer=OptimizerType.TRON, box_lower=(-1.0,) * side.SOLVER_D),
      RegularizationType.L2, ValueError, "box constraints are an LBFGS feature"),
-    (OptimizerConfig(track_coefficients=True), RegularizationType.L2,
-     NotImplementedError, "tracking"),
+    (OptimizerConfig(track_coefficients=True), RegularizationType.L2, None, None),
 ], ids=["tron", "box", "track"])
 def test_unported_batched_options_raise(config, reg, error, match):
-    """Coefficient tracking is not ported; TRON under L1 and TRON with a
-    box break the JAX package's rules, on batched solves too."""
+    """TRON under L1 and TRON with a box break the JAX package's rules, on
+    batched solves too.  Coefficient tracking, which raised here until it
+    was ported, now solves: every lane's iterates, row 0 its start, the
+    last written row its solution."""
     blocks, x0 = _blocks("logistic_l2")
-    with pytest.raises(error, match=match):
-        tre.fit_random_effects(blocks, TL.LOGISTIC, x0=x0, config=config,
-                               reg=RegularizationContext(reg), reg_weight=1.0)
+    fit = lambda: tre.fit_random_effects(blocks, TL.LOGISTIC, x0=x0, config=config,
+                                         reg=RegularizationContext(reg), reg_weight=1.0)
+    if error is not None:
+        with pytest.raises(error, match=match):
+            fit()
+        return
+    res = fit()
+    hist = res.coefficient_history
+    assert hist.shape == (side.SOLVER_E, config.resolved().max_iterations + 1, side.SOLVER_D)
+    assert torch.equal(hist[:, 0], x0)
+    for e in range(side.SOLVER_E):
+        assert torch.equal(hist[e, int(res.iterations[e])], res.x[e])
+
+
+@pytest.mark.parametrize("case", side.TRACKED_SOLVER_CASES)
+def test_batched_tracking_matches_jax(jax_results, case):
+    """With track_coefficients every route of the batched solve (LBFGS,
+    OWLQN, a box, TRON) records each lane's iterates as jax.vmap of the
+    JAX package's solve does: row 0 the start, one row per iteration, NaN
+    after the lane stops; within 1e-10 of JAX's, the NaN padding equal.
+    Tracking records and changes nothing: x and the loss history are the
+    untracked solve's, bit for bit."""
+    loss, reg, alpha, lam, _, _ = side.SOLVER_CASES[case]
+    blocks, x0 = _blocks(case)
+    cfg = dataclasses.replace(_config(case), track_coefficients=True)
+    res = tre.fit_random_effects(
+        blocks, TL.BY_NAME[loss], x0=x0, config=cfg,
+        reg=RegularizationContext(RegularizationType(reg), alpha), reg_weight=lam)
+    hist = res.coefficient_history.numpy()
+    want = jax_results[f"tracked/{case}/coefficient_history"]
+    assert hist.shape == want.shape == (side.SOLVER_E, side.SOLVER_MAX_ITERATIONS + 1,
+                                        side.SOLVER_D)
+    np.testing.assert_array_equal(np.isnan(hist), np.isnan(want))
+    np.testing.assert_allclose(hist, want, rtol=0, atol=1e-10, equal_nan=True)
+    plain = _port_solve(case)
+    assert torch.equal(res.x, plain.x)
+    assert torch.equal(res.loss_history.nan_to_num(7.0), plain.loss_history.nan_to_num(7.0))
 
 
 @pytest.mark.parametrize("case", ["logistic_l2_tron", "squared_l2_tron_warm",

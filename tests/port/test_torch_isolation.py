@@ -44,7 +44,14 @@ REQUIRED = ("photon_ml_tpu_torch.ops.features", "photon_ml_tpu_torch.ops.sparse_
             "photon_ml_tpu_torch.hyperparameter.slice_sampler",
             "photon_ml_tpu_torch.hyperparameter.gp", "photon_ml_tpu_torch.hyperparameter.search",
             "photon_ml_tpu_torch.hyperparameter.vectorized",
-            "photon_ml_tpu_torch.hyperparameter.game_evaluation", "chip_smoke")
+            "photon_ml_tpu_torch.hyperparameter.game_evaluation",
+            "photon_ml_tpu_torch.evaluation.segmented", "photon_ml_tpu_torch.diagnostics",
+            "photon_ml_tpu_torch.diagnostics.metrics", "photon_ml_tpu_torch.diagnostics.hl",
+            "photon_ml_tpu_torch.diagnostics.independence",
+            "photon_ml_tpu_torch.diagnostics.importance",
+            "photon_ml_tpu_torch.diagnostics.bootstrap", "photon_ml_tpu_torch.diagnostics.fitting",
+            "photon_ml_tpu_torch.diagnostics.report", "photon_ml_tpu_torch.cli.diagnose",
+            "chip_smoke")
 
 
 def test_the_scan_covers_the_port():

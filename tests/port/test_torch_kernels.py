@@ -370,11 +370,13 @@ def test_lanes_constants_match_the_cuda_source():
     assert "constexpr int kThreads = kConsumers + 32;" in src
     assert f"constexpr int kMaxLanes = {hk.LANES_MAX};" in src
     assert "constexpr int kMaxSmem = 232448 - 1024;" in src
+    # every (n-tiles, slots) instantiation, with and without a lane mask
     for nt, sizes in hk.LANES_SLOT_SIZES.items():
         for size in sizes:
-            assert f"case {size}: return launch<{nt}, {size}>" in src
+            assert f"case {size}: return launch<{nt}, {size}, LM>" in src
     assert len(re.findall(r"case \d+: return launch<", src)) == \
         sum(map(len, hk.LANES_SLOT_SIZES.values()))
+    assert "dispatch<true>(" in src and "dispatch<false>(" in src
     # the device function's name tells it apart from the single kernel's
     # (chip_smoke.py's KERNEL_NAMES match profiles by substring)
     assert "lanes_value_gradient(const Args a)" in src and "fvg_" not in src
