@@ -218,7 +218,9 @@ Phases, one JSON object per line on stdout:
      the strict solve's) and stoch_game_glmix; cli_stream: two cli.train
      --hbm-budget children on the balanced entry's data, one with a
      transient stage.transfer fault at chunk 2 (its fit bit-equal, the
-     other's within 1e-6 of the in-process fit);
+     other's within 1e-6 of the in-process fit; each child's telemetry
+     stream.chunks_staged and stream.staged_bytes equal to its summary's
+     stream accounting);
  25. lanes_checks (run right after the nan_check): the candidate-lanes
      kernel (csrc/fused_value_and_gradient_lanes.cu) against its plain
      version for the four losses at K = 1, 5 and 16 lanes, plain and with
@@ -253,7 +255,8 @@ Phases, one JSON object per line on stdout:
      bayesian --tuning-iterations 6 --sweep-seed 7 --warm-start: 7 configs,
      the uniform prefix of the candidates equal to the seeded replay, at
      least one GP choice, every AUC in (0.5, 1), the saved best the best
-     AUC's and scoring to it by cli.score; the search's host seconds;
+     AUC's and scoring to it by cli.score; the search's host seconds; the
+     telemetry's sweep.candidates counts the candidates evaluated;
  28. cli_diagnose (after cli_game, on cli_glm's and cli_game's saved
      models and training npz files): cli.diagnose on config 1 (10
      replicas) and config 4 (16 replicas); the report files, the summary's
@@ -264,7 +267,18 @@ Phases, one JSON object per line on stdout:
      of isolated fits of their weights, the curves' holdout AUC finite;
      the walls of load, score, importance, Kendall tau, Hosmer-Lemeshow,
      bootstrap, fitting and render;
- 29. the kernels line (launches by path, the CLI, inexact, streamed,
+ 29. cli_telemetry (after cli_game, on its npz files): cli.train with
+     --trace-out, --run-log, --event-listener LoggingEventListener and
+     --profile: the final objective cli_game's pipelined fit's bit for bit,
+     fused kernel launches = FE passes, the trace valid and holding fit ->
+     2 x outer_iteration -> a coordinate_visit per coordinate, no kernel
+     library loaded during the fit (every visit's retraces 0), cli.trace
+     merge over the run log exiting 0; then one outer iteration of config
+     4, disarmed and armed, under torch.profiler's CUDA activity: the same
+     synchronizing runtime calls and copy calls (each device-to-host copy
+     is one; the device's DtoH records printed beside); the walls, the
+     trace's events and bytes printed, not gated;
+ 30. the kernels line (launches by path, the CLI, inexact, streamed,
      sweep and diagnostics paths included), nvidia-smi's line, and the
      final result line.
 Exits non-zero, before printing any result, when CUDA is absent or when
@@ -300,6 +314,17 @@ VALUE_RTOL, GRAD_RTOL, GRAD_ATOL = 1e-5, 1e-4, 1e-4
 NLL_RTOL = 1e-5
 # ~5 ms at the H100's clock: longer than the host takes to enqueue one rep
 SLEEP_CYCLES = 10_000_000
+# throwaway kernels that open every profiled window: CUPTI loses a
+# window's first device records, none at a process's start and more the
+# older the process (whatever ran in between; a host sleep before the
+# first launch does not help), and config 5's first fused launch fell
+# among them late in this script.  The primer absorbs that loss and is
+# left out of every count; each window reports how much of the primer it
+# lost, beside the process's age (PERF.md §6, PR 16).
+STARTED = time.perf_counter()
+PRIMER_LAUNCHES = 1024
+PRIMER_CYCLES = 100
+PRIMER_KERNEL = "spin_kernel"       # torch.cuda._sleep's
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth and float32 (non-tensor) peak
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
@@ -578,20 +603,40 @@ def time_full(hk, loss, x, y, o=None, w=None, m=None, s=None):
 
 def warm_profile(activities):
     """torch.profiler over `activities` with one warm-up step first, whose
-    events are dropped: the caller runs a short warm-up, calls `.step()`,
-    then runs what it measures.  CUPTI's device tracing takes a moment to
-    start; without the warm-up a window lost its first launches (a config
-    5 profile counted 15 launches of the kernel for 16 passes, and a short
-    window lost all of them)."""
+    events are dropped: the caller runs `profile_warmup`, then what it
+    measures."""
     from torch.profiler import profile, schedule
     return profile(activities=activities, schedule=schedule(wait=0, warmup=1, active=1))
 
 
 def profile_warmup(prof) -> None:
+    """End the warm-up step, then open the window with PRIMER_LAUNCHES
+    throwaway kernels and wait for them by polling, so that the window
+    counts no synchronizing call of theirs."""
     import torch
     torch.cuda._sleep(SLEEP_CYCLES // 10)
     torch.cuda.synchronize()
     prof.step()
+    for _ in range(PRIMER_LAUNCHES):
+        torch.cuda._sleep(PRIMER_CYCLES)
+    stream = torch.cuda.current_stream()
+    while not stream.query():
+        time.sleep(1e-4)
+
+
+def measured_device(events) -> list:
+    """A window's device events without the schedule's step marker (a
+    device event spanning the whole step when host items are traced) and
+    the primer's kernels."""
+    import torch
+    return [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.key.startswith("ProfilerStep") and PRIMER_KERNEL not in e.key]
+
+
+def primer_lost(events) -> int:
+    """How many of the primer's records the window lost: fewer than
+    PRIMER_LAUNCHES means no measured record was lost with them."""
+    return PRIMER_LAUNCHES - sum(e.count for e in events if PRIMER_KERNEL in e.key)
 
 
 def profile_call(fn, host: bool = True):
@@ -611,10 +656,7 @@ def profile_call(fn, host: bool = True):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
-    # the schedule's step marker carries the whole step's span as device
-    # time when host items are traced: not a kernel
-    dev = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
-           and not e.key.startswith("ProfilerStep")]
+    dev = measured_device(events)
     cpu = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU]
     busy_ms = sum(e.self_device_time_total for e in dev) / 1e3
     fused = [e for e in dev if "fvg_" in e.key]
@@ -628,6 +670,8 @@ def profile_call(fn, host: bool = True):
         "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms,
         "device_launches": sum(e.count for e in dev),
+        "primer_lost": primer_lost(events),
+        "process_s": time.perf_counter() - STARTED,
         "fused_kernel_ms": sum(e.self_device_time_total for e in fused) / 1e3,
         "fused_kernel_launches": sum(e.count for e in fused),
         "kernels": by_kernel,
@@ -635,10 +679,9 @@ def profile_call(fn, host: bool = True):
         "host_top": top(cpu, "self_cpu_time_total")}
 
 
-# profiled GLMix windows of ~10^5 launches: CUPTI drops a few records at
-# random (a config 5 window recorded 103,664 of 103,667 launches, one of
-# them the fused kernel's), so a window short of the kernel's passes is
-# profiled again, at most this many times in all
+# a GLMix window short of the kernel's passes is profiled again, at most
+# this many times in all: a record the tool loses is not repeated, a
+# launch the program misses or doubles is
 PROFILE_ATTEMPTS = 3
 
 
@@ -646,14 +689,16 @@ def profile_fit(fit):
     """One outer iteration of a GLMix fit under the profiler, profiled
     again while the kernel's profiled launches fall short of the fixed
     effect's passes (at most PROFILE_ATTEMPTS windows): a launch missing or
-    extra in every window is the program's and fails the caller's gate;
-    a record dropped by the tool is not repeated.  -> (the fit's result,
-    the last window's profile with every window's (launches, passes))."""
+    extra in every window is the program's and fails the caller's gate.
+    The first window traces host items too, the later ones the device
+    alone.  -> (the fit's result, the last window's profile with every
+    window's (launches, passes, primer records lost))."""
     attempts = []
-    for _ in range(PROFILE_ATTEMPTS):
-        result, prof = profile_call(fit)
+    for attempt in range(PROFILE_ATTEMPTS):
+        result, prof = profile_call(fit, host=attempt == 0)
         prof["fe_passes"] = fe_passes(result.descent)
-        attempts.append((prof["fused_kernel_launches"], prof["fe_passes"]))
+        attempts.append((prof["fused_kernel_launches"], prof["fe_passes"],
+                         prof["primer_lost"]))
         if prof["fused_kernel_launches"] == prof["fe_passes"]:
             break
     prof["attempts"] = attempts
@@ -2267,6 +2312,173 @@ def cli_game_phase(hk, glmix_ref, kind, smi, device="cuda") -> int:
     return launches
 
 
+# synchronizing CUDA runtime calls, as torch.profiler names them
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
+
+
+def profile_syncs(fn, device="cuda") -> dict:
+    """fn() once under torch.profiler's CUDA activity, after the warm-up
+    step -> the CUDA runtime calls it issued: the synchronizing ones by
+    name, and its copies (cudaMemcpy*: each device-to-host copy is one);
+    beside them the device's records of device-to-host copies and of
+    launches, of which CUPTI drops a few at random in a window of ~10^4
+    launches (a device-only window of config 4's outer iteration varied
+    by 2 copies and 4 launches across windows), and the wall."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    cuda = torch.device(device).type == "cuda"
+    sync(device)
+    with warm_profile([ProfilerActivity.CUDA if cuda else ProfilerActivity.CPU]) as prof:
+        if cuda:
+            profile_warmup(prof)
+        else:
+            prof.step()
+        t0 = time.perf_counter()
+        fn()
+        sync(device)
+        wall_s = time.perf_counter() - t0
+    events = prof.key_averages()
+    dev = measured_device(events)
+    return {"syncs": {name: sum(e.count for e in events if e.key == name)
+                      for name in SYNC_CALLS},
+            "copy_calls": sum(e.count for e in events if e.key.startswith("cudaMemcpy")),
+            "dtoh_records": sum(e.count for e in dev if e.key.startswith("Memcpy DtoH")),
+            "device_launches": sum(e.count for e in dev), "wall_s": wall_s,
+            "primer_lost": primer_lost(events) if cuda else None}
+
+
+def trace_tree(trace: dict, sequence) -> dict:
+    """The span tree of a cli.train --trace-out file: fit spans, and per
+    fit its outer iterations, each with its coordinate visits in order."""
+    spans = [e for e in trace["traceEvents"] if e["ph"] == "X"]
+    children = {}
+    for e in sorted(spans, key=lambda e: e["ts"]):
+        children.setdefault(e["args"]["parent"], []).append(e)
+    fits = [e for e in children.get(None, []) if e["name"] == "fit"]
+    tree = [[[v["args"].get("coordinate") for v in children.get(it["args"]["span"], [])
+              if v["name"] == "coordinate_visit"]
+             for it in children.get(f["args"]["span"], []) if it["name"] == "outer_iteration"]
+            for f in fits]
+    return {"fits": len(fits), "tree": tree,
+            "ok": len(fits) == 1 and len(tree[0]) == GLMIX_OUTER
+            and all(visits == list(sequence) for visits in tree[0])}
+
+
+def cli_telemetry_phase(hk, kind, smi, device="cuda") -> dict:
+    """cli_telemetry: cli.train on cli_game's npz files, pipelined, with
+    --trace-out, --run-log, --event-listener LoggingEventListener and
+    --profile.  Fails unless its final objective is cli_game's pipelined
+    fit's bit for bit, the fused kernel launches once per FE pass, the
+    trace validates and holds fit -> 2 x outer_iteration -> a
+    coordinate_visit per coordinate, every visit loaded no kernel library
+    (`retraces` 0: the libraries were loaded by earlier phases), and
+    `cli.trace merge` over the run log exits 0; then one outer iteration
+    of config 4 over coordinates built once, after a warm-up iteration,
+    disarmed and armed under the profiler, must issue the same
+    synchronizing runtime calls and copy calls (every device-to-host copy
+    is one), and some of each (up to PROFILE_ATTEMPTS pairs of windows).
+    -> the fused kernel's launches in the CLI run, and the numbers."""
+    from photon_ml_tpu_torch import telemetry
+    import torch
+
+    from photon_ml_tpu_torch.cli import trace as trace_cli
+    from photon_ml_tpu_torch.cli import train as train_cli
+    from photon_ml_tpu_torch.data.game_data import load_game_dataset
+    from photon_ml_tpu_torch.game import GameEstimator, GameTrainingConfig
+    from photon_ml_tpu_torch.game.coordinate_descent import run_coordinate_descent
+    d = CLI_ROOT / "cli_game"      # cli_game_phase's inputs, kept
+    out = cli_dir("cli_telemetry")
+    # cli_game's disarmed pipelined fits: the first of its process, and
+    # the one after the strict fits (the walls to compare)
+    disarmed, warm = (json.loads((d / run / "training-summary.json").read_text())
+                      for run in ("pipelined", "pipelined2"))
+    hk.LAUNCHES = 0
+    summary, wall = run_cli(train_cli, [
+        "--train-data", d / "train.npz", "--validation-data", d / "val.npz",
+        "--config", d / "config.json", "--evaluators", "AUC", "--device", device,
+        "--output-dir", out / "fit", "--trace-out", out / "trace.json",
+        "--run-log", out / "run.jsonl", "--profile",
+        "--event-listener", "photon_ml_tpu_torch.utils.events.LoggingEventListener"])
+    launches = hk.LAUNCHES
+    passes = summary["solver_diagnostics"]["fixed"]["value_gradient_passes"]
+    cfg = GameTrainingConfig.from_json((d / "config.json").read_text())
+    trace = json.loads((out / "trace.json").read_text())
+    problems = telemetry.validate_chrome_trace(trace)
+    tree = trace_tree(trace, cfg.updating_sequence)
+    compiles = sum(e["name"] == "compile" for e in trace["traceEvents"])
+    retraces = {c: v.get("retraces") for c, v in summary["solver_diagnostics"].items()}
+    merged, merge_wall = run_cli(trace_cli, ["merge", out / "run.jsonl",
+                                             "--out", out / "merged.json"])
+    profile_files = sorted(p.name for p in (out / "fit" / "profile").iterdir())
+
+    # one outer iteration over coordinates built once, disarmed then
+    # armed, under the profiler, after an unprofiled warm-up iteration
+    train = load_game_dataset(str(d / "train.npz"))
+    val = load_game_dataset(str(d / "val.npz"))
+    est = GameEstimator(cfg, device=device)
+    coords = est._build_coordinates(train)
+    specs = est._validation_specs(["AUC"])
+
+    def iteration():
+        return run_coordinate_descent(coords, cfg.updating_sequence, 1, train,
+                                      cfg.task_type, validation_dataset=val,
+                                      validation_specs=specs, device=device)
+
+    def armed():
+        with telemetry.enabled(run_log=str(out / "profiled.jsonl")):
+            return iteration()
+    iteration()
+    sync(device)
+    windows = []
+    for _ in range(PROFILE_ATTEMPTS):
+        pair = {"disarmed": profile_syncs(iteration, device),
+                "armed": profile_syncs(armed, device)}
+        windows.append(pair)
+        same = all(pair["armed"][k] == pair["disarmed"][k]
+                   for k in ("syncs", "copy_calls"))
+        if same:
+            break
+    cuda = torch.device(device).type == "cuda"
+    seen = (pair["armed"]["syncs"]["cudaStreamSynchronize"] > 0
+            and pair["armed"]["copy_calls"] > 0) or not cuda
+    emit({"phase": "cli_telemetry", "entry": "photon_ml_tpu_torch.cli.train.main --config "
+          "--trace-out --run-log --event-listener --profile",
+          "config": "BASELINE config 4 from cli_game's npz GameDatasets",
+          "cli_wall_s": wall, "fit_s": {"armed_profiled": summary["fit_s"],
+                                        "disarmed_first": disarmed["fit_s"],
+                                        "disarmed_warm": warm["fit_s"]},
+          "final_objective": summary["final_objective"],
+          "disarmed_final_objective": disarmed["final_objective"],
+          "kernel_launches": launches, "fe_passes": passes,
+          "trace_events": len(trace["traceEvents"]),
+          "trace_bytes": (out / "trace.json").stat().st_size,
+          "run_log_bytes": (out / "run.jsonl").stat().st_size,
+          "trace_problems": problems[:5], "trace_tree": tree, "compile_events": compiles,
+          "retraces": retraces, "compile_s": summary["compile_s"],
+          "compile_count": summary["compile_count"], "telemetry": summary["telemetry"],
+          "merge": {k: merged[k] for k in ("spans", "events", "problems")},
+          "merge_wall_s": merge_wall, "profile_files": profile_files,
+          "profile_bytes": sum(p.stat().st_size
+                               for p in (out / "fit" / "profile").iterdir()),
+          "one_outer_iteration": windows, "device": kind, "nvidia_smi": smi})
+    if summary["final_objective"] != disarmed["final_objective"]:
+        raise SystemExit(f"cli_telemetry: armed objective {summary['final_objective']} != "
+                         f"disarmed {disarmed['final_objective']}")
+    if problems or not tree["ok"]:
+        raise SystemExit(f"cli_telemetry: trace problems {problems[:5]}, tree {tree}")
+    if compiles or any(v != 0 for v in retraces.values()):
+        raise SystemExit(f"cli_telemetry: kernel loads during the fit: {compiles} "
+                         f"compile events, retraces {retraces}")
+    if not (same and seen):
+        raise SystemExit(f"cli_telemetry: telemetry changed the synchronizations, or the "
+                         f"profile saw none: {windows}")
+    if not profile_files:
+        raise SystemExit("cli_telemetry: --profile wrote nothing")
+    if not (launches == passes and launches > 0):
+        raise SystemExit(f"cli_telemetry: kernel launches {launches} != FE passes {passes}")
+    return {"launches": launches, "windows": windows}
+
+
 # cli_diagnose: (run, the CLI phase whose saved model and data it reads,
 # the model's directory there, replicas, the replicas' parity gate against
 # isolated fits: the repo's GLM gate for config 1, its GLMix gate for
@@ -2574,9 +2786,8 @@ def stream_checks(hk, losses, kind, smi) -> dict:
 def device_kernels(prof_events) -> list:
     """The kernels (no memory copies or sets) among a profile's device
     events."""
-    import torch
-    return [e for e in prof_events if e.device_type == torch.autograd.DeviceType.CUDA
-            and not e.key.startswith(("Memcpy", "Memset", "ProfilerStep"))]
+    return [e for e in measured_device(prof_events)
+            if not e.key.startswith(("Memcpy", "Memset"))]
 
 
 def stream_glm_phase(hk, x_np, y_np, ref_nll, kind, smi, device="cuda") -> dict:
@@ -2994,6 +3205,13 @@ def cli_stream_phase(kind, smi, stream, device="cuda") -> dict:
     gap = max(abs(x - y) / abs(y) for x, y in zip(a["objective_history"], ref))
     fired = b["fault_report"]["total_fired"] if b["fault_report"] else None
     retries = b["hbm_residency"]["stream"]["fixed"]["retries"]
+    # each child's registry (a process of its own) against its summary's
+    # stream accounting
+    counted = {k: {"registry": [c["telemetry"]["metrics"]["counters"].get(name, 0)
+                                for name in ("stream.chunks_staged", "stream.staged_bytes")],
+                   "accounting": [sum(st[f] for st in c["hbm_residency"]["stream"].values())
+                                  for f in ("chunks_staged", "total_bytes")]}
+               for k, c in (("A", a), ("B", b))}
     emit({"phase": "cli_stream", "entry": "python -m photon_ml_tpu_torch.cli.train "
           "--hbm-budget", "data": "stream_glmix_balanced", "data_and_save_s": data_s,
           "children_wall_s": wall, "fit_s": {"A": a["fit_s"], "B": b["fit_s"]},
@@ -3002,12 +3220,15 @@ def cli_stream_phase(kind, smi, stream, device="cuda") -> dict:
           "faulted_equals_unfaulted": b["objective_history"] == a["objective_history"],
           "fault_fired": fired, "stream_retries": retries,
           "under_budget": a["hbm_residency"]["under_budget"],
-          "device": kind, "nvidia_smi": smi})
+          "telemetry_stream_counters": counted, "device": kind, "nvidia_smi": smi})
     if not gap <= CLI_STREAM_RTOL:
         raise SystemExit(f"cli_stream: the CLI's history is {gap:.3e} from the in-process fit")
     if b["objective_history"] != a["objective_history"] or fired != 1 or retries != 1:
         raise SystemExit(f"cli_stream: the faulted child differs (fired {fired}, retries "
                          f"{retries})")
+    if any(c["registry"] != c["accounting"] for c in counted.values()):
+        raise SystemExit(f"cli_stream: stream counters disagree with the accounting: "
+                         f"{counted}")
     return {"gap": gap}
 
 
@@ -3481,10 +3702,12 @@ def cli_tuning_phase(hk, kind, smi, device="cuda") -> int:
     at least one, every AUC is in (0.5, 1), and the saved best model is
     the best AUC's and scores the validation rows to its own best AUC (by
     cli.score).  -> the fused kernel's launches."""
+    from photon_ml_tpu_torch import telemetry
     from photon_ml_tpu_torch.cli import score as score_cli
     from photon_ml_tpu_torch.cli import train as train_cli
     d = CLI_ROOT / "cli_game"      # cli_game_phase's inputs, kept
     out = cli_dir("cli_tuning")
+    candidates0 = telemetry.counter("sweep.candidates").value
     hk.LAUNCHES = 0
     summary, wall = run_cli(train_cli, [
         "--train-data", d / "train.npz", "--validation-data", d / "val.npz",
@@ -3494,6 +3717,8 @@ def cli_tuning_phase(hk, kind, smi, device="cuda") -> int:
     launches = hk.LAUNCHES
     tun = summary["tuning"]
     num_params = len(tun["candidates"][0])
+    counted = (summary["telemetry"]["metrics"]["counters"].get("sweep.candidates", 0)
+               - candidates0)
     # GaussianProcessSearch's uniform draws, replayed: one per candidate
     # while the observations (the grid's fit first) do not outnumber the
     # parameters; each vector as the evaluation function maps it to
@@ -3513,7 +3738,8 @@ def cli_tuning_phase(hk, kind, smi, device="cuda") -> int:
           "cli_wall_s": wall, "fit_s": summary["fit_s"], "num_configs": summary["num_configs"],
           "tuning": tun, "replayed_prefix": replay, "validation": summary["validation"],
           "final_objective": summary["final_objective"], "scored_auc": scored["evaluation"]["AUC"],
-          "kernel_launches": launches, "device": kind, "nvidia_smi": smi})
+          "kernel_launches": launches, "telemetry_sweep_candidates": counted,
+          "device": kind, "nvidia_smi": smi})
     if summary["num_configs"] != 1 + TUNING_ITERATIONS:
         raise SystemExit(f"cli_tuning: {summary['num_configs']} configs, expected "
                          f"{1 + TUNING_ITERATIONS}")
@@ -3522,6 +3748,9 @@ def cli_tuning_phase(hk, kind, smi, device="cuda") -> int:
                          f"!= the seeded replay {replay}")
     if tun["gp_chosen"] < 1:
         raise SystemExit("cli_tuning: the GP chose no candidate")
+    if counted != len(tun["candidates"]):
+        raise SystemExit(f"cli_tuning: sweep.candidates counted {counted}, the search "
+                         f"evaluated {len(tun['candidates'])}")
     if not all(0.5 < a < 1.0 for a in aucs):
         raise SystemExit(f"cli_tuning: AUCs {aucs}")
     if not (summary["validation"]["AUC"] == max(aucs)
@@ -3926,6 +4155,9 @@ def main() -> int:
     cli_game = cli_game_phase(hk, glmix_ref, kind, smi)
     emit({"phase": "cli_game_done", "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
+    cli_telemetry = cli_telemetry_phase(hk, kind, smi)
+    emit({"phase": "cli_telemetry_done", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
     cli_diagnose = cli_diagnose_phase(hk, kind, smi)
     emit({"phase": "cli_diagnose_done", "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
@@ -3967,7 +4199,8 @@ def main() -> int:
         "replaces": "photon_ml_tpu/ops/pallas_kernels.py:150",
         "launches": (launches + g_launches + c2_launches + c3["kernel_launches"] + t_launches
                      + sweep_counts["isolated"] + sweep_path_launches
-                     + c5["convex"] + c5["full"] + cli_glm + cli_game + cli_tuning
+                     + c5["convex"] + c5["full"] + cli_glm + cli_game
+                     + cli_telemetry["launches"] + cli_tuning
                      + cli_diagnose["fitting"]
                      + sum(inexact["launches"].values()) + sum(stream_launches.values())),
         "launches_by_path": {"train_glm": launches, "glmix": g_launches,
@@ -3977,7 +4210,9 @@ def main() -> int:
                              "sweep_path": sweep_path_launches,
                              "config5_convex": c5["convex"],
                              "config5_full": c5["full"], "cli_glm": cli_glm,
-                             "cli_game": cli_game, "cli_tuning": cli_tuning,
+                             "cli_game": cli_game,
+                             "cli_telemetry": cli_telemetry["launches"],
+                             "cli_tuning": cli_tuning,
                              "fitting": cli_diagnose["fitting"],
                              "inexact_strict": inexact["launches"]["strict"],
                              "inexact_scheduled": inexact["launches"]["scheduled"],

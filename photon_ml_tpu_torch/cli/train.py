@@ -20,9 +20,13 @@ SIGINT the run stops after the in-flight update and exits with the
 resumable status 75 and a JSON line.  `--hbm-budget` trains out of core
 (streamed fixed effects, residency rotation).  `--tuning random|bayesian`
 searches the regularization weights after the fit (hyperparameter/), each
-candidate a refit over the shared sweep state.  Flags of subsystems the port does not
-have yet exit naming their ROADMAP.md queue A item, and summary keys that
-belong to them are null.
+candidate a refit over the shared sweep state.  `--trace-out`/`--run-log`
+arm the telemetry span tracer (a Chrome trace and a JSONL run log,
+exported on every exit path), `--event-listener` registers training event
+listeners and `--profile` records a torch.profiler trace of the fit into
+<output-dir>/profile/.  Flags of subsystems the port does not have yet exit
+naming their ROADMAP.md queue A item, and summary keys that belong to them
+are null.
 """
 from __future__ import annotations
 
@@ -158,13 +162,28 @@ def build_parser() -> argparse.ArgumentParser:
                         "previous (best) model (reference: use-warm-start, "
                         "GameTrainingParams.scala:197)")
     p.add_argument("--event-listener", action="append", default=[],
-                   help="EventListener class path (not ported yet: item 19)")
+                   help="dotted class path of an EventListener to register "
+                        "(repeatable; reference: Driver.scala:108-118)")
     p.add_argument("--profile", action="store_true",
-                   help="profile the run (not ported yet: item 19)")
+                   help="record a torch.profiler trace (CPU and CUDA "
+                        "activities) of the training run into "
+                        "<output-dir>/profile/trace.json; open at "
+                        "https://ui.perfetto.dev")
     p.add_argument("--trace-out", default=None, metavar="TRACE.json",
-                   help="span timeline of the fit (not ported yet: item 19)")
+                   help="arm the telemetry span tracer and write a Chrome-"
+                        "trace/Perfetto JSON timeline of the fit (outer "
+                        "iterations -> coordinate visits -> solves / chunk "
+                        "staging / checkpoint writes, with fault/"
+                        "quarantine/recovery events attached to their "
+                        "spans); open at https://ui.perfetto.dev.  "
+                        "Disarmed (the default) the instrumentation is a "
+                        "module-global None check")
     p.add_argument("--run-log", default=None, metavar="RUN.jsonl",
-                   help="JSONL run log (not ported yet: item 19)")
+                   help="JSONL run log: one line per finished span and "
+                        "instant event (EventEmitter events, fault "
+                        "injections, quarantine rollbacks, checkpoint "
+                        "recoveries), correlated by span id with "
+                        "--trace-out; arms the tracer like --trace-out")
     p.add_argument("--no-compile-cache", action="store_true",
                    help="accepted for the JAX CLI's flags: the port has no "
                         "compile cache (its kernels are built once per "
@@ -369,10 +388,6 @@ def _load_dataset(path: str, task: str, args=None, train_dataset=None,
 
 # flag -> (is it set, the ROADMAP.md queue A item that ports it)
 UNPORTED_FLAGS = (
-    ("--event-listener", lambda a: bool(a.event_listener), 19),
-    ("--trace-out", lambda a: a.trace_out is not None, 19),
-    ("--run-log", lambda a: a.run_log is not None, 19),
-    ("--profile", lambda a: a.profile, 19),
     ("--coordinator", lambda a: a.coordinator is not None, 20),
     ("--num-processes", lambda a: a.num_processes is not None, 20),
     ("--process-id", lambda a: a.process_id is not None, 20),
@@ -567,10 +582,37 @@ def _run(args, log) -> int:
         faults.install_plan(fault_plan)
         log.warning("fault plan ACTIVE from --fault-plan: %d spec(s)",
                     len(fault_plan.specs))
+
+    # telemetry (photon_ml_tpu_torch/telemetry): the span tracer arms only
+    # when a timeline was asked for; disarmed it is a module-global None
+    # check on every instrumented path.  The metrics registry is always
+    # live.  Kernel builds and loads are counted from here on
+    from photon_ml_tpu_torch import telemetry
+    from photon_ml_tpu_torch.ops import _build
+    loads0 = len(_build.LOADS)
+    tracer = None
+    if args.trace_out or args.run_log:
+        tracer = telemetry.install(run_log=args.run_log, proc="train")
+        log.info("telemetry armed: trace_out=%s run_log=%s",
+                 args.trace_out, args.run_log)
+
+    # event hooks (reference: Driver.scala:108-118 registers listeners by
+    # class name; PhotonSetupEvent carries the run params)
+    from photon_ml_tpu_torch.utils.events import EventEmitter, SetupEvent
+    emitter = EventEmitter() if args.event_listener else None
+    profiler = None
     try:
+        if emitter is not None:
+            for dotted in args.event_listener:
+                emitter.register_listener_class(dotted)
+            emitter.send_event(SetupEvent(params=vars(args)))
+        if args.profile:
+            os.makedirs(_profile_dir(args), exist_ok=True)
+            profiler = _start_profiler(device)
+            print(f"profiling to {_profile_dir(args)}", file=sys.stderr)
         with faults.GracefulPreemption():
             return _fit_and_save(args, log, train, val, device, dtype, t0,
-                                 ingest_s, fault_plan)
+                                 ingest_s, fault_plan, emitter, loads0)
     except faults.Preempted as e:
         # the in-flight update finished and the newest checkpoint record is
         # durable: report resumability and exit with the DISTINCT status 75
@@ -590,20 +632,60 @@ def _run(args, log) -> int:
         print(json.dumps(payload))
         return faults.EXIT_PREEMPTED
     finally:
+        if profiler is not None:
+            profiler.stop()
+            profiler.export_chrome_trace(
+                os.path.join(_profile_dir(args), "trace.json"))
+        if tracer is not None:
+            # export on EVERY path (success, preemption, failure): a
+            # timeline of the run that died is the one you want most
+            telemetry.shutdown()
+            if args.trace_out:
+                try:
+                    info = telemetry.write_chrome_trace(args.trace_out)
+                    log.info("chrome trace written: %s", info)
+                    print(f"trace written to {args.trace_out} "
+                          f"({info['events']} events) — open at "
+                          "https://ui.perfetto.dev", file=sys.stderr)
+                except Exception:
+                    log.exception("trace export failed")
+        # listeners flush buffered events in close(): run even when
+        # training, validation or tuning raises
+        if emitter is not None:
+            emitter.clear_listeners()
         # main() is a callable API: the next in-process call starts
         # without this job's plan
         if fault_plan is not None:
             faults.install_plan(None)
 
 
+def _profile_dir(args) -> str:
+    return os.path.join(args.output_dir, "profile")
+
+
+def _start_profiler(device):
+    """A started torch.profiler over the CPU and, on a CUDA device, the
+    CUDA activities (the port's counterpart of the JAX CLI's
+    jax.profiler.trace)."""
+    import torch
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    profiler = torch.profiler.profile(activities=activities)
+    profiler.start()
+    return profiler
+
+
 def _fit_and_save(args, log, train, val, device, dtype, t0, ingest_s,
-                  fault_plan) -> int:
+                  fault_plan, emitter, loads0) -> int:
     """Fit (GAME config or the legacy lambda sweep), save the best model
     and write the summary."""
+    from photon_ml_tpu_torch import telemetry
     from photon_ml_tpu_torch.game import GameEstimator, GameTrainingConfig
     from photon_ml_tpu_torch.game.config import (FixedEffectCoordinateConfig,
                                                  GLMOptimizationConfig)
     from photon_ml_tpu_torch.models.io import save_game_model
+    from photon_ml_tpu_torch.ops import _build
     from photon_ml_tpu_torch.ops.normalization import NormalizationType
     from photon_ml_tpu_torch.optim.config import (OptimizerConfig, OptimizerType,
                                                   RegularizationContext,
@@ -634,7 +716,8 @@ def _fit_and_save(args, log, train, val, device, dtype, t0, ingest_s,
             config = GameTrainingConfig.from_json(f.read())
         if hbm_budget is not None:
             config = dataclasses.replace(config, hbm_budget_bytes=hbm_budget)
-        results = [GameEstimator(config, device=device, dtype=dtype).fit(
+        results = [GameEstimator(config, device=device, dtype=dtype,
+                                 emitter=emitter).fit(
             train, val, evaluator_specs, initial_model=initial_model,
             checkpoint_dir=args.checkpoint_dir, timing_mode=args.timing_mode)]
     else:
@@ -656,14 +739,16 @@ def _fit_and_save(args, log, train, val, device, dtype, t0, ingest_s,
                 "global", GLMOptimizationConfig(optimizer=opt, regularization=reg),
                 normalization=NormalizationType(args.normalization))},
             updating_sequence=["fixed"], hbm_budget_bytes=hbm_budget)
-        results = GameEstimator(config, device=device, dtype=dtype).fit_grid(
+        results = GameEstimator(config, device=device, dtype=dtype,
+                                emitter=emitter).fit_grid(
             train, grid, val, evaluator_specs, warm_start=args.warm_start,
             checkpoint_dir=args.checkpoint_dir,
             initial_model=initial_model, timing_mode=args.timing_mode)
     tuning = None
     if args.tuning != "none":
         results, tuning = _tune(args, config, train, val, evaluator_specs,
-                                initial_model, results, device, dtype)
+                                initial_model, results, device, dtype,
+                                emitter)
     fit_s = time.time() - t_fit
 
     from photon_ml_tpu_torch.game.estimator import select_best_result
@@ -705,13 +790,18 @@ def _fit_and_save(args, log, train, val, device, dtype, t0, ingest_s,
         "mesh_transfer": None,
         "multihost": None,
         "host_blocked_s": round(best.descent.timings.host_blocked_total(), 3),
-        # the port has no compile cache (its kernels are built once per
-        # checkout, ops/_build.py); telemetry is item 19
-        "compile_s": None,
-        "compile_count": None,
+        # the kernel builds and library loads of this run (ops/_build.py
+        # LOADS: nvcc runs and ctypes loads, the port's counterpart of the
+        # JAX CLI's XLA compiles); the port has no compile cache (its
+        # kernels are built once per checkout)
+        "compile_s": round(sum(s for _, _, s in _build.LOADS[loads0:]), 2),
+        "compile_count": len(_build.LOADS) - loads0,
         "compile_cache": None,
-        "telemetry": None,
-        "trace_out": None,
+        # the unified telemetry surface: registry counters/gauges/
+        # histograms (stream/store/checkpoint/quarantine/kernel-load
+        # accounting) + tracer record counts when armed
+        "telemetry": telemetry.snapshot(),
+        "trace_out": args.trace_out,
         "output": os.path.join(args.output_dir, "best"),
         "device": str(device),
         "dtype": str(dtype).replace("torch.", ""),
@@ -747,7 +837,7 @@ def _fit_and_save(args, log, train, val, device, dtype, t0, ingest_s,
 
 
 def _tune(args, config, train, val, evaluator_specs, initial_model, results,
-          device, dtype):
+          device, dtype, emitter):
     """reference: Driver.runHyperparameterTuning — a searcher seeded with
     the grid results, each evaluation a refit with the candidate lambdas
     over the shared sweep state (hyperparameter/vectorized.py).  -> (grid
@@ -758,7 +848,8 @@ def _tune(args, config, train, val, evaluator_specs, initial_model, results,
     from photon_ml_tpu_torch.hyperparameter import (
         GameEstimatorEvaluationFunction, GaussianProcessSearch, RandomSearch)
     fn = GameEstimatorEvaluationFunction(
-        GameEstimator(config, device=device, dtype=dtype), train, val,
+        GameEstimator(config, device=device, dtype=dtype, emitter=emitter),
+        train, val,
         evaluator_specs, scale="log", warm_start=args.warm_start,
         initial_model=initial_model)
     if args.warm_start:

@@ -30,9 +30,11 @@ one `jnp.asarray` per leaf).  Each chunk goes through a fixed ring of
 Host float64 is cast to the compute dtype on the host, so `total_bytes`
 counts device bytes as the JAX package's canonicalized transfer does.
 
-The JAX package's telemetry counters and events are not ported yet
-(ROADMAP.md queue A item 19), nor its multi-process byte accounting
-(item 20); its tracked locks are plain locks here.
+StreamStats mirrors its counts into the telemetry registry (`stream.*`
+counters, the `stream.examples_per_staged_byte` gauge), a transient
+staging failure emits `stage_retry`, and each chunk's staging is a `stage`
+span on the producer thread, as in the JAX package.  The JAX package's
+multi-process byte accounting (ROADMAP.md queue A item 20) is not ported.
 """
 from __future__ import annotations
 
@@ -47,8 +49,8 @@ from typing import Callable, Dict, Iterator, Optional, Tuple
 import numpy as np
 import torch
 
-from photon_ml_tpu_torch import resolve_device
-from photon_ml_tpu_torch.utils import faults
+from photon_ml_tpu_torch import resolve_device, telemetry
+from photon_ml_tpu_torch.utils import faults, locktrace
 from photon_ml_tpu_torch.utils.math import ceil_pow2
 
 # never plan chunks smaller than this: per-chunk launch overhead would
@@ -175,7 +177,8 @@ class StreamStats:
     local epochs."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = locktrace.tracked(threading.Lock(),
+                                       "StreamStats._lock")
         self.total_bytes = 0
         self.chunks_staged = 0
         self.passes = 0
@@ -191,10 +194,12 @@ class StreamStats:
     def note_retry(self) -> None:
         with self._lock:
             self.retries += 1
+        telemetry.counter("stream.retries").inc()
 
     def note_gave_up(self) -> None:
         with self._lock:
             self.gave_up += 1
+        telemetry.counter("stream.gave_up").inc()
 
     def note_staged(self, nbytes: int) -> None:
         with self._lock:
@@ -206,6 +211,10 @@ class StreamStats:
                                             self.resident_chunks)
             self.peak_resident_bytes = max(self.peak_resident_bytes,
                                            self.resident_bytes)
+        # process-global mirror (telemetry.snapshot() aggregates every
+        # Prefetcher; per-instance numbers stay on this object)
+        telemetry.counter("stream.staged_bytes").inc(nbytes)
+        telemetry.counter("stream.chunks_staged").inc()
 
     def note_released(self, nbytes: int) -> None:
         with self._lock:
@@ -222,6 +231,8 @@ class StreamStats:
         with self._lock:
             self.local_epochs += epochs
             self.examples_processed += rows * epochs
+        telemetry.counter("stream.local_epochs").inc(epochs)
+        telemetry.counter("stream.examples").inc(rows * epochs)
 
     def snapshot(self) -> Dict[str, int]:
         with self._lock:
@@ -237,6 +248,10 @@ class StreamStats:
         snap["examples_per_staged_byte"] = (
             snap["examples_processed"] / snap["total_bytes"]
             if snap["total_bytes"] else 0.0)
+        # metrics mirror: the ratio as a gauge, so operators see
+        # work-per-staged-byte without dividing counters themselves
+        telemetry.gauge("stream.examples_per_staged_byte").set(
+            snap["examples_per_staged_byte"])
         return snap
 
 
@@ -467,6 +482,9 @@ class Prefetcher:
                         f"{self.plan.num_chunks} after {attempt} "
                         f"attempt(s)", spec.index) from e
                 self.stats.note_retry()
+                telemetry.event("stage_retry", chunk=spec.index,
+                                attempt=attempt,
+                                error=f"{type(e).__name__}: {e}")
                 # exponential backoff with jitter, so concurrent streams do
                 # not re-hammer a struggling source in lockstep
                 delay = (STAGE_BACKOFF_S * (2 ** (attempt - 1))
@@ -510,8 +528,12 @@ class Prefetcher:
                     if cancel.is_set():
                         return
                     slot = spec.index % self.depth
-                    dev = self._stage_with_retry(spec, jitter, slot, ring,
-                                                 consumer)
+                    # span on the PREFETCH thread: staging gets its own
+                    # track in the trace, overlapping the consumer's solve
+                    with telemetry.span("stage", chunk=spec.index,
+                                        rows=spec.rows):
+                        dev = self._stage_with_retry(spec, jitter, slot, ring,
+                                                     consumer)
                     self.stats.note_staged(_tree_nbytes(dev))
                     q.put((spec, slot, dev))
                 q.put(_DONE)

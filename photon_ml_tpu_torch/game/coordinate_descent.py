@@ -40,10 +40,15 @@ every solve lands in its tracker.  Under an HBM budget a residency manager
 streamed fixed effect's per-visit chunk-stream accounting lands in its
 tracker (`stream`).  The multi-host branches (ROADMAP.md queue A item 20)
 are not ported yet.
+
+Telemetry, as the JAX package's: the loop opens `outer_iteration` ->
+`coordinate_visit` -> solve/objective/validation spans when the tracer is
+armed, counts checkpoint writes, coalesced snapshots and recoveries, and
+sets the `train.host_blocked_s`/`_frac` gauges at the fit's end.  Every
+attribute and gauge is a host value: telemetry adds no device read.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import json
 import logging
@@ -51,14 +56,13 @@ import math
 import os
 import shutil
 import threading
-import time
 import zipfile
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from photon_ml_tpu_torch import resolve_device
+from photon_ml_tpu_torch import resolve_device, telemetry
 from photon_ml_tpu_torch.data.game_data import GameDataset
 from photon_ml_tpu_torch.evaluation.evaluators import Evaluator, MultiEvaluator
 from photon_ml_tpu_torch.game import quarantine as quarantine_mod
@@ -67,7 +71,8 @@ from photon_ml_tpu_torch.models.game import GameModel
 from photon_ml_tpu_torch.ops.losses import TASK_LOSSES, PointwiseLoss
 from photon_ml_tpu_torch.optim.schedule import QuarantineRetrySchedule
 from photon_ml_tpu_torch.optim.types import ConvergenceReason
-from photon_ml_tpu_torch.utils import durable, faults
+from photon_ml_tpu_torch.telemetry.timings import PhaseTimings
+from photon_ml_tpu_torch.utils import durable, faults, locktrace
 
 logger = logging.getLogger("photon_ml_tpu_torch")
 
@@ -97,42 +102,9 @@ class ValidationSpec:
         return self.evaluator(s, dataset.response, dataset.weights)
 
 
-class PhaseTimings(dict):
-    """Contiguous per-fit span accounting: label -> seconds.  Spans are
-    contiguous over the descent loop, so their sum accounts for the fit's
-    wall clock.  `host_blocked` holds, per label, the seconds the host spent
-    waiting on device readbacks."""
-
-    def __init__(self, *args, **kwargs):
-        super().__init__(*args, **kwargs)
-        self.host_blocked: Dict[str, float] = {}
-
-    @contextlib.contextmanager
-    def span(self, label: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self[label] = self.get(label, 0.0) + time.perf_counter() - t0
-
-    @contextlib.contextmanager
-    def blocked(self, label: str):
-        """Time a host-blocking readback into `host_blocked` without opening
-        a new accounting span."""
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.add_blocked(label, time.perf_counter() - t0)
-
-    def add_blocked(self, label: str, seconds: float) -> None:
-        self.host_blocked[label] = self.host_blocked.get(label, 0.0) + seconds
-
-    def host_blocked_total(self) -> float:
-        return float(sum(self.host_blocked.values()))
-
-    def total(self) -> float:
-        return float(sum(self.values()))
+# PhaseTimings lives in telemetry/timings.py, as in the JAX package;
+# re-imported above so `from photon_ml_tpu_torch.game.coordinate_descent
+# import PhaseTimings` keeps working.
 
 
 @dataclasses.dataclass
@@ -164,6 +136,11 @@ class TrackerSummary:
     iteration_cap: Optional[int] = None
     tolerance: Optional[float] = None
     containment: Optional[str] = None
+    # kernel builds and library loads during THIS visit (telemetry's
+    # counterpart of the JAX package's compile watch, core.py): a warm fit
+    # shows 0 everywhere.  None when the tracer is disarmed (the counter
+    # only advances while a tracer is armed)
+    retraces: Optional[int] = None
     # chunk-stream accounting delta of THIS visit (streamed fixed effects
     # only, a StreamStats snapshot diff): staged bytes/chunks, local epochs,
     # examples processed and examples_per_staged_byte.  None when resident
@@ -230,7 +207,8 @@ class CoordinateDescentResult:
         containment outcome counts and the host-blocked seconds of the
         coordinate's spans; beyond the JAX package's keys, the
         value+gradient passes (each one launch of the fixed effect's
-        kernel on the card)."""
+        kernel on the card), and, when a tracer was armed, the kernel
+        builds and loads per coordinate (`retraces`)."""
         out: Dict[str, dict] = {}
         for key, t in sorted(self.trackers.items(),
                              key=lambda kv: (int(kv[0].split("/")[0]), kv[0])):
@@ -250,6 +228,8 @@ class CoordinateDescentResult:
             if t.containment is not None:
                 d["containment"][t.containment] = \
                     d["containment"].get(t.containment, 0) + 1
+            if t.retraces is not None:
+                d["retraces"] = d.get("retraces", 0) + t.retraces
             for name, c in t.reasons.items():
                 d["reasons"][name] = d["reasons"].get(name, 0) + c
             if t.stream is not None:
@@ -378,12 +358,6 @@ class CheckpointState:
 # directories (no or failing manifest, unreferenced) are pruned.
 
 
-def _telemetry_checkpoint(name: str) -> None:
-    """Where the JAX package counts checkpoint writes, coalesced snapshots
-    and recoveries; a no-op until telemetry is ported (ROADMAP.md queue A
-    item 19)."""
-
-
 def verify_checkpoint_dir(dirpath: str) -> Tuple[Optional[bool], str]:
     """-> (ok, reason).  ok=True: manifest present and every listed file
     matches size + checksum.  ok=False: torn or corrupt.  ok=None: no
@@ -497,7 +471,7 @@ def _write_checkpoint(directory: str, iteration: int, model: GameModel,
                 "directory %s; refusing to prune it", old, directory)
             continue
         shutil.rmtree(real, ignore_errors=True)
-    _telemetry_checkpoint("checkpoint.written")
+    telemetry.counter("checkpoint.written").inc()
     logger.info("checkpoint: iteration %d saved to %s", iteration, path)
 
 
@@ -521,8 +495,8 @@ class AsyncCheckpointer:
 
     def __init__(self, directory: str):
         self.directory = directory
-        # a plain condition: lock tracing is ROADMAP.md queue A item 19
-        self._cv = threading.Condition()
+        self._cv = locktrace.tracked(threading.Condition(),
+                                     "AsyncCheckpointer._cv")
         self._pending: Optional[tuple] = None
         self._busy = False
         self._closed = False
@@ -549,7 +523,7 @@ class AsyncCheckpointer:
             if self._closed:
                 raise RuntimeError("AsyncCheckpointer already shut down")
             if self._pending is not None:
-                _telemetry_checkpoint("checkpoint.coalesced")
+                telemetry.counter("checkpoint.coalesced").inc()
             self._pending = snap
             self._cv.notify_all()
 
@@ -563,7 +537,10 @@ class AsyncCheckpointer:
                 snap, self._pending = self._pending, None
                 self._busy = True
             try:
-                _write_checkpoint(self.directory, *snap)
+                # the span runs on THIS background thread: checkpoint
+                # serialization gets its own track in the trace
+                with telemetry.span("checkpoint_write", iteration=snap[0]):
+                    _write_checkpoint(self.directory, *snap)
             except BaseException as e:  # surfaced at submit/shutdown
                 with self._cv:
                     self._error = e
@@ -685,10 +662,16 @@ def _state_to_checkpoint(directory: str, state: dict, relative: bool,
 
 
 def _note_recovery(recovery: dict) -> None:
-    """Where the JAX package counts a recovery and logs its event."""
-    _telemetry_checkpoint("checkpoint.recoveries")
+    """Publish a successful checkpoint recovery: counters always, a run-log
+    event when the tracer is armed (correlated by span id with whatever
+    stage triggered the resume)."""
+    telemetry.counter("checkpoint.recoveries").inc()
     if recovery.get("fallback"):
-        _telemetry_checkpoint("checkpoint.recovery_fallbacks")
+        telemetry.counter("checkpoint.recovery_fallbacks").inc()
+    telemetry.event(
+        "checkpoint_recovery", fallback=recovery.get("fallback"),
+        resumed_from_iteration=recovery.get("resumed_from_iteration"),
+        pruned=len(recovery.get("pruned") or ()))
 
 
 def _fingerprint_mismatch(state: dict, fingerprint: Optional[str],
@@ -1089,6 +1072,7 @@ def run_coordinate_descent(
             trackers[key].containment = ("rolled_back" if not healthy
                                          else p["containment"])
             trackers[key].stream = p["stream"]
+            trackers[key].retraces = p["retraces"]
             record(obj, metric_vals, p["models"], healthy)
         pending.clear()
         # containment AFTER the iteration's bookkeeping: the retry runs at
@@ -1120,7 +1104,16 @@ def run_coordinate_descent(
     loop_ok = False
     try:
         for it in range(start_iteration, num_iterations):
+            # the trace's outer_iteration -> coordinate_visit ->
+            # solve/objective/validation spans; push/pop keeps the loop
+            # body as it is, and an exception path (Preempted, a fatal
+            # staging error) leaves them open for Tracer.finish() to heal
+            it_span = telemetry.push("outer_iteration", iteration=it)
             for name in updating_sequence:
+                visit_span = telemetry.push("coordinate_visit",
+                                            coordinate=name, iteration=it)
+                retraces0 = (telemetry.retrace_count() if telemetry.armed()
+                             else None)
                 coord = coordinates[name]
                 solve_key = f"{it}/{name}/solve"
                 frozen = monitor.is_frozen(name)
@@ -1134,7 +1127,8 @@ def run_coordinate_descent(
                 result = None
                 health = None
                 stream_before = _stream_snapshot(coord)
-                with spans.span(solve_key):
+                with spans.span(solve_key, name="solve", coordinate=name,
+                                iteration=it):
                     if not frozen:
                         if residency is not None:
                             residency.before_update(name)
@@ -1172,7 +1166,8 @@ def run_coordinate_descent(
                         trackers[key].containment = "frozen"
 
                 obj_key = f"{it}/{name}/objective"
-                with spans.span(obj_key):
+                with spans.span(obj_key, name="objective", coordinate=name,
+                                iteration=it):
                     if not frozen:
                         reg_terms[name] = coord.regularization_term(models[name])
                     obj_dev = objective(total)
@@ -1192,7 +1187,8 @@ def run_coordinate_descent(
                 metrics: List[object] = []
                 if do_validation:
                     val_key = f"{it}/{name}/validation"
-                    with spans.span(val_key):
+                    with spans.span(val_key, name="validation",
+                                    coordinate=name, iteration=it):
                         val_scores_by_coord[name] = \
                             models[name].score_dataset(validation_dataset)
                         val_total = sum(val_scores_by_coord.values(), val_zeros)
@@ -1205,6 +1201,11 @@ def run_coordinate_descent(
                     # training blocks drop now; queued kernels keep theirs
                     residency.after_update(name)
                 stream = _stream_delta(coord, stream_before)
+                # kernel loads during this visit: a library loads when a
+                # wrapper first launches its kernel, so the count is
+                # settled here in pipelined mode too
+                retraces = (telemetry.retrace_count() - retraces0
+                            if retraces0 is not None else None)
                 if pipelined:
                     pending.append({"it": it, "name": name,
                                     "solve_key": solve_key, "result": result,
@@ -1212,10 +1213,13 @@ def run_coordinate_descent(
                                     "objective": obj_dev, "health": health_dev,
                                     "metrics": metrics, "models": dict(models),
                                     "prev_model": prev_model, "stream": stream,
+                                    "retraces": retraces,
                                     "containment": "frozen" if frozen else None})
                 else:
                     trackers[key].stream = stream
+                    trackers[key].retraces = retraces
                     record(obj, metrics, models)
+                telemetry.pop(visit_span)
 
                 if faults.preemption_requested() and name != updating_sequence[-1]:
                     # the in-flight update is done: settle the iteration's
@@ -1223,16 +1227,19 @@ def run_coordinate_descent(
                     # durable record covers the completed iterations; this
                     # partial iteration retrains)
                     if pipelined:
-                        with spans.span(f"{it}/flush"), spans.blocked(f"{it}/flush"):
+                        with spans.span(f"{it}/flush", host_blocked=True,
+                                        name="flush", iteration=it):
                             flush_pending()
                     preempt(it)
             if pipelined:
                 # outer-iteration boundary: the one host sync of the iteration
-                with spans.span(f"{it}/flush"), spans.blocked(f"{it}/flush"):
+                with spans.span(f"{it}/flush", host_blocked=True,
+                                name="flush", iteration=it):
                     flush_pending()
 
             if checkpoint_dir is not None:
-                with spans.span(f"{it}/checkpoint"):
+                with spans.span(f"{it}/checkpoint", name="checkpoint",
+                                iteration=it):
                     ckpt_model = GameModel(dict(models), task_type)
                     if pipelined:
                         # host snapshots, taken while the device is idle
@@ -1251,6 +1258,7 @@ def run_coordinate_descent(
                                           objective_history, validation_history,
                                           best_model, best_metric,
                                           checkpoint_fingerprint)
+            telemetry.pop(it_span)
             if faults.preemption_requested():
                 # iteration boundary: this iteration's record is submitted
                 # (pipelined) or on disk (strict): drain and exit
@@ -1278,6 +1286,13 @@ def run_coordinate_descent(
                            or spec.evaluator.better_than(v, best_metric)):
                 best_metric = v
                 best_model = GameModel(dict(models), task_type)
+
+    # host-blocked accounting into the registry: host floats only
+    wall = spans.total()
+    blocked = spans.host_blocked_total()
+    telemetry.gauge("train.host_blocked_s").set(round(blocked, 4))
+    telemetry.gauge("train.host_blocked_frac").set(
+        round(blocked / wall, 6) if wall > 0 else 0.0)
 
     final = GameModel(dict(models), task_type)
     if not do_validation:

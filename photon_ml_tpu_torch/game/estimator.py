@@ -13,8 +13,10 @@ configuration fingerprint the JAX package computes), the non-finite solve
 quarantine, solver schedules (a coordinate's own schedule over the
 training config's) and HBM budgets (`hbm_budget_bytes`: streamed fixed
 effects and residency rotation, game/residency.py; the result's
-`residency` holds the byte accounts).  Not ported yet: meshes (ROADMAP.md
-queue A item 20), events and telemetry (item 19).
+`residency` holds the byte accounts).  An `emitter` (utils/events.py)
+receives TrainingStart, OptimizationLog and TrainingFinish events, and an
+armed tracer sees each fit as a `fit` span, as in the JAX package.  Not
+ported yet: meshes (ROADMAP.md queue A item 20).
 """
 from __future__ import annotations
 
@@ -23,11 +25,12 @@ import hashlib
 import itertools
 import json
 import os
+import time
 from typing import Dict, List, Optional, Sequence
 
 import torch
 
-from photon_ml_tpu_torch import resolve_device
+from photon_ml_tpu_torch import resolve_device, telemetry
 from photon_ml_tpu_torch.data.game_data import GameDataset
 from photon_ml_tpu_torch.evaluation.evaluators import (
     default_validation_evaluator_for_task, parse_evaluator,
@@ -46,6 +49,10 @@ from photon_ml_tpu_torch.game.coordinates import (
 )
 from photon_ml_tpu_torch.game.residency import ResidencyManager
 from photon_ml_tpu_torch.models.game import GameModel
+from photon_ml_tpu_torch.utils.events import (
+    EventEmitter, OptimizationLogEvent, TrainingFinishEvent,
+    TrainingStartEvent,
+)
 
 
 @dataclasses.dataclass
@@ -71,13 +78,16 @@ class GameResult:
 class GameEstimator:
     """Trains a GameTrainingConfig on one device (None means cuda, which
     raises without CUDA) in `dtype` (float32 by default, as the JAX
-    package computes without x64)."""
+    package computes without x64).  `emitter` receives the fit's
+    training events."""
 
     def __init__(self, config: GameTrainingConfig, device=None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 emitter: Optional[EventEmitter] = None):
         self.config = config
         self.device = resolve_device(device)
         self.dtype = dtype
+        self.emitter = emitter
 
     def _build_coordinates(self, dataset: GameDataset) -> Dict[str, Coordinate]:
         coords: Dict[str, Coordinate] = {}
@@ -180,9 +190,15 @@ class GameEstimator:
         already there (written by this package or the JAX package under the
         same configuration fingerprint); how it was recovered is the
         result's `checkpoint_recovery`."""
+        if self.emitter is not None:
+            self.emitter.send_event(TrainingStartEvent(time.time()))
+        # root span of the whole fit (push/pop: an exception path is healed
+        # by Tracer.finish() at export time)
+        fit_span = telemetry.push("fit", task=self.config.task_type,
+                                  coordinates=len(self.config.coordinates))
         spans = PhaseTimings()
         # coordinate construction includes the random-effect bucketing
-        with spans.span("build/coordinates"):
+        with spans.span("build/coordinates", name="build"):
             coords = self._build_coordinates(dataset)
         residency = self._residency_manager(coords, dataset)
         specs = (self._validation_specs(evaluator_specs)
@@ -209,6 +225,15 @@ class GameEstimator:
             residency=residency)
         validation = {name: hist[-1] for name, hist in
                       descent.validation_history.items() if hist}
+        if self.emitter is not None:
+            self.emitter.send_event(OptimizationLogEvent(
+                regularization_weights={
+                    n: c.optimization.regularization_weight
+                    for n, c in self.config.coordinates.items()},
+                objective_history=list(descent.objective_history),
+                final_metrics=dict(validation)))
+            self.emitter.send_event(TrainingFinishEvent(time.time()))
+        telemetry.pop(fit_span)
         return GameResult(model=descent.best_model, config=self.config,
                           objective_history=descent.objective_history,
                           validation=validation, descent=descent,
@@ -242,7 +267,8 @@ class GameEstimator:
             for n, opt in zip(names, combo):
                 coords[n] = dataclasses.replace(coords[n], optimization=opt)
             cfg = dataclasses.replace(self.config, coordinates=coords)
-            sub = GameEstimator(cfg, self.device, self.dtype)
+            sub = GameEstimator(cfg, self.device, self.dtype,
+                                emitter=self.emitter)
             combo_ckpt = (None if checkpoint_dir is None else
                           os.path.join(checkpoint_dir, f"combo-{i:03d}"))
             results.append(sub.fit(

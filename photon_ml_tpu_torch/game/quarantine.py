@@ -27,8 +27,8 @@ Three pieces, all batched or rare:
 
 Objective-only divergence (finite coefficients, non-finite data term) is
 caught by the same combined flag; its rollback is host-side at the flush.
-Containment events are not yet counted in a telemetry registry (ROADMAP.md
-queue A item 19): `_telemetry_event` is the no-op that marks the spot.
+Each containment action increments `train.quarantine.<action>` and emits a
+`quarantine` event, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -38,6 +38,7 @@ from typing import List, Optional, Tuple
 
 import torch
 
+from photon_ml_tpu_torch import telemetry
 from photon_ml_tpu_torch.models.coefficients import Coefficients
 from photon_ml_tpu_torch.models.game import (
     FactoredRandomEffectModel, FixedEffectModel, MatrixFactorizationModel,
@@ -119,12 +120,6 @@ def poison_model(model):
     return _with_coefficient_arrays(model, tuple(a * float("nan") for a in arrays))
 
 
-def _telemetry_event(action: str, iteration: int, coordinate: str) -> None:
-    """Where the JAX package counts the containment action and logs a
-    run-log event; a no-op until telemetry is ported (ROADMAP.md queue A
-    item 19)."""
-
-
 class QuarantineMonitor:
     """Host-side containment policy and event log.
 
@@ -150,7 +145,13 @@ class QuarantineMonitor:
         e = {"iteration": int(iteration), "coordinate": coordinate,
              "action": action, **extra}
         self.events.append(e)
-        _telemetry_event(action, int(iteration), coordinate)
+        # containment is observable outside the fit result too: a counter
+        # per action in the registry, and — when the tracer is armed — a
+        # run-log event correlated by span id with the coordinate visit
+        # whose flush discovered the divergence
+        telemetry.counter(f"train.quarantine.{action}").inc()
+        telemetry.event("quarantine", iteration=int(iteration),
+                        coordinate=coordinate, action=action)
         logger.warning("quarantine: iter %d coordinate %-16s %s %s",
                        iteration, coordinate, action, extra or "")
         return e

@@ -130,7 +130,8 @@ class GameEstimatorEvaluationFunction(EvaluationFunction[GameResult]):
             # regularization weights (custom search subclasses) pays the
             # full rebuild the shared sweep state cannot serve
             result = GameEstimator(config, device=self.estimator.device,
-                                   dtype=self.estimator.dtype).fit(
+                                   dtype=self.estimator.dtype,
+                                   emitter=self.estimator.emitter).fit(
                 self.data, self.validation_data, self.evaluator_specs,
                 initial_model=initial)
         self.observe(result)

@@ -28,7 +28,12 @@ The JAX package counts its compiled-program dispatches; PyTorch runs
 eagerly, so the candidate lane records instead what the port can count:
 per visit, the batched solves' value+gradient rounds, the host's
 read-backs of lane flags and the kernels' launches (`visits`).  The
-`sweep.*` telemetry counters are ROADMAP.md queue A item 19.
+`sweep.candidates` and `sweep.dispatches` counters and the `sweep/prepare`
+and `sweep/vmapped` spans are the JAX package's.  `sweep.dispatches`
+counts the candidate lane's device dispatch groups, each the eager
+launches that stand for one of the JAX package's compiled programs: a
+fixed effect's batched solve, a random-effect bucket's batched solve, a
+random effect's rescore, and one validation rescore per coordinate.
 """
 from __future__ import annotations
 
@@ -39,6 +44,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from photon_ml_tpu_torch import telemetry
 from photon_ml_tpu_torch.data.game_data import GameDataset
 from photon_ml_tpu_torch.game.config import GameTrainingConfig
 from photon_ml_tpu_torch.game.coordinate_descent import (
@@ -76,11 +82,6 @@ def _host_split(reg, weight: float) -> Tuple[float, float]:
         return 0.0, w
     a = float(reg.elastic_net_alpha)
     return a * w, (1.0 - a) * w
-
-
-def _count(name: str, value: int) -> None:
-    """Where the JAX package increments its `sweep.*` telemetry counter; a
-    no-op until telemetry is ported (ROADMAP.md queue A item 19)."""
 
 
 def _reason_counts(reason) -> Dict[str, int]:
@@ -166,9 +167,10 @@ class SweepEvaluator:
         self.validation_data = validation_data
         self.evaluator_specs = evaluator_specs
         self._loss = TASK_LOSSES[self.config.task_type]
-        self.coords = estimator._build_coordinates(data)
-        self.specs = (estimator._validation_specs(evaluator_specs)
-                      if validation_data is not None else [])
+        with telemetry.span("sweep/prepare"):
+            self.coords = estimator._build_coordinates(data)
+            self.specs = (estimator._validation_specs(evaluator_specs)
+                          if validation_data is not None else [])
         self._neutral = _neutralized(self.config)
         # flat device vectors shared by every candidate of the candidate
         # lane (the path lane's run_coordinate_descent makes its own)
@@ -270,7 +272,7 @@ class SweepEvaluator:
                 "more than regularization weights; use a fresh "
                 "SweepEvaluator (or a full GameEstimator.fit)")
         if not _counted:
-            _count("sweep.candidates", 1)
+            telemetry.counter("sweep.candidates").inc()
         self._apply_weights(config)
         residency = self.estimator._residency_manager(self.coords, self.data)
         schedules = {name: (c.solver_schedule or config.solver_schedule)
@@ -302,7 +304,7 @@ class SweepEvaluator:
         (reference: ModelTraining.scala:160-196's lambda-sweep warm start;
         glmnet's regularization-path discipline).  Results return in the
         CALLER's candidate order."""
-        _count("sweep.candidates", len(configs))
+        telemetry.counter("sweep.candidates").inc(len(configs))
         order = sorted(range(len(configs)),
                        key=lambda k: -self._total_reg(configs[k]))
         results: List[Optional[GameResult]] = [None] * len(configs)
@@ -439,7 +441,8 @@ class SweepEvaluator:
         K = len(configs)
         num_iters = (num_outer_iterations if num_outer_iterations is not None
                      else self.config.num_outer_iterations)
-        _count("sweep.candidates", K)
+        telemetry.counter("sweep.candidates").inc(K)
+        dispatches = 0
         seq = list(self.config.updating_sequence)
         labels, weights, base_offsets = self._flat_vectors()
         n = self.data.num_rows
@@ -468,52 +471,60 @@ class SweepEvaluator:
         reasons_acc: Dict[str, torch.Tensor] = {}
         passes_acc: Dict[str, torch.Tensor] = {}
         self.visits = []
-        for it in range(num_iters):
-            for name in seq:
-                coord = self.coords[name]
-                partial = total - scores[name]
-                off_k = base_offsets + partial                # [K, n]
-                t0 = time.perf_counter()
-                visit = SweepVisit(it, name, 0, None, 0, 0, 0.0)
-                update = (self._fe_visit if isinstance(coord, FixedEffectCoordinate)
-                          else self._re_visit)
-                c, s, pen, it_k, reason, passes = update(visit, coord, coeffs[name],
-                                                         off_k, rw[name])
-                visit.seconds = time.perf_counter() - t0
-                self.visits.append(visit)
-                coeffs[name] = c
-                scores[name] = s
-                reg_pens[name] = pen
-                total = partial + s
-                history.append(self._data_term(total, base_offsets, labels, weights)
-                               + sum(reg_pens.values()))
-                key = f"{it}/{name}"
-                iters_acc[key] = it_k
-                reasons_acc[key] = reason
-                passes_acc[key] = passes
+        with telemetry.span("sweep/vmapped", candidates=K):
+            for it in range(num_iters):
+                for name in seq:
+                    coord = self.coords[name]
+                    partial = total - scores[name]
+                    off_k = base_offsets + partial                # [K, n]
+                    t0 = time.perf_counter()
+                    visit = SweepVisit(it, name, 0, None, 0, 0, 0.0)
+                    update = (self._fe_visit if isinstance(coord, FixedEffectCoordinate)
+                              else self._re_visit)
+                    c, s, pen, it_k, reason, passes = update(visit, coord, coeffs[name],
+                                                             off_k, rw[name])
+                    visit.seconds = time.perf_counter() - t0
+                    self.visits.append(visit)
+                    coeffs[name] = c
+                    scores[name] = s
+                    reg_pens[name] = pen
+                    total = partial + s
+                    history.append(self._data_term(total, base_offsets, labels, weights)
+                                   + sum(reg_pens.values()))
+                    key = f"{it}/{name}"
+                    iters_acc[key] = it_k
+                    reasons_acc[key] = reason
+                    passes_acc[key] = passes
+                    # one batched solve (a fixed effect), or one per bucket
+                    # and the rescore (a random effect)
+                    dispatches += (1 if visit.buckets is None
+                                   else len(visit.buckets) + 1)
 
-        # -- validation: final models, one [K, n_val] pass --------------------
-        val_matrix = None
-        if self.validation_data is not None and self.specs:
-            val_total = zeros(K, self.validation_data.num_rows)
-            for name in seq:
-                coord = self.coords[name]
-                shard = self.validation_data.device_shard(
-                    coord.config.feature_shard, self.device, self.dtype)
-                if isinstance(coord, FixedEffectCoordinate):
-                    val_total = val_total + lanes_matvec(shard, coeffs[name])
-                else:
-                    lanes = self._validation_lanes(name, models0[name])
-                    val_total = val_total + self._re_scores(coord, coeffs[name],
-                                                            shard, lanes)
-            val_matrix = val_total.cpu().numpy()
+            # -- validation: final models, one [K, n_val] pass ----------------
+            val_matrix = None
+            if self.validation_data is not None and self.specs:
+                val_total = zeros(K, self.validation_data.num_rows)
+                for name in seq:
+                    coord = self.coords[name]
+                    shard = self.validation_data.device_shard(
+                        coord.config.feature_shard, self.device, self.dtype)
+                    if isinstance(coord, FixedEffectCoordinate):
+                        val_total = val_total + lanes_matvec(shard, coeffs[name])
+                    else:
+                        lanes = self._validation_lanes(name, models0[name])
+                        val_total = val_total + self._re_scores(coord, coeffs[name],
+                                                                shard, lanes)
+                    dispatches += 1
+                val_matrix = val_total.cpu().numpy()
 
-        # ONE batched read-back for the objectives and diagnostics
-        host = lambda d: {k: v.cpu().numpy() for k, v in d.items()}
-        hist_host = (torch.stack(history).cpu().numpy() if history
-                     else np.zeros((0, K)))
-        iters_host, reasons_host, passes_host = (
-            host(iters_acc), host(reasons_acc), host(passes_acc))
+            # ONE batched read-back for the objectives and diagnostics
+            host = lambda d: {k: v.cpu().numpy() for k, v in d.items()}
+            hist_host = (torch.stack(history).cpu().numpy() if history
+                         else np.zeros((0, K)))
+            iters_host, reasons_host, passes_host = (
+                host(iters_acc), host(reasons_acc), host(passes_acc))
+
+        telemetry.counter("sweep.dispatches").inc(dispatches)
 
         val_metrics: List[Dict[str, float]] = [{} for _ in range(K)]
         if val_matrix is not None:

@@ -16,7 +16,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "photon_ml_tpu_torch"
@@ -64,11 +64,30 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
+#: every nvcc build and library load of this process, in order:
+#: (library, nvcc ran, seconds).  cli.train's `compile_s`/`compile_count`
+#: read it; each entry is also reported to the telemetry compile watch
+LOADS: List[Tuple[str, bool, float]] = []
+
+
+def _report(library: str, nvcc: bool, seconds: float) -> None:
+    from photon_ml_tpu_torch.telemetry import core
+    LOADS.append((library, nvcc, seconds))
+    core.note_kernel_library(library, nvcc, seconds)
+
+
 def build_all(names=tuple(SIGNATURES)) -> Dict[str, float]:
     """Compile every stale library, one nvcc per source, all started
     together.  Returns {name: seconds} for the sources it compiled; the
     compiler's register/shared-memory report lands beside each library as
-    `<lib>.log`."""
+    `<lib>.log`.  Each compile is reported as a build (`LOADS`)."""
+    seconds = _build_stale(names)
+    for name, s in seconds.items():
+        _report(name, True, s)
+    return seconds
+
+
+def _build_stale(names) -> Dict[str, float]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = {}
     for name in names:
@@ -97,11 +116,15 @@ def build_all(names=tuple(SIGNATURES)) -> Dict[str, float]:
 
 @functools.lru_cache(maxsize=None)
 def load_library(name: str) -> ctypes.CDLL:
-    """The built library for kernel `name`, with argtypes/restype set."""
-    build_all((name,))
+    """The built library for kernel `name`, with argtypes/restype set.
+    The load (with its build, if nvcc ran for it) is reported once
+    (`LOADS`)."""
+    t0 = time.perf_counter()
+    built = _build_stale((name,))
     lib = ctypes.CDLL(str(library_path(name)))
     for fn, (restype, argtypes) in SIGNATURES[name].items():
         f = getattr(lib, fn)
         f.restype = restype
         f.argtypes = argtypes
+    _report(name, name in built, time.perf_counter() - t0)
     return lib

@@ -29,7 +29,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from photon_ml_tpu_torch import resolve_device
+from photon_ml_tpu_torch import resolve_device, telemetry
 from photon_ml_tpu_torch.data.streaming import (
     STAGE_BACKOFF_JITTER, STAGE_BACKOFF_S, STAGE_MAX_ATTEMPTS, ChunkPlan,
     ChunkSpec, CudaStaging, Prefetcher, StreamStats, pin_host_array,
@@ -276,6 +276,10 @@ class ChunkedGLMObjective:
                             f"{spec.index} of {self.plan.num_chunks} "
                             f"after {attempt} attempt(s)",
                             spec.index) from e
+                    telemetry.counter("stream.local_solve_retries").inc()
+                    telemetry.event("local_solve_retry", chunk=spec.index,
+                                    attempt=attempt,
+                                    error=f"{type(e).__name__}: {e}")
                     delay = (STAGE_BACKOFF_S * (2 ** (attempt - 1))
                              * (1.0 + STAGE_BACKOFF_JITTER
                                 * jitter.random()))

@@ -6,8 +6,8 @@ Everything that crosses a tier boundary goes through `with_retries`: the
 same transient/fatal classification and jittered exponential backoff as
 the streaming Prefetcher (data/streaming.py), so a flaky transfer is
 absorbed bit-exact while a fatal error names the block it killed.  The
-JAX package's `store.*` telemetry counters are not ported yet (ROADMAP.md
-queue A item 19); the counts live on StoreStats.
+counts live on StoreStats and are mirrored into the telemetry registry as
+`store.<field>` counters, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -16,7 +16,8 @@ import threading
 import time
 from typing import Callable, Dict, Optional
 
-from photon_ml_tpu_torch.utils import faults
+from photon_ml_tpu_torch import telemetry
+from photon_ml_tpu_torch.utils import faults, locktrace
 
 RETRY_MAX_ATTEMPTS = 3
 RETRY_BACKOFF_S = 0.05
@@ -68,13 +69,14 @@ class StoreStats:
     """Row/byte accounting for one store, in the JAX package's fields
     (hot/warm/cold lookups, promotions and spills belong to the row tables
     of ROADMAP.md queue A item 22; the training tenant counts evictions,
-    fetches and retries).  Thread-safe."""
+    fetches and retries).  Thread-safe.  Every note is also counted in the
+    registry's `store.<field>` counters."""
 
     FIELDS = ("hot_hits", "warm_hits", "cold_misses", "promotions",
               "spills", "evictions", "fetches", "retries")
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = locktrace.tracked(threading.Lock(), "StoreStats._lock")
         for f in self.FIELDS:
             setattr(self, f, 0)
 
@@ -83,6 +85,9 @@ class StoreStats:
             return
         with self._lock:
             setattr(self, field, getattr(self, field) + n)
+        # registry mirror: telemetry.snapshot() carries the counts without
+        # reaching into any store instance
+        telemetry.counter(f"store.{field}").inc(n)
 
     def note_eviction(self, n: int = 1) -> None:
         self._note("evictions", n)

@@ -14,6 +14,7 @@ import threading
 from typing import Callable, Dict
 
 from photon_ml_tpu_torch.store.base import StoreStats, with_retries
+from photon_ml_tpu_torch.utils import locktrace
 
 
 class BlockHandle:
@@ -41,7 +42,7 @@ class BlockStore:
 
     def __init__(self):
         self.stats = StoreStats()
-        self._lock = threading.Lock()
+        self._lock = locktrace.tracked(threading.Lock(), "BlockStore._lock")
         self._handles: Dict[str, BlockHandle] = {}
 
     def register(self, name: str, *, evict: Callable[[], None],

@@ -6,9 +6,8 @@ so a fault plan written for either package loads in the other.  The port
 threads the sites its subsystems have (checkpoint.write,
 checkpoint.fsync, model.save, model.load, solve.poison); the others are
 registered so that such plans load, and fire once their subsystems are
-ported.  Fired faults are not yet counted in a telemetry registry
-(ROADMAP.md queue A item 19): `_telemetry_fault` is the no-op that marks
-the spot.
+ported.  A fired fault increments `faults.fired` and emits a `fault`
+event through the port's telemetry, as in the JAX package.
 
 The reference Photon ML inherited fault tolerance for free from Spark's
 lineage-based recovery (GLMix, KDD'16); a JAX rebuild has to build its own —
@@ -324,8 +323,9 @@ class FaultPlan:
                     f"{list(SITES[s.site])} (see utils.faults.SITES)")
         self.seed = int(seed)
         self._rng = random.Random(self.seed)
-        # a plain lock: lock tracing is ROADMAP.md queue A item 19
-        self._lock = threading.Lock()
+        from photon_ml_tpu_torch.utils import locktrace
+        self._lock = locktrace.tracked(threading.Lock(),
+                                       "FaultPlan._lock")
 
     # -- JSON round-trip (PHOTON_FAULT_PLAN / --fault-plan) ----------------
     @staticmethod
@@ -376,7 +376,15 @@ class FaultPlan:
             return None
         logger.warning("fault injection: site=%s ctx=%s action=%s",
                        site, ctx, action)
-        _telemetry_fault(site, action, ctx)
+        # telemetry correlation: the fired fault lands in the run log /
+        # trace attached to whatever span is active at the injection site
+        # (a chunk-staging span, a coordinate visit, a checkpoint write).
+        # Import here, not at module top: faults must stay importable with
+        # zero package dependencies for subprocess children arming early.
+        from photon_ml_tpu_torch import telemetry
+        telemetry.counter("faults.fired").inc()
+        telemetry.event("fault", site=site, action=action,
+                        **{k: str(v) for k, v in ctx.items()})
         if action == "transient":
             raise TransientFault(f"injected transient fault at {site!r} "
                                  f"(ctx {ctx})")
@@ -390,12 +398,6 @@ class FaultPlan:
             os.kill(os.getpid(), signal.SIGTERM)
             return None
         return action  # "poison": caller applies the corruption
-
-
-def _telemetry_fault(site: str, action: str, ctx: Dict[str, object]) -> None:
-    """Where the JAX package counts the fired fault and logs a run-log
-    event; a no-op until telemetry is ported (ROADMAP.md queue A item
-    19)."""
 
 
 # -- process-global activation ------------------------------------------------

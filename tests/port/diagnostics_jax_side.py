@@ -104,6 +104,28 @@ def _classes():
     return OptimizerConfig, OptimizerType, RegularizationContext, RegularizationType
 
 
+# the JAX CLI's Avro read keeps float32 features under --x64, and its
+# bootstrap and learning curves keep that dtype; for these runs they get
+# the shard widened to float64, the precision the port's CLI casts it to
+# (the feature statistics stay on the read's float32 in both packages)
+WIDENED_RUNS = ("glm_avro_full",)
+
+
+@contextlib.contextmanager
+def _widened_fits():
+    from photon_ml_tpu import diagnostics
+    saved = diagnostics.bootstrap_training, diagnostics.fitting_diagnostic
+
+    def widened(fn):
+        return lambda x, *args, **kwargs: fn(np.asarray(x, dtype=np.float64),
+                                             *args, **kwargs)
+    diagnostics.bootstrap_training, diagnostics.fitting_diagnostic = map(widened, saved)
+    try:
+        yield
+    finally:
+        diagnostics.bootstrap_training, diagnostics.fitting_diagnostic = saved
+
+
 def _run(out_dir: Path) -> dict:
     from photon_ml_tpu.cli import diagnose
     from photon_ml_tpu.diagnostics import bootstrap_training, fitting_diagnostic
@@ -128,7 +150,8 @@ def _run(out_dir: Path) -> dict:
             out["errors"][name] = str(e)
     for name, argv in json.loads((out_dir / "cli_runs.json").read_text()).items():
         stdout = io.StringIO()
-        with contextlib.redirect_stdout(stdout):
+        widened = _widened_fits() if name in WIDENED_RUNS else contextlib.nullcontext()
+        with widened, contextlib.redirect_stdout(stdout):
             rc = diagnose.main(argv + ["--output-dir", str(out_dir / "jax" / name), "--x64"])
         out["cli"][name] = {"rc": rc, "stdout": stdout.getvalue().strip().splitlines()[-1]}
     return out

@@ -1356,6 +1356,10 @@ def _run_stream(out: dict) -> None:
             res.descent.solver_diagnostics()))
         out[f"res/{name}/trackers"] = np.asarray(json.dumps(
             {k: t.stream for k, t in res.descent.trackers.items()}))
+    # the telemetry parity test's streamed fit: the streamed fit again
+    # under an armed tracer (its programs are compiled by now)
+    import telemetry_jax_side as tj
+    out[tj.STREAMED_KEY] = np.asarray(tj.traced_record("streamed", None, budget))
 
 
 def run_jax_side(what: str, out: Path) -> dict:

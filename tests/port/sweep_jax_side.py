@@ -4,7 +4,8 @@
     python tests/port/sweep_jax_side.py sweep OUT.npz
 
 It runs the JAX package's SweepEvaluator (candidate lane, path lane,
-eligibility and compatibility refusals), a GaussianProcessSearch over its
+eligibility and compatibility refusals; one candidate lane traced for
+test_torch_telemetry.py), a GaussianProcessSearch over its
 GameEstimatorEvaluationFunction, and jax.vmap of one solve over per-lane
 RegWeights, on the CPU in float64, and writes the results to OUT.npz.
 The vmapped GAME programs compile in this process, never in the test
@@ -195,6 +196,10 @@ def _run_sweep(out: dict) -> None:
             [cfg(d) for d in candidate_dicts(case, vmap_weights())])
         for k, res in enumerate(results):
             store_result(out, f"vmap/{case}/{k}", res)
+    # the telemetry parity test's sweep: an "l2" candidate lane again under
+    # an armed tracer (its programs are compiled by now)
+    import telemetry_jax_side as tj
+    out[tj.SWEEP_KEY] = np.asarray(tj.traced_record("sweep", None))
 
     for name, (case, warm) in PATH_CASES.items():
         train, val = data[False]
@@ -250,6 +255,17 @@ def run_jax_side(what: str, out: Path) -> dict:
         raise RuntimeError(f"the JAX side failed:\n{proc.stderr[-4000:]}")
     with np.load(out) as z:
         return {k: z[k] for k in z.files}
+
+
+# the sweep mode's results, shared by the two test modules that read them
+# (one subprocess per test process)
+_SWEEP_RESULTS: dict = {}
+
+
+def sweep_results(out: Path) -> dict:
+    if not _SWEEP_RESULTS:
+        _SWEEP_RESULTS.update(run_jax_side("sweep", out))
+    return _SWEEP_RESULTS
 
 
 def main(argv) -> int:

@@ -13,7 +13,8 @@ validation metrics within 1e-10 relative, the same configurations and
 row counts, index maps equal, saved models scoring within 1e-9 relative
 of each other and the scores written by cli.score likewise.  Then the
 port's own flags: every flag of a subsystem not ported yet exits naming
-its ROADMAP item, and without CUDA the default device exits non-zero.
+its ROADMAP item, each telemetry flag does its work, and without CUDA the
+default device exits non-zero.
 """
 import contextlib
 import io
@@ -114,8 +115,11 @@ def test_train_summaries_match_jax(runs, name):
     for key in set(jax) - {"ingest_s", "wall_s", "host_blocked_s", "output"}:
         assert key in port, key
     assert port["timing_mode"] == "pipelined"
-    for key in ("mesh", "telemetry", "compile_s"):
-        assert port[key] is None
+    assert port["mesh"] is None
+    # the telemetry snapshot's instruments are the JAX CLI's; no kernel is
+    # built or loaded on the CPU
+    assert sorted(port["telemetry"]["metrics"]) == sorted(jax["telemetry"]["metrics"])
+    assert port["compile_count"] == 0 and port["compile_s"] == 0.0
     # residency accounting (always kept; it evicts only under a budget)
     for key in ("hbm_budget_bytes", "hbm_residency"):
         assert port[key] == jax[key], key
@@ -187,10 +191,6 @@ def test_scores_match_jax(runs, name):
 
 
 UNPORTED = {
-    "--event-listener": (["--event-listener", "a.B"], 19),
-    "--trace-out": (["--trace-out", "t.json"], 19),
-    "--run-log": (["--run-log", "r.jsonl"], 19),
-    "--profile": (["--profile"], 19),
     "--coordinator": (["--coordinator", "localhost:1"], 20),
     "--num-processes": (["--num-processes", "2"], 20),
     "--process-id": (["--process-id", "0"], 20),
@@ -205,6 +205,50 @@ def test_unported_flags_exit_naming_their_item(tmp_path, flag):
         train_cli.main(["--train-data", "x.npz", "--output-dir", str(tmp_path),
                         "--device", "cpu", *extra])
     assert f"item {item}" in str(e.value) and flag.split()[0] in str(e.value)
+
+
+TELEMETRY_FLAGS = ("--event-listener", "--trace-out", "--run-log", "--profile")
+
+
+@pytest.fixture(scope="module")
+def telemetry_run(runs, tmp_path_factory):
+    """The legacy LIBSVM job (one fit) with the four flags that exited
+    naming item 19 before the port had telemetry: -> (output root, the
+    summary, the events the listener saw)."""
+    import telemetry_jax_side as tj
+    out = tmp_path_factory.mktemp("telemetry_flags")
+    name, kind, argv = next(j for j in side.cli_jobs(runs[0]) if j[0] == "legacy_libsvm")
+    tj.RecordingListener.seen.clear()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert train_cli.main(side.cli_job_argv(name, kind, argv, out) + [
+            "--device", "cpu", "--event-listener", "telemetry_jax_side.RecordingListener",
+            "--trace-out", str(out / "trace.json"), "--run-log", str(out / "run.jsonl"),
+            "--profile"]) == 0
+    return out, json.loads(buf.getvalue().strip().splitlines()[-1]), list(
+        tj.RecordingListener.seen)
+
+
+@pytest.mark.parametrize("flag", TELEMETRY_FLAGS)
+def test_telemetry_flags_work(runs, telemetry_run, flag):
+    """Each flag does its work, and the fit is the untraced job's."""
+    from photon_ml_tpu_torch.telemetry import distributed, export
+    out, summary, seen = telemetry_run
+    assert summary["final_objective"] == runs[1]["legacy_libsvm"][0]["final_objective"]
+    if flag == "--event-listener":
+        assert seen == ["SetupEvent", "TrainingStartEvent", "OptimizationLogEvent",
+                        "TrainingFinishEvent"]
+    elif flag == "--trace-out":
+        assert summary["trace_out"] == str(out / "trace.json")
+        trace = json.loads((out / "trace.json").read_text())
+        assert export.validate_chrome_trace(trace) == []
+        assert {"fit", "outer_iteration", "coordinate_visit", "solve"} <= \
+            {e["name"] for e in trace["traceEvents"]}
+    elif flag == "--run-log":
+        log = distributed.parse_run_log(str(out / "run.jsonl"))
+        assert len(log["spans"]) == summary["telemetry"]["tracer"]["spans"] > 0
+    else:
+        assert (out / "legacy_libsvm" / "profile" / "trace.json").stat().st_size > 0
 
 
 @pytest.mark.parametrize("name,kind,iterations", [("game_tuning_random", "random", 3),

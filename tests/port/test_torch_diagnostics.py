@@ -15,7 +15,9 @@
   summary within 1e-8 (the solves converge to 1e-11, far below it), the
   significance masks equal;
 - cli.diagnose against the JAX CLI on the same model directories (an npz
-  GLM, an npz GAME model, an Avro input), --device cpu --x64: report.json
+  GLM, an npz GAME model, an Avro input without and with the bootstrap
+  and learning curves, the JAX side's fits widened to float64 for the
+  latter), --device cpu --x64: report.json
   within 1e-8, report.md and report.html byte-equal, the stdout summaries
   equal up to 1e-12 in their numbers.
 """
@@ -422,6 +424,12 @@ def _write_cli_cases(root):
     write_game_examples(str(root / "glm_avro" / "data.avro"), y, bags={"features": (x, imap)})
     runs["glm_avro"] = ["--model-dir", model, "--data", str(root / "glm_avro" / "data.avro"),
                         "--skip-bootstrap", "--skip-fitting"]
+    # bootstrap and learning curves on Avro input: the JAX side widens the
+    # float32 shard it fits them on to float64 (diagnostics_jax_side
+    # .WIDENED_RUNS), the precision the port computes them in under --x64
+    runs["glm_avro_full"] = ["--model-dir", model,
+                             "--data", str(root / "glm_avro" / "data.avro"),
+                             "--bootstrap-samples", "4"]
     return runs
 
 
@@ -479,7 +487,7 @@ def test_fitting_refuses_too_little_data():
     assert got.to_dict() == want.to_dict() and got.metrics == {}
 
 
-@pytest.mark.parametrize("run", ["glm_npz", "game_npz", "glm_avro"])
+@pytest.mark.parametrize("run", ["glm_npz", "game_npz", "glm_avro", "glm_avro_full"])
 def test_cli_diagnose_matches_jax(jax_side, run):
     from photon_ml_tpu_torch.cli import diagnose
     root, runs, jax_results = jax_side
@@ -499,5 +507,5 @@ def test_cli_diagnose_matches_jax(jax_side, run):
         assert (root / "port" / run / name).read_bytes() == \
             (root / "jax" / run / name).read_bytes()
     assert set(diagnose.LAST_RUN["walls_s"]) >= {"load", "score", "render"}
-    if run == "glm_npz":
+    if run in ("glm_npz", "glm_avro_full"):
         assert set(got) >= {"hosmer_lemeshow", "bootstrap", "fitting", "independence"}

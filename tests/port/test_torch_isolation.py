@@ -51,6 +51,12 @@ REQUIRED = ("photon_ml_tpu_torch.ops.features", "photon_ml_tpu_torch.ops.sparse_
             "photon_ml_tpu_torch.diagnostics.importance",
             "photon_ml_tpu_torch.diagnostics.bootstrap", "photon_ml_tpu_torch.diagnostics.fitting",
             "photon_ml_tpu_torch.diagnostics.report", "photon_ml_tpu_torch.cli.diagnose",
+            "photon_ml_tpu_torch.telemetry", "photon_ml_tpu_torch.telemetry.core",
+            "photon_ml_tpu_torch.telemetry.metrics", "photon_ml_tpu_torch.telemetry.timings",
+            "photon_ml_tpu_torch.telemetry.export", "photon_ml_tpu_torch.telemetry.events",
+            "photon_ml_tpu_torch.telemetry.flight",
+            "photon_ml_tpu_torch.telemetry.distributed", "photon_ml_tpu_torch.utils.events",
+            "photon_ml_tpu_torch.utils.locktrace", "photon_ml_tpu_torch.cli.trace",
             "chip_smoke")
 
 

@@ -50,7 +50,7 @@ def _cfg(d: dict) -> GameTrainingConfig:
 
 @pytest.fixture(scope="module")
 def jax_results(tmp_path_factory):
-    return side.run_jax_side("sweep", tmp_path_factory.mktemp("jax") / "sweep.npz")
+    return side.sweep_results(tmp_path_factory.mktemp("jax") / "sweep.npz")
 
 
 @pytest.fixture(scope="module")
