@@ -278,7 +278,29 @@ Phases, one JSON object per line on stdout:
      synchronizing runtime calls and copy calls (each device-to-host copy
      is one; the device's DtoH records printed beside); the walls, the
      trace's events and bytes printed, not gated;
- 30. the kernels line (launches by path, the CLI, inexact, streamed,
+ 30. serve (after cli_game, on its saved config-4 model and validation
+     npz; on cuda in float32): serve_burst, cli.serve --burst on the npz
+     and the reference layout (scores within 1e-5 max(1, |s|) of cli.score's,
+     the two layouts bit for bit, 0 failed requests, 0 bucket compiles after
+     warmup; rows/s, requests/s, p50/p99, occupancy; one profiled 512-row
+     batch: kernel launches and copies per bucket call, host us per batch,
+     the device's share of it); serve_http, cli.serve as a child process
+     (/score and /predict bit for bit with an in-process scorer, /metrics
+     parsed, /swap to the reference layout with the same bits, /rollback,
+     SIGTERM: exit 0 and the drained line); serve_swap_load, bench.py
+     serve_bench's shape (FE 32, 20,000 users x 16, 2,000 requests of 1-16
+     rows, 10 % unseen, 16 threads, a hot swap halfway: 0 failures, 0
+     compiles after warmup), then a 64-row ModelDelta through the registry
+     (the touched rows' scores and table_hashes change) and its rollback
+     (table_hashes bit for bit); serve_store, bench.py
+     _store_serving_entry's full shape (10,000,000 entities x 4, FE 8, a
+     1,048,576-row hot tier, 550 warm segments of 16,384 rows, 512-row
+     requests, p_head 0.97 over a 150,000 head): budgeted scores bit for
+     bit with the all-resident side's on the same requests, hot hit rate
+     >= 0.90, every hot table on the card, a delta applied and reverted bit
+     for bit; both sides' p50/p99 and their ratio, not gated.  No kernel of
+     the kernels line launches in this phase;
+ 31. the kernels line (launches by path, the CLI, inexact, streamed,
      sweep and diagnostics paths included), nvidia-smi's line, and the
      final result line.
 Exits non-zero, before printing any result, when CUDA is absent or when
@@ -288,7 +310,9 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -670,6 +694,9 @@ def profile_call(fn, host: bool = True):
         "wall_ms": wall_ms, "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms,
         "device_launches": sum(e.count for e in dev),
+        "device_kernels": sum(e.count for e in dev
+                              if not e.key.startswith(("Memcpy", "Memset"))),
+        "device_copies": sum(e.count for e in dev if e.key.startswith("Memcpy")),
         "primer_lost": primer_lost(events),
         "process_s": time.perf_counter() - STARTED,
         "fused_kernel_ms": sum(e.self_device_time_total for e in fused) / 1e3,
@@ -3760,6 +3787,541 @@ def cli_tuning_phase(hk, kind, smi, device="cuda") -> int:
     return launches
 
 
+# --- serve: the online serving stack (photon_ml_tpu_torch/serving/) --------
+SERVE_REQUEST_ROWS = 32      # burst: rows per client request over val.npz
+SERVE_THREADS = 16           # burst: concurrent client threads
+SERVE_RTOL = 1e-5            # burst vs cli.score, times max(1, |s|)
+SERVE_PROFILE_ROWS = 512     # the profiled batches (bucket 512)
+SERVE_PROFILE_BATCHES = 20   # batches in the one profiled window
+SERVE_HOST_REPS = 200        # batches timed, unprofiled, for host us per batch
+SERVE_HTTP_ROWS = (5, 17, 64)
+# bench.py serve_bench's shape
+SWAP_LOAD = dict(d_g=32, d_u=16, users=20_000, requests=2_000, threads=16,
+                 max_batch=256, min_bucket=8, seed=31, delta_rows=64)
+# bench.py _store_serving_entry's full shape
+STORE_SERVE = dict(entities=10_000_000, hot=1 << 20, head=150_000,
+                   seg_rows=16_384, warm_segments=550, flush=16_384,
+                   warm_requests=150, measured=600, windows=3, batch=512,
+                   d_g=8, d_u=4, p_head=0.97, seed=14, checked=20,
+                   delta_rows=64)
+STORE_P99_RATIO_LIMIT = 2.0  # bench.py's budgeted/all-resident p99 bound
+
+
+def serve_model_dirs() -> dict:
+    game = CLI_ROOT / "cli_game"
+    return {"npz": game / "pipelined" / "best", "reference": game / "reference"}
+
+
+def latency_ms(metrics: dict) -> dict:
+    lat = metrics["latency_ms"] or {}
+    return {k: lat.get(k) for k in ("p50", "p99", "max")}
+
+
+def serve_burst_phase(kind, smi, device="cuda") -> dict:
+    """cli.serve --burst on cli_game's validation npz against its saved
+    config-4 model (npz and reference layouts): scores against cli.score's
+    and across layouts, failures, compiles after warmup; then 512-row
+    batches of an in-process scorer: host us per batch unprofiled, and one
+    profiled window of batches, from which launches per batch and the
+    device's busy share of the window's wall both come."""
+    import torch
+    from photon_ml_tpu_torch.cli import serve as serve_cli
+    from photon_ml_tpu_torch.data.game_data import load_game_dataset
+    from photon_ml_tpu_torch.serving import CompiledScorer
+    d = cli_dir("serve")
+    val = CLI_ROOT / "cli_game" / "val.npz"
+    want = np.load(CLI_ROOT / "cli_game" / "scores_npz.npz")["scores"]
+    runs = {}
+    for layout, model_dir in serve_model_dirs().items():
+        out = d / f"burst_{layout}.npz"
+        result, wall = run_cli(serve_cli, [
+            "--model-dir", model_dir, "--burst", val, "--request-rows",
+            SERVE_REQUEST_ROWS, "--threads", SERVE_THREADS, "--output", out,
+            "--device", device])
+        runs[layout] = (result, wall, np.load(out)["scores"])
+    scores = runs["npz"][2]
+    err = float(np.max(np.abs(scores - want) / np.maximum(1.0, np.abs(want))))
+    same_layouts = bool(np.array_equal(scores, runs["reference"][2]))
+    # 512-row batches of an in-process scorer: host us per batch from
+    # unprofiled batches; launches, copies and the device's busy share from
+    # one profiled window (device records only), its busy time over its
+    # own wall
+    scorer = CompiledScorer.from_model_dir(str(serve_model_dirs()["npz"]),
+                                           device=device)
+    ds = load_game_dataset(str(val))
+    feats, ids = scorer.requests_from_dataset(ds, np.arange(SERVE_PROFILE_ROWS))
+    for _ in range(5):
+        scorer.score(feats, ids)
+    t0 = time.perf_counter()
+    for _ in range(SERVE_HOST_REPS):
+        scorer.score(feats, ids)
+    host_us = (time.perf_counter() - t0) / SERVE_HOST_REPS * 1e6
+    prof = None
+    if device == "cuda":
+        _, prof = profile_call(lambda: [scorer.score(feats, ids)
+                                        for _ in range(SERVE_PROFILE_BATCHES)],
+                               host=False)
+        torch.cuda.synchronize()
+    per_batch = lambda key: (None if prof is None
+                             else prof[key] / SERVE_PROFILE_BATCHES)
+    entry = {
+        "phase": "serve_burst", "entry": "photon_ml_tpu_torch.cli.serve.main --burst",
+        "config": "BASELINE config 4's saved model (cli_game) on its validation npz",
+        "rows": runs["npz"][0]["rows"], "request_rows": SERVE_REQUEST_ROWS,
+        "threads": SERVE_THREADS,
+        "layouts": {layout: {
+            "cli_wall_s": wall, "burst_wall_s": r["wall_s"],
+            "model_load_s": r["model_load_s"], "rows_per_s": r["rows_per_sec"],
+            "requests_per_s": r["requests_per_sec"],
+            "failed_requests": r["failed_requests"],
+            "latency_ms": latency_ms(r["metrics"]),
+            "batches": r["metrics"]["batches"],
+            "requests_per_batch": r["metrics"]["requests_per_batch"],
+            "batch_occupancy": r["metrics"]["batch_occupancy"],
+            "mean_batch_score_ms": r["metrics"]["mean_batch_score_ms"],
+            "mean_queue_wait_ms": r["metrics"]["mean_queue_wait_ms"],
+            "entity_hit_rate": r["metrics"]["entity_hit_rate"],
+            "bucket_compiles_after_warmup": r["metrics"]["bucket_compiles"]}
+            for layout, (r, wall, _) in runs.items()},
+        "max_err_vs_cli_score": err, "tolerance": f"{SERVE_RTOL} max(1, |s|)",
+        "layouts_bit_equal": same_layouts,
+        "profiled_batch": {
+            "rows": SERVE_PROFILE_ROWS, "unprofiled_host_us_per_batch": host_us,
+            "profiled_batches": SERVE_PROFILE_BATCHES,
+            "kernel_launches_per_batch": per_batch("device_kernels"),
+            "copies_per_batch": per_batch("device_copies"),
+            "device_busy_ms_per_batch": per_batch("device_busy_ms"),
+            "profiled_wall_ms_per_batch": per_batch("wall_ms"),
+            "device_share_of_batch": (None if prof is None
+                                      else 1.0 - prof["device_idle_share"]),
+            "primer_lost": None if prof is None else prof["primer_lost"],
+            "device_top": None if prof is None else prof["device_top"]},
+        "device": kind, "nvidia_smi": smi}
+    emit(entry)
+    for layout, (r, _, _) in runs.items():
+        if r["failed_requests"]:
+            raise SystemExit(f"serve_burst: {r['failed_requests']} failed requests "
+                             f"({layout}): {r['first_errors']}")
+        if r["metrics"]["bucket_compiles"] != 0:
+            raise SystemExit(f"serve_burst: {r['metrics']['bucket_compiles']} bucket "
+                             f"compiles after warmup ({layout})")
+    if not err <= SERVE_RTOL:
+        raise SystemExit(f"serve_burst: scores {err:.3e} from cli.score's")
+    if not same_layouts:
+        raise SystemExit("serve_burst: the npz and reference layouts serve different bits")
+    return {"scorer": scorer, "dataset": ds}
+
+
+def http_call(base: str, path: str, payload=None, timeout: float = 60.0):
+    """(status, body text) of one request to the serving child."""
+    import urllib.error
+    import urllib.request
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(base + path, data=data)
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, resp.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def serve_http_phase(kind, smi, scorer, ds, device="cuda") -> dict:
+    """python -m photon_ml_tpu_torch.cli.serve as a child on an ephemeral
+    port: /score and /predict bit for bit with `scorer` (the same model in
+    this process), /metrics parsed, /swap to the reference layout (same
+    bits), /rollback, SIGTERM (exit 0, the drained line)."""
+    dirs = serve_model_dirs()
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "photon_ml_tpu_torch.cli.serve", "--model-dir",
+         str(dirs["npz"]), "--port", "0", "--device", device],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT)))
+    try:
+        line = proc.stdout.readline()
+        if not line:
+            raise SystemExit(f"serve_http: the child exited {proc.wait()}: "
+                             f"{proc.stderr.read()[-2000:]}")
+        startup = json.loads(line)
+        base = startup["serving"]
+        ready_s = None
+        while ready_s is None:
+            if http_call(base, "/healthz")[0] == 200:
+                ready_s = time.perf_counter() - t0
+            elif time.perf_counter() - t0 > 120:
+                raise SystemExit("serve_http: /healthz not ready in 120 s")
+            else:
+                time.sleep(0.1)
+        bodies, expected, lo = [], [], 0
+        for n in SERVE_HTTP_ROWS:
+            feats, ids = scorer.requests_from_dataset(ds, np.arange(lo, lo + n))
+            lo += n
+            bodies.append({"features": {k: np.asarray(v).tolist() for k, v in feats.items()},
+                           "ids": {k: np.asarray(v).tolist() for k, v in ids.items()}})
+            s = scorer.score(feats, ids).scores
+            expected.append((s.tolist(), scorer.mean_prediction(s).tolist()))
+        checks, walls = {}, {}
+
+        def score_all(tag):
+            t = time.perf_counter()
+            got = [json.loads(http_call(base, "/score", b)[1])["scores"] for b in bodies]
+            walls[tag] = time.perf_counter() - t
+            checks[f"score_{tag}"] = got == [e[0] for e in expected]
+
+        score_all("npz")
+        got = [json.loads(http_call(base, "/predict", b)[1])["predictions"] for b in bodies]
+        checks["predict"] = got == [e[1] for e in expected]
+        code, prom = http_call(base, "/metrics")
+        series = [ln for ln in prom.splitlines() if ln and not ln.startswith("#")]
+        values = {ln.rsplit(" ", 1)[0]: float(ln.rsplit(" ", 1)[1]) for ln in series}
+        checks["metrics"] = (code == 200 and values.get("photon_serving_requests_total")
+                             == 2 * len(bodies))
+        code, text = http_call(base, "/swap", {"model_dir": str(dirs["reference"])})
+        swapped = json.loads(text).get("version")
+        checks["swap"] = code == 200 and "reference" in str(swapped)
+        score_all("reference")
+        code, text = http_call(base, "/rollback", {})
+        checks["rollback"] = code == 200 and "best" in str(json.loads(text).get("version"))
+        health = json.loads(http_call(base, "/healthz")[1])
+        proc.send_signal(signal.SIGTERM)
+        out, err = proc.communicate(timeout=120)
+        last = json.loads(out.strip().splitlines()[-1])
+        checks["drained"] = (proc.returncode == 0 and last.get("drained") is True
+                             and last.get("aborted") is False)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    entry = {"phase": "serve_http", "entry": "python -m photon_ml_tpu_torch.cli.serve",
+             "startup": {k: startup[k] for k in ("model_load_s", "device", "buckets")},
+             "ready_s": ready_s, "requests_rows": list(SERVE_HTTP_ROWS),
+             "score_walls_s": walls, "prometheus_series": len(series),
+             "swapped_to": swapped, "healthz": health, "exit_code": proc.returncode,
+             "drained": last, "checks": checks, "device": kind, "nvidia_smi": smi}
+    emit(entry)
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise SystemExit(f"serve_http: failed checks {bad}; stderr {err[-2000:]}")
+    return entry
+
+
+def _serve_model(arrays: dict, scale: float, device):
+    """FE on "global" + a per-user random effect on "per_user" from host
+    arrays (scaled), coefficients on `device` in float32."""
+    import torch
+    from photon_ml_tpu_torch.models.coefficients import Coefficients
+    from photon_ml_tpu_torch.models.game import (FixedEffectModel, GameModel,
+                                                 RandomEffectModel)
+    from photon_ml_tpu_torch.models.glm import model_for_task
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(device)
+    task = "logistic_regression"
+    fe = FixedEffectModel(model_for_task(task, Coefficients(t(scale * arrays["fe"]))),
+                          "global")
+    re_ = RandomEffectModel(random_effect_type="userId", feature_shard="per_user",
+                            task_type=task, coefficients=t(scale * arrays["re"]),
+                            entity_ids=arrays["ids"], projection=None,
+                            global_dim=arrays["re"].shape[1])
+    return GameModel({"fixed": fe, "perUser": re_}, task)
+
+
+def serve_swap_load_phase(kind, smi, device="cuda") -> dict:
+    """bench.py serve_bench's stream through ScoringService with a hot swap
+    halfway; then a 64-row ModelDelta through the registry and its
+    rollback."""
+    from concurrent.futures import ThreadPoolExecutor
+    from photon_ml_tpu_torch.online.delta import CoordinateDelta, ModelDelta
+    from photon_ml_tpu_torch.serving import (CompiledScorer, ScoringService,
+                                             ServingConfig)
+    c = SWAP_LOAD
+    rng = np.random.default_rng(c["seed"])
+    users = c["users"]
+    arrays = {"fe": rng.normal(size=c["d_g"]), "re": rng.normal(size=(users, c["d_u"])),
+              "ids": np.asarray([f"u{i}" for i in range(users)], dtype=object)}
+    sizes = np.minimum(1 + rng.geometric(0.25, size=c["requests"]), 16)
+    seen = rng.uniform(size=sizes.sum()) < 0.9
+    ent = np.where(seen, rng.integers(0, users, size=sizes.sum()),
+                   rng.integers(users, 2 * users, size=sizes.sum()))
+    bounds = np.concatenate([[0], np.cumsum(sizes)])
+    reqs = []
+    for r in range(c["requests"]):
+        lo, hi = bounds[r], bounds[r + 1]
+        reqs.append(({"global": rng.normal(size=(hi - lo, c["d_g"])).astype(np.float32),
+                      "per_user": rng.normal(size=(hi - lo, c["d_u"])).astype(np.float32)},
+                     {"userId": np.asarray([f"u{i}" for i in ent[lo:hi]], dtype=object)}))
+    cfg = ServingConfig(max_batch=c["max_batch"], min_bucket=c["min_bucket"],
+                        max_wait_s=0.002, max_queue=4096, device=device)
+    t0 = time.perf_counter()
+    svc = ScoringService(model=_serve_model(arrays, 1.0, device), config=cfg)
+    start_s = time.perf_counter() - t0
+    try:
+        errors, swap_s = [], [None]
+
+        def one(req):
+            try:
+                svc.score(*req)
+            except Exception as e:
+                errors.append(f"{type(e).__name__}: {e}")
+
+        def swapper():
+            s0 = time.perf_counter()
+            scorer = CompiledScorer(_serve_model(arrays, 1.1, device),
+                                    max_batch=c["max_batch"],
+                                    min_bucket=c["min_bucket"], version="v2",
+                                    device=device)
+            scorer.warmup()
+            svc.registry.install(scorer, "v2")
+            swap_s[0] = time.perf_counter() - s0
+
+        half = c["requests"] // 2
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=c["threads"]) as pool:
+            futs = [pool.submit(one, r) for r in reqs[:half]]
+            sw = pool.submit(swapper)
+            futs += [pool.submit(one, r) for r in reqs[half:]]
+            for f in futs:
+                f.result()
+            sw.result()
+        wall = time.perf_counter() - t0
+        snap = svc.metrics_snapshot()
+        # a 64-row delta through the registry, then the delta-aware rollback
+        scorer = svc.registry.scorer
+        rows = np.sort(rng.choice(users, size=c["delta_rows"], replace=False))
+        feats = {"global": rng.normal(size=(len(rows), c["d_g"])).astype(np.float32),
+                 "per_user": rng.normal(size=(len(rows), c["d_u"])).astype(np.float32)}
+        ids = {"userId": arrays["ids"][rows]}
+        before = (scorer.table_hashes(), svc.score(feats, ids))
+        prior = scorer.gather_rows("perUser", rows).cpu().numpy()
+        delta = ModelDelta(base_version=svc.model_version, seq=svc.registry.next_delta_seq(),
+                           coordinates={"perUser": CoordinateDelta(
+                               rows=rows, values=prior + rng.normal(size=prior.shape)
+                               .astype(np.float32), prior=prior)})
+        t0 = time.perf_counter()
+        svc.registry.apply_delta(delta)
+        apply_s = time.perf_counter() - t0
+        after = (scorer.table_hashes(), svc.score(feats, ids))
+        t0 = time.perf_counter()
+        svc.rollback()
+        rollback_s = time.perf_counter() - t0
+        back = (scorer.table_hashes(), svc.score(feats, ids))
+        tables_on_card = all(t.device.type == device for t in scorer._tables)
+    finally:
+        svc.close()
+    rows_total = int(sizes.sum())
+    checks = {"no_failures": not errors, "no_compiles_after_warmup": snap["bucket_compiles"] == 0,
+              "swapped": snap["swaps"] == 2,
+              "delta_changes_every_touched_row": bool(np.all(after[1] != before[1])),
+              "delta_changes_hashes": after[0]["perUser"] != before[0]["perUser"],
+              "rollback_hashes_bit_equal": back[0] == before[0],
+              "rollback_scores_bit_equal": bool(np.array_equal(back[1], before[1])),
+              "tables_on_card": tables_on_card}
+    entry = {"phase": "serve_swap_load", "entry": "photon_ml_tpu_torch.serving.ScoringService",
+             "config": "bench.py serve_bench's shape", "requests": c["requests"],
+             "rows": rows_total, "threads": c["threads"], "wall_s": wall,
+             "service_start_s": start_s, "rows_per_s": rows_total / wall,
+             "requests_per_s": c["requests"] / wall, "swap_s": swap_s[0],
+             "latency_ms": latency_ms(snap), "batches": snap["batches"],
+             "batch_occupancy": snap["batch_occupancy"],
+             "requests_per_batch": snap["requests_per_batch"],
+             "mean_batch_score_ms": snap["mean_batch_score_ms"],
+             "entity_hit_rate": snap["entity_hit_rate"], "failed_requests": len(errors),
+             "first_errors": errors[:3], "delta_rows": c["delta_rows"],
+             "delta_apply_s": apply_s, "rollback_s": rollback_s,
+             "checks": checks, "device": kind, "nvidia_smi": smi}
+    emit(entry)
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise SystemExit(f"serve_swap_load: failed checks {bad}")
+    return entry
+
+
+def store_traffic(rng, n, entities, head, p_head, d_g, d_u, tail_conc=4.0):
+    """bench.py _store_traffic: p_head of the ids from the head, the rest
+    from a zipf-like tail over every entity."""
+    feats = {"global": rng.standard_normal((n, d_g)).astype(np.float32),
+             "per_user": rng.standard_normal((n, d_u)).astype(np.float32)}
+    tail = rng.random(n) >= p_head
+    ids = rng.integers(0, head, size=n)
+    k = int(tail.sum())
+    if k:
+        ids[tail] = np.minimum((entities * rng.random(k) ** tail_conc).astype(np.int64),
+                               entities - 1)
+    return feats, {"userId": ids}
+
+
+def serve_store_phase(kind, smi, device="cuda") -> dict:
+    """bench.py _store_serving_entry at its full shape: the same requests
+    through the all-resident (preload_all) and the budgeted scorer, bit for
+    bit; the hot hit rate; both sides' latencies; a delta applied and
+    reverted on the budgeted scorer."""
+    import gc
+    from photon_ml_tpu_torch.online.delta import CoordinateDelta, ModelDelta
+    from photon_ml_tpu_torch.serving import CompiledScorer, ModelRegistry
+    from photon_ml_tpu_torch.store import StoreConfig
+    from photon_ml_tpu_torch.store.entity import scatter_rows
+    c = STORE_SERVE
+    d = cli_dir("serve_store")
+    rng = np.random.default_rng(c["seed"])
+    E, batch = c["entities"], c["batch"]
+    t0 = time.perf_counter()
+    arrays = {"fe": rng.normal(size=c["d_g"]),
+              "re": rng.standard_normal((E, c["d_u"]), dtype=np.float32),
+              "ids": np.arange(E, dtype=np.int64)}
+    model = _serve_model(arrays, 1.0, "cpu")
+    data_s = time.perf_counter() - t0
+    checked = [store_traffic(np.random.default_rng(7 + i), batch, E, c["head"],
+                             c["p_head"], c["d_g"], c["d_u"]) for i in range(c["checked"])]
+
+    def drive(hot_rows, sub, prewarm):
+        t0 = time.perf_counter()
+        scorer = CompiledScorer(model, max_batch=batch, min_bucket=batch, device=device,
+                                store=StoreConfig(hot_rows=hot_rows,
+                                                  warm_segments=c["warm_segments"],
+                                                  seg_rows=c["seg_rows"], overlay_rows=batch,
+                                                  flush_rows=c["flush"]),
+                                store_dir=str(d / sub))
+        scorer.warmup()
+        build_s = time.perf_counter() - t0
+        st = scorer.entity_store("perUser")
+        t0 = time.perf_counter()
+        if prewarm == "all":
+            st.preload_all()
+        else:
+            for lo in range(0, prewarm, st.overlay_rows):
+                st.lookup_slots(np.arange(lo, min(lo + st.overlay_rows, prewarm)))
+            st.promote_pending()
+        prewarm_s = time.perf_counter() - t0
+        r = np.random.default_rng(99)
+        for _ in range(c["warm_requests"]):
+            scorer.score(*store_traffic(r, batch, E, c["head"], c["p_head"],
+                                        c["d_g"], c["d_u"]))
+        windows = []
+        for _rep in range(c["windows"]):
+            st.promote_pending()
+            gc.collect()
+            before = st.stats.snapshot()
+            times = []
+            for _ in range(c["measured"]):
+                req = store_traffic(r, batch, E, c["head"], c["p_head"], c["d_g"], c["d_u"])
+                t1 = time.perf_counter()
+                scorer.score(*req)
+                times.append(time.perf_counter() - t1)
+            after = st.stats.snapshot()
+            times.sort()
+            dc = {k: after[k] - before[k] for k in after}
+            lookups = dc["hot_hits"] + dc["warm_hits"] + dc["cold_misses"]
+            windows.append({"p50_ms": 1e3 * times[len(times) // 2],
+                            "p99_ms": 1e3 * times[int(len(times) * 0.99)],
+                            "hit_rate": dc["hot_hits"] / lookups if lookups else None,
+                            "counters": dc})
+        best = min(windows, key=lambda w: w["p99_ms"])
+        scores = [scorer.score(*req).scores for req in checked]
+        return scorer, {"build_s": build_s, "prewarm_s": prewarm_s,
+                        "p50_ms": best["p50_ms"], "p99_ms": best["p99_ms"],
+                        "hit_rate": best["hit_rate"], "counters": best["counters"],
+                        "windows_p99_ms": [w["p99_ms"] for w in windows],
+                        "hot_table_on_card": st.table().device.type == device,
+                        "hot_table_rows": st.table().shape[0],
+                        "residency": {k: v for k, v in st.residency().items()
+                                      if not isinstance(v, dict)}}, scores
+
+    def scatter_ms(scorer) -> float:
+        """ms of the out-of-place scatter one promotion flush makes (a
+        copy of the whole hot table and flush_rows rows written), by the
+        host clock around synchronized calls."""
+        table = scorer.entity_store("perUser").table()
+        rows_ = np.arange(c["flush"], dtype=np.int64)
+        vals = np.zeros((len(rows_), c["d_u"]), np.float32)
+        scatter_rows(table, rows_, vals)
+        sync(device)
+        t1 = time.perf_counter()
+        for _ in range(5):
+            scatter_rows(table, rows_, vals)
+        sync(device)
+        return (time.perf_counter() - t1) / 5 * 1e3
+
+    resident, res, res_scores = drive(E, "resident", "all")
+    scatter = {"all_resident_table": scatter_ms(resident)}
+    del resident
+    gc.collect()
+    budget, bud, bud_scores = drive(c["hot"], "budgeted", c["head"])
+    scatter["budgeted_hot_table"] = scatter_ms(budget)
+    same = all(np.array_equal(a, b) for a, b in zip(res_scores, bud_scores))
+    # a delta on hot and cold rows through the registry, then its rollback
+    registry = ModelRegistry(lambda *_: budget)
+    registry.install(budget, "v1")
+    rows = np.unique(np.concatenate([np.arange(0, c["delta_rows"] // 2),
+                                     E - 1 - np.arange(c["delta_rows"] // 2)])).astype(np.int64)
+    prior = budget.gather_rows("perUser", rows).cpu().numpy()
+    delta = ModelDelta(base_version="v1", seq=1, coordinates={"perUser": CoordinateDelta(
+        rows=rows, values=prior + 1.0, prior=prior)})
+    t1 = time.perf_counter()
+    h0 = budget.table_hashes()
+    hash_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    registry.apply_delta(delta)
+    apply_s = time.perf_counter() - t1
+    h1 = budget.table_hashes()
+    t1 = time.perf_counter()
+    registry.rollback()
+    rollback_s = time.perf_counter() - t1
+    h2 = budget.table_hashes()
+    p99_ratio = bud["p99_ms"] / res["p99_ms"]
+    checks = {"budgeted_bit_equal_resident": same,
+              "hit_rate_at_least_0_90": bud["hit_rate"] is not None and bud["hit_rate"] >= 0.90,
+              "hot_tables_on_card": res["hot_table_on_card"] and bud["hot_table_on_card"],
+              "delta_changes_table": h1["perUser"] != h0["perUser"],
+              "delta_reverted_bit_exact": h2 == h0}
+    entry = {"phase": "serve_store", "entry": "photon_ml_tpu_torch.serving.CompiledScorer(store=)",
+             "config": "bench.py _store_serving_entry, full shape",
+             "entities": E, "hot_rows": c["hot"], "d_user": c["d_u"], "d_global": c["d_g"],
+             "warm_segments": c["warm_segments"], "seg_rows": c["seg_rows"],
+             "head": c["head"], "p_head": c["p_head"], "batch": batch,
+             "requests_per_window": c["measured"], "windows": c["windows"],
+             "data_s": data_s, "resident": res, "budgeted": bud,
+             "p99_ratio_vs_all_resident": p99_ratio,
+             "p50_ratio_vs_all_resident": bud["p50_ms"] / res["p50_ms"],
+             # bench.py's latency half of this entry's gate (latency_ok),
+             # reported and not gated: this script gates correctness, not speed
+             "bench_p99_ratio_limit": STORE_P99_RATIO_LIMIT,
+             "bench_p99_ratio_met": p99_ratio <= STORE_P99_RATIO_LIMIT,
+             "out_of_place_scatter_ms": scatter, "scatter_rows": c["flush"],
+             "checked_requests": c["checked"], "delta_rows": len(rows),
+             "delta_apply_s": apply_s, "rollback_s": rollback_s, "table_hash_s": hash_s,
+             "checks": checks, "device": kind, "nvidia_smi": smi}
+    emit(entry)
+    budget.flush_stores()
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise SystemExit(f"serve_store: failed checks {bad}")
+    return entry
+
+
+def serve_phase(hk, sk, kind, smi, device="cuda") -> dict:
+    """The four serving parts, after cli_game; no kernel of the kernels
+    line launches in them."""
+    reset_launches(hk, sk)
+    hk.LANES_LAUNCHES = 0
+    seconds = {}
+    t0 = time.perf_counter()
+    burst = serve_burst_phase(kind, smi, device)
+    seconds["serve_burst"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    serve_http_phase(kind, smi, burst["scorer"], burst["dataset"], device)
+    seconds["serve_http"] = time.perf_counter() - t0
+    del burst
+    t0 = time.perf_counter()
+    serve_swap_load_phase(kind, smi, device)
+    seconds["serve_swap_load"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    serve_store_phase(kind, smi, device)
+    seconds["serve_store"] = time.perf_counter() - t0
+    launches = {"fused": hk.LAUNCHES, "lanes": hk.LANES_LAUNCHES, **dict(sk.LAUNCHES)}
+    emit({"phase": "serve_done", "seconds": seconds, "kernel_launches": launches})
+    if any(launches.values()):
+        raise SystemExit(f"serve: kernels of the kernels line launched: {launches}")
+    return seconds
+
+
 def sparse_kernel_entry(name: str, part: str, c6: dict, c7: dict,
                         cli_avro: dict) -> dict:
     """The kernels line's entry of sparse kernel A ("a") or B ("b"): its
@@ -4154,6 +4716,10 @@ def main() -> int:
     t0 = time.perf_counter()
     cli_game = cli_game_phase(hk, glmix_ref, kind, smi)
     emit({"phase": "cli_game_done", "seconds": time.perf_counter() - t0})
+    from photon_ml_tpu_torch.ops import sparse_kernels as sk
+    t0 = time.perf_counter()
+    serve_phase(hk, sk, kind, smi)
+    emit({"phase": "serve_phase_done", "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
     cli_telemetry = cli_telemetry_phase(hk, kind, smi)
     emit({"phase": "cli_telemetry_done", "seconds": time.perf_counter() - t0})

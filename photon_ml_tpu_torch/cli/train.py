@@ -421,12 +421,13 @@ def parse_byte_size(arg) -> Optional[int]:
     return int(value)
 
 
-def check_unported(args) -> None:
-    """Exit naming the ROADMAP.md item of every set flag whose subsystem is
-    not ported yet (never silently ignored)."""
-    bad = [f"{flag} (item {item})" for flag, is_set, item in UNPORTED_FLAGS
+def check_unported(args, flags=UNPORTED_FLAGS, env=UNPORTED_ENV) -> None:
+    """Exit naming the ROADMAP.md item of every set flag (and environment
+    variable) whose subsystem is not ported yet (never silently
+    ignored)."""
+    bad = [f"{flag} (item {item})" for flag, is_set, item in flags
            if is_set(args)]
-    bad += [f"${var} (item {item})" for var, item in UNPORTED_ENV
+    bad += [f"${var} (item {item})" for var, item in env
             if os.environ.get(var)]
     if bad:
         raise SystemExit("not ported yet (ROADMAP.md queue A): "

@@ -1,0 +1,290 @@
+"""ScoringService: the assembled in-process online scorer (port of
+photon_ml_tpu/serving/service.py).
+
+Wires the pieces together: a ModelRegistry holding the live CompiledScorer,
+a MicroBatcher coalescing concurrent `score()` calls into padded device
+batches, and ServingMetrics + ScoringBatchEvent observability.  This is the
+object the serve CLI (and any embedding process) talks to:
+
+    svc = ScoringService(model_dir="out/best")          # on cuda, float32
+    scores = svc.score({"global": x, "per_user": xu},
+                       {"userId": ids}, timeout=0.05)
+    svc.swap("out/next")        # zero-downtime hot swap
+    svc.rollback()              # back to the previous version
+    svc.metrics_snapshot()      # JSON observability
+
+The online updater (`updates=`, `feedback_log_dir=`), the health monitor
+(`health=`) and entity sharding (`shard_index`/`shard_count`) raise: they
+are ROADMAP.md queue A item 22.  The tiered store fields work.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+import re
+import time
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from photon_ml_tpu_torch import resolve_device, telemetry
+from photon_ml_tpu_torch.serving.batcher import (BatcherConfig, MicroBatcher,
+                                                 ServingError)
+from photon_ml_tpu_torch.serving.metrics import ServingMetrics
+from photon_ml_tpu_torch.serving.registry import ModelRegistry
+from photon_ml_tpu_torch.serving.scorer import CompiledScorer
+from photon_ml_tpu_torch.utils.events import EventEmitter, ScoringBatchEvent
+
+
+def _unported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP.md queue A item 22)")
+
+
+@dataclasses.dataclass(frozen=True)
+class ServingConfig:
+    """Service knobs (CLI flags map 1:1 onto these)."""
+
+    max_wait_s: float = 0.002       # micro-batch coalescing window
+    max_batch: int = 1024           # rows per device call (pow-2 rounded)
+    max_queue: int = 4096           # pending requests before shedding
+    min_bucket: int = 8             # smallest padded batch bucket
+    default_timeout_s: Optional[float] = None  # per-request deadline
+    latency_window: int = 8192      # latency ring for percentiles
+    max_delta_log: int = 4096       # delta undo-log bound (overflow ->
+                                    # rollback degrades to full-model)
+    # tiered entity store (photon_ml_tpu_torch/store/): a non-None budget
+    # serves every RE table through a device hot set of store_budget_rows
+    # rows, a host warm tier, and sealed cold segments under store_dir
+    # (REQUIRED with a budget; each installed version gets a subdir)
+    store_budget_rows: Optional[int] = None
+    store_dir: Optional[str] = None
+    store_warm_segments: int = 64
+    store_seg_rows: int = 16384
+    # entity-sharded serving: ROADMAP.md queue A item 22 (set -> raises)
+    shard_index: Optional[int] = None
+    shard_count: Optional[int] = None
+    # where every scorer this service builds lives (None = cuda, which
+    # raises without CUDA) and the dtype its tables are loaded in
+    device: Optional[str] = None
+    dtype: torch.dtype = torch.float32
+
+
+class ScoringService:
+    def __init__(self, model_dir: Optional[str] = None,
+                 model=None, config: Optional[ServingConfig] = None,
+                 emitter: Optional[EventEmitter] = None,
+                 updates=None, health=None,
+                 feedback_log_dir: Optional[str] = None):
+        """Serve `model_dir` (any layout the port's models/io.py reads) or
+        an in-memory `model` whose tensors the scorer copies onto the
+        config's device.  `updates`, `feedback_log_dir` and `health` are
+        the JAX package's online updater, durable feedback lane and health
+        monitor: ROADMAP.md queue A item 22, and they raise."""
+        if (model_dir is None) == (model is None):
+            raise ValueError("pass exactly one of model_dir / model")
+        if health is not None:
+            raise _unported("the model-health monitor (health=)")
+        if updates is not None or feedback_log_dir is not None:
+            raise _unported("the online updater (updates=, "
+                            "feedback_log_dir=)")
+        self.config = config or ServingConfig()
+        cfg = self.config
+        if cfg.shard_index is not None or cfg.shard_count is not None:
+            raise _unported("entity-sharded serving (shard_index, "
+                            "shard_count)")
+        self.device = resolve_device(cfg.device)
+        self.emitter = emitter
+        self.metrics = ServingMetrics(cfg.latency_window)
+
+        store_cfg = None
+        if cfg.store_budget_rows is not None:
+            if cfg.store_dir is None:
+                raise ValueError("store_budget_rows requires store_dir "
+                                 "(the cold tier's segment directory)")
+            from photon_ml_tpu_torch.store import StoreConfig
+            store_cfg = StoreConfig(hot_rows=cfg.store_budget_rows,
+                                    warm_segments=cfg.store_warm_segments,
+                                    seg_rows=cfg.store_seg_rows)
+
+        def _store_kw(version):
+            if store_cfg is None:
+                return {}
+            sub = re.sub(r"[^A-Za-z0-9._-]", "_", str(version))
+            return {"store": store_cfg,
+                    "store_dir": os.path.join(cfg.store_dir, sub)}
+
+        def factory(version_dir, version):
+            if version_dir is None:  # initial in-memory model
+                scorer = CompiledScorer(model, max_batch=cfg.max_batch,
+                                        min_bucket=cfg.min_bucket,
+                                        version=version, device=self.device,
+                                        **_store_kw(version))
+                scorer.warmup()
+                return scorer
+            return CompiledScorer.from_model_dir(
+                version_dir, max_batch=cfg.max_batch,
+                min_bucket=cfg.min_bucket, version=version,
+                device=self.device, dtype=cfg.dtype, **_store_kw(version))
+
+        self.registry = ModelRegistry(factory, emitter=emitter,
+                                      metrics=self.metrics,
+                                      max_delta_log=cfg.max_delta_log)
+        if store_cfg is not None:
+            # both metric surfaces sync the store.* counters to the live
+            # scorer's cumulative tier totals at render
+            self.metrics.set_store_probe(
+                lambda: self.registry.scorer.store_totals())
+        self.registry.load(model_dir, version=None if model_dir else "inline@1")
+        self._batcher = MicroBatcher(
+            self._score_batch,
+            BatcherConfig(max_wait_s=cfg.max_wait_s, max_batch=cfg.max_batch,
+                          max_queue=cfg.max_queue),
+            on_shed=self.metrics.observe_shed,
+            on_deadline=self.metrics.observe_deadline)
+        self._closed = False
+        # one telemetry.snapshot() returns serving state alongside the
+        # training/streaming registries (latest-constructed service wins
+        # the name; close() unregisters)
+        telemetry.register_collector("serving", self.metrics_snapshot)
+
+    # -- scoring -----------------------------------------------------------
+
+    def score(self, features: Dict[str, np.ndarray],
+              ids: Optional[Dict[str, np.ndarray]] = None,
+              timeout: Optional[float] = None) -> np.ndarray:
+        """Margins for one request (batched with concurrent callers).
+        Raises Overloaded / DeadlineExceeded under load, ValueError on a
+        malformed request."""
+        ids = ids or {}
+        # validate against the CURRENT scorer before queueing so malformed
+        # requests fail their caller alone, never a whole device batch
+        n = self.registry.scorer.validate_request(features, ids)
+        if timeout is None:
+            timeout = self.config.default_timeout_s
+        t0 = time.monotonic()
+        try:
+            scores = self._batcher.score(features, ids, n, timeout=timeout)
+        except ServingError:
+            raise  # shed/deadline already counted by the batcher hooks
+        except Exception:
+            self.metrics.observe_error()
+            raise
+        self.metrics.observe_request(time.monotonic() - t0, n)
+        return scores
+
+    def predict(self, features, ids=None, offsets=None,
+                timeout: Optional[float] = None) -> np.ndarray:
+        """Mean predictions (inverse link), like GameModel.predict."""
+        scores = self.score(features, ids, timeout=timeout)
+        return self.registry.scorer.mean_prediction(scores, offsets)
+
+    def _score_batch(self, features, ids, *, num_requests: int,
+                     queue_wait_s: float):
+        scorer = self.registry.scorer  # resolved per batch: swap boundary
+        t0 = time.monotonic()
+        # span on the micro-batcher worker thread: serving gets its own
+        # track in the trace, one span per coalesced device batch
+        with telemetry.span("serve_batch", requests=num_requests,
+                            version=scorer.version):
+            result = scorer.score(features, ids)
+        score_s = time.monotonic() - t0
+        self.metrics.observe_batch(
+            rows=result.num_rows, bucket_rows=sum(result.buckets),
+            num_requests=num_requests, entity_hits=result.entity_hits,
+            entity_lookups=result.entity_lookups,
+            new_compiles=result.new_compiles,
+            queue_wait_s=queue_wait_s, score_s=score_s)
+        if self.emitter is not None:
+            self.emitter.send_event(ScoringBatchEvent(
+                time=time.time(), num_requests=num_requests,
+                num_rows=result.num_rows, bucket_size=max(result.buckets),
+                queue_wait_s=queue_wait_s, score_s=score_s,
+                model_version=scorer.version))
+        return result
+
+    # -- online updates ----------------------------------------------------
+
+    def feedback(self, features, ids, labels, weights=None, offsets=None,
+                 event_ids=None) -> Dict:
+        """Online feedback intake: the updater it feeds is ROADMAP.md
+        queue A item 22."""
+        raise _unported("online feedback (the online updater)")
+
+    def version_vector(self) -> Dict:
+        """(full-model version, delta seq): the staleness identity of the
+        live scorer."""
+        return self.registry.version_vector()
+
+    def audit(self) -> Dict:
+        """The convergence audit: version vector + per-table sha256 of the
+        live scorer's exact device bytes (GET /fleet/audit)."""
+        return {"version_vector": self.version_vector(),
+                "table_hashes": self.registry.scorer.table_hashes()}
+
+    def healthz(self) -> Dict:
+        """The /healthz payload: status, the version vector, and the
+        tiered store's hit rate when the model serves through it."""
+        out = {
+            "status": "ok",
+            "model_version": self.model_version,
+            "version_vector": self.version_vector(),
+            "updates_enabled": False,
+            "health_enabled": False,
+        }
+        store = self.registry.scorer.store_health()
+        if store is not None:
+            # the tiered store's hit rate is first-class health: a
+            # collapsing hot tier shows up here before it shows up as
+            # latency
+            out["store"] = {"hit_rate": store["hit_rate"],
+                            "promotions": store["promotions"],
+                            "spills": store["spills"]}
+        return out
+
+    # -- model lifecycle ---------------------------------------------------
+
+    def swap(self, model_dir: str, version: Optional[str] = None) -> str:
+        """Blocking zero-downtime swap; requests keep flowing on the old
+        model until the new one is warm."""
+        return self.registry.load(model_dir, version)
+
+    def swap_async(self, model_dir: str, version: Optional[str] = None):
+        return self.registry.load_async(model_dir, version)
+
+    def rollback(self) -> str:
+        return self.registry.rollback()
+
+    @property
+    def model_version(self) -> Optional[str]:
+        return self.registry.version
+
+    # -- observability / lifecycle ----------------------------------------
+
+    def metrics_snapshot(self) -> Dict:
+        snap = self.metrics.snapshot(model_version=self.registry.version)
+        snap["version_vector"] = self.registry.version_vector()
+        return snap
+
+    def prometheus_metrics(self) -> str:
+        """Prometheus text exposition (the serving /metrics endpoint)."""
+        return self.metrics.prometheus(model_version=self.registry.version)
+
+    def close(self) -> None:
+        if not self._closed:
+            self._closed = True
+            telemetry.unregister_collector("serving")
+            self._batcher.close()
+            try:
+                # seal the cold tier: after close the store directory
+                # alone reproduces every delta-updated row
+                self.registry.scorer.flush_stores()
+            except RuntimeError:
+                pass  # no model ever loaded
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()

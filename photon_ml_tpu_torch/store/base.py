@@ -66,11 +66,14 @@ def with_retries(fn: Callable[[], object], *, site: str, what: str,
 
 
 class StoreStats:
-    """Row/byte accounting for one store, in the JAX package's fields
-    (hot/warm/cold lookups, promotions and spills belong to the row tables
-    of ROADMAP.md queue A item 22; the training tenant counts evictions,
-    fetches and retries).  Thread-safe.  Every note is also counted in the
-    registry's `store.<field>` counters."""
+    """Row/byte accounting for one store, in the JAX package's fields:
+    hot/warm/cold counters are PER ROW LOOKUP of the entity store
+    (store/entity.py) — a row resolved from the device-resident hot set,
+    one staged out of the host warm set, one that needed a cold segment
+    read; promotions/spills/evictions count tier movements, and the
+    training tenant (store/handles.py) counts evictions, fetches and
+    retries.  Thread-safe.  Every note is also
+    counted in the registry's `store.<field>` counters."""
 
     FIELDS = ("hot_hits", "warm_hits", "cold_misses", "promotions",
               "spills", "evictions", "fetches", "retries")
@@ -89,6 +92,17 @@ class StoreStats:
         # reaching into any store instance
         telemetry.counter(f"store.{field}").inc(n)
 
+    def note_lookup(self, hot: int = 0, warm: int = 0, cold: int = 0) -> None:
+        self._note("hot_hits", hot)
+        self._note("warm_hits", warm)
+        self._note("cold_misses", cold)
+
+    def note_promotion(self, rows: int = 1) -> None:
+        self._note("promotions", rows)
+
+    def note_spill(self, n: int = 1) -> None:
+        self._note("spills", n)
+
     def note_eviction(self, n: int = 1) -> None:
         self._note("evictions", n)
 
@@ -101,3 +115,10 @@ class StoreStats:
     def snapshot(self) -> Dict[str, int]:
         with self._lock:
             return {f: getattr(self, f) for f in self.FIELDS}
+
+    def hit_rate(self) -> Optional[float]:
+        """Fraction of row lookups served from the hot tier (None before
+        any lookup)."""
+        with self._lock:
+            total = self.hot_hits + self.warm_hits + self.cold_misses
+            return (self.hot_hits / total) if total else None

@@ -9,9 +9,8 @@ the span tree is validatable without reconstructing it from timestamps.
 Open a trace at https://ui.perfetto.dev (drag the file in) or
 chrome://tracing.
 
-Prometheus text (the JAX package's serving `/metrics` endpoint; the port
-has no serving yet, ROADMAP.md queue A item 21): exposition format
-0.0.4.  Counters render as `photon_<name>_total`, gauges as
+Prometheus text (the serving `/metrics` endpoint, cli/serve.py):
+exposition format 0.0.4.  Counters render as `photon_<name>_total`, gauges as
 `photon_<name>`, histograms as summaries (`{quantile="..."}` series plus
 `_sum`/`_count`) — quantiles come from the registry's bounded reservoir,
 so a scrape is O(reservoir), never O(requests).

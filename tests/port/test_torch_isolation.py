@@ -57,6 +57,12 @@ REQUIRED = ("photon_ml_tpu_torch.ops.features", "photon_ml_tpu_torch.ops.sparse_
             "photon_ml_tpu_torch.telemetry.flight",
             "photon_ml_tpu_torch.telemetry.distributed", "photon_ml_tpu_torch.utils.events",
             "photon_ml_tpu_torch.utils.locktrace", "photon_ml_tpu_torch.cli.trace",
+            "photon_ml_tpu_torch.store", "photon_ml_tpu_torch.store.cold",
+            "photon_ml_tpu_torch.store.entity", "photon_ml_tpu_torch.online",
+            "photon_ml_tpu_torch.online.delta", "photon_ml_tpu_torch.serving",
+            "photon_ml_tpu_torch.serving.scorer", "photon_ml_tpu_torch.serving.batcher",
+            "photon_ml_tpu_torch.serving.metrics", "photon_ml_tpu_torch.serving.registry",
+            "photon_ml_tpu_torch.serving.service", "photon_ml_tpu_torch.cli.serve",
             "chip_smoke")
 
 
