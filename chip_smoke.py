@@ -4322,6 +4322,751 @@ def serve_phase(hk, sk, kind, smi, device="cuda") -> dict:
     return seconds
 
 
+# bench.py _online_parity_entry's shape (not its smoke size), float64
+ONLINE_PARITY = dict(seed=41, d_g=16, d_u=8, entities=5000, touched=24,
+                     rows_per_entity=8, micro_batch=8, anchor=0.7, oracle=3)
+ONLINE_PARITY_RTOL = 1e-6    # updated rows vs offline_anchored_refit
+ONLINE_ORACLE_RTOL = 1e-6    # anchored objective vs host scipy L-BFGS-B
+ONLINE_ORACLE_ROW_RTOL = 1e-6  # updated rows vs scipy's argmin
+# config 4's saved model: validation rows of this many users, then flush()
+ONLINE_CONFIG4 = dict(users=256, micro_batch=16, batch_rows=512, checked=8,
+                      seed=5)
+ONLINE_CONFIG4_RTOL = 1e-5   # f64 objective at the f32 row vs scipy's optimum
+# bench.py _online_latency_entry's full shape, float32
+ONLINE_LATENCY = dict(seed=43, d_g=16, d_u=8, entities=20_000, requests=1500,
+                      threads=8, reps=2, micro_batch=16, max_iterations=25,
+                      tolerance=1e-7, interval_s=0.005, max_pending_rows=32768,
+                      pump_rows=32, cycles=20)
+ONLINE_P99_BOUND = 1.5       # bench.py's latency gate: reported, not gated here
+ONLINE_HTTP = dict(users=8, batch_rows=32, max_pending=64, oversized=100, deadline_s=60.0)
+ONLINE_SHARDS = 4
+# `python -m photon_ml_tpu_torch.cli.serve` with the kernels line's launch
+# counts and the kernel builds and loads written, at the child's exit, to
+# the file that CHILD_COUNTS_ENV names
+CHILD_COUNTS_ENV = "PHOTON_CHILD_COUNTS"
+SERVE_CHILD = f"""
+import atexit, json, os, runpy
+def _counts():
+    from photon_ml_tpu_torch.ops import _build, hopper_kernels as hk, sparse_kernels as sk
+    with open(os.environ["{CHILD_COUNTS_ENV}"], "w") as f:
+        json.dump({{"launches": {{"fused": hk.LAUNCHES, "lanes": hk.LANES_LAUNCHES,
+                                 **sk.LAUNCHES}},
+                   "builds_or_loads": len(_build.LOADS)}}, f)
+atexit.register(_counts)
+runpy.run_module("photon_ml_tpu_torch.cli.serve", run_name="__main__", alter_sys=True)
+"""
+
+
+def _online_model(rng, d_g, d_u, entities, device, dtype):
+    """bench.py's _online_model: FE on "global" + a per-user random effect
+    on "per_user", its draws in bench.py's order, on `device`."""
+    import torch
+    from photon_ml_tpu_torch.models.coefficients import Coefficients
+    from photon_ml_tpu_torch.models.game import (FixedEffectModel, GameModel,
+                                                 RandomEffectModel)
+    from photon_ml_tpu_torch.models.glm import model_for_task
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    task = "logistic_regression"
+    fe = FixedEffectModel(model_for_task(task, Coefficients(t(rng.normal(size=d_g)))),
+                          "global")
+    re_ = RandomEffectModel(random_effect_type="userId", feature_shard="per_user",
+                            task_type=task,
+                            coefficients=t(rng.normal(size=(entities, d_u))),
+                            entity_ids=np.asarray([f"u{i}" for i in range(entities)],
+                                                  dtype=object),
+                            projection=None, global_dim=d_u)
+    return GameModel({"fixed": fe, "perUser": re_}, task)
+
+
+def _oracle(x, y, offsets, prior, anchor, start=None):
+    """Host scipy L-BFGS-B on the f64 anchored logistic objective, with its
+    gradient written out here, so that the argmin is exact to ~1e-12 ->
+    (f, the scipy result)."""
+    from scipy.optimize import minimize
+    from scipy.special import expit
+    from photon_ml_tpu_torch.game.anchored import anchored_objective_np
+    f = lambda c: anchored_objective_np(x, y, None, offsets, c, prior,
+                                        "logistic_regression", anchor)
+    grad = lambda c: x.T @ (expit(x @ c + offsets) - y) + anchor * (c - prior)
+    res = minimize(f, prior if start is None else start, jac=grad, method="L-BFGS-B",
+                   options={"ftol": 1e-16, "gtol": 1e-13, "maxiter": 1000})
+    return f, res
+
+
+def online_parity_part(kind, smi, device="cuda") -> dict:
+    """bench.py's parity entry on the card in float64: the updated rows
+    against the port's offline_anchored_refit, and the anchored objective
+    at three entities against host scipy."""
+    import torch
+    from photon_ml_tpu_torch.data.game_data import build_game_dataset
+    from photon_ml_tpu_torch.game.anchored import offline_anchored_refit
+    from photon_ml_tpu_torch.online import OnlineUpdateConfig
+    from photon_ml_tpu_torch.ops.losses import LOGISTIC
+    from photon_ml_tpu_torch.optim.config import OptimizerConfig
+    from photon_ml_tpu_torch.serving import ScoringService, ServingConfig
+    c = ONLINE_PARITY
+    rng = np.random.default_rng(c["seed"])
+    touched = [f"u{i}" for i in rng.choice(c["entities"], size=c["touched"], replace=False)]
+    model = _online_model(rng, c["d_g"], c["d_u"], c["entities"], device, torch.float64)
+    svc = ScoringService(
+        model=model, config=ServingConfig(max_batch=256, min_bucket=4, device=device,
+                                          dtype=torch.float64),
+        updates=OnlineUpdateConfig(micro_batch=c["micro_batch"], anchor_weight=c["anchor"],
+                                   max_iterations=200, tolerance=1e-12),
+        start_updater=False)
+    try:
+        scorer = svc.registry.scorer
+        n = c["touched"] * c["rows_per_entity"]
+        feats = {"global": rng.normal(size=(n, c["d_g"])),
+                 "per_user": rng.normal(size=(n, c["d_u"]))}
+        ids = {"userId": np.asarray([touched[i % len(touched)] for i in range(n)],
+                                    dtype=object)}
+        labels = (rng.uniform(size=n) < 0.5).astype(float)
+        table = scorer.re_table("perUser").cpu().numpy()
+        prior = {u: table[scorer.entity_row("perUser", u)].copy() for u in touched}
+        margins = scorer.score(feats, ids).scores
+        svc.feedback(feats, ids, labels)
+        t0 = time.perf_counter()
+        flush = svc.updater.flush()
+        flush_s = time.perf_counter() - t0
+        table_new = scorer.re_table("perUser").cpu().numpy()
+        online = {u: table_new[scorer.entity_row("perUser", u)] for u in touched}
+        ds = build_game_dataset(labels, feats, offsets=margins,
+                                entity_ids={"userId": ids["userId"]})
+        t0 = time.perf_counter()
+        offline = offline_anchored_refit(
+            ds, "userId", "per_user", prior, LOGISTIC,
+            OptimizerConfig(max_iterations=200, tolerance=1e-12),
+            anchor_weight=c["anchor"], device=device)
+        offline_s = time.perf_counter() - t0
+        rels = [float(np.max(np.abs(online[u] - offline[u]))
+                      / max(float(np.max(np.abs(offline[u]))), 1e-12)) for u in touched]
+        oracle, oracle_rows = [], []
+        for u in touched[:c["oracle"]]:
+            rows = [i for i in range(n) if ids["userId"][i] == u]
+            f, res = _oracle(feats["per_user"][rows], labels[rows], margins[rows],
+                             prior[u], c["anchor"])
+            oracle.append((f(online[u]) - res.fun) / abs(res.fun))
+            oracle_rows.append(float(np.max(np.abs(online[u] - res.x))
+                                     / max(float(np.max(np.abs(res.x))), 1e-12)))
+        on_card = scorer.re_table("perUser").device.type == device
+    finally:
+        svc.close()
+    entry = {"phase": "online_parity", "entry": "ScoringService(updates=...) + flush()",
+             "config": "bench.py _online_parity_entry (5,000 entities, d 16 + 8), float64",
+             "entities": len(touched), "feedback_rows": n, "flush": flush,
+             "flush_s": flush_s, "offline_refit_s": offline_s,
+             "max_rel_gap_vs_offline_refit": max(rels),
+             "oracle_objective_rel_gaps": oracle, "oracle_row_rel_gaps": oracle_rows,
+             "tolerance": {"offline": ONLINE_PARITY_RTOL, "oracle": ONLINE_ORACLE_RTOL,
+                           "oracle_rows": ONLINE_ORACLE_ROW_RTOL},
+             "table_on_card": on_card, "device": kind, "nvidia_smi": smi}
+    emit(entry)
+    if not (max(rels) <= ONLINE_PARITY_RTOL and on_card):
+        raise SystemExit(f"online_parity: rows {max(rels):.3e} from the offline refit")
+    if not all(abs(r) <= ONLINE_ORACLE_RTOL for r in oracle):
+        raise SystemExit(f"online_parity: objective gaps {oracle} vs scipy")
+    if not all(r <= ONLINE_ORACLE_ROW_RTOL for r in oracle_rows):
+        raise SystemExit(f"online_parity: rows {oracle_rows} from scipy's argmin")
+    return entry
+
+
+def online_config4_part(kind, smi, device="cuda") -> dict:
+    """ScoringService(updates=...) over config 4's saved model in float32:
+    the validation rows of ONLINE_CONFIG4["users"] users as feedback, then
+    flush().  Its deltas feed a replication log through a publish hook,
+    and its intake a feedback lane; both are checked by
+    online_replog_part."""
+    import torch
+    from photon_ml_tpu_torch.data.game_data import load_game_dataset
+    from photon_ml_tpu_torch.fleet import ReplicationLog, record_for_event
+    from photon_ml_tpu_torch.models.io import load_model_delta, save_model_delta
+    from photon_ml_tpu_torch.online import OnlineUpdateConfig
+    from photon_ml_tpu_torch.serving import ScoringService, ServingConfig
+    c = ONLINE_CONFIG4
+    d = cli_dir("online")
+    best = str(serve_model_dirs()["npz"])
+    cfg = ServingConfig(device=device)
+    svc = ScoringService(model_dir=best, config=cfg,
+                         updates=OnlineUpdateConfig(micro_batch=c["micro_batch"]),
+                         start_updater=False, feedback_log_dir=str(d / "feedback_log"))
+    log = ReplicationLog(str(d / "replog"))
+    appended = {"records": 0, "s": 0.0}
+
+    def hook(ticket, event):
+        t0 = time.perf_counter()
+        log.append(record_for_event(event))
+        appended["s"] += time.perf_counter() - t0
+        appended["records"] += 1
+
+    svc.registry.add_publish_hook(hook)
+    scorer = svc.registry.scorer
+    (lane, shard, re_type), = scorer.updatable_coordinates()
+    ds = load_game_dataset(str(CLI_ROOT / "cli_game" / "val.npz"))
+    idx = np.asarray(ds.entity_indices[re_type])
+    vocab = np.asarray(ds.entity_vocabs[re_type], dtype=object)
+    seen = np.unique(idx[idx >= 0])
+    seen = np.asarray([v for v in seen if scorer.entity_row(lane, vocab[v]) >= 0])
+    users = np.random.default_rng(c["seed"]).choice(seen, size=c["users"], replace=False)
+    rows = np.flatnonzero(np.isin(idx, users))
+    feats, ids = scorer.requests_from_dataset(ds, rows)
+    labels = np.asarray(ds.response, np.float64)[rows]
+    table0 = scorer.re_table(lane).cpu().numpy()
+    hashes0 = scorer.table_hashes()
+    margins = scorer.score(feats, ids).scores
+    batches = 0
+    t0 = time.perf_counter()
+    for lo in range(0, len(rows), c["batch_rows"]):
+        sl = slice(lo, lo + c["batch_rows"])
+        svc.feedback({k: v[sl] for k, v in feats.items()},
+                     {k: v[sl] for k, v in ids.items()}, labels[sl])
+        batches += 1
+    intake_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    flush = svc.updater.flush()
+    flush_s = time.perf_counter() - t0
+    table1 = scorer.re_table(lane).cpu().numpy()
+    deltas = svc.registry.applied_deltas()
+    published = np.unique(np.concatenate([dl.coordinates[lane].rows for dl in deltas]))
+    untouched = np.setdiff1d(np.arange(table0.shape[0]), published)
+    snap = svc.metrics_snapshot()
+    # the anchored objective at the f32 rows of users whose rows all fit
+    # one solve, against host scipy in float64
+    window = OnlineUpdateConfig(micro_batch=c["micro_batch"]).max_rows_per_entity
+    user_of = np.asarray(ids[re_type], dtype=object)
+    gaps = []
+    for u in vocab[users]:
+        sel = np.flatnonzero(user_of == u)
+        if len(gaps) == c["checked"] or len(sel) > window:
+            continue
+        r = scorer.entity_row(lane, u)
+        f, res = _oracle(feats[shard][sel].astype(np.float64), labels[sel], margins[sel],
+                         table0[r].astype(np.float64), 1.0)
+        gaps.append((f(table1[r].astype(np.float64)) - res.fun) / abs(res.fun))
+    # the deltas through models/io.py into a fresh service
+    fresh = ScoringService(model_dir=best, config=cfg)
+    try:
+        t0 = time.perf_counter()
+        for dl in deltas:
+            save_model_delta(dl, str(d / "deltas" / f"{dl.seq:05d}"))
+        save_s = time.perf_counter() - t0
+        for dl in deltas:
+            fresh.registry.apply_delta(load_model_delta(str(d / "deltas" / f"{dl.seq:05d}")))
+        reloaded = fresh.registry.scorer.table_hashes()
+    finally:
+        fresh.close()
+    live = scorer.table_hashes()
+    checks = {"deltas_published": snap["online"]["deltas_published"] > 0,
+              "published_rows_finite": bool(np.isfinite(table1[published]).all()),
+              "untouched_rows_bit_equal": bool(np.array_equal(table1[untouched],
+                                                              table0[untouched])),
+              "objective_within_tolerance": len(gaps) == c["checked"]
+              and all(abs(g) <= ONLINE_CONFIG4_RTOL for g in gaps),
+              "saved_deltas_reload_to_live_hashes": reloaded == live,
+              "table_on_card": scorer.re_table(lane).device.type == device}
+    entry = {"phase": "online_config4", "entry": "ScoringService(updates=...) + flush()",
+             "config": "BASELINE config 4's saved model (cli_game), float32",
+             "users": c["users"], "feedback_rows": len(rows), "feedback_batches": batches,
+             "entities_published": int(len(published)), "flush": flush,
+             "intake_s": intake_s, "flush_s": flush_s,
+             "entities_per_s": len(published) / flush_s,
+             "online": {k: snap["online"][k] for k in (
+                 "deltas_published", "entities_updated", "rows_trained", "update_cycles",
+                 "frozen_entities", "feedback_to_publish_ms", "mean_publish_ms")},
+             "objective_rel_gaps_vs_scipy": gaps, "tolerance": ONLINE_CONFIG4_RTOL,
+             "delta_dirs_save_s": save_s, "checks": checks, "device": kind,
+             "nvidia_smi": smi}
+    return {"entry": entry, "svc": svc, "log": log, "appended": appended,
+            "hashes0": hashes0, "batches": batches, "best": best, "cfg": cfg,
+            "lane": lane}
+
+
+def online_config4_finish(part: dict) -> dict:
+    """Part 2's last gate, after part 5 has read its logs: the delta-aware
+    rollback restores the table hashes bit for bit."""
+    svc, entry = part["svc"], part["entry"]
+    try:
+        t0 = time.perf_counter()
+        svc.rollback()
+        entry["rollback_s"] = time.perf_counter() - t0
+        entry["checks"]["rollback_restores_hashes"] = (
+            svc.registry.scorer.table_hashes() == part["hashes0"]
+            and svc.registry.pending_deltas() == 0)
+    finally:
+        svc.close()
+    emit(entry)
+    bad = [k for k, ok in entry["checks"].items() if not ok]
+    if bad:
+        raise SystemExit(f"online_config4: failed checks {bad}")
+    return entry
+
+
+def online_replog_part(kind, smi, part: dict) -> dict:
+    """The feedback lane holds one record per admitted batch, and the
+    replication log part 2's publish hook fed replays into a fresh service
+    on the card to the live table hashes."""
+    from photon_ml_tpu_torch.fleet import delta_from_record, feedback_from_record
+    from photon_ml_tpu_torch.serving import ScoringService
+    svc, log = part["svc"], part["log"]
+    t0 = time.perf_counter()
+    envs = log.read(0)
+    read_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fb = svc.feedback_log.read(0)
+    fb_read_s = time.perf_counter() - t0
+    fb_rows = sum(len(feedback_from_record(e["record"])["labels"]) for e in fb)
+    fresh = ScoringService(model_dir=part["best"], config=part["cfg"])
+    try:
+        t0 = time.perf_counter()
+        for env in envs:
+            fresh.registry.apply_delta(delta_from_record(env["record"]))
+        replay_s = time.perf_counter() - t0
+        replayed = fresh.audit()
+    finally:
+        fresh.close()
+    live = svc.audit()
+    appended = part["appended"]
+    checks = {"one_feedback_record_per_batch": len(fb) == part["batches"],
+              "feedback_rows_logged": fb_rows == part["entry"]["feedback_rows"],
+              "every_delta_logged": len(envs) == live["version_vector"]["delta_seq"]
+              == appended["records"] > 0,
+              "replay_equals_live": replayed == live}
+    entry = {"phase": "online_replog", "entry": "fleet.ReplicationLog + FeedbackLog",
+             "records": len(envs), "bytes": log.live_bytes(),
+             "append_records_per_s": appended["records"] / appended["s"],
+             "read_records_per_s": len(envs) / read_s,
+             "feedback_records": len(fb), "feedback_bytes": svc.feedback_log.live_bytes(),
+             "feedback_read_records_per_s": len(fb) / fb_read_s,
+             "replay_s": replay_s, "checks": checks, "device": kind, "nvidia_smi": smi}
+    emit(entry)
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise SystemExit(f"online_replog: failed checks {bad}")
+    return entry
+
+
+def _cycle_breakdown(svc, cycles: int, feed) -> dict:
+    """`cycles` manual update cycles of `svc` (each fed by `feed()` with
+    one micro-batch of entities first), timed by part: block build,
+    margin scoring, the solve (its rounds and read-backs), the final
+    read-back, the publish."""
+    import photon_ml_tpu_torch.online.updater as upd
+    u, scorer, registry = svc.updater, svc.registry.scorer, svc.registry
+    acc = {k: 0.0 for k in ("cycle", "blocks_incl_scoring", "margin_scoring",
+                            "solve", "solve_and_readback", "publish")}
+    rounds, readbacks = [], []
+
+    def timed(key, fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                acc[key] += time.perf_counter() - t0
+        return run
+
+    def solve(*a, **kw):
+        t0 = time.perf_counter()
+        rows, res = orig_solve(*a, **kw)
+        acc["solve"] += time.perf_counter() - t0
+        rounds.append(res.rounds)
+        readbacks.append(res.readbacks)
+        return rows, res
+
+    orig_solve = upd.solve_anchored
+    upd.solve_anchored = solve
+    u._blocks_for = timed("blocks_incl_scoring", u._blocks_for)
+    u._solve_with_retry = timed("solve_and_readback", u._solve_with_retry)
+    scorer.score = timed("margin_scoring", scorer.score)
+    registry.apply_delta = timed("publish", registry.apply_delta)
+    try:
+        for _ in range(cycles):
+            feed()
+            t0 = time.perf_counter()
+            u.run_once()
+            acc["cycle"] += time.perf_counter() - t0
+    finally:
+        upd.solve_anchored = orig_solve
+        for obj, name in ((u, "_blocks_for"), (u, "_solve_with_retry"),
+                          (scorer, "score"), (registry, "apply_delta")):
+            del obj.__dict__[name]
+    ms = {k: v / cycles * 1e3 for k, v in acc.items()}
+    return {"cycles": cycles, "ms_per_cycle": {
+        "cycle": ms["cycle"],
+        "block_build": ms["blocks_incl_scoring"] - ms["margin_scoring"],
+        "margin_scoring": ms["margin_scoring"], "solve": ms["solve"],
+        "read_back": ms["solve_and_readback"] - ms["solve"], "publish": ms["publish"],
+        "other": ms["cycle"] - ms["blocks_incl_scoring"] - ms["solve_and_readback"]
+        - ms["publish"]},
+        "solve_rounds": {"min": min(rounds), "median": statistics.median(rounds),
+                         "max": max(rounds)},
+        "solve_readbacks_median": statistics.median(readbacks)}
+
+
+def online_latency_part(kind, smi, device="cuda") -> dict:
+    """bench.py's latency entry in float32: scoring p99 without updates,
+    then with the updater live and a feedback pump publishing deltas the
+    whole time; then one update cycle alone, timed by part and profiled."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+    import torch
+    from photon_ml_tpu_torch.online import OnlineUpdateConfig
+    from photon_ml_tpu_torch.ops import _build
+    from photon_ml_tpu_torch.serving import ScoringService, ServingConfig
+    from photon_ml_tpu_torch.serving.batcher import Overloaded
+    c = ONLINE_LATENCY
+    rng = np.random.default_rng(c["seed"])
+    E = c["entities"]
+    entities = [f"u{i}" for i in range(E)]
+    cfg = ServingConfig(max_batch=256, min_bucket=8, max_wait_s=0.002, max_queue=4096,
+                        latency_window=c["requests"], device=device)
+    requests = []
+    for _ in range(c["requests"]):
+        k = int(rng.integers(1, 9))
+        requests.append(({"global": rng.normal(size=(k, c["d_g"])),
+                          "per_user": rng.normal(size=(k, c["d_u"]))},
+                         {"userId": np.asarray([entities[rng.integers(0, E)]
+                                                for _ in range(k)], dtype=object)}))
+
+    def feedback_batch(frng, rows):
+        feats = {"global": frng.normal(size=(rows, c["d_g"])),
+                 "per_user": frng.normal(size=(rows, c["d_u"]))}
+        ids = {"userId": np.asarray([entities[frng.integers(0, E)] for _ in range(rows)],
+                                    dtype=object)}
+        return feats, ids, (frng.uniform(size=rows) < 0.5).astype(float)
+
+    def run_stream(svc):
+        errors = []
+
+        def one(req):
+            try:
+                svc.score(*req)
+            except Exception as e:
+                errors.append(f"{type(e).__name__}: {e}")
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=c["threads"]) as pool:
+            list(pool.map(one, requests))
+        return time.perf_counter() - t0, errors
+
+    p99 = lambda svc: svc.metrics_snapshot()["latency_ms"]["p99"]
+    counts = lambda svc: {k: svc.metrics_snapshot()["online"][k]
+                          for k in ("deltas_published", "entities_updated")}
+    updates = OnlineUpdateConfig(micro_batch=c["micro_batch"], interval_s=c["interval_s"],
+                                 max_iterations=c["max_iterations"],
+                                 tolerance=c["tolerance"],
+                                 max_pending_rows=c["max_pending_rows"])
+    svc_a = ScoringService(model=_online_model(rng, c["d_g"], c["d_u"], E, device,
+                                               torch.float32), config=cfg)
+    try:
+        run_stream(svc_a)
+        a = [run_stream(svc_a) + (p99(svc_a),) for _ in range(c["reps"])]
+        snap_a = svc_a.metrics_snapshot()
+    finally:
+        svc_a.close()
+    svc_b = ScoringService(model=_online_model(rng, c["d_g"], c["d_u"], E, device,
+                                               torch.float32), config=cfg, updates=updates)
+    try:
+        deadline = time.time() + 120
+        while not svc_b.updater.warmed and time.time() < deadline:
+            time.sleep(0.05)
+        warmup_s = svc_b.updater.warmup_s
+        loads_after_warmup = len(_build.LOADS)
+        run_stream(svc_b)
+        f_rng = np.random.default_rng(47)
+        svc_b.feedback(*feedback_batch(f_rng, 64))
+        svc_b.updater.flush()
+        # the window's own updates: counted from here, after the flush above
+        counts_start = counts(svc_b)
+        stop = threading.Event()
+        pumped, shed, pump_errors = [0], [0], []
+
+        def pump():
+            # any failure but a shed batch ends the pump, and the part with it
+            try:
+                while not stop.is_set():
+                    if svc_b.updater.buffer.pending_rows > 128:
+                        time.sleep(0.002)
+                        continue
+                    try:
+                        svc_b.feedback(*feedback_batch(f_rng, c["pump_rows"]))
+                        pumped[0] += c["pump_rows"]
+                    except Overloaded:
+                        shed[0] += 1
+                        time.sleep(0.005)
+                    time.sleep(0.002)
+            except BaseException as e:
+                pump_errors.append(f"{type(e).__name__}: {e}")
+
+        pumper = threading.Thread(target=pump, daemon=True)
+        pumper.start()
+        t0 = time.perf_counter()
+        b = [run_stream(svc_b) + (p99(svc_b),) for _ in range(c["reps"])]
+        stop.set()
+        pumper.join(timeout=5)
+        counts_window = counts(svc_b)
+        svc_b.updater.flush()
+        update_wall = time.perf_counter() - t0
+        snap_b = svc_b.metrics_snapshot()
+        counts_end = counts(svc_b)
+        updater_ok = {"warmed": svc_b.updater.warmed,
+                      "last_error": svc_b.updater.last_error,
+                      "pump_alive": pumper.is_alive(), "pump_errors": pump_errors}
+    finally:
+        svc_b.close()
+    # one update cycle alone: timed by part over `cycles` cycles, then one
+    # profiled (launches, device busy time, the host's share)
+    svc_c = ScoringService(model=_online_model(rng, c["d_g"], c["d_u"], E, device,
+                                               torch.float32), config=cfg,
+                           updates=updates, start_updater=False)
+    try:
+        svc_c.updater.warmup()
+        c_rng = np.random.default_rng(53)
+
+        def feed():
+            picks = c_rng.choice(E, size=c["micro_batch"], replace=False)
+            feats = {"global": c_rng.normal(size=(2 * len(picks), c["d_g"])),
+                     "per_user": c_rng.normal(size=(2 * len(picks), c["d_u"]))}
+            ids = {"userId": np.asarray([entities[i] for i in picks] * 2, dtype=object)}
+            svc_c.feedback(feats, ids, (c_rng.uniform(size=2 * len(picks)) < 0.5) * 1.0)
+
+        breakdown = _cycle_breakdown(svc_c, c["cycles"], feed)
+        feed()
+        prof = None
+        if device == "cuda":
+            _, prof = profile_call(svc_c.updater.run_once)
+        loads_after = len(_build.LOADS)
+    finally:
+        svc_c.close()
+    p99_a, p99_b = min(r[2] for r in a), min(r[2] for r in b)
+    errors = sum(len(r[1]) for r in a + b)
+    entry = {"phase": "online_latency", "entry": "ScoringService(updates=...) under load",
+             "config": "bench.py _online_latency_entry (20,000 entities, d 16 + 8), float32",
+             "requests": c["requests"], "threads": c["threads"], "reps": c["reps"],
+             "baseline": {"p99_ms": p99_a, "p99_ms_reps": [r[2] for r in a],
+                          "p50_ms": snap_a["latency_ms"]["p50"],
+                          "wall_s": min(r[0] for r in a)},
+             "under_updates": {
+                 "p99_ms": p99_b, "p99_ms_reps": [r[2] for r in b],
+                 "p50_ms": snap_b["latency_ms"]["p50"], "wall_s": min(r[0] for r in b),
+                 "feedback_rows_pumped": pumped[0], "feedback_batches_shed": shed[0],
+                 "counts_at_window_start": counts_start,
+                 "counts_at_window_end": counts_window,
+                 "counts_after_final_flush": counts_end,
+                 "update_entities_per_s": (counts_end["entities_updated"]
+                                           - counts_start["entities_updated"]) / update_wall,
+                 "feedback_to_publish_ms": snap_b["online"]["feedback_to_publish_ms"],
+                 "update_cycles": snap_b["online"]["update_cycles"]},
+             "p99_ratio": p99_b / max(p99_a, 1e-9), "p99_ratio_bound": ONLINE_P99_BOUND,
+             "p99_within_bound": p99_b / max(p99_a, 1e-9) <= ONLINE_P99_BOUND,
+             "request_errors": errors, "updater_warmup_s": warmup_s,
+             "updater": updater_ok,
+             "cycle": breakdown,
+             "profiled_cycle": None if prof is None else {
+                 k: prof[k] for k in ("wall_ms", "device_busy_ms", "device_idle_share",
+                                      "device_kernels", "device_copies", "primer_lost",
+                                      "device_top", "host_top")},
+             "kernel_builds_or_loads_after_warmup": loads_after - loads_after_warmup,
+             "device": kind, "nvidia_smi": smi}
+    emit(entry)
+    if errors:
+        raise SystemExit(f"online_latency: {errors} request errors")
+    rose = {k: counts_window[k] > counts_start[k] for k in counts_start}
+    if not all(rose.values()):
+        raise SystemExit(f"online_latency: no update published during the scoring "
+                         f"window: {counts_start} -> {counts_window}")
+    if not (updater_ok["warmed"] and updater_ok["last_error"] is None
+            and not updater_ok["pump_alive"] and not pump_errors):
+        raise SystemExit(f"online_latency: the updater or the pump failed: {updater_ok}")
+    return entry
+
+
+def online_http_part(kind, smi, device="cuda") -> dict:
+    """python -m photon_ml_tpu_torch.cli.serve --enable-updates as a child
+    on config 4's model: POST /feedback 202, a delta published within a
+    deadline, a touched user's /score moved and restored bit for bit by
+    POST /rollback, an oversized feedback 429 with Retry-After, SIGTERM
+    draining with the flushed counts on its last line."""
+    from photon_ml_tpu_torch.data.game_data import load_game_dataset
+    from photon_ml_tpu_torch.serving import CompiledScorer
+    c = ONLINE_HTTP
+    best = serve_model_dirs()["npz"]
+    scorer = CompiledScorer.from_model_dir(str(best), device=device, warmup=False)
+    ds = load_game_dataset(str(CLI_ROOT / "cli_game" / "val.npz"))
+    (lane, _shard, re_type), = scorer.updatable_coordinates()
+    idx = np.asarray(ds.entity_indices[re_type])
+    users = [v for v in np.unique(idx[idx >= 0])
+             if scorer.entity_row(lane, ds.entity_vocabs[re_type][v]) >= 0][:c["users"] + 1]
+    # the probe user's rows first, the batch within --feedback-max-pending
+    fb_rows = np.concatenate([np.flatnonzero(idx == u) for u in users[:-1]])
+    fb_rows = fb_rows[:c["batch_rows"]]
+    probe_rows = np.flatnonzero(idx == users[0])
+    body = lambda rows: (lambda f, i: {
+        "features": {k: np.asarray(v).tolist() for k, v in f.items()},
+        "ids": {k: np.asarray(v).tolist() for k, v in i.items()}})(
+            *scorer.requests_from_dataset(ds, rows))
+    labels = np.asarray(ds.response, np.float64)
+    counts_file = cli_dir("online_http") / "child_counts.json"
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-c", SERVE_CHILD, "--model-dir", str(best),
+         "--port", "0", "--device", device, "--enable-updates", "--update-interval-ms", "5",
+         "--feedback-max-pending", str(c["max_pending"])],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT), **{CHILD_COUNTS_ENV: str(counts_file)}))
+    checks = {}
+    try:
+        line = proc.stdout.readline()
+        if not line:
+            raise SystemExit(f"online_http: the child exited {proc.wait()}: "
+                             f"{proc.stderr.read()[-2000:]}")
+        startup = json.loads(line)
+        base = startup["serving"]
+        while http_call(base, "/healthz")[0] != 200:
+            if time.perf_counter() - t0 > 120:
+                raise SystemExit("online_http: /healthz not ready in 120 s")
+            time.sleep(0.1)
+        ready_s = time.perf_counter() - t0
+        probe = body(probe_rows)
+        before = json.loads(http_call(base, "/score", probe)[1])["scores"]
+        fb = dict(body(fb_rows), labels=labels[fb_rows].tolist())
+        code, text = http_call(base, "/feedback", fb)
+        intake = json.loads(text)
+        checks["feedback_202"] = code == 202 and intake.get("accepted") == len(fb_rows)
+        t1 = time.perf_counter()
+        health = {}
+        while time.perf_counter() - t1 < c["deadline_s"]:
+            health = json.loads(http_call(base, "/healthz")[1])
+            if (health["version_vector"]["delta_seq"] >= 1
+                    and health["updater"]["pending_rows"] == 0):
+                break
+            time.sleep(0.05)
+        publish_s = time.perf_counter() - t1
+        online = json.loads(http_call(base, "/metrics.json")[1])["online"]
+        checks["delta_published_in_deadline"] = (online["deltas_published"] >= 1
+                                                 and health["updater"]["alive"])
+        after = json.loads(http_call(base, "/score", probe)[1])["scores"]
+        checks["touched_score_moved"] = after != before
+        code, text = http_call(base, "/rollback", {})
+        restored = json.loads(http_call(base, "/score", probe)[1])["scores"]
+        checks["rollback_restores_bits"] = code == 200 and restored == before
+        big = np.resize(fb_rows, c["oversized"])
+        code, text = http_call(base, "/feedback", dict(body(big), labels=labels[big].tolist()))
+        shed = json.loads(text)
+        checks["oversized_429_retry_after"] = code == 429 and shed.get("retry_after_s", 0) > 0
+        code, _ = http_call(base, "/feedback", fb)
+        proc.send_signal(signal.SIGTERM)
+        out, err = proc.communicate(timeout=120)
+        last = json.loads(out.strip().splitlines()[-1])
+        flushed = last.get("feedback_flushed")
+        checks["sigterm_drains_with_flushed_counts"] = (
+            proc.returncode == 0 and last.get("drained") is True
+            and isinstance(flushed, dict) and set(flushed) == {"entities", "rows", "deltas"})
+        # the phase-wide gates, in the child: no kernel of the kernels line
+        # launched, no kernel built or loaded
+        child = json.loads(counts_file.read_text()) if counts_file.exists() else None
+        checks["child_launches_no_kernel"] = (child is not None
+                                              and not any(child["launches"].values()))
+        checks["child_builds_or_loads_nothing"] = (child is not None
+                                                   and child["builds_or_loads"] == 0)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    entry = {"phase": "online_http",
+             "entry": "python -m photon_ml_tpu_torch.cli.serve --enable-updates",
+             "ready_s": ready_s, "feedback_rows": len(fb_rows), "intake": intake,
+             "publish_wait_s": publish_s, "healthz_updater": health.get("updater"),
+             "online": {k: online[k] for k in ("deltas_published", "entities_updated",
+                                               "feedback_to_publish_ms")},
+             "shed": shed, "drained": last, "child_counts": child, "checks": checks,
+             "device": kind,
+             "nvidia_smi": smi}
+    emit(entry)
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise SystemExit(f"online_http: failed checks {bad}; stderr {err[-2000:]}")
+    return entry
+
+
+def online_shards_part(kind, smi, device="cuda") -> dict:
+    """Config 4's model as ONLINE_SHARDS sharded services on the one card:
+    merge_margins over their score_margins on the validation rows equals
+    the monolithic scores bit for bit, and each shard's table hashes equal
+    the full scorer's filtered audit."""
+    from photon_ml_tpu_torch.data.game_data import load_game_dataset
+    from photon_ml_tpu_torch.fleet import ShardSpec, merge_margins
+    from photon_ml_tpu_torch.serving import CompiledScorer, ScoringService, ServingConfig
+    best = str(serve_model_dirs()["npz"])
+    full = CompiledScorer.from_model_dir(best, device=device)
+    ds = load_game_dataset(str(CLI_ROOT / "cli_game" / "val.npz"))
+    feats, ids = full.requests_from_dataset(ds, np.arange(ds.num_rows))
+    want = full.score(feats, ids).scores
+    spec = ShardSpec(ONLINE_SHARDS)
+    legs, audits, owned = {}, {}, {}
+    t0 = time.perf_counter()
+    for k in range(ONLINE_SHARDS):
+        svc = ScoringService(model_dir=best, config=ServingConfig(
+            device=device, shard_index=k, shard_count=ONLINE_SHARDS))
+        try:
+            legs[k] = svc.score_margins(feats, ids)["margins"]
+            audits[k] = svc.audit()["table_hashes"] == full.shard_table_hashes(spec, k)
+            owned[k] = svc.registry.scorer.shard_info()["owned_rows"]
+        finally:
+            svc.close()
+    legs_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    merged = merge_margins(spec, full.coordinate_meta(), ids, legs, primary=0)
+    merge_s = time.perf_counter() - t0
+    checks = {"merge_bit_equal": merged["scores"].tobytes() == want.tobytes(),
+              "shard_audits_equal": all(audits.values())}
+    entry = {"phase": "online_shards", "entry": "ScoringService(shard_index/shard_count)",
+             "shards": ONLINE_SHARDS, "rows": int(ds.num_rows), "owned_rows": owned,
+             "legs_s": legs_s, "merge_s": merge_s, "checks": checks, "device": kind,
+             "nvidia_smi": smi}
+    emit(entry)
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise SystemExit(f"online_shards: failed checks {bad}")
+    return entry
+
+
+def online_phase(hk, sk, kind, smi, device="cuda") -> dict:
+    """The online tier's six parts, after serve; no kernel of the kernels
+    line launches in them, and after the updaters' warmup no kernel is
+    built or loaded."""
+    from photon_ml_tpu_torch.ops import _build
+    reset_launches(hk, sk)
+    hk.LANES_LAUNCHES = 0
+    loads0 = len(_build.LOADS)
+    seconds = {}
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    timed("online_parity", online_parity_part, kind, smi, device)
+    c4 = timed("online_config4", online_config4_part, kind, smi, device)
+    timed("online_replog", online_replog_part, kind, smi, c4)
+    timed("online_config4_rollback", online_config4_finish, c4)
+    del c4
+    latency = timed("online_latency", online_latency_part, kind, smi, device)
+    timed("online_http", online_http_part, kind, smi, device)
+    timed("online_shards", online_shards_part, kind, smi, device)
+    launches = {"fused": hk.LAUNCHES, "lanes": hk.LANES_LAUNCHES, **dict(sk.LAUNCHES)}
+    builds = len(_build.LOADS) - loads0
+    emit({"phase": "online_done", "seconds": seconds, "kernel_launches": launches,
+          "kernel_builds_or_loads": builds,
+          "after_updater_warmup": latency["kernel_builds_or_loads_after_warmup"]})
+    if any(launches.values()):
+        raise SystemExit(f"online: kernels of the kernels line launched: {launches}")
+    if builds or latency["kernel_builds_or_loads_after_warmup"]:
+        raise SystemExit(f"online: {builds} kernel builds or loads in the phase")
+    return seconds
+
+
 def sparse_kernel_entry(name: str, part: str, c6: dict, c7: dict,
                         cli_avro: dict) -> dict:
     """The kernels line's entry of sparse kernel A ("a") or B ("b"): its
@@ -4720,6 +5465,9 @@ def main() -> int:
     t0 = time.perf_counter()
     serve_phase(hk, sk, kind, smi)
     emit({"phase": "serve_phase_done", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    online_phase(hk, sk, kind, smi)
+    emit({"phase": "online_phase_done", "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
     cli_telemetry = cli_telemetry_phase(hk, kind, smi)
     emit({"phase": "cli_telemetry_done", "seconds": time.perf_counter() - t0})

@@ -14,6 +14,13 @@ HTTP mode (default) — a dependency-free stdlib server:
   POST /score    {"features": {shard: [[...]]}, "ids": {type: [...]},
                   "timeout_ms": 50}        -> {"scores": [...]}
   POST /predict  same body                 -> {"predictions": [...]}
+  POST /feedback same body + "labels" (opt "weights"/"offsets"/
+                  "event_ids")             -> 202 intake accounting
+                                              (--enable-updates only: the
+                                              online tier re-solves the
+                                              touched entities' random
+                                              effects and publishes
+                                              row-level delta swaps)
   GET  /metrics                            -> Prometheus text exposition
                                               (0.0.4)
   GET  /metrics.json                       -> ServingMetrics JSON snapshot
@@ -23,21 +30,27 @@ HTTP mode (default) — a dependency-free stdlib server:
                                               pre-delta rows, else the
                                               previous full model
   GET  /healthz                            -> status + version vector
-                                              (+ the tiered store's hit
-                                              rate)
+                                              + updater vitals (thread
+                                              liveness, last-cycle age,
+                                              frozen entities, pending
+                                              rows) (+ the tiered store's
+                                              hit rate)
   GET  /fleet/audit                        -> version vector + per-table
                                               sha256
   POST /flight/dump                        -> a flight-recorder bundle
 
-  429 = Overloaded (queue full), 504 = DeadlineExceeded, 400 = bad
-  request.  SIGUSR1 dumps a metrics snapshot to stderr; --metrics-interval
-  dumps one periodically.  POST /feedback and POST /margins answer 501:
-  the online updater and the sharded fan-out they serve are ROADMAP.md
-  queue A item 22, and so are the flags in UNPORTED_FLAGS, which exit.
+  429 = Overloaded (queue full; POST /feedback rejections carry a
+  Retry-After header derived from the online updater's observed drain
+  rate), 504 = DeadlineExceeded, 400 = bad request.  SIGUSR1 dumps a
+  metrics snapshot to stderr; --metrics-interval dumps one periodically.
+  POST /margins answers 501: the sharded fan-out it serves belongs to the
+  fleet (ROADMAP.md queue A item 22), and so do the fleet flags in
+  UNPORTED_FLAGS, which exit, as does --health-config (item 22, health).
 
 Graceful drain: SIGTERM/SIGINT stops accepting new requests, finishes the
-in-flight micro-batches, closes everything cleanly, prints a final
-{"drained": true, ...} line and exits 0.  A second signal aborts
+in-flight micro-batches, flushes the FeedbackBuffer through the online
+updater (when updates are enabled), closes everything cleanly, prints a
+final {"drained": true, ...} line and exits 0.  A second signal aborts
 immediately (utils.faults.GracefulPreemption semantics).
 
 --trace-out / --run-log arm the span tracer with export on exit (the
@@ -59,21 +72,21 @@ import sys
 import threading
 import time
 
-_ITEM_22 = "not ported yet (ROADMAP.md queue A item 22)"
+_HEALTH = "not ported yet (ROADMAP.md queue A item 22, health)"
+_FLEET = "not ported yet (ROADMAP.md queue A item 22, the fleet)"
 
-# flag -> (is it set, the ROADMAP.md queue A item that ports it)
+# flag -> (is it set, the ROADMAP.md queue A item that ports it; the
+# health monitor and the fleet are its two remaining slices)
 UNPORTED_FLAGS = (
-    ("--enable-updates", lambda a: a.enable_updates, 22),
-    ("--health-config", lambda a: a.health_config is not None, 22),
-    ("--replica", lambda a: a.replica, 22),
-    ("--publish", lambda a: a.publish, 22),
-    ("--front", lambda a: a.front, 22),
-    ("--shard", lambda a: a.shard is not None, 22),
-    ("--shard-count", lambda a: a.shard_count is not None, 22),
+    ("--health-config", lambda a: a.health_config is not None, "22, health"),
+    ("--replica", lambda a: a.replica, "22, the fleet"),
+    ("--publish", lambda a: a.publish, "22, the fleet"),
+    ("--front", lambda a: a.front, "22, the fleet"),
+    ("--shard", lambda a: a.shard is not None, "22, the fleet"),
+    ("--shard-count", lambda a: a.shard_count is not None, "22, the fleet"),
 )
 # POST routes of the JAX CLI whose subsystems are not ported
-UNPORTED_ROUTES = {"/feedback": "the online updater",
-                   "/margins": "the sharded fan-out"}
+UNPORTED_ROUTES = {"/margins": ("the sharded fan-out", _FLEET)}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -118,16 +131,34 @@ def build_parser() -> argparse.ArgumentParser:
                         "(x --store-seg-rows rows)")
     p.add_argument("--store-seg-rows", type=int, default=16384,
                    help="rows per cold segment file")
-    # -- the JAX CLI's online/health/fleet modes: they exit ----------------
-    p.add_argument("--enable-updates", action="store_true", help=_ITEM_22)
+    # -- the online learning tier --------------------------------------------
+    p.add_argument("--enable-updates", action="store_true",
+                   help="online learning tier: accept POST /feedback and "
+                        "publish per-entity random-effect delta swaps "
+                        "into the live scorer")
+    p.add_argument("--update-interval-ms", type=float, default=20.0,
+                   help="idle poll period of the online update loop")
+    p.add_argument("--update-micro-batch", type=int, default=16,
+                   help="entity lanes per anchored online solve "
+                        "(power-of-two rounded)")
+    p.add_argument("--update-anchor-weight", type=float, default=1.0,
+                   help="prior-pull strength toward the batch solution "
+                        "(lambda of ||c - c0||^2)")
+    p.add_argument("--update-max-rows-per-entity", type=int, default=64,
+                   help="per-entity sample ceiling per online solve "
+                        "(newest rows win)")
+    p.add_argument("--feedback-max-pending", type=int, default=8192,
+                   help="pending feedback rows before backpressure "
+                        "(Overloaded / HTTP 429)")
+    # -- the JAX CLI's health/fleet modes: they exit -----------------------
     p.add_argument("--health-config", default=None, metavar="JSON",
-                   help=_ITEM_22)
-    p.add_argument("--replica", action="store_true", help=_ITEM_22)
-    p.add_argument("--publish", action="store_true", help=_ITEM_22)
-    p.add_argument("--front", action="store_true", help=_ITEM_22)
-    p.add_argument("--shard", default=None, metavar="K/N", help=_ITEM_22)
+                   help=_HEALTH)
+    p.add_argument("--replica", action="store_true", help=_FLEET)
+    p.add_argument("--publish", action="store_true", help=_FLEET)
+    p.add_argument("--front", action="store_true", help=_FLEET)
+    p.add_argument("--shard", default=None, metavar="K/N", help=_FLEET)
     p.add_argument("--shard-count", type=int, default=None, metavar="N",
-                   help=_ITEM_22)
+                   help=_FLEET)
     # -- observability (telemetry + telemetry/flight) -----------------------
     p.add_argument("--trace-out", default=None, metavar="TRACE.json",
                    help="arm the telemetry span tracer and write a Chrome-"
@@ -190,8 +221,17 @@ def _build_service(args, device):
         store_seg_rows=args.store_seg_rows,
         device=str(device),
         dtype=torch.float64 if args.x64 else torch.float32)
+    updates = None
+    if args.enable_updates:
+        from photon_ml_tpu_torch.online import OnlineUpdateConfig
+        updates = OnlineUpdateConfig(
+            micro_batch=args.update_micro_batch,
+            max_rows_per_entity=args.update_max_rows_per_entity,
+            anchor_weight=args.update_anchor_weight,
+            interval_s=args.update_interval_ms / 1e3,
+            max_pending_rows=args.feedback_max_pending)
     return ScoringService(model_dir=args.model_dir, config=cfg,
-                          emitter=emitter)
+                          emitter=emitter, updates=updates)
 
 
 def _dump_metrics(service, stream=sys.stderr):
@@ -381,10 +421,36 @@ def _make_http_server(service, host: str, port: int):
                             key = "predictions"
                     self._reply(200, {key: np.asarray(out).tolist(),
                                       "model_version": service.model_version})
+                elif self.path == "/feedback":
+                    if service.updater is None:
+                        return self._reply(400, {
+                            "error": "online updates are not enabled "
+                                     "(start with --enable-updates)"})
+                    feats = {s: np.asarray(v, np.float64)
+                             for s, v in (req.get("features") or {}).items()}
+                    ids = {t: np.asarray(v, dtype=object)
+                           for t, v in (req.get("ids") or {}).items()}
+                    if req.get("labels") is None:
+                        return self._reply(400, {"error": "labels required"})
+                    # the span scope is what stamps the request id onto
+                    # the buffered observations (updater.submit reads the
+                    # thread-local context), carrying it into the delta's
+                    # replication trace
+                    with distributed.server_span("serve_request",
+                                                 self.headers,
+                                                 path=self.path):
+                        out = service.feedback(
+                            feats, ids,
+                            np.asarray(req["labels"], np.float64),
+                            weights=req.get("weights"),
+                            offsets=req.get("offsets"),
+                            event_ids=req.get("event_ids"))
+                    out["version_vector"] = service.version_vector()
+                    self._reply(202, out)
                 elif self.path in UNPORTED_ROUTES:
-                    self._reply(501, {"error": f"POST {self.path} "
-                                      f"({UNPORTED_ROUTES[self.path]}) is "
-                                      f"{_ITEM_22}"})
+                    what, why = UNPORTED_ROUTES[self.path]
+                    self._reply(501, {"error": f"POST {self.path} ({what}) "
+                                      f"is {why}"})
                 elif self.path == "/flight/dump":
                     # an operator asking for the recent window by hand
                     bundle = flight.trigger(
@@ -405,7 +471,16 @@ def _make_http_server(service, host: str, port: int):
                 else:
                     self._reply(404, {"error": f"unknown path {self.path}"})
             except Overloaded as e:
-                self._reply(429, {"error": str(e)})
+                retry_after = getattr(e, "retry_after_s", None)
+                if retry_after is not None:
+                    # integer delta-seconds per RFC 9110; derived from
+                    # the updater's observed feedback drain rate
+                    self._reply(429, {"error": str(e),
+                                      "retry_after_s": round(retry_after, 3)},
+                                {"Retry-After":
+                                 str(max(1, int(round(retry_after))))})
+                else:
+                    self._reply(429, {"error": str(e)})
             except DeadlineExceeded as e:
                 self._reply(504, {"error": str(e)})
             except (ValueError, KeyError) as e:
@@ -493,11 +568,11 @@ def _run_serve(args, device) -> int:
         "model_load_s": round(load_s, 3),
         "device": str(service.device),
         "buckets": service.registry.scorer.bucket_sizes(),
-        "updates_enabled": False,
+        "updates_enabled": service.updater is not None,
         "health_enabled": False,
-        "endpoints": ["/score", "/predict", "/metrics", "/metrics.json",
-                      "/swap", "/rollback", "/healthz", "/fleet/audit",
-                      "/flight/dump"],
+        "endpoints": ["/score", "/predict", "/feedback", "/metrics",
+                      "/metrics.json", "/swap", "/rollback", "/healthz",
+                      "/fleet/audit", "/flight/dump"],
     }), flush=True)
     try:
         drained, aborted = _serve_with_graceful_drain(httpd)
@@ -507,12 +582,18 @@ def _run_serve(args, device) -> int:
         # dump the flight ring BEFORE the close teardown mutates state —
         # the drain window is part of the postmortem trail
         flight.trigger("serve.drain", mode="serve", aborted=aborted)
+    flushed = None
+    if drained and not aborted and service.updater is not None \
+            and not service.updater.paused:
+        # the drain contract: everything the intake admitted either
+        # publishes or is accounted before exit
+        flushed = service.updater.flush()
     service.close()
     _dump_metrics(service)
     if drained:
         print(json.dumps({
             "drained": True, "aborted": aborted,
-            "feedback_flushed": None,
+            "feedback_flushed": flushed,
             "version_vector": service.version_vector()}), flush=True)
     return 0
 

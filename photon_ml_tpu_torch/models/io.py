@@ -4,8 +4,9 @@ each written and read exactly as the JAX package does, so a model
 directory written by either package loads in the other.  Loading takes
 `device` (None means cuda, which raises without CUDA) and `dtype`
 (float32 by default, as the JAX package computes without x64).  Online
-model deltas (`save_model_delta`/`load_model_delta`) belong to online
-updates (ROADMAP.md queue A item 22) and are not ported yet.
+model deltas (`save_model_delta`/`load_model_delta`) are the manifest-
+sealed `delta.npz` + `delta-metadata.json` pair the JAX package writes,
+so a delta directory either package writes loads in the other.
 
 The JAX package's description of the layouts:
 
@@ -837,3 +838,65 @@ def load_glm(directory: str, device=None, dtype: torch.dtype = torch.float32):
     coeffs = Coefficients(put(z["means"]),
                           put(z["variances"]) if "variances" in z else None)
     return model_for_task(meta["task_type"], coeffs), meta
+
+
+# -- online model deltas ------------------------------------------------------
+
+def save_model_delta(delta, directory: str) -> None:
+    """Durable persistence of an online ModelDelta (photon_ml_tpu_torch/
+    online): the audit/replication artifact of a row-level delta swap.
+
+    Write discipline matches checkpoints: the npz lands via tmp + fsync +
+    atomic replace, metadata via atomic_write_json, and a per-file
+    size+sha256 manifest.json is written LAST — at any crash instant the
+    directory either verifies complete or is detectably partial
+    (load_model_delta refuses the latter)."""
+    from photon_ml_tpu_torch.utils.durable import (fsync_dir, fsync_file,
+                                                   write_manifest)
+    os.makedirs(directory, exist_ok=True)
+    npz_path = os.path.join(directory, "delta.npz")
+    tmp = npz_path + ".tmp.npz"   # savez appends .npz to unsuffixed paths
+    np.savez_compressed(tmp, **delta.to_arrays())
+    fsync_file(tmp)
+    os.replace(tmp, npz_path)
+    fsync_dir(directory)
+    atomic_write_json(os.path.join(directory, "delta-metadata.json"), {
+        "format_version": _FORMAT_VERSION,
+        "base_version": delta.base_version,
+        "delta_seq": delta.seq,
+        "created_at": delta.created_at,
+        "coordinates": {name: cd.num_rows
+                        for name, cd in delta.coordinates.items()},
+        "num_rows": delta.num_rows,
+    })
+    write_manifest(directory)
+
+
+def load_model_delta(directory: str):
+    """Load + VERIFY a persisted ModelDelta: the manifest must be present
+    and every file must match its recorded size and sha256 (a torn or
+    tampered delta must never reach apply_delta).  The delta's arrays stay
+    host numpy; apply_delta moves them to the scorer's device."""
+    from photon_ml_tpu_torch.online.delta import ModelDelta
+    from photon_ml_tpu_torch.utils.durable import file_sha256
+    manifest_p = os.path.join(directory, "manifest.json")
+    if not os.path.exists(manifest_p):
+        raise FileNotFoundError(
+            f"no manifest.json in {directory!r} — the delta write did not "
+            "complete (or this is not a delta directory)")
+    with open(manifest_p) as f:
+        manifest = json.load(f)
+    for rel, want in manifest.get("files", {}).items():
+        p = os.path.join(directory, rel)
+        if not os.path.exists(p) or os.path.getsize(p) != want["bytes"] \
+                or file_sha256(p) != want["sha256"]:
+            raise ValueError(
+                f"delta file {rel!r} in {directory!r} does not match its "
+                "manifest (size/sha256) — refusing to load a torn or "
+                "tampered delta")
+    with open(os.path.join(directory, "delta-metadata.json")) as f:
+        meta = json.load(f)
+    z = np.load(os.path.join(directory, "delta.npz"), allow_pickle=True)
+    return ModelDelta.from_arrays(
+        {k: z[k] for k in z.files}, base_version=meta["base_version"],
+        seq=meta["delta_seq"], created_at=meta.get("created_at", 0.0))

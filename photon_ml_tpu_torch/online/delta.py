@@ -11,9 +11,9 @@ other version (StaleDeltaError), because rows solved against stale
 residual margins would silently corrupt the live table.
 
 This module is deliberately dependency-light (numpy only): deltas cross
-process boundaries (the JAX package's models/io.py serializes them; the
-port's delta persistence is ROADMAP.md queue A item 22) and must stay
-importable without pulling in the serving stack.
+process boundaries (models/io.py serializes them, byte-compatible with
+the JAX package's) and must stay importable without pulling in the
+serving stack.
 """
 from __future__ import annotations
 

@@ -18,8 +18,9 @@ request/response GAME inference on one CUDA device.
     ScoringBatchEvent/ModelSwapEvent/ModelDeltaEvent hooks
     (utils/events.py).
 
-The online updater, health monitor and fleet on top of this package are
-ROADMAP.md queue A item 22.
+The online updater on top of this package is photon_ml_tpu_torch/online/
+(`ScoringService(updates=...)`); the health monitor, the replica runtime
+and the routing front are ROADMAP.md queue A item 22 (health, the fleet).
 
 CLI entrypoint: `python -m photon_ml_tpu_torch.cli.serve`.
 """

@@ -41,9 +41,10 @@ from photon_ml_tpu_torch.utils import locktrace
 #: snapshot — tests/port/test_torch_serving.py diffs all three sets (and
 #: holds them equal to the JAX package's), so a new metric cannot land on
 #: the Prometheus surface without its JSON twin (or vice versa).  The
-#: online/health/fleet/refit families exist here too, all zeros until
-#: their tiers are ported (ROADMAP.md queue A item 22).  Several counters render as one derived ratio (occupancy,
-#: hit rate): they share a path.
+#: health/fleet/refit families exist here too, all zeros until their tiers
+#: are ported (ROADMAP.md queue A item 22: health, the fleet).  Several
+#: counters render as one derived ratio (occupancy, hit rate): they share
+#: a path.
 SNAPSHOT_PATHS = {
     "serving.requests": ("requests",),
     "serving.rows": ("rows",),

@@ -82,8 +82,8 @@ class ModelRegistry:
         self._delta_log_truncated = False
         self._delta_seq = 0
         self._swap_hooks: list = []
-        # ordered model-state change feed (the JAX package's replication
-        # log is its source; the port's fleet is ROADMAP.md item 22):
+        # ordered model-state change feed (fleet/replog.py's
+        # record_for_event turns each event into a replication record):
         # every mutation reserves a ticket UNDER the lock, hooks run
         # OUTSIDE it with (ticket, event) so a publisher can restore the
         # mutation order even when hook invocations race

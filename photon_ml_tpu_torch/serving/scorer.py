@@ -40,8 +40,12 @@ disk.  A request chunk's misses ride the chunk's own device copy as a
 per-batch staging window; promotion into the hot set is amortized in the
 store.  Tiered scores are bit-identical to the fully-resident scorer's.
 
-Entity-sharded serving (the JAX package's `shard=`) is ROADMAP.md queue A
-item 22 (the fleet) and raises here.
+Entity-sharded serving (`shard=ShardAssignment(...)`, fleet/shards.py):
+the scorer holds ONLY its owned slice of every random-effect table (owned
+rows in their original order; fixed-effect and MF coordinates replicate
+in full), filters every row write to its owned rows, and serves
+`score_margins()` legs that `fleet.shards.merge_margins` folds back into
+the monolithic scores bit for bit.
 
 Scoring semantics match `GameModel.score_dataset`: the returned value is
 the summed margin contribution of every coordinate, WITHOUT offsets or the
@@ -68,8 +72,6 @@ from photon_ml_tpu_torch.store.entity import scatter_rows
 from photon_ml_tpu_torch.telemetry.timings import clock
 from photon_ml_tpu_torch.utils.math import ceil_pow2
 
-_SHARDING = ("entity-sharded serving is not ported yet (ROADMAP.md queue A "
-             "item 22, the fleet)")
 # byte alignment of each array packed into a batch's one device copy
 _ALIGN = 16
 
@@ -160,10 +162,13 @@ class CompiledScorer:
                  shard=None, device=None):
         if max_batch < 1 or min_bucket < 1:
             raise ValueError("max_batch and min_bucket must be >= 1")
-        if shard is not None:
-            raise NotImplementedError(_SHARDING)
         self.model = model
         self.version = version
+        # entity-sharded serving (fleet/shards.py): a ShardAssignment
+        # makes this scorer hold ONLY its owned slice of every
+        # random-effect table (FE/MF coordinates replicate in full), and
+        # filter replicated delta/row-state scatters to owned rows
+        self.shard = shard
         self.device = resolve_device(device)
         self.max_batch = int(ceil_pow2(max_batch))
         self.min_bucket = min(int(ceil_pow2(min_bucket)), self.max_batch)
@@ -188,11 +193,39 @@ class CompiledScorer:
         self._lookups: Dict[str, dict] = {}                # lane key -> id map
         self._table_slot: Dict[str, int] = {}              # RE name -> slot
         self._overlay_slot: Dict[str, int] = {}            # store coord -> slot
+        self._entity_ids: Dict[str, np.ndarray] = {}       # RE name -> ids held
+        self._shard_row_maps: Dict[str, dict] = {}         # RE name -> full->local
+        self._logical_rows: Dict[str, int] = {}            # RE name -> owned rows
+        self.shard_rows_dropped = 0   # unowned delta/replay rows filtered
         tables = []
         shard_dims: Dict[str, int] = {}
 
         def on_device(t) -> torch.Tensor:
             return torch.as_tensor(t).detach().to(self.device)
+
+        def shard_slice(m):
+            """A RE coordinate's (entity_ids, table, full->local map,
+            owned rows) under this scorer's shard assignment — owned rows
+            only, ORIGINAL row order preserved (so the slice is a pure
+            filter of the full table and per-shard audits hash the same
+            bytes on the full scorer's filtered view and the shard's
+            resident table).  A shard owning zero entities keeps one
+            never-addressed zero row so the gathers stay well-formed; its
+            logical row count is 0 and audits hash the empty slice."""
+            ids_full = np.asarray(m.entity_ids)
+            table_full = m.global_coefficients()
+            if self.shard is None:
+                return ids_full, table_full, None, len(ids_full)
+            mask = self.shard.spec.owned_mask(ids_full, self.shard.index)
+            owned = np.nonzero(mask)[0]
+            row_map = {int(full): local
+                       for local, full in enumerate(owned.tolist())}
+            table_own = _host(table_full)[owned]
+            if len(owned) == 0:
+                table_own = np.zeros((1, table_own.shape[1]),
+                                     table_own.dtype)
+            return ids_full[mask], torch.from_numpy(table_own), row_map, \
+                len(owned)
 
         def note_shard(shard, dim, owner):
             prev = shard_dims.setdefault(shard, int(dim))
@@ -211,8 +244,11 @@ class CompiledScorer:
                 # stacked per-entity table in the ORIGINAL shard space:
                 # projected/factored coordinates materialize P^T c once at
                 # load so serving is a single gather + row dot per request
-                ids = np.asarray(m.entity_ids)
-                table = m.global_coefficients()
+                ids, table, row_map, logical = shard_slice(m)
+                self._entity_ids[name] = ids
+                self._logical_rows[name] = logical
+                if row_map is not None:
+                    self._shard_row_maps[name] = row_map
                 note_shard(m.feature_shard, table.shape[-1], name)
                 self._re_meta.append((name, m.feature_shard,
                                       m.random_effect_type))
@@ -221,8 +257,10 @@ class CompiledScorer:
                     from photon_ml_tpu_torch.store import TieredEntityStore
                     st = TieredEntityStore.create(
                         os.path.join(store_dir, name.replace("/", "_")),
-                        _host(table), store, entity_ids=ids, name=name,
-                        device=self.device)
+                        _host(table), store,
+                        entity_ids=ids if logical else
+                        np.asarray(["\0__shard_pad__"], dtype=object),
+                        name=name, device=self.device)
                     self._stores[name] = st
                     tables.append(st.table())
                     # the staging window rides as its own table: a batch's
@@ -235,7 +273,7 @@ class CompiledScorer:
                         (st.overlay_rows, st.dim), dtype=st.torch_dtype,
                         device=self.device))
                 else:
-                    self._lookups[name] = _id_lookup(ids)
+                    self._lookups[name] = _id_lookup(ids) if logical else {}
                     tables.append(on_device(table))
             elif isinstance(m, MatrixFactorizationModel):
                 self._mf_meta.append((name, m.row_effect_type,
@@ -284,14 +322,12 @@ class CompiledScorer:
         models/io.py reads (npz, Avro, the Scala reference's), loaded onto
         `device` in `dtype`."""
         from photon_ml_tpu_torch.models.io import load_game_model
-        if shard is not None:
-            raise NotImplementedError(_SHARDING)
         device = resolve_device(device)
         model, _config = load_game_model(model_dir, device=device,
                                          dtype=dtype)
         scorer = cls(model, max_batch=max_batch, min_bucket=min_bucket,
                      version=version, store=store, store_dir=store_dir,
-                     device=device)
+                     shard=shard, device=device)
         if warmup:
             scorer.warmup()
         return scorer
@@ -327,6 +363,9 @@ class CompiledScorer:
                 lanes = {k: np.full(b, -1, np.int32)
                          for k in self._lane_names()}
                 _host(self._run_bucket(xs, lanes, b))
+                if self.shard is not None:
+                    # sharded scorers serve score_margins() legs: warm them
+                    _host(self._run_bucket(xs, lanes, b, margins=True)[0])
         self.warmup_s = clock() - t0
         self.warmed = True
         return self.warmup_s
@@ -457,6 +496,23 @@ class CompiledScorer:
         idx = np.clip(rows, 0, max(table.shape[0] - 1, 0))
         return table[torch.from_numpy(idx).to(self.device)]
 
+    def _filter_shard_rows(self, name: str, rows: np.ndarray,
+                           values: np.ndarray
+                           ) -> Tuple[np.ndarray, np.ndarray]:
+        """The shard-filtering chokepoint of EVERY row write: replicated
+        deltas, rollback row-state replays, and snapshot bootstraps all
+        carry FULL-model row indices; a sharded scorer keeps only its
+        owned rows, remapped to its local (filtered) table space.
+        Unowned rows drop silently — their owner's replica applies them —
+        and are counted in `shard_rows_dropped`."""
+        row_map = self._shard_row_maps.get(name)
+        if row_map is None:
+            return rows, values
+        keep = [i for i, r in enumerate(rows.tolist()) if int(r) in row_map]
+        self.shard_rows_dropped += len(rows) - len(keep)
+        local = np.asarray([row_map[int(rows[i])] for i in keep], np.int64)
+        return local, values[keep]
+
     def _scatter_coordinate(self, name: str, rows: np.ndarray,
                             values: np.ndarray,
                             promote: bool = False) -> None:
@@ -467,6 +523,9 @@ class CompiledScorer:
                            f"table (updatable: {known})")
         rows = np.asarray(rows, np.int64)
         values = np.asarray(values)
+        rows, values = self._filter_shard_rows(name, rows, values)
+        if len(rows) == 0 and self.shard is not None:
+            return  # this shard owns none of the delta's rows
         st = self._stores.get(name)
         if st is not None:
             # tiered mode: the delta lands in whatever tier each row
@@ -551,8 +610,15 @@ class CompiledScorer:
             # tiered mode hashes the LOGICAL table (cold + warm overlay):
             # two replicas whose tiering histories differ but whose row
             # values agree hash identically
-            out[name] = digest(st.full_table() if st is not None
-                               else self._tables[i])
+            rows = _host(st.full_table() if st is not None
+                         else self._tables[i])
+            if self.shard is not None:
+                # sharded mode hashes the OWNED slice (a zero-owned
+                # shard's never-addressed pad row is excluded), so the
+                # hash equals the full scorer's shard_table_hashes() of
+                # the same filtered rows
+                rows = rows[:self._logical_rows[name]]
+            out[name] = digest(rows)
             i += 2 if st is not None else 1
         for name, _row_t, _col_t in self._mf_meta:
             for side in ("/row", "/col"):
@@ -747,15 +813,45 @@ class CompiledScorer:
                 out[cm["name"]][lo:hi] = _host(z)[:hi - lo]
         return out
 
-    # -- entity-sharded serving (ROADMAP.md queue A item 22) ---------------
+    # -- entity-sharded serving (fleet/shards.py) --------------------------
 
     def shard_info(self) -> Optional[Dict[str, object]]:
-        """None: the port's scorers hold the full model (entity-sharded
-        serving is the fleet's, not ported yet)."""
-        return None
+        """This scorer's shard identity + owned-row counts (the /healthz
+        and probe surface the front groups replicas by); None when the
+        scorer holds the full model."""
+        if self.shard is None:
+            return None
+        return {**self.shard.to_dict(),
+                "owned_rows": {name: self._logical_rows[name]
+                               for name, _s, _t in self._re_meta},
+                "rows_dropped": self.shard_rows_dropped}
 
     def shard_table_hashes(self, spec, shard_index: int) -> Dict[str, str]:
-        raise NotImplementedError(_SHARDING)
+        """The per-shard audit on a FULL (publisher) scorer: sha256 of
+        every lane's rows FILTERED to `shard_index`'s owned entities
+        (original row order) — exactly the bytes a converged shard
+        replica's `table_hashes()` reports, since its resident table IS
+        that filtered slice.  FE/MF lanes replicate in full and hash
+        unfiltered."""
+        if self.shard is not None:
+            raise ValueError("shard_table_hashes audits the FULL model; "
+                             "this scorer already holds only shard "
+                             f"{self.shard.index}")
+        full = self.table_hashes()
+        out: Dict[str, str] = {}
+        for name, _shard in self._fe_meta:
+            out[name] = full[name]
+        for name, _shard, _re_type in self._re_meta:
+            st = self._stores.get(name)
+            table = _host(st.full_table() if st is not None
+                          else self._tables[self._table_slot[name]])
+            mask = spec.owned_mask(self._entity_ids[name], shard_index)
+            out[name] = hashlib.sha256(
+                np.ascontiguousarray(table[mask]).tobytes()).hexdigest()
+        for name, _row_t, _col_t in self._mf_meta:
+            for side in ("/row", "/col"):
+                out[name + side] = full[name + side]
+        return out
 
     def mean_prediction(self, scores: np.ndarray,
                         offsets: Optional[np.ndarray] = None) -> np.ndarray:

@@ -13,15 +13,17 @@ object the serve CLI (and any embedding process) talks to:
     svc.rollback()              # back to the previous version
     svc.metrics_snapshot()      # JSON observability
 
-The online updater (`updates=`, `feedback_log_dir=`), the health monitor
-(`health=`) and entity sharding (`shard_index`/`shard_count`) raise: they
-are ROADMAP.md queue A item 22.  The tiered store fields work.
+The online updater (`updates=`, `feedback_log_dir=`, `feedback()`), entity
+sharding (`shard_index`/`shard_count`) and the tiered store fields work.
+The health monitor (`health=`) raises: it is ROADMAP.md queue A item 22,
+health.
 """
 from __future__ import annotations
 
 import dataclasses
 import os
 import re
+import threading
 import time
 from typing import Dict, Optional
 
@@ -34,12 +36,8 @@ from photon_ml_tpu_torch.serving.batcher import (BatcherConfig, MicroBatcher,
 from photon_ml_tpu_torch.serving.metrics import ServingMetrics
 from photon_ml_tpu_torch.serving.registry import ModelRegistry
 from photon_ml_tpu_torch.serving.scorer import CompiledScorer
+from photon_ml_tpu_torch.utils import locktrace
 from photon_ml_tpu_torch.utils.events import EventEmitter, ScoringBatchEvent
-
-
-def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md queue A item 22)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,9 +60,15 @@ class ServingConfig:
     store_dir: Optional[str] = None
     store_warm_segments: int = 64
     store_seg_rows: int = 16384
-    # entity-sharded serving: ROADMAP.md queue A item 22 (set -> raises)
+    # entity-sharded serving (fleet/shards.py): a non-None shard_count
+    # makes every scorer this service builds hold ONLY shard
+    # shard_index's slice of the random-effect entity space (FE/MF
+    # coordinates replicate in full), filter replicated deltas to owned
+    # rows, and warm the score_margins() fan-out path
     shard_index: Optional[int] = None
     shard_count: Optional[int] = None
+    shard_salt: str = "photon"
+    shard_version: int = 1
     # where every scorer this service builds lives (None = cuda, which
     # raises without CUDA) and the dtype its tables are loaded in
     device: Optional[str] = None
@@ -75,28 +79,61 @@ class ScoringService:
     def __init__(self, model_dir: Optional[str] = None,
                  model=None, config: Optional[ServingConfig] = None,
                  emitter: Optional[EventEmitter] = None,
-                 updates=None, health=None,
-                 feedback_log_dir: Optional[str] = None):
+                 updates=None, start_updater: bool = True,
+                 health=None, feedback_log_dir: Optional[str] = None):
         """Serve `model_dir` (any layout the port's models/io.py reads) or
         an in-memory `model` whose tensors the scorer copies onto the
-        config's device.  `updates`, `feedback_log_dir` and `health` are
-        the JAX package's online updater, durable feedback lane and health
-        monitor: ROADMAP.md queue A item 22, and they raise."""
+        config's device.
+
+        `updates` (an online.OnlineUpdateConfig) enables the online
+        learning tier: `feedback()` accepts labeled observations and a
+        background OnlineUpdater re-solves ONLY the touched entities'
+        random-effect subproblems, publishing row-level delta swaps into
+        the live scorer.  `start_updater=False` keeps the updater manual
+        (tests and chip_smoke.py drive `service.updater.run_once()`
+        themselves).
+
+        `feedback_log_dir` arms the durable feedback lane
+        (fleet.FeedbackLog): every admitted `feedback()` batch is
+        persisted with the replication log's sha256/torn-tail discipline
+        before intake returns.  Requires `updates`.
+
+        `health` (the JAX package's model-health monitor) raises: it is
+        ROADMAP.md queue A item 22, health."""
         if (model_dir is None) == (model is None):
             raise ValueError("pass exactly one of model_dir / model")
         if health is not None:
-            raise _unported("the model-health monitor (health=)")
-        if updates is not None or feedback_log_dir is not None:
-            raise _unported("the online updater (updates=, "
-                            "feedback_log_dir=)")
+            raise NotImplementedError(
+                "the model-health monitor (health=) is not ported yet "
+                "(ROADMAP.md queue A item 22, health)")
+        # refused before any thread starts, so a refusal leaks none
+        if feedback_log_dir is not None and updates is None:
+            raise ValueError("feedback_log_dir requires updates (the "
+                             "feedback lane persists the online intake)")
         self.config = config or ServingConfig()
         cfg = self.config
-        if cfg.shard_index is not None or cfg.shard_count is not None:
-            raise _unported("entity-sharded serving (shard_index, "
-                            "shard_count)")
         self.device = resolve_device(cfg.device)
         self.emitter = emitter
         self.metrics = ServingMetrics(cfg.latency_window)
+        self.health = None
+
+        self.shard = None
+        if (cfg.shard_index is None) != (cfg.shard_count is None):
+            raise ValueError("shard_index and shard_count come together "
+                             "(cli.serve --shard K/N)")
+        if cfg.shard_count is not None:
+            from photon_ml_tpu_torch.fleet.shards import (ShardAssignment,
+                                                          ShardSpec)
+            self.shard = ShardAssignment(
+                spec=ShardSpec(num_shards=cfg.shard_count,
+                               salt=cfg.shard_salt,
+                               version=cfg.shard_version),
+                index=cfg.shard_index)
+            if updates is not None:
+                raise ValueError(
+                    "a sharded service cannot run the online updater: "
+                    "deltas are solved on the (full-model) publisher and "
+                    "replicate shard-filtered through the log")
 
         store_cfg = None
         if cfg.store_budget_rows is not None:
@@ -119,23 +156,34 @@ class ScoringService:
             if version_dir is None:  # initial in-memory model
                 scorer = CompiledScorer(model, max_batch=cfg.max_batch,
                                         min_bucket=cfg.min_bucket,
-                                        version=version, device=self.device,
+                                        version=version, shard=self.shard,
+                                        device=self.device,
                                         **_store_kw(version))
                 scorer.warmup()
                 return scorer
             return CompiledScorer.from_model_dir(
                 version_dir, max_batch=cfg.max_batch,
                 min_bucket=cfg.min_bucket, version=version,
-                device=self.device, dtype=cfg.dtype, **_store_kw(version))
+                shard=self.shard, device=self.device, dtype=cfg.dtype,
+                **_store_kw(version))
 
         self.registry = ModelRegistry(factory, emitter=emitter,
                                       metrics=self.metrics,
                                       max_delta_log=cfg.max_delta_log)
+        # the fan-out margins path bypasses the micro-batcher (its legs
+        # are already device-batch-shaped by the front); this lock gives
+        # it the batcher's one-scoring-thread-at-a-time guarantee, which
+        # is what the tiered store's staging bookkeeping assumes
+        self._margins_lock = locktrace.tracked(
+            threading.Lock(), "ScoringService._margins_lock")
         if store_cfg is not None:
             # both metric surfaces sync the store.* counters to the live
             # scorer's cumulative tier totals at render
             self.metrics.set_store_probe(
                 lambda: self.registry.scorer.store_totals())
+        if self.shard is not None:
+            self.metrics.set_shard_probe(
+                lambda: self.registry.scorer.shard_info())
         self.registry.load(model_dir, version=None if model_dir else "inline@1")
         self._batcher = MicroBatcher(
             self._score_batch,
@@ -143,6 +191,21 @@ class ScoringService:
                           max_queue=cfg.max_queue),
             on_shed=self.metrics.observe_shed,
             on_deadline=self.metrics.observe_deadline)
+        self.updater = None
+        self.feedback_log = None
+        if updates is not None:
+            from photon_ml_tpu_torch.online import OnlineUpdater
+            if feedback_log_dir is not None:
+                from photon_ml_tpu_torch.fleet.replog import FeedbackLog
+                self.feedback_log = FeedbackLog(feedback_log_dir)
+                self.feedback_log.recover()
+            self.updater = OnlineUpdater(self.registry,
+                                         metrics=self.metrics,
+                                         config=updates, emitter=emitter,
+                                         feedback_log=self.feedback_log)
+            self.metrics.set_online_probe(self.updater.probe)
+            if start_updater:
+                self.updater.start()
         self._closed = False
         # one telemetry.snapshot() returns serving state alongside the
         # training/streaming registries (latest-constructed service wins
@@ -180,6 +243,36 @@ class ScoringService:
         scores = self.score(features, ids, timeout=timeout)
         return self.registry.scorer.mean_prediction(scores, offsets)
 
+    def score_margins(self, features: Dict[str, np.ndarray],
+                      ids: Optional[Dict[str, np.ndarray]] = None) -> Dict:
+        """One leg of a sharded fan-out request: per-coordinate margins
+        from this service's slice of the entity space, in the scorer's
+        fold order (fleet.shards.merge_margins folds legs back together).
+        Unowned/unseen entities contribute exactly 0.0 to their
+        coordinate's margin — the owner's leg holds the real contribution.
+        Serialized by a dedicated lock rather than the micro-batcher: legs
+        arrive pre-batched."""
+        ids = ids or {}
+        # resolved OUTSIDE _margins_lock: the registry property takes the
+        # registry lock
+        scorer = self.registry.scorer
+        n = scorer.validate_request(features, ids)
+        t0 = time.monotonic()
+        try:
+            with self._margins_lock:
+                with telemetry.span("serve_margins", rows=n,
+                                    version=scorer.version):
+                    margins = scorer.score_margins(features, ids)
+        except Exception:
+            self.metrics.observe_error()
+            raise
+        self.metrics.observe_request(time.monotonic() - t0, n)
+        return {"margins": margins,
+                "coordinates": scorer.coordinate_meta(),
+                "model_version": scorer.version,
+                "task_type": scorer.model.task_type,
+                "shard": scorer.shard_info()}
+
     def _score_batch(self, features, ids, *, num_requests: int,
                      queue_wait_s: float):
         scorer = self.registry.scorer  # resolved per batch: swap boundary
@@ -206,11 +299,33 @@ class ScoringService:
 
     # -- online updates ----------------------------------------------------
 
-    def feedback(self, features, ids, labels, weights=None, offsets=None,
-                 event_ids=None) -> Dict:
-        """Online feedback intake: the updater it feeds is ROADMAP.md
-        queue A item 22."""
-        raise _unported("online feedback (the online updater)")
+    def feedback(self, features: Dict[str, np.ndarray],
+                 ids: Dict[str, np.ndarray], labels: np.ndarray,
+                 weights=None, offsets=None, event_ids=None) -> Dict:
+        """Enqueue labeled feedback for the online tier: the touched
+        entities' random-effect rows re-solve in the background and
+        publish as delta swaps.  Raises Overloaded under backpressure
+        (with `retry_after_s` stamped from the updater's drain rate);
+        RuntimeError when updates are not enabled."""
+        if self.updater is None:
+            raise RuntimeError(
+                "online updates are not enabled — construct the service "
+                "with updates=OnlineUpdateConfig() (or cli.serve "
+                "--enable-updates)")
+        from photon_ml_tpu_torch.serving.batcher import Overloaded
+        try:
+            out = self.updater.submit(features, ids, labels,
+                                      weights=weights, offsets=offsets,
+                                      event_ids=event_ids)
+        except Overloaded as e:
+            # whole-batch rejection surfaced to the caller: count it on
+            # both metric surfaces and stamp the backpressure hint the
+            # HTTP layer turns into a Retry-After header (derived from
+            # the updater's observed drain rate)
+            self.metrics.observe_feedback_rejected()
+            e.retry_after_s = self.updater.retry_after_s()
+            raise
+        return out
 
     def version_vector(self) -> Dict:
         """(full-model version, delta seq): the staleness identity of the
@@ -224,15 +339,20 @@ class ScoringService:
                 "table_hashes": self.registry.scorer.table_hashes()}
 
     def healthz(self) -> Dict:
-        """The /healthz payload: status, the version vector, and the
-        tiered store's hit rate when the model serves through it."""
+        """The /healthz payload: status, the version vector, updater
+        vitals (thread liveness, last-cycle age, frozen entities, pause
+        state, pending rows), the shard identity of a sharded service and
+        the tiered store's hit rate when the model serves through it."""
         out = {
             "status": "ok",
             "model_version": self.model_version,
             "version_vector": self.version_vector(),
-            "updates_enabled": False,
+            "updates_enabled": self.updater is not None,
             "health_enabled": False,
         }
+        shard = self.registry.scorer.shard_info()
+        if shard is not None:
+            out["shard"] = shard
         store = self.registry.scorer.store_health()
         if store is not None:
             # the tiered store's hit rate is first-class health: a
@@ -241,6 +361,13 @@ class ScoringService:
             out["store"] = {"hit_rate": store["hit_rate"],
                             "promotions": store["promotions"],
                             "spills": store["spills"]}
+        if self.updater is not None:
+            probe = self.updater.probe()
+            probe["pending_rows"] = self.updater.buffer.pending_rows
+            age = probe["last_cycle_age_s"]
+            if age is not None:
+                probe["last_cycle_age_s"] = round(age, 3)
+            out["updater"] = probe
         return out
 
     # -- model lifecycle ---------------------------------------------------
@@ -265,6 +392,10 @@ class ScoringService:
     def metrics_snapshot(self) -> Dict:
         snap = self.metrics.snapshot(model_version=self.registry.version)
         snap["version_vector"] = self.registry.version_vector()
+        if self.updater is not None:
+            snap["online"]["pending_rows"] = self.updater.buffer.pending_rows
+            snap["online"]["frozen"] = len(self.updater.frozen_entities())
+            snap["online"]["pending_deltas"] = self.registry.pending_deltas()
         return snap
 
     def prometheus_metrics(self) -> str:
@@ -275,10 +406,12 @@ class ScoringService:
         if not self._closed:
             self._closed = True
             telemetry.unregister_collector("serving")
+            if self.updater is not None:
+                self.updater.close()
             self._batcher.close()
             try:
                 # seal the cold tier: after close the store directory
-                # alone reproduces every delta-updated row
+                # alone reproduces every online-updated row
                 self.registry.scorer.flush_stores()
             except RuntimeError:
                 pass  # no model ever loaded

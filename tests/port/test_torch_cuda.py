@@ -1379,3 +1379,83 @@ def test_tracked_random_effect_fit_on_card(cuda):
         it = int(res.iterations[e])
         assert torch.equal(hist[e, it], res.x[e])
         assert torch.isnan(hist[e, it + 1:]).all()
+
+
+def _online_service(updates=True, dtype=torch.float64):
+    """online_jax_side's model as a ScoringService on the card."""
+    import online_jax_side as oj
+    from photon_ml_tpu_torch.models import game
+    from photon_ml_tpu_torch.models.coefficients import Coefficients
+    from photon_ml_tpu_torch.models.glm import model_for_task
+    from photon_ml_tpu_torch.online import OnlineUpdateConfig
+    from photon_ml_tpu_torch.serving import ScoringService, ServingConfig
+    pkg = {"asarray": lambda a: torch.tensor(a, dtype=dtype, device="cuda"),
+           "Coefficients": Coefficients, "model_for_task": model_for_task,
+           **{k: getattr(game, k) for k in ("GameModel", "FixedEffectModel",
+                                            "RandomEffectModel")}}
+    return ScoringService(
+        model=oj.build_model(pkg, oj.model_arrays()),
+        config=ServingConfig(max_batch=64, min_bucket=4, dtype=dtype),
+        updates=OnlineUpdateConfig(micro_batch=4, **oj.SOLVER) if updates else None,
+        start_updater=False), oj
+
+
+def test_anchored_cycle_on_card_matches_the_cpu(cuda):
+    """One micro-batch update cycle on the card in float64: the same
+    deltas as on the CPU (rows and priors equal, values within 1e-9), the
+    table and its blocks on the card, and no kernel of the kernels line."""
+    import test_torch_online as tto
+    svc, oj = _online_service()
+    cpu = oj._service(tto.PKG, micro_batch=4)
+    hk.LAUNCHES = hk.LANES_LAUNCHES = 0
+    try:
+        for s in (svc, cpu):
+            s.feedback(*oj.feedback(21, 20))
+            s.updater.flush()
+        assert svc.registry.scorer.re_table("perUser").is_cuda
+        tto.check_deltas(oj._deltas(svc, tto.host), oj._deltas(cpu, tto.host),
+                         tto.RTOL)
+        assert hk.LAUNCHES == hk.LANES_LAUNCHES == 0
+    finally:
+        svc.close()
+        cpu.close()
+
+
+def test_delta_rollback_on_card_is_bit_exact(cuda):
+    svc, oj = _online_service(dtype=torch.float32)
+    try:
+        before = svc.audit()
+        svc.feedback(*oj.feedback(22, 24))
+        assert svc.updater.flush()["deltas"] >= 2
+        assert svc.audit()["table_hashes"] != before["table_hashes"]
+        while svc.registry.pending_deltas():
+            svc.rollback()
+        assert svc.audit()["table_hashes"] == before["table_hashes"]
+    finally:
+        svc.close()
+
+
+def test_replog_round_trip_of_card_rows(cuda, tmp_path):
+    """A card table's rows through the replication log: the codec reads the
+    CUDA tensor back bit for bit, and the logged deltas replay into a
+    fresh service on the card to the live hashes."""
+    from photon_ml_tpu_torch.fleet import (ReplicationLog, decode_array,
+                                           delta_from_record, encode_array,
+                                           record_for_event)
+    svc, oj = _online_service(dtype=torch.float32)
+    fresh, _ = _online_service(updates=False, dtype=torch.float32)
+    log = ReplicationLog(str(tmp_path / "log"))
+    try:
+        table = svc.registry.scorer.re_table("perUser")
+        back = decode_array(encode_array(table))
+        assert back.tobytes() == table.cpu().numpy().tobytes()
+        svc.registry.add_publish_hook(
+            lambda ticket, event: log.append(record_for_event(event)))
+        svc.feedback(*oj.feedback(23, 16))
+        svc.updater.flush()
+        for env in log.read(0):
+            fresh.registry.apply_delta(delta_from_record(env["record"]))
+        assert fresh.audit() == svc.audit()
+    finally:
+        svc.close()
+        fresh.close()

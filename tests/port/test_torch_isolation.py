@@ -63,6 +63,9 @@ REQUIRED = ("photon_ml_tpu_torch.ops.features", "photon_ml_tpu_torch.ops.sparse_
             "photon_ml_tpu_torch.serving.scorer", "photon_ml_tpu_torch.serving.batcher",
             "photon_ml_tpu_torch.serving.metrics", "photon_ml_tpu_torch.serving.registry",
             "photon_ml_tpu_torch.serving.service", "photon_ml_tpu_torch.cli.serve",
+            "photon_ml_tpu_torch.game.anchored", "photon_ml_tpu_torch.online.feedback",
+            "photon_ml_tpu_torch.online.updater", "photon_ml_tpu_torch.fleet",
+            "photon_ml_tpu_torch.fleet.replog", "photon_ml_tpu_torch.fleet.shards",
             "chip_smoke")
 
 

@@ -429,7 +429,8 @@ def test_cli_serve_burst_matches_cli_score(served, layout):
 
 def test_cli_serve_http_child_scores_swaps_and_drains(served):
     """cli.serve --device cpu as a child: /score and /predict equal an
-    in-process scorer bit for bit, /metrics parses, /feedback answers 501,
+    in-process scorer bit for bit, /metrics parses, /feedback answers 400
+    (the child runs without --enable-updates),
     /swap to the reference layout of the same model scores the same bits,
     /rollback, and SIGTERM drains with exit 0 and the drained line."""
     root, m = served
@@ -472,7 +473,7 @@ def test_cli_serve_http_child_scores_swaps_and_drains(served):
             if line and not line.startswith("#"):
                 float(line.rsplit(" ", 1)[1])
         code, text = call("/feedback", dict(body, labels=[1, 0, 1, 0]))
-        assert code == 501 and "item 22" in text
+        assert code == 400 and "--enable-updates" in text
         version = json.loads(call("/swap", {"model_dir": str(root / "reference")})[1])
         assert "reference" in version["version"]
         assert json.loads(call("/score", body)[1])["scores"] == want.tolist()
@@ -490,7 +491,7 @@ def test_cli_serve_http_child_scores_swaps_and_drains(served):
             proc.communicate()
 
 
-@pytest.mark.parametrize("flag", ["--enable-updates", "--health-config={}",
+@pytest.mark.parametrize("flag", ["--health-config={}",
                                   "--replica", "--publish", "--front",
                                   "--shard=0/2", "--shard-count=2"])
 def test_cli_serve_unported_flags_exit_naming_item_22(served, flag):
@@ -501,24 +502,11 @@ def test_cli_serve_unported_flags_exit_naming_item_22(served, flag):
                         "--device", "cpu"])
 
 
-def _feedback(cfg):
-    with ScoringService(model=model(), config=cfg) as svc:
-        svc.feedback({}, {}, np.zeros(1))
-
-
-@pytest.mark.parametrize("case", ["shard", "health", "updates", "feedback_log",
-                                  "shard_config", "feedback"])
+@pytest.mark.parametrize("case", ["health"])
 def test_unported_branches_raise_naming_item_22(case):
     cfg = ServingConfig(device="cpu", dtype=torch.float64)
     make = {
-        "shard": lambda: CompiledScorer(model(), device="cpu", shard=object()),
         "health": lambda: ScoringService(model=model(), config=cfg, health={}),
-        "updates": lambda: ScoringService(model=model(), config=cfg, updates={}),
-        "feedback_log": lambda: ScoringService(model=model(), config=cfg,
-                                               feedback_log_dir="x"),
-        "shard_config": lambda: ScoringService(model=model(), config=ServingConfig(
-            device="cpu", shard_index=0, shard_count=2)),
-        "feedback": lambda: _feedback(cfg),
     }[case]
     with pytest.raises(NotImplementedError, match="item 22"):
         make()
