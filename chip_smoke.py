@@ -300,7 +300,33 @@ Phases, one JSON object per line on stdout:
      >= 0.90, every hot table on the card, a delta applied and reverted bit
      for bit; both sides' p50/p99 and their ratio, not gated.  No kernel of
      the kernels line launches in this phase;
- 31. the kernels line (launches by path, the CLI, inexact, streamed,
+ 31. fleet (after online, on cli_game's saved config-4 model and
+     validation rows; on cuda in float32): fleet_health_trip,
+     ScoringService(health=HealthConfig(...), updates=...): a clean
+     baseline, calibrated feedback published as deltas, a covariate shift
+     (drift_psi trips, the updater pauses), flipped labels (calibration
+     trips, ONE delta-aware rollback, the tables' first hashes bit for
+     bit, /healthz degraded naming the gates), clean traffic (every gate
+     recovers, the updater resumes); fleet_refit_config4, the 50,158
+     validation rows, labels flipped (a drift to learn), in a seeded
+     arrival order as a feedback lane in batches of 512, compacted in
+     chunks of 1,024, RefitDriver.run_once with cli.refit's defaults:
+     fused kernel launches = the FE passes, the fit from the log = the fit
+     from the same rows in memory bit for bit, the history within 1e-4 of
+     the port's CPU float64 refit with the same decision and manifest
+     bytes, the kernel against its plain version and timed at the refit's
+     FE shape, the cycle's wall by part; fleet_refit_cli, cli.refit with
+     --replication-log as a child (exit 0, the same decision, the swap
+     record, nvcc never runs); fleet_replicas, four cli.serve children (a
+     publisher with --enable-updates, two replicas, a front): feedback
+     through the front, the refit's swap replayed through it, every
+     replica's audit the publisher's, the front's /score p50/p99, every
+     /score answered with a replica SIGKILLed, its rejoin and convergence,
+     /fleet/drain; fleet_shards, a --shard-count 2 publisher, two --shard
+     replicas and a front: /score bit for bit with the unsharded scorer,
+     /fleet/audit?shard=K the shard's own.  The kernels of the kernels
+     line launch only in the two refit parts, and nothing is built;
+ 32. the kernels line (launches by path, the CLI, inexact, streamed,
      sweep and diagnostics paths included), nvidia-smi's line, and the
      final result line.
 Exits non-zero, before printing any result, when CUDA is absent or when
@@ -4344,17 +4370,26 @@ ONLINE_SHARDS = 4
 # counts and the kernel builds and loads written, at the child's exit, to
 # the file that CHILD_COUNTS_ENV names
 CHILD_COUNTS_ENV = "PHOTON_CHILD_COUNTS"
-SERVE_CHILD = f"""
+def _child_script(module: str) -> str:
+    """`python -c` code running `module` as __main__, which at exit writes
+    the kernels line's launch counts, the kernel builds and loads and the
+    builds alone (nvcc runs) to the file CHILD_COUNTS_ENV names."""
+    return f"""
 import atexit, json, os, runpy
 def _counts():
     from photon_ml_tpu_torch.ops import _build, hopper_kernels as hk, sparse_kernels as sk
     with open(os.environ["{CHILD_COUNTS_ENV}"], "w") as f:
         json.dump({{"launches": {{"fused": hk.LAUNCHES, "lanes": hk.LANES_LAUNCHES,
                                  **sk.LAUNCHES}},
-                   "builds_or_loads": len(_build.LOADS)}}, f)
+                   "builds_or_loads": len(_build.LOADS),
+                   "builds": sum(1 for _lib, nvcc, _s in _build.LOADS if nvcc)}}, f)
 atexit.register(_counts)
-runpy.run_module("photon_ml_tpu_torch.cli.serve", run_name="__main__", alter_sys=True)
+runpy.run_module("{module}", run_name="__main__", alter_sys=True)
 """
+
+
+SERVE_CHILD = _child_script("photon_ml_tpu_torch.cli.serve")
+REFIT_CHILD = _child_script("photon_ml_tpu_torch.cli.refit")
 
 
 def _online_model(rng, d_g, d_u, entities, device, dtype):
@@ -5067,6 +5102,788 @@ def online_phase(hk, sk, kind, smi, device="cuda") -> dict:
     return seconds
 
 
+# the fleet phase: the health monitor's gates on config 4's saved model,
+# the warm refit from the feedback lane through the fused kernel, cli.refit,
+# and cli.serve's fleet modes (a publisher, replicas and a front)
+FLEET_HEALTH = dict(window_labels=512, window_scores=4096, baseline_scores=4096,
+                    sustain_windows=2, recovery_windows=2, rollback_on=("calibration",))
+# rows scored per drift step and fed per label step, request size, the
+# covariate shift (in the direction of each fixed-effect weight's sign)
+FLEET_HEALTH_ROWS = dict(score=8192, feedback=1024, batch=512, shift=0.5, seed=9)
+# config 4's validation rows into the lane in batches of FLEET_LANE_BATCH;
+# the refit otherwise takes cli.refit's defaults (RefitConfig())
+FLEET_LANE_BATCH, FLEET_LANE_SEED = 512, 21
+FLEET_CHUNK_ROWS = 1024
+FLEET_SCORES = dict(requests=200, rows=32, threads=8)    # /score through the front
+FLEET_FEEDBACK_ROWS = 512
+FLEET_SHARDS = 2
+FLEET_SHARD_ROWS = 1024                                   # /score through the sharded front
+FLEET_DEADLINE_S = 180.0
+FLEET_SETTLE_S = 0.5      # a publisher whose version vector held this long is idle
+
+
+def _lane_rows(log) -> dict:
+    """Every row of a feedback lane as one host row-dict in log order (the
+    rows a refit from the lane trains on, held in memory)."""
+    from photon_ml_tpu_torch.fleet import feedback_from_record
+    batches = [feedback_from_record(e["record"]) for e in log.read(0)]
+    return {"features": {s: np.concatenate([np.asarray(b["features"][s], np.float64)
+                                            for b in batches])
+                         for s in batches[0]["features"]},
+            "ids": {t: np.asarray([str(v) for b in batches for v in b["ids"][t]],
+                                  dtype=object) for t in batches[0]["ids"]},
+            "labels": np.concatenate([b["labels"] for b in batches]),
+            "weights": np.concatenate([b["weights"] for b in batches]),
+            "offsets": np.concatenate([b["offsets"] for b in batches]),
+            "wall": np.concatenate([np.full(len(b["labels"]), b["wall_s"])
+                                    for b in batches])}
+
+
+def _timed_methods(obj, names, seconds: dict, device) -> None:
+    """Wrap obj's methods so each call's wall (device work synchronized)
+    adds up in seconds[name]."""
+    import torch
+
+    def wrap(name, fn):
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                if torch.device(device).type == "cuda":
+                    torch.cuda.synchronize()
+                seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+        return timed
+
+    for name in names:
+        setattr(obj, name, wrap(name, getattr(obj, name)))
+
+
+def _config4_requests(device):
+    """(features, ids, labels) of config 4's validation rows as requests
+    to its saved model, in dataset order."""
+    from photon_ml_tpu_torch.data.game_data import load_game_dataset
+    from photon_ml_tpu_torch.serving import CompiledScorer
+    scorer = CompiledScorer.from_model_dir(str(serve_model_dirs()["npz"]), device=device,
+                                           warmup=False)
+    ds = load_game_dataset(str(CLI_ROOT / "cli_game" / "val.npz"))
+    feats, ids = scorer.requests_from_dataset(ds, np.arange(ds.num_rows))
+    return feats, ids, np.asarray(ds.response, np.float64)
+
+
+def refit_incumbent(d: Path, device) -> tuple:
+    """Config 4's saved model with its random effect in identity space: the
+    trainer saves the index projection (every entity's 19 columns), and the
+    warm refit of either package refuses a projected random effect.  The
+    served tables are the same bytes (the scorer stacks each random
+    effect's global-space rows) -> (the model directory, whether its table
+    hashes equal the saved model's)."""
+    import torch
+    from photon_ml_tpu_torch.models.game import GameModel, RandomEffectModel
+    from photon_ml_tpu_torch.models.io import load_game_model, save_game_model
+    from photon_ml_tpu_torch.serving import CompiledScorer
+    best = str(serve_model_dirs()["npz"])
+    model, cfg = load_game_model(best, device="cpu", dtype=torch.float32)
+    coords = {k: (dataclasses.replace(m, coefficients=m.global_coefficients(),
+                                      projection=None)
+                  if isinstance(m, RandomEffectModel) and m.projection is not None else m)
+              for k, m in model.coordinates.items()}
+    out = d / "incumbent"
+    save_game_model(GameModel(coords, model.task_type), str(out), config=cfg)
+    same = (CompiledScorer.from_model_dir(str(out), device=device, warmup=False).table_hashes()
+            == CompiledScorer.from_model_dir(best, device=device, warmup=False).table_hashes())
+    return out, same
+
+
+def torch_device_type(device) -> str:
+    import torch
+    return torch.device(device).type
+
+
+def health_trip_part(kind, smi, device="cuda") -> dict:
+    """ScoringService(health=..., updates=...) over config 4's saved model in
+    float32: a clean baseline, calibrated feedback published as deltas, a
+    shifted feature stream (drift_psi trips, the updater pauses), flipped
+    labels (calibration trips, the deltas roll back to the tables' first
+    hashes), then clean traffic until every gate recovers and the updater
+    resumes."""
+    from photon_ml_tpu_torch.data.game_data import load_game_dataset
+    from photon_ml_tpu_torch.health import HealthConfig
+    from photon_ml_tpu_torch.online import OnlineUpdateConfig
+    from photon_ml_tpu_torch.serving import ScoringService, ServingConfig
+    c = FLEET_HEALTH_ROWS
+    svc = ScoringService(model_dir=str(serve_model_dirs()["npz"]),
+                         config=ServingConfig(device=device),
+                         updates=OnlineUpdateConfig(micro_batch=16), start_updater=False,
+                         health=HealthConfig(**FLEET_HEALTH))
+    try:
+        scorer = svc.registry.scorer
+        ds = load_game_dataset(str(CLI_ROOT / "cli_game" / "val.npz"))
+        rng = np.random.default_rng(c["seed"])
+        feats, ids = scorer.requests_from_dataset(ds, rng.permutation(ds.num_rows))
+        fe = next(m for m in scorer.model.coordinates.values() if hasattr(m, "glm"))
+        shift = c["shift"] * np.sign(fe.glm.coefficients.means.cpu().numpy())
+        pos, steps, seconds = [0], [], {}
+
+        def take(n):
+            # the rows in turn (a CPU rehearsal's smaller split wraps around)
+            sl = np.arange(pos[0], pos[0] + n) % len(ds.response)
+            pos[0] += n
+            return {k: v[sl] for k, v in feats.items()}, {k: v[sl] for k, v in ids.items()}
+
+        def score(n, shifted):
+            for _ in range(n // c["batch"]):
+                f, i = take(c["batch"])
+                if shifted:
+                    f = dict(f, **{fe.feature_shard: f[fe.feature_shard] + shift})
+                svc.score(f, i)
+
+        def feedback(n, flip):
+            for _ in range(n // c["batch"]):
+                f, i = take(c["batch"])
+                p = 1.0 / (1.0 + np.exp(-np.asarray(scorer.score(f, i).scores, np.float64)))
+                y = (rng.uniform(size=len(p)) < p).astype(np.float64)
+                svc.feedback(f, i, 1.0 - y if flip else y)
+
+        def record(name, t0):
+            seconds[name] = time.perf_counter() - t0
+            v = svc.health.verdict()
+            hz = svc.healthz()
+            steps.append({"step": name, "status": v["status"], "healthz_status": hz["status"],
+                          "tripped": sorted(g for g, s in v["gates"].items() if s["tripped"]),
+                          "healthz_tripped": sorted(g for g, s in hz["health"]["gates"].items()
+                                                    if s["tripped"]),
+                          "values": {g: s["value"] for g, s in v["gates"].items()
+                                     if s["value"] is not None},
+                          "windows": v["windows_evaluated"], "rollbacks": v["rollbacks"],
+                          "updater_paused": hz["updater"]["paused"],
+                          "paused_by_health": v["updates_paused_by_health"],
+                          "pending_deltas": svc.registry.pending_deltas(),
+                          "hashes": scorer.table_hashes()})
+
+        hashes0 = scorer.table_hashes()
+        t0 = time.perf_counter()
+        score(c["score"], False)
+        record("baseline", t0)
+        t0 = time.perf_counter()
+        feedback(c["feedback"], False)
+        flush = svc.updater.flush()
+        record("calibrated_feedback", t0)
+        t0 = time.perf_counter()
+        score(c["score"], True)
+        record("shifted_scores", t0)
+        t0 = time.perf_counter()
+        feedback(c["feedback"], True)
+        record("flipped_labels", t0)
+        t0 = time.perf_counter()
+        score(c["score"], False)
+        record("clean_scores", t0)
+        t0 = time.perf_counter()
+        feedback(c["feedback"], False)
+        record("clean_feedback", t0)
+        s = {x["step"]: x for x in steps}
+        health = svc.metrics_snapshot()["health"]
+        checks = {
+            "deltas_published": s["calibrated_feedback"]["pending_deltas"] > 0
+            and s["calibrated_feedback"]["hashes"] != hashes0,
+            "drift_psi_trips_and_pauses": "drift_psi" in s["shifted_scores"]["tripped"]
+            and s["shifted_scores"]["updater_paused"]
+            and s["shifted_scores"]["paused_by_health"],
+            "calibration_trips_one_rollback": "calibration" in s["flipped_labels"]["tripped"]
+            and s["flipped_labels"]["rollbacks"] == 1
+            and s["flipped_labels"]["pending_deltas"] == 0,
+            "rollback_restores_hashes": s["flipped_labels"]["hashes"] == hashes0,
+            "healthz_degraded_with_gates": s["flipped_labels"]["healthz_status"] == "degraded"
+            and s["flipped_labels"]["healthz_tripped"] == s["flipped_labels"]["tripped"],
+            "recovers_and_resumes": s["clean_feedback"]["status"] == "ok"
+            and not s["clean_feedback"]["tripped"]
+            and not s["clean_feedback"]["updater_paused"],
+            "table_on_card": all(scorer.re_table(name).device.type == torch_device_type(device)
+                                 for name, _s, _t in scorer.updatable_coordinates()),
+        }
+        entry = {"phase": "fleet_health_trip",
+                 "entry": "ScoringService(health=HealthConfig(...), updates=...)",
+                 "config": "BASELINE config 4's saved model (cli_game), float32",
+                 "health_config": FLEET_HEALTH, "rows": dict(c), "flush": flush,
+                 "steps": [{k: v for k, v in x.items() if k != "hashes"} for x in steps],
+                 "seconds": seconds,
+                 "health_metrics": {k: health[k] for k in (
+                     "label_windows", "score_windows", "breaches", "gate_trips",
+                     "recoveries", "rollbacks")},
+                 "checks": checks, "device": kind, "nvidia_smi": smi}
+    finally:
+        svc.close()
+    emit(entry)
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise SystemExit(f"fleet_health_trip: failed checks {bad}")
+    return entry
+
+
+def refit_config4_part(hk, sk, kind, smi, sms, device="cuda") -> dict:
+    """Config 4's validation rows into a feedback lane, compacted in chunks
+    of FLEET_CHUNK_ROWS, then RefitDriver.run_once with cli.refit's defaults
+    on the card in float32: the fixed-effect passes launch the fused kernel
+    once each; the fit from the log repeats the fit from the same rows in
+    memory bit for bit; the objective history is within GLMIX_RTOL, and the
+    decision and the chunk store's manifest equal, the same refit by the
+    port on the CPU in float64.  The kernel at the refit's FE shape is held
+    against its plain version and timed."""
+    import hashlib
+
+    import torch
+    from photon_ml_tpu_torch.data.game_data import build_game_dataset
+    from photon_ml_tpu_torch.fleet import FeedbackLog, record_for_feedback
+    from photon_ml_tpu_torch.ops.losses import LOGISTIC
+    from photon_ml_tpu_torch.refit import (CompactorConfig, LogCompactor, RefitConfig,
+                                           RefitDriver)
+    from photon_ml_tpu_torch.serving import ScoringService, ServingConfig
+    d = cli_dir("fleet")
+    incumbent, same_tables = refit_incumbent(d, device)
+    best = str(incumbent)
+    feats, ids, labels = _config4_requests(device)
+    # the rows in a seeded arrival order (the split is by user), so that
+    # the holdout tail is the newest traffic, not the last users, and
+    # their labels flipped: the drift a refit exists to learn (on the
+    # true labels the candidate, fit to 40,126 rows, loses to the model
+    # fit to 950,051, and nothing swaps)
+    order = np.random.default_rng(FLEET_LANE_SEED).permutation(len(labels))
+    feats = {k: v[order] for k, v in feats.items()}
+    ids = {k: v[order] for k, v in ids.items()}
+    labels = 1.0 - labels[order]
+    t0 = time.perf_counter()
+    log = FeedbackLog(str(d / "lane"))
+    for lo in range(0, len(labels), FLEET_LANE_BATCH):
+        sl = slice(lo, lo + FLEET_LANE_BATCH)
+        log.append(record_for_feedback({k: v[sl] for k, v in feats.items()},
+                                       {k: v[sl] for k, v in ids.items()}, labels[sl]))
+    lane_s = time.perf_counter() - t0
+
+    def driver(name, dev, dtype):
+        svc = ScoringService(model_dir=best, start_updater=False,
+                             config=ServingConfig(device=dev, dtype=dtype))
+        comp = LogCompactor(FeedbackLog(str(d / "lane")), str(d / f"chunks_{name}"),
+                            CompactorConfig(chunk_rows=FLEET_CHUNK_ROWS))
+        return svc, RefitDriver(svc.registry, comp, str(d / f"models_{name}"), RefitConfig())
+
+    svc, drv = driver("card", device, torch.float32)
+    seconds, fits = {}, []
+    try:
+        # the fit from the same rows in memory, before the cycle swaps the
+        # incumbent it anchors on
+        rows = _lane_rows(log)
+        reset_launches(hk, sk)
+        hk.LANES_LAUNCHES = 0
+        t0 = time.perf_counter()
+        in_memory = drv.fit_candidate(rows)
+        memory_fit_s = time.perf_counter() - t0
+        memory_launches = hk.LAUNCHES
+        real_fit = drv.fit_candidate
+        drv.fit_candidate = lambda r: fits.append(real_fit(r)) or fits[-1]
+        _timed_methods(drv.compactor, ["compact"], seconds, device)
+        _timed_methods(drv, ["_fe_pass", "_re_pass", "_validate_with_retry",
+                             "_swap_with_retry"], seconds, device)
+        reset_launches(hk, sk)
+        hk.LANES_LAUNCHES = 0
+        t0 = time.perf_counter()
+        result = drv.run_once()
+        wall = time.perf_counter() - t0
+        launches = {"fused": hk.LAUNCHES, "lanes": hk.LANES_LAUNCHES, **dict(sk.LAUNCHES)}
+        fit = fits[0]
+        # the kernel at the refit's fixed-effect shape: the training slice,
+        # offsets = base + the candidate's random-effect margins
+        train, _hold = drv._split(rows)
+        coords = fit.model.coordinates
+        fe_name = next(k for k, m in coords.items() if hasattr(m, "glm"))
+        fe = coords[fe_name]
+        vocabs = {m.random_effect_type: np.asarray(m.entity_ids)
+                  for m in coords.values() if hasattr(m, "random_effect_type")}
+        train_ds = build_game_dataset(train["labels"], train["features"],
+                                      offsets=train["offsets"], weights=train["weights"],
+                                      entity_ids=train["ids"], entity_vocabs=vocabs)
+        x = train_ds.device_shard(fe.feature_shard, device, torch.float32)
+        y = torch.as_tensor(train["labels"], dtype=torch.float32, device=device)
+        w = torch.as_tensor(train["weights"], dtype=torch.float32, device=device)
+        o = sum(m.score_dataset(train_ds).to(torch.float64)
+                for k, m in coords.items() if k != fe_name)
+        o = (o + torch.as_tensor(train["offsets"], device=device)).to(torch.float32)
+        c = fe.glm.coefficients.means
+        timing = {}
+        if torch_device_type(device) == "cuda":
+            ok, err, v_rel, g_rel = compare(hk, LOGISTIC, x, y, c, w, o)
+            emit({"phase": "check", "size": "refit_fixed_effect", "shape": list(x.shape),
+                  "loss": "logistic", "inputs": "weights+offsets", "ok": ok,
+                  "max_abs_err": err, "value_rel_err": v_rel, "grad_err_over_tol": g_rel})
+            if not ok:
+                raise SystemExit("kernel disagrees with its plain version at the refit's "
+                                 "fixed-effect shape")
+            timing = time_full(hk, LOGISTIC, x, y, o, w)
+            timing.update(shape=list(x.shape), max_abs_err=err)
+            emit({"phase": "timing", "shape": list(x.shape), "loss": "logistic",
+                  "inputs": "weights+offsets", "reps": REPS, "device": kind,
+                  "nvidia_smi": smi, "plan": dataclasses.asdict(hk.plan_fused(*x.shape, sms)),
+                  **timing})
+        on_card = {k: (m.glm.coefficients.means if hasattr(m, "glm")
+                       else m.coefficients).device.type for k, m in coords.items()}
+        manifest_card = json.dumps(drv.compactor.manifest(), sort_keys=True).encode()
+    finally:
+        svc.close()
+    # the same refit by the port on the CPU in float64
+    svc_cpu, drv_cpu = driver("cpu", "cpu", torch.float64)
+    try:
+        t0 = time.perf_counter()
+        cpu = drv_cpu.run_once()
+        cpu_s = time.perf_counter() - t0
+        manifest_cpu = json.dumps(drv_cpu.compactor.manifest(), sort_keys=True).encode()
+    finally:
+        svc_cpu.close()
+    gaps = [abs(a - b) / abs(b) for a, b in zip(result.objective_history,
+                                               cpu.objective_history)]
+    checks = {
+        "identity_space_incumbent_serves_the_same_tables": same_tables,
+        "launches_equal_fe_passes": launches["fused"] == sum(fit.fe_passes) > 0,
+        "no_other_kernel": not any(v for k, v in launches.items() if k != "fused"),
+        "memory_launches_equal_fe_passes": memory_launches == sum(in_memory.fe_passes),
+        "log_equals_memory_bit_for_bit": fit.objective_history == in_memory.objective_history
+        == result.objective_history,
+        "history_within_cpu_f64": len(gaps) == len(cpu.objective_history) > 0
+        and max(gaps) <= GLMIX_RTOL,
+        "decision_equals_cpu": (result.swapped, result.reason) == (cpu.swapped, cpu.reason),
+        "manifest_equals_cpu": manifest_card == manifest_cpu,
+        "candidate_on_card": set(on_card.values()) == {torch_device_type(device)},
+        "rows": (result.sealed_rows, result.tail_rows) == (cpu.sealed_rows, cpu.tail_rows)
+        and result.sealed_rows + result.tail_rows == len(labels),
+    }
+    entry = {"phase": "fleet_refit_config4", "entry": "refit.RefitDriver.run_once",
+             "config": "BASELINE config 4's saved model (cli_game), its validation rows "
+                       "as the feedback lane, float32; cli.refit's defaults",
+             "lane_rows": int(len(labels)), "lane_batches": len(log.read(0)),
+             "lane_write_s": lane_s, "result": dataclasses.asdict(result),
+             "fe_passes": fit.fe_passes, "kernel_launches": launches,
+             "memory_fit_launches": memory_launches, "memory_fit_s": memory_fit_s,
+             "wall_s": wall, "seconds": {
+                 "compaction": seconds.get("compact", 0.0),
+                 "fe_passes": seconds.get("_fe_pass", 0.0),
+                 "re_passes": seconds.get("_re_pass", 0.0),
+                 "validation": seconds.get("_validate_with_retry", 0.0),
+                 "swap": seconds.get("_swap_with_retry", 0.0)},
+             "cpu_f64": {"objective_history": cpu.objective_history, "swapped": cpu.swapped,
+                         "wall_s": cpu_s},
+             "history_rel_gaps": gaps, "tolerance": GLMIX_RTOL,
+             "manifest_sha256": hashlib.sha256(manifest_card).hexdigest(),
+             "checks": checks, "device": kind, "nvidia_smi": smi}
+    emit(entry)
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise SystemExit(f"fleet_refit_config4: failed checks {bad}")
+    return {"entry": entry, "timing": timing, "launches": launches["fused"]
+            + memory_launches, "swapped": result.swapped, "version": result.version}
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class _Child:
+    """One `python -c <counting wrapper>` child of the fleet phase: its
+    stdout read line by line, its stderr and kernel counts in files."""
+
+    def __init__(self, d: Path, name: str, script: str, argv):
+        self.name, self.counts = name, d / f"{name}.counts.json"
+        self.counts.unlink(missing_ok=True)
+        self.err = d / f"{name}.err"
+        with open(self.err, "w") as err:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-c", script, *map(str, argv)], stdout=subprocess.PIPE,
+                stderr=err, text=True, cwd=ROOT,
+                env=dict(os.environ, PYTHONPATH=str(ROOT),
+                         **{CHILD_COUNTS_ENV: str(self.counts)}))
+
+    def line(self, timeout: float = FLEET_DEADLINE_S) -> dict:
+        import select
+        ready, _, _ = select.select([self.proc.stdout], [], [], timeout)
+        text = self.proc.stdout.readline() if ready else ""
+        if not text:
+            raise SystemExit(f"fleet: {self.name} printed nothing (exit "
+                             f"{self.proc.poll()}): {self.err.read_text()[-2000:]}")
+        return json.loads(text)
+
+    def stop(self, timeout: float = 120.0) -> dict:
+        self.proc.send_signal(signal.SIGTERM)
+        out, _ = self.proc.communicate(timeout=timeout)
+        lines = out.strip().splitlines()
+        return {"rc": self.proc.returncode, "last": json.loads(lines[-1]) if lines else None,
+                "counts": (json.loads(self.counts.read_text())
+                           if self.counts.exists() else None)}
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.communicate()
+
+
+def _wait_for(cond, what: str, timeout: float = FLEET_DEADLINE_S, detail=None) -> float:
+    """Seconds until cond() holds; fails the phase after `timeout`, with
+    what detail() says."""
+    t0 = time.perf_counter()
+    while not cond():
+        if time.perf_counter() - t0 > timeout:
+            raise SystemExit(f"fleet: {what} not within {timeout} s"
+                             + ("" if detail is None else f": {detail()}"))
+        time.sleep(0.05)
+    return time.perf_counter() - t0
+
+
+def _json_call(base, path, payload=None, timeout=60.0):
+    code, text = http_call(base, path, payload, timeout)
+    return code, json.loads(text) if text else {}
+
+
+def refit_cli_part(kind, smi, refit: dict, device="cuda") -> dict:
+    """python -m photon_ml_tpu_torch.cli.refit as a child on the same lane
+    and model, with --replication-log: exit 0, the decision of
+    refit_config4, a swap record on the log when it swaps; the fused kernel
+    launches in the child, nvcc never runs there."""
+    from photon_ml_tpu_torch.fleet import ReplicationLog
+    d = CLI_ROOT / "fleet"
+    best = d / "incumbent"
+    t0 = time.perf_counter()
+    child = _Child(d, "refit_cli", REFIT_CHILD, [
+        "--model-dir", best, "--feedback-log", d / "lane", "--chunks", d / "chunks_cli",
+        "--model-root", d / "models_cli", "--replication-log", d / "refit_log",
+        "--device", device])
+    try:
+        out, _ = child.proc.communicate(timeout=600)
+    finally:
+        child.kill()
+    wall = time.perf_counter() - t0
+    lines = out.strip().splitlines()
+    result = json.loads(lines[-1]) if child.proc.returncode == 0 and lines else {}
+    counts = json.loads(child.counts.read_text()) if child.counts.exists() else None
+    records = [e["record"] for e in ReplicationLog(str(d / "refit_log")).read(0)]
+    # the refit's own swap record: the log's last, when it swapped (the
+    # first is the base model the publisher anchors an empty log with)
+    swap = records[-1] if records and result.get("swapped") else {}
+    checks = {
+        "exit_0": child.proc.returncode == 0,
+        "decision_equals_refit_config4": result.get("swapped") == refit["swapped"]
+        and result.get("version") == refit["version"],
+        "swap_record_when_swapped": (not refit["swapped"]) or (
+            len(records) == 2 and swap.get("kind") == "swap"
+            and swap.get("version") == result.get("version")
+            and Path(swap.get("source_dir", "")) == d / "models_cli" / result["version"]),
+        "child_launches_the_fused_kernel_only": counts is not None
+        and counts["launches"]["fused"] > 0
+        and not any(v for k, v in counts["launches"].items() if k != "fused"),
+        "child_builds_nothing": counts is not None and counts["builds"] == 0,
+    }
+    entry = {"phase": "fleet_refit_cli",
+             "entry": "python -m photon_ml_tpu_torch.cli.refit --replication-log",
+             "wall_s": wall, "result": result, "child_counts": counts,
+             "log_records": [r.get("kind") for r in records], "checks": checks,
+             "device": kind, "nvidia_smi": smi}
+    emit(entry)
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise SystemExit(f"fleet_refit_cli: failed checks {bad}; "
+                         f"{child.err.read_text()[-2000:]}")
+    return {"entry": entry, "launches": counts["launches"]["fused"], "swap": swap}
+
+
+def _serve_children(d: Path, best, device, log_dir, specs) -> dict:
+    """Start cli.serve replicas on ports chosen here, all at once:
+    specs = {name: extra flags}; -> {name: (child, url)}."""
+    out = {}
+    for name, extra in specs.items():
+        port = _free_port()
+        child = _Child(d, name, SERVE_CHILD, [
+            "--model-dir", best, "--replica", "--replication-log", log_dir,
+            "--replica-state", d / f"{name}_state", "--port", port, "--device", device,
+            "--replica-poll-ms", 20, *extra])
+        out[name] = (child, f"http://127.0.0.1:{port}")
+    return out
+
+
+def _audit_identity(audit: dict):
+    return audit.get("version_vector"), audit.get("table_hashes")
+
+
+def fleet_replicas_part(kind, smi, refit_cli: dict, device="cuda") -> dict:
+    """Four cli.serve children on the one card: a publisher (--replica
+    --publish --enable-updates), two replicas and a front.  Feedback goes
+    through the front and becomes deltas on the publisher; cli.refit's swap
+    record is replayed (POST /swap through the front); every replica's
+    table hashes equal the publisher's in /fleet/audit through the front;
+    with one replica SIGKILLed every /score still answers, and it rejoins
+    and converges; /fleet/drain takes one replica out of rotation."""
+    d = CLI_ROOT / "fleet"
+    best = d / "incumbent"
+    feats, ids, labels = _config4_requests("cpu")
+    body = lambda rows: {"features": {k: v[rows].tolist() for k, v in feats.items()},
+                         "ids": {k: v[rows].tolist() for k, v in ids.items()}}
+    rng = np.random.default_rng(31)
+    t_start = time.perf_counter()
+    nodes = _serve_children(d, best, device, d / "fleet_log", {
+        "publisher": ["--publish", "--enable-updates", "--update-interval-ms", 5],
+        "replica1": [], "replica2": []})
+    urls = {n: u for n, (_c, u) in nodes.items()}
+    front = _Child(d, "front", SERVE_CHILD, [
+        "--front", "--replica-url", urls["publisher"], "--replica-url", urls["replica1"],
+        "--replica-url", urls["replica2"], "--probe-interval-ms", 50, "--port", 0])
+    children = [c for c, _u in nodes.values()] + [front]
+    checks, timings, stopped = {}, {}, {}
+    try:
+        starts = {n: c.line() for n, (c, _u) in nodes.items()}
+        furl = front.line()["serving"]
+        timings["ready_s"] = _wait_for(
+            lambda: _json_call(furl, "/healthz")[1].get("ready_replicas") == 3,
+            "three ready replicas behind the front")
+        timings["start_to_ready_s"] = time.perf_counter() - t_start
+
+        last = {}
+
+        def converged():
+            """One /fleet/audit through the front: every replica's version
+            vector and table hashes the publisher's at one instant."""
+            last["audits"] = audits = _json_call(furl, "/fleet/audit")[1]
+            return (len(audits) == 3 and urls["publisher"] in audits and all(
+                _audit_identity(a) == _audit_identity(audits[urls["publisher"]])
+                for a in audits.values()))
+
+        def settled(pred):
+            """The publisher idle with pred(its /healthz): nothing pending and
+            its version vector unmoved for FLEET_SETTLE_S (a drained batch is
+            not pending while its cycle runs)."""
+            seen = {"vv": None, "since": 0.0}
+
+            def cond():
+                h = _json_call(urls["publisher"], "/healthz")[1]
+                vv = json.dumps(h["version_vector"], sort_keys=True)
+                now = time.perf_counter()
+                if vv != seen["vv"] or h["updater"]["pending_rows"] or not pred(h):
+                    seen.update(vv=vv, since=now)
+                    return False
+                return now - seen["since"] >= FLEET_SETTLE_S
+            return cond
+
+        # feedback through the front -> deltas on the publisher
+        rows = rng.choice(len(labels), size=FLEET_FEEDBACK_ROWS, replace=False)
+        code, intake = _json_call(furl, "/feedback", dict(body(rows),
+                                                          labels=labels[rows].tolist()))
+        checks["feedback_202_through_front"] = code == 202
+        _wait_for(settled(lambda h: h["version_vector"]["delta_seq"] >= 1),
+                  "the publisher's deltas")
+        # cli.refit's swap record, replayed through the front
+        swap = refit_cli["swap"]
+        if swap.get("kind") == "swap":
+            code, swapped = _json_call(furl, "/swap", {"model_dir": swap["source_dir"],
+                                                       "version": swap["version"]})
+            checks["refit_swap_replayed"] = code == 200 and swapped["version"] == swap["version"]
+            rows = rng.choice(len(labels), size=FLEET_FEEDBACK_ROWS, replace=False)
+            _json_call(furl, "/feedback", dict(body(rows), labels=labels[rows].tolist()))
+            _wait_for(settled(lambda h: h["model_version"] == swap["version"]
+                              and h["version_vector"]["delta_seq"] >= 1),
+                      "deltas on the refit's version")
+
+        def fleet_state():
+            converged()
+            return {"audits": {u: _audit_identity(a) for u, a in last["audits"].items()},
+                    "healthz": {n: _json_call(u, "/healthz") for n, u in urls.items()},
+                    "stderr": {c.name: c.err.read_text()[-1500:] for c in children}}
+
+        t0 = time.perf_counter()
+        _wait_for(converged, "the replicas' convergence", detail=fleet_state)
+        timings["convergence_s"] = time.perf_counter() - t0
+        # once more: with the publisher idle the fleet stays converged
+        checks["audit_equal_through_front"] = converged()
+        audits = last["audits"]
+        checks["replicas_on_refit_version"] = (not swap) or all(
+            a["version_vector"]["version"] == swap["version"] for a in audits.values())
+        # the front's /score tail over ready replicas
+        c = FLEET_SCORES
+        reqs = [body(rng.choice(len(labels), size=c["rows"], replace=False))
+                for _ in range(c["requests"])]
+        lat = []
+
+        def one(req):
+            t = time.perf_counter()
+            code, _ = http_call(furl, "/score", req)
+            lat.append((code, time.perf_counter() - t))
+
+        from concurrent.futures import ThreadPoolExecutor
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=c["threads"]) as pool:
+            list(pool.map(one, reqs))
+        score_wall = time.perf_counter() - t0
+        ms = np.asarray([t for _c, t in lat]) * 1e3
+        checks["front_scores_answer"] = all(code == 200 for code, _t in lat)
+        timings["front_score"] = {"requests": len(lat), "wall_s": score_wall,
+                                  "p50_ms": float(np.percentile(ms, 50)),
+                                  "p99_ms": float(np.percentile(ms, 99)),
+                                  "max_ms": float(ms.max())}
+        # SIGKILL replica1: every /score through the front still answers
+        victim, vurl = nodes["replica1"]
+        victim.kill()
+        answers = [http_call(furl, "/score", reqs[i])[0] for i in range(40)]
+        checks["scores_answer_with_a_replica_killed"] = all(a == 200 for a in answers)
+        port = vurl.rsplit(":", 1)[1]
+        t0 = time.perf_counter()
+        again = _Child(d, "replica1_rejoin", SERVE_CHILD, [
+            "--model-dir", best, "--replica", "--replication-log", d / "fleet_log",
+            "--replica-state", d / "replica1_state", "--port", port, "--device", device,
+            "--replica-poll-ms", 20])
+        children.append(again)
+        rejoin = again.line()
+        _wait_for(lambda: _json_call(furl, "/healthz")[1].get("ready_replicas") == 3,
+                  "the rejoined replica back in rotation")
+        _wait_for(converged, "the rejoined replica's convergence", detail=fleet_state)
+        timings["rejoin_s"] = time.perf_counter() - t0
+        checks["killed_replica_rejoins_resumed"] = rejoin["join"]["resumed"] is True
+        # /fleet/drain through the front takes replica2 out of rotation
+        code, drained = _json_call(furl, "/fleet/drain", {"replica": urls["replica2"]})
+        status = _json_call(furl, "/healthz")[1]
+        checks["drain_takes_replica_out"] = (
+            code == 200 and drained["detached"] is True and status["ready_replicas"] == 2
+            and http_call(urls["replica2"], "/healthz")[0] == 503)
+        for name, child in (("front", front), ("replica2", nodes["replica2"][0]),
+                            ("replica1", again), ("publisher", nodes["publisher"][0])):
+            stopped[name] = child.stop()
+        counted = [s["counts"] for s in stopped.values()]
+        checks["children_drain_on_sigterm"] = all(
+            s["rc"] == 0 and s["last"] and s["last"].get("drained") is True
+            for s in stopped.values())
+        checks["children_launch_no_kernel"] = all(
+            c is not None and not any(c["launches"].values()) for c in counted)
+        checks["children_build_or_load_nothing"] = all(
+            c is not None and c["builds_or_loads"] == 0 for c in counted)
+    finally:
+        for child in children:
+            child.kill()
+    entry = {"phase": "fleet_replicas",
+             "entry": "python -m photon_ml_tpu_torch.cli.serve --replica [--publish] | --front",
+             "config": "BASELINE config 4's saved model (cli_game), float32, one card",
+             "startup": {n: {k: s.get(k) for k in ("mode", "model_load_s", "join")}
+                         for n, s in starts.items()},
+             "timings": timings, "stopped": stopped, "checks": checks,
+             "device": kind, "nvidia_smi": smi}
+    emit(entry)
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise SystemExit(f"fleet_replicas: failed checks {bad}")
+    return entry
+
+
+def fleet_shards_part(kind, smi, device="cuda") -> dict:
+    """A publisher with --shard-count FLEET_SHARDS, one --shard K/N replica
+    per shard and a front over them: /score through the front equals the
+    unsharded scorer's scores on the same rows bit for bit (online_shards'
+    tolerance), and the publisher's /fleet/audit?shard=K equals shard K's
+    own audit."""
+    from photon_ml_tpu_torch.serving import CompiledScorer
+    d = CLI_ROOT / "fleet"
+    best = d / "incumbent"
+    feats, ids, labels = _config4_requests("cpu")
+    n = FLEET_SHARDS
+    specs = {"shard_publisher": ["--publish", "--shard-count", n]}
+    specs.update({f"shard{k}": ["--shard", f"{k}/{n}"] for k in range(n)})
+    t_start = time.perf_counter()
+    nodes = _serve_children(d, best, device, d / "shard_log", specs)
+    urls = {name: u for name, (_c, u) in nodes.items()}
+    front = _Child(d, "shard_front", SERVE_CHILD, [
+        "--front", *sum((["--replica-url", urls[f"shard{k}"]] for k in range(n)), []),
+        "--publisher-url", urls["shard_publisher"], "--probe-interval-ms", 50, "--port", 0])
+    children = [c for c, _u in nodes.values()] + [front]
+    checks, stopped = {}, {}
+    try:
+        for c, _u in nodes.values():
+            c.line()
+        furl = front.line()["serving"]
+        ready_s = _wait_for(
+            lambda: not (_json_call(furl, "/healthz")[1].get("shards") or {}).get(
+                "shards_down", [0]) and _json_call(furl, "/healthz")[0] == 200,
+            "every shard ready behind the front")
+        start_to_ready_s = time.perf_counter() - t_start
+        full = CompiledScorer.from_model_dir(str(best), device=device)
+        rows = np.arange(min(FLEET_SHARD_ROWS, len(labels)))
+        req = {"features": {k: v[rows].tolist() for k, v in feats.items()},
+               "ids": {k: v[rows].tolist() for k, v in ids.items()}}
+        t0 = time.perf_counter()
+        code, out = _json_call(furl, "/score", req)
+        score_s = time.perf_counter() - t0
+        want = np.asarray(full.score({k: v[rows] for k, v in feats.items()},
+                                     {k: v[rows] for k, v in ids.items()}).scores,
+                          np.float64).tolist()
+        checks["sharded_scores_bit_equal"] = (code == 200 and out.get("sharded") is True
+                                              and out["scores"] == want)
+        audits = {}
+        for k in range(n):
+            _c, pub = _json_call(urls["shard_publisher"], f"/fleet/audit?shard={k}")
+            _c, own = _json_call(urls[f"shard{k}"], "/fleet/audit")
+            audits[k] = pub["table_hashes"] == own["table_hashes"]
+        checks["shard_audits_equal_publisher_filtered"] = all(audits.values())
+        for name, child in [("shard_front", front)] + [(nm, c) for nm, (c, _u) in nodes.items()]:
+            stopped[name] = child.stop()
+        counted = [s["counts"] for s in stopped.values()]
+        checks["children_drain_on_sigterm"] = all(
+            s["rc"] == 0 and s["last"] and s["last"].get("drained") is True
+            for s in stopped.values())
+        checks["children_launch_no_kernel"] = all(
+            c is not None and not any(c["launches"].values()) for c in counted)
+        checks["children_build_or_load_nothing"] = all(
+            c is not None and c["builds_or_loads"] == 0 for c in counted)
+    finally:
+        for child in children:
+            child.kill()
+    entry = {"phase": "fleet_shards",
+             "entry": "python -m photon_ml_tpu_torch.cli.serve --shard K/N | --front",
+             "shards": n, "rows": int(len(rows)), "ready_s": ready_s,
+             "start_to_ready_s": start_to_ready_s, "score_s": score_s,
+             "stopped": stopped, "checks": checks, "device": kind, "nvidia_smi": smi}
+    emit(entry)
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise SystemExit(f"fleet_shards: failed checks {bad}")
+    return entry
+
+
+def fleet_phase(hk, sk, kind, smi, sms, device="cuda") -> dict:
+    """The fleet's five parts, after online: the kernels of the kernels
+    line launch only in the two refit parts, and nothing is built there or
+    anywhere after the script's warmup (the children included)."""
+    from photon_ml_tpu_torch.ops import _build
+    loads0 = len(_build.LOADS)
+    seconds = {}
+
+    def quiet(name, fn, *a):
+        reset_launches(hk, sk)
+        hk.LANES_LAUNCHES = 0
+        t0 = time.perf_counter()
+        out = fn(*a)
+        seconds[name] = time.perf_counter() - t0
+        launches = {"fused": hk.LAUNCHES, "lanes": hk.LANES_LAUNCHES, **dict(sk.LAUNCHES)}
+        if any(launches.values()):
+            raise SystemExit(f"fleet: {name} launched kernels of the kernels line: {launches}")
+        return out
+
+    quiet("health_trip", health_trip_part, kind, smi, device)
+    t0 = time.perf_counter()
+    refit = refit_config4_part(hk, sk, kind, smi, sms, device)
+    seconds["refit_config4"] = time.perf_counter() - t0
+    cli = quiet("refit_cli", refit_cli_part, kind, smi, refit, device)
+    quiet("fleet_replicas", fleet_replicas_part, kind, smi, cli, device)
+    quiet("fleet_shards", fleet_shards_part, kind, smi, device)
+    builds = len(_build.LOADS) - loads0
+    emit({"phase": "fleet_done", "seconds": seconds, "kernel_builds_or_loads": builds})
+    if builds:
+        raise SystemExit(f"fleet: {builds} kernel builds or loads in the phase")
+    return {"launches_in_refit": {"refit_config4": refit["launches"],
+                                  "refit_cli": cli["launches"]},
+            "at_refit_fe_shape": refit["timing"], "seconds": seconds}
+
+
 def sparse_kernel_entry(name: str, part: str, c6: dict, c7: dict,
                         cli_avro: dict) -> dict:
     """The kernels line's entry of sparse kernel A ("a") or B ("b"): its
@@ -5469,6 +6286,9 @@ def main() -> int:
     online_phase(hk, sk, kind, smi)
     emit({"phase": "online_phase_done", "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
+    fleet = fleet_phase(hk, sk, kind, smi, sms)
+    emit({"phase": "fleet_phase_done", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
     cli_telemetry = cli_telemetry_phase(hk, kind, smi)
     emit({"phase": "cli_telemetry_done", "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
@@ -5516,7 +6336,8 @@ def main() -> int:
                      + c5["convex"] + c5["full"] + cli_glm + cli_game
                      + cli_telemetry["launches"] + cli_tuning
                      + cli_diagnose["fitting"]
-                     + sum(inexact["launches"].values()) + sum(stream_launches.values())),
+                     + sum(inexact["launches"].values()) + sum(stream_launches.values())
+                     + sum(fleet["launches_in_refit"].values())),
         "launches_by_path": {"train_glm": launches, "glmix": g_launches,
                              "config2": c2_launches, "config3": c3["kernel_launches"],
                              "glmix_tron": t_launches,
@@ -5530,7 +6351,8 @@ def main() -> int:
                              "fitting": cli_diagnose["fitting"],
                              "inexact_strict": inexact["launches"]["strict"],
                              "inexact_scheduled": inexact["launches"]["scheduled"],
-                             **stream_launches},
+                             **fleet["launches_in_refit"], **stream_launches},
+        "launches_in_refit": fleet["launches_in_refit"],
         "max_abs_err": max_abs_err,
         "tolerance": (f"value rtol {VALUE_RTOL}, gradient rtol {GRAD_RTOL} atol {GRAD_ATOL} "
                       "(with shifts, rtol of sum|x u| + |s| sum|u|, the terms the "
@@ -5558,6 +6380,9 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "hbm_share",
             "ms_over_library", "shape", "max_abs_err")},
         "at_inexact_fe_shape": {k: inexact["fe_timing"][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "hbm_share",
+            "ms_over_library", "shape", "max_abs_err")},
+        "at_refit_fe_shape": {k: fleet["at_refit_fe_shape"][k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "hbm_share",
             "ms_over_library", "shape", "max_abs_err")},
         "at_stream_chunk_shape": {k: stream_timing[k] for k in (

@@ -38,8 +38,7 @@ poll-loop retry absorbs it).
 Feedback lane (`FeedbackLog`): labeled-observation batches admitted by
 the online updater land in sibling `feedback-*.seg` segments with the
 SAME sha256/torn-tail/fsync discipline, so the refit compactor
-(the JAX package's refit/; the port's is ROADMAP.md queue A item
-22) replays a complete training source from the
+(photon_ml_tpu_torch/refit/) replays a complete training source from the
 fleet's own exhaust.  Compaction on either lane is bounded by registered
 consumers (`register_consumer`): folding past the newest seq a refit
 compactor checkpoint still needs would strand the compactor exactly the

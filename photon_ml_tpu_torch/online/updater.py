@@ -113,11 +113,8 @@ class OnlineUpdater:
     def __init__(self, registry, metrics=None,
                  config: OnlineUpdateConfig = OnlineUpdateConfig(),
                  emitter=None, health=None, feedback_log=None):
-        """`health` (duck-typed: the JAX package's health.HealthMonitor,
-        whose port is ROADMAP.md queue A item 22, health; anything with
-        `observe_freeze(lane)` and `observe_published(lane, norms)`)
-        receives per-delta magnitude and freeze vitals, and is what
-        `pause()`/`resume()` exist for:
+        """`health` (a health.HealthMonitor) receives per-delta magnitude
+        and freeze vitals, and is what `pause()`/`resume()` exist for:
         the monitor's gates stop the update loop while the model is
         degrading and restart it on recovery.  `feedback_log` (a
         fleet.FeedbackLog) makes every admitted batch durable before

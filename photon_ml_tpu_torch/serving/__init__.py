@@ -19,8 +19,9 @@ request/response GAME inference on one CUDA device.
     (utils/events.py).
 
 The online updater on top of this package is photon_ml_tpu_torch/online/
-(`ScoringService(updates=...)`); the health monitor, the replica runtime
-and the routing front are ROADMAP.md queue A item 22 (health, the fleet).
+(`ScoringService(updates=...)`), the health monitor
+photon_ml_tpu_torch/health/ (`ScoringService(health=...)`), and the
+replica runtime and the routing front photon_ml_tpu_torch/fleet/.
 
 CLI entrypoint: `python -m photon_ml_tpu_torch.cli.serve`.
 """

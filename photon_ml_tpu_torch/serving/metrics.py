@@ -40,9 +40,7 @@ from photon_ml_tpu_torch.utils import locktrace
 #: registers must appear here, and every path must resolve in a rendered
 #: snapshot — tests/port/test_torch_serving.py diffs all three sets (and
 #: holds them equal to the JAX package's), so a new metric cannot land on
-#: the Prometheus surface without its JSON twin (or vice versa).  The
-#: health/fleet/refit families exist here too, all zeros until their tiers
-#: are ported (ROADMAP.md queue A item 22: health, the fleet).  Several
+#: the Prometheus surface without its JSON twin (or vice versa).  Several
 #: counters render as one derived ratio (occupancy, hit rate): they share
 #: a path.
 SNAPSHOT_PATHS = {

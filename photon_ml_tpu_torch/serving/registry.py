@@ -10,11 +10,12 @@ the lock.  In-flight batches hold their own reference to the old scorer
 at batch granularity and nothing is dropped.  The previous version is kept
 for `rollback()`.
 
-Row-level deltas (the online tier; its updater is ROADMAP.md queue A item
-22): `apply_delta` scatters a ModelDelta's changed random-effect rows into
-the LIVE scorer's device tables under the registry lock — no full-model
-cutover; each scatter writes a copy of the table, so batches in flight keep
-the tables they started on.  The delta's version vector must match the live version
+Row-level deltas (the online tier, photon_ml_tpu_torch/online/):
+`apply_delta` scatters a ModelDelta's changed random-effect rows into the
+LIVE scorer's device tables under the registry lock — no full-model
+cutover; each scatter writes a copy of the table, so batches in flight
+keep the tables they started on.  The delta's version vector must match
+the live version
 (`StaleDeltaError` otherwise: rows solved against a superseded model must
 never land on its successor), and every applied delta is kept on an undo
 log so `rollback()` is DELTA-AWARE: with pending deltas it restores the

@@ -12,11 +12,6 @@ object the serve CLI (and any embedding process) talks to:
     svc.swap("out/next")        # zero-downtime hot swap
     svc.rollback()              # back to the previous version
     svc.metrics_snapshot()      # JSON observability
-
-The online updater (`updates=`, `feedback_log_dir=`, `feedback()`), entity
-sharding (`shard_index`/`shard_count`) and the tiered store fields work.
-The health monitor (`health=`) raises: it is ROADMAP.md queue A item 22,
-health.
 """
 from __future__ import annotations
 
@@ -93,20 +88,25 @@ class ScoringService:
         (tests and chip_smoke.py drive `service.updater.run_once()`
         themselves).
 
+        `health` (a health.HealthConfig) arms the model-health monitor:
+        streaming calibration over feedback-joined labels, score-
+        distribution drift vs a per-install baseline, and gates that
+        flip /healthz to degraded, pause the updater, and optionally
+        trigger the delta-aware rollback (cli.serve --health-config).
+
         `feedback_log_dir` arms the durable feedback lane
         (fleet.FeedbackLog): every admitted `feedback()` batch is
         persisted with the replication log's sha256/torn-tail discipline
-        before intake returns.  Requires `updates`.
-
-        `health` (the JAX package's model-health monitor) raises: it is
-        ROADMAP.md queue A item 22, health."""
+        before intake returns, so a refit compactor
+        (photon_ml_tpu_torch/refit/) can replay the fleet's own exhaust
+        into training chunks.  Requires `updates`."""
         if (model_dir is None) == (model is None):
             raise ValueError("pass exactly one of model_dir / model")
-        if health is not None:
-            raise NotImplementedError(
-                "the model-health monitor (health=) is not ported yet "
-                "(ROADMAP.md queue A item 22, health)")
         # refused before any thread starts, so a refusal leaks none
+        from photon_ml_tpu_torch.health import HealthConfig, HealthMonitor
+        if health is not None and not isinstance(health, HealthConfig):
+            raise TypeError("health must be a health.HealthConfig, got "
+                            f"{type(health).__name__}")
         if feedback_log_dir is not None and updates is None:
             raise ValueError("feedback_log_dir requires updates (the "
                              "feedback lane persists the online intake)")
@@ -116,6 +116,8 @@ class ScoringService:
         self.emitter = emitter
         self.metrics = ServingMetrics(cfg.latency_window)
         self.health = None
+        if health is not None:
+            self.health = HealthMonitor(health, metrics=self.metrics)
 
         self.shard = None
         if (cfg.shard_index is None) != (cfg.shard_count is None):
@@ -184,6 +186,10 @@ class ScoringService:
         if self.shard is not None:
             self.metrics.set_shard_probe(
                 lambda: self.registry.scorer.shard_info())
+        if self.health is not None:
+            # registered BEFORE the initial load so the first install
+            # stamps the version and starts the drift baseline
+            self.registry.add_swap_hook(self.health.on_model_event)
         self.registry.load(model_dir, version=None if model_dir else "inline@1")
         self._batcher = MicroBatcher(
             self._score_batch,
@@ -202,10 +208,14 @@ class ScoringService:
             self.updater = OnlineUpdater(self.registry,
                                          metrics=self.metrics,
                                          config=updates, emitter=emitter,
+                                         health=self.health,
                                          feedback_log=self.feedback_log)
             self.metrics.set_online_probe(self.updater.probe)
             if start_updater:
                 self.updater.start()
+        if self.health is not None:
+            self.health.bind(registry=self.registry, updater=self.updater,
+                             task_type=self.registry.scorer.model.task_type)
         self._closed = False
         # one telemetry.snapshot() returns serving state alongside the
         # training/streaming registries (latest-constructed service wins
@@ -246,15 +256,16 @@ class ScoringService:
     def score_margins(self, features: Dict[str, np.ndarray],
                       ids: Optional[Dict[str, np.ndarray]] = None) -> Dict:
         """One leg of a sharded fan-out request: per-coordinate margins
-        from this service's slice of the entity space, in the scorer's
-        fold order (fleet.shards.merge_margins folds legs back together).
-        Unowned/unseen entities contribute exactly 0.0 to their
-        coordinate's margin — the owner's leg holds the real contribution.
-        Serialized by a dedicated lock rather than the micro-batcher: legs
-        arrive pre-batched."""
+        from this replica's slice of the entity space, in the scorer's
+        fold order (POST /margins; the front merges legs with
+        fleet.shards.merge_margins).  Unowned/unseen entities contribute
+        exactly 0.0 to their coordinate's margin — the owner's leg holds
+        the real contribution.  Serialized by a dedicated lock rather
+        than the micro-batcher: legs arrive pre-batched by the front."""
         ids = ids or {}
         # resolved OUTSIDE _margins_lock: the registry property takes the
-        # registry lock
+        # registry lock, and a swap landing mid-request is caught by the
+        # front's cross-leg version check either way
         scorer = self.registry.scorer
         n = scorer.validate_request(features, ids)
         t0 = time.monotonic()
@@ -295,6 +306,9 @@ class ScoringService:
                 num_rows=result.num_rows, bucket_size=max(result.buckets),
                 queue_wait_s=queue_wait_s, score_s=score_s,
                 model_version=scorer.version))
+        if self.health is not None:  # faults.fire()-style disarm: one
+            # None check when health is off, one histogram add per BATCH on
+            self.health.observe_scores(result.scores)
         return result
 
     # -- online updates ----------------------------------------------------
@@ -325,6 +339,12 @@ class ScoringService:
             self.metrics.observe_feedback_rejected()
             e.retry_after_s = self.updater.retry_after_s()
             raise
+        if self.health is not None:
+            # the delayed-label join: score the admitted batch once through
+            # the live scorer and feed calibration/loss/AUC
+            self.health.observe_feedback(
+                self.registry.scorer, features, ids, labels,
+                weights=weights, offsets=offsets)
         return out
 
     def version_vector(self) -> Dict:
@@ -333,25 +353,31 @@ class ScoringService:
         return self.registry.version_vector()
 
     def audit(self) -> Dict:
-        """The convergence audit: version vector + per-table sha256 of the
-        live scorer's exact device bytes (GET /fleet/audit)."""
+        """The fleet convergence audit: version vector + per-table sha256
+        of the live scorer's exact device bytes.  Two replicas whose
+        audits agree converged bit-identically (GET /fleet/audit)."""
         return {"version_vector": self.version_vector(),
                 "table_hashes": self.registry.scorer.table_hashes()}
 
     def healthz(self) -> Dict:
-        """The /healthz payload: status, the version vector, updater
-        vitals (thread liveness, last-cycle age, frozen entities, pause
-        state, pending rows), the shard identity of a sharded service and
-        the tiered store's hit rate when the model serves through it."""
+        """The /healthz payload: overall status (degraded when a health
+        gate is tripped), the version vector, updater vitals (thread
+        liveness, last-cycle age, frozen entities, pause state, pending
+        rows), the shard identity of a sharded service, the tiered store's
+        hit rate when the model serves through it, and the per-gate health
+        verdict."""
         out = {
             "status": "ok",
             "model_version": self.model_version,
             "version_vector": self.version_vector(),
             "updates_enabled": self.updater is not None,
-            "health_enabled": False,
+            "health_enabled": self.health is not None,
         }
         shard = self.registry.scorer.shard_info()
         if shard is not None:
+            # the front learns shard membership from this key: probed
+            # /healthz payloads are how replicas declare which slice of
+            # the entity space they own (no static fleet topology file)
             out["shard"] = shard
         store = self.registry.scorer.store_health()
         if store is not None:
@@ -368,6 +394,11 @@ class ScoringService:
             if age is not None:
                 probe["last_cycle_age_s"] = round(age, 3)
             out["updater"] = probe
+        if self.health is not None:
+            verdict = self.health.verdict()
+            out["health"] = verdict
+            if verdict["status"] == "degraded":
+                out["status"] = "degraded"
         return out
 
     # -- model lifecycle ---------------------------------------------------

@@ -1459,3 +1459,78 @@ def test_replog_round_trip_of_card_rows(cuda, tmp_path):
     finally:
         svc.close()
         fresh.close()
+
+
+def _refit_driver(tmp_path, device, dtype):
+    """A service over the refit tests' saved model on `device` and a
+    driver over their feedback lane (fleet_jax_side.write_lane)."""
+    import fleet_jax_side as fj
+    import test_torch_online as tto
+    from photon_ml_tpu_torch.fleet import FeedbackLog
+    from photon_ml_tpu_torch.models.io import save_game_model
+    from photon_ml_tpu_torch.refit import (CompactorConfig, LogCompactor,
+                                           RefitDriver)
+    from photon_ml_tpu_torch.serving import ScoringService, ServingConfig
+    import online_jax_side as oj
+    if not (tmp_path / "model").exists():
+        save_game_model(oj.build_model(tto.PKG, oj.model_arrays()),
+                        str(tmp_path / "model"))
+        fj.write_lane(tto.PKG, tmp_path / "lane")
+    svc = ScoringService(model_dir=str(tmp_path / "model"), start_updater=False,
+                         config=ServingConfig(device=device, dtype=dtype))
+    comp = LogCompactor(FeedbackLog(str(tmp_path / "lane")),
+                        str(tmp_path / f"chunks_{device}"),
+                        CompactorConfig(chunk_rows=fj.CHUNK_ROWS))
+    return svc, RefitDriver(svc.registry, comp, str(tmp_path / f"models_{device}"))
+
+
+def test_refit_fe_pass_launches_the_fused_kernel(cuda, tmp_path):
+    """The warm refit's fixed-effect passes run the fused kernel on the
+    card: one launch per value+gradient pass, nothing else."""
+    svc, drv = _refit_driver(tmp_path, "cuda", torch.float32)
+    try:
+        drv.compactor.compact()
+        rows = drv.gather_rows()
+        hk.LAUNCHES = hk.LANES_LAUNCHES = 0
+        fit = drv.fit_candidate(rows)
+        assert hk.LAUNCHES == sum(fit.fe_passes) > 0
+        assert hk.LANES_LAUNCHES == 0
+        assert fit.model.coordinates["fixed"].glm.coefficients.means.is_cuda
+        assert fit.model.coordinates["perUser"].coefficients.is_cuda
+    finally:
+        svc.close()
+
+
+def test_refit_on_card_matches_the_cpu(cuda, tmp_path):
+    """One run_once on the card in float32 against the CPU in float64: the
+    objective history within GLMIX_RTOL, the same decision and row counts."""
+    out = {}
+    for device, dtype in (("cpu", torch.float64), ("cuda", torch.float32)):
+        svc, drv = _refit_driver(tmp_path, device, dtype)
+        try:
+            out[device] = drv.run_once(version="cand")
+        finally:
+            svc.close()
+    cpu, card = out["cpu"], out["cuda"]
+    assert card.swapped == cpu.swapped and card.reason == cpu.reason
+    assert (card.train_rows, card.holdout_rows, card.sealed_rows) == \
+        (cpu.train_rows, cpu.holdout_rows, cpu.sealed_rows)
+    np.testing.assert_allclose(card.objective_history, cpu.objective_history,
+                               rtol=1e-4)
+
+
+def test_front_import_leaves_cuda_uninitialised(cuda):
+    """The front is model-free: importing it and routing nothing touches
+    no device, so CUDA stays uninitialised in its process."""
+    import subprocess
+    import sys
+    from pathlib import Path
+    code = ("import torch; from photon_ml_tpu_torch.fleet import front; "
+            "f = front.Front(['http://127.0.0.1:9'], start_probes=False); "
+            "f.probe_once(); f.close(); print(torch.cuda.is_initialized())")
+    root = Path(__file__).resolve().parents[2]
+    out = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True,
+                         text=True, timeout=120,
+                         env={**__import__("os").environ, "PYTHONPATH": str(root)})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "False"

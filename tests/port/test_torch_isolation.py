@@ -66,6 +66,12 @@ REQUIRED = ("photon_ml_tpu_torch.ops.features", "photon_ml_tpu_torch.ops.sparse_
             "photon_ml_tpu_torch.game.anchored", "photon_ml_tpu_torch.online.feedback",
             "photon_ml_tpu_torch.online.updater", "photon_ml_tpu_torch.fleet",
             "photon_ml_tpu_torch.fleet.replog", "photon_ml_tpu_torch.fleet.shards",
+            "photon_ml_tpu_torch.health", "photon_ml_tpu_torch.health.config",
+            "photon_ml_tpu_torch.health.calibration", "photon_ml_tpu_torch.health.drift",
+            "photon_ml_tpu_torch.health.monitor", "photon_ml_tpu_torch.refit",
+            "photon_ml_tpu_torch.refit.compactor", "photon_ml_tpu_torch.refit.driver",
+            "photon_ml_tpu_torch.refit.trigger", "photon_ml_tpu_torch.cli.refit",
+            "photon_ml_tpu_torch.fleet.replica", "photon_ml_tpu_torch.fleet.front",
             "chip_smoke")
 
 

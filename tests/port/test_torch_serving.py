@@ -491,24 +491,54 @@ def test_cli_serve_http_child_scores_swaps_and_drains(served):
             proc.communicate()
 
 
+# the health and fleet flags, each in a mode the JAX CLI refuses (the
+# refusal and its message are the JAX CLI's); --health-config arms the
+# monitor in a burst instead
+FLEET_MODE_CHECKS = {
+    "--replica": ["--replica"],
+    "--publish": ["--publish", "--shard=0/2"],
+    "--front": ["--front"],
+    "--shard=0/2": ["--shard=0/2", "--enable-updates"],
+    "--shard-count=2": ["--shard-count=2"],
+}
+
+
 @pytest.mark.parametrize("flag", ["--health-config={}",
                                   "--replica", "--publish", "--front",
                                   "--shard=0/2", "--shard-count=2"])
 def test_cli_serve_unported_flags_exit_naming_item_22(served, flag):
+    """The flags that exited before their slice was ported: they now
+    behave as the JAX CLI's do."""
+    from photon_ml_tpu.cli import serve as jax_serve_cli
     from photon_ml_tpu_torch.cli import serve as serve_cli
     root, _ = served
-    with pytest.raises(SystemExit, match="item 22"):
-        serve_cli.main(["--model-dir", str(root / "model"), flag,
-                        "--device", "cpu"])
+    if flag == "--health-config={}":
+        rc, result = _run_main(serve_cli, [
+            "--model-dir", root / "model", "--burst", root / "requests.npz",
+            "--health-config", json.dumps({"baseline_scores": 16,
+                                           "window_scores": 16}),
+            "--request-rows", 4, "--device", "cpu", "--x64"])
+        assert rc == 0 and result["failed_requests"] == 0
+        assert result["metrics"]["health"]["score_windows"] >= 1
+        assert result["metrics"]["health"]["baseline_ready"] == 1
+        return
+    argv = ["--model-dir", str(root / "model"), *FLEET_MODE_CHECKS[flag]]
+    with pytest.raises(SystemExit) as jax_exit:
+        jax_serve_cli.main(argv)
+    with pytest.raises(SystemExit) as port_exit:
+        serve_cli.main(argv + ["--device", "cpu"])
+    assert str(port_exit.value) == str(jax_exit.value) != ""
 
 
 @pytest.mark.parametrize("case", ["health"])
 def test_unported_branches_raise_naming_item_22(case):
+    """health= takes a health.HealthConfig and nothing else, as the JAX
+    package's does."""
     cfg = ServingConfig(device="cpu", dtype=torch.float64)
     make = {
         "health": lambda: ScoringService(model=model(), config=cfg, health={}),
     }[case]
-    with pytest.raises(NotImplementedError, match="item 22"):
+    with pytest.raises(TypeError, match="health.HealthConfig"):
         make()
 
 
