@@ -326,9 +326,33 @@ Phases, one JSON object per line on stdout:
      replicas and a front: /score bit for bit with the unsharded scorer,
      /fleet/audit?shard=K the shard's own.  The kernels of the kernels
      line launch only in the two refit parts, and nothing is built;
- 32. the kernels line (launches by path, the CLI, inexact, streamed,
-     sweep and diagnostics paths included), nvidia-smi's line, and the
-     final result line.
+ 32. mesh (after cli_stream, on cli_game's npz files; one card, so the
+     multi-rank parts are gloo groups whose ranks all sit on cuda:0 and
+     check correctness and counts, not NCCL or NVLink speed):
+     mesh_nccl1, config 4 through GameEstimator(mesh=) on a world-size-1
+     NCCL group, its history glmix's bit for bit and its fused launches
+     its FE passes; four rank processes (mesh_rank) run
+     mesh_config4_2x1 (config 4 on 2 x 1: within 1e-4 of the reference,
+     each rank's launches = its FE passes, the ranks' tables and
+     histories bit-equal, the warm outer iteration's visits staging no
+     cold bytes and warm bytes within coefficients + offsets x 1.5, the
+     kernel against its plain version at a rank's block), mesh_factored
+     (bench.py mesh_bench's factored leg on 2 x 1, within 1e-4 of the
+     fit without a mesh), mesh_sparse (config 7's generator at 100,000
+     rows on 2 x 1: kernels A and B per shard, launches = passes), and
+     mesh_admm (bench.py's admm_parity in float64 on 1 x 2 and 2 x 2:
+     within 1e-6 of the monolithic solve, one [n_local] feature-axis and
+     one [d_F] data-axis all_reduce an iteration); meanwhile
+     mesh_multihost runs cli.train children: a --coordinator pair and
+     --mesh 2x1 (models and histories bit for bit, each rank's launches
+     = its passes), then a pair whose rank 1 is SIGKILLed after process
+     0's first checkpoint (rank 0 exits 75 with its JSON line within the
+     watchdog's timeout) and two one-process relaunches from copies of
+     that record (equal bit for bit); prints per-rank walls, launches,
+     collectives by axis and staged cold and warm bytes;
+ 33. the kernels line (launches by path, the CLI, inexact, streamed,
+     sweep, diagnostics and mesh paths included), nvidia-smi's line, and
+     the final result line.
 Exits non-zero, before printing any result, when CUDA is absent or when
 the port's package is not beside this script.
 """
@@ -1370,9 +1394,10 @@ def time_sparse(sk, loss, x, y, o=None, reps=SPARSE_REPS) -> dict:
     return out
 
 
-def yahoo_setup():
+def yahoo_setup(rows=None):
     """Config 7's (train, validation, config) as bench.py's _yahoo_setup
-    builds them for its float32 run (salt 0)."""
+    builds them for its float32 run (salt 0), at `rows` rows (None:
+    YAHOO_ROWS)."""
     from photon_ml_tpu_torch.data.game_data import build_game_dataset
     from photon_ml_tpu_torch.data.synthetic_bench import make_yahoo_like
     from photon_ml_tpu_torch.game import (
@@ -1382,7 +1407,7 @@ def yahoo_setup():
     from photon_ml_tpu_torch.optim.config import (
         OptimizerConfig, RegularizationContext, RegularizationType,
     )
-    yl = make_yahoo_like(YAHOO_ROWS, seed=YAHOO_SEED)
+    yl = make_yahoo_like(YAHOO_ROWS if rows is None else rows, seed=YAHOO_SEED)
     shards = {"global": yl.x_global.astype(np.float32),
               "per_user": yl.x_user.astype(np.float32),
               "per_item": yl.x_item.astype(np.float32)}
@@ -5884,17 +5909,686 @@ def fleet_phase(hk, sk, kind, smi, sms, device="cuda") -> dict:
             "at_refit_fe_shape": refit["timing"], "seconds": seconds}
 
 
+# --- mesh: multi-rank training on torch.distributed (parallel/mesh.py) -------
+# The card is one H100, so the multi-rank parts run gloo groups whose ranks
+# all sit on cuda:0 (gloo takes co-located CUDA ranks; NCCL cannot): they
+# check correctness and counts, not NCCL or NVLink speed or scaling.
+MESH_RANKS = 4                 # the rank group's processes (gloo, cuda:0)
+MESH_DEVICE = "cuda:0"         # every rank's device
+MESH_CONFIG4_SHAPE = (2, 1)
+# bench.py mesh_bench's factored leg at BENCH_SCALE 1 (bench.py:3071-3074)
+MESH_FACTORED = dict(n=40_000, d_global=32, n_users=4_000, d_user=10, outer=3,
+                     iters=8, seed=17)
+MESH_FACTORED_RTOL = 1e-4      # bench.py's parity gate for the leg
+MESH_SPARSE_ROWS = 100_000     # config 7's generator (yahoo_setup), cut
+MESH_SPARSE_RTOL = 1e-4
+# bench.py _admm_parity_leg at BENCH_SCALE 1 (bench.py:1940-1941): n, d, the
+# ADMM iterations and tolerance, polish off, L2 weight 0.3, float64
+MESH_ADMM = dict(n=4096, d=48, iterations=800, tolerance=1e-10, l2=0.3, seed=7)
+MESH_ADMM_SHAPES = ((1, 2), (2, 2))
+MESH_ADMM_RTOL = 1e-6          # bench.py's gate (penalized objective, relative)
+# a one-rank resume of the pair's record against the pair's final objective
+# (float32; one rank sums in another order than two)
+MESH_RESUME_RTOL = 1e-6
+MESH_HEARTBEAT = {"PHOTON_HEARTBEAT_INTERVAL": "0.2", "PHOTON_HEARTBEAT_TIMEOUT": "3",
+                  "PHOTON_HEARTBEAT_ESCALATE": "5"}
+MESH_RANK_CHILD = (
+    "import sys\n"
+    f"sys.path.insert(0, {str(ROOT)!r})\n"
+    "import chip_smoke\n"
+    "sys.exit(chip_smoke.mesh_rank(*sys.argv[1:]))\n")
+TRAIN_CHILD = _child_script("photon_ml_tpu_torch.cli.train")
+
+
+def mesh_factored_setup():
+    """bench.py's _mesh_config(3, 8, with_mf=True) on _pipeline_dataset:
+    a fixed effect, a per-user random effect (identity projector) and a
+    factored per-user coordinate (latent dimension 2), L2."""
+    from photon_ml_tpu_torch.data.synthetic_bench import pipeline_dataset
+    from photon_ml_tpu_torch.game import (
+        FactoredRandomEffectCoordinateConfig, FixedEffectCoordinateConfig,
+        GameTrainingConfig, GLMOptimizationConfig, RandomEffectCoordinateConfig,
+    )
+    from photon_ml_tpu_torch.optim.config import (
+        OptimizerConfig, RegularizationContext, RegularizationType,
+    )
+    f = MESH_FACTORED
+    train, val = pipeline_dataset(f["n"], f["d_global"], f["n_users"], f["d_user"],
+                                  f["seed"])
+    l2 = RegularizationContext(RegularizationType.L2)
+    opt = lambda w: GLMOptimizationConfig(
+        optimizer=OptimizerConfig(max_iterations=f["iters"]), regularization=l2,
+        regularization_weight=w)
+    cfg = GameTrainingConfig(
+        task_type="logistic_regression",
+        coordinates={"fixed": FixedEffectCoordinateConfig("global", opt(1.0)),
+                     "perUser": RandomEffectCoordinateConfig(
+                         "userId", "per_user", opt(1.0), projector="identity"),
+                     "perUserMF": FactoredRandomEffectCoordinateConfig(
+                         "userId", "per_user", latent_dim=2, num_inner_iterations=1,
+                         optimization=opt(1.0), latent_optimization=opt(0.5))},
+        updating_sequence=["fixed", "perUser", "perUserMF"],
+        num_outer_iterations=f["outer"], seed=f["seed"])
+    return train, val, cfg
+
+
+def admm_problem(loss: str):
+    """bench.py's _admm_problem: Gaussian features with an intercept
+    column, labels from the loss's model."""
+    a = MESH_ADMM
+    rng = np.random.default_rng(a["seed"])
+    x = rng.normal(size=(a["n"], a["d"]))
+    x[:, -1] = 1.0
+    w = rng.normal(size=a["d"]) * 0.5
+    z = x @ w
+    if loss == "logistic":
+        y = (rng.uniform(size=a["n"]) < 1 / (1 + np.exp(-z))).astype(float)
+    else:
+        y = z + 0.1 * rng.normal(size=a["n"])
+    return x, y
+
+
+def table_digests(model) -> dict:
+    """sha256 of every coordinate's coefficient tables (ranks compare these
+    for bit equality)."""
+    import hashlib
+    out = {}
+    for name, m in model.coordinates.items():
+        parts = ((m.glm.coefficients.means,) if hasattr(m, "glm") else
+                 (m.latent_coefficients, m.projection) if hasattr(m, "latent_coefficients")
+                 else (m.coefficients,))
+        h = hashlib.sha256()
+        for t in parts:
+            h.update(t.detach().cpu().numpy().tobytes())
+        out[name] = h.hexdigest()
+    return out
+
+
+def launch_counts() -> dict:
+    from photon_ml_tpu_torch.ops import hopper_kernels as hk, sparse_kernels as sk
+    return {"fused": hk.LAUNCHES, **sk.LAUNCHES}
+
+
+def mesh_fit(rank: int, shape, setup, reference: bool = False) -> dict:
+    """One GameEstimator fit on a `shape` mesh over the group's first ranks
+    (None on the others), and on rank 0 with `reference` the same fit
+    without a mesh: the history, the tables' digests, this rank's kernel
+    launches and FE passes, every visit's staged bytes and bucket shapes,
+    the collectives by axis and the walls."""
+    import torch
+    from photon_ml_tpu_torch.game import GameEstimator
+    from photon_ml_tpu_torch.parallel import make_mesh
+    mesh = make_mesh(*shape, device=MESH_DEVICE, ranks=list(range(shape[0] * shape[1])))
+    if mesh is None:
+        return None
+    t0 = time.perf_counter()
+    train, val, cfg = setup()
+    out = {"rank": rank, "data_s": time.perf_counter() - t0}
+    from photon_ml_tpu_torch.parallel.mesh_residency import default_residency
+    counts0, calls0 = launch_counts(), mesh.stats.snapshot()
+    keys0 = set(default_residency().keys())
+    sync(MESH_DEVICE)
+    t0 = time.perf_counter()
+    res = GameEstimator(cfg, mesh=mesh).fit(train, val, ["AUC"])
+    sync(MESH_DEVICE)
+    out["fit_s"] = time.perf_counter() - t0
+    counts = launch_counts()
+    out.update(
+        history=list(res.objective_history), auc=res.validation.get("AUC"),
+        tables=table_digests(res.model),
+        launches={k: counts[k] - counts0[k] for k in counts},
+        fe_passes=fe_passes(res.descent),
+        staged={k: t.staged_bytes for k, t in res.descent.trackers.items()},
+        buckets={k: [list(b.shape) for b in t.buckets] for k, t in
+                 res.descent.trackers.items() if t.buckets},
+        mesh_transfer=res.mesh_transfer,
+        collectives=mesh.stats.delta(calls0, mesh.stats.snapshot()),
+        n_train=train.num_rows, block=list(mesh.block(train.num_rows)),
+        fe_dim=train.feature_shards["global"].shape[1])
+    if reference and rank == 0:
+        t0 = time.perf_counter()
+        ref = GameEstimator(cfg, device=MESH_DEVICE).fit(train, val, ["AUC"])
+        sync(MESH_DEVICE)
+        out["no_mesh"] = {"history": list(ref.objective_history),
+                          "fit_s": time.perf_counter() - t0}
+    if rank == 0 and MESH_DEVICE.startswith("cuda"):
+        cb = res.model.coordinates["fixed"].glm.coefficients.means.float().contiguous()
+        if isinstance(train.feature_shards["global"], np.ndarray):
+            # the fused kernel at this rank's row block, against its plain version
+            from photon_ml_tpu_torch.ops import hopper_kernels as hk
+            from photon_ml_tpu_torch.ops.losses import LOGISTIC
+            lo, hi, _ = mesh.block(train.num_rows)
+            xb = torch.as_tensor(train.feature_shards["global"][lo:hi],
+                                 dtype=torch.float32, device=MESH_DEVICE)
+            yb = torch.as_tensor(train.response[lo:hi], dtype=torch.float32,
+                                 device=MESH_DEVICE)
+            ok, err, v_rel, g_rel = compare(hk, LOGISTIC, xb, yb, cb, None, None)
+            out["kernel_check"] = {"shape": list(xb.shape), "ok": ok, "max_abs_err": err,
+                                   "value_rel_err": v_rel, "grad_err_over_tol": g_rel}
+        else:
+            fit_keys = set(default_residency().keys()) - keys0
+            out["kernel_check"] = mesh_sparse_check(mesh, train, cb, fit_keys)
+    return out
+
+
+def mesh_sparse_check(mesh, train, c, fit_keys) -> dict:
+    """Kernels A (loss and margins modes) and B (powers 1 and 2) on this
+    rank's staged shard of the sparse fixed effect, as the mesh fit staged
+    it (its own rows and its own column view, the entry the fit added to
+    the mesh residency layer, `fit_keys`: no new transfer), against their
+    plain versions on the
+    same inputs (compare_sparse's tolerances): the rank's labels, padded
+    with 0.5, and weights 0 on padded rows; offsets none, then from a
+    seed."""
+    import torch
+    from photon_ml_tpu_torch.ops import sparse_kernels as sk
+    from photon_ml_tpu_torch.ops.losses import LOGISTIC
+    from photon_ml_tpu_torch.parallel.mesh_residency import default_residency
+    res = default_residency()
+    host_x = train.feature_shards["global"]
+    keys = [k for k in fit_keys if k[0][0] == "fixed" and k[1] == "rows"]
+    if len(keys) != 1:
+        return {"ok": False, "error": f"staged fixed-effect shards {keys}"}
+    cold0 = res.stats.snapshot()["cold_stages"]
+    x = res.stage_static(keys[0][0], "rows", mesh, host_x, dtype=keys[0][3])
+    restaged = res.stats.snapshot()["cold_stages"] - cold0
+    lo, hi, _ = mesh.block(train.num_rows)
+    real = min(hi, train.num_rows) - lo
+    y = torch.full((hi - lo,), 0.5, dtype=torch.float32, device=MESH_DEVICE)
+    y[:real] = torch.as_tensor(train.response[lo:lo + real], dtype=torch.float32)
+    w = (torch.arange(hi - lo, device=MESH_DEVICE) < real).float()
+    g = torch.Generator(device="cuda").manual_seed(23)
+    o = 0.1 * torch.randn(hi - lo, generator=g, device=MESH_DEVICE)
+    out = {"shape": [int(v) for v in x.shape], "k": int(x.indices.shape[1]),
+           "rows": [lo, hi], "padded_rows": hi - lo - real, "has_csc": bool(x.has_csc),
+           "nnz_csc": int(x.csc_row.numel()) if x.has_csc else 0, "restaged": restaged}
+    if not (x.has_csc and restaged == 0):
+        return {**out, "ok": False, "error": "the staged shard has no column view "
+                                             "or was not the fit's"}
+    checks = {tag: compare_sparse(sk, LOGISTIC, x, y, c, w, oo)
+              for tag, oo in (("w", None), ("w+o", o))}
+    return {**out, **{tag: r for tag, r in checks.items()},
+            "a_max_abs_err": max(r["a_max_abs_err"] for r in checks.values()),
+            "b_max_abs_err": max(r["b_max_abs_err"] for r in checks.values()),
+            "ok": all(r["ok"] for r in checks.values())}
+
+
+def mesh_admm(rank: int) -> dict:
+    """bench.py's admm_parity on each of MESH_ADMM_SHAPES, in float64 on
+    the card: the consensus solve (polish off) per loss; rank 0 adds the
+    monolithic LBFGS solve (float64, on the host) and both penalized
+    objectives."""
+    import torch
+    from photon_ml_tpu_torch.ops.losses import LOGISTIC, SQUARED
+    from photon_ml_tpu_torch.ops.objective import GLMObjective
+    from photon_ml_tpu_torch.optim.admm import ADMMConfig
+    from photon_ml_tpu_torch.optim.config import (
+        OptimizerConfig, RegularizationContext, RegularizationType, solve,
+    )
+    from photon_ml_tpu_torch.parallel import make_mesh
+    from photon_ml_tpu_torch.parallel.fixed_effect import fit_fixed_effect_admm
+    a = MESH_ADMM
+    l2 = RegularizationContext(RegularizationType.L2)
+    out = {}
+    for loss_name, loss, task in (("logistic", LOGISTIC, "logistic_regression"),
+                                  ("squared", SQUARED, "linear_regression")):
+        x, y = admm_problem(loss_name)
+        mono = None
+        if rank == 0:
+            f64 = lambda v: torch.as_tensor(v, dtype=torch.float64)
+            mono = solve(GLMObjective(loss, f64(x), f64(y)), torch.zeros(a["d"], dtype=torch.float64),
+                         OptimizerConfig(max_iterations=500, tolerance=1e-12), l2, a["l2"])
+            mono = host_objective(x, y, mono.x.numpy(), a["l2"], task)
+        for shape in MESH_ADMM_SHAPES:
+            mesh = make_mesh(*shape, device=MESH_DEVICE, ranks=list(range(shape[0] * shape[1])))
+            if mesh is None:
+                continue
+            calls0 = mesh.stats.snapshot()
+            sync(MESH_DEVICE)
+            t0 = time.perf_counter()
+            res = fit_fixed_effect_admm(
+                GLMObjective(loss, x, torch.as_tensor(y, dtype=torch.float64,
+                                                      device=MESH_DEVICE)),
+                torch.zeros(a["d"], dtype=torch.float64, device=MESH_DEVICE), mesh,
+                ADMMConfig(max_iterations=a["iterations"], tolerance=a["tolerance"],
+                           polish=False),
+                reg=l2, reg_weight=a["l2"], residency_key=("chip-admm", loss_name, shape))
+            sync(MESH_DEVICE)
+            lo, hi, _ = mesh.block(a["n"])
+            entry = {"iterations": res.iterations, "solve_s": time.perf_counter() - t0,
+                     "collectives": mesh.stats.delta(calls0, mesh.stats.snapshot()),
+                     "n_local": hi - lo, "block_width": -(-a["d"] // shape[1]),
+                     "x_digest": table_digests_of(res.x)}
+            if mono is not None:
+                value = host_objective(x, y, res.x.double().cpu().numpy(), a["l2"], task)
+                entry.update(objective=value, monolithic=mono,
+                             rel_gap=abs(value - mono) / abs(mono))
+            out[f"{loss_name}_{shape[0]}x{shape[1]}"] = entry
+    return out
+
+
+def table_digests_of(t) -> str:
+    import hashlib
+    return hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()
+
+
+def mesh_rank(rank, world, port, out_path) -> int:
+    """One rank of the mesh phase's gloo group on cuda:0: config 4 on 2x1,
+    the factored leg and the sparse fixed effect on 2x1, the ADMM legs on
+    1x2 and 2x2; its results to `out_path` as JSON."""
+    rank, world = int(rank), int(world)
+    from photon_ml_tpu_torch.parallel import multihost
+    multihost.initialize(f"127.0.0.1:{port}", world, rank, backend="gloo",
+                         device=MESH_DEVICE, timeout_s=600)
+    out = {"rank": rank, "world": world}
+    try:
+        t0 = time.perf_counter()
+        out["config4"] = mesh_fit(rank, MESH_CONFIG4_SHAPE, glmix_setup)
+        out["factored"] = mesh_fit(rank, (2, 1), mesh_factored_setup, reference=True)
+        out["sparse"] = mesh_fit(rank, (2, 1), lambda: yahoo_setup(MESH_SPARSE_ROWS),
+                                 reference=True)
+        out["admm"] = mesh_admm(rank)
+        out["wall_s"] = time.perf_counter() - t0
+    finally:
+        multihost.shutdown()
+    Path(out_path).write_text(json.dumps(out))
+    return 0
+
+
+def mesh_nccl1_part(glmix_history, kind, smi) -> dict:
+    """Config 4 through GameEstimator(mesh=...) on a world-size-1 NCCL
+    group: its history must be the un-meshed glmix fit's bit for bit, and
+    the fused kernel's launches its FE passes.  The group's first
+    collective (NCCL starts its communicator there) is timed before the
+    fit, and the same fit without a mesh follows on the same data, alone
+    on the card, so the two walls and their spans compare (the 1 x 1
+    mesh's cost over one device)."""
+    import torch
+    from photon_ml_tpu_torch.game import GameEstimator
+    from photon_ml_tpu_torch.ops import hopper_kernels as hk
+    from photon_ml_tpu_torch.parallel import make_mesh, multihost
+    train, val, cfg = glmix_setup()
+    t0 = time.perf_counter()
+    backend = "nccl" if MESH_DEVICE.startswith("cuda") else "gloo"
+    multihost.initialize(f"127.0.0.1:{multihost.free_port()}", 1, 0, backend=backend,
+                         device=MESH_DEVICE, timeout_s=300)
+    try:
+        mesh = make_mesh(1, 1, device=MESH_DEVICE)
+        init_s = time.perf_counter() - t0
+        # NCCL starts its communicator at the first collective: timed apart
+        t0 = time.perf_counter()
+        mesh.all_reduce(torch.zeros(1, device=MESH_DEVICE), "data")
+        sync(MESH_DEVICE)
+        first_collective_s = time.perf_counter() - t0
+        calls0 = mesh.stats.snapshot()
+        hk.LAUNCHES = 0
+        t0 = time.perf_counter()
+        res = GameEstimator(cfg, mesh=mesh).fit(train, val, ["AUC"])
+        sync(MESH_DEVICE)
+        fit_s = time.perf_counter() - t0
+        launches = hk.LAUNCHES
+        calls = mesh.stats.delta(calls0, mesh.stats.snapshot())
+    finally:
+        multihost.shutdown()
+    t0 = time.perf_counter()
+    ref = GameEstimator(cfg, device=MESH_DEVICE).fit(train, val, ["AUC"])
+    sync(MESH_DEVICE)
+    no_mesh_s = time.perf_counter() - t0
+    part = {"phase": "mesh_nccl1", "backend": mesh.backend, "mesh": mesh.shape,
+            "entry": "photon_ml_tpu_torch.game.GameEstimator(mesh=...).fit",
+            "init_s": init_s, "first_collective_s": first_collective_s,
+            "fit_s": fit_s, "no_mesh_fit_s": no_mesh_s,
+            "fit_over_no_mesh": fit_s / no_mesh_s,
+            "spans_s": dict(res.descent.timings),
+            "no_mesh_spans_s": dict(ref.descent.timings),
+            "no_mesh_history_equal": ref.objective_history == res.objective_history,
+            "history": res.objective_history,
+            "bit_equal_to_glmix": res.objective_history == glmix_history,
+            "kernel_launches": launches, "fe_passes": fe_passes(res.descent),
+            "collectives": calls, "mesh_transfer": res.mesh_transfer,
+            "auc": res.validation.get("AUC"), "device": kind, "nvidia_smi": smi}
+    emit(part)
+    if not part["bit_equal_to_glmix"]:
+        raise SystemExit(f"mesh_nccl1: history {res.objective_history} is not glmix's "
+                         f"{glmix_history} bit for bit")
+    if not (launches == part["fe_passes"] and launches > 0):
+        raise SystemExit(f"mesh_nccl1: {launches} launches for {part['fe_passes']} FE passes")
+    return part
+
+
+def _warm_bound(rec: dict, name: str, itemsize: int = 4) -> int:
+    """bench.py's _warm_operand_bound for one rank's warm visit of `name`
+    (float32): the offsets and coefficients of its blocks, 50 % slack."""
+    shapes = rec["buckets"].get(f"1/{name}")
+    if shapes:   # a random effect: this rank's lanes of each bucket
+        cells = sum(e * (s + d) for e, s, d in shapes)
+    else:        # a fixed effect: this rank's rows and the coefficients
+        lo, hi, _ = rec["block"]
+        cells = (hi - lo) + rec["fe_dim"]
+    return int(cells * itemsize * 1.5)
+
+
+def mesh_config4_check(recs, glmix_ref, kind, smi) -> dict:
+    """mesh_config4_2x1's gates over the two ranks' records."""
+    r0, r1 = recs
+    rel = (r0["history"][-1] - glmix_ref) / abs(glmix_ref)
+    warm = {}
+    for rec in recs:
+        for name in ("fixed", "perUser"):
+            sb = rec["staged"][f"1/{name}"]
+            warm[f"rank{rec['rank']}/{name}"] = {**sb, "bound": _warm_bound(rec, name)}
+    part = {"phase": "mesh_config4_2x1", "backend": "gloo", "ranks_on": "cuda:0",
+            "config": "BASELINE config 4 (bench.py bench_config4)",
+            "final_objective": r0["history"][-1], "ref_nll": glmix_ref, "nll_rel_gap": rel,
+            "history": r0["history"],
+            "ranks_bit_equal": (r0["history"] == r1["history"] and r0["tables"] == r1["tables"]),
+            "per_rank": [{k: rec[k] for k in ("rank", "data_s", "fit_s", "launches", "fe_passes",
+                                              "collectives", "mesh_transfer", "block")}
+                         for rec in recs],
+            "warm_visits": warm, "kernel_check": r0.get("kernel_check"), "auc": r0["auc"],
+            "device": kind, "nvidia_smi": smi}
+    emit(part)
+    if not abs(rel) <= GLMIX_RTOL:
+        raise SystemExit(f"mesh_config4_2x1: objective {r0['history'][-1]} is {rel:.3e} "
+                         f"from {glmix_ref}")
+    for rec in recs:
+        if not (rec["launches"]["fused"] == rec["fe_passes"] > 0):
+            raise SystemExit(f"mesh_config4_2x1: rank {rec['rank']} launched the kernel "
+                             f"{rec['launches']['fused']} times for {rec['fe_passes']} passes")
+    if not part["ranks_bit_equal"]:
+        raise SystemExit("mesh_config4_2x1: the ranks' histories or tables differ")
+    for key, w in warm.items():
+        if not (w["cold"] == 0 and 0 < w["warm"] <= w["bound"]):
+            raise SystemExit(f"mesh_config4_2x1: warm visit {key} staged {w}")
+    if MESH_DEVICE.startswith("cuda") and not (part["kernel_check"] or {}).get("ok"):
+        raise SystemExit(f"mesh_config4_2x1: the kernel disagrees with its plain version "
+                         f"at the rank's block: {part['kernel_check']}")
+    return part
+
+
+def mesh_leg_check(name, recs, rtol, kind, smi, sparse=False) -> dict:
+    """A 2x1 leg's gates: its history within `rtol` of the same fit without
+    a mesh (rank 0), the ranks bit-equal, each rank's fixed-effect kernel
+    launches equal to its passes (kernels A and B for a sparse shard), and
+    rank 0's fixed-effect kernels against their plain versions at its
+    shard (the fused kernel; A and B on the staged sparse shard)."""
+    r0, r1 = recs
+    ref = r0["no_mesh"]["history"]
+    gap = max(abs(a - b) / abs(b) for a, b in zip(r0["history"], ref))
+    part = {"phase": f"mesh_{name}", "backend": "gloo", "mesh": {"data": 2, "feature": 1},
+            "history": r0["history"], "no_mesh_history": ref,
+            "max_rel_gap": gap, "gate": rtol,
+            "ranks_bit_equal": (r0["history"] == r1["history"] and r0["tables"] == r1["tables"]),
+            "no_mesh_fit_s": r0["no_mesh"]["fit_s"],
+            "per_rank": [{k: rec[k] for k in ("rank", "data_s", "fit_s", "launches", "fe_passes",
+                                              "collectives", "mesh_transfer", "block")}
+                         for rec in recs],
+            "kernel_check": r0.get("kernel_check"), "device": kind, "nvidia_smi": smi}
+    emit(part)
+    if MESH_DEVICE.startswith("cuda") and not (part["kernel_check"] or {}).get("ok"):
+        raise SystemExit(f"mesh_{name}: a kernel disagrees with its plain version at "
+                         f"rank 0's shard: {part['kernel_check']}")
+    if not (len(ref) == len(r0["history"]) and gap <= rtol):
+        raise SystemExit(f"mesh_{name}: history {gap:.3e} from the fit without a mesh")
+    if not part["ranks_bit_equal"]:
+        raise SystemExit(f"mesh_{name}: the ranks' histories or tables differ")
+    for rec in recs:
+        n = rec["launches"]
+        if sparse:
+            # A (loss mode) and B once per pass (A's margins mode rescores)
+            ok = (n["margin_loss"] == rec["fe_passes"] == n["column_sum"] > 0
+                  and n["fused"] == 0)
+        else:
+            ok = n["fused"] == rec["fe_passes"] > 0
+        if not ok:
+            raise SystemExit(f"mesh_{name}: rank {rec['rank']} launches {n} for "
+                             f"{rec['fe_passes']} FE passes")
+    return part
+
+
+def mesh_admm_check(recs, kind, smi) -> dict:
+    """The ADMM legs' gates: within 1e-6 of the monolithic solve, exactly one
+    [n_local] feature-axis and one [d_F] data-axis all_reduce per
+    iteration, the ranks' solutions bit-equal."""
+    r0 = recs[0]["admm"]
+    part = {"phase": "mesh_admm", "backend": "gloo", "dtype": "float64", **{
+        k: v for k, v in MESH_ADMM.items()}, "legs": r0, "device": kind, "nvidia_smi": smi}
+    emit(part)
+    for name, e in r0.items():
+        shape = tuple(int(v) for v in name.split("_")[1].split("x"))
+        k, c = e["iterations"], e["collectives"]
+        if not e["rel_gap"] <= MESH_ADMM_RTOL:
+            raise SystemExit(f"mesh_admm {name}: {e['rel_gap']:.3e} from the monolithic solve")
+        per_iter_ok = (c["all_reduce.data.calls"] == k + 1
+                       and c["all_reduce.data.elements"] == k * e["block_width"]
+                       + e["block_width"] ** 2
+                       and c["all_reduce.feature.calls"] == k + 2
+                       and c["all_reduce.feature.elements"] == (k + 1) * e["n_local"]
+                       + shape[1] * e["block_width"])
+        if not per_iter_ok:
+            raise SystemExit(f"mesh_admm {name}: collectives {c} for {k} iterations")
+        ranks = shape[0] * shape[1]
+        if any(rec["admm"][name]["x_digest"] != e["x_digest"] for rec in recs[:ranks]):
+            raise SystemExit(f"mesh_admm {name}: the ranks' solutions differ")
+    return part
+
+
+def _train_child(d: Path, name: str, argv, counts: bool = True):
+    """cli.train as a child (through TRAIN_CHILD, which writes its kernel
+    launch counts at exit), stdout and stderr to files under d/name."""
+    out = d / name
+    out.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="2", **MESH_HEARTBEAT)
+    for k in ("PHOTON_FAULT_PLAN", "PHOTON_COORDINATOR", "PHOTON_NUM_PROCESSES",
+              "PHOTON_PROCESS_ID"):
+        env.pop(k, None)
+    env[CHILD_COUNTS_ENV] = str(out / "counts.json")
+    cmd = ([sys.executable, "-c", TRAIN_CHILD] if counts
+           else [sys.executable, "-m", "photon_ml_tpu_torch.cli.train"])
+    with open(out / "stdout", "w") as so, open(out / "stderr", "w") as se:
+        return subprocess.Popen(cmd + [str(a) for a in argv], cwd=ROOT, env=env,
+                                stdout=so, stderr=se)
+
+
+def _child_line(path: Path):
+    lines = [ln for ln in path.read_text().splitlines() if ln.strip().startswith("{")]
+    return json.loads(lines[-1]) if lines else None
+
+
+def _model_bytes(best: Path) -> dict:
+    return {str(p.relative_to(best)): p.read_bytes() for p in sorted(best.rglob("*"))
+            if p.is_file() and p.name != "model-metadata.json"}
+
+
+def _coordinator_pair(d: Path, name: str, common) -> list:
+    """Two cli.train ranks of one run (gloo) writing d/name."""
+    port = _free_port()
+    return [_train_child(d, f"{name}{pid}", common + [
+        "--output-dir", d / name, "--checkpoint-dir", d / name / "ckpt",
+        "--coordinator", f"127.0.0.1:{port}", "--num-processes", "2",
+        "--process-id", pid, "--dist-backend", "gloo"]) for pid in (0, 1)]
+
+
+def _kill_after_first_record(kill, state: Path, out: dict) -> None:
+    """SIGKILL rank 1 of `kill` once process 0 has sealed its first
+    checkpoint record (`state` exists), then wait for process 0: the
+    seconds from the kill to its exit in out["survivor_s"]."""
+    deadline = time.time() + 600
+    while not state.exists() and time.time() < deadline and kill[0].poll() is None:
+        time.sleep(0.05)
+    kill[1].send_signal(signal.SIGKILL)
+    t_kill = time.perf_counter()
+    try:
+        kill[0].wait(timeout=300)
+    finally:
+        out["survivor_s"] = time.perf_counter() - t_kill
+
+
+def mesh_multihost_start(d: Path) -> dict:
+    """Start, together, the coordinator pair, the --mesh 2x1 spawn and the
+    pair whose rank 1 is killed after process 0's first record (a thread
+    watches for it), on cli_game's config-4 npz files."""
+    import threading
+    src = CLI_ROOT / "cli_game"
+    common = ["--train-data", src / "train.npz", "--validation-data", src / "val.npz",
+              "--config", src / "config.json", "--evaluators", "AUC",
+              "--device", MESH_DEVICE.split(":")[0]]
+    started = {"common": common, "pair": _coordinator_pair(d, "pair", common),
+               "spawn": _train_child(d, "spawn", common + [
+                   "--output-dir", d / "spawn", "--checkpoint-dir", d / "spawn" / "ckpt",
+                   "--mesh", "2x1", "--dist-backend", "gloo"], counts=False),
+               "kill": _coordinator_pair(d, "kill", common), "t0": time.perf_counter()}
+    started["killer"] = threading.Thread(
+        target=_kill_after_first_record,
+        args=(started["kill"], d / "kill" / "ckpt" / "state.json", started), daemon=True)
+    started["killer"].start()
+    return started
+
+
+def mesh_multihost_finish(d: Path, started: dict, kind, smi) -> dict:
+    """The pair against the spawn bit for bit; then a pair whose rank 1 is
+    SIGKILLed after process 0's first checkpoint: rank 0 exits 75 with its
+    JSON line within the watchdog's timeout, and two relaunches from copies
+    of that record end as the uninterrupted pair ended: a one-process
+    relaunch with its final objective within MESH_RESUME_RTOL (one rank
+    sums in another order than two), a `--mesh 2x1` relaunch (the pair's
+    mesh) with the pair's history and model bit for bit."""
+    import shutil
+    common = started["common"]
+    codes = [p.wait(timeout=900) for p in started["pair"]] + [started["spawn"].wait(timeout=900)]
+    pair_s = time.perf_counter() - started["t0"]
+    lines = [_child_line(d / n / "stdout") for n in ("pair0", "pair1", "spawn")]
+    counts = [json.loads((d / f"pair{p}" / "counts.json").read_text()) for p in (0, 1)]
+    if codes != [0, 0, 0] or None in lines:
+        raise SystemExit(f"mesh_multihost: exit codes {codes} (pair0, pair1, spawn)")
+    pair_state = json.loads((d / "pair" / "ckpt" / "state.json").read_text())
+    spawn_state = json.loads((d / "spawn" / "ckpt" / "state.json").read_text())
+    same = (pair_state["objective_history"] == spawn_state["objective_history"]
+            and _model_bytes(d / "pair" / "best") == _model_bytes(d / "spawn" / "best"))
+    passes = [ln["solver_diagnostics"]["fixed"]["value_gradient_passes"] for ln in lines[:2]]
+    kill = started["kill"]
+    started["killer"].join(timeout=900)
+    survivor = kill[0].wait(timeout=300)
+    survivor_s = started["survivor_s"]
+    kill[1].wait()
+    survivor_line = _child_line(d / "kill0" / "stdout")
+    shutil.copytree(d / "kill", d / "kill_copy")
+    relaunch = [_train_child(d, name, common + ["--output-dir", d / out,
+                                                "--checkpoint-dir", d / out / "ckpt", *extra],
+                             counts=not extra)
+                for name, out, extra in (
+                    ("resume", "kill", []),
+                    ("resume_mesh", "kill_copy", ["--mesh", "2x1", "--dist-backend", "gloo"]))]
+    relaunch_codes = [p.wait(timeout=900) for p in relaunch]
+    resumed = [_child_line(d / n / "stdout") for n in ("resume", "resume_mesh")]
+    part = {"phase": "mesh_multihost", "backend": "gloo", "ranks_on": "cuda:0",
+            "config": "BASELINE config 4 from cli_game's npz files",
+            "pair_and_spawn_s": pair_s, "codes": codes,
+            "pair_equals_spawn_bit_for_bit": same,
+            "history": pair_state["objective_history"],
+            "per_rank": [{"process": p, "fit_s": ln["fit_s"], "wall_s": ln["wall_s"],
+                          "launches": c["launches"]["fused"], "fe_passes": n,
+                          "mesh_transfer": ln["mesh_transfer"]}
+                         for p, (ln, c, n) in enumerate(zip(lines, counts, passes))],
+            "survivor_code": survivor, "survivor_line": survivor_line,
+            "survivor_exit_s_after_kill": survivor_s,
+            "watchdog_timeout_s": float(MESH_HEARTBEAT["PHOTON_HEARTBEAT_TIMEOUT"]),
+            "relaunch_codes": relaunch_codes,
+            "resumed_from_iteration": [((r or {}).get("checkpoint_recovery") or {})
+                                       .get("resumed_from_iteration") for r in resumed],
+            "device": kind, "nvidia_smi": smi}
+    if relaunch_codes == [0, 0] and None not in resumed:
+        final = pair_state["objective_history"][-1]
+        part["resumed_final_rel_gap_to_pair"] = (
+            abs(resumed[0]["final_objective"] - final) / abs(final))
+        part["resumed_on_mesh_equals_pair_bit_for_bit"] = (
+            json.loads((d / "kill_copy" / "ckpt" / "state.json").read_text())
+            ["objective_history"] == pair_state["objective_history"]
+            and _model_bytes(d / "kill_copy" / "best") == _model_bytes(d / "pair" / "best"))
+    part["resume_gate"] = MESH_RESUME_RTOL
+    emit(part)
+    if not same:
+        raise SystemExit("mesh_multihost: the coordinator pair and --mesh 2x1 differ")
+    for p, (c, n) in enumerate(zip(counts, passes)):
+        if not c["launches"]["fused"] == n > 0:
+            raise SystemExit(f"mesh_multihost: process {p} launched {c['launches']} "
+                             f"for {n} FE passes")
+    if not (survivor == 75 and (survivor_line or {}).get("exit_status") == 75
+            and survivor_s <= part["watchdog_timeout_s"] + 15):
+        raise SystemExit(f"mesh_multihost: the survivor exited {survivor} after "
+                         f"{survivor_s:.1f} s with {survivor_line}")
+    if not (relaunch_codes == [0, 0] and None not in part["resumed_from_iteration"]
+            and part["resumed_final_rel_gap_to_pair"] <= MESH_RESUME_RTOL
+            and part["resumed_on_mesh_equals_pair_bit_for_bit"]):
+        raise SystemExit(
+            f"mesh_multihost: the relaunches {relaunch_codes} resumed from "
+            f"{part['resumed_from_iteration']}: one rank "
+            f"{part.get('resumed_final_rel_gap_to_pair')} from the pair, on the mesh "
+            f"bit-equal {part.get('resumed_on_mesh_equals_pair_bit_for_bit')}")
+    part["launches"] = sum(c["launches"]["fused"] for c in counts)
+    return part
+
+
+def mesh_phase(glmix_history, glmix_ref, kind, smi) -> dict:
+    """The mesh phase: mesh_nccl1 in this process, alone on the card; then
+    the rank group (config 4 on 2x1, the factored and sparse legs, ADMM)
+    and the cli.train children (the coordinator pair, the --mesh 2x1
+    spawn, the kill and the resumes) start together.  -> the launches by
+    part."""
+    d = cli_dir("mesh")
+    # alone on the card first: its wall is compared with the fit without a mesh
+    nccl1 = mesh_nccl1_part(glmix_history, kind, smi)
+    port = _free_port()
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="2")
+    ranks = []
+    for r in range(MESH_RANKS):
+        with open(d / f"rank{r}.err", "w") as err:
+            ranks.append(subprocess.Popen(
+                [sys.executable, "-c", MESH_RANK_CHILD, str(r), str(MESH_RANKS), str(port),
+                 str(d / f"rank{r}.json")], cwd=ROOT, env=env,
+                stdout=subprocess.DEVNULL, stderr=err))
+    mh = mesh_multihost_start(d)
+    try:
+        codes = [p.wait(timeout=1200) for p in ranks]
+        if codes != [0] * MESH_RANKS:
+            tails = {r: (d / f"rank{r}.err").read_text()[-1500:] for r in range(MESH_RANKS)}
+            raise SystemExit(f"mesh: rank exit codes {codes}: {tails}")
+        recs = [json.loads((d / f"rank{r}.json").read_text()) for r in range(MESH_RANKS)]
+        c4 = mesh_config4_check([recs[0]["config4"], recs[1]["config4"]], glmix_ref,
+                                kind, smi)
+        fac = mesh_leg_check("factored", [recs[0]["factored"], recs[1]["factored"]],
+                             MESH_FACTORED_RTOL, kind, smi)
+        spa = mesh_leg_check("sparse", [recs[0]["sparse"], recs[1]["sparse"]],
+                             MESH_SPARSE_RTOL, kind, smi, sparse=True)
+        mesh_admm_check(recs, kind, smi)
+        multi = mesh_multihost_finish(d, mh, kind, smi)
+    finally:
+        for p in ranks + mh["pair"] + [mh["spawn"]] + mh["kill"]:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    per_rank = lambda part, key: sum(r["launches"][key] for r in part["per_rank"])
+    return {"fused": {"mesh_nccl1": nccl1["kernel_launches"],
+                      "mesh_config4_2x1": per_rank(c4, "fused"),
+                      "mesh_factored": per_rank(fac, "fused"),
+                      "mesh_multihost": multi["launches"]},
+            "margin_loss": per_rank(spa, "margin_loss"), "margins": per_rank(spa, "margins"),
+            "column_sum": per_rank(spa, "column_sum"),
+            "sq_column_sum": per_rank(spa, "sq_column_sum")}
+
+
 def sparse_kernel_entry(name: str, part: str, c6: dict, c7: dict,
-                        cli_avro: dict) -> dict:
+                        cli_avro: dict, mesh: dict) -> dict:
     """The kernels line's entry of sparse kernel A ("a") or B ("b"): its
-    launches on the config 6, config 7 and Avro CLI paths (A: loss and
-    margins modes; B: powers 1 and 2) and its numbers at config 6's shape,
-    then config 7's."""
+    launches on the config 6, config 7, Avro CLI and mesh (both ranks of
+    the sparse leg) paths (A: loss and margins modes; B: powers 1 and 2)
+    and its numbers at config 6's shape, then config 7's."""
     keys = {"a": ("margin_loss", "margins"), "b": ("column_sum", "sq_column_sum")}[part]
     by_path = {path: sum(launches[k] for k in keys)
                for path, launches in (("config6", c6["launches"]),
                                       ("yahoo_glmix", c7["launches"]),
-                                      ("cli_avro", cli_avro))}
+                                      ("cli_avro", cli_avro),
+                                      ("mesh_sparse", mesh))}
     t6, t7 = c6["timing"][part], c7["timing"][part]
     pick = lambda t: {k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                         "share_of_bound", "ms_over_library",
@@ -6319,6 +7013,10 @@ def main() -> int:
     t0 = time.perf_counter()
     cli_stream_phase(kind, smi, stream)
     emit({"phase": "cli_stream_done", "seconds": time.perf_counter() - t0})
+    # --- mesh: multi-rank training (one card: gloo ranks on cuda:0) ---------
+    t0 = time.perf_counter()
+    mesh = mesh_phase(g_result.objective_history, glmix_ref, kind, smi)
+    emit({"phase": "mesh_done", "seconds": time.perf_counter() - t0})
     stream_launches = {"stream_glm_strict": stream_glm["strict"],
                        "stream_glm_polish": stream_glm["polish"]}
     for name, e in stream.items():
@@ -6337,7 +7035,8 @@ def main() -> int:
                      + cli_telemetry["launches"] + cli_tuning
                      + cli_diagnose["fitting"]
                      + sum(inexact["launches"].values()) + sum(stream_launches.values())
-                     + sum(fleet["launches_in_refit"].values())),
+                     + sum(fleet["launches_in_refit"].values())
+                     + sum(mesh["fused"].values())),
         "launches_by_path": {"train_glm": launches, "glmix": g_launches,
                              "config2": c2_launches, "config3": c3["kernel_launches"],
                              "glmix_tron": t_launches,
@@ -6351,7 +7050,8 @@ def main() -> int:
                              "fitting": cli_diagnose["fitting"],
                              "inexact_strict": inexact["launches"]["strict"],
                              "inexact_scheduled": inexact["launches"]["scheduled"],
-                             **fleet["launches_in_refit"], **stream_launches},
+                             **fleet["launches_in_refit"], **stream_launches,
+                             **mesh["fused"]},
         "launches_in_refit": fleet["launches_in_refit"],
         "max_abs_err": max_abs_err,
         "tolerance": (f"value rtol {VALUE_RTOL}, gradient rtol {GRAD_RTOL} atol {GRAD_ATOL} "
@@ -6390,7 +7090,7 @@ def main() -> int:
             "ms_over_library", "shape", "inputs", "max_abs_err")}
         | {"launches_per_streamed_pass": stream_glm["chunks"]},
         "local_epochs_per_chunk": stream_glm["local_epochs"],
-    }] + [sparse_kernel_entry(name, part, c6, c7, cli_avro) for name, part in (
+    }] + [sparse_kernel_entry(name, part, c6, c7, cli_avro, mesh) for name, part in (
         ("ell_margin_loss", "a"), ("csc_column_sum", "b"))] + [lanes_kernel_entry(
             lanes_timing, sweep_counts["lanes"], cli_diagnose["bootstrap"])],
         "seconds": time.perf_counter() - t_start})

@@ -46,8 +46,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "the npz output format carries them, so combining "
                         "with --format avro is an error")
     p.add_argument("--mesh", default="auto",
-                   help="'auto' or 'none' = one device; 'DxF' meshes are "
-                        "not ported yet (ROADMAP.md queue A item 20)")
+                   help="accepted for the JAX command line's sake ('auto', "
+                        "'none' or 'DxF'): scores do not depend on the mesh, "
+                        "and the port scores in one process on one device")
     p.add_argument("--no-compile-cache", action="store_true",
                    help="accepted for the JAX CLI's sake: the port has no "
                         "compile cache")
@@ -138,12 +139,12 @@ def main(argv=None) -> int:
                      "--format npz")
 
     import torch
-    from photon_ml_tpu_torch.cli.train import check_mesh_arg, resolve_cli_device
+    from photon_ml_tpu_torch.cli.train import parse_mesh_arg, resolve_cli_device
     from photon_ml_tpu_torch.evaluation.evaluators import parse_evaluator
     from photon_ml_tpu_torch.models.io import load_game_model
 
     device = resolve_cli_device(args.device)
-    check_mesh_arg(args.mesh, device)
+    parse_mesh_arg(args.mesh)
     dtype = torch.float64 if args.x64 else torch.float32
     t0 = time.time()
     model, _config = load_game_model(args.model_dir, device=device, dtype=dtype)

@@ -1,5 +1,6 @@
 """Training CLI (port of photon_ml_tpu/cli/train.py): one entry point for the
-legacy single-GLM pipeline and the GAME path, on one CUDA device.
+legacy single-GLM pipeline and the GAME path, on one CUDA device or a mesh
+of them.
 
   python -m photon_ml_tpu_torch.cli.train \
       --train-data data.npz|data.libsvm|data.avro --task logistic_regression \
@@ -24,9 +25,17 @@ candidate a refit over the shared sweep state.  `--trace-out`/`--run-log`
 arm the telemetry span tracer (a Chrome trace and a JSONL run log,
 exported on every exit path), `--event-listener` registers training event
 listeners and `--profile` records a torch.profiler trace of the fit into
-<output-dir>/profile/.  Flags of subsystems the port does not have yet exit
-naming their ROADMAP.md queue A item, and summary keys that belong to them
-are null.
+<output-dir>/profile/.
+
+Multi-GPU training runs one process per rank of a data x feature mesh
+(parallel/mesh.py, torch.distributed): `--mesh DxF` alone starts the D*F
+local ranks itself, one per visible card; `--coordinator HOST:PORT
+--num-processes N --process-id I` (or $PHOTON_COORDINATOR /
+$PHOTON_NUM_PROCESSES / $PHOTON_PROCESS_ID) joins one rank to a run started
+elsewhere.  `--dist-backend nccl|gloo` picks the backend: nccl by default on
+cuda, which needs a card per rank; ranks that share a card must ask for
+gloo.  Every rank arms the lost-worker watchdog; only process 0 writes
+checkpoints and outputs.
 """
 from __future__ import annotations
 
@@ -125,17 +134,27 @@ def build_parser() -> argparse.ArgumentParser:
                         "and without --device cpu the run exits non-zero")
     p.add_argument("--verbose", action="store_true")
     p.add_argument("--mesh", default="auto",
-                   help="'auto' or 'none' = one device; 'DxF' meshes (and "
-                        "'auto' over several cards) are multi-GPU training, "
-                        "not ported yet (ROADMAP.md queue A item 20)")
-    # multi-host runs: not ported yet (item 20); their environment
-    # fallbacks ($PHOTON_COORDINATOR, ...) exit too
+                   help="'DxF' = a data x feature mesh of D*F ranks, one "
+                        "process per rank; without --coordinator this "
+                        "command starts the D*F local ranks itself, one per "
+                        "visible card.  'auto' = every rank of a "
+                        "--coordinator run on the data axis, else one "
+                        "device; 'none' = one device")
+    # multi-process runs (parallel/multihost.py): all three fall back to
+    # $PHOTON_COORDINATOR / $PHOTON_NUM_PROCESSES / $PHOTON_PROCESS_ID
     p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
-                   help="multi-host runs (not ported yet: item 20)")
+                   help="process 0's address; process 0 listens there.  "
+                        "Required when --num-processes > 1")
     p.add_argument("--num-processes", type=int, default=None,
-                   help="multi-host runs (not ported yet: item 20)")
+                   help="ranks in the run, one process each (the JAX "
+                        "package counts hosts here)")
     p.add_argument("--process-id", type=int, default=None,
-                   help="multi-host runs (not ported yet: item 20)")
+                   help="this process's rank in [0, num-processes); rank 0 "
+                        "writes every checkpoint and output")
+    p.add_argument("--dist-backend", default=None, choices=["nccl", "gloo"],
+                   help="torch.distributed backend (default nccl on cuda, "
+                        "gloo on the cpu).  NCCL needs a card per rank; "
+                        "ranks that share a card must ask for gloo")
     p.add_argument("--data-validation", default="full",
                    choices=["full", "sample", "disabled"],
                    help="input sanity-check intensity (reference: "
@@ -238,18 +257,126 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def check_mesh_arg(mesh_arg: str, device) -> None:
-    """The port trains on one device: 'none', or 'auto' with one visible
-    card (or on the CPU), pass; a 'DxF' mesh, or 'auto' over several
-    cards, is multi-GPU training (ROADMAP.md queue A item 20) and exits."""
+def parse_mesh_arg(mesh_arg: str):
+    """'auto' | 'none' | 'DxF' -> the string, or (D, F)."""
+    if mesh_arg in ("auto", "none"):
+        return mesh_arg
+    d, _, f = mesh_arg.partition("x")
+    try:
+        shape = (int(d), int(f) if f else 1)
+    except ValueError:
+        shape = (0, 0)
+    if min(shape) < 1:
+        raise SystemExit(f"--mesh {mesh_arg!r}: expected 'auto', 'none' or "
+                         "'DxF' with positive integers D and F")
+    return shape
+
+
+def make_mesh_from_arg(mesh_arg: str, device):
+    """The run's mesh on `device`: 'none' -> None; 'auto' -> every rank on
+    the data axis when a process group runs, else None; 'DxF' -> that mesh
+    over the group's ranks (a 1x1 mesh needs no group)."""
+    from photon_ml_tpu_torch.parallel import make_mesh, multihost
+    shape = parse_mesh_arg(mesh_arg)
+    if shape == "none" or (shape == "auto" and not multihost.group_started()):
+        return None
+    try:
+        if shape == "auto":
+            return make_mesh(device=device)
+        return make_mesh(*shape, device=device)
+    except ValueError as e:
+        raise SystemExit(f"--mesh {mesh_arg}: {e}")
+
+
+def _multihost_requested(args) -> bool:
+    from photon_ml_tpu_torch.parallel import multihost
+    return (args.coordinator is not None or args.num_processes is not None
+            or args.process_id is not None
+            or bool(os.environ.get(multihost.ENV_COORDINATOR))
+            or bool(os.environ.get(multihost.ENV_NUM_PROCESSES)))
+
+
+def _spawn_shape(args):
+    """(D, F) when this command must start the mesh's ranks itself: a
+    'DxF' mesh of more than one rank and no multi-process identity."""
+    shape = parse_mesh_arg(args.mesh)
+    if isinstance(shape, tuple) and shape[0] * shape[1] > 1 \
+            and not _multihost_requested(args):
+        return shape
+    return None
+
+
+def _rank_device(device, process_id: int):
+    """A rank's card: 'cuda' without an index means card
+    process_id % visible cards (one per card when there are enough)."""
     import torch
-    cards = torch.cuda.device_count() if device.type == "cuda" else 1
-    if mesh_arg == "none" or (mesh_arg == "auto" and cards <= 1):
-        return
-    raise SystemExit(
-        f"--mesh {mesh_arg!r}: multi-device meshes are not ported yet "
-        "(ROADMAP.md queue A item 20); pass --mesh none to train on one "
-        "device")
+    if device.type != "cuda" or device.index is not None:
+        return device
+    return torch.device("cuda", process_id % max(torch.cuda.device_count(), 1))
+
+
+def spawn_ranks(args, argv, shape) -> int:
+    """`--mesh DxF` without a coordinator: start the D*F ranks as
+    `cli.train` processes on a local coordinator (fresh interpreters, so
+    no child inherits a CUDA context) and wait for them.  Rank 0's
+    standard output is this command's; rank i's goes to
+    <output-dir>/training.proc<i>.out.  If a rank fails, the others get
+    the watchdog's grace to exit, then are stopped.  Returns rank 0's exit
+    code, or the first failing rank's when rank 0 succeeded."""
+    import subprocess
+    import torch
+    from photon_ml_tpu_torch.parallel import multihost
+    n = shape[0] * shape[1]
+    device = resolve_cli_device(args.device)
+    backend = args.dist_backend or multihost.default_backend(device)
+    if backend == "nccl":
+        cards = torch.cuda.device_count() if device.type == "cuda" else 0
+        if n > cards:
+            raise SystemExit(
+                f"--mesh {args.mesh}: {n} NCCL ranks need {n} cards and "
+                f"{cards} are visible (NCCL cannot run two ranks on one "
+                "card); pass --dist-backend gloo to put several ranks on "
+                "one card")
+    os.makedirs(args.output_dir, exist_ok=True)
+    base = list(sys.argv[1:] if argv is None else argv)
+    coordinator = f"127.0.0.1:{multihost.free_port()}"
+    env = multihost.child_env()
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    env["PYTHONPATH"] = os.pathsep.join(
+        [root] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
+    procs, outs = [], []
+    try:
+        for i in range(n):
+            out = (None if i == 0 else open(os.path.join(
+                args.output_dir, f"training.proc{i}.out"), "w"))
+            outs.append(out)
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "photon_ml_tpu_torch.cli.train", *base,
+                 "--coordinator", coordinator, "--num-processes", str(n),
+                 "--process-id", str(i), "--dist-backend", backend],
+                env=env, stdout=out))
+        grace = (float(os.environ.get("PHOTON_HEARTBEAT_TIMEOUT", 10.0))
+                 + float(os.environ.get("PHOTON_HEARTBEAT_ESCALATE", 10.0))
+                 + 30.0)
+        failed_at = None
+        while any(p.poll() is None for p in procs):
+            if failed_at is None and any(p.returncode not in (None, 0)
+                                         for p in procs):
+                failed_at = time.time()
+            if failed_at is not None and time.time() - failed_at > grace:
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for out in outs:
+            if out is not None:
+                out.close()
+    codes = [p.returncode for p in procs]
+    return codes[0] if codes[0] != 0 else next((c for c in codes if c), 0)
 
 
 def resolve_avro_paths(path: str):
@@ -386,17 +513,6 @@ def _load_dataset(path: str, task: str, args=None, train_dataset=None,
     return load_game_dataset(path)
 
 
-# flag -> (is it set, the ROADMAP.md queue A item that ports it)
-UNPORTED_FLAGS = (
-    ("--coordinator", lambda a: a.coordinator is not None, 20),
-    ("--num-processes", lambda a: a.num_processes is not None, 20),
-    ("--process-id", lambda a: a.process_id is not None, 20),
-)
-# the JAX CLI's environment fallbacks of the multi-host flags
-UNPORTED_ENV = (("PHOTON_COORDINATOR", 20), ("PHOTON_NUM_PROCESSES", 20),
-                ("PHOTON_PROCESS_ID", 20))
-
-
 def parse_byte_size(arg) -> Optional[int]:
     """'8GB' / '512MB' / '1.5g' / '4096' -> bytes (decimal units, like
     accelerator spec sheets)."""
@@ -421,19 +537,6 @@ def parse_byte_size(arg) -> Optional[int]:
     return int(value)
 
 
-def check_unported(args, flags=UNPORTED_FLAGS, env=UNPORTED_ENV) -> None:
-    """Exit naming the ROADMAP.md item of every set flag (and environment
-    variable) whose subsystem is not ported yet (never silently
-    ignored)."""
-    bad = [f"{flag} (item {item})" for flag, is_set, item in flags
-           if is_set(args)]
-    bad += [f"${var} (item {item})" for var, item in env
-            if os.environ.get(var)]
-    if bad:
-        raise SystemExit("not ported yet (ROADMAP.md queue A): "
-                         + ", ".join(bad))
-
-
 def resolve_cli_device(name: str):
     """--device -> torch.device; exits non-zero when CUDA is asked for and
     absent (the run never carries on on the CPU)."""
@@ -446,6 +549,9 @@ def resolve_cli_device(name: str):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    shape = _spawn_shape(args)
+    if shape is not None:
+        return spawn_ranks(args, argv, shape)
     # stderr stays quiet unless --verbose (configured only when no host
     # application has set up logging)
     if not logging.getLogger().handlers:
@@ -460,7 +566,13 @@ def main(argv=None) -> int:
     prev_level = pkg_logger.level
     pkg_logger.setLevel(logging.INFO)
     os.makedirs(args.output_dir, exist_ok=True)
-    _fh = logging.FileHandler(os.path.join(args.output_dir, "training.log"))
+    # a multi-process run shares one output dir: each non-primary process
+    # logs to its own file
+    from photon_ml_tpu_torch.parallel import multihost
+    pid = (args.process_id if args.process_id is not None
+           else multihost.process_index())
+    _fh = logging.FileHandler(os.path.join(
+        args.output_dir, "training.log" if pid == 0 else f"training.proc{pid}.log"))
     _fh.setFormatter(logging.Formatter("%(asctime)s %(levelname)s %(message)s"))
     _fh.setLevel(logging.INFO)
     pkg_logger.addHandler(_fh)
@@ -477,11 +589,65 @@ def main(argv=None) -> int:
 
 def _run(args, log) -> int:
     log.info("args: %s", vars(args))
-    check_unported(args)
     import torch
     device = resolve_cli_device(args.device)
     dtype = torch.float64 if args.x64 else torch.float32
-    check_mesh_arg(args.mesh, device)
+    parse_mesh_arg(args.mesh)
+    from photon_ml_tpu_torch.parallel import multihost
+    try:
+        return _run_ranked(args, log, device, dtype)
+    finally:
+        # teardown last (stops the watchdog, leaves the process group,
+        # resets identity) so an in-process caller can run again
+        multihost.shutdown()
+
+
+def _join_run(args, log, device):
+    """Multi-process bring-up (parallel/multihost.py) from the flags or
+    their environment fallbacks, the watchdog armed, and the run's mesh.
+    -> (device, mesh, watchdog)."""
+    from photon_ml_tpu_torch.parallel import multihost
+    watchdog = None
+    if _multihost_requested(args):
+        pid = (args.process_id if args.process_id is not None
+               else multihost._env_int(multihost.ENV_PROCESS_ID) or 0)
+        device = _rank_device(device, pid)
+        try:
+            multihost.initialize(args.coordinator, args.num_processes,
+                                 args.process_id, backend=args.dist_backend,
+                                 device=device)
+        except multihost.MultihostInitError as e:
+            raise SystemExit(f"multihost: {e}")
+    if multihost.active():
+        if args.tuning != "none":
+            raise SystemExit(
+                "--tuning is not supported on a multi-process run (nor in "
+                "the JAX package's CLI); tune in a single-process job")
+        if args.mesh == "none":
+            raise SystemExit(
+                "--mesh none contradicts a multi-process run: without a "
+                "mesh each process would train its own local copy")
+        watchdog = multihost.WorkerWatchdog(
+            args.output_dir,
+            interval_s=float(os.environ.get("PHOTON_HEARTBEAT_INTERVAL", 0.5)),
+            timeout_s=float(os.environ.get("PHOTON_HEARTBEAT_TIMEOUT", 10.0)),
+            escalate_s=float(os.environ.get("PHOTON_HEARTBEAT_ESCALATE", 10.0))
+        ).start()
+        multihost.set_watchdog(watchdog)
+        log.info("multihost: process %d/%d, watchdog armed (timeout %.1fs, "
+                 "escalate %.1fs)", multihost.process_index(),
+                 multihost.process_count(), watchdog.timeout_s,
+                 watchdog.escalate_s)
+    mesh = make_mesh_from_arg(args.mesh, device)
+    if mesh is not None:
+        print(f"mesh: {mesh.shape} on {mesh.device} (rank {mesh.rank} of "
+              f"{mesh.size}, backend {mesh.backend})", file=sys.stderr)
+    return device, mesh, watchdog
+
+
+def _run_ranked(args, log, device, dtype) -> int:
+    from photon_ml_tpu_torch.parallel import multihost
+    device, mesh, watchdog = _join_run(args, log, device)
 
     from photon_ml_tpu_torch.game import GameTrainingConfig
 
@@ -545,7 +711,7 @@ def _run(args, log) -> int:
         validate_game_dataset(val, task, args.data_validation,
                               check_weights=not args.no_weight_check)
 
-    if args.save_feature_stats:
+    if args.save_feature_stats and multihost.is_primary():
         # reference: cli/game/training/Driver.calculateAndSaveFeatureShardStats
         from photon_ml_tpu_torch.data.stats import BasicStatisticalSummary
         stats_dir = os.path.join(args.output_dir, "feature-stats")
@@ -613,7 +779,7 @@ def _run(args, log) -> int:
             print(f"profiling to {_profile_dir(args)}", file=sys.stderr)
         with faults.GracefulPreemption():
             return _fit_and_save(args, log, train, val, device, dtype, t0,
-                                 ingest_s, fault_plan, emitter, loads0)
+                                 ingest_s, fault_plan, emitter, loads0, mesh)
     except faults.Preempted as e:
         # the in-flight update finished and the newest checkpoint record is
         # durable: report resumability and exit with the DISTINCT status 75
@@ -624,14 +790,33 @@ def _run(args, log) -> int:
             "resumable": e.checkpointed,
             "checkpoint_dir": e.checkpoint_dir,
             "exit_status": faults.EXIT_PREEMPTED,
-            "lost_worker": None,
+            "lost_worker": (watchdog.lost_process
+                            if watchdog is not None else None),
             "wall_s": round(time.time() - t0, 2),
         }
         log.warning("preempted: %s", e)
-        with open(os.path.join(args.output_dir, "training-summary.json"), "w") as f:
-            json.dump(payload, f, indent=2)
-        print(json.dumps(payload))
+        if multihost.is_primary():
+            with open(os.path.join(args.output_dir,
+                                   "training-summary.json"), "w") as f:
+                json.dump(payload, f, indent=2)
+        print(json.dumps(payload), flush=True)
         return faults.EXIT_PREEMPTED
+    except Exception:
+        # a peer died mid-collective: the backend raises in this thread
+        # within milliseconds, before a heartbeat timeout has passed, so
+        # poll the peers' heartbeats to tell a dead peer from a local
+        # crash.  A survivor exits with the resumable status 75
+        lost = watchdog.confirm_lost() if watchdog is not None else None
+        if lost is not None:
+            log.error("multihost: collective failed after losing worker "
+                      "%d — exiting resumably (status %d)", lost,
+                      faults.EXIT_PREEMPTED, exc_info=True)
+            print(json.dumps({"preempted": True, "resumable": True,
+                              "lost_worker": lost,
+                              "exit_status": faults.EXIT_PREEMPTED}),
+                  flush=True)
+            return faults.EXIT_PREEMPTED
+        raise
     finally:
         if profiler is not None:
             profiler.stop()
@@ -678,7 +863,7 @@ def _start_profiler(device):
 
 
 def _fit_and_save(args, log, train, val, device, dtype, t0, ingest_s,
-                  fault_plan, emitter, loads0) -> int:
+                  fault_plan, emitter, loads0, mesh=None) -> int:
     """Fit (GAME config or the legacy lambda sweep), save the best model
     and write the summary."""
     from photon_ml_tpu_torch import telemetry
@@ -718,7 +903,7 @@ def _fit_and_save(args, log, train, val, device, dtype, t0, ingest_s,
         if hbm_budget is not None:
             config = dataclasses.replace(config, hbm_budget_bytes=hbm_budget)
         results = [GameEstimator(config, device=device, dtype=dtype,
-                                 emitter=emitter).fit(
+                                 emitter=emitter, mesh=mesh).fit(
             train, val, evaluator_specs, initial_model=initial_model,
             checkpoint_dir=args.checkpoint_dir, timing_mode=args.timing_mode)]
     else:
@@ -741,7 +926,7 @@ def _fit_and_save(args, log, train, val, device, dtype, t0, ingest_s,
                 normalization=NormalizationType(args.normalization))},
             updating_sequence=["fixed"], hbm_budget_bytes=hbm_budget)
         results = GameEstimator(config, device=device, dtype=dtype,
-                                emitter=emitter).fit_grid(
+                                emitter=emitter, mesh=mesh).fit_grid(
             train, grid, val, evaluator_specs, warm_start=args.warm_start,
             checkpoint_dir=args.checkpoint_dir,
             initial_model=initial_model, timing_mode=args.timing_mode)
@@ -753,11 +938,15 @@ def _fit_and_save(args, log, train, val, device, dtype, t0, ingest_s,
     fit_s = time.time() - t_fit
 
     from photon_ml_tpu_torch.game.estimator import select_best_result
+    from photon_ml_tpu_torch.parallel import multihost
     best = select_best_result(results)
     t_save = time.time()
-    save_game_model(best.model, os.path.join(args.output_dir, "best"),
-                    config=best.config, index_maps=train.index_maps or None,
-                    format=args.model_format)
+    if multihost.is_primary():
+        # process 0 owns every durable artifact; the other ranks trained
+        # the same model (their tables and histories are equal)
+        save_game_model(best.model, os.path.join(args.output_dir, "best"),
+                        config=best.config, index_maps=train.index_maps or None,
+                        format=args.model_format)
     save_s = time.time() - t_save
     solver_diag = best.descent.solver_diagnostics()
     summary = {
@@ -786,10 +975,13 @@ def _fit_and_save(args, log, train, val, device, dtype, t0, ingest_s,
         # HBM residency accounting (None budget = unbounded/resident)
         "hbm_budget_bytes": hbm_budget,
         "hbm_residency": best.residency,
-        # meshes and multi-host runs: item 20
-        "mesh": None,
-        "mesh_transfer": None,
-        "multihost": None,
+        # the mesh, the bytes this rank staged (cold static data, warm
+        # offsets and x0) and the run's processes
+        "mesh": None if mesh is None else mesh.shape,
+        "mesh_transfer": best.mesh_transfer,
+        "multihost": ({"num_processes": multihost.process_count(),
+                       "process_id": multihost.process_index()}
+                      if multihost.active() else None),
         "host_blocked_s": round(best.descent.timings.host_blocked_total(), 3),
         # the kernel builds and library loads of this run (ops/_build.py
         # LOADS: nvcc runs and ctypes loads, the port's counterpart of the
@@ -817,8 +1009,10 @@ def _fit_and_save(args, log, train, val, device, dtype, t0, ingest_s,
         # acquisition over the candidate pool); None without --tuning
         "tuning": tuning,
     }
-    with open(os.path.join(args.output_dir, "training-summary.json"), "w") as f:
-        json.dump(summary, f, indent=2)
+    if multihost.is_primary():
+        with open(os.path.join(args.output_dir, "training-summary.json"),
+                  "w") as f:
+            json.dump(summary, f, indent=2)
     log.info("summary: %s", summary)
     for coord, d in solver_diag.items():
         log.info("solver %-16s solves=%d iterations=%d reasons=%s",

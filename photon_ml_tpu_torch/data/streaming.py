@@ -33,8 +33,9 @@ counts device bytes as the JAX package's canonicalized transfer does.
 StreamStats mirrors its counts into the telemetry registry (`stream.*`
 counters, the `stream.examples_per_staged_byte` gauge), a transient
 staging failure emits `stage_retry`, and each chunk's staging is a `stage`
-span on the producer thread, as in the JAX package.  The JAX package's
-multi-process byte accounting (ROADMAP.md queue A item 20) is not ported.
+span on the producer thread, as in the JAX package.  Streaming over a mesh,
+with the JAX package's multi-process byte accounting, is not ported yet
+(ROADMAP.md queue A item 20, its last part).
 """
 from __future__ import annotations
 

@@ -4,10 +4,10 @@ photon_ml_tpu/game/config.py).
 `to_dict`/`from_dict` read and write the same JSON as the JAX package, so a
 configuration written by either package loads in the other; solver
 schedules (`solver_schedule`) parse into optim/schedule.py's
-SolverSchedule where the JAX package parses them.  Fields whose features
-are not ported yet load, and then raise where they would take effect:
-`shard_features` (ROADMAP.md queue A item 20), and the ADMM lane's `admm`
-block (item 20) raises on load.
+SolverSchedule where the JAX package parses them, and a GLM's `admm`
+block into optim/admm.py's ADMMConfig (the feature-axis consensus-ADMM
+lane, consulted when `shard_features` is on and the mesh has a feature
+axis wider than 1).
 """
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ from typing import Dict, Optional, Sequence, Union
 
 from photon_ml_tpu_torch.data.batching import RandomEffectDataConfig
 from photon_ml_tpu_torch.ops.normalization import NormalizationType
+from photon_ml_tpu_torch.optim.admm import ADMMConfig
 from photon_ml_tpu_torch.optim.constraints import constraints_to_json
 from photon_ml_tpu_torch.optim.schedule import SolverSchedule
 from photon_ml_tpu_torch.optim.config import (
@@ -32,6 +33,9 @@ class GLMOptimizationConfig:
     regularization: RegularizationContext = RegularizationContext()
     regularization_weight: float = 0.0
     downsampling_rate: Optional[float] = None
+    # the consensus-ADMM lane's knobs (optim/admm.py), consulted only when
+    # the lane is selected; None runs it with ADMMConfig() defaults
+    admm: Optional[ADMMConfig] = None
 
     def __post_init__(self):
         if self.regularization_weight < 0:
@@ -173,11 +177,22 @@ class GameTrainingConfig:
                     "track_coefficients": o.track_coefficients}
 
         def enc_glm(g: GLMOptimizationConfig):
-            return {"optimizer": enc_opt(g.optimizer),
-                    "regularization": {"type": g.regularization.reg_type.value,
-                                       "alpha": g.regularization.elastic_net_alpha},
-                    "regularization_weight": g.regularization_weight,
-                    "downsampling_rate": g.downsampling_rate}
+            out = {"optimizer": enc_opt(g.optimizer),
+                   "regularization": {"type": g.regularization.reg_type.value,
+                                      "alpha": g.regularization.elastic_net_alpha},
+                   "regularization_weight": g.regularization_weight,
+                   "downsampling_rate": g.downsampling_rate}
+            # only when set, so configs without the lane keep their
+            # fingerprints
+            if g.admm is not None:
+                a = g.admm
+                out["admm"] = {"max_iterations": a.max_iterations,
+                               "tolerance": a.tolerance, "rho": a.rho,
+                               "adapt_rho": a.adapt_rho,
+                               "rho_tau": a.rho_tau, "rho_mu": a.rho_mu,
+                               "newton_steps": a.newton_steps,
+                               "polish": a.polish}
+            return out
 
         # None (no schedule) encodes as None, which checkpoint fingerprints
         # strip
@@ -241,17 +256,26 @@ class GameTrainingConfig:
                 track_coefficients=o.get("track_coefficients", False))
 
         def dec_glm(g: dict) -> GLMOptimizationConfig:
+            admm = None
             if g.get("admm") is not None:
-                raise NotImplementedError(
-                    "the consensus-ADMM lane is not ported yet (ROADMAP.md "
-                    "queue A item 20: multi-GPU training)")
+                a = g["admm"]
+                admm = ADMMConfig(
+                    max_iterations=a.get("max_iterations"),
+                    tolerance=a.get("tolerance"),
+                    rho=a.get("rho", 1.0),
+                    adapt_rho=a.get("adapt_rho", True),
+                    rho_tau=a.get("rho_tau", 2.0),
+                    rho_mu=a.get("rho_mu", 10.0),
+                    newton_steps=a.get("newton_steps", 8),
+                    polish=a.get("polish", True))
             return GLMOptimizationConfig(
                 optimizer=dec_opt(g["optimizer"]),
                 regularization=RegularizationContext(
                     RegularizationType(g["regularization"]["type"]),
                     g["regularization"].get("alpha")),
                 regularization_weight=g["regularization_weight"],
-                downsampling_rate=g.get("downsampling_rate"))
+                downsampling_rate=g.get("downsampling_rate"),
+                admm=admm)
 
         coords: Dict[str, CoordinateConfig] = {}
         for name, c in d["coordinates"].items():

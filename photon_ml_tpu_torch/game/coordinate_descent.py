@@ -38,8 +38,13 @@ Solver schedules (optim/schedule.py) cap each visit's solves; the budget of
 every solve lands in its tracker.  Under an HBM budget a residency manager
 (game/residency.py) rotates device residency around each visit, and a
 streamed fixed effect's per-visit chunk-stream accounting lands in its
-tracker (`stream`).  The multi-host branches (ROADMAP.md queue A item 20)
-are not ported yet.
+tracker (`stream`).  On a mesh (parallel/mesh.py) every rank runs this loop
+in lockstep over replicated [n] score vectors (the coordinates assemble
+their scores on every rank), so every rank computes the same objective
+and takes the same branches; each visit's staged bytes (cold static data
+vs warm offsets and x0, parallel/mesh_residency.py) land in its tracker
+(`staged_bytes`), and only process 0 writes checkpoints (the JAX
+package's multi-host branches).
 
 Telemetry, as the JAX package's: the loop opens `outer_iteration` ->
 `coordinate_visit` -> solve/objective/validation spans when the tracer is
@@ -145,6 +150,10 @@ class TrackerSummary:
     # only, a StreamStats snapshot diff): staged bytes/chunks, local epochs,
     # examples processed and examples_per_staged_byte.  None when resident
     stream: Optional[Dict[str, object]] = None
+    # mesh bytes this rank staged during THIS visit ({"cold": b, "warm": b},
+    # a TransferStats delta): a warm visit stages no cold bytes.  None on
+    # fits without a mesh
+    staged_bytes: Optional[Dict[str, int]] = None
 
 
 def _summarize(result, wall_s: float, buckets=None, budget=None) -> TrackerSummary:
@@ -232,6 +241,10 @@ class CoordinateDescentResult:
                 d["retraces"] = d.get("retraces", 0) + t.retraces
             for name, c in t.reasons.items():
                 d["reasons"][name] = d["reasons"].get(name, 0) + c
+            if t.staged_bytes is not None:
+                sb = d.setdefault("staged_bytes", {"cold": 0, "warm": 0})
+                sb["cold"] += t.staged_bytes.get("cold", 0)
+                sb["warm"] += t.staged_bytes.get("warm", 0)
             if t.stream is not None:
                 st = d.setdefault("stream", {
                     "passes": 0, "chunks_staged": 0, "total_bytes": 0,
@@ -399,6 +412,12 @@ def _write_checkpoint(directory: str, iteration: int, model: GameModel,
     falls back to the newest verified record.  The two newest records are
     retained; older model directories are pruned."""
     from photon_ml_tpu_torch.models.io import save_game_model
+    from photon_ml_tpu_torch.parallel import multihost
+
+    # process 0 owns every durable artifact (the descent loop passes no
+    # checkpoint directory off the primary; this is defense in depth)
+    if not multihost.is_primary():
+        return
 
     faults.fire("checkpoint.write", iteration=iteration)
     try:
@@ -851,6 +870,28 @@ def run_coordinate_descent(
                          f"got {timing_mode!r}")
     pipelined = timing_mode == "pipelined"
     dev = resolve_device(device)
+    # mesh transfer accounting: per-visit staged-bytes deltas (host ints)
+    mesh_snap = None
+    if any(getattr(c, "mesh", None) is not None for c in coordinates.values()):
+        from photon_ml_tpu_torch.parallel.mesh_residency import transfer_snapshot
+        mesh_snap = transfer_snapshot
+    if checkpoint_dir is not None:
+        from photon_ml_tpu_torch.parallel import multihost
+        if not multihost.is_primary():
+            # one writer: every process runs this loop in lockstep, and N
+            # processes racing one state.json replace would corrupt it;
+            # the others resume from process 0's records on relaunch
+            logger.info("multihost: process %d skips checkpoint writes "
+                        "(process 0 owns %s)", multihost.process_index(),
+                        checkpoint_dir)
+            checkpoint_dir = None
+
+    def staged_delta(before):
+        if before is None:
+            return None
+        after = mesh_snap()
+        return {"cold": after["cold_bytes"] - before["cold_bytes"],
+                "warm": after["warm_bytes"] - before["warm_bytes"]}
     loss = TASK_LOSSES[task_type]
     on_dev = lambda a: (None if a is None else torch.as_tensor(a).to(
         device=dev, dtype=dtype))
@@ -1073,6 +1114,7 @@ def run_coordinate_descent(
                                          else p["containment"])
             trackers[key].stream = p["stream"]
             trackers[key].retraces = p["retraces"]
+            trackers[key].staged_bytes = p["staged"]
             record(obj, metric_vals, p["models"], healthy)
         pending.clear()
         # containment AFTER the iteration's bookkeeping: the retry runs at
@@ -1127,6 +1169,7 @@ def run_coordinate_descent(
                 result = None
                 health = None
                 stream_before = _stream_snapshot(coord)
+                mesh_before = mesh_snap() if mesh_snap is not None else None
                 with spans.span(solve_key, name="solve", coordinate=name,
                                 iteration=it):
                     if not frozen:
@@ -1201,6 +1244,7 @@ def run_coordinate_descent(
                     # training blocks drop now; queued kernels keep theirs
                     residency.after_update(name)
                 stream = _stream_delta(coord, stream_before)
+                staged = staged_delta(mesh_before)
                 # kernel loads during this visit: a library loads when a
                 # wrapper first launches its kernel, so the count is
                 # settled here in pipelined mode too
@@ -1213,11 +1257,12 @@ def run_coordinate_descent(
                                     "objective": obj_dev, "health": health_dev,
                                     "metrics": metrics, "models": dict(models),
                                     "prev_model": prev_model, "stream": stream,
-                                    "retraces": retraces,
+                                    "retraces": retraces, "staged": staged,
                                     "containment": "frozen" if frozen else None})
                 else:
                     trackers[key].stream = stream
                     trackers[key].retraces = retraces
+                    trackers[key].staged_bytes = staged
                     record(obj, metrics, models)
                 telemetry.pop(visit_span)
 

@@ -22,12 +22,20 @@ Every `update` takes a solver schedule (optim/schedule.py) and the outer
 iteration: the schedule's budget for that iteration caps the solve (both
 solves of a factored coordinate, each against its own configured budget).
 
-Not ported yet, raising NotImplementedError where it would take effect:
-`shard_features` and meshes (ROADMAP.md queue A item 20).
+On a mesh (parallel/mesh.py, one rank per process) every coordinate
+stages this rank's blocks once through the mesh residency layer: a fixed
+effect its row block (data-parallel solves, parallel/fixed_effect.py; with
+`shard_features` and a feature axis wider than 1, a dense unnormalized
+unconstrained shard trains on the consensus-ADMM lane), an entity-keyed
+coordinate its entity lanes (parallel/random_effect.py, factored.py).
+Scores come back as the full [n] vector on every rank (each rank scores
+its rows, one data-axis all_reduce assembles them), so the descent loop
+is the same on every rank.
 """
 from __future__ import annotations
 
 import dataclasses
+import logging
 import time
 from typing import List, Optional, Tuple
 
@@ -56,17 +64,27 @@ from photon_ml_tpu_torch.ops.normalization import (
     NormalizationType, build_normalization_context,
 )
 from photon_ml_tpu_torch.ops.objective import GLMObjective
+from photon_ml_tpu_torch.optim.admm import ADMMConfig
 from photon_ml_tpu_torch.optim.types import SolveResult
 from photon_ml_tpu_torch.parallel.factored import (
     FactoredSolveResult, fit_factored_random_effects, gaussian_projection_matrix,
     principal_subspace_projection,
 )
-from photon_ml_tpu_torch.parallel.fixed_effect import fit_fixed_effect
+from photon_ml_tpu_torch.parallel.fixed_effect import (
+    fit_fixed_effect, fit_fixed_effect_admm, score_fixed_effect,
+    score_fixed_effect_admm,
+)
+from photon_ml_tpu_torch.parallel.mesh import concat_rows_safe
+from photon_ml_tpu_torch.parallel.mesh_residency import (
+    default_residency, invalidate,
+)
 from photon_ml_tpu_torch.parallel.random_effect import (
-    fit_random_effects, score_entities_matmul, score_entities_plain,
-    score_entities_scatter,
+    EntityBlocks, fit_random_effects, score_entities_matmul,
+    score_entities_plain, score_entities_scatter,
 )
 from photon_ml_tpu_torch.utils import prng
+
+logger = logging.getLogger("photon_ml_tpu_torch")
 
 
 def _penalty(c: torch.Tensor, l1: float, l2: float) -> torch.Tensor:
@@ -97,24 +115,24 @@ class FixedEffectCoordinate:
     def __init__(self, name: str, dataset: GameDataset,
                  config: FixedEffectCoordinateConfig, task_type: str,
                  device=None, dtype: torch.dtype = torch.float32, seed: int = 7,
-                 hbm_budget_bytes: Optional[int] = None):
+                 hbm_budget_bytes: Optional[int] = None, mesh=None):
         self.name = name
         self.config = config
         self.task_type = task_type
         self.loss = TASK_LOSSES[task_type]
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(device) if mesh is None else mesh.device
         self.dtype = dtype
         self._dataset = dataset
-        if config.shard_features:
-            raise NotImplementedError(
-                f"coordinate {name!r}: shard_features is not ported yet "
-                "(ROADMAP.md queue A item 20: multi-GPU training)")
         self._key = prng.PRNGKey(seed)
         host_x = dataset.feature_shards[config.feature_shard]
         self.dim = host_x.shape[1]
         sparse = not isinstance(host_x, np.ndarray)
         itemsize = torch.empty((), dtype=dtype).element_size()
         self._row_bytes = (self.dim + 4) * itemsize
+        # each rank holds 1/D of the rows: budgets are per device
+        data_div = 1 if mesh is None else mesh.num_data
+        feature_div = 1 if mesh is None else mesh.num_feature
         if config.memory_mode == "streamed":
             self.streamed = True
         elif config.memory_mode == "resident":
@@ -122,8 +140,43 @@ class FixedEffectCoordinate:
         else:  # auto: stream iff the resident shard busts half the budget
             # (the other half stays for RE blocks, flat vectors, accumulators)
             self.streamed = (hbm_budget_bytes is not None and not sparse
-                             and self._resident_shard_bytes(host_x)
+                             and self._resident_shard_bytes(host_x) // data_div
                              > hbm_budget_bytes // 2)
+        # the feature axis: an explicit config wins, else on whenever the
+        # mesh has a feature axis wider than 1
+        self.shard_features = (config.shard_features
+                               if config.shard_features is not None
+                               else feature_div > 1)
+        if config.shard_features is True and mesh is None:
+            raise ValueError(
+                f"coordinate {name!r}: shard_features=True but no mesh — "
+                "nothing consumes the feature axis; build the estimator "
+                "with make_mesh(num_feature=...) or drop shard_features")
+        blockers = []
+        if self.shard_features and feature_div > 1:
+            if self.streamed:
+                blockers.append("memory_mode='streamed'")
+            if sparse:
+                blockers.append("sparse feature shard")
+            if config.normalization != NormalizationType.NONE:
+                blockers.append(f"normalization={config.normalization.value!r}")
+            opt_cfg = config.optimization.optimizer
+            if (opt_cfg.box_lower is not None or opt_cfg.box_upper is not None
+                    or opt_cfg.constraints is not None):
+                blockers.append("box/named coefficient constraints")
+        self._admm_eligible = (self.shard_features and feature_div > 1
+                               and not blockers)
+        if self.shard_features and feature_div > 1 and blockers:
+            logger.warning(
+                "coordinate %r: shard_features is on but the feature-axis "
+                "ADMM lane is blocked by %s — training falls back to the "
+                "monolithic solver", name, ", ".join(blockers))
+        elif config.shard_features is True and feature_div <= 1:
+            logger.warning(
+                "coordinate %r: shard_features=True but the mesh feature "
+                "axis has width 1 — no solver consumes it; build the mesh "
+                "with make_mesh(num_feature=...) to light up the ADMM lane",
+                name)
         if self.streamed:
             if sparse:
                 raise ValueError(
@@ -176,11 +229,28 @@ class FixedEffectCoordinate:
             self._stream = ChunkedGLMObjective(
                 self.loss, host_x, dataset.response, plan,
                 weights=dataset.weights, norm=self.norm, device=self.device,
-                dtype=dtype)
+                dtype=dtype, mesh=mesh if data_div > 1 else None)
             # a full device copy made earlier would defeat the budget
             dataset.release_device_shard(config.feature_shard)
         elif hbm_budget_bytes is None:
-            self.x  # noqa: B018 — the property makes the device copy now
+            if mesh is None:
+                self.x  # noqa: B018 — the property makes the device copy now
+            elif self._admm_eligible:
+                # the ADMM lane trains and scores through the grid blocks
+                from photon_ml_tpu_torch.parallel.fixed_effect import stage_admm_grid
+                stage_admm_grid(self._mesh_key(), mesh, host_x, dtype)
+            else:
+                from photon_ml_tpu_torch.parallel.mesh import pad_and_shard_rows
+                pad_and_shard_rows(mesh, host_x, residency_key=self._mesh_key(),
+                                   dtype=dtype)
+
+    def _mesh_key(self):
+        """Residency key of this coordinate's staged mesh blocks (its
+        invalidation unit, parallel/mesh_residency.py)."""
+        return (self.name, id(self))
+
+    def _host_x(self):
+        return self._dataset.feature_shards[self.config.feature_shard]
 
     # --- device residency -----------------------------------------------------
     def _resident_shard_bytes(self, host_x) -> int:
@@ -239,11 +309,14 @@ class FixedEffectCoordinate:
 
     def evict_device_blocks(self) -> None:
         """Residency-manager hook: drop the device shard between visits
-        (nothing is pinned when streamed)."""
+        (nothing is pinned when streamed); on a mesh, only this
+        coordinate's staged blocks."""
         if self.streamed:
             return
         self._x = None
         self._dataset.release_device_shard(self.config.feature_shard)
+        if self.mesh is not None:
+            invalidate(self._mesh_key())
 
     def initial_model(self) -> FixedEffectModel:
         """Zero coefficients (reference: Coordinate.initializeModel)."""
@@ -274,11 +347,36 @@ class FixedEffectCoordinate:
         x0 = model.glm.coefficients.means
         if self.norm is not None:
             x0 = self.norm.model_to_transformed_space(x0)
-        obj = GLMObjective(self.loss, self.x, self.labels, weights=weights,
-                           offsets=offsets, norm=self.norm)
-        res = fit_fixed_effect(obj, x0, None, opt.optimizer, opt.regularization,
-                               _in_dtype(opt.regularization_weight, self.dtype),
-                               budget=budget)
+        lam = _in_dtype(opt.regularization_weight, self.dtype)
+        if self.mesh is None:
+            obj = GLMObjective(self.loss, self.x, self.labels, weights=weights,
+                               offsets=offsets, norm=self.norm)
+            res = fit_fixed_effect(obj, x0, None, opt.optimizer,
+                                   opt.regularization, lam, budget=budget)
+        elif self._admm_eligible:
+            # the feature-axis consensus-ADMM lane: a schedule maps its
+            # budgets onto the ADMM iterations and keeps the monolithic
+            # polish for the trailing outer iterations
+            obj = GLMObjective(self.loss, self._host_x(), self.labels,
+                               weights=weights, offsets=offsets)
+            admm_cfg = opt.admm if opt.admm is not None else ADMMConfig()
+            admm_budget = _budget(schedule, outer_iteration,
+                                  num_outer_iterations, admm_cfg)
+            polish = None
+            polish_gate = getattr(schedule, "admm_polish", None)
+            if admm_cfg.polish and callable(polish_gate):
+                polish = polish_gate(outer_iteration, num_outer_iterations)
+            res = fit_fixed_effect_admm(
+                obj, x0, self.mesh, admm_cfg, opt.optimizer,
+                opt.regularization, lam, budget=admm_budget,
+                polish_budget=budget, polish=polish,
+                residency_key=self._mesh_key())
+        else:
+            obj = GLMObjective(self.loss, self._host_x(), self.labels,
+                               weights=weights, offsets=offsets, norm=self.norm)
+            res = fit_fixed_effect(obj, x0, self.mesh, opt.optimizer,
+                                   opt.regularization, lam, budget=budget,
+                                   residency_key=self._mesh_key())
         c = res.x
         if self.norm is not None:
             c = self.norm.model_to_original_space(c)
@@ -316,7 +414,12 @@ class FixedEffectCoordinate:
         streamed pass into one device [n] vector when streamed)."""
         if self.streamed:
             return self._stream.scores(model.glm.coefficients.means)
-        return fops.matvec(self.x, model.glm.coefficients.means)
+        if self.mesh is None:
+            return fops.matvec(self.x, model.glm.coefficients.means)
+        score = (score_fixed_effect_admm if self._admm_eligible
+                 else score_fixed_effect)
+        return score(model.glm, self._host_x(), self.mesh,
+                     residency_key=self._mesh_key())
 
     def regularization_term(self, model: FixedEffectModel) -> torch.Tensor:
         """In the space the solver penalized (normalized for a normalized
@@ -345,24 +448,30 @@ class _EntityCoordinateBase:
     def __init__(self, name: str, dataset: GameDataset,
                  config: RandomEffectCoordinateConfig, task_type: str,
                  device=None, dtype: torch.dtype = torch.float32, seed: int = 7,
-                 hbm_budget_bytes: Optional[int] = None):
+                 hbm_budget_bytes: Optional[int] = None, mesh=None):
         self.name = name
         self.config = config
         self.task_type = task_type
         self.loss = TASK_LOSSES[task_type]
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(device) if mesh is None else mesh.device
         self.dtype = dtype
         self._dataset = dataset
+        # a mesh stages each rank's lanes from the host blocks
         self.red: RandomEffectDataset = build_random_effect_dataset(
             dataset, config.data_config(
-                seed, keep_host_blocks=hbm_budget_bytes is not None),
+                seed, keep_host_blocks=hbm_budget_bytes is not None
+                or mesh is not None),
             device=self.device, block_dtype=dtype)
         self._flat_x = None
         self._proj_dev = None
-        if hbm_budget_bytes is None:
+        self._row_ids_dev = {}
+        self._host_single_s = None
+        if hbm_budget_bytes is None and mesh is None:
             self.flat_x  # noqa: B018 — the property makes the device copy now
-        self.lanes = torch.as_tensor(self.red.flat_entity_lanes(
-            dataset.entity_indices[config.random_effect_type]), device=self.device)
+        self.host_lanes = self.red.flat_entity_lanes(
+            dataset.entity_indices[config.random_effect_type])
+        self.lanes = torch.as_tensor(self.host_lanes, device=self.device)
         self.entity_id_values = np.asarray(
             dataset.entity_vocabs[config.random_effect_type])[self.red.entity_ids]
         self.last_buckets: List[BucketSolve] = []
@@ -404,29 +513,67 @@ class _EntityCoordinateBase:
 
     def evict_device_blocks(self) -> None:
         """Residency-manager hook: drop this coordinate's device blocks
-        (per-entity buckets, flat shard view, projection); queued kernels
-        keep their tensors alive, and the next visit copies them again
-        from the host copies."""
+        (per-entity buckets, flat shard view, projection; on a mesh its
+        staged blocks); queued kernels keep their tensors alive, and the
+        next visit copies them again from the host copies."""
         self.red.evict_device_blocks()
         self._flat_x = None
         self._proj_dev = None
+        self._row_ids_dev = {}
         self._dataset.release_device_shard(self.config.feature_shard)
+        if self.mesh is not None:
+            invalidate(self._mesh_key())
+
+    def _mesh_key(self):
+        return (self.name, id(self))
+
+    def _mesh_offsets(self, row_ids: np.ndarray, flat_offsets: torch.Tensor,
+                      key) -> torch.Tensor:
+        """addScoresToOffsets for a block of lanes on a mesh: the [E, S]
+        gather of the replicated flat offsets (padding cells 0); its row
+        ids go to the device once per residency."""
+        ids = self._row_ids_dev.get(key)
+        if ids is None:
+            ids = self._row_ids_dev[key] = torch.as_tensor(row_ids,
+                                                           device=self.device)
+        got = flat_offsets[torch.clamp(ids, min=0)]
+        return torch.where(ids >= 0, got, torch.zeros_like(got)).to(self.dtype)
+
+    def _mesh_blocks(self, host: EntityBlocks, row_ids, flat_offsets, key):
+        """The whole block's host leaves with device offsets: the mesh
+        layer stages this rank's lanes of it."""
+        return EntityBlocks(x=host.x, labels=host.labels, mask=host.mask,
+                            weights=host.weights,
+                            offsets=self._mesh_offsets(row_ids, flat_offsets, key))
 
     def _score_model(self, model) -> torch.Tensor:
         """All rows (active and passive) scored against their entity's
-        model by a static gather."""
+        model by a static gather.  On a mesh each rank scores its row
+        block and the [n] scores are assembled on every rank."""
+        if self.mesh is None:
+            return self._score_rows(model, self.flat_x, self.lanes)
+        res = default_residency()
+        host_x = self._dataset.feature_shards[self.config.feature_shard]
+        x = res.stage_static(self._mesh_key(), "flat_x", self.mesh, host_x,
+                             0.0, dtype=self.dtype)
+        lanes = res.stage_static(self._mesh_key(), "lanes", self.mesh,
+                                 self.host_lanes, -1)
+        return self.mesh.assemble(self._score_rows(model, x, lanes),
+                                  host_x.shape[0])
+
+    def _score_rows(self, model, x, lanes) -> torch.Tensor:
         if isinstance(model, FactoredRandomEffectModel):
             return score_entities_matmul(model.latent_coefficients, model.projection,
-                                         self.flat_x, self.lanes)
+                                         x, lanes)
         if model.projection_matrix is not None:
             return score_entities_matmul(model.coefficients, model.projection_matrix,
-                                         self.flat_x, self.lanes)
+                                         x, lanes)
         if model.projection is not None:
             proj = (self.proj_dev if model.projection is self.red.projection
                     else torch.as_tensor(model.projection, device=self.device))
-            return score_entities_scatter(model.coefficients, proj, self.flat_x,
-                                          self.lanes, global_dim=model.global_dim)
-        return score_entities_plain(model.coefficients, self.flat_x, self.lanes)
+            return score_entities_scatter(model.coefficients, proj, x,
+                                          lanes, global_dim=model.global_dim)
+        return score_entities_plain(model.coefficients, x, lanes)
 
 
 @dataclasses.dataclass
@@ -476,13 +623,17 @@ class RandomEffectCoordinate(_EntityCoordinateBase):
         self.last_buckets = []
         for bucket in self.red.buckets:
             t0 = time.perf_counter()
-            blocks = bucket.with_offsets_from_flat(offsets)
             lo = bucket.lane_start
+            if self.mesh is None:
+                blocks = bucket.with_offsets_from_flat(offsets)
+            else:
+                blocks = self._mesh_blocks(bucket.host_blocks, bucket.row_ids,
+                                           offsets, lo)
             res_b = fit_random_effects(
-                blocks, self.loss, None,
+                blocks, self.loss, self.mesh,
                 x0=model.coefficients[lo: lo + bucket.num_entities],
                 config=opt.optimizer, reg=opt.regularization, reg_weight=lam,
-                budget=budget)
+                budget=budget, cache_key=(*self._mesh_key(), lo))
             its = res_b.iterations
             self.last_buckets.append(BucketSolve(
                 tuple(blocks.x.shape), int(its.max()), int(its.sum()),
@@ -490,7 +641,8 @@ class RandomEffectCoordinate(_EntityCoordinateBase):
             results.append(res_b)
         res = SolveResult(**{
             f.name: (None if not isinstance(getattr(results[0], f.name), torch.Tensor)
-                     else torch.cat([getattr(r, f.name) for r in results]))
+                     else concat_rows_safe(self.mesh, [getattr(r, f.name)
+                                                       for r in results]))
             for f in dataclasses.fields(SolveResult)})
         res.rounds = sum(r.rounds for r in results)
         if results[0].hv_rounds is not None:
@@ -521,9 +673,9 @@ class FactoredRandomEffectCoordinate(_EntityCoordinateBase):
     def __init__(self, name: str, dataset: GameDataset,
                  config: FactoredRandomEffectCoordinateConfig, task_type: str,
                  device=None, dtype: torch.dtype = torch.float32, seed: int = 7,
-                 hbm_budget_bytes: Optional[int] = None):
+                 hbm_budget_bytes: Optional[int] = None, mesh=None):
         super().__init__(name, dataset, config, task_type, device, dtype, seed,
-                         hbm_budget_bytes)
+                         hbm_budget_bytes, mesh)
         self.seed = seed
         self._key = prng.PRNGKey(seed + 1)
         self.warm_start_source: Optional[str] = None
@@ -586,12 +738,17 @@ class FactoredRandomEffectCoordinate(_EntityCoordinateBase):
                             opt.optimizer)
         latent_budget = _budget(schedule, outer_iteration, num_outer_iterations,
                                 lat.optimizer)
-        blocks = self.red.with_offsets_from_flat(offsets)
+        if self.mesh is None:
+            blocks = self.red.with_offsets_from_flat(offsets)
+        else:
+            blocks = self._mesh_blocks(self._host_blocks(),
+                                       self.red.active_row_ids, offsets, "all")
 
         latent_row_weights_fn = None
         if lat.downsampling_rate is not None:
             E, S = blocks.labels.shape
-            flat_labels = blocks.labels.reshape(E * S)
+            flat_labels = torch.as_tensor(blocks.labels).to(
+                device=self.device, dtype=self.dtype).reshape(E * S)
             sampler = downsampler_for_task(self.task_type)
 
             def latent_row_weights_fn(it: int):
@@ -602,7 +759,7 @@ class FactoredRandomEffectCoordinate(_EntityCoordinateBase):
                 return keep * w
 
         res = fit_factored_random_effects(
-            blocks, self.loss, None,
+            blocks, self.loss, self.mesh,
             latent_coefficients=model.latent_coefficients,
             projection=model.projection,
             num_inner_iterations=self.config.num_inner_iterations,
@@ -611,7 +768,8 @@ class FactoredRandomEffectCoordinate(_EntityCoordinateBase):
             latent_config=lat.optimizer, latent_reg=lat.regularization,
             latent_reg_weight=_in_dtype(lat.regularization_weight, self.dtype),
             latent_row_weights_fn=latent_row_weights_fn,
-            re_budget=re_budget, latent_budget=latent_budget)
+            re_budget=re_budget, latent_budget=latent_budget,
+            cache_key=self._mesh_key())
         E, S, _ = blocks.x.shape
         self.last_buckets = [BucketSolve((E, S, self.config.latent_dim),
                                          r["re_max_iterations"], r["re_total_iterations"],
@@ -619,6 +777,29 @@ class FactoredRandomEffectCoordinate(_EntityCoordinateBase):
                              for r in res.inner]
         return dataclasses.replace(model, latent_coefficients=res.latent_coefficients,
                                    projection=res.projection), res
+
+    def _host_blocks(self) -> EntityBlocks:
+        """The single-S view of the host blocks (the layout of
+        `red.blocks`), built once: the mesh stages each rank's lanes of
+        it."""
+        if self._host_single_s is None:
+            S = self.red.max_samples
+
+            def cat(get, fill):
+                parts = [get(b.host_blocks) for b in self.red.buckets]
+                if any(p is None for p in parts):
+                    return None
+                return np.concatenate([
+                    np.pad(p, [(0, 0), (0, S - p.shape[1])]
+                           + [(0, 0)] * (p.ndim - 2), constant_values=fill)
+                    for p in parts])
+            from photon_ml_tpu_torch.data.batching import _SAFE_LABEL
+            self._host_single_s = EntityBlocks(
+                x=cat(lambda b: b.x, 0.0),
+                labels=cat(lambda b: b.labels, _SAFE_LABEL),
+                mask=cat(lambda b: b.mask, 0.0),
+                weights=cat(lambda b: b.weights, 0.0))
+        return self._host_single_s
 
     def score(self, model: FactoredRandomEffectModel) -> torch.Tensor:
         """c_e . (P x) == (C @ P)[e] . x: one [E, k] x [k, d] product, then

@@ -15,8 +15,9 @@ training config's) and HBM budgets (`hbm_budget_bytes`: streamed fixed
 effects and residency rotation, game/residency.py; the result's
 `residency` holds the byte accounts).  An `emitter` (utils/events.py)
 receives TrainingStart, OptimizationLog and TrainingFinish events, and an
-armed tracer sees each fit as a `fit` span, as in the JAX package.  Not
-ported yet: meshes (ROADMAP.md queue A item 20).
+armed tracer sees each fit as a `fit` span, as in the JAX package.  With
+a `mesh` (parallel/mesh.py) every rank of it runs the same fit on its
+blocks; the result's `mesh_transfer` holds the bytes this rank staged.
 """
 from __future__ import annotations
 
@@ -73,19 +74,25 @@ class GameResult:
     # per-coordinate block and chunk bytes, evictions, the tracked peak,
     # under_budget and the streamed coordinates' StreamStats
     residency: Optional[dict] = None
+    # bytes this rank staged on a mesh during the fit (a TransferStats
+    # delta: cold/warm bytes and stages, invalidations, retries); None
+    # without a mesh
+    mesh_transfer: Optional[dict] = None
 
 
 class GameEstimator:
     """Trains a GameTrainingConfig on one device (None means cuda, which
     raises without CUDA) in `dtype` (float32 by default, as the JAX
     package computes without x64).  `emitter` receives the fit's
-    training events."""
+    training events.  With a `mesh` the fit runs on the mesh's device, one
+    rank of the mesh in each process."""
 
     def __init__(self, config: GameTrainingConfig, device=None,
                  dtype: torch.dtype = torch.float32,
-                 emitter: Optional[EventEmitter] = None):
+                 emitter: Optional[EventEmitter] = None, mesh=None):
         self.config = config
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(device) if mesh is None else mesh.device
         self.dtype = dtype
         self.emitter = emitter
 
@@ -113,7 +120,8 @@ class GameEstimator:
                 cfg = dataclasses.replace(cfg, optimization=dataclasses.replace(
                     cfg.optimization, optimizer=opt))
             kw = dict(device=self.device, dtype=self.dtype, seed=self.config.seed,
-                      hbm_budget_bytes=self.config.hbm_budget_bytes)
+                      hbm_budget_bytes=self.config.hbm_budget_bytes,
+                      mesh=self.mesh)
             if isinstance(cfg, FixedEffectCoordinateConfig):
                 kind = FixedEffectCoordinate
             elif isinstance(cfg, FactoredRandomEffectCoordinateConfig):
@@ -136,7 +144,7 @@ class GameEstimator:
         flat += sum(4 * n for c in self.config.coordinates.values()
                     if hasattr(c, "random_effect_type"))
         return ResidencyManager(coords, self.config.hbm_budget_bytes,
-                                flat_vector_bytes=flat)
+                                flat_vector_bytes=flat, mesh=self.mesh)
 
     def _config_fingerprint(
             self, evaluator_specs: Optional[Sequence[str]]) -> str:
@@ -197,6 +205,11 @@ class GameEstimator:
         fit_span = telemetry.push("fit", task=self.config.task_type,
                                   coordinates=len(self.config.coordinates))
         spans = PhaseTimings()
+        mesh_snap0 = None
+        if self.mesh is not None:
+            from photon_ml_tpu_torch.parallel.mesh_residency import (
+                transfer_snapshot)
+            mesh_snap0 = transfer_snapshot()
         # coordinate construction includes the random-effect bucketing
         with spans.span("build/coordinates", name="build"):
             coords = self._build_coordinates(dataset)
@@ -234,13 +247,19 @@ class GameEstimator:
                 final_metrics=dict(validation)))
             self.emitter.send_event(TrainingFinishEvent(time.time()))
         telemetry.pop(fit_span)
+        mesh_transfer = None
+        if mesh_snap0 is not None:
+            from photon_ml_tpu_torch.parallel.mesh_residency import (
+                TransferStats, transfer_snapshot)
+            mesh_transfer = TransferStats.delta(mesh_snap0, transfer_snapshot())
         return GameResult(model=descent.best_model, config=self.config,
                           objective_history=descent.objective_history,
                           validation=validation, descent=descent,
                           validation_specs=specs,
                           checkpoint_recovery=(resume.recovery if resume is not None
                                                else None),
-                          residency=residency.accounting())
+                          residency=residency.accounting(),
+                          mesh_transfer=mesh_transfer)
 
     def fit_grid(
         self,
@@ -268,7 +287,7 @@ class GameEstimator:
                 coords[n] = dataclasses.replace(coords[n], optimization=opt)
             cfg = dataclasses.replace(self.config, coordinates=coords)
             sub = GameEstimator(cfg, self.device, self.dtype,
-                                emitter=self.emitter)
+                                emitter=self.emitter, mesh=self.mesh)
             combo_ckpt = (None if checkpoint_dir is None else
                           os.path.join(checkpoint_dir, f"combo-{i:03d}"))
             results.append(sub.fit(

@@ -1,5 +1,5 @@
 """HBM residency budget: decide what lives on the device, evict what does
-not fit (port of photon_ml_tpu/game/residency.py, one device).
+not fit (port of photon_ml_tpu/game/residency.py).
 
 The resident trainer pins every coordinate's device blocks (FE feature
 shards, RE entity blocks) for the whole fit.  With a budget
@@ -20,13 +20,16 @@ the hierarchy of Snap ML's memory manager (arXiv:1803.06333):
 The eviction mechanism is the store's (store/handles.py BlockStore: the
 `store.fetch` fault site and the retry discipline on every re-stage); this
 manager keeps the policy: the budget math, the evict-inactive decision and
-the peak accounting.  The JAX package's per-device budget on a mesh waits
-for ROADMAP.md queue A item 20.
+the peak accounting.
+
+On a mesh the budget is PER DEVICE: coordinate blocks shard their leading
+axis over the mesh "data" axis, so each rank holds 1/D of every block.
 """
 from __future__ import annotations
 
 import dataclasses
 import logging
+import math
 from typing import Dict, Optional
 
 from photon_ml_tpu_torch.store.handles import BlockStore
@@ -55,10 +58,13 @@ class ResidencyManager:
 
     def __init__(self, coordinates: Dict[str, object],
                  budget_bytes: Optional[int],
-                 flat_vector_bytes: int = 0):
+                 flat_vector_bytes: int = 0, mesh=None):
         self.budget_bytes = budget_bytes
         self.flat_vector_bytes = flat_vector_bytes
-        self.data_devices = 1
+        # blocks shard their leading axis over the mesh "data" axis: each
+        # rank's device holds 1/D of every block
+        self.data_devices = 1 if mesh is None else mesh.num_data
+        per_dev = lambda b: int(math.ceil(b / self.data_devices))
         self.footprints: Dict[str, CoordinateFootprint] = {}
         self.store = BlockStore()
         self._stream_snapshots = {}
@@ -67,10 +73,11 @@ class ResidencyManager:
             snap_fn = getattr(coord, "stream_snapshot", None)
             if streamed and callable(snap_fn):
                 self._stream_snapshots[name] = snap_fn
-            block_bytes = 0 if streamed else int(coord.device_block_bytes())
+            block_bytes = (0 if streamed
+                           else per_dev(int(coord.device_block_bytes())))
             self.footprints[name] = CoordinateFootprint(
                 name=name, block_bytes=block_bytes, streamed=streamed,
-                chunk_bytes=(int(coord.streaming_buffer_bytes())
+                chunk_bytes=(per_dev(int(coord.streaming_buffer_bytes()))
                              if streamed else 0))
             self.store.register(name, evict=coord.evict_device_blocks,
                                 block_bytes=block_bytes, streamed=streamed)
@@ -130,7 +137,7 @@ class ResidencyManager:
         keys."""
         return {
             "budget_bytes": self.budget_bytes,
-            "per_device": False,
+            "per_device": self.data_devices > 1,
             "data_devices": self.data_devices,
             "flat_vector_bytes": self.flat_vector_bytes,
             "resident_block_bytes": {

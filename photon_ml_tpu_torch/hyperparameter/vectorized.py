@@ -163,6 +163,7 @@ class SweepEvaluator:
         self.config = estimator.config
         self.device = estimator.device
         self.dtype = estimator.dtype
+        self.mesh = getattr(estimator, "mesh", None)
         self.data = data
         self.validation_data = validation_data
         self.evaluator_specs = evaluator_specs
@@ -205,7 +206,9 @@ class SweepEvaluator:
 
     def vmap_eligible(self) -> Tuple[bool, str]:
         """(eligible, reason) for the candidate lane, with the JAX
-        package's reasons (the port has no meshes: item 20)."""
+        package's reasons."""
+        if self.mesh is not None and self.mesh.size > 1:
+            return False, "multi-device mesh (per-coordinate staging path)"
         for name in self.config.updating_sequence:
             c = self.coords[name]
             if isinstance(c, FixedEffectCoordinate):

@@ -5,6 +5,11 @@ PaddedSparse (whose gradient needs its column view on the card).
 
 L1 is absent by design: as in the reference, it is handled inside the OWLQN
 optimizer through pseudo-gradients, not by the objective.
+
+On a mesh each rank holds a row block of the data and `reduce` sums a
+data term over the ranks (parallel/fixed_effect.py: one data-axis
+all_reduce per pass, value and gradient packed into one vector); the L2
+term is added once, after the sum, so it enters once and not per rank.
 """
 from __future__ import annotations
 
@@ -36,6 +41,8 @@ class GLMObjective:
     mask: Optional[torch.Tensor] = None
     norm: Optional[NormalizationContext] = None
     l2_weight: Union[torch.Tensor, float] = 0.0
+    # sums a rank's data term over the mesh's data axis (None: one device)
+    reduce: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
 
     @property
     def dim(self) -> int:
@@ -45,13 +52,21 @@ class GLMObjective:
         return dict(weights=self.weights, offsets=self.offsets,
                     norm=self.norm, mask=self.mask)
 
+    def _summed(self, t: torch.Tensor) -> torch.Tensor:
+        return t if self.reduce is None else self.reduce(t)
+
     def value(self, c: torch.Tensor) -> torch.Tensor:
         v = agg.value_only(self.loss, self.x, self.labels, c, **self._data())
+        if self.reduce is not None:
+            v = self.reduce(v.reshape(1))[0]
         return v + 0.5 * self.l2_weight * torch.dot(c, c)
 
     def value_and_gradient(self, c: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         v, g = agg.value_and_gradient(self.loss, self.x, self.labels, c,
                                       **self._data())
+        if self.reduce is not None:
+            vg = self.reduce(torch.cat([v.reshape(1), g]))
+            v, g = vg[0], vg[1:]
         return v + 0.5 * self.l2_weight * torch.dot(c, c), g + self.l2_weight * c
 
     def hessian_vector(self, c: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -62,7 +77,7 @@ class GLMObjective:
         (TRON's CG steps at one iterate)."""
         hv = agg.hessian_vector_at(self.loss, self.x, self.labels, c,
                                    **self._data())
-        return lambda v: hv(v) + self.l2_weight * v
+        return lambda v: self._summed(hv(v)) + self.l2_weight * v
 
     def hessian_diagonal(self, c: torch.Tensor) -> torch.Tensor:
         """Original-space only: the aggregator has no normalization."""
@@ -73,7 +88,7 @@ class GLMObjective:
         hd = agg.hessian_diagonal(self.loss, self.x, self.labels, c,
                                   weights=self.weights, offsets=self.offsets,
                                   mask=self.mask)
-        return hd + self.l2_weight
+        return self._summed(hd) + self.l2_weight
 
     def replace(self, **kw) -> "GLMObjective":
         return dataclasses.replace(self, **kw)

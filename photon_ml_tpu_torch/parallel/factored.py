@@ -14,7 +14,11 @@ from X and the per-row latent factors, and the solve is the single GLM
 solve of optim/config.py.  The random draws (the Gaussian projection) come
 from utils/prng.py's copy of JAX's threefry, so they are the JAX package's.
 
-A mesh (ROADMAP.md queue A item 20) raises.
+On a mesh (parallel/mesh.py) the entity lanes shard over "data" as in
+parallel/random_effect.py: each rank solves its lanes' latent problems
+(the latent table assembled by one all_reduce), and the Kronecker refit
+is a data-parallel GLM over its lanes' rows, one data-axis all_reduce per
+pass, so P comes out equal on every rank.
 """
 from __future__ import annotations
 
@@ -33,11 +37,10 @@ from photon_ml_tpu_torch.optim.config import (
     OptimizerConfig, RegularizationContext, solve,
 )
 from photon_ml_tpu_torch.optim.types import SolveResult
-from photon_ml_tpu_torch.parallel.random_effect import EntityBlocks, fit_random_effects
+from photon_ml_tpu_torch.parallel.random_effect import (
+    EntityBlocks, assemble_lanes, fit_random_effects, stage_entity_blocks,
+)
 from photon_ml_tpu_torch.utils import prng
-
-_NO_MESH = ("the latent projection refit on a mesh is not ported yet "
-            "(ROADMAP.md queue A item 20: multi-GPU training); pass mesh=None")
 
 
 def gaussian_projection_matrix(
@@ -124,9 +127,12 @@ def refit_latent_projection(
     warm-started from the current P.  `row_weights` multiply the rows'
     weights (the latent down-sampling); `budget` (optim/schedule.py
     SolveBudget) caps the solve.  reference:
-    FactoredRandomEffectCoordinate.updateLatentProjectionMatrix."""
-    if mesh is not None:
-        raise NotImplementedError(_NO_MESH)
+    FactoredRandomEffectCoordinate.updateLatentProjectionMatrix.
+
+    On a mesh, `blocks`, `latent_coefficients` and `row_weights` are this
+    rank's lanes and their rows, and the solve sums its data terms over the
+    data axis."""
+    from photon_ml_tpu_torch.parallel.fixed_effect import data_reducer
     E, S, d = blocks.x.shape
     k = latent_coefficients.shape[1]
     n = E * S
@@ -137,7 +143,8 @@ def refit_latent_projection(
     offsets = None if blocks.offsets is None else blocks.offsets.reshape(n)
     design = KroneckerDesign(blocks.x.reshape(n, d), factors)
     obj = GLMObjective(loss, design, blocks.labels.reshape(n), weights=weights,
-                       offsets=offsets, mask=blocks.mask.reshape(n))
+                       offsets=offsets, mask=blocks.mask.reshape(n),
+                       reduce=None if mesh is None else data_reducer(mesh))
     res = solve(obj, projection.reshape(-1), config, reg, reg_weight, budget=budget)
     return res.x.reshape(k, d), res
 
@@ -159,6 +166,7 @@ def fit_factored_random_effects(
     latent_row_weights_fn: Optional[Callable[[int], Optional[torch.Tensor]]] = None,
     re_budget=None,
     latent_budget=None,
+    cache_key=None,
 ) -> FactoredSolveResult:
     """The alternation (reference: FactoredRandomEffectCoordinate
     .updateModel): `num_inner_iterations` rounds of the per-entity latent
@@ -166,21 +174,37 @@ def fit_factored_random_effects(
     supplies the refit's per-row sampling weights (a fresh draw per inner
     iteration, as runWithSampling).  `re_budget`/`latent_budget`
     (optim/schedule.py SolveBudget) cap every round's latent-space and
-    projection solves."""
-    if mesh is not None:
-        raise NotImplementedError(_NO_MESH)
+    projection solves.
+
+    On a mesh the blocks' lanes stage per rank under `cache_key`; the
+    returned latent coefficients and result are the full [E]-leading ones
+    on every rank."""
     C, P = latent_coefficients, projection
+    E = blocks.x.shape[0]
+    lanes = lambda a: a
+    if mesh is not None:
+        from photon_ml_tpu_torch.parallel.mesh_residency import default_residency
+        key = cache_key if cache_key is not None else ("factored", "anon")
+        blocks = stage_entity_blocks(blocks, mesh, key, P.dtype)
+        lanes = lambda a: default_residency().stage_update(
+            mesh, a, 0.0, dtype=P.dtype, key=key, field="lanes")
+    C_local = lanes(C)
     re_res = lat_res = None
     inner: List[dict] = []
     for it in range(num_inner_iterations):
         t0 = time.perf_counter()
-        re_res = fit_random_effects(project_blocks(blocks, P), loss, None, x0=C,
-                                    config=re_config, reg=re_reg,
+        re_res = fit_random_effects(project_blocks(blocks, P), loss, None,
+                                    x0=C_local, config=re_config, reg=re_reg,
                                     reg_weight=re_reg_weight, budget=re_budget)
+        C_local = re_res.x
+        if mesh is not None:
+            re_res = assemble_lanes(mesh, re_res, E)
         C = re_res.x
         t1 = time.perf_counter()
         rw = latent_row_weights_fn(it) if latent_row_weights_fn else None
-        P, lat_res = refit_latent_projection(blocks, C, P, loss, None, latent_config,
+        if rw is not None and mesh is not None:
+            rw = lanes(rw.reshape(E, -1)).reshape(-1)
+        P, lat_res = refit_latent_projection(blocks, C_local, P, loss, mesh, latent_config,
                                              latent_reg, latent_reg_weight, row_weights=rw,
                                              budget=latent_budget)
         inner.append({"re_rounds": re_res.rounds,

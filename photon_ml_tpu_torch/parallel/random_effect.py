@@ -9,8 +9,12 @@ contribute nothing (where(), not a product).  d is the per-entity projected
 dimension (the index-map projector gathers each entity's observed features
 into a dense local space).
 
-Multi-GPU entity sharding is ROADMAP.md queue A item 20: `mesh` must be
-None.
+On a mesh (parallel/mesh.py) the entity lanes shard over "data": a block's
+lanes pad to a data-axis multiple with all-masked lanes, each rank stages
+its own lanes once per coordinate (the mesh residency layer; offsets and
+x0 per visit) and solves them in one batched solve, and the [E]-leading
+results are assembled on every rank by ONE data-axis all_reduce of a
+zero-filled table in which each rank wrote its lanes.
 """
 from __future__ import annotations
 
@@ -167,6 +171,45 @@ def lanes_hessian_vector_at(
     return hv
 
 
+def stage_entity_blocks(blocks: EntityBlocks, mesh, key, dtype,
+                        residency=None) -> EntityBlocks:
+    """This rank's lanes of `blocks` (host numpy or device leaves), padded
+    with all-masked lanes (label 0.5): the static leaves staged once under
+    `key` (anchored on each leaf's identity), the offsets per visit."""
+    from photon_ml_tpu_torch.parallel.mesh_residency import default_residency
+    res = residency if residency is not None else default_residency()
+    static = lambda field, a, fill: res.stage_static(key, field, mesh, a, fill,
+                                                     dtype=dtype)
+    return EntityBlocks(
+        x=static("x", blocks.x, 0.0), labels=static("labels", blocks.labels, 0.5),
+        mask=static("mask", blocks.mask, 0.0),
+        weights=static("weights", blocks.weights, 0.0),
+        offsets=res.stage_update(mesh, blocks.offsets, 0.0, dtype=dtype,
+                                 key=key, field="offsets"))
+
+
+def assemble_lanes(mesh, result: SolveResult, num_entities: int) -> SolveResult:
+    """Every rank's [E_local]-leading result fields -> the [E]-leading
+    result on every rank, by ONE data-axis all_reduce of a zero-filled
+    float64 table (exact for every field's dtype) in which each rank wrote
+    its lanes.  Host counts (rounds, read-backs) stay this rank's."""
+    fields = [f.name for f in dataclasses.fields(SolveResult)
+              if isinstance(getattr(result, f.name), torch.Tensor)]
+    parts = [getattr(result, f) for f in fields]
+    e_local = parts[0].shape[0]
+    flat = [p.reshape(e_local, -1) for p in parts]
+    table = mesh.assemble(torch.cat([p.to(torch.float64) for p in flat], dim=1),
+                          num_entities)
+    out = dataclasses.replace(result)
+    col = 0
+    for f, p, fl in zip(fields, parts, flat):
+        w = fl.shape[1]
+        setattr(out, f, table[:, col: col + w].to(p.dtype).reshape(
+            (num_entities,) + tuple(p.shape[1:])))
+        col += w
+    return out
+
+
 def fit_random_effects(
     blocks: EntityBlocks,
     loss: PointwiseLoss,
@@ -176,15 +219,27 @@ def fit_random_effects(
     reg: RegularizationContext = RegularizationContext(),
     reg_weight: float = 0.0,
     budget=None,
+    cache_key=None,
 ) -> SolveResult:
     """All per-entity solves of one block as one batched solve.  Returns a
     SolveResult whose fields have a leading [E] axis (x: [E, d], value:
     [E], ...).  One lambda and one `budget` (optim/schedule.py
-    SolveBudget) are shared by every entity.  x0 is not written."""
+    SolveBudget) are shared by every entity.  x0 is not written.
+
+    On a mesh, this rank's lanes stage under `cache_key` (the
+    coordinate's key and bucket), solve in x0's dtype and are assembled
+    with the other ranks' into the full result on every rank."""
     if mesh is not None:
-        raise NotImplementedError(
-            "random effects on a mesh are not ported yet (ROADMAP.md queue "
-            "A item 20: multi-GPU training); pass mesh=None")
+        E = blocks.x.shape[0]
+        dtype = x0.dtype
+        key = cache_key if cache_key is not None else ("re", "anon")
+        local = stage_entity_blocks(blocks, mesh, key, dtype)
+        from photon_ml_tpu_torch.parallel.mesh_residency import default_residency
+        x0_local = default_residency().stage_update(
+            mesh, x0, 0.0, dtype=dtype, key=key, field="x0")
+        res = fit_random_effects(local, loss, None, x0_local, config, reg,
+                                 reg_weight, budget)
+        return assemble_lanes(mesh, res, E)
     E, _, d = blocks.x.shape
     if x0 is None:
         x0 = torch.zeros((E, d), dtype=blocks.x.dtype, device=blocks.x.device)

@@ -9,9 +9,9 @@ for training and for serving entity tables past the device budget.
     JAX package's).  Tenants: the serving scorer, delta swaps and audit
     readers.
   * `BlockStore` / `BlockHandle` (store/handles.py) — the block handles
-    game/residency.py rotates training residency through.  The JAX
-    package's `ResidencyRegistry` (mesh staging) waits for ROADMAP.md
-    queue A item 20.
+    game/residency.py rotates training residency through, and
+    `ResidencyRegistry`, the keyed registry the mesh staging layer
+    (parallel/mesh_residency.py) keeps its entries in.
   * `with_retries` / `StoreStats` / `StoreError` (store/base.py) — the
     shared transient/fatal retry discipline and tier accounting; fault
     sites `store.fetch` / `store.promote` / `store.spill`.
@@ -21,10 +21,12 @@ from photon_ml_tpu_torch.store.base import (StoreError, StoreStats,  # noqa: F40
 from photon_ml_tpu_torch.store.cold import ColdStore, ColdStoreError  # noqa: F401
 from photon_ml_tpu_torch.store.entity import (StoreConfig,  # noqa: F401
                                               TieredEntityStore, store_totals)
-from photon_ml_tpu_torch.store.handles import BlockHandle, BlockStore  # noqa: F401
+from photon_ml_tpu_torch.store.handles import (BlockHandle, BlockStore,  # noqa: F401
+                                               ResidencyRegistry)
 
 __all__ = [
-    "BlockHandle", "BlockStore", "ColdStore", "ColdStoreError", "StoreConfig",
+    "BlockHandle", "BlockStore", "ColdStore", "ColdStoreError",
+    "ResidencyRegistry", "StoreConfig",
     "StoreError", "StoreStats", "TieredEntityStore", "store_totals",
     "with_retries",
 ]

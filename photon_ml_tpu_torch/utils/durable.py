@@ -10,8 +10,11 @@ on top: every data file fsynced, then a per-file size+sha256
 manifest.json written LAST with the same atomic discipline
 (game/coordinate_descent.py's resume verifies it).
 
-The port runs one process (multi-GPU runs are ROADMAP.md queue A item 20),
-so there is no primary-process guard here.
+On a multi-process run every process would race the same `state.json`
+replace, so the helpers are no-ops on non-primary processes
+(`parallel/multihost.py::is_primary`, process id != 0); pass
+``all_process=True`` for genuinely per-process files (the multihost
+watchdog's heartbeats).
 """
 from __future__ import annotations
 
@@ -19,6 +22,12 @@ import hashlib
 import json
 import os
 from typing import Callable, Optional
+
+
+def _is_primary() -> bool:
+    # lazy import: multihost reads only its own state and the environment
+    from photon_ml_tpu_torch.parallel import multihost
+    return multihost.is_primary()
 
 
 def fsync_file(path: str) -> None:
@@ -48,13 +57,16 @@ def file_sha256(path: str) -> str:
 
 
 def atomic_write_text(path: str, text: str, fsync: bool = True,
-                      before_replace: Optional[Callable[[], None]] = None) -> None:
+                      before_replace: Optional[Callable[[], None]] = None,
+                      all_process: bool = False) -> None:
     """Write `text` to `path` via tmp + fsync + atomic replace.  A crash at
     any point leaves either the old complete file or the new complete file,
     plus at worst a `{path}.tmp`.  `before_replace` runs between the fsync
     and the rename: the hook checkpointing uses to place its
     `checkpoint.fsync` fault-injection site at the canonical torn-write
-    instant."""
+    instant.  No-op on non-primary processes unless `all_process`."""
+    if not all_process and not _is_primary():
+        return
     tmp = path + ".tmp"
     with open(tmp, "w") as f:
         f.write(text)
@@ -69,14 +81,18 @@ def atomic_write_text(path: str, text: str, fsync: bool = True,
 
 
 def atomic_write_json(path: str, obj, indent: int = 2, fsync: bool = True,
-                      before_replace: Optional[Callable[[], None]] = None) -> None:
+                      before_replace: Optional[Callable[[], None]] = None,
+                      all_process: bool = False) -> None:
     atomic_write_text(path, json.dumps(obj, indent=indent), fsync=fsync,
-                      before_replace=before_replace)
+                      before_replace=before_replace, all_process=all_process)
 
 
-def atomic_write_bytes(path: str, data: bytes, fsync: bool = True) -> None:
+def atomic_write_bytes(path: str, data: bytes, fsync: bool = True,
+                       all_process: bool = False) -> None:
     """Binary twin of atomic_write_text: tmp + fsync + atomic replace, so a
     crash mid-write leaves either the old or the new complete file."""
+    if not all_process and not _is_primary():
+        return
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
         f.write(data)
@@ -88,11 +104,14 @@ def atomic_write_bytes(path: str, data: bytes, fsync: bool = True) -> None:
         fsync_dir(os.path.dirname(path) or ".")
 
 
-def append_text(path: str, text: str, fsync: bool = True) -> None:
+def append_text(path: str, text: str, fsync: bool = True,
+                all_process: bool = False) -> None:
     """Durable append for record logs.  Appends are not atomic the way
     replace is: a crash mid-append leaves a torn tail, so every appended
     record must carry its own integrity check.  The fsync makes every
     record that did append completely survive the crash."""
+    if not all_process and not _is_primary():
+        return
     with open(path, "a") as f:
         f.write(text)
         f.flush()
@@ -100,10 +119,13 @@ def append_text(path: str, text: str, fsync: bool = True) -> None:
             os.fsync(f.fileno())
 
 
-def write_marker(path: str, fsync: bool = True) -> None:
+def write_marker(path: str, fsync: bool = True,
+                 all_process: bool = False) -> None:
     """Create an empty completion marker (`_SUCCESS`) durably: the directory
     is fsynced after creation, so the marker never becomes durable before
     the data it vouches for."""
+    if not all_process and not _is_primary():
+        return
     with open(path, "w"):
         pass
     if fsync:
@@ -111,10 +133,12 @@ def write_marker(path: str, fsync: bool = True) -> None:
         fsync_dir(os.path.dirname(path) or ".")
 
 
-def write_manifest(dirpath: str) -> None:
+def write_manifest(dirpath: str, all_process: bool = False) -> None:
     """Scan `dirpath` and write manifest.json LAST (tmp + rename + fsync):
     the completeness marker a checkpoint resume verifies.  Every data file
     is fsynced first, so a verifying manifest implies durable contents."""
+    if not all_process and not _is_primary():
+        return
     files = {}
     for root, _, names in os.walk(dirpath):
         for fn in sorted(names):

@@ -190,21 +190,29 @@ def test_scores_match_jax(runs, name):
         assert [r["modelId"] for r in prec] == [r["modelId"] for r in jrec]
 
 
+# flags that exited naming item 20 until multi-GPU training was ported:
+# they now reach the multi-process layer, which exits naming what is wrong
+# with a bad invocation before any process group starts (their runs:
+# test_torch_multihost.py)
 UNPORTED = {
-    "--coordinator": (["--coordinator", "localhost:1"], 20),
-    "--num-processes": (["--num-processes", "2"], 20),
-    "--process-id": (["--process-id", "0"], 20),
-    "--mesh 2x1": (["--mesh", "2x1"], 20),
+    "--coordinator": (["--coordinator", "nohost", "--num-processes", "2",
+                       "--process-id", "0"], "HOST:PORT"),
+    "--num-processes": (["--num-processes", "2"], "requires a coordinator"),
+    "--process-id": (["--process-id", "3", "--num-processes", "2",
+                      "--coordinator", "127.0.0.1:1"], "out of range"),
+    "--mesh 2x1": (["--mesh", "2x1", "--dist-backend", "nccl"], "NCCL ranks need"),
 }
 
 
 @pytest.mark.parametrize("flag", list(UNPORTED))
 def test_unported_flags_exit_naming_their_item(tmp_path, flag):
-    extra, item = UNPORTED[flag]
+    from photon_ml_tpu_torch.parallel import multihost
+    extra, message = UNPORTED[flag]
     with pytest.raises(SystemExit) as e:
         train_cli.main(["--train-data", "x.npz", "--output-dir", str(tmp_path),
                         "--device", "cpu", *extra])
-    assert f"item {item}" in str(e.value) and flag.split()[0] in str(e.value)
+    assert message in str(e.value)
+    assert not multihost.group_started()
 
 
 TELEMETRY_FLAGS = ("--event-listener", "--trace-out", "--run-log", "--profile")

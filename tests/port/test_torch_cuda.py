@@ -1534,3 +1534,93 @@ def test_front_import_leaves_cuda_uninitialised(cuda):
                          env={**__import__("os").environ, "PYTHONPATH": str(root)})
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "False"
+
+
+_MESH_RANK = """
+import json, sys
+import numpy as np
+import torch
+sys.path.insert(0, {root!r})
+from photon_ml_tpu_torch.ops import hopper_kernels as hk
+from photon_ml_tpu_torch.ops.losses import LOGISTIC
+from photon_ml_tpu_torch.ops.objective import GLMObjective
+from photon_ml_tpu_torch.optim.config import (OptimizerConfig, RegularizationContext,
+                                              RegularizationType)
+from photon_ml_tpu_torch.parallel import fit_fixed_effect, make_mesh, multihost
+rank = int(sys.argv[1])
+multihost.initialize(sys.argv[2], 2, rank, backend="gloo", device="cuda:0", timeout_s=120)
+rng = np.random.default_rng(3)
+x = rng.normal(size=(20_001, 31)).astype(np.float32)
+y = (rng.uniform(size=20_001) < 0.5).astype(np.float32)
+mesh = make_mesh(2, 1, device="cuda:0")
+obj = GLMObjective(LOGISTIC, x, torch.as_tensor(y, device="cuda"))
+hk.LAUNCHES = 0
+res = fit_fixed_effect(obj, torch.zeros(31, device="cuda"), mesh,
+                       OptimizerConfig(max_iterations=30),
+                       RegularizationContext(RegularizationType.L2), 1.0)
+print(json.dumps({{"x": res.x.cpu().tolist(), "fg": res.fg_count, "launches": hk.LAUNCHES,
+                  "history": res.loss_history[:res.iterations + 1].tolist()}}))
+multihost.shutdown()
+"""
+
+
+def _mesh_ranks(code, root):
+    import subprocess
+    import sys
+    from photon_ml_tpu_torch.parallel import multihost
+    addr = f"127.0.0.1:{multihost.free_port()}"
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(r), addr], cwd=root,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in (0, 1)]
+    return [p.communicate(timeout=300) + (p.returncode,) for p in procs]
+
+
+def test_two_gloo_ranks_on_one_card_run_the_fused_kernel_per_shard(cuda):
+    """Two ranks of a gloo group on cuda:0, each with half the rows: one
+    launch of the fused kernel per value+gradient pass on each rank, the
+    ranks' solutions bit-equal, and the fit within 1e-5 of one device's."""
+    import json
+    from pathlib import Path
+    from photon_ml_tpu_torch.ops.losses import LOGISTIC
+    from photon_ml_tpu_torch.ops.objective import GLMObjective
+    from photon_ml_tpu_torch.optim.config import (OptimizerConfig, RegularizationContext,
+                                                  RegularizationType, solve)
+    root = str(Path(__file__).resolve().parents[2])
+    runs = _mesh_ranks(_MESH_RANK.format(root=root), root)
+    assert [rc for _, _, rc in runs] == [0, 0], [err[-1500:] for _, err, _ in runs]
+    r0, r1 = (json.loads(out.strip().splitlines()[-1]) for out, _, _ in runs)
+    assert r0["x"] == r1["x"] and r0["history"] == r1["history"]
+    assert r0["launches"] == r0["fg"] == r1["launches"] > 0
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.normal(size=(20_001, 31)).astype(np.float32)).cuda()
+    y = torch.from_numpy((rng.uniform(size=20_001) < 0.5).astype(np.float32)).cuda()
+    one = solve(GLMObjective(LOGISTIC, x, y), torch.zeros(31, device="cuda"),
+                OptimizerConfig(max_iterations=30),
+                RegularizationContext(RegularizationType.L2), 1.0)
+    np.testing.assert_allclose(r0["history"][-1], one.loss_history[one.iterations].item(),
+                               rtol=1e-5)
+
+
+_NCCL_RANK = """
+import sys
+sys.path.insert(0, {root!r})
+from photon_ml_tpu_torch.parallel import multihost
+try:
+    multihost.initialize(sys.argv[2], 2, int(sys.argv[1]), backend="nccl",
+                         device="cuda:0", timeout_s=60)
+except multihost.MultihostInitError as e:
+    print(e)
+    sys.exit(3)
+sys.exit(0)
+"""
+
+
+def test_two_nccl_ranks_on_one_card_raise(cuda):
+    """NCCL cannot run two ranks on one card: bring-up refuses before NCCL
+    starts, naming gloo; nothing switches backend by itself."""
+    from pathlib import Path
+    root = str(Path(__file__).resolve().parents[2])
+    runs = _mesh_ranks(_NCCL_RANK.format(root=root), root)
+    for out, err, rc in runs:
+        assert rc == 3, err[-1500:]
+        assert "NCCL cannot run two ranks on one card" in out and "gloo" in out

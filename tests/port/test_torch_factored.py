@@ -169,9 +169,6 @@ def test_refit_latent_projection(jax_results, problem, rows):
     assert res.iterations == int(j("iterations")) and res.fg_count == int(j("fg_count"))
     np.testing.assert_allclose(res.loss_history[:res.iterations + 1].numpy(),
                                j("loss_history")[:res.iterations + 1], rtol=1e-9)
-    with pytest.raises(NotImplementedError, match="item 20"):
-        fac.refit_latent_projection(_blocks(problem), problem["latent"],
-                                    problem["projection"], LOGISTIC, mesh=object())
 
 
 def test_alternation_matches_jax(jax_results, problem):

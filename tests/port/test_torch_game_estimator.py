@@ -269,9 +269,8 @@ def _opt(reg=RegularizationType.L2, **kw):
                                  regularization_weight=1.0)
 
 
-# case -> (config change, what the error says); the TRON cases break the
-# JAX package's rules (ValueError), the rest name their ROADMAP item
-# (NotImplementedError)
+# case -> (config change, what the error says): each breaks one of the JAX
+# package's rules (ValueError); shard_features=True needs a mesh
 UNPORTED = {
     "re_tron": (dict(re=dict(optimization=_opt(RegularizationType.L1,
                                                optimizer=OptimizerType.TRON))),
@@ -279,7 +278,7 @@ UNPORTED = {
     "re_box": (dict(re=dict(optimization=_opt(optimizer=OptimizerType.TRON,
                                               box_lower=(-1.0,) * 19))),
                "box constraints are an LBFGS feature"),
-    "fe_shard_features": (dict(fe=dict(shard_features=True)), "item 20"),
+    "fe_shard_features": (dict(fe=dict(shard_features=True)), "shard_features=True but no mesh"),
 }
 
 
@@ -292,8 +291,7 @@ def test_unported_options_raise_naming_their_item(data, config, case):
         if key in change:
             coords[name] = dataclasses.replace(coords[name], **change[key])
     cfg = dataclasses.replace(config, coordinates=coords)
-    error = ValueError if case in ("re_tron", "re_box") else NotImplementedError
-    with pytest.raises(error, match=match):
+    with pytest.raises(ValueError, match=match):
         GameEstimator(cfg, device="cpu", dtype=torch.float64).fit(train, val)
 
 
@@ -335,10 +333,17 @@ def test_formerly_unported_options_now_fit(data, config, case):
 
 @pytest.mark.parametrize("what", ["admm_json"])
 def test_unported_fit_modes_raise(data, config, what, tmp_path):
+    """The ADMM block, refused on load until the lane was ported, loads and
+    is consulted only on a mesh with a feature axis: without a mesh the
+    fit is the plain one."""
     d = side.glmix_config_dict()
     d["coordinates"]["fixed"]["optimization"]["admm"] = {"rho": 1.0}
-    with pytest.raises(NotImplementedError):
-        GameTrainingConfig.from_dict(d)
+    cfg = dataclasses.replace(GameTrainingConfig.from_dict(d), num_outer_iterations=1)
+    assert cfg.coordinates["fixed"].optimization.admm.rho == 1.0
+    plain = dataclasses.replace(config, num_outer_iterations=1)
+    train, _ = data
+    fit = lambda c: GameEstimator(c, device="cpu", dtype=torch.float64).fit(train)
+    assert fit(cfg).objective_history == fit(plain).objective_history
 
 
 @pytest.mark.parametrize("what", ["checkpoint_dir", "config_schedule", "hbm_budget"])

@@ -211,9 +211,19 @@ def test_batched_hessian_vector_is_masked_glm_hessian_vector(case):
 
 
 def test_mesh_raises():
-    blocks, _ = _blocks("logistic_l2")
-    with pytest.raises(NotImplementedError, match="item 20"):
-        tre.fit_random_effects(blocks, TL.LOGISTIC, mesh=object())
+    """A mesh, refused until entity sharding was ported, now solves: on a
+    1x1 mesh (no process group) the batched solve is the one without a
+    mesh, bit for bit (multi-rank meshes: test_torch_mesh.py)."""
+    from photon_ml_tpu_torch.parallel import make_mesh
+    blocks, x0 = _blocks("logistic_l2")
+    x0 = torch.zeros((blocks.num_entities, blocks.dim), dtype=blocks.x.dtype)
+    plain = tre.fit_random_effects(blocks, TL.LOGISTIC, None, x0=x0)
+    meshed = tre.fit_random_effects(blocks, TL.LOGISTIC, make_mesh(1, 1, device="cpu"),
+                                    x0=x0, cache_key=("solver-test",))
+    for f in ("x", "value", "iterations", "loss_history"):
+        # NaN past each lane's last iteration: array_equal's NaN rule
+        np.testing.assert_array_equal(getattr(meshed, f).numpy(),
+                                      getattr(plain, f).numpy(), err_msg=f)
 
 
 def test_zero_iterations_and_empty_batch():

@@ -72,6 +72,11 @@ REQUIRED = ("photon_ml_tpu_torch.ops.features", "photon_ml_tpu_torch.ops.sparse_
             "photon_ml_tpu_torch.refit.compactor", "photon_ml_tpu_torch.refit.driver",
             "photon_ml_tpu_torch.refit.trigger", "photon_ml_tpu_torch.cli.refit",
             "photon_ml_tpu_torch.fleet.replica", "photon_ml_tpu_torch.fleet.front",
+            "photon_ml_tpu_torch.parallel", "photon_ml_tpu_torch.parallel.mesh",
+            "photon_ml_tpu_torch.parallel.mesh_residency",
+            "photon_ml_tpu_torch.parallel.multihost", "photon_ml_tpu_torch.optim.admm",
+            "photon_ml_tpu_torch.parallel.fixed_effect",
+            "photon_ml_tpu_torch.parallel.random_effect",
             "chip_smoke")
 
 
