@@ -31,9 +31,10 @@ Phases, one JSON object per line on stdout:
      float64 objective of the solution must be within 1e-5 relative of the
      scipy reference optimum stored in bench_ref_cache.json; then a second,
      warm solve (not counted) for the steady-state solve time;
-  6. profile: the main path once more under torch.profiler, for the
-     device's busy and idle time and the largest device and host items;
-     the kernel must show one device launch per value+gradient pass;
+  6. profile: the main path once more under torch.profiler (the device
+     alone, as every gated window), for the device's busy and idle time
+     and the largest device items; the kernel must show one device launch
+     per value+gradient pass;
   7. glmix: BASELINE config 4 at full size through GameEstimator.fit on
      cuda in float32: make_movielens_like("1m", seed=11, 1,000,209 rows),
      95/5 split, a fixed effect on "global" (d = 31) and a per-user random
@@ -106,6 +107,20 @@ Phases, one JSON object per line on stdout:
      beside their gather floors (torch.index_select of c by the ELL
      indices, of u by csc_row), A's plan and ptxas line, with bounds from
      this input's bytes;
+ 14b. bf16 (after config6): BASELINE config 1's and bench config 6's
+     bf16 entries (bench.py:294-306, :891-900): config 1's host data and
+     config 6's matrix with the features stored bfloat16 (exact: 0/1 and
+     1.0) through train_glm, LBFGS(100) and LBFGS(200), tol 1e-9, L2
+     lambda 1: each fit's float64 objective within 1e-5 relative of the
+     f32 entry's scipy optimum, the fused kernel's bf16 launches equal to
+     fg_count, A's and B's bf16 launches each equal to fg_count and no
+     other kernel launched; the bf16 fused kernel (four losses, plain and
+     weights+offsets) at config 1's shape and A (both modes) and B (both
+     powers) at config 6's against their plain versions on the same bf16
+     inputs, with the f32 checks' tolerances; each timed beside its bound
+     and library call (two cuBLAS bf16 torch.mv; cuSPARSE SpMV on the bf16
+     CSR values), and the Hessian-vector product on the bf16 X; the
+     phase's own seconds;
  15. yahoo_glmix: bench config 7 (bench.py _yahoo_setup) at full size,
      make_yahoo_like(300,000, seed=23), 95/5 split, a fixed effect on the
      14,983-column sparse shard and per-user and per-item random effects
@@ -247,8 +262,8 @@ Phases, one JSON object per line on stdout:
      GameEstimator.fit, the lanes kernel's launches equal to the fixed
      effect's rounds, no single-kernel launch in the sweep, the sweep's
      wall at most 8 x the median isolated fit; each visit's rounds,
-     read-backs and seconds, the peak allocated, and one outer iteration
-     profiled on the device alone; then evaluate_path over 4 candidates,
+     read-backs and seconds and the peak allocated; then evaluate_path
+     over 4 candidates,
      warm against cold (bench.py's <= 1.02 bound), single-kernel launches
      equal to the path's FE passes;
  27. cli_tuning (after cli_game, on its npz files): cli.train --tuning
@@ -351,8 +366,9 @@ Phases, one JSON object per line on stdout:
      that record (equal bit for bit); prints per-rank walls, launches,
      collectives by axis and staged cold and warm bytes;
  33. the kernels line (launches by path, the CLI, inexact, streamed,
-     sweep, diagnostics and mesh paths included), nvidia-smi's line, and
-     the final result line.
+     sweep, diagnostics and mesh paths included; the bf16 instantiations
+     as entries of their own), nvidia-smi's line, and the final result
+     line.
 Exits non-zero, before printing any result, when CUDA is absent or when
 the port's package is not beside this script.
 """
@@ -474,13 +490,14 @@ def ptxas_summary(log: str) -> list:
                       r"Used (\d+) registers.*?(\d+) bytes smem", log, re.S)
 
 
-def margin_ptxas(plan, loss_id: int) -> list:
+def margin_ptxas(plan, loss_id: int, vbytes: int = 4) -> list:
     """nvcc's -Xptxas -v line(s) for kernel A's instantiation that `plan`
-    launches for loss `loss_id`: (entry, registers, spill bytes, static
-    smem bytes)."""
+    launches for loss `loss_id` on values of `vbytes` bytes (float32 or
+    bf16): (entry, registers, spill bytes, static smem bytes)."""
     from photon_ml_tpu_torch.ops import _build
     log = _build.library_path("ell_sparse").with_suffix(".log").read_text()
     arg = f"Li{loss_id}E" if loss_id >= 0 else f"Lin{-loss_id}E"
+    arg += "f" if vbytes == 4 else "13__nv_bfloat16"
     want = (f"ell_margin_lossI{arg}E" if plan.c_in_smem
             else f"ell_margin_loss_lanesI{arg}E")
     return [e for e in ptxas_summary(log) if want in e[0]]
@@ -637,14 +654,17 @@ def time_full(hk, loss, x, y, o=None, w=None, m=None, s=None):
     host's enqueue time does not count), each call with its own perturbed
     coefficients.  `o`, `w`, `m`, `s`: offsets, weights, row mask and
     shifts, passed to the kernel and its plain version (the library call
-    takes the offsets and, with a mask, one torch.where)."""
+    takes the offsets and, with a mask, one torch.where).  With a bf16 X
+    the library call is two cuBLAS bf16 torch.mv with c and u rounded to
+    bf16 (rounded before the timed window): the same bytes of X, a near
+    function."""
     import torch
     n, d = x.shape
     base = torch.linspace(-0.1, 0.1, d, device="cuda", dtype=torch.float32)
-    u = torch.linspace(-1.0, 1.0, n, device="cuda", dtype=torch.float32)
+    u = torch.linspace(-1.0, 1.0, n, device="cuda", dtype=torch.float32).to(x.dtype)
     batch = 10
     times = {"ms": [], "plain_ms": [], "library_ms": []}
-    zero = torch.zeros((), device="cuda")
+    zero = torch.zeros((), device="cuda", dtype=x.dtype)
     calls = {
         "ms": lambda c: hk.fused_value_and_gradient(loss, x, y, c, w, o, m, s),
         "plain_ms": lambda c: hk.fused_value_and_gradient_plain(loss, x, y, c, w, o, m, s),
@@ -653,16 +673,17 @@ def time_full(hk, loss, x, y, o=None, w=None, m=None, s=None):
     }
     for r in range(REPS + 2):  # the first two rounds warm up
         cs = [base + 1e-6 * (r * batch + i + 1) for i in range(batch)]
+        args = {"ms": cs, "plain_ms": cs, "library_ms": [c.to(x.dtype) for c in cs]}
         for key, call in calls.items():
-            ms = cuda_ms(lambda: [call(c) for c in cs]) / batch
+            ms = cuda_ms(lambda: [call(c) for c in args[key]]) / batch
             if r >= 2:
                 times[key].append(ms)
     med = {k: statistics.median(v) for k, v in times.items()}
-    # least the card could take: read X, y (o, w, m), c (s) once, write
-    # value+grad once; 4*n*d flops (margin and gradient multiply-adds) at
-    # the f32 peak
-    nbytes = 4 * (n * d + n + d + d + 1 + n * sum(t is not None for t in (o, w, m))
-                  + (0 if s is None else d))
+    # least the card could take: read X (its storage's bytes), y (o, w, m),
+    # c (s) once, write value+grad once; 4*n*d flops (margin and gradient
+    # multiply-adds) at the f32 peak
+    nbytes = x.element_size() * n * d + 4 * (
+        n + d + d + 1 + n * sum(t is not None for t in (o, w, m)) + (0 if s is None else d))
     flops = 4 * n * d
     bound_bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     bound_ops_ms = flops / PEAK_F32_FLOPS * 1e3
@@ -767,12 +788,14 @@ def profile_fit(fit):
     again while the kernel's profiled launches fall short of the fixed
     effect's passes (at most PROFILE_ATTEMPTS windows): a launch missing or
     extra in every window is the program's and fails the caller's gate.
-    The first window traces host items too, the later ones the device
-    alone.  -> (the fit's result, the last window's profile with every
+    Every window traces the device alone: with host items, processing a
+    window of ~10^5 launches (config 5's) took 50-70 s of the script's
+    time limit on the H100's host, and the gates read device records
+    only.  -> (the fit's result, the last window's profile with every
     window's (launches, passes, primer records lost))."""
     attempts = []
     for attempt in range(PROFILE_ATTEMPTS):
-        result, prof = profile_call(fit, host=attempt == 0)
+        result, prof = profile_call(fit, host=False)
         prof["fe_passes"] = fe_passes(result.descent)
         attempts.append((prof["fused_kernel_launches"], prof["fe_passes"],
                          prof["primer_lost"]))
@@ -784,8 +807,9 @@ def profile_fit(fit):
 
 def profile_run(train) -> dict:
     """Where the main path's time goes: one more run of it under
-    torch.profiler (its launches are not the counted run's)."""
-    trained, stats = profile_call(train)
+    torch.profiler, the device alone (its launches are not the counted
+    run's; its gate reads device records)."""
+    trained, stats = profile_call(train, host=False)
     return {"fg_count": trained[0].result.fg_count, **stats}
 
 
@@ -986,13 +1010,14 @@ def time_hv(obj, x) -> dict:
     """One Hessian-vector product at x's shape, timed as time_full times
     the kernel: the closure TRON's CG steps call (margins and l'' at c
     computed beforehand), the whole hessian_vector (margins included) and
-    the library call (two torch.mv, X v and X^T u); each call with its own
+    the library call (two torch.mv, X v and X^T u; in bf16, v and u rounded
+    to it before the timed window, for a bf16 X); each call with its own
     perturbed v."""
     import torch
     n, d = x.shape
     c = torch.linspace(-0.1, 0.1, d, device="cuda", dtype=torch.float32)
     base = torch.linspace(-1.0, 1.0, d, device="cuda", dtype=torch.float32)
-    u = torch.linspace(-1.0, 1.0, n, device="cuda", dtype=torch.float32)
+    u = torch.linspace(-1.0, 1.0, n, device="cuda", dtype=torch.float32).to(x.dtype)
     at = obj.hessian_vector_at(c)
     batch = 10
     calls = {"ms": at, "full_ms": lambda v: obj.hessian_vector(c, v),
@@ -1000,15 +1025,16 @@ def time_hv(obj, x) -> dict:
     times = {k: [] for k in calls}
     for r in range(REPS + 2):  # the first two rounds warm up
         vs = [base + 1e-6 * (r * batch + i + 1) for i in range(batch)]
+        args = {"ms": vs, "full_ms": vs, "library_ms": [v.to(x.dtype) for v in vs]}
         for key, call in calls.items():
-            ms = cuda_ms(lambda: [call(v) for v in vs]) / batch
+            ms = cuda_ms(lambda: [call(v) for v in args[key]]) / batch
             if r >= 2:
                 times[key].append(ms)
     med = {k: statistics.median(v) for k, v in times.items()}
-    # least the card could take for one product: read X, the labels and
-    # the offsets once (n (d + 2) floats), v and c, write Hv; x.v and
+    # least the card could take for one product: read X (its storage's
+    # bytes), the labels and the offsets once, v and c, write Hv; x.v and
     # X^T(.) are 4 n d flops at the f32 peak
-    nbytes = 4 * (n * (d + 2) + 3 * d)
+    nbytes = x.element_size() * n * d + 4 * (2 * n + 3 * d)
     bound_bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     bound_ops_ms = 4 * n * d / PEAK_F32_FLOPS * 1e3
     med["bound_ms"] = max(bound_bytes_ms, bound_ops_ms)
@@ -1300,10 +1326,14 @@ def time_sparse(sk, loss, x, y, o=None, reps=SPARSE_REPS) -> dict:
     random reads of c or u alone); A's plan and its ptxas line; bounds
     from this input's bytes;
     launches per pass over 10 passes, by the wrappers' counts and by a
-    profile."""
+    profile.  With bf16 values the library calls run on bf16 CSR values
+    with c and u rounded to bf16 (before the timed window), where torch
+    takes them; where it does not, their times are None and
+    `library_note` says why."""
     import torch
     n, d = x.shape
     k, nnz = x.indices.shape[1], x.csc_row.numel()
+    vb = x.values.element_size()
     base = torch.linspace(-0.1, 0.1, d, device="cuda", dtype=torch.float32)
     ubase = torch.linspace(-1.0, 1.0, n, device="cuda", dtype=torch.float32)
     idx, val, row, cv, end = x.indices, x.values, x.csc_row, x.csc_val, x.csc_end
@@ -1319,6 +1349,13 @@ def time_sparse(sk, loss, x, y, o=None, reps=SPARSE_REPS) -> dict:
     xt2_csr = torch.sparse_csr_tensor(end.long(), row.long(), cv * cv, size=(d, n))
     tiles = x.csc_tiles
     flat_idx = idx.reshape(-1)
+    library_note = None
+    try:
+        probe = x_csr @ base.to(val.dtype)
+        torch.cuda.synchronize()
+        del probe
+    except RuntimeError as e:
+        library_note = f"torch's CSR product refused {val.dtype} values: {str(e)[:200]}"
     kernels = {
         "a": {"ms": lambda c, u: sk.ell_margin_loss(loss, idx, val, c, y, None, o),
               "plain_ms": lambda c, u: sk.ell_margin_loss_plain(loss, idx, val, c, y, None, o),
@@ -1341,28 +1378,37 @@ def time_sparse(sk, loss, x, y, o=None, reps=SPARSE_REPS) -> dict:
                      row, cv, end, sk.ell_margin_loss_plain(loss, idx, val, c, y, None, o)[1], 1),
                  "library_ms": lambda c, u: (x_csr @ c, xt_csr @ u)},
     }
+    if library_note is not None:
+        for calls in kernels.values():
+            calls.pop("library_ms", None)
     batch = 10
     times = {(kn, key): [] for kn, calls in kernels.items() for key in calls}
     for r in range(reps + 2):  # the first two rounds warm up
         cs = [base + 1e-6 * (r * batch + i + 1) for i in range(batch)]
         us = [ubase * (1.0 + 1e-6 * (r * batch + i + 1)) for i in range(batch)]
+        lib = ([c.to(val.dtype) for c in cs], [u.to(val.dtype) for u in us])
         for (kn, key) in times:
             call = kernels[kn][key]
-            ms = cuda_ms(lambda: [call(c, u) for c, u in zip(cs, us)]) / batch
+            cc, uu = lib if key == "library_ms" else (cs, us)
+            ms = cuda_ms(lambda: [call(c, u) for c, u in zip(cc, uu)]) / batch
             if r >= 2:
                 times[(kn, key)].append(ms)
-    # bytes each must move: inputs read once, outputs written once
+    # bytes each must move: inputs read once (a value vb bytes), outputs
+    # written once
+    slot = 4 + vb
     vec = 4 * (n + (0 if o is None else n))                   # y (+ o)
-    a_bytes = 8 * n * k + vec + 4 * d + 4 * n + 4              # ELL, y, o, c; u, value
-    b_bytes = 8 * nnz + 4 * (d + 1) + 4 * n + 4 * d            # stream, end, u; g
-    p_bytes = 8 * n * k + 8 * nnz + vec + 4 * d + 4 * (d + 1) + 4 * d + 4
+    a_bytes = slot * n * k + vec + 4 * d + 4 * n + 4           # ELL, y, o, c; u, value
+    b_bytes = slot * nnz + 4 * (d + 1) + 4 * n + 4 * d         # stream, end, u; g
+    p_bytes = slot * n * k + slot * nnz + vec + 4 * d + 4 * (d + 1) + 4 * d + 4
     ops = {"a": 2 * n * k, "a_margins": 2 * n * k, "b": 2 * nnz, "b2": 3 * nnz,
            "pass": 2 * n * k + 2 * nnz}
-    z_bytes = 8 * n * k + 4 * n * (1 if o is None else 2) + 4 * d  # ELL, o, c; z
-    out = {"shape": [n, d], "k": k, "nnz": int(nnz), "reps": reps}
+    z_bytes = slot * n * k + 4 * n * (1 if o is None else 2) + 4 * d  # ELL, o, c; z
+    out = {"shape": [n, d], "k": k, "nnz": int(nnz), "reps": reps,
+           "values": str(val.dtype), "library_note": library_note}
     for kn, nbytes in (("a", a_bytes), ("a_margins", z_bytes), ("b", b_bytes),
                        ("b2", b_bytes), ("pass", p_bytes)):
         med = {key: statistics.median(times[(kn, key)]) for key in kernels[kn]}
+        med.setdefault("library_ms", None)
         by_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
         by_ops = ops[kn] / PEAK_F32_FLOPS * 1e3
         med["bound_ms"] = max(by_bytes, by_ops)
@@ -1371,7 +1417,8 @@ def time_sparse(sk, loss, x, y, o=None, reps=SPARSE_REPS) -> dict:
         med["min_ms"] = min(times[(kn, "ms")])
         med["max_ms"] = max(times[(kn, "ms")])
         med["share_of_bound"] = med["bound_ms"] / med["ms"]
-        med["ms_over_library"] = med["ms"] / med["library_ms"]
+        med["ms_over_library"] = (None if med["library_ms"] is None
+                                  else med["ms"] / med["library_ms"])
         out[kn] = med
     out["b2"]["gather_floor_ms"] = out["b"]["gather_floor_ms"]
     out["a_margins"]["gather_floor_ms"] = out["a"]["gather_floor_ms"]
@@ -1379,9 +1426,9 @@ def time_sparse(sk, loss, x, y, o=None, reps=SPARSE_REPS) -> dict:
         out[kn]["ms_over_gather_floor"] = out[kn]["ms"] / out[kn]["gather_floor_ms"]
     out["a_margins"]["ms_over_loss_mode"] = out["a_margins"]["ms"] / out["a"]["ms"]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    plan = sk.plan_margins(n, k, d, sms)
+    plan = sk.plan_margins(n, k, d, sms, vb)
     out["a"]["plan"] = dataclasses.asdict(plan)
-    out["a"]["ptxas"] = margin_ptxas(plan, loss.kernel_id)
+    out["a"]["ptxas"] = margin_ptxas(plan, loss.kernel_id, vb)
     before = dict(sk.LAUNCHES)
     _, prof = profile_call(lambda: [kernels["pass"]["ms"](c, u) for c, u in zip(cs, us)])
     out["pass"]["wrapper_launches_per_call"] = {
@@ -2090,10 +2137,198 @@ def config6_phase(hk, sk, ref_cache, kind, smi) -> dict:
     # a profile here records a few of them fewer than were made (the first
     # ones of a window, in this long process; PERF.md §7), so its counts
     # are printed, not gated
-    t6p, prof6 = profile_call(lambda: train6(x6))
+    t6p, prof6 = profile_call(lambda: train6(x6), host=False)
     prof6["fg_count"] = t6p.result.fg_count
     emit({"phase": "config6_profile", "device": kind, "nvidia_smi": smi, **prof6})
-    return {"launches": c6_launches, "passes": r6.fg_count, "check": chk6, "timing": st6}
+    return {"launches": c6_launches, "passes": r6.fg_count, "check": chk6, "timing": st6,
+            "data": (x6, x6_np, y6_np, ref6)}
+
+
+BF16_DESIGN = ("the f32 kernel's design, templated on the storage type: bf16 elements staged "
+               "as they are (tiles sized by bytes, a multiple of 8 rows for the fused "
+               "kernel's 16-byte bulk copies, ragged ends of up to 7 values by ordinary "
+               "loads; kernel B's run of 8 values one 16-byte load) and widened exactly by "
+               "__bfloat162float / __bfloat1622float2 where read; f32 products and sums")
+
+
+def bf16_phase(hk, sk, x_np, y_np, ref_nll, c6, losses, kind, smi, sms) -> dict:
+    """BASELINE config 1's and bench config 6's bf16 entries (bench.py
+    a1a_logistic_lbfgs_l2_bf16_features, :294-306, and
+    wide_sparse_250k_logistic_lbfgs_l2_bf16_values, :891-900) through
+    train_glm on the card, on the data the f32 phases hold with the
+    features stored bf16 (exact: a1a's are 0/1, config 6's 1.0): each
+    fit's float64 objective within NLL_RTOL of the f32 entry's scipy
+    optimum, and every pass on the bf16 kernels (the fused kernel once a
+    pass; A and B once each a pass, by the wrappers' bf16 counts).  Then
+    the bf16 fused kernel (four losses, plain and w+o) and A (both modes)
+    and B (both powers) against their plain versions at those shapes, and
+    each timed with its bound and library call; the Hessian-vector product
+    on the bf16 X (TRON's oracle: torch products over a widened copy of X,
+    in row chunks) timed beside them.  Its checks raise."""
+    import torch
+    from photon_ml_tpu_torch.models.training import train_glm
+    from photon_ml_tpu_torch.ops.features import WIDEN_BYTES
+    from photon_ml_tpu_torch.ops.losses import LOGISTIC
+    from photon_ml_tpu_torch.ops.objective import GLMObjective
+    from photon_ml_tpu_torch.optim.config import (
+        OptimizerConfig, RegularizationContext, RegularizationType,
+    )
+    from photon_ml_tpu_torch.optim.types import ConvergenceReason
+    t_phase = time.perf_counter()
+    l2 = RegularizationContext(RegularizationType.L2)
+
+    def fit(x, y, iterations):
+        return train_glm(x, y, "logistic_regression",
+                         optimizer_config=OptimizerConfig(max_iterations=iterations,
+                                                          tolerance=1e-9),
+                         regularization=l2, regularization_weights=(LAMBDA,),
+                         device="cuda")[0]
+
+    def report(name, config, t, x_host, y_host, ref, launches):
+        r = t.result
+        coef = t.model.coefficients.means
+        nll = host_objective(x_host, y_host, coef.double().cpu().numpy(), LAMBDA)
+        entry = {"entry": "photon_ml_tpu_torch.models.training.train_glm", "config": config,
+                 "n": x_host.shape[0], "d": x_host.shape[1], "iterations": r.iterations,
+                 "fg_count": r.fg_count, "reason": ConvergenceReason(r.reason).name,
+                 "kernel_launches": launches, "wall_s": t.wall_s,
+                 "examples_per_s": x_host.shape[0] * r.fg_count / t.wall_s,
+                 "final_nll_f64": nll, "ref_nll": ref, "nll_rel_gap": (nll - ref) / abs(ref),
+                 "device": kind, "nvidia_smi": smi}
+        emit({"phase": name, **entry})
+        if not (tuple(coef.shape) == (x_host.shape[1],) and bool(torch.isfinite(coef).all())
+                and abs(entry["nll_rel_gap"]) <= NLL_RTOL):
+            raise SystemExit(f"{name}: objective {nll} is {entry['nll_rel_gap']:.3e} from "
+                             f"the f32 entry's reference {ref}")
+        return entry
+
+    # --- config 1: the fused kernel on a bf16 X -------------------------------
+    t0 = time.perf_counter()
+    x = torch.from_numpy(x_np).cuda().to(torch.bfloat16)
+    y = torch.from_numpy(y_np).cuda()
+    torch.cuda.synchronize()
+    data_s = time.perf_counter() - t0
+    hk.LAUNCHES = hk.BF16_LAUNCHES = 0
+    t1 = fit(x, y, 100)
+    launches = {"fused": hk.LAUNCHES, "fused_bf16": hk.BF16_LAUNCHES}
+    c1 = report("bf16_config1", "BASELINE config 1 a1a_logistic_lbfgs_l2_bf16_features",
+                t1, x_np, y_np, ref_nll, launches)
+    c1["data_s"] = data_s
+    if not launches["fused"] == launches["fused_bf16"] == t1.result.fg_count > 0:
+        raise SystemExit(f"bf16_config1: fused launches {launches} != fg_count "
+                         f"{t1.result.fg_count} (every one on the bf16 X)")
+    rng = np.random.default_rng(21)
+    n, d = x.shape
+    c = torch.from_numpy((rng.normal(size=d) * 0.1).astype(np.float32)).cuda()
+    w = torch.from_numpy(rng.uniform(0.5, 2.0, size=n).astype(np.float32)).cuda()
+    o = torch.from_numpy((rng.normal(size=n) * 0.1).astype(np.float32)).cuda()
+    fused_err, failures = 0.0, []
+    for loss in losses:
+        for tag, ww, oo in (("plain", None, None), ("w+o", w, o)):
+            ok, err, v_rel, g_rel = compare(hk, loss, x, y, c, ww, oo)
+            emit({"phase": "check", "size": "bf16_config1", "shape": [n, d],
+                  "storage": "bfloat16", "loss": loss.name, "inputs": tag, "ok": ok,
+                  "max_abs_err": err, "value_rel_err": v_rel, "grad_err_over_tol": g_rel})
+            fused_err = max(fused_err, err)
+            if not ok:
+                failures.append(f"{loss.name}/{tag}")
+    if failures:
+        raise SystemExit(f"the bf16 fused kernel disagrees with its plain version: {failures}")
+    del w, o
+    timing = time_full(hk, LOGISTIC, x, y)
+    timing["plan"] = dataclasses.asdict(hk.plan_fused(n, d, sms, 2))
+    emit({"phase": "timing", "shape": [n, d], "storage": "bfloat16", "loss": "logistic",
+          "reps": REPS, "device": kind, "nvidia_smi": smi, "kernel_ms": timing["ms"], **timing})
+    hv = time_hv(GLMObjective(LOGISTIC, x, y, l2_weight=1.0), x)
+    emit({"phase": "hv_timing", "shape": [n, d], "storage": "bfloat16", "loss": "logistic",
+          "widen_chunk_bytes": WIDEN_BYTES, "reps": REPS, "device": kind, "nvidia_smi": smi,
+          **hv})
+    del x, y
+
+    # --- config 6: kernels A and B on bf16 values ------------------------------
+    x6_32, x6_np, y6_np, ref6 = c6.pop("data")
+    x6 = x6_32.to(dtype=torch.bfloat16)
+    del x6_32
+    reset_launches(hk, sk)
+    sk.BF16_LAUNCHES.update(dict.fromkeys(sk.BF16_LAUNCHES, 0))
+    t6 = fit(x6, y6_np, 200)
+    l6 = {**{k: v for k, v in sk.LAUNCHES.items()},
+          **{f"bf16_{k}": v for k, v in sk.BF16_LAUNCHES.items()}, "dense": hk.LAUNCHES}
+    c6e = report("bf16_config6", "bench config 6 wide_sparse_250k_logistic_lbfgs_l2_bf16_values",
+                 t6, x6_np, y6_np, ref6, l6)
+    passes = t6.result.fg_count
+    if not (l6["margin_loss"] == l6["column_sum"] == l6["bf16_margin_loss"]
+            == l6["bf16_column_sum"] == passes > 0
+            and l6["margins"] == l6["sq_column_sum"] == l6["dense"] == 0):
+        raise SystemExit(f"bf16_config6: sparse launches {l6} != A and B once a pass x "
+                         f"fg_count {passes} (every one on the bf16 values)")
+    y6 = torch.from_numpy(y6_np).cuda()
+    c6c = torch.from_numpy((np.random.default_rng(6).normal(size=x6.shape[1]) * 0.05)
+                           .astype(np.float32)).cuda()
+    chk = compare_sparse(sk, LOGISTIC, x6, y6, c6c, None, None)
+    emit({"phase": "sparse_check", "size": "bf16_config6", "shape": list(x6.shape),
+          "storage": "bfloat16", "loss": "logistic", "inputs": "plain", **chk})
+    if not chk["ok"]:
+        raise SystemExit("the bf16 sparse kernels disagree with their plain versions at config 6")
+    st = time_sparse(sk, LOGISTIC, x6, y6)
+    emit({"phase": "sparse_timing", "config": "bf16_config6", "loss": "logistic",
+          "device": kind, "nvidia_smi": smi, **st})
+    del x6, y6
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "bf16_done", "seconds": seconds})
+    return {"config1": c1, "config6": c6e, "launches": launches, "sparse_launches": l6,
+            "fused_err": fused_err, "timing": timing, "hv": hv, "check6": chk,
+            "timing6": st, "passes6": passes, "seconds": seconds}
+
+
+def bf16_kernel_entries(bf16: dict) -> list:
+    """The kernels line's entries of the bf16 instantiations: the fused
+    kernel at config 1's shape, A and B at config 6's, their launches on
+    the bf16 phase's main paths."""
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "share_of_bound",
+            "ms_over_library", "gather_floor_ms", "ms_over_gather_floor", "plan", "ptxas")
+    pick = lambda t: {k: t[k] for k in keys if k in t}
+    t, st, l6 = bf16["timing"], bf16["timing6"], bf16["sparse_launches"]
+    fused = {
+        "name": "fused_value_and_gradient_bf16", "route": "cuda", "storage": "bfloat16",
+        "source": "photon_ml_tpu_torch/csrc/fused_value_and_gradient.cu",
+        "replaces": "photon_ml_tpu/ops/pallas_kernels.py:150",
+        "launches": bf16["launches"]["fused_bf16"], "max_abs_err": bf16["fused_err"],
+        "tolerance": (f"value rtol {VALUE_RTOL}, gradient rtol {GRAD_RTOL} atol {GRAD_ATOL} "
+                      "against the plain version on the same bf16 X (widened exactly)"),
+        **pick(t), "hbm_share": t["hbm_share"],
+        "shape": [bf16["config1"]["n"], bf16["config1"]["d"]],
+        "library_note": ("two cuBLAS bf16 torch.mv with c and u rounded to bf16: the same "
+                         "bytes of X, a near function"),
+        "design": BF16_DESIGN,
+        "hessian_vector_on_bf16": {k: bf16["hv"][k] for k in (
+            "ms", "full_ms", "library_ms", "bound_ms", "share_of_bound",
+            "launches_per_call", "full_launches_per_call")},
+    }
+    sparse = []
+    for name, part, kinds in (("ell_margin_loss_bf16", "a", ("margin_loss", "margins")),
+                              ("csc_column_sum_bf16", "b", ("column_sum", "sq_column_sum"))):
+        sparse.append({
+            "name": name, "route": "cuda", "storage": "bfloat16",
+            "source": "photon_ml_tpu_torch/csrc/ell_sparse.cu",
+            "replaces": {"a": "photon_ml_tpu/ops/features.py:237",
+                         "b": "photon_ml_tpu/ops/features.py:254"}[part],
+            "launches": sum(l6[f"bf16_{k}"] for k in kinds),
+            "launches_per_pass": l6[f"bf16_{kinds[0]}"] / bf16["passes6"],
+            "max_abs_err": bf16["check6"][f"{part}_max_abs_err"],
+            "tolerance": ("value rtol 1e-5, u rtol/atol 1e-4, margins 2 sqrt(k+1) eps sum|terms|"
+                          if part == "a" else "per column 2 sqrt(count) eps sum|terms|")
+                         + " (float32 eps), against the plain version on the same bf16 values",
+            **pick(st[part]), "hbm_share": st[part]["share_of_bound"],
+            "shape": st["shape"], "library_note": st["library_note"] or (
+                "cuSPARSE SpMV through torch's CSR tensors on the same bf16 values, c and u "
+                "rounded to bf16"),
+            "design": BF16_DESIGN,
+            **({"power2": pick(st["b2"])} if part == "b" else
+               {"margins_mode": pick(st["a_margins"])}),
+            "whole_pass": pick(st["pass"]),
+        })
+    return [fused] + sparse
 
 
 def yahoo_phase(hk, sk, ref_cache, kind, smi) -> dict:
@@ -2157,7 +2392,7 @@ def yahoo_phase(hk, sk, ref_cache, kind, smi) -> dict:
     y_cfg1 = dataclasses.replace(y_cfg, num_outer_iterations=1)
     before = dict(sk.LAUNCHES)
     y_res1, y_prof = profile_call(
-        lambda: GameEstimator(y_cfg1, device="cuda").fit(y_train, y_val, ["AUC"]))
+        lambda: GameEstimator(y_cfg1, device="cuda").fit(y_train, y_val, ["AUC"]), host=False)
     y_prof["fe_passes"] = fe_passes(y_res1.descent)
     y_prof["margins_calls"] = sk.LAUNCHES["margins"] - before["margins"]
     y_prof["spans_s"] = dict(y_res1.descent.timings)
@@ -3637,8 +3872,9 @@ def sweep_phase(hk, train, val, cfg, kind, smi, device="cuda") -> dict:
     (bench.py's sublinear gate).  (A fixed effect wider than the lanes
     kernel takes goes the "single" route: there the single kernel's
     launches count toward the rounds times groups.)  Prints every visit's
-    rounds, read-backs
-    and seconds, the peak allocated, and one profiled outer iteration.
+    rounds, read-backs and seconds and the peak allocated (no profiled
+    window: re-running the sweep under the profiler took 32-40 s of the
+    script's time limit for an ungated breakdown).
     -> (the sweep evaluator, the phase's counts)."""
     import torch
     from photon_ml_tpu_torch.game import GameEstimator
@@ -3692,13 +3928,6 @@ def sweep_phase(hk, train, val, cfg, kind, smi, device="cuda") -> dict:
                       np.abs(got - r.objective_history) / np.abs(r.objective_history))),
                   "auc": r.validation["AUC"], "sweep_auc": results[k].validation["AUC"]}
     iso_s = statistics.median(v["fit_s"] for v in iso.values())
-    prof = None
-    if cuda:
-        t0 = time.perf_counter()
-        _, prof = profile_call(lambda: sweep.evaluate_vmapped(cands, num_outer_iterations=1),
-                               host=False)
-        prof["visits"] = [dataclasses.asdict(v) for v in sweep.visits]
-        prof["profile_s"] = time.perf_counter() - t0
     out = {"phase": "sweep", "entry": "photon_ml_tpu_torch.hyperparameter.SweepEvaluator"
            ".evaluate_vmapped", "config": "BASELINE config 4, bench.py _sweep_vmap_leg's "
            "candidates", "candidates": SWEEP_K, "fe_lambdas": lams.tolist(),
@@ -3711,8 +3940,7 @@ def sweep_phase(hk, train, val, cfg, kind, smi, device="cuda") -> dict:
            "visits": visits, "readbacks": sum(v.readbacks for v in sweep.visits),
            "peak_allocated_bytes": peak, "allocated_before_bytes": before_bytes,
            "isolated": iso, "final_objectives": [r.objective_history[-1] for r in results],
-           "aucs": [r.validation["AUC"] for r in results],
-           "profile_one_outer_iteration": prof, "device": kind, "nvidia_smi": smi}
+           "aucs": [r.validation["AUC"] for r in results], "device": kind, "nvidia_smi": smi}
     emit(out)
     bad = [k for k, v in iso.items() if not abs(v["rel_gap"]) <= GLMIX_RTOL]
     if bad:
@@ -6962,6 +7190,8 @@ def main() -> int:
                         "column sums within 2 sqrt(count) eps sum|terms| (float32 eps)")})
 
     c6 = config6_phase(hk, sk, ref_cache, kind, smi)
+    # --- bf16 feature storage: configs 1 and 6 on the data held above --------
+    bf16 = bf16_phase(hk, sk, x_np, y_np, ref_nll, c6, losses, kind, smi, sms)
     c7 = yahoo_phase(hk, sk, ref_cache, kind, smi)
     c5 = config5_phase(hk, ref_cache, kind, smi, sms)
 
@@ -7092,7 +7322,8 @@ def main() -> int:
         "local_epochs_per_chunk": stream_glm["local_epochs"],
     }] + [sparse_kernel_entry(name, part, c6, c7, cli_avro, mesh) for name, part in (
         ("ell_margin_loss", "a"), ("csc_column_sum", "b"))] + [lanes_kernel_entry(
-            lanes_timing, sweep_counts["lanes"], cli_diagnose["bootstrap"])],
+            lanes_timing, sweep_counts["lanes"], cli_diagnose["bootstrap"])]
+        + bf16_kernel_entries(bf16),
         "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -15,13 +15,20 @@
 // PaddedSparse (the gather and row sum, :238-249) and `rmatvec` /
 // `sq_rmatvec` (the chunked prefix-scan segment sum `_csc_segment_sum`,
 // :254-307, and its callers :310-350).  No TPU kernel (pl.pallas_call)
-// computes them.
+// computes them.  The values come in float32 or bfloat16 storage (the JAX
+// package's bf16 feature storage; its products promote, jnp.promote_types
+// at features.py:273, :322, :343): both kernels are templates on the value
+// type, a bf16 value becomes a float by __bfloat162float (exact), and
+// every product and sum is f32.  B's power 2 squares a bf16 value in bf16,
+// one rounding (__float2bfloat16_rn of the exact f32 square), as the JAX
+// package's x.csc_val * x.csc_val does before it promotes.
 //
 // Bound on an H100: memory.  A reads the ELL arrays once, n*k*(4 + 4)
 // bytes, plus y, w, o and writes u: ~106 MB at [200,000 x 250,000] with
 // k = 65, 0.032 ms at the data sheet's 3.35 TB/s; ~61 MB at config 7's
 // fixed effect [285,135 x 14,983], k = 25.  B reads the stream once,
 // nnz*(4 + 4) bytes, plus end and u, and writes g: ~106 MB at config 6.
+// With bf16 values each nonzero is 4 + 2 bytes: ~80.6 MB for A at config 6.
 // The gathers of c (A, d*4 bytes: 1 MB at d = 250,000, 60 KB at 14,983)
 // and of u (B, n*4 bytes) hit vectors that stay resident in the 50 MB L2;
 // one random 4-byte read is one 32-byte L2 sector, so A's and B's
@@ -37,8 +44,9 @@
 //     per SM, walks tiles of R whole rows (R * k contiguous indices and
 //     values) in turn; one producer thread copies c once, then each tile,
 //     into shared memory with cp.async.bulk (a ring of stages with
-//     full/empty mbarriers; the <= 3 words at a span's unaligned ends,
-//     and a view at any 4-byte offset, by ordinary loads), so the loads
+//     full/empty mbarriers; the <= 3 words (7 bf16 values) at a span's
+//     unaligned ends, and a view at any element offset, by ordinary
+//     loads), so the loads
 //     are whole 16-byte chunks whatever k is.  Each of the 256 consumer
 //     threads takes one row at a time (rows t, t + 256, ... of the tile)
 //     and computes its margin, loss, u and value: every lane is busy and
@@ -93,7 +101,8 @@
 //       sums as a tree across threads.
 //     No atomics touch g and every sum has a fixed order for a given
 //     plan: results are bit-stable.
-//   - f32 inputs, f32 accumulation.  Indices are int32 (the wrapper checks
+//   - f32 (values also bf16) inputs, f32 accumulation.  Indices are int32
+//     (the wrapper checks
 //     n*k < 2^31 and nnz < 2^31).  Weights default to 1 and offsets to 0
 //     (null pointers).
 // A's mode, tiles, stages, grid and c placement and B's tiles come from
@@ -106,6 +115,7 @@
 // Plain C interface, bound with ctypes.  Build (sm_90a):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
 //        -Xcompiler -fPIC -o libell_sparse.so ell_sparse.cu
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -164,6 +174,10 @@ __device__ __forceinline__ void loss_and_dz(float z, float y, float& l, float& d
   }
 }
 
+// a value as a float: exact for both storage types
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
@@ -197,47 +211,54 @@ constexpr int kMaxSmem = 232448 - 1024;
 
 __host__ __device__ constexpr int round4(int v) { return (v + 3) & ~3; }
 
-// Kernel A's dynamic shared memory (staged rows), in floats from the
+// Kernel A's dynamic shared memory (staged rows), in words from the
 // (16-byte aligned) base: c [cols] (cols = d), then `stages` stages of
-// [the tile's indices | its values], rows * k words each, then
-// 2 * stages + 1 mbarriers (full, empty, c).  Each span
-// starts on 16 bytes and leaves 3 words of room: element j of a span sits
-// at its address's phase ((address / 4) % 4) + j, so that its 16-byte
-// chunks line up.  sparse_kernels.margin_smem_bytes reproduces `bytes`.
+// [the tile's indices (rows * k words) | its values (rows * k elements of
+// vbytes bytes)], then 2 * stages + 1 mbarriers (full, empty, c).  Each
+// span starts on 16 bytes and leaves 16 - E bytes of room (E its element
+// size): element j of a span sits at its address's phase
+// ((address / E) % (16 / E)) + j, so that its 16-byte chunks line up.
+// sparse_kernels.margin_smem_bytes reproduces `bytes`.
 struct MarginLayout {
-  int ring, span, stage, bars, bytes;
+  int ring, span, vspan, stage, bars, bytes;
 };
 
-__host__ __device__ inline MarginLayout margin_layout(int k, int rows, int stages, int cols) {
+__host__ __device__ inline MarginLayout margin_layout(int k, int rows, int stages, int cols,
+                                                      int vbytes) {
   MarginLayout L;
   L.ring = round4(cols + 3);
   L.span = round4(rows * k + 3);
-  L.stage = 2 * L.span;
+  L.vspan = round4((vbytes * rows * k + 19 - vbytes) / 4);
+  L.stage = L.span + L.vspan;
   L.bars = L.ring + stages * L.stage;
   L.bytes = L.bars * 4 + (2 * stages + 1) * 8;
   return L;
 }
 
-// The 16-byte aligned interior [a, b) of the byte span of `count` 32-bit
-// words at `src`.  Element j of the span lives at buf[phase + j].
+// The 16-byte aligned interior [a, b) of the byte span of `count`
+// elements of type E (4 or 2 bytes) at `src`.  Element j of the span lives
+// at buf[phase + j].
+template <typename E>
 struct Span {
-  const uint32_t* src;
-  int count, phase, head, tail;  // head: words before a; tail: first word at/after b
+  const E* src;
+  int count, phase, head, tail;  // head: elements before a; tail: first element at/after b
   uint32_t bytes;                // b - a, 0 when there is no aligned interior
 };
 
-__device__ __forceinline__ Span span_of(const void* p, int64_t count) {
-  Span s;
-  s.src = static_cast<const uint32_t*>(p);
+template <typename E>
+__device__ __forceinline__ Span<E> span_of(const E* p, int64_t count) {
+  constexpr int kE = (int)sizeof(E);
+  Span<E> s;
+  s.src = p;
   s.count = (int)count;
   const uintptr_t lo = reinterpret_cast<uintptr_t>(p);
-  const uintptr_t hi = lo + 4ull * (uint64_t)count;
+  const uintptr_t hi = lo + (uint64_t)kE * (uint64_t)count;
   const uintptr_t a = (lo + 15) & ~uintptr_t(15);
   const uintptr_t b = hi & ~uintptr_t(15);
-  s.phase = (int)((lo >> 2) & 3);
+  s.phase = (int)((lo & 15) / kE);
   if (p != nullptr && b > a) {
-    s.head = (int)((a - lo) >> 2);
-    s.tail = (int)((b - lo) >> 2);
+    s.head = (int)((a - lo) / kE);
+    s.tail = (int)((b - lo) / kE);
     s.bytes = (uint32_t)(b - a);
   } else {
     s.head = s.count;
@@ -285,7 +306,8 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 }
 
 // Copy the aligned interior of `s` into buf (element j at buf[phase + j]).
-__device__ __forceinline__ void bulk_load(uint32_t* buf, const Span& s, uint64_t* bar) {
+template <typename E>
+__device__ __forceinline__ void bulk_load(E* buf, const Span<E>& s, uint64_t* bar) {
   if (s.bytes == 0) return;
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
@@ -294,9 +316,11 @@ __device__ __forceinline__ void bulk_load(uint32_t* buf, const Span& s, uint64_t
       : "memory");
 }
 
-// The words of `s` the bulk copy cannot take (<= 3 at either end, or all
-// of a span without an aligned interior: < 8), by ordinary loads.
-__device__ __forceinline__ void load_edges(uint32_t* buf, const Span& s, int t) {
+// The elements of `s` the bulk copy cannot take (<= 16 / E - 1 at either
+// end, or all of a span without an aligned interior: < 32 / E), by
+// ordinary loads.
+template <typename E>
+__device__ __forceinline__ void load_edges(E* buf, const Span<E>& s, int t) {
   if (t < s.head) buf[s.phase + t] = s.src[t];
   const int j = s.tail + t;
   if (j < s.count && j >= s.head) buf[s.phase + j] = s.src[j];
@@ -308,7 +332,7 @@ __device__ __forceinline__ void consumer_sync() {
 
 struct MarginArgs {
   const int* idx;    // [n, k]
-  const float* val;  // [n, k]
+  const void* val;   // [n, k], float or __nv_bfloat16
   const float* c;    // [d]
   const float* y;    // [n] (loss mode)
   const float* w;    // [n] or null
@@ -327,7 +351,8 @@ struct MarginArgs {
 // memory.  The visits start at slot `first` and wrap; visit i goes into
 // partial i % kUnroll, so each thread has kUnroll gathers of c in flight
 // before it uses one; the partials meet in a fixed tree.
-__device__ __forceinline__ float row_dot(const int* ir, const float* vr, const float* cs,
+template <typename T>
+__device__ __forceinline__ float row_dot(const int* ir, const T* vr, const float* cs,
                                          int k, int first) {
   float p[kUnroll];
 #pragma unroll
@@ -341,7 +366,7 @@ __device__ __forceinline__ float row_dot(const int* ir, const float* vr, const f
       if (s >= k) s -= k;
       const bool in = base + q < k;
       ii[q] = in ? ir[s] : 0;
-      vv[q] = in ? vr[s] : 0.0f;
+      vv[q] = in ? to_f(vr[s]) : 0.0f;
     }
 #pragma unroll
     for (int q = 0; q < kUnroll; ++q) cc[q] = base + q < k ? cs[ii[q]] : 0.0f;
@@ -413,15 +438,16 @@ __device__ __forceinline__ void finish_value(const MarginArgs& a, float v_acc, f
 // when k is even (an odd effective stride, k + 1, across the warp: no bank
 // conflicts) and at slot 0 when k is odd.  c is copied once per block
 // into shared memory (the same way, overlapped with the first tiles) and
-// gathered there.
-template <int LOSS>
+// gathered there.  T: the values' element type, float or __nv_bfloat16.
+template <int LOSS, typename T>
 __global__ void __launch_bounds__(kThreadsA, 1) ell_margin_loss(const MarginArgs a) {
   extern __shared__ __align__(16) uint32_t smem[];
   __shared__ float red[kThreadsA / 32];
   __shared__ bool is_last;
   const int64_t n = a.n;
   const int k = a.k, rows = a.rows, stages = a.stages;
-  const MarginLayout L = margin_layout(k, rows, stages, a.d);
+  const MarginLayout L = margin_layout(k, rows, stages, a.d, (int)sizeof(T));
+  const T* val = static_cast<const T*>(a.val);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bars);
   uint64_t* empty = full + stages;
   uint64_t* c_full = empty + stages;
@@ -429,7 +455,7 @@ __global__ void __launch_bounds__(kThreadsA, 1) ell_margin_loss(const MarginArgs
   const int lane = t & 31;
   const int64_t first_row = (int64_t)blockIdx.x * rows;
   const int64_t row_step = (int64_t)gridDim.x * rows;
-  const Span sc = span_of(a.c, a.d);
+  const Span<float> sc = span_of(a.c, a.d);
 
   if (t == 0) {
     for (int s = 0; s < stages; ++s) {
@@ -449,7 +475,7 @@ __global__ void __launch_bounds__(kThreadsA, 1) ell_margin_loss(const MarginArgs
         mbar_arrive(c_full);
       } else {
         mbar_arrive_expect_tx(c_full, sc.bytes);
-        bulk_load(smem, sc, c_full);
+        bulk_load(reinterpret_cast<float*>(smem), sc, c_full);
       }
       int stage = 0;
       uint32_t parity = 1;  // a fresh barrier's previous phase counts as complete
@@ -457,15 +483,15 @@ __global__ void __launch_bounds__(kThreadsA, 1) ell_margin_loss(const MarginArgs
         mbar_wait(&empty[stage], parity);
         const int64_t nr = n - r0 < rows ? n - r0 : rows;
         uint32_t* buf = smem + L.ring + stage * L.stage;
-        const Span si = span_of(a.idx + r0 * k, nr * k);
-        const Span sv = span_of(a.val + r0 * k, nr * k);
+        const Span<int> si = span_of(a.idx + r0 * k, nr * k);
+        const Span<T> sv = span_of(val + r0 * k, nr * k);
         const uint32_t bytes = si.bytes + sv.bytes;
         if (bytes == 0) {
           mbar_arrive(&full[stage]);
         } else {
           mbar_arrive_expect_tx(&full[stage], bytes);
-          bulk_load(buf, si, &full[stage]);
-          bulk_load(buf + L.span, sv, &full[stage]);
+          bulk_load(reinterpret_cast<int*>(buf), si, &full[stage]);
+          bulk_load(reinterpret_cast<T*>(buf + L.span), sv, &full[stage]);
         }
         if (++stage == stages) {
           stage = 0;
@@ -475,7 +501,7 @@ __global__ void __launch_bounds__(kThreadsA, 1) ell_margin_loss(const MarginArgs
     }
     __syncwarp();
   } else {
-    load_edges(smem, sc, t);  // c's ragged ends
+    load_edges(reinterpret_cast<float*>(smem), sc, t);  // c's ragged ends
     consumer_sync();
     mbar_wait(c_full, 0);
     const float* cs = reinterpret_cast<const float*>(smem + sc.phase);
@@ -485,18 +511,18 @@ __global__ void __launch_bounds__(kThreadsA, 1) ell_margin_loss(const MarginArgs
       mbar_wait(&full[stage], parity);
       const int nr = (int)(n - r0 < rows ? n - r0 : rows);
       uint32_t* buf = smem + L.ring + stage * L.stage;
-      const Span si = span_of(a.idx + r0 * k, (int64_t)nr * k);
-      const Span sv = span_of(a.val + r0 * k, (int64_t)nr * k);
+      const Span<int> si = span_of(a.idx + r0 * k, (int64_t)nr * k);
+      const Span<T> sv = span_of(val + r0 * k, (int64_t)nr * k);
       // the same on every thread: words the bulk copies did not bring?
       const bool edges =
           si.head > 0 || si.tail < si.count || sv.head > 0 || sv.tail < sv.count;
       if (edges) {
-        load_edges(buf, si, t);
-        load_edges(buf + L.span, sv, t);
+        load_edges(reinterpret_cast<int*>(buf), si, t);
+        load_edges(reinterpret_cast<T*>(buf + L.span), sv, t);
         consumer_sync();
       }
       const int* bi = reinterpret_cast<const int*>(buf + si.phase);
-      const float* bv = reinterpret_cast<const float*>(buf + L.span + sv.phase);
+      const T* bv = reinterpret_cast<const T*>(buf + L.span) + sv.phase;
       for (int r = t; r < nr; r += kConsumers) {
         const RowIn in = load_row<LOSS>(a, r0 + r);
         const int first = (k & 1) ? 0 : r % k;
@@ -525,7 +551,7 @@ __global__ void __launch_bounds__(kThreadsA, 1) ell_margin_loss(const MarginArgs
 // loss.  A block of kThreads takes kThreads / P rows per round, block b
 // rounds b, b + gridDim.x, ...; every thread runs the same rounds (the
 // shuffles need all 32 lanes of each warp).
-template <int LOSS>
+template <int LOSS, typename T>
 __global__ void __launch_bounds__(kThreads) ell_margin_loss_lanes(const MarginArgs a) {
   __shared__ float red[kWarps];
   __shared__ bool is_last;
@@ -543,9 +569,9 @@ __global__ void __launch_bounds__(kThreads) ell_margin_loss_lanes(const MarginAr
     if (r < a.n) {
       in = load_row<LOSS>(a, r);
       const int* __restrict__ ir = a.idx + r * k;
-      const float* __restrict__ vr = a.val + r * k;
+      const T* __restrict__ vr = static_cast<const T*>(a.val) + r * k;
 #pragma unroll 4
-      for (int j = sub; j < k; j += P) dot = fmaf(vr[j], __ldg(a.c + ir[j]), dot);
+      for (int j = sub; j < k; j += P) dot = fmaf(to_f(vr[j]), __ldg(a.c + ir[j]), dot);
     }
     for (int off = P >> 1; off > 0; off >>= 1)
       dot += __shfl_xor_sync(0xffffffffu, dot, off);
@@ -554,24 +580,36 @@ __global__ void __launch_bounds__(kThreads) ell_margin_loss_lanes(const MarginAr
   if constexpr (LOSS != kMargins) finish_value<kWarps>(a, v_acc, red, is_last);
 }
 
-template <int LOSS>
+template <int LOSS, typename T>
 cudaError_t launch_a(const MarginArgs& a, int grid, int smem, cudaStream_t s) {
   if (a.stages == 0) {
-    ell_margin_loss_lanes<LOSS><<<grid, kThreads, 0, s>>>(a);
+    ell_margin_loss_lanes<LOSS, T><<<grid, kThreads, 0, s>>>(a);
     return cudaGetLastError();
   }
   const cudaError_t e = cudaFuncSetAttribute(
-      ell_margin_loss<LOSS>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      ell_margin_loss<LOSS, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  ell_margin_loss<LOSS><<<grid, kThreadsA, smem, s>>>(a);
+  ell_margin_loss<LOSS, T><<<grid, kThreadsA, smem, s>>>(a);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_a(int loss, const MarginArgs& a, int grid, int smem, cudaStream_t s) {
+  switch (loss) {
+    case kMargins: return launch_a<kMargins, T>(a, grid, smem, s);
+    case kLogistic: return launch_a<kLogistic, T>(a, grid, smem, s);
+    case kSquared: return launch_a<kSquared, T>(a, grid, smem, s);
+    case kPoisson: return launch_a<kPoisson, T>(a, grid, smem, s);
+    case kSmoothedHinge: return launch_a<kSmoothedHinge, T>(a, grid, smem, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // ---------------------------------------------------------------- kernel B
 
 struct ColumnArgs {
   const int* row;       // [nnz] row ids, column-sorted (16-byte aligned)
-  const float* val;     // [nnz] (16-byte aligned)
+  const void* val;      // [nnz] float or __nv_bfloat16 (16-byte aligned)
   const int* end;       // [d + 1]: column j is [end[j], end[j+1])
   const int* tile_col;  // [tiles + 1]: the first column reaching into tile t; d
   const float* u;       // [n]
@@ -646,10 +684,39 @@ __device__ __forceinline__ int count_le(const int* s, int len, int x) {
   return lo;
 }
 
+// val^2 in the values' storage type (a bf16 square rounds once to bf16,
+// as the plain version's vals * vals does)
+__device__ __forceinline__ float square(float v, float) { return __fmul_rn(v, v); }
+__device__ __forceinline__ float square(float v, __nv_bfloat16) {
+  return __bfloat162float(__float2bfloat16_rn(__fmul_rn(v, v)));
+}
+
 // val^POW * u, each product rounded as the plain version rounds it
-template <int POW>
+template <int POW, typename T>
 __device__ __forceinline__ float term(float v, float uu) {
-  return __fmul_rn(POW == 2 ? __fmul_rn(v, v) : v, uu);
+  return __fmul_rn(POW == 2 ? square(v, T()) : v, uu);
+}
+
+// A run of kRun values at p (16-byte aligned) as floats, by 16-byte loads
+__device__ __forceinline__ void load_run(const float* p, float (&v)[kRun]) {
+  const float4* vp = reinterpret_cast<const float4*>(p);
+#pragma unroll
+  for (int q = 0; q < kRun / 4; ++q) {
+    const float4 vq = __ldcs(vp + q);
+    v[4 * q] = vq.x; v[4 * q + 1] = vq.y; v[4 * q + 2] = vq.z; v[4 * q + 3] = vq.w;
+  }
+}
+
+__device__ __forceinline__ void load_run(const __nv_bfloat16* p, float (&v)[kRun]) {
+  static_assert(kRun == 8, "one 16-byte load holds 8 bf16 values");
+  const uint4 q = __ldcs(reinterpret_cast<const uint4*>(p));
+  const __nv_bfloat162* pairs = reinterpret_cast<const __nv_bfloat162*>(&q);
+#pragma unroll
+  for (int i = 0; i < kRun / 2; ++i) {
+    const float2 f = __bfloat1622float2(pairs[i]);
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
 }
 
 // The last block: the spanning columns.  Tile q contributes cont[q] to the
@@ -695,8 +762,9 @@ __device__ void finish_spans(const ColumnArgs& a, ColumnSmem& sm) {
   }
 }
 
-template <int POW>
+template <int POW, typename T>
 __global__ void __launch_bounds__(kThreads) csc_column_sum(const ColumnArgs a) {
+  const T* val = static_cast<const T*>(a.val);
   __shared__ ColumnSmem sm;
   const int t = threadIdx.x;
   const int tile = blockIdx.x;
@@ -714,19 +782,17 @@ __global__ void __launch_bounds__(kThreads) csc_column_sum(const ColumnArgs a) {
   float v[kRun], uu[kRun];
   if (mine == kRun) {
     const int4* rp = reinterpret_cast<const int4*>(a.row + lo + r0);
-    const float4* vp = reinterpret_cast<const float4*>(a.val + lo + r0);
 #pragma unroll
     for (int q = 0; q < kRun / 4; ++q) {
       const int4 rq = __ldcs(rp + q);
-      const float4 vq = __ldcs(vp + q);
       r[4 * q] = rq.x; r[4 * q + 1] = rq.y; r[4 * q + 2] = rq.z; r[4 * q + 3] = rq.w;
-      v[4 * q] = vq.x; v[4 * q + 1] = vq.y; v[4 * q + 2] = vq.z; v[4 * q + 3] = vq.w;
     }
+    load_run(val + lo + r0, v);
   } else {
 #pragma unroll
     for (int i = 0; i < kRun; ++i) {
       r[i] = i < mine ? __ldcs(a.row + lo + r0 + i) : 0;
-      v[i] = i < mine ? __ldcs(a.val + lo + r0 + i) : 0.0f;
+      v[i] = i < mine ? to_f(val[lo + r0 + i]) : 0.0f;
     }
   }
 #pragma unroll
@@ -743,7 +809,7 @@ __global__ void __launch_bounds__(kThreads) csc_column_sum(const ColumnArgs a) {
     __syncthreads();
     if (k == 0) {
 #pragma unroll
-      for (int i = 0; i < kRun; ++i) x[i] = term<POW>(v[i], uu[i]);
+      for (int i = 0; i < kRun; ++i) x[i] = term<POW, T>(v[i], uu[i]);
       if (t == 0 && sm.ends[0] <= 0) a.cont[tile] = 0.0f;  // nothing reaches in
     }
     if (k == chunks - 1 && t == 0)
@@ -811,9 +877,9 @@ __global__ void __launch_bounds__(kThreads) csc_column_sum(const ColumnArgs a) {
   finish_spans(a, sm);
 }
 
-template <int POW>
+template <int POW, typename T>
 cudaError_t launch_b(const ColumnArgs& a, cudaStream_t s) {
-  csc_column_sum<POW><<<a.tiles, kThreads, 0, s>>>(a);
+  csc_column_sum<POW, T><<<a.tiles, kThreads, 0, s>>>(a);
   return cudaGetLastError();
 }
 
@@ -823,7 +889,9 @@ extern "C" {
 
 // Kernel A on `stream`; returns the cudaError_t of the launch (0 on
 // success).  loss: a kernel_id of ops/losses.py, or -1 for margins only (y,
-// partial, ticket and value unused).  out: [n].  partial: [grid] scratch;
+// partial, ticket and value unused).  vbytes: the values' element size, 4
+// (float32) or 2 (bfloat16); every other float operand is float32.
+// out: [n].  partial: [grid] scratch;
 // ticket: one zeroed uint32 that every loss-mode launch leaves zeroed;
 // value: [1].  w and o may be null.  The plan (lanes, rows, stages, grid,
 // smem_bytes) comes from sparse_kernels.plan_margins: stages > 0 is the
@@ -831,7 +899,7 @@ extern "C" {
 // margin_layout(k, rows, stages, d).bytes; stages 0 the lanes kernel
 // (lanes P = 1, 2, ..., 32, rows kThreads / P, no dynamic shared
 // memory).  A plan that does not fit is refused.
-int pmt_ell_margin_loss(int loss, const void* idx, const void* val, const void* c,
+int pmt_ell_margin_loss(int loss, int vbytes, const void* idx, const void* val, const void* c,
                         const void* y, const void* w, const void* o, void* out,
                         void* partial, void* ticket, void* value, long long n, int k, int d,
                         int lanes, int rows, int stages, int grid, int smem_bytes,
@@ -842,41 +910,36 @@ int pmt_ell_margin_loss(int loss, const void* idx, const void* val, const void* 
   if (stages > 0) {
     plan_ok = lanes == 1 && rows >= 1 && static_cast<long long>(rows) * k <= kMaxSmem / 8 &&
               d <= kMaxSmem / 4 && smem_bytes <= kMaxSmem &&
-              margin_layout(k, rows, stages, d).bytes == smem_bytes;
+              margin_layout(k, rows, stages, d, vbytes).bytes == smem_bytes;
   } else {
     plan_ok = (1 << log2p) == lanes && rows == (kThreads >> log2p) && stages == 0 &&
               smem_bytes == 0;
   }
   // an empty tensor's pointer may be null: y only when there are no rows
-  if (n < 0 || k < 1 || d < 1 || grid < 1 || !plan_ok ||
+  if (n < 0 || k < 1 || d < 1 || grid < 1 || !plan_ok || (vbytes != 4 && vbytes != 2) ||
       (loss != kMargins && ((y == nullptr && n > 0) || partial == nullptr ||
                             ticket == nullptr || value == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const MarginArgs a{static_cast<const int*>(idx), static_cast<const float*>(val),
+  const MarginArgs a{static_cast<const int*>(idx), val,
                      static_cast<const float*>(c), static_cast<const float*>(y),
                      static_cast<const float*>(w), static_cast<const float*>(o),
                      static_cast<float*>(out), static_cast<float*>(partial),
                      static_cast<unsigned int*>(ticket), static_cast<float*>(value),
                      n, k, d, rows, stages, log2p};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (loss) {
-    case kMargins: return static_cast<int>(launch_a<kMargins>(a, grid, smem_bytes, s));
-    case kLogistic: return static_cast<int>(launch_a<kLogistic>(a, grid, smem_bytes, s));
-    case kSquared: return static_cast<int>(launch_a<kSquared>(a, grid, smem_bytes, s));
-    case kPoisson: return static_cast<int>(launch_a<kPoisson>(a, grid, smem_bytes, s));
-    case kSmoothedHinge:
-      return static_cast<int>(launch_a<kSmoothedHinge>(a, grid, smem_bytes, s));
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return static_cast<int>(vbytes == 4 ? dispatch_a<float>(loss, a, grid, smem_bytes, s)
+                                      : dispatch_a<__nv_bfloat16>(loss, a, grid, smem_bytes, s));
 }
 
-// Kernel B on `stream`.  power 1 or 2; row and val 16-byte aligned;
+// Kernel B on `stream`.  power 1 or 2; vbytes: val's element size, 4
+// (float32) or 2 (bfloat16); row and val 16-byte aligned;
 // tile_col: [tiles + 1], sparse_kernels.tile_map of end; g: [d]; first,
 // cont: [tiles] float scratch; span_col: [tiles] int scratch; ticket: one
 // zeroed uint32 that every launch leaves zeroed.  tiles must be
 // max(1, ceil(nnz / kTile)) and smem_bytes sizeof(ColumnSmem)
 // (sparse_kernels.plan_columns).
-int pmt_csc_column_sum(int power, const void* row, const void* val, const void* end,
+int pmt_csc_column_sum(int power, int vbytes, const void* row, const void* val,
+                       const void* end,
                        const void* tile_col, const void* u, void* g, void* first,
                        void* cont, void* span_col, void* ticket, long long nnz, int d,
                        int tiles, int smem_bytes, void* stream) {
@@ -884,17 +947,21 @@ int pmt_csc_column_sum(int power, const void* row, const void* val, const void* 
   const uintptr_t misaligned =
       (reinterpret_cast<uintptr_t>(row) | reinterpret_cast<uintptr_t>(val)) & 15u;
   if (nnz < 0 || d < 1 || tiles != want || (power != 1 && power != 2) ||
+      (vbytes != 4 && vbytes != 2) ||
       tile_col == nullptr || smem_bytes != static_cast<int>(sizeof(ColumnSmem)) ||
       (nnz > 0 && misaligned != 0))
     return static_cast<int>(cudaErrorInvalidValue);
-  const ColumnArgs a{static_cast<const int*>(row), static_cast<const float*>(val),
+  const ColumnArgs a{static_cast<const int*>(row), val,
                      static_cast<const int*>(end), static_cast<const int*>(tile_col),
                      static_cast<const float*>(u), static_cast<float*>(g),
                      static_cast<float*>(first), static_cast<float*>(cont),
                      static_cast<int*>(span_col), static_cast<unsigned int*>(ticket), nnz,
                      d, tiles};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(power == 1 ? launch_b<1>(a, s) : launch_b<2>(a, s));
+  if (vbytes == 2)
+    return static_cast<int>(power == 1 ? launch_b<1, __nv_bfloat16>(a, s)
+                                       : launch_b<2, __nv_bfloat16>(a, s));
+  return static_cast<int>(power == 1 ? launch_b<1, float>(a, s) : launch_b<2, float>(a, s));
 }
 
 const char* pmt_ell_error_string(int code) {

@@ -13,18 +13,25 @@
 //
 // Replaces the TPU kernel photon_ml_tpu/ops/pallas_kernels.py::
 // fused_value_and_gradient (pl.pallas_call at line 150, body _kernel at
-// lines 54-86), for all four pointwise losses of ops/losses.py.
+// lines 54-86), for all four pointwise losses of ops/losses.py.  As the
+// TPU kernel (xb = x_ref[:].astype(jnp.float32)), X comes in float32 or
+// bfloat16 storage: the kernel is a template on X's element type, and a
+// bf16 element becomes a float by __bfloat162float (exact) where it is
+// read from shared memory; every other operand and every sum is f32.
 //
 // Bound on an H100: memory.  One pass must read X once, n*d*4 bytes (815 MB
 // at the a1a config [1,643,520 x 124], 0.245 ms at the data sheet's
 // 3.35 TB/s); the arithmetic is 4*n*d flops, ~0.01 ms at the f32 peak.  To
 // reach the bound each SM needs ~18 KB of loads in flight at all times.
+// With bf16 storage the pass reads n*d*2 bytes (408 MB at a1a, ~0.124 ms
+// with the labels).
 // What the design does about it:
 //   - A persistent grid, one block per SM; block b takes tiles b, b + grid,
-//     ...  A tile of R rows is one contiguous span of R*d*4 bytes (~48 KB);
-//     R is a multiple of 4 where it can be, so tiles of a 16-byte aligned
-//     X start on 16-byte boundaries.  (Tiles dealt out in turn measured a
-//     little faster than one contiguous range per block.)
+//     ...  A tile of R rows is one contiguous span of R*d*E bytes (~48 KB,
+//     E = 4 or 2 bytes an element); R is a multiple of 16 / E where it can
+//     be, so tiles of a 16-byte aligned X start on 16-byte boundaries.
+//     (Tiles dealt out in turn measured a little faster than one
+//     contiguous range per block.)
 //   - A ring of S stages in dynamic shared memory.  One producer thread
 //     fills each stage with cp.async.bulk copies (X's tile and the tile's
 //     y, w, o, m) that complete on the stage's "full" mbarrier; the consumers
@@ -32,8 +39,9 @@
 //     per SM (two 48 KB stages at d = 124), against the ~18 KB in flight
 //     that the HBM rate needs.  A bulk copy needs a 16-byte aligned address
 //     and size: it takes the aligned interior of each span, and the
-//     consumers load the <= 3 floats at either ragged end with ordinary
-//     loads (misaligned views, d % 4 != 0, the last tile).
+//     consumers load the <= 16 / E - 1 elements at either ragged end (3
+//     floats, 7 bf16) with ordinary loads (misaligned views, d not a
+//     multiple of 16 / E, the last tile).
 //   - The 256 consumer threads read only shared memory.  Margins: P
 //     threads per row (P = 256 / R rounded down to a power of two <= 32)
 //     take every P-th column and meet in log2(P) shuffles; the row's first
@@ -52,7 +60,7 @@
 //   - Weights default to 1, offsets and b to 0, and the mask to all rows
 //     in-kernel (null pointers).  The mask is one more [rows] stream per
 //     stage beside y, w and o.
-//   - f32 inputs, f32 accumulation, as the TPU kernel, but every running
+//   - f32 (X also bf16) inputs, f32 accumulation, as the TPU kernel, but every running
 //     sum (a thread's gradient registers, its value and sum(w l'), the
 //     block's and the last block's sums) is compensated (Kahan): a thread
 //     adds hundreds to thousands of terms in turn, and an uncompensated f32
@@ -68,6 +76,7 @@
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
 //        -Xcompiler -fPIC -o libfused_value_and_gradient.so \
 //        fused_value_and_gradient.cu
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -129,6 +138,10 @@ __device__ __forceinline__ void loss_and_dz(float z, float y, float& l, float& d
 
 __host__ __device__ constexpr int round4(int v) { return (v + 3) & ~3; }
 
+// X's element as a float: exact for both storage types
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+
 // A compensated (Kahan) running sum: the rounding error of each addition
 // is carried into the next, so value() is within a few ulps of the exact
 // sum however many terms it took.  (nvcc keeps the order: no fast math.)
@@ -148,16 +161,17 @@ __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) { return a < b ? 
 // Shared memory, in floats from the (16-byte aligned) base: S stages of
 // [X tile | y | w | o | m], then c [d], two buffers of the tiles' s = w*l'
 // [R], a reduction area [3 * kConsumers], then 2*S mbarriers (full,
-// empty).  Each array
-// starts on 16 bytes and leaves 3 floats of room, because element k of a
-// span sits at (address / 4) % 4 + k so that its 16-byte chunks line up.
+// empty).  Each array starts on 16 bytes and leaves 16 - E bytes of room
+// (E = xbytes for the X tile, 4 for the rest), because element k of a
+// span sits at (address / E) % (16 / E) + k so that its 16-byte chunks
+// line up.
 struct Layout {
   int stage_x, stage_v, stage, c, s, red, bars, bytes;
 };
 
-__host__ __device__ Layout smem_layout(int d, int rows, int stages) {
+__host__ __device__ Layout smem_layout(int d, int rows, int stages, int xbytes) {
   Layout L;
-  L.stage_x = round4(rows * d + 3);
+  L.stage_x = round4((xbytes * rows * d + 19 - xbytes) / 4);
   L.stage_v = round4(rows + 3);
   L.stage = L.stage_x + 4 * L.stage_v;
   L.c = stages * L.stage;
@@ -168,26 +182,29 @@ __host__ __device__ Layout smem_layout(int d, int rows, int stages) {
   return L;
 }
 
-// The 16-byte aligned interior [a, b) of the byte span of `count` floats
-// at `src`.  Element k of the span lives at buf[phase + k].
+// The 16-byte aligned interior [a, b) of the byte span of `count` elements
+// of type E at `src`.  Element k of the span lives at buf[phase + k].
+template <typename E>
 struct Span {
-  const float* src;
-  int count, phase, head, tail;  // head: floats before a; tail: first float at/after b
+  const E* src;
+  int count, phase, head, tail;  // head: elements before a; tail: first element at/after b
   uint32_t bytes;                // b - a, 0 when there is no aligned interior
 };
 
-__device__ __forceinline__ Span span_of(const float* src, int count) {
-  Span s;
+template <typename E>
+__device__ __forceinline__ Span<E> span_of(const E* src, int count) {
+  constexpr int kE = (int)sizeof(E);
+  Span<E> s;
   s.src = src;
   s.count = count;
   const uintptr_t lo = reinterpret_cast<uintptr_t>(src);
-  const uintptr_t hi = lo + 4ull * (uint64_t)count;
+  const uintptr_t hi = lo + (uint64_t)kE * (uint64_t)count;
   const uintptr_t a = (lo + 15) & ~uintptr_t(15);
   const uintptr_t b = hi & ~uintptr_t(15);
-  s.phase = (int)((lo >> 2) & 3);
+  s.phase = (int)((lo & 15) / kE);
   if (src != nullptr && b > a) {
-    s.head = (int)((a - lo) >> 2);
-    s.tail = (int)((b - lo) >> 2);
+    s.head = (int)((a - lo) / kE);
+    s.tail = (int)((b - lo) / kE);
     s.bytes = (uint32_t)(b - a);
   } else {
     s.head = count;
@@ -235,7 +252,8 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 }
 
 // Copy the aligned interior of `s` into buf (element k at buf[phase + k]).
-__device__ __forceinline__ void bulk_load(float* buf, const Span& s, uint64_t* bar) {
+template <typename E>
+__device__ __forceinline__ void bulk_load(E* buf, const Span<E>& s, uint64_t* bar) {
   if (s.bytes == 0) return;
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
@@ -244,8 +262,9 @@ __device__ __forceinline__ void bulk_load(float* buf, const Span& s, uint64_t* b
       : "memory");
 }
 
-// The floats of `s` the bulk copy cannot take, by ordinary loads.
-__device__ __forceinline__ void load_edges(float* buf, const Span& s, int t) {
+// The elements of `s` the bulk copy cannot take, by ordinary loads.
+template <typename E>
+__device__ __forceinline__ void load_edges(E* buf, const Span<E>& s, int t) {
   if (t < s.head) buf[s.phase + t] = s.src[t];
   const int k = s.tail + t;
   if (k < s.count && k >= s.head) buf[s.phase + k] = s.src[k];
@@ -257,7 +276,7 @@ __device__ __forceinline__ void consumer_sync() {
 
 // The kernel's operands.  w, o, m and b may be null.
 struct Args {
-  const float* x;  // [n, d] row-major
+  const void* x;   // [n, d] row-major, float or __nv_bfloat16
   const float* y;
   const float* w;
   const float* o;
@@ -269,16 +288,17 @@ struct Args {
   float* out;            // [d + 2] = [value, grad, swl]
   int64_t n;
   int d, rows, stages;   // rows per tile, ring stages
+  int xbytes;            // X's element size: 4 (float) or 2 (__nv_bfloat16)
 };
 
 // One block per SM.  Block b takes tiles b, b + gridDim.x, ... of `rows`
 // rows each: at any moment the blocks stream one window of X, and no block
 // has more than one tile more than another.  NACC: gradient registers per
 // consumer thread (1 when d <= 256; else ceil(d / 256) rounded up to the
-// instantiated size).
-template <int LOSS, int NACC>
+// instantiated size).  T: X's element type, float or __nv_bfloat16.
+template <int LOSS, int NACC, typename T>
 __global__ void __launch_bounds__(kThreads, 1) fvg_tma(const Args a) {
-  const float* __restrict__ x = a.x;
+  const T* __restrict__ x = static_cast<const T*>(a.x);
   const float* __restrict__ y = a.y;
   const float* __restrict__ w = a.w;
   const float* __restrict__ o = a.o;
@@ -286,7 +306,7 @@ __global__ void __launch_bounds__(kThreads, 1) fvg_tma(const Args a) {
   const int64_t n = a.n;
   const int d = a.d, rows = a.rows, stages = a.stages;
   extern __shared__ __align__(16) float smem[];
-  const Layout L = smem_layout(d, rows, stages);
+  const Layout L = smem_layout(d, rows, stages, (int)sizeof(T));
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bars);
   uint64_t* empty = full + stages;
   float* c_s = smem + L.c;
@@ -321,17 +341,17 @@ __global__ void __launch_bounds__(kThreads, 1) fvg_tma(const Args a) {
         mbar_wait(&empty[stage], parity);
         const int nr = (int)min64(rows, n - r0);
         float* buf = smem + stage * L.stage;
-        const Span sx = span_of(x + r0 * d, nr * d);
-        const Span sy = span_of(y + r0, nr);
-        const Span sw = span_of(w == nullptr ? nullptr : w + r0, nr);
-        const Span so = span_of(o == nullptr ? nullptr : o + r0, nr);
-        const Span sm = span_of(m == nullptr ? nullptr : m + r0, nr);
+        const Span<T> sx = span_of(x + r0 * d, nr * d);
+        const Span<float> sy = span_of(y + r0, nr);
+        const Span<float> sw = span_of(w == nullptr ? nullptr : w + r0, nr);
+        const Span<float> so = span_of(o == nullptr ? nullptr : o + r0, nr);
+        const Span<float> sm = span_of(m == nullptr ? nullptr : m + r0, nr);
         const uint32_t bytes = sx.bytes + sy.bytes + sw.bytes + so.bytes + sm.bytes;
         if (bytes == 0) {
           mbar_arrive(&full[stage]);
         } else {
           mbar_arrive_expect_tx(&full[stage], bytes);
-          bulk_load(buf, sx, &full[stage]);
+          bulk_load(reinterpret_cast<T*>(buf), sx, &full[stage]);
           bulk_load(buf + L.stage_x, sy, &full[stage]);
           bulk_load(buf + L.stage_x + L.stage_v, sw, &full[stage]);
           bulk_load(buf + L.stage_x + 2 * L.stage_v, so, &full[stage]);
@@ -362,12 +382,12 @@ __global__ void __launch_bounds__(kThreads, 1) fvg_tma(const Args a) {
       mbar_wait(&full[stage], parity);
       const int nr = (int)min64(rows, n - r0);
       float* buf = smem + stage * L.stage;
-      const Span sx = span_of(x + r0 * d, nr * d);
-      const Span sy = span_of(y + r0, nr);
-      const Span sw = span_of(w == nullptr ? nullptr : w + r0, nr);
-      const Span so = span_of(o == nullptr ? nullptr : o + r0, nr);
-      const Span sm = span_of(m == nullptr ? nullptr : m + r0, nr);
-      float* bx = buf + sx.phase;
+      const Span<T> sx = span_of(x + r0 * d, nr * d);
+      const Span<float> sy = span_of(y + r0, nr);
+      const Span<float> sw = span_of(w == nullptr ? nullptr : w + r0, nr);
+      const Span<float> so = span_of(o == nullptr ? nullptr : o + r0, nr);
+      const Span<float> sm = span_of(m == nullptr ? nullptr : m + r0, nr);
+      const T* bx = reinterpret_cast<const T*>(buf) + sx.phase;
       float* by = buf + L.stage_x + sy.phase;
       float* bw = buf + L.stage_x + L.stage_v + sw.phase;
       float* bo = buf + L.stage_x + 2 * L.stage_v + so.phase;
@@ -381,7 +401,7 @@ __global__ void __launch_bounds__(kThreads, 1) fvg_tma(const Args a) {
                          (o != nullptr && (so.head > 0 || so.tail < so.count)) ||
                          (m != nullptr && (sm.head > 0 || sm.tail < sm.count));
       if (edges) {
-        load_edges(buf, sx, t);
+        load_edges(reinterpret_cast<T*>(buf), sx, t);
         load_edges(buf + L.stage_x, sy, t);
         if (w != nullptr) load_edges(buf + L.stage_x + L.stage_v, sw, t);
         if (o != nullptr) load_edges(buf + L.stage_x + 2 * L.stage_v, so, t);
@@ -395,9 +415,9 @@ __global__ void __launch_bounds__(kThreads, 1) fvg_tma(const Args a) {
         const int r = q * rows_per_pass + row_in_pass;
         float dot = 0.0f;
         if (r < nr) {
-          const float* xr = bx + r * d;
+          const T* xr = bx + r * d;
 #pragma unroll 8
-          for (int j = sub; j < d; j += P) dot += xr[j] * c_s[j];
+          for (int j = sub; j < d; j += P) dot += to_f(xr[j]) * c_s[j];
         }
         for (int off = P >> 1; off > 0; off >>= 1)
           dot += __shfl_xor_sync(0xffffffffu, dot, off);
@@ -422,16 +442,16 @@ __global__ void __launch_bounds__(kThreads, 1) fvg_tma(const Args a) {
         if (t < span) {
           const int groups = (nr - kt + K - 1) / K;
 #pragma unroll 8
-          for (int g = 0; g < groups; ++g) acc[0].add(bx[g * span + t] * s_t[g * K + kt]);
+          for (int g = 0; g < groups; ++g) acc[0].add(to_f(bx[g * span + t]) * s_t[g * K + kt]);
         }
       } else {
         for (int r = 0; r < nr; ++r) {
           const float sr = s_t[r];
-          const float* xr = bx + r * d;
+          const T* xr = bx + r * d;
 #pragma unroll
           for (int i = 0; i < NACC; ++i) {
             const int f = t + i * kConsumers;
-            if (f < d) acc[i].add(xr[f] * sr);
+            if (f < d) acc[i].add(to_f(xr[f]) * sr);
           }
         }
       }
@@ -506,13 +526,20 @@ __global__ void __launch_bounds__(kThreads, 1) fvg_tma(const Args a) {
   if (t == 0) *a.ticket = 0u;  // ready for the next call on this stream
 }
 
+template <int LOSS, int NACC, typename T>
+cudaError_t launch_as(const Args& a, int grid, int smem, cudaStream_t stream) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      fvg_tma<LOSS, NACC, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  fvg_tma<LOSS, NACC, T><<<grid, kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// the instantiation for X's storage type
 template <int LOSS, int NACC>
 cudaError_t launch(const Args& a, int grid, int smem, cudaStream_t stream) {
-  const cudaError_t e = cudaFuncSetAttribute(
-      fvg_tma<LOSS, NACC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return e;
-  fvg_tma<LOSS, NACC><<<grid, kThreads, smem, stream>>>(a);
-  return cudaGetLastError();
+  return a.xbytes == 2 ? launch_as<LOSS, NACC, __nv_bfloat16>(a, grid, smem, stream)
+                       : launch_as<LOSS, NACC, float>(a, grid, smem, stream);
 }
 
 template <int LOSS>
@@ -533,11 +560,13 @@ extern "C" {
 // Launches the one kernel of a pass on `stream`; returns the cudaError_t of
 // the launch (0 on success).  The plan (rows, stages, grid, acc_per_thread,
 // smem_bytes) comes from hopper_kernels.plan_fused; a plan that does not
-// fit this source's layout is refused.  partial: [grid, d + 2] scratch;
+// fit this source's layout is refused.  xbytes: X's element size, 4
+// (float32) or 2 (bfloat16); every other operand is float32.  partial:
+// [grid, d + 2] scratch;
 // ticket: one zeroed uint32 that every launch leaves zeroed; out: [d + 2] =
 // [value, grad[0..d), swl].  w, o, m (row mask) and b (one margin shift)
 // may be null.
-int pmt_fused_value_and_gradient(int loss, const void* x, const void* y,
+int pmt_fused_value_and_gradient(int loss, int xbytes, const void* x, const void* y,
                                  const void* w, const void* o, const void* m,
                                  const void* b, const void* c,
                                  void* partial, void* ticket, void* out, long long n,
@@ -546,14 +575,15 @@ int pmt_fused_value_and_gradient(int loss, const void* x, const void* y,
   const bool acc_ok = acc_per_thread == 1 ? d <= kConsumers
                                           : d <= acc_per_thread * kConsumers;
   if (n < 0 || d < 1 || rows < 1 || stages < 1 || grid < 1 || !acc_ok ||
-      smem_bytes > kMaxSmem || smem_layout(d, rows, stages).bytes != smem_bytes)
+      (xbytes != 4 && xbytes != 2) || smem_bytes > kMaxSmem ||
+      smem_layout(d, rows, stages, xbytes).bytes != smem_bytes)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{static_cast<const float*>(x), static_cast<const float*>(y),
+  const Args a{x, static_cast<const float*>(y),
                static_cast<const float*>(w), static_cast<const float*>(o),
                static_cast<const float*>(m), static_cast<const float*>(b),
                static_cast<const float*>(c), static_cast<float*>(partial),
                static_cast<unsigned int*>(ticket), static_cast<float*>(out),
-               n, d, rows, stages};
+               n, d, rows, stages, xbytes};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   switch (loss) {

@@ -69,7 +69,10 @@ def train_glm(
     moved to `device` (None means cuda, which raises when CUDA is absent);
     a sparse x gets the column view its gradient needs (ops/features.py
     as_feature_matrix).  The computation runs in the labels' dtype (float32
-    if they are not floating), and features are cast to it.  Variances
+    if they are not floating), and features are cast to it, except bf16
+    features (a bf16 dense tensor or PaddedSparse): they stay bf16, as the
+    JAX package's train_glm leaves x as given, and every product promotes
+    them exactly (the kernels read them as bf16).  Variances
     (`compute_variances`) come from the Hessian diagonal, sq_rmatvec on a
     sparse x.  The caller's `initial_model`
     is never written.  `index_map` resolves named feature constraints

@@ -28,7 +28,7 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
     "fused_value_and_gradient": {
         "pmt_fused_value_and_gradient":
-            (_I, [_I] + [_P] * 10 + [_LL] + [_I] * 6 + [_P]),
+            (_I, [_I, _I] + [_P] * 10 + [_LL] + [_I] * 6 + [_P]),
         "pmt_error_string": (ctypes.c_char_p, [_I]),
     },
     "fused_value_and_gradient_lanes": {
@@ -37,8 +37,8 @@ SIGNATURES = {
         "pmt_lanes_error_string": (ctypes.c_char_p, [_I]),
     },
     "ell_sparse": {
-        "pmt_ell_margin_loss": (_I, [_I] + [_P] * 10 + [_LL] + [_I] * 7 + [_P]),
-        "pmt_csc_column_sum": (_I, [_I] + [_P] * 10 + [_LL, _I, _I, _I, _P]),
+        "pmt_ell_margin_loss": (_I, [_I, _I] + [_P] * 10 + [_LL] + [_I] * 7 + [_P]),
+        "pmt_csc_column_sum": (_I, [_I, _I] + [_P] * 10 + [_LL, _I, _I, _I, _P]),
         "pmt_ell_error_string": (ctypes.c_char_p, [_I]),
     },
 }

@@ -18,6 +18,13 @@ products, as the JAX package computes it outside its Pallas kernel), take
 the algebra below, whose products on a CUDA PaddedSparse are kernels A and
 B too: a dispatch on the kind of input, not a fallback on failure.
 Weights/offsets may be None (1 / 0).
+
+A bf16 X (dense, or a PaddedSparse's values) reaches the kernels as bf16;
+the coefficients, labels, weights, offsets and normalization stay in the
+labels' dtype.  The torch algebra (masked or shifted sparse passes, the
+Hessian-vector product, the Hessian diagonal, value_only) promotes X in
+ops/features.py's products, as the JAX package's jnp promotion does:
+nothing rounds a coefficient, a margin or a gradient to bf16.
 """
 from __future__ import annotations
 

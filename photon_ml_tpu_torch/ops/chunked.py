@@ -98,6 +98,10 @@ class ChunkedGLMObjective:
     _ones: Optional[np.ndarray] = dataclasses.field(default=None, repr=False)
 
     def __post_init__(self):
+        if self.dtype == torch.bfloat16 or getattr(self.x, "dtype", None) == torch.bfloat16:
+            raise NotImplementedError(
+                "bf16 feature storage is not ported to the streamed chunk "
+                "(ROADMAP.md queue A item 28); stream a float32 X")
         if not isinstance(self.x, np.ndarray):
             raise TypeError("ChunkedGLMObjective requires a dense host "
                             "feature block (sparse shards would re-pack per "

@@ -18,6 +18,16 @@ package does.
 A `KroneckerDesign`'s products are matrix products in torch (the JAX
 package computes them in XLA, outside any Pallas kernel).
 
+bf16 feature storage: a dense X or a PaddedSparse's values may be stored in
+bfloat16 (`as_feature_matrix` keeps them so).  The products promote as the
+JAX package's do (x @ v, jnp.promote_types): X is widened exactly to the
+vector's dtype and the product accumulates there, never rounded to bf16.
+A dense product widens X in row chunks of at most WIDEN_BYTES (a temporary
+copy, on the card too: the fused kernel, not these products, is the
+value+gradient pass); the sparse products' kernels take bf16 values as
+they are.  (X*X) for sq_rmatvec is formed in the storage dtype first, as
+the JAX package forms it.
+
 Not ported, raising NotImplementedError: BCOO input (ROADMAP.md queue A
 item 24).
 """
@@ -122,7 +132,8 @@ class PaddedSparse:
         return self.values.is_cuda
 
     def to(self, device=None, dtype=None) -> "PaddedSparse":
-        """On `device` with values in `dtype` (indices stay int32)."""
+        """On `device` with values in `dtype`, the column view's values too
+        (indices stay int32)."""
         ints = lambda a: None if a is None else a.to(device=device)
         vals = lambda a: None if a is None else a.to(device=device, dtype=dtype)
         return PaddedSparse(ints(self.indices), vals(self.values), self.num_cols,
@@ -158,7 +169,10 @@ class PaddedSparse:
     @staticmethod
     def from_dense(x, device=None) -> "PaddedSparse":
         """A dense [n, d] array or tensor -> ELL on `device` (None means
-        cuda), values in x's dtype."""
+        cuda), values in x's dtype (a bf16 tensor's too)."""
+        if isinstance(x, torch.Tensor) and x.dtype == torch.bfloat16:
+            # numpy has no bf16: build from the exact float32 copy
+            return PaddedSparse.from_dense(x.float(), device).to(dtype=torch.bfloat16)
         x = x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
         nnz = np.count_nonzero(x, axis=1)
         k = max(int(nnz.max()), 1) if len(nnz) else 1
@@ -228,13 +242,21 @@ def _refuse(x) -> None:
         raise NotImplementedError(_BCOO)
 
 
+def _storage(x_dtype: torch.dtype, dtype) -> torch.dtype:
+    """The dtype features are stored in: bf16 features stay bf16 (the
+    products promote), every other dtype becomes `dtype`."""
+    return x_dtype if x_dtype == torch.bfloat16 else dtype
+
+
 def as_feature_matrix(x, device=None, dtype=None,
                       with_csc: bool = False) -> FeatureMatrix:
     """Ingest adapter, onto `device` (None means cuda) in `dtype`:
     scipy.sparse -> PaddedSparse, a PaddedSparse moved, anything else a
-    dense tensor.  `with_csc` asks for the column view a solve's gradient
-    needs: always attached on a CUDA device, and on the CPU from
-    CSC_MIN_COLS columns up, as the JAX package does."""
+    dense tensor.  A bf16 dense X or bf16 PaddedSparse stays bf16 (the
+    JAX package's bf16 feature storage); a KroneckerDesign and every other
+    dtype is cast to `dtype`.  `with_csc` asks for the column view a
+    solve's gradient needs: always attached on a CUDA device, and on the
+    CPU from CSC_MIN_COLS columns up, as the JAX package does."""
     dev = resolve_device(device)
     _refuse(x)
     if isinstance(x, KroneckerDesign):
@@ -243,18 +265,53 @@ def as_feature_matrix(x, device=None, dtype=None,
         want = with_csc and (dev.type == "cuda" or x.shape[1] >= CSC_MIN_COLS)
         if not isinstance(x, PaddedSparse):
             return PaddedSparse.from_scipy(x, with_csc=want, device=dev).to(dtype=dtype)
-        x = x.to(dev, dtype)
+        x = x.to(dev, _storage(x.dtype, dtype))
         return x.with_csc() if want else x
     if not isinstance(x, torch.Tensor):
         x = torch.as_tensor(x)
     if x.ndim != 2:
         raise ValueError(f"a feature matrix is 2-D; got shape {tuple(x.shape)}")
-    return x.to(device=dev, dtype=dtype)
+    return x.to(device=dev, dtype=_storage(x.dtype, dtype))
 
 
 def _dense(x) -> torch.Tensor:
     _refuse(x)
     return x
+
+
+# a dense product whose X must be widened to the vector's dtype (bf16
+# storage) widens it in row chunks of at most this many bytes
+WIDEN_BYTES = 64 << 20
+
+
+def _widened(x: torch.Tensor, dtype: torch.dtype):
+    """(first row, rows of x widened exactly to `dtype`) in row chunks of
+    at most WIDEN_BYTES."""
+    rows = max(1, WIDEN_BYTES // (max(x.shape[1], 1) * dtype.itemsize))
+    for lo in range(0, x.shape[0], rows):
+        yield lo, x[lo:lo + rows].to(dtype)
+
+
+def _mv(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """X v in the promoted dtype of X and v (JAX's x @ v)."""
+    dt = torch.promote_types(x.dtype, v.dtype)
+    if x.dtype == v.dtype == dt:
+        return torch.mv(x, v)
+    v = v.to(dt)
+    parts = [torch.mv(xc, v) for _, xc in _widened(x, dt)]
+    return torch.cat(parts) if parts else v.new_zeros(0)
+
+
+def _rmv(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """X^T u in the promoted dtype of X and u (JAX's x.T @ u)."""
+    dt = torch.promote_types(x.dtype, u.dtype)
+    if x.dtype == u.dtype == dt:
+        return torch.mv(x.T, u)
+    u = u.to(dt)
+    out = u.new_zeros(x.shape[1])
+    for lo, xc in _widened(x, dt):
+        out += torch.mv(xc.T, u[lo:lo + xc.shape[0]])
+    return out
 
 
 def num_features(x: FeatureMatrix) -> int:
@@ -274,7 +331,7 @@ def matvec(x: FeatureMatrix, v: torch.Tensor) -> torch.Tensor:
         if tuple(v.shape) != (x.num_cols,):
             raise ValueError(f"v has shape {tuple(v.shape)}, X has {x.num_cols} columns")
         return sk.ell_margins(x.indices, x.values, v)
-    return torch.mv(_dense(x), v)
+    return _mv(_dense(x), v)
 
 
 def _scatter(x: PaddedSparse, u: torch.Tensor, power: int) -> torch.Tensor:
@@ -299,7 +356,7 @@ def rmatvec(x: FeatureMatrix, u: torch.Tensor) -> torch.Tensor:
         if x.has_csc:
             return sk.csc_column_sum(x.csc_row, x.csc_val, x.csc_end, u, 1, x.csc_tiles)
         return _scatter(x, u, 1)
-    return torch.mv(_dense(x).T, u)
+    return _rmv(_dense(x), u)
 
 
 def sq_rmatvec(x: FeatureMatrix, u: torch.Tensor) -> torch.Tensor:
@@ -313,7 +370,7 @@ def sq_rmatvec(x: FeatureMatrix, u: torch.Tensor) -> torch.Tensor:
             return sk.csc_column_sum(x.csc_row, x.csc_val, x.csc_end, u, 2, x.csc_tiles)
         return _scatter(x, u, 2)
     x = _dense(x)
-    return torch.mv((x * x).T, u)
+    return _rmv(x * x, u)
 
 
 def pad_rows(x: FeatureMatrix, rem: int) -> FeatureMatrix:

@@ -10,7 +10,11 @@ X^T (w l') - s * sum(w l')), so streamed chunks and standardized fits run
 the kernel too.  On a CUDA tensor the wrapper launches the CUDA kernel
 (csrc/fused_value_and_gradient.cu, built at first use by ops/_build.py) or
 raises; on a CPU tensor it runs the plain version.  Importing this module
-builds nothing.
+builds nothing.  X is stored in float32 or bfloat16, as the TPU kernel
+takes it (it upcasts each tile, x_ref[:].astype(jnp.float32)); every other
+operand and every sum is float32.  The plain version computes in the
+promoted dtype of X and the coefficients, so a bf16 X is widened exactly,
+never the coefficients rounded.
 
 `plan_fused` chooses the kernel's tiles, ring stages and grid; it is pure
 arithmetic, so the CPU tests replay it, and the kernel refuses a plan whose
@@ -41,7 +45,14 @@ import torch
 from photon_ml_tpu_torch.ops.losses import PointwiseLoss
 
 LAUNCHES = 0
+# the fused kernel's launches on a bf16 X (counted in LAUNCHES too)
+BF16_LAUNCHES = 0
 LANES_LAUNCHES = 0
+
+# X's storage types the fused kernel takes, and their element bytes
+X_BYTES = {torch.float32: 4, torch.bfloat16: 2}
+BF16_LANES_REFUSAL = ("bf16 feature storage is not ported to the candidate-lanes kernel "
+               "(ROADMAP.md queue A item 27); pass a float32 X")
 
 # Must match the CUDA source: 256 consumer threads plus one producer warp,
 # one block per SM, at most 227 KB less 1 KB of dynamic shared memory.
@@ -65,9 +76,10 @@ def _round4(v: int) -> int:
 class SmemLayout:
     """Offsets in floats into the kernel's dynamic shared memory (as
     smem_layout() in the CUDA source): `stages` stages of `stage` floats,
-    each [X tile (stage_x) | y | w | o | m (stage_v each)], then c, two
-    buffers of s, the reduction area and the mbarriers at `bars`; `bytes`
-    in all."""
+    each [X tile (stage_x: rows * d elements of `xbytes` bytes, and
+    16 - xbytes bytes of room for the alignment phase) | y | w | o | m
+    (stage_v each)], then c, two buffers of s, the reduction area and the
+    mbarriers at `bars`; `bytes` in all."""
     stage_x: int
     stage_v: int
     stage: int
@@ -78,8 +90,8 @@ class SmemLayout:
     bytes: int
 
 
-def smem_layout(d: int, rows: int, stages: int) -> SmemLayout:
-    stage_x = _round4(rows * d + 3)
+def smem_layout(d: int, rows: int, stages: int, xbytes: int = 4) -> SmemLayout:
+    stage_x = _round4((xbytes * rows * d + 19 - xbytes) // 4)
     stage_v = _round4(rows + 3)
     stage = stage_x + 4 * stage_v
     c = stages * stage
@@ -103,30 +115,31 @@ class FusedPlan:
 
 
 @functools.lru_cache(maxsize=64)
-def plan_fused(n: int, d: int, sm_count: int) -> FusedPlan:
-    """Tiles of ~48 KB of X (a multiple of 4 rows where a tile holds 4 or
-    more, so tiles of an aligned X stay 16-byte aligned), enough stages to
-    hold ~96 KB (2 to 8, as many as fit), one block per SM, and the
-    smallest gradient register count that covers d columns with 256
-    threads.  (Measured on an H100 with scripts/fvg_sweep.py: smaller tiles
-    leave the consumer threads behind the copies; deeper rings gain
-    nothing.)"""
+def plan_fused(n: int, d: int, sm_count: int, xbytes: int = 4) -> FusedPlan:
+    """Tiles of ~48 KB of X (X's elements `xbytes` bytes each; a multiple
+    of 16 / xbytes rows where a tile holds that many or more, so tiles of
+    an aligned X stay 16-byte aligned), enough stages to hold ~96 KB (2 to
+    8, as many as fit), one block per SM, and the smallest gradient
+    register count that covers d columns with 256 threads.  (Measured on
+    an H100 with scripts/fvg_sweep.py: smaller tiles leave the consumer
+    threads behind the copies; deeper rings gain nothing.)"""
     if not 1 <= d <= D_MAX:
         raise ValueError(f"the fused kernel takes 1 <= d <= {D_MAX} "
                          f"(gradient registers per thread); got d={d}")
-    if n < 0 or sm_count < 1:
-        raise ValueError(f"bad plan request n={n}, sm_count={sm_count}")
-    rows = max(1, _TILE_BYTES // (4 * d))
-    if rows >= 4:
-        rows = (rows + 2) // 4 * 4
+    if n < 0 or sm_count < 1 or xbytes not in (2, 4):
+        raise ValueError(f"bad plan request n={n}, sm_count={sm_count}, xbytes={xbytes}")
+    unit = 16 // xbytes
+    rows = max(1, _TILE_BYTES // (xbytes * d))
+    if rows >= unit:
+        rows = (rows + unit // 2) // unit * unit
     rows = min(rows, _MAX_TILE_ROWS)
     acc = next(a for a in ACC_SIZES if a * CONSUMERS >= d)
-    fixed = smem_layout(d, rows, 0).bytes
-    per_stage = smem_layout(d, rows, 1).bytes - fixed
-    stages = min(_MAX_STAGES, max(2, _RING_BYTES // (4 * rows * d)),
+    fixed = smem_layout(d, rows, 0, xbytes).bytes
+    per_stage = smem_layout(d, rows, 1, xbytes).bytes - fixed
+    stages = min(_MAX_STAGES, max(2, _RING_BYTES // (xbytes * rows * d)),
                  (MAX_SMEM - fixed) // per_stage)
     grid = max(1, min(sm_count * BLOCKS_PER_SM, -(-n // rows)))
-    return FusedPlan(rows, stages, grid, acc, smem_layout(d, rows, stages))
+    return FusedPlan(rows, stages, grid, acc, smem_layout(d, rows, stages, xbytes))
 
 
 @functools.lru_cache(maxsize=None)
@@ -160,10 +173,13 @@ def fused_value_and_gradient_plain(
     mask: Optional[torch.Tensor] = None,
     shifts: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's function in plain PyTorch, in the inputs' dtype: two
-    matrix-vector products around the pointwise loss.  `mask` selects rows
-    (where, not multiply); `shifts` s adds -(c . s) to every margin and
-    takes s * sum(w l') off the gradient."""
+    """The kernel's function in plain PyTorch, in the promoted dtype of X
+    and the coefficients (a bf16 X is widened exactly, as the TPU kernel's
+    astype(float32) widens it): two matrix-vector products around the
+    pointwise loss.  `mask` selects rows (where, not multiply); `shifts` s
+    adds -(c . s) to every margin and takes s * sum(w l') off the
+    gradient."""
+    x = x.to(torch.promote_types(x.dtype, coefficients.dtype))
     z = torch.mv(x, coefficients)
     if shifts is not None:
         z = z - torch.dot(coefficients, shifts)
@@ -184,11 +200,15 @@ def fused_value_and_gradient_plain(
 
 
 def _check_operand(name: str, t: torch.Tensor, shape, device,
-                   dtype: torch.dtype = torch.float32) -> None:
+                   dtype=torch.float32) -> None:
+    """`dtype`: the dtype the kernel takes for this operand, or a tuple of
+    them."""
+    dtypes = dtype if isinstance(dtype, tuple) else (dtype,)
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, X on {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"the CUDA kernel takes {str(dtype).split('.')[-1]} only; "
+    if t.dtype not in dtypes:
+        names = " or ".join(str(dt).split(".")[-1] for dt in dtypes)
+        raise TypeError(f"the CUDA kernel takes {name} in {names} only; "
                         f"{name} is {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
@@ -210,9 +230,10 @@ def fused_value_and_gradient(
     whose `mask` is nonzero, with the margin shift -(c . s) of `shifts`.
 
     CPU tensors run the plain version.  CUDA tensors launch the kernel:
-    every operand float32, contiguous and on X's device, d <= D_MAX;
-    anything else raises.  The shift's scalar is computed on the device
-    and read by the kernel (no read-back)."""
+    X float32 or bfloat16, every other operand float32, all contiguous and
+    on X's device, d <= D_MAX; anything else raises (nothing is copied or
+    widened).  The shift's scalar is computed on the device and read by
+    the kernel (no read-back)."""
     if x.device.type == "cpu":
         return fused_value_and_gradient_plain(loss, x, labels, coefficients,
                                               weights, offsets, mask, shifts)
@@ -221,8 +242,9 @@ def fused_value_and_gradient(
     if x.ndim != 2:
         raise ValueError(f"X must be 2-D, got shape {tuple(x.shape)}")
     n, d = x.shape
-    plan = plan_fused(n, d, _sm_count(x.device.index))
-    _check_operand("X", x, (n, d), x.device)
+    _check_operand("X", x, (n, d), x.device, tuple(X_BYTES))
+    xbytes = X_BYTES[x.dtype]
+    plan = plan_fused(n, d, _sm_count(x.device.index), xbytes)
     _check_operand("labels", labels, (n,), x.device)
     _check_operand("coefficients", coefficients, (d,), x.device)
     if weights is not None:
@@ -244,7 +266,7 @@ def fused_value_and_gradient(
         stream = torch.cuda.current_stream(x.device).cuda_stream
         partial, ticket = _workspace(x.device, stream, plan.grid * (d + 2))
         err = lib.pmt_fused_value_and_gradient(
-            loss.kernel_id, x.data_ptr(), labels.data_ptr(), ptr(weights),
+            loss.kernel_id, xbytes, x.data_ptr(), labels.data_ptr(), ptr(weights),
             ptr(offsets), ptr(mask), ptr(shift), coefficients.data_ptr(),
             partial.data_ptr(), ticket.data_ptr(), out.data_ptr(), n, d,
             plan.rows_per_tile, plan.stages, plan.grid, plan.acc_per_thread,
@@ -252,8 +274,9 @@ def fused_value_and_gradient(
     if err != 0:
         raise RuntimeError("fused_value_and_gradient launch failed: "
                            f"{lib.pmt_error_string(err).decode()} ({err})")
-    global LAUNCHES
+    global LAUNCHES, BF16_LAUNCHES
     LAUNCHES += 1
+    BF16_LAUNCHES += xbytes == 2
     grad = out[1:d + 1]
     if shifts is not None:
         grad = grad - shifts * out[d + 1]
@@ -494,6 +517,8 @@ def fused_value_and_gradient_lanes(
     CPU tensors run the plain version.  CUDA tensors launch the kernel:
     every operand float32 (the lane mask int32), contiguous and on X's
     device, K within `max_lanes(d, masked)`; anything else raises."""
+    if x.dtype == torch.bfloat16:
+        raise NotImplementedError(BF16_LANES_REFUSAL)
     if x.device.type == "cpu":
         return fused_value_and_gradient_lanes_plain(
             loss, x, labels, coefficients, weights, offsets, mask, shift, lane_mask)

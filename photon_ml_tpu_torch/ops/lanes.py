@@ -108,6 +108,8 @@ class FixedEffectLanes:
                  l2_weights: torch.Tensor, weights: Optional[torch.Tensor] = None,
                  norm: Optional[NormalizationContext] = None,
                  lane_keep: Optional[torch.Tensor] = None):
+        if x.dtype == torch.bfloat16:
+            raise NotImplementedError(hk.BF16_LANES_REFUSAL)
         self.loss = loss
         self.x = x
         self.labels = labels

@@ -95,10 +95,15 @@ def build_normalization_context(
 ) -> NormalizationContext:
     """Factory from feature summary statistics.  Zero-variance and
     zero-magnitude features get factor 1; the intercept is pinned to
-    factor 1, shift 0."""
+    factor 1, shift 0.  Statistics taken over a bf16 X in its own dtype
+    are widened to float32 first (the promoted dtype of bf16 features and
+    a float32 solve), so no factor or shift is rounded to bf16."""
     norm_type = NormalizationType(norm_type)
     if norm_type == NormalizationType.NONE:
         return no_normalization()
+    widen = lambda a: (None if a is None
+                       else a.to(torch.promote_types(a.dtype, torch.float32)))
+    mean, variance, max_magnitude = widen(mean), widen(variance), widen(max_magnitude)
 
     def _pin_intercept(arr: torch.Tensor, value: float) -> torch.Tensor:
         if intercept_index is None:

@@ -23,14 +23,24 @@ A value+gradient pass is A then B: two launches.  They replace what the
 JAX package computes in XLA, outside Pallas: photon_ml_tpu/ops/
 features.py:237-350 (`matvec`, `rmatvec`, `sq_rmatvec` on a PaddedSparse).
 
+The values come in float32 or bfloat16 storage (the JAX package's bf16
+feature storage); every other float operand, every product and every sum
+is float32 on the card.  The plain versions promote as the JAX package's
+products do (jnp.promote_types at photon_ml_tpu/ops/features.py:273, :322,
+:343): a bf16 value times a float32 (float64 on the CPU) vector is the
+wider type, and B's power 2 squares the values in their storage type
+first, as the JAX package's vals * vals does.
+
 On a CUDA tensor each wrapper checks its operands (dtype, device, shape,
-contiguity; a bad operand raises, nothing is copied) and launches its
-kernel, or raises; on a CPU tensor it runs the plain version.  Importing
+contiguity; a bad operand raises, nothing is copied or widened) and
+launches its kernel, or raises; on a CPU tensor it runs the plain
+version.  Importing
 this module builds nothing.  `plan_margins`, `plan_columns` and
 `tile_map` are pure arithmetic, so the CPU tests replay them.
 
 `LAUNCHES` counts the wrappers' launches by kind: "margin_loss" and
-"margins" (kernel A), "column_sum" and "sq_column_sum" (kernel B).
+"margins" (kernel A), "column_sum" and "sq_column_sum" (kernel B);
+`BF16_LAUNCHES` the launches among them on bf16 values, by the same kinds.
 """
 from __future__ import annotations
 
@@ -46,6 +56,9 @@ from photon_ml_tpu_torch.ops.losses import PointwiseLoss
 
 LAUNCHES: Dict[str, int] = {"margin_loss": 0, "margins": 0,
                             "column_sum": 0, "sq_column_sum": 0}
+BF16_LAUNCHES: Dict[str, int] = dict.fromkeys(LAUNCHES, 0)
+# the values' storage types the kernels take, and their element bytes
+VALUE_BYTES = {torch.float32: 4, torch.bfloat16: 2}
 
 # Must match the CUDA source (kThreads, kUnroll, kMaxSmem, kRun, kChunk,
 # kFinishRun; A's entry checks the shared-memory size through
@@ -67,20 +80,21 @@ _A_MAX_STAGES = 8
 _A_ROWS_PER_THREAD = 4
 MIN_ROWS = 128
 _INT32_MAX = 2 ** 31 - 1
-_BF16 = ("bf16 sparse values are not ported yet (ROADMAP.md queue A item 25); "
-         "the sparse kernels take float32")
 
 
 def _round4(v: int) -> int:
     return (v + 3) & ~3
 
 
-def margin_smem_bytes(k: int, rows: int, stages: int, cols: int) -> int:
+def margin_smem_bytes(k: int, rows: int, stages: int, cols: int,
+                      vbytes: int = 4) -> int:
     """Kernel A's dynamic shared memory (staged rows), as margin_layout()
-    in the CUDA source: c [cols], then `stages` stages of [indices |
-    values] of rows * k words each, every span with 3 words of room for
-    its alignment phase, then 2 * stages + 1 mbarriers."""
-    return (4 * (_round4(cols + 3) + stages * 2 * _round4(rows * k + 3))
+    in the CUDA source: c [cols], then `stages` stages of [indices (rows *
+    k words) | values (rows * k elements of `vbytes` bytes)], every span
+    with 16 - its element size bytes of room for its alignment phase,
+    then 2 * stages + 1 mbarriers."""
+    vspan = _round4((vbytes * rows * k + 19 - vbytes) // 4)
+    return (4 * (_round4(cols + 3) + stages * (_round4(rows * k + 3) + vspan))
             + 8 * (2 * stages + 1))
 
 
@@ -104,20 +118,28 @@ class MarginPlan:
         return self.stages > 0
 
 
-def max_smem_cols(k: int, rows: int) -> int:
+def max_smem_cols(k: int, rows: int, vbytes: int = 4) -> int:
     """The widest c that kernel A stages in shared memory beside 2 stages
     of `rows` rows (0 when none fits)."""
-    words = (MAX_SMEM - margin_smem_bytes(k, rows, 2, 1)) // 4 + 4  # + c's own room
+    words = (MAX_SMEM - margin_smem_bytes(k, rows, 2, 1, vbytes)) // 4 + 4  # + c's own room
     return max(0, words // 4 * 4 - 3)
 
 
-def _stages_that_fit(k: int, rows: int, cols: int) -> int:
-    fixed = margin_smem_bytes(k, rows, 0, cols)
-    return (MAX_SMEM - fixed) // (margin_smem_bytes(k, rows, 1, cols) - fixed)
+def _stages_that_fit(k: int, rows: int, cols: int, vbytes: int) -> int:
+    fixed = margin_smem_bytes(k, rows, 0, cols, vbytes)
+    return (MAX_SMEM - fixed) // (margin_smem_bytes(k, rows, 1, cols, vbytes) - fixed)
+
+
+def _most_rows(k: int, vbytes: int) -> int:
+    """The most rows whose 2 stages fit beside the smallest c (4 words)."""
+    rows = (MAX_SMEM - 56) // (2 * (4 + vbytes) * k) + 1
+    while rows > 0 and margin_smem_bytes(k, rows, 2, 1, vbytes) > MAX_SMEM:
+        rows -= 1
+    return rows
 
 
 @functools.lru_cache(maxsize=64)
-def plan_margins(n: int, k: int, d: int, sm_count: int) -> MarginPlan:
+def plan_margins(n: int, k: int, d: int, sm_count: int, vbytes: int = 4) -> MarginPlan:
     """Staged rows where c fits in shared memory: tiles of THREADS rows,
     or up to _A_ROWS_PER_THREAD times that while a tile stays within
     ~48 KB, fewer when 2 stages of THREADS rows do not fit (k > 56), never
@@ -125,19 +147,20 @@ def plan_margins(n: int, k: int, d: int, sm_count: int) -> MarginPlan:
     and each block must gather at least d times (n * k >= grid * d), since
     copying c costs a block 4 d bytes.  Everywhere else lanes per row:
     P = min(32, the next power of two >= k) lanes per row, at most
-    BLOCKS_PER_SM blocks of THREADS per SM."""
-    if n < 0 or k < 1 or d < 1 or sm_count < 1:
-        raise ValueError(f"bad plan request n={n}, k={k}, d={d}, sm_count={sm_count}")
-    per_thread = max(1, min(_A_ROWS_PER_THREAD, _A_TILE_BYTES // (8 * k * THREADS)))
-    # the most rows whose 2 stages fit beside the smallest c (4 words):
-    # 16 round4(rows k + 3) + 56 bytes
-    fit = ((MAX_SMEM - 56) // 16 // 4 * 4 - 3) // k
-    rows = min(THREADS * per_thread, fit)
+    BLOCKS_PER_SM blocks of THREADS per SM.  A slot is 4 + `vbytes` bytes
+    (an int32 index and a float32 or bf16 value)."""
+    if n < 0 or k < 1 or d < 1 or sm_count < 1 or vbytes not in (2, 4):
+        raise ValueError(f"bad plan request n={n}, k={k}, d={d}, sm_count={sm_count}, "
+                         f"vbytes={vbytes}")
+    slot = 4 + vbytes
+    per_thread = max(1, min(_A_ROWS_PER_THREAD, _A_TILE_BYTES // (slot * k * THREADS)))
+    rows = min(THREADS * per_thread, _most_rows(k, vbytes))
     grid = max(1, min(sm_count, -(-n // rows)))
-    if rows >= MIN_ROWS and d <= max_smem_cols(k, rows) and n * k >= grid * d:
-        stages = min(_A_MAX_STAGES, max(2, _A_RING_BYTES // (8 * rows * k)),
-                     _stages_that_fit(k, rows, d))
-        return MarginPlan(1, rows, stages, grid, margin_smem_bytes(k, rows, stages, d))
+    if rows >= MIN_ROWS and d <= max_smem_cols(k, rows, vbytes) and n * k >= grid * d:
+        stages = min(_A_MAX_STAGES, max(2, _A_RING_BYTES // (slot * rows * k)),
+                     _stages_that_fit(k, rows, d, vbytes))
+        return MarginPlan(1, rows, stages, grid,
+                          margin_smem_bytes(k, rows, stages, d, vbytes))
     lanes = 1
     while lanes < min(k, 32):
         lanes *= 2
@@ -230,7 +253,8 @@ def ell_margins_plain(indices: torch.Tensor, values: torch.Tensor,
                       coefficients: torch.Tensor,
                       offsets: Optional[torch.Tensor] = None) -> torch.Tensor:
     """z_i = sum_k values[i, k] c[indices[i, k]] (+ o_i): a gather and a
-    row sum, as the JAX package's matvec."""
+    row sum, as the JAX package's matvec, in the promoted dtype of the
+    values and c (a bf16 value times a float32 c is float32)."""
     z = torch.sum(values * coefficients[indices.long()], dim=-1)
     return z if offsets is None else z + offsets
 
@@ -244,7 +268,8 @@ def ell_margin_loss_plain(
     weights: Optional[torch.Tensor] = None,
     offsets: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(sum_i w_i l(z_i, y_i), u = w * l'(z, y)) in the inputs' dtype."""
+    """(sum_i w_i l(z_i, y_i), u = w * l'(z, y)) in the promoted dtype of
+    the values and c."""
     z = ell_margins_plain(indices, values, coefficients, offsets)
     l, dl = loss.loss_and_dz(z, labels)
     if weights is not None:
@@ -257,7 +282,9 @@ def csc_column_sum_plain(rows: torch.Tensor, vals: torch.Tensor,
                          end: torch.Tensor, u: torch.Tensor,
                          power: int = 1) -> torch.Tensor:
     """g_j = sum over column j's stream segment of val^power * u[row], by
-    index_add_ over the stream (in stream order)."""
+    index_add_ over the stream (in stream order), in the promoted dtype of
+    the values and u; power 2 squares the values in their own dtype first,
+    as the JAX package's sq_rmatvec does."""
     v = vals if power == 1 else vals * vals
     acc = torch.promote_types(vals.dtype, u.dtype)
     contrib = (v * u[rows.long()]).to(acc)
@@ -269,14 +296,15 @@ def csc_column_sum_plain(rows: torch.Tensor, vals: torch.Tensor,
 
 # ----------------------------------------------------------------- wrappers
 
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape,
-           device: torch.device) -> None:
+def _check(name: str, t: torch.Tensor, dtype, shape, device: torch.device) -> None:
+    """`dtype`: the dtype the kernels take for this operand, or a tuple of
+    them."""
+    dtypes = dtype if isinstance(dtype, tuple) else (dtype,)
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, the matrix on {device}")
-    if t.dtype != dtype:
-        if t.dtype == torch.bfloat16:
-            raise TypeError(_BF16)
-        raise TypeError(f"the sparse kernels take {dtype} {name}; got {t.dtype}")
+    if t.dtype not in dtypes:
+        names = " or ".join(str(dt) for dt in dtypes)
+        raise TypeError(f"the sparse kernels take {names} {name}; got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
@@ -311,7 +339,8 @@ def _launch_a(loss_id: int, indices, values, coefficients, labels, weights,
     if coefficients.ndim != 1 or coefficients.shape[0] < 1:
         raise ValueError("coefficients must be 1-D with at least one element")
     _check("indices", indices, torch.int32, (n, k), dev)
-    _check("values", values, torch.float32, (n, k), dev)
+    _check("values", values, tuple(VALUE_BYTES), (n, k), dev)
+    vbytes = VALUE_BYTES[values.dtype]
     _check("coefficients", coefficients, torch.float32, coefficients.shape, dev)
     if labels is not None:
         _check("labels", labels, torch.float32, (n,), dev)
@@ -320,7 +349,7 @@ def _launch_a(loss_id: int, indices, values, coefficients, labels, weights,
     if offsets is not None:
         _check("offsets", offsets, torch.float32, (n,), dev)
     d = coefficients.shape[0]
-    plan = plan_margins(n, k, d, _sm_count(dev.index))
+    plan = plan_margins(n, k, d, _sm_count(dev.index), vbytes)
     lib = _lib()
     out = torch.empty((n,), dtype=torch.float32, device=dev)
     value = torch.empty((1,), dtype=torch.float32, device=dev) if loss_id >= 0 else None
@@ -329,12 +358,14 @@ def _launch_a(loss_id: int, indices, values, coefficients, labels, weights,
         stream = torch.cuda.current_stream(dev).cuda_stream
         scratch, _, ticket = _workspace(dev, stream, plan.grid, 0)
         err = lib.pmt_ell_margin_loss(
-            loss_id, indices.data_ptr(), values.data_ptr(), coefficients.data_ptr(),
+            loss_id, vbytes, indices.data_ptr(), values.data_ptr(), coefficients.data_ptr(),
             ptr(labels), ptr(weights), ptr(offsets), out.data_ptr(),
             scratch.data_ptr(), ticket.data_ptr(), ptr(value), n, k, d, plan.lanes,
             plan.rows, plan.stages, plan.grid, plan.smem_bytes, stream)
     _raise_if(err, lib, "ell_margin_loss")
-    LAUNCHES["margin_loss" if loss_id >= 0 else "margins"] += 1
+    kind = "margin_loss" if loss_id >= 0 else "margins"
+    LAUNCHES[kind] += 1
+    BF16_LAUNCHES[kind] += vbytes == 2
     return value, out
 
 
@@ -342,8 +373,8 @@ def ell_margins(indices: torch.Tensor, values: torch.Tensor,
                 coefficients: torch.Tensor,
                 offsets: Optional[torch.Tensor] = None) -> torch.Tensor:
     """z = X c (+ o) -> [n].  CPU tensors run the plain version; CUDA
-    tensors launch kernel A in margins mode (float32, contiguous, on one
-    device) or raise."""
+    tensors launch kernel A in margins mode (float32 or bf16 values, every
+    other float operand float32, contiguous, on one device) or raise."""
     if indices.device.type == "cpu":
         return ell_margins_plain(indices, values, coefficients, offsets)
     return _launch_a(-1, indices, values, coefficients, None, None, offsets)[1]
@@ -375,7 +406,8 @@ def csc_column_sum(rows: torch.Tensor, vals: torch.Tensor, end: torch.Tensor,
     """g_j = sum_{p in [end_j, end_{j+1})} vals_p^power u[rows_p] -> [d]:
     X^T u (power 1) or (X*X)^T u (power 2) over the column-sorted stream.
     CPU tensors run the plain version; CUDA tensors launch kernel B
-    (float32 vals and u, int32 rows and end, contiguous, on one device,
+    (float32 or bf16 vals, float32 u, int32 rows and end, contiguous, on
+    one device,
     rows and vals starting on a 16-byte boundary) or raise.  `tiles` is
     the view's tile map (`tile_map`); without one it comes from
     `cached_tile_map(end)`."""
@@ -390,7 +422,8 @@ def csc_column_sum(rows: torch.Tensor, vals: torch.Tensor, end: torch.Tensor,
     if nnz > _INT32_MAX:
         raise ValueError(f"nnz = {nnz} exceeds the kernels' int32 range")
     _check("csc_row", rows, torch.int32, (nnz,), dev)
-    _check("csc_val", vals, torch.float32, (nnz,), dev)
+    _check("csc_val", vals, tuple(VALUE_BYTES), (nnz,), dev)
+    vbytes = VALUE_BYTES[vals.dtype]
     _check("csc_end", end, torch.int32, (d + 1,), dev)
     _check("u", u, torch.float32, u.shape, dev)
     if nnz and (rows.data_ptr() % 16 or vals.data_ptr() % 16):
@@ -407,12 +440,14 @@ def csc_column_sum(rows: torch.Tensor, vals: torch.Tensor, end: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         scratch, ints, ticket = _workspace(dev, stream, 2 * plan.tiles, plan.tiles)
         err = lib.pmt_csc_column_sum(
-            power, rows.data_ptr(), vals.data_ptr(), end.data_ptr(), tiles.data_ptr(),
+            power, vbytes, rows.data_ptr(), vals.data_ptr(), end.data_ptr(), tiles.data_ptr(),
             u.data_ptr(), g.data_ptr(), scratch.data_ptr(),
             scratch[plan.tiles:].data_ptr(), ints.data_ptr(), ticket.data_ptr(), nnz, d,
             plan.tiles, plan.smem_bytes, stream)
     _raise_if(err, lib, "csc_column_sum")
-    LAUNCHES["column_sum" if power == 1 else "sq_column_sum"] += 1
+    kind = "column_sum" if power == 1 else "sq_column_sum"
+    LAUNCHES[kind] += 1
+    BF16_LAUNCHES[kind] += vbytes == 2
     return g
 
 
@@ -423,8 +458,9 @@ def margins_tolerance(indices: torch.Tensor, values: torch.Tensor,
                       offsets: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Per row, 2 sqrt(k + 1) eps (sum_k |values c[indices]| + |o|): how far
     two summations of a row's margin in different orders may differ, in
-    the values' dtype (computed in float64)."""
-    eps = torch.finfo(values.dtype).eps
+    the dtype the margins are summed in, the promoted dtype of the values
+    and c (computed in float64)."""
+    eps = torch.finfo(torch.promote_types(values.dtype, coefficients.dtype)).eps
     terms = ell_margins_plain(indices, values.double().abs(),
                               coefficients.double().abs(),
                               None if offsets is None else offsets.double().abs())
@@ -436,9 +472,10 @@ def column_sum_tolerance(rows: torch.Tensor, vals: torch.Tensor,
                          power: int = 1) -> torch.Tensor:
     """Per column, 2 sqrt(count_j) eps sum_p |val_p^power u[row_p]|: how
     far two summations of column j in different orders may differ, in the
-    values' dtype (computed in float64).  At bench config 6 the intercept
-    column is a sum of 200,000 terms."""
-    eps = torch.finfo(vals.dtype).eps
+    dtype the column is summed in, the promoted dtype of the values and u
+    (computed in float64).  At bench config 6 the intercept column is a
+    sum of 200,000 terms."""
+    eps = torch.finfo(torch.promote_types(vals.dtype, u.dtype)).eps
     terms = csc_column_sum_plain(rows, vals.double().abs(), end, u.double().abs(), power)
     count = torch.diff(end).double()
     return 2.0 * torch.sqrt(count) * eps * terms

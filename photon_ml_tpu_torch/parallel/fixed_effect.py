@@ -54,6 +54,15 @@ def data_reducer(mesh):
     return lambda t: mesh.all_reduce(t, DATA_AXIS)
 
 
+_BF16_MESH = ("bf16 feature storage is not ported to the mesh paths (ROADMAP.md "
+              "queue A item 29); train a float32 X on a mesh")
+
+
+def _refuse_bf16(x) -> None:
+    if getattr(x, "dtype", None) == torch.bfloat16:
+        raise NotImplementedError(_BF16_MESH)
+
+
 def _staged_weights(res, key, mesh, objective, dtype):
     """The rank's row weights, 0 on padded rows: the objective's, else
     ones over real rows when the block has padding, else None."""
@@ -74,6 +83,7 @@ def stage_objective(objective: GLMObjective, mesh, key, dtype,
     stays as given), staged ONCE per
     coordinate under `key`, the residual offsets staged per visit (warm),
     and `reduce` summing its data terms over the data axis."""
+    _refuse_bf16(objective.x)
     res = _residency(residency)
     _, (x_dev,) = pad_and_shard_rows(mesh, objective.x, residency_key=key,
                                      dtype=dtype, residency=res)
@@ -163,6 +173,7 @@ def stage_admm_grid(key, mesh, x, dtype, residency=None):
     """This rank's memoized block X_ij of the column-block grid (field
     "x_grid"): its padded row block of column block j.  Returns (n, d,
     block_width, block)."""
+    _refuse_bf16(x)
     n, d = x.shape
     block_width = -(-d // mesh.num_feature)
     block = _residency(residency).stage_static(

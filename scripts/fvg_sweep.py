@@ -147,7 +147,7 @@ def main() -> int:
     def launch(lib, p):
         def call(c):
             err = lib.pmt_fused_value_and_gradient(
-                0, x.data_ptr(), y.data_ptr(), None, None, None, None, c.data_ptr(),
+                0, 4, x.data_ptr(), y.data_ptr(), None, None, None, None, c.data_ptr(),
                 partial.data_ptr(),
                 ticket.data_ptr(), out.data_ptr(), n, d, p["rows"], p["stages"], p["grid"],
                 acc, p["layout"].bytes, stream)

@@ -3,13 +3,14 @@ model-persistence and command-line parity tests, run in a subprocess of
 its own.
 
     python tests/port/game_jax_side.py \
-        tron|solver|estimator|sparse|factored|samplers|prng|model_io|cli|containment|stream \
+        tron|solver|estimator|sparse|factored|samplers|prng|model_io|cli|containment|stream|bf16 \
         OUT.npz
 
 The parity tests (test_torch_tron.py, test_torch_game_solver.py,
 test_torch_game_estimator.py, test_torch_sparse_training.py,
 test_torch_factored.py, test_torch_samplers.py, test_torch_prng.py,
-test_torch_model_io.py, test_torch_cli.py, test_torch_containment.py)
+test_torch_model_io.py, test_torch_cli.py, test_torch_containment.py,
+test_torch_bf16.py)
 start this once per test module, with JAX on the CPU in float64, and read
 its results from OUT.npz (model_io, cli and containment also read and
 write model directories, checkpoints and CLI outputs beside OUT.npz).  Compiling the JAX package's TRON, batched solver, GAME and
@@ -90,6 +91,21 @@ SPARSE_CASES = {
     "tron": ({"optimizer": "tron"}, (1.0,), None, False, True),
 }
 YAHOO_ROWS, YAHOO_D, YAHOO_USERS, YAHOO_ITEMS, YAHOO_SEED = 3000, 2000, 50, 80, 23
+
+# bf16 feature storage: train_glm on a small a1a-shaped dense X and a small
+# bench-config-6-shaped sparse X (values 1.0, as config 6's), features
+# stored bf16, labels float64; OWLQN is LBFGS under L1
+BF16_ROWS = 1200
+BF16_SPARSE = dict(n=1500, d=3000, nnz=8, seed=6)
+BF16_CASES = {
+    # name -> (optimizer, regularization, lambda, tolerance); TRON's at
+    # 1e-6, where its steps still reduce f by more than float64 rounding
+    # (as _TRON above)
+    "lbfgs": ("lbfgs", "l2", 1.0, 1e-9),
+    "owlqn": ("lbfgs", "l1", 0.5, 1e-9),
+    "tron": ("tron", "l2", 1.0, 1e-6),
+}
+BF16_MAX_ITERATIONS = 100
 
 
 def solver_problem(case: str, seed: int = 5) -> dict:
@@ -241,6 +257,19 @@ def sparse_problem(make_wide_sparse_logistic):
     package's generator."""
     x, y = make_wide_sparse_logistic(SPARSE_N, d=SPARSE_D, nnz=SPARSE_NNZ,
                                      seed=SPARSE_SEED)
+    return x.astype(np.float64), y.astype(np.float64)
+
+
+def bf16_problem(kind: str, make_a1a_like, make_wide_sparse_logistic):
+    """(x, y) of the bf16 train_glm cases in float64, every feature exact
+    in bf16: "dense" the first BF16_ROWS rows of make_a1a_like(1) (0/1
+    features), "sparse" a CSR from make_wide_sparse_logistic; pass either
+    package's generators."""
+    if kind == "dense":
+        x, y = make_a1a_like(1, seed=42)
+        x, y = x[:BF16_ROWS], y[:BF16_ROWS]
+    else:
+        x, y = make_wide_sparse_logistic(**BF16_SPARSE)
     return x.astype(np.float64), y.astype(np.float64)
 
 
@@ -561,6 +590,33 @@ def _run_sparse(out: dict) -> None:
     for name in ("perUser", "perItem"):
         out[f"yahoo/{name}/coefficients"] = np.asarray(final[name].coefficients)
     out["yahoo/val_scores"] = np.asarray(res.descent.model.score_dataset(val))
+
+
+def _run_bf16(out: dict) -> None:
+    import jax.numpy as jnp
+    from photon_ml_tpu.data.synthetic_bench import make_a1a_like, make_wide_sparse_logistic
+    from photon_ml_tpu.models.training import train_glm
+    from photon_ml_tpu.ops.features import PaddedSparse
+    from photon_ml_tpu.optim import (OptimizerConfig, OptimizerType,
+                                     RegularizationContext, RegularizationType)
+    for kind in ("dense", "sparse"):
+        x, y = bf16_problem(kind, make_a1a_like, make_wide_sparse_logistic)
+        if kind == "dense":
+            xb = jnp.asarray(x, jnp.bfloat16)
+        else:
+            # as bench.py casts config 6's values (scipy cannot hold bf16)
+            p = PaddedSparse.from_scipy(x, with_csc=True)
+            xb = PaddedSparse(p.indices, p.values.astype(jnp.bfloat16), p.num_cols,
+                              p.csc_row, p.csc_val.astype(jnp.bfloat16), p.csc_end)
+        for case, (opt, reg, lam, tol) in BF16_CASES.items():
+            t = train_glm(xb, jnp.asarray(y), "logistic_regression",
+                          optimizer_config=OptimizerConfig(
+                              optimizer=OptimizerType(opt), max_iterations=BF16_MAX_ITERATIONS,
+                              tolerance=tol),
+                          regularization=RegularizationContext(RegularizationType(reg)),
+                          regularization_weights=(lam,))[0]
+            _store(out, f"{kind}/{case}", t.result)
+            out[f"{kind}/{case}/means"] = np.asarray(t.model.coefficients.means)
 
 
 def _store_fit(out: dict, key: str, res, val) -> None:
@@ -1401,7 +1457,7 @@ def main(argv) -> int:
         {"tron": _run_tron, "solver": _run_solver, "estimator": _run_estimator,
          "sparse": _run_sparse, "factored": _run_factored,
          "samplers": _run_samplers, "prng": _run_prng,
-         "stream": _run_stream}[what](out)
+         "stream": _run_stream, "bf16": _run_bf16}[what](out)
     np.savez(path, **out)
     return 0
 

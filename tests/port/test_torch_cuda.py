@@ -85,21 +85,47 @@ def test_kernel_is_bit_stable(cuda):
     assert vo1.item() == vo2.item() and torch.equal(go1, go2)
 
 
+# throwaway kernels that open every profiled window, as chip_smoke.py's
+# profile_warmup opens its windows: CUPTI loses a window's first device
+# records, more the older the process, and the primer absorbs that loss;
+# its kernels are left out of every count
+PRIMER_LAUNCHES, PRIMER_CYCLES, PRIMER_KERNEL = 1024, 100, "spin_kernel"
+
+
+def _open_window(prof):
+    """End the profiler's warm-up step (its events are dropped: CUPTI's
+    device tracing takes a moment to start), then open the window with
+    PRIMER_LAUNCHES sleep kernels and wait for them by polling."""
+    import time
+    torch.cuda._sleep(1_000_000)
+    torch.cuda.synchronize()
+    prof.step()
+    for _ in range(PRIMER_LAUNCHES):
+        torch.cuda._sleep(PRIMER_CYCLES)
+    stream = torch.cuda.current_stream()
+    while not stream.query():
+        time.sleep(1e-4)
+
+
+def _window_names(prof):
+    """The names of the window's device events, the primer's left out."""
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA and PRIMER_KERNEL not in e.name]
+
+
 def _device_events(run):
-    """The device events (key_averages) of run() under torch.profiler,
-    after a warm-up step whose events are dropped: CUPTI's device tracing
-    takes a moment to start, and a short window without the warm-up has
-    lost its first launches, or all of them."""
+    """The device events (key_averages) of run() under torch.profiler, in
+    a primed window after a warm-up step (_open_window), the primer's
+    left out."""
     from torch.profiler import ProfilerActivity, profile, schedule
     with profile(activities=[ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1)) as prof:
-        torch.cuda._sleep(1_000_000)
-        torch.cuda.synchronize()
-        prof.step()
+        _open_window(prof)
         run()
         torch.cuda.synchronize()
     return [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA and e.count]
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.count
+            and PRIMER_KERNEL not in e.key]
 
 
 def test_one_device_launch_per_call(cuda):
@@ -447,24 +473,21 @@ sys.path.insert(0, "tests/port")
 import torch
 from torch.profiler import ProfilerActivity, profile, schedule
 from photon_ml_tpu_torch.ops import aggregators as agg, losses as TL
-from test_torch_cuda import _sparse_case
+from test_torch_cuda import _open_window, _sparse_case, _window_names
 x = _sparse_case("intercept")
 n, d = x.shape
 y = (torch.arange(n, device="cuda") % 3 == 0).float()
 c = torch.full((d,), 0.01, device="cuda")
 agg.value_and_gradient(TL.LOGISTIC, x, y, c)  # build, workspace
 torch.cuda.synchronize()
-# a warm-up step first (its events dropped): CUPTI's tracing takes a moment
+# a warm-up step, then a primed window (_open_window)
 with profile(activities=[ProfilerActivity.CUDA],
              schedule=schedule(wait=0, warmup=1, active=1)) as prof:
-    torch.cuda._sleep(1_000_000)
-    torch.cuda.synchronize()
-    prof.step()
+    _open_window(prof)
     for _ in range(3):
         agg.value_and_gradient(TL.LOGISTIC, x, y, c)
     torch.cuda.synchronize()
-print(json.dumps([e.name for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]))
+print(json.dumps(_window_names(prof)))
 """
 
 
@@ -554,21 +577,18 @@ sys.path.insert(0, "tests/port")
 import torch
 from torch.profiler import ProfilerActivity, profile, schedule
 from photon_ml_tpu_torch.ops import sparse_kernels as sk
-from test_torch_cuda import _sparse_case
+from test_torch_cuda import _open_window, _sparse_case, _window_names
 x = _sparse_case("intercept")
 u = torch.linspace(-1.0, 1.0, x.shape[0], device="cuda")
 sk.csc_column_sum(x.csc_row, x.csc_val, x.csc_end, u, 1, x.csc_tiles)  # build, workspace
 torch.cuda.synchronize()
-# a warm-up step first (its events dropped): CUPTI's tracing takes a moment
+# a warm-up step, then a primed window (_open_window)
 with profile(activities=[ProfilerActivity.CUDA],
              schedule=schedule(wait=0, warmup=1, active=1)) as prof:
-    torch.cuda._sleep(1_000_000)
-    torch.cuda.synchronize()
-    prof.step()
+    _open_window(prof)
     sk.csc_column_sum(x.csc_row, x.csc_val, x.csc_end, u, 1, x.csc_tiles)
     torch.cuda.synchronize()
-print(json.dumps([e.name for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]))
+print(json.dumps(_window_names(prof)))
 """
 
 
@@ -593,8 +613,12 @@ def test_sparse_wrappers_refuse_what_they_do_not_take(cuda):
     from photon_ml_tpu_torch.ops import sparse_kernels as sk
     x = _sparse_case("700x37")
     c = torch.zeros(x.shape[1], device="cuda")
-    with pytest.raises(TypeError, match="item 25"):
-        sk.ell_margins(x.indices, x.values.bfloat16(), c)
+    for dtype in (torch.float16, torch.float64):
+        with pytest.raises(TypeError, match=f"got {dtype}"):
+            sk.ell_margins(x.indices, x.values.to(dtype), c)
+        with pytest.raises(TypeError, match=f"got {dtype}"):
+            sk.csc_column_sum(x.csc_row, x.csc_val.to(dtype), x.csc_end,
+                              torch.ones(x.shape[0], device="cuda"))
     with pytest.raises(TypeError, match="int32"):
         sk.ell_margins(x.indices.long(), x.values, c)
     with pytest.raises(ValueError, match="contiguous"):
@@ -649,17 +673,17 @@ def _ell_on_card(n, k, d, seed, skip=0):
     return idx[skip:], val[skip:]
 
 
-def _c_path_case(k, side):
+def _c_path_case(k, side, vbytes=4):
     """(n, d) that put c in shared memory ("smem": staged rows, d at the
     plan's limit) or just past it ("l2": one column more, lanes per row),
     with enough rows that every block gathers more than d and n not a
-    multiple of the tile."""
+    multiple of the tile; for values of `vbytes` bytes."""
     from photon_ml_tpu_torch.ops import sparse_kernels as sk
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    rows = sk.plan_margins(10 ** 7, k, 1, sms).rows
-    d = sk.max_smem_cols(k, rows) + (side == "l2")
+    rows = sk.plan_margins(10 ** 7, k, 1, sms, vbytes).rows
+    d = sk.max_smem_cols(k, rows, vbytes) + (side == "l2")
     n = (sms * d) // k // rows * rows + rows + 7
-    plan = sk.plan_margins(n, k, d, sms)
+    plan = sk.plan_margins(n, k, d, sms, vbytes)
     assert plan.c_in_smem == (side == "smem") and (side == "l2" or n % plan.rows)
     return n, d
 
@@ -1132,21 +1156,18 @@ sys.path.insert(0, "tests/port")
 import torch
 from torch.profiler import ProfilerActivity, profile, schedule
 from photon_ml_tpu_torch.ops import hopper_kernels as hk, losses as TL
-from test_torch_cuda import _lanes_inputs
+from test_torch_cuda import _lanes_inputs, _open_window, _window_names
 args = _lanes_inputs(100_000, 31, 16)
 hk.fused_value_and_gradient_lanes(TL.LOGISTIC, *args)  # build, workspace
 torch.cuda.synchronize()
-# a warm-up step first (its events dropped): CUPTI's tracing takes a moment
+# a warm-up step, then a primed window (_open_window)
 with profile(activities=[ProfilerActivity.CUDA],
              schedule=schedule(wait=0, warmup=1, active=1)) as prof:
-    torch.cuda._sleep(1_000_000)
-    torch.cuda.synchronize()
-    prof.step()
+    _open_window(prof)
     for _ in range(3):
         hk.fused_value_and_gradient_lanes(TL.LOGISTIC, *args)
     torch.cuda.synchronize()
-print(json.dumps([e.name for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]))
+print(json.dumps(_window_names(prof)))
 """
 
 
@@ -1624,3 +1645,134 @@ def test_two_nccl_ranks_on_one_card_raise(cuda):
     for out, err, rc in runs:
         assert rc == 3, err[-1500:]
         assert "NCCL cannot run two ranks on one card" in out and "gloo" in out
+
+
+# --- bf16 feature storage: the fused kernel on bf16 X, A and B on bf16 values
+
+BF16_SHAPES = {"scalar": (700, 37), "tile_tail": (5003, 124), "n3": (3, 124),
+               "n1": (1, 37), "d2048": (20_000, 2048), "misaligned": (700, 37, 1)}
+
+
+@pytest.mark.parametrize("shape", list(BF16_SHAPES))
+@pytest.mark.parametrize("with_wo", [False, True], ids=["plain", "w+o"])
+@pytest.mark.parametrize("name", sorted(TL.BY_NAME))
+def test_bf16_kernel_matches_plain(cuda, name, with_wo, shape):
+    """The fused kernel on a bf16 X against its plain version on the same
+    X (widened exactly): value rtol 1e-5, gradient rtol/atol 1e-4, as the
+    f32 kernel's check.  Odd d (ragged ends of up to 7 bf16 values), a
+    last tile shorter than the rest, a view 37 * 2 bytes into the array."""
+    n, d, *skip = BF16_SHAPES[shape]
+    x, y, c, w, o = _inputs(n, d, with_wo, skip=skip[0] if skip else 0)
+    # a view of the bf16 copy of X's contiguous base
+    xb = x._base.to(torch.bfloat16)[skip[0]:] if skip else x.to(torch.bfloat16)
+    if skip:
+        assert xb.is_contiguous() and xb.data_ptr() % 16 != 0
+    before, before16 = hk.LAUNCHES, hk.BF16_LAUNCHES
+    v, g = hk.fused_value_and_gradient(TL.BY_NAME[name], xb, y, c, w, o)
+    assert hk.LAUNCHES == before + 1 and hk.BF16_LAUNCHES == before16 + 1
+    v_p, g_p = hk.fused_value_and_gradient_plain(TL.BY_NAME[name], xb, y, c, w, o)
+    assert g.dtype == g_p.dtype == torch.float32
+    np.testing.assert_allclose(v.item(), v_p.item(), rtol=1e-5)
+    np.testing.assert_allclose(g.cpu().numpy(), g_p.cpu().numpy(), rtol=1e-4, atol=1e-4)
+
+
+def test_bf16_kernel_refuses_other_storage(cuda):
+    """X in float16 or float64 raises; nothing widens it."""
+    x, y, c, _, _ = _inputs(64, 8, False)
+    for dtype in (torch.float16, torch.float64):
+        before = hk.LAUNCHES
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            hk.fused_value_and_gradient(TL.LOGISTIC, x.to(dtype), y, c)
+        assert hk.LAUNCHES == before
+
+
+@pytest.mark.parametrize("shape", list(SPARSE_SHAPES))
+@pytest.mark.parametrize("name", sorted(TL.BY_NAME))
+def test_bf16_sparse_kernels_match_plain(cuda, name, shape):
+    """Kernel A (loss mode, weights and offsets) then B over its u, and A
+    in margins mode and B at power 2, on bf16 values against the plain
+    versions on the same values: the f32 checks' tolerances (value rtol
+    1e-5, u rtol/atol 1e-4, margins and column sums within their float32
+    bounds)."""
+    from photon_ml_tpu_torch.ops import sparse_kernels as sk
+    x = _sparse_case(shape).to(dtype=torch.bfloat16)
+    assert x.values.dtype == x.csc_val.dtype == torch.bfloat16
+    n, d = x.shape
+    rng = np.random.default_rng(6)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).cuda()
+    y = t((rng.uniform(size=n) < 0.3) * 1.0)
+    c = t(rng.normal(size=d) * 0.3 / np.sqrt(SPARSE_SHAPES[shape][2]))
+    w, o = t(rng.uniform(0.5, 2.0, size=n)), t(rng.normal(size=n) * 0.1)
+    r = t(rng.uniform(-1, 1, size=n))
+    loss = TL.BY_NAME[name]
+    before = dict(sk.BF16_LAUNCHES)
+    v, u = sk.ell_margin_loss(loss, x.indices, x.values, c, y, w, o)
+    g = sk.csc_column_sum(x.csc_row, x.csc_val, x.csc_end, u, 1, x.csc_tiles)
+    z = sk.ell_margins(x.indices, x.values, c, o)
+    h = sk.csc_column_sum(x.csc_row, x.csc_val, x.csc_end, r, 2, x.csc_tiles)
+    assert all(sk.BF16_LAUNCHES[k] == before[k] + 1 for k in before), sk.BF16_LAUNCHES
+    v_p, u_p = sk.ell_margin_loss_plain(loss, x.indices, x.values, c, y, w, o)
+    np.testing.assert_allclose(v.item(), v_p.item(), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(u.cpu().numpy(), u_p.cpu().numpy(), rtol=1e-4, atol=1e-4)
+    z_p = sk.ell_margins_plain(x.indices, x.values, c, o)
+    assert bool(((z.double() - z_p.double()).abs()
+                 <= sk.margins_tolerance(x.indices, x.values, c, o) + 1e-30).all())
+    for power, uu, got in ((1, u, g), (2, r, h)):
+        want = sk.csc_column_sum_plain(x.csc_row, x.csc_val, x.csc_end, uu, power)
+        assert got.dtype == want.dtype == torch.float32
+        tol = sk.column_sum_tolerance(x.csc_row, x.csc_val, x.csc_end, uu, power)
+        assert bool(((got.double() - want.double()).abs() <= tol + 1e-30).all()), power
+
+
+@pytest.mark.parametrize("side", ["smem", "l2"])
+@pytest.mark.parametrize("k", [2, 25, 65])
+def test_bf16_margin_kernel_matches_plain_on_both_c_paths(cuda, k, side):
+    """Kernel A on bf16 values with c staged beside the bf16 tiles (the
+    plan counts 2-byte values) and one column past that limit, every loss
+    and margins mode, weights and offsets set."""
+    from photon_ml_tpu_torch.ops import sparse_kernels as sk
+    n, d = _c_path_case(k, side, vbytes=2)
+    idx, val = _ell_on_card(n, k, d, seed=k)
+    val = val.to(torch.bfloat16)
+    g = torch.Generator(device="cuda").manual_seed(200 + k)
+    c = torch.randn(d, generator=g, device="cuda") * (0.3 / k ** 0.5)
+    y = (torch.rand(n, generator=g, device="cuda") < 0.3).float()
+    w = 0.5 + 1.5 * torch.rand(n, generator=g, device="cuda")
+    o = 0.1 * torch.randn(n, generator=g, device="cuda")
+    _a_against_plain(sk, idx, val, c, y, w, o)
+
+
+@pytest.mark.parametrize("kind", ["dense", "sparse"])
+def test_bf16_train_glm_runs_the_kernels_on_bf16(cuda, kind):
+    """train_glm on bf16 features (binary, exact in bf16) on the card: the
+    objective's X stays bf16, every pass launches the bf16 kernels (the
+    fused kernel, or A and B, once a pass), and the fit lands on the f32
+    fit's objective within 1e-5."""
+    from photon_ml_tpu_torch.data.synthetic_bench import make_a1a_like, make_wide_sparse_logistic
+    from photon_ml_tpu_torch.models.training import train_glm
+    from photon_ml_tpu_torch.ops import sparse_kernels as sk
+    from photon_ml_tpu_torch.ops.features import PaddedSparse
+    from photon_ml_tpu_torch.optim.config import (
+        OptimizerConfig, RegularizationContext, RegularizationType,
+    )
+    if kind == "dense":
+        x_np, y = make_a1a_like(4, seed=42)
+        x32 = torch.from_numpy(x_np).cuda()
+        x16 = x32.to(torch.bfloat16)
+    else:
+        x_np, y = make_wide_sparse_logistic(3000, d=20_000, nnz=16, seed=5)
+        x32 = PaddedSparse.from_scipy(x_np, with_csc=True, device="cuda")
+        x16 = x32.to(dtype=torch.bfloat16)
+    kw = dict(optimizer_config=OptimizerConfig(max_iterations=100, tolerance=1e-7),
+              regularization=RegularizationContext(RegularizationType.L2),
+              regularization_weights=(1.0,))
+    f32 = train_glm(x32, y, "logistic_regression", **kw)[0]
+    hk.BF16_LAUNCHES = 0
+    sk.BF16_LAUNCHES.update(dict.fromkeys(sk.BF16_LAUNCHES, 0))
+    f16 = train_glm(x16, y, "logistic_regression", **kw)[0]
+    passes = f16.result.fg_count
+    if kind == "dense":
+        assert hk.BF16_LAUNCHES == passes > 0
+    else:
+        assert sk.BF16_LAUNCHES["margin_loss"] == sk.BF16_LAUNCHES["column_sum"] == passes > 0
+    np.testing.assert_allclose(f16.result.value.item(), f32.result.value.item(), rtol=1e-5)

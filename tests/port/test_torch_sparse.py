@@ -191,9 +191,12 @@ def test_unported_representations_name_their_roadmap_entry():
     # effects) passes through ingest
     kd = TF.KroneckerDesign(torch.ones(3, 2), torch.ones(3, 4))
     assert TF.as_feature_matrix(kd, "cpu", torch.float64).dtype == torch.float64
-    with pytest.raises(TypeError, match="item 25"):
-        sk._check("values", torch.zeros(2, dtype=torch.bfloat16), torch.float32, (2,),
-                  torch.device("cpu"))
+    # the values' storage types the kernels take (bf16 since item 25);
+    # every other one is refused
+    for dtype in (torch.float16, torch.float64):
+        with pytest.raises(TypeError, match=f"got {dtype}"):
+            sk._check("values", torch.zeros(2, dtype=dtype), tuple(sk.VALUE_BYTES), (2,),
+                      torch.device("cpu"))
 
 
 def test_named_constraints_name_their_roadmap_entry():
@@ -488,33 +491,39 @@ def _source() -> str:
 def test_margin_plan_fits_shared_memory_and_matches_the_source():
     """Kernel A's constants agree with csrc/ell_sparse.cu; its plan's
     shared memory is the layout the source states (c, then the stages'
-    index and value spans with 3 words of room each, then 2 stages + 1
-    mbarriers) and fits a block's 227 KB; c is staged exactly up to
-    max_smem_cols."""
+    index span with 3 words of room and value span with 16 - vbytes bytes
+    of room, then 2 stages + 1 mbarriers) and fits a block's 227 KB; c is
+    staged exactly up to max_smem_cols; for float32 and bf16 values."""
     assert (_constexpr("kThreads"), _constexpr("kUnroll"), _constexpr("kMaxSmem")) == (
         sk.THREADS, sk.UNROLL, sk.MAX_SMEM)
     src = _source()
     for line in ("L.ring = round4(cols + 3);", "L.span = round4(rows * k + 3);",
-                 "L.stage = 2 * L.span;", "L.bars = L.ring + stages * L.stage;",
+                 "L.vspan = round4((vbytes * rows * k + 19 - vbytes) / 4);",
+                 "L.stage = L.span + L.vspan;", "L.bars = L.ring + stages * L.stage;",
                  "L.bytes = L.bars * 4 + (2 * stages + 1) * 8;"):
         assert line in src, line
     r4 = lambda v: (v + 3) // 4 * 4
-    for n, k, d in ((285_135, 25, 14_983), (701, 1, 37), (10 ** 6, 8, 20_000),
-                    (3, 40, 37), (50_000, 112, 30), (10 ** 6, 56, 400)):
-        plan = sk.plan_margins(n, k, d, PLAN_SMS)
-        assert plan.c_in_smem and plan.lanes == 1
-        assert plan.smem_bytes == 4 * (r4(d + 3) + plan.stages * 2 * r4(plan.rows * k + 3)) \
-            + 8 * (2 * plan.stages + 1)
-        assert plan.smem_bytes <= sk.MAX_SMEM < 232_448
-        # the most rows whose 2 stages fit beside the smallest c
-        most = max(r for r in range(1, 2048) if sk.margin_smem_bytes(k, r, 2, 1) <= sk.MAX_SMEM)
-        assert plan.rows <= most and (plan.rows >= sk.THREADS or plan.rows == most)
-        edge = sk.max_smem_cols(k, plan.rows)
-        assert sk.margin_smem_bytes(k, plan.rows, 2, edge) <= sk.MAX_SMEM
-        assert sk.margin_smem_bytes(k, plan.rows, 2, edge + 1) > sk.MAX_SMEM
-        big = 10 ** 7 // k  # enough rows that every block gathers more than d
-        assert sk.plan_margins(big, k, edge, PLAN_SMS).c_in_smem
-        assert not sk.plan_margins(big, k, edge + 1, PLAN_SMS).c_in_smem
+    for vbytes in (4, 2):
+        for n, k, d in ((285_135, 25, 14_983), (701, 1, 37), (10 ** 6, 8, 20_000),
+                        (3, 40, 37), (50_000, 112, 30), (10 ** 6, 56, 400)):
+            plan = sk.plan_margins(n, k, d, PLAN_SMS, vbytes)
+            assert plan.c_in_smem and plan.lanes == 1
+            vspan = r4((vbytes * plan.rows * k + 19 - vbytes) // 4)
+            assert plan.smem_bytes == 4 * (r4(d + 3) + plan.stages * (
+                r4(plan.rows * k + 3) + vspan)) + 8 * (2 * plan.stages + 1)
+            if vbytes == 4:
+                assert vspan == r4(plan.rows * k + 3)
+            assert plan.smem_bytes <= sk.MAX_SMEM < 232_448
+            # the most rows whose 2 stages fit beside the smallest c
+            most = max(r for r in range(1, 2048)
+                       if sk.margin_smem_bytes(k, r, 2, 1, vbytes) <= sk.MAX_SMEM)
+            assert plan.rows <= most and (plan.rows >= sk.THREADS or plan.rows == most)
+            edge = sk.max_smem_cols(k, plan.rows, vbytes)
+            assert sk.margin_smem_bytes(k, plan.rows, 2, edge, vbytes) <= sk.MAX_SMEM
+            assert sk.margin_smem_bytes(k, plan.rows, 2, edge + 1, vbytes) > sk.MAX_SMEM
+            big = 10 ** 7 // k  # enough rows that every block gathers more than d
+            assert sk.plan_margins(big, k, edge, PLAN_SMS, vbytes).c_in_smem
+            assert not sk.plan_margins(big, k, edge + 1, PLAN_SMS, vbytes).c_in_smem
 
 
 def _tile_map(end: np.ndarray, tile: int) -> np.ndarray:
