@@ -6158,6 +6158,23 @@ MESH_ADMM_RTOL = 1e-6          # bench.py's gate (penalized objective, relative)
 # a one-rank resume of the pair's record against the pair's final objective
 # (float32; one rank sums in another order than two)
 MESH_RESUME_RTOL = 1e-6
+# streaming over a mesh (ops/chunked.py with mesh=): bench.py's
+# _mesh_stream_leg at BENCH_SCALE 1 (bench.py:3076-3078) with its budget
+# rule (:2982-2993) and parity gate; config 4 at full size with its fixed
+# effect streamed under that rule's budget; bench.py's _stoch_mesh_leg full
+# shape (bench.py:1640-1641: chunks of n // 8 rows, row multiple 8, f64)
+# against one rank on the same plan; and cli.train --mesh 2x1 --hbm-budget
+MESH_STREAM = dict(n=100_000, d_global=96, n_users=5_000, d_user=8, outer=3,
+                   iters=12, seed=19)
+MESH_STREAM_RTOL = 1e-4
+# config 4's streamed fixed effect: its train rows // 8 rounded up to a
+# power of two, the coordinate's own chunking without a budget (bench.py's
+# budget, ~326 MB a device, would plan the FE's double buffer as one chunk)
+MESH_STREAM_C4_CHUNK = 131_072
+MESH_STOCH = dict(n=32_768, d=16, passes=3, local_epochs=4, seed=7, row_multiple=8)
+MESH_STOCH_RTOL = 1e-8
+MESH_STREAM_CLI_RTOL = 1e-6
+MESH_ALL_REDUCE_REPS = 200     # all_reduce calls timed per size
 MESH_HEARTBEAT = {"PHOTON_HEARTBEAT_INTERVAL": "0.2", "PHOTON_HEARTBEAT_TIMEOUT": "3",
                   "PHOTON_HEARTBEAT_ESCALATE": "5"}
 MESH_RANK_CHILD = (
@@ -6200,10 +6217,10 @@ def mesh_factored_setup():
     return train, val, cfg
 
 
-def admm_problem(loss: str):
-    """bench.py's _admm_problem: Gaussian features with an intercept
-    column, labels from the loss's model."""
-    a = MESH_ADMM
+def admm_problem(loss: str, a=MESH_ADMM):
+    """bench.py's _admm_problem (for the logistic loss also its
+    _stoch_problem) at `a`'s n, d and seed: Gaussian features with an
+    intercept column, labels from the loss's model."""
     rng = np.random.default_rng(a["seed"])
     x = rng.normal(size=(a["n"], a["d"]))
     x[:, -1] = 1.0
@@ -6400,10 +6417,237 @@ def table_digests_of(t) -> str:
     return hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()
 
 
-def mesh_rank(rank, world, port, out_path) -> int:
+def mesh_stream_budget(acct: dict, data_devices: int) -> dict:
+    """bench.py _mesh_stream_leg's per-device budget from a resident fit's
+    accounting: 2.2 x (flat vectors + the other coordinates' blocks / D);
+    with the fixed effect's bytes per device and the cap below which
+    `auto` streams it (2 x FE / D)."""
+    fe_b = acct["resident_block_bytes"]["fixed"]
+    re_b = sum(b for c, b in acct["resident_block_bytes"].items() if c != "fixed")
+    flat = acct["flat_vector_bytes"]
+    budget = int((flat + -(-re_b // data_devices)) * 2.2)
+    return {"budget": budget, "stream_cap": 2 * fe_b // data_devices,
+            "per_device_data": -(-(fe_b + re_b) // data_devices) + flat}
+
+
+def mesh_stream_setup():
+    """bench.py's _mesh_config(3, 12, seed=19) on _pipeline_dataset at
+    MESH_STREAM: a fixed effect and a per-user random effect (identity
+    projector), L2 1."""
+    from photon_ml_tpu_torch.data.synthetic_bench import pipeline_dataset
+    from photon_ml_tpu_torch.game import (
+        FixedEffectCoordinateConfig, GameTrainingConfig, GLMOptimizationConfig,
+        RandomEffectCoordinateConfig,
+    )
+    from photon_ml_tpu_torch.optim.config import (
+        OptimizerConfig, RegularizationContext, RegularizationType,
+    )
+    f = MESH_STREAM
+    train, val = pipeline_dataset(f["n"], f["d_global"], f["n_users"], f["d_user"],
+                                  f["seed"])
+    opt = GLMOptimizationConfig(
+        optimizer=OptimizerConfig(max_iterations=f["iters"]),
+        regularization=RegularizationContext(RegularizationType.L2),
+        regularization_weight=1.0)
+    cfg = GameTrainingConfig(
+        task_type="logistic_regression",
+        coordinates={"fixed": FixedEffectCoordinateConfig("global", opt),
+                     "perUser": RandomEffectCoordinateConfig(
+                         "userId", "per_user", opt, projector="identity")},
+        updating_sequence=["fixed", "perUser"], num_outer_iterations=f["outer"],
+        seed=f["seed"])
+    return train, val, cfg
+
+
+def mesh_stream_fit(mesh, train, val, cfg) -> dict:
+    """One mesh-streamed GameEstimator fit on this rank: the history, the
+    tables' digests, the fused kernel's launches, the FE passes, the
+    residency accounting (this rank's stream counters under "stream") and
+    the walls."""
+    from photon_ml_tpu_torch.game import GameEstimator
+    counts0, calls0 = launch_counts(), mesh.stats.snapshot()
+    sync(MESH_DEVICE)
+    t0 = time.perf_counter()
+    res = GameEstimator(cfg, mesh=mesh).fit(train, val, ["AUC"])
+    sync(MESH_DEVICE)
+    fit_s = time.perf_counter() - t0
+    counts = launch_counts()
+    return {"rank": mesh.rank, "fit_s": fit_s, "history": list(res.objective_history),
+            "auc": res.validation.get("AUC"), "tables": table_digests(res.model),
+            "launches": {k: counts[k] - counts0[k] for k in counts},
+            "fe_passes": fe_passes(res.descent), "residency": res.residency,
+            "collectives": mesh.stats.delta(calls0, mesh.stats.snapshot())}
+
+
+def mesh_streamed(mesh) -> dict:
+    """bench.py's _mesh_stream_leg on a 2x1 mesh: the resident fit of the
+    same config on one card (every rank of the mesh fits it: each needs
+    the budget), then the mesh-streamed fit under bench.py's budget."""
+    import dataclasses
+    from photon_ml_tpu_torch.data.streaming import ChunkPlan
+    from photon_ml_tpu_torch.game import GameEstimator
+    t0 = time.perf_counter()
+    train, val, cfg = mesh_stream_setup()
+    out = {"data_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    ref = GameEstimator(cfg, device=MESH_DEVICE).fit(train, val, ["AUC"])
+    sync(MESH_DEVICE)
+    out["resident_fit_s"] = time.perf_counter() - t0
+    out["resident_history"] = list(ref.objective_history)
+    out.update(mesh_stream_budget(ref.residency, mesh.num_data))
+    if not out["budget"] < out["stream_cap"]:
+        raise SystemExit(f"mesh_streamed: bench.py's budget {out['budget']} does not force "
+                         f"streaming (2 x FE / D = {out['stream_cap']})")
+    rec = mesh_stream_fit(mesh, train, val,
+                          dataclasses.replace(cfg, hbm_budget_bytes=out["budget"]))
+    # game/coordinates.py's plan of the streamed fixed effect (f32 rows)
+    D = mesh.num_data
+    plan = ChunkPlan.build(train.num_rows, hbm_budget_bytes=(out["budget"] // 2) * D,
+                           bytes_per_row=(MESH_STREAM["d_global"] + 4) * 4, row_multiple=D)
+    return {**out, **rec, "chunks": plan.num_chunks, "chunk_rows": plan.chunk_rows}
+
+
+def time_all_reduce(mesh, elements: int, dtype) -> float:
+    """Mean ms of one data-axis all_reduce of `elements` on this rank's
+    device (MESH_ALL_REDUCE_REPS calls, synchronized; every rank of the
+    axis calls it)."""
+    import torch
+    t = torch.zeros(elements, dtype=dtype, device=MESH_DEVICE)
+    mesh.all_reduce(t, "data")
+    sync(MESH_DEVICE)
+    t0 = time.perf_counter()
+    for _ in range(MESH_ALL_REDUCE_REPS):
+        mesh.all_reduce(t, "data")
+    sync(MESH_DEVICE)
+    return (time.perf_counter() - t0) / MESH_ALL_REDUCE_REPS * 1e3
+
+
+def mesh_stream_parts(mesh, obj, c) -> dict:
+    """Walls by part of one streamed value+gradient pass on this rank:
+    the whole pass, its chunk staging alone (the Prefetcher's pass with
+    no consumer work) and one data-axis all_reduce of the packed
+    (value, gradient) (every rank of the mesh runs this)."""
+    import torch
+    obj.value_and_gradient(c)
+    sync(MESH_DEVICE)
+    t0 = time.perf_counter()
+    obj.value_and_gradient(c)
+    sync(MESH_DEVICE)
+    pass_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in obj._prefetcher.stream():
+        pass
+    sync(MESH_DEVICE)
+    staging_s = time.perf_counter() - t0
+    return {"pass_s": pass_s, "staging_s": staging_s,
+            "all_reduce_ms": time_all_reduce(mesh, obj.dim + 1, torch.float32)}
+
+
+def mesh_stream_config4(mesh, budget: int, data) -> dict:
+    """Config 4 at full size on a 2x1 mesh with its fixed effect streamed
+    in chunks of MESH_STREAM_C4_CHUNK rows and the random effect resident,
+    under bench.py's per-device budget `budget`, on `data` (glmix_setup's
+    train, validation and config).  At this shape any budget
+    that holds the random effect (>= 2 x (flat + RE / D)) lies above
+    2 x FE / D, where `auto` keeps the FE resident and a budget-made plan
+    is one chunk: so the FE's memory_mode is "streamed" and its chunk_rows
+    set.  Then, on this rank's staged blocks of the fit's plan (the same
+    ChunkedGLMObjective staging): the fused kernel against its plain
+    version at the first chunk's block and at the tail's (masked) block,
+    with residual offsets from a seed; on rank 0 its timing at the full
+    block; and the walls by part of one pass."""
+    import dataclasses
+    import torch
+    from photon_ml_tpu_torch.data.streaming import ChunkPlan
+    from photon_ml_tpu_torch.ops import hopper_kernels as hk
+    from photon_ml_tpu_torch.ops.chunked import ChunkedGLMObjective
+    from photon_ml_tpu_torch.ops.losses import LOGISTIC
+    train, val, cfg = data
+    fixed = dataclasses.replace(cfg.coordinates["fixed"], memory_mode="streamed",
+                                chunk_rows=MESH_STREAM_C4_CHUNK)
+    cfg = dataclasses.replace(cfg, hbm_budget_bytes=budget,
+                              coordinates={**cfg.coordinates, "fixed": fixed})
+    rec = mesh_stream_fit(mesh, train, val, cfg)
+    host_x = train.feature_shards["global"]
+    n, d = host_x.shape
+    plan = ChunkPlan.build(n, chunk_rows=MESH_STREAM_C4_CHUNK, row_multiple=mesh.num_data)
+    rng = np.random.default_rng(31)
+    offsets = (0.1 * rng.normal(size=n)).astype(np.float32)
+    obj = ChunkedGLMObjective(LOGISTIC, host_x, train.response, plan, offsets=offsets,
+                              mesh=mesh, device=MESH_DEVICE)
+    c = torch.zeros(d, device=MESH_DEVICE)
+    out = {**rec, "budget": budget, "chunks": plan.num_chunks,
+           "chunk_rows": plan.chunk_rows, "parts": mesh_stream_parts(mesh, obj, c)}
+    if MESH_DEVICE.startswith("cuda"):
+        cb = 0.05 * torch.linspace(-1.0, 1.0, d, device=MESH_DEVICE)
+        checks, timing = {}, None
+        last = plan.num_chunks - 1
+        for spec, ch in obj._prefetcher.stream():
+            if spec.index not in (0, last):
+                continue
+            ok, err, v_rel, g_rel = compare(hk, LOGISTIC, ch["x"], ch["labels"], cb,
+                                            ch["weights"], ch["offsets"], ch["mask"])
+            checks[f"chunk{spec.index}"] = {
+                "shape": list(ch["x"].shape), "real_rows": spec.rows,
+                "padded_rows": spec.padded_rows - spec.rows, "ok": ok, "max_abs_err": err,
+                "value_rel_err": v_rel, "grad_err_over_tol": g_rel}
+            if spec.index == 0 and mesh.rank == 0:
+                timing = time_full(hk, LOGISTIC, ch["x"], ch["labels"], ch["offsets"],
+                                   None, ch["mask"])
+                timing.update(shape=list(ch["x"].shape), inputs="o+mask", max_abs_err=err)
+        out["kernel_check"] = checks
+        out["timing"] = timing
+        out["route_bytes"] = dict(obj.staging.route_bytes)
+    return out
+
+
+def mesh_stoch(mesh) -> dict:
+    """bench.py's _stoch_mesh_leg on a 2x1 mesh in float64 (its
+    _stoch_objective: chunks of n // 8 rows, row multiple 8, no L2), then
+    on the mesh's rank 0 the same plan on one rank; the collectives of
+    the mesh run and the mean ms of one 1-element all_reduce."""
+    import torch
+    from photon_ml_tpu_torch.data.streaming import ChunkPlan
+    from photon_ml_tpu_torch.ops.chunked import ChunkedGLMObjective
+    from photon_ml_tpu_torch.ops.losses import LOGISTIC
+    from photon_ml_tpu_torch.optim.schedule import StochasticPlan
+    from photon_ml_tpu_torch.optim.stochastic import solve_stochastic
+    f = MESH_STOCH
+    x, y = admm_problem("logistic", f)
+    plan = ChunkPlan.build(f["n"], chunk_rows=max(f["n"] // 8, 256),
+                           row_multiple=f["row_multiple"])
+    splan = StochasticPlan(passes=f["passes"], local_epochs=f["local_epochs"],
+                           seed=f["seed"])
+    f64 = torch.float64
+    out = {"chunks": plan.num_chunks}
+    for who, m in (("mesh", mesh), ("one_rank", None)):
+        if m is None and mesh.rank != 0:
+            break
+        obj = ChunkedGLMObjective(LOGISTIC, x, y, plan, mesh=m, device=MESH_DEVICE,
+                                  dtype=f64)
+        calls0 = mesh.stats.snapshot()
+        sync(MESH_DEVICE)
+        t0 = time.perf_counter()
+        res = solve_stochastic(obj, torch.zeros(f["d"], dtype=f64, device=MESH_DEVICE),
+                               splan)
+        sync(MESH_DEVICE)
+        out[who] = {"solve_s": time.perf_counter() - t0,
+                    "loss_history": [float(v) for v in res.loss_history.cpu()
+                                     if np.isfinite(float(v))],
+                    "x_digest": table_digests_of(res.x),
+                    "x": res.x.double().cpu().tolist(),
+                    "collectives": mesh.stats.delta(calls0, mesh.stats.snapshot())}
+    out["all_reduce_1_ms"] = time_all_reduce(mesh, 1, f64)
+    return out
+
+
+def mesh_rank(rank, world, port, out_path, stream_budget) -> int:
     """One rank of the mesh phase's gloo group on cuda:0: config 4 on 2x1,
     the factored leg and the sparse fixed effect on 2x1, the ADMM legs on
-    1x2 and 2x2; its results to `out_path` as JSON."""
+    1x2 and 2x2; then streaming over a mesh: config 4 streamed under the
+    per-device budget `stream_budget` on ranks 0-1 while bench.py's
+    mesh-stream and stochastic legs run on ranks 2-3; its results to
+    `out_path` as JSON."""
     rank, world = int(rank), int(world)
     from photon_ml_tpu_torch.parallel import multihost
     multihost.initialize(f"127.0.0.1:{port}", world, rank, backend="gloo",
@@ -6411,12 +6655,23 @@ def mesh_rank(rank, world, port, out_path) -> int:
     out = {"rank": rank, "world": world}
     try:
         t0 = time.perf_counter()
-        out["config4"] = mesh_fit(rank, MESH_CONFIG4_SHAPE, glmix_setup)
+        # config 4's data, made once on the ranks of its two legs
+        c4 = glmix_setup() if rank < 2 else None
+        out["config4"] = mesh_fit(rank, MESH_CONFIG4_SHAPE, lambda: c4)
         out["factored"] = mesh_fit(rank, (2, 1), mesh_factored_setup, reference=True)
         out["sparse"] = mesh_fit(rank, (2, 1), lambda: yahoo_setup(MESH_SPARSE_ROWS),
                                  reference=True)
         out["admm"] = mesh_admm(rank)
         out["wall_s"] = time.perf_counter() - t0
+        from photon_ml_tpu_torch.parallel import make_mesh
+        t1 = time.perf_counter()
+        pairs = [make_mesh(2, 1, device=MESH_DEVICE, ranks=r) for r in ([0, 1], [2, 3])]
+        if pairs[0] is not None:
+            out["stream_config4"] = mesh_stream_config4(pairs[0], int(stream_budget), c4)
+        elif pairs[1] is not None:
+            out["mesh_streamed"] = mesh_streamed(pairs[1])
+            out["stoch"] = mesh_stoch(pairs[1])
+        out["stream_legs_s"] = time.perf_counter() - t1
     finally:
         multihost.shutdown()
     Path(out_path).write_text(json.dumps(out))
@@ -6601,6 +6856,197 @@ def mesh_admm_check(recs, kind, smi) -> dict:
     return part
 
 
+def _ranks_bit_equal(recs) -> bool:
+    return all(r["history"] == recs[0]["history"] and r["tables"] == recs[0]["tables"]
+               for r in recs)
+
+
+def _stream_launches_ok(rec) -> bool:
+    """A streamed fit's fused launches on one rank: one per chunk block per
+    FE value+gradient pass."""
+    return rec["launches"]["fused"] == rec["chunks"] * rec["fe_passes"] > 0
+
+
+def _per_rank_stream(rec) -> dict:
+    acct = rec["residency"]
+    return {"rank": rec["rank"], "fit_s": rec["fit_s"], "launches": rec["launches"],
+            "fe_passes": rec["fe_passes"], "chunks": rec["chunks"],
+            "collectives": rec["collectives"],
+            **{k: acct[k] for k in ("per_device", "data_devices", "streamed_chunk_bytes",
+                                    "resident_block_bytes", "peak_tracked_bytes",
+                                    "under_budget", "evict_inactive", "evictions")},
+            "stream": acct["stream"].get("fixed")}
+
+
+def mesh_stream_config4_check(recs, glmix_ref, kind, smi) -> dict:
+    """mesh_stream_config4_2x1's gates: within GLMIX_RTOL of config 4's
+    reference objective, the ranks bit-equal, the fixed effect streamed and
+    the random effect resident under the budget on every rank, one launch
+    per chunk block per pass, and the kernel against its plain version at
+    each rank's block of the first and the tail chunk."""
+    r0 = recs[0]
+    rel = (r0["history"][-1] - glmix_ref) / abs(glmix_ref)
+    part = {"phase": "mesh_stream_config4_2x1", "backend": "gloo", "ranks_on": "cuda:0",
+            "config": "BASELINE config 4 (bench.py bench_config4), FE memory_mode streamed",
+            "budget_per_device": r0["budget"], "chunk_rows": r0["chunk_rows"],
+            "chunks": r0["chunks"], "final_objective": r0["history"][-1], "ref_nll": glmix_ref,
+            "nll_rel_gap": rel, "history": r0["history"], "ranks_bit_equal": _ranks_bit_equal(recs),
+            "per_rank": [_per_rank_stream(r) for r in recs],
+            "parts": [r["parts"] for r in recs],
+            "route_bytes": [r.get("route_bytes") for r in recs],
+            "kernel_check": [r.get("kernel_check") for r in recs],
+            "timing": r0.get("timing"), "auc": r0["auc"], "device": kind, "nvidia_smi": smi}
+    emit(part)
+    if not abs(rel) <= GLMIX_RTOL:
+        raise SystemExit(f"mesh_stream_config4_2x1: objective {r0['history'][-1]} is "
+                         f"{rel:.3e} from {glmix_ref}")
+    if not part["ranks_bit_equal"]:
+        raise SystemExit("mesh_stream_config4_2x1: the ranks' histories or tables differ")
+    for rec in recs:
+        acct = rec["residency"]
+        if not (acct["streamed_chunk_bytes"].get("fixed") and rec["chunks"] > 1
+                and acct["under_budget"] and "perUser" in acct["resident_block_bytes"]
+                and acct["evictions"] == 0 and acct["per_device"]
+                and acct["data_devices"] == 2):
+            raise SystemExit(f"mesh_stream_config4_2x1: rank {rec['rank']} accounting "
+                             f"{_per_rank_stream(rec)}")
+        if not _stream_launches_ok(rec):
+            raise SystemExit(f"mesh_stream_config4_2x1: rank {rec['rank']} launched "
+                             f"{rec['launches']['fused']} for {rec['chunks']} chunks x "
+                             f"{rec['fe_passes']} passes")
+        if MESH_DEVICE.startswith("cuda") and not rec["route_bytes"]["registered"] > 0:
+            raise SystemExit(f"mesh_stream_config4_2x1: rank {rec['rank']} registered no "
+                             f"host array: {rec['route_bytes']}")
+        checks = rec.get("kernel_check")
+        if MESH_DEVICE.startswith("cuda") and not (
+                checks and len(checks) == min(2, rec["chunks"])
+                and all(c["ok"] for c in checks.values())):
+            raise SystemExit(f"mesh_stream_config4_2x1: the kernel disagrees with its plain "
+                             f"version at rank {rec['rank']}'s blocks: {checks}")
+    return part
+
+
+def mesh_streamed_check(recs, kind, smi) -> dict:
+    """mesh_streamed's gates: the history within MESH_STREAM_RTOL of the
+    resident fit on one card, the fixed effect streamed under the budget,
+    the per-device data above it, the ranks bit-equal, one launch per chunk
+    block per pass."""
+    r0 = recs[0]
+    ref = r0["resident_history"]
+    gap = max(abs(a - b) / max(abs(b), 1e-12) for a, b in zip(r0["history"], ref))
+    part = {"phase": "mesh_streamed", "backend": "gloo", "mesh": {"data": 2, "feature": 1},
+            **MESH_STREAM, "budget_per_device": r0["budget"], "stream_cap": r0["stream_cap"],
+            "per_device_data": r0["per_device_data"], "chunk_rows": r0["chunk_rows"],
+            "chunks": r0["chunks"], "history": r0["history"], "resident_history": ref,
+            "max_rel_gap": gap, "gate": MESH_STREAM_RTOL,
+            "ranks_bit_equal": _ranks_bit_equal(recs), "resident_fit_s": r0["resident_fit_s"],
+            "data_s": r0["data_s"], "per_rank": [_per_rank_stream(r) for r in recs],
+            "device": kind, "nvidia_smi": smi}
+    emit(part)
+    if not (len(ref) == len(r0["history"]) and gap <= MESH_STREAM_RTOL):
+        raise SystemExit(f"mesh_streamed: history {gap:.3e} from the resident fit")
+    if not part["ranks_bit_equal"]:
+        raise SystemExit("mesh_streamed: the ranks' histories or tables differ")
+    for rec in recs:
+        acct = rec["residency"]
+        if not (acct["streamed_chunk_bytes"] and acct["under_budget"]
+                and r0["per_device_data"] > r0["budget"]):
+            raise SystemExit(f"mesh_streamed: rank {rec['rank']} accounting "
+                             f"{_per_rank_stream(rec)}")
+        if not _stream_launches_ok(rec):
+            raise SystemExit(f"mesh_streamed: rank {rec['rank']} launched "
+                             f"{rec['launches']['fused']} for {rec['chunks']} chunks x "
+                             f"{rec['fe_passes']} passes")
+    return part
+
+
+def mesh_stoch_check(recs, kind, smi) -> dict:
+    """mesh_stoch's gates: the mesh's history within MESH_STOCH_RTOL of one
+    rank's on the same plan, passes x chunks x (1 + d x epochs) data-axis
+    all_reduces on each rank (none on one rank), the ranks bit-equal."""
+    f = MESH_STOCH
+    one, mesh = recs[0]["one_rank"], recs[0]["mesh"]
+    gap = max(abs(a - b) / max(abs(b), 1e-12)
+              for a, b in zip(mesh["loss_history"], one["loss_history"]))
+    expect = f["passes"] * recs[0]["chunks"] * (1 + f["d"] * f["local_epochs"])
+    part = {"phase": "mesh_stoch", "backend": "gloo", "dtype": "float64", **f,
+            "chunks": recs[0]["chunks"], "history": mesh["loss_history"],
+            "one_rank_history": one["loss_history"], "max_rel_gap": gap,
+            "gate": MESH_STOCH_RTOL, "final_x_max_abs_gap": max(
+                abs(a - b) for a, b in zip(mesh["x"], one["x"])),
+            "collectives_expected": expect,
+            "per_rank": [{"solve_s": r["mesh"]["solve_s"],
+                          "collectives": r["mesh"]["collectives"],
+                          "all_reduce_1_ms": r["all_reduce_1_ms"]} for r in recs],
+            "one_rank_solve_s": one["solve_s"],
+            "ranks_bit_equal": all(r["mesh"]["x_digest"] == mesh["x_digest"]
+                                   and r["mesh"]["loss_history"] == mesh["loss_history"]
+                                   for r in recs),
+            "device": kind, "nvidia_smi": smi}
+    emit(part)
+    if not (len(mesh["loss_history"]) == len(one["loss_history"]) == f["passes"]
+            and gap <= MESH_STOCH_RTOL):
+        raise SystemExit(f"mesh_stoch: history {gap:.3e} from one rank's")
+    for rec in recs:
+        c = rec["mesh"]["collectives"]
+        if c.get("all_reduce.data.calls") != expect or set(c) != {
+                "all_reduce.data.calls", "all_reduce.data.elements"}:
+            raise SystemExit(f"mesh_stoch: collectives {c}, expected {expect} calls")
+    if one["collectives"] or not part["ranks_bit_equal"]:
+        raise SystemExit(f"mesh_stoch: one rank's collectives {one['collectives']}, "
+                         f"ranks bit-equal {part['ranks_bit_equal']}")
+    return part
+
+
+def mesh_stream_cli_start(d: Path, budget: int):
+    """cli.train --mesh 2x1 --dist-backend gloo --hbm-budget `budget` on
+    cli_game's npz files, its config's fixed effect streamed in chunks of
+    MESH_STREAM_C4_CHUNK rows (as mesh_stream_config4_2x1's)."""
+    src = CLI_ROOT / "cli_game"
+    cfg = json.loads((src / "config.json").read_text())
+    cfg["coordinates"]["fixed"].update(memory_mode="streamed",
+                                       chunk_rows=MESH_STREAM_C4_CHUNK)
+    (d / "stream_config.json").write_text(json.dumps(cfg))
+    return _train_child(d, "stream_cli", [
+        "--train-data", src / "train.npz", "--validation-data", src / "val.npz",
+        "--config", d / "stream_config.json", "--evaluators", "AUC",
+        "--device", MESH_DEVICE.split(":")[0], "--output-dir", d / "stream_cli",
+        "--mesh", "2x1", "--dist-backend", "gloo", "--hbm-budget", budget], counts=False)
+
+
+def mesh_stream_cli_finish(d: Path, proc, c4: dict, kind, smi) -> dict:
+    """mesh_stream_cli's gates: exit 0, rank 0's history within
+    MESH_STREAM_CLI_RTOL of mesh_stream_config4_2x1's, both ranks
+    streaming their blocks with one launch per chunk block per pass
+    (their summaries' kernel_launches)."""
+    code = proc.wait(timeout=900)
+    lines = [_child_line(d / "stream_cli" / f) for f in ("stdout", "training.proc1.out")]
+    if code != 0 or None in lines:
+        raise SystemExit(f"mesh_stream_cli: exit {code}: "
+                         f"{(d / 'stream_cli' / 'stderr').read_text()[-2000:]}")
+    hist, ref = lines[0]["objective_history"], c4["history"]
+    gap = max(abs(a - b) / abs(b) for a, b in zip(hist, ref))
+    per_rank = [{"process": p, "fit_s": ln["fit_s"], "wall_s": ln["wall_s"],
+                 "launches": ln["kernel_launches"]["fused"],
+                 "fe_passes": ln["solver_diagnostics"]["fixed"]["value_gradient_passes"],
+                 "stream": ln["hbm_residency"]["stream"].get("fixed"),
+                 "streamed_chunk_bytes": ln["hbm_residency"]["streamed_chunk_bytes"]}
+                for p, ln in enumerate(lines)]
+    part = {"phase": "mesh_stream_cli", "backend": "gloo", "code": code,
+            "history": hist, "config4_stream_history": ref, "max_rel_gap": gap,
+            "gate": MESH_STREAM_CLI_RTOL, "chunks": c4["chunks"], "per_rank": per_rank,
+            "device": kind, "nvidia_smi": smi}
+    emit(part)
+    if not (len(hist) == len(ref) and gap <= MESH_STREAM_CLI_RTOL):
+        raise SystemExit(f"mesh_stream_cli: history {gap:.3e} from mesh_stream_config4_2x1")
+    for r in per_rank:
+        if not (r["streamed_chunk_bytes"].get("fixed")
+                and r["launches"] == c4["chunks"] * r["fe_passes"] > 0):
+            raise SystemExit(f"mesh_stream_cli: process {r['process']}: {r}")
+    part["launches"] = sum(r["launches"] for r in per_rank)
+    return part
+
+
 def _train_child(d: Path, name: str, argv, counts: bool = True):
     """cli.train as a child (through TRAIN_CHILD, which writes its kernel
     launch counts at exit), stdout and stderr to files under d/name."""
@@ -6757,13 +7203,17 @@ def mesh_multihost_finish(d: Path, started: dict, kind, smi) -> dict:
     return part
 
 
-def mesh_phase(glmix_history, glmix_ref, kind, smi) -> dict:
+def mesh_phase(glmix_history, glmix_ref, glmix_residency, kind, smi) -> dict:
     """The mesh phase: mesh_nccl1 in this process, alone on the card; then
-    the rank group (config 4 on 2x1, the factored and sparse legs, ADMM)
-    and the cli.train children (the coordinator pair, the --mesh 2x1
-    spawn, the kill and the resumes) start together.  -> the launches by
-    part."""
+    the rank group (config 4 on 2x1, the factored and sparse legs, ADMM,
+    then streaming over a mesh) and the cli.train children (the
+    coordinator pair, the --mesh 2x1 spawn, the kill and the resumes, the
+    mesh-streamed run) start together.  The streamed legs' budget is
+    bench.py's rule over the one-card config-4 fit's accounting
+    (`glmix_residency`).  -> the launches by part, and rank 0's timing at
+    its config-4 chunk block."""
     d = cli_dir("mesh")
+    stream = mesh_stream_budget(glmix_residency, 2)
     # alone on the card first: its wall is compared with the fit without a mesh
     nccl1 = mesh_nccl1_part(glmix_history, kind, smi)
     port = _free_port()
@@ -6773,9 +7223,10 @@ def mesh_phase(glmix_history, glmix_ref, kind, smi) -> dict:
         with open(d / f"rank{r}.err", "w") as err:
             ranks.append(subprocess.Popen(
                 [sys.executable, "-c", MESH_RANK_CHILD, str(r), str(MESH_RANKS), str(port),
-                 str(d / f"rank{r}.json")], cwd=ROOT, env=env,
+                 str(d / f"rank{r}.json"), str(stream["budget"])], cwd=ROOT, env=env,
                 stdout=subprocess.DEVNULL, stderr=err))
     mh = mesh_multihost_start(d)
+    stream_cli = mesh_stream_cli_start(d, stream["budget"])
     try:
         codes = [p.wait(timeout=1200) for p in ranks]
         if codes != [0] * MESH_RANKS:
@@ -6789,17 +7240,33 @@ def mesh_phase(glmix_history, glmix_ref, kind, smi) -> dict:
         spa = mesh_leg_check("sparse", [recs[0]["sparse"], recs[1]["sparse"]],
                              MESH_SPARSE_RTOL, kind, smi, sparse=True)
         mesh_admm_check(recs, kind, smi)
+        sc4 = mesh_stream_config4_check([recs[0]["stream_config4"],
+                                         recs[1]["stream_config4"]], glmix_ref, kind, smi)
+        ms = mesh_streamed_check([recs[2]["mesh_streamed"], recs[3]["mesh_streamed"]],
+                                 kind, smi)
+        mesh_stoch_check([recs[2]["stoch"], recs[3]["stoch"]], kind, smi)
         multi = mesh_multihost_finish(d, mh, kind, smi)
+        scli = mesh_stream_cli_finish(d, stream_cli, sc4, kind, smi)
+        emit({"phase": "mesh_stream_legs", "seconds_in_rank_group": [
+            r["stream_legs_s"] for r in recs], "budget": stream,
+            "device": kind, "nvidia_smi": smi})
     finally:
-        for p in ranks + mh["pair"] + [mh["spawn"]] + mh["kill"]:
+        for p in ranks + mh["pair"] + [mh["spawn"]] + mh["kill"] + [stream_cli]:
             if p.poll() is None:
                 p.kill()
                 p.wait()
     per_rank = lambda part, key: sum(r["launches"][key] for r in part["per_rank"])
+    stream_launches = lambda part: sum(r["launches"]["fused"] for r in part["per_rank"])
     return {"fused": {"mesh_nccl1": nccl1["kernel_launches"],
                       "mesh_config4_2x1": per_rank(c4, "fused"),
                       "mesh_factored": per_rank(fac, "fused"),
-                      "mesh_multihost": multi["launches"]},
+                      "mesh_multihost": multi["launches"],
+                      "mesh_stream_config4_2x1": stream_launches(sc4),
+                      "mesh_streamed": stream_launches(ms),
+                      "mesh_stream_cli": scli["launches"]},
+            "stream_block": None if sc4["timing"] is None else {
+                **sc4["timing"], "launches_per_rank_pass": sc4["chunks"],
+                "launches": stream_launches(sc4)},
             "margin_loss": per_rank(spa, "margin_loss"), "margins": per_rank(spa, "margins"),
             "column_sum": per_rank(spa, "column_sum"),
             "sq_column_sum": per_rank(spa, "sq_column_sum")}
@@ -7245,7 +7712,7 @@ def main() -> int:
     emit({"phase": "cli_stream_done", "seconds": time.perf_counter() - t0})
     # --- mesh: multi-rank training (one card: gloo ranks on cuda:0) ---------
     t0 = time.perf_counter()
-    mesh = mesh_phase(g_result.objective_history, glmix_ref, kind, smi)
+    mesh = mesh_phase(g_result.objective_history, glmix_ref, g_result.residency, kind, smi)
     emit({"phase": "mesh_done", "seconds": time.perf_counter() - t0})
     stream_launches = {"stream_glm_strict": stream_glm["strict"],
                        "stream_glm_polish": stream_glm["polish"]}
@@ -7319,6 +7786,10 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "hbm_share",
             "ms_over_library", "shape", "inputs", "max_abs_err")}
         | {"launches_per_streamed_pass": stream_glm["chunks"]},
+        "at_mesh_stream_block_shape": {k: mesh["stream_block"][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "hbm_share",
+            "ms_over_library", "shape", "inputs", "max_abs_err", "launches",
+            "launches_per_rank_pass")},
         "local_epochs_per_chunk": stream_glm["local_epochs"],
     }] + [sparse_kernel_entry(name, part, c6, c7, cli_avro, mesh) for name, part in (
         ("ell_margin_loss", "a"), ("csc_column_sum", "b"))] + [lanes_kernel_entry(

@@ -949,6 +949,7 @@ def _fit_and_save(args, log, train, val, device, dtype, t0, ingest_s,
                         format=args.model_format)
     save_s = time.time() - t_save
     solver_diag = best.descent.solver_diagnostics()
+    from photon_ml_tpu_torch.ops import hopper_kernels as hk, sparse_kernels as sk
     summary = {
         "task": args.task,
         "train_rows": train.num_rows,
@@ -990,6 +991,9 @@ def _fit_and_save(args, log, train, val, device, dtype, t0, ingest_s,
         "compile_s": round(sum(s for _, _, s in _build.LOADS[loads0:]), 2),
         "compile_count": len(_build.LOADS) - loads0,
         "compile_cache": None,
+        # this process's hand-kernel launches (the wrappers' counts: the
+        # fused kernel, kernels A and B by mode)
+        "kernel_launches": {"fused": hk.LAUNCHES, **sk.LAUNCHES},
         # the unified telemetry surface: registry counters/gauges/
         # histograms (stream/store/checkpoint/quarantine/kernel-load
         # accounting) + tracer record counts when armed

@@ -33,9 +33,15 @@ counts device bytes as the JAX package's canonicalized transfer does.
 StreamStats mirrors its counts into the telemetry registry (`stream.*`
 counters, the `stream.examples_per_staged_byte` gauge), a transient
 staging failure emits `stage_retry`, and each chunk's staging is a `stage`
-span on the producer thread, as in the JAX package.  Streaming over a mesh,
-with the JAX package's multi-process byte accounting, is not ported yet
-(ROADMAP.md queue A item 20, its last part).
+span on the producer thread, as in the JAX package.
+
+On a mesh each rank stages only its own row block of every chunk
+(`ChunkPlan.process_block`: data index i owns padded rows [i·per,
+(i+1)·per), per = padded_rows // D; feature-axis peers stage the same
+block), so StreamStats and the `stream.*` counters count this rank's
+staged bytes and real rows, as the JAX package's per-process
+`_tree_nbytes` does, and `examples_per_staged_byte` is the rank's own
+quotient.
 """
 from __future__ import annotations
 
@@ -114,6 +120,37 @@ class ChunkPlan:
     def chunk_bytes(self, bytes_per_row: int) -> int:
         """Device bytes of ONE full chunk (the double-buffer unit)."""
         return self.chunk_rows * bytes_per_row
+
+    def process_block(self, spec: ChunkSpec, *, num_shards: int,
+                      shard_lo: int, shard_hi: int) -> Tuple[int, int]:
+        """Padded-row offsets [lo, hi) of `spec` owned by data-axis shards
+        [shard_lo, shard_hi) of `num_shards`: a rank's share of every
+        chunk is the contiguous padded-row block returned here, and it
+        fetches, pads and copies only those rows."""
+        if spec.padded_rows % num_shards:
+            raise ValueError(
+                f"chunk {spec.index} pads to {spec.padded_rows} rows, not a "
+                f"multiple of {num_shards} data-axis shards; build the plan "
+                "with row_multiple=num_shards")
+        per = spec.padded_rows // num_shards
+        return shard_lo * per, shard_hi * per
+
+    def rank_blocks(self, num_shards: int, shard: int) -> "ChunkPlan":
+        """The plan of one data-axis shard's blocks: chunk i's block keeps
+        its index, covers the real rows of [start + lo, start + hi) (none
+        for a block that lies wholly in the chunk's padding) and pads to
+        hi - lo rows.  A Prefetcher over it stages the shard's rows only."""
+        blocks = []
+        for spec in self.chunks:
+            lo, hi = self.process_block(spec, num_shards=num_shards,
+                                        shard_lo=shard, shard_hi=shard + 1)
+            start = min(spec.start + lo, spec.stop)
+            stop = min(spec.start + hi, spec.stop)
+            blocks.append(ChunkSpec(index=spec.index, start=start, stop=stop,
+                                    padded_rows=hi - lo))
+        return ChunkPlan(num_rows=self.num_rows,
+                         chunk_rows=self.chunk_rows // num_shards,
+                         chunks=tuple(blocks))
 
     @staticmethod
     def build(num_rows: int, *, chunk_rows: Optional[int] = None,

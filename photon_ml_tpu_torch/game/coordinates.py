@@ -28,13 +28,18 @@ effect its row block (data-parallel solves, parallel/fixed_effect.py; with
 `shard_features` and a feature axis wider than 1, a dense unnormalized
 unconstrained shard trains on the consensus-ADMM lane), an entity-keyed
 coordinate its entity lanes (parallel/random_effect.py, factored.py).
-Scores come back as the full [n] vector on every rank (each rank scores
-its rows, one data-axis all_reduce assembles them), so the descent loop
-is the same on every rank.
+A streamed fixed effect stages instead, pass by pass, the rank's row block
+of every chunk (ops/chunked.py, the plan built with row_multiple = D); the
+feature-axis ADMM lane stays blocked by streaming, as in the JAX package,
+and the monolithic fallback streams over the data axis.  Scores come back
+as the full [n] vector on every rank (each rank scores its rows, one
+data-axis all_reduce assembles them), so the descent loop is the same on
+every rank.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import logging
 import time
 from typing import List, Optional, Tuple
@@ -86,6 +91,13 @@ from photon_ml_tpu_torch.utils import prng
 
 logger = logging.getLogger("photon_ml_tpu_torch")
 
+# serials of the coordinates' mesh residency keys: never reused in a
+# process, where an id() can be once its coordinate is freed; a later
+# coordinate that took a freed id on some ranks and not on others would
+# find the earlier one's staged (and derived) blocks there and skip the
+# collectives the other ranks make
+_RESIDENCY_SERIALS = itertools.count()
+
 
 def _penalty(c: torch.Tensor, l1: float, l2: float) -> torch.Tensor:
     """0.5*l2*||c||^2 + l1*||c||_1 (a device scalar)."""
@@ -117,6 +129,7 @@ class FixedEffectCoordinate:
                  device=None, dtype: torch.dtype = torch.float32, seed: int = 7,
                  hbm_budget_bytes: Optional[int] = None, mesh=None):
         self.name = name
+        self._serial = next(_RESIDENCY_SERIALS)
         self.config = config
         self.task_type = task_type
         self.loss = TASK_LOSSES[task_type]
@@ -216,16 +229,22 @@ class FixedEffectCoordinate:
             from photon_ml_tpu_torch.ops.chunked import ChunkedGLMObjective
             n = host_x.shape[0]
             if config.chunk_rows is not None:
-                plan = ChunkPlan.build(n, chunk_rows=config.chunk_rows)
+                plan = ChunkPlan.build(n, chunk_rows=config.chunk_rows,
+                                       row_multiple=data_div)
             elif hbm_budget_bytes is not None:
-                # two chunks fit in the coordinate's half of the budget
-                plan = ChunkPlan.build(n, hbm_budget_bytes=hbm_budget_bytes // 2,
-                                       bytes_per_row=self._row_bytes)
+                # two chunks fit in the coordinate's half of the budget; on
+                # a mesh the budget is per device and each rank stages 1/D
+                # of every chunk, so the whole chunk's budget scales by D
+                plan = ChunkPlan.build(
+                    n, hbm_budget_bytes=(hbm_budget_bytes // 2) * data_div,
+                    bytes_per_row=self._row_bytes, row_multiple=data_div)
             else:
-                plan = ChunkPlan.build(n, chunk_rows=max(n // 8, 1))
+                plan = ChunkPlan.build(n, chunk_rows=max(n // 8, 1),
+                                       row_multiple=data_div)
             # ONE persistent chunked objective: per-update residual offsets
-            # swap in via replace(), and its stream statistics accumulate
-            # across the fit
+            # (the whole [n] on every rank; each rank's fetch slices its
+            # rows) swap in via replace(), and its stream statistics
+            # accumulate across the fit
             self._stream = ChunkedGLMObjective(
                 self.loss, host_x, dataset.response, plan,
                 weights=dataset.weights, norm=self.norm, device=self.device,
@@ -247,7 +266,7 @@ class FixedEffectCoordinate:
     def _mesh_key(self):
         """Residency key of this coordinate's staged mesh blocks (its
         invalidation unit, parallel/mesh_residency.py)."""
-        return (self.name, id(self))
+        return (self.name, self._serial)
 
     def _host_x(self):
         return self._dataset.feature_shards[self.config.feature_shard]
@@ -450,6 +469,7 @@ class _EntityCoordinateBase:
                  device=None, dtype: torch.dtype = torch.float32, seed: int = 7,
                  hbm_budget_bytes: Optional[int] = None, mesh=None):
         self.name = name
+        self._serial = next(_RESIDENCY_SERIALS)
         self.config = config
         self.task_type = task_type
         self.loss = TASK_LOSSES[task_type]
@@ -525,7 +545,7 @@ class _EntityCoordinateBase:
             invalidate(self._mesh_key())
 
     def _mesh_key(self):
-        return (self.name, id(self))
+        return (self.name, self._serial)
 
     def _mesh_offsets(self, row_ids: np.ndarray, flat_offsets: torch.Tensor,
                       key) -> torch.Tensor:

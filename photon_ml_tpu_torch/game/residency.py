@@ -23,7 +23,9 @@ manager keeps the policy: the budget math, the evict-inactive decision and
 the peak accounting.
 
 On a mesh the budget is PER DEVICE: coordinate blocks shard their leading
-axis over the mesh "data" axis, so each rank holds 1/D of every block.
+axis over the mesh "data" axis, so each rank holds 1/D of every block, and
+a streamed coordinate's double buffer is the rank's two chunk blocks (its
+plan is built with row_multiple = D); each rank reports its own record.
 """
 from __future__ import annotations
 

@@ -16,8 +16,17 @@ the chunk order, so the streamed oracle matches a chunk-wise resident
 evaluation and differs from the single-sum resident evaluation only by
 float summation order.
 
-The JAX package's mesh and multi-process staging (its `mesh=` field) waits
-for ROADMAP.md queue A item 20.
+On a mesh (`mesh=` with a data axis D > 1) each rank streams only its row
+block of every chunk (`ChunkPlan.rank_blocks`), runs the same launch per
+block, and ends each pass with ONE data-axis all_reduce through
+`Mesh.collective` (value and gradient packed in one vector, as
+`GLMObjective(reduce=)`); the L2 term is added once, after the sum.  The
+JAX package gets the same sums from the psums GSPMD inserts into its
+accumulators.  Streamed scores are written into a zero-filled [n] and
+summed the same way, so every rank holds the whole vector, and the
+stochastic lane reduces its chunk sums and each coordinate step's
+gradient (optim/stochastic.py).  Every rank then takes the same host
+steps on the same reduced values.
 """
 from __future__ import annotations
 
@@ -109,10 +118,24 @@ class ChunkedGLMObjective:
         if self.plan.num_rows != self.x.shape[0]:
             raise ValueError(f"plan covers {self.plan.num_rows} rows but the "
                              f"feature block has {self.x.shape[0]}")
-        if self.mesh is not None and getattr(self.mesh, "size", 1) > 1:
-            raise NotImplementedError(
-                "streaming over a device mesh is not ported yet (ROADMAP.md "
-                "queue A item 20: multi-GPU training)")
+        # the rank's data-axis block of every chunk (feature-axis peers
+        # stage the same one); None without a data axis to split over
+        self._reduce = None
+        stage_plan = self.plan
+        num_data = 1 if self.mesh is None else self.mesh.num_data
+        if num_data > 1:
+            from photon_ml_tpu_torch.parallel.mesh import DATA_AXIS
+            for spec in self.plan.chunks:
+                if spec.padded_rows % num_data:
+                    raise ValueError(
+                        f"chunk {spec.index} pads to {spec.padded_rows} rows, "
+                        f"not a multiple of the mesh data axis {num_data}; "
+                        "build the ChunkPlan with row_multiple=data_axis")
+            stage_plan = self.plan.rank_blocks(num_data, self.mesh.data_index)
+            mesh = self.mesh
+            self._reduce = lambda t: mesh.all_reduce(t, DATA_AXIS)
+            if self.device is None:
+                self.device = mesh.device
         self.device = resolve_device(self.device)
         np_dtype = _np_dtype(self.dtype)
         cast = lambda a: None if a is None else np.ascontiguousarray(a, dtype=np_dtype)
@@ -120,12 +143,12 @@ class ChunkedGLMObjective:
         self.weights, self.offsets, self.mask = (
             cast(self.weights), cast(self.offsets), cast(self.mask))
         if self._ones is None or self._ones.dtype != np_dtype:
-            self._ones = np.ones(self.plan.chunk_rows, np_dtype)
+            self._ones = np.ones(stage_plan.chunk_rows, np_dtype)
         if self.device.type == "cuda":
             for a in (self.x, self.labels, self.weights, self.mask, self._ones):
                 if a is not None:
                     pin_host_array(a)
-        self._prefetcher = Prefetcher(self.plan, self._fetch,
+        self._prefetcher = Prefetcher(stage_plan, self._fetch,
                                       depth=self.prefetch_depth,
                                       stats=self.stats, device=self.device,
                                       staging=self.staging, pad_fill=_PAD_FILL)
@@ -133,9 +156,11 @@ class ChunkedGLMObjective:
 
     # -- chunk staging (host side) -------------------------------------------
     def _fetch(self, spec: ChunkSpec) -> dict:
-        """The chunk's real rows, views of the host arrays (the Prefetcher
-        pads the tail: features 0, labels 0.5, weights, offsets and mask
-        0, so padding rows drop out through the mask)."""
+        """The chunk's real rows (on a mesh, those of the rank's block;
+        none for a block that lies wholly in the tail's padding), views of
+        the host arrays (the Prefetcher pads: features 0, labels 0.5,
+        weights, offsets and mask 0, so padding rows drop out through the
+        mask)."""
         sl = slice(spec.start, spec.stop)
         take = lambda a: None if a is None else a[sl]
         return {"x": self.x[sl], "labels": self.labels[sl],
@@ -150,6 +175,11 @@ class ChunkedGLMObjective:
     def _zeros(self, shape=()) -> torch.Tensor:
         return torch.zeros(shape, dtype=self.dtype, device=self.device)
 
+    def _summed(self, t: torch.Tensor) -> torch.Tensor:
+        """The rank's pass total summed over the data axis (one
+        all_reduce); the total itself without a mesh."""
+        return t if self._reduce is None else self._reduce(t)
+
     # -- DiffFunction surface -------------------------------------------------
     @property
     def dim(self) -> int:
@@ -162,6 +192,7 @@ class ChunkedGLMObjective:
         for _, ch in self._prefetcher.stream():
             acc += agg.value_only(self.loss, ch["x"], ch["labels"], c,
                                   **self._chunk_args(ch))
+        acc = self._summed(acc.reshape(1))[0]
         return acc + 0.5 * self.l2_weight * torch.dot(c, c)
 
     def value_and_gradient(self, c: torch.Tensor
@@ -173,6 +204,9 @@ class ChunkedGLMObjective:
                                           **self._chunk_args(ch))
             acc_v += v
             acc_g += g
+        if self._reduce is not None:
+            vg = self._reduce(torch.cat([acc_v.reshape(1), acc_g]))
+            acc_v, acc_g = vg[0], vg[1:]
         return (acc_v + 0.5 * self.l2_weight * torch.dot(c, c),
                 acc_g + self.l2_weight * c)
 
@@ -182,7 +216,7 @@ class ChunkedGLMObjective:
         for _, ch in self._prefetcher.stream():
             acc += agg.hessian_vector(self.loss, ch["x"], ch["labels"], c, v,
                                       **self._chunk_args(ch))
-        return acc + self.l2_weight * v
+        return self._summed(acc) + self.l2_weight * v
 
     def hessian_diagonal(self, c: torch.Tensor) -> torch.Tensor:
         if self.norm is not None and not self.norm.is_identity:
@@ -194,17 +228,22 @@ class ChunkedGLMObjective:
             acc += agg.hessian_diagonal(self.loss, ch["x"], ch["labels"], c,
                                         weights=ch["weights"],
                                         offsets=ch["offsets"], mask=ch["mask"])
-        return acc + self.l2_weight
+        return self._summed(acc) + self.l2_weight
 
     # -- streamed scoring -----------------------------------------------------
     def scores(self, c: torch.Tensor) -> torch.Tensor:
         """Margins X @ c as one streamed pass, into ONE device [n] tensor
         (the flat residual-score vectors stay device-resident in coordinate
-        descent; only the feature block is out of core)."""
-        out = torch.empty(self.plan.num_rows, dtype=c.dtype, device=c.device)
+        descent; only the feature block is out of core).  On a mesh each
+        rank writes its rows into a zero-filled [n] and one data-axis
+        all_reduce makes the whole vector on every rank (x + 0 is exact)."""
+        n = self.plan.num_rows
+        out = (torch.empty(n, dtype=c.dtype, device=c.device)
+               if self._reduce is None
+               else torch.zeros(n, dtype=c.dtype, device=c.device))
         for spec, ch in self._prefetcher.stream():
             out[spec.start:spec.stop] = fops.matvec(ch["x"], c)[:spec.rows]
-        return out
+        return self._summed(out)
 
     # -- stochastic local-solver lane (optim/stochastic.py) -------------------
     def stochastic_pass(self, c: torch.Tensor, *, local_epochs: int,
@@ -227,6 +266,13 @@ class ChunkedGLMObjective:
         Returns (updated coefficients, entry objective): the summed
         chunk-entry data loss plus the L2 term at the pass-entry model, a
         device scalar.
+
+        On a mesh every rank folds the same keys (the same permutations),
+        runs the epochs on its block of the chunk and reduces the chunk's
+        entry loss and column sums, then each coordinate step's gradient,
+        over the data axis (`_local_epochs(reduce=)`), so every rank ends
+        the pass with the same coefficients, bit for bit.  The L2 share
+        and the average's weights are the whole chunk's rows.
 
         Containment: the `solve.local` fault site fires once per (chunk,
         pass); transient failures retry the chunk's local epochs (the
@@ -252,7 +298,8 @@ class ChunkedGLMObjective:
                 np.stack([prng.permutation(prng.fold_in(key, e), d)
                           for e in range(local_epochs)]).reshape(local_epochs, d),
                 device=c.device)
-            l2_local = l2 * (spec.rows / n)
+            rows = self.plan.chunks[spec.index].rows
+            l2_local = l2 * (rows / n)
             c_in = c_start if merge == "average" else c
             attempt = 0
             while True:
@@ -263,7 +310,7 @@ class ChunkedGLMObjective:
                     c_out, entry = _local_epochs(
                         c_in, ch["x"], ch["labels"], ch["weights"],
                         ch["offsets"], ch["mask"], self.norm, perms,
-                        l2_local, clip, loss=self.loss)
+                        l2_local, clip, loss=self.loss, reduce=self._reduce)
                     break
                 except (KeyboardInterrupt, SystemExit):
                     raise
@@ -290,7 +337,7 @@ class ChunkedGLMObjective:
                     time.sleep(delay)
             entry_acc = entry_acc + entry
             if merge == "average":
-                acc_dw = acc_dw + (spec.rows / n) * (c_out - c_start)
+                acc_dw = acc_dw + (rows / n) * (c_out - c_start)
             else:
                 c = c_out
         if merge == "average":

@@ -56,7 +56,7 @@ def _column_sq_sums(x: torch.Tensor, mw: torch.Tensor) -> torch.Tensor:
 
 
 def _local_epochs(c, x, labels, weights, offsets, mask, norm, perms,
-                  l2_local, step_clip: float, *, loss):
+                  l2_local, step_clip: float, *, loss, reduce=None):
     """`perms.shape[0]` epochs of stochastic coordinate descent on ONE
     resident chunk; `perms` [epochs, d] holds each epoch's coordinate order
     on the device.
@@ -67,7 +67,15 @@ def _local_epochs(c, x, labels, weights, offsets, mask, norm, perms,
     factors f / shifts s the margin is z = x.(c*f) - (c*f).s + offset, so
     coordinate j's column is f_j * (x_j - s_j) (never materialized for the
     chunk).  Returns (updated c, the chunk's ENTRY data loss); `c` is not
-    written."""
+    written.
+
+    On a mesh `x` is the rank's row block of the chunk and `reduce` sums
+    over the data axis, where GSPMD puts its psums in the JAX program: the
+    entry loss and the column sums (xsq, xs, msum) in one all_reduce per
+    chunk, then each coordinate step's gradient (with the Poisson
+    curvature: 2 elements) in one all_reduce, so d * epochs + 1
+    collectives per chunk.  The L2 terms enter after the sums.  None is
+    the one-device path."""
     dtype = c.dtype
     d = c.shape[0]
     mw = mask if weights is None else mask * weights
@@ -88,6 +96,14 @@ def _local_epochs(c, x, labels, weights, offsets, mask, norm, perms,
         xsq = _column_sq_sums(x, mw)
         xs = torch.mv(x.T, mw)
         msum = torch.sum(mw)
+        if reduce is not None:
+            sums = reduce(torch.cat([entry.reshape(1), xsq, xs,
+                                     msum.reshape(1)]))
+            entry, msum = sums[0], sums[-1]
+            xsq, xs = sums[1:d + 1], sums[d + 1:2 * d + 1]
+    elif reduce is not None:
+        entry = reduce(entry.reshape(1))[0]
+    if bound is not None:
         colsq = fv * fv * (xsq - 2.0 * sv * xs + sv * sv * msum)
         h = bound * colsq + l2_local
     floor = torch.tensor(_H_FLOOR, dtype=dtype, device=c.device)
@@ -106,12 +122,18 @@ def _local_epochs(c, x, labels, weights, offsets, mask, norm, perms,
             if has_f:
                 colj = colj * f_perm[ei, t]
             dl = mw * loss.dz(z, labels)
-            gj = torch.dot(colj, dl) + l2_local * c.index_select(0, j)
+            gd = torch.dot(colj, dl).reshape(1)
             if bound is not None:
-                delta = gj / neg_h_perm[ei, t]
+                if reduce is not None:
+                    gd = reduce(gd)
+                delta = (gd + l2_local * c.index_select(0, j)) / neg_h_perm[ei, t]
             else:
-                hj = torch.dot(mw * loss.d2z(z, labels), colj * colj) + l2_local
-                delta = -gj / torch.maximum(hj, floor)
+                hd = torch.dot(mw * loss.d2z(z, labels), colj * colj).reshape(1)
+                if reduce is not None:
+                    gh = reduce(torch.cat([gd, hd]))
+                    gd, hd = gh[:1], gh[1:]
+                gj = gd + l2_local * c.index_select(0, j)
+                delta = -gj / torch.maximum(hd + l2_local, floor)
             if step_clip != float("inf"):
                 delta = torch.clamp(delta, -step_clip, step_clip)
             c.index_add_(0, j, delta)

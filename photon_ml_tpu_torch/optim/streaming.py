@@ -16,6 +16,12 @@ them on the streamed oracle:
     branches on.
 
 As in the JAX mirrors, an `iteration_cap` below 1 runs one iteration.
+
+On a mesh (ops/chunked.py with `mesh=`) every oracle value is already
+summed over the data axis when the solver sees it, and the solvers read
+nothing else of the data: the line-search branches, the convergence tests
+and the caps are taken on equal values on every rank, so every rank steps
+to the same iterate.
 """
 from __future__ import annotations
 

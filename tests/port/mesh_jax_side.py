@@ -3,13 +3,16 @@
 a subprocess of its own, one per test module, with JAX on the CPU in
 float64 over 8 virtual devices:
 
-    python tests/port/mesh_jax_side.py mesh DxF|sparse DxF|multihost|admm ROOT
+    python tests/port/mesh_jax_side.py mesh DxF|sparse DxF|mstream|multihost|admm ROOT
 
 `mesh DxF` fits the GLMix problem below through the JAX package's
 GameEstimator on that mesh, then the fixed effect with a factored random
 effect (one process per mesh shape, so their compiles run side by side);
 `sparse DxF` fits the sparse fixed effect on that mesh (the JAX package
-drops the column view there, the port keeps one per shard); `admm` runs
+drops the column view there, the port keeps one per shard); `mstream`
+runs streaming over a mesh (the mesh-streamed GLMix fit on
+MSTREAM_SHAPES, the stochastic lane on 8 x 1), a process
+of the `mesh` mode beside the others; `admm` runs
 the consensus ADMM
 for a fixed number of iterations on each case and mesh; `multihost` runs
 the JAX package's cli.train as a two-process pair (jax.distributed, gloo)
@@ -58,6 +61,19 @@ ADMM_CASES = {"logistic_l2": ("logistic", "l2", 0.3),
 # _mh_write_inputs at MH_N x MH_D) for MH_OUTER outer iterations
 MH_N, MH_D, MH_OUTER, MH_SHORT = 256, 6, 5, 2
 
+# streaming over a mesh: tests/test_mesh_residency.py's mesh-streamed GLMix
+# fit (its _glmix at n 2,400, d_global 96, 80 users x 4, LBFGS 6, two outer
+# iterations, its budget rule) on MSTREAM_SHAPES; and
+# tests/test_stochastic.py's stochastic lane on a data mesh (n 4,096, d 10,
+# chunks of 1,024 rows, row multiple 8, 2 passes of 3 local epochs), which
+# the JAX side runs on 8 x 1, the port on STOCH_MESHES
+MSTREAM_SHAPES = ((2, 1), (2, 2))
+MSTREAM_N, MSTREAM_DG, MSTREAM_USERS, MSTREAM_DU, MSTREAM_ITERS = 2400, 96, 80, 4, 6
+STOCH_N, STOCH_D, STOCH_CHUNK, STOCH_MULTIPLE = 4096, 10, 1024, 8
+STOCH_PASSES, STOCH_EPOCHS = 2, 3
+STOCH_MESHES = ((2, 1), (4, 1))
+STOCH_MERGES = ("sequential", "average")
+
 
 def glmix_config_dict(factored: bool = False) -> dict:
     """Config 4's coordinates at GLMIX_ITERATIONS iterations; `factored`
@@ -95,6 +111,58 @@ def sparse_config_dict() -> dict:
     for c in d["coordinates"].values():
         c["optimization"]["optimizer"]["max_iterations"] = GLMIX_ITERATIONS
     return d
+
+
+def mstream_data(build_game_dataset):
+    """tests/test_mesh_residency.py's _glmix(default_rng(7), n=2400,
+    d_global=96, num_users=80, d_user=4): (train, validation), 90/10."""
+    rng = np.random.default_rng(7)
+    n = MSTREAM_N
+    xg = rng.normal(size=(n, MSTREAM_DG)); xg[:, -1] = 1.0
+    xu = rng.normal(size=(n, MSTREAM_DU)); xu[:, -1] = 1.0
+    users = np.arange(n) % MSTREAM_USERS
+    z = xg @ rng.normal(size=MSTREAM_DG) + np.einsum(
+        "nd,nd->n", xu, rng.normal(size=(MSTREAM_USERS, MSTREAM_DU))[users])
+    y = (rng.uniform(size=n) < 1 / (1 + np.exp(-z))).astype(float)
+    ds = build_game_dataset(y, {"global": xg, "per_user": xu},
+                            entity_ids={"userId": np.asarray(
+                                [f"u{u:03d}" for u in users])})
+    rows = np.arange(n)
+    cut = int(n * 0.9)
+    return ds.subset(rows[:cut]), ds.subset(rows[cut:])
+
+
+def mstream_config_dict(budget=None) -> dict:
+    """tests/test_mesh_residency.py's _config(iters=6, budget=budget)."""
+    opt = {"optimizer": {"optimizer": "lbfgs", "max_iterations": MSTREAM_ITERS},
+           "regularization": {"type": "l2"}, "regularization_weight": 1.0}
+    return {"task_type": "logistic_regression",
+            "coordinates": {
+                "fixed": {"kind": "fixed_effect", "feature_shard": "global",
+                          "optimization": opt},
+                "perUser": {"kind": "random_effect", "random_effect_type": "userId",
+                            "feature_shard": "per_user", "projector": "identity",
+                            "optimization": opt}},
+            "updating_sequence": ["fixed", "perUser"],
+            "num_outer_iterations": 2, "hbm_budget_bytes": budget}
+
+
+def mstream_budget(acct: dict, data_devices: int) -> int:
+    """The per-device budget of tests/test_mesh_residency.py (bench.py's
+    _mesh_stream_leg rule) from a resident fit's accounting: 2.2 x (flat
+    vectors + the random effects' blocks / D)."""
+    re_b = sum(b for c, b in acct["resident_block_bytes"].items() if c != "fixed")
+    return int((acct["flat_vector_bytes"] + -(-re_b // data_devices)) * 2.2)
+
+
+def stoch_problem():
+    """tests/test_stochastic.py's _problem(default_rng(7), n=4096, d=10)."""
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=(STOCH_N, STOCH_D))
+    x[:, -1] = 1.0
+    w = rng.normal(size=STOCH_D) * 0.5
+    y = (rng.uniform(size=STOCH_N) < 1 / (1 + np.exp(-(x @ w)))).astype(float)
+    return x, y
 
 
 def admm_problem(loss: str, seed: int = 7):
@@ -181,6 +249,49 @@ def _run_sparse(out: dict, shape) -> None:
     mesh = make_mesh(*shape, devices=jax.devices()[:shape[0] * shape[1]])
     res = GameEstimator(cfg, mesh=mesh).fit(train, val, ["AUC"])
     out[("sparse", shape)] = _fit_record(res)
+
+
+def _run_mstream(out: dict) -> None:
+    """The mesh-streamed GLMix fit on MSTREAM_SHAPES (each with its own
+    budget from the resident fit) and the stochastic lane on 8 x 1, both
+    merges.  A shape the JAX package refuses records its error."""
+    import dataclasses
+    import jax
+    import jax.numpy as jnp
+    from photon_ml_tpu.data import build_game_dataset
+    from photon_ml_tpu.data.streaming import ChunkPlan
+    from photon_ml_tpu.game import GameEstimator, GameTrainingConfig
+    from photon_ml_tpu.ops.chunked import ChunkedGLMObjective
+    from photon_ml_tpu.ops.losses import LOGISTIC
+    from photon_ml_tpu.optim import StochasticPlan, solve_stochastic
+    from photon_ml_tpu.parallel import make_mesh
+    train, val = mstream_data(build_game_dataset)
+    cfg = GameTrainingConfig.from_dict(mstream_config_dict())
+    resident = GameEstimator(cfg).fit(train, val)
+    out[("mstream", None)] = dict(_fit_record(resident),
+                                  residency=resident.residency)
+    for shape in MSTREAM_SHAPES:
+        budget = mstream_budget(resident.residency, shape[0])
+        mesh = make_mesh(*shape, devices=jax.devices()[:shape[0] * shape[1]])
+        try:
+            res = GameEstimator(dataclasses.replace(cfg, hbm_budget_bytes=budget),
+                                mesh=mesh).fit(train, val)
+        except Exception as e:  # noqa: BLE001 -- recorded for the test
+            out[("mstream", shape)] = {"error": f"{type(e).__name__}: {e}"}
+            continue
+        out[("mstream", shape)] = dict(_fit_record(res), budget=budget,
+                                       residency=res.residency)
+    x, y = stoch_problem()
+    plan = lambda: ChunkPlan.build(STOCH_N, chunk_rows=STOCH_CHUNK,
+                                   row_multiple=STOCH_MULTIPLE)
+    for merge in STOCH_MERGES:
+        splan = StochasticPlan(passes=STOCH_PASSES, local_epochs=STOCH_EPOCHS,
+                               merge=merge)
+        res = solve_stochastic(
+            ChunkedGLMObjective(LOGISTIC, x, y, plan(), l2_weight=1.0,
+                                mesh=make_mesh(8, 1)), jnp.zeros(STOCH_D), splan)
+        out[("stoch", merge, (8, 1))] = {"loss_history": np.asarray(res.loss_history),
+                                         "x": np.asarray(res.x)}
 
 
 def _run_admm(out: dict) -> None:
@@ -272,7 +383,7 @@ def _parts(mode: str) -> list:
     for the sparse fixed effect."""
     if mode == "mesh":
         return ([["mesh", f"{d}x{f}"] for d, f in MESH_SHAPES]
-                + [["sparse", "x".join(map(str, SPARSE_SHAPE))]])
+                + [["sparse", "x".join(map(str, SPARSE_SHAPE))], ["mstream"]])
     return [[mode]]
 
 
@@ -314,6 +425,8 @@ def main(argv) -> int:
     elif mode in ("mesh", "sparse"):
         d, f = part[1].split("x")
         (_run_mesh if mode == "mesh" else _run_sparse)(out, (int(d), int(f)))
+    elif mode == "mstream":
+        _run_mstream(out)
     else:
         _run_admm(out)
     with open(root / f"{'-'.join(part)}.pkl", "wb") as f:

@@ -1,14 +1,17 @@
 """The port side of the mesh and ADMM parity tests (test_torch_mesh.py,
-test_torch_admm.py): one rank of a gloo group on the CPU, float64.
+test_torch_mesh_streaming.py, test_torch_admm.py): one rank of a gloo
+group on the CPU, float64.
 
-    python tests/port/mesh_port_side.py mesh|admm ROOT RANK WORLD PORT
+    python tests/port/mesh_port_side.py mesh|mstream|admm ROOT RANK WORLD PORT
 
 The test module starts WORLD of these at once (`start_ranks`); every rank
 joins the group at 127.0.0.1:PORT, runs every scenario of its mode on the
 meshes of mesh_jax_side.py (a mesh narrower than the world is made over
 its first ranks, the others skip it) and writes its results to
 ROOT/port_<mode>_<RANK>.pkl, so the test can hold the ranks equal to each
-other as well as to the JAX package.
+other as well as to the JAX package.  `mesh` runs the streaming-over-a-mesh
+scenarios (`mstream`) last; `mesh_results` runs the mode once per test
+process for the two modules that read it.
 """
 from __future__ import annotations
 
@@ -35,7 +38,7 @@ def _record(res) -> dict:
         else:
             coords[name] = m.coefficients.numpy()
     trackers = {k: {"staged": t.staged_bytes, "fg_count": t.fg_count,
-                    "iterations": t.iterations}
+                    "iterations": t.iterations, "stream": t.stream}
                 for k, t in res.descent.trackers.items()}
     return {"history": list(res.objective_history),
             "validation": dict(res.descent.validation_history),
@@ -104,6 +107,91 @@ def _run_mesh(out: dict, rank: int) -> None:
     # mesh 1 x 1 against no mesh, on rank 0 alone
     cfg = GameTrainingConfig.from_dict(mj.glmix_config_dict())
     out[("glmix", (1, 1))] = fit(cfg, (1, 1), train, val)
+    _run_mstream(out, rank)
+
+
+def _stream_bytes_per_pass(plan, train, mesh) -> int:
+    """Bytes one value+gradient pass stages on this rank over `plan`
+    (the fixed effect's leaves), with `mesh` or alone."""
+    import torch
+    from photon_ml_tpu_torch.ops.chunked import ChunkedGLMObjective
+    from photon_ml_tpu_torch.ops.losses import LOGISTIC
+    obj = ChunkedGLMObjective(LOGISTIC, train.feature_shards["global"],
+                              train.response, plan, mesh=mesh, device="cpu",
+                              dtype=torch.float64)
+    obj.value_and_gradient(torch.zeros(obj.dim, dtype=torch.float64))
+    return obj.stats.total_bytes
+
+
+def _run_mstream(out: dict, rank: int) -> None:
+    """Streaming over a mesh: the mesh-streamed GLMix fit on
+    mj.MSTREAM_SHAPES (and 1 x 1 against the streamed fit without a mesh,
+    on rank 0), and the stochastic lane on mj.STOCH_MESHES, both merges."""
+    import dataclasses
+    import torch
+    from photon_ml_tpu_torch.data.game_data import build_game_dataset
+    from photon_ml_tpu_torch.data.streaming import ChunkPlan
+    from photon_ml_tpu_torch.game import GameEstimator, GameTrainingConfig
+    from photon_ml_tpu_torch.ops.chunked import ChunkedGLMObjective
+    from photon_ml_tpu_torch.ops.losses import LOGISTIC
+    from photon_ml_tpu_torch.optim.schedule import StochasticPlan
+    from photon_ml_tpu_torch.optim.stochastic import solve_stochastic
+    from photon_ml_tpu_torch.parallel import make_mesh
+    f64 = torch.float64
+    mesh_of = lambda shape: make_mesh(*shape, device="cpu",
+                                      ranks=list(range(shape[0] * shape[1])))
+    train, val = mj.mstream_data(build_game_dataset)
+    cfg = GameTrainingConfig.from_dict(mj.mstream_config_dict())
+    # every rank needs the budgets: each fits the resident reference
+    resident = GameEstimator(cfg, device="cpu", dtype=f64).fit(train, val)
+    if rank == 0:
+        out[("mstream", None)] = dict(_record(resident),
+                                      residency=resident.residency)
+    streamed = lambda budget: dataclasses.replace(cfg, hbm_budget_bytes=budget)
+    for shape in mj.MSTREAM_SHAPES + ((1, 1),):
+        mesh = mesh_of(shape)
+        if mesh is None:
+            out[("mstream", shape)] = None
+            continue
+        D = shape[0]
+        budget = mj.mstream_budget(resident.residency, D)
+        calls0 = mesh.stats.snapshot()
+        res = GameEstimator(streamed(budget), dtype=f64, mesh=mesh).fit(train, val)
+        rec = dict(_record(res), budget=budget, residency=res.residency,
+                   collectives=mesh.stats.delta(calls0, mesh.stats.snapshot()))
+        # the fixed effect's plan (game/coordinates.py's rule): one pass on
+        # this rank's blocks against one pass of a single rank over it
+        plan = ChunkPlan.build(train.num_rows, hbm_budget_bytes=(budget // 2) * D,
+                               bytes_per_row=(mj.MSTREAM_DG + 4) * 8,
+                               row_multiple=D)
+        rec["pass_bytes"] = (_stream_bytes_per_pass(plan, train, mesh),
+                             _stream_bytes_per_pass(plan, train, None))
+        rec["plan"] = (plan.num_chunks, plan.chunk_rows)
+        out[("mstream", shape)] = rec
+    if rank == 0:
+        # the streamed fit without a mesh, at the 1 x 1 mesh's budget
+        budget = mj.mstream_budget(resident.residency, 1)
+        out[("mstream", "none")] = _record(GameEstimator(
+            streamed(budget), device="cpu", dtype=f64).fit(train, val))
+    x, y = mj.stoch_problem()
+    plan = ChunkPlan.build(mj.STOCH_N, chunk_rows=mj.STOCH_CHUNK,
+                           row_multiple=mj.STOCH_MULTIPLE)
+    for merge in mj.STOCH_MERGES:
+        splan = StochasticPlan(passes=mj.STOCH_PASSES,
+                               local_epochs=mj.STOCH_EPOCHS, merge=merge)
+        for shape in mj.STOCH_MESHES:
+            mesh = mesh_of(shape)
+            if mesh is None:
+                out[("stoch", merge, shape)] = None
+                continue
+            obj = ChunkedGLMObjective(LOGISTIC, x, y, plan, l2_weight=1.0,
+                                      mesh=mesh, device="cpu", dtype=f64)
+            calls0 = mesh.stats.snapshot()
+            res = solve_stochastic(obj, torch.zeros(mj.STOCH_D, dtype=f64), splan)
+            out[("stoch", merge, shape)] = {
+                "loss_history": res.loss_history.numpy(), "x": res.x.numpy(),
+                "chunks": plan.num_chunks,
+                "collectives": mesh.stats.delta(calls0, mesh.stats.snapshot())}
 
 
 def _run_admm(out: dict, rank: int) -> None:
@@ -174,6 +262,22 @@ def start_ranks(mode: str, root: Path, world: int = WORLD) -> list:
         for r in range(world)]
 
 
+_MESH_RESULTS: dict = {}
+
+
+def mesh_results(tmp_path_factory) -> tuple:
+    """(the JAX side's results, each port rank's) of the `mesh` mode: the
+    JAX processes and the four ranks start together, once per test
+    process, shared by test_torch_mesh.py and
+    test_torch_mesh_streaming.py."""
+    if not _MESH_RESULTS:
+        root = tmp_path_factory.mktemp("mesh")
+        jax_procs = mj.run_jax_side("mesh", root)
+        port = read_ranks(start_ranks("mesh", root), "mesh", root)
+        _MESH_RESULTS["results"] = (mj.read_results(jax_procs, "mesh", root), port)
+    return _MESH_RESULTS["results"]
+
+
 def read_ranks(procs: list, mode: str, root: Path) -> list:
     errs = [p.communicate(timeout=600)[1] for p in procs]
     bad = [(r, p.returncode, e[-3000:]) for r, (p, e) in enumerate(zip(procs, errs))
@@ -198,7 +302,8 @@ def main(argv) -> int:
                          timeout_s=120)
     out: dict = {}
     try:
-        {"mesh": _run_mesh, "admm": _run_admm}[mode](out, rank)
+        {"mesh": _run_mesh, "mstream": _run_mstream,
+         "admm": _run_admm}[mode](out, rank)
     finally:
         multihost.shutdown()
     with open(root / f"port_{mode}_{rank}.pkl", "wb") as f:

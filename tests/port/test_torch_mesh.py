@@ -3,7 +3,9 @@ mesh_residency.py, fixed_effect.py, random_effect.py, factored.py and the
 estimator's `mesh=`) with the JAX package's mesh fits.
 
 The JAX side (mesh_jax_side.py mesh) and the port side (four gloo ranks
-of mesh_port_side.py mesh) each run once per module, at the same time, in
+of mesh_port_side.py mesh) each run once per test process, at the same
+time (mesh_port_side.mesh_results, shared with
+test_torch_mesh_streaming.py, whose scenarios they also run), in
 float64 on the CPU: GLMix (config 4's shape, cut) and a fixed effect with
 a factored random effect on meshes 4x1, 2x2 and 1x4 (the fixed effect
 takes the consensus-ADMM lane when the feature axis is wider than 1, in
@@ -32,11 +34,7 @@ ids = lambda case: f"{case[0]}-{case[1][0]}x{case[1][1]}"
 
 @pytest.fixture(scope="module")
 def results(tmp_path_factory):
-    root = tmp_path_factory.mktemp("mesh")
-    jax_proc = mj.run_jax_side("mesh", root)
-    ranks = mp.start_ranks("mesh", root)
-    port = mp.read_ranks(ranks, "mesh", root)
-    return mj.read_results(jax_proc, "mesh", root), port
+    return mp.mesh_results(tmp_path_factory)
 
 
 def _flat(coefficients: dict) -> dict:

@@ -14,7 +14,9 @@ gloo` ranks against `cli.train --mesh 2x1` (which starts its two ranks
 itself), bit for bit; a pair whose rank 1 is SIGKILLed mid-run, whose
 rank 0 must exit 75 with its JSON line, and relaunches that resume process
 0's checkpoint and end as the same run uninterrupted ends (one rank within
-1e-10; `--mesh 2x1`, the pair's mesh, bit for bit); and the two packages'
+1e-10; `--mesh 2x1`, the pair's mesh, bit for bit); `cli.train --mesh
+2x1 --hbm-budget` streaming each rank's rows against the streamed fit in
+this process and the pair, within 1e-10; and the two packages'
 checkpoints across
 each other: the JAX package's two-process pair (mesh_jax_side.py
 multihost) resumed by one port rank, the port pair's resumed by one JAX
@@ -22,6 +24,7 @@ process.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import shutil
@@ -45,6 +48,9 @@ ROOT = Path(__file__).resolve().parents[2]
 HEARTBEAT = {"PHOTON_HEARTBEAT_INTERVAL": "0.2", "PHOTON_HEARTBEAT_TIMEOUT": "2",
              "PHOTON_HEARTBEAT_ESCALATE": "5"}
 MH_KILL = 150     # outer iterations of the pair whose rank 1 is killed
+# a per-device budget that streams the fixed effect on 2 x 1 (its resident
+# block per device, 256 x 6 x 8 / 2 bytes, busts half of it)
+MH_STREAM_BUDGET = 10_000
 
 
 # -- in process ---------------------------------------------------------------
@@ -197,6 +203,29 @@ def test_mesh_shapes_and_blocks():
     assert m.assemble(torch.ones(4), 10).tolist() == [0.0] * 8 + [1.0] * 2
 
 
+def test_coordinate_residency_keys_are_never_reused():
+    """A coordinate's staged mesh blocks outlive it in the residency
+    registry, keyed by its residency key: a later coordinate must never
+    take that key (an id() is reused once its object is freed, on some
+    ranks and not on others; those ranks would find the earlier blocks,
+    the ADMM lane's Gram eigendecomposition among them, and skip the
+    collectives the other ranks make)."""
+    from photon_ml_tpu_torch.game.config import (
+        FixedEffectCoordinateConfig, RandomEffectCoordinateConfig)
+    from photon_ml_tpu_torch.game.coordinates import (
+        FixedEffectCoordinate, RandomEffectCoordinate)
+    rng = np.random.default_rng(0)
+    ds = build_game_dataset(rng.uniform(size=64).round(), {"g": rng.normal(size=(64, 3))},
+                            entity_ids={"u": np.arange(64) % 4})
+    seen = set()
+    for _ in range(8):
+        for kind, cfg in ((FixedEffectCoordinate, FixedEffectCoordinateConfig("g")),
+                          (RandomEffectCoordinate, RandomEffectCoordinateConfig("u", "g"))):
+            key = kind("c", ds, cfg, "logistic_regression", device="cpu")._mesh_key()
+            assert key not in seen
+            seen.add(key)
+
+
 def test_pad_and_shard_rows_stages_the_design_once():
     from photon_ml_tpu_torch.parallel.mesh import concat_rows_safe, pad_and_shard_rows
     from photon_ml_tpu_torch.parallel.mesh_residency import MeshResidency
@@ -307,6 +336,8 @@ def runs(tmp_path_factory):
     short_pair = _pair(root, short, root / "port_pair")
     pair = _pair(root, config, root / "pair")
     spawn = [_train(root, config, root / "spawn", "--mesh", "2x1", "--dist-backend", "gloo")]
+    stream = [_train(root, config, root / "stream", "--mesh", "2x1", "--dist-backend", "gloo",
+                     "--hbm-budget", str(MH_STREAM_BUDGET))]
     kill = _pair(root, kill_cfg, root / "kill")
     fresh = [_train(root, config, root / "fresh")]
     # the killed run uninterrupted, on the pair's mesh
@@ -329,6 +360,7 @@ def runs(tmp_path_factory):
                 _train(root, kill_cfg, root / "kill_copy", "--mesh", "2x1",
                        "--dist-backend", "gloo")]
     r["pair_codes"], r["spawn_codes"] = _wait(pair), _wait(spawn)
+    r["stream_codes"] = _wait(stream)
     r["fresh_codes"], r["relaunch_codes"] = _wait(fresh), _wait(relaunch)
     r["kill_ref_codes"] = _wait(kill_ref)
     r["jax"] = mj.read_results(jax_procs, "multihost", root)
@@ -359,6 +391,41 @@ def test_each_rank_stages_its_own_rows(runs):
     # per outer iteration: offsets of the rank's rows and the coefficients
     warm_bound = 8 * (mj.MH_N // 2 + mj.MH_D) * 8
     assert all(t["warm_bytes"] / mj.MH_OUTER <= warm_bound for t in s)
+
+
+def test_mesh_streamed_cli_matches_the_streamed_fit(runs):
+    """`--mesh 2x1 --hbm-budget` streams each rank's row block of the fixed
+    effect (the chunk plan built with row multiple 2): the same fit as the
+    streamed fit in this process (one rank, no mesh) and as the resident
+    pair, within 1e-10; process 0 writes the model, and its summary's
+    stream counters are its own rows'."""
+    from photon_ml_tpu_torch.data.game_data import load_game_dataset
+    from photon_ml_tpu_torch.game import GameEstimator, GameTrainingConfig
+    root = runs["root"]
+    assert runs["stream_codes"] == [0]
+    line = _last_json(root / "stream" / "stdout.txt")
+    rank1 = _last_json(root / "stream" / "training.proc1.out")
+    config = GameTrainingConfig.from_json((root / f"game-{mj.MH_OUTER}.json").read_text())
+    config = dataclasses.replace(config, hbm_budget_bytes=MH_STREAM_BUDGET)
+    here = GameEstimator(config, device="cpu", dtype=torch.float64).fit(
+        load_game_dataset(str(root / "data.npz")))
+    np.testing.assert_allclose(line["objective_history"], here.objective_history,
+                               rtol=1e-10, atol=0)
+    np.testing.assert_allclose(line["objective_history"],
+                               _state(root / "pair")["objective_history"], rtol=1e-10, atol=0)
+    assert rank1["objective_history"] == line["objective_history"]
+    assert (root / "stream" / "best").is_dir()
+    assert line["mesh"] == {"data": 2, "feature": 1}
+    for summary in (line, rank1):
+        acct = summary["hbm_residency"]
+        assert acct["per_device"] is True and acct["data_devices"] == 2
+        assert acct["streamed_chunk_bytes"] == {"fixed": 2 * 256 * (mj.MH_D + 4) * 8 // 2}
+        assert summary["kernel_launches"]["fused"] == 0   # the CPU runs the plain version
+    # each process staged its own 128 of every chunk's 256 rows
+    stream = line["hbm_residency"]["stream"]["fixed"]
+    assert stream["examples_processed"] == 128 * stream["passes"]
+    assert here.residency["stream"]["fixed"]["examples_processed"] == (
+        256 * here.residency["stream"]["fixed"]["passes"])
 
 
 def test_pair_matches_one_rank(runs):
