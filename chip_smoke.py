@@ -7353,6 +7353,187 @@ def lanes_kernel_entry(timings: dict, launches: int, bootstrap_launches: int) ->
     }
 
 
+# --- the linter: its CLI over the port, and lock orders on the card ---------
+LINT_ARMED_S = 3.0           # seconds of scoring, feedback and replication
+LINT_ROWS = 32               # rows per scored request and feedback batch
+LINT_FEEDBACK = 8            # feedback batches over LINT_ARMED_S
+LINT_MICRO_BATCH = 64        # the updater's rows a cycle (a cycle ~0.1 s on the card)
+
+
+def lint_child_start():
+    """`python -m photon_ml_tpu_torch.analysis.lint --json photon_ml_tpu_torch/`
+    as a child, started beside the armed run; a thread collects its output
+    and the moment it exits -> (process, waiter thread, its record)."""
+    import threading
+    cmd = [sys.executable, "-m", "photon_ml_tpu_torch.analysis.lint", "--json",
+           "photon_ml_tpu_torch/"]
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    rec = {"t0": time.perf_counter()}
+
+    def wait():
+        rec["out"], rec["err"] = proc.communicate()
+        rec["wall"] = time.perf_counter() - rec["t0"]
+
+    waiter = threading.Thread(target=wait, daemon=True)
+    waiter.start()
+    return proc, waiter, rec
+
+
+def lint_child_finish(started) -> dict:
+    """The linter child's exit code (it must be 0: no finding beyond the
+    baseline), the per-rule counts of what it reports (new and baselined),
+    the baseline's size and the child's wall."""
+    proc, waiter, rec = started
+    waiter.join(timeout=120)
+    if waiter.is_alive():
+        proc.kill()
+        waiter.join()
+        raise SystemExit("lint: the port's linter did not finish in 120 s")
+    out, err, wall = rec["out"], rec["err"], rec["wall"]
+    if proc.returncode != 0:
+        raise SystemExit(f"lint: the port's linter exited {proc.returncode}:\n"
+                         f"{out[-3000:]}{err[-2000:]}")
+    data = json.loads(out)
+    by_rule = {}
+    for f in data["findings"]:
+        by_rule[f["rule"]] = by_rule.get(f["rule"], 0) + 1
+    return {"exit_code": proc.returncode, "child_s": wall, "findings_by_rule": by_rule,
+            "counts": data["counts"], "baseline_total": data["baseline"]["total"]}
+
+
+def lint_armed_part(device="cuda") -> dict:
+    """A few seconds of config 4's saved model served with online updates
+    (the updater thread on), a FleetPublisher, a Replica applying in the
+    background and a scoring thread on each service, with the lock tracker
+    armed; every observed acquisition order must be an edge of the port's
+    static lock-order graph."""
+    import threading
+    import torch
+    from photon_ml_tpu_torch.analysis.concurrency import lock_order_edges
+    from photon_ml_tpu_torch.fleet import (FleetPublisher, Replica, ReplicaConfig,
+                                           ReplicationLog)
+    from photon_ml_tpu_torch.online import OnlineUpdateConfig
+    from photon_ml_tpu_torch.serving import ScoringService, ServingConfig
+    from photon_ml_tpu_torch.utils import locktrace
+    d = cli_dir("lint")
+    model_dir = str(serve_model_dirs()["npz"])
+    feats, ids, labels = _config4_requests("cpu")
+    rng = np.random.default_rng(41)
+
+    def rows():
+        sl = rng.choice(len(labels), size=LINT_ROWS, replace=False)
+        return ({k: v[sl] for k, v in feats.items()}, {k: v[sl] for k, v in ids.items()},
+                labels[sl])
+
+    seconds = {}
+    t0 = time.perf_counter()
+    static = lock_order_edges([str(ROOT / "photon_ml_tpu_torch")])
+    seconds["static_graph"] = time.perf_counter() - t0
+    counts = {"scores": 0, "feedback_batches": 0}
+    errors = []
+
+    def mark(name, t):
+        seconds[name] = time.perf_counter() - t
+        return time.perf_counter()
+
+    with locktrace.enabled() as tracker:
+        t = time.perf_counter()
+        svc = ScoringService(model_dir=model_dir, config=ServingConfig(device=device),
+                             updates=OnlineUpdateConfig(micro_batch=LINT_MICRO_BATCH,
+                                                        interval_s=0.02))
+        log = ReplicationLog(str(d / "log"))
+        FleetPublisher(svc, log, model_dir=model_dir)
+        rep = Replica(ScoringService(model_dir=model_dir, config=ServingConfig(device=device),
+                                     start_updater=False),
+                      log, str(d / "state"), ReplicaConfig(poll_interval_s=0.02))
+        stop = threading.Event()
+
+        def score_loop(service):
+            while not stop.is_set():
+                f, i, _y = rows()
+                try:
+                    service.score(f, i)
+                    counts["scores"] += 1
+                except Exception as e:  # a failure fails the phase below
+                    errors.append(f"{type(e).__name__}: {e}")
+                    return
+
+        threads = [threading.Thread(target=score_loop, args=(s,), daemon=True)
+                   for s in (svc, rep.service)]
+        try:
+            t = mark("services", t)
+            rep.join()
+            rep.start()
+            for th in threads:
+                th.start()
+            t = mark("join", t)
+            for _ in range(LINT_FEEDBACK):
+                f, i, y = rows()
+                svc.feedback(f, i, y)
+                counts["feedback_batches"] += 1
+                time.sleep(LINT_ARMED_S / LINT_FEEDBACK)
+            t = mark("feedback", t)
+            svc.updater.flush()
+            t = mark("flush", t)
+            head = log.head_seq()
+            deadline = time.perf_counter() + 60
+            while rep.status()["applied_seq"] < head and time.perf_counter() < deadline:
+                time.sleep(0.02)
+            applied = rep.status()["applied_seq"]
+            t = mark("catch_up", t)
+            rep.drain()
+            stop.set()
+            for th in threads:
+                th.join(timeout=30)
+            if device == "cuda":
+                torch.cuda.synchronize()
+        finally:
+            stop.set()
+            rep.close()
+            rep.service.close()
+            svc.close()
+        mark("close", t)
+    if errors:
+        raise SystemExit(f"lint: scoring failed under the armed tracker: {errors[:3]}")
+    if applied < head or head < 1:
+        raise SystemExit(f"lint: the replica applied {applied} of {head} log records")
+    problems = tracker.validate_against(static)
+    acq = tracker.acquisitions()
+    missing = [n for n in ("Replica._lock", "ReplicationLog._lock", "FleetPublisher._lock",
+                           "ModelRegistry._lock", "OnlineUpdater._state_lock")
+               if not acq.get(n)]
+    out = {"static_edges": len(static), "seconds": seconds,
+           "observed_edges": sorted(f"{a} -> {b}" for a, b in tracker.edges()),
+           "acquisitions": acq, "locks_wrapped": tracker.wrapped, "log_head": head,
+           "replica_applied": applied, **counts, "problems": problems,
+           "locks_not_taken": missing}
+    if problems:
+        raise SystemExit("lint: runtime lock orders disagree with the static graph:\n  "
+                         + "\n  ".join(problems))
+    if missing:
+        raise SystemExit(f"lint: the armed run never took {missing}")
+    return out
+
+
+def lint_phase(kind, smi, device="cuda") -> dict:
+    """The port's linter over the port (a child that must exit 0) and, beside
+    it, the armed run's lock orders held to its static graph."""
+    t0 = time.perf_counter()
+    started = lint_child_start()
+    try:
+        armed = lint_armed_part(device)
+    except BaseException:
+        started[0].kill()
+        started[0].wait()
+        raise
+    child = lint_child_finish(started)
+    out = {"phase": "lint", "seconds": time.perf_counter() - t0, "lint": child,
+           "armed": armed, "device": kind, "nvidia_smi": smi}
+    emit(out)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7714,6 +7895,8 @@ def main() -> int:
     t0 = time.perf_counter()
     mesh = mesh_phase(g_result.objective_history, glmix_ref, g_result.residency, kind, smi)
     emit({"phase": "mesh_done", "seconds": time.perf_counter() - t0})
+    # --- the linter over the port, and the armed run's lock orders ---------
+    lint_phase(kind, smi)
     stream_launches = {"stream_glm_strict": stream_glm["strict"],
                        "stream_glm_polish": stream_glm["polish"]}
     for name, e in stream.items():

@@ -17,13 +17,12 @@ the dtype of the labels: float32 on the card, float64 for CPU parity.
 """
 from __future__ import annotations
 
-import torch
-
 __version__ = "0.1.0"
 
 
-def resolve_device(device=None) -> torch.device:
+def resolve_device(device=None) -> "torch.device":
     """`None` -> cuda.  Raises when a CUDA device is asked for and absent."""
+    import torch     # not at import: the linter (analysis/) runs without torch
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

@@ -649,7 +649,7 @@ def _make_http_server(service, host: str, port: int, replica=None,
                     # the front's fleet-wide postmortem fan-out (or an
                     # operator asking for the window by hand)
                     bundle = flight.trigger(
-                        req.get("reason") or "replica.unhealthy",
+                        req.get("reason") or "replica.unhealthy",  # photonlint: disable=PH008 -- forwards the broadcaster's already-validated reason (trigger() re-validates at runtime)
                         trigger_id=req.get("trigger_id"),
                         **{k: str(v)
                            for k, v in (req.get("attrs") or {}).items()})
@@ -806,7 +806,7 @@ def _make_front_server(front, host: str, port: int):
                     self._reply(status, payload, headers)
                 elif self.path == "/flight/dump":
                     bundle = flight.trigger(
-                        req.get("reason") or "replica.unhealthy",
+                        req.get("reason") or "replica.unhealthy",  # photonlint: disable=PH008 -- forwards the broadcaster's already-validated reason (trigger() re-validates at runtime)
                         trigger_id=req.get("trigger_id"),
                         **{k: str(v)
                            for k, v in (req.get("attrs") or {}).items()})

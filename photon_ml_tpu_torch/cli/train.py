@@ -348,7 +348,7 @@ def spawn_ranks(args, argv, shape) -> int:
     procs, outs = [], []
     try:
         for i in range(n):
-            out = (None if i == 0 else open(os.path.join(
+            out = (None if i == 0 else open(os.path.join(  # photonlint: disable=PH014 -- the launcher is one process, before any rank exists: it opens rank i's own output file
                 args.output_dir, f"training.proc{i}.out"), "w"))
             outs.append(out)
             procs.append(subprocess.Popen(

@@ -175,8 +175,8 @@ class Front:
         self._handles = [ReplicaHandle(u, publisher=(u.rstrip("/") ==
                                                      publisher_url))
                          for u in replica_urls]
-        self._rr = 0
-        self._inflight_total = 0
+        self._rr = 0  # photonlint: guarded-by=_lock
+        self._inflight_total = 0  # photonlint: guarded-by=_lock
         self.registry = MetricsRegistry()
         r = self.registry
         self._m_requests = r.counter("fleet.front_requests")
@@ -206,10 +206,10 @@ class Front:
         # the fleet partition, adopted from probed replicas (highest spec
         # version wins; replicas on another spec_id leave rotation), and
         # the coordinate fold order cached off the last merged response
-        self._shard_spec: Optional[ShardSpec] = None
-        self._coord_meta: Optional[List[dict]] = None
-        self._lost_shards: set = set()
-        self._seen_shards: set = set()
+        self._shard_spec: Optional[ShardSpec] = None  # photonlint: guarded-by=_lock
+        self._coord_meta: Optional[List[dict]] = None  # photonlint: guarded-by=_lock
+        self._lost_shards: set = set()  # photonlint: guarded-by=_lock
+        self._seen_shards: set = set()  # photonlint: guarded-by=_lock
         self._pool = ThreadPoolExecutor(
             max_workers=max(8, min(config.max_inflight, 64)),
             thread_name_prefix="photon-front")
@@ -219,7 +219,7 @@ class Front:
         self._leg_pool = ThreadPoolExecutor(
             max_workers=16, thread_name_prefix="photon-front-shard")
         self._closed = threading.Event()
-        self._probe_thread: Optional[threading.Thread] = None
+        self._probe_thread: Optional[threading.Thread] = None  # photonlint: guarded-by=_lock
         if start_probes:
             self.start_probes()
 
@@ -378,7 +378,7 @@ class Front:
         if not flight.armed():
             return
         trigger_id = flight.new_trigger_id(reason)
-        flight.trigger(reason, trigger_id=trigger_id, **attrs)
+        flight.trigger(reason, trigger_id=trigger_id, **attrs)  # photonlint: disable=PH008 -- fans out a caller-validated registered reason
         body = json.dumps({"reason": reason, "trigger_id": trigger_id,
                            "attrs": {k: str(v) for k, v in attrs.items()}
                            }).encode()

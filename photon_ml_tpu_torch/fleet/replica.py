@@ -109,10 +109,10 @@ class FleetPublisher:
         self.backoff_s = float(backoff_s)
         self._lock = locktrace.tracked(threading.Lock(),
                                        "FleetPublisher._lock")
-        self._buffer: Dict[int, dict] = {}
-        self._flushing = False
-        self._failed: Optional[str] = None
-        self._appended = 0
+        self._buffer: Dict[int, dict] = {}  # photonlint: guarded-by=_lock
+        self._flushing = False  # photonlint: guarded-by=_lock
+        self._failed: Optional[str] = None  # photonlint: guarded-by=_lock
+        self._appended = 0  # photonlint: guarded-by=_lock
         self._jitter = random.Random(0xF1EE7)
         dropped = log.recover()
         if dropped:
@@ -232,13 +232,13 @@ class Replica:
         self.config = config
         os.makedirs(self.state_dir, exist_ok=True)
         self._lock = locktrace.tracked(threading.Lock(), "Replica._lock")
-        self._applied_seq = 0
-        self._head_seen = 0
-        self._ready = False
-        self._draining = False
-        self._failed: Optional[str] = None
-        self._catchup_s: Optional[float] = None
-        self._thread: Optional[threading.Thread] = None
+        self._applied_seq = 0  # photonlint: guarded-by=_lock
+        self._head_seen = 0  # photonlint: guarded-by=_lock
+        self._ready = False  # photonlint: guarded-by=_lock
+        self._draining = False  # photonlint: guarded-by=_lock
+        self._failed: Optional[str] = None  # photonlint: guarded-by=_lock
+        self._catchup_s: Optional[float] = None  # photonlint: guarded-by=_lock
+        self._thread: Optional[threading.Thread] = None  # photonlint: guarded-by=_lock
         self._closed = threading.Event()
         self._jitter = random.Random(0xD0D0)
         # the replica's own fold of everything it applied (base model dir
@@ -248,7 +248,7 @@ class Replica:
         # Thread-confined by protocol, not locked: join() runs before
         # start(), and afterwards ONLY the apply path (loop thread or a
         # manual poll_once driver, never both) touches it.
-        self._fold: Optional[_FoldState] = None
+        self._fold: Optional[_FoldState] = None  # photonlint: guarded-by=none
 
     # -- durable applied-seq + folded row state ------------------------------
 

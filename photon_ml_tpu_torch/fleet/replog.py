@@ -131,8 +131,8 @@ class ReplicationLog:
         os.makedirs(self.log_dir, exist_ok=True)
         self._lock = locktrace.tracked(threading.Lock(),
                                        "ReplicationLog._lock")
-        self._appending = False
-        self._head_seq: Optional[int] = None
+        self._appending = False  # photonlint: guarded-by=_lock
+        self._head_seq: Optional[int] = None  # photonlint: guarded-by=_lock
         # compaction consumers: name -> checkpoint_fn() returning the
         # newest seq that consumer has durably absorbed.  compact() never
         # folds past the minimum — a refit compactor's unread tail is as

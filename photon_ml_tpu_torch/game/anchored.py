@@ -104,7 +104,7 @@ def sub_dataset_for_entities(dataset, re_type: str, entity_ids):
     return dataset.subset(entity_rows(dataset, re_type, entity_ids))
 
 
-def offline_anchored_refit(
+def offline_anchored_refit(  # photonlint: flush-point -- returns host rows: one read-back of the solved lanes
     dataset,
     re_type: str,
     feature_shard: str,

@@ -296,7 +296,7 @@ def _data_term(total_scores, base_offsets, labels, weights,
     return torch.sum(l if weights is None else weights * l)
 
 
-def _sync(spans: PhaseTimings, label: str, *tensors) -> None:
+def _sync(spans: PhaseTimings, label: str, *tensors) -> None:  # photonlint: flush-point
     """Wait for the device through one scalar readback per tensor, timed
     as host-blocked."""
     with spans.blocked(label):
@@ -305,7 +305,7 @@ def _sync(spans: PhaseTimings, label: str, *tensors) -> None:
                 t.reshape(-1)[-1].item()
 
 
-def _flush_values(values: List[object]) -> List[float]:
+def _flush_values(values: List[object]) -> List[float]:  # photonlint: flush-point -- the iteration's one batched read-back of its deferred scalars
     """Host floats of a list of device scalars and host numbers, with one
     copy off the device for all the device scalars (each is widened to
     float64 first, which is exact, so the floats equal `float(t)`)."""
@@ -596,7 +596,7 @@ def _prune_stale_tmp(directory: str) -> List[str]:
             if fn.endswith(".tmp"):
                 p = os.path.join(root, fn)
                 try:
-                    os.remove(p)
+                    os.remove(p)  # photonlint: all-process
                     pruned.append(p)
                 except OSError:
                     pass
@@ -631,7 +631,7 @@ def _prune_orphan_dirs(directory: str, keep: set) -> List[str]:
         ok, reason = verify_checkpoint_dir(p)
         if ok is True:
             continue
-        shutil.rmtree(p, ignore_errors=True)
+        shutil.rmtree(p, ignore_errors=True)  # photonlint: all-process
         pruned.append(p)
         logger.warning("checkpoint at %s: pruned orphaned partial write %s "
                        "(%s)", directory, p, reason)
@@ -1089,7 +1089,7 @@ def run_coordinate_descent(
     # pipelined mode: per-update records awaiting the boundary readback
     pending: List[dict] = []
 
-    def flush_pending() -> None:
+    def flush_pending() -> None:  # photonlint: flush-point
         """ONE copy off the device for every objective, health flag and
         metric of the outer iteration, then the deferred host bookkeeping
         and the quarantine containment."""
@@ -1220,7 +1220,7 @@ def run_coordinate_descent(
                         with spans.blocked(obj_key):
                             obj = float(obj_dev)
                             # strict mode reads back per update by design
-                            healthy = health_dev is True or bool(health_dev)
+                            healthy = health_dev is True or bool(health_dev)  # photonlint: disable=PH001
                 if not pipelined and not healthy:
                     if not math.isfinite(obj):
                         host_rollback(name, prev_model)

@@ -41,7 +41,6 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import logging
-import time
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -87,6 +86,7 @@ from photon_ml_tpu_torch.parallel.random_effect import (
     EntityBlocks, fit_random_effects, score_entities_matmul,
     score_entities_plain, score_entities_scatter,
 )
+from photon_ml_tpu_torch.telemetry.timings import clock
 from photon_ml_tpu_torch.utils import prng
 
 logger = logging.getLogger("photon_ml_tpu_torch")
@@ -411,7 +411,7 @@ class FixedEffectCoordinate:
         per-chunk local epochs and the final ones strictly."""
         from photon_ml_tpu_torch.optim.streaming import solve_streamed
         opt = self.config.optimization
-        obj = self._stream.replace(offsets=offsets.detach().cpu().numpy())
+        obj = self._stream.replace(offsets=offsets.detach().cpu().numpy())  # photonlint: disable=PH001 -- the documented ONE [n] readback per streamed update
         x0 = model.glm.coefficients.means
         if self.norm is not None:
             x0 = self.norm.model_to_transformed_space(x0)
@@ -642,7 +642,7 @@ class RandomEffectCoordinate(_EntityCoordinateBase):
         results: List[SolveResult] = []
         self.last_buckets = []
         for bucket in self.red.buckets:
-            t0 = time.perf_counter()
+            t0 = clock()
             lo = bucket.lane_start
             if self.mesh is None:
                 blocks = bucket.with_offsets_from_flat(offsets)
@@ -657,7 +657,7 @@ class RandomEffectCoordinate(_EntityCoordinateBase):
             its = res_b.iterations
             self.last_buckets.append(BucketSolve(
                 tuple(blocks.x.shape), int(its.max()), int(its.sum()),
-                res_b.rounds, time.perf_counter() - t0, res_b.hv_rounds))
+                res_b.rounds, clock() - t0, res_b.hv_rounds))
             results.append(res_b)
         res = SolveResult(**{
             f.name: (None if not isinstance(getattr(results[0], f.name), torch.Tensor)

@@ -107,36 +107,36 @@ class HealthMonitor:
         self._lock = locktrace.tracked(threading.Lock(),
                                        "HealthMonitor._lock")
         # action targets, wired by bind(); read under the lock
-        self._registry = None
-        self._updater = None
-        self._task = task_type
+        self._registry = None  # photonlint: guarded-by=_lock
+        self._updater = None  # photonlint: guarded-by=_lock
+        self._task = task_type  # photonlint: guarded-by=_lock
         # -- drift state (scoring path) --------------------------------
         self._drift = DriftDetector(config.drift_bins,
-                                    config.baseline_scores)
+                                    config.baseline_scores)  # photonlint: guarded-by=_lock
         # -- label-window state (feedback path) ------------------------
-        self._cal = StreamingCalibration(config.calibration_bins)
+        self._cal = StreamingCalibration(config.calibration_bins)  # photonlint: guarded-by=_lock
         w = config.window_labels
-        self._margins = np.empty(w)
-        self._labels = np.empty(w)
-        self._weights = np.empty(w)
-        self._label_n = 0
-        self._loss_sum = 0.0
-        self._loss_wsum = 0.0
+        self._margins = np.empty(w)  # photonlint: guarded-by=_lock
+        self._labels = np.empty(w)  # photonlint: guarded-by=_lock
+        self._weights = np.empty(w)  # photonlint: guarded-by=_lock
+        self._label_n = 0  # photonlint: guarded-by=_lock
+        self._loss_sum = 0.0  # photonlint: guarded-by=_lock
+        self._loss_wsum = 0.0  # photonlint: guarded-by=_lock
         # -- online-update vitals (updater thread) ---------------------
-        self._delta_sum = 0.0
-        self._delta_max = 0.0
-        self._delta_n = 0
-        self._delta_by_coord: Dict[str, float] = {}
-        self._freezes = 0
+        self._delta_sum = 0.0  # photonlint: guarded-by=_lock
+        self._delta_max = 0.0  # photonlint: guarded-by=_lock
+        self._delta_n = 0  # photonlint: guarded-by=_lock
+        self._delta_by_coord: Dict[str, float] = {}  # photonlint: guarded-by=_lock
+        self._freezes = 0  # photonlint: guarded-by=_lock
         # -- gates -----------------------------------------------------
         self._gates = {name: GateState(t)
-                       for name, t in config.thresholds().items()}
-        self._degraded = False
-        self._we_paused = False
-        self._windows = 0
-        self._skipped = 0
-        self._rollbacks = 0
-        self.version: Optional[str] = None
+                       for name, t in config.thresholds().items()}  # photonlint: guarded-by=_lock
+        self._degraded = False  # photonlint: guarded-by=_lock
+        self._we_paused = False  # photonlint: guarded-by=_lock
+        self._windows = 0  # photonlint: guarded-by=_lock
+        self._skipped = 0  # photonlint: guarded-by=_lock
+        self._rollbacks = 0  # photonlint: guarded-by=_lock
+        self.version: Optional[str] = None  # photonlint: guarded-by=_lock
 
     # -- wiring -------------------------------------------------------------
 

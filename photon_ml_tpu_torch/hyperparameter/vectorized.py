@@ -518,7 +518,7 @@ class SweepEvaluator:
                         val_total = val_total + self._re_scores(coord, coeffs[name],
                                                                 shard, lanes)
                     dispatches += 1
-                val_matrix = val_total.cpu().numpy()
+                val_matrix = val_total.cpu().numpy()  # photonlint: disable=PH001 -- the one batched validation readback
 
             # ONE batched read-back for the objectives and diagnostics
             host = lambda d: {k: v.cpu().numpy() for k, v in d.items()}

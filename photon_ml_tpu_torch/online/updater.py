@@ -31,10 +31,10 @@ counted) — quarantine, not poison.  A full-model swap racing a publish
 surfaces as StaleDeltaError: the feedback re-enqueues and re-solves
 against the new version next cycle.
 """
-# The updater thread's read-backs (margins through scorer.score, the
-# solver's per-round convergence read, solved + prior rows) are its flush
-# boundary: each cycle reads the solved and prior rows back in ONE copy
-# per coordinate.
+# photonlint: flush-point markers below: the updater thread's read-backs
+# (margins through scorer.score, the solver's per-round convergence read,
+# solved + prior rows) ARE its flush boundary — each cycle reads the solved
+# and prior rows back in ONE copy per coordinate.
 from __future__ import annotations
 
 import dataclasses
@@ -136,15 +136,15 @@ class OnlineUpdater:
         # observes
         self._state_lock = locktrace.tracked(threading.Lock(),
                                              "OnlineUpdater._state_lock")
-        self._frozen: set = set()    # (lane, entity_id)
-        self._thread: Optional[threading.Thread] = None
-        self.cycles = 0
-        self.deltas_published = 0
-        self.last_error: Optional[str] = None
-        self._paused = False
-        self.pause_reason: Optional[str] = None
-        self._last_cycle_at: Optional[float] = None
-        self._drain_rate: float = 0.0
+        self._frozen: set = set()    # (lane, entity_id)  # photonlint: guarded-by=_state_lock
+        self._thread: Optional[threading.Thread] = None  # photonlint: guarded-by=_state_lock
+        self.cycles = 0  # photonlint: guarded-by=_state_lock
+        self.deltas_published = 0  # photonlint: guarded-by=_state_lock
+        self.last_error: Optional[str] = None  # photonlint: guarded-by=_state_lock
+        self._paused = False  # photonlint: guarded-by=_state_lock
+        self.pause_reason: Optional[str] = None  # photonlint: guarded-by=_state_lock
+        self._last_cycle_at: Optional[float] = None  # photonlint: guarded-by=_state_lock
+        self._drain_rate: float = 0.0  # photonlint: guarded-by=_state_lock
         self._wake = threading.Event()
         self._closed = threading.Event()
         self._jitter = random.Random(0xC0FFEE)
@@ -558,7 +558,7 @@ class OnlineUpdater:
                 # the cycle's one batched read-back: solved and prior rows
                 # in a single copy; the finite flags are lane_all_finite's
                 # predicate on the host copy
-                both = torch.stack([new_rows, prior]).cpu().numpy()
+                both = torch.stack([new_rows, prior]).cpu().numpy()  # photonlint: disable=PH001 -- the cycle's one batched readback: solved rows + prior rows (+ finite flags on the host)
                 finite = np.isfinite(both[0]).all(axis=-1)
                 return both[0], both[1], finite, res
             except (KeyboardInterrupt, SystemExit):

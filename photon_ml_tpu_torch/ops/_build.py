@@ -14,9 +14,10 @@ import hashlib
 import os
 import shutil
 import subprocess
-import time
 from pathlib import Path
 from typing import Dict, List, Tuple
+
+from photon_ml_tpu_torch.telemetry.timings import clock
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "photon_ml_tpu_torch"
@@ -98,13 +99,13 @@ def _build_stale(names) -> Dict[str, float]:
         log = open(out.with_suffix(".log"), "w")
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         jobs[name] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT),
-                      tmp, out, log, time.perf_counter())
+                      tmp, out, log, clock())
     seconds = {}
     failed = []
     for name, (proc, tmp, out, log, t0) in jobs.items():
         rc = proc.wait()
         log.close()
-        seconds[name] = time.perf_counter() - t0
+        seconds[name] = clock() - t0
         if rc != 0:
             failed.append(f"{name} (see {out.with_suffix('.log')})")
             continue
@@ -119,12 +120,12 @@ def load_library(name: str) -> ctypes.CDLL:
     """The built library for kernel `name`, with argtypes/restype set.
     The load (with its build, if nvcc ran for it) is reported once
     (`LOADS`)."""
-    t0 = time.perf_counter()
+    t0 = clock()
     built = _build_stale((name,))
     lib = ctypes.CDLL(str(library_path(name)))
     for fn, (restype, argtypes) in SIGNATURES[name].items():
         f = getattr(lib, fn)
         f.restype = restype
         f.argtypes = argtypes
-    _report(name, name in built, time.perf_counter() - t0)
+    _report(name, name in built, clock() - t0)
     return lib

@@ -209,7 +209,7 @@ _TILE_MAPS: Dict[int, Tuple[weakref.ref, int, torch.Tensor]] = {}
 _TILE_MAPS_KEPT = 32
 
 
-def cached_tile_map(end: torch.Tensor) -> torch.Tensor:
+def cached_tile_map(end: torch.Tensor) -> torch.Tensor:  # photonlint: flush-point -- one read-back of `end` per tensor, then cached
     """The tile map of `end`, made at the first call for this tensor (and
     again after it is written in place), then cached: for a direct call
     of csc_column_sum without a map."""

@@ -36,6 +36,11 @@ runs a fixed number of guarded 1-D Newton steps per row.
 """
 from __future__ import annotations
 
+# photonlint: disable-file=PH001 -- host-stepped BY DESIGN (ROADMAP C,
+# "The solvers are host-stepped"): torch has no lax.while_loop, so the
+# ADMM loop runs on the host and reads back its packed scalars once an
+# iteration
+
 import dataclasses
 import math
 from typing import NamedTuple, Optional

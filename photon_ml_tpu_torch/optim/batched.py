@@ -29,6 +29,10 @@ discarded), as under vmap.  TRON's lanes are optim/tron.py::tron_lanes.
 """
 from __future__ import annotations
 
+# photonlint: disable-file=PH001 -- host-stepped BY DESIGN (ROADMAP C,
+# "The solvers are host-stepped"): torch has no lax.while_loop, so the
+# lane loop runs on the host: each round reads back the lanes' masks
+
 from typing import Callable, Optional, Tuple, Union
 
 import torch

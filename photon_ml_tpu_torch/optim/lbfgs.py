@@ -18,6 +18,11 @@ resident solver, so both produce the same trajectory.
 """
 from __future__ import annotations
 
+# photonlint: disable-file=PH001 -- host-stepped BY DESIGN (ROADMAP C,
+# "The solvers are host-stepped"): torch has no lax.while_loop, so the
+# iteration loop runs on the host and reads back the scalars it branches on
+# (descent, Armijo, curvature and convergence tests)
+
 from typing import Callable, List, Optional, Tuple, Union
 
 import torch

@@ -30,6 +30,10 @@ with (pass, chunk, epoch) in turn, JAX's permutations bit for bit
 """
 from __future__ import annotations
 
+# photonlint: disable-file=PH001 -- host-stepped BY DESIGN: like
+# optim/streaming.py, the pass driver reads back exactly one scalar (the
+# per-pass streaming objective) per full pass over the chunk stream
+
 from typing import Optional
 
 import numpy as np

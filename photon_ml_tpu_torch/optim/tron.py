@@ -21,6 +21,11 @@ CG step (the product itself is the same arithmetic as one
 """
 from __future__ import annotations
 
+# photonlint: disable-file=PH001 -- host-stepped BY DESIGN (ROADMAP C,
+# "The solvers are host-stepped"): torch has no lax.while_loop, so the
+# outer and CG loops run on the host: one flag read back per CG round and
+# one per outer step
+
 from typing import Callable, Optional, Tuple
 
 import torch

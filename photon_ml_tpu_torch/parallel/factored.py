@@ -23,7 +23,6 @@ pass, so P comes out equal on every rank.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Callable, List, Optional, Tuple
 
 import numpy as np
@@ -40,6 +39,7 @@ from photon_ml_tpu_torch.optim.types import SolveResult
 from photon_ml_tpu_torch.parallel.random_effect import (
     EntityBlocks, assemble_lanes, fit_random_effects, stage_entity_blocks,
 )
+from photon_ml_tpu_torch.telemetry.timings import clock
 from photon_ml_tpu_torch.utils import prng
 
 
@@ -192,7 +192,7 @@ def fit_factored_random_effects(
     re_res = lat_res = None
     inner: List[dict] = []
     for it in range(num_inner_iterations):
-        t0 = time.perf_counter()
+        t0 = clock()
         re_res = fit_random_effects(project_blocks(blocks, P), loss, None,
                                     x0=C_local, config=re_config, reg=re_reg,
                                     reg_weight=re_reg_weight, budget=re_budget)
@@ -200,7 +200,7 @@ def fit_factored_random_effects(
         if mesh is not None:
             re_res = assemble_lanes(mesh, re_res, E)
         C = re_res.x
-        t1 = time.perf_counter()
+        t1 = clock()
         rw = latent_row_weights_fn(it) if latent_row_weights_fn else None
         if rw is not None and mesh is not None:
             rw = lanes(rw.reshape(E, -1)).reshape(-1)
@@ -214,7 +214,7 @@ def fit_factored_random_effects(
                       "latent_iterations": lat_res.iterations,
                       "latent_fg_count": lat_res.fg_count,
                       "latent_hv_count": lat_res.hv_count,
-                      "latent_seconds": time.perf_counter() - t1})
+                      "latent_seconds": clock() - t1})
     return FactoredSolveResult(latent_coefficients=C, projection=P,
                                random_effect_result=re_res, latent_result=lat_res,
                                inner=inner)

@@ -358,8 +358,8 @@ class WorkerWatchdog:
         # set once by whichever thread detects the loss first (the sweep
         # or the main thread's confirm_lost), through _publish_loss
         self._loss_lock = threading.Lock()
-        self._lost_at: Optional[float] = None
-        self.lost_process: Optional[int] = None
+        self._lost_at: Optional[float] = None  # photonlint: guarded-by=atomic
+        self.lost_process: Optional[int] = None  # photonlint: guarded-by=atomic
 
     def _publish_loss(self, lost: WorkerLost) -> bool:
         """First-writer-wins publication of a detected loss; True when this
@@ -377,7 +377,7 @@ class WorkerWatchdog:
 
     def _beat(self, done: bool = False) -> None:
         from photon_ml_tpu_torch.utils import durable
-        durable.atomic_write_json(
+        durable.atomic_write_json(  # photonlint: all-process
             self._path(self.process_id),
             {"process_id": self.process_id, "pid": os.getpid(),
              "time": time.time(), "done": done},

@@ -78,13 +78,13 @@ class RefitTrigger:
         self.config = config
         self._clock = clock
         self._lock = threading.Lock()
-        self._last_fire: Optional[float] = None
-        self._degraded_polls = 0
-        self._fires = 0
-        self._swaps = 0
-        self._last_error: Optional[str] = None
-        self._last_reason: Optional[str] = None
-        self._thread: Optional[threading.Thread] = None
+        self._last_fire: Optional[float] = None  # photonlint: guarded-by=_lock
+        self._degraded_polls = 0  # photonlint: guarded-by=_lock
+        self._fires = 0  # photonlint: guarded-by=_lock
+        self._swaps = 0  # photonlint: guarded-by=_lock
+        self._last_error: Optional[str] = None  # photonlint: guarded-by=_lock
+        self._last_reason: Optional[str] = None  # photonlint: guarded-by=_lock
+        self._thread: Optional[threading.Thread] = None  # photonlint: guarded-by=_lock
         self._stop = threading.Event()
 
     # -- firing -------------------------------------------------------------

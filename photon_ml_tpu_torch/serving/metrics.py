@@ -288,7 +288,7 @@ class ServingMetrics:
         self._refit_failures = r.counter("refit.failures")
         self._refit_age = r.gauge("refit.last_success_age_s")
         self._refit_age.set(-1.0)
-        self._refit_last_success: Optional[float] = None
+        self._refit_last_success: Optional[float] = None  # photonlint: guarded-by=_lock
 
     # counter-value conveniences (tests and embedding callers read these
     # like the old plain-int attributes)

@@ -89,7 +89,7 @@ class ModelRegistry:
         # OUTSIDE it with (ticket, event) so a publisher can restore the
         # mutation order even when hook invocations race
         self._publish_hooks: list = []
-        self._publish_ticket = 0
+        self._publish_ticket = 0  # photonlint: guarded-by=_lock
 
     def add_publish_hook(self, fn: Callable[[int, dict], None]) -> int:
         """`fn(ticket, event)` runs after EVERY model-state change —

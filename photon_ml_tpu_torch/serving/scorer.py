@@ -289,7 +289,7 @@ class CompiledScorer:
         # deliberately lock-free: delta publishers replace the WHOLE tuple
         # (never mutate in place) and scoring threads read it once per
         # batch — atomic publish at batch granularity
-        self._tables = tuple(tables)
+        self._tables = tuple(tables)  # photonlint: guarded-by=atomic
         self.feature_shards: Dict[str, int] = shard_dims
         self.entity_types = sorted(
             {t for _, _, t in self._re_meta}
@@ -590,7 +590,7 @@ class CompiledScorer:
                     k <<= 1
         return clock() - t0
 
-    def table_hashes(self) -> Dict[str, str]:
+    def table_hashes(self) -> Dict[str, str]:  # photonlint: flush-point -- audit endpoint: one deliberate full-table readback per call, never on the scoring path
         """sha256 of every device table's exact byte content, keyed by
         coordinate lane (MF factor pairs hash as name/row + name/col).
         The fleet audit primitive: two replicas whose version vectors AND

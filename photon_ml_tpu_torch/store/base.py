@@ -43,7 +43,7 @@ def with_retries(fn: Callable[[], object], *, site: str, what: str,
     while True:
         attempt += 1
         try:
-            faults.fire(site, **ctx)
+            faults.fire(site, **ctx)  # photonlint: disable=PH004
             return fn()
         except (KeyboardInterrupt, SystemExit):
             raise

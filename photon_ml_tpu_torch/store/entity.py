@@ -130,13 +130,13 @@ class TieredEntityStore:
                  name: str = "table", device=None):
         # cold/config/dtype/device are immutable after construction: read
         # lock-free by every thread
-        self.cold = cold
-        self.config = config
+        self.cold = cold  # photonlint: guarded-by=atomic
+        self.config = config  # photonlint: guarded-by=atomic
         self.name = name
         self.rows = cold.rows
         self.dim = cold.dim
         self.device = resolve_device(device)
-        self.dtype = np.dtype(cold.dtype)
+        self.dtype = np.dtype(cold.dtype)  # photonlint: guarded-by=atomic
         if self.dtype not in _TORCH_DTYPES:
             raise ValueError(
                 f"cold store dtype {cold.dtype} is not a float32 or float64 "
@@ -159,32 +159,32 @@ class TieredEntityStore:
         # hot-tier state, all guarded by _lock (the tables themselves are
         # replaced functionally and read lock-free at batch granularity)
         self._table = torch.zeros((self.hot_rows, self.dim),
-                                  dtype=self.torch_dtype, device=self.device)
-        self._slot_of = np.full(self.rows, -1, np.int32)
-        self._row_of = np.full(self.hot_rows, -1, np.int64)
-        self._freq = np.zeros(self.hot_rows, np.int64)
+                                  dtype=self.torch_dtype, device=self.device)  # photonlint: guarded-by=atomic
+        self._slot_of = np.full(self.rows, -1, np.int32)  # photonlint: guarded-by=_lock
+        self._row_of = np.full(self.hot_rows, -1, np.int64)  # photonlint: guarded-by=_lock
+        self._freq = np.zeros(self.hot_rows, np.int64)  # photonlint: guarded-by=_lock
         # free-slot stack (vectorized: a 1M-slot hot tier must not pop a
         # python list a million times); _free_n slots remain
-        self._free = np.arange(self.hot_rows, dtype=np.int64)
-        self._free_n = self.hot_rows
-        self._pending: set = set()
-        self._batches = 0
-        self._decay_pos = 0
-        self._rng = np.random.default_rng(0)
+        self._free = np.arange(self.hot_rows, dtype=np.int64)  # photonlint: guarded-by=_lock
+        self._free_n = self.hot_rows  # photonlint: guarded-by=_lock
+        self._pending: set = set()  # photonlint: guarded-by=_lock
+        self._batches = 0  # photonlint: guarded-by=_lock
+        self._decay_pos = 0  # photonlint: guarded-by=_lock
+        self._rng = np.random.default_rng(0)  # photonlint: guarded-by=_lock
         # warm-tier state: seg id -> [seg_rows, d] host array (LRU), the
         # dirty set, and the write-back buffer readers consult while a
         # dirty eviction's durable spill is still in flight
-        self._warm: "OrderedDict[int, np.ndarray]" = OrderedDict()
-        self._dirty: set = set()
-        self._spilling: Dict[int, np.ndarray] = {}
+        self._warm: "OrderedDict[int, np.ndarray]" = OrderedDict()  # photonlint: guarded-by=_lock
+        self._dirty: set = set()  # photonlint: guarded-by=_lock
+        self._spilling: Dict[int, np.ndarray] = {}  # photonlint: guarded-by=_lock
         # durable write-back work queue: commits enqueue under the lock,
         # every public op drains in a finally — spill work enqueued by a
         # commit that later raises (a raced retry) is never lost
-        self._spill_queue: List[Tuple[int, np.ndarray]] = []
+        self._spill_queue: List[Tuple[int, np.ndarray]] = []  # photonlint: guarded-by=_lock
         # per-segment mutation counter: a cold read planned at version V
         # must not install into warm at version != V (the bytes it read
         # predate a racing update — the stale-install hazard)
-        self._seg_ver: Dict[int, int] = {}
+        self._seg_ver: Dict[int, int] = {}  # photonlint: guarded-by=_lock
         self.warmed = False
 
     # -- construction ------------------------------------------------------

@@ -13,7 +13,9 @@ publisher, hedging, drain, failover, backpressure and the sharded fan-out
 run against in-process port replicas on ephemeral ports, as
 tests/test_fleet.py runs the front against the JAX package's; two
 cli.serve children, a follower replica and a front, run the CLI's fleet
-modes end to end.
+modes end to end.  The replica's lifecycle also runs with the lock tracker
+armed, held to the port's static lock-order graph (the port's linter,
+`test_torch_lint.port_lock_edges`).
 """
 import json
 import os
@@ -33,6 +35,7 @@ import torch
 
 import fleet_jax_side as fj
 import online_jax_side as oj
+from test_torch_lint import port_lock_edges
 from test_torch_online import PKG as ONLINE_PKG
 from photon_ml_tpu_torch.cli import serve as serve_cli
 from photon_ml_tpu_torch.fleet import (FleetPublisher, Front, FrontConfig,
@@ -43,6 +46,7 @@ from photon_ml_tpu_torch.models.io import save_game_model
 from photon_ml_tpu_torch.online import OnlineUpdateConfig
 from photon_ml_tpu_torch.serving import (CompiledScorer, Overloaded,
                                          ScoringService, ServingConfig)
+from photon_ml_tpu_torch.utils import locktrace
 
 F64 = torch.float64
 PKG = {**ONLINE_PKG, "FleetPublisher": FleetPublisher, "Replica": Replica}
@@ -276,6 +280,66 @@ def test_front_passes_the_publishers_retry_after_through(root, tmp_path):
 
 
 # -- in-process replicas behind a front ----------------------------------------
+
+def test_replica_lifecycle_lock_orders_match_the_static_graph(root, tmp_path):
+    """join -> catch-up -> ready -> background apply beside a scoring
+    thread -> drain -> close -> rejoin, with the lock tracker ARMED (as
+    the JAX package's tests/test_fleet.py arms it): every observed
+    acquisition order is an edge of the port's static lock-order graph,
+    and the fleet's locks were taken."""
+    r = root["root"]
+    with locktrace.enabled() as tracker:
+        svc, log, rep = _pair_unjoined(root, tmp_path)
+        errors, stop = [], threading.Event()
+
+        def score_loop():
+            k = 0
+            while not stop.is_set():
+                feats, ids, _ = fj._rows(950 + k % 7, 2)
+                k += 1
+                try:
+                    rep.service.score(feats, ids)
+                except Exception as e:  # pragma: no cover
+                    errors.append(f"{type(e).__name__}: {e}")
+
+        t = threading.Thread(target=score_loop, daemon=True)
+        services = [svc, rep.service]
+        try:
+            fj._fleet_feedback(svc, 940)
+            assert rep.join()["records_replayed"] >= 1   # join -> catch-up
+            assert rep.healthy()                          # ready
+            t.start()
+            fj._fleet_feedback(svc, 941)
+            rep.start()                                   # background apply
+            _wait(lambda: rep.status()["applied_seq"] == log.head_seq())
+            rep.drain()
+            assert not rep.healthy() and rep.poll_once() == 0
+            stop.set()
+            t.join(timeout=10)
+            rep.close()
+            again = Replica(_service(r / "model"), log, str(tmp_path / "state"))
+            services.append(again.service)
+            again.join()                                  # rejoin
+            assert identity(again.audit()) == identity(svc.audit())
+        finally:
+            stop.set()
+            for s in services:
+                s.close()
+    assert errors == []
+    tracker.assert_consistent(port_lock_edges())
+    acq = tracker.acquisitions()
+    for lock in ("Replica._lock", "ReplicationLog._lock", "FleetPublisher._lock"):
+        assert acq.get(lock, 0) > 0, lock
+
+
+def _pair_unjoined(root, tmp_path):
+    svc = _service(root["root"] / "model", updates=True)
+    log = ReplicationLog(str(tmp_path / "log"))
+    FleetPublisher(svc, log, model_dir=str(root["root"] / "model"))
+    rep = Replica(_service(root["root"] / "model"), log, str(tmp_path / "state"),
+                  ReplicaConfig(poll_interval_s=0.02))
+    return svc, log, rep
+
 
 def _service(model_dir, updates=False, **cfg):
     return ScoringService(

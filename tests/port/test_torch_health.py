@@ -12,14 +12,19 @@ the one delta-aware rollback returns the tables to the JAX package's
 hashes, and the gate values agree within WALK_RTOL (the deltas agree to
 1e-8, see test_torch_online.AT_OPTIMUM_RTOL).  The batch Hosmer-Lemeshow
 oracle, config validation, the swap reset and the fault site run on the
-port alone, as tests/test_health.py runs them on the JAX package.
+port alone, as tests/test_health.py runs them on the JAX package, and so
+does a gate's trip beside scoring threads with the lock tracker armed,
+held to the port's static lock-order graph (the port's linter).
 """
+import threading
+
 import numpy as np
 import pytest
 import torch
 
 import fleet_jax_side as fj
 import online_jax_side as oj
+from test_torch_lint import port_lock_edges
 from test_torch_online import PKG as ONLINE_PKG
 from test_torch_online import host
 from photon_ml_tpu_torch.diagnostics.hl import hosmer_lemeshow
@@ -28,7 +33,7 @@ from photon_ml_tpu_torch.health import (DriftDetector, HealthConfig,
 from photon_ml_tpu_torch.online import OnlineUpdateConfig
 from photon_ml_tpu_torch.serving import (CompiledScorer, ScoringService,
                                          ServingConfig)
-from photon_ml_tpu_torch.utils import faults
+from photon_ml_tpu_torch.utils import faults, locktrace
 
 STATS_RTOL = 1e-12
 WALK_RTOL = 1e-8
@@ -109,6 +114,56 @@ def test_health_walk_trips_pauses_rolls_back_and_recovers(port_walk):
     assert last["status"] == "ok" and last["tripped"] == []
     assert not last["updater_paused"] and not last["paused_by_health"]
     assert port_walk["metrics"]["recoveries"] >= 2
+
+
+def test_health_lifecycle_lock_orders_match_the_static_graph():
+    """Calibrated feedback published as deltas, then flipped labels that
+    trip the calibration gate (pause + rollback), beside two scoring
+    threads, with the lock tracker ARMED (as the JAX package's
+    tests/test_health.py arms it): every observed acquisition order is an
+    edge of the port's static lock-order graph, and the monitor's lock was
+    taken."""
+    with locktrace.enabled() as tracker:
+        svc = ScoringService(
+            model=oj.build_model(PKG, oj.model_arrays()),
+            config=PKG["serving_config"](max_batch=64, min_bucket=64),
+            updates=OnlineUpdateConfig(**fj.UPDATES), start_updater=False,
+            health=HealthConfig(**fj.HEALTH))
+        errors, stop = [], threading.Event()
+
+        def scorer_loop(seed):
+            k = 0
+            while not stop.is_set():
+                feats, ids, _ = fj._rows(seed + k % 5, 8)
+                k += 1
+                try:
+                    svc.score(feats, ids)
+                except Exception as e:  # pragma: no cover
+                    errors.append(f"{type(e).__name__}: {e}")
+
+        threads = [threading.Thread(target=scorer_loop, args=(s,), daemon=True)
+                   for s in (11, 13)]
+        for t in threads:
+            t.start()
+        try:
+            for flip in (False, True, True):
+                for k in range(2):
+                    feats, ids, rng = fj._rows(70 + k, 32)
+                    svc.feedback(feats, ids,
+                                 fj._labels_from(svc, feats, ids, rng, flip))
+                svc.updater.flush()
+            assert svc.health.verdict()["gates"]["calibration"]["trips"] >= 1
+            assert svc.healthz()["status"] in ("ok", "degraded")
+        finally:
+            stop.set()
+            for t in threads:
+                t.join(timeout=10)
+            svc.close()
+    assert errors == []
+    tracker.assert_consistent(port_lock_edges())
+    acq = tracker.acquisitions()
+    for lock in ("HealthMonitor._lock", "ModelRegistry._lock"):
+        assert acq.get(lock, 0) > 0, lock
 
 
 def test_streaming_hl_matches_batch_oracle():

@@ -77,11 +77,15 @@ REQUIRED = ("photon_ml_tpu_torch.ops.features", "photon_ml_tpu_torch.ops.sparse_
             "photon_ml_tpu_torch.parallel.multihost", "photon_ml_tpu_torch.optim.admm",
             "photon_ml_tpu_torch.parallel.fixed_effect",
             "photon_ml_tpu_torch.parallel.random_effect",
+            "photon_ml_tpu_torch.analysis", "photon_ml_tpu_torch.analysis.__main__",
+            "photon_ml_tpu_torch.analysis.engine", "photon_ml_tpu_torch.analysis.rules",
+            "photon_ml_tpu_torch.analysis.concurrency", "photon_ml_tpu_torch.analysis.lint",
             "chip_smoke")
 
 
 def test_the_scan_covers_the_port():
     assert set(REQUIRED) <= set(MODULES)
+    assert (PKG / "analysis" / "baseline.json").exists()
     assert (PKG / "csrc" / "ell_sparse.cu").exists()
     assert (PKG / "csrc" / "fused_value_and_gradient_lanes.cu").exists()
 
