@@ -503,15 +503,16 @@ def margin_ptxas(plan, loss_id: int, vbytes: int = 4) -> list:
     return [e for e in ptxas_summary(log) if want in e[0]]
 
 
-def lanes_ptxas(plan, lanes: int, masked: bool) -> list:
+def lanes_ptxas(plan, lanes: int, masked: bool, xbytes: int = 4) -> list:
     """nvcc's -Xptxas -v line(s) for the lanes kernel's instantiation that
-    `plan` launches for K = `lanes` (n-tiles, gradient slots, lane mask):
-    (entry, registers, spill bytes, static smem bytes)."""
+    `plan` launches for K = `lanes` (n-tiles, gradient slots, lane mask, X
+    float32 or bf16): (entry, registers, spill bytes, static smem bytes)."""
     from photon_ml_tpu_torch.ops import _build
     from photon_ml_tpu_torch.ops import hopper_kernels as hk
-    log = _build.library_path("fused_value_and_gradient_lanes").with_suffix(".log").read_text()
+    log = _build.library_path("fused_value_and_gradient_lanes" + ("" if xbytes == 4 else "_bf16")
+                              ).with_suffix(".log").read_text()
     want = (f"lanes_value_gradientILi{hk.lane_tiles(lanes)}ELi{plan.slots}"
-            f"ELb{int(masked)}E")
+            f"ELb{int(masked)}E" + ("f" if xbytes == 4 else "13__nv_bfloat16"))
     return [e for e in ptxas_summary(log) if want in e[0]]
 
 
@@ -2151,7 +2152,8 @@ BF16_DESIGN = ("the f32 kernel's design, templated on the storage type: bf16 ele
                "__bfloat162float / __bfloat1622float2 where read; f32 products and sums")
 
 
-def bf16_phase(hk, sk, x_np, y_np, ref_nll, c6, losses, kind, smi, sms) -> dict:
+def bf16_phase(hk, sk, x_np, y_np, ref_nll, c6, losses, kind, smi, sms, g_train=None,
+               stream_nll=None) -> dict:
     """BASELINE config 1's and bench config 6's bf16 entries (bench.py
     a1a_logistic_lbfgs_l2_bf16_features, :294-306, and
     wide_sparse_250k_logistic_lbfgs_l2_bf16_values, :891-900) through
@@ -2164,7 +2166,11 @@ def bf16_phase(hk, sk, x_np, y_np, ref_nll, c6, losses, kind, smi, sms) -> dict:
     and B (both powers) against their plain versions at those shapes, and
     each timed with its bound and library call; the Hessian-vector product
     on the bf16 X (TRON's oracle: torch products over a widened copy of X,
-    in row chunks) timed beside them.  Its checks raise."""
+    in row chunks) timed beside them.  Then the paths a bf16 X took last:
+    the lanes kernel on a bf16 X (bf16_lanes_part), the bootstrap on config
+    4's fixed effect stored bf16 (`g_train`'s, bf16_bootstrap_part) and
+    config 1 streamed from its bf16 host block (bf16_stream_part, held to
+    the f32 streamed fit's objective `stream_nll`).  Its checks raise."""
     import torch
     from photon_ml_tpu_torch.models.training import train_glm
     from photon_ml_tpu_torch.ops.features import WIDEN_BYTES
@@ -2274,26 +2280,261 @@ def bf16_phase(hk, sk, x_np, y_np, ref_nll, c6, losses, kind, smi, sms) -> dict:
     emit({"phase": "sparse_timing", "config": "bf16_config6", "loss": "logistic",
           "device": kind, "nvidia_smi": smi, **st})
     del x6, y6
+    t0 = time.perf_counter()
+    lanes = bf16_lanes_part(hk, losses, kind, smi, sms)
+    boot = bf16_bootstrap_part(hk, g_train, kind, smi)
+    stream = bf16_stream_part(hk, x_np, y_np, ref_nll, stream_nll, losses, kind, smi)
+    new_s = time.perf_counter() - t0
     seconds = time.perf_counter() - t_phase
-    emit({"phase": "bf16_done", "seconds": seconds})
+    emit({"phase": "bf16_done", "seconds": seconds, "lanes_bootstrap_stream_s": new_s})
     return {"config1": c1, "config6": c6e, "launches": launches, "sparse_launches": l6,
             "fused_err": fused_err, "timing": timing, "hv": hv, "check6": chk,
-            "timing6": st, "passes6": passes, "seconds": seconds}
+            "timing6": st, "passes6": passes, "seconds": seconds, "lanes": lanes,
+            "bootstrap": boot, "stream": stream, "new_parts_s": new_s}
 
 
-def bf16_kernel_entries(bf16: dict) -> list:
+BF16_LANES_KS = (16, 5)
+BF16_LANES_LOSSES = ("logistic", "poisson")
+BF16_LANES_FULL = (950_051, 31)   # config 4's fixed effect
+# bootstrap on config 4's fixed effect stored bf16, 16 replicas, LBFGS with
+# L2 1, against the same bootstrap with float32 state on the same bf16
+# values: coefficient summaries within BF16_BOOT_ULPS bf16 ulps of their
+# scale, 8 u max(1, |a|) (u = 2^-8: a bf16 state holds the float32
+# optimum no closer than half an ulp, and its solve stops where bf16's
+# gradient noise stops it; tests/port/test_torch_lanes.py's bound against
+# the JAX package), holdout metrics within 2e-2 relative
+BF16_BOOT = dict(replicas=16, max_iterations=50, l2=1.0, seed=7)
+BF16_BOOT_ULPS = 8
+BF16_BOOT_METRIC_RTOL = 2e-2
+BF16_UNIT_ROUNDOFF = 2.0 ** -8
+BF16_STREAM_CHUNK = 131_072
+
+
+def bf16_lanes_part(hk, losses, kind, smi, sms) -> dict:
+    """The lanes kernel on a bf16 X against its plain version in float64
+    on the same bf16 X widened (compare_lanes with ref64: value rtol
+    VALUE_RTOL, gradient and sum(w l') rtol GRAD_RTOL of the magnitudes
+    each sum adds), for two losses at K in BF16_LANES_KS at the LANES_SMALL
+    and LANES_EDGES shapes (misaligned views put the ring's 2-byte ragged
+    ends at work), plain and with weights, offsets, a mask, shifts and a
+    lane mask; a K the width does not take must be refused.  Then config
+    4's fixed-effect shape with K = 16: the four losses checked, and one
+    pass with offsets timed (time_lanes: X at 2 bytes in the bound; the
+    library two bf16 torch.matmul around the loss).  Its checks raise."""
+    import torch
+    from photon_ml_tpu_torch.ops.lanes import lane_words
+    from photon_ml_tpu_torch.ops.losses import BY_NAME, LOGISTIC
+    rng, mask_rng = np.random.default_rng(41), np.random.default_rng(42)
+    failures, full_err, checks = [], 0.0, 0
+    n4, d4 = BF16_LANES_FULL
+    cases = [(name, n, d, skip) for name, n, d, skip in LANES_SMALL + LANES_EDGES]
+    cases.append((f"{n4}x{d4}", n4, d4, 0))
+    timing = None
+    for name, n, d, skip in cases:
+        x, y, c_all, w, o_all, o_inf_all, m, b_all = lanes_inputs(n, d, 16, rng, skip)
+        xb = torch.empty((n + skip, d), dtype=torch.bfloat16, device="cuda")[skip:]
+        xb.copy_(x)
+        del x
+        if skip and xb.data_ptr() % 16 == 0:
+            raise SystemExit(f"bf16 lanes {name}: the view's base is 16-byte aligned")
+        full = (n, d) == BF16_LANES_FULL
+        names = [l.name for l in losses] if full else BF16_LANES_LOSSES
+        for lanes in (BF16_LANES_KS[:1] if full else BF16_LANES_KS):
+            c, o, o_inf = c_all[:lanes], o_all[:lanes], o_inf_all[:lanes]
+            b = b_all[:lanes].contiguous()
+            if lanes > hk.max_lanes(d, xbytes=2):
+                try:
+                    hk.fused_value_and_gradient_lanes(LOGISTIC, xb, y, c)
+                    failures.append(f"{name}/K{lanes}: not refused")
+                except ValueError:
+                    pass
+                continue
+            keep = mask_rng.uniform(size=(lanes, n)) < 0.7
+            q = lane_words(torch.from_numpy(keep).cuda())
+            for loss_name in names:
+                for tag, args, word in (("plain", (), None),
+                                        ("w+o+mask+shift+lane_mask", (w, o_inf, m, b), q)):
+                    ok, err, v_rel, g_rel = compare_lanes(hk, BY_NAME[loss_name], xb, y, c,
+                                                          *args, q=word, ref64=True)
+                    checks += 1
+                    if full or not ok:
+                        emit({"phase": "lanes_check", "size": name, "shape": [n, d],
+                              "storage": "bfloat16", "lanes": lanes, "loss": loss_name,
+                              "inputs": tag, "ok": ok, "max_abs_err": err,
+                              "value_rel_err": v_rel, "grad_err_over_tol": g_rel})
+                    if not ok:
+                        failures.append(f"{name}/K{lanes}/{loss_name}/{tag}")
+                    if full:
+                        full_err = max(full_err, err)
+            if full:
+                timing = time_lanes(hk, LOGISTIC, xb, y, lanes, o)
+                plan = hk.plan_lanes(n, d, lanes, sms, xbytes=2)
+                timing.update(plan=dataclasses.asdict(plan),
+                              ptxas=lanes_ptxas(plan, lanes, False, 2), inputs="offsets",
+                              storage="bfloat16", max_abs_err=full_err)
+                emit({"phase": "lanes_timing", "loss": "logistic", "reps": REPS,
+                      "device": kind, "nvidia_smi": smi, **timing})
+        del xb, y, c_all, w, o_all, o_inf_all, m, b_all
+    emit({"phase": "bf16_lanes_checks", "checks": checks, "failures": failures})
+    if failures:
+        raise SystemExit(f"bf16 lanes: kernel disagrees with its plain version: {failures}")
+    return {"timing": timing, "max_abs_err": full_err, "checks": checks}
+
+
+def bf16_bootstrap_part(hk, g_train, kind, smi) -> dict:
+    """diagnostics.bootstrap_training on config 4's fixed effect
+    ([950,051 x 31], stored bf16) with BF16_BOOT's replicas on the card:
+    the replicas' state in bf16 (the JAX package's rule), one bf16 launch of
+    the lanes kernel a round (the wrapper's bf16 count, zeroed before it);
+    held to the same bootstrap with float32 state on the same bf16 values
+    at BF16_BOOT_ULPS and BF16_BOOT_METRIC_RTOL.  Its checks raise."""
+    import torch
+    from photon_ml_tpu_torch.diagnostics.bootstrap import bootstrap_training
+    from photon_ml_tpu_torch.optim.config import (
+        OptimizerConfig, RegularizationContext, RegularizationType)
+    f = BF16_BOOT
+    xb = g_train.device_shard("global", "cuda", torch.float32).to(torch.bfloat16)
+    y = np.asarray(g_train.response, dtype=np.float64)
+    kw = dict(num_bootstrap_samples=f["replicas"],
+              optimizer_config=OptimizerConfig(max_iterations=f["max_iterations"]),
+              regularization=RegularizationContext(RegularizationType.L2),
+              regularization_weight=f["l2"], seed=f["seed"], device="cuda")
+    hk.LANES_LAUNCHES = hk.LANES_BF16_LAUNCHES = 0
+    t0 = time.perf_counter()
+    r16 = bootstrap_training(xb, y, "logistic_regression", **kw)
+    wall16 = time.perf_counter() - t0
+    launches = {"lanes": hk.LANES_LAUNCHES, "lanes_bf16": hk.LANES_BF16_LAUNCHES}
+    t0 = time.perf_counter()
+    r32 = bootstrap_training(xb.float(), y, "logistic_regression", **kw)
+    wall32 = time.perf_counter() - t0
+    u = BF16_UNIT_ROUNDOFF
+    coef_over = max(abs(getattr(a, k) - getattr(b_, k))
+                    / (BF16_BOOT_ULPS * u * max(1.0, abs(getattr(b_, k))))
+                    for a, b_ in zip(r16.coefficient_summaries, r32.coefficient_summaries)
+                    for k in ("min", "q1", "median", "q3", "max", "mean"))
+    metric_rel = {k: abs(r16.metric_summaries[k].mean - r32.metric_summaries[k].mean)
+                  / max(abs(r32.metric_summaries[k].mean), 1e-30) for k in r32.metric_summaries}
+    out = {"entry": "photon_ml_tpu_torch.diagnostics.bootstrap.bootstrap_training",
+           "config": "BASELINE config 4's fixed effect stored bf16",
+           "shape": list(xb.shape), "replicas": f["replicas"], "wall_s": wall16,
+           "f32_wall_s": wall32, "solve": r16.solve, "f32_solve": r32.solve,
+           "kernel_launches": launches, "coef_err_over_tol": coef_over,
+           "metric_rel_err": metric_rel,
+           "tolerance": (f"coefficient summaries within {BF16_BOOT_ULPS} u max(1, |a|), "
+                         f"u = 2^-8; metric means rtol {BF16_BOOT_METRIC_RTOL}; against "
+                         "the float32-state bootstrap on the same bf16 values"),
+           "device": kind, "nvidia_smi": smi}
+    emit({"phase": "bf16_bootstrap", **out})
+    rounds = r16.solve["rounds"]
+    if not (r16.solve["route"] == "lanes" and launches["lanes"] == launches["lanes_bf16"]
+            == rounds * r16.solve["lane_groups"] > 0):
+        raise SystemExit(f"bf16_bootstrap: lanes launches {launches} for {rounds} rounds "
+                         f"of {r16.solve['lane_groups']} groups on route {r16.solve['route']}")
+    if not (np.all(np.isfinite(r16.coefficients)) and coef_over <= 1.0
+            and max(metric_rel.values()) <= BF16_BOOT_METRIC_RTOL):
+        raise SystemExit(f"bf16_bootstrap: off the float32 bootstrap: coefficients "
+                         f"{coef_over:.3g} of tolerance, metrics {metric_rel}")
+    return out
+
+
+def bf16_stream_part(hk, x_np, y_np, ref_nll, stream_nll, losses, kind, smi) -> dict:
+    """Config 1 streamed from its bf16 host block (a CPU bf16 tensor, its
+    2-byte bits page-locked and staged as they are) in BF16_STREAM_CHUNK-row
+    chunks: strict solve_streamed (LBFGS, L2 1) whose float64 objective
+    must be within NLL_RTOL of the REF_KEY optimum and of the f32 streamed
+    fit's (`stream_nll`; a1a's 0/1 features are exact in bf16), with the
+    fused kernel's launches all on bf16 and equal to chunks x passes (the
+    wrapper's counts, zeroed before it).  Then the fused kernel on a bf16
+    chunk [131,072 x 124] with weights, offsets, a row mask and shifts
+    against its plain version for the four losses, and timed.  Its checks
+    raise."""
+    import torch
+    from photon_ml_tpu_torch.data.streaming import ChunkPlan, stream_row_bytes
+    from photon_ml_tpu_torch.ops.chunked import ChunkedGLMObjective
+    from photon_ml_tpu_torch.ops.losses import LOGISTIC
+    from photon_ml_tpu_torch.optim.config import (OptimizerConfig, RegularizationContext,
+                                                  RegularizationType)
+    from photon_ml_tpu_torch.optim.streaming import solve_streamed
+    n, d = x_np.shape
+    t0 = time.perf_counter()
+    host = torch.from_numpy(x_np).to(torch.bfloat16)
+    host_s = time.perf_counter() - t0
+    plan = ChunkPlan.build(n, chunk_rows=BF16_STREAM_CHUNK)
+    obj = ChunkedGLMObjective(LOGISTIC, host, y_np, plan, device="cuda",
+                              prefetch_depth=STREAM_GLM_DEPTH)
+    c0 = torch.zeros(d, device="cuda")
+    obj.value_and_gradient(c0)              # registers the host arrays
+    pass_bytes = obj.stats.total_bytes
+    hk.LAUNCHES = hk.BF16_LAUNCHES = 0
+    t0 = time.perf_counter()
+    res = solve_streamed(obj, c0, OptimizerConfig(max_iterations=100, tolerance=1e-9),
+                         RegularizationContext(RegularizationType.L2), LAMBDA)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = {"fused": hk.LAUNCHES, "fused_bf16": hk.BF16_LAUNCHES}
+    nll = host_objective(x_np, y_np, res.x.double().cpu().numpy(), LAMBDA)
+    gaps = {"ref": (nll - ref_nll) / abs(ref_nll),
+            "f32_streamed": None if stream_nll is None else (nll - stream_nll) / abs(stream_nll)}
+    fit = {"entry": "photon_ml_tpu_torch.optim.streaming.solve_streamed",
+           "config": "BASELINE config 1 streamed from a bf16 host X",
+           "n": n, "d": d, "chunk_rows": plan.chunk_rows, "chunks": plan.num_chunks,
+           "host_bf16_s": host_s, "fit_s": fit_s, "iterations": res.iterations,
+           "fg_count": res.fg_count, "kernel_launches": launches, "nll_f64": nll,
+           "ref_nll": ref_nll, "f32_streamed_nll": stream_nll, "nll_rel_gap": gaps,
+           "staged_bytes_per_pass": pass_bytes, "x_bytes_per_pass": host.numel() * 2,
+           "bytes_per_row": stream_row_bytes(d, 2, 4),
+           "staging_route_bytes": dict(obj.staging.route_bytes),
+           "device": kind, "nvidia_smi": smi}
+    emit({"phase": "bf16_stream", **fit})
+    del obj, host
+    if not (launches["fused"] == launches["fused_bf16"]
+            == res.fg_count * plan.num_chunks > 0):
+        raise SystemExit(f"bf16_stream: launches {launches} for {res.fg_count} passes of "
+                         f"{plan.num_chunks} chunks (every one on the bf16 X)")
+    if not all(g is None or abs(g) <= NLL_RTOL for g in gaps.values()):
+        raise SystemExit(f"bf16_stream: objective {nll} off by {gaps}")
+    rng = np.random.default_rng(13)
+    x, y, c, w, o, o_inf, m, sh = stream_check_inputs(STREAM_CHECK_ROWS, 124, rng)
+    xb = x.to(torch.bfloat16)
+    del x
+    failures, err_max = [], 0.0
+    for loss in losses:
+        ok, err, v_rel, g_rel = compare(hk, loss, xb, y, c, w, o_inf, m, sh)
+        emit({"phase": "stream_check", "shape": [STREAM_CHECK_ROWS, 124],
+              "storage": "bfloat16", "loss": loss.name, "inputs": "w+o+mask+shift",
+              "ok": ok, "max_abs_err": err, "value_rel_err": v_rel,
+              "grad_err_over_tol": g_rel})
+        err_max = max(err_max, err)
+        if not ok:
+            failures.append(loss.name)
+    if failures:
+        raise SystemExit(f"bf16_stream: the kernel disagrees with its plain version on a "
+                         f"bf16 chunk: {failures}")
+    timing = time_full(hk, LOGISTIC, xb, y, o_inf, w, m, sh)
+    timing.update(shape=[STREAM_CHECK_ROWS, 124], inputs="w+o+mask+shift",
+                  storage="bfloat16", max_abs_err=err_max)
+    emit({"phase": "timing", "loss": "logistic", "reps": REPS, "device": kind,
+          "nvidia_smi": smi, **timing})
+    return {"fit": fit, "timing": timing, "launches": launches["fused_bf16"]}
+
+
+def bf16_kernel_entries(bf16: dict, mesh_bf16: dict) -> list:
     """The kernels line's entries of the bf16 instantiations: the fused
-    kernel at config 1's shape, A and B at config 6's, their launches on
-    the bf16 phase's main paths."""
+    kernel at config 1's shape (and a streamed chunk's), A and B at config
+    6's, the lanes kernel at config 4's fixed effect, their launches on the
+    bf16 paths (the mesh's by `mesh_bf16`)."""
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "share_of_bound",
             "ms_over_library", "gather_floor_ms", "ms_over_gather_floor", "plan", "ptxas")
     pick = lambda t: {k: t[k] for k in keys if k in t}
     t, st, l6 = bf16["timing"], bf16["timing6"], bf16["sparse_launches"]
+    by_path = {"train_glm_config1": bf16["launches"]["fused_bf16"],
+               "streamed_config1": bf16["stream"]["launches"], **mesh_bf16}
     fused = {
         "name": "fused_value_and_gradient_bf16", "route": "cuda", "storage": "bfloat16",
         "source": "photon_ml_tpu_torch/csrc/fused_value_and_gradient.cu",
         "replaces": "photon_ml_tpu/ops/pallas_kernels.py:150",
-        "launches": bf16["launches"]["fused_bf16"], "max_abs_err": bf16["fused_err"],
+        "launches": sum(by_path.values()), "launches_by_path": by_path,
+        "max_abs_err": bf16["fused_err"],
         "tolerance": (f"value rtol {VALUE_RTOL}, gradient rtol {GRAD_RTOL} atol {GRAD_ATOL} "
                       "against the plain version on the same bf16 X (widened exactly)"),
         **pick(t), "hbm_share": t["hbm_share"],
@@ -2304,6 +2545,9 @@ def bf16_kernel_entries(bf16: dict) -> list:
         "hessian_vector_on_bf16": {k: bf16["hv"][k] for k in (
             "ms", "full_ms", "library_ms", "bound_ms", "share_of_bound",
             "launches_per_call", "full_launches_per_call")},
+        "at_stream_chunk_shape": {k: bf16["stream"]["timing"][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "hbm_share",
+            "ms_over_library", "shape", "inputs", "max_abs_err")},
     }
     sparse = []
     for name, part, kinds in (("ell_margin_loss_bf16", "a", ("margin_loss", "margins")),
@@ -2328,7 +2572,28 @@ def bf16_kernel_entries(bf16: dict) -> list:
                {"margins_mode": pick(st["a_margins"])}),
             "whole_pass": pick(st["pass"]),
         })
-    return [fused] + sparse
+    lt, boot = bf16["lanes"]["timing"], bf16["bootstrap"]
+    lanes = {
+        "name": "fused_value_and_gradient_lanes_bf16", "route": "cuda", "storage": "bfloat16",
+        "source": "photon_ml_tpu_torch/csrc/fused_value_and_gradient_lanes.cu",
+        "replaces": "photon_ml_tpu/hyperparameter/vectorized.py:92",
+        "replaces_masked": "photon_ml_tpu/diagnostics/bootstrap.py:86",
+        "launches": boot["kernel_launches"]["lanes_bf16"],
+        "launches_by_path": {"bootstrap_config4_bf16": boot["kernel_launches"]["lanes_bf16"]},
+        "max_abs_err": bf16["lanes"]["max_abs_err"],
+        "tolerance": (f"value rtol {VALUE_RTOL}, gradient and sum(w l') rtol {GRAD_RTOL} of "
+                      "the magnitudes each sum adds, against the float64 plain version on "
+                      "the same bf16 X"),
+        **{k: lt[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                              "share_of_bound", "ms_over_library", "single_launches_ms",
+                              "ms_over_single_launches", "min_ms", "max_ms", "lanes", "shape",
+                              "plan", "ptxas")},
+        "hbm_share": lt["share_of_bound"],
+        "library_note": ("two bf16 torch.matmul (X and C, then X^T and w l' in bf16) around "
+                         "the loss on [n, K]: the same bytes of X, a near function"),
+        "design": LANES_DESIGN + " bf16 X: a 2-byte ring, X exact in TF32 (no lo split).",
+    }
+    return [fused] + sparse + [lanes]
 
 
 def yahoo_phase(hk, sk, ref_cache, kind, smi) -> dict:
@@ -2399,8 +2664,117 @@ def yahoo_phase(hk, sk, ref_cache, kind, smi) -> dict:
     # printed, not gated, as config 6's profile
     emit({"phase": "yahoo_glmix_profile", "outer_iterations": 1, "device": kind,
           "nvidia_smi": smi, **y_prof})
+    bcoo = bcoo_phase(hk, sk, y_train, kind, smi)
     return {"launches": y_launches, "passes": gy["fe_passes"], "check": chk7,
-            "timing": st7}
+            "timing": st7, "bcoo": bcoo}
+
+
+BCOO_LAYOUTS = ("csr", "coo")
+BCOO_REPS = 5                  # on-card conversions timed per layout
+
+
+def bcoo_phase(hk, sk, y_train, kind, smi) -> dict:
+    """The port's BCOO: config 7's fixed-effect matrix ([285,135 x 14,983],
+    7.1M nonzeros, from yahoo_phase's data) as a CUDA sparse_csr and a
+    sparse_coo tensor through train_glm (LBFGS, L2 1).  Each tensor is
+    converted on the card into the ELL layout and column view from_scipy
+    builds from the scipy matrix, tensor for tensor (else it fails), so
+    each fit must repeat the scipy-ingested fit bit for bit, with kernels A
+    and B once a pass each (the wrappers' counts, zeroed before each fit)
+    and no dense launch.  The conversion (PaddedSparse.from_torch, column
+    view included) is timed on the card, median of BCOO_REPS, beside the
+    scipy ingest's host time; a raw tensor's matvec and rmatvec (its
+    cached ELL form: kernels A and B) are held to their plain versions,
+    torch's sparse products in float64 on the same tensor, within
+    sk.margins_tolerance and sk.column_sum_tolerance."""
+    import torch
+    from photon_ml_tpu_torch.models.training import train_glm
+    from photon_ml_tpu_torch.ops import features as F
+    from photon_ml_tpu_torch.optim.config import (
+        OptimizerConfig, RegularizationContext, RegularizationType)
+    t_phase = time.perf_counter()
+    csr = y_train.feature_shards["global"].tocsr()
+    y = torch.as_tensor(y_train.response, dtype=torch.float32, device="cuda")
+    coo = csr.tocoo()
+    tensors = {
+        "csr": torch.sparse_csr_tensor(torch.from_numpy(csr.indptr.astype(np.int64)),
+                                       torch.from_numpy(csr.indices.astype(np.int64)),
+                                       torch.from_numpy(csr.data.astype(np.float32)),
+                                       csr.shape).cuda(),
+        "coo": torch.sparse_coo_tensor(torch.from_numpy(np.stack([coo.row, coo.col])
+                                                        .astype(np.int64)),
+                                       torch.from_numpy(coo.data.astype(np.float32)),
+                                       coo.shape).cuda()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = F.PaddedSparse.from_scipy(csr, with_csc=True, device="cuda")
+    torch.cuda.synchronize()
+    scipy_ingest_s = time.perf_counter() - t0
+    fields = ("indices", "values", "csc_row", "csc_val", "csc_end", "csc_tiles")
+    cfg = dict(optimizer_config=OptimizerConfig(max_iterations=100, tolerance=1e-9),
+               regularization=RegularizationContext(RegularizationType.L2),
+               regularization_weights=(LAMBDA,), device="cuda")
+    reset_launches(hk, sk)
+    ref = train_glm(csr, y, "logistic_regression", **cfg)[0]
+    ref_launches = dict(sk.LAUNCHES)
+    out = {"shape": list(csr.shape), "nnz": int(csr.nnz), "scipy_ingest_s": scipy_ingest_s,
+           "reference": {"iterations": ref.result.iterations, "fg_count": ref.result.fg_count,
+                         "value": ref.result.value.item(), "wall_s": ref.wall_s,
+                         "kernel_launches": ref_launches}}
+    failures = []
+    for layout in BCOO_LAYOUTS:
+        t = tensors[layout]
+        times = []
+        for _ in range(BCOO_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = F.PaddedSparse.from_torch(t, with_csc=True)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        same_layout = all(torch.equal(getattr(got, f), getattr(want, f)) for f in fields)
+        del got
+        reset_launches(hk, sk)
+        fit = train_glm(t, y, "logistic_regression", **cfg)[0]
+        launches = dict(sk.LAUNCHES)
+        dense = hk.LAUNCHES
+        passes = fit.result.fg_count
+        same_fit = torch.equal(fit.model.coefficients.means, ref.model.coefficients.means)
+        # a raw tensor's products: its cached ELL form against torch's sparse
+        # products in float64 on the same tensor
+        form = F.ell_form(t)
+        rng = np.random.default_rng(17)
+        c = torch.from_numpy((rng.normal(size=csr.shape[1]) * 0.05).astype(np.float32)).cuda()
+        u = torch.from_numpy(rng.uniform(-1, 1, size=csr.shape[0]).astype(np.float32)).cuda()
+        z_err = over_tol(F.matvec(t, c), F._sparse_mv(t, c.double()),
+                         sk.margins_tolerance(form.indices, form.values, c))
+        g_err = over_tol(F.rmatvec(t, u), F._sparse_rmv(t, u.double()),
+                         sk.column_sum_tolerance(form.csc_row, form.csc_val, form.csc_end, u))
+        entry = {"layout": layout, "conversion_ms": statistics.median(times),
+                 "conversion_ms_all": times, "scipy_ingest_s": scipy_ingest_s,
+                 "scipy_fit": out["reference"], "same_layout_as_scipy": same_layout,
+                 "iterations": fit.result.iterations, "fg_count": passes,
+                 "value": fit.result.value.item(), "wall_s": fit.wall_s,
+                 "same_fit_as_scipy": same_fit, "kernel_launches": launches,
+                 "dense_kernel_launches": dense, "matvec_err_over_tol": z_err,
+                 "rmatvec_err_over_tol": g_err}
+        emit({"phase": "bcoo", "entry": "photon_ml_tpu_torch.models.training.train_glm",
+              "config": "bench config 7's fixed-effect matrix as a torch sparse tensor",
+              "device": kind, "nvidia_smi": smi, **entry})
+        out[layout] = entry
+        if not (same_layout and same_fit):
+            failures.append(f"{layout}: layout as scipy's {same_layout}, fit bit for bit "
+                            f"{same_fit}")
+        if not (launches["margin_loss"] == launches["column_sum"] == passes > 0
+                and launches["sq_column_sum"] == dense == 0):
+            failures.append(f"{layout}: launches {launches} (dense {dense}) for {passes} passes")
+        if not max(z_err, g_err) <= 1.0:
+            failures.append(f"{layout}: raw products off their plain versions "
+                            f"({z_err:.3g}, {g_err:.3g} of tolerance)")
+    out["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "bcoo_done", "seconds": out["seconds"]})
+    if failures:
+        raise SystemExit(f"bcoo: {failures}")
+    return out
 
 
 # --- the command-line main path (photon_ml_tpu_torch/cli) ---------------------
@@ -3265,7 +3639,7 @@ def stream_glm_phase(hk, x_np, y_np, ref_nll, kind, smi, device="cuda") -> dict:
         raise SystemExit(f"stream_glm: {prof['fused_kernel_launches']} device launches in a "
                          f"pass of {plan.num_chunks} chunks")
     return {"strict": strict_launches, "polish": polish_launches,
-            "chunks": plan.num_chunks, "local_epochs": local}
+            "chunks": plan.num_chunks, "local_epochs": local, "strict_nll": strict_nll}
 
 
 def stream_config(outer, solver_iters, budget, seed):
@@ -3648,8 +4022,10 @@ def time_lanes(hk, loss, x, y, lanes, o, w=None, keep=None):
     K lanes: the kernel, its plain version, the library call (torch.matmul
     of X and C^T plus O, the loss on [n, K], torch.matmul of X^T and w l')
     and K launches of the single fused kernel, each rep with its own
-    perturbed coefficients; with the bound (X, y, w and O read once, the
-    [K, d + 2] result written once; 4 n d K flops at the f32 peak).  With
+    perturbed coefficients; with the bound (X at its storage's bytes, y,
+    w and O read once, the [K, d + 2] result written once; 4 n d K flops
+    at the f32 peak); with a bf16 X the library's two torch.matmul take X
+    and C, then w l', in bf16 (the same bytes of X, a near function).  With
     `keep` ([K, n] bool on the card) the lanes are masked: the kernel reads
     the lane mask's words (one more [n] int32 stream in the bound), the
     library and the single launches weigh lane k's rows by w * keep_k, and
@@ -3666,14 +4042,14 @@ def time_lanes(hk, loss, x, y, lanes, o, w=None, keep=None):
     lane_o = (lambda k: None) if o is None else (lambda k: o[k])
 
     def library(c):
-        z = torch.matmul(x, c.T)
+        z = torch.matmul(x, c.to(x.dtype).T).float()
         if o is not None:
             z = z + o.T
         l, dl = loss.loss_and_dz(z, y[:, None])
         wk = lane_w.T if lane_w is not None else (None if w is None else w[:, None])
         if wk is not None:
             l, dl = l * wk, dl * wk
-        return l.sum(0), torch.matmul(x.T, dl), dl.sum(0)
+        return l.sum(0), torch.matmul(x.T, dl.to(x.dtype)), dl.sum(0)
 
     calls = {
         "ms": lambda c: hk.fused_value_and_gradient_lanes(loss, x, y, c, w, o, None, None, q),
@@ -3694,8 +4070,9 @@ def time_lanes(hk, loss, x, y, lanes, o, w=None, keep=None):
             if r >= 2:
                 times[key].append(ms)
     med = {k: statistics.median(v) for k, v in times.items()}
-    nbytes = 4 * (n * d + n + (lanes * n if o is not None else 0) + (n if w is not None else 0)
-                  + (n if q is not None else 0) + lanes * d + lanes * (d + 2))
+    nbytes = x.element_size() * n * d + 4 * (
+        n + (lanes * n if o is not None else 0) + (n if w is not None else 0)
+        + (n if q is not None else 0) + lanes * d + lanes * (d + 2))
     bound_bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     bound_ops_ms = 4 * n * d * lanes / PEAK_F32_FLOPS * 1e3
     med.update(bound_ms=max(bound_bytes_ms, bound_ops_ms),
@@ -6233,6 +6610,107 @@ def admm_problem(loss: str, a=MESH_ADMM):
     return x, y
 
 
+# config 4's fixed effect stored bf16 through fit_fixed_effect on 2x1 (ranks
+# 0-1; LBFGS, L2 1, labels and the solve in float32), held to one rank's
+# fit of the same (the GLM gate, NLL_RTOL); the ADMM lane on a bf16 grid on
+# 1x2 (ranks 2-3) must raise naming the JAX package's site
+MESH_BF16 = dict(iterations=100, tolerance=1e-7, l2=1.0)
+MESH_BF16_ADMM_SITE = "fixed_effect.py:243"
+
+
+def mesh_bf16(rank: int, c4) -> dict:
+    """This rank's part of the bf16 mesh legs: on ranks 0-1 config 4's
+    fixed effect stored bf16 through fit_fixed_effect on a 2x1 mesh (each
+    rank's staged block stays bf16 and its passes launch the fused kernel
+    on it; the wrapper's counts, zeroed before the fit), then on rank 0 the
+    same fit on one device; on ranks 2-3 the ADMM lane on a bf16 grid,
+    which raises before any collective."""
+    import torch
+    from photon_ml_tpu_torch.ops import hopper_kernels as hk
+    from photon_ml_tpu_torch.ops.losses import LOGISTIC
+    from photon_ml_tpu_torch.ops.objective import GLMObjective
+    from photon_ml_tpu_torch.optim.admm import ADMMConfig
+    from photon_ml_tpu_torch.optim.config import (
+        OptimizerConfig, RegularizationContext, RegularizationType, solve)
+    from photon_ml_tpu_torch.parallel import make_mesh
+    from photon_ml_tpu_torch.parallel.fixed_effect import (
+        fit_fixed_effect, fit_fixed_effect_admm)
+    from photon_ml_tpu_torch.parallel.mesh_residency import default_residency
+    pair = make_mesh(2, 1, device=MESH_DEVICE, ranks=[0, 1])
+    grid = make_mesh(1, 2, device=MESH_DEVICE, ranks=[2, 3])
+    f = MESH_BF16
+    l2 = RegularizationContext(RegularizationType.L2)
+    cfg = OptimizerConfig(max_iterations=f["iterations"], tolerance=f["tolerance"])
+    out = {}
+    if pair is not None:
+        train = c4[0]
+        xb = torch.as_tensor(train.feature_shards["global"], dtype=torch.float32,
+                             device=MESH_DEVICE).to(torch.bfloat16)
+        y = torch.as_tensor(train.response, dtype=torch.float32, device=MESH_DEVICE)
+        obj = GLMObjective(LOGISTIC, xb, y)
+        x0 = torch.zeros(xb.shape[1], device=MESH_DEVICE)
+        key = ("chip-bf16", rank // 2)
+        hk.LAUNCHES = hk.BF16_LAUNCHES = 0
+        calls0 = pair.stats.snapshot()
+        sync(MESH_DEVICE)
+        t0 = time.perf_counter()
+        res = fit_fixed_effect(obj, x0, pair, cfg, l2, f["l2"], residency_key=key)
+        sync(MESH_DEVICE)
+        rec = {"solve_s": time.perf_counter() - t0, "value": float(res.value),
+               "iterations": res.iterations, "fg_count": res.fg_count,
+               "launches": {"fused": hk.LAUNCHES, "fused_bf16": hk.BF16_LAUNCHES},
+               "x_digest": table_digests_of(res.x),
+               "staged_dtype": str(default_residency().stage_static(
+                   key, "rows", pair, xb, 0.0, dtype=torch.float32).dtype),
+               "collectives": pair.stats.delta(calls0, pair.stats.snapshot())}
+        if pair.rank == 0:
+            one = solve(obj, x0, cfg, l2, f["l2"])
+            rec["one_device"] = {"value": float(one.value), "iterations": one.iterations}
+        out["fit"] = rec
+    if grid is not None:
+        x, y = admm_problem("logistic")
+        xb = torch.from_numpy(x).to(MESH_DEVICE).to(torch.bfloat16)
+        try:
+            fit_fixed_effect_admm(GLMObjective(LOGISTIC, xb, torch.from_numpy(y).float()
+                                               .to(MESH_DEVICE)),
+                                  torch.zeros(x.shape[1], device=MESH_DEVICE), grid,
+                                  ADMMConfig(max_iterations=2), reg=l2, reg_weight=f["l2"],
+                                  residency_key=("chip-bf16-admm", rank))
+            out["admm"] = {"raised": None}
+        except NotImplementedError as e:
+            out["admm"] = {"raised": str(e)}
+    return out
+
+
+def mesh_bf16_check(recs, kind, smi) -> dict:
+    """The bf16 mesh legs' gates: both ranks' fits bit for bit, every pass
+    one fused launch on the rank's bf16 block (launches = fg_count, all
+    bf16), the staged block bf16, the value within NLL_RTOL of the
+    one-device fit's; the ADMM ranks both raised naming the site."""
+    fits = [recs[0]["bf16"]["fit"], recs[1]["bf16"]["fit"]]
+    admm = [recs[2]["bf16"]["admm"], recs[3]["bf16"]["admm"]]
+    one = fits[0]["one_device"]
+    gap = (fits[0]["value"] - one["value"]) / abs(one["value"])
+    part = {"phase": "mesh_bf16", "config": "BASELINE config 4's fixed effect stored bf16",
+            "shape": [2, 1], "backend": "gloo", "per_rank": fits, "rel_gap_one_device": gap,
+            "admm_1x2": admm, "device": kind, "nvidia_smi": smi}
+    emit(part)
+    if fits[0]["x_digest"] != fits[1]["x_digest"]:
+        raise SystemExit("mesh_bf16: the ranks' solutions differ")
+    for r in fits:
+        if not (r["launches"]["fused"] == r["launches"]["fused_bf16"] == r["fg_count"] > 0
+                and r["staged_dtype"] == "torch.bfloat16"):
+            raise SystemExit(f"mesh_bf16: launches {r['launches']} for {r['fg_count']} "
+                             f"passes, staged {r['staged_dtype']}")
+    if not abs(gap) <= NLL_RTOL:
+        raise SystemExit(f"mesh_bf16: value {fits[0]['value']} is {gap:.3e} from one "
+                         f"device's {one['value']}")
+    if not all(a["raised"] and MESH_BF16_ADMM_SITE in a["raised"] for a in admm):
+        raise SystemExit(f"mesh_bf16: the ADMM lane on a bf16 grid did not raise as the "
+                         f"JAX package does: {admm}")
+    return {"launches": sum(r["launches"]["fused_bf16"] for r in fits), "gap": gap}
+
+
 def table_digests(model) -> dict:
     """sha256 of every coordinate's coefficient tables (ranks compare these
     for bit equality)."""
@@ -6662,6 +7140,7 @@ def mesh_rank(rank, world, port, out_path, stream_budget) -> int:
         out["sparse"] = mesh_fit(rank, (2, 1), lambda: yahoo_setup(MESH_SPARSE_ROWS),
                                  reference=True)
         out["admm"] = mesh_admm(rank)
+        out["bf16"] = mesh_bf16(rank, c4)
         out["wall_s"] = time.perf_counter() - t0
         from photon_ml_tpu_torch.parallel import make_mesh
         t1 = time.perf_counter()
@@ -7240,6 +7719,7 @@ def mesh_phase(glmix_history, glmix_ref, glmix_residency, kind, smi) -> dict:
         spa = mesh_leg_check("sparse", [recs[0]["sparse"], recs[1]["sparse"]],
                              MESH_SPARSE_RTOL, kind, smi, sparse=True)
         mesh_admm_check(recs, kind, smi)
+        b16 = mesh_bf16_check(recs, kind, smi)
         sc4 = mesh_stream_config4_check([recs[0]["stream_config4"],
                                          recs[1]["stream_config4"]], glmix_ref, kind, smi)
         ms = mesh_streamed_check([recs[2]["mesh_streamed"], recs[3]["mesh_streamed"]],
@@ -7264,6 +7744,7 @@ def mesh_phase(glmix_history, glmix_ref, glmix_residency, kind, smi) -> dict:
                       "mesh_stream_config4_2x1": stream_launches(sc4),
                       "mesh_streamed": stream_launches(ms),
                       "mesh_stream_cli": scli["launches"]},
+            "fused_bf16": {"mesh_bf16_2x1": b16["launches"]},
             "stream_block": None if sc4["timing"] is None else {
                 **sc4["timing"], "launches_per_rank_pass": sc4["chunks"],
                 "launches": stream_launches(sc4)},
@@ -7283,7 +7764,11 @@ def sparse_kernel_entry(name: str, part: str, c6: dict, c7: dict,
                for path, launches in (("config6", c6["launches"]),
                                       ("yahoo_glmix", c7["launches"]),
                                       ("cli_avro", cli_avro),
-                                      ("mesh_sparse", mesh))}
+                                      ("mesh_sparse", mesh),
+                                      ("bcoo_scipy_reference",
+                                       c7["bcoo"]["reference"]["kernel_launches"]),
+                                      *((f"bcoo_{layout}", c7["bcoo"][layout]["kernel_launches"])
+                                        for layout in BCOO_LAYOUTS))}
     t6, t7 = c6["timing"][part], c7["timing"][part]
     pick = lambda t: {k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                         "share_of_bound", "ms_over_library",
@@ -7313,6 +7798,8 @@ def sparse_kernel_entry(name: str, part: str, c6: dict, c7: dict,
            if part == "a" else {}),
         "whole_pass": {"config6": pick(c6["timing"]["pass"]),
                        "config7": pick(c7["timing"]["pass"])},
+        "bcoo_conversion_ms": {layout: c7["bcoo"][layout]["conversion_ms"]
+                               for layout in BCOO_LAYOUTS},
     }
 
 
@@ -7570,7 +8057,7 @@ def main() -> int:
     t0 = time.perf_counter()
     compiled = _build.build_all()
     ptxas = {name: ptxas_summary(_build.library_path(name).with_suffix(".log").read_text())
-             for name in _build.SIGNATURES}
+             for name in _build.LIBRARIES}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "compiled": compiled, "ptxas": ptxas})
 
@@ -7839,7 +8326,8 @@ def main() -> int:
 
     c6 = config6_phase(hk, sk, ref_cache, kind, smi)
     # --- bf16 feature storage: configs 1 and 6 on the data held above --------
-    bf16 = bf16_phase(hk, sk, x_np, y_np, ref_nll, c6, losses, kind, smi, sms)
+    bf16 = bf16_phase(hk, sk, x_np, y_np, ref_nll, c6, losses, kind, smi, sms,
+                      g_train=g_train, stream_nll=stream_glm["strict_nll"])
     c7 = yahoo_phase(hk, sk, ref_cache, kind, smi)
     c5 = config5_phase(hk, ref_cache, kind, smi, sms)
 
@@ -7977,7 +8465,7 @@ def main() -> int:
     }] + [sparse_kernel_entry(name, part, c6, c7, cli_avro, mesh) for name, part in (
         ("ell_margin_loss", "a"), ("csc_column_sum", "b"))] + [lanes_kernel_entry(
             lanes_timing, sweep_counts["lanes"], cli_diagnose["bootstrap"])]
-        + bf16_kernel_entries(bf16),
+        + bf16_kernel_entries(bf16, mesh["fused_bf16"]),
         "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

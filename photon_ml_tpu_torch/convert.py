@@ -2,8 +2,13 @@
 
 The JAX package's models and normalization contexts hold jax arrays; pass
 them through `np.asarray(...)` and these build the port's counterparts on
-a device (None means cuda): GLMs, normalization contexts, GAME models and
-PaddedSparse feature matrices.
+a device (None means cuda): GLMs, normalization contexts, GAME models,
+PaddedSparse feature matrices and sparse COO/CSR tensors (a BCOO's data,
+indices and shape).  numpy holds no bf16 here, so a bf16 array comes as
+its uint16 bits (or as an extension bfloat16 array): `bf16_from_numpy`
+makes the port's host tensor of it, and only that tensor (or the
+extension array) is taken as bf16 (data/streaming.py `bf16_bits` gives
+the bits back); a plain uint16 array stays integers.
 Nothing here imports the JAX package.
 """
 from __future__ import annotations
@@ -51,6 +56,42 @@ def padded_sparse_from_numpy(indices, values, num_cols: int, csc_row=None,
     return PaddedSparse(_tensor(indices, dev), _tensor(values, dev), int(num_cols),
                         _tensor(csc_row, dev), _tensor(csc_val, dev),
                         _tensor(csc_end, dev), _tensor(tiles, dev))
+
+
+def bf16_from_numpy(bits) -> torch.Tensor:
+    """A bf16 host block from its bits (a uint16 array, or an array of an
+    extension bfloat16 dtype) as a CPU torch.bfloat16 tensor sharing its
+    memory (a copy only when the array is not contiguous)."""
+    a = np.asarray(bits)
+    if a.dtype != np.uint16 and a.dtype.name != "bfloat16":
+        raise TypeError(f"bf16 bits come as uint16 (or bfloat16); got {a.dtype}")
+    u16 = np.ascontiguousarray(a).view(np.uint16)
+    return torch.from_numpy(u16.view(np.int16)).view(torch.bfloat16)
+
+
+def sparse_from_numpy(data, indices, shape, layout: str = "coo", device=None):
+    """A sparse tensor from a BCOO's (data [nnz], indices [nnz, 2], shape)
+    as numpy arrays: layout "coo" keeps the entries as they are (every
+    product sums duplicates, as a BCOO's do), "csr" coalesces them into
+    CSR.  bf16 data comes as a CPU torch.bfloat16 tensor (raw bits through
+    `bf16_from_numpy`) or an extension bfloat16 array and gives bf16
+    values; unsigned integers widen to int64 (torch's sparse ops take no
+    uint16 or uint32) and every other array keeps its dtype."""
+    if layout not in ("coo", "csr"):
+        raise ValueError(f"layout is 'coo' or 'csr'; got {layout!r}")
+    dev = resolve_device(device)
+    if isinstance(data, torch.Tensor):
+        vals = data.cpu()
+    else:
+        data = np.asarray(data)
+        if data.dtype.name == "bfloat16":
+            vals = bf16_from_numpy(data)
+        else:
+            vals = torch.from_numpy(np.array(data, np.int64 if data.dtype.kind == "u" else None))
+    idx = torch.from_numpy(np.asarray(indices, dtype=np.int64).reshape(-1, 2).T.copy())
+    coo = torch.sparse_coo_tensor(idx, vals, tuple(int(s) for s in shape),
+                                  check_invariants=True).to(dev)
+    return coo if layout == "coo" else coo.coalesce().to_sparse_csr()
 
 
 def game_model_from_numpy(task_type: str, coordinates: Dict[str, dict],

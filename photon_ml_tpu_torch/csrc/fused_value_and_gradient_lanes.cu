@@ -93,19 +93,41 @@
 // the kernel that reads it is its own instantiation (LM = true), so the
 // sweep's instantiations (LM = false) are the ones they were.
 //
+// bfloat16 storage: X's element type XT is a template parameter (float or
+// __nv_bfloat16), as in the single fused kernel; every other operand stays
+// float32.  The ring holds X's 2-byte elements as they are (a stage's X
+// tile is half as large), the bulk copy takes the tile's 16-byte aligned
+// interior and the producer lane copies the <= 7 elements at either ragged
+// end by ordinary 2-byte loads and stores, which the stage's full barrier
+// orders like the rest (its arrive releases them).  A bf16 value is exact
+// in TF32 (8 significand bits of TF32's 11), so X enters both products as
+// a native operand: its TF32 bits are the bf16 bits shifted up, its lo
+// part is zero, and of the three products of the float32 path the one
+// that takes X's lo is dropped (lo hi of C and S stays).
+//
 // LANES_PHASES (scripts/lanes_sweep.py builds the ablations): 1 = the
 // ring alone (consumers wait for each tile and release it), 2 = the ring,
 // the margins and the loss, 3 = the whole pass (the default).
 //
-// Plain C interface, bound with ctypes.  Build (sm_90a):
+// Plain C interface, bound with ctypes.  Build (sm_90a; add
+// -DLANES_XBYTES=2 for the bf16 X library):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
 //        -Xcompiler -fPIC -o libfused_value_and_gradient_lanes.so \
 //        fused_value_and_gradient_lanes.cu
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #ifndef LANES_PHASES
 #define LANES_PHASES 3
+#endif
+
+// X's element size this library's instantiations take: 4 (float) or, built
+// with -DLANES_XBYTES=2, 2 (__nv_bfloat16).  ops/_build.py builds both
+// libraries from this source, side by side, so neither build carries the
+// other's instantiations; the entry refuses the other size.
+#ifndef LANES_XBYTES
+#define LANES_XBYTES 4
 #endif
 
 namespace {
@@ -212,10 +234,10 @@ __host__ __device__ inline int grad_slots(int d, int rows) {
 }
 
 // Shared memory, in floats from the (16-byte aligned) base: `stages`
-// stages of [X tile (rows d + 3) | y | w | m | O (K runs) | q (with a lane
-// mask)], each array on
-// 16 bytes with 3 floats of room (element k of a span sits at its phase +
-// k); after the last tile the gradient's per-warp sums reuse the ring
+// stages of [X tile (rows d elements of xbytes bytes, and 16 - xbytes
+// bytes of room) | y | w | m | O (K runs) | q (with a lane mask)], each
+// array on 16 bytes with room for its phase (element k of a span sits at
+// its phase + k); after the last tile the gradient's per-warp sums reuse the ring
 // (cf is past whichever is larger); then C in B-fragment order
 // [ceil(d / 8) chunks][n-tiles][32][2], the partial margins [split][16 m-
 // tiles][zp_row floats], s in B-fragment order
@@ -227,10 +249,10 @@ struct Layout {
 };
 
 __host__ __device__ inline Layout smem_layout(int d, int lanes, int rows, int stages,
-                                              bool lane_mask) {
+                                              bool lane_mask, int xbytes) {
   Layout L;
   const int kp = 8 * lane_tiles(lanes);
-  L.stage_x = round4(rows * d + 3);
+  L.stage_x = round4((xbytes * rows * d + 19 - xbytes) / 4);
   L.stage_v = round4(rows + 3);
   L.stage = L.stage_x + (3 + lanes + (lane_mask ? 1 : 0)) * L.stage_v;
   const int ring = stages * L.stage;
@@ -244,26 +266,29 @@ __host__ __device__ inline Layout smem_layout(int d, int lanes, int rows, int st
   return L;
 }
 
-// The 16-byte aligned interior [a, b) of the byte span of `count` floats
-// at `src`.  Element k of the span lives at buf[phase + k].
+// The 16-byte aligned interior [a, b) of the byte span of `count`
+// elements of `es` bytes (4, or 2 for a bf16 X) at `src`.  Element k of
+// the span lives at element phase + k of its buffer.
 struct Span {
-  const float* src;
-  int count, phase, head, tail;  // head: floats before a; tail: first float at/after b
+  const char* src;
+  int es;
+  int count, phase, head, tail;  // head: elements before a; tail: first element at/after b
   uint32_t bytes;                // b - a, 0 when there is no aligned interior
 };
 
-__device__ __forceinline__ Span span_of(const float* src, int count) {
+__device__ __forceinline__ Span span_of(const void* src, int count, int es = 4) {
   Span s;
-  s.src = src;
+  s.src = static_cast<const char*>(src);
+  s.es = es;
   s.count = count;
   const uintptr_t lo = reinterpret_cast<uintptr_t>(src);
-  const uintptr_t hi = lo + 4ull * (uint64_t)count;
+  const uintptr_t hi = lo + (uint64_t)es * (uint64_t)count;
   const uintptr_t a = (lo + 15) & ~uintptr_t(15);
   const uintptr_t b = hi & ~uintptr_t(15);
-  s.phase = (int)((lo >> 2) & 3);
+  s.phase = (int)((lo & 15) / es);
   if (src != nullptr && b > a) {
-    s.head = (int)((a - lo) >> 2);
-    s.tail = (int)((b - lo) >> 2);
+    s.head = (int)((a - lo) / es);
+    s.tail = (int)((b - lo) / es);
     s.bytes = (uint32_t)(b - a);
   } else {
     s.head = count;
@@ -310,13 +335,14 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
-// Copy the aligned interior of `s` into buf (element k at buf[phase + k]).
-__device__ __forceinline__ void bulk_load(float* buf, const Span& s, uint64_t* bar) {
+// Copy the aligned interior of `s` into buf (element k at element
+// phase + k of buf).
+__device__ __forceinline__ void bulk_load(char* buf, const Span& s, uint64_t* bar) {
   if (s.bytes == 0) return;
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
-      ::"r"(smem_addr(buf + s.phase + s.head)), "l"(s.src + s.head), "r"(s.bytes),
-      "r"(smem_addr(bar))
+      ::"r"(smem_addr(buf + (s.phase + s.head) * s.es)), "l"(s.src + s.head * s.es),
+      "r"(s.bytes), "r"(smem_addr(bar))
       : "memory");
 }
 
@@ -326,13 +352,23 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
                : "memory");
 }
 
-// The floats of `s` the bulk copy cannot take (<= 3 at either end), by
-// 4-byte cp.async copies of one thread, which `bar` then tracks: the
+// One element of a span's ragged end: a 4-byte cp.async copy, or for a
+// 2-byte element (cp.async copies 4 bytes or more) an ordinary load and
+// store, which the stage's full barrier orders (the lane arrives on it
+// after its stores).
+__device__ __forceinline__ void copy_edge(char* buf, const Span& s, int k) {
+  char* dst = buf + (s.phase + k) * s.es;
+  if (s.es == 4) cp_async4(reinterpret_cast<float*>(dst),
+                           reinterpret_cast<const float*>(s.src) + k);
+  else *reinterpret_cast<uint16_t*>(dst) = reinterpret_cast<const uint16_t*>(s.src)[k];
+}
+
+// The elements of `s` the bulk copy cannot take (<= 16 / es - 1 at either
+// end), copied by one thread; `bar` tracks the cp.async copies, so the
 // thread goes on without waiting for them.
-__device__ __forceinline__ void load_edges(float* buf, const Span& s, uint64_t* bar) {
-  for (int k = 0; k < s.head; ++k) cp_async4(buf + s.phase + k, s.src + k);
-  for (int k = s.tail > s.head ? s.tail : s.head; k < s.count; ++k)
-    cp_async4(buf + s.phase + k, s.src + k);
+__device__ __forceinline__ void load_edges(char* buf, const Span& s, uint64_t* bar) {
+  for (int k = 0; k < s.head; ++k) copy_edge(buf, s, k);
+  for (int k = s.tail > s.head ? s.tail : s.head; k < s.count; ++k) copy_edge(buf, s, k);
   asm volatile("cp.async.mbarrier.arrive.shared::cta.b64 [%0];" ::"r"(smem_addr(bar)) : "memory");
 }
 
@@ -360,26 +396,40 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
 // lo hi + hi lo (2^-11 of it) summed into small on the tensor cores.  (The
 // tensor cores' own sums round toward zero: a long chain of them drifts
 // one way, one group of 8 terms at most an ulp; in small that drift is
-// 2^-11 smaller.)
+// 2^-11 smaller.)  SPLIT_A false: a is exact in TF32 (a bf16 X), al is
+// zero and its product is not taken.
+template <bool SPLIT_A>
 __device__ __forceinline__ void mma3(float (&big)[4], float (&small)[4], const uint32_t (&ah)[4],
                                      const uint32_t (&al)[4], const uint32_t (&bh)[2],
                                      const uint32_t (&bl)[2]) {
   float t[4] = {0.0f, 0.0f, 0.0f, 0.0f};
   mma_tf32(t, ah, bh);
-  mma_tf32(small, al, bh);
+  if constexpr (SPLIT_A) mma_tf32(small, al, bh);
   mma_tf32(small, ah, bl);
 #pragma unroll
   for (int e = 0; e < 4; ++e) big[e] += t[e];
 }
 
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+
 // X_tile[r][col], 0 past the tile's rows or X's columns
-__device__ __forceinline__ float x_at(const float* xs, int r, int col, int nr, int d) {
-  return (r < nr && col < d) ? xs[r * d + col] : 0.0f;
+template <typename XT>
+__device__ __forceinline__ float x_at(const XT* xs, int r, int col, int nr, int d) {
+  return (r < nr && col < d) ? to_f(xs[r * d + col]) : 0.0f;
+}
+
+// An X entry as the A operand: float32 split into TF32 hi and lo; a bf16
+// value's float32 bits are already TF32 (lo = 0, never read)
+template <typename XT>
+__device__ __forceinline__ void split_x(float v, uint32_t& hi, uint32_t& lo) {
+  if constexpr (sizeof(XT) == 4) split_tf32(v, hi, lo);
+  else hi = __float_as_uint(v);
 }
 
 // The kernel's operands.  w, o, m, b and q may be null.
 struct Args {
-  const float* x;        // [n, d] row-major
+  const void* x;         // [n, d] row-major, float or __nv_bfloat16
   const float* y;        // [n]
   const float* w;        // [n]
   const float* o;        // [K, n]
@@ -392,13 +442,15 @@ struct Args {
   float* out;            // [K, d + 2] = [value_k, grad_k, swl_k]
   int64_t n;
   int loss, d, lanes, rows, stages;
+  int xbytes;            // X's element size: 4 (float) or 2 (__nv_bfloat16)
 };
 
 // Span j of the tile of nr rows at r0: 0 = X, 1, 2, 3 = y, w, m, 4 + k =
 // lane k's run of O, 4 + K = q; empty where the operand is null or past K.
 __device__ __forceinline__ Span tile_span(const Args& a, int j, int64_t r0, int nr) {
   const float* src = nullptr;
-  if (j == 0) return span_of(a.x + r0 * a.d, nr * a.d);
+  if (j == 0)
+    return span_of(static_cast<const char*>(a.x) + r0 * a.d * a.xbytes, nr * a.d, a.xbytes);
   if (j < 4) src = j == 1 ? a.y : (j == 2 ? a.w : a.m);
   else if (a.o != nullptr && j - 4 < a.lanes) src = a.o + (int64_t)(j - 4) * a.n;
   else if (a.q != nullptr && j - 4 == a.lanes) src = reinterpret_cast<const float*>(a.q);
@@ -415,14 +467,16 @@ __device__ __forceinline__ int phase_of(const float* p) {
 }
 
 // NT: n-tiles of 8 lanes (lane_tiles(K)); NSLOT: gradient m-tiles a warp
-// accumulates, >= grad_slots(d, rows); LM: a lane mask q is given.
-template <int NT, int NSLOT, bool LM>
+// accumulates, >= grad_slots(d, rows); LM: a lane mask q is given; XT:
+// X's element type, float or __nv_bfloat16.
+template <int NT, int NSLOT, bool LM, typename XT>
 __global__ void __launch_bounds__(kThreads, 1) lanes_value_gradient(const Args a) {
+  constexpr bool kSplitX = sizeof(XT) == 4;
   extern __shared__ __align__(16) float smem[];
   __shared__ bool is_last;
   const int64_t n = a.n;
   const int d = a.d, lanes = a.lanes, rows = a.rows, stages = a.stages;
-  const Layout L = smem_layout(d, lanes, rows, stages, LM);
+  const Layout L = smem_layout(d, lanes, rows, stages, LM, (int)sizeof(XT));
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bars);
   uint64_t* empty = full + stages;
   float* cf = smem + L.cf;
@@ -476,7 +530,7 @@ __global__ void __launch_bounds__(kThreads, 1) lanes_value_gradient(const Args a
         else mbar_arrive_expect_tx(&full[stage], bytes);
       }
       __syncwarp();
-      float* buf = smem + stage * L.stage + stage_offset(L, lane);
+      char* buf = reinterpret_cast<char*>(smem + stage * L.stage + stage_offset(L, lane));
       // this lane's earlier writes into the ring come before its bulk copy
       asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
       bulk_load(buf, sp, &full[stage]);
@@ -512,7 +566,9 @@ __global__ void __launch_bounds__(kThreads, 1) lanes_value_gradient(const Args a
       mbar_wait(&full[stage], parity);
       const int nr = (int)min64(rows, n - r0);
       const float* buf = smem + stage * L.stage;
-      const float* xs = buf + phase_of(a.x + r0 * d);
+      const XT* xs = reinterpret_cast<const XT*>(buf) +
+                     (int)((reinterpret_cast<uintptr_t>(static_cast<const XT*>(a.x) + r0 * d) & 15) /
+                           sizeof(XT));
 #if LANES_PHASES >= 2
       // margins: Z = X_tile C^T, this warp's m-tiles over its column slice
       for (int mi = 0; mi < m_count; ++mi) {
@@ -525,10 +581,10 @@ __global__ void __launch_bounds__(kThreads, 1) lanes_value_gradient(const Args a
           const int ca = 8 * c + tig, cb = ca + 4;
           float v[4];
           if (rows_in && 8 * c + 8 <= d) {  // the same on the whole warp
-            v[0] = xs[ra * d + ca];
-            v[1] = xs[rb * d + ca];
-            v[2] = xs[ra * d + cb];
-            v[3] = xs[rb * d + cb];
+            v[0] = to_f(xs[ra * d + ca]);
+            v[1] = to_f(xs[rb * d + ca]);
+            v[2] = to_f(xs[ra * d + cb]);
+            v[3] = to_f(xs[rb * d + cb]);
           } else {
             v[0] = x_at(xs, ra, ca, nr, d);
             v[1] = x_at(xs, rb, ca, nr, d);
@@ -537,14 +593,14 @@ __global__ void __launch_bounds__(kThreads, 1) lanes_value_gradient(const Args a
           }
           uint32_t ah[4], al[4];
 #pragma unroll
-          for (int e = 0; e < 4; ++e) split_tf32(v[e], ah[e], al[e]);
+          for (int e = 0; e < 4; ++e) split_x<XT>(v[e], ah[e], al[e]);
 #pragma unroll
           for (int j = 0; j < NT; ++j) {
             const float2 cv = reinterpret_cast<const float2*>(cf)[(c * NT + j) * 32 + lane];
             uint32_t bh[2], bl[2];
             split_tf32(cv.x, bh[0], bl[0]);
             split_tf32(cv.y, bh[1], bl[1]);
-            mma3(z[j], zs[j], ah, al, bh, bl);
+            mma3<kSplitX>(z[j], zs[j], ah, al, bh, bl);
           }
         }
         float* zo = zp + m_part * zstride;
@@ -624,10 +680,10 @@ __global__ void __launch_bounds__(kThreads, 1) lanes_value_gradient(const Args a
             const int ra = 8 * q + tig, rb = ra + 4;
             float v[4];
             if (cols_in && 8 * q + 8 <= nr) {  // the same on the whole warp
-              v[0] = xs[ra * d + ca];
-              v[1] = xs[ra * d + cb];
-              v[2] = xs[rb * d + ca];
-              v[3] = xs[rb * d + cb];
+              v[0] = to_f(xs[ra * d + ca]);
+              v[1] = to_f(xs[ra * d + cb]);
+              v[2] = to_f(xs[rb * d + ca]);
+              v[3] = to_f(xs[rb * d + cb]);
             } else {
               v[0] = x_at(xs, ra, ca, nr, d);
               v[1] = x_at(xs, ra, cb, nr, d);
@@ -636,14 +692,14 @@ __global__ void __launch_bounds__(kThreads, 1) lanes_value_gradient(const Args a
             }
             uint32_t ah[4], al[4];
 #pragma unroll
-            for (int e = 0; e < 4; ++e) split_tf32(v[e], ah[e], al[e]);
+            for (int e = 0; e < 4; ++e) split_x<XT>(v[e], ah[e], al[e]);
 #pragma unroll
             for (int j = 0; j < NT; ++j) {
               const float2* s2 = reinterpret_cast<const float2*>(sf) + (q * NT + j) * 64 + lane;
               const float2 sh = s2[0], sl = s2[32];
               const uint32_t bh[2] = {__float_as_uint(sh.x), __float_as_uint(sh.y)};
               const uint32_t bl[2] = {__float_as_uint(sl.x), __float_as_uint(sl.y)};
-              mma3(acc[j], accs[j], ah, al, bh, bl);
+              mma3<kSplitX>(acc[j], accs[j], ah, al, bh, bl);
             }
           }
 #pragma unroll
@@ -730,13 +786,23 @@ __global__ void __launch_bounds__(kThreads, 1) lanes_value_gradient(const Args a
   if (t == 0) *a.ticket = 0u;  // ready for the next call on this stream
 }
 
+template <int NT, int NSLOT, bool LM, typename XT>
+cudaError_t launch_as(const Args& a, int grid, int smem, cudaStream_t stream) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      lanes_value_gradient<NT, NSLOT, LM, XT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return e;
+  lanes_value_gradient<NT, NSLOT, LM, XT><<<grid, kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
 template <int NT, int NSLOT, bool LM>
 cudaError_t launch(const Args& a, int grid, int smem, cudaStream_t stream) {
-  const cudaError_t e = cudaFuncSetAttribute(
-      lanes_value_gradient<NT, NSLOT, LM>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return e;
-  lanes_value_gradient<NT, NSLOT, LM><<<grid, kThreads, smem, stream>>>(a);
-  return cudaGetLastError();
+#if LANES_XBYTES == 2
+  return launch_as<NT, NSLOT, LM, __nv_bfloat16>(a, grid, smem, stream);
+#else
+  return launch_as<NT, NSLOT, LM, float>(a, grid, smem, stream);
+#endif
 }
 
 template <bool LM>
@@ -769,7 +835,9 @@ extern "C" {
 // scratch; ticket: one zeroed uint32 that every launch leaves zeroed; out:
 // [K, d + 2] = [value_k, grad_k[0..d), swl_k].  w, o ([K, n]), m (row
 // mask), b ([K] margin shifts) and q (lane mask, uint32 [n]) may be null.
-int pmt_fused_value_and_gradient_lanes(int loss, const void* x, const void* y,
+// xbytes: X's element size, LANES_XBYTES (4, float32; 2, bfloat16, in the
+// library built with -DLANES_XBYTES=2); every other operand is float32.
+int pmt_fused_value_and_gradient_lanes(int loss, int xbytes, const void* x, const void* y,
                                        const void* w, const void* o, const void* m,
                                        const void* b, const void* q, const void* c,
                                        void* partial,
@@ -781,15 +849,15 @@ int pmt_fused_value_and_gradient_lanes(int loss, const void* x, const void* y,
                        (mt < kConsumerWarps ? (mt & (mt - 1)) == 0 : mt % kConsumerWarps == 0);
   if (n < 0 || d < 1 || lanes < 1 || lanes > kMaxLanes || !rows_ok || stages < 2 ||
       grid < 1 || loss < kLogistic || loss > kSmoothedHinge || grad_slots(d, rows) > slots ||
-      smem_bytes > kMaxSmem ||
-      smem_layout(d, lanes, rows, stages, q != nullptr).bytes != smem_bytes)
+      xbytes != LANES_XBYTES || smem_bytes > kMaxSmem ||
+      smem_layout(d, lanes, rows, stages, q != nullptr, xbytes).bytes != smem_bytes)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{static_cast<const float*>(x), static_cast<const float*>(y),
+  const Args a{x, static_cast<const float*>(y),
                static_cast<const float*>(w), static_cast<const float*>(o),
                static_cast<const float*>(m), static_cast<const float*>(b),
                static_cast<const uint32_t*>(q), static_cast<const float*>(c),
                static_cast<float*>(partial), static_cast<unsigned int*>(ticket),
-               static_cast<float*>(out), n, loss, d, lanes, rows, stages};
+               static_cast<float*>(out), n, loss, d, lanes, rows, stages, xbytes};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(q != nullptr ? dispatch<true>(slots, a, grid, smem_bytes, st)
                                        : dispatch<false>(slots, a, grid, smem_bytes, st));

@@ -195,6 +195,32 @@ class ChunkPlan:
                          chunks=tuple(chunks))
 
 
+def bf16_bits(x) -> Optional[np.ndarray]:
+    """The 2-byte bits of a bf16 host block as a uint16 array (a view,
+    made contiguous when x is not), or None for any other block.  A bf16
+    block comes in a form that carries its type: a CPU torch.bfloat16
+    tensor (`convert.bf16_from_numpy` makes one of raw bits; numpy here
+    holds no bf16) or a numpy array of an extension bfloat16 dtype.  A
+    plain uint16 array is integers, not bits.  The bits are staged as they
+    are and reinterpreted as bf16 on the device (`.view(torch.bfloat16)`):
+    no wider copy is made."""
+    if isinstance(x, torch.Tensor):
+        if x.dtype != torch.bfloat16 or x.device.type != "cpu":
+            return None
+        return x.contiguous().view(torch.int16).numpy().view(np.uint16)
+    if isinstance(x, np.ndarray) and x.dtype.name == "bfloat16":
+        return np.ascontiguousarray(x).view(np.uint16)
+    return None
+
+
+def stream_row_bytes(d: int, x_bytes: int, leaf_bytes: int) -> int:
+    """Bytes one row of a streamed chunk stages: X's d elements at
+    `x_bytes` each (2 for a bf16 block's bits) and the four [n] streams
+    (labels, weights, offsets, mask) at `leaf_bytes`; ChunkPlan.build's
+    `bytes_per_row`."""
+    return d * x_bytes + 4 * leaf_bytes
+
+
 def pad_rows_host(a: np.ndarray, rows: int, fill) -> np.ndarray:
     """Host-side row pad of a [r, ...] slice to [rows, ...] with `fill`."""
     r = a.shape[0]

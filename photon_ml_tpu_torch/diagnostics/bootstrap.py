@@ -13,7 +13,10 @@ with the member matrix as its lane mask: on the card one launch of the
 lanes kernel per pass for up to max_lanes(d) replicas, each lane's weights
 w * member_k read as one bit per row.  The holdout margins are one matrix
 product of X and the replicas' coefficients, read back once; the metrics
-run on the host.
+run on the host.  A bf16 X keeps its bf16 storage, and the replicas'
+labels, weights, offsets and state take X's dtype, as the JAX package's
+do (photon_ml_tpu/diagnostics/bootstrap.py:112-126): each pass runs in
+float32 and its results are rounded to bf16 (ops/lanes.py).
 """
 from __future__ import annotations
 
@@ -142,10 +145,12 @@ def bootstrap_training(
         lane_keep=torch.from_numpy(member).to(device))
     res = batched.solve(oracle.value_and_gradient, x0, optimizer_config, regularization,
                         lam, loss=loss, hessian_vector_at=oracle.hessian_vector_at)
-    coefs = res.x.cpu().numpy()                     # [k, d]
+    # numpy holds no bf16: a bf16 state's values come to the host widened
+    host = lambda t: (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+    coefs = host(res.x)                             # [k, d]
 
     # holdout metrics per replica (host-side reporting loop)
-    margins_all = lanes_matvec(x, res.x).cpu().numpy()   # [k, n]
+    margins_all = host(lanes_matvec(x, res.x))      # [k, n]
     if offsets is not None:
         margins_all = margins_all + np.asarray(offsets)
     per_metric: Dict[str, List[float]] = {}

@@ -53,6 +53,7 @@ from photon_ml_tpu_torch.data.batching import (
 from photon_ml_tpu_torch.data.game_data import GameDataset
 from photon_ml_tpu_torch.data.samplers import downsampler_for_task
 from photon_ml_tpu_torch.data.stats import BasicStatisticalSummary
+from photon_ml_tpu_torch.data.streaming import stream_row_bytes
 from photon_ml_tpu_torch.game.config import (
     FactoredRandomEffectCoordinateConfig, FixedEffectCoordinateConfig,
     RandomEffectCoordinateConfig,
@@ -142,7 +143,7 @@ class FixedEffectCoordinate:
         self.dim = host_x.shape[1]
         sparse = not isinstance(host_x, np.ndarray)
         itemsize = torch.empty((), dtype=dtype).element_size()
-        self._row_bytes = (self.dim + 4) * itemsize
+        self._row_bytes = stream_row_bytes(self.dim, itemsize, itemsize)
         # each rank holds 1/D of the rows: budgets are per device
         data_div = 1 if mesh is None else mesh.num_data
         feature_div = 1 if mesh is None else mesh.num_feature

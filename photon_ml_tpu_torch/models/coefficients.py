@@ -16,7 +16,8 @@ class Coefficients:
     variances: Optional[torch.Tensor] = None
 
     def compute_score(self, x: torch.Tensor) -> torch.Tensor:
-        """x may be one row [d] or a feature matrix [n, d]."""
+        """x may be one row [d] or a feature matrix [n, d] (dense, a
+        PaddedSparse or a sparse COO/CSR tensor)."""
         if x.ndim == 1:
             return torch.dot(x, self.means)
         from photon_ml_tpu_torch.ops import features as fops

@@ -64,13 +64,14 @@ def train_glm(
     """Train one GLM per regularization weight, strongest first with warm
     starts.  Returns models in ORIGINAL feature space.
 
-    x may be a dense array or tensor, a scipy.sparse matrix or a
+    x may be a dense array or tensor, a scipy.sparse matrix, a sparse
+    COO/CSR tensor (converted on its own device, ops/features.py) or a
     PaddedSparse; labels, weights and offsets arrays or tensors.  All are
     moved to `device` (None means cuda, which raises when CUDA is absent);
     a sparse x gets the column view its gradient needs (ops/features.py
     as_feature_matrix).  The computation runs in the labels' dtype (float32
     if they are not floating), and features are cast to it, except bf16
-    features (a bf16 dense tensor or PaddedSparse): they stay bf16, as the
+    features (a bf16 dense tensor, sparse tensor or PaddedSparse): they stay bf16, as the
     JAX package's train_glm leaves x as given, and every product promotes
     them exactly (the kernels read them as bf16).  Variances
     (`compute_variances`) come from the Hessian diagonal, sq_rmatvec on a

@@ -1,7 +1,9 @@
 """Build and load the port's CUDA kernels.
 
 Each source under photon_ml_tpu_torch/csrc/ is compiled by `nvcc` into a
-shared library with a plain C interface and loaded with ctypes.  The build
+shared library with a plain C interface and loaded with ctypes; a variant
+(`VARIANTS`) is one more library from a source with flags of its own, so
+its instantiations compile beside the source's in a second nvcc.  The build
 runs at first use, into build/photon_ml_tpu_torch/ at the root of the
 checkout, and again whenever the source or the flags change (the library's
 file name carries their hash).  Nothing here runs at import time.
@@ -34,7 +36,7 @@ SIGNATURES = {
     },
     "fused_value_and_gradient_lanes": {
         "pmt_fused_value_and_gradient_lanes":
-            (_I, [_I] + [_P] * 11 + [_LL] + [_I] * 7 + [_P]),
+            (_I, [_I, _I] + [_P] * 11 + [_LL] + [_I] * 7 + [_P]),
         "pmt_lanes_error_string": (ctypes.c_char_p, [_I]),
     },
     "ell_sparse": {
@@ -43,6 +45,18 @@ SIGNATURES = {
         "pmt_ell_error_string": (ctypes.c_char_p, [_I]),
     },
 }
+
+
+# library -> (its source, extra nvcc flags): the lanes kernel's bf16 X
+# instantiations, compiled apart from its float32 ones, so the two halves
+# build side by side
+VARIANTS = {"fused_value_and_gradient_lanes_bf16":
+            ("fused_value_and_gradient_lanes", ("-DLANES_XBYTES=2",))}
+LIBRARIES = tuple(SIGNATURES) + tuple(VARIANTS)
+
+
+def _source(name: str) -> Tuple[str, Tuple[str, ...]]:
+    return VARIANTS.get(name, (name, ()))
 
 
 def nvcc_path() -> str:
@@ -60,8 +74,9 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    source, extra = _source(name)
+    src = (CSRC / f"{source}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS + extra).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
@@ -77,7 +92,7 @@ def _report(library: str, nvcc: bool, seconds: float) -> None:
     core.note_kernel_library(library, nvcc, seconds)
 
 
-def build_all(names=tuple(SIGNATURES)) -> Dict[str, float]:
+def build_all(names=LIBRARIES) -> Dict[str, float]:
     """Compile every stale library, one nvcc per source, all started
     together.  Returns {name: seconds} for the sources it compiled; the
     compiler's register/shared-memory report lands beside each library as
@@ -97,7 +112,8 @@ def _build_stale(names) -> Dict[str, float]:
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         log = open(out.with_suffix(".log"), "w")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        source, extra = _source(name)
+        cmd = [nvcc_path(), *NVCC_FLAGS, *extra, "-o", str(tmp), str(CSRC / f"{source}.cu")]
         jobs[name] = (subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT),
                       tmp, out, log, clock())
     seconds = {}
@@ -123,7 +139,7 @@ def load_library(name: str) -> ctypes.CDLL:
     t0 = clock()
     built = _build_stale((name,))
     lib = ctypes.CDLL(str(library_path(name)))
-    for fn, (restype, argtypes) in SIGNATURES[name].items():
+    for fn, (restype, argtypes) in SIGNATURES[_source(name)[0]].items():
         f = getattr(lib, fn)
         f.restype = restype
         f.argtypes = argtypes

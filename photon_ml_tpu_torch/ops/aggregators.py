@@ -17,6 +17,8 @@ every `KroneckerDesign` (the latent refit's implicit design: two matrix
 products, as the JAX package computes it outside its Pallas kernel), take
 the algebra below, whose products on a CUDA PaddedSparse are kernels A and
 B too: a dispatch on the kind of input, not a fallback on failure.
+A sparse COO/CSR tensor (ops/features.py, the port's BCOO) takes its
+ELL form's kernels on the card and torch's sparse products on the CPU.
 Weights/offsets may be None (1 / 0).
 
 A bf16 X (dense, or a PaddedSparse's values) reaches the kernels as bf16;
@@ -85,6 +87,8 @@ def value_and_gradient(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(sum_i w_i l(z_i, y_i),  d/dc of it).  `mask` (0/1 per row) drops
     padded rows."""
+    if fops.is_sparse(x) and x.is_cuda:
+        x = fops.ell_form(x)
     shifts = None if norm is None else norm.shifts
     sparse = isinstance(x, fops.PaddedSparse)
     if (x.is_cuda and not isinstance(x, fops.KroneckerDesign)

@@ -41,7 +41,7 @@ import torch
 from photon_ml_tpu_torch import resolve_device, telemetry
 from photon_ml_tpu_torch.data.streaming import (
     STAGE_BACKOFF_JITTER, STAGE_BACKOFF_S, STAGE_MAX_ATTEMPTS, ChunkPlan,
-    ChunkSpec, CudaStaging, Prefetcher, StreamStats, pin_host_array,
+    ChunkSpec, CudaStaging, Prefetcher, StreamStats, bf16_bits, pin_host_array,
 )
 from photon_ml_tpu_torch.ops import aggregators as agg
 from photon_ml_tpu_torch.ops import features as fops
@@ -74,7 +74,14 @@ class ChunkedGLMObjective:
     """Weighted GLM loss over a host-resident batch, streamed in chunks.
 
     `x` / `labels` / `weights` / `offsets` / `mask` are HOST numpy arrays,
-    cast once to the compute `dtype` on the host (offsets are the residual
+    cast once to the compute `dtype` (float32 or float64) on the host, but
+    a bf16 X: a CPU torch.bfloat16 tensor (`convert.bf16_from_numpy`
+    makes one of raw uint16 bits; a plain uint16 array is integers and is
+    cast) or an extension bfloat16 array (data/streaming.py `bf16_bits`)
+    is kept as its 2-byte bits, staged through the same ring and
+    reinterpreted as bf16 on the device, so each chunk runs the fused
+    kernel on bf16 X (the JAX package streams a bf16 host X as it is) and
+    the products promote (offsets are the residual
     scores of coordinate descent: the caller reads the device residual
     vector back once per coordinate update, one [n] copy against n*d of
     streamed feature traffic per pass).  `norm` (on `device`, in `dtype`)
@@ -105,12 +112,17 @@ class ChunkedGLMObjective:
     # the all-ones mask of a full chunk, sliced by every fetch; kept (with
     # its registration) by every replace()
     _ones: Optional[np.ndarray] = dataclasses.field(default=None, repr=False)
+    # x holds a bf16 block's uint16 bits; kept by every replace() that
+    # keeps x
+    _x_bf16: bool = dataclasses.field(default=False, repr=False)
 
     def __post_init__(self):
-        if self.dtype == torch.bfloat16 or getattr(self.x, "dtype", None) == torch.bfloat16:
-            raise NotImplementedError(
-                "bf16 feature storage is not ported to the streamed chunk "
-                "(ROADMAP.md queue A item 28); stream a float32 X")
+        if self.dtype not in (torch.float32, torch.float64):
+            raise TypeError(f"the compute dtype is float32 or float64, got {self.dtype} "
+                            "(a bf16 X is given as x: its products promote)")
+        bits = bf16_bits(self.x)
+        if bits is not None:
+            self.x, self._x_bf16 = bits, True
         if not isinstance(self.x, np.ndarray):
             raise TypeError("ChunkedGLMObjective requires a dense host "
                             "feature block (sparse shards would re-pack per "
@@ -139,7 +151,9 @@ class ChunkedGLMObjective:
         self.device = resolve_device(self.device)
         np_dtype = _np_dtype(self.dtype)
         cast = lambda a: None if a is None else np.ascontiguousarray(a, dtype=np_dtype)
-        self.x, self.labels = cast(self.x), cast(self.labels)
+        if not self._x_bf16:
+            self.x = cast(self.x)
+        self.labels = cast(self.labels)
         self.weights, self.offsets, self.mask = (
             cast(self.weights), cast(self.offsets), cast(self.mask))
         if self._ones is None or self._ones.dtype != np_dtype:
@@ -163,10 +177,19 @@ class ChunkedGLMObjective:
         mask)."""
         sl = slice(spec.start, spec.stop)
         take = lambda a: None if a is None else a[sl]
-        return {"x": self.x[sl], "labels": self.labels[sl],
+        # a bf16 X's bits go as int16, a type every device op takes
+        x = self.x[sl].view(np.int16) if self._x_bf16 else self.x[sl]
+        return {"x": x, "labels": self.labels[sl],
                 "weights": take(self.weights), "offsets": take(self.offsets),
                 "mask": (self._ones[:spec.rows] if self.mask is None
                          else self.mask[sl])}
+
+    def _stream(self, pin_epochs: int = 1):
+        """One pass of the prefetcher, a bf16 X's staged bits seen as bf16."""
+        for spec, ch in self._prefetcher.stream(pin_epochs=pin_epochs):
+            if self._x_bf16:
+                ch = dict(ch, x=ch["x"].view(torch.bfloat16))
+            yield spec, ch
 
     def _chunk_args(self, ch: dict) -> dict:
         return dict(weights=ch["weights"], offsets=ch["offsets"],
@@ -189,7 +212,7 @@ class ChunkedGLMObjective:
         # the accumulators update in place: they take the place of the JAX
         # package's donated buffers
         acc = self._zeros()
-        for _, ch in self._prefetcher.stream():
+        for _, ch in self._stream():
             acc += agg.value_only(self.loss, ch["x"], ch["labels"], c,
                                   **self._chunk_args(ch))
         acc = self._summed(acc.reshape(1))[0]
@@ -199,7 +222,7 @@ class ChunkedGLMObjective:
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
         acc_v = self._zeros()
         acc_g = torch.zeros_like(c)
-        for _, ch in self._prefetcher.stream():
+        for _, ch in self._stream():
             v, g = agg.value_and_gradient(self.loss, ch["x"], ch["labels"], c,
                                           **self._chunk_args(ch))
             acc_v += v
@@ -213,7 +236,7 @@ class ChunkedGLMObjective:
     # -- TwiceDiffFunction surface --------------------------------------------
     def hessian_vector(self, c: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         acc = torch.zeros_like(c)
-        for _, ch in self._prefetcher.stream():
+        for _, ch in self._stream():
             acc += agg.hessian_vector(self.loss, ch["x"], ch["labels"], c, v,
                                       **self._chunk_args(ch))
         return self._summed(acc) + self.l2_weight * v
@@ -224,7 +247,7 @@ class ChunkedGLMObjective:
                 "hessian_diagonal is original-space only; use "
                 "objective.replace(norm=None) with original-space coefficients")
         acc = torch.zeros_like(c)
-        for _, ch in self._prefetcher.stream():
+        for _, ch in self._stream():
             acc += agg.hessian_diagonal(self.loss, ch["x"], ch["labels"], c,
                                         weights=ch["weights"],
                                         offsets=ch["offsets"], mask=ch["mask"])
@@ -241,7 +264,7 @@ class ChunkedGLMObjective:
         out = (torch.empty(n, dtype=c.dtype, device=c.device)
                if self._reduce is None
                else torch.zeros(n, dtype=c.dtype, device=c.device))
-        for spec, ch in self._prefetcher.stream():
+        for spec, ch in self._stream():
             out[spec.start:spec.stop] = fops.matvec(ch["x"], c)[:spec.rows]
         return self._summed(out)
 
@@ -292,7 +315,7 @@ class ChunkedGLMObjective:
         entry_acc = torch.zeros((), dtype=dtype, device=c.device)
         acc_dw = torch.zeros_like(c) if merge == "average" else None
         jitter = random.Random(pass_index)
-        for spec, ch in self._prefetcher.stream(pin_epochs=local_epochs):
+        for spec, ch in self._stream(pin_epochs=local_epochs):
             key = prng.fold_in(key0, spec.index)
             perms = torch.as_tensor(
                 np.stack([prng.permutation(prng.fold_in(key, e), d)
@@ -346,6 +369,8 @@ class ChunkedGLMObjective:
 
     # -- helpers --------------------------------------------------------------
     def replace(self, **kw) -> "ChunkedGLMObjective":
+        if "x" in kw:
+            kw.setdefault("_x_bf16", False)
         return dataclasses.replace(self, **kw)
 
     def with_l2(self, l2_weight) -> "ChunkedGLMObjective":

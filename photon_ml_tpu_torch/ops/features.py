@@ -28,13 +28,21 @@ value+gradient pass); the sparse products' kernels take bf16 values as
 they are.  (X*X) for sq_rmatvec is formed in the storage dtype first, as
 the JAX package forms it.
 
-Not ported, raising NotImplementedError: BCOO input (ROADMAP.md queue A
-item 24).
+A torch sparse tensor (`torch.sparse_coo` or `torch.sparse_csr`, [n, d],
+duplicate entries summed) is the port's counterpart of the JAX package's
+BCOO.  `as_feature_matrix` converts it into a `PaddedSparse` on the
+tensor's own device (`PaddedSparse.from_torch`: the layout `from_scipy`
+builds from the same matrix), so a solve runs kernels A and B on it.  The
+products also take one as it is, as the JAX package's take a BCOO: on the
+CPU as torch's sparse products (the plain version) in the promoted dtype,
+on the card through its ELL form, converted once per tensor and cached
+(`ell_form`).  Every other non-strided layout raises TypeError.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Union
+import weakref
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -42,8 +50,9 @@ import torch
 from photon_ml_tpu_torch import resolve_device
 from photon_ml_tpu_torch.ops import sparse_kernels as sk
 
-_BCOO = ("BCOO feature matrices are not ported (ROADMAP.md queue A item 24); "
-         "pass a scipy.sparse matrix or a PaddedSparse")
+# the sparse layouts a torch tensor may take as a feature matrix: the
+# port's BCOO
+SPARSE_LAYOUTS = (torch.sparse_coo, torch.sparse_csr)
 
 
 @dataclasses.dataclass
@@ -216,6 +225,37 @@ class PaddedSparse:
             out.csc_tiles = torch.from_numpy(sk.tile_map(csc.indptr)).to(dev)
         return out
 
+    @staticmethod
+    def from_torch(x: torch.Tensor, with_csc: bool = False) -> "PaddedSparse":  # photonlint: flush-point -- ingest: one read-back of the widest row's count
+        """A sparse COO or CSR tensor -> ELL on the tensor's own device, in
+        its dtype, by torch ops there: coalesced (duplicates summed), k the
+        most nonzeros of any row (one read-back), rows' nonzeros in column
+        order, so the layout `from_scipy` builds from the same matrix.
+        `with_csc` also attaches the column view (rows in order within each
+        column, as scipy's CSC) and its tile map, made on the device."""
+        coo = (x.to_sparse_coo() if x.layout == torch.sparse_csr else x).coalesce()
+        n, d = x.shape
+        rows, cols = coo.indices()
+        vals = coo.values()
+        dev = vals.device
+        counts = torch.bincount(rows, minlength=n)
+        k = max(int(counts.max()), 1) if n and rows.numel() else 1
+        slot = torch.arange(rows.numel(), device=dev) - (torch.cumsum(counts, 0) - counts)[rows]
+        indices = torch.zeros((n, k), dtype=torch.int32, device=dev)
+        values = torch.zeros((n, k), dtype=vals.dtype, device=dev)
+        indices[rows, slot] = cols.to(torch.int32)
+        values[rows, slot] = vals
+        out = PaddedSparse(indices, values, d)
+        if with_csc:
+            order = torch.argsort(cols, stable=True)
+            end = torch.zeros(d + 1, dtype=torch.int64, device=dev)
+            end[1:] = torch.cumsum(torch.bincount(cols, minlength=d), 0)
+            out.csc_row = rows[order].to(torch.int32)
+            out.csc_val = vals[order]
+            out.csc_end = end.to(torch.int32)
+            out.csc_tiles = sk.tile_map_of(end, rows.numel())
+        return out
+
 
 FeatureMatrix = Union[torch.Tensor, PaddedSparse, KroneckerDesign]
 
@@ -236,10 +276,39 @@ def _is_scipy_sparse(x) -> bool:
     return sp.issparse(x)
 
 
-def _refuse(x) -> None:
-    kind = type(x).__name__
-    if kind == "BCOO" or (isinstance(x, torch.Tensor) and x.layout != torch.strided):
-        raise NotImplementedError(_BCOO)
+def is_sparse(x) -> bool:
+    """A torch sparse COO or CSR tensor: the port's BCOO."""
+    return isinstance(x, torch.Tensor) and x.layout in SPARSE_LAYOUTS
+
+
+def _check_layout(x) -> None:
+    if (isinstance(x, torch.Tensor) and x.layout != torch.strided
+            and x.layout not in SPARSE_LAYOUTS):
+        raise TypeError(f"a feature matrix tensor is strided, torch.sparse_coo or "
+                        f"torch.sparse_csr; got {x.layout}")
+
+
+# id(tensor) -> (its _version, its ELL form with the column view); an
+# entry goes when its tensor is freed
+_ELL_FORMS: Dict[int, Tuple[int, "PaddedSparse"]] = {}
+_ELL_FORMS_KEPT = 8
+
+
+def ell_form(x: torch.Tensor) -> PaddedSparse:  # photonlint: flush-point -- one conversion (and read-back of the widest row) per tensor, then cached
+    """The ELL form, with its column view, of a sparse tensor on the card,
+    made at the first product for this tensor (and again after it is
+    written in place), then cached while the tensor lives: the products of
+    a raw sparse tensor run kernels A and B on it."""
+    hit = _ELL_FORMS.get(id(x))
+    if hit is not None and hit[0] == x._version:
+        return hit[1]
+    ell = PaddedSparse.from_torch(x, with_csc=True)
+    if hit is None:
+        if len(_ELL_FORMS) >= _ELL_FORMS_KEPT:
+            _ELL_FORMS.pop(next(iter(_ELL_FORMS)))
+        weakref.finalize(x, _ELL_FORMS.pop, id(x), None)
+    _ELL_FORMS[id(x)] = (x._version, ell)
+    return ell
 
 
 def _storage(x_dtype: torch.dtype, dtype) -> torch.dtype:
@@ -251,18 +320,23 @@ def _storage(x_dtype: torch.dtype, dtype) -> torch.dtype:
 def as_feature_matrix(x, device=None, dtype=None,
                       with_csc: bool = False) -> FeatureMatrix:
     """Ingest adapter, onto `device` (None means cuda) in `dtype`:
-    scipy.sparse -> PaddedSparse, a PaddedSparse moved, anything else a
-    dense tensor.  A bf16 dense X or bf16 PaddedSparse stays bf16 (the
-    JAX package's bf16 feature storage); a KroneckerDesign and every other
-    dtype is cast to `dtype`.  `with_csc` asks for the column view a
-    solve's gradient needs: always attached on a CUDA device, and on the
-    CPU from CSC_MIN_COLS columns up, as the JAX package does."""
+    scipy.sparse or a sparse COO/CSR tensor -> PaddedSparse, a
+    PaddedSparse moved, anything else a dense tensor.  A bf16 dense X or
+    bf16 sparse values stay bf16 (the JAX package's bf16 feature storage);
+    a KroneckerDesign and every other dtype is cast to `dtype`.  A sparse
+    tensor is converted on its own device (`PaddedSparse.from_torch`),
+    then moved; the JAX package passes its BCOO through as it is.
+    `with_csc` asks for the column view a solve's gradient needs: always
+    attached on a CUDA device, and on the CPU from CSC_MIN_COLS columns
+    up, as the JAX package does."""
     dev = resolve_device(device)
-    _refuse(x)
+    _check_layout(x)
     if isinstance(x, KroneckerDesign):
         return x.to(dev, dtype)
-    if isinstance(x, PaddedSparse) or _is_scipy_sparse(x):
+    if isinstance(x, PaddedSparse) or _is_scipy_sparse(x) or is_sparse(x):
         want = with_csc and (dev.type == "cuda" or x.shape[1] >= CSC_MIN_COLS)
+        if is_sparse(x):
+            return PaddedSparse.from_torch(x, with_csc=want).to(dev, _storage(x.dtype, dtype))
         if not isinstance(x, PaddedSparse):
             return PaddedSparse.from_scipy(x, with_csc=want, device=dev).to(dtype=dtype)
         x = x.to(dev, _storage(x.dtype, dtype))
@@ -275,8 +349,26 @@ def as_feature_matrix(x, device=None, dtype=None,
 
 
 def _dense(x) -> torch.Tensor:
-    _refuse(x)
+    _check_layout(x)
     return x
+
+
+def _coo(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A CPU sparse tensor as COO in `dtype` (its values widened exactly)."""
+    coo = x.to_sparse_coo() if x.layout == torch.sparse_csr else x
+    return coo.to(dtype)
+
+
+def _sparse_mv(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """X v for a CPU sparse tensor, in the promoted dtype (JAX's bcoo @ v)."""
+    dt = torch.promote_types(x.dtype, v.dtype)
+    return torch.sparse.mm(_coo(x, dt), v.to(dt)[:, None])[:, 0]
+
+
+def _sparse_rmv(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """X^T u for a CPU sparse tensor, in the promoted dtype (JAX's u @ bcoo)."""
+    dt = torch.promote_types(x.dtype, u.dtype)
+    return torch.sparse.mm(_coo(x, dt).t(), u.to(dt)[:, None])[:, 0]
 
 
 # a dense product whose X must be widened to the vector's dtype (bf16
@@ -293,24 +385,26 @@ def _widened(x: torch.Tensor, dtype: torch.dtype):
 
 
 def _mv(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """X v in the promoted dtype of X and v (JAX's x @ v)."""
+    """X v (v [d] or [d, K]) in the promoted dtype of X and v (JAX's
+    x @ v)."""
     dt = torch.promote_types(x.dtype, v.dtype)
     if x.dtype == v.dtype == dt:
-        return torch.mv(x, v)
+        return x @ v
     v = v.to(dt)
-    parts = [torch.mv(xc, v) for _, xc in _widened(x, dt)]
-    return torch.cat(parts) if parts else v.new_zeros(0)
+    parts = [xc @ v for _, xc in _widened(x, dt)]
+    return torch.cat(parts) if parts else v.new_zeros((0,) + v.shape[1:])
 
 
 def _rmv(x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-    """X^T u in the promoted dtype of X and u (JAX's x.T @ u)."""
+    """X^T u (u [n] or [n, K]) in the promoted dtype of X and u (JAX's
+    x.T @ u)."""
     dt = torch.promote_types(x.dtype, u.dtype)
     if x.dtype == u.dtype == dt:
-        return torch.mv(x.T, u)
+        return x.T @ u
     u = u.to(dt)
-    out = u.new_zeros(x.shape[1])
+    out = u.new_zeros((x.shape[1],) + u.shape[1:])
     for lo, xc in _widened(x, dt):
-        out += torch.mv(xc.T, u[lo:lo + xc.shape[0]])
+        out += xc.T @ u[lo:lo + xc.shape[0]]
     return out
 
 
@@ -331,6 +425,8 @@ def matvec(x: FeatureMatrix, v: torch.Tensor) -> torch.Tensor:
         if tuple(v.shape) != (x.num_cols,):
             raise ValueError(f"v has shape {tuple(v.shape)}, X has {x.num_cols} columns")
         return sk.ell_margins(x.indices, x.values, v)
+    if is_sparse(x):
+        return matvec(ell_form(x), v) if x.is_cuda else _sparse_mv(x, v)
     return _mv(_dense(x), v)
 
 
@@ -356,6 +452,8 @@ def rmatvec(x: FeatureMatrix, u: torch.Tensor) -> torch.Tensor:
         if x.has_csc:
             return sk.csc_column_sum(x.csc_row, x.csc_val, x.csc_end, u, 1, x.csc_tiles)
         return _scatter(x, u, 1)
+    if is_sparse(x):
+        return rmatvec(ell_form(x), u) if x.is_cuda else _sparse_rmv(x, u)
     return _rmv(_dense(x), u)
 
 
@@ -369,6 +467,13 @@ def sq_rmatvec(x: FeatureMatrix, u: torch.Tensor) -> torch.Tensor:
         if x.has_csc:
             return sk.csc_column_sum(x.csc_row, x.csc_val, x.csc_end, u, 2, x.csc_tiles)
         return _scatter(x, u, 2)
+    if is_sparse(x):
+        if x.is_cuda:
+            return sq_rmatvec(ell_form(x), u)
+        # the square of each (summed) entry, in the storage dtype
+        c = x.to_sparse_coo().coalesce()
+        return _sparse_rmv(torch.sparse_coo_tensor(
+            c.indices(), c.values() * c.values(), c.shape, is_coalesced=True), u)
     x = _dense(x)
     return _rmv(x * x, u)
 
@@ -385,6 +490,15 @@ def pad_rows(x: FeatureMatrix, rem: int) -> FeatureMatrix:
         # and existing row ids stay valid against the grown u
         return PaddedSparse(zpad(x.indices), zpad(x.values), x.num_cols,
                             x.csc_row, x.csc_val, x.csc_end, x.csc_tiles)
+    if is_sparse(x):
+        # zero rows store nothing: only the shape grows, as a BCOO's does
+        shape = (x.shape[0] + rem, x.shape[1])
+        if x.layout == torch.sparse_csr:
+            crow = x.crow_indices()
+            return torch.sparse_csr_tensor(torch.cat([crow, crow[-1:].expand(rem)]),
+                                           x.col_indices(), x.values(), shape)
+        return torch.sparse_coo_tensor(x._indices(), x._values(), shape,
+                                       is_coalesced=x.is_coalesced())
     return zpad(_dense(x))
 
 
@@ -397,4 +511,6 @@ def densify(x: FeatureMatrix) -> torch.Tensor:
         out = torch.zeros((n, d), dtype=x.dtype, device=x.device)
         rows = torch.arange(n, device=x.device)[:, None].expand_as(x.indices)
         return out.index_put_((rows, x.indices.long()), x.values, accumulate=True)
+    if is_sparse(x):
+        return x.to_dense()
     return _dense(x)

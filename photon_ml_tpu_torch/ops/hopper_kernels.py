@@ -25,7 +25,10 @@ lanes of a hyperparameter sweep (csrc/fused_value_and_gradient_lanes.cu):
 one pass over X gives K candidates' values, gradients and sum(w l') at
 once, the pass that jax.vmap of the solve makes of XLA's value_and_gradient
 in photon_ml_tpu/hyperparameter/vectorized.py::_fe_sweep_update.
-`plan_lanes` chooses its tile and grid, as `plan_fused` does.  With a lane
+`plan_lanes` chooses its tile and grid, as `plan_fused` does; X is
+float32 or bfloat16 there too (a bf16 X enters the tensor-core products
+as it is: it is exact in TF32, so the f32 X's hi/lo split is dropped),
+every other operand float32.  With a lane
 mask (an int32 word per row, bit k set where lane k keeps the row) the
 lanes are K weightings of one pass, weights w * bit_k: the bootstrap's
 replicas (photon_ml_tpu/diagnostics/bootstrap.py, jax.vmap of the solve
@@ -48,11 +51,11 @@ LAUNCHES = 0
 # the fused kernel's launches on a bf16 X (counted in LAUNCHES too)
 BF16_LAUNCHES = 0
 LANES_LAUNCHES = 0
+# the lanes kernel's launches on a bf16 X (counted in LANES_LAUNCHES too)
+LANES_BF16_LAUNCHES = 0
 
-# X's storage types the fused kernel takes, and their element bytes
+# X's storage types the fused and lanes kernels take, and their element bytes
 X_BYTES = {torch.float32: 4, torch.bfloat16: 2}
-BF16_LANES_REFUSAL = ("bf16 feature storage is not ported to the candidate-lanes kernel "
-               "(ROADMAP.md queue A item 27); pass a float32 X")
 
 # Must match the CUDA source: 256 consumer threads plus one producer warp,
 # one block per SM, at most 227 KB less 1 KB of dynamic shared memory.
@@ -338,8 +341,9 @@ def grad_slots(d: int, rows: int) -> int:
 class LanesLayout:
     """Offsets in floats into the lanes kernel's dynamic shared memory (as
     smem_layout() in its CUDA source): `stages` stages of `stage` floats,
-    each [X tile (stage_x) | y | w | m | O's K runs | the lane mask's words
-    when the launch has them (stage_v each)]; the
+    each [X tile (stage_x: rows * d elements of `xbytes` bytes and 16 -
+    xbytes bytes of room for the alignment phase) | y | w | m | O's K runs
+    | the lane mask's words when the launch has them (stage_v each)]; the
     warps' gradient sums reuse the ring after the last tile, and C's
     fragments start at `cf`, past whichever is larger; the partial margins
     at `zp`, s at `sf`, the value/sum(w l') reduction at `vs`, the
@@ -356,10 +360,10 @@ class LanesLayout:
 
 
 def lanes_smem_layout(d: int, lanes: int, rows: int, stages: int,
-                      masked: bool = False) -> LanesLayout:
+                      masked: bool = False, xbytes: int = 4) -> LanesLayout:
     nt = lane_tiles(lanes)
     kp = 8 * nt
-    stage_x = _round4(rows * d + 3)
+    stage_x = _round4((xbytes * rows * d + 19 - xbytes) // 4)
     stage_v = _round4(rows + 3)
     stage = stage_x + (3 + lanes + int(masked)) * stage_v
     gred = LANES_WARPS * grad_slots(d, rows) * nt * 128
@@ -387,13 +391,13 @@ class LanesPlan:
 
 
 def _lanes_fit(d: int, lanes: int, rows: int, stages: Optional[int] = None,
-               masked: bool = False) -> int:
+               masked: bool = False, xbytes: int = 4) -> int:
     """Ring stages for tiles of `rows` rows (the requested count, else as
     many as ~160 KB of tiles takes, 2 to 4) that fit in shared memory with
     the gradient's slots instantiated; 0 when none does."""
     if grad_slots(d, rows) > LANES_SLOT_SIZES[lane_tiles(lanes)][-1]:
         return 0
-    layout = lambda s: lanes_smem_layout(d, lanes, rows, s, masked)
+    layout = lambda s: lanes_smem_layout(d, lanes, rows, s, masked, xbytes)
     if stages is None:
         stage_bytes = 4 * layout(1).stage
         stages = min(_LANES_MAX_STAGES, max(2, _LANES_RING_BYTES // stage_bytes))
@@ -403,41 +407,46 @@ def _lanes_fit(d: int, lanes: int, rows: int, stages: Optional[int] = None,
 
 
 @functools.lru_cache(maxsize=None)
-def _lanes_tile(d: int, lanes: int, masked: bool = False) -> Optional[Tuple[int, int]]:
+def _lanes_tile(d: int, lanes: int, masked: bool = False,
+                xbytes: int = 4) -> Optional[Tuple[int, int]]:
     """(rows, stages): the most rows whose stage holds ~80 KB or less (at
     least 8) that fit with two or more stages; None when no tile fits."""
-    per_row = 4 * (d + 3 + lanes + int(masked))
+    per_row = xbytes * d + 4 * (3 + lanes + int(masked))
     for rows in reversed(LANES_ROWS):
         if rows * per_row > _LANES_TILE_BYTES and rows > LANES_ROWS[0]:
             continue
-        stages = _lanes_fit(d, lanes, rows, masked=masked)
+        stages = _lanes_fit(d, lanes, rows, masked=masked, xbytes=xbytes)
         if stages >= 2:
             return rows, stages
     return None
 
 
-def max_lanes(d: int, masked: bool = False) -> int:
+def max_lanes(d: int, masked: bool = False, xbytes: int = 4) -> int:
     """The most lanes one launch takes at width d, with a lane mask when
-    `masked` (0: none, and a dense fixed effect that wide runs the single
-    kernel once per lane)."""
-    return next((lanes for lanes in (LANES_MAX, 8, 4) if _lanes_tile(d, lanes, masked)), 0)
+    `masked`, X's elements `xbytes` bytes (0: none, and a dense fixed
+    effect that wide runs the single kernel once per lane)."""
+    return next((lanes for lanes in (LANES_MAX, 8, 4)
+                 if _lanes_tile(d, lanes, masked, xbytes)), 0)
 
 
 @functools.lru_cache(maxsize=64)
 def plan_lanes(n: int, d: int, lanes: int, sm_count: int, rows: Optional[int] = None,
                stages: Optional[int] = None, blocks_per_sm: int = 1,
-               masked: bool = False) -> LanesPlan:
+               masked: bool = False, xbytes: int = 4) -> LanesPlan:
     """Tiles of ~80 KB of X, y, w, m and O (and the lane mask's words when
     `masked`; the most rows of LANES_ROWS, at least 8), a ring of two to
     four stages (~160 KB), one block per SM, the fewest gradient slots that
     cover a warp's run of units.  `rows`, `stages` and `blocks_per_sm`
-    override the choice (scripts/lanes_sweep.py times such variants)."""
+    override the choice (scripts/lanes_sweep.py times such variants).
+    X's elements are `xbytes` bytes: 4 (float32) or 2 (bfloat16)."""
+    if xbytes not in (2, 4):
+        raise ValueError(f"X's elements are 2 or 4 bytes; got xbytes={xbytes}")
     if not 1 <= lanes <= LANES_MAX:
         raise ValueError(f"the lanes kernel takes 1 <= K <= {LANES_MAX} "
                          f"lanes; got K={lanes}")
-    if lanes > max_lanes(d, masked):
+    if lanes > max_lanes(d, masked, xbytes):
         raise ValueError(
-            f"the lanes kernel takes at most {max_lanes(d, masked)} lanes at d={d} "
+            f"the lanes kernel takes at most {max_lanes(d, masked, xbytes)} lanes at d={d} "
             "(C's fragments and two stages in shared memory, at most "
             f"{LANES_SLOT_SIZES[1][-1]} gradient slots per warp); got "
             f"K={lanes}: split the lanes into groups")
@@ -445,17 +454,17 @@ def plan_lanes(n: int, d: int, lanes: int, sm_count: int, rows: Optional[int] = 
         raise ValueError(f"bad plan request n={n}, sm_count={sm_count}, "
                          f"blocks_per_sm={blocks_per_sm}")
     if rows is None:
-        rows, auto = _lanes_tile(d, lanes, masked)
+        rows, auto = _lanes_tile(d, lanes, masked, xbytes)
         stages = auto if stages is None else stages
     if rows not in LANES_ROWS:
         raise ValueError(f"tile rows must be one of {LANES_ROWS}; got {rows}")
-    stages = _lanes_fit(d, lanes, rows, stages, masked)
+    stages = _lanes_fit(d, lanes, rows, stages, masked, xbytes)
     if stages < 2:
         raise ValueError(f"no ring of {rows}-row tiles fits at d={d}, K={lanes}")
     slots = next(s for s in LANES_SLOT_SIZES[lane_tiles(lanes)] if s >= grad_slots(d, rows))
     grid = max(1, min(sm_count * blocks_per_sm, -(-n // rows)))
     return LanesPlan(rows, stages, grid, blocks_per_sm, slots,
-                     lanes_smem_layout(d, lanes, rows, stages, masked))
+                     lanes_smem_layout(d, lanes, rows, stages, masked, xbytes))
 
 
 def fused_value_and_gradient_lanes_plain(
@@ -469,11 +478,13 @@ def fused_value_and_gradient_lanes_plain(
     shift: Optional[torch.Tensor] = None,
     lane_mask: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The lanes kernel's function in plain PyTorch, in the inputs' dtype:
+    """The lanes kernel's function in plain PyTorch, in the promoted dtype
+    of X and C (a bf16 X is widened exactly, as JAX's X @ C promotes):
     for coefficients C [K, d], offsets O [K, n] and per-lane shifts b [K],
     Z = X C^T + O^T + b, then ([K] values, [K, d] gradients X^T (w l'),
     [K] sums of w l'), the mask a select; bit k of `lane_mask` (int32 [n])
     a 0/1 factor on lane k's weights."""
+    x = x.to(torch.promote_types(x.dtype, coefficients.dtype))
     z = x @ coefficients.T
     if shift is not None:
         z = z + shift
@@ -515,10 +526,9 @@ def fused_value_and_gradient_lanes(
     lane_mask[i].
 
     CPU tensors run the plain version.  CUDA tensors launch the kernel:
-    every operand float32 (the lane mask int32), contiguous and on X's
-    device, K within `max_lanes(d, masked)`; anything else raises."""
-    if x.dtype == torch.bfloat16:
-        raise NotImplementedError(BF16_LANES_REFUSAL)
+    X float32 or bfloat16, every other operand float32 (the lane mask
+    int32), contiguous and on X's device, K within `max_lanes(d, masked,
+    xbytes)`; anything else raises."""
     if x.device.type == "cpu":
         return fused_value_and_gradient_lanes_plain(
             loss, x, labels, coefficients, weights, offsets, mask, shift, lane_mask)
@@ -533,9 +543,10 @@ def fused_value_and_gradient_lanes(
         _check_operand("lane_mask", lane_mask, (n,), x.device, torch.int32)
         if n == 0:
             lane_mask = None  # no row to weigh, and no data pointer to pass
+    _check_operand("X", x, (n, d), x.device, tuple(X_BYTES))
+    xbytes = X_BYTES[x.dtype]
     plan = plan_lanes(n, d, lanes, _sm_count(x.device.index),
-                      masked=lane_mask is not None)
-    _check_operand("X", x, (n, d), x.device)
+                      masked=lane_mask is not None, xbytes=xbytes)
     _check_operand("labels", labels, (n,), x.device)
     _check_operand("coefficients", coefficients, (lanes, d), x.device)
     if weights is not None:
@@ -548,14 +559,15 @@ def fused_value_and_gradient_lanes(
         _check_operand("shift", shift, (lanes,), x.device)
 
     from photon_ml_tpu_torch.ops import _build
-    lib = _build.load_library("fused_value_and_gradient_lanes")
+    lib = (_build.load_library("fused_value_and_gradient_lanes") if xbytes == 4
+           else _build.load_library("fused_value_and_gradient_lanes_bf16"))
     out = torch.empty((lanes, d + 2), dtype=torch.float32, device=x.device)
     ptr = lambda t: None if t is None else t.data_ptr()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         partial, ticket = _workspace(x.device, stream, plan.grid * lanes * (d + 2))
         err = lib.pmt_fused_value_and_gradient_lanes(
-            loss.kernel_id, x.data_ptr(), labels.data_ptr(), ptr(weights),
+            loss.kernel_id, xbytes, x.data_ptr(), labels.data_ptr(), ptr(weights),
             ptr(offsets), ptr(mask), ptr(shift), ptr(lane_mask), coefficients.data_ptr(),
             partial.data_ptr(), ticket.data_ptr(), out.data_ptr(), n, d, lanes,
             plan.rows_per_tile, plan.stages, plan.grid, plan.slots, plan.layout.bytes,
@@ -563,6 +575,7 @@ def fused_value_and_gradient_lanes(
     if err != 0:
         raise RuntimeError("fused_value_and_gradient_lanes launch failed: "
                            f"{lib.pmt_lanes_error_string(err).decode()} ({err})")
-    global LANES_LAUNCHES
+    global LANES_LAUNCHES, LANES_BF16_LAUNCHES
     LANES_LAUNCHES += 1
+    LANES_BF16_LAUNCHES += xbytes == 2
     return out[:, 0], out[:, 1:d + 1], out[:, d + 1]

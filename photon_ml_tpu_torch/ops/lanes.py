@@ -27,6 +27,14 @@ group's int32 word (bit k = lane lo + k) is built once, and the kernel
 reads it as one more per-row stream; the "single" and "sparse" routes take
 each lane's weights w * keep_k, built once; the Hessian-vector products
 multiply l'' by them.
+
+A bf16 X (the JAX package's bf16 feature storage) goes to the lanes
+kernel as it is.  The JAX package then keeps the lanes' state in X's
+dtype (photon_ml_tpu/hyperparameter/vectorized.py:440-441,
+photon_ml_tpu/diagnostics/bootstrap.py:112-126), so C, the labels,
+weights and offsets come in bf16 too: the pass widens them exactly to
+float32 (the kernel's operands), computes in float32, and rounds its
+values and gradients to the state's dtype.
 """
 from __future__ import annotations
 
@@ -41,15 +49,15 @@ from photon_ml_tpu_torch.ops.losses import PointwiseLoss
 from photon_ml_tpu_torch.ops.normalization import NormalizationContext
 
 
-def lanes_route(d: int, device: torch.device) -> str:
-    """How a dense fixed effect's K-lane pass runs at width d: "plain" on
-    the CPU (the plain version takes any lane count), "lanes" on the card
-    where the lanes kernel takes width d, else "single" (the single fused
-    kernel once per lane) up to hk.D_MAX; wider raises, as an isolated
-    fit's pass does."""
+def lanes_route(d: int, device: torch.device, xbytes: int = 4) -> str:
+    """How a dense fixed effect's K-lane pass runs at width d (X's elements
+    `xbytes` bytes): "plain" on the CPU (the plain version takes any lane
+    count), "lanes" on the card where the lanes kernel takes width d, else
+    "single" (the single fused kernel once per lane) up to hk.D_MAX; wider
+    raises, as an isolated fit's pass does."""
     if device.type == "cpu":
         return "plain"
-    if hk.max_lanes(d) > 0:
+    if hk.max_lanes(d, xbytes=xbytes) > 0:
         return "lanes"
     if d <= hk.D_MAX:
         return "single"
@@ -58,16 +66,16 @@ def lanes_route(d: int, device: torch.device) -> str:
 
 
 def launch_groups(num_lanes: int, d: int, device: torch.device,
-                  masked: bool = False) -> List[Tuple[int, int]]:
+                  masked: bool = False, xbytes: int = 4) -> List[Tuple[int, int]]:
     """[start, stop) of each group of lanes one kernel launch takes: one
     group on the CPU (groups of 32 with a lane mask, the bits of its
     word), groups of up to max_lanes(d, masked) on the "lanes" route, one
     lane a group on the "single" route."""
-    route = lanes_route(d, device)
+    route = lanes_route(d, device, xbytes)
     if route == "plain":
         size = LANE_WORD_BITS if masked else max(num_lanes, 1)
     else:
-        size = hk.max_lanes(d, masked) if route == "lanes" else 1
+        size = hk.max_lanes(d, masked, xbytes) if route == "lanes" else 1
     return [(k, min(k + size, num_lanes)) for k in range(0, num_lanes, size)]
 
 
@@ -108,14 +116,15 @@ class FixedEffectLanes:
                  l2_weights: torch.Tensor, weights: Optional[torch.Tensor] = None,
                  norm: Optional[NormalizationContext] = None,
                  lane_keep: Optional[torch.Tensor] = None):
-        if x.dtype == torch.bfloat16:
-            raise NotImplementedError(hk.BF16_LANES_REFUSAL)
+        # a bf16 lane state (the bootstrap's, in X's dtype as the JAX
+        # package keeps it) computes in float32: its vectors widen exactly
+        wide = lambda t: t.float() if t is not None and t.dtype == torch.bfloat16 else t
         self.loss = loss
         self.x = x
-        self.labels = labels
-        self.offsets = None if offsets is None else offsets.contiguous()
-        self.l2 = l2_weights
-        self.weights = weights
+        self.labels = wide(labels)
+        self.offsets = None if offsets is None else wide(offsets).contiguous()
+        self.l2 = wide(l2_weights)
+        self.weights = wide(weights)
         self.norm = None if norm is None or norm.is_identity else norm
         self.dense = isinstance(x, torch.Tensor)
         lanes = l2_weights.shape[0]
@@ -123,8 +132,10 @@ class FixedEffectLanes:
         # the route of a value+gradient pass, and its kernel launches: one
         # per group (of the lanes kernel on "lanes", of the single kernel
         # on "single")
-        self.route = lanes_route(x.shape[1], x.device) if self.dense else "sparse"
-        self.groups = (launch_groups(lanes, x.shape[1], x.device, masked)
+        xbytes = hk.X_BYTES.get(x.dtype, 4)
+        self.route = (lanes_route(x.shape[1], x.device, xbytes) if self.dense
+                      else "sparse")
+        self.groups = (launch_groups(lanes, x.shape[1], x.device, masked, xbytes)
                        if self.dense else [])
         # each group's lane mask word (lanes and plain routes), and each
         # lane's weights w * keep_k (single and sparse routes, and Hv)
@@ -154,6 +165,10 @@ class FixedEffectLanes:
                 grad + self.l2[:, None] * c)
 
     def value_and_gradient(self, c: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        if c.dtype == torch.bfloat16:
+            # bf16 lane state: the pass in float32, its results rounded
+            value, grad = self.value_and_gradient(c.float())
+            return value.to(c.dtype), grad.to(c.dtype)
         if not self.dense:
             parts = [agg.value_and_gradient(self.loss, self.x, self.labels, ck,
                                             weights=self._lane_weights(k),
@@ -194,7 +209,11 @@ class FixedEffectLanes:
         """V -> every lane's Hv at C (with its L2 term): for a dense X the
         margins and l'' of all lanes are computed once, and each product
         is two matrix products over X; a sparse X takes each lane's
-        ops/aggregators.py closure."""
+        ops/aggregators.py closure.  A bf16 state's products run in
+        float32 and are rounded, as its value and gradient."""
+        if c.dtype == torch.bfloat16:
+            hv32 = self.hessian_vector_at(c.float())
+            return lambda v: hv32(v.float()).to(v.dtype)
         if not self.dense:
             hvs = [agg.hessian_vector_at(self.loss, self.x, self.labels, ck,
                                          weights=self._lane_weights(k),
@@ -209,7 +228,7 @@ class FixedEffectLanes:
 
         def margins(v):
             e = effective(v)
-            z = x @ e.T                      # [n, K]
+            z = fops._mv(x, e.T)             # [n, K]; a bf16 X promotes
             return z if shifts is None else z - e @ shifts
 
         z = margins(c)
@@ -224,7 +243,7 @@ class FixedEffectLanes:
 
         def hv(v: torch.Tensor) -> torch.Tensor:
             t = d2 * margins(v)              # [n, K]
-            out = (x.T @ t).T                # [K, d]
+            out = fops._rmv(x, t).T          # [K, d]
             if shifts is not None:
                 out = out - shifts * t.sum(0)[:, None]
             if factors is not None:

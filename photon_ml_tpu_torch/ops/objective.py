@@ -1,7 +1,8 @@
 """The GLM objective: data + loss + L2 (port of photon_ml_tpu/ops/objective.py).
 
-X is any feature matrix of ops/features.py: a dense tensor or a
-PaddedSparse (whose gradient needs its column view on the card).
+X is any feature matrix of ops/features.py: a dense tensor, a PaddedSparse
+(whose gradient needs its column view on the card) or a sparse COO/CSR
+tensor (its ELL form's kernels on the card).
 
 L1 is absent by design: as in the reference, it is handled inside the OWLQN
 optimizer through pseudo-gradients, not by the objective.

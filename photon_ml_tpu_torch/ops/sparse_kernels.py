@@ -204,6 +204,19 @@ def tile_map(end: np.ndarray) -> np.ndarray:
     return out
 
 
+def tile_map_of(end: torch.Tensor, nnz: int) -> torch.Tensor:
+    """`tile_map` of a column view's int64 `end` made by torch ops on its
+    own device (no read-back: the caller knows nnz = end[-1])."""
+    d = end.shape[0] - 1
+    if d < 1:
+        raise ValueError("a column view's end must have d + 1 >= 2 entries")
+    tiles = plan_columns(nnz).tiles
+    starts = torch.arange(tiles, dtype=end.dtype, device=end.device) * TILE
+    return torch.cat([torch.searchsorted(end[:d], starts),
+                      torch.full((1,), d, dtype=torch.int64, device=end.device)]
+                     ).to(torch.int32)
+
+
 # id(end) -> (weak reference to end, its _version, its tile map on its device)
 _TILE_MAPS: Dict[int, Tuple[weakref.ref, int, torch.Tensor]] = {}
 _TILE_MAPS_KEPT = 32

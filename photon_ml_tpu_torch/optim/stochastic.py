@@ -39,6 +39,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from photon_ml_tpu_torch.ops import features as fops
 from photon_ml_tpu_torch.optim.schedule import StochasticPlan
 from photon_ml_tpu_torch.optim.types import ConvergenceReason, SolveResult
 
@@ -51,11 +52,14 @@ _SQ_BLOCK_ROWS = 16384
 
 
 def _column_sq_sums(x: torch.Tensor, mw: torch.Tensor) -> torch.Tensor:
-    """sum_i mw_i x_ij^2 for every column j."""
-    out = torch.zeros(x.shape[1], dtype=x.dtype, device=x.device)
+    """sum_i mw_i x_ij^2 for every column j, in the promoted dtype of x and
+    mw; x * x is formed in x's dtype first (a bf16 square rounds to bf16),
+    as the JAX package's mw @ (x * x) forms it."""
+    dt = torch.promote_types(x.dtype, mw.dtype)
+    out = torch.zeros(x.shape[1], dtype=dt, device=x.device)
     for r in range(0, x.shape[0], _SQ_BLOCK_ROWS):
         xb = x[r:r + _SQ_BLOCK_ROWS]
-        out += torch.mv((xb * xb).T, mw[r:r + _SQ_BLOCK_ROWS])
+        out += torch.mv((xb * xb).to(dt).T, mw[r:r + _SQ_BLOCK_ROWS])
     return out
 
 
@@ -90,7 +94,8 @@ def _local_epochs(c, x, labels, weights, offsets, mask, norm, perms,
     base = (torch.zeros(x.shape[0], dtype=dtype, device=c.device)
             if offsets is None else offsets)
     e = c * fv
-    z = torch.mv(x, e) - torch.dot(e, sv) + base
+    # a bf16 chunk's products promote as JAX's x @ e (features._mv, _rmv)
+    z = fops._mv(x, e) - torch.dot(e, sv) + base
     entry = torch.dot(mw, loss.loss(z, labels))
 
     bound = loss.d2z_bound
@@ -98,7 +103,7 @@ def _local_epochs(c, x, labels, weights, offsets, mask, norm, perms,
         # majorized per-coordinate curvature, constant across the epochs:
         # sum_i mw * (f_j (x_ij - s_j))^2 for every j in one pass
         xsq = _column_sq_sums(x, mw)
-        xs = torch.mv(x.T, mw)
+        xs = fops._rmv(x, mw)
         msum = torch.sum(mw)
         if reduce is not None:
             sums = reduce(torch.cat([entry.reshape(1), xsq, xs,
@@ -120,7 +125,7 @@ def _local_epochs(c, x, labels, weights, offsets, mask, norm, perms,
     for ei in range(perms.shape[0]):
         for t in range(d):
             j = perms[ei, t:t + 1]
-            colj = x.index_select(1, j).squeeze(1)
+            colj = x.index_select(1, j).squeeze(1).to(dtype)
             if has_s:
                 colj = colj - s_perm[ei, t]
             if has_f:

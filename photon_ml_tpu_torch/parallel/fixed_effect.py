@@ -54,13 +54,16 @@ def data_reducer(mesh):
     return lambda t: mesh.all_reduce(t, DATA_AXIS)
 
 
-_BF16_MESH = ("bf16 feature storage is not ported to the mesh paths (ROADMAP.md "
-              "queue A item 29); train a float32 X on a mesh")
+_BF16_ADMM = ("the consensus-ADMM lane takes no bf16 design: its per-shard Gram "
+              "eigendecomposition has no bfloat16 kernel in the JAX package "
+              "(photon_ml_tpu/parallel/fixed_effect.py:243, jnp.linalg.eigh in "
+              "_cached_gram_eig: 'Unsupported dtype bfloat16'); train a bf16 X "
+              "on the monolithic lane or widen it first")
 
 
 def _refuse_bf16(x) -> None:
     if getattr(x, "dtype", None) == torch.bfloat16:
-        raise NotImplementedError(_BF16_MESH)
+        raise NotImplementedError(_BF16_ADMM)
 
 
 def _staged_weights(res, key, mesh, objective, dtype):
@@ -82,8 +85,9 @@ def stage_objective(objective: GLMObjective, mesh, key, dtype,
     matrix, labels, weights, mask; the normalization context is [d] and
     stays as given), staged ONCE per
     coordinate under `key`, the residual offsets staged per visit (warm),
-    and `reduce` summing its data terms over the data axis."""
-    _refuse_bf16(objective.x)
+    and `reduce` summing its data terms over the data axis.  A bf16 design
+    matrix stays bf16 (each rank's passes run the kernels on it); the
+    other arrays take `dtype`."""
     res = _residency(residency)
     _, (x_dev,) = pad_and_shard_rows(mesh, objective.x, residency_key=key,
                                      dtype=dtype, residency=res)

@@ -296,7 +296,15 @@ def pad_and_shard_rows(mesh: Mesh, *arrays, residency_key=None, dtype=None,
     original_n.  With `residency_key` the first array (the design matrix:
     a fixed effect's update and score share its one staged copy) is
     memoized per key as field "rows"; the rest stage warm every call."""
+    from photon_ml_tpu_torch.ops.features import is_sparse
     from photon_ml_tpu_torch.parallel.mesh_residency import default_residency
+    if any(is_sparse(a) for a in arrays):
+        raise ValueError(
+            "a sparse COO/CSR tensor does not shard over the mesh's data axis, "
+            "as the JAX package's BCOO does not (its leaves are [nnz] and "
+            "[nnz, 2]: device_put under the data sharding raises at "
+            "photon_ml_tpu/parallel/fixed_effect.py:184); convert it first with "
+            "ops.features.as_feature_matrix, whose PaddedSparse shards by rows")
     res = residency if residency is not None else default_residency()
     n = arrays[0].shape[0]
     out = []

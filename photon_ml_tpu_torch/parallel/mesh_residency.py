@@ -114,14 +114,16 @@ def staged_nbytes(staged) -> int:
 
 def _to_device(a, mesh: Mesh, dtype):
     """A host or device block onto the rank's device: floating values in
-    `dtype`; a sparse block as a PaddedSparse with its own column view."""
+    `dtype` (bf16 values stay bf16: the design matrix's bf16 storage, as
+    ops/features.py keeps it); a sparse block as a PaddedSparse with its own
+    column view."""
     from photon_ml_tpu_torch.ops import features as fops
     if isinstance(a, (fops.PaddedSparse, fops.KroneckerDesign)) \
             or fops._is_scipy_sparse(a):
         return fops.as_feature_matrix(a, mesh.device, dtype, with_csc=True)
     t = torch.as_tensor(a)
     if t.is_floating_point() and dtype is not None:
-        return t.to(device=mesh.device, dtype=dtype)
+        return t.to(device=mesh.device, dtype=fops._storage(t.dtype, dtype))
     return t.to(device=mesh.device)
 
 

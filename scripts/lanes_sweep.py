@@ -106,7 +106,8 @@ def sweep_shape(libs, n, d, lanes, reps, sweep, sms) -> None:
     def launch(lib, plan):
         def call(c):
             err = lib.pmt_fused_value_and_gradient_lanes(
-                LOGISTIC.kernel_id, x.data_ptr(), y.data_ptr(), None, o.data_ptr(), None, None, None,
+                LOGISTIC.kernel_id, 4, x.data_ptr(), y.data_ptr(), None, o.data_ptr(), None, None,
+                None,
                 c.data_ptr(), partial.data_ptr(), ticket.data_ptr(), out.data_ptr(), n, d,
                 lanes, plan.rows_per_tile, plan.stages, plan.grid, plan.slots,
                 plan.layout.bytes, stream)

@@ -3,14 +3,15 @@ model-persistence and command-line parity tests, run in a subprocess of
 its own.
 
     python tests/port/game_jax_side.py \
-        tron|solver|estimator|sparse|factored|samplers|prng|model_io|cli|containment|stream|bf16 \
-        OUT.npz
+        tron|solver|estimator|sparse|factored|samplers|prng|model_io|cli|containment|stream|bf16|
+        bcoo|bf16x OUT.npz
 
 The parity tests (test_torch_tron.py, test_torch_game_solver.py,
 test_torch_game_estimator.py, test_torch_sparse_training.py,
 test_torch_factored.py, test_torch_samplers.py, test_torch_prng.py,
 test_torch_model_io.py, test_torch_cli.py, test_torch_containment.py,
-test_torch_bf16.py)
+test_torch_bf16.py, test_torch_bcoo.py; `bf16x`, shared by
+test_torch_streaming.py and test_torch_lanes.py through `shared_results`)
 start this once per test module, with JAX on the CPU in float64, and read
 its results from OUT.npz (model_io, cli and containment also read and
 write model directories, checkpoints and CLI outputs beside OUT.npz).  Compiling the JAX package's TRON, batched solver, GAME and
@@ -106,6 +107,45 @@ BF16_CASES = {
     "tron": ("tron", "l2", 1.0, 1e-6),
 }
 BF16_MAX_ITERATIONS = 100
+
+# sparse COO/CSR tensors, the port's counterpart of a BCOO: train_glm on a
+# BCOO with duplicate entries and an empty row, LBFGS and TRON, L2; TRON's
+# tolerance 1e-6, where its steps still reduce f by more than float64
+# rounding (as BF16_CASES)
+BCOO_N, BCOO_D, BCOO_SEED, BCOO_DUPLICATES = 300, 12, 8, 20
+BCOO_CASES = {"lbfgs": ("lbfgs", 100, 1e-9), "tron": ("tron", 30, 1e-6)}
+
+# a bf16 X on the streamed chunk (chunks of BF16X_CHUNK rows, a padded
+# tail) and on the bootstrap's replica lanes
+BF16X_N, BF16X_D, BF16X_CHUNK, BF16X_SEED = 300, 7, 128, 12
+BF16X_EPOCHS, BF16X_PASS_SEED = 2, 3
+BOOT_N, BOOT_D, BOOT_K, BOOT_SEED = 400, 6, 4, 3
+BOOT_OPTIONS = {"max_iterations": 50, "tolerance": 1e-6}
+
+
+_SHARED: dict = {}
+
+
+def start(what: str, out: Path):
+    """Start this script for `what` into `out` in a process of its own."""
+    return subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), what, str(out)],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT), JAX_PLATFORMS="cpu"),
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+
+
+def shared_results(what: str, tmp_path_factory) -> dict:
+    """`what`'s results, run once per test process (the first caller
+    starts the process and waits for it; later modules share them)."""
+    if what not in _SHARED:
+        out = tmp_path_factory.mktemp("jax") / f"{what}.npz"
+        proc = start(what, out)
+        _, err = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(f"the JAX side failed:\n{err[-4000:]}")
+        with np.load(out) as z:
+            _SHARED[what] = {k: z[k] for k in z.files}
+    return _SHARED[what]
 
 
 def solver_problem(case: str, seed: int = 5) -> dict:
@@ -271,6 +311,49 @@ def bf16_problem(kind: str, make_a1a_like, make_wide_sparse_logistic):
     else:
         x, y = make_wide_sparse_logistic(**BF16_SPARSE)
     return x.astype(np.float64), y.astype(np.float64)
+
+
+def bcoo_problem(seed: int = BCOO_SEED):
+    """(data [nnz], indices [nnz, 2], y) of a [BCOO_N, BCOO_D] sparse matrix
+    in float64: ~30 % nonzeros, an intercept column, row 5 empty, and
+    BCOO_DUPLICATES more entries at (row, column) pairs already stored,
+    with values of their own (a BCOO sums them)."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(BCOO_N, BCOO_D)) * (rng.uniform(size=(BCOO_N, BCOO_D)) < 0.3)
+    x[:, 0] = 1.0
+    x[5] = 0.0
+    r, c = np.nonzero(x)
+    data = x[r, c]
+    pick = rng.choice(len(r), BCOO_DUPLICATES, replace=False)
+    r, c = np.concatenate([r, r[pick]]), np.concatenate([c, c[pick]])
+    data = np.concatenate([data, rng.normal(size=BCOO_DUPLICATES)])
+    summed = np.zeros_like(x)
+    np.add.at(summed, (r, c), data)
+    beta = rng.normal(size=BCOO_D)
+    y = (rng.uniform(size=BCOO_N) < 1.0 / (1.0 + np.exp(-summed @ beta))).astype(np.float64)
+    return data, np.stack([r, c], axis=1), y
+
+
+def bf16x_problem(seed: int = BF16X_SEED) -> dict:
+    """The streamed bf16 chunk's inputs in float64 (each side rounds x to
+    bf16, round to nearest even, so both hold the same bits): x, labels,
+    weights, offsets, a coefficient vector and a direction."""
+    rng = np.random.default_rng(seed)
+    n, d = BF16X_N, BF16X_D
+    return dict(x=rng.normal(size=(n, d)), y=(rng.uniform(size=n) < 0.4).astype(np.float64),
+                w=rng.uniform(0.5, 2.0, size=n), o=rng.normal(size=n) * 0.1,
+                c=rng.normal(size=d) * 0.3, v=rng.normal(size=d))
+
+
+def bootstrap_problem(seed: int = BOOT_SEED):
+    """(x, y) of the bf16 bootstrap in float64 (x rounded to bf16 by each
+    side): an intercept column and logistic labels."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(BOOT_N, BOOT_D))
+    x[:, 0] = 1.0
+    beta = rng.normal(size=BOOT_D)
+    y = (rng.uniform(size=BOOT_N) < 1.0 / (1.0 + np.exp(-x @ beta))).astype(np.float64)
+    return x, y
 
 
 def yahoo_glmix(build_game_dataset, make_yahoo_like):
@@ -617,6 +700,61 @@ def _run_bf16(out: dict) -> None:
                           regularization_weights=(lam,))[0]
             _store(out, f"{kind}/{case}", t.result)
             out[f"{kind}/{case}/means"] = np.asarray(t.model.coefficients.means)
+
+
+def _run_bcoo(out: dict) -> None:
+    import jax.numpy as jnp
+    from jax.experimental import sparse as jsparse
+    from photon_ml_tpu.models.training import train_glm
+    from photon_ml_tpu.optim import (OptimizerConfig, OptimizerType,
+                                     RegularizationContext, RegularizationType)
+    data, idx, y = bcoo_problem()
+    x = jsparse.BCOO((jnp.asarray(data), jnp.asarray(idx)), shape=(BCOO_N, BCOO_D))
+    for case, (opt, iters, tol) in BCOO_CASES.items():
+        t = train_glm(x, jnp.asarray(y), "logistic_regression",
+                      optimizer_config=OptimizerConfig(
+                          optimizer=OptimizerType(opt), max_iterations=iters, tolerance=tol),
+                      regularization=RegularizationContext(RegularizationType.L2),
+                      regularization_weights=(1.0,))[0]
+        _store(out, case, t.result)
+        out[f"{case}/means"] = np.asarray(t.model.coefficients.means)
+
+
+def _run_bf16x(out: dict) -> None:
+    """The streamed chunk on a bf16 host X (ml_dtypes), and the bootstrap
+    on a bf16 X; bf16 results are stored as float32 (exact)."""
+    import jax.numpy as jnp
+    import ml_dtypes
+    from photon_ml_tpu.data.streaming import ChunkPlan
+    from photon_ml_tpu.diagnostics.bootstrap import bootstrap_training
+    from photon_ml_tpu.ops.chunked import ChunkedGLMObjective
+    from photon_ml_tpu.ops.losses import LOGISTIC
+    from photon_ml_tpu.optim import (OptimizerConfig, RegularizationContext,
+                                     RegularizationType)
+    p = bf16x_problem()
+    obj = ChunkedGLMObjective(LOGISTIC, p["x"].astype(ml_dtypes.bfloat16), p["y"],
+                              ChunkPlan.build(BF16X_N, chunk_rows=BF16X_CHUNK),
+                              weights=p["w"], offsets=p["o"], l2_weight=1.0)
+    c, v = jnp.asarray(p["c"]), jnp.asarray(p["v"])
+    out["chunk/value"] = np.asarray(obj.value(c))
+    out["chunk/vg_value"], out["chunk/vg_gradient"] = map(np.asarray, obj.value_and_gradient(c))
+    out["chunk/hessian_vector"] = np.asarray(obj.hessian_vector(c, v))
+    out["chunk/hessian_diagonal"] = np.asarray(obj.replace(offsets=None).hessian_diagonal(c))
+    out["chunk/scores"] = np.asarray(obj.scores(c))
+    c_out, entry = obj.stochastic_pass(c, local_epochs=BF16X_EPOCHS, seed=BF16X_PASS_SEED)
+    out["chunk/stochastic_x"], out["chunk/stochastic_entry"] = np.asarray(c_out), np.asarray(entry)
+    x, y = bootstrap_problem()
+    rep = bootstrap_training(x.astype(ml_dtypes.bfloat16), y, "logistic_regression",
+                             num_bootstrap_samples=BOOT_K,
+                             optimizer_config=OptimizerConfig(**BOOT_OPTIONS),
+                             regularization=RegularizationContext(RegularizationType.L2),
+                             regularization_weight=1.0)
+    for j, cs in enumerate(rep.coefficient_summaries):
+        for f in ("min", "q1", "median", "q3", "max", "mean", "std"):
+            out[f"boot/coef/{j}/{f}"] = np.asarray(float(getattr(cs, f)))
+    for name, ms in rep.metric_summaries.items():
+        out[f"boot/metric/{name}"] = np.asarray(float(ms.mean))
+    out["boot/significant"] = np.asarray(rep.significant_mask)
 
 
 def _store_fit(out: dict, key: str, res, val) -> None:
@@ -1457,7 +1595,8 @@ def main(argv) -> int:
         {"tron": _run_tron, "solver": _run_solver, "estimator": _run_estimator,
          "sparse": _run_sparse, "factored": _run_factored,
          "samplers": _run_samplers, "prng": _run_prng,
-         "stream": _run_stream, "bf16": _run_bf16}[what](out)
+         "stream": _run_stream, "bf16": _run_bf16, "bcoo": _run_bcoo,
+         "bf16x": _run_bf16x}[what](out)
     np.savez(path, **out)
     return 0
 

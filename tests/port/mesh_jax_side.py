@@ -75,6 +75,26 @@ STOCH_MESHES = ((2, 1), (4, 1))
 STOCH_MERGES = ("sequential", "average")
 
 
+# a bf16 design matrix: the monolithic mesh lane (fit_fixed_effect on
+# BF16_SHAPE, LBFGS with L2; labels, weights and the solve in float64, x0's
+# dtype) and the consensus-ADMM lane on BF16_ADMM_SHAPE, which raises in
+# both packages (no bfloat16 eigh); a process of the `sparse` part
+BF16_N, BF16_D, BF16_SEED, BF16_ITERATIONS = 601, 9, 13, 30
+BF16_SHAPE, BF16_ADMM_SHAPE = (2, 1), (1, 2)
+
+
+def bf16_mesh_problem(seed: int = BF16_SEED):
+    """(x, y, w) in float64 (each side rounds x to bf16, to nearest even):
+    an intercept column, logistic labels, weights; an odd n, so a rank's
+    block has a padded row."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(BF16_N, BF16_D))
+    x[:, 0] = 1.0
+    beta = rng.normal(size=BF16_D) * 0.5
+    y = (rng.uniform(size=BF16_N) < 1.0 / (1.0 + np.exp(-x @ beta))).astype(np.float64)
+    return x, y, rng.uniform(0.5, 2.0, size=BF16_N)
+
+
 def glmix_config_dict(factored: bool = False) -> dict:
     """Config 4's coordinates at GLMIX_ITERATIONS iterations; `factored`
     puts a factored random effect (latent dimension 2) after the fixed
@@ -249,6 +269,45 @@ def _run_sparse(out: dict, shape) -> None:
     mesh = make_mesh(*shape, devices=jax.devices()[:shape[0] * shape[1]])
     res = GameEstimator(cfg, mesh=mesh).fit(train, val, ["AUC"])
     out[("sparse", shape)] = _fit_record(res)
+    _run_bf16(out)
+
+
+def _run_bf16(out: dict) -> None:
+    import jax
+    import jax.numpy as jnp
+    import ml_dtypes
+    from photon_ml_tpu.ops.losses import LOGISTIC
+    from photon_ml_tpu.ops.objective import GLMObjective
+    from photon_ml_tpu.optim import (ADMMConfig, OptimizerConfig,
+                                     RegularizationContext, RegularizationType)
+    from photon_ml_tpu.parallel import make_mesh
+    from photon_ml_tpu.parallel.fixed_effect import (fit_fixed_effect,
+                                                     fit_fixed_effect_admm)
+    x, y, w = bf16_mesh_problem()
+    xb = x.astype(ml_dtypes.bfloat16)
+    mesh = lambda d, f: make_mesh(d, f, devices=jax.devices()[:d * f])
+    l2 = RegularizationContext(RegularizationType.L2)
+    res = fit_fixed_effect(
+        GLMObjective(LOGISTIC, jnp.asarray(xb), jnp.asarray(y), weights=jnp.asarray(w)),
+        jnp.zeros(BF16_D), mesh(*BF16_SHAPE),
+        OptimizerConfig(max_iterations=BF16_ITERATIONS, tolerance=1e-9), l2, 1.0,
+        residency_key=("jax-bf16", BF16_SHAPE))
+    k = int(res.iterations)
+    out[("bf16", BF16_SHAPE)] = {"iterations": k, "x": np.asarray(res.x),
+                                 "dtype": str(res.x.dtype), "reason": int(res.reason),
+                                 "loss_history": np.asarray(res.loss_history)[:k + 1]}
+    try:
+        fit_fixed_effect_admm(GLMObjective(LOGISTIC, xb, y), np.zeros(BF16_D),
+                              mesh(*BF16_ADMM_SHAPE), ADMMConfig(max_iterations=2),
+                              reg=l2, reg_weight=1.0,
+                              residency_key=("jax-bf16-admm", BF16_ADMM_SHAPE))
+        out[("bf16_admm", BF16_ADMM_SHAPE)] = {"error": None}
+    except Exception as e:  # noqa: BLE001 -- recorded for the test
+        chain = []
+        while e is not None:
+            chain.append(f"{type(e).__name__}: {e}")
+            e = e.__cause__
+        out[("bf16_admm", BF16_ADMM_SHAPE)] = {"error": chain}
 
 
 def _run_mstream(out: dict) -> None:

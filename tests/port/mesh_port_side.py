@@ -107,7 +107,53 @@ def _run_mesh(out: dict, rank: int) -> None:
     # mesh 1 x 1 against no mesh, on rank 0 alone
     cfg = GameTrainingConfig.from_dict(mj.glmix_config_dict())
     out[("glmix", (1, 1))] = fit(cfg, (1, 1), train, val)
+    _run_bf16(out)
     _run_mstream(out, rank)
+
+
+def _run_bf16(out: dict) -> None:
+    """A bf16 X on the monolithic mesh lane (ranks 0-1 of the group) and on
+    the ADMM lane, which raises on every rank before any collective."""
+    import torch
+    from photon_ml_tpu_torch.ops.losses import LOGISTIC
+    from photon_ml_tpu_torch.ops.objective import GLMObjective
+    from photon_ml_tpu_torch.optim.admm import ADMMConfig
+    from photon_ml_tpu_torch.optim.config import (
+        OptimizerConfig, RegularizationContext, RegularizationType)
+    from photon_ml_tpu_torch.parallel import make_mesh
+    from photon_ml_tpu_torch.parallel.fixed_effect import (
+        fit_fixed_effect, fit_fixed_effect_admm)
+    x, y, w = mj.bf16_mesh_problem()
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    f64 = lambda a: torch.from_numpy(a)
+    l2 = RegularizationContext(RegularizationType.L2)
+    mesh = make_mesh(*mj.BF16_SHAPE, device="cpu", ranks=[0, 1])
+    if mesh is not None:
+        calls0 = mesh.stats.snapshot()
+        res = fit_fixed_effect(
+            GLMObjective(LOGISTIC, xb, f64(y), weights=f64(w)),
+            torch.zeros(mj.BF16_D, dtype=torch.float64), mesh,
+            OptimizerConfig(max_iterations=mj.BF16_ITERATIONS, tolerance=1e-9), l2, 1.0,
+            residency_key=("port-bf16", mj.BF16_SHAPE))
+        k = res.iterations
+        from photon_ml_tpu_torch.parallel.mesh_residency import default_residency
+        staged = default_residency().stage_static(("port-bf16", mj.BF16_SHAPE), "rows",
+                                                  mesh, xb, 0.0, dtype=torch.float64)
+        out[("bf16", mj.BF16_SHAPE)] = {
+            "iterations": k, "x": res.x.numpy(), "dtype": str(res.x.dtype),
+            "reason": int(res.reason), "loss_history": res.loss_history[:k + 1].numpy(),
+            "staged_dtype": str(staged.dtype), "staged_rows": staged.shape[0],
+            "collectives": mesh.stats.delta(calls0, mesh.stats.snapshot())}
+    mesh = make_mesh(*mj.BF16_ADMM_SHAPE, device="cpu", ranks=[0, 1])
+    if mesh is not None:
+        try:
+            fit_fixed_effect_admm(GLMObjective(LOGISTIC, xb, f64(y)),
+                                  torch.zeros(mj.BF16_D, dtype=torch.float64), mesh,
+                                  ADMMConfig(max_iterations=2), reg=l2, reg_weight=1.0,
+                                  residency_key=("port-bf16-admm", mj.BF16_ADMM_SHAPE))
+            out[("bf16_admm", mj.BF16_ADMM_SHAPE)] = {"error": None}
+        except NotImplementedError as e:
+            out[("bf16_admm", mj.BF16_ADMM_SHAPE)] = {"error": [str(e)]}
 
 
 def _stream_bytes_per_pass(plan, train, mesh) -> int:

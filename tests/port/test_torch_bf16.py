@@ -219,22 +219,39 @@ def test_bf16_statistics_build_a_float32_context():
 
 
 def test_paths_that_keep_float32_refuse_bf16():
-    """The candidate lanes, the streamed chunk and the mesh raise on a
-    bf16 X, each naming its ROADMAP item."""
-    from photon_ml_tpu_torch.ops.chunked import ChunkedGLMObjective
-    from photon_ml_tpu_torch.ops.lanes import FixedEffectLanes
+    """One path takes no bf16 X, in both packages: the consensus-ADMM lane,
+    whose Gram eigendecomposition has no bfloat16 kernel in the JAX package
+    (jnp.linalg.eigh at photon_ml_tpu/parallel/fixed_effect.py:243 raises
+    NotImplementedError, wrapped by its staging layer's MeshStagingError;
+    nothing compiles).  The port raises NotImplementedError naming that
+    site before it stages anything.  The candidate lanes, the streamed
+    chunk and the monolithic mesh lane take a bf16 X (test_torch_lanes.py,
+    test_torch_streaming.py, test_torch_mesh.py)."""
+    import jax
+    from photon_ml_tpu.ops.objective import GLMObjective as JObjective
+    from photon_ml_tpu.optim import ADMMConfig, RegularizationContext as JReg
+    from photon_ml_tpu.optim import RegularizationType as JRT
+    from photon_ml_tpu.parallel import make_mesh
+    from photon_ml_tpu.parallel.fixed_effect import fit_fixed_effect_admm
     from photon_ml_tpu_torch.ops.objective import GLMObjective
-    from photon_ml_tpu_torch.parallel.fixed_effect import stage_objective
+    from photon_ml_tpu_torch.parallel.fixed_effect import stage_admm_grid
+    import ml_dtypes
     p = _problem(seed=26)
+    with pytest.raises(Exception) as err:
+        fit_fixed_effect_admm(JObjective(JL.LOGISTIC, p["x"].astype(ml_dtypes.bfloat16),
+                                         p["y"]),
+                              np.zeros(D), make_mesh(1, 2, devices=jax.devices()[:2]),
+                              ADMMConfig(max_iterations=2), reg=JReg(JRT.L2),
+                              reg_weight=1.0, residency_key=("bf16-admm", "jax"))
+    chain, e = [], err.value
+    while e is not None:
+        chain.append(e)
+        e = e.__cause__
+    assert any(isinstance(e, NotImplementedError) and "bfloat16" in str(e) for e in chain)
     xb = torch.from_numpy(p["x"]).to(torch.bfloat16)
-    y = torch.from_numpy(p["y"])
-    with pytest.raises(NotImplementedError, match="item 27"):
-        FixedEffectLanes(TL.LOGISTIC, xb, y, None, torch.ones(2, dtype=torch.float64))
-    with pytest.raises(NotImplementedError, match="item 28"):
-        ChunkedGLMObjective(TL.LOGISTIC, p["x"], p["y"], None, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="item 29"):
-        stage_objective(GLMObjective(TL.LOGISTIC, xb, y), object(), ("fe", "t"),
-                        torch.float64)
+    with pytest.raises(NotImplementedError, match=r"fixed_effect\.py:243"):
+        stage_admm_grid(("bf16-admm", "port"), object(), xb, torch.float64)
+    assert GLMObjective(TL.LOGISTIC, xb, torch.from_numpy(p["y"])).x.dtype == torch.bfloat16
 
 
 @pytest.fixture(scope="module")

@@ -1776,3 +1776,139 @@ def test_bf16_train_glm_runs_the_kernels_on_bf16(cuda, kind):
     else:
         assert sk.BF16_LAUNCHES["margin_loss"] == sk.BF16_LAUNCHES["column_sum"] == passes > 0
     np.testing.assert_allclose(f16.result.value.item(), f32.result.value.item(), rtol=1e-5)
+
+
+# --- bf16 X on the lanes kernel, the streamed chunk; sparse tensors ---------
+
+BF16_LANES_SHAPES = ("700x37", "misaligned", "n1", "n0", "d9", "d9_misaligned", "d124",
+                     "d512")
+
+
+@pytest.mark.parametrize("lanes", [1, 5, 16])
+@pytest.mark.parametrize("shape", BF16_LANES_SHAPES)
+@pytest.mark.parametrize("name", sorted(TL.BY_NAME))
+def test_bf16_lanes_kernel_matches_plain(cuda, name, shape, lanes):
+    """The lanes kernel on a bf16 X (its 2-byte ring, the ragged ends of a
+    misaligned view copied by the producer lane, X a native TF32 operand)
+    against the plain version in float64 on the same bf16 X widened: the
+    float32 kernel's tolerances, value rtol 1e-5, the rest rtol/atol 1e-4;
+    plain, and with weights, offsets, a mask and shifts; counted among the
+    bf16 launches."""
+    n, d, *skip = LANES_SHAPES[shape]
+    x, y, c, w, o, m, b = _lanes_inputs(n, d, lanes, skip=skip[0] if skip else 0)
+    xb = torch.empty((n + (skip[0] if skip else 0), d), dtype=torch.bfloat16,
+                     device="cuda")[skip[0] if skip else 0:]
+    xb.copy_(x)
+    if skip:
+        assert xb.data_ptr() % 16 != 0
+    f64 = lambda t: None if t is None else t.double()
+    for args in ((), (w, o, m, b)):
+        before = hk.LANES_BF16_LAUNCHES
+        got = hk.fused_value_and_gradient_lanes(TL.BY_NAME[name], xb, y, c, *args)
+        assert hk.LANES_BF16_LAUNCHES == before + 1
+        want = hk.fused_value_and_gradient_lanes_plain(
+            TL.BY_NAME[name], xb.double(), y.double(), c.double(), *map(f64, args))
+        np.testing.assert_allclose(got[0].cpu().numpy(), want[0].cpu().numpy(), rtol=1e-5)
+        for a, e in zip(got[1:], want[1:]):
+            np.testing.assert_allclose(a.cpu().numpy(), e.cpu().numpy(), rtol=1e-4, atol=1e-4)
+
+
+def test_bf16_lanes_kernel_with_lane_mask_and_bootstrap(cuda):
+    """A bf16 X with a lane mask (the bootstrap's lanes) against the plain
+    version, and bootstrap_training on a bf16 X on the card: its replicas'
+    state in bf16, one bf16 launch of the lanes kernel a round."""
+    from photon_ml_tpu_torch.diagnostics.bootstrap import bootstrap_training
+    from photon_ml_tpu_torch.ops.lanes import lane_words
+    from photon_ml_tpu_torch.optim.config import (
+        OptimizerConfig, RegularizationContext, RegularizationType)
+    x, y, c, w, o, m, b = _lanes_inputs(5001, 31, 16)
+    keep = torch.rand((16, 5001), device="cuda") < 0.75
+    q = lane_words(keep)
+    xb = x.to(torch.bfloat16)
+    got = hk.fused_value_and_gradient_lanes(TL.LOGISTIC, xb, y, c, w, lane_mask=q)
+    want = hk.fused_value_and_gradient_lanes_plain(TL.LOGISTIC, xb.double(), y.double(),
+                                                   c.double(), w.double(), lane_mask=q)
+    np.testing.assert_allclose(got[0].cpu().numpy(), want[0].cpu().numpy(), rtol=1e-5)
+    np.testing.assert_allclose(got[1].cpu().numpy(), want[1].cpu().numpy(), rtol=1e-4,
+                               atol=1e-4)
+    rng = np.random.default_rng(3)
+    xh = rng.normal(size=(20_000, 12))
+    xh[:, 0] = 1.0
+    yh = (rng.uniform(size=20_000) < 1 / (1 + np.exp(-xh @ rng.normal(size=12)))) * 1.0
+    before = hk.LANES_BF16_LAUNCHES
+    rep = bootstrap_training(torch.from_numpy(xh).to(torch.bfloat16).cuda(), yh,
+                             "logistic_regression", num_bootstrap_samples=8,
+                             optimizer_config=OptimizerConfig(max_iterations=50),
+                             regularization=RegularizationContext(RegularizationType.L2),
+                             regularization_weight=1.0)
+    assert rep.solve["route"] == "lanes" and rep.solve["lane_groups"] == 1
+    assert hk.LANES_BF16_LAUNCHES - before == rep.solve["rounds"] > 0
+    assert np.all(np.isfinite(rep.coefficients))
+
+
+@pytest.mark.parametrize("layout", ["coo", "csr"])
+def test_sparse_tensor_train_glm_runs_kernels_a_and_b(cuda, layout):
+    """train_glm on a CUDA sparse COO/CSR tensor: converted on the card into
+    the ELL layout from_scipy builds (tensor for tensor), kernels A and B
+    once a pass each and no dense launch, and the fit the scipy-ingested
+    fit's bit for bit; a raw tensor's products run its cached ELL form."""
+    from photon_ml_tpu_torch.data.synthetic_bench import make_wide_sparse_logistic
+    from photon_ml_tpu_torch.models.training import train_glm
+    from photon_ml_tpu_torch.ops import features as F
+    from photon_ml_tpu_torch.ops import sparse_kernels as sk
+    from photon_ml_tpu_torch.optim.config import (
+        OptimizerConfig, RegularizationContext, RegularizationType)
+    x_sp, y = make_wide_sparse_logistic(3000, d=20_000, nnz=16, seed=5)
+    coo = x_sp.tocoo()
+    t = torch.sparse_coo_tensor(np.stack([coo.row, coo.col]), coo.data, coo.shape,
+                                device="cuda")
+    t = t if layout == "coo" else t.coalesce().to_sparse_csr()
+    want = F.PaddedSparse.from_scipy(x_sp, with_csc=True, device="cuda")
+    got = F.PaddedSparse.from_torch(t, with_csc=True)
+    for f in ("indices", "values", "csc_row", "csc_val", "csc_end", "csc_tiles"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    kw = dict(optimizer_config=OptimizerConfig(max_iterations=100, tolerance=1e-7),
+              regularization=RegularizationContext(RegularizationType.L2),
+              regularization_weights=(1.0,))
+    ref = train_glm(x_sp, y, "logistic_regression", **kw)[0]
+    before, dense = dict(sk.LAUNCHES), hk.LAUNCHES
+    fit = train_glm(t, y, "logistic_regression", **kw)[0]
+    passes = fit.result.fg_count
+    assert sk.LAUNCHES["margin_loss"] - before["margin_loss"] == passes > 0
+    assert sk.LAUNCHES["column_sum"] - before["column_sum"] == passes
+    assert hk.LAUNCHES == dense
+    assert torch.equal(fit.model.coefficients.means, ref.model.coefficients.means)
+    u = torch.rand(3000, device="cuda")
+    v = torch.randn(20_000, device="cuda") * 0.01
+    assert F.ell_form(t) is F.ell_form(t)
+    cpu = t.cpu().double()
+    np.testing.assert_allclose(F.matvec(t, v).cpu().numpy(),
+                               F.matvec(cpu, v.cpu().double()).numpy(), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(F.rmatvec(t, u).cpu().numpy(),
+                               F.rmatvec(cpu, u.cpu().double()).numpy(), rtol=1e-4, atol=1e-4)
+
+
+def test_bf16_streamed_chunk_runs_the_fused_kernel_on_bf16(cuda):
+    """A streamed objective over a bf16 host X (a CPU bf16 tensor): each
+    chunk's 2-byte bits staged and run by the fused kernel on bf16, one
+    launch a chunk; its value and gradient within the kernel's tolerances
+    of the float32 streamed objective over the same values."""
+    from photon_ml_tpu_torch.data.streaming import ChunkPlan
+    from photon_ml_tpu_torch.ops.chunked import ChunkedGLMObjective
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.normal(size=(300_001, 24))).to(torch.bfloat16)
+    y = (rng.uniform(size=300_001) < 0.4) * 1.0
+    plan = ChunkPlan.build(300_001, chunk_rows=65_536)
+    c = torch.from_numpy(rng.normal(size=24) * 0.1).float().cuda()
+    b16 = ChunkedGLMObjective(TL.LOGISTIC, x, y, plan, device="cuda")
+    f32 = ChunkedGLMObjective(TL.LOGISTIC, x.float().numpy(), y, plan, device="cuda")
+    before = hk.BF16_LAUNCHES
+    v16, g16 = b16.value_and_gradient(c)
+    assert hk.BF16_LAUNCHES - before == plan.num_chunks
+    v32, g32 = f32.value_and_gradient(c)
+    np.testing.assert_allclose(v16.item(), v32.item(), rtol=1e-5)
+    np.testing.assert_allclose(g16.cpu().numpy(), g32.cpu().numpy(), rtol=1e-4, atol=1e-4)
+    assert b16.stats.total_bytes < f32.stats.total_bytes
+    with pytest.raises(TypeError, match="host"):   # a CUDA block is no host block
+        ChunkedGLMObjective(TL.LOGISTIC, x[:8].cuda(), y[:8], ChunkPlan.build(8, chunk_rows=8),
+                            device="cuda")

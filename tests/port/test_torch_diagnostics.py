@@ -329,7 +329,7 @@ def test_fixed_effect_lanes_with_lane_keep_match_vmapped_jax(name, route, monkey
     rows member_k * w: values, gradients and Hessian-vector products."""
     from photon_ml_tpu_torch.ops import lanes as lanes_mod
     if route == "single":
-        monkeypatch.setattr(lanes_mod, "lanes_route", lambda d, device: "single")
+        monkeypatch.setattr(lanes_mod, "lanes_route", lambda d, device, xbytes=4: "single")
     x, y, w, o, c, v, member = _lane_problem()
     l2 = np.linspace(0.0, 2.0, K)
     jv, jg, jh = _jax_lanes(name, x, y, w, o, c, v, member, l2)

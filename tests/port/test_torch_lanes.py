@@ -142,7 +142,7 @@ def test_single_kernel_route_matches_vmapped_jax_objective(name, norm, monkeypat
     jax.vmap of the JAX package's GLMObjective, raw and standardized
     (rtol 1e-12: the same sums in another order)."""
     from photon_ml_tpu_torch.ops import lanes as lanes_mod
-    monkeypatch.setattr(lanes_mod, "lanes_route", lambda d, device: "single")
+    monkeypatch.setattr(lanes_mod, "lanes_route", lambda d, device, xbytes=4: "single")
     x, y, w, o, c, v, l2 = _problem()
     mean, var = _stats(x)
     jn = tn = None
@@ -228,3 +228,126 @@ def test_solve_takes_regweights_as_the_split(reg):
                              RegWeights(torch.full((3,), l1, dtype=torch.float64), None))
     assert torch.equal(shared.x, per_lane.x)
     np.testing.assert_allclose(shared.x[0].numpy(), static.x.numpy(), rtol=1e-6, atol=1e-6)
+
+
+# -- a bf16 X on the candidate lanes -----------------------------------------
+
+U_BF16 = 2.0 ** -8   # bf16's unit roundoff
+
+
+def _bf16(a) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(a, dtype=np.float64)).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("name", sorted(TL.BY_NAME))
+def test_bf16_lanes_pass_matches_vmapped_jax_objective(name):
+    """One pass of K bootstrap-style lanes (weights w * keep_k) at the same
+    bf16 C, with the lane state in X's dtype as the JAX package keeps it
+    (photon_ml_tpu/diagnostics/bootstrap.py:112-126): X, labels, weights and
+    C bf16 on both sides.  The JAX package rounds every intermediate to
+    bf16; the port computes the pass in float32 and rounds its results.
+    So values agree within 4 u relative and each gradient entry within
+    4 u sum_i |w_i l'_i x_ij| + u |g_j| (u = 2^-8: a few roundings of each
+    term, one of the sum)."""
+    x, y, w, _, c, _, _ = _problem(seed=5)
+    keep = np.random.default_rng(6).uniform(size=(K, N)) < 0.75
+    xb, yb, cb = _bf16(x), _bf16(y), _bf16(c)
+    jloss = JL.BY_NAME[name]
+
+    def one(ck, wk):
+        return JObjective(jloss, jnp.asarray(x, jnp.bfloat16), jnp.asarray(y, jnp.bfloat16),
+                          weights=wk).value_and_gradient(ck)
+
+    jv, jg = jax.vmap(one)(jnp.asarray(c, jnp.bfloat16), jnp.asarray(keep * w, jnp.bfloat16))
+    lanes = FixedEffectLanes(TL.BY_NAME[name], xb, yb, None,
+                             torch.zeros(K, dtype=torch.bfloat16), weights=_bf16(w),
+                             lane_keep=torch.from_numpy(keep))
+    tv, tg = lanes.value_and_gradient(cb)
+    assert tv.dtype == tg.dtype == torch.bfloat16 and jv.dtype == jnp.bfloat16
+    # the terms' scale, from the same bf16 inputs in float64
+    z = xb.double().numpy() @ cb.double().numpy().T
+    _, dl = TL.BY_NAME[name].loss_and_dz(torch.from_numpy(z), yb.double()[:, None])
+    wk = (keep * _bf16(w).double().numpy()).T
+    terms = np.abs(xb.double().numpy()).T @ np.abs(wk * dl.numpy())   # [d, K]
+    jv, jg = np.asarray(jv, np.float64), np.asarray(jg, np.float64)
+    np.testing.assert_allclose(tv.double().numpy(), jv, rtol=4 * U_BF16)
+    bound = 4 * U_BF16 * terms.T + U_BF16 * np.abs(jg)
+    assert np.all(np.abs(tg.double().numpy() - jg) <= bound)
+
+
+def test_bf16_plain_version_promotes_x_exactly():
+    """The plain version takes a bf16 X as the kernel does (every other
+    operand float32 on the card, float64 here) and widens it exactly: the
+    same numbers as the plain version over X widened first."""
+    x, y, w, o, c, _, _ = _problem(seed=7)
+    t = torch.from_numpy
+    xb = _bf16(x)
+    got = hk.fused_value_and_gradient_lanes_plain(TL.LOGISTIC, xb, t(y), t(c), t(w), t(o))
+    want = hk.fused_value_and_gradient_lanes_plain(TL.LOGISTIC, xb.double(), t(y), t(c),
+                                                   t(w), t(o))
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float64 and torch.equal(a, b)
+    lanes = FixedEffectLanes(TL.LOGISTIC, xb, t(y), t(o), t(np.zeros(K)), weights=t(w))
+    for a, b in zip(lanes.value_and_gradient(t(c)), want[:2]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("d", [31, 124])
+def test_bf16_lanes_plans_fit_shared_memory(d, masked):
+    """The lanes kernel's plan for a bf16 X at K = 4, 8 and 16: tiles of a
+    multiple of 8 rows (16-byte aligned tiles of an aligned X), an X span
+    holding the tile and 7 elements of alignment room, two or more stages,
+    within MAX_SMEM at the instantiated gradient slots, as the C entry's
+    smem_layout reproduces it; never fewer lanes a launch than float32."""
+    for lanes in (4, 8, 16):
+        plan = hk.plan_lanes(950_051, d, lanes, 132, masked=masked, xbytes=2)
+        rows = plan.rows_per_tile
+        assert rows % 8 == 0 and plan.stages >= 2
+        assert 4 * plan.layout.stage_x >= 2 * rows * d + 14
+        assert plan.layout.bytes <= hk.MAX_SMEM
+        assert plan.layout == hk.lanes_smem_layout(d, lanes, rows, plan.stages, masked, 2)
+        assert plan.slots >= hk.grad_slots(d, rows)
+    assert hk.max_lanes(d, masked, xbytes=2) >= hk.max_lanes(d, masked) == hk.LANES_MAX
+    with pytest.raises(ValueError, match="xbytes"):
+        hk.plan_lanes(1000, d, 4, 132, xbytes=8)
+
+
+@pytest.fixture(scope="module")
+def bf16x(tmp_path_factory):
+    import game_jax_side as side
+    return side.shared_results("bf16x", tmp_path_factory)
+
+
+def test_bf16_bootstrap_matches_jax(bf16x):
+    """diagnostics.bootstrap_training on a bf16 X (game_jax_side.
+    bootstrap_problem, 4 replicas, LBFGS with L2) against the JAX package's:
+    both keep the replicas' state in bf16 and stop where bf16's gradient
+    noise stops them, so the two trajectories are not bit-reproducible.
+    The outputs are held instead: every coefficient summary (min,
+    quartiles, max, mean) within 8 bf16 ulps of its scale, 8 u max(1, |a|)
+    (u = 2^-8, a few ulps of each replica's stopping point); each holdout
+    metric's mean within 2e-2 relative (the margins of those coefficients,
+    rounded to bf16, over ~100 holdout rows a replica); and the
+    coefficients whose interquartile range excludes zero are the same."""
+    import game_jax_side as side
+    from photon_ml_tpu_torch.diagnostics.bootstrap import bootstrap_training
+    from photon_ml_tpu_torch.optim.config import (
+        OptimizerConfig, RegularizationContext, RegularizationType)
+    x, y = side.bootstrap_problem()
+    rep = bootstrap_training(_bf16(x), y, "logistic_regression",
+                             num_bootstrap_samples=side.BOOT_K,
+                             optimizer_config=OptimizerConfig(**side.BOOT_OPTIONS),
+                             regularization=RegularizationContext(RegularizationType.L2),
+                             regularization_weight=1.0, device="cpu")
+    assert rep.coefficients.dtype == np.float32 and rep.solve["route"] == "plain"
+    for j, cs in enumerate(rep.coefficient_summaries):
+        for f in ("min", "q1", "median", "q3", "max", "mean"):
+            want = float(bf16x[f"boot/coef/{j}/{f}"])
+            assert abs(getattr(cs, f) - want) <= 8 * U_BF16 * max(1.0, abs(want)), (j, f)
+    names = {k.split("/", 2)[2] for k in bf16x if k.startswith("boot/metric/")}
+    assert names == set(rep.metric_summaries)
+    for name in names:
+        np.testing.assert_allclose(rep.metric_summaries[name].mean,
+                                   float(bf16x[f"boot/metric/{name}"]), rtol=2e-2)
+    assert np.array_equal(rep.significant_mask, bf16x["boot/significant"])

@@ -135,3 +135,42 @@ def test_data_mesh_collectives_per_pass(results):
     assert rec["collectives"] == {
         "all_reduce.data.calls": expect,
         "all_reduce.data.elements": rec["collectives"]["all_reduce.data.elements"]}
+
+
+def test_bf16_mesh_fit_matches_jax(results):
+    """A bf16 X on the monolithic lane of a 2x1 mesh, as the JAX package's
+    fit_fixed_effect on a bf16 design (mesh_jax_side.bf16_mesh_problem): X
+    stays bf16 in each rank's staged block, the labels, weights and the
+    solve take x0's float64 (the JAX package's result dtype too), every
+    product promotes X exactly, so the fits agree as the float64 mesh fits
+    do: the same iterations and stop reason, histories within
+    HISTORY_RTOL, coefficients within COEF_ATOL; the two ranks bit for bit,
+    one data-axis all_reduce a pass."""
+    jax, port = results
+    want = jax[("bf16", mj.BF16_SHAPE)]
+    got = port[0][("bf16", mj.BF16_SHAPE)]
+    assert want["dtype"] == "float64" and got["dtype"] == "torch.float64"
+    assert got["staged_dtype"] == "torch.bfloat16"
+    assert got["staged_rows"] == -(-mj.BF16_N // 2)
+    assert got["iterations"] == want["iterations"] > 0
+    assert got["reason"] == want["reason"]
+    _close_histories(got["loss_history"], want["loss_history"], HISTORY_RTOL)
+    np.testing.assert_allclose(got["x"], want["x"], rtol=0, atol=COEF_ATOL)
+    other = port[1][("bf16", mj.BF16_SHAPE)]
+    assert np.array_equal(other["x"], got["x"])
+    assert np.array_equal(other["loss_history"], got["loss_history"])
+    assert all(("bf16", mj.BF16_SHAPE) not in rank for rank in port[2:])
+    assert got["collectives"]["all_reduce.data.calls"] >= got["iterations"]
+
+
+def test_bf16_admm_raises_in_both_packages(results):
+    """The consensus-ADMM lane takes no bf16 design in either package: the
+    JAX package's Gram eigendecomposition raises (no bfloat16 eigh,
+    photon_ml_tpu/parallel/fixed_effect.py:243), and the port raises on
+    every rank of the mesh, naming that site, before any collective."""
+    jax, port = results
+    chain = jax[("bf16_admm", mj.BF16_ADMM_SHAPE)]["error"]
+    assert chain and any("NotImplementedError" in e and "bfloat16" in e for e in chain)
+    for rank in port[:2]:
+        err = rank[("bf16_admm", mj.BF16_ADMM_SHAPE)]["error"]
+        assert err and "fixed_effect.py:243" in err[0]

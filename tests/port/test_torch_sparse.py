@@ -181,12 +181,21 @@ def test_cuda_matrix_without_column_view_raises_in_rmatvec(monkeypatch):
 
 
 def test_unported_representations_name_their_roadmap_entry():
+    """Every representation has its path now: a sparse COO tensor (the
+    port's BCOO, item 24) is ingested as a PaddedSparse and its products
+    run; a sparse layout other than COO and CSR raises TypeError naming
+    the two."""
     coo = torch.sparse_coo_tensor([[0, 1], [1, 0]], [1.0, 2.0], (2, 2),
                                   check_invariants=True)
-    with pytest.raises(NotImplementedError, match="item 24"):
-        TF.as_feature_matrix(coo, "cpu")
-    with pytest.raises(NotImplementedError, match="item 24"):
-        TF.matvec(coo, torch.ones(2))
+    ingested = TF.as_feature_matrix(coo, "cpu")
+    assert isinstance(ingested, TF.PaddedSparse)
+    assert torch.equal(TF.densify(ingested), coo.to_dense())
+    assert torch.equal(TF.matvec(coo, torch.ones(2)), torch.tensor([1.0, 2.0]))
+    for bad in (coo.to_dense().to_sparse_csc(), coo.to_dense().to_sparse_bsr((1, 1))):
+        with pytest.raises(TypeError, match="sparse_coo or torch.sparse_csr"):
+            TF.as_feature_matrix(bad, "cpu")
+        with pytest.raises(TypeError, match="sparse_coo or torch.sparse_csr"):
+            TF.matvec(bad, torch.ones(2))
     # the implicit Kronecker design (ported with the factored random
     # effects) passes through ingest
     kd = TF.KroneckerDesign(torch.ones(3, 2), torch.ones(3, 4))

@@ -226,3 +226,113 @@ def test_sparse_shard_is_refused():
     with pytest.raises(TypeError, match="dense"):
         ChunkedGLMObjective(BY_NAME["logistic"], sp.csr_matrix(np.eye(4)), np.zeros(4),
                             ChunkPlan.build(4, chunk_rows=256), device="cpu")
+
+
+# -- a bf16 host X on the streamed chunk -------------------------------------
+
+@pytest.fixture(scope="module")
+def bf16x(tmp_path_factory):
+    return side.shared_results("bf16x", tmp_path_factory)
+
+
+def _bf16_objective(form: str, **kw):
+    """The bf16x problem's objective over a bf16 host X given as a CPU
+    torch.bfloat16 tensor, or as its raw uint16 bits made into one by
+    convert.bf16_from_numpy (the JAX side streams the same bits as an
+    ml_dtypes array)."""
+    from photon_ml_tpu_torch import convert
+    p = side.bf16x_problem()
+    xb = torch.from_numpy(p["x"]).to(torch.bfloat16)
+    x = (xb if form == "tensor"
+         else convert.bf16_from_numpy(xb.view(torch.int16).numpy().view(np.uint16)))
+    return p, ChunkedGLMObjective(
+        BY_NAME["logistic"], x, p["y"], ChunkPlan.build(side.BF16X_N, chunk_rows=side.BF16X_CHUNK),
+        weights=p["w"], offsets=p["o"], l2_weight=1.0, device="cpu", dtype=torch.float64, **kw)
+
+
+@pytest.mark.parametrize("form", ["tensor", "uint16"])
+def test_bf16_streamed_oracle_matches_jax(bf16x, form):
+    """value, value_and_gradient, hessian_vector, hessian_diagonal, scores
+    and one stochastic pass over a bf16 host X, against the JAX package's
+    ChunkedGLMObjective over an ml_dtypes bf16 X with the same bits: both
+    promote X exactly to the float64 coefficients, so float64 results
+    within REL (the stochastic pass's 2 epochs of coordinate steps within
+    SOLVE_REL)."""
+    p, obj = _bf16_objective(form)
+    assert obj.x.dtype == np.uint16 and obj.x.nbytes == 2 * side.BF16X_N * side.BF16X_D
+    c, v = _t(p["c"]), _t(p["v"])
+    got = {"value": obj.value(c), "hessian_vector": obj.hessian_vector(c, v),
+           "hessian_diagonal": obj.replace(offsets=None).hessian_diagonal(c),
+           "scores": obj.scores(c)}
+    got["vg_value"], got["vg_gradient"] = obj.value_and_gradient(c)
+    for name, t in got.items():
+        assert t.dtype == torch.float64, name
+        np.testing.assert_allclose(t.numpy(), bf16x[f"chunk/{name}"], rtol=REL, atol=REL,
+                                   err_msg=name)
+    c_out, entry = obj.stochastic_pass(c, local_epochs=side.BF16X_EPOCHS,
+                                       seed=side.BF16X_PASS_SEED)
+    np.testing.assert_allclose(c_out.numpy(), bf16x["chunk/stochastic_x"], rtol=SOLVE_REL,
+                               atol=SOLVE_REL)
+    np.testing.assert_allclose(entry.item(), float(bf16x["chunk/stochastic_entry"]),
+                               rtol=SOLVE_REL)
+
+
+def test_bf16_chunk_stages_two_bytes_per_element():
+    """The bits are staged as they are: a pass moves 2 bytes per X element
+    (the float32 objective over the same values, 8 in float64),
+    data/streaming.py's stream_row_bytes counts 2, and each staged chunk is
+    bf16 where the aggregators see it; a bf16 compute dtype is refused
+    (numpy holds no bf16 labels)."""
+    from photon_ml_tpu_torch.data.streaming import stream_row_bytes
+    p, obj = _bf16_objective("tensor")
+    wide = ChunkedGLMObjective(
+        BY_NAME["logistic"], torch.from_numpy(p["x"]).to(torch.bfloat16).float().numpy(),
+        p["y"], ChunkPlan.build(side.BF16X_N, chunk_rows=side.BF16X_CHUNK),
+        weights=p["w"], offsets=p["o"], device="cpu", dtype=torch.float64)
+    c = _t(p["c"])
+    obj.value_and_gradient(c)
+    wide.value_and_gradient(c)
+    rows = sum(s.padded_rows for s in obj.plan.chunks)
+    assert wide.stats.total_bytes - obj.stats.total_bytes == rows * side.BF16X_D * 6
+    assert stream_row_bytes(side.BF16X_D, obj.x.itemsize, 8) == 2 * side.BF16X_D + 32
+    seen = [ch["x"].dtype for _, ch in obj._stream()]
+    assert seen == [torch.bfloat16] * obj.plan.num_chunks
+    with pytest.raises(TypeError, match="float32 or float64"):
+        ChunkedGLMObjective(BY_NAME["logistic"], p["x"], p["y"], obj.plan, device="cpu",
+                            dtype=torch.bfloat16)
+
+
+def test_uint16_integer_block_streams_as_its_values():
+    """A plain uint16 host X is integer counts, not bf16 bits: the streamed
+    objective casts it to the compute dtype, as the resident path does
+    (features.as_feature_matrix), so a single-chunk pass equals the
+    resident GLMObjective's, and a FixedEffectCoordinate over a uint16
+    shard fits the same model streamed as resident (float64, rtol 1e-10:
+    the two sum in different orders)."""
+    from photon_ml_tpu_torch.data.game_data import GameDataset
+    from photon_ml_tpu_torch.game.config import FixedEffectCoordinateConfig
+    from photon_ml_tpu_torch.game.coordinates import FixedEffectCoordinate
+    from photon_ml_tpu_torch.ops.features import as_feature_matrix
+    from photon_ml_tpu_torch.ops.objective import GLMObjective
+    rng = np.random.default_rng(24)
+    n, d = 256, 5
+    x = rng.integers(0, 40_000, size=(n, d)).astype(np.uint16)
+    y = (rng.random(n) < 0.5).astype(np.float64)
+    c = _t(rng.normal(size=d) * 1e-5)
+    obj = ChunkedGLMObjective(BY_NAME["logistic"], x, y, ChunkPlan.build(n, chunk_rows=n),
+                              device="cpu", dtype=torch.float64)
+    assert obj.x.dtype == np.float64 and np.array_equal(obj.x, x.astype(np.float64))
+    res = GLMObjective(BY_NAME["logistic"], as_feature_matrix(x, "cpu", torch.float64), _t(y))
+    for a, b in zip(obj.value_and_gradient(c), res.value_and_gradient(c)):
+        assert torch.equal(a, b)
+    fits = {}
+    for mode in ("resident", "streamed"):
+        data = GameDataset(response=y, feature_shards={"g": x})
+        coord = FixedEffectCoordinate(
+            "fe", data, FixedEffectCoordinateConfig("g", memory_mode=mode, chunk_rows=64),
+            "logistic_regression", device="cpu", dtype=torch.float64)
+        assert coord.streamed == (mode == "streamed")
+        model, _ = coord.update(coord.initial_model(), torch.zeros(n, dtype=torch.float64))
+        fits[mode] = model.glm.coefficients.means
+    np.testing.assert_allclose(fits["streamed"].numpy(), fits["resident"].numpy(),
+                               rtol=1e-10, atol=1e-14)

@@ -155,11 +155,19 @@ def test_unported_options_raise(data):
         ttrain(x[:50], y[:50], TASK, device="cpu",
                optimizer_config=TOC(constraints=({"name": "a", "term": "",
                                                   "lowerBound": 0.0},)))
-    # scipy.sparse input is ported (tests/port/test_torch_sparse_training.py);
-    # torch's own sparse layouts (the JAX package's BCOO) are not
+    # scipy.sparse input is ported (tests/port/test_torch_sparse_training.py),
+    # and so are torch's sparse COO/CSR layouts (the JAX package's BCOO;
+    # tests/port/test_torch_bcoo.py): ingested as a PaddedSparse, the fit
+    # is the dense fit's; other sparse layouts raise TypeError
     coo = torch.from_numpy(x[:50]).to_sparse()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttrain(coo, y[:50], TASK, device="cpu")
+    sparse_fit = ttrain(coo, y[:50], TASK, device="cpu")[0]
+    dense_fit = ttrain(x[:50], y[:50], TASK, device="cpu")[0]
+    assert sparse_fit.result.iterations == dense_fit.result.iterations
+    np.testing.assert_allclose(sparse_fit.model.coefficients.means.numpy(),
+                               dense_fit.model.coefficients.means.numpy(),
+                               rtol=1e-9, atol=1e-10)
+    with pytest.raises(TypeError, match="sparse_coo or torch.sparse_csr"):
+        ttrain(torch.from_numpy(x[:50]).to_sparse_csc(), y[:50], TASK, device="cpu")
 
 
 def test_best_model_by_validation(data):
